@@ -1,0 +1,247 @@
+// Whole axial attention layer on the natural (B, T, H, W, C) layout, f32:
+//   out = proj(softmax(q . scale . k^T + relbias[h]) . v) + b_proj,
+//   [q k v] = LN(x) . Wqkv^T   (no qkv bias, no residual).
+//
+// Replaces prediff_tpu/ops/pallas_attention.py::fused_axial_attention_5d
+// (body _fused_layer_kernel_v4, plan axial_attention_plan).  Three launches:
+//   ln_gemm_kernel (LN fused)  qkv = LN(x) . Wqkv^T            (tokens, 3C) f32
+//   axial_core_kernel          one block per (cuboid, head)     (tokens, C)  f32
+//   ln_gemm_kernel (no LN)     out = attn . Wproj^T + b_proj    (tokens, C)  f32
+// The TPU kernel packed G cuboids into one dense R x R product under a
+// block-diagonal -inf mask to feed its 128 x 128 matrix unit; that trick is
+// not copied.  A cuboid here is vol rows that lie at a fixed stride in the
+// natural layout (axis T: H*W tokens, axis H: W tokens, axis W: 1 token), so
+// no reorder copy is made; vol (13, 16 or 8 on the UNet) need not be a
+// power of two and every loop masks its ragged edge.
+//
+// Bound: the two projections carry nearly all the operations (8 C^2 per
+// token); the core is ~vol/C of that.  At the UNet's shapes the layer is
+// bound by operations; the projections run on the tensor cores (WMMA bf16,
+// f32 accumulation), the small core on CUDA cores.  Operands are rounded to
+// bf16 at the TPU kernel's points: LN output, weights, q . scale, k, v, p and
+// the attention output.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <mma.h>
+#include <math.h>
+
+using namespace nvcuda;
+
+namespace {
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// out[M, N] = A'[M, K] . W[N, K]^T (+ bias[N]); A' = LN(A) when ln_w != null.
+constexpr int kBM = 64, kBN = 64, kBK = 32, kGemmThreads = 128;  // 4 warps, 32 x 32 each
+constexpr int kLdS = kBK + 8;   // bf16 staging row stride
+constexpr int kLdC = kBN + 4;   // f32 epilogue row stride
+
+__global__ void __launch_bounds__(kGemmThreads)
+ln_gemm_kernel(const float* __restrict__ A, const float* __restrict__ ln_w,
+               const float* __restrict__ ln_b, const float* __restrict__ W,
+               const float* __restrict__ bias, float* __restrict__ out, int M, int N, int K,
+               float eps) {
+  __shared__ __align__(32) __nv_bfloat16 As[kBM * kLdS];
+  __shared__ __align__(32) __nv_bfloat16 Ws[kBN * kLdS];
+  __shared__ __align__(32) float Cs[kBM * kLdC];
+  __shared__ float mu_s[kBM], rs_s[kBM];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const bool ln = ln_w != nullptr;
+
+  if (ln) {  // two-pass row statistics, one warp per row
+    for (int r = warp; r < kBM; r += kGemmThreads / 32) {
+      const int gr = m0 + r;
+      float mu = 0.f, rs = 0.f;
+      if (gr < M) {
+        const float* ar = A + (size_t)gr * K;
+        float s = 0.f;
+        for (int c = lane; c < K; c += 32) s += ar[c];
+        mu = warp_sum(s) / K;
+        float v = 0.f;
+        for (int c = lane; c < K; c += 32) {
+          float d = ar[c] - mu;
+          v += d * d;
+        }
+        rs = rsqrtf(warp_sum(v) / K + eps);
+      }
+      if (lane == 0) {
+        mu_s[r] = mu;
+        rs_s[r] = rs;
+      }
+    }
+    __syncthreads();
+  }
+
+  const int wr = warp >> 1, wc = warp & 1;  // this warp's 32 x 32 quadrant
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    for (int i = tid; i < kBM * kBK; i += kGemmThreads) {
+      const int r = i / kBK, k = i % kBK;
+      const int gr = m0 + r;
+      float a = 0.f;
+      if (gr < M) {
+        a = A[(size_t)gr * K + k0 + k];
+        if (ln) a = (a - mu_s[r]) * rs_s[r] * ln_w[k0 + k] + ln_b[k0 + k];
+      }
+      As[r * kLdS + k] = __float2bfloat16(a);
+    }
+    for (int i = tid; i < kBN * kBK; i += kGemmThreads) {
+      const int n = i / kBK, k = i % kBK;
+      Ws[n * kLdS + k] = __float2bfloat16(W[(size_t)(n0 + n) * K + k0 + k]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * kLdS + kk, kLdS);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], Ws + (wc * 32 + j * 16) * kLdS + kk, kLdS);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * kLdC + wc * 32 + j * 16, acc[i][j],
+                              kLdC, wmma::mem_row_major);
+  __syncthreads();
+  for (int i = tid; i < kBM * kBN; i += kGemmThreads) {
+    const int r = i / kBN, n = i % kBN;
+    const int gr = m0 + r;
+    if (gr < M) {
+      float v = Cs[r * kLdC + n];
+      if (bias != nullptr) v += bias[n0 + n];
+      out[(size_t)gr * N + n0 + n] = v;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// One block per (cuboid, head).  qkv (tokens, 3C) with q | k | v blocks of C;
+// bias (heads, vol, vol); attn (tokens, C) gets this head's hc columns.
+constexpr int kCoreThreads = 128;
+
+__global__ void __launch_bounds__(kCoreThreads)
+axial_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                  float* __restrict__ attn, int T, int H, int W, int C, int axis, int heads,
+                  float scale) {
+  extern __shared__ float sm[];
+  const int hc = C / heads;
+  const int ld = hc + 1;  // odd stride: rows fall in different banks
+  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
+  float* q = sm;
+  float* k = q + vol * ld;
+  float* v = k + vol * ld;
+  float* s = v + vol * ld;  // [vol][vol]
+  const int cub = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+
+  // token of row i = base + i * stride
+  size_t base;
+  int stride;
+  if (axis == 0) {
+    const int b = cub / (H * W);
+    base = (size_t)b * T * H * W + cub % (H * W);
+    stride = H * W;
+  } else if (axis == 1) {
+    const int b = cub / (T * W), r = cub % (T * W);
+    base = ((size_t)b * T + r / W) * H * W + r % W;
+    stride = W;
+  } else {
+    base = (size_t)cub * W;
+    stride = 1;
+  }
+
+  for (int i = tid; i < vol * hc; i += kCoreThreads) {
+    const int r = i / hc, c = i % hc;
+    const float* row = qkv + (base + (size_t)r * stride) * 3 * C + h * hc + c;
+    q[r * ld + c] = bf16_round(row[0] * scale);
+    k[r * ld + c] = bf16_round(row[C]);
+    v[r * ld + c] = bf16_round(row[2 * C]);
+  }
+  __syncthreads();
+  const float* bh = bias + (size_t)h * vol * vol;
+  for (int i = tid; i < vol * vol; i += kCoreThreads) {
+    const int r = i / vol, j = i % vol;
+    float acc = 0.f;
+    for (int c = 0; c < hc; ++c) acc += q[r * ld + c] * k[j * ld + c];
+    s[i] = acc + bh[i];
+  }
+  __syncthreads();
+  for (int r = tid; r < vol; r += kCoreThreads) {
+    float* sr = s + r * vol;
+    float m = -INFINITY;
+    for (int j = 0; j < vol; ++j) m = fmaxf(m, sr[j]);
+    float sum = 0.f;
+    for (int j = 0; j < vol; ++j) {
+      sr[j] = expf(sr[j] - m);
+      sum += sr[j];
+    }
+    for (int j = 0; j < vol; ++j) sr[j] = bf16_round(sr[j] / sum);
+  }
+  __syncthreads();
+  for (int i = tid; i < vol * hc; i += kCoreThreads) {
+    const int r = i / hc, c = i % hc;
+    float acc = 0.f;
+    for (int j = 0; j < vol; ++j) acc += s[r * vol + j] * v[j * ld + c];
+    attn[(base + (size_t)r * stride) * C + h * hc + c] = bf16_round(acc);
+  }
+}
+
+cudaError_t gemm(const float* A, const float* ln_w, const float* ln_b, const float* W,
+                 const float* bias, float* out, int M, int N, int K, float eps,
+                 cudaStream_t stream) {
+  dim3 grid(N / kBN, (M + kBM - 1) / kBM);
+  ln_gemm_kernel<<<grid, kGemmThreads, 0, stream>>>(A, ln_w, ln_b, W, bias, out, M, N, K, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x, qkv scratch (tokens, 3C), attn scratch (tokens, C), out (tokens, C).
+extern "C" int axial_attention_forward(const float* x, const float* ln_w, const float* ln_b,
+                                       const float* w_qkv, const float* bias,
+                                       const float* w_proj, const float* b_proj, float* qkv,
+                                       float* attn, float* out, int B, int T, int H, int W,
+                                       int C, int axis, int heads, float scale, float eps,
+                                       cudaStream_t stream) {
+  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || axis < 0 || axis > 2)
+    return (int)cudaErrorInvalidValue;
+  const int M = B * T * H * W;
+  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
+  const int hc = C / heads;
+  const size_t smem = sizeof(float) * (3 * vol * (hc + 1) + vol * vol);
+  err = cudaFuncSetAttribute(axial_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  axial_core_kernel<<<dim3(M / vol, heads), kCoreThreads, smem, stream>>>(
+      qkv, bias, attn, T, H, W, C, axis, heads, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)gemm(attn, nullptr, nullptr, w_proj, b_proj, out, M, C, C, eps, stream);
+}

@@ -1,0 +1,227 @@
+// Fused pre-norm FFN: out = x + W2 . gelu_erf(W1 . LN(x) + b1) + b2.
+//
+// Replaces prediff_tpu/ops/pallas_ffn.py::fused_ffn (_ffn_kernel).  Weights
+// in PyTorch layout: w1 (hidden, C), w2 (C, hidden), f32 in memory.
+//
+// Bound: at the UNet's shapes (3328 x 256 -> 1024, 832 x 512 -> 2048) the
+// work is ~3.5 GFLOP per call against ~7-13 MB of traffic, above the card's
+// ridge point, so it is bound by operations.  The design keeps the hidden
+// activation on chip as the TPU kernel did: a block owns kRows token rows;
+// it writes LN(x) to shared memory as bf16 once, then loops over the hidden
+// dimension in chunks of kChunk: h = gelu(LN . W1[chunk]^T + b1) lands in
+// shared memory (f32, then bf16), and out += h . W2[:, chunk]^T accumulates in
+// tensor-core fragments that stay in registers across all chunks.  Products
+// run on the tensor cores through WMMA 16x16x16 bf16 with f32 accumulation,
+// rounding at the TPU kernel's points (LN output, weights, hidden).  Weights
+// are converted to bf16 while they are staged into shared memory.  wgmma and
+// TMA are later work.
+//
+// Few token rows (832 at the 8x8 stage) give few row blocks, so the hidden
+// dimension is also split over a second grid axis: block (i, s) sums the
+// hidden chunks of split s into a partial (splits, M, C) f32 workspace, and
+// ffn_reduce_kernel adds the splits in a fixed order with b2 and the
+// residual.  No atomics: the result does not depend on block order.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <mma.h>
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int kRows = 32;      // token rows per block
+constexpr int kChunk = 64;     // hidden units per chunk
+constexpr int kKSlice = 64;    // depth of one W1 staging slice
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kPadB = 8;       // bf16 row padding (keeps 32-byte alignment)
+constexpr int kPadF = 4;       // f32 row padding
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int C>
+constexpr size_t smem_bytes() {
+  return sizeof(__nv_bfloat16) * (kRows * (C + kPadB) + kChunk * (kKSlice + kPadB) +
+                                   C * (kChunk + kPadB) + kRows * (kChunk + kPadB)) +
+         sizeof(float) * kRows * (kChunk + kPadF);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+ffn_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
+           const float* __restrict__ ln_b, const float* __restrict__ w1,
+           const float* __restrict__ b1, const float* __restrict__ w2,
+           float* __restrict__ part, int M, int hidden, int chunks_per_split, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int ldA = C + kPadB;
+  constexpr int ldW1 = kKSlice + kPadB;
+  constexpr int ldW2 = kChunk + kPadB;
+  constexpr int ldH = kChunk + kPadB;
+  constexpr int ldHf = kChunk + kPadF;
+  __nv_bfloat16* lnA = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][ldA]
+  __nv_bfloat16* w1s = lnA + kRows * ldA;                       // [kChunk][ldW1]  (n, k)
+  __nv_bfloat16* w2s = w1s + kChunk * ldW1;                     // [C][ldW2]       (n, k)
+  __nv_bfloat16* hb = w2s + C * ldW2;                           // [kRows][ldH]
+  float* hs = reinterpret_cast<float*>(hb + kRows * ldH);       // [kRows][ldHf]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.x * kRows;
+
+  // LayerNorm of this block's rows, one warp per row (two-pass mean / var).
+  for (int r = warp; r < kRows; r += kThreads / 32) {
+    const int gr = row0 + r;
+    __nv_bfloat16* dst = lnA + r * ldA;
+    if (gr < M) {
+      const float* xr = x + (size_t)gr * C;
+      float s = 0.f;
+      for (int c = lane; c < C; c += 32) s += xr[c];
+      const float mu = warp_sum(s) / C;
+      float v = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        float d = xr[c] - mu;
+        v += d * d;
+      }
+      const float rs = rsqrtf(warp_sum(v) / C + eps);
+      for (int c = lane; c < C; c += 32)
+        dst[c] = __float2bfloat16((xr[c] - mu) * rs * ln_w[c] + ln_b[c]);
+    } else {
+      for (int c = lane; c < C; c += 32) dst[c] = __float2bfloat16(0.f);
+    }
+  }
+
+  // This warp's output columns [warp * kCols, (warp + 1) * kCols), all rows.
+  constexpr int kCols = C / 8;
+  constexpr int kColTiles = kCols / 16;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][kColTiles];
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+    for (int ct = 0; ct < kColTiles; ++ct) wmma::fill_fragment(acc[rt][ct], 0.f);
+  // This warp's tile of the hidden chunk: rows hr*16, columns hc*16.
+  const int hr = warp >> 2, hc = warp & 3;
+  __syncthreads();
+
+  const int j_begin = blockIdx.y * chunks_per_split * kChunk;
+  const int j_end = min(hidden, j_begin + chunks_per_split * kChunk);
+  for (int j0 = j_begin; j0 < j_end; j0 += kChunk) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc;
+    wmma::fill_fragment(hacc, 0.f);
+    for (int k0 = 0; k0 < C; k0 += kKSlice) {
+      for (int i = tid; i < kChunk * kKSlice; i += kThreads) {
+        const int n = i / kKSlice, k = i % kKSlice;
+        w1s[n * ldW1 + k] = __float2bfloat16(w1[(size_t)(j0 + n) * C + k0 + k]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kKSlice; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
+        wmma::load_matrix_sync(a, lnA + hr * 16 * ldA + k0 + kk, ldA);
+        wmma::load_matrix_sync(b, w1s + hc * 16 * ldW1 + kk, ldW1);
+        wmma::mma_sync(hacc, a, b, hacc);
+      }
+      __syncthreads();
+    }
+    wmma::store_matrix_sync(hs + hr * 16 * ldHf + hc * 16, hacc, ldHf, wmma::mem_row_major);
+    for (int i = tid; i < C * kChunk; i += kThreads) {
+      const int n = i / kChunk, k = i % kChunk;
+      w2s[n * ldW2 + k] = __float2bfloat16(w2[(size_t)n * hidden + j0 + k]);
+    }
+    __syncthreads();
+    for (int i = tid; i < kRows * kChunk; i += kThreads) {
+      const int r = i / kChunk, k = i % kChunk;
+      const float h = hs[r * ldHf + k] + b1[j0 + k];
+      hb[r * ldH + k] = __float2bfloat16(h * 0.5f * (1.f + erff(h * 0.70710678118654752f)));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kChunk; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
+      wmma::load_matrix_sync(a0, hb + kk, ldH);
+      wmma::load_matrix_sync(a1, hb + 16 * ldH + kk, ldH);
+#pragma unroll
+      for (int ct = 0; ct < kColTiles; ++ct) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
+        wmma::load_matrix_sync(b, w2s + (warp * kCols + ct * 16) * ldW2 + kk, ldW2);
+        wmma::mma_sync(acc[0][ct], a0, b, acc[0][ct]);
+        wmma::mma_sync(acc[1][ct], a1, b, acc[1][ct]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // Epilogue through shared memory (the W2 staging area is free now): this
+  // split's partial sum, rows past M dropped.
+  constexpr int ldO = C + kPadF;
+  float* os = reinterpret_cast<float*>(w2s);
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+    for (int ct = 0; ct < kColTiles; ++ct)
+      wmma::store_matrix_sync(os + rt * 16 * ldO + warp * kCols + ct * 16, acc[rt][ct], ldO,
+                              wmma::mem_row_major);
+  __syncthreads();
+  float* dst = part + (size_t)blockIdx.y * M * C;
+  for (int i = tid; i < kRows * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    const int gr = row0 + r;
+    if (gr < M) dst[(size_t)gr * C + c] = os[r * ldO + c];
+  }
+}
+
+// out = x + (sum_s part[s] + b2), the splits added in order.
+__global__ void ffn_reduce_kernel(const float* __restrict__ x, const float* __restrict__ part,
+                                  const float* __restrict__ b2, float* __restrict__ out, int M,
+                                  int C, int splits) {
+  const size_t n = (size_t)M * C;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float acc = part[i];
+    for (int s = 1; s < splits; ++s) acc += part[s * n + i];
+    out[i] = x[i] + (acc + b2[i % C]);
+  }
+}
+
+template <int C>
+cudaError_t launch(const float* x, const float* ln_w, const float* ln_b, const float* w1,
+                   const float* b1, const float* w2, float* part, int M, int hidden,
+                   int splits, float eps, cudaStream_t stream) {
+  static_assert(sizeof(float) * kRows * (C + kPadF) <=
+                    sizeof(__nv_bfloat16) * C * (kChunk + kPadB),
+                "epilogue tile must fit the W2 staging area");
+  constexpr size_t bytes = smem_bytes<C>();
+  cudaError_t err = cudaFuncSetAttribute(ffn_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int chunks_per_split = hidden / kChunk / splits;
+  ffn_kernel<C><<<dim3((M + kRows - 1) / kRows, splits), kThreads, bytes, stream>>>(
+      x, ln_w, ln_b, w1, b1, w2, part, M, hidden, chunks_per_split, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// part: (splits, M, C) f32 workspace; splits must divide hidden / 64.
+extern "C" int ffn_forward(const float* x, const float* ln_w, const float* ln_b,
+                           const float* w1, const float* b1, const float* w2, const float* b2,
+                           float* part, float* out, int M, int C, int hidden, int splits,
+                           float eps, cudaStream_t stream) {
+  if (hidden % kChunk != 0 || splits < 1 || (hidden / kChunk) % splits != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (C) {
+    case 128: err = launch<128>(x, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream); break;
+    case 256: err = launch<256>(x, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream); break;
+    case 512: err = launch<512>(x, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 256;
+  const size_t want = ((size_t)M * C + threads - 1) / threads;
+  const int blocks = want < 1024 ? (int)want : 1024;
+  ffn_reduce_kernel<<<blocks, threads, 0, stream>>>(x, part, b2, out, M, C, splits);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,76 @@
+"""Factories: config tree -> models -> the sampling pipeline."""
+from typing import Dict, Optional
+
+import torch
+
+from .config import ConfigDict
+from .diffusion.latent_diffusion import LatentDiffusion
+from .diffusion.schedule import make_gaussian_schedule
+from .models.init import init_params_
+from .models.unet import CuboidTransformerUNet
+from .models.vae import AutoencoderKL
+from .utils.device import resolve_device
+from .utils.layout import parse_layout_shape
+
+
+def build_unet(cfg: ConfigDict) -> CuboidTransformerUNet:
+    m = cfg.model.latent_model
+    if m.num_global_vectors:
+        raise NotImplementedError("global vectors are not ported yet")
+    if m.self_pattern != "axial":
+        raise NotImplementedError(f"attention pattern '{m.self_pattern}' is not ported yet")
+    if m.ffn_activation != "gelu" or m.gated_ffn or m.time_embed_use_scale_shift_norm:
+        raise NotImplementedError("only the v1 FFN (gelu, not gated) and time embedding are ported")
+    return CuboidTransformerUNet(
+        input_shape=tuple(m.input_shape), target_shape=tuple(m.target_shape),
+        base_units=m.base_units, block_units=m.get("block_units"), scale_alpha=m.scale_alpha,
+        depth=list(m.depth), downsample=m.downsample, block_attn_patterns=m.self_pattern,
+        num_heads=m.num_heads, padding_type=m.padding_type,
+        upsample_kernel_size=m.upsample_kernel_size,
+        time_embed_channels_mult=m.time_embed_channels_mult,
+        unet_res_connect=m.unet_res_connect,
+    )
+
+
+def build_vae(cfg: ConfigDict) -> AutoencoderKL:
+    v = cfg.model.vae
+    return AutoencoderKL(
+        in_channels=v.in_channels, out_channels=v.out_channels,
+        block_out_channels=tuple(v.block_out_channels), layers_per_block=v.layers_per_block,
+        latent_channels=v.latent_channels, norm_num_groups=v.norm_num_groups,
+    )
+
+
+def build_pipeline(cfg: ConfigDict, with_alignment: bool = False, device=None,
+                   params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                   seed: int = 0) -> LatentDiffusion:
+    """The unguided sampling pipeline on ``device`` (default: the card).
+
+    ``params`` holds state_dicts under "unet" and "vae"; a model without one
+    takes the seeded v1 initialisation."""
+    if with_alignment:
+        raise NotImplementedError("knowledge-alignment guidance is not ported yet")
+    axes = parse_layout_shape(cfg.layout.layout)
+    if (axes["batch_axis"], axes["t_axis"]) != (0, 1):
+        raise ValueError(f"layout {cfg.layout.layout!r}: the port takes batch, then time first")
+    dev = resolve_device(device)
+    params = params or {}
+    gen = torch.Generator().manual_seed(seed)
+    models = {}
+    for key, build in (("unet", build_unet), ("vae", build_vae)):
+        model = build(cfg)
+        if key in params:
+            model.load_state_dict(params[key])
+        else:
+            init_params_(model, gen)
+        models[key] = model.to(dev).eval().requires_grad_(False)
+    d = cfg.model.diffusion
+    schedule = make_gaussian_schedule(
+        beta_schedule=d.beta_schedule, timesteps=d.timesteps, linear_start=d.linear_start,
+        linear_end=d.linear_end, cosine_s=d.cosine_s, given_betas=d.given_betas,
+        v_posterior=d.v_posterior, parameterization=d.parameterization)
+    return LatentDiffusion(
+        models["unet"], models["vae"], schedule, latent_shape=d.latent_shape,
+        cond_latent_shape=d.latent_cond_shape, parameterization=d.parameterization,
+        scale_factor=d.scale_factor, clip_denoised=d.clip_denoised,
+        decode_chunk_size=d.get("decode_chunk_size"), device=dev)

@@ -1,0 +1,186 @@
+"""UNet building blocks, channel-last NTHWC at every public function.
+
+Attribute paths follow the reference PyTorch names (``in_layers.0``,
+``emb_layers.1``, ``layer.0``...), so the weight bridge maps them to the
+flax tree mechanically (``utils/convert.py``).  Convolutions permute to
+NCTHW (channels-last strides, no copy) only around the ``conv3d`` call.
+"""
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.ffn import fused_ffn
+from ..ops.groupnorm import fused_groupnorm_silu
+from ..ops.pad import generalize_padding
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
+    """Sinusoidal embeddings: (B,) -> (B, dim); cos first."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=timesteps.device) / half)
+    args = timesteps.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+def conv_nthwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Apply an NC... convolution to a channel-last tensor."""
+    nd = x.ndim
+    to_first = (0, nd - 1) + tuple(range(1, nd - 1))
+    to_last = (0,) + tuple(range(2, nd)) + (1,)
+    return conv(x.permute(to_first)).permute(to_last)
+
+
+def nearest_resize_2d(x: torch.Tensor, H_new: int, W_new: int) -> torch.Tensor:
+    """Nearest resize over H, W of (..., H, W, C), index floor(i * in / out)."""
+    H, W = x.shape[-3], x.shape[-2]
+    h_idx = (torch.arange(H_new, device=x.device) * H) // H_new
+    w_idx = (torch.arange(W_new, device=x.device) * W) // W_new
+    return x[..., h_idx, :, :][..., w_idx, :]
+
+
+class PosEmbed(nn.Module):
+    """Learned T/H/W position embeddings ("t+h+w") added to (B,T,H,W,C)."""
+
+    def __init__(self, embed_dim: int, maxT: int, maxH: int, maxW: int, typ: str = "t+h+w"):
+        super().__init__()
+        if typ != "t+h+w":
+            raise NotImplementedError(f"pos embed '{typ}'")
+        self.embed_dim = embed_dim
+        self.T_embed = nn.Embedding(maxT, embed_dim)
+        self.H_embed = nn.Embedding(maxH, embed_dim)
+        self.W_embed = nn.Embedding(maxW, embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _, T, H, W, _ = x.shape
+        d = self.embed_dim
+        return (x + self.T_embed.weight[:T].reshape(T, 1, 1, d)
+                + self.H_embed.weight[:H].reshape(1, H, 1, d)
+                + self.W_embed.weight[:W].reshape(1, 1, W, d))
+
+
+class PositionwiseFFN(nn.Module):
+    """Pre-norm GELU FFN with residual, through the fused FFN kernel."""
+
+    def __init__(self, units: int, hidden_size: int, layer_norm_eps: float = 1e-5):
+        super().__init__()
+        self.eps = layer_norm_eps
+        self.layer_norm = nn.LayerNorm(units, eps=layer_norm_eps)
+        self.ffn_1 = nn.Linear(units, hidden_size)
+        self.ffn_2 = nn.Linear(hidden_size, units)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        C = x.shape[-1]
+        out = fused_ffn(x.reshape(-1, C).contiguous(), self.layer_norm.weight,
+                        self.layer_norm.bias, self.ffn_1.weight, self.ffn_1.bias,
+                        self.ffn_2.weight, self.ffn_2.bias, self.eps)
+        return out.reshape(x.shape)
+
+
+class PatchMerging3D(nn.Module):
+    """Fold a (dT,dH,dW) neighbourhood into channels, then LayerNorm + Linear."""
+
+    def __init__(self, dim: int, out_dim: int, downsample=(1, 2, 2), padding_type: str = "nearest"):
+        super().__init__()
+        self.downsample = tuple(downsample)
+        self.padding_type = padding_type
+        self.norm = nn.LayerNorm(self.downsample[0] * self.downsample[1] * self.downsample[2] * dim,
+                                 eps=1e-5)
+        self.reduction = nn.Linear(self.norm.normalized_shape[0], out_dim, bias=False)
+
+    @staticmethod
+    def get_out_shape(data_shape, downsample, out_dim):
+        T, H, W, _ = data_shape
+        pads = [(d - s % d) % d for s, d in zip((T, H, W), downsample)]
+        return ((T + pads[0]) // downsample[0], (H + pads[1]) // downsample[1],
+                (W + pads[2]) // downsample[2], out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, H, W, C = x.shape
+        dT, dH, dW = self.downsample
+        pad_t, pad_h, pad_w = (dT - T % dT) % dT, (dH - H % dH) % dH, (dW - W % dW) % dW
+        if pad_t or pad_h or pad_w:
+            x = generalize_padding(x, pad_t, pad_h, pad_w, self.padding_type)
+            T, H, W = T + pad_t, H + pad_h, W + pad_w
+        x = x.reshape(B, T // dT, dT, H // dH, dH, W // dW, dW, C)
+        x = x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(B, T // dT, H // dH, W // dW, dT * dH * dW * C)
+        return self.reduction(self.norm(x))
+
+
+class Upsample3DLayer(nn.Module):
+    """Nearest 2-D upsample to ``target_size`` + a k x k conv, per frame."""
+
+    def __init__(self, dim: int, out_dim: int, target_size, kernel_size: int = 3):
+        super().__init__()
+        self.target_size = tuple(target_size)
+        self.out_dim = out_dim
+        self.conv = nn.Conv2d(dim, out_dim, kernel_size, padding=kernel_size // 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, H, W, C = x.shape
+        Tt, Ht, Wt = self.target_size
+        if Tt != T:
+            raise ValueError("temporal upsampling is not supported")
+        x = nearest_resize_2d(x, Ht, Wt).reshape(B * T, Ht, Wt, C)
+        return conv_nthwc(self.conv, x).reshape(B, T, Ht, Wt, self.out_dim)
+
+
+class TimeEmbedLayer(nn.Module):
+    """Two-layer SiLU MLP over the sinusoidal timestep embedding."""
+
+    def __init__(self, base_channels: int, time_embed_channels: int):
+        super().__init__()
+        self.layer = nn.Sequential(nn.Linear(base_channels, time_embed_channels), nn.SiLU(),
+                                   nn.Linear(time_embed_channels, time_embed_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layer(x)
+
+
+class TimeEmbedResBlock(nn.Module):
+    """Residual block with the timestep embedding folded into its second
+    GroupNorm (the non-scale-shift path, no up/down resampling).  Both
+    GroupNorm+SiLU go through the GN kernel; the 3x3x3 convs are
+    ``conv3d``."""
+
+    def __init__(self, channels: int, out_channels: int = None, emb_channels: int = None,
+                 use_embed: bool = True, norm_groups: int = 32):
+        super().__init__()
+        out_channels = out_channels or channels
+        self.in_groups = norm_groups if channels % norm_groups == 0 else channels
+        self.out_groups = norm_groups if out_channels % norm_groups == 0 else out_channels
+        self.in_layers = nn.Sequential(nn.GroupNorm(self.in_groups, channels, eps=1e-5), nn.SiLU(),
+                                       nn.Conv3d(channels, out_channels, 3, padding=1))
+        self.use_embed = use_embed
+        if use_embed:
+            self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, out_channels))
+        # index 2 is the reference's dropout (inactive when sampling); it keeps
+        # the conv at out_layers.3, the name the weights carry
+        self.out_layers = nn.Sequential(nn.GroupNorm(self.out_groups, out_channels, eps=1e-5),
+                                        nn.SiLU(), nn.Identity(),
+                                        nn.Conv3d(out_channels, out_channels, 3, padding=1))
+        if out_channels == channels:
+            self.skip_connection = nn.Identity()
+        else:
+            self.skip_connection = nn.Conv3d(channels, out_channels, 1)
+
+    @staticmethod
+    def _gn_silu(norm: nn.GroupNorm, x: torch.Tensor, emb=None) -> torch.Tensor:
+        B, T, H, W, C = x.shape
+        y = fused_groupnorm_silu(x.reshape(B, T * H * W, C).contiguous(), norm.weight, norm.bias,
+                                 emb, norm.num_groups, norm.eps)
+        return y.reshape(x.shape)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor = None) -> torch.Tensor:
+        h = self._gn_silu(self.in_layers[0], x)
+        h = conv_nthwc(self.in_layers[2], h)
+        emb_out = self.emb_layers(emb).contiguous() if self.use_embed else None
+        h = self._gn_silu(self.out_layers[0], h, emb_out)
+        h = conv_nthwc(self.out_layers[3], h)
+        skip = x if isinstance(self.skip_connection, nn.Identity) else conv_nthwc(self.skip_connection, x)
+        return skip + h

@@ -1,0 +1,128 @@
+"""Earthformer cuboid-transformer UNet, the latent diffusion denoiser.
+
+Input: noisy latent x (B, T_out, H, W, C) and conditioning latent
+(B, T_in, H, W, C), concatenated along T with a 0/1 observation-indicator
+channel; output: the prediction over the last T_out frames.  NTHWC end to
+end.  Each stage's time block is one module called ``depth`` times, as in
+the JAX package, so those weights are shared the same way.  Global vectors
+are not ported yet.
+"""
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from .cuboid_attention import StackCuboidSelfAttentionBlock
+from .layers import (PatchMerging3D, PosEmbed, TimeEmbedLayer, TimeEmbedResBlock,
+                     Upsample3DLayer, timestep_embedding)
+from .patterns import CuboidSelfAttentionPatterns
+
+
+def round_to(dat: int, c: int) -> int:
+    return dat + (dat - dat % c) % c
+
+
+def _normalize_downsample(downsample) -> Tuple[int, int, int]:
+    if not isinstance(downsample, (tuple, list)):
+        return (1, downsample, downsample)
+    return tuple(downsample)
+
+
+def compute_block_units(base_units, num_blocks, downsample, scale_alpha):
+    downsample = _normalize_downsample(downsample)
+    return [round_to(base_units * int((max(downsample) ** scale_alpha) ** i), 4)
+            for i in range(num_blocks)]
+
+
+def compute_mem_shapes(data_shape, base_units, num_blocks, downsample, block_units):
+    """Per-stage (T, H, W, C) feature shapes after each patch merge."""
+    downsample = _normalize_downsample(downsample)
+    curr = tuple(data_shape[:3]) + (base_units,)
+    mem_shapes = [curr]
+    for i in range(num_blocks - 1):
+        curr = PatchMerging3D.get_out_shape(curr, downsample, block_units[i + 1])
+        mem_shapes.append(curr)
+    return mem_shapes
+
+
+class CuboidTransformerUNet(nn.Module):
+    def __init__(self, input_shape, target_shape, base_units: int = 128,
+                 block_units: Optional[Sequence[int]] = None, scale_alpha: float = 1.0,
+                 depth: Sequence[int] = (4, 4), downsample: Union[int, Tuple] = 2,
+                 block_attn_patterns: str = "axial", num_heads: int = 4,
+                 padding_type: str = "ignore", upsample_kernel_size: int = 3,
+                 time_embed_channels_mult: int = 4, unet_res_connect: bool = True):
+        super().__init__()
+        T_in, H_in, W_in, C_in = input_shape
+        T_out, H_out, W_out, C_out = target_shape
+        if (H_in, W_in, C_in) != (H_out, W_out, C_out):
+            raise ValueError("input and target latents must share H, W, C")
+        self.T_in = T_in
+        self.data_shape = (T_in + T_out, H_in, W_in, C_in + 1)  # +1 obs indicator
+        self.num_blocks = len(depth)
+        self.depth = list(depth)
+        self.unet_res_connect = unet_res_connect
+        downsample = _normalize_downsample(downsample)
+        if block_units is None:
+            block_units = compute_block_units(base_units, self.num_blocks, downsample, scale_alpha)
+        self.block_units = list(block_units)
+        mem_shapes = compute_mem_shapes(self.data_shape, base_units, self.num_blocks, downsample,
+                                        self.block_units)
+        self.mem_shapes = mem_shapes
+        pattern = CuboidSelfAttentionPatterns[block_attn_patterns]
+        tec = self.block_units[0] * time_embed_channels_mult
+
+        self.first_proj = TimeEmbedResBlock(self.data_shape[-1], base_units, use_embed=False)
+        self.pos_embed = PosEmbed(base_units, *self.data_shape[:3])
+        self.time_embed = TimeEmbedLayer(self.block_units[0], tec)
+
+        def stack(i):
+            cuboid_size, strategy, shift_size = pattern(mem_shapes[i])
+            return StackCuboidSelfAttentionBlock(mem_shapes[i][-1], num_heads, cuboid_size,
+                                                 shift_size, strategy)
+
+        def time_block(i):
+            return TimeEmbedResBlock(mem_shapes[i][-1], mem_shapes[i][-1], emb_channels=tec)
+
+        self.down_time_embed_blocks = nn.ModuleList(time_block(i) for i in range(self.num_blocks))
+        self.down_self_blocks = nn.ModuleList(
+            nn.ModuleList(stack(i) for _ in range(self.depth[i])) for i in range(self.num_blocks))
+        self.downsample_layers = nn.ModuleList(
+            PatchMerging3D(mem_shapes[i][-1], self.block_units[i + 1], downsample, padding_type)
+            for i in range(self.num_blocks - 1))
+        self.up_time_embed_blocks = nn.ModuleList(time_block(i) for i in range(self.num_blocks))
+        self.up_self_blocks = nn.ModuleList(
+            nn.ModuleList(stack(i) for _ in range(self.depth[i])) for i in range(self.num_blocks))
+        self.upsample_layers = nn.ModuleList(
+            Upsample3DLayer(mem_shapes[i + 1][-1], mem_shapes[i][-1], mem_shapes[i][:3],
+                            upsample_kernel_size)
+            for i in range(self.num_blocks - 1))
+        self.final_proj = nn.Linear(base_units, C_out)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        """x (B, T_out, H, W, C) noisy latent; t (B,); cond (B, T_in, H, W, C)."""
+        x = torch.cat([cond, x], dim=1)
+        obs = torch.zeros_like(x[..., :1])
+        obs[:, :self.T_in] = 1.0
+        x = self.first_proj(torch.cat([x, obs], dim=-1))
+        x = self.pos_embed(x)
+        t_emb = self.time_embed(timestep_embedding(t, self.block_units[0]).to(x.dtype))
+
+        res_connect = []
+        for i in range(self.num_blocks):
+            if i > 0:
+                x = self.downsample_layers[i - 1](x)
+            for j in range(self.depth[i]):
+                x = self.down_time_embed_blocks[i](x, t_emb)
+                x = self.down_self_blocks[i][j](x)
+            if self.unet_res_connect and i < self.num_blocks - 1:
+                res_connect.append(x)
+        for i in range(self.num_blocks - 1, -1, -1):
+            if self.unet_res_connect and i < self.num_blocks - 1:
+                x = x + res_connect[i]
+            for j in range(self.depth[i]):
+                x = self.up_time_embed_blocks[i](x, t_emb)
+                x = self.up_self_blocks[i][j](x)
+            if i > 0:
+                x = self.upsample_layers[i - 1](x)
+        return self.final_proj(x[:, self.T_in:])

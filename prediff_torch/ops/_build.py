@@ -1,0 +1,118 @@
+"""Builds the port's CUDA sources and loads them with ctypes.
+
+Each ``prediff_torch/csrc/<name>.cu`` has a plain C interface and compiles
+on its own with ``nvcc`` for ``sm_90a`` into ``<repo>/build/lib<name>_<hash>.so``
+(the hash is of the source, so an edited source builds anew).  Nothing is
+built when a module is imported: the first launch builds what it needs, and
+:func:`build_all` builds every source at once, one ``nvcc`` per source, all
+started together.
+"""
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+SOURCES = ("groupnorm", "ffn", "attention")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME unset): cannot build the kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile every missing library in parallel; raise on any failure.
+
+    Returns per source: wall seconds of its nvcc (0 if already built) and
+    the ptxas report (registers, shared memory, spills)."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, out, time.perf_counter())
+    report = {name: {"seconds": 0.0, "ptxas": ""} for name in names}
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return report
+
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use.
+
+    ``signatures`` maps each exported function to its ctypes argument types
+    (``P`` pointer or stream, ``I`` int, ``F`` float); each returns a CUDA
+    error code as int."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def require(kernel: str, specs) -> None:
+    """Raise unless each (name, tensor, shape) is a contiguous float32 CUDA
+    tensor of that shape: what the kernels take."""
+    for name, t, shape in specs:
+        if (t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous()
+                or tuple(t.shape) != tuple(shape)):
+            raise ValueError(f"{kernel} kernel: {name} must be a contiguous float32 CUDA tensor "
+                             f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"contiguous={t.is_contiguous()}")
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

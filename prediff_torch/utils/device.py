@@ -1,0 +1,31 @@
+"""Device selection and numerics for the port's entry points."""
+from typing import Optional, Union
+
+import torch
+
+
+def set_numerics() -> None:
+    """Full-f32 matrix products and convolutions on the card.
+
+    cuDNN runs f32 convolutions in TF32 by default (about three decimal
+    digits), which would make the card's forecast differ from the CPU's and
+    from the JAX reference by far more than the kernels' bf16 operand
+    rounding.  The hand-written kernels round their matmul operands to bf16
+    on purpose, at the same points as the TPU kernels; everything else stays
+    f32.  This is the one place the two switches are set."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """``None`` means the card.  Asking for CUDA on a host without one raises:
+    an entry point never carries on quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "prediff_torch runs on a CUDA device; none is available. "
+                "Pass device='cpu' to run the plain PyTorch versions on the CPU."
+            )
+        set_numerics()
+    return dev
