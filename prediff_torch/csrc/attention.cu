@@ -20,6 +20,22 @@
 // f32 accumulation), the small core on CUDA cores.  Operands are rounded to
 // bf16 at the TPU kernel's points: LN output, weights, q . scale, k, v, p and
 // the attention output.
+//
+// Input gradient (axial_attention_bwd_dx): replaces
+// pallas_attention.py::fused_axial_attention_5d_bwd_dx (body
+// _fused_layer_bwd_dx_kernel_v4), flash-style: nothing of the forward is
+// saved, everything is recomputed from x.  Five launches:
+//   ln_gemm_kernel (LN fused)  qkv   = LN(x) . Wqkv^T            (tokens, 3C)
+//   ln_gemm_kernel (W as K,N)  dattn = g . Wproj                 (tokens, C)
+//   axial_core_bwd_kernel      one block per (cuboid, head): s, p again,
+//                              ds = p (dp - rowsum(dp p)), dq dk dv   (tokens, 3C)
+//   ln_gemm_kernel (W as K,N)  dln   = dqkv . Wqkv               (tokens, C)
+//   ln_backward_kernel         dx = LayerNorm backward of dln, one warp per row
+// The three products carry 14 C^2 operations per token against ~12 C bytes,
+// so the gradient is bound by operations like the forward.  One block per
+// cuboid, as in the forward core, so no cross-cuboid mask is needed.
+// Rounding follows the TPU kernel: g, dattn, ds, p, q . scale, k, v, dqkv
+// and the weights are bf16 operands; p, dp, ds and every sum stay f32.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -41,6 +57,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---------------------------------------------------------------------------
 // out[M, N] = A'[M, K] . W[N, K]^T (+ bias[N]); A' = LN(A) when ln_w != null.
+// With w_kn != 0, W is stored as [K, N] instead: out = A' . W.
 constexpr int kBM = 64, kBN = 64, kBK = 32, kGemmThreads = 128;  // 4 warps, 32 x 32 each
 constexpr int kLdS = kBK + 8;   // bf16 staging row stride
 constexpr int kLdC = kBN + 4;   // f32 epilogue row stride
@@ -49,7 +66,7 @@ __global__ void __launch_bounds__(kGemmThreads)
 ln_gemm_kernel(const float* __restrict__ A, const float* __restrict__ ln_w,
                const float* __restrict__ ln_b, const float* __restrict__ W,
                const float* __restrict__ bias, float* __restrict__ out, int M, int N, int K,
-               float eps) {
+               int w_kn, float eps) {
   __shared__ __align__(32) __nv_bfloat16 As[kBM * kLdS];
   __shared__ __align__(32) __nv_bfloat16 Ws[kBN * kLdS];
   __shared__ __align__(32) float Cs[kBM * kLdC];
@@ -100,9 +117,16 @@ ln_gemm_kernel(const float* __restrict__ A, const float* __restrict__ ln_w,
       }
       As[r * kLdS + k] = __float2bfloat16(a);
     }
-    for (int i = tid; i < kBN * kBK; i += kGemmThreads) {
-      const int n = i / kBK, k = i % kBK;
-      Ws[n * kLdS + k] = __float2bfloat16(W[(size_t)(n0 + n) * K + k0 + k]);
+    if (w_kn) {
+      for (int i = tid; i < kBN * kBK; i += kGemmThreads) {
+        const int k = i / kBN, n = i % kBN;
+        Ws[n * kLdS + k] = __float2bfloat16(W[(size_t)(k0 + k) * N + n0 + n]);
+      }
+    } else {
+      for (int i = tid; i < kBN * kBK; i += kGemmThreads) {
+        const int n = i / kBK, k = i % kBK;
+        Ws[n * kLdS + k] = __float2bfloat16(W[(size_t)(n0 + n) * K + k0 + k]);
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -145,23 +169,9 @@ ln_gemm_kernel(const float* __restrict__ A, const float* __restrict__ ln_w,
 // bias (heads, vol, vol); attn (tokens, C) gets this head's hc columns.
 constexpr int kCoreThreads = 128;
 
-__global__ void __launch_bounds__(kCoreThreads)
-axial_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
-                  float* __restrict__ attn, int T, int H, int W, int C, int axis, int heads,
-                  float scale) {
-  extern __shared__ float sm[];
-  const int hc = C / heads;
-  const int ld = hc + 1;  // odd stride: rows fall in different banks
-  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
-  float* q = sm;
-  float* k = q + vol * ld;
-  float* v = k + vol * ld;
-  float* s = v + vol * ld;  // [vol][vol]
-  const int cub = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-
-  // token of row i = base + i * stride
-  size_t base;
-  int stride;
+// Token of row i of cuboid `cub` along `axis`: base + i * stride.
+__device__ __forceinline__ void cuboid_rows(int cub, int T, int H, int W, int axis, size_t& base,
+                                            int& stride) {
   if (axis == 0) {
     const int b = cub / (H * W);
     base = (size_t)b * T * H * W + cub % (H * W);
@@ -174,16 +184,13 @@ axial_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
     base = (size_t)cub * W;
     stride = 1;
   }
+}
 
-  for (int i = tid; i < vol * hc; i += kCoreThreads) {
-    const int r = i / hc, c = i % hc;
-    const float* row = qkv + (base + (size_t)r * stride) * 3 * C + h * hc + c;
-    q[r * ld + c] = bf16_round(row[0] * scale);
-    k[r * ld + c] = bf16_round(row[C]);
-    v[r * ld + c] = bf16_round(row[2 * C]);
-  }
-  __syncthreads();
-  const float* bh = bias + (size_t)h * vol * vol;
+// s = q . k^T + bias[h] into s[vol][vol], then softmax by rows in place (f32).
+__device__ __forceinline__ void scores_softmax(const float* q, const float* k,
+                                               const float* __restrict__ bh, float* s, int vol,
+                                               int hc, int ld) {
+  const int tid = threadIdx.x;
   for (int i = tid; i < vol * vol; i += kCoreThreads) {
     const int r = i / vol, j = i % vol;
     float acc = 0.f;
@@ -200,22 +207,144 @@ axial_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
       sr[j] = expf(sr[j] - m);
       sum += sr[j];
     }
-    for (int j = 0; j < vol; ++j) sr[j] = bf16_round(sr[j] / sum);
+    for (int j = 0; j < vol; ++j) sr[j] /= sum;
   }
   __syncthreads();
+}
+
+__global__ void __launch_bounds__(kCoreThreads)
+axial_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                  float* __restrict__ attn, int T, int H, int W, int C, int axis, int heads,
+                  float scale) {
+  extern __shared__ float sm[];
+  const int hc = C / heads;
+  const int ld = hc + 1;  // odd stride: rows fall in different banks
+  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
+  float* q = sm;
+  float* k = q + vol * ld;
+  float* v = k + vol * ld;
+  float* s = v + vol * ld;  // [vol][vol]
+  const int cub = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  size_t base;
+  int stride;
+  cuboid_rows(cub, T, H, W, axis, base, stride);
+
+  for (int i = tid; i < vol * hc; i += kCoreThreads) {
+    const int r = i / hc, c = i % hc;
+    const float* row = qkv + (base + (size_t)r * stride) * 3 * C + h * hc + c;
+    q[r * ld + c] = bf16_round(row[0] * scale);
+    k[r * ld + c] = bf16_round(row[C]);
+    v[r * ld + c] = bf16_round(row[2 * C]);
+  }
+  __syncthreads();
+  scores_softmax(q, k, bias + (size_t)h * vol * vol, s, vol, hc, ld);
   for (int i = tid; i < vol * hc; i += kCoreThreads) {
     const int r = i / hc, c = i % hc;
     float acc = 0.f;
-    for (int j = 0; j < vol; ++j) acc += s[r * vol + j] * v[j * ld + c];
+    for (int j = 0; j < vol; ++j) acc += bf16_round(s[r * vol + j]) * v[j * ld + c];
     attn[(base + (size_t)r * stride) * C + h * hc + c] = bf16_round(acc);
   }
 }
 
+// Gradient of the core, one block per (cuboid, head).  qkv (tokens, 3C) and
+// dattn (tokens, C) in; dqkv (tokens, 3C) out: dq | dk | dv blocks of C.
+__global__ void __launch_bounds__(kCoreThreads)
+axial_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
+                      const float* __restrict__ bias, float* __restrict__ dqkv, int T, int H,
+                      int W, int C, int axis, int heads, float scale) {
+  extern __shared__ float sm[];
+  const int hc = C / heads;
+  const int ld = hc + 1;
+  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
+  float* q = sm;             // bf16(q . scale)
+  float* k = q + vol * ld;   // bf16(k)
+  float* v = k + vol * ld;   // bf16(v)
+  float* dO = v + vol * ld;  // bf16(dattn)
+  float* p = dO + vol * ld;  // [vol][vol] softmax
+  float* ds = p + vol * vol; // [vol][vol] dp, then bf16(ds)
+  const int cub = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  size_t base;
+  int stride;
+  cuboid_rows(cub, T, H, W, axis, base, stride);
+
+  for (int i = tid; i < vol * hc; i += kCoreThreads) {
+    const int r = i / hc, c = i % hc;
+    const size_t tok = base + (size_t)r * stride;
+    const float* row = qkv + tok * 3 * C + h * hc + c;
+    q[r * ld + c] = bf16_round(row[0] * scale);
+    k[r * ld + c] = bf16_round(row[C]);
+    v[r * ld + c] = bf16_round(row[2 * C]);
+    dO[r * ld + c] = bf16_round(dattn[tok * C + h * hc + c]);
+  }
+  __syncthreads();
+  scores_softmax(q, k, bias + (size_t)h * vol * vol, p, vol, hc, ld);
+  for (int i = tid; i < vol * vol; i += kCoreThreads) {  // dp = dO . v^T
+    const int r = i / vol, j = i % vol;
+    float acc = 0.f;
+    for (int c = 0; c < hc; ++c) acc += dO[r * ld + c] * v[j * ld + c];
+    ds[i] = acc;
+  }
+  __syncthreads();
+  for (int r = tid; r < vol; r += kCoreThreads) {  // ds = p (dp - rowsum(dp p))
+    float dot = 0.f;
+    for (int j = 0; j < vol; ++j) dot += ds[r * vol + j] * p[r * vol + j];
+    for (int j = 0; j < vol; ++j)
+      ds[r * vol + j] = bf16_round(p[r * vol + j] * (ds[r * vol + j] - dot));
+  }
+  __syncthreads();
+  for (int i = tid; i < vol * vol; i += kCoreThreads) p[i] = bf16_round(p[i]);
+  __syncthreads();
+  for (int i = tid; i < vol * hc; i += kCoreThreads) {
+    const int r = i / hc, c = i % hc;  // r: query row for dq, key row for dk / dv
+    float aq = 0.f, ak = 0.f, av = 0.f;
+    for (int j = 0; j < vol; ++j) {
+      aq += ds[r * vol + j] * k[j * ld + c];
+      ak += ds[j * vol + r] * q[j * ld + c];
+      av += p[j * vol + r] * dO[j * ld + c];
+    }
+    float* out = dqkv + (base + (size_t)r * stride) * 3 * C + h * hc + c;
+    out[0] = aq * scale;
+    out[C] = ak;
+    out[2 * C] = av;
+  }
+}
+
+// dx = LayerNorm backward of dln for the rows of x, one warp per row:
+//   dnhat = dln * ln_w,  dx = rs * (dnhat - mean(dnhat) - nhat * mean(dnhat * nhat)).
+__global__ void ln_backward_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
+                                   const float* __restrict__ dln, float* __restrict__ dx, int M,
+                                   int C, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= M) return;
+  const float* xr = x + (size_t)row * C;
+  const float* dr = dln + (size_t)row * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += xr[c];
+  const float mu = warp_sum(s) / C;
+  float v = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    float d = xr[c] - mu;
+    v += d * d;
+  }
+  const float rs = rsqrtf(warp_sum(v) / C + eps);
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float dnhat = dr[c] * ln_w[c];
+    s1 += dnhat;
+    s2 += dnhat * (xr[c] - mu) * rs;
+  }
+  const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+  for (int c = lane; c < C; c += 32)
+    dx[(size_t)row * C + c] = rs * (dr[c] * ln_w[c] - m1 - (xr[c] - mu) * rs * m2);
+}
+
 cudaError_t gemm(const float* A, const float* ln_w, const float* ln_b, const float* W,
-                 const float* bias, float* out, int M, int N, int K, float eps,
+                 const float* bias, float* out, int M, int N, int K, int w_kn, float eps,
                  cudaStream_t stream) {
   dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-  ln_gemm_kernel<<<grid, kGemmThreads, 0, stream>>>(A, ln_w, ln_b, W, bias, out, M, N, K, eps);
+  ln_gemm_kernel<<<grid, kGemmThreads, 0, stream>>>(A, ln_w, ln_b, W, bias, out, M, N, K, w_kn,
+                                                    eps);
   return cudaGetLastError();
 }
 
@@ -231,7 +360,7 @@ extern "C" int axial_attention_forward(const float* x, const float* ln_w, const 
   if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || axis < 0 || axis > 2)
     return (int)cudaErrorInvalidValue;
   const int M = B * T * H * W;
-  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, eps, stream);
+  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream);
   if (err != cudaSuccess) return (int)err;
   const int vol = axis == 0 ? T : (axis == 1 ? H : W);
   const int hc = C / heads;
@@ -243,5 +372,38 @@ extern "C" int axial_attention_forward(const float* x, const float* ln_w, const 
       qkv, bias, attn, T, H, W, C, axis, heads, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)gemm(attn, nullptr, nullptr, w_proj, b_proj, out, M, C, C, eps, stream);
+  return (int)gemm(attn, nullptr, nullptr, w_proj, b_proj, out, M, C, C, 0, eps, stream);
+}
+
+// dx of the layer for the output cotangent g (tokens, C); scratch qkv and
+// dqkv (tokens, 3C), dattn and dln (tokens, C).
+extern "C" int axial_attention_bwd_dx(const float* x, const float* g, const float* ln_w,
+                                      const float* ln_b, const float* w_qkv, const float* bias,
+                                      const float* w_proj, float* qkv, float* dattn,
+                                      float* dqkv, float* dln, float* dx, int B, int T, int H,
+                                      int W, int C, int axis, int heads, float scale, float eps,
+                                      cudaStream_t stream) {
+  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || axis < 0 || axis > 2)
+    return (int)cudaErrorInvalidValue;
+  const int M = B * T * H * W;
+  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gemm(g, nullptr, nullptr, w_proj, nullptr, dattn, M, C, C, 1, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
+  const int hc = C / heads;
+  const size_t smem = sizeof(float) * (4 * vol * (hc + 1) + 2 * vol * vol);
+  err = cudaFuncSetAttribute(axial_core_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  axial_core_bwd_kernel<<<dim3(M / vol, heads), kCoreThreads, smem, stream>>>(
+      qkv, dattn, bias, dqkv, T, H, W, C, axis, heads, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = gemm(dqkv, nullptr, nullptr, w_qkv, nullptr, dln, M, C, 3 * C, 1, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kRowsPerBlock = 8;  // one warp per row
+  ln_backward_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(
+      x, ln_w, dln, dx, M, C, eps);
+  return (int)cudaGetLastError();
 }

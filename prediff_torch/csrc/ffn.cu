@@ -21,6 +21,19 @@
 // hidden chunks of split s into a partial (splits, M, C) f32 workspace, and
 // ffn_reduce_kernel adds the splits in a fixed order with b2 and the
 // residual.  No atomics: the result does not depend on block order.
+//
+// Input gradient (ffn_bwd_dx): replaces pallas_ffn.py::fused_ffn_bwd_dx
+// (_ffn_bwd_dx_kernel), flash-style: nothing of the forward is saved, the
+// hidden activation is recomputed chunk by chunk and never leaves the chip.
+// Per chunk of 64 hidden units: h = LN(x) . W1c^T + b1 and da = g . W2c
+// (two products over C), dh = da * gelu'(h) in bf16, dln += dh . W1c.  The
+// W1 chunk is staged once and read both ways (as W1c^T and as W1c).  Three
+// products of 2 M C hidden each: bound by operations at the alignment
+// shapes, like the forward.  The hidden dimension is split over a second
+// grid axis as in the forward; ffn_bwd_reduce_kernel adds the splits and
+// applies the LayerNorm backward, which needs the whole dln row, then adds
+// the residual's g.  Rounding follows the TPU kernel: LN(x), g, the weights
+// and dh are bf16 operands; h, gelu' and every sum stay f32.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -40,6 +53,37 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// LayerNorm of kRows rows of x into bf16 rows of lnA (zeros past M), one
+// warp per row, two-pass mean / var.
+template <int C>
+__device__ __forceinline__ void ln_rows_bf16(const float* __restrict__ x,
+                                             const float* __restrict__ ln_w,
+                                             const float* __restrict__ ln_b,
+                                             __nv_bfloat16* lnA, int ldA, int row0, int M,
+                                             float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < kRows; r += kThreads / 32) {
+    const int gr = row0 + r;
+    __nv_bfloat16* dst = lnA + r * ldA;
+    if (gr < M) {
+      const float* xr = x + (size_t)gr * C;
+      float s = 0.f;
+      for (int c = lane; c < C; c += 32) s += xr[c];
+      const float mu = warp_sum(s) / C;
+      float v = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        float d = xr[c] - mu;
+        v += d * d;
+      }
+      const float rs = rsqrtf(warp_sum(v) / C + eps);
+      for (int c = lane; c < C; c += 32)
+        dst[c] = __float2bfloat16((xr[c] - mu) * rs * ln_w[c] + ln_b[c]);
+    } else {
+      for (int c = lane; c < C; c += 32) dst[c] = __float2bfloat16(0.f);
+    }
+  }
 }
 
 template <int C>
@@ -67,30 +111,9 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
   __nv_bfloat16* hb = w2s + C * ldW2;                           // [kRows][ldH]
   float* hs = reinterpret_cast<float*>(hb + kRows * ldH);       // [kRows][ldHf]
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int row0 = blockIdx.x * kRows;
-
-  // LayerNorm of this block's rows, one warp per row (two-pass mean / var).
-  for (int r = warp; r < kRows; r += kThreads / 32) {
-    const int gr = row0 + r;
-    __nv_bfloat16* dst = lnA + r * ldA;
-    if (gr < M) {
-      const float* xr = x + (size_t)gr * C;
-      float s = 0.f;
-      for (int c = lane; c < C; c += 32) s += xr[c];
-      const float mu = warp_sum(s) / C;
-      float v = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        float d = xr[c] - mu;
-        v += d * d;
-      }
-      const float rs = rsqrtf(warp_sum(v) / C + eps);
-      for (int c = lane; c < C; c += 32)
-        dst[c] = __float2bfloat16((xr[c] - mu) * rs * ln_w[c] + ln_b[c]);
-    } else {
-      for (int c = lane; c < C; c += 32) dst[c] = __float2bfloat16(0.f);
-    }
-  }
+  ln_rows_bf16<C>(x, ln_w, ln_b, lnA, ldA, row0, M, eps);
 
   // This warp's output columns [warp * kCols, (warp + 1) * kCols), all rows.
   constexpr int kCols = C / 8;
@@ -186,6 +209,180 @@ __global__ void ffn_reduce_kernel(const float* __restrict__ x, const float* __re
 }
 
 template <int C>
+constexpr size_t bwd_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (2 * kRows * (C + kPadB) + kChunk * (C + kPadB) +
+                                   C * (kChunk + kPadB) + kRows * (kChunk + kPadB)) +
+         sizeof(float) * 2 * kRows * (kChunk + kPadF);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                  const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+                  const float* __restrict__ w1, const float* __restrict__ b1,
+                  const float* __restrict__ w2, float* __restrict__ part, int M, int hidden,
+                  int chunks_per_split, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int ldA = C + kPadB;
+  constexpr int ldW2 = kChunk + kPadB;
+  constexpr int ldH = kChunk + kPadB;
+  constexpr int ldHf = kChunk + kPadF;
+  __nv_bfloat16* lnA = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][ldA]
+  __nv_bfloat16* gA = lnA + kRows * ldA;                         // [kRows][ldA]
+  __nv_bfloat16* w1c = gA + kRows * ldA;                         // [kChunk][ldA]  (j, c)
+  __nv_bfloat16* w2c = w1c + kChunk * ldA;                       // [C][ldW2]      (c, j)
+  __nv_bfloat16* hb = w2c + C * ldW2;                            // [kRows][ldH]   dh
+  float* hs = reinterpret_cast<float*>(hb + kRows * ldH);        // [kRows][ldHf]  h
+  float* das = hs + kRows * ldHf;                                // [kRows][ldHf]  da
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int row0 = blockIdx.x * kRows;
+  ln_rows_bf16<C>(x, ln_w, ln_b, lnA, ldA, row0, M, eps);
+  for (int i = tid; i < kRows * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    const int gr = row0 + r;
+    gA[r * ldA + c] = __float2bfloat16(gr < M ? g[(size_t)gr * C + c] : 0.f);
+  }
+
+  // dln: this warp's output columns [warp * kCols, (warp + 1) * kCols), all rows.
+  constexpr int kCols = C / 8;
+  constexpr int kColTiles = kCols / 16;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][kColTiles];
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+    for (int ct = 0; ct < kColTiles; ++ct) wmma::fill_fragment(acc[rt][ct], 0.f);
+  const int hr = warp >> 2, hc = warp & 3;  // this warp's 16 x 16 tile of the chunk
+  __syncthreads();
+
+  const int j_begin = blockIdx.y * chunks_per_split * kChunk;
+  const int j_end = min(hidden, j_begin + chunks_per_split * kChunk);
+  for (int j0 = j_begin; j0 < j_end; j0 += kChunk) {
+    for (int i = tid; i < kChunk * C; i += kThreads) {
+      const int n = i / C, k = i % C;
+      w1c[n * ldA + k] = __float2bfloat16(w1[(size_t)(j0 + n) * C + k]);
+    }
+    for (int i = tid; i < C * kChunk; i += kThreads) {
+      const int n = i / kChunk, k = i % kChunk;
+      w2c[n * ldW2 + k] = __float2bfloat16(w2[(size_t)n * hidden + j0 + k]);
+    }
+    __syncthreads();
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc, dacc;
+    wmma::fill_fragment(hacc, 0.f);
+    wmma::fill_fragment(dacc, 0.f);
+#pragma unroll 4
+    for (int kk = 0; kk < C; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bt;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
+      wmma::load_matrix_sync(a, lnA + hr * 16 * ldA + kk, ldA);
+      wmma::load_matrix_sync(bt, w1c + hc * 16 * ldA + kk, ldA);
+      wmma::mma_sync(hacc, a, bt, hacc);
+      wmma::load_matrix_sync(a, gA + hr * 16 * ldA + kk, ldA);
+      wmma::load_matrix_sync(b, w2c + kk * ldW2 + hc * 16, ldW2);
+      wmma::mma_sync(dacc, a, b, dacc);
+    }
+    wmma::store_matrix_sync(hs + hr * 16 * ldHf + hc * 16, hacc, ldHf, wmma::mem_row_major);
+    wmma::store_matrix_sync(das + hr * 16 * ldHf + hc * 16, dacc, ldHf, wmma::mem_row_major);
+    __syncthreads();
+    for (int i = tid; i < kRows * kChunk; i += kThreads) {
+      const int r = i / kChunk, k = i % kChunk;
+      const float h = hs[r * ldHf + k] + b1[j0 + k];
+      const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
+      const float pdf = expf(-0.5f * h * h) * 0.39894228040143268f;
+      hb[r * ldH + k] = __float2bfloat16(das[r * ldHf + k] * (cdf + h * pdf));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kChunk; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
+      wmma::load_matrix_sync(a0, hb + kk, ldH);
+      wmma::load_matrix_sync(a1, hb + 16 * ldH + kk, ldH);
+#pragma unroll
+      for (int ct = 0; ct < kColTiles; ++ct) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
+        wmma::load_matrix_sync(b, w1c + kk * ldA + warp * kCols + ct * 16, ldA);
+        wmma::mma_sync(acc[0][ct], a0, b, acc[0][ct]);
+        wmma::mma_sync(acc[1][ct], a1, b, acc[1][ct]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // This split's partial dln through shared memory (the W2 staging area).
+  constexpr int ldO = C + kPadF;
+  float* os = reinterpret_cast<float*>(w2c);
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+    for (int ct = 0; ct < kColTiles; ++ct)
+      wmma::store_matrix_sync(os + rt * 16 * ldO + warp * kCols + ct * 16, acc[rt][ct], ldO,
+                              wmma::mem_row_major);
+  __syncthreads();
+  float* dst = part + (size_t)blockIdx.y * M * C;
+  for (int i = tid; i < kRows * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    const int gr = row0 + r;
+    if (gr < M) dst[(size_t)gr * C + c] = os[r * ldO + c];
+  }
+}
+
+// dx = g + LayerNorm backward of dln = sum_s part[s], one warp per row:
+//   dnhat = dln * ln_w,  dx_ln = rs * (dnhat - mean(dnhat) - nhat * mean(dnhat * nhat)).
+__global__ void ffn_bwd_reduce_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                                      const float* __restrict__ ln_w,
+                                      const float* __restrict__ part, float* __restrict__ dx,
+                                      int M, int C, int splits, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= M) return;
+  const size_t n = (size_t)M * C;
+  const float* xr = x + (size_t)row * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += xr[c];
+  const float mu = warp_sum(s) / C;
+  float v = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    float d = xr[c] - mu;
+    v += d * d;
+  }
+  const float rs = rsqrtf(warp_sum(v) / C + eps);
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    float dln = 0.f;
+    for (int sp = 0; sp < splits; ++sp) dln += part[sp * n + (size_t)row * C + c];
+    const float dnhat = dln * ln_w[c];
+    s1 += dnhat;
+    s2 += dnhat * (xr[c] - mu) * rs;
+  }
+  const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+  for (int c = lane; c < C; c += 32) {
+    float dln = 0.f;
+    for (int sp = 0; sp < splits; ++sp) dln += part[sp * n + (size_t)row * C + c];
+    const float nhat = (xr[c] - mu) * rs;
+    dx[(size_t)row * C + c] = g[(size_t)row * C + c] + rs * (dln * ln_w[c] - m1 - nhat * m2);
+  }
+}
+
+template <int C>
+cudaError_t launch_bwd(const float* x, const float* g, const float* ln_w, const float* ln_b,
+                       const float* w1, const float* b1, const float* w2, float* part, int M,
+                       int hidden, int splits, float eps, cudaStream_t stream) {
+  static_assert(sizeof(float) * kRows * (C + kPadF) <=
+                    sizeof(__nv_bfloat16) * C * (kChunk + kPadB),
+                "epilogue tile must fit the W2 staging area");
+  constexpr size_t bytes = bwd_smem_bytes<C>();
+  static_assert(bytes <= 232448, "exceeds the 227 KB of shared memory a block can use");
+  cudaError_t err = cudaFuncSetAttribute(ffn_bwd_dx_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int chunks_per_split = hidden / kChunk / splits;
+  ffn_bwd_dx_kernel<C><<<dim3((M + kRows - 1) / kRows, splits), kThreads, bytes, stream>>>(
+      x, g, ln_w, ln_b, w1, b1, w2, part, M, hidden, chunks_per_split, eps);
+  return cudaGetLastError();
+}
+
+template <int C>
 cudaError_t launch(const float* x, const float* ln_w, const float* ln_b, const float* w1,
                    const float* b1, const float* w2, float* part, int M, int hidden,
                    int splits, float eps, cudaStream_t stream) {
@@ -223,5 +420,27 @@ extern "C" int ffn_forward(const float* x, const float* ln_w, const float* ln_b,
   const size_t want = ((size_t)M * C + threads - 1) / threads;
   const int blocks = want < 1024 ? (int)want : 1024;
   ffn_reduce_kernel<<<blocks, threads, 0, stream>>>(x, part, b2, out, M, C, splits);
+  return (int)cudaGetLastError();
+}
+
+// dx of the fused FFN for the output cotangent g; part: (splits, M, C) f32
+// workspace; splits must divide hidden / 64.
+extern "C" int ffn_bwd_dx(const float* x, const float* g, const float* ln_w, const float* ln_b,
+                          const float* w1, const float* b1, const float* w2, float* part,
+                          float* dx, int M, int C, int hidden, int splits, float eps,
+                          cudaStream_t stream) {
+  if (hidden % kChunk != 0 || splits < 1 || (hidden / kChunk) % splits != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (C) {
+    case 128: err = launch_bwd<128>(x, g, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream); break;
+    case 256: err = launch_bwd<256>(x, g, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream); break;
+    case 512: err = launch_bwd<512>(x, g, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kRowsPerBlock = 8;  // one warp per row
+  ffn_bwd_reduce_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0,
+                          stream>>>(x, g, ln_w, part, dx, M, C, splits, eps);
   return (int)cudaGetLastError();
 }

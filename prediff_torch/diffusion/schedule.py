@@ -1,5 +1,6 @@
 """DDPM noise-schedule math: every buffer derived in float64 numpy, then
-cast once to f32 tensors on the caller's device."""
+cast once to f32 tensors on the caller's device; the DDIM subsequence and
+its per-step parameters."""
 import math
 from dataclasses import dataclass, fields
 from typing import Optional, Sequence
@@ -114,6 +115,30 @@ def make_gaussian_schedule(
         lvlb_weights=cast(lvlb_weights),
         num_timesteps=int(num_timesteps),
     )
+
+
+def make_ddim_timesteps(ddim_discr_method: str, num_ddim_timesteps: int,
+                        num_ddpm_timesteps: int) -> np.ndarray:
+    """DDIM timestep subsequence, offset by +1 as in the reference."""
+    if ddim_discr_method == "uniform":
+        c = num_ddpm_timesteps // num_ddim_timesteps
+        ddim_timesteps = np.asarray(list(range(0, num_ddpm_timesteps, c)))
+    elif ddim_discr_method == "quad":
+        ddim_timesteps = (
+            (np.linspace(0, np.sqrt(num_ddpm_timesteps * 0.8), num_ddim_timesteps)) ** 2
+        ).astype(int)
+    else:
+        raise NotImplementedError(f"unknown ddim discretization '{ddim_discr_method}'")
+    return ddim_timesteps + 1
+
+
+def make_ddim_sampling_parameters(alphacums: np.ndarray, ddim_timesteps: np.ndarray,
+                                  eta: float):
+    """Per-step (sigma, alpha, alpha_prev) for DDIM, float64 numpy."""
+    alphas = alphacums[ddim_timesteps]
+    alphas_prev = np.asarray([alphacums[0]] + alphacums[ddim_timesteps[:-1]].tolist())
+    sigmas = eta * np.sqrt((1 - alphas_prev) / (1 - alphas) * (1 - alphas / alphas_prev))
+    return sigmas, alphas, alphas_prev
 
 
 def extract(a: torch.Tensor, t: torch.Tensor, ndim: int, batch_axis: int = 0) -> torch.Tensor:

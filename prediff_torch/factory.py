@@ -4,8 +4,10 @@ from typing import Dict, Optional
 import torch
 
 from .config import ConfigDict
+from .diffusion.knowledge_alignment import KnowledgeAlignment
 from .diffusion.latent_diffusion import LatentDiffusion
 from .diffusion.schedule import make_gaussian_schedule
+from .models.alignment import NoisyCuboidTransformerEncoder
 from .models.init import init_params_
 from .models.unet import CuboidTransformerUNet
 from .models.vae import AutoencoderKL
@@ -41,29 +43,59 @@ def build_vae(cfg: ConfigDict) -> AutoencoderKL:
     )
 
 
+def build_alignment_model(cfg: ConfigDict) -> NoisyCuboidTransformerEncoder:
+    a = cfg.model.align.model_args
+    if a.num_global_vectors or a.hierarchical_pos_embed or not a.use_inter_ffn:
+        raise NotImplementedError("only the v1 alignment net (no global vectors, no "
+                                  "hierarchical position embedding, inter FFNs) is ported")
+    if a.downsample_type != "patch_merge" or a.pool != "attention" or not a.readout_seq:
+        raise NotImplementedError(f"downsample '{a.downsample_type}' / pool '{a.pool}' / "
+                                  f"readout_seq {a.readout_seq}")
+    if a.block_attn_patterns != "axial":
+        raise NotImplementedError(f"attention pattern '{a.block_attn_patterns}' is not ported yet")
+    if a.ffn_activation != "gelu" or a.gated_ffn or a.time_embed_use_scale_shift_norm:
+        raise NotImplementedError("only the v1 FFN (gelu, not gated) and time embedding are ported")
+    return NoisyCuboidTransformerEncoder(
+        input_shape=tuple(a.input_shape), out_channels=a.out_channels, base_units=a.base_units,
+        scale_alpha=a.scale_alpha, depth=list(a.depth), downsample=a.downsample,
+        block_attn_patterns=a.block_attn_patterns, num_heads=a.num_heads,
+        padding_type=a.padding_type, time_embed_channels_mult=a.time_embed_channels_mult,
+        out_len=a.out_len,
+    )
+
+
 def build_pipeline(cfg: ConfigDict, with_alignment: bool = False, device=None,
                    params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                    seed: int = 0) -> LatentDiffusion:
-    """The unguided sampling pipeline on ``device`` (default: the card).
+    """The sampling pipeline on ``device`` (default: the card), with the
+    knowledge alignment when ``with_alignment``.
 
-    ``params`` holds state_dicts under "unet" and "vae"; a model without one
-    takes the seeded v1 initialisation."""
-    if with_alignment:
-        raise NotImplementedError("knowledge-alignment guidance is not ported yet")
+    ``params`` holds state_dicts under "unet", "vae" and "align"; a model
+    without one takes the seeded v1 initialisation.  Every model is frozen:
+    guidance asks each kernel's ``autograd.Function`` for dx only."""
     axes = parse_layout_shape(cfg.layout.layout)
     if (axes["batch_axis"], axes["t_axis"]) != (0, 1):
         raise ValueError(f"layout {cfg.layout.layout!r}: the port takes batch, then time first")
     dev = resolve_device(device)
     params = params or {}
     gen = torch.Generator().manual_seed(seed)
+    builders = [("unet", build_unet), ("vae", build_vae)]
+    if with_alignment:
+        builders.append(("align", build_alignment_model))
     models = {}
-    for key, build in (("unet", build_unet), ("vae", build_vae)):
+    for key, build in builders:
         model = build(cfg)
         if key in params:
             model.load_state_dict(params[key])
         else:
             init_params_(model, gen)
         models[key] = model.to(dev).eval().requires_grad_(False)
+    alignment = None
+    if with_alignment:
+        al = cfg.model.align
+        alignment = KnowledgeAlignment(models["align"], guide_scale=al.guide_scale,
+                                       alignment_type=al.alignment_type,
+                                       compute_dtype=al.get("compute_dtype", "float32"))
     d = cfg.model.diffusion
     schedule = make_gaussian_schedule(
         beta_schedule=d.beta_schedule, timesteps=d.timesteps, linear_start=d.linear_start,
@@ -73,4 +105,4 @@ def build_pipeline(cfg: ConfigDict, with_alignment: bool = False, device=None,
         models["unet"], models["vae"], schedule, latent_shape=d.latent_shape,
         cond_latent_shape=d.latent_cond_shape, parameterization=d.parameterization,
         scale_factor=d.scale_factor, clip_denoised=d.clip_denoised,
-        decode_chunk_size=d.get("decode_chunk_size"), device=dev)
+        decode_chunk_size=d.get("decode_chunk_size"), alignment=alignment, device=dev)

@@ -1,0 +1,121 @@
+"""Knowledge-alignment network U(z_t, t): a half-UNet cuboid encoder with a
+CLIP-style attention-pool readout, channel-last like the rest of the port.
+
+Counterpart of ``prediff_tpu/models/alignment.py`` (reference
+NoisyCuboidTransformerEncoder, models.py:107; AttentionPool3d, :49).  The
+stage time blocks run the whole-resblock kernels (``fused=True``), as the
+JAX package's ``use_pallas_resblock`` does for this network; ``first_proj``
+changes width (1x1 skip) and keeps the GN-kernel path.  Global vectors,
+hierarchical position embeddings and the pooled (not per-frame) readout are
+not ported.
+"""
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from ..ops.groupnorm import groupnorm_silu_plain
+from .cuboid_attention import StackCuboidSelfAttentionBlock
+from .layers import (PatchMerging3D, PosEmbed, TimeEmbedLayer, TimeEmbedResBlock, conv_nthwc,
+                     timestep_embedding)
+from .patterns import CuboidSelfAttentionPatterns
+from .unet import _normalize_downsample, compute_block_units, compute_mem_shapes
+
+
+class AttentionPool3d(nn.Module):
+    """Mean token + learned positional embedding + one QKV attention, read
+    out at token 0.  Input (N, L, C); ``qkv_proj`` and ``c_proj`` are 1x1
+    ``Conv1d``s as in the reference; softmax in f32, q and k both scaled by
+    ch**-0.25."""
+
+    def __init__(self, data_dim: int, embed_dim: int, num_heads: int,
+                 output_dim: Optional[int] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.positional_embedding = nn.Parameter(torch.zeros(embed_dim, data_dim + 1))
+        self.qkv_proj = nn.Conv1d(embed_dim, 3 * embed_dim, 1)
+        self.c_proj = nn.Conv1d(embed_dim, output_dim or embed_dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        N, L, C = x.shape
+        x = torch.cat([x.mean(dim=1, keepdim=True), x], dim=1)
+        x = x + self.positional_embedding.T[None]
+        q, k, v = conv_nthwc(self.qkv_proj, x).chunk(3, dim=-1)
+        heads = self.num_heads
+        ch = C // heads
+        scale = 1.0 / ch ** 0.25
+        q = q.reshape(N, L + 1, heads, ch) * scale
+        k = k.reshape(N, L + 1, heads, ch) * scale
+        v = v.reshape(N, L + 1, heads, ch)
+        w = torch.einsum("bihc,bjhc->bhij", q, k)
+        w = torch.softmax(w.float(), dim=-1).to(w.dtype)
+        a = torch.einsum("bhij,bjhc->bihc", w, v).reshape(N, L + 1, C)
+        return conv_nthwc(self.c_proj, a)[:, 0]
+
+
+class NoisyCuboidTransformerEncoder(nn.Module):
+    """Encoder-only cuboid transformer over noisy latents with a per-frame
+    attention-pool readout (the reference's ``readout_seq``):
+    (B, T, H, W, C), (B,) -> (B, out_len, out_channels)."""
+
+    def __init__(self, input_shape: Tuple[int, int, int, int], out_channels: int = 1,
+                 base_units: int = 128, scale_alpha: float = 1.0,
+                 depth: Sequence[int] = (4, 4, 4), downsample: Union[int, Tuple] = 2,
+                 block_attn_patterns: str = "axial", num_heads: int = 4,
+                 padding_type: str = "zeros", time_embed_channels_mult: int = 4,
+                 out_len: Optional[int] = None):
+        super().__init__()
+        self.input_shape = tuple(input_shape)
+        self.num_blocks = len(depth)
+        self.depth = list(depth)
+        self.out_len = out_len
+        self.out_channels = out_channels
+        downsample = _normalize_downsample(downsample)
+        self.block_units = compute_block_units(base_units, self.num_blocks, downsample,
+                                               scale_alpha)
+        mem_shapes = compute_mem_shapes(self.input_shape, base_units, self.num_blocks, downsample,
+                                        self.block_units)
+        self.mem_shapes = mem_shapes
+        pattern = CuboidSelfAttentionPatterns[block_attn_patterns]
+        tec = self.block_units[0] * time_embed_channels_mult
+
+        self.first_proj = TimeEmbedResBlock(self.input_shape[-1], base_units, use_embed=False)
+        self.pos_embed = PosEmbed(base_units, *self.input_shape[:3])
+        self.time_embed = TimeEmbedLayer(self.block_units[0], tec)
+        self.downsample_layers = nn.ModuleList(
+            PatchMerging3D(mem_shapes[i][-1], self.block_units[i + 1], downsample, padding_type)
+            for i in range(self.num_blocks - 1))
+        self.down_time_embed_blocks = nn.ModuleList(
+            TimeEmbedResBlock(mem_shapes[i][-1], mem_shapes[i][-1], emb_channels=tec, fused=True)
+            for i in range(self.num_blocks))
+
+        def stack(i):
+            cuboid_size, strategy, shift_size = pattern(mem_shapes[i])
+            return StackCuboidSelfAttentionBlock(mem_shapes[i][-1], num_heads, cuboid_size,
+                                                 shift_size, strategy)
+
+        self.down_self_blocks = nn.ModuleList(
+            nn.ModuleList(stack(i) for _ in range(self.depth[i])) for i in range(self.num_blocks))
+        _, H_out, W_out, C_out = mem_shapes[-1]
+        # index 1 is the reference's SiLU, applied with the GroupNorm in forward
+        self.out = nn.Sequential(nn.GroupNorm(min(C_out, 32), C_out, eps=1e-5), nn.SiLU(),
+                                 AttentionPool3d(H_out * W_out, C_out, num_heads, out_channels))
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        B = x.shape[0]
+        x = self.first_proj(x)
+        x = self.pos_embed(x)
+        t_emb = self.time_embed(timestep_embedding(t, self.block_units[0]).to(x.dtype))
+        for i in range(self.num_blocks):
+            if i > 0:
+                x = self.downsample_layers[i - 1](x)
+            for j in range(self.depth[i]):
+                x = self.down_time_embed_blocks[i](x, t_emb)
+                x = self.down_self_blocks[i][j](x)
+        if self.out_len is not None:
+            x = x[:, -self.out_len:]
+        T_cur, C = x.shape[1], x.shape[-1]
+        norm, pool = self.out[0], self.out[2]
+        tokens = groupnorm_silu_plain(x.reshape(B * T_cur, -1, C), norm.weight, norm.bias,
+                                      groups=norm.num_groups, eps=norm.eps)
+        return pool(tokens).reshape(B, T_cur, self.out_channels)

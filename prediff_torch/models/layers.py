@@ -14,6 +14,7 @@ from torch import nn
 from ..ops.ffn import fused_ffn
 from ..ops.groupnorm import fused_groupnorm_silu
 from ..ops.pad import generalize_padding
+from ..ops.resblock import fused_resblock
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
@@ -146,12 +147,17 @@ class TimeEmbedResBlock(nn.Module):
     """Residual block with the timestep embedding folded into its second
     GroupNorm (the non-scale-shift path, no up/down resampling).  Both
     GroupNorm+SiLU go through the GN kernel; the 3x3x3 convs are
-    ``conv3d``."""
+    ``conv3d``.  With ``fused=True`` (identity skip only) the whole block is
+    one call of the resblock kernels instead, as the JAX package's
+    ``use_pallas_resblock`` path; the parameters are the same either way."""
 
     def __init__(self, channels: int, out_channels: int = None, emb_channels: int = None,
-                 use_embed: bool = True, norm_groups: int = 32):
+                 use_embed: bool = True, norm_groups: int = 32, fused: bool = False):
         super().__init__()
         out_channels = out_channels or channels
+        if fused and out_channels != channels:
+            raise ValueError("the fused resblock takes only an identity skip")
+        self.fused = fused
         self.in_groups = norm_groups if channels % norm_groups == 0 else channels
         self.out_groups = norm_groups if out_channels % norm_groups == 0 else out_channels
         self.in_layers = nn.Sequential(nn.GroupNorm(self.in_groups, channels, eps=1e-5), nn.SiLU(),
@@ -176,10 +182,21 @@ class TimeEmbedResBlock(nn.Module):
                                  emb, norm.num_groups, norm.eps)
         return y.reshape(x.shape)
 
+    def _fused_forward(self, x: torch.Tensor, emb_out) -> torch.Tensor:
+        if emb_out is None:
+            emb_out = x.new_zeros((x.shape[0], x.shape[-1]))
+        gn1, conv1 = self.in_layers[0], self.in_layers[2]
+        gn2, conv2 = self.out_layers[0], self.out_layers[3]
+        return fused_resblock(x.contiguous(), emb_out, conv1.weight, conv1.bias, conv2.weight,
+                              conv2.bias, gn1.weight, gn1.bias, gn2.weight, gn2.bias,
+                              gn1.num_groups, gn1.eps)
+
     def forward(self, x: torch.Tensor, emb: torch.Tensor = None) -> torch.Tensor:
+        emb_out = self.emb_layers(emb).contiguous() if self.use_embed else None
+        if self.fused:
+            return self._fused_forward(x, emb_out)
         h = self._gn_silu(self.in_layers[0], x)
         h = conv_nthwc(self.in_layers[2], h)
-        emb_out = self.emb_layers(emb).contiguous() if self.use_embed else None
         h = self._gn_silu(self.out_layers[0], h, emb_out)
         h = conv_nthwc(self.out_layers[3], h)
         skip = x if isinstance(self.skip_connection, nn.Identity) else conv_nthwc(self.skip_connection, x)

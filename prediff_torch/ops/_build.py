@@ -1,4 +1,6 @@
-"""Builds the port's CUDA sources and loads them with ctypes.
+"""Builds the port's CUDA sources and loads them with ctypes; the plumbing
+the kernel wrappers share (argument checks, pointers, the gradients their
+``autograd.Function``s take from plain versions).
 
 Each ``prediff_torch/csrc/<name>.cu`` has a plain C interface and compiles
 on its own with ``nvcc`` for ``sm_90a`` into ``<repo>/build/lib<name>_<hash>.so``
@@ -20,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("groupnorm", "ffn", "attention")
+SOURCES = ("groupnorm", "ffn", "attention", "resblock")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -94,14 +96,32 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
 
 
 def require(kernel: str, specs) -> None:
-    """Raise unless each (name, tensor, shape) is a contiguous float32 CUDA
-    tensor of that shape: what the kernels take."""
-    for name, t, shape in specs:
-        if (t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous()
+    """Raise unless each (name, tensor, shape[, dtype]) is a contiguous CUDA
+    tensor of that shape and dtype (float32 unless given): what the kernels
+    take."""
+    for name, t, shape, *dtype in specs:
+        dtype = dtype[0] if dtype else torch.float32
+        if (t.dtype != dtype or not t.is_cuda or not t.is_contiguous()
                 or tuple(t.shape) != tuple(shape)):
-            raise ValueError(f"{kernel} kernel: {name} must be a contiguous float32 CUDA tensor "
+            raise ValueError(f"{kernel} kernel: {name} must be a contiguous {dtype} CUDA tensor "
                              f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device}, "
                              f"contiguous={t.is_contiguous()}")
+
+
+def plain_grads(fn, inputs, needs, g):
+    """Gradients of ``fn(*inputs)`` for the cotangent ``g`` by autograd of a
+    plain version, for the inputs flagged in ``needs`` (None elsewhere, and
+    nothing runs when none is flagged).  The backward of a kernel's
+    ``autograd.Function`` takes its parameter gradients from here, as the
+    JAX package recomputes them from its jnp references."""
+    if not any(needs):
+        return [None] * len(inputs)
+    with torch.enable_grad():
+        leaves = [t if t is None else t.detach().requires_grad_(bool(n))
+                  for t, n in zip(inputs, needs)]
+        wanted = [t for t, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(fn(*leaves), wanted, g))
+    return [next(grads) if n else None for n in needs]
 
 
 def check(err: int, what: str) -> None:

@@ -6,8 +6,15 @@ kernel (``csrc/attention.cu``) replaces
 ``prediff_tpu/ops/pallas_attention.py::fused_axial_attention_5d``.  It runs
 as three hand-written launches (LN+QKV product, the per-cuboid core, the
 output projection) that read cuboids in place by strides; matrix products
-take bf16 operands with f32 accumulation.  Weights are in PyTorch layout:
-``w_qkv`` (3C, C), ``w_proj`` (C, C); ``bias`` is (heads, vol, vol).
+take bf16 operands with f32 accumulation.  Its input gradient
+(``axial_attention_bwd_dx``, same source) replaces
+``pallas_attention.py::fused_axial_attention_5d_bwd_dx``.  Weights are in
+PyTorch layout: ``w_qkv`` (3C, C), ``w_proj`` (C, C); ``bias`` is
+(heads, vol, vol).
+
+:func:`fused_axial_attention` is differentiable: dx from
+:func:`fused_axial_attention_bwd_dx`, parameter gradients (only when asked
+for) from autograd of the f32 plain version.
 """
 from typing import Optional
 
@@ -15,15 +22,32 @@ import torch
 
 from . import _build
 from .cuboid import cuboid_reorder, cuboid_reorder_reverse
-from .ffn import _round, layer_norm_plain
+from .ffn import _round, layer_norm_bwd_plain, layer_norm_plain
 
 _P, _I, _F = _build.P, _build.I, _build.F
-_SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 7 + [_F, _F, _P]}
+_SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 7 + [_F, _F, _P],
+               "axial_attention_bwd_dx": [_P] * 12 + [_I] * 7 + [_F, _F, _P]}
 
 
 def axial_cuboid_size(shape, axis: int):
     _, T, H, W, _ = shape
     return ((T, 1, 1), (1, H, 1), (1, 1, W))[axis]
+
+
+def _qkv_plain(xr, ln_w, ln_b, w_qkv, num_heads, eps, mxu_dtype):
+    """LN and the QKV product on reordered cuboids: q, k, v (B, nC, vol, heads, hc)."""
+    B, nC, vol, C = xr.shape
+    ln = layer_norm_plain(xr, ln_w, ln_b, eps)
+    qkv = (_round(ln, mxu_dtype) @ _round(w_qkv, mxu_dtype).T).reshape(
+        B, nC, vol, 3, num_heads, C // num_heads)
+    return qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
+
+
+def _softmax_plain(q, k, bias, scale, mxu_dtype):
+    s = torch.einsum("bnihc,bnjhc->bnhij", _round(q * scale, mxu_dtype), _round(k, mxu_dtype))
+    s = s + bias
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return p / p.sum(dim=-1, keepdim=True)
 
 
 def axial_attention_plain(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: torch.Tensor,
@@ -34,46 +58,67 @@ def axial_attention_plain(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: 
     """Plain PyTorch version, through ``cuboid_reorder``.  ``mxu_dtype``
     rounds the matmul operands where the kernel does; ``None`` keeps f32."""
     B, T, H, W, C = x.shape
-    hc = C // num_heads
     cs = axial_cuboid_size(x.shape, axis)
     xr = cuboid_reorder(x.float(), cs, ("l", "l", "l"))          # (B, nC, vol, C)
     nC, vol = xr.shape[1], xr.shape[2]
-    ln = layer_norm_plain(xr, ln_w, ln_b, eps)
-    qkv = (_round(ln, mxu_dtype) @ _round(w_qkv, mxu_dtype).T).reshape(B, nC, vol, 3, num_heads, hc)
-    q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
-    s = torch.einsum("bnihc,bnjhc->bnhij", _round(q * scale, mxu_dtype), _round(k, mxu_dtype))
-    s = s + bias
-    s = s - s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s)
-    p = p / p.sum(dim=-1, keepdim=True)
+    q, k, v = _qkv_plain(xr, ln_w, ln_b, w_qkv, num_heads, eps, mxu_dtype)
+    p = _softmax_plain(q, k, bias, scale, mxu_dtype)
     o = torch.einsum("bnhij,bnjhc->bnihc", _round(p, mxu_dtype), _round(v, mxu_dtype))
     o = o.reshape(B, nC, vol, C)
     out = _round(o, mxu_dtype) @ _round(w_proj, mxu_dtype).T + b_proj
     return cuboid_reorder_reverse(out, cs, ("l", "l", "l"), (T, H, W)).to(x.dtype)
 
 
-def fused_axial_attention(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: torch.Tensor,
-                          w_qkv: torch.Tensor, bias: torch.Tensor, w_proj: torch.Tensor,
-                          b_proj: torch.Tensor, num_heads: int, scale: float,
-                          eps: float = 1e-5) -> torch.Tensor:
-    """CPU tensor: the plain version in f32.  CUDA tensor: the kernel, or raise."""
-    if not x.is_cuda:
-        return axial_attention_plain(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
-                                     num_heads, scale, eps)
+def axial_attention_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
+                                 ln_w: torch.Tensor, ln_b: torch.Tensor, w_qkv: torch.Tensor,
+                                 bias: torch.Tensor, w_proj: torch.Tensor, num_heads: int,
+                                 scale: float, eps: float = 1e-5,
+                                 mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain dx of :func:`axial_attention_plain` for the cotangent ``g``, the
+    TPU kernel's formulas (recompute, ``ds = p (dp - rowsum(dp p))``);
+    ``mxu_dtype`` rounds the product operands where the kernel does."""
+    B, T, H, W, C = x.shape
+    hc = C // num_heads
+    cs = axial_cuboid_size(x.shape, axis)
+    xr = cuboid_reorder(x.float(), cs, ("l", "l", "l"))
+    gr = cuboid_reorder(g.float(), cs, ("l", "l", "l"))
+    nC, vol = xr.shape[1], xr.shape[2]
+    q, k, v = _qkv_plain(xr, ln_w, ln_b, w_qkv, num_heads, eps, mxu_dtype)
+    p = _softmax_plain(q, k, bias, scale, mxu_dtype)
+    d_o = (_round(gr, mxu_dtype) @ _round(w_proj, mxu_dtype)).reshape(B, nC, vol, num_heads, hc)
+    d_o = _round(d_o, mxu_dtype)
+    dp = torch.einsum("bnihc,bnjhc->bnhij", d_o, _round(v, mxu_dtype))
+    ds = _round(p * (dp - (dp * p).sum(dim=-1, keepdim=True)), mxu_dtype)
+    dq = torch.einsum("bnhij,bnjhc->bnihc", ds, _round(k, mxu_dtype)) * scale
+    dk = torch.einsum("bnhij,bnihc->bnjhc", ds, _round(q * scale, mxu_dtype))
+    dv = torch.einsum("bnhij,bnihc->bnjhc", _round(p, mxu_dtype), d_o)
+    dqkv = torch.stack([dq, dk, dv], dim=3).reshape(B, nC, vol, 3 * C)
+    dln = _round(dqkv, mxu_dtype) @ _round(w_qkv, mxu_dtype)
+    dx = layer_norm_bwd_plain(xr, ln_w, dln, eps)
+    return cuboid_reorder_reverse(dx, cs, ("l", "l", "l"), (T, H, W)).to(x.dtype)
+
+
+def _check(x, axis, num_heads):
     B, T, H, W, C = x.shape
     vol = (T, H, W)[axis]
     if C % 64 != 0 or C % num_heads != 0 or axis not in (0, 1, 2):
         raise ValueError(f"attention kernel: C={C} (takes multiples of 64), heads={num_heads}, "
                          f"axis={axis} not supported")
-    smem = 4 * (3 * vol * (C // num_heads + 1) + vol * vol)
+    # the gradient's core holds four (vol, hc + 1) tiles and two (vol, vol)
+    smem = 4 * (4 * vol * (C // num_heads + 1) + 2 * vol * vol)
     if smem > 227 * 1024:
         raise ValueError(f"attention kernel: cuboid of {vol} rows x {C // num_heads} head "
                          "channels exceeds shared memory")
+    return B * T * H * W, vol
+
+
+def _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps):
+    B, T, H, W, C = x.shape
+    M, vol = _check(x, axis, num_heads)
     _build.require("attention", [
         ("x", x, (B, T, H, W, C)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
         ("w_qkv", w_qkv, (3 * C, C)), ("bias", bias, (num_heads, vol, vol)),
         ("w_proj", w_proj, (C, C)), ("b_proj", b_proj, (C,))])
-    M = B * T * H * W
     qkv = torch.empty((M, 3 * C), dtype=torch.float32, device=x.device)
     attn = torch.empty((M, C), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
@@ -86,4 +131,68 @@ def fused_axial_attention(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: 
     return out
 
 
+def fused_axial_attention_bwd_dx(x: torch.Tensor, g: torch.Tensor, axis: int,
+                                 ln_w: torch.Tensor, ln_b: torch.Tensor, w_qkv: torch.Tensor,
+                                 bias: torch.Tensor, w_proj: torch.Tensor, num_heads: int,
+                                 scale: float, eps: float = 1e-5) -> torch.Tensor:
+    """dx of the layer.  CPU tensor: the plain version in f32.  CUDA tensor:
+    the kernel (C a multiple of 64, as the forward), or raise."""
+    if not x.is_cuda:
+        return axial_attention_bwd_dx_plain(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj,
+                                            num_heads, scale, eps)
+    B, T, H, W, C = x.shape
+    M, vol = _check(x, axis, num_heads)
+    _build.require("attention_bwd_dx", [
+        ("x", x, (B, T, H, W, C)), ("g", g, (B, T, H, W, C)), ("ln_w", ln_w, (C,)),
+        ("ln_b", ln_b, (C,)), ("w_qkv", w_qkv, (3 * C, C)),
+        ("bias", bias, (num_heads, vol, vol)), ("w_proj", w_proj, (C, C))])
+    f32 = dict(dtype=torch.float32, device=x.device)
+    qkv, dqkv = torch.empty((M, 3 * C), **f32), torch.empty((M, 3 * C), **f32)
+    dattn, dln = torch.empty((M, C), **f32), torch.empty((M, C), **f32)
+    dx = torch.empty_like(x)
+    lib = _build.load("attention", _SIGNATURES)
+    err = lib.axial_attention_bwd_dx(
+        *(_build.ptr(t) for t in (x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv,
+                                  dln, dx)),
+        B, T, H, W, C, axis, num_heads, float(scale), float(eps), _build.stream_ptr(x.device))
+    _build.check(err, "axial_attention_bwd_dx")
+    fused_axial_attention_bwd_dx.launches += 1
+    return dx
+
+
+class _FusedAxialAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj)
+        ctx.args = (axis, num_heads, scale, eps)
+        if not x.is_cuda:
+            return axial_attention_plain(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
+                                         num_heads, scale, eps)
+        return _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
+                                 scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        axis, num_heads, scale, eps = ctx.args
+        g = g.contiguous()
+        dx = (fused_axial_attention_bwd_dx(x, g, axis, *params[:-1], num_heads, scale, eps)
+              if ctx.needs_input_grad[0] else None)
+        dparams = _build.plain_grads(
+            lambda *p: axial_attention_plain(x, axis, *p, num_heads, scale, eps), params,
+            ctx.needs_input_grad[2:8], g)
+        return (dx, None, *dparams, None, None, None)
+
+
+def fused_axial_attention(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                          w_qkv: torch.Tensor, bias: torch.Tensor, w_proj: torch.Tensor,
+                          b_proj: torch.Tensor, num_heads: int, scale: float,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """CPU tensor: the plain version in f32.  CUDA tensor: the kernel, or raise.
+    Differentiable on both."""
+    return _FusedAxialAttention.apply(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
+                                      num_heads, scale, eps)
+
+
 fused_axial_attention.launches = 0
+fused_axial_attention_bwd_dx.launches = 0

@@ -4,7 +4,13 @@ The kernel (``csrc/ffn.cu``) replaces ``prediff_tpu/ops/pallas_ffn.py::fused_ffn
 the hidden activation never leaves the chip, matrix products take bf16
 operands with f32 accumulation on the tensor cores.  GELU uses the exact
 ``erff``; the TPU kernel's A&S 7.1.26 erf differs from it by at most 4e-7.
-Weights are in PyTorch layout: ``w1`` (hidden, C), ``w2`` (C, hidden).
+Its input gradient (``ffn_bwd_dx`` in the same source) replaces
+``pallas_ffn.py::fused_ffn_bwd_dx``.  Weights are in PyTorch layout: ``w1``
+(hidden, C), ``w2`` (C, hidden).
+
+:func:`fused_ffn` is differentiable: its ``autograd.Function`` takes dx from
+:func:`fused_ffn_bwd_dx` and parameter gradients, only when asked for, from
+autograd of the f32 plain version (under guidance nothing asks).
 """
 from typing import Optional
 
@@ -13,7 +19,8 @@ import torch
 from . import _build
 
 _P, _I, _F = _build.P, _build.I, _build.F
-_SIGNATURES = {"ffn_forward": [_P] * 9 + [_I] * 4 + [_F, _P]}
+_SIGNATURES = {"ffn_forward": [_P] * 9 + [_I] * 4 + [_F, _P],
+               "ffn_bwd_dx": [_P] * 9 + [_I] * 4 + [_F, _P]}
 KERNEL_WIDTHS = (128, 256, 512)
 _ROWS_PER_BLOCK = 32     # csrc/ffn.cu kRows
 _CHUNK = 64              # csrc/ffn.cu kChunk
@@ -43,6 +50,23 @@ def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (x - mu) * torch.rsqrt(var + eps) * weight + bias
 
 
+def layer_norm_bwd_plain(x: torch.Tensor, weight: torch.Tensor, dln: torch.Tensor,
+                         eps: float) -> torch.Tensor:
+    """dx of :func:`layer_norm_plain` for the output cotangent ``dln``."""
+    mu = x.mean(dim=-1, keepdim=True)
+    rs = torch.rsqrt((x - mu).square().mean(dim=-1, keepdim=True) + eps)
+    nhat = (x - mu) * rs
+    dnhat = dln * weight
+    return rs * (dnhat - dnhat.mean(dim=-1, keepdim=True)
+                 - nhat * (dnhat * nhat).mean(dim=-1, keepdim=True))
+
+
+def gelu_grad(h: torch.Tensor) -> torch.Tensor:
+    """d gelu_erf(h) / dh = Phi(h) + h phi(h)."""
+    return (0.5 * (1.0 + torch.erf(h * 0.5 ** 0.5))
+            + h * torch.exp(-0.5 * h * h) * (2.0 * torch.pi) ** -0.5)
+
+
 def ffn_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
               b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
               mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -57,17 +81,31 @@ def ffn_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch
     return (xf + out).to(x.dtype)
 
 
-def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
-              b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-              eps: float = 1e-5) -> torch.Tensor:
-    """CPU tensor: the plain version in f32.  CUDA tensor: the kernel, or raise."""
-    if not x.is_cuda:
-        return ffn_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
-    M, C = x.shape
-    hidden = w1.shape[0]
+def ffn_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                     w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, eps: float = 1e-5,
+                     mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain dx of :func:`ffn_plain` for the cotangent ``g``, the TPU kernel's
+    formulas; ``mxu_dtype`` rounds LN(x), g, the weights and dh as the
+    kernel does."""
+    xf, gf = x.float(), g.float()
+    ln = layer_norm_plain(xf, ln_w, ln_b, eps)
+    h = _round(ln, mxu_dtype) @ _round(w1, mxu_dtype).T + b1
+    da = _round(gf, mxu_dtype) @ _round(w2, mxu_dtype)
+    dh = da * gelu_grad(h)
+    dln = _round(dh, mxu_dtype) @ _round(w1, mxu_dtype)
+    return (gf + layer_norm_bwd_plain(xf, ln_w, dln, eps)).to(x.dtype)
+
+
+def _check_widths(M: int, C: int, hidden: int) -> None:
     if C not in KERNEL_WIDTHS or hidden % 64 != 0:
         raise ValueError(f"ffn kernel: C={C} (takes {KERNEL_WIDTHS}), hidden={hidden} "
                          "(takes multiples of 64) not supported")
+
+
+def _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps):
+    M, C = x.shape
+    hidden = w1.shape[0]
+    _check_widths(M, C, hidden)
     _build.require("ffn", [("x", x, (M, C)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
                            ("w1", w1, (hidden, C)), ("b1", b1, (hidden,)),
                            ("w2", w2, (C, hidden)), ("b2", b2, (C,))])
@@ -82,4 +120,58 @@ def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch
     return out
 
 
+def fused_ffn_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                     w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """dx of the fused FFN.  CPU tensor: the plain version in f32.  CUDA
+    tensor: the kernel (C in ``KERNEL_WIDTHS``, hidden a multiple of 64, as
+    the forward), or raise."""
+    if not x.is_cuda:
+        return ffn_bwd_dx_plain(x, g, ln_w, ln_b, w1, b1, w2, eps)
+    M, C = x.shape
+    hidden = w1.shape[0]
+    _check_widths(M, C, hidden)
+    _build.require("ffn_bwd_dx", [
+        ("x", x, (M, C)), ("g", g, (M, C)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
+        ("w1", w1, (hidden, C)), ("b1", b1, (hidden,)), ("w2", w2, (C, hidden))])
+    splits = hidden_splits(M, hidden)
+    part = torch.empty((splits, M, C), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    lib = _build.load("ffn", _SIGNATURES)
+    err = lib.ffn_bwd_dx(*(_build.ptr(t) for t in (x, g, ln_w, ln_b, w1, b1, w2, part, dx)),
+                         M, C, hidden, splits, float(eps), _build.stream_ptr(x.device))
+    _build.check(err, "ffn_bwd_dx")
+    fused_ffn_bwd_dx.launches += 1
+    return dx
+
+
+class _FusedFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
+        ctx.eps = eps
+        if not x.is_cuda:
+            return ffn_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+        return _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        g = g.contiguous()
+        dx = (fused_ffn_bwd_dx(x, g, *params[:-1], ctx.eps)
+              if ctx.needs_input_grad[0] else None)
+        dparams = _build.plain_grads(lambda *p: ffn_plain(x, *p, ctx.eps), params,
+                                     ctx.needs_input_grad[1:7], g)
+        return (dx, *dparams, None)
+
+
+def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
+              b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """CPU tensor: the plain version in f32.  CUDA tensor: the kernel, or raise.
+    Differentiable on both."""
+    return _FusedFFN.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+
+
 fused_ffn.launches = 0
+fused_ffn_bwd_dx.launches = 0

@@ -7,6 +7,10 @@ with ``emb`` folded into both so that ``x + emb`` never reaches memory.
 Statistics are Welford per channel merged by Chan's formula, never
 E[x^2] - E[x]^2.  It takes any ``groups`` that divides C <= 1024, so the
 UNet's 65-channel ``first_proj.in_layers_0`` (groups = 65) runs it too.
+
+:func:`fused_groupnorm_silu` is differentiable.  Its backward has no kernel:
+every gradient, dx included, is autograd of the plain version, as the JAX
+package's ``_gn_diff_bwd`` differentiates its reference.
 """
 from typing import Optional
 
@@ -35,12 +39,7 @@ def groupnorm_silu_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
     return (y * torch.sigmoid(y)).to(x.dtype)
 
 
-def fused_groupnorm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                         emb: Optional[torch.Tensor] = None, groups: int = 32,
-                         eps: float = 1e-5) -> torch.Tensor:
-    """CPU tensor: the plain version.  CUDA tensor: the kernel, or raise."""
-    if not x.is_cuda:
-        return groupnorm_silu_plain(x, weight, bias, emb, groups, eps)
+def _groupnorm_kernel(x, weight, bias, emb, groups, eps):
     B, N, C = x.shape
     if C % groups != 0 or C > 1024:
         raise ValueError(f"groupnorm kernel: C={C}, groups={groups} not supported")
@@ -59,6 +58,30 @@ def fused_groupnorm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
     _build.check(err, "gn_silu_forward")
     fused_groupnorm_silu.launches += 1
     return y
+
+
+class _FusedGroupNormSiLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, emb, groups, eps):
+        ctx.save_for_backward(x, weight, bias, emb)
+        ctx.args = (groups, eps)
+        if not x.is_cuda:
+            return groupnorm_silu_plain(x, weight, bias, emb, groups, eps)
+        return _groupnorm_kernel(x, weight, bias, emb, groups, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _build.plain_grads(lambda *a: groupnorm_silu_plain(*a, *ctx.args),
+                                   ctx.saved_tensors, ctx.needs_input_grad[:4], g)
+        return (*grads, None, None)
+
+
+def fused_groupnorm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                         emb: Optional[torch.Tensor] = None, groups: int = 32,
+                         eps: float = 1e-5) -> torch.Tensor:
+    """CPU tensor: the plain version.  CUDA tensor: the kernel, or raise.
+    Differentiable on both."""
+    return _FusedGroupNormSiLU.apply(x, weight, bias, emb, groups, eps)
 
 
 fused_groupnorm_silu.launches = 0

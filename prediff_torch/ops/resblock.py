@@ -1,0 +1,212 @@
+"""Whole TimeEmbedResBlock (identity skip, non-scale-shift) on (B, T, H, W, C):
+
+    out = x + conv2(silu(GN2(conv1(silu(GN1 x)) + b1 + emb))) + b2
+
+The kernels (``csrc/resblock.cu``) replace
+``prediff_tpu/ops/pallas_resblock.py::fused_resblock`` and its backward
+``_fused_resblock_bwd``: the convolutions are hand-written implicit GEMMs
+(bf16 operands, f32 accumulation), the GroupNorms run one block per
+(group, sample).  The forward also returns ``h2 = conv1(.) + b1``, kept for
+the backward (bf16 from the kernel, as the TPU kernel keeps it); the
+backward gives (dx, demb).  Conv weights are in PyTorch ``Conv3d`` layout
+(C, C, 3, 3, 3); the wrappers lay them out as (27, in, out) for the
+kernel, flipped and transposed for the backward.
+
+:func:`fused_resblock` is differentiable: (dx, demb) from
+:func:`fused_resblock_bwd`, parameter gradients (only when asked for) from
+autograd of the f32 plain version.
+"""
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .ffn import _round
+from .groupnorm import groupnorm_silu_plain
+
+_P, _I, _F = _build.P, _build.I, _build.F
+_SIGNATURES = {"resblock_forward": [_P] * 14 + [_I] * 6 + [_F, _P],
+               "resblock_backward": [_P] * 15 + [_I] * 6 + [_F, _P]}
+_GN_THREADS = 256   # csrc/resblock.cu kGnThreads
+_TAP_SPLITS = 9     # csrc/resblock.cu kTapSplits
+
+
+def supports(C: int, groups: int) -> bool:
+    """What the kernels take: C a multiple of 64 (the conv's 64-channel
+    output tile; the alignment net's 128 and 256 fit), groups dividing C with
+    C / groups dividing 256 (the GN block's threads)."""
+    return C % 64 == 0 and C % groups == 0 and _GN_THREADS % (C // groups) == 0
+
+
+def _conv(v: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    return F.conv3d(v.permute(0, 4, 1, 2, 3), k, padding=1).permute(0, 2, 3, 4, 1)
+
+
+def _conv_t(v: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Input gradient of ``_conv(., k)``."""
+    return F.conv_transpose3d(v.permute(0, 4, 1, 2, 3), k, padding=1).permute(0, 2, 3, 4, 1)
+
+
+def _silu_grad(a: torch.Tensor) -> torch.Tensor:
+    s = torch.sigmoid(a)
+    return s * (1.0 + a * (1.0 - s))
+
+
+def _gn_silu(v: torch.Tensor, scale, shift, groups: int, eps: float, emb=None) -> torch.Tensor:
+    """silu(GroupNorm(v + emb)) on (B, T, H, W, C)."""
+    B, C = v.shape[0], v.shape[-1]
+    return groupnorm_silu_plain(v.reshape(B, -1, C), scale, shift, emb, groups,
+                                eps).reshape(v.shape)
+
+
+def resblock_plain(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups: int = 32,
+                   eps: float = 1e-5, mxu_dtype: Optional[torch.dtype] = None):
+    """Plain PyTorch version: (out, h2).  ``mxu_dtype`` rounds h1, h2, h3 and
+    the conv weights where the kernel does; ``None`` keeps f32."""
+    xf = x.float()
+    h = _round(_gn_silu(xf, g1s, g1b, groups, eps), mxu_dtype)
+    h2 = _round(_conv(h, _round(k1, mxu_dtype)) + b1, mxu_dtype)
+    h = _round(_gn_silu(h2, g2s, g2b, groups, eps, emb.float()), mxu_dtype)
+    out = xf + (_conv(h, _round(k2, mxu_dtype)) + b2)
+    return out.to(x.dtype), h2
+
+
+def _gn_silu_bwd(v, dy, scale, shift, groups, eps):
+    """Input gradient of silu(GroupNorm(v)) for dy, the TPU kernel's formula:
+    ``rstd (u - (sum u + xhat sum(u xhat)) / count)``, u = dy silu'(a) scale,
+    the sums over each (sample, group)."""
+    B, C = v.shape[0], v.shape[-1]
+    g = v.reshape(B, -1, groups, C // groups)
+    mean = g.mean(dim=(1, 3), keepdim=True)
+    rstd = torch.rsqrt((g - mean).square().mean(dim=(1, 3), keepdim=True) + eps)
+    xhat = ((g - mean) * rstd).reshape(v.shape)
+    u = dy * _silu_grad(xhat * scale + shift) * scale
+    ug, xg = u.reshape(g.shape), xhat.reshape(g.shape)
+    s1 = ug.sum(dim=(1, 3), keepdim=True)
+    s2 = (ug * xg).sum(dim=(1, 3), keepdim=True)
+    count = g.shape[1] * g.shape[3]
+    return (rstd * (ug - (s1 + xg * s2) / count)).reshape(v.shape)
+
+
+def resblock_bwd_plain(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g, groups: int = 32,
+                       eps: float = 1e-5, mxu_dtype: Optional[torch.dtype] = None):
+    """Plain (dx, demb) of :func:`resblock_plain` for the cotangent ``g``,
+    given the forward's ``h2``; ``mxu_dtype`` rounds g, dh3, dv, dh1 and the
+    weights where the kernel does."""
+    xf, gf = x.float(), g.float()
+    v = h2.float() + emb.float()[:, None, None, None, :]
+    dh3 = _round(_conv_t(_round(gf, mxu_dtype), _round(k2, mxu_dtype)), mxu_dtype)
+    dv = _gn_silu_bwd(v, dh3, g2s, g2b, groups, eps)
+    demb = dv.sum(dim=(1, 2, 3))
+    dh1 = _round(_conv_t(_round(dv, mxu_dtype), _round(k1, mxu_dtype)), mxu_dtype)
+    dx = _gn_silu_bwd(xf, dh1, g1s, g1b, groups, eps) + gf
+    return dx.to(x.dtype), demb.to(emb.dtype)
+
+
+def _fwd_weight(k: torch.Tensor) -> torch.Tensor:
+    """Conv3d weight (out, in, 3, 3, 3) -> (27, in, out)."""
+    return k.permute(2, 3, 4, 1, 0).reshape(27, k.shape[1], k.shape[0]).contiguous()
+
+
+def _bwd_weight(k: torch.Tensor) -> torch.Tensor:
+    """The transposed conv's weight: flipped taps, (27, out, in)."""
+    return k.flip(2, 3, 4).permute(2, 3, 4, 0, 1).reshape(27, k.shape[0], k.shape[1]).contiguous()
+
+
+def _workspace(x: torch.Tensor) -> torch.Tensor:
+    """The convs' per-split partial sums, (splits, tokens, C) f32."""
+    return torch.empty((_TAP_SPLITS, x[..., 0].numel(), x.shape[-1]), dtype=torch.float32,
+                       device=x.device)
+
+
+def _specs(x, emb, groups, **vectors):
+    B, T, H, W, C = x.shape
+    if not supports(C, groups):
+        raise ValueError(f"resblock kernel: C={C}, groups={groups} not supported "
+                         f"(C % 64 == 0, 256 % (C / groups) == 0)")
+    return ([("x", x, (B, T, H, W, C)), ("emb", emb, (B, C))]
+            + [(n, t, (C,)) for n, t in vectors.items()])
+
+
+def fused_resblock_fwd(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups: int = 32,
+                       eps: float = 1e-5):
+    """(out, h2).  CPU tensor: the plain version in f32.  CUDA tensor: the
+    kernels, or raise."""
+    if not x.is_cuda:
+        return resblock_plain(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups, eps)
+    B, T, H, W, C = x.shape
+    _build.require("resblock", _specs(x, emb, groups, b1=b1, b2=b2, g1s=g1s, g1b=g1b,
+                                      g2s=g2s, g2b=g2b))
+    w1, w2 = _fwd_weight(k1.float()), _fwd_weight(k2.float())
+    _build.require("resblock", [("k1", w1, (27, C, C)), ("k2", w2, (27, C, C))])
+    h = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    h2 = torch.empty_like(h)
+    part = _workspace(x)
+    out = torch.empty_like(x)
+    lib = _build.load("resblock", _SIGNATURES)
+    err = lib.resblock_forward(
+        *(_build.ptr(t) for t in (x, emb, w1, b1, w2, b2, g1s, g1b, g2s, g2b, h, h2, part, out)),
+        B, T, H, W, C, groups, float(eps), _build.stream_ptr(x.device))
+    _build.check(err, "resblock_forward")
+    fused_resblock_fwd.launches += 1
+    return out, h2
+
+
+def fused_resblock_bwd(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g, groups: int = 32,
+                       eps: float = 1e-5):
+    """(dx, demb) for the cotangent ``g``.  CPU tensor: the plain version in
+    f32.  CUDA tensor: the kernels, or raise."""
+    if not x.is_cuda:
+        return resblock_bwd_plain(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g, groups, eps)
+    B, T, H, W, C = x.shape
+    _build.require("resblock_bwd", _specs(x, emb, groups, g1s=g1s, g1b=g1b, g2s=g2s, g2b=g2b)
+                   + [("g", g, x.shape), ("h2", h2, x.shape, torch.bfloat16)])
+    w1t, w2t = _bwd_weight(k1.float()), _bwd_weight(k2.float())
+    _build.require("resblock_bwd", [("k1", w1t, (27, C, C)), ("k2", w2t, (27, C, C))])
+    dh = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    dv = torch.empty_like(dh)
+    part = _workspace(x)
+    dx = torch.empty_like(x)
+    demb = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    lib = _build.load("resblock", _SIGNATURES)
+    err = lib.resblock_backward(
+        *(_build.ptr(t) for t in (x, emb, g, h2, w1t, w2t, g1s, g1b, g2s, g2b, dh, dv, part, dx,
+                                  demb)),
+        B, T, H, W, C, groups, float(eps), _build.stream_ptr(x.device))
+    _build.check(err, "resblock_backward")
+    fused_resblock_bwd.launches += 1
+    return dx, demb
+
+
+class _FusedResBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups, eps):
+        out, h2 = fused_resblock_fwd(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups, eps)
+        ctx.save_for_backward(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, h2)
+        ctx.args = (groups, eps)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, h2 = ctx.saved_tensors
+        groups, eps = ctx.args
+        dx = demb = None
+        if any(ctx.needs_input_grad[:2]):
+            dx, demb = fused_resblock_bwd(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2,
+                                          g.contiguous(), groups, eps)
+        dparams = _build.plain_grads(
+            lambda *p: resblock_plain(x, emb, *p, groups, eps)[0],
+            (k1, b1, k2, b2, g1s, g1b, g2s, g2b), ctx.needs_input_grad[2:10], g)
+        return (dx, demb, *dparams, None, None)
+
+
+def fused_resblock(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups: int = 32,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """The block's output; differentiable.  CPU tensor: the plain version in
+    f32.  CUDA tensor: the kernels, or raise."""
+    return _FusedResBlock.apply(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups, eps)
+
+
+fused_resblock_fwd.launches = 0
+fused_resblock_bwd.launches = 0

@@ -1,7 +1,9 @@
-"""Serving API: build the pipeline once, produce forecasts.
+"""Serving API: build the pipeline once, produce (ensemble) forecasts.
 
 >>> predictor = PreDiffPredictor()                 # seeded weights, on the card
 >>> forecast = predictor.predict(context)         # (B, 6, 128, 128, 1)
+>>> guided = predictor.predict(context, use_alignment=True, avg_x_gt=avg, ddim_steps=50)
+>>> ens = predictor.predict_ensemble(context, num_samples=8)   # (8, B, 6, 128, 128, 1)
 """
 from typing import Dict, Optional, Union
 
@@ -13,18 +15,52 @@ from .factory import build_pipeline
 
 
 class PreDiffPredictor:
-    """Unguided SEVIR-LR nowcaster on one device."""
+    """SEVIR-LR nowcaster on one device, optionally steered by knowledge
+    alignment toward an anticipated mean intensity."""
 
     def __init__(self, cfg: Optional[ConfigDict] = None,
                  params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                 device=None, seed: int = 0):
+                 with_alignment: bool = True, device=None, seed: int = 0):
         self.cfg = cfg or prediff_default_config()
-        self.ld = build_pipeline(self.cfg, with_alignment=False, device=device, params=params,
-                                 seed=seed)
+        self.with_alignment = with_alignment
+        self.ld = build_pipeline(self.cfg, with_alignment=with_alignment, device=device,
+                                 params=params, seed=seed)
         self.device = self.ld.device
 
-    def predict(self, context: Union[np.ndarray, torch.Tensor], timesteps: Optional[int] = None,
+    def _sample_kwargs(self, use_alignment: bool, avg_x_gt, ddim_steps: Optional[int],
+                       timesteps: Optional[int], guidance_every_k: int,
+                       generator: Optional[torch.Generator]):
+        kw = dict(timesteps=timesteps, generator=generator)
+        if ddim_steps:
+            kw.update(sampler="ddim", ddim_steps=ddim_steps)
+        if use_alignment:
+            if not self.with_alignment or avg_x_gt is None:
+                raise ValueError("use_alignment needs with_alignment=True and avg_x_gt")
+            kw.update(use_alignment=True, guidance_every_k=guidance_every_k,
+                      alignment_kwargs={"avg_x_gt": torch.as_tensor(avg_x_gt, dtype=torch.float32)})
+        return kw
+
+    def predict(self, context: Union[np.ndarray, torch.Tensor], use_alignment: bool = False,
+                avg_x_gt: Optional[Union[np.ndarray, torch.Tensor]] = None,
+                ddim_steps: Optional[int] = None, timesteps: Optional[int] = None,
+                guidance_every_k: int = 1,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """One forecast per context: (B, T_in, H, W, C) -> (B, T_out, H, W, C)."""
+        """One forecast per context: (B, T_in, H, W, C) -> (B, T_out, H, W, C).
+        ``use_alignment`` steers toward ``avg_x_gt`` (anticipated mean
+        intensity, (B, 1)); ``ddim_steps`` samples by DDIM instead of DDPM."""
         y = torch.as_tensor(context, dtype=torch.float32).to(self.device)
-        return self.ld.sample(y, timesteps=timesteps, generator=generator)
+        return self.ld.sample(y, **self._sample_kwargs(use_alignment, avg_x_gt, ddim_steps,
+                                                       timesteps, guidance_every_k, generator))
+
+    def predict_ensemble(self, context: Union[np.ndarray, torch.Tensor], num_samples: int = 8,
+                         use_alignment: bool = False,
+                         avg_x_gt: Optional[Union[np.ndarray, torch.Tensor]] = None,
+                         ddim_steps: Optional[int] = None, timesteps: Optional[int] = None,
+                         guidance_every_k: int = 1,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(num_samples, B, T_out, H, W, C): the members folded into the batch
+        on this one device."""
+        y = torch.as_tensor(context, dtype=torch.float32).to(self.device)
+        return self.ld.sample_ensemble(
+            y, num_samples, **self._sample_kwargs(use_alignment, avg_x_gt, ddim_steps, timesteps,
+                                                  guidance_every_k, generator))

@@ -8,11 +8,13 @@ mechanical: walk the port module's own ``state_dict()`` keys, map each to its
 flax path, and invert the flax leaf layout:
 
     Linear  kernel (in,out)          -> weight (out,in)         [transpose]
+    Conv1d  kernel (k,I,O)           -> weight (O,I,k)
     Conv2d  kernel (kh,kw,I,O)       -> weight (O,I,kh,kw)
     Conv3d  kernel (kt,kh,kw,I,O)    -> weight (O,I,kt,kh,kw)
     Norm    scale                    -> weight
     Embed   embedding                -> weight
-    anything else (bias, tables)     copied verbatim.
+    anything else (bias, tables, the attention pool's positional_embedding)
+                                     copied verbatim.
 """
 from typing import Dict, Tuple
 
@@ -46,6 +48,8 @@ def _to_torch_layout(flax_leaf: str, arr: np.ndarray) -> np.ndarray:
         return arr
     if arr.ndim == 2:                      # Linear
         return arr.T
+    if arr.ndim == 3:                      # Conv1d k,I,O -> O,I,k
+        return arr.transpose(2, 1, 0)
     if arr.ndim == 4:                      # Conv2d kh,kw,I,O -> O,I,kh,kw
         return arr.transpose(3, 2, 0, 1)
     if arr.ndim == 5:                      # Conv3d kt,kh,kw,I,O -> O,I,kt,kh,kw

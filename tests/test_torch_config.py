@@ -102,9 +102,15 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
         resolve_device("cuda")
 
 
-def test_with_alignment_is_not_ported():
+def test_with_alignment_builds_and_predicts():
     from prediff_torch.factory import build_pipeline
 
     cfg = config.load_config(config.prediff_default_config, os.path.join(REPO, "configs", "tiny_smoke.yaml"))
-    with pytest.raises(NotImplementedError):
-        build_pipeline(cfg, with_alignment=True, device="cpu")
+    ld = build_pipeline(cfg, with_alignment=True, device="cpu")
+    y = torch.from_numpy(np.random.RandomState(0).rand(1, 3, 32, 32, 1).astype(np.float32))
+    out = ld.sample(y, use_alignment=True, alignment_kwargs={"avg_x_gt": torch.tensor([[0.5]])},
+                    timesteps=2, generator=torch.Generator().manual_seed(0))
+    assert out.shape == (1, 2, 32, 32, 1) and torch.isfinite(out).all()
+    with pytest.raises(ValueError):   # guidance without the alignment net
+        build_pipeline(cfg, device="cpu").sample(y, use_alignment=True,
+                                                 alignment_kwargs={"avg_x_gt": torch.tensor([[0.5]])})

@@ -1,13 +1,15 @@
 """Fused FFN: the port's plain version against the JAX reference and the
-interpret-mode Pallas kernel (f32 and bf16 matmul operands, CPU); the CUDA
-kernel is held against the plain version in test_torch_kernels_cuda.py."""
+interpret-mode Pallas kernel (f32 and bf16 matmul operands, CPU), its input
+gradient likewise, and the ``autograd.Function`` against autograd of the
+plain version; the CUDA kernels are held against the plain versions in
+test_torch_kernels_cuda.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from prediff_tpu.ops import pallas_ffn
-from prediff_torch.ops.ffn import ffn_plain, fused_ffn
+from prediff_torch.ops.ffn import ffn_bwd_dx_plain, ffn_plain, fused_ffn, fused_ffn_bwd_dx
 
 # f32: exact erf here vs the TPU's A&S 7.1.26 (<= 4e-7) and another sum order
 TOL_F32 = 1e-5
@@ -70,3 +72,47 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert torch.equal(fused_ffn(*args), ffn_plain(*args))
     assert fused_ffn.launches == before
 
+
+def _cotangent(tokens, C, seed):
+    return np.random.RandomState(seed).randn(tokens, C).astype(np.float32)
+
+
+@pytest.mark.parametrize("mxu", ["float32", "bfloat16"])
+def test_plain_dx_matches_interpret_kernel(mxu):
+    args = _inputs(128, 128, 512, 3)
+    g = _cotangent(128, 128, 4)
+    want = np.asarray(pallas_ffn.fused_ffn_bwd_dx(
+        *map(jnp.asarray, (args[0], g) + args[1:6]), mxu_dtype_name=mxu, interpret=True))
+    x, ln_s, ln_b, w1, b1, w2, _ = _torch_args(*args)
+    dtype = torch.bfloat16 if mxu == "bfloat16" else None
+    got = ffn_bwd_dx_plain(x, torch.from_numpy(g), ln_s, ln_b, w1, b1, w2,
+                           mxu_dtype=dtype).numpy()
+    if dtype is None:
+        np.testing.assert_allclose(got, want, rtol=TOL_F32, atol=TOL_F32)
+    else:
+        assert_bf16_close(got, want)
+
+
+def _autograd_of_plain(targs, g):
+    leaves = [t.clone().requires_grad_(True) for t in targs]
+    return torch.autograd.grad(ffn_plain(*leaves), leaves, g)
+
+
+def test_plain_dx_matches_autograd_of_plain_forward():
+    targs = _torch_args(*_inputs(64, 128, 512, 5))
+    g = torch.from_numpy(_cotangent(64, 128, 6))
+    want = _autograd_of_plain(targs, g)[0]
+    got = ffn_bwd_dx_plain(targs[0], g, *targs[1:6])
+    torch.testing.assert_close(got, want, rtol=TOL_F32, atol=TOL_F32)
+
+
+def test_function_gives_plain_autograd_grads_on_cpu():
+    targs = _torch_args(*_inputs(48, 64, 256, 7))
+    g = torch.from_numpy(_cotangent(48, 64, 8))
+    want = _autograd_of_plain(targs, g)
+    leaves = [t.clone().requires_grad_(True) for t in targs]
+    before = (fused_ffn.launches, fused_ffn_bwd_dx.launches)
+    got = torch.autograd.grad(fused_ffn(*leaves), leaves, g)
+    for name, w, gt in zip(("x", "ln_w", "ln_b", "w1", "b1", "w2", "b2"), want, got):
+        torch.testing.assert_close(gt, w, rtol=TOL_F32, atol=TOL_F32, msg=name)
+    assert (fused_ffn.launches, fused_ffn_bwd_dx.launches) == before

@@ -1,6 +1,8 @@
 """GroupNorm(+emb)+SiLU: the port's plain version against the JAX reference
-and the interpret-mode Pallas kernel (CPU).  The CUDA kernel is held against
-the plain version in test_torch_kernels_cuda.py."""
+and the interpret-mode Pallas kernel, and the ``autograd.Function``'s
+gradients (CPU).  The CUDA kernel is held against the plain version in
+test_torch_kernels_cuda.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,3 +57,25 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert torch.equal(out, groupnorm_silu_plain(x, w, b, emb, groups=32))
     assert fused_groupnorm_silu.launches == before
 
+
+@pytest.mark.parametrize("with_emb", [False, True])
+def test_function_gives_plain_autograd_grads_on_cpu(with_emb):
+    """No backward kernel: every gradient is autograd of the plain version,
+    and dx matches jax.vjp of the JAX reference."""
+    x, w, b, emb = _inputs(2, 48, 64, 3, with_emb)
+    g = np.random.RandomState(4).randn(2, 48, 64).astype(np.float32)
+    targs = [_torch(a) for a in (x, w, b, emb)]
+    want_leaves = [None if a is None else a.clone().requires_grad_(True) for a in targs]
+    got_leaves = [None if a is None else a.clone().requires_grad_(True) for a in targs]
+    used = [a for a in want_leaves if a is not None]
+    want = torch.autograd.grad(groupnorm_silu_plain(*want_leaves, groups=32), used,
+                               torch.from_numpy(g))
+    got = torch.autograd.grad(fused_groupnorm_silu(*got_leaves, groups=32),
+                              [a for a in got_leaves if a is not None], torch.from_numpy(g))
+    for w_, g_ in zip(want, got):
+        torch.testing.assert_close(g_, w_, rtol=TOL, atol=TOL)
+    _, vjp = jax.vjp(lambda xx: pallas_groupnorm.fused_groupnorm_silu_reference(
+        xx, jnp.asarray(w), jnp.asarray(b), None if emb is None else jnp.asarray(emb),
+        groups=32), jnp.asarray(x))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(vjp(jnp.asarray(g))[0]),
+                               rtol=TOL, atol=TOL)

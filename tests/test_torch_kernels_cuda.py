@@ -1,16 +1,19 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at the shapes the v1 UNet gives them.  Every test needs a CUDA device and
-skips without one.  This file imports no JAX, so it also runs where JAX is
-not installed:
+at the shapes the v1 UNet and alignment net give them, and autograd through
+every wrapper.  Every test needs a CUDA device and skips without one.  This
+file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 import pytest
 import torch
 
-from prediff_torch.ops.attention import axial_attention_plain, fused_axial_attention
-from prediff_torch.ops.ffn import ffn_plain, fused_ffn
+from prediff_torch.ops.attention import (axial_attention_bwd_dx_plain, axial_attention_plain,
+                                         fused_axial_attention, fused_axial_attention_bwd_dx)
+from prediff_torch.ops.ffn import ffn_bwd_dx_plain, ffn_plain, fused_ffn, fused_ffn_bwd_dx
 from prediff_torch.ops.groupnorm import fused_groupnorm_silu, groupnorm_silu_plain
+from prediff_torch.ops.resblock import (fused_resblock, fused_resblock_bwd, fused_resblock_fwd,
+                                        resblock_bwd_plain, resblock_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +88,113 @@ def test_kernels_raise_on_what_they_do_not_take(dev):
     x = torch.randn(1, 8, 64, device=dev).transpose(1, 2)   # not contiguous
     with pytest.raises(ValueError):
         fused_groupnorm_silu(x, torch.ones(8, device=dev), torch.zeros(8, device=dev), groups=8)
+
+
+# ---- input gradients, the whole resblock, autograd through every wrapper ----
+# Gradients (ds, dh, dv, dh1) and the resblock (h1, h2, h3) chain more bf16
+# roundings than the FFN and attention forwards, so they are held to a share
+# of their own scale: max error <= 3e-2 and mean error <= 2e-3 of
+# max |reference|.
+REL_TOL_BWD = 3e-2
+REL_MEAN_TOL_BWD = 2e-3
+
+
+def _close_rel(got, want, tol=REL_TOL_BWD, mean_tol=REL_MEAN_TOL_BWD):
+    scale = want.abs().max().item()
+    err = (got.float() - want.float()).abs()
+    assert err.max().item() <= tol * scale, (err.max().item(), scale)
+    assert err.mean().item() <= mean_tol * scale, (err.mean().item(), scale)
+
+
+def _ffn_args(dev, M, C):
+    hid = 4 * C
+    return (torch.randn(M, C, device=dev), 1.0 + 0.1 * torch.randn(C, device=dev),
+            0.1 * torch.randn(C, device=dev), torch.randn(hid, C, device=dev) / C ** 0.5,
+            0.1 * torch.randn(hid, device=dev), torch.randn(C, hid, device=dev) / hid ** 0.5,
+            0.1 * torch.randn(C, device=dev))
+
+
+@pytest.mark.parametrize("M,C", [(1536, 128), (384, 256), (100, 128), (64, 512)])
+def test_ffn_dx_kernel_matches_plain(dev, M, C):
+    x, ln_w, ln_b, w1, b1, w2, _ = _ffn_args(dev, M, C)
+    g = torch.randn(M, C, device=dev)
+    before = fused_ffn_bwd_dx.launches
+    got = fused_ffn_bwd_dx(x, g, ln_w, ln_b, w1, b1, w2)
+    want = ffn_bwd_dx_plain(x, g, ln_w, ln_b, w1, b1, w2, mxu_dtype=torch.bfloat16)
+    _close_rel(got, want)
+    assert fused_ffn_bwd_dx.launches == before + 1
+
+
+def _attn_args(dev, shape, axis, heads=4):
+    B, T, H, W, C = shape
+    vol = (T, H, W)[axis]
+    return (torch.randn(*shape, device=dev), 1.0 + 0.1 * torch.randn(C, device=dev),
+            0.1 * torch.randn(C, device=dev), torch.randn(3 * C, C, device=dev) / C ** 0.5,
+            0.5 * torch.randn(heads, vol, vol, device=dev), torch.randn(C, C, device=dev) / C ** 0.5,
+            0.1 * torch.randn(C, device=dev))
+
+
+@pytest.mark.parametrize("shape", [(1, 6, 16, 16, 128), (1, 6, 8, 8, 256), (2, 5, 3, 7, 64)])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_attention_dx_kernel_matches_plain(dev, shape, axis):
+    x, ln_w, ln_b, w_qkv, bias, w_proj, _ = _attn_args(dev, shape, axis)
+    g = torch.randn(*shape, device=dev)
+    scale = (shape[-1] // 4) ** -0.5
+    got = fused_axial_attention_bwd_dx(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, 4, scale)
+    want = axial_attention_bwd_dx_plain(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, 4, scale,
+                                        mxu_dtype=torch.bfloat16)
+    _close_rel(got, want)
+
+
+def _resblock_args(dev, shape):
+    B, T, H, W, C = shape
+    k = lambda: torch.randn(C, C, 3, 3, 3, device=dev) / (27 * C) ** 0.5  # noqa: E731
+    v = lambda s=0.1, m=0.0: m + s * torch.randn(C, device=dev)  # noqa: E731
+    return (0.5 * torch.randn(*shape, device=dev), 0.3 * torch.randn(B, C, device=dev), k(), v(),
+            k(), v(), v(m=1.0), v(), v(m=1.0), v())
+
+
+@pytest.mark.parametrize("shape", [(1, 6, 16, 16, 128), (1, 6, 8, 8, 256), (2, 3, 4, 5, 64)])
+def test_resblock_kernels_match_plain(dev, shape):
+    args = _resblock_args(dev, shape)
+    out, h2 = fused_resblock_fwd(*args)
+    want_out, want_h2 = resblock_plain(*args, mxu_dtype=torch.bfloat16)
+    assert h2.dtype == torch.bfloat16
+    _close_rel(out, want_out)
+    _close_rel(h2.float(), want_h2)
+    x, emb, k1, _, k2, _, g1s, g1b, g2s, g2b = args
+    g = torch.randn(*shape, device=dev)
+    dx, demb = fused_resblock_bwd(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g)
+    want_dx, want_demb = resblock_bwd_plain(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2.float(), g,
+                                            mxu_dtype=torch.bfloat16)
+    _close_rel(dx, want_dx)
+    _close_rel(demb, want_demb)
+
+
+def _grads(fn, args, g):
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    return torch.autograd.grad(fn(*leaves), leaves, g)
+
+
+def test_autograd_through_every_wrapper_on_the_card(dev):
+    """Each Function on CUDA gives the gradients of autograd of the f32 plain
+    version (dx through the kernels, parameter gradients through the plain
+    version), so guidance cannot skip a kernel."""
+    cases = []
+    x = torch.randn(1, 1536, 128, device=dev) * 2.0 + 1.0
+    w, b, emb = 1.0 + 0.1 * torch.randn(128, device=dev), 0.1 * torch.randn(128, device=dev), \
+        torch.randn(1, 128, device=dev)
+    cases.append(("groupnorm", lambda *a: fused_groupnorm_silu(*a, groups=32),
+                  lambda *a: groupnorm_silu_plain(*a, groups=32), (x, w, b, emb)))
+    cases.append(("ffn", fused_ffn, ffn_plain, _ffn_args(dev, 384, 256)))
+    a = _attn_args(dev, (1, 6, 8, 8, 256), 1)
+    cases.append(("attention", lambda x, *p: fused_axial_attention(x, 1, *p, 4, 0.125),
+                  lambda x, *p: axial_attention_plain(x, 1, *p, 4, 0.125), a))
+    cases.append(("resblock", fused_resblock, lambda *p: resblock_plain(*p)[0],
+                  _resblock_args(dev, (1, 6, 8, 8, 256))))
+    for name, fused, plain, args in cases:
+        g = torch.randn_like(args[0])
+        got, want = _grads(fused, args, g), _grads(plain, args, g)
+        for i, (gt, wt) in enumerate(zip(got, want)):
+            assert gt is not None and torch.isfinite(gt).all(), (name, i)
+            _close_rel(gt, wt)
