@@ -6,7 +6,8 @@
 
 Phases, one JSON line each: the card; the kernels' build from
 ``prediff_torch/csrc``; each hand-written kernel against its plain PyTorch
-version at every shape the UNet and the alignment net give it, with times;
+version at every shape the UNet (forecasting at B=1, training at the
+micro-batch size) and the alignment net give it, with times;
 a full-width UNet forward on the card (kernels) against the same forward on
 the CPU (plain versions) with randomized weights; the guidance shift of the
 full-width alignment net on the card against the CPU's; then three chains
@@ -14,14 +15,22 @@ through ``PreDiffPredictor.predict``, each with the kernels' launch counts
 set to 0 just before it and read just after: the 100-step unguided DDPM
 forecast, the 100-step guided DDPM forecast and the 50-step guided DDIM
 forecast (VAE encode, the steps, VAE decode); profiles of a UNet forward
-and of a guided step.  Then the ``kernels`` summary line, the card's name
+and of a guided step.  Then training, with the dropout rates at 0:
+``train_grads``, one loss and backward of the full-width UNet on the card
+(kernels) against the CPU (plain, f32), twice on the card for bit-equal
+gradients; ``train``, ``fit`` with ``DiffusionTrainer`` for a few accumulated
+optimizer steps from synthetic batches with a validation step on the EMA
+weights and a checkpoint restored into a fresh state; a profile of one
+micro-step.  Then the ``kernels`` summary line, the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that line is printed.
 """
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # Published peaks of one H100 SXM (dense): HBM 3.35 TB/s, bf16 tensor cores
@@ -35,17 +44,34 @@ SEED = 0
 AVG_X_GT = 0.5          # the knowledge target of the guided chains
 SHIFT_TOL_REL_L2 = 5e-2  # card vs CPU guidance shift (tests/test_guidance_kernels.py bar)
 SHIFT_MIN_COSINE = 0.99
+TRAIN_OPT_STEPS = 3      # optimizer steps of the train phase
+TRAIN_ACCUM = 2          # micro-steps per optimizer step
+TRAIN_SCHEDULE_STEPS = 100   # the run whose first optimizer steps are taken: 10 of warmup
+GRAD_TOL_REL_L2 = 5e-2   # card vs CPU gradient over all leaves (bf16 operands vs f32)
+GRAD_MIN_COSINE = 0.99
+LOSS_TOL_REL = 1e-3
 
-KERNELS = {  # name: (source, TPU kernel it replaces)
-    "groupnorm_silu": ("prediff_torch/csrc/groupnorm.cu", "prediff_tpu/ops/pallas_groupnorm.py:127"),
-    "ffn": ("prediff_torch/csrc/ffn.cu", "prediff_tpu/ops/pallas_ffn.py:126"),
+# name: (source, TPU kernel it replaces, the path whose run gives its launches
+# and whose mix of shapes weighs its times)
+KERNELS = {
+    "groupnorm_silu": ("prediff_torch/csrc/groupnorm.cu", "prediff_tpu/ops/pallas_groupnorm.py:127",
+                       "guided_forecast"),
+    "ffn": ("prediff_torch/csrc/ffn.cu", "prediff_tpu/ops/pallas_ffn.py:126", "guided_forecast"),
     "axial_attention": ("prediff_torch/csrc/attention.cu",
-                        "prediff_tpu/ops/pallas_attention.py:778"),
-    "ffn_bwd_dx": ("prediff_torch/csrc/ffn.cu", "prediff_tpu/ops/pallas_ffn.py:445"),
+                        "prediff_tpu/ops/pallas_attention.py:778", "guided_forecast"),
+    "ffn_bwd_dx": ("prediff_torch/csrc/ffn.cu", "prediff_tpu/ops/pallas_ffn.py:445",
+                   "guided_forecast"),
     "axial_attention_bwd_dx": ("prediff_torch/csrc/attention.cu",
-                               "prediff_tpu/ops/pallas_attention.py:927"),
-    "resblock": ("prediff_torch/csrc/resblock.cu", "prediff_tpu/ops/pallas_resblock.py:458"),
-    "resblock_bwd": ("prediff_torch/csrc/resblock.cu", "prediff_tpu/ops/pallas_resblock.py:530"),
+                               "prediff_tpu/ops/pallas_attention.py:927", "guided_forecast"),
+    "resblock": ("prediff_torch/csrc/resblock.cu", "prediff_tpu/ops/pallas_resblock.py:458",
+                 "guided_forecast"),
+    "resblock_bwd": ("prediff_torch/csrc/resblock.cu", "prediff_tpu/ops/pallas_resblock.py:530",
+                     "guided_forecast"),
+    "ffn_bwd_full": ("prediff_torch/csrc/ffn.cu", "prediff_tpu/ops/pallas_ffn.py:375", "train"),
+    "axial_attention_bwd_full": ("prediff_torch/csrc/attention.cu",
+                                 "prediff_tpu/ops/pallas_attention.py:1311", "train"),
+    "groupnorm_silu_bwd_full": ("prediff_torch/csrc/groupnorm.cu",
+                                "prediff_tpu/ops/pallas_groupnorm.py:277", "train"),
 }
 
 
@@ -98,34 +124,48 @@ def errors(got, want):
 
 
 # --------------------------------------------------------------------------- #
-def kernel_cases(unet, align):
-    """Every (kernel, shape) of the paths, with launches per UNet forward
-    (``per_unet``) and per guidance shift, alignment forward and backward
-    (``per_align``)."""
+def kernel_cases(unet, align, train_batch: int):
+    """Every (kernel, shape) of the paths, with launches per UNet forward at
+    B=1 (``per_unet``), per guidance shift, alignment forward and backward
+    (``per_align``), and per training micro-step at ``train_batch`` samples,
+    forward and backward (``per_train``)."""
     cases = {k: [] for k in KERNELS}
 
-    def add(name, per_unet=0, per_align=0, **shape):
-        cases[name].append(dict(shape, per_unet=per_unet, per_align=per_align))
+    def add(name, per_unet=0, per_align=0, per_train=0, **shape):
+        cases[name].append(dict(shape, per_unet=per_unet, per_align=per_align,
+                                per_train=per_train))
 
-    T, H, W, C0 = unet.mem_shapes[0]
-    fp = unet.first_proj
-    add("groupnorm_silu", per_unet=1, shape=[1, T * H * W, unet.data_shape[-1]],
-        groups=fp.in_groups, emb=False)
-    add("groupnorm_silu", per_unet=1, shape=[1, T * H * W, C0], groups=fp.out_groups, emb=False)
-    for i, (t, h, w, c) in enumerate(unet.mem_shapes):
-        n = unet.depth[i] * 2  # down + up calls of the stage's time blocks
-        groups = unet.down_time_embed_blocks[i].in_groups
-        add("groupnorm_silu", per_unet=n, shape=[1, t * h * w, c], groups=groups, emb=False)
-        add("groupnorm_silu", per_unet=n, shape=[1, t * h * w, c], groups=groups, emb=True)
-        add("ffn", per_unet=3 * n, shape=[t * h * w, c])
-        for axis in range(3):
-            add("axial_attention", per_unet=n, shape=[1, t, h, w, c], axis=axis)
+    for B, key in ((1, "per_unet"), (train_batch, "per_train")):
+        # a micro-step runs each forward kernel once and, behind it, its all-gradients backward
+        gn = ("groupnorm_silu", "groupnorm_silu_bwd_full") if key == "per_train" else ("groupnorm_silu",)
+        ffn = ("ffn", "ffn_bwd_full") if key == "per_train" else ("ffn",)
+        attn = (("axial_attention", "axial_attention_bwd_full") if key == "per_train"
+                else ("axial_attention",))
+        T, H, W, C0 = unet.mem_shapes[0]
+        fp = unet.first_proj
+        for name in gn:
+            add(name, shape=[B, T * H * W, unet.data_shape[-1]], groups=fp.in_groups, emb=False,
+                **{key: 1})
+            add(name, shape=[B, T * H * W, C0], groups=fp.out_groups, emb=False, **{key: 1})
+        for i, (t, h, w, c) in enumerate(unet.mem_shapes):
+            n = unet.depth[i] * 2  # down + up calls of the stage's time blocks
+            groups = unet.down_time_embed_blocks[i].in_groups
+            for name in gn:
+                add(name, shape=[B, t * h * w, c], groups=groups, emb=False, **{key: n})
+                add(name, shape=[B, t * h * w, c], groups=groups, emb=True, **{key: n})
+            for name in ffn:
+                add(name, shape=[B * t * h * w, c], **{key: 3 * n})
+            for name in attn:
+                for axis in range(3):
+                    add(name, shape=[B, t, h, w, c], axis=axis, **{key: n})
 
     T, H, W, Cin = align.input_shape
     fp = align.first_proj
-    add("groupnorm_silu", per_align=1, shape=[1, T * H * W, Cin], groups=fp.in_groups, emb=False)
-    add("groupnorm_silu", per_align=1, shape=[1, T * H * W, align.mem_shapes[0][-1]],
-        groups=fp.out_groups, emb=False)
+    # first_proj changes width, so it keeps the GN kernel, whose backward is the all-gradients one
+    for name in ("groupnorm_silu", "groupnorm_silu_bwd_full"):
+        add(name, per_align=1, shape=[1, T * H * W, Cin], groups=fp.in_groups, emb=False)
+        add(name, per_align=1, shape=[1, T * H * W, align.mem_shapes[0][-1]],
+            groups=fp.out_groups, emb=False)
     for i, (t, h, w, c) in enumerate(align.mem_shapes):
         n = align.depth[i]
         groups = align.down_time_embed_blocks[i].in_groups
@@ -144,10 +184,14 @@ def check_kernels(cases, device):
     at the same points) on the same inputs, the error, the times and the
     bound.  Adds its results to the case dicts; returns the failed cases."""
     import torch
-    from prediff_torch.ops.attention import (axial_attention_bwd_dx_plain, axial_attention_plain,
-                                             fused_axial_attention, fused_axial_attention_bwd_dx)
-    from prediff_torch.ops.ffn import ffn_bwd_dx_plain, ffn_plain, fused_ffn, fused_ffn_bwd_dx
-    from prediff_torch.ops.groupnorm import fused_groupnorm_silu, groupnorm_silu_plain
+    from prediff_torch.ops.attention import (axial_attention_bwd_dx_plain,
+                                             axial_attention_bwd_full_plain, axial_attention_plain,
+                                             fused_axial_attention, fused_axial_attention_bwd_dx,
+                                             fused_axial_attention_bwd_full)
+    from prediff_torch.ops.ffn import (ffn_bwd_dx_plain, ffn_bwd_full_plain, ffn_plain, fused_ffn,
+                                       fused_ffn_bwd_dx, fused_ffn_bwd_full)
+    from prediff_torch.ops.groupnorm import (fused_groupnorm_silu, fused_groupnorm_silu_bwd_full,
+                                             groupnorm_silu_bwd_full_plain, groupnorm_silu_plain)
     from prediff_torch.ops.resblock import (fused_resblock_bwd, fused_resblock_fwd,
                                             resblock_bwd_plain, resblock_plain)
 
@@ -176,9 +220,25 @@ def check_kernels(cases, device):
                  tol=tol if tol is not None else {"rel_max": rel_tol, "rel_mean": rel_mean_tol})
         return ok
 
-    def timed(c, kernel, plain, nbytes, **flops):
+    def timed(c, kernel, plain, nbytes, library=None, **flops):
         c.update(ms=time_ms(kernel), plain_ms=time_ms(plain), bound=bound(nbytes, **flops),
-                 library_ms=None)
+                 library_ms=None if library is None else time_ms(library))
+
+    def judge_all(c, names, got, want, **tols):
+        """A kernel with several outputs: each held to its own scale; the
+        case keeps the worst absolute error and every output's."""
+        per_output = {}
+        for name, gt, wt in zip(names, got, want):
+            if wt is None:
+                continue
+            one = {}
+            judge(one, gt, wt, **tols)
+            per_output[name] = one
+        worst = max(per_output.values(), key=lambda o: o["max_rel_err"])
+        c.update(worst, ok=all(o["ok"] for o in per_output.values()),
+                 max_abs_err=max(o["max_abs_err"] for o in per_output.values()),
+                 outputs={k: {"max_abs_err": o["max_abs_err"], "max_rel_err": o["max_rel_err"]}
+                          for k, o in per_output.items()})
 
     failed = []
     for c in cases["groupnorm_silu"]:
@@ -195,13 +255,46 @@ def check_kernels(cases, device):
               4 * (2 * B * N * C + 2 * C + (B * C if emb is not None else 0)),
               f32_flops=12 * B * N * C)
 
-    for name, c in [(n, c) for n in ("ffn", "ffn_bwd_dx") for c in cases[n]]:
+    for c in cases["groupnorm_silu_bwd_full"]:
+        B, N, C = c["shape"]
+        groups = c["groups"]
+        x, g = randn(B, N, C, scale=2.0, shift=1.0), randn(B, N, C)
+        w, b = vec(C, shift=1.0), vec(C)
+        emb = randn(B, C) if c["emb"] else None
+        got = fused_groupnorm_silu_bwd_full(x, g, w, b, emb, groups)
+        want = groupnorm_silu_bwd_full_plain(x, g, w, b, emb, groups)
+        sync(device)
+        # all f32 on both sides, only the order of the sums differs: 1e-4 of the
+        # output's scale (dgamma and dbeta sum B * N terms and reach the hundreds)
+        judge_all(c, ("dx", "dgamma", "dbeta", "demb"), got, want, rel_tol=1e-4, rel_mean_tol=1e-5)
+        # the nearest library route: autograd of F.group_norm + F.silu, its backward alone
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)] + (
+            [emb.clone().requires_grad_(True)] if emb is not None else [])
+        xin = leaves[0] + leaves[3][:, None] if emb is not None else leaves[0]
+        y = torch.nn.functional.silu(torch.nn.functional.group_norm(
+            xin.transpose(1, 2), groups, leaves[1], leaves[2], 1e-5)).transpose(1, 2)
+        timed(c, lambda: fused_groupnorm_silu_bwd_full(x, g, w, b, emb, groups),
+              lambda: groupnorm_silu_bwd_full_plain(x, g, w, b, emb, groups),
+              4 * (3 * B * N * C + 4 * C + (2 * B * C if emb is not None else 0)),
+              library=lambda: torch.autograd.grad(y, leaves, g, retain_graph=True),
+              f32_flops=30 * B * N * C)
+
+    for name, c in [(n, c) for n in ("ffn", "ffn_bwd_dx", "ffn_bwd_full") for c in cases[n]]:
         M, C = c["shape"]
         hid = 4 * C
         x, ln_w, ln_b = randn(M, C), vec(C, shift=1.0), vec(C)
         w1, b1 = randn(hid, C, scale=C ** -0.5), vec(hid)
         w2, b2 = randn(C, hid, scale=hid ** -0.5), vec(C)
-        if name == "ffn":
+        if name == "ffn_bwd_full":
+            args = (x, randn(M, C), ln_w, ln_b, w1, b1, w2)
+            got = fused_ffn_bwd_full(*args)
+            want = ffn_bwd_full_plain(*args, mxu_dtype=bf16)
+            sync(device)
+            judge_all(c, ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2"), got, want)
+            timed(c, lambda: fused_ffn_bwd_full(*args),
+                  lambda: ffn_bwd_full_plain(*args, mxu_dtype=bf16),
+                  4 * (3 * M * C + 4 * C * hid + 2 * hid + 5 * C), bf16_flops=10 * M * C * hid)
+        elif name == "ffn":
             args = (x, ln_w, ln_b, w1, b1, w2, b2)
             got, want = fused_ffn(*args), ffn_plain(*args, mxu_dtype=bf16)
             sync(device)
@@ -219,8 +312,8 @@ def check_kernels(cases, device):
                   4 * (3 * M * C + 2 * C * hid + hid + 2 * C), bf16_flops=6 * M * C * hid)
 
     heads = 4
-    for name, c in [(n, c) for n in ("axial_attention", "axial_attention_bwd_dx")
-                    for c in cases[n]]:
+    for name, c in [(n, c) for n in ("axial_attention", "axial_attention_bwd_dx",
+                                     "axial_attention_bwd_full") for c in cases[n]]:
         B, T, H, W, C = c["shape"]
         axis = c["axis"]
         vol = (T, H, W)[axis]
@@ -229,7 +322,17 @@ def check_kernels(cases, device):
         w_qkv, bias = randn(3 * C, C, scale=C ** -0.5), randn(heads, vol, vol, scale=0.5)
         w_proj, b_proj = randn(C, C, scale=C ** -0.5), vec(C)
         scale = (C // heads) ** -0.5
-        if name == "axial_attention":
+        if name == "axial_attention_bwd_full":
+            args = (x, randn(B, T, H, W, C), axis, ln_w, ln_b, w_qkv, bias, w_proj, heads, scale)
+            got = fused_axial_attention_bwd_full(*args)
+            want = axial_attention_bwd_full_plain(*args, mxu_dtype=bf16)
+            sync(device)
+            judge_all(c, ("dx", "dln_w", "dln_b", "dw_qkv", "dbias", "dw_proj", "db_proj"), got, want)
+            timed(c, lambda: fused_axial_attention_bwd_full(*args),
+                  lambda: axial_attention_bwd_full_plain(*args, mxu_dtype=bf16),
+                  4 * (3 * M * C + 8 * C * C + 2 * heads * vol * vol + 5 * C),
+                  bf16_flops=22 * M * C * C + 12 * M * vol * C)
+        elif name == "axial_attention":
             args = (x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale)
             got = fused_axial_attention(*args)
             want = axial_attention_plain(*args, mxu_dtype=bf16)
@@ -293,26 +396,43 @@ def expected_launches(cases, steps: int, guided: bool):
             for name, cs in cases.items()}
 
 
-def summarize(cases, launches_by_path, main_path: str):
-    """The ``kernels`` line: per kernel, times weighted over one guided
-    step's mix of shapes (launches per UNet forward plus per guidance shift)."""
+def expected_train_launches(cases, micro_steps: int, val_steps: int):
+    """Wrapper calls of ``micro_steps`` training micro-steps and ``val_steps``
+    validation steps, which run the forward kernels alone."""
+    out = {}
+    for name, cs in cases.items():
+        per = sum(c["per_train"] for c in cs)
+        forward_only = name in ("groupnorm_silu", "ffn", "axial_attention")
+        out[name] = (micro_steps + (val_steps if forward_only else 0)) * per
+    return out
+
+
+def summarize(cases, launches_by_path):
+    """The ``kernels`` line: per kernel, the launches of its main path's run
+    and its times weighted over that path's mix of shapes: one guided step
+    (launches per UNet forward plus per guidance shift), or one training
+    micro-step for the all-gradients kernels."""
     out = []
     for name, cs in cases.items():
-        wts = [c["per_unet"] + c["per_align"] for c in cs]
+        source, replaces, main_path = KERNELS[name]
+        keys = ("per_train",) if main_path == "train" else ("per_unet", "per_align")
+        wts = [sum(c[k] for k in keys) for c in cs]
         n = sum(wts)
 
         def mix(key, cs=cs, wts=wts, n=n):
-            return sum(c[key] * w for c, w in zip(cs, wts)) / n
+            return sum(c[key] * w for c, w in zip(cs, wts) if w) / n
 
         bytes_share = sum(w for c, w in zip(cs, wts) if c["bound"][1] == "bytes") / n
+        has_library = all(c["library_ms"] is not None for c in cs)
         out.append(dict(
-            name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
+            name=name, route="cuda", source=source, replaces=replaces,
             launches=launches_by_path[main_path][name],
             max_abs_err=max(c["max_abs_err"] for c in cs), ms=mix("ms"), plain_ms=mix("plain_ms"),
             bound_ms=sum(c["bound"][0] * w for c, w in zip(cs, wts)) / n,
-            bound_by="bytes" if bytes_share >= 0.5 else "operations", library_ms=None,
+            bound_by="bytes" if bytes_share >= 0.5 else "operations",
+            library_ms=mix("library_ms") if has_library else None, main_path=main_path,
             launches_by_path={p: v[name] for p, v in launches_by_path.items()},
-            launches_per_guided_step_mix=n,
+            launches_per_step_mix=n,
             shapes=[{k: v for k, v in c.items() if k != "bound"}
                     | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]} for c in cs]))
     return out
@@ -367,8 +487,6 @@ def main() -> int:
         return 2
 
     if args.log:
-        import os
-
         os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
         LOG.append(open(args.log, "w"))
     device = torch.device("cuda", 0)
@@ -395,9 +513,10 @@ def run(device, cfg, smi: str) -> None:
     from prediff_torch.diffusion.knowledge_alignment import KnowledgeAlignment
     from prediff_torch.factory import build_alignment_model, build_unet, build_vae
     from prediff_torch.models.init import init_params_
-    from prediff_torch.ops.attention import fused_axial_attention, fused_axial_attention_bwd_dx
-    from prediff_torch.ops.ffn import fused_ffn, fused_ffn_bwd_dx
-    from prediff_torch.ops.groupnorm import fused_groupnorm_silu
+    from prediff_torch.ops.attention import (fused_axial_attention, fused_axial_attention_bwd_dx,
+                                             fused_axial_attention_bwd_full)
+    from prediff_torch.ops.ffn import fused_ffn, fused_ffn_bwd_dx, fused_ffn_bwd_full
+    from prediff_torch.ops.groupnorm import fused_groupnorm_silu, fused_groupnorm_silu_bwd_full
     from prediff_torch.ops.resblock import fused_resblock_bwd, fused_resblock_fwd
     from prediff_torch.serving import PreDiffPredictor
     from prediff_torch.utils.device import set_numerics
@@ -406,7 +525,10 @@ def run(device, cfg, smi: str) -> None:
     counters = {"groupnorm_silu": fused_groupnorm_silu, "ffn": fused_ffn,
                 "axial_attention": fused_axial_attention, "ffn_bwd_dx": fused_ffn_bwd_dx,
                 "axial_attention_bwd_dx": fused_axial_attention_bwd_dx,
-                "resblock": fused_resblock_fwd, "resblock_bwd": fused_resblock_bwd}
+                "resblock": fused_resblock_fwd, "resblock_bwd": fused_resblock_bwd,
+                "ffn_bwd_full": fused_ffn_bwd_full,
+                "axial_attention_bwd_full": fused_axial_attention_bwd_full,
+                "groupnorm_silu_bwd_full": fused_groupnorm_silu_bwd_full}
     gen = torch.Generator().manual_seed(SEED)
     unet_cpu = init_params_(build_unet(cfg), gen, randomize=True).eval().requires_grad_(False)
     vae_cpu = init_params_(build_vae(cfg), gen, randomize=True).eval().requires_grad_(False)
@@ -417,7 +539,7 @@ def run(device, cfg, smi: str) -> None:
           "vae_params": sum(p.numel() for p in vae_cpu.parameters()),
           "align_params": sum(p.numel() for p in align_cpu.parameters())})
 
-    cases = kernel_cases(unet_cpu, align_cpu)
+    cases = kernel_cases(unet_cpu, align_cpu, cfg.optim.micro_batch_size)
     bad = check_kernels(cases, device)
     emit({"phase": "kernels_vs_plain", "cases": sum(len(v) for v in cases.values()),
           "failed": len(bad)})
@@ -535,8 +657,184 @@ def run(device, cfg, smi: str) -> None:
                  reps=5))
     emit(profile("profile_guidance_shift",
                  lambda: predictor.ld.alignment.get_mean_shift(zg, td, avg_d), reps=5))
-    emit({"kernels": summarize(cases, launches_by_path, "guided_forecast")})
+    launches_by_path["train"] = train_phases(device, cfg, smi, cases, unet_cpu.state_dict(),
+                                             vae_cpu.state_dict(), zero_counts, read_counts)
+    emit({"kernels": summarize(cases, launches_by_path)})
     print(smi, flush=True)
+
+
+def train_phases(device, cfg, smi, cases, unet_sd, vae_sd, zero_counts, read_counts):
+    """``train_grads``, ``train`` and ``profile_train_step`` on ``device`` at
+    the configuration's widths with the dropout rates at 0; returns the
+    kernels' launch counts of the ``fit`` run."""
+    import numpy as np
+    import torch
+    from prediff_torch.config import ConfigDict, deep_merge
+    from prediff_torch.datasets.synthetic import synthetic_batch_iterator
+    from prediff_torch.factory import build_training_pipeline
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.training import DiffusionTrainer, fit
+    from prediff_torch.utils.checkpoint import all_steps, restore_checkpoint
+
+    no_drop = dict(attn_drop=0.0, proj_drop=0.0, ffn_drop=0.0, time_embed_dropout=0.0)
+    cfg = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"latent_model": no_drop}}))
+    B = cfg.optim.micro_batch_size
+    d = cfg.model.diffusion
+    weights = {"unet": unet_sd, "vae": vae_sd}
+
+    # One loss and backward at full width: the card (kernels) against the CPU (plain, f32).
+    rs = torch.Generator().manual_seed(SEED + 2)
+    z = torch.randn((B,) + tuple(d.latent_shape), generator=rs)
+    zc = torch.randn((B,) + tuple(d.latent_cond_shape), generator=rs)
+    t = torch.randint(0, d.timesteps, (B,), generator=rs)
+    noise = torch.randn(z.shape, generator=rs)
+    logvar0 = 0.1 * torch.randn(d.timesteps, generator=rs)
+
+    def loss_and_grads(ld):
+        dev = ld.device
+        logvar = logvar0.to(dev).requires_grad_(True)
+        loss, _ = ld.p_losses(logvar, z.to(dev), zc.to(dev), t.to(dev), noise.to(dev))
+        names = [f"unet.{k}" for k, _ in ld.unet.named_parameters()] + ["logvar"]
+        grads = torch.autograd.grad(loss, list(ld.unet.parameters()) + [logvar])
+        return float(loss.detach()), names, grads
+
+    t1 = time.perf_counter()
+    ld_cpu = build_training_pipeline(cfg, device="cpu", params=weights)
+    loss_cpu, names, grads_cpu = loss_and_grads(ld_cpu)
+    cpu_s = time.perf_counter() - t1
+    del ld_cpu
+    ld = build_training_pipeline(cfg, device=device, params=weights)
+    trainer = DiffusionTrainer(ld, optim_config=dict(
+        lr=cfg.optim.lr, total_num_steps=TRAIN_SCHEDULE_STEPS, method=cfg.optim.method, wd=cfg.optim.wd,
+        betas=tuple(cfg.optim.betas), gradient_clip_val=cfg.optim.gradient_clip_val,
+        warmup_percentage=cfg.optim.warmup_percentage,
+        lr_scheduler_mode=cfg.optim.lr_scheduler_mode, min_lr_ratio=cfg.optim.min_lr_ratio,
+        warmup_min_lr_ratio=cfg.optim.warmup_min_lr_ratio, accum_steps=TRAIN_ACCUM),
+        use_ema=d.use_ema, track_grad_norm=True)
+    loss_and_grads(ld)  # warm-up: cuDNN picks its algorithms for these shapes
+    sync(device)
+    zero_counts()
+    loss_card, _, grads_card = loss_and_grads(ld)
+    sync(device)
+    counts = read_counts()
+    _, _, grads_again = loss_and_grads(ld)
+    sync(device)
+    want_counts = expected_train_launches(cases, 1, 0)
+    gc = [g.cpu().double().flatten() for g in grads_card]
+    gr = [g.double().flatten() for g in grads_cpu]
+    rel_l2 = float(torch.cat([a - b for a, b in zip(gc, gr)]).norm() / torch.cat(gr).norm())
+    cosine = float(torch.cat(gc) @ torch.cat(gr) / (torch.cat(gc).norm() * torch.cat(gr).norm()))
+    leaf_rel = [float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(gc, gr)]
+    worst = int(np.argmax(leaf_rel))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(grads_card, grads_again))
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    emit({"phase": "train_grads", "batch": B, "leaves": len(names), "loss_card": loss_card,
+          "loss_cpu": loss_cpu, "loss_rel_err": loss_rel, "tol_loss_rel": LOSS_TOL_REL,
+          "grad_rel_l2_err": rel_l2, "grad_cosine": cosine, "tol_rel_l2": GRAD_TOL_REL_L2,
+          "min_cosine": GRAD_MIN_COSINE, "worst_leaf": names[worst],
+          "worst_leaf_rel_l2": leaf_rel[worst],
+          "leaves_over_tol": sum(r > GRAD_TOL_REL_L2 for r in leaf_rel),
+          "bit_equal_across_two_runs": bit_equal, "launches": counts,
+          "expected_launches": want_counts, "cpu_loss_and_backward_s": cpu_s})
+    if not all(torch.isfinite(g).all() for g in grads_card):
+        fail("train_grads: non-finite gradient on the card")
+    if loss_rel > LOSS_TOL_REL or rel_l2 > GRAD_TOL_REL_L2 or cosine < GRAD_MIN_COSINE:
+        fail(f"train_grads: card differs from the CPU: loss {loss_rel}, gradient rel_l2 {rel_l2}, "
+             f"cosine {cosine}")
+    if not bit_equal:
+        fail("train_grads: two runs of the same backward on the card differ")
+    if counts != want_counts:
+        fail(f"train_grads: kernel launches {counts} != expected {want_counts}")
+    del grads_card, grads_again, grads_cpu, gc, gr
+
+    # fit: a few accumulated optimizer steps on one synthetic batch repeated,
+    # validation on the EMA weights, a checkpoint, its restore.  The UNet starts
+    # from the seeded v1 initialisation, as a training run does (the randomized
+    # weights above put every leaf's gradient to the test, but no run starts there).
+    init_params_(ld.unet, torch.Generator().manual_seed(SEED))
+    L = cfg.layout
+    batch = torch.from_numpy(next(synthetic_batch_iterator(
+        B, L.in_len + L.out_len, L.img_height, L.img_width, seed=SEED)))
+    xy = (batch[:, L.in_len:].to(device), batch[:, :L.in_len].to(device))
+    micro_steps = TRAIN_OPT_STEPS * TRAIN_ACCUM
+    state = trainer.create_state()
+    micro = []
+
+    def timed_step(state, seed, x, y):
+        sync(device)
+        before = read_counts()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, seed, x, y)
+        sync(device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        after = read_counts()
+        micro.append({"ms": ms, "loss": float(metrics["train/loss"]),
+                      "grad_norm": float(metrics["grad_norm"]), "lr_next": state.tx.lr,
+                      "launches": {k: after[k] - before[k] for k in after}})
+        return state, metrics
+
+    val_losses = []
+
+    def val_fn(state):
+        out = {k: float(v) for k, v in trainer.val_step(state, SEED, *xy, use_ema=True).items()}
+        val_losses.append(out["val/loss"])
+        return out
+
+    # the same draws before and after: the loss of the trained (not the EMA) weights
+    fixed_before = float(trainer.val_step(state, SEED, *xy, use_ema=False)["val/loss"])
+    with tempfile.TemporaryDirectory() as save_dir:
+        torch.cuda.reset_peak_memory_stats(device)
+        zero_counts()
+        t1 = time.perf_counter()
+        state = fit(state, timed_step, lambda epoch: [xy] * micro_steps, lambda b: b, max_epochs=1,
+                    save_dir=save_dir, seed=SEED, val_fn=val_fn, max_steps=micro_steps,
+                    log_every_n_steps=1)
+        sync(device)
+        fit_s = time.perf_counter() - t1
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        fixed_after = float(trainer.val_step(state, SEED, *xy, use_ema=False)["val/loss"])
+        ckpt = os.path.join(save_dir, "ckpt")
+        steps = all_steps(ckpt)
+        ld2 = build_training_pipeline(cfg, device=device, seed=SEED + 7)
+        fresh = DiffusionTrainer(ld2, optim_config=trainer.optim_config,
+                                 use_ema=d.use_ema).create_state()
+        restore_checkpoint(ckpt, fresh)
+    a, b = state.state_dict(), fresh.state_dict()
+    opt_a, opt_b = a["opt_state"]["optimizer"]["state"], b["opt_state"]["optimizer"]["state"]
+    restored_equal = (
+        a["step"] == b["step"] and a["opt_state"]["count"] == b["opt_state"]["count"]
+        and all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+        and all(torch.equal(a["ema_params"][k], b["ema_params"][k]) for k in a["ema_params"])
+        and all(torch.equal(opt_a[i][k], opt_b[i][k]) for i in opt_a for k in opt_a[i]))
+    del ld2, fresh
+    expected = expected_train_launches(cases, micro_steps, len(val_losses))
+    per_micro = expected_train_launches(cases, 1, 0)
+    steady = sorted(m["ms"] for m in micro[2:])
+    ms_per_micro = steady[len(steady) // 2]
+    step_loss = [sum(m["loss"] for m in micro[i:i + TRAIN_ACCUM]) / TRAIN_ACCUM
+                 for i in range(0, micro_steps, TRAIN_ACCUM)]
+    emit({"phase": "train", "batch": B, "accum_steps": TRAIN_ACCUM, "optimizer_steps": state.tx.count,
+          "micro_steps": state.step, "micro": micro, "loss_per_optimizer_step": step_loss,
+          "ms_per_micro_step": ms_per_micro, "samples_per_s": 1e3 * B / ms_per_micro,
+          "fit_seconds": fit_s, "peak_mem_gib": peak, "val_loss_ema": val_losses,
+          "fixed_draw_loss_before": fixed_before, "fixed_draw_loss_after": fixed_after,
+          "checkpoint_steps": steps, "restored_bit_equal": restored_equal, "launches": launches,
+          "expected_launches": expected, "card": smi})
+    if state.step != micro_steps or state.tx.count != TRAIN_OPT_STEPS:
+        fail(f"train: {state.step} micro-steps, {state.tx.count} optimizer steps")
+    if not all(np.isfinite(m["loss"]) for m in micro) or not np.isfinite(val_losses).all():
+        fail("train: non-finite loss")
+    if not fixed_after < fixed_before:
+        fail(f"train: the loss did not fall: {fixed_before} -> {fixed_after} (same batch and draws)")
+    if any(m["launches"] != per_micro for m in micro) or launches != expected:
+        fail(f"train: kernel launches {launches} != expected {expected} "
+             f"(per micro-step {[m['launches'] for m in micro]})")
+    if steps != [micro_steps] or not restored_equal:
+        fail(f"train: checkpoint steps {steps}, restored state equal: {restored_equal}")
+
+    emit(profile("profile_train_step", lambda: trainer.train_step(state, SEED, *xy), reps=2))
+    return launches
 
 
 if __name__ == "__main__":

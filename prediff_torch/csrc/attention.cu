@@ -36,10 +36,34 @@
 // cuboid, as in the forward core, so no cross-cuboid mask is needed.
 // Rounding follows the TPU kernel: g, dattn, ds, p, q . scale, k, v, dqkv
 // and the weights are bf16 operands; p, dp, ds and every sum stay f32.
+//
+// All gradients (axial_attention_bwd_full): replaces
+// pallas_attention.py::fused_axial_attention_5d_bwd_full (body
+// _fused_layer_bwd_full_kernel_v4, no dropout seed): dx as above and, from
+// the same recomputed values, dgamma = sum dln . nhat, dbeta = sum dln,
+// dWqkv = dqkv^T . LN(x), dbias[h, i, j] = sum over cuboids of ds,
+// dWproj = g^T . attn, dbproj = sum g.  The TPU kernel adds each grid cell's
+// share into outputs that stay resident across its sequential grid and
+// folds ds back to within-cuboid pairs with rep^T . ds . rep; here blocks
+// run in no order and a block already is one cuboid, so dbias is a plain
+// sum of the f32 ds over blocks.  The dx launches above run with three
+// additions: the LN+QKV product also writes LN(x) in bf16; the core, in its
+// Full form, walks a few cuboids per block, adds their ds into a
+// shared-memory tile it writes once as its partial, and writes the
+// forward's head outputs (attn, bf16) that dWproj needs.  The two weight
+// gradients are transposed products over the tokens on the tensor cores
+// (tn_gemm_kernel in grad_common.cuh) split over the tokens; the vector
+// gradients are column sums per 32-row block; sum_partials_kernel adds every
+// set of partials in a fixed order.  No atomics: two runs give the same bits.
+// 22 C^2 operations per token in the five products against ~12 C f32 bytes
+// per token plus 32 C^2 for the weights and their gradients: bound by
+// operations at the UNet's training shapes.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <math.h>
+
+#include "grad_common.cuh"
 
 using namespace nvcuda;
 
@@ -57,7 +81,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---------------------------------------------------------------------------
 // out[M, N] = A'[M, K] . W[N, K]^T (+ bias[N]); A' = LN(A) when ln_w != null.
-// With w_kn != 0, W is stored as [K, N] instead: out = A' . W.
+// With w_kn != 0, W is stored as [K, N] instead: out = A' . W.  With ln_out,
+// A' is also written as bf16 (M, K), by the blocks of the first column tile.
 constexpr int kBM = 64, kBN = 64, kBK = 32, kGemmThreads = 128;  // 4 warps, 32 x 32 each
 constexpr int kLdS = kBK + 8;   // bf16 staging row stride
 constexpr int kLdC = kBN + 4;   // f32 epilogue row stride
@@ -65,8 +90,8 @@ constexpr int kLdC = kBN + 4;   // f32 epilogue row stride
 __global__ void __launch_bounds__(kGemmThreads)
 ln_gemm_kernel(const float* __restrict__ A, const float* __restrict__ ln_w,
                const float* __restrict__ ln_b, const float* __restrict__ W,
-               const float* __restrict__ bias, float* __restrict__ out, int M, int N, int K,
-               int w_kn, float eps) {
+               const float* __restrict__ bias, float* __restrict__ out,
+               __nv_bfloat16* __restrict__ ln_out, int M, int N, int K, int w_kn, float eps) {
   __shared__ __align__(32) __nv_bfloat16 As[kBM * kLdS];
   __shared__ __align__(32) __nv_bfloat16 Ws[kBN * kLdS];
   __shared__ __align__(32) float Cs[kBM * kLdC];
@@ -115,7 +140,9 @@ ln_gemm_kernel(const float* __restrict__ A, const float* __restrict__ ln_w,
         a = A[(size_t)gr * K + k0 + k];
         if (ln) a = (a - mu_s[r]) * rs_s[r] * ln_w[k0 + k] + ln_b[k0 + k];
       }
-      As[r * kLdS + k] = __float2bfloat16(a);
+      const __nv_bfloat16 ab = __float2bfloat16(a);
+      As[r * kLdS + k] = ab;
+      if (ln_out != nullptr && blockIdx.x == 0 && gr < M) ln_out[(size_t)gr * K + k0 + k] = ab;
     }
     if (w_kn) {
       for (int i = tid; i < kBN * kBK; i += kGemmThreads) {
@@ -246,12 +273,17 @@ axial_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
   }
 }
 
-// Gradient of the core, one block per (cuboid, head).  qkv (tokens, 3C) and
-// dattn (tokens, C) in; dqkv (tokens, 3C) out: dq | dk | dv blocks of C.
+// Gradient of the core, one block per (cuboids_per_block cuboids, head).  qkv
+// (tokens, 3C) and dattn (tokens, C) in; dqkv (tokens, 3C) out: dq | dk | dv
+// blocks of C.  Full: also attn (tokens, C) bf16, the forward's head outputs,
+// and dbias_part[blockIdx.x, h] = the f32 ds summed over this block's cuboids.
+template <bool Full>
 __global__ void __launch_bounds__(kCoreThreads)
 axial_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
-                      const float* __restrict__ bias, float* __restrict__ dqkv, int T, int H,
-                      int W, int C, int axis, int heads, float scale) {
+                      const float* __restrict__ bias, float* __restrict__ dqkv,
+                      __nv_bfloat16* __restrict__ attn, float* __restrict__ dbias_part, int T,
+                      int H, int W, int C, int axis, int heads, float scale, int n_cuboids,
+                      int cuboids_per_block) {
   extern __shared__ float sm[];
   const int hc = C / heads;
   const int ld = hc + 1;
@@ -262,50 +294,70 @@ axial_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ d
   float* dO = v + vol * ld;  // bf16(dattn)
   float* p = dO + vol * ld;  // [vol][vol] softmax
   float* ds = p + vol * vol; // [vol][vol] dp, then bf16(ds)
-  const int cub = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  size_t base;
-  int stride;
-  cuboid_rows(cub, T, H, W, axis, base, stride);
+  float* dbacc = ds + vol * vol;  // [vol][vol] Full: sum of the f32 ds
+  const int h = blockIdx.y, tid = threadIdx.x;
+  if (Full)
+    for (int i = tid; i < vol * vol; i += kCoreThreads) dbacc[i] = 0.f;
 
-  for (int i = tid; i < vol * hc; i += kCoreThreads) {
-    const int r = i / hc, c = i % hc;
-    const size_t tok = base + (size_t)r * stride;
-    const float* row = qkv + tok * 3 * C + h * hc + c;
-    q[r * ld + c] = bf16_round(row[0] * scale);
-    k[r * ld + c] = bf16_round(row[C]);
-    v[r * ld + c] = bf16_round(row[2 * C]);
-    dO[r * ld + c] = bf16_round(dattn[tok * C + h * hc + c]);
-  }
-  __syncthreads();
-  scores_softmax(q, k, bias + (size_t)h * vol * vol, p, vol, hc, ld);
-  for (int i = tid; i < vol * vol; i += kCoreThreads) {  // dp = dO . v^T
-    const int r = i / vol, j = i % vol;
-    float acc = 0.f;
-    for (int c = 0; c < hc; ++c) acc += dO[r * ld + c] * v[j * ld + c];
-    ds[i] = acc;
-  }
-  __syncthreads();
-  for (int r = tid; r < vol; r += kCoreThreads) {  // ds = p (dp - rowsum(dp p))
-    float dot = 0.f;
-    for (int j = 0; j < vol; ++j) dot += ds[r * vol + j] * p[r * vol + j];
-    for (int j = 0; j < vol; ++j)
-      ds[r * vol + j] = bf16_round(p[r * vol + j] * (ds[r * vol + j] - dot));
-  }
-  __syncthreads();
-  for (int i = tid; i < vol * vol; i += kCoreThreads) p[i] = bf16_round(p[i]);
-  __syncthreads();
-  for (int i = tid; i < vol * hc; i += kCoreThreads) {
-    const int r = i / hc, c = i % hc;  // r: query row for dq, key row for dk / dv
-    float aq = 0.f, ak = 0.f, av = 0.f;
-    for (int j = 0; j < vol; ++j) {
-      aq += ds[r * vol + j] * k[j * ld + c];
-      ak += ds[j * vol + r] * q[j * ld + c];
-      av += p[j * vol + r] * dO[j * ld + c];
+  for (int ci = 0; ci < cuboids_per_block; ++ci) {
+    const int cub = blockIdx.x * cuboids_per_block + ci;
+    if (cub >= n_cuboids) break;
+    __syncthreads();  // the previous cuboid's tiles are read no more
+    size_t base;
+    int stride;
+    cuboid_rows(cub, T, H, W, axis, base, stride);
+
+    for (int i = tid; i < vol * hc; i += kCoreThreads) {
+      const int r = i / hc, c = i % hc;
+      const size_t tok = base + (size_t)r * stride;
+      const float* row = qkv + tok * 3 * C + h * hc + c;
+      q[r * ld + c] = bf16_round(row[0] * scale);
+      k[r * ld + c] = bf16_round(row[C]);
+      v[r * ld + c] = bf16_round(row[2 * C]);
+      dO[r * ld + c] = bf16_round(dattn[tok * C + h * hc + c]);
     }
-    float* out = dqkv + (base + (size_t)r * stride) * 3 * C + h * hc + c;
-    out[0] = aq * scale;
-    out[C] = ak;
-    out[2 * C] = av;
+    __syncthreads();
+    scores_softmax(q, k, bias + (size_t)h * vol * vol, p, vol, hc, ld);
+    for (int i = tid; i < vol * vol; i += kCoreThreads) {  // dp = dO . v^T
+      const int r = i / vol, j = i % vol;
+      float acc = 0.f;
+      for (int c = 0; c < hc; ++c) acc += dO[r * ld + c] * v[j * ld + c];
+      ds[i] = acc;
+    }
+    __syncthreads();
+    for (int r = tid; r < vol; r += kCoreThreads) {  // ds = p (dp - rowsum(dp p))
+      float dot = 0.f;
+      for (int j = 0; j < vol; ++j) dot += ds[r * vol + j] * p[r * vol + j];
+      for (int j = 0; j < vol; ++j) {
+        const float d = p[r * vol + j] * (ds[r * vol + j] - dot);
+        if (Full) dbacc[r * vol + j] += d;  // row r is this thread's alone
+        ds[r * vol + j] = bf16_round(d);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < vol * vol; i += kCoreThreads) p[i] = bf16_round(p[i]);
+    __syncthreads();
+    for (int i = tid; i < vol * hc; i += kCoreThreads) {
+      const int r = i / hc, c = i % hc;  // r: query row for dq, key row for dk / dv
+      float aq = 0.f, ak = 0.f, av = 0.f, ao = 0.f;
+      for (int j = 0; j < vol; ++j) {
+        aq += ds[r * vol + j] * k[j * ld + c];
+        ak += ds[j * vol + r] * q[j * ld + c];
+        av += p[j * vol + r] * dO[j * ld + c];
+        if (Full) ao += p[r * vol + j] * v[j * ld + c];
+      }
+      const size_t tok = base + (size_t)r * stride;
+      float* out = dqkv + tok * 3 * C + h * hc + c;
+      out[0] = aq * scale;
+      out[C] = ak;
+      out[2 * C] = av;
+      if (Full) attn[tok * C + h * hc + c] = __float2bfloat16(ao);
+    }
+  }
+  if (Full) {
+    __syncthreads();
+    float* dst = dbias_part + ((size_t)blockIdx.x * heads + h) * vol * vol;
+    for (int i = tid; i < vol * vol; i += kCoreThreads) dst[i] = dbacc[i];
   }
 }
 
@@ -341,10 +393,43 @@ __global__ void ln_backward_kernel(const float* __restrict__ x, const float* __r
 
 cudaError_t gemm(const float* A, const float* ln_w, const float* ln_b, const float* W,
                  const float* bias, float* out, int M, int N, int K, int w_kn, float eps,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, __nv_bfloat16* ln_out = nullptr) {
   dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-  ln_gemm_kernel<<<grid, kGemmThreads, 0, stream>>>(A, ln_w, ln_b, W, bias, out, M, N, K, w_kn,
-                                                    eps);
+  ln_gemm_kernel<<<grid, kGemmThreads, 0, stream>>>(A, ln_w, ln_b, W, bias, out, ln_out, M, N, K,
+                                                    w_kn, eps);
+  return cudaGetLastError();
+}
+
+// The launches that give dx; Full adds LN(x) and attn in bf16 and the dbias partials.
+template <bool Full>
+cudaError_t bwd_dx_launches(const float* x, const float* g, const float* ln_w, const float* ln_b,
+                            const float* w_qkv, const float* bias, const float* w_proj,
+                            float* qkv, float* dattn, float* dqkv, float* dln, float* dx,
+                            __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, float* dbias_part,
+                            int M, int T, int H, int W, int C, int axis, int heads,
+                            int cuboids_per_block, float scale, float eps, cudaStream_t stream) {
+  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream, ln_bf);
+  if (err != cudaSuccess) return err;
+  err = gemm(g, nullptr, nullptr, w_proj, nullptr, dattn, M, C, C, 1, eps, stream);
+  if (err != cudaSuccess) return err;
+  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
+  const int hc = C / heads;
+  const size_t smem = sizeof(float) * (4 * vol * (hc + 1) + (Full ? 3 : 2) * vol * vol);
+  err = cudaFuncSetAttribute(axial_core_bwd_kernel<Full>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_cuboids = M / vol;
+  const int blocks = (n_cuboids + cuboids_per_block - 1) / cuboids_per_block;
+  axial_core_bwd_kernel<Full><<<dim3(blocks, heads), kCoreThreads, smem, stream>>>(
+      qkv, dattn, bias, dqkv, attn_bf, dbias_part, T, H, W, C, axis, heads, scale, n_cuboids,
+      cuboids_per_block);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = gemm(dqkv, nullptr, nullptr, w_qkv, nullptr, dln, M, C, 3 * C, 1, eps, stream);
+  if (err != cudaSuccess) return err;
+  constexpr int kRowsPerBlock = 8;  // one warp per row
+  ln_backward_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(
+      x, ln_w, dln, dx, M, C, eps);
   return cudaGetLastError();
 }
 
@@ -385,25 +470,39 @@ extern "C" int axial_attention_bwd_dx(const float* x, const float* g, const floa
                                       cudaStream_t stream) {
   if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || axis < 0 || axis > 2)
     return (int)cudaErrorInvalidValue;
+  return (int)bwd_dx_launches<false>(x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln,
+                                     dx, nullptr, nullptr, nullptr, B * T * H * W, T, H, W, C,
+                                     axis, heads, 1, scale, eps, stream);
+}
+
+// Every gradient of the layer for the output cotangent g.  Scratch as for
+// axial_attention_bwd_dx, and ln_bf, attn_bf (tokens, C) bf16, dbias_part
+// (ceil(cuboids / cuboids_per_block), heads, vol, vol), vpart
+// (ceil(tokens / 32), 3, C) and dw_part (max(ksplit_qkv * 3, ksplit_proj), C, C)
+// f32.  Out: dx, dw_qkv (3C, C), dbias (heads, vol, vol), dw_proj (C, C),
+// vec (3, C) = dgamma, dbeta, dbproj.
+extern "C" int axial_attention_bwd_full(
+    const float* x, const float* g, const float* ln_w, const float* ln_b, const float* w_qkv,
+    const float* bias, const float* w_proj, float* qkv, float* dattn, float* dqkv, float* dln,
+    __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, float* dbias_part, float* vpart,
+    float* dw_part, float* dx, float* dw_qkv, float* dbias, float* dw_proj, float* vec, int B,
+    int T, int H, int W, int C, int axis, int heads, int cuboids_per_block, int ksplit_qkv,
+    int ksplit_proj, float scale, float eps, cudaStream_t stream) {
+  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || axis < 0 || axis > 2 ||
+      cuboids_per_block < 1 || ksplit_qkv < 1 || ksplit_proj < 1)
+    return (int)cudaErrorInvalidValue;
   const int M = B * T * H * W;
-  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = gemm(g, nullptr, nullptr, w_proj, nullptr, dattn, M, C, C, 1, eps, stream);
+  cudaError_t err = bwd_dx_launches<true>(x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv,
+                                          dln, dx, ln_bf, attn_bf, dbias_part, M, T, H, W, C,
+                                          axis, heads, cuboids_per_block, scale, eps, stream);
   if (err != cudaSuccess) return (int)err;
   const int vol = axis == 0 ? T : (axis == 1 ? H : W);
-  const int hc = C / heads;
-  const size_t smem = sizeof(float) * (4 * vol * (hc + 1) + 2 * vol * vol);
-  err = cudaFuncSetAttribute(axial_core_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  const int blocks = (M / vol + cuboids_per_block - 1) / cuboids_per_block;
+  err = gradk::sum_partials(dbias_part, dbias, (size_t)heads * vol * vol, blocks, stream);
   if (err != cudaSuccess) return (int)err;
-  axial_core_bwd_kernel<<<dim3(M / vol, heads), kCoreThreads, smem, stream>>>(
-      qkv, dattn, bias, dqkv, T, H, W, C, axis, heads, scale);
-  err = cudaGetLastError();
+  err = gradk::ln_vec_grads(x, g, dln, 1, vpart, vec, M, C, eps, stream);
   if (err != cudaSuccess) return (int)err;
-  err = gemm(dqkv, nullptr, nullptr, w_qkv, nullptr, dln, M, C, 3 * C, 1, eps, stream);
+  err = gradk::weight_grad(dqkv, ln_bf, dw_part, dw_qkv, M, 3 * C, C, ksplit_qkv, stream);
   if (err != cudaSuccess) return (int)err;
-  constexpr int kRowsPerBlock = 8;  // one warp per row
-  ln_backward_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(
-      x, ln_w, dln, dx, M, C, eps);
-  return (int)cudaGetLastError();
+  return (int)gradk::weight_grad(g, attn_bf, dw_part, dw_proj, M, C, C, ksplit_proj, stream);
 }

@@ -34,9 +34,29 @@
 // applies the LayerNorm backward, which needs the whole dln row, then adds
 // the residual's g.  Rounding follows the TPU kernel: LN(x), g, the weights
 // and dh are bf16 operands; h, gelu' and every sum stay f32.
+//
+// All gradients (ffn_bwd_full): replaces pallas_ffn.py::fused_ffn_bwd_full
+// (_ffn_bwd_full_kernel): dx as above and, from the same recomputed values,
+// dgamma = sum dln . nhat, dbeta = sum dln, dW1 = dh^T . LN(x), db1 = sum dh,
+// dW2 = g^T . gelu(h), db2 = sum g, every sum over all tokens.  The TPU kernel
+// adds each token tile's share into outputs that stay resident across its
+// sequential grid; here blocks run in no order, and a weight gradient
+// (256 x 1024 or 512 x 2048 f32) is far more than a block's shared memory.
+// So the dx kernel, in its Full form, also writes what the weight gradients
+// contract over the tokens - gelu(h) and dh, rounded to bf16 as the TPU kernel
+// rounds them before those products, and LN(x) in bf16 - and its per-block
+// column sums of the f32 dh.  The two weight gradients are then transposed
+// products over the tokens on the tensor cores (tn_gemm_kernel in
+// grad_common.cuh), split over the tokens into an f32 workspace; the vector
+// gradients are column sums per 32-row block; sum_partials_kernel adds every
+// set of partials in a fixed order.  No atomics: two runs give the same bits.
+// Five products of 2 M C hidden operations against ~(3 M C + 4 C hidden) f32
+// bytes: bound by operations at the UNet's training shapes.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
+
+#include "grad_common.cuh"
 
 using namespace nvcuda;
 
@@ -215,13 +235,17 @@ constexpr size_t bwd_smem_bytes() {
          sizeof(float) * 2 * kRows * (kChunk + kPadF);
 }
 
-template <int C>
+// Full: also write gelu(h) and dh as bf16 (M, hidden), LN(x) as bf16 (M, C)
+// and this block's column sums of the f32 dh into db1_part (row blocks, hidden).
+template <int C, bool Full>
 __global__ void __launch_bounds__(kThreads)
 ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                   const float* __restrict__ w1, const float* __restrict__ b1,
-                  const float* __restrict__ w2, float* __restrict__ part, int M, int hidden,
-                  int chunks_per_split, float eps) {
+                  const float* __restrict__ w2, float* __restrict__ part,
+                  __nv_bfloat16* __restrict__ a_out, __nv_bfloat16* __restrict__ dh_out,
+                  __nv_bfloat16* __restrict__ ln_out, float* __restrict__ db1_part, int M,
+                  int hidden, int chunks_per_split, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int ldA = C + kPadB;
   constexpr int ldW2 = kChunk + kPadB;
@@ -254,6 +278,12 @@ ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
     for (int ct = 0; ct < kColTiles; ++ct) wmma::fill_fragment(acc[rt][ct], 0.f);
   const int hr = warp >> 2, hc = warp & 3;  // this warp's 16 x 16 tile of the chunk
   __syncthreads();
+  if (Full && blockIdx.y == 0) {
+    for (int i = tid; i < kRows * C; i += kThreads) {
+      const int r = i / C, c = i % C;
+      if (row0 + r < M) ln_out[(size_t)(row0 + r) * C + c] = lnA[r * ldA + c];
+    }
+  }
 
   const int j_begin = blockIdx.y * chunks_per_split * kChunk;
   const int j_end = min(hidden, j_begin + chunks_per_split * kChunk);
@@ -285,14 +315,26 @@ ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
     wmma::store_matrix_sync(hs + hr * 16 * ldHf + hc * 16, hacc, ldHf, wmma::mem_row_major);
     wmma::store_matrix_sync(das + hr * 16 * ldHf + hc * 16, dacc, ldHf, wmma::mem_row_major);
     __syncthreads();
+    float dh_sum = 0.f;  // Full: this thread's column (tid % kChunk) over its rows
     for (int i = tid; i < kRows * kChunk; i += kThreads) {
       const int r = i / kChunk, k = i % kChunk;
       const float h = hs[r * ldHf + k] + b1[j0 + k];
       const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
       const float pdf = expf(-0.5f * h * h) * 0.39894228040143268f;
-      hb[r * ldH + k] = __float2bfloat16(das[r * ldHf + k] * (cdf + h * pdf));
+      const float dh = das[r * ldHf + k] * (cdf + h * pdf);
+      const __nv_bfloat16 dhb = __float2bfloat16(dh);
+      hb[r * ldH + k] = dhb;
+      if (Full) {
+        dh_sum += dh;  // rows past M have g = 0, so dh = 0
+        if (row0 + r < M) {
+          const size_t o = (size_t)(row0 + r) * hidden + j0 + k;
+          a_out[o] = __float2bfloat16(h * cdf);
+          dh_out[o] = dhb;
+        }
+      }
     }
     __syncthreads();
+    if (Full) das[tid] = dh_sum;  // das is free until the next chunk's products
 #pragma unroll
     for (int kk = 0; kk < kChunk; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
@@ -307,6 +349,11 @@ ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
       }
     }
     __syncthreads();
+    if (Full && tid < kChunk) {  // kThreads / kChunk threads share a column, added in order
+      float t = das[tid];
+      for (int q = 1; q < kThreads / kChunk; ++q) t += das[q * kChunk + tid];
+      db1_part[(size_t)blockIdx.x * hidden + j0 + tid] = t;
+    }
   }
 
   // This split's partial dln through shared memory (the W2 staging area).
@@ -364,21 +411,26 @@ __global__ void ffn_bwd_reduce_kernel(const float* __restrict__ x, const float* 
   }
 }
 
-template <int C>
+template <int C, bool Full>
 cudaError_t launch_bwd(const float* x, const float* g, const float* ln_w, const float* ln_b,
-                       const float* w1, const float* b1, const float* w2, float* part, int M,
-                       int hidden, int splits, float eps, cudaStream_t stream) {
+                       const float* w1, const float* b1, const float* w2, float* part,
+                       __nv_bfloat16* a_out, __nv_bfloat16* dh_out, __nv_bfloat16* ln_out,
+                       float* db1_part, int M, int hidden, int splits, float eps,
+                       cudaStream_t stream) {
+  static_assert(kThreads % kChunk == 0 && kThreads <= kRows * (kChunk + kPadF),
+                "the dh column sums pass through the da tile");
   static_assert(sizeof(float) * kRows * (C + kPadF) <=
                     sizeof(__nv_bfloat16) * C * (kChunk + kPadB),
                 "epilogue tile must fit the W2 staging area");
   constexpr size_t bytes = bwd_smem_bytes<C>();
   static_assert(bytes <= 232448, "exceeds the 227 KB of shared memory a block can use");
-  cudaError_t err = cudaFuncSetAttribute(ffn_bwd_dx_kernel<C>,
+  cudaError_t err = cudaFuncSetAttribute(ffn_bwd_dx_kernel<C, Full>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const int chunks_per_split = hidden / kChunk / splits;
-  ffn_bwd_dx_kernel<C><<<dim3((M + kRows - 1) / kRows, splits), kThreads, bytes, stream>>>(
-      x, g, ln_w, ln_b, w1, b1, w2, part, M, hidden, chunks_per_split, eps);
+  ffn_bwd_dx_kernel<C, Full><<<dim3((M + kRows - 1) / kRows, splits), kThreads, bytes, stream>>>(
+      x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden,
+      chunks_per_split, eps);
   return cudaGetLastError();
 }
 
@@ -397,6 +449,29 @@ cudaError_t launch(const float* x, const float* ln_w, const float* ln_b, const f
   ffn_kernel<C><<<dim3((M + kRows - 1) / kRows, splits), kThreads, bytes, stream>>>(
       x, ln_w, ln_b, w1, b1, w2, part, M, hidden, chunks_per_split, eps);
   return cudaGetLastError();
+}
+
+// part -> dx: the splits added in order, the LayerNorm backward, the residual's g.
+cudaError_t bwd_reduce(const float* x, const float* g, const float* ln_w, const float* part,
+                       float* dx, int M, int C, int splits, float eps, cudaStream_t stream) {
+  constexpr int kRowsPerBlock = 8;  // one warp per row
+  ffn_bwd_reduce_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0,
+                          stream>>>(x, g, ln_w, part, dx, M, C, splits, eps);
+  return cudaGetLastError();
+}
+
+template <bool Full>
+cudaError_t launch_bwd_c(int C, const float* x, const float* g, const float* ln_w,
+                         const float* ln_b, const float* w1, const float* b1, const float* w2,
+                         float* part, __nv_bfloat16* a_out, __nv_bfloat16* dh_out,
+                         __nv_bfloat16* ln_out, float* db1_part, int M, int hidden, int splits,
+                         float eps, cudaStream_t stream) {
+  switch (C) {
+    case 128: return launch_bwd<128, Full>(x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden, splits, eps, stream);
+    case 256: return launch_bwd<256, Full>(x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden, splits, eps, stream);
+    case 512: return launch_bwd<512, Full>(x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden, splits, eps, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -431,16 +506,36 @@ extern "C" int ffn_bwd_dx(const float* x, const float* g, const float* ln_w, con
                           cudaStream_t stream) {
   if (hidden % kChunk != 0 || splits < 1 || (hidden / kChunk) % splits != 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  switch (C) {
-    case 128: err = launch_bwd<128>(x, g, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream); break;
-    case 256: err = launch_bwd<256>(x, g, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream); break;
-    case 512: err = launch_bwd<512>(x, g, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  cudaError_t err = launch_bwd_c<false>(C, x, g, ln_w, ln_b, w1, b1, w2, part, nullptr, nullptr,
+                                        nullptr, nullptr, M, hidden, splits, eps, stream);
   if (err != cudaSuccess) return (int)err;
-  constexpr int kRowsPerBlock = 8;  // one warp per row
-  ffn_bwd_reduce_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0,
-                          stream>>>(x, g, ln_w, part, dx, M, C, splits, eps);
-  return (int)cudaGetLastError();
+  return (int)bwd_reduce(x, g, ln_w, part, dx, M, C, splits, eps, stream);
+}
+
+// Every gradient of the fused FFN for the output cotangent g.  Workspaces:
+// part (splits, M, C) f32; a_bf, dh_bf (M, hidden) and ln_bf (M, C) bf16;
+// db1_part (ceil(M / 32), hidden), vpart (ceil(M / 32), 3, C) and dw_part
+// (ksplit, C, hidden) f32.  Out: dx (M, C), dw1 (hidden, C), db1 (hidden),
+// dw2 (C, hidden), vec (3, C) = dgamma, dbeta, db2.
+extern "C" int ffn_bwd_full(const float* x, const float* g, const float* ln_w,
+                            const float* ln_b, const float* w1, const float* b1,
+                            const float* w2, float* part, __nv_bfloat16* a_bf,
+                            __nv_bfloat16* dh_bf, __nv_bfloat16* ln_bf, float* db1_part,
+                            float* vpart, float* dw_part, float* dx, float* dw1, float* db1,
+                            float* dw2, float* vec, int M, int C, int hidden, int splits,
+                            int ksplit, float eps, cudaStream_t stream) {
+  if (hidden % kChunk != 0 || splits < 1 || (hidden / kChunk) % splits != 0 || ksplit < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_bwd_c<true>(C, x, g, ln_w, ln_b, w1, b1, w2, part, a_bf, dh_bf, ln_bf,
+                                       db1_part, M, hidden, splits, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = bwd_reduce(x, g, ln_w, part, dx, M, C, splits, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gradk::ln_vec_grads(x, g, part, splits, vpart, vec, M, C, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gradk::sum_partials(db1_part, db1, (size_t)hidden, (M + kRows - 1) / kRows, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gradk::weight_grad(dh_bf, ln_bf, dw_part, dw1, M, hidden, C, ksplit, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)gradk::weight_grad(g, a_bf, dw_part, dw2, M, C, hidden, ksplit, stream);
 }

@@ -16,8 +16,28 @@
 // never reaches memory.  No matrix product: the work is bound by bytes
 // (x read twice, y written once), and the design keeps each pass to one
 // coalesced sweep.
+//
+// All gradients (gn_silu_bwd_full): replaces
+// pallas_groupnorm.py::fused_groupnorm_silu_bwd_full (_gn_bwd_full_kernel):
+// dx, dgamma, dbeta and demb of y = silu(GroupNorm(x + emb)) for an output
+// cotangent g, the group statistics recomputed, all f32.  The TPU kernel
+// keeps a whole (N, C) sample in VMEM, refuses samples that do not fit, and
+// adds dgamma / dbeta across its sequential batch grid.  Here one block owns
+// one (group, sample), as the resblock's GroupNorm kernels do: it makes its
+// passes over the group's N x C/groups values (mean, variance, the two sums of
+// the normalisation's backward, then dx), which holds for every size, and
+// each thread stays on one channel of the group so the per-channel sums
+// (dgamma, dbeta, demb) fall out of the same passes.  With
+//   a = xhat * gamma + beta,  dy = g * silu'(a),  u = dy * gamma:
+//   dx = rstd * (u - (sum(u) + xhat * sum(u * xhat)) / count)
+//   demb[b, c] = sum_tokens dx;  dgamma[c] = sum_{b, tokens} dy * xhat;  dbeta[c] = sum dy.
+// dgamma and dbeta leave each block as a per-sample partial and
+// sum_partials_kernel adds the samples in order: no atomics.  No matrix
+// product: bound by bytes (x and g read, dx written).
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "grad_common.cuh"
 
 namespace {
 
@@ -119,7 +139,113 @@ gn_apply_kernel(const float* __restrict__ x, const float* __restrict__ emb,
   }
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum of v over the block (a multiple of 32 threads); every thread gets it.
+__device__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();  // red is free: every thread is past the previous call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  return warp_sum(lane < nw ? red[lane] : 0.f);
+}
+
+// Sum of v over the threads of each channel (threads c, c + cpg, ... in
+// order) into out[c], c < cpg.  chan: blockDim floats.
+__device__ void channel_sum(float v, float* chan, int cpg, float* out) {
+  __syncthreads();
+  chan[threadIdx.x] = v;
+  __syncthreads();
+  if (threadIdx.x < cpg) {
+    float t = 0.f;
+    for (int j = threadIdx.x; j < blockDim.x; j += cpg) t += chan[j];
+    out[threadIdx.x] = t;
+  }
+}
+
+// One block per (group, sample); the block size is a multiple of 32 and of
+// cpg = C / groups, so each thread stays on one channel of its group.
+// gpart (B, 2, C): this sample's share of dgamma and dbeta.
+__global__ void __launch_bounds__(1024)
+gn_silu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
+                   const float* __restrict__ g, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, float* __restrict__ dx,
+                   float* __restrict__ demb, float* __restrict__ gpart, int N, int C,
+                   int groups, float eps) {
+  extern __shared__ float chan[];  // blockDim floats
+  __shared__ float red[32];
+  const int grp = blockIdx.x, b = blockIdx.y, cpg = C / groups;
+  const int count = N * cpg;
+  const int c = threadIdx.x % cpg;  // this thread's channel in the group
+  const int ch = grp * cpg + c;
+  const size_t off = (size_t)b * N * C + ch;
+  const float ec = emb != nullptr ? emb[(size_t)b * C + ch] : 0.f;
+  const float gam = gamma[ch], bet = beta[ch];
+
+  float s = 0.f;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) s += x[off + (size_t)(i / cpg) * C] + ec;
+  const float mean = block_sum(s, red) / count;
+  float v = 0.f;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const float d = x[off + (size_t)(i / cpg) * C] + ec - mean;
+    v += d * d;
+  }
+  const float rstd = rsqrtf(block_sum(v, red) / count + eps);
+
+  float s1 = 0.f, s2 = 0.f, dg = 0.f, db = 0.f;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const size_t idx = off + (size_t)(i / cpg) * C;
+    const float xhat = (x[idx] + ec - mean) * rstd;
+    const float a = xhat * gam + bet;
+    const float sig = 1.f / (1.f + expf(-a));
+    const float dy = g[idx] * sig * (1.f + a * (1.f - sig));
+    dg += dy * xhat;
+    db += dy;
+    s1 += dy * gam;
+    s2 += dy * gam * xhat;
+  }
+  const float S1 = block_sum(s1, red), S2 = block_sum(s2, red);
+  channel_sum(dg, chan, cpg, gpart + ((size_t)b * 2 + 0) * C + grp * cpg);
+  channel_sum(db, chan, cpg, gpart + ((size_t)b * 2 + 1) * C + grp * cpg);
+
+  float dsum = 0.f;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const size_t idx = off + (size_t)(i / cpg) * C;
+    const float xhat = (x[idx] + ec - mean) * rstd;
+    const float a = xhat * gam + bet;
+    const float sig = 1.f / (1.f + expf(-a));
+    const float u = g[idx] * sig * (1.f + a * (1.f - sig)) * gam;
+    const float d = rstd * (u - (S1 + xhat * S2) / count);
+    dsum += d;
+    dx[idx] = d;
+  }
+  if (demb != nullptr) channel_sum(dsum, chan, cpg, demb + (size_t)b * C + grp * cpg);
+}
+
 }  // namespace
+
+// Every gradient of silu(GroupNorm(x + emb)) for the output cotangent g.
+// threads: a multiple of 32 and of C / groups, at most 1024.  gpart (B, 2, C)
+// f32 workspace; out: dx (B, N, C), demb (B, C) when emb is given, vec (2, C)
+// = dgamma, dbeta.
+extern "C" int gn_silu_bwd_full(const float* x, const float* emb, const float* g,
+                                const float* gamma, const float* beta, float* dx, float* demb,
+                                float* gpart, float* vec, int B, int N, int C, int groups,
+                                int threads, float eps, cudaStream_t stream) {
+  if (C % groups != 0 || threads < 32 || threads > 1024 || threads % 32 != 0 ||
+      threads % (C / groups) != 0)
+    return (int)cudaErrorInvalidValue;
+  gn_silu_bwd_kernel<<<dim3(groups, B), threads, threads * sizeof(float), stream>>>(
+      x, emb, g, gamma, beta, dx, emb != nullptr ? demb : nullptr, gpart, N, C, groups, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)gradk::sum_partials(gpart, vec, (size_t)2 * C, B, stream);
+}
 
 extern "C" int gn_silu_forward(const float* x, const float* emb, const float* gamma,
                                const float* beta, float* y, float* part, int B, int N,

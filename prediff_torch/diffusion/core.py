@@ -1,5 +1,7 @@
-"""DDPM reverse-step math on latents: plain tensor functions, the schedule
-passed in."""
+"""DDPM math on latents, the reverse step and the training loss: plain tensor
+functions, the schedule passed in."""
+from typing import Dict, Tuple
+
 import torch
 
 from .schedule import GaussianSchedule, extract
@@ -42,3 +44,37 @@ def p_mean_variance(schedule: GaussianSchedule, model_out, zt, t,
         z_recon = torch.clamp(z_recon, -1.0, 1.0)
     mean, variance, log_variance = q_posterior(schedule, z_recon, zt, t, batch_axis)
     return mean, variance, log_variance, z_recon
+
+
+def diffusion_loss(schedule: GaussianSchedule, model_output, x_start, noise, t, logvar,
+                   parameterization: str = "eps", loss_type: str = "l2",
+                   l_simple_weight: float = 1.0, original_elbo_weight: float = 0.0,
+                   learn_logvar: bool = False, batch_axis: int = 0,
+                   prefix: str = "train") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Per-sample simple loss, weighted per t by the learned ``logvar``, plus
+    the ELBO term weighted by ``lvlb_weights``; returns the loss and the
+    ``loss_dict`` (``{prefix}/loss_simple``, ``loss_gamma``, ``loss_vlb``,
+    ``loss`` and ``logvar``)."""
+    target = noise if parameterization == "eps" else x_start
+    mean_axes = tuple(i for i in range(model_output.ndim) if i != batch_axis)
+    if loss_type == "l2":
+        loss_elem = (model_output - target).square()
+    elif loss_type == "l1":
+        loss_elem = (model_output - target).abs()
+    else:
+        raise NotImplementedError(loss_type)
+    loss_simple = loss_elem.mean(dim=mean_axes)  # (B,)
+
+    loss_dict = {f"{prefix}/loss_simple": loss_simple.mean()}
+    logvar_t = logvar[t]
+    loss = loss_simple / torch.exp(logvar_t) + logvar_t
+    if learn_logvar:
+        loss_dict[f"{prefix}/loss_gamma"] = loss.mean()
+        loss_dict["logvar"] = logvar.mean()
+    loss = l_simple_weight * loss.mean()
+
+    loss_vlb = (schedule.lvlb_weights[t] * loss_simple).mean()
+    loss_dict[f"{prefix}/loss_vlb"] = loss_vlb
+    loss = loss + original_elbo_weight * loss_vlb
+    loss_dict[f"{prefix}/loss"] = loss
+    return loss, loss_dict

@@ -1,6 +1,6 @@
 """Latent diffusion pipeline: VAE latent space + the cuboid-transformer UNet
 denoiser, DDPM or DDIM sampling as a Python loop, optionally steered by
-knowledge alignment.
+knowledge alignment, and the training loss.
 
 The chain: encode the context frame by frame (posterior mode), run the
 reverse steps, decode frame by frame.  DDPM runs t = T-1 .. 0 against the
@@ -10,6 +10,11 @@ uniform subsequence of the first ``timesteps or T`` steps.  With
 ``use_alignment`` each guided step shifts the DDPM mean (or the DDIM eps)
 by the alignment gradient; ``guidance_every_k=k`` guides only the steps with
 t % k == 0 (DDPM) or index % k == 0 (DDIM), the shift scaled by k.
+
+Training: the frozen VAE encodes the target (posterior sample) and the
+context (mode) under ``no_grad``, t and the noise are drawn from the caller's
+generator, and :meth:`LatentDiffusion.p_losses` weighs the denoiser's error
+(:func:`core.diffusion_loss`).
 """
 from typing import Dict, Optional, Sequence
 
@@ -17,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..utils.distributions import DiagonalGaussianDistribution
+from ..utils.distributions import latents_from_moments_seq
 from . import core
 from .knowledge_alignment import KnowledgeAlignment
 from .schedule import GaussianSchedule, make_ddim_sampling_parameters, make_ddim_timesteps
@@ -32,7 +37,10 @@ class LatentDiffusion:
                  latent_shape: Sequence[int], cond_latent_shape: Optional[Sequence[int]] = None,
                  parameterization: str = "eps", scale_factor: float = 1.0,
                  clip_denoised: bool = False, decode_chunk_size: Optional[int] = None,
-                 alignment: Optional[KnowledgeAlignment] = None, device=None):
+                 alignment: Optional[KnowledgeAlignment] = None, device=None,
+                 loss_type: str = "l2", l_simple_weight: float = 1.0,
+                 original_elbo_weight: float = 0.0, learn_logvar: bool = False,
+                 logvar_init: float = 0.0):
         if parameterization not in ("eps", "x0"):
             raise ValueError(f"parameterization '{parameterization}'")
         self.device = torch.device(device if device is not None else "cpu")
@@ -47,17 +55,102 @@ class LatentDiffusion:
         self.scale_factor = scale_factor
         self.clip_denoised = clip_denoised
         self.decode_chunk_size = decode_chunk_size
+        self.loss_type = loss_type
+        self.l_simple_weight = l_simple_weight
+        self.original_elbo_weight = original_elbo_weight
+        self.learn_logvar = learn_logvar
+        self.logvar_init = logvar_init
 
     @torch.no_grad()
-    def encode_first_stage(self, x: torch.Tensor) -> torch.Tensor:
-        """Pixel seq (B,T,H,W,C) -> scaled latent seq (B,T,h,w,c), posterior mode."""
+    def first_stage_moments(self, frames: torch.Tensor) -> torch.Tensor:
+        """(n, H, W, C) frames -> (n, h, w, 2c) f32 encoder moments; the VAE is frozen."""
+        return self.vae.encode_moments(frames).float()
+
+    def latents_from_moments(self, moments: torch.Tensor,
+                             generator: Optional[torch.Generator] = None,
+                             sample_posterior: bool = False) -> torch.Tensor:
+        """Encoder moments (B,T,h,w,2c) -> scaled latent seq (B,T,h,w,c), the
+        tail of :meth:`encode_first_stage`."""
+        return latents_from_moments_seq(moments, generator=generator,
+                                        sample_posterior=sample_posterior,
+                                        scale_factor=self.scale_factor)
+
+    @torch.no_grad()
+    def encode_first_stage(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                           sample_posterior: bool = False) -> torch.Tensor:
+        """Pixel seq (B,T,H,W,C) -> scaled latent seq (B,T,h,w,c).  Training
+        samples the posterior (from ``generator``); conditioning takes the mode."""
         B = x.shape[0]
-        moments = self.vae.encode_moments(x.reshape((-1,) + tuple(x.shape[2:])))
-        z = DiagonalGaussianDistribution.from_parameters(moments).mode()
-        return (self.scale_factor * z).reshape((B, -1) + tuple(z.shape[1:]))
+        moments = self.first_stage_moments(x.reshape((-1,) + tuple(x.shape[2:])))
+        return self.latents_from_moments(moments.reshape((B, -1) + tuple(moments.shape[1:])),
+                                         generator, sample_posterior)
 
     def cond_stage_forward(self, y: torch.Tensor) -> torch.Tensor:
-        return self.encode_first_stage(y)
+        return self.encode_first_stage(y, sample_posterior=False)
+
+    def calibrate_scale_by_std(self, x: torch.Tensor,
+                               generator: Optional[torch.Generator] = None) -> float:
+        """Set ``scale_factor`` to 1 / std of a first batch's encodings (the
+        posterior sampled when a generator is given); call once before
+        training.  Returns the new factor."""
+        self.scale_factor = 1.0
+        z = self.encode_first_stage(x.to(self.device, torch.float32), generator,
+                                    sample_posterior=generator is not None)
+        self.scale_factor = 1.0 / float(z.std(unbiased=False))
+        return self.scale_factor
+
+    # ------------------------------------------------------------------ #
+    # training loss
+    # ------------------------------------------------------------------ #
+    def init_logvar(self) -> torch.Tensor:
+        return torch.full((self.num_timesteps,), float(self.logvar_init), dtype=torch.float32,
+                          device=self.device)
+
+    def p_losses(self, logvar: torch.Tensor, z_start: torch.Tensor, zc: torch.Tensor,
+                 t: torch.Tensor, noise: torch.Tensor, prefix: str = "train",
+                 unet_params: Optional[Dict[str, torch.Tensor]] = None):
+        """Noise ``z_start`` to step ``t`` with ``noise``, denoise, weigh:
+        ``(loss, loss_dict)``.  ``unet_params`` (name -> tensor) runs the
+        denoiser with other weights than its own, such as the EMA shadow."""
+        z_noisy = core.q_sample(self.schedule, z_start, t, noise)
+        if unet_params is None:
+            model_out = self.unet(z_noisy, t, zc)
+        else:
+            model_out = torch.func.functional_call(self.unet, unet_params, (z_noisy, t, zc))
+        return core.diffusion_loss(
+            self.schedule, model_out, z_start, noise, t, logvar,
+            parameterization=self.parameterization, loss_type=self.loss_type,
+            l_simple_weight=self.l_simple_weight,
+            original_elbo_weight=self.original_elbo_weight, learn_logvar=self.learn_logvar,
+            prefix=prefix)
+
+    def _draw_and_weigh(self, logvar, z, zc, generator, prefix, unet_params):
+        t = torch.randint(0, self.num_timesteps, (z.shape[0],), generator=generator,
+                          device=self.device)
+        noise = torch.randn(z.shape, generator=generator, device=self.device, dtype=z.dtype)
+        return self.p_losses(logvar, z, zc, t, noise, prefix=prefix, unet_params=unet_params)
+
+    def training_loss(self, logvar: torch.Tensor, generator: Optional[torch.Generator],
+                      x: torch.Tensor, y: torch.Tensor, prefix: str = "train",
+                      unet_params: Optional[Dict[str, torch.Tensor]] = None):
+        """The full forward: encode the target ``x`` (posterior sample) and the
+        context ``y`` (mode), draw t and the noise from ``generator`` (on
+        ``self.device``), denoise, weigh."""
+        z = self.encode_first_stage(x.to(self.device, torch.float32), generator,
+                                    sample_posterior=True)
+        zc = self.cond_stage_forward(y.to(self.device, torch.float32))
+        return self._draw_and_weigh(logvar, z, zc, generator, prefix, unet_params)
+
+    def training_loss_from_moments(self, logvar: torch.Tensor,
+                                   generator: Optional[torch.Generator], mx: torch.Tensor,
+                                   my: torch.Tensor, prefix: str = "train",
+                                   unet_params: Optional[Dict[str, torch.Tensor]] = None):
+        """:meth:`training_loss` fed from first-stage moments of the target
+        (``mx``) and the context (``my``) instead of pixels; the draws are made
+        in the same order, so ``mx = encode_moments(x)`` gives the same loss."""
+        z = self.latents_from_moments(mx.to(self.device), generator, sample_posterior=True)
+        zc = self.latents_from_moments(my.to(self.device), sample_posterior=False)
+        return self._draw_and_weigh(logvar, z, zc, generator, prefix, unet_params)
 
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:

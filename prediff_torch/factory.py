@@ -31,6 +31,8 @@ def build_unet(cfg: ConfigDict) -> CuboidTransformerUNet:
         upsample_kernel_size=m.upsample_kernel_size,
         time_embed_channels_mult=m.time_embed_channels_mult,
         unet_res_connect=m.unet_res_connect,
+        attn_drop=m.attn_drop, proj_drop=m.proj_drop, ffn_drop=m.ffn_drop,
+        time_embed_dropout=m.time_embed_dropout,
     )
 
 
@@ -66,13 +68,18 @@ def build_alignment_model(cfg: ConfigDict) -> NoisyCuboidTransformerEncoder:
 
 def build_pipeline(cfg: ConfigDict, with_alignment: bool = False, device=None,
                    params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                   seed: int = 0) -> LatentDiffusion:
-    """The sampling pipeline on ``device`` (default: the card), with the
-    knowledge alignment when ``with_alignment``.
+                   seed: int = 0, trainable_unet: bool = False) -> LatentDiffusion:
+    """The pipeline on ``device`` (default: the card), with the knowledge
+    alignment when ``with_alignment``.
 
     ``params`` holds state_dicts under "unet", "vae" and "align"; a model
-    without one takes the seeded v1 initialisation.  Every model is frozen:
-    guidance asks each kernel's ``autograd.Function`` for dx only."""
+    without one takes the seeded v1 initialisation.  For sampling every model
+    is frozen and in eval mode: guidance asks each kernel's
+    ``autograd.Function`` for dx only.  ``trainable_unet`` (what
+    :func:`build_training_pipeline` passes) leaves the UNet's parameters
+    requiring grad and puts it in training mode, which raises if the
+    configuration has a dropout rate above 0; the VAE and the alignment net
+    stay frozen."""
     axes = parse_layout_shape(cfg.layout.layout)
     if (axes["batch_axis"], axes["t_axis"]) != (0, 1):
         raise ValueError(f"layout {cfg.layout.layout!r}: the port takes batch, then time first")
@@ -89,7 +96,10 @@ def build_pipeline(cfg: ConfigDict, with_alignment: bool = False, device=None,
             model.load_state_dict(params[key])
         else:
             init_params_(model, gen)
-        models[key] = model.to(dev).eval().requires_grad_(False)
+        if key == "unet" and trainable_unet:
+            models[key] = model.to(dev).train()
+        else:
+            models[key] = model.to(dev).eval().requires_grad_(False)
     alignment = None
     if with_alignment:
         al = cfg.model.align
@@ -105,4 +115,14 @@ def build_pipeline(cfg: ConfigDict, with_alignment: bool = False, device=None,
         models["unet"], models["vae"], schedule, latent_shape=d.latent_shape,
         cond_latent_shape=d.latent_cond_shape, parameterization=d.parameterization,
         scale_factor=d.scale_factor, clip_denoised=d.clip_denoised,
-        decode_chunk_size=d.get("decode_chunk_size"), alignment=alignment, device=dev)
+        decode_chunk_size=d.get("decode_chunk_size"), alignment=alignment, device=dev,
+        learn_logvar=d.learn_logvar, logvar_init=d.logvar_init)
+
+
+def build_training_pipeline(cfg: ConfigDict, device=None,
+                            params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                            seed: int = 0) -> LatentDiffusion:
+    """The pipeline a :class:`~prediff_torch.training.DiffusionTrainer` trains:
+    a trainable UNet in training mode, a frozen VAE, no alignment."""
+    return build_pipeline(cfg, with_alignment=False, device=device, params=params, seed=seed,
+                          trainable_unet=True)

@@ -6,6 +6,13 @@ channel; output: the prediction over the last T_out frames.  NTHWC end to
 end.  Each stage's time block is one module called ``depth`` times, as in
 the JAX package, so those weights are shared the same way.  Global vectors
 are not ported yet.
+
+Dropout is not ported yet: the modules have none.  That is exact in eval
+mode, whatever the rates; in training mode the UNet refuses any rate above 0
+instead of silently training another model than the configuration names.
+With the rates at 0 it trains: every kernel's ``autograd.Function`` gives
+its parameter gradients from its all-gradients kernel when they are asked
+for (the parameters require grad) and dx alone when they are not.
 """
 from typing import Optional, Sequence, Tuple, Union
 
@@ -51,8 +58,12 @@ class CuboidTransformerUNet(nn.Module):
                  depth: Sequence[int] = (4, 4), downsample: Union[int, Tuple] = 2,
                  block_attn_patterns: str = "axial", num_heads: int = 4,
                  padding_type: str = "ignore", upsample_kernel_size: int = 3,
-                 time_embed_channels_mult: int = 4, unet_res_connect: bool = True):
+                 time_embed_channels_mult: int = 4, unet_res_connect: bool = True,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0, ffn_drop: float = 0.0,
+                 time_embed_dropout: float = 0.0):
         super().__init__()
+        self.dropout_rates = dict(attn_drop=attn_drop, proj_drop=proj_drop, ffn_drop=ffn_drop,
+                                  time_embed_dropout=time_embed_dropout)
         T_in, H_in, W_in, C_in = input_shape
         T_out, H_out, W_out, C_out = target_shape
         if (H_in, W_in, C_in) != (H_out, W_out, C_out):
@@ -99,8 +110,24 @@ class CuboidTransformerUNet(nn.Module):
             for i in range(self.num_blocks - 1))
         self.final_proj = nn.Linear(base_units, C_out)
 
+    def _refuse_dropout(self) -> None:
+        active = {k: v for k, v in self.dropout_rates.items() if v and v > 0}
+        if active:
+            raise NotImplementedError(
+                f"training mode with dropout {active}: dropout is not ported yet (ROADMAP.md, "
+                "\"Still to port\", the in-kernel dropout kernels fused_ffn_dropout / "
+                "fused_ffn_dropout_bwd_full and the seed= attention variants); set the rates "
+                "to 0 to train, or call .eval() to forecast")
+
+    def train(self, mode: bool = True):
+        if mode:
+            self._refuse_dropout()
+        return super().train(mode)
+
     def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         """x (B, T_out, H, W, C) noisy latent; t (B,); cond (B, T_in, H, W, C)."""
+        if self.training:  # a module starts in training mode without a call of train()
+            self._refuse_dropout()
         x = torch.cat([cond, x], dim=1)
         obs = torch.zeros_like(x[..., :1])
         obs[:, :self.T_in] = 1.0

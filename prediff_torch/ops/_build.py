@@ -4,7 +4,8 @@ the kernel wrappers share (argument checks, pointers, the gradients their
 
 Each ``prediff_torch/csrc/<name>.cu`` has a plain C interface and compiles
 on its own with ``nvcc`` for ``sm_90a`` into ``<repo>/build/lib<name>_<hash>.so``
-(the hash is of the source, so an edited source builds anew).  Nothing is
+(the hash is of the source and the ``*.cuh`` headers beside it, so an edited
+source builds anew).  Nothing is
 built when a module is imported: the first launch builds what it needs, and
 :func:`build_all` builds every source at once, one ``nvcc`` per source, all
 started together.
@@ -37,8 +38,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -75,6 +78,14 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+TARGET_BLOCKS = 264     # two blocks for each of the H100's 132 SMs
+
+
+def token_splits(tiles: int, tokens: int, most: int = 16) -> int:
+    """Splits over the tokens of a weight-gradient product with ``tiles``
+    64 x 64 output tiles: the fewest that give about ``TARGET_BLOCKS`` blocks,
+    each split keeping at least 128 tokens."""
+    return max(1, min(-(-TARGET_BLOCKS // tiles), tokens // 128, most))
 
 
 def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
@@ -111,9 +122,10 @@ def require(kernel: str, specs) -> None:
 def plain_grads(fn, inputs, needs, g):
     """Gradients of ``fn(*inputs)`` for the cotangent ``g`` by autograd of a
     plain version, for the inputs flagged in ``needs`` (None elsewhere, and
-    nothing runs when none is flagged).  The backward of a kernel's
-    ``autograd.Function`` takes its parameter gradients from here, as the
-    JAX package recomputes them from its jnp references."""
+    nothing runs when none is flagged).  The resblock's ``autograd.Function``
+    takes its parameter gradients from here, as the JAX package recomputes
+    them from its jnp reference; the FFN, attention and GroupNorm Functions
+    have all-gradients kernels instead."""
     if not any(needs):
         return [None] * len(inputs)
     with torch.enable_grad():

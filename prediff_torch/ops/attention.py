@@ -8,13 +8,17 @@ as three hand-written launches (LN+QKV product, the per-cuboid core, the
 output projection) that read cuboids in place by strides; matrix products
 take bf16 operands with f32 accumulation.  Its input gradient
 (``axial_attention_bwd_dx``, same source) replaces
-``pallas_attention.py::fused_axial_attention_5d_bwd_dx``.  Weights are in
-PyTorch layout: ``w_qkv`` (3C, C), ``w_proj`` (C, C); ``bias`` is
-(heads, vol, vol).
+``pallas_attention.py::fused_axial_attention_5d_bwd_dx``, and its
+all-gradients backward (``axial_attention_bwd_full``) replaces
+``pallas_attention.py::fused_axial_attention_5d_bwd_full`` (without a
+dropout seed).  Weights are in PyTorch layout: ``w_qkv`` (3C, C), ``w_proj``
+(C, C); ``bias`` is (heads, vol, vol).
 
-:func:`fused_axial_attention` is differentiable: dx from
-:func:`fused_axial_attention_bwd_dx`, parameter gradients (only when asked
-for) from autograd of the f32 plain version.
+:func:`fused_axial_attention` is differentiable.  When a parameter gradient
+is asked for (training) its backward is one call of
+:func:`fused_axial_attention_bwd_full`, which gives dx and every parameter
+gradient; when only dx is asked for (guidance: the model is frozen) it is
+:func:`fused_axial_attention_bwd_dx`.
 """
 from typing import Optional
 
@@ -26,7 +30,8 @@ from .ffn import _round, layer_norm_bwd_plain, layer_norm_plain
 
 _P, _I, _F = _build.P, _build.I, _build.F
 _SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 7 + [_F, _F, _P],
-               "axial_attention_bwd_dx": [_P] * 12 + [_I] * 7 + [_F, _F, _P]}
+               "axial_attention_bwd_dx": [_P] * 12 + [_I] * 7 + [_F, _F, _P],
+               "axial_attention_bwd_full": [_P] * 21 + [_I] * 10 + [_F, _F, _P]}
 
 
 def axial_cuboid_size(shape, axis: int):
@@ -98,14 +103,54 @@ def axial_attention_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
     return cuboid_reorder_reverse(dx, cs, ("l", "l", "l"), (T, H, W)).to(x.dtype)
 
 
+def axial_attention_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
+                                   ln_w: torch.Tensor, ln_b: torch.Tensor, w_qkv: torch.Tensor,
+                                   bias: torch.Tensor, w_proj: torch.Tensor, num_heads: int,
+                                   scale: float, eps: float = 1e-5,
+                                   mxu_dtype: Optional[torch.dtype] = None):
+    """Plain (dx, dln_w, dln_b, dw_qkv, dbias, dw_proj, db_proj) of
+    :func:`axial_attention_plain` for the cotangent ``g``, the TPU kernel's
+    formulas: everything recomputed from x, ``dbias`` the f32 ``ds`` summed
+    over every cuboid and sample; ``mxu_dtype`` rounds the product operands
+    (LN(x), g, q . scale, k, v, p, the head outputs, ds, dqkv, the weights)
+    where the kernel does; every sum is f32."""
+    B, T, H, W, C = x.shape
+    hc = C // num_heads
+    cs = axial_cuboid_size(x.shape, axis)
+    xr = cuboid_reorder(x.float(), cs, ("l", "l", "l"))
+    gr = _round(cuboid_reorder(g.float(), cs, ("l", "l", "l")), mxu_dtype)
+    nC, vol = xr.shape[1], xr.shape[2]
+    mu = xr.mean(dim=-1, keepdim=True)
+    nhat = (xr - mu) * torch.rsqrt((xr - mu).square().mean(dim=-1, keepdim=True) + eps)
+    ln = _round(nhat * ln_w + ln_b, mxu_dtype)
+    q, k, v = _qkv_plain(xr, ln_w, ln_b, w_qkv, num_heads, eps, mxu_dtype)
+    p = _softmax_plain(q, k, bias, scale, mxu_dtype)
+    o = torch.einsum("bnhij,bnjhc->bnihc", _round(p, mxu_dtype), _round(v, mxu_dtype))
+    d_o = _round((gr @ _round(w_proj, mxu_dtype)).reshape(B, nC, vol, num_heads, hc), mxu_dtype)
+    dp = torch.einsum("bnihc,bnjhc->bnhij", d_o, _round(v, mxu_dtype))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dsr = _round(ds, mxu_dtype)
+    dq = torch.einsum("bnhij,bnjhc->bnihc", dsr, _round(k, mxu_dtype)) * scale
+    dk = torch.einsum("bnhij,bnihc->bnjhc", dsr, _round(q * scale, mxu_dtype))
+    dv = torch.einsum("bnhij,bnihc->bnjhc", _round(p, mxu_dtype), d_o)
+    dqkv = _round(torch.stack([dq, dk, dv], dim=3).reshape(B, nC, vol, 3 * C), mxu_dtype)
+    dln = dqkv @ _round(w_qkv, mxu_dtype)
+    dx = cuboid_reorder_reverse(layer_norm_bwd_plain(xr, ln_w, dln, eps), cs, ("l", "l", "l"),
+                                (T, H, W)).to(x.dtype)
+    dw_qkv = dqkv.reshape(-1, 3 * C).T @ ln.reshape(-1, C)
+    dw_proj = gr.reshape(-1, C).T @ _round(o.reshape(-1, C), mxu_dtype)
+    return (dx, (dln * nhat).sum(dim=(0, 1, 2)), dln.sum(dim=(0, 1, 2)), dw_qkv,
+            ds.sum(dim=(0, 1)), dw_proj, g.float().sum(dim=(0, 1, 2, 3)))
+
+
 def _check(x, axis, num_heads):
     B, T, H, W, C = x.shape
     vol = (T, H, W)[axis]
     if C % 64 != 0 or C % num_heads != 0 or axis not in (0, 1, 2):
         raise ValueError(f"attention kernel: C={C} (takes multiples of 64), heads={num_heads}, "
                          f"axis={axis} not supported")
-    # the gradient's core holds four (vol, hc + 1) tiles and two (vol, vol)
-    smem = 4 * (4 * vol * (C // num_heads + 1) + 2 * vol * vol)
+    # the gradient's core holds four (vol, hc + 1) tiles and up to three (vol, vol)
+    smem = 4 * (4 * vol * (C // num_heads + 1) + 3 * vol * vol)
     if smem > 227 * 1024:
         raise ValueError(f"attention kernel: cuboid of {vol} rows x {C // num_heads} head "
                          "channels exceeds shared memory")
@@ -160,6 +205,51 @@ def fused_axial_attention_bwd_dx(x: torch.Tensor, g: torch.Tensor, axis: int,
     return dx
 
 
+def fused_axial_attention_bwd_full(x: torch.Tensor, g: torch.Tensor, axis: int,
+                                   ln_w: torch.Tensor, ln_b: torch.Tensor, w_qkv: torch.Tensor,
+                                   bias: torch.Tensor, w_proj: torch.Tensor, num_heads: int,
+                                   scale: float, eps: float = 1e-5):
+    """(dx, dln_w, dln_b, dw_qkv, dbias, dw_proj, db_proj) of the layer.  CPU
+    tensor: the plain version in f32.  CUDA tensor: the kernel (C a multiple
+    of 64, as the forward), or raise."""
+    if not x.is_cuda:
+        return axial_attention_bwd_full_plain(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj,
+                                              num_heads, scale, eps)
+    B, T, H, W, C = x.shape
+    M, vol = _check(x, axis, num_heads)
+    _build.require("attention_bwd_full", [
+        ("x", x, (B, T, H, W, C)), ("g", g, (B, T, H, W, C)), ("ln_w", ln_w, (C,)),
+        ("ln_b", ln_b, (C,)), ("w_qkv", w_qkv, (3 * C, C)),
+        ("bias", bias, (num_heads, vol, vol)), ("w_proj", w_proj, (C, C))])
+    n_cuboids = M // vol
+    # cuboids per core block: fewer dbias partials, still about two blocks per SM
+    per_block = max(1, min(8, n_cuboids * num_heads // _build.TARGET_BLOCKS))
+    core_blocks = -(-n_cuboids // per_block)
+    tiles = (C // 64) ** 2
+    ksplit_qkv, ksplit_proj = _build.token_splits(3 * tiles, M), _build.token_splits(tiles, M)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    bf16 = dict(dtype=torch.bfloat16, device=x.device)
+    qkv, dqkv = torch.empty((M, 3 * C), **f32), torch.empty((M, 3 * C), **f32)
+    dattn, dln = torch.empty((M, C), **f32), torch.empty((M, C), **f32)
+    ln_bf, attn_bf = torch.empty((M, C), **bf16), torch.empty((M, C), **bf16)
+    dbias_part = torch.empty((core_blocks, num_heads, vol, vol), **f32)
+    vpart = torch.empty((-(-M // 32), 3, C), **f32)
+    dw_part = torch.empty((max(3 * ksplit_qkv, ksplit_proj), C, C), **f32)
+    dx, dw_qkv, dbias, dw_proj = (torch.empty_like(x), torch.empty_like(w_qkv),
+                                  torch.empty_like(bias), torch.empty_like(w_proj))
+    vec = torch.empty((3, C), **f32)
+    lib = _build.load("attention", _SIGNATURES)
+    err = lib.axial_attention_bwd_full(
+        *(_build.ptr(t) for t in (x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln,
+                                  ln_bf, attn_bf, dbias_part, vpart, dw_part, dx, dw_qkv, dbias,
+                                  dw_proj, vec)),
+        B, T, H, W, C, axis, num_heads, per_block, ksplit_qkv, ksplit_proj, float(scale),
+        float(eps), _build.stream_ptr(x.device))
+    _build.check(err, "axial_attention_bwd_full")
+    fused_axial_attention_bwd_full.launches += 1
+    return dx, vec[0], vec[1], dw_qkv, dbias, dw_proj, vec[2]
+
+
 class _FusedAxialAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps):
@@ -176,12 +266,15 @@ class _FusedAxialAttention(torch.autograd.Function):
         x, *params = ctx.saved_tensors
         axis, num_heads, scale, eps = ctx.args
         g = g.contiguous()
+        needs = ctx.needs_input_grad
+        if any(needs[2:8]):
+            dx, *dparams = fused_axial_attention_bwd_full(x, g, axis, *params[:-1], num_heads,
+                                                          scale, eps)
+            return (dx if needs[0] else None, None,
+                    *(gr if n else None for gr, n in zip(dparams, needs[2:8])), None, None, None)
         dx = (fused_axial_attention_bwd_dx(x, g, axis, *params[:-1], num_heads, scale, eps)
-              if ctx.needs_input_grad[0] else None)
-        dparams = _build.plain_grads(
-            lambda *p: axial_attention_plain(x, axis, *p, num_heads, scale, eps), params,
-            ctx.needs_input_grad[2:8], g)
-        return (dx, None, *dparams, None, None, None)
+              if needs[0] else None)
+        return (dx,) + (None,) * 10
 
 
 def fused_axial_attention(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: torch.Tensor,
@@ -196,3 +289,4 @@ def fused_axial_attention(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: 
 
 fused_axial_attention.launches = 0
 fused_axial_attention_bwd_dx.launches = 0
+fused_axial_attention_bwd_full.launches = 0

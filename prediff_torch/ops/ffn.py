@@ -5,12 +5,14 @@ the hidden activation never leaves the chip, matrix products take bf16
 operands with f32 accumulation on the tensor cores.  GELU uses the exact
 ``erff``; the TPU kernel's A&S 7.1.26 erf differs from it by at most 4e-7.
 Its input gradient (``ffn_bwd_dx`` in the same source) replaces
-``pallas_ffn.py::fused_ffn_bwd_dx``.  Weights are in PyTorch layout: ``w1``
-(hidden, C), ``w2`` (C, hidden).
+``pallas_ffn.py::fused_ffn_bwd_dx``, and its all-gradients backward
+(``ffn_bwd_full``) replaces ``pallas_ffn.py::fused_ffn_bwd_full``.  Weights
+are in PyTorch layout: ``w1`` (hidden, C), ``w2`` (C, hidden).
 
-:func:`fused_ffn` is differentiable: its ``autograd.Function`` takes dx from
-:func:`fused_ffn_bwd_dx` and parameter gradients, only when asked for, from
-autograd of the f32 plain version (under guidance nothing asks).
+:func:`fused_ffn` is differentiable.  When a parameter gradient is asked for
+(training) its backward is one call of :func:`fused_ffn_bwd_full`, which
+gives dx and every parameter gradient; when only dx is asked for (guidance:
+the model is frozen) it is :func:`fused_ffn_bwd_dx`.
 """
 from typing import Optional
 
@@ -20,20 +22,20 @@ from . import _build
 
 _P, _I, _F = _build.P, _build.I, _build.F
 _SIGNATURES = {"ffn_forward": [_P] * 9 + [_I] * 4 + [_F, _P],
-               "ffn_bwd_dx": [_P] * 9 + [_I] * 4 + [_F, _P]}
+               "ffn_bwd_dx": [_P] * 9 + [_I] * 4 + [_F, _P],
+               "ffn_bwd_full": [_P] * 19 + [_I] * 5 + [_F, _P]}
 KERNEL_WIDTHS = (128, 256, 512)
 _ROWS_PER_BLOCK = 32     # csrc/ffn.cu kRows
 _CHUNK = 64              # csrc/ffn.cu kChunk
-_TARGET_BLOCKS = 264     # two blocks for each of the H100's 132 SMs
 
 
 def hidden_splits(M: int, hidden: int) -> int:
     """Splits of the hidden dimension: the fewest that give about
-    ``_TARGET_BLOCKS`` blocks, among the divisors of hidden / 64."""
+    ``_build.TARGET_BLOCKS`` blocks, among the divisors of hidden / 64."""
     row_blocks = -(-M // _ROWS_PER_BLOCK)
     chunks = hidden // _CHUNK
     for s in range(1, chunks + 1):
-        if chunks % s == 0 and row_blocks * s >= _TARGET_BLOCKS:
+        if chunks % s == 0 and row_blocks * s >= _build.TARGET_BLOCKS:
             return s
     return chunks
 
@@ -96,6 +98,30 @@ def ffn_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b:
     return (gf + layer_norm_bwd_plain(xf, ln_w, dln, eps)).to(x.dtype)
 
 
+def ffn_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                       w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, eps: float = 1e-5,
+                       mxu_dtype: Optional[torch.dtype] = None):
+    """Plain (dx, dln_w, dln_b, dw1, db1, dw2, db2) of :func:`ffn_plain` for
+    the cotangent ``g``, the TPU kernel's formulas: everything recomputed
+    from x; ``mxu_dtype`` rounds LN(x), g, the weights, gelu(h) and dh before
+    the products, as the kernel does; every sum is f32."""
+    xf, gf = x.float(), g.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    nhat = (xf - mu) * torch.rsqrt((xf - mu).square().mean(dim=-1, keepdim=True) + eps)
+    ln = _round(nhat * ln_w + ln_b, mxu_dtype)
+    gr = _round(gf, mxu_dtype)
+    h = ln @ _round(w1, mxu_dtype).T + b1
+    da = gr @ _round(w2, mxu_dtype)
+    dh = da * gelu_grad(h)
+    dhr = _round(dh, mxu_dtype)
+    dln = dhr @ _round(w1, mxu_dtype)
+    dx = (gf + layer_norm_bwd_plain(xf, ln_w, dln, eps)).to(x.dtype)
+    dw2 = gr.T @ _round(torch.nn.functional.gelu(h), mxu_dtype)
+    dw1 = dhr.T @ ln
+    return (dx, (dln * nhat).sum(dim=0), dln.sum(dim=0), dw1, dh.sum(dim=0), dw2,
+            gf.sum(dim=0))
+
+
 def _check_widths(M: int, C: int, hidden: int) -> None:
     if C not in KERNEL_WIDTHS or hidden % 64 != 0:
         raise ValueError(f"ffn kernel: C={C} (takes {KERNEL_WIDTHS}), hidden={hidden} "
@@ -145,6 +171,42 @@ def fused_ffn_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b:
     return dx
 
 
+def fused_ffn_bwd_full(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                       w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, eps: float = 1e-5):
+    """(dx, dln_w, dln_b, dw1, db1, dw2, db2) of the fused FFN.  CPU tensor:
+    the plain version in f32.  CUDA tensor: the kernel (widths as the
+    forward), or raise."""
+    if not x.is_cuda:
+        return ffn_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, eps)
+    M, C = x.shape
+    hidden = w1.shape[0]
+    _check_widths(M, C, hidden)
+    _build.require("ffn_bwd_full", [
+        ("x", x, (M, C)), ("g", g, (M, C)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
+        ("w1", w1, (hidden, C)), ("b1", b1, (hidden,)), ("w2", w2, (C, hidden))])
+    splits = hidden_splits(M, hidden)
+    ksplit = _build.token_splits((C // 64) * (hidden // 64), M)
+    row_blocks = -(-M // _ROWS_PER_BLOCK)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    bf16 = dict(dtype=torch.bfloat16, device=x.device)
+    part = torch.empty((splits, M, C), **f32)
+    a_bf, dh_bf, ln_bf = (torch.empty((M, hidden), **bf16), torch.empty((M, hidden), **bf16),
+                          torch.empty((M, C), **bf16))
+    db1_part, vpart = torch.empty((row_blocks, hidden), **f32), torch.empty((row_blocks, 3, C), **f32)
+    dw_part = torch.empty((ksplit, C, hidden), **f32)
+    dx, dw1, db1, dw2 = (torch.empty_like(x), torch.empty_like(w1), torch.empty_like(b1),
+                         torch.empty_like(w2))
+    vec = torch.empty((3, C), **f32)
+    lib = _build.load("ffn", _SIGNATURES)
+    err = lib.ffn_bwd_full(
+        *(_build.ptr(t) for t in (x, g, ln_w, ln_b, w1, b1, w2, part, a_bf, dh_bf, ln_bf,
+                                  db1_part, vpart, dw_part, dx, dw1, db1, dw2, vec)),
+        M, C, hidden, splits, ksplit, float(eps), _build.stream_ptr(x.device))
+    _build.check(err, "ffn_bwd_full")
+    fused_ffn_bwd_full.launches += 1
+    return dx, vec[0], vec[1], dw1, db1, dw2, vec[2]
+
+
 class _FusedFFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps):
@@ -158,11 +220,12 @@ class _FusedFFN(torch.autograd.Function):
     def backward(ctx, g):
         x, *params = ctx.saved_tensors
         g = g.contiguous()
-        dx = (fused_ffn_bwd_dx(x, g, *params[:-1], ctx.eps)
-              if ctx.needs_input_grad[0] else None)
-        dparams = _build.plain_grads(lambda *p: ffn_plain(x, *p, ctx.eps), params,
-                                     ctx.needs_input_grad[1:7], g)
-        return (dx, *dparams, None)
+        needs = ctx.needs_input_grad
+        if any(needs[1:7]):
+            grads = fused_ffn_bwd_full(x, g, *params[:-1], ctx.eps)
+            return (*(gr if n else None for gr, n in zip(grads, needs)), None)
+        dx = fused_ffn_bwd_dx(x, g, *params[:-1], ctx.eps) if needs[0] else None
+        return (dx,) + (None,) * 7
 
 
 def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
@@ -175,3 +238,4 @@ def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch
 
 fused_ffn.launches = 0
 fused_ffn_bwd_dx.launches = 0
+fused_ffn_bwd_full.launches = 0

@@ -1,0 +1,138 @@
+"""PreDiff (latent diffusion) training: encode -> q_sample -> UNet -> weighted
+loss -> clip -> AdamW (warmup + cosine) -> EMA, on one device.
+
+Counterpart of ``prediff_tpu/training/diffusion_trainer.py``.  Trainable:
+the UNet and, when ``learn_logvar``, the per-step ``logvar``; the VAE is
+frozen.  A step runs eagerly; what it draws (the posterior sample, t, the
+noise) comes from a generator seeded from the caller's seed and
+``state.step``, so a run restored from a checkpoint repeats the run it was
+saved from.  On the card the trainer switches cuDNN to its deterministic
+algorithms (:func:`~prediff_torch.utils.device.set_deterministic`): the
+hand-written kernels sum in a fixed order, and with that switch the library's
+convolution gradients do too, so the same step gives the same bits.
+
+Not carried over from the JAX trainer, and refused when asked for:
+``remat_unet``, ``make_train_step_scan``, the mesh (waits for the
+multi-GPU slice) and the TPU / XLA layout and RNG knobs ``prng_impl``,
+``flat_update``, ``pack_small_thr``, ``matmul_precision``, ``conv3d_impl``,
+``ema_dtype``, ``state_dtype``.
+"""
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..diffusion.latent_diffusion import LatentDiffusion
+from ..utils.convert import torch_key_to_flax_path
+from ..utils.device import set_deterministic
+from .optim import build_optimizer, global_norm
+from .train_state import EmaTrainState
+
+_TPU_KNOBS = {"mesh": None, "remat_unet": False, "prng_impl": None, "flat_update": False,
+              "pack_small_thr": 0, "matmul_precision": None, "conv3d_impl": None,
+              "ema_dtype": None}
+
+
+def step_generator(seed: Union[int, torch.Generator], step: int, device) -> torch.Generator:
+    """The generator of one step: seeded from the run's seed (or a
+    generator's initial seed) and the step count, on ``device``."""
+    if isinstance(seed, torch.Generator):
+        seed = seed.initial_seed()
+    words = np.random.SeedSequence([int(seed) % 2**63, int(step)]).generate_state(2, np.uint32)
+    return torch.Generator(device).manual_seed((int(words[0]) << 31) ^ int(words[1]))
+
+
+class DiffusionTrainer:
+    """Train and validation steps of the latent diffusion model ``ld`` (from
+    :func:`~prediff_torch.factory.build_training_pipeline`)."""
+
+    def __init__(self, ld: LatentDiffusion, optim_config: Optional[Dict] = None,
+                 use_ema: bool = True, ema_decay: float = 0.9999,
+                 track_grad_norm: bool = False, latent_inputs: bool = False, **knobs):
+        for name, value in knobs.items():
+            if name not in _TPU_KNOBS:
+                raise TypeError(f"DiffusionTrainer: unexpected argument '{name}'")
+            if value != _TPU_KNOBS[name] and not (name in ("prng_impl", "conv3d_impl")
+                                                  and value == "auto"):
+                raise NotImplementedError(f"{name}={value!r} is not ported (ROADMAP.md, "
+                                          "not carried over)")
+        if any(p.requires_grad for p in ld.vae.parameters()):
+            raise ValueError("the VAE must be frozen")
+        self.ld = ld
+        self.optim_config = dict(optim_config or {})
+        self.use_ema = use_ema
+        self.ema_decay = ema_decay
+        self.track_grad_norm = track_grad_norm
+        # True: the steps take first-stage moments (mx, my) instead of pixel
+        # windows (x, y), and the frozen VAE encode drops out of the step
+        self.latent_inputs = latent_inputs
+        if ld.device.type == "cuda":
+            set_deterministic()
+
+    def create_state(self) -> EmaTrainState:
+        """A fresh state over the pipeline's UNet (put in training mode, which
+        refuses dropout rates above 0) and a new ``logvar`` when it is learned."""
+        self.ld.unet.train().requires_grad_(True)
+        params: Dict[str, nn.Parameter] = {f"unet.{k}": p
+                                           for k, p in self.ld.unet.named_parameters()}
+        if self.ld.learn_logvar:
+            params["logvar"] = nn.Parameter(self.ld.init_logvar())
+        tx = build_optimizer(list(params.values()), **self.optim_config)
+        return EmaTrainState.create(params, tx, use_ema=self.use_ema, ema_decay=self.ema_decay)
+
+    def _loss(self, logvar, generator, x, y, prefix: str, latent: Optional[bool] = None,
+              unet_params=None):
+        latent = self.latent_inputs if latent is None else latent
+        fn = self.ld.training_loss_from_moments if latent else self.ld.training_loss
+        return fn(logvar, generator, x, y, prefix=prefix, unet_params=unet_params)
+
+    def _logvar(self, state: EmaTrainState) -> torch.Tensor:
+        return state.params["logvar"] if "logvar" in state.params else self.ld.init_logvar()
+
+    def train_step(self, state: EmaTrainState, seed: Union[int, torch.Generator],
+                   x: torch.Tensor, y: torch.Tensor
+                   ) -> Tuple[EmaTrainState, Dict[str, torch.Tensor]]:
+        """One micro-step on target ``x`` and context ``y`` (pixels, or
+        moments with ``latent_inputs``): loss, gradients of every trainable
+        parameter, ``state.apply_gradients``.  Returns the state and the
+        ``loss_dict`` (0-dim tensors on the device; ``grad_norm`` is the
+        global norm of this micro-step's gradients before the clip)."""
+        self.ld.unet.train()
+        generator = step_generator(seed, state.step, self.ld.device)
+        loss, loss_dict = self._loss(self._logvar(state), generator, x, y, "train")
+        names = list(state.params)
+        grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+        loss_dict["grad_norm"] = global_norm(grads)
+        if self.track_grad_norm:
+            by_module: Dict[str, list] = {}
+            for name, g in zip(names, grads):
+                # per top-level module, under the flax tree's name for it
+                key = ("logvar" if name == "logvar"
+                       else "unet." + torch_key_to_flax_path(name[len("unet."):])[0])
+                by_module.setdefault(key, []).append(g)
+            for key, gs in by_module.items():
+                loss_dict[f"grad_norm/{key}"] = global_norm(gs)
+        state.apply_gradients(grads)
+        return state, loss_dict
+
+    @torch.no_grad()
+    def val_step(self, state: EmaTrainState, seed: Union[int, torch.Generator], x: torch.Tensor,
+                 y: torch.Tensor, use_ema: bool = True,
+                 latent_inputs: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+        """The loss on a validation batch with the EMA weights (``use_ema``)
+        in eval mode; the ``loss_dict`` under ``val/``.  ``latent_inputs=False``
+        forces pixel inputs for a trainer that trains from moments."""
+        unet_params = None
+        if use_ema and state.use_ema:
+            unet_params = state.ema_param_tree("unet.")
+        was_training = self.ld.unet.training
+        self.ld.unet.eval()
+        try:
+            generator = step_generator(seed, 0, self.ld.device)
+            _, loss_dict = self._loss(self._logvar(state), generator, x, y, "val",
+                                      latent=latent_inputs, unet_params=unet_params)
+        finally:
+            self.ld.unet.train(was_training)
+        return loss_dict

@@ -1,0 +1,148 @@
+"""Generic training loop: epochs over batches, periodic validation,
+checkpoints (top-k by the monitored score + the latest), jsonl metric
+logging, early stopping.  Counterpart of ``prediff_tpu/training/loop.py``.
+"""
+import json
+import os
+import time
+from typing import Any, Callable, Dict, Iterable, Optional, Union
+
+import numpy as np
+import torch
+
+from ..utils.checkpoint import delete_checkpoint, save_checkpoint
+
+
+class MetricLogger:
+    """Append-only jsonl logger: one record per call, ``<save_dir>/metrics.jsonl``."""
+
+    def __init__(self, save_dir: str):
+        os.makedirs(save_dir, exist_ok=True)
+        self.path = os.path.join(save_dir, "metrics.jsonl")
+
+    def log(self, step: int, metrics: Dict[str, Any], prefix: str = "") -> None:
+        rec = {"step": int(step), "time": time.time()}
+        for k, v in metrics.items():
+            try:
+                rec[f"{prefix}{k}"] = float(v)
+            except (TypeError, ValueError):
+                continue
+        with open(self.path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+
+class CheckpointTracker:
+    """Keeps the ``save_top_k`` checkpoints with the best monitored score and
+    the latest one.  Retention is by score, not by recency, so a later, worse
+    checkpoint never evicts the best.  ``best`` holds (score, step) pairs,
+    best first."""
+
+    def __init__(self, save_dir: str, monitor: str = "val/loss", mode: str = "min",
+                 save_top_k: int = 3):
+        if mode not in ("min", "max"):
+            raise ValueError(f"mode '{mode}'")
+        self.save_dir = save_dir
+        self.monitor = monitor
+        self.mode = mode
+        self.save_top_k = save_top_k
+        self.best: list = []
+        self.saved: set = set()   # steps on disk
+        self.last_step: int = -1
+
+    def is_improvement(self, score: float) -> bool:
+        if len(self.best) < self.save_top_k:
+            return True
+        worst = self.best[-1][0]
+        return score < worst if self.mode == "min" else score > worst
+
+    def update(self, score: float, step: int, state: Any) -> None:
+        path = os.path.join(self.save_dir, "ckpt")
+        save_checkpoint(path, state, step=step, keep=None)
+        self.last_step = step
+        self.best.append((float(score), step))
+        self.best.sort(key=lambda e: -e[0] if self.mode == "max" else e[0])
+        self.best = self.best[: self.save_top_k]
+        desired = {st for _, st in self.best} | {self.last_step}
+        for st in sorted((self.saved | {step}) - desired):
+            delete_checkpoint(path, st)
+        self.saved = desired
+
+
+class EarlyStopper:
+    def __init__(self, patience: int = 100, mode: str = "min", enabled: bool = False):
+        self.patience = patience
+        self.mode = mode
+        self.enabled = enabled
+        self.best = np.inf if mode == "min" else -np.inf
+        self.count = 0
+
+    def should_stop(self, score: float) -> bool:
+        if not self.enabled:
+            return False
+        improved = score < self.best if self.mode == "min" else score > self.best
+        if improved:
+            self.best = score
+            self.count = 0
+        else:
+            self.count += 1
+        return self.count > self.patience
+
+
+def fit(state: Any, train_step: Callable, train_batches_fn: Callable[[int], Iterable],
+        make_batch_args: Callable[[Any], tuple], max_epochs: int, save_dir: str,
+        seed: Union[int, torch.Generator],
+        val_fn: Optional[Callable[[Any], Dict[str, float]]] = None,
+        check_val_every_n_epoch: int = 1, monitor: str = "val/loss", monitor_mode: str = "min",
+        save_top_k: int = 3, early_stop: bool = False, early_stop_patience: int = 100,
+        log_every_n_steps: int = 50, max_steps: Optional[int] = None,
+        logger: Optional[MetricLogger] = None, steps_per_call: int = 1):
+    """Run the loop; returns the final state.
+
+    ``train_batches_fn(epoch)`` yields batches; ``make_batch_args(batch)``
+    maps one to the arguments of ``train_step`` after ``(state, seed)``.  A
+    step here is one call of ``train_step`` (a micro-step when gradients are
+    accumulated), as ``state.step`` counts them.  ``steps_per_call`` > 1
+    (several steps per dispatch, a remedy for the TPU host's dispatch cost)
+    is not ported."""
+    if int(steps_per_call) > 1:
+        raise NotImplementedError("steps_per_call > 1 is not ported (ROADMAP.md, not carried over)")
+    logger = logger if logger is not None else MetricLogger(save_dir)
+    tracker = CheckpointTracker(save_dir, monitor, monitor_mode, save_top_k)
+    stopper = EarlyStopper(early_stop_patience, monitor_mode, early_stop)
+    global_step = int(state.step)
+    last_val_step = None
+
+    def run_validation() -> bool:
+        """Validate and checkpoint; True when early stopping says stop."""
+        nonlocal last_val_step
+        val_metrics = val_fn(state)
+        logger.log(global_step, val_metrics)
+        last_val_step = global_step
+        score = val_metrics.get(monitor)
+        if score is not None:
+            score = float(score)
+            if tracker.is_improvement(score):
+                tracker.update(score, global_step, state)
+            if stopper.should_stop(score):
+                return True
+        return False
+
+    stop = False
+    for epoch in range(max_epochs):
+        for batch in train_batches_fn(epoch):
+            state, metrics = train_step(state, seed, *make_batch_args(batch))
+            global_step += 1
+            if global_step % log_every_n_steps == 0:
+                logger.log(global_step, metrics)
+            if max_steps is not None and global_step >= max_steps:
+                stop = True  # mid-epoch: the final validation still runs below
+                break
+        if val_fn is not None and (stop or (epoch + 1) % check_val_every_n_epoch == 0):
+            if run_validation():
+                stop = True
+        if stop:
+            break
+    # a run that ended between two validations still gets a last one, and its checkpoint
+    if val_fn is not None and last_val_step != global_step and global_step > 0:
+        run_validation()
+    return state

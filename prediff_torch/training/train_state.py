@@ -1,0 +1,83 @@
+"""Train state: the trainable parameters, the optimizer's state and the EMA
+shadow, updated in place.
+
+Counterpart of ``prediff_tpu/training/train_state.py``.  Where the flax
+state is an immutable pytree that each step replaces, this one holds the
+live ``nn.Parameter``s (the UNet's, and ``logvar`` when it is learned) and
+mutates them; ``apply_gradients`` returns the same object.  As there, every
+call counts as a step and moves the EMA, also the calls between two
+optimizer updates of an accumulated batch.
+"""
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from .ema import ema_update
+from .optim import Optimizer
+
+
+class EmaTrainState:
+    def __init__(self, params: Dict[str, nn.Parameter], tx: Optimizer, use_ema: bool = True,
+                 ema_decay: float = 0.9999):
+        self.step = 0
+        self.params = params        # name -> live parameter, "unet.<path>" and "logvar"
+        self.tx = tx
+        self.use_ema = use_ema
+        self.ema_decay = ema_decay
+        # own copies: the shadow never aliases a parameter
+        self.ema_params: Optional[Dict[str, torch.Tensor]] = (
+            {k: p.detach().clone() for k, p in params.items()} if use_ema else None)
+
+    @classmethod
+    def create(cls, params: Dict[str, nn.Parameter], tx: Optimizer, use_ema: bool = True,
+               ema_decay: float = 0.9999, ema_dtype: Optional[str] = None) -> "EmaTrainState":
+        """``tx`` must have been built over ``params.values()`` in this order.
+        ``ema_dtype`` (a low-precision shadow, a TPU memory-traffic knob) is
+        not carried over: anything but ``None`` raises."""
+        if ema_dtype is not None:
+            raise NotImplementedError("ema_dtype: a low-precision EMA shadow is not ported "
+                                      "(ROADMAP.md, not carried over)")
+        if [id(p) for p in tx.params] != [id(p) for p in params.values()]:
+            raise ValueError("the optimizer was built over other parameters than the state's")
+        return cls(params, tx, use_ema=use_ema, ema_decay=ema_decay)
+
+    def apply_gradients(self, grads: Sequence[torch.Tensor]) -> "EmaTrainState":
+        """One micro-gradient, in the order of ``params``: the optimizer
+        (which moves the parameters once every ``accum_steps`` calls), then
+        the EMA with the step count before the increment."""
+        self.tx.update(grads)
+        if self.use_ema:
+            ema_update(list(self.ema_params.values()), list(self.params.values()),
+                       self.ema_decay, self.step)
+        self.step += 1
+        return self
+
+    def ema_param_tree(self, prefix: str = "") -> Optional[Dict[str, torch.Tensor]]:
+        """The EMA shadow, name -> tensor; with ``prefix`` only the names
+        under it, the prefix cut (``"unet."`` gives what
+        ``torch.func.functional_call`` takes for the UNet)."""
+        if self.ema_params is None:
+            return None
+        return {k[len(prefix):]: v for k, v in self.ema_params.items() if k.startswith(prefix)}
+
+    def state_dict(self) -> Dict:
+        return {"step": self.step,
+                "params": {k: p.detach() for k, p in self.params.items()},
+                "opt_state": self.tx.state_dict(),
+                "ema_params": self.ema_params}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore in place; the names must be this state's."""
+        if set(state["params"]) != set(self.params):
+            raise ValueError("checkpoint holds other parameters than this train state")
+        if (state["ema_params"] is None) != (self.ema_params is None):
+            raise ValueError("checkpoint and train state differ in use_ema")
+        self.step = int(state["step"])
+        with torch.no_grad():
+            for k, p in self.params.items():
+                p.copy_(state["params"][k])
+            if self.ema_params is not None:
+                for k, e in self.ema_params.items():
+                    e.copy_(state["ema_params"][k])
+        self.tx.load_state_dict(state["opt_state"])

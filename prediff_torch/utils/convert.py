@@ -1,4 +1,6 @@
-"""Weight bridge: a flax parameter tree (as numpy) -> a port module's state_dict.
+"""Weight bridge: a flax parameter tree (as numpy) -> a port module's state_dict,
+and a flax train-state tree (parameters, gradients or EMA shadow) -> the
+port's train-state names.
 
 The port's module attribute paths follow the reference PyTorch names
 (``down_self_blocks.0.1.attn_l.0.qkv.weight``, the diffusers VAE names), and
@@ -85,4 +87,16 @@ def flax_params_to_torch(model: torch.nn.Module, flax_params) -> Dict[str, torch
     unused = sorted("/".join(p) for p in flat if p not in used)
     if unused:
         raise ValueError(f"flax leaves with no port parameter ({len(unused)}): {unused[:10]}")
+    return out
+
+
+def flax_train_tree_to_torch(unet: torch.nn.Module, tree) -> Dict[str, torch.Tensor]:
+    """A flax tree over the trainable parameters, ``{"unet": ..., ["logvar":
+    ...]}`` -> the port's train-state names, ``"unet.<state_dict key>"`` and
+    ``"logvar"``, in the port's layouts.  The layout change is linear, so the
+    same function carries the parameters, a gradient tree or the EMA shadow
+    of a flax train state."""
+    out = {f"unet.{k}": v for k, v in flax_params_to_torch(unet, tree["unet"]).items()}
+    if "logvar" in tree:
+        out["logvar"] = torch.from_numpy(np.array(tree["logvar"], dtype=np.float32))
     return out

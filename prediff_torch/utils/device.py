@@ -17,6 +17,18 @@ def set_numerics() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def set_deterministic() -> None:
+    """cuDNN's deterministic convolution algorithms, and no autotuned choice
+    among them, for training: by default cuDNN may take a weight-gradient
+    algorithm that adds with atomics, and two runs of one step then differ in
+    the last bits.  The hand-written kernels add in a fixed order by
+    themselves, and the other library ops on the training path (cuBLAS on one
+    stream, ``index_put`` with accumulation, which sorts) are deterministic
+    as they are, so this one switch makes a step repeat bit for bit."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """``None`` means the card.  Asking for CUDA on a host without one raises:
     an entry point never carries on quietly on the CPU."""

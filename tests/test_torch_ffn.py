@@ -1,8 +1,9 @@
 """Fused FFN: the port's plain version against the JAX reference and the
 interpret-mode Pallas kernel (f32 and bf16 matmul operands, CPU), its input
 gradient likewise, and the ``autograd.Function`` against autograd of the
-plain version; the CUDA kernels are held against the plain versions in
-test_torch_kernels_cuda.py."""
+plain version (the all-gradients backward has its own file,
+test_torch_bwd_full.py); the CUDA kernels are held against the plain versions
+in test_torch_kernels_cuda.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -60,8 +60,9 @@ def test_wrapper_takes_plain_version_on_cpu():
 
 @pytest.mark.parametrize("with_emb", [False, True])
 def test_function_gives_plain_autograd_grads_on_cpu(with_emb):
-    """No backward kernel: every gradient is autograd of the plain version,
-    and dx matches jax.vjp of the JAX reference."""
+    """On the CPU the backward is the plain all-gradients version: it gives
+    what autograd of the plain forward gives, and dx matches jax.vjp of the
+    JAX reference."""
     x, w, b, emb = _inputs(2, 48, 64, 3, with_emb)
     g = np.random.RandomState(4).randn(2, 48, 64).astype(np.float32)
     targs = [_torch(a) for a in (x, w, b, emb)]

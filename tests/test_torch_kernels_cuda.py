@@ -8,10 +8,14 @@ file imports no JAX, so it also runs where JAX is not installed:
 import pytest
 import torch
 
-from prediff_torch.ops.attention import (axial_attention_bwd_dx_plain, axial_attention_plain,
-                                         fused_axial_attention, fused_axial_attention_bwd_dx)
-from prediff_torch.ops.ffn import ffn_bwd_dx_plain, ffn_plain, fused_ffn, fused_ffn_bwd_dx
-from prediff_torch.ops.groupnorm import fused_groupnorm_silu, groupnorm_silu_plain
+from prediff_torch.ops.attention import (axial_attention_bwd_dx_plain,
+                                         axial_attention_bwd_full_plain, axial_attention_plain,
+                                         fused_axial_attention, fused_axial_attention_bwd_dx,
+                                         fused_axial_attention_bwd_full)
+from prediff_torch.ops.ffn import (ffn_bwd_dx_plain, ffn_bwd_full_plain, ffn_plain, fused_ffn,
+                                   fused_ffn_bwd_dx, fused_ffn_bwd_full)
+from prediff_torch.ops.groupnorm import (fused_groupnorm_silu, fused_groupnorm_silu_bwd_full,
+                                         groupnorm_silu_bwd_full_plain, groupnorm_silu_plain)
 from prediff_torch.ops.resblock import (fused_resblock, fused_resblock_bwd, fused_resblock_fwd,
                                         resblock_bwd_plain, resblock_plain)
 
@@ -171,6 +175,63 @@ def test_resblock_kernels_match_plain(dev, shape):
     _close_rel(demb, want_demb)
 
 
+# ---- all-gradients backwards (the training path) ----
+FFN_GRADS = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2")
+ATTN_GRADS = ("dx", "dln_w", "dln_b", "dw_qkv", "dbias", "dw_proj", "db_proj")
+
+
+@pytest.mark.parametrize("M,C", [(6656, 256), (1664, 512), (100, 128)])
+def test_ffn_bwd_full_kernel_matches_plain(dev, M, C):
+    x, ln_w, ln_b, w1, b1, w2, _ = _ffn_args(dev, M, C)
+    g = torch.randn(M, C, device=dev)
+    before = (fused_ffn_bwd_full.launches, fused_ffn_bwd_dx.launches)
+    got = fused_ffn_bwd_full(x, g, ln_w, ln_b, w1, b1, w2)
+    want = ffn_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, mxu_dtype=torch.bfloat16)
+    for name, gt, wt in zip(FFN_GRADS, got, want):
+        assert gt.shape == wt.shape, name
+        _close_rel(gt, wt)
+    assert (fused_ffn_bwd_full.launches, fused_ffn_bwd_dx.launches) == (before[0] + 1, before[1])
+    again = fused_ffn_bwd_full(x, g, ln_w, ln_b, w1, b1, w2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics: same bits
+
+
+@pytest.mark.parametrize("shape", [(2, 13, 16, 16, 256), (2, 13, 8, 8, 512), (2, 5, 3, 7, 64)])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_attention_bwd_full_kernel_matches_plain(dev, shape, axis):
+    x, ln_w, ln_b, w_qkv, bias, w_proj, _ = _attn_args(dev, shape, axis)
+    g = torch.randn(*shape, device=dev)
+    scale = (shape[-1] // 4) ** -0.5
+    args = (x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, 4, scale)
+    got = fused_axial_attention_bwd_full(*args)
+    want = axial_attention_bwd_full_plain(*args, mxu_dtype=torch.bfloat16)
+    for name, gt, wt in zip(ATTN_GRADS, got, want):
+        assert gt.shape == wt.shape, name
+        _close_rel(gt, wt)
+    again = fused_axial_attention_bwd_full(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,N,C,groups", [(2, 3328, 256, 32), (2, 832, 512, 32), (2, 3328, 65, 65),
+                                          (3, 50, 96, 32)])
+@pytest.mark.parametrize("with_emb", [False, True])
+def test_groupnorm_bwd_full_kernel_matches_plain(dev, B, N, C, groups, with_emb):
+    x = torch.randn(B, N, C, device=dev) * 2.0 + 3.0
+    g = torch.randn(B, N, C, device=dev)
+    w = 1.0 + 0.1 * torch.randn(C, device=dev)
+    b = 0.1 * torch.randn(C, device=dev)
+    emb = torch.randn(B, C, device=dev) if with_emb else None
+    got = fused_groupnorm_silu_bwd_full(x, g, w, b, emb, groups=groups)
+    want = groupnorm_silu_bwd_full_plain(x, g, w, b, emb, groups=groups)
+    assert (got[3] is None) == (emb is None)
+    for gt, wt in zip(got, want):
+        if wt is not None:
+            # all f32; only the order of the sums differs
+            scale = wt.abs().max().item()
+            assert (gt - wt).abs().max().item() <= TOL_GN * max(scale, 1.0)
+    again = fused_groupnorm_silu_bwd_full(x, g, w, b, emb, groups=groups)
+    assert all(a is b or torch.equal(a, b) for a, b in zip(got, again))
+
+
 def _grads(fn, args, g):
     leaves = [a.clone().requires_grad_(True) for a in args]
     return torch.autograd.grad(fn(*leaves), leaves, g)
@@ -178,8 +239,9 @@ def _grads(fn, args, g):
 
 def test_autograd_through_every_wrapper_on_the_card(dev):
     """Each Function on CUDA gives the gradients of autograd of the f32 plain
-    version (dx through the kernels, parameter gradients through the plain
-    version), so guidance cannot skip a kernel."""
+    version, dx and every parameter gradient through the kernels (the
+    resblock's parameter gradients through its plain version), so neither
+    guidance nor training can skip a kernel."""
     cases = []
     x = torch.randn(1, 1536, 128, device=dev) * 2.0 + 1.0
     w, b, emb = 1.0 + 0.1 * torch.randn(128, device=dev), 0.1 * torch.randn(128, device=dev), \
@@ -192,9 +254,14 @@ def test_autograd_through_every_wrapper_on_the_card(dev):
                   lambda x, *p: axial_attention_plain(x, 1, *p, 4, 0.125), a))
     cases.append(("resblock", fused_resblock, lambda *p: resblock_plain(*p)[0],
                   _resblock_args(dev, (1, 6, 8, 8, 256))))
+    full = (fused_groupnorm_silu_bwd_full, fused_ffn_bwd_full, fused_axial_attention_bwd_full)
+    dx_only = (fused_ffn_bwd_dx, fused_axial_attention_bwd_dx)
+    before = [f.launches for f in full + dx_only]
     for name, fused, plain, args in cases:
         g = torch.randn_like(args[0])
         got, want = _grads(fused, args, g), _grads(plain, args, g)
         for i, (gt, wt) in enumerate(zip(got, want)):
             assert gt is not None and torch.isfinite(gt).all(), (name, i)
             _close_rel(gt, wt)
+    # asked for parameter gradients, each backward was its all-gradients kernel, once
+    assert [f.launches for f in full + dx_only] == [b + 1 for b in before[:3]] + before[3:]
