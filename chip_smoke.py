@@ -15,13 +15,18 @@ through ``PreDiffPredictor.predict``, each with the kernels' launch counts
 set to 0 just before it and read just after: the 100-step unguided DDPM
 forecast, the 100-step guided DDPM forecast and the 50-step guided DDIM
 forecast (VAE encode, the steps, VAE decode); profiles of a UNet forward
-and of a guided step.  Then training, with the dropout rates at 0:
-``train_grads``, one loss and backward of the full-width UNet on the card
-(kernels) against the CPU (plain, f32), twice on the card for bit-equal
-gradients; ``train``, ``fit`` with ``DiffusionTrainer`` for a few accumulated
-optimizer steps from synthetic batches with a validation step on the EMA
-weights and a checkpoint restored into a fresh state; a profile of one
-micro-step.  Then the ``kernels`` summary line, the card's name
+and of a guided step.  Then training.  ``train_rate0``, with the dropout
+rates at 0: one loss and backward on the card
+(kernels) against the CPU (plain, f32), then one accumulated optimizer step
+through ``DiffusionTrainer.train_step``, which launches the all-gradients
+kernels without dropout.  At the recipe's own rates (0.1) and full depth:
+``train_grads``, one loss and backward of the UNet on the card (the dropout
+kernels) against the CPU (plain, f32, the same masks regenerated from the same
+seed), twice on the card for bit-equal gradients; ``train``, ``fit`` with
+``DiffusionTrainer`` for a few accumulated optimizer steps from synthetic
+batches with a validation step on the EMA weights (eval mode: no dropout) and
+a checkpoint restored into a fresh state; a profile of one micro-step.  Then
+the ``kernels`` summary line, the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that line is printed.
 """
@@ -47,6 +52,7 @@ SHIFT_MIN_COSINE = 0.99
 TRAIN_OPT_STEPS = 3      # optimizer steps of the train phase
 TRAIN_ACCUM = 2          # micro-steps per optimizer step
 TRAIN_SCHEDULE_STEPS = 100   # the run whose first optimizer steps are taken: 10 of warmup
+DROP_SEED, DROP_SITE, DROP_RATE = 0x5EED_0F_D20905, 7, 0.1   # the kernels_vs_plain dropout cases
 GRAD_TOL_REL_L2 = 5e-2   # card vs CPU gradient over all leaves (bf16 operands vs f32)
 GRAD_MIN_COSINE = 0.99
 LOSS_TOL_REL = 1e-3
@@ -67,12 +73,28 @@ KERNELS = {
                  "guided_forecast"),
     "resblock_bwd": ("prediff_torch/csrc/resblock.cu", "prediff_tpu/ops/pallas_resblock.py:530",
                      "guided_forecast"),
-    "ffn_bwd_full": ("prediff_torch/csrc/ffn.cu", "prediff_tpu/ops/pallas_ffn.py:375", "train"),
+    "ffn_bwd_full": ("prediff_torch/csrc/ffn.cu", "prediff_tpu/ops/pallas_ffn.py:375",
+                     "train_rate0"),
     "axial_attention_bwd_full": ("prediff_torch/csrc/attention.cu",
-                                 "prediff_tpu/ops/pallas_attention.py:1311", "train"),
+                                 "prediff_tpu/ops/pallas_attention.py:1311", "train_rate0"),
     "groupnorm_silu_bwd_full": ("prediff_torch/csrc/groupnorm.cu",
                                 "prediff_tpu/ops/pallas_groupnorm.py:277", "train"),
+    # the seed= forms of the two attention kernels: the line of their seed argument
+    "ffn_dropout": ("prediff_torch/csrc/ffn.cu", "prediff_tpu/ops/pallas_ffn.py:673", "train"),
+    "ffn_dropout_bwd_full": ("prediff_torch/csrc/ffn.cu", "prediff_tpu/ops/pallas_ffn.py:722",
+                             "train"),
+    "axial_attention_dropout": ("prediff_torch/csrc/attention.cu",
+                                "prediff_tpu/ops/pallas_attention.py:792", "train"),
+    "axial_attention_dropout_bwd_full": ("prediff_torch/csrc/attention.cu",
+                                         "prediff_tpu/ops/pallas_attention.py:1325", "train"),
 }
+# which path's launches per step weigh a kernel's times
+PATH_WEIGHTS = {"guided_forecast": ("per_unet", "per_align"), "train": ("per_train",),
+                "train_rate0": ("per_train",)}
+FFN_FORWARDS = ("ffn", "ffn_dropout")
+FFN_BACKWARDS = ("ffn_bwd_full", "ffn_dropout_bwd_full")
+ATTN_FORWARDS = ("axial_attention", "axial_attention_dropout")
+ATTN_BACKWARDS = ("axial_attention_bwd_full", "axial_attention_dropout_bwd_full")
 
 
 LOG = []  # open files that every emitted line is also written to
@@ -128,7 +150,8 @@ def kernel_cases(unet, align, train_batch: int):
     """Every (kernel, shape) of the paths, with launches per UNet forward at
     B=1 (``per_unet``), per guidance shift, alignment forward and backward
     (``per_align``), and per training micro-step at ``train_batch`` samples,
-    forward and backward (``per_train``)."""
+    forward and backward (``per_train``; with dropout the dropout kernels
+    take the FFN's and the attention's launches)."""
     cases = {k: [] for k in KERNELS}
 
     def add(name, per_unet=0, per_align=0, per_train=0, **shape):
@@ -137,10 +160,10 @@ def kernel_cases(unet, align, train_batch: int):
 
     for B, key in ((1, "per_unet"), (train_batch, "per_train")):
         # a micro-step runs each forward kernel once and, behind it, its all-gradients backward
-        gn = ("groupnorm_silu", "groupnorm_silu_bwd_full") if key == "per_train" else ("groupnorm_silu",)
-        ffn = ("ffn", "ffn_bwd_full") if key == "per_train" else ("ffn",)
-        attn = (("axial_attention", "axial_attention_bwd_full") if key == "per_train"
-                else ("axial_attention",))
+        train = key == "per_train"
+        gn = ("groupnorm_silu", "groupnorm_silu_bwd_full") if train else ("groupnorm_silu",)
+        ffn = FFN_FORWARDS + FFN_BACKWARDS if train else ("ffn",)
+        attn = ATTN_FORWARDS + ATTN_BACKWARDS if train else ("axial_attention",)
         T, H, W, C0 = unet.mem_shapes[0]
         fp = unet.first_proj
         for name in gn:
@@ -187,9 +210,14 @@ def check_kernels(cases, device):
     from prediff_torch.ops.attention import (axial_attention_bwd_dx_plain,
                                              axial_attention_bwd_full_plain, axial_attention_plain,
                                              fused_axial_attention, fused_axial_attention_bwd_dx,
-                                             fused_axial_attention_bwd_full)
-    from prediff_torch.ops.ffn import (ffn_bwd_dx_plain, ffn_bwd_full_plain, ffn_plain, fused_ffn,
-                                       fused_ffn_bwd_dx, fused_ffn_bwd_full)
+                                             fused_axial_attention_bwd_full,
+                                             fused_axial_attention_dropout,
+                                             fused_axial_attention_dropout_bwd_full)
+    from prediff_torch.ops.dropout import keep_mask
+    from prediff_torch.ops.ffn import (ffn_bwd_dx_plain, ffn_bwd_full_plain,
+                                       ffn_dropout_bwd_full_plain, ffn_dropout_plain, ffn_plain,
+                                       fused_ffn, fused_ffn_bwd_dx, fused_ffn_bwd_full,
+                                       fused_ffn_dropout, fused_ffn_dropout_bwd_full)
     from prediff_torch.ops.groupnorm import (fused_groupnorm_silu, fused_groupnorm_silu_bwd_full,
                                              groupnorm_silu_bwd_full_plain, groupnorm_silu_plain)
     from prediff_torch.ops.resblock import (fused_resblock_bwd, fused_resblock_fwd,
@@ -240,6 +268,25 @@ def check_kernels(cases, device):
                  outputs={k: {"max_abs_err": o["max_abs_err"], "max_rel_err": o["max_rel_err"]}
                           for k, o in per_output.items()})
 
+    def judge_drop(c, shapes, observed_drop, bit_equal):
+        """The dropout cases' own checks.  The kept share of each mask the
+        kernel regenerates (``keep_mask`` on the card: the kernel agrees with
+        the plain version under it) and, where the output shows it, the share
+        the kernel itself dropped, each within 4 sigma of its rate; and the
+        kernel at rate 0 with a seed against the kernel without dropout."""
+        shares = {}
+        for tensor, shape in enumerate(shapes):
+            m = keep_mask(DROP_SEED, DROP_SITE, tensor, shape, DROP_RATE, device)
+            shares[f"tensor{tensor}"] = (float(m.mean()), m.numel())
+        if observed_drop is not None:
+            shares["observed"] = (1.0 - float(observed_drop[0]), observed_drop[1])
+        c["kept_share"] = {k: v[0] for k, v in shares.items()}
+        c["kept_share_ok"] = all(
+            abs(share - (1 - DROP_RATE)) <= 4 * (DROP_RATE * (1 - DROP_RATE) / n) ** 0.5
+            for share, n in shares.values())
+        c["rate0_bit_equal"] = bit_equal
+        c["ok"] = c["ok"] and c["kept_share_ok"] and bit_equal
+
     failed = []
     for c in cases["groupnorm_silu"]:
         B, N, C = c["shape"]
@@ -279,13 +326,41 @@ def check_kernels(cases, device):
               library=lambda: torch.autograd.grad(y, leaves, g, retain_graph=True),
               f32_flops=30 * B * N * C)
 
-    for name, c in [(n, c) for n in ("ffn", "ffn_bwd_dx", "ffn_bwd_full") for c in cases[n]]:
+    drop = (DROP_RATE, DROP_RATE, DROP_SEED, DROP_SITE)
+    for name, c in [(n, c) for n in ("ffn", "ffn_bwd_dx", "ffn_bwd_full", "ffn_dropout",
+                                     "ffn_dropout_bwd_full") for c in cases[n]]:
         M, C = c["shape"]
         hid = 4 * C
         x, ln_w, ln_b = randn(M, C), vec(C, shift=1.0), vec(C)
         w1, b1 = randn(hid, C, scale=C ** -0.5), vec(hid)
         w2, b2 = randn(C, hid, scale=hid ** -0.5), vec(C)
-        if name == "ffn_bwd_full":
+        if name == "ffn_dropout":
+            # the masks are bit-identical on both sides, so the tolerances without dropout hold
+            args = (x, ln_w, ln_b, w1, b1, w2, b2, 1e-5)
+            got = fused_ffn_dropout(*args, *drop)
+            want = ffn_dropout_plain(*args, *drop, mxu_dtype=bf16)
+            sync(device)
+            judge(c, got, want, tol=2e-2)
+            # the residual is never masked: out == x exactly where the output mask dropped
+            judge_drop(c, [(M, hid), (M, C)], (float((got == x).float().mean()), M * C),
+                       torch.equal(fused_ffn_dropout(*args, 0.0, 0.0, DROP_SEED, DROP_SITE),
+                                   fused_ffn(*args)))
+            timed(c, lambda: fused_ffn_dropout(*args, *drop),
+                  lambda: ffn_dropout_plain(*args, *drop, mxu_dtype=bf16),
+                  4 * (2 * M * C + 2 * C * hid + hid + 3 * C), bf16_flops=4 * M * C * hid)
+        elif name == "ffn_dropout_bwd_full":
+            args = (x, randn(M, C), ln_w, ln_b, w1, b1, w2, 1e-5)
+            got = fused_ffn_dropout_bwd_full(*args, *drop)
+            want = ffn_dropout_bwd_full_plain(*args, *drop, mxu_dtype=bf16)
+            sync(device)
+            judge_all(c, ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2"), got, want)
+            zero = fused_ffn_dropout_bwd_full(*args, 0.0, 0.0, DROP_SEED, DROP_SITE)
+            judge_drop(c, [(M, hid), (M, C)], None,
+                       all(torch.equal(a, b) for a, b in zip(zero, fused_ffn_bwd_full(*args))))
+            timed(c, lambda: fused_ffn_dropout_bwd_full(*args, *drop),
+                  lambda: ffn_dropout_bwd_full_plain(*args, *drop, mxu_dtype=bf16),
+                  4 * (3 * M * C + 4 * C * hid + 2 * hid + 5 * C), bf16_flops=10 * M * C * hid)
+        elif name == "ffn_bwd_full":
             args = (x, randn(M, C), ln_w, ln_b, w1, b1, w2)
             got = fused_ffn_bwd_full(*args)
             want = ffn_bwd_full_plain(*args, mxu_dtype=bf16)
@@ -313,7 +388,8 @@ def check_kernels(cases, device):
 
     heads = 4
     for name, c in [(n, c) for n in ("axial_attention", "axial_attention_bwd_dx",
-                                     "axial_attention_bwd_full") for c in cases[n]]:
+                                     "axial_attention_bwd_full", "axial_attention_dropout",
+                                     "axial_attention_dropout_bwd_full") for c in cases[n]]:
         B, T, H, W, C = c["shape"]
         axis = c["axis"]
         vol = (T, H, W)[axis]
@@ -322,7 +398,38 @@ def check_kernels(cases, device):
         w_qkv, bias = randn(3 * C, C, scale=C ** -0.5), randn(heads, vol, vol, scale=0.5)
         w_proj, b_proj = randn(C, C, scale=C ** -0.5), vec(C)
         scale = (C // heads) ** -0.5
-        if name == "axial_attention_bwd_full":
+        mask_shapes = [(M // vol, heads, vol, vol), (B, T, H, W, C)]
+        if name == "axial_attention_dropout":
+            args = (x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale, 1e-5)
+            got = fused_axial_attention_dropout(*args, *drop)
+            want = axial_attention_plain(*args, bf16, *drop)
+            sync(device)
+            judge(c, got, want, tol=2e-2)
+            judge_drop(c, mask_shapes, (float((got == 0).float().mean()), M * C),
+                       torch.equal(fused_axial_attention_dropout(*args, 0.0, 0.0, DROP_SEED,
+                                                                 DROP_SITE),
+                                   fused_axial_attention(*args)))
+            timed(c, lambda: fused_axial_attention_dropout(*args, *drop),
+                  lambda: axial_attention_plain(*args, bf16, *drop),
+                  4 * (2 * M * C + 4 * C * C + heads * vol * vol + 3 * C),
+                  bf16_flops=8 * M * C * C + 4 * M * vol * C)
+        elif name == "axial_attention_dropout_bwd_full":
+            args = (x, randn(B, T, H, W, C), axis, ln_w, ln_b, w_qkv, bias, w_proj, heads, scale,
+                    1e-5)
+            got = fused_axial_attention_dropout_bwd_full(*args, *drop)
+            want = axial_attention_bwd_full_plain(*args, bf16, *drop)
+            sync(device)
+            judge_all(c, ("dx", "dln_w", "dln_b", "dw_qkv", "dbias", "dw_proj", "db_proj"), got,
+                      want)
+            zero = fused_axial_attention_dropout_bwd_full(*args, 0.0, 0.0, DROP_SEED, DROP_SITE)
+            judge_drop(c, mask_shapes, None,
+                       all(torch.equal(a, b)
+                           for a, b in zip(zero, fused_axial_attention_bwd_full(*args))))
+            timed(c, lambda: fused_axial_attention_dropout_bwd_full(*args, *drop),
+                  lambda: axial_attention_bwd_full_plain(*args, bf16, *drop),
+                  4 * (3 * M * C + 8 * C * C + 2 * heads * vol * vol + 5 * C),
+                  bf16_flops=22 * M * C * C + 12 * M * vol * C)
+        elif name == "axial_attention_bwd_full":
             args = (x, randn(B, T, H, W, C), axis, ln_w, ln_b, w_qkv, bias, w_proj, heads, scale)
             got = fused_axial_attention_bwd_full(*args)
             want = axial_attention_bwd_full_plain(*args, mxu_dtype=bf16)
@@ -396,14 +503,20 @@ def expected_launches(cases, steps: int, guided: bool):
             for name, cs in cases.items()}
 
 
-def expected_train_launches(cases, micro_steps: int, val_steps: int):
+def expected_train_launches(cases, micro_steps: int, val_steps: int, dropout: bool):
     """Wrapper calls of ``micro_steps`` training micro-steps and ``val_steps``
-    validation steps, which run the forward kernels alone."""
+    validation steps.  A validation step runs in eval mode: the forward
+    kernels without dropout, alone.  A micro-step with ``dropout`` runs the
+    FFN's and the attention's dropout kernels, forward and all-gradients, and
+    none of their forms without dropout."""
+    with_drop = FFN_FORWARDS[1:] + FFN_BACKWARDS[1:] + ATTN_FORWARDS[1:] + ATTN_BACKWARDS[1:]
+    without = FFN_FORWARDS[:1] + FFN_BACKWARDS[:1] + ATTN_FORWARDS[:1] + ATTN_BACKWARDS[:1]
     out = {}
     for name, cs in cases.items():
         per = sum(c["per_train"] for c in cs)
-        forward_only = name in ("groupnorm_silu", "ffn", "axial_attention")
-        out[name] = (micro_steps + (val_steps if forward_only else 0)) * per
+        forward = name in ("groupnorm_silu", "ffn", "axial_attention")
+        in_micro = name not in (without if dropout else with_drop)
+        out[name] = (micro_steps * in_micro + val_steps * forward) * per
     return out
 
 
@@ -411,11 +524,12 @@ def summarize(cases, launches_by_path):
     """The ``kernels`` line: per kernel, the launches of its main path's run
     and its times weighted over that path's mix of shapes: one guided step
     (launches per UNet forward plus per guidance shift), or one training
-    micro-step for the all-gradients kernels."""
+    micro-step for the training kernels (at the recipe's dropout rates; the
+    all-gradients kernels without dropout: one micro-step of ``train_rate0``)."""
     out = []
     for name, cs in cases.items():
         source, replaces, main_path = KERNELS[name]
-        keys = ("per_train",) if main_path == "train" else ("per_unet", "per_align")
+        keys = PATH_WEIGHTS[main_path]
         wts = [sum(c[k] for k in keys) for c in cs]
         n = sum(wts)
 
@@ -514,8 +628,11 @@ def run(device, cfg, smi: str) -> None:
     from prediff_torch.factory import build_alignment_model, build_unet, build_vae
     from prediff_torch.models.init import init_params_
     from prediff_torch.ops.attention import (fused_axial_attention, fused_axial_attention_bwd_dx,
-                                             fused_axial_attention_bwd_full)
-    from prediff_torch.ops.ffn import fused_ffn, fused_ffn_bwd_dx, fused_ffn_bwd_full
+                                             fused_axial_attention_bwd_full,
+                                             fused_axial_attention_dropout,
+                                             fused_axial_attention_dropout_bwd_full)
+    from prediff_torch.ops.ffn import (fused_ffn, fused_ffn_bwd_dx, fused_ffn_bwd_full,
+                                       fused_ffn_dropout, fused_ffn_dropout_bwd_full)
     from prediff_torch.ops.groupnorm import fused_groupnorm_silu, fused_groupnorm_silu_bwd_full
     from prediff_torch.ops.resblock import fused_resblock_bwd, fused_resblock_fwd
     from prediff_torch.serving import PreDiffPredictor
@@ -528,7 +645,11 @@ def run(device, cfg, smi: str) -> None:
                 "resblock": fused_resblock_fwd, "resblock_bwd": fused_resblock_bwd,
                 "ffn_bwd_full": fused_ffn_bwd_full,
                 "axial_attention_bwd_full": fused_axial_attention_bwd_full,
-                "groupnorm_silu_bwd_full": fused_groupnorm_silu_bwd_full}
+                "groupnorm_silu_bwd_full": fused_groupnorm_silu_bwd_full,
+                "ffn_dropout": fused_ffn_dropout,
+                "ffn_dropout_bwd_full": fused_ffn_dropout_bwd_full,
+                "axial_attention_dropout": fused_axial_attention_dropout,
+                "axial_attention_dropout_bwd_full": fused_axial_attention_dropout_bwd_full}
     gen = torch.Generator().manual_seed(SEED)
     unet_cpu = init_params_(build_unet(cfg), gen, randomize=True).eval().requires_grad_(False)
     vae_cpu = init_params_(build_vae(cfg), gen, randomize=True).eval().requires_grad_(False)
@@ -657,16 +778,18 @@ def run(device, cfg, smi: str) -> None:
                  reps=5))
     emit(profile("profile_guidance_shift",
                  lambda: predictor.ld.alignment.get_mean_shift(zg, td, avg_d), reps=5))
-    launches_by_path["train"] = train_phases(device, cfg, smi, cases, unet_cpu.state_dict(),
-                                             vae_cpu.state_dict(), zero_counts, read_counts)
+    launches_by_path.update(train_phases(device, cfg, smi, cases, unet_cpu.state_dict(),
+                                         vae_cpu.state_dict(), zero_counts, read_counts))
     emit({"kernels": summarize(cases, launches_by_path)})
     print(smi, flush=True)
 
 
 def train_phases(device, cfg, smi, cases, unet_sd, vae_sd, zero_counts, read_counts):
-    """``train_grads``, ``train`` and ``profile_train_step`` on ``device`` at
-    the configuration's widths with the dropout rates at 0; returns the
-    kernels' launch counts of the ``fit`` run."""
+    """``train_rate0`` (dropout rates 0), then ``train_grads``, ``train`` and
+    ``profile_train_step`` at the configuration's own rates, all at its
+    widths and depth on ``device``;
+    returns the kernels' launch counts of the ``train_rate0`` optimizer step
+    and of the ``fit`` run."""
     import numpy as np
     import torch
     from prediff_torch.config import ConfigDict, deep_merge
@@ -676,13 +799,14 @@ def train_phases(device, cfg, smi, cases, unet_sd, vae_sd, zero_counts, read_cou
     from prediff_torch.training import DiffusionTrainer, fit
     from prediff_torch.utils.checkpoint import all_steps, restore_checkpoint
 
-    no_drop = dict(attn_drop=0.0, proj_drop=0.0, ffn_drop=0.0, time_embed_dropout=0.0)
-    cfg = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"latent_model": no_drop}}))
     B = cfg.optim.micro_batch_size
     d = cfg.model.diffusion
-    weights = {"unet": unet_sd, "vae": vae_sd}
+    rates = {k: cfg.model.latent_model[k]
+             for k in ("attn_drop", "proj_drop", "ffn_drop", "time_embed_dropout")}
+    if not (rates["attn_drop"] > 0 and rates["proj_drop"] > 0 and rates["ffn_drop"] > 0):
+        fail(f"train: the configuration's dropout rates {rates} are not the recipe's")
 
-    # One loss and backward at full width: the card (kernels) against the CPU (plain, f32).
+    # The draws of the card-vs-CPU comparisons: z, zc, t, the noise and the dropout seed.
     rs = torch.Generator().manual_seed(SEED + 2)
     z = torch.randn((B,) + tuple(d.latent_shape), generator=rs)
     zc = torch.randn((B,) + tuple(d.latent_cond_shape), generator=rs)
@@ -690,72 +814,109 @@ def train_phases(device, cfg, smi, cases, unet_sd, vae_sd, zero_counts, read_cou
     noise = torch.randn(z.shape, generator=rs)
     logvar0 = 0.1 * torch.randn(d.timesteps, generator=rs)
 
-    def loss_and_grads(ld):
+    def loss_and_grads(ld, dropout_seed):
         dev = ld.device
         logvar = logvar0.to(dev).requires_grad_(True)
-        loss, _ = ld.p_losses(logvar, z.to(dev), zc.to(dev), t.to(dev), noise.to(dev))
+        loss, _ = ld.p_losses(logvar, z.to(dev), zc.to(dev), t.to(dev), noise.to(dev),
+                              dropout_seed=dropout_seed)
         names = [f"unet.{k}" for k, _ in ld.unet.named_parameters()] + ["logvar"]
         grads = torch.autograd.grad(loss, list(ld.unet.parameters()) + [logvar])
         return float(loss.detach()), names, grads
 
-    t1 = time.perf_counter()
-    ld_cpu = build_training_pipeline(cfg, device="cpu", params=weights)
-    loss_cpu, names, grads_cpu = loss_and_grads(ld_cpu)
-    cpu_s = time.perf_counter() - t1
-    del ld_cpu
-    ld = build_training_pipeline(cfg, device=device, params=weights)
-    trainer = DiffusionTrainer(ld, optim_config=dict(
-        lr=cfg.optim.lr, total_num_steps=TRAIN_SCHEDULE_STEPS, method=cfg.optim.method, wd=cfg.optim.wd,
-        betas=tuple(cfg.optim.betas), gradient_clip_val=cfg.optim.gradient_clip_val,
-        warmup_percentage=cfg.optim.warmup_percentage,
-        lr_scheduler_mode=cfg.optim.lr_scheduler_mode, min_lr_ratio=cfg.optim.min_lr_ratio,
-        warmup_min_lr_ratio=cfg.optim.warmup_min_lr_ratio, accum_steps=TRAIN_ACCUM),
-        use_ema=d.use_ema, track_grad_norm=True)
-    loss_and_grads(ld)  # warm-up: cuDNN picks its algorithms for these shapes
-    sync(device)
+    def make_trainer(ld, c):
+        return DiffusionTrainer(ld, optim_config=dict(
+            lr=c.optim.lr, total_num_steps=TRAIN_SCHEDULE_STEPS, method=c.optim.method,
+            wd=c.optim.wd, betas=tuple(c.optim.betas), gradient_clip_val=c.optim.gradient_clip_val,
+            warmup_percentage=c.optim.warmup_percentage,
+            lr_scheduler_mode=c.optim.lr_scheduler_mode, min_lr_ratio=c.optim.min_lr_ratio,
+            warmup_min_lr_ratio=c.optim.warmup_min_lr_ratio, accum_steps=TRAIN_ACCUM),
+            use_ema=d.use_ema, track_grad_norm=True)
+
+    def card_vs_cpu(phase, c, weights, dropout_seed, want_counts):
+        """One loss and backward: the card (kernels) against the CPU (plain,
+        f32, and with a seed the same masks), twice on the card; fails on a
+        difference.  Returns the card's pipeline and its trainer."""
+        t1 = time.perf_counter()
+        ld_cpu = build_training_pipeline(c, device="cpu", params=weights)
+        loss_cpu, names, grads_cpu = loss_and_grads(ld_cpu, dropout_seed)
+        cpu_s = time.perf_counter() - t1
+        del ld_cpu
+        ld = build_training_pipeline(c, device=device, params=weights)
+        trainer = make_trainer(ld, c)
+        loss_and_grads(ld, dropout_seed)  # warm-up: cuDNN picks its algorithms for these shapes
+        sync(device)
+        zero_counts()
+        loss_card, _, grads_card = loss_and_grads(ld, dropout_seed)
+        sync(device)
+        counts = read_counts()
+        _, _, grads_again = loss_and_grads(ld, dropout_seed)
+        sync(device)
+        gc = [g.cpu().double().flatten() for g in grads_card]
+        gr = [g.double().flatten() for g in grads_cpu]
+        rel_l2 = float(torch.cat([a - b for a, b in zip(gc, gr)]).norm() / torch.cat(gr).norm())
+        cosine = float(torch.cat(gc) @ torch.cat(gr)
+                       / (torch.cat(gc).norm() * torch.cat(gr).norm()))
+        leaf_rel = [float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(gc, gr)]
+        worst = int(np.argmax(leaf_rel))
+        bit_equal = all(torch.equal(a, b) for a, b in zip(grads_card, grads_again))
+        loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        emit({"phase": phase, "batch": B, "depth": list(c.model.latent_model.depth),
+              "dropout": {k: c.model.latent_model[k] for k in rates},
+              "dropout_seed": dropout_seed, "leaves": len(names), "loss_card": loss_card,
+              "loss_cpu": loss_cpu, "loss_rel_err": loss_rel, "tol_loss_rel": LOSS_TOL_REL,
+              "grad_rel_l2_err": rel_l2, "grad_cosine": cosine, "tol_rel_l2": GRAD_TOL_REL_L2,
+              "min_cosine": GRAD_MIN_COSINE, "worst_leaf": names[worst],
+              "worst_leaf_rel_l2": leaf_rel[worst],
+              "leaves_over_tol": sum(r > GRAD_TOL_REL_L2 for r in leaf_rel),
+              "bit_equal_across_two_runs": bit_equal, "launches": counts,
+              "expected_launches": want_counts, "cpu_loss_and_backward_s": cpu_s})
+        if not all(torch.isfinite(g).all() for g in grads_card):
+            fail(f"{phase}: non-finite gradient on the card")
+        if loss_rel > LOSS_TOL_REL or rel_l2 > GRAD_TOL_REL_L2 or cosine < GRAD_MIN_COSINE:
+            fail(f"{phase}: card differs from the CPU: loss {loss_rel}, gradient rel_l2 {rel_l2}, "
+                 f"cosine {cosine}")
+        if not bit_equal:
+            fail(f"{phase}: two runs of the same backward on the card differ")
+        if counts != want_counts:
+            fail(f"{phase}: kernel launches {counts} != expected {want_counts}")
+        return ld, trainer
+
+    L = cfg.layout
+    batch = torch.from_numpy(next(synthetic_batch_iterator(
+        B, L.in_len + L.out_len, L.img_height, L.img_width, seed=SEED)))
+    xy = (batch[:, L.in_len:].to(device), batch[:, :L.in_len].to(device))
+
+    # The kernels without dropout: the rates at 0, the same randomized weights.
+    cfg0 = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"latent_model": dict(
+        attn_drop=0.0, proj_drop=0.0, ffn_drop=0.0, time_embed_dropout=0.0)}}))
+    weights = {"unet": unet_sd, "vae": vae_sd}
+    ld0, trainer0 = card_vs_cpu("train_rate0", cfg0, weights, None,
+                                expected_train_launches(cases, 1, 0, dropout=False))
+    init_params_(ld0.unet, torch.Generator().manual_seed(SEED))
+    state0 = trainer0.create_state()
     zero_counts()
-    loss_card, _, grads_card = loss_and_grads(ld)
+    for _ in range(TRAIN_ACCUM):
+        state0, metrics0 = trainer0.train_step(state0, SEED, *xy)
     sync(device)
-    counts = read_counts()
-    _, _, grads_again = loss_and_grads(ld)
-    sync(device)
-    want_counts = expected_train_launches(cases, 1, 0)
-    gc = [g.cpu().double().flatten() for g in grads_card]
-    gr = [g.double().flatten() for g in grads_cpu]
-    rel_l2 = float(torch.cat([a - b for a, b in zip(gc, gr)]).norm() / torch.cat(gr).norm())
-    cosine = float(torch.cat(gc) @ torch.cat(gr) / (torch.cat(gc).norm() * torch.cat(gr).norm()))
-    leaf_rel = [float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(gc, gr)]
-    worst = int(np.argmax(leaf_rel))
-    bit_equal = all(torch.equal(a, b) for a, b in zip(grads_card, grads_again))
-    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    emit({"phase": "train_grads", "batch": B, "leaves": len(names), "loss_card": loss_card,
-          "loss_cpu": loss_cpu, "loss_rel_err": loss_rel, "tol_loss_rel": LOSS_TOL_REL,
-          "grad_rel_l2_err": rel_l2, "grad_cosine": cosine, "tol_rel_l2": GRAD_TOL_REL_L2,
-          "min_cosine": GRAD_MIN_COSINE, "worst_leaf": names[worst],
-          "worst_leaf_rel_l2": leaf_rel[worst],
-          "leaves_over_tol": sum(r > GRAD_TOL_REL_L2 for r in leaf_rel),
-          "bit_equal_across_two_runs": bit_equal, "launches": counts,
-          "expected_launches": want_counts, "cpu_loss_and_backward_s": cpu_s})
-    if not all(torch.isfinite(g).all() for g in grads_card):
-        fail("train_grads: non-finite gradient on the card")
-    if loss_rel > LOSS_TOL_REL or rel_l2 > GRAD_TOL_REL_L2 or cosine < GRAD_MIN_COSINE:
-        fail(f"train_grads: card differs from the CPU: loss {loss_rel}, gradient rel_l2 {rel_l2}, "
-             f"cosine {cosine}")
-    if not bit_equal:
-        fail("train_grads: two runs of the same backward on the card differ")
-    if counts != want_counts:
-        fail(f"train_grads: kernel launches {counts} != expected {want_counts}")
-    del grads_card, grads_again, grads_cpu, gc, gr
+    launches0 = read_counts()
+    expected0 = expected_train_launches(cases, TRAIN_ACCUM, 0, dropout=False)
+    emit({"phase": "train_rate0_step", "micro_steps": state0.step,
+          "optimizer_steps": state0.tx.count, "loss": float(metrics0["train/loss"]),
+          "launches": launches0, "expected_launches": expected0})
+    if (state0.tx.count != 1 or not np.isfinite(float(metrics0["train/loss"]))
+            or launches0 != expected0):
+        fail(f"train_rate0: optimizer steps {state0.tx.count}, launches {launches0} != {expected0}")
+    del ld0, trainer0, state0
+
+    # The recipe's rates, full depth: one loss and backward, the card against the CPU.
+    per_micro = expected_train_launches(cases, 1, 0, dropout=True)
+    ld, trainer = card_vs_cpu("train_grads", cfg, weights, DROP_SEED, per_micro)
 
     # fit: a few accumulated optimizer steps on one synthetic batch repeated,
     # validation on the EMA weights, a checkpoint, its restore.  The UNet starts
     # from the seeded v1 initialisation, as a training run does (the randomized
     # weights above put every leaf's gradient to the test, but no run starts there).
     init_params_(ld.unet, torch.Generator().manual_seed(SEED))
-    L = cfg.layout
-    batch = torch.from_numpy(next(synthetic_batch_iterator(
-        B, L.in_len + L.out_len, L.img_height, L.img_width, seed=SEED)))
-    xy = (batch[:, L.in_len:].to(device), batch[:, :L.in_len].to(device))
     micro_steps = TRAIN_OPT_STEPS * TRAIN_ACCUM
     state = trainer.create_state()
     micro = []
@@ -780,7 +941,8 @@ def train_phases(device, cfg, smi, cases, unet_sd, vae_sd, zero_counts, read_cou
         val_losses.append(out["val/loss"])
         return out
 
-    # the same draws before and after: the loss of the trained (not the EMA) weights
+    # the same draws before and after, in eval mode (no dropout): the loss of
+    # the trained (not the EMA) weights
     fixed_before = float(trainer.val_step(state, SEED, *xy, use_ema=False)["val/loss"])
     with tempfile.TemporaryDirectory() as save_dir:
         torch.cuda.reset_peak_memory_stats(device)
@@ -808,13 +970,13 @@ def train_phases(device, cfg, smi, cases, unet_sd, vae_sd, zero_counts, read_cou
         and all(torch.equal(a["ema_params"][k], b["ema_params"][k]) for k in a["ema_params"])
         and all(torch.equal(opt_a[i][k], opt_b[i][k]) for i in opt_a for k in opt_a[i]))
     del ld2, fresh
-    expected = expected_train_launches(cases, micro_steps, len(val_losses))
-    per_micro = expected_train_launches(cases, 1, 0)
+    expected = expected_train_launches(cases, micro_steps, len(val_losses), dropout=True)
     steady = sorted(m["ms"] for m in micro[2:])
     ms_per_micro = steady[len(steady) // 2]
     step_loss = [sum(m["loss"] for m in micro[i:i + TRAIN_ACCUM]) / TRAIN_ACCUM
                  for i in range(0, micro_steps, TRAIN_ACCUM)]
-    emit({"phase": "train", "batch": B, "accum_steps": TRAIN_ACCUM, "optimizer_steps": state.tx.count,
+    emit({"phase": "train", "batch": B, "accum_steps": TRAIN_ACCUM, "dropout": rates,
+          "optimizer_steps": state.tx.count,
           "micro_steps": state.step, "micro": micro, "loss_per_optimizer_step": step_loss,
           "ms_per_micro_step": ms_per_micro, "samples_per_s": 1e3 * B / ms_per_micro,
           "fit_seconds": fit_s, "peak_mem_gib": peak, "val_loss_ema": val_losses,
@@ -834,7 +996,7 @@ def train_phases(device, cfg, smi, cases, unet_sd, vae_sd, zero_counts, read_cou
         fail(f"train: checkpoint steps {steps}, restored state equal: {restored_equal}")
 
     emit(profile("profile_train_step", lambda: trainer.train_step(state, SEED, *xy), reps=2))
-    return launches
+    return {"train_rate0": launches0, "train": launches}
 
 
 if __name__ == "__main__":

@@ -58,12 +58,32 @@
 // 22 C^2 operations per token in the five products against ~12 C f32 bytes
 // per token plus 32 C^2 for the weights and their gradients: bound by
 // operations at the UNet's training shapes.
+//
+// Dropout (axial_attention_dropout_forward, axial_attention_dropout_bwd_full):
+// replaces the seed= forms of fused_axial_attention_5d and
+// fused_axial_attention_5d_bwd_full (the rate_attn / rate_proj branches of
+// _fused_layer_kernel_v4 and _fused_layer_bwd_full_kernel_v4), the training
+// path of the v1 recipe: p . m_a / (1 - r_attn) after the softmax and before
+// p . v, and (attn . Wproj^T + b) . m_p / (1 - r_proj) on the output.  The TPU
+// kernels draw an (R, R) mask per head and an (R, C) mask per grid cell from a
+// per-core generator, cross-cuboid entries included, in one order over one
+// grid forward and backward.  Here the forward core runs one cuboid per block
+// and the backward core a few, so a mask is a function of the logical element
+// instead (philox.cuh): m_a of (cuboid in the order of cuboid_rows, head, i, j),
+// in-cuboid entries only, and m_p of the natural (token, channel).  The
+// backward regenerates both: do = g . m_p / (1 - r_proj) is staged into the
+// dattn product (and kept in bf16 for dWproj; dbproj sums the f32 do);
+// dp = (dattn . v^T) . m_a / (1 - r_attn); the softmax backward uses the
+// undropped p, while dv and the re-emitted head outputs use the dropped p.
+// The Drop forms are separate template instances, so the kernels without
+// dropout are untouched; with both rates 0 they give the same bits.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <math.h>
 
 #include "grad_common.cuh"
+#include "philox.cuh"
 
 using namespace nvcuda;
 
@@ -83,15 +103,19 @@ __device__ __forceinline__ float warp_sum(float v) {
 // out[M, N] = A'[M, K] . W[N, K]^T (+ bias[N]); A' = LN(A) when ln_w != null.
 // With w_kn != 0, W is stored as [K, N] instead: out = A' . W.  With ln_out,
 // A' is also written as bf16 (M, K), by the blocks of the first column tile.
+// DropWhere 1: A (no LN) goes through the dropout `drop` of element (row, k) as
+// it is staged; DropWhere 2: the output does, after the bias, at (row, n).
 constexpr int kBM = 64, kBN = 64, kBK = 32, kGemmThreads = 128;  // 4 warps, 32 x 32 each
 constexpr int kLdS = kBK + 8;   // bf16 staging row stride
 constexpr int kLdC = kBN + 4;   // f32 epilogue row stride
 
+template <int DropWhere>
 __global__ void __launch_bounds__(kGemmThreads)
 ln_gemm_kernel(const float* __restrict__ A, const float* __restrict__ ln_w,
                const float* __restrict__ ln_b, const float* __restrict__ W,
                const float* __restrict__ bias, float* __restrict__ out,
-               __nv_bfloat16* __restrict__ ln_out, int M, int N, int K, int w_kn, float eps) {
+               __nv_bfloat16* __restrict__ ln_out, int M, int N, int K, int w_kn, float eps,
+               philox::Drop drop) {
   __shared__ __align__(32) __nv_bfloat16 As[kBM * kLdS];
   __shared__ __align__(32) __nv_bfloat16 Ws[kBN * kLdS];
   __shared__ __align__(32) float Cs[kBM * kLdC];
@@ -139,6 +163,7 @@ ln_gemm_kernel(const float* __restrict__ A, const float* __restrict__ ln_w,
       if (gr < M) {
         a = A[(size_t)gr * K + k0 + k];
         if (ln) a = (a - mu_s[r]) * rs_s[r] * ln_w[k0 + k] + ln_b[k0 + k];
+        if (DropWhere == 1) a = philox::apply(drop, (unsigned long long)gr * K + k0 + k, a);
       }
       const __nv_bfloat16 ab = __float2bfloat16(a);
       As[r * kLdS + k] = ab;
@@ -186,6 +211,7 @@ ln_gemm_kernel(const float* __restrict__ A, const float* __restrict__ ln_w,
     if (gr < M) {
       float v = Cs[r * kLdC + n];
       if (bias != nullptr) v += bias[n0 + n];
+      if (DropWhere == 2) v = philox::apply(drop, (unsigned long long)gr * N + n0 + n, v);
       out[(size_t)gr * N + n0 + n] = v;
     }
   }
@@ -239,10 +265,12 @@ __device__ __forceinline__ void scores_softmax(const float* q, const float* k,
   __syncthreads();
 }
 
+// Drop: p goes through the dropout d of element (cuboid, head, i, j) before p . v.
+template <bool Drop>
 __global__ void __launch_bounds__(kCoreThreads)
 axial_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
                   float* __restrict__ attn, int T, int H, int W, int C, int axis, int heads,
-                  float scale) {
+                  float scale, philox::Drop d) {
   extern __shared__ float sm[];
   const int hc = C / heads;
   const int ld = hc + 1;  // odd stride: rows fall in different banks
@@ -265,6 +293,11 @@ axial_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
   }
   __syncthreads();
   scores_softmax(q, k, bias + (size_t)h * vol * vol, s, vol, hc, ld);
+  if (Drop) {
+    const unsigned long long e0 = ((unsigned long long)cub * heads + h) * vol * vol;
+    for (int i = tid; i < vol * vol; i += kCoreThreads) s[i] = philox::apply(d, e0 + i, s[i]);
+    __syncthreads();
+  }
   for (int i = tid; i < vol * hc; i += kCoreThreads) {
     const int r = i / hc, c = i % hc;
     float acc = 0.f;
@@ -277,13 +310,15 @@ axial_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
 // (tokens, 3C) and dattn (tokens, C) in; dqkv (tokens, 3C) out: dq | dk | dv
 // blocks of C.  Full: also attn (tokens, C) bf16, the forward's head outputs,
 // and dbias_part[blockIdx.x, h] = the f32 ds summed over this block's cuboids.
-template <bool Full>
+// Drop: dp and the p that feeds dv and attn go through the dropout `drop` of element
+// (cuboid, head, i, j); ds = p (dp - rowsum(dp p)) keeps the undropped p.
+template <bool Full, bool Drop>
 __global__ void __launch_bounds__(kCoreThreads)
 axial_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
                       const float* __restrict__ bias, float* __restrict__ dqkv,
                       __nv_bfloat16* __restrict__ attn, float* __restrict__ dbias_part, int T,
                       int H, int W, int C, int axis, int heads, float scale, int n_cuboids,
-                      int cuboids_per_block) {
+                      int cuboids_per_block, philox::Drop drop) {
   extern __shared__ float sm[];
   const int hc = C / heads;
   const int ld = hc + 1;
@@ -318,11 +353,12 @@ axial_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ d
     }
     __syncthreads();
     scores_softmax(q, k, bias + (size_t)h * vol * vol, p, vol, hc, ld);
+    const unsigned long long e0 = ((unsigned long long)cub * heads + h) * vol * vol;
     for (int i = tid; i < vol * vol; i += kCoreThreads) {  // dp = dO . v^T
       const int r = i / vol, j = i % vol;
       float acc = 0.f;
       for (int c = 0; c < hc; ++c) acc += dO[r * ld + c] * v[j * ld + c];
-      ds[i] = acc;
+      ds[i] = Drop ? philox::apply(drop, e0 + i, acc) : acc;
     }
     __syncthreads();
     for (int r = tid; r < vol; r += kCoreThreads) {  // ds = p (dp - rowsum(dp p))
@@ -335,7 +371,8 @@ axial_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ d
       }
     }
     __syncthreads();
-    for (int i = tid; i < vol * vol; i += kCoreThreads) p[i] = bf16_round(p[i]);
+    for (int i = tid; i < vol * vol; i += kCoreThreads)
+      p[i] = bf16_round(Drop ? philox::apply(drop, e0 + i, p[i]) : p[i]);
     __syncthreads();
     for (int i = tid; i < vol * hc; i += kCoreThreads) {
       const int r = i / hc, c = i % hc;  // r: query row for dq, key row for dk / dv
@@ -391,38 +428,46 @@ __global__ void ln_backward_kernel(const float* __restrict__ x, const float* __r
     dx[(size_t)row * C + c] = rs * (dr[c] * ln_w[c] - m1 - (xr[c] - mu) * rs * m2);
 }
 
+template <int DropWhere = 0>
 cudaError_t gemm(const float* A, const float* ln_w, const float* ln_b, const float* W,
                  const float* bias, float* out, int M, int N, int K, int w_kn, float eps,
-                 cudaStream_t stream, __nv_bfloat16* ln_out = nullptr) {
+                 cudaStream_t stream, __nv_bfloat16* ln_out = nullptr,
+                 philox::Drop drop = philox::Drop{}) {
   dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-  ln_gemm_kernel<<<grid, kGemmThreads, 0, stream>>>(A, ln_w, ln_b, W, bias, out, ln_out, M, N, K,
-                                                    w_kn, eps);
+  ln_gemm_kernel<DropWhere><<<grid, kGemmThreads, 0, stream>>>(A, ln_w, ln_b, W, bias, out,
+                                                               ln_out, M, N, K, w_kn, eps, drop);
   return cudaGetLastError();
 }
 
-// The launches that give dx; Full adds LN(x) and attn in bf16 and the dbias partials.
-template <bool Full>
+// The launches that give dx; Full adds LN(x) and attn in bf16 and the dbias
+// partials; Drop (with Full) the two dropouts, and the dropped g in bf16 (do_bf).
+template <bool Full, bool Drop = false>
 cudaError_t bwd_dx_launches(const float* x, const float* g, const float* ln_w, const float* ln_b,
                             const float* w_qkv, const float* bias, const float* w_proj,
                             float* qkv, float* dattn, float* dqkv, float* dln, float* dx,
                             __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, float* dbias_part,
                             int M, int T, int H, int W, int C, int axis, int heads,
-                            int cuboids_per_block, float scale, float eps, cudaStream_t stream) {
+                            int cuboids_per_block, float scale, float eps, cudaStream_t stream,
+                            __nv_bfloat16* do_bf = nullptr,
+                            philox::Drop d_attn = philox::Drop{},
+                            philox::Drop d_proj = philox::Drop{}) {
+  static_assert(Full || !Drop, "dropout runs only on the all-gradients form");
   cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream, ln_bf);
   if (err != cudaSuccess) return err;
-  err = gemm(g, nullptr, nullptr, w_proj, nullptr, dattn, M, C, C, 1, eps, stream);
+  err = gemm<Drop ? 1 : 0>(g, nullptr, nullptr, w_proj, nullptr, dattn, M, C, C, 1, eps, stream,
+                           do_bf, d_proj);
   if (err != cudaSuccess) return err;
   const int vol = axis == 0 ? T : (axis == 1 ? H : W);
   const int hc = C / heads;
   const size_t smem = sizeof(float) * (4 * vol * (hc + 1) + (Full ? 3 : 2) * vol * vol);
-  err = cudaFuncSetAttribute(axial_core_bwd_kernel<Full>,
+  err = cudaFuncSetAttribute(axial_core_bwd_kernel<Full, Drop>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_cuboids = M / vol;
   const int blocks = (n_cuboids + cuboids_per_block - 1) / cuboids_per_block;
-  axial_core_bwd_kernel<Full><<<dim3(blocks, heads), kCoreThreads, smem, stream>>>(
+  axial_core_bwd_kernel<Full, Drop><<<dim3(blocks, heads), kCoreThreads, smem, stream>>>(
       qkv, dattn, bias, dqkv, attn_bf, dbias_part, T, H, W, C, axis, heads, scale, n_cuboids,
-      cuboids_per_block);
+      cuboids_per_block, d_attn);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = gemm(dqkv, nullptr, nullptr, w_qkv, nullptr, dln, M, C, 3 * C, 1, eps, stream);
@@ -431,6 +476,33 @@ cudaError_t bwd_dx_launches(const float* x, const float* g, const float* ln_w, c
   ln_backward_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(
       x, ln_w, dln, dx, M, C, eps);
   return cudaGetLastError();
+}
+
+// The three launches of the forward; Drop adds the two dropouts.
+template <bool Drop>
+cudaError_t forward_launches(const float* x, const float* ln_w, const float* ln_b,
+                             const float* w_qkv, const float* bias, const float* w_proj,
+                             const float* b_proj, float* qkv, float* attn, float* out, int B,
+                             int T, int H, int W, int C, int axis, int heads, float scale,
+                             float eps, cudaStream_t stream, philox::Drop d_attn = philox::Drop{},
+                             philox::Drop d_proj = philox::Drop{}) {
+  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || axis < 0 || axis > 2)
+    return cudaErrorInvalidValue;
+  const int M = B * T * H * W;
+  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream);
+  if (err != cudaSuccess) return err;
+  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
+  const int hc = C / heads;
+  const size_t smem = sizeof(float) * (3 * vol * (hc + 1) + vol * vol);
+  err = cudaFuncSetAttribute(axial_core_kernel<Drop>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  axial_core_kernel<Drop><<<dim3(M / vol, heads), kCoreThreads, smem, stream>>>(
+      qkv, bias, attn, T, H, W, C, axis, heads, scale, d_attn);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return gemm<Drop ? 2 : 0>(attn, nullptr, nullptr, w_proj, b_proj, out, M, C, C, 0, eps, stream,
+                            nullptr, d_proj);
 }
 
 }  // namespace
@@ -442,22 +514,24 @@ extern "C" int axial_attention_forward(const float* x, const float* ln_w, const 
                                        float* attn, float* out, int B, int T, int H, int W,
                                        int C, int axis, int heads, float scale, float eps,
                                        cudaStream_t stream) {
-  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || axis < 0 || axis > 2)
-    return (int)cudaErrorInvalidValue;
-  const int M = B * T * H * W;
-  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
-  const int hc = C / heads;
-  const size_t smem = sizeof(float) * (3 * vol * (hc + 1) + vol * vol);
-  err = cudaFuncSetAttribute(axial_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  axial_core_kernel<<<dim3(M / vol, heads), kCoreThreads, smem, stream>>>(
-      qkv, bias, attn, T, H, W, C, axis, heads, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)gemm(attn, nullptr, nullptr, w_proj, b_proj, out, M, C, C, 0, eps, stream);
+  return (int)forward_launches<false>(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv, attn, out,
+                                      B, T, H, W, C, axis, heads, scale, eps, stream);
+}
+
+// The layer with dropout on the attention weights (thr_attn, keep_attn =
+// 1 - rate) and on the projected output (thr_proj, keep_proj); the masks are
+// those of the stream (seed_lo, seed_hi, site), tensors 0 and 1.
+extern "C" int axial_attention_dropout_forward(
+    const float* x, const float* ln_w, const float* ln_b, const float* w_qkv, const float* bias,
+    const float* w_proj, const float* b_proj, float* qkv, float* attn, float* out, int B, int T,
+    int H, int W, int C, int axis, int heads, float scale, float eps, unsigned seed_lo,
+    unsigned seed_hi, unsigned site, unsigned thr_attn, float keep_attn, unsigned thr_proj,
+    float keep_proj, cudaStream_t stream) {
+  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn};
+  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj};
+  return (int)forward_launches<true>(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv, attn, out,
+                                     B, T, H, W, C, axis, heads, scale, eps, stream, d_attn,
+                                     d_proj);
 }
 
 // dx of the layer for the output cotangent g (tokens, C); scratch qkv and
@@ -505,4 +579,38 @@ extern "C" int axial_attention_bwd_full(
   err = gradk::weight_grad(dqkv, ln_bf, dw_part, dw_qkv, M, 3 * C, C, ksplit_qkv, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)gradk::weight_grad(g, attn_bf, dw_part, dw_proj, M, C, C, ksplit_proj, stream);
+}
+
+// Every gradient of axial_attention_dropout_forward for the output cotangent g,
+// the masks regenerated from the same (seed, site).  Scratch and outputs as
+// axial_attention_bwd_full, and do_bf (tokens, C) bf16 for the dropped cotangent.
+extern "C" int axial_attention_dropout_bwd_full(
+    const float* x, const float* g, const float* ln_w, const float* ln_b, const float* w_qkv,
+    const float* bias, const float* w_proj, float* qkv, float* dattn, float* dqkv, float* dln,
+    __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, __nv_bfloat16* do_bf, float* dbias_part,
+    float* vpart, float* dw_part, float* dx, float* dw_qkv, float* dbias, float* dw_proj,
+    float* vec, int B, int T, int H, int W, int C, int axis, int heads, int cuboids_per_block,
+    int ksplit_qkv, int ksplit_proj, float scale, float eps, unsigned seed_lo, unsigned seed_hi,
+    unsigned site, unsigned thr_attn, float keep_attn, unsigned thr_proj, float keep_proj,
+    cudaStream_t stream) {
+  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || axis < 0 || axis > 2 ||
+      cuboids_per_block < 1 || ksplit_qkv < 1 || ksplit_proj < 1)
+    return (int)cudaErrorInvalidValue;
+  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn};
+  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj};
+  const int M = B * T * H * W;
+  cudaError_t err = bwd_dx_launches<true, true>(
+      x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln, dx, ln_bf, attn_bf,
+      dbias_part, M, T, H, W, C, axis, heads, cuboids_per_block, scale, eps, stream, do_bf,
+      d_attn, d_proj);
+  if (err != cudaSuccess) return (int)err;
+  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
+  const int blocks = (M / vol + cuboids_per_block - 1) / cuboids_per_block;
+  err = gradk::sum_partials(dbias_part, dbias, (size_t)heads * vol * vol, blocks, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gradk::ln_vec_grads(x, g, dln, 1, vpart, vec, M, C, eps, stream, d_proj);  // dbproj = sum do
+  if (err != cudaSuccess) return (int)err;
+  err = gradk::weight_grad(dqkv, ln_bf, dw_part, dw_qkv, M, 3 * C, C, ksplit_qkv, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)gradk::weight_grad(do_bf, attn_bf, dw_part, dw_proj, M, C, C, ksplit_proj, stream);
 }

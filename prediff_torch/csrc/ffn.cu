@@ -52,11 +52,33 @@
 // set of partials in a fixed order.  No atomics: two runs give the same bits.
 // Five products of 2 M C hidden operations against ~(3 M C + 4 C hidden) f32
 // bytes: bound by operations at the UNet's training shapes.
+//
+// Dropout (ffn_dropout_forward, ffn_dropout_bwd_full): replaces
+// pallas_ffn.py::fused_ffn_dropout (_ffn_dropout_fwd_kernel) and
+// fused_ffn_dropout_bwd_full (_ffn_dropout_bwd_full_kernel), the training
+// path of the v1 recipe:
+//   a = gelu(LN(x) . W1 + b1) . m1 / (1 - r_act),
+//   out = x + (a . W2 + b2) . m2 / (1 - r_out).
+// The TPU kernels draw m1 and m2 from a per-core generator seeded per token
+// tile, in the same order over one grid in the forward and the backward.  The
+// kernels here do not share a grid (the hidden dimension is split over a
+// grid axis, and m2 falls on the sum of the splits), so a mask is a function
+// of the logical element instead (philox.cuh): m1 of (token, hidden column)
+// is applied to gelu(h) in the main kernel, before the bf16 rounding; m2 of
+// (token, channel) in ffn_reduce_kernel, on the summed a . W2 + b2 and before
+// the residual, which is never masked.  The backward regenerates both:
+// do = g . m2 / (1 - r_out) feeds dW2, db2 and da, the residual's share of dx
+// is the unmasked g; the stored bf16 gelu(h) is the dropped, rescaled one and
+// dz = da . gelu'(h) . m1 / (1 - r_act).  The Drop forms are separate template
+// instances, so the kernels without dropout are untouched; with both rates 0
+// they give the same bits.  The draws add ~100 integer operations per hidden
+// element to kernels that stay bound by their products.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 
 #include "grad_common.cuh"
+#include "philox.cuh"
 
 using namespace nvcuda;
 
@@ -113,12 +135,14 @@ constexpr size_t smem_bytes() {
          sizeof(float) * kRows * (kChunk + kPadF);
 }
 
-template <int C>
+// Drop: gelu(h) goes through the dropout d1 of element (token, hidden column).
+template <int C, bool Drop>
 __global__ void __launch_bounds__(kThreads)
 ffn_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
            const float* __restrict__ ln_b, const float* __restrict__ w1,
            const float* __restrict__ b1, const float* __restrict__ w2,
-           float* __restrict__ part, int M, int hidden, int chunks_per_split, float eps) {
+           float* __restrict__ part, int M, int hidden, int chunks_per_split, float eps,
+           philox::Drop d1) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int ldA = C + kPadB;
   constexpr int ldW1 = kKSlice + kPadB;
@@ -177,7 +201,9 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
     for (int i = tid; i < kRows * kChunk; i += kThreads) {
       const int r = i / kChunk, k = i % kChunk;
       const float h = hs[r * ldHf + k] + b1[j0 + k];
-      hb[r * ldH + k] = __float2bfloat16(h * 0.5f * (1.f + erff(h * 0.70710678118654752f)));
+      float a = h * 0.5f * (1.f + erff(h * 0.70710678118654752f));
+      if (Drop) a = philox::apply(d1, (unsigned long long)(row0 + r) * hidden + j0 + k, a);
+      hb[r * ldH + k] = __float2bfloat16(a);
     }
     __syncthreads();
 #pragma unroll
@@ -215,16 +241,17 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
   }
 }
 
-// out = x + (sum_s part[s] + b2), the splits added in order.
+// out = x + drop(sum_s part[s] + b2), the splits added in order; the dropout
+// d2 of element (token, channel) keeps everything when its thr is 0.
 __global__ void ffn_reduce_kernel(const float* __restrict__ x, const float* __restrict__ part,
                                   const float* __restrict__ b2, float* __restrict__ out, int M,
-                                  int C, int splits) {
+                                  int C, int splits, philox::Drop d2) {
   const size_t n = (size_t)M * C;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     float acc = part[i];
     for (int s = 1; s < splits; ++s) acc += part[s * n + i];
-    out[i] = x[i] + (acc + b2[i % C]);
+    out[i] = x[i] + philox::apply(d2, i, acc + b2[i % C]);
   }
 }
 
@@ -237,7 +264,9 @@ constexpr size_t bwd_smem_bytes() {
 
 // Full: also write gelu(h) and dh as bf16 (M, hidden), LN(x) as bf16 (M, C)
 // and this block's column sums of the f32 dh into db1_part (row blocks, hidden).
-template <int C, bool Full>
+// Drop (with Full): g goes through the dropout d2 as it is staged (do, also
+// written as bf16 (M, C) into do_out), gelu(h) and dh through d1.
+template <int C, bool Full, bool Drop>
 __global__ void __launch_bounds__(kThreads)
 ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   const float* __restrict__ ln_w, const float* __restrict__ ln_b,
@@ -245,7 +274,8 @@ ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   const float* __restrict__ w2, float* __restrict__ part,
                   __nv_bfloat16* __restrict__ a_out, __nv_bfloat16* __restrict__ dh_out,
                   __nv_bfloat16* __restrict__ ln_out, float* __restrict__ db1_part, int M,
-                  int hidden, int chunks_per_split, float eps) {
+                  int hidden, int chunks_per_split, float eps, __nv_bfloat16* __restrict__ do_out,
+                  philox::Drop d1, philox::Drop d2) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int ldA = C + kPadB;
   constexpr int ldW2 = kChunk + kPadB;
@@ -265,7 +295,9 @@ ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
   for (int i = tid; i < kRows * C; i += kThreads) {
     const int r = i / C, c = i % C;
     const int gr = row0 + r;
-    gA[r * ldA + c] = __float2bfloat16(gr < M ? g[(size_t)gr * C + c] : 0.f);
+    float gv = gr < M ? g[(size_t)gr * C + c] : 0.f;
+    if (Drop) gv = philox::apply(d2, (unsigned long long)gr * C + c, gv);
+    gA[r * ldA + c] = __float2bfloat16(gv);
   }
 
   // dln: this warp's output columns [warp * kCols, (warp + 1) * kCols), all rows.
@@ -281,7 +313,10 @@ ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
   if (Full && blockIdx.y == 0) {
     for (int i = tid; i < kRows * C; i += kThreads) {
       const int r = i / C, c = i % C;
-      if (row0 + r < M) ln_out[(size_t)(row0 + r) * C + c] = lnA[r * ldA + c];
+      if (row0 + r < M) {
+        ln_out[(size_t)(row0 + r) * C + c] = lnA[r * ldA + c];
+        if (Drop) do_out[(size_t)(row0 + r) * C + c] = gA[r * ldA + c];
+      }
     }
   }
 
@@ -321,14 +356,21 @@ ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
       const float h = hs[r * ldHf + k] + b1[j0 + k];
       const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
       const float pdf = expf(-0.5f * h * h) * 0.39894228040143268f;
-      const float dh = das[r * ldHf + k] * (cdf + h * pdf);
+      float dh = das[r * ldHf + k] * (cdf + h * pdf);
+      float a = h * cdf;
+      if (Drop && d1.thr != 0u) {  // one draw masks the activation and its gradient
+        const bool kept =
+            philox::draw(d1, (unsigned long long)(row0 + r) * hidden + j0 + k) >= d1.thr;
+        dh = kept ? dh / d1.keep : 0.f;
+        a = kept ? a / d1.keep : 0.f;
+      }
       const __nv_bfloat16 dhb = __float2bfloat16(dh);
       hb[r * ldH + k] = dhb;
       if (Full) {
         dh_sum += dh;  // rows past M have g = 0, so dh = 0
         if (row0 + r < M) {
           const size_t o = (size_t)(row0 + r) * hidden + j0 + k;
-          a_out[o] = __float2bfloat16(h * cdf);
+          a_out[o] = __float2bfloat16(a);
           dh_out[o] = dhb;
         }
       }
@@ -411,12 +453,14 @@ __global__ void ffn_bwd_reduce_kernel(const float* __restrict__ x, const float* 
   }
 }
 
-template <int C, bool Full>
+template <int C, bool Full, bool Drop = false>
 cudaError_t launch_bwd(const float* x, const float* g, const float* ln_w, const float* ln_b,
                        const float* w1, const float* b1, const float* w2, float* part,
                        __nv_bfloat16* a_out, __nv_bfloat16* dh_out, __nv_bfloat16* ln_out,
                        float* db1_part, int M, int hidden, int splits, float eps,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, __nv_bfloat16* do_out = nullptr,
+                       philox::Drop d1 = philox::Drop{}, philox::Drop d2 = philox::Drop{}) {
+  static_assert(Full || !Drop, "dropout runs only on the all-gradients form");
   static_assert(kThreads % kChunk == 0 && kThreads <= kRows * (kChunk + kPadF),
                 "the dh column sums pass through the da tile");
   static_assert(sizeof(float) * kRows * (C + kPadF) <=
@@ -424,30 +468,32 @@ cudaError_t launch_bwd(const float* x, const float* g, const float* ln_w, const 
                 "epilogue tile must fit the W2 staging area");
   constexpr size_t bytes = bwd_smem_bytes<C>();
   static_assert(bytes <= 232448, "exceeds the 227 KB of shared memory a block can use");
-  cudaError_t err = cudaFuncSetAttribute(ffn_bwd_dx_kernel<C, Full>,
+  cudaError_t err = cudaFuncSetAttribute(ffn_bwd_dx_kernel<C, Full, Drop>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const int chunks_per_split = hidden / kChunk / splits;
-  ffn_bwd_dx_kernel<C, Full><<<dim3((M + kRows - 1) / kRows, splits), kThreads, bytes, stream>>>(
-      x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden,
-      chunks_per_split, eps);
+  ffn_bwd_dx_kernel<C, Full, Drop>
+      <<<dim3((M + kRows - 1) / kRows, splits), kThreads, bytes, stream>>>(
+          x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden,
+          chunks_per_split, eps, do_out, d1, d2);
   return cudaGetLastError();
 }
 
-template <int C>
+template <int C, bool Drop = false>
 cudaError_t launch(const float* x, const float* ln_w, const float* ln_b, const float* w1,
                    const float* b1, const float* w2, float* part, int M, int hidden,
-                   int splits, float eps, cudaStream_t stream) {
+                   int splits, float eps, cudaStream_t stream,
+                   philox::Drop d1 = philox::Drop{}) {
   static_assert(sizeof(float) * kRows * (C + kPadF) <=
                     sizeof(__nv_bfloat16) * C * (kChunk + kPadB),
                 "epilogue tile must fit the W2 staging area");
   constexpr size_t bytes = smem_bytes<C>();
-  cudaError_t err = cudaFuncSetAttribute(ffn_kernel<C>,
+  cudaError_t err = cudaFuncSetAttribute(ffn_kernel<C, Drop>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const int chunks_per_split = hidden / kChunk / splits;
-  ffn_kernel<C><<<dim3((M + kRows - 1) / kRows, splits), kThreads, bytes, stream>>>(
-      x, ln_w, ln_b, w1, b1, w2, part, M, hidden, chunks_per_split, eps);
+  ffn_kernel<C, Drop><<<dim3((M + kRows - 1) / kRows, splits), kThreads, bytes, stream>>>(
+      x, ln_w, ln_b, w1, b1, w2, part, M, hidden, chunks_per_split, eps, d1);
   return cudaGetLastError();
 }
 
@@ -460,18 +506,29 @@ cudaError_t bwd_reduce(const float* x, const float* g, const float* ln_w, const 
   return cudaGetLastError();
 }
 
-template <bool Full>
+template <bool Full, bool Drop = false>
 cudaError_t launch_bwd_c(int C, const float* x, const float* g, const float* ln_w,
                          const float* ln_b, const float* w1, const float* b1, const float* w2,
                          float* part, __nv_bfloat16* a_out, __nv_bfloat16* dh_out,
                          __nv_bfloat16* ln_out, float* db1_part, int M, int hidden, int splits,
-                         float eps, cudaStream_t stream) {
+                         float eps, cudaStream_t stream, __nv_bfloat16* do_out = nullptr,
+                         philox::Drop d1 = philox::Drop{}, philox::Drop d2 = philox::Drop{}) {
   switch (C) {
-    case 128: return launch_bwd<128, Full>(x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden, splits, eps, stream);
-    case 256: return launch_bwd<256, Full>(x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden, splits, eps, stream);
-    case 512: return launch_bwd<512, Full>(x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden, splits, eps, stream);
+    case 128: return launch_bwd<128, Full, Drop>(x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden, splits, eps, stream, do_out, d1, d2);
+    case 256: return launch_bwd<256, Full, Drop>(x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden, splits, eps, stream, do_out, d1, d2);
+    case 512: return launch_bwd<512, Full, Drop>(x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden, splits, eps, stream, do_out, d1, d2);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// out = x + drop(sum of the splits + b2) after the main kernel has filled part.
+cudaError_t fwd_reduce(const float* x, const float* part, const float* b2, float* out, int M,
+                       int C, int splits, philox::Drop d2, cudaStream_t stream) {
+  const int threads = 256;
+  const size_t want = ((size_t)M * C + threads - 1) / threads;
+  const int blocks = want < 1024 ? (int)want : 1024;
+  ffn_reduce_kernel<<<blocks, threads, 0, stream>>>(x, part, b2, out, M, C, splits, d2);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -491,11 +548,8 @@ extern "C" int ffn_forward(const float* x, const float* ln_w, const float* ln_b,
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  const size_t want = ((size_t)M * C + threads - 1) / threads;
-  const int blocks = want < 1024 ? (int)want : 1024;
-  ffn_reduce_kernel<<<blocks, threads, 0, stream>>>(x, part, b2, out, M, C, splits);
-  return (int)cudaGetLastError();
+  return (int)fwd_reduce(x, part, b2, out, M, C, splits, philox::Drop{0u, 0u, 0u, 0u, 0u, 1.f},
+                         stream);
 }
 
 // dx of the fused FFN for the output cotangent g; part: (splits, M, C) f32
@@ -538,4 +592,62 @@ extern "C" int ffn_bwd_full(const float* x, const float* g, const float* ln_w,
   err = gradk::weight_grad(dh_bf, ln_bf, dw_part, dw1, M, hidden, C, ksplit, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)gradk::weight_grad(g, a_bf, dw_part, dw2, M, C, hidden, ksplit, stream);
+}
+
+// The fused FFN with dropout on gelu(h) (thr_act, keep_act = 1 - rate) and on
+// the output before the residual (thr_out, keep_out); the masks are those of
+// the stream (seed_lo, seed_hi, site), tensors 0 and 1.  Workspace as ffn_forward.
+extern "C" int ffn_dropout_forward(const float* x, const float* ln_w, const float* ln_b,
+                                   const float* w1, const float* b1, const float* w2,
+                                   const float* b2, float* part, float* out, int M, int C,
+                                   int hidden, int splits, float eps, unsigned seed_lo,
+                                   unsigned seed_hi, unsigned site, unsigned thr_act,
+                                   float keep_act, unsigned thr_out, float keep_out,
+                                   cudaStream_t stream) {
+  if (hidden % kChunk != 0 || splits < 1 || (hidden / kChunk) % splits != 0)
+    return (int)cudaErrorInvalidValue;
+  const philox::Drop d1{seed_lo, seed_hi, site, 0u, thr_act, keep_act};
+  const philox::Drop d2{seed_lo, seed_hi, site, 1u, thr_out, keep_out};
+  cudaError_t err;
+  switch (C) {
+    case 128: err = launch<128, true>(x, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream, d1); break;
+    case 256: err = launch<256, true>(x, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream, d1); break;
+    case 512: err = launch<512, true>(x, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream, d1); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)fwd_reduce(x, part, b2, out, M, C, splits, d2, stream);
+}
+
+// Every gradient of ffn_dropout_forward for the output cotangent g, the masks
+// regenerated from the same (seed, site).  Workspaces and outputs as
+// ffn_bwd_full, and do_bf (M, C) bf16 for the dropped cotangent.
+extern "C" int ffn_dropout_bwd_full(const float* x, const float* g, const float* ln_w,
+                                    const float* ln_b, const float* w1, const float* b1,
+                                    const float* w2, float* part, __nv_bfloat16* a_bf,
+                                    __nv_bfloat16* dh_bf, __nv_bfloat16* ln_bf,
+                                    __nv_bfloat16* do_bf, float* db1_part, float* vpart,
+                                    float* dw_part, float* dx, float* dw1, float* db1,
+                                    float* dw2, float* vec, int M, int C, int hidden,
+                                    int splits, int ksplit, float eps, unsigned seed_lo,
+                                    unsigned seed_hi, unsigned site, unsigned thr_act,
+                                    float keep_act, unsigned thr_out, float keep_out,
+                                    cudaStream_t stream) {
+  if (hidden % kChunk != 0 || splits < 1 || (hidden / kChunk) % splits != 0 || ksplit < 1)
+    return (int)cudaErrorInvalidValue;
+  const philox::Drop d1{seed_lo, seed_hi, site, 0u, thr_act, keep_act};
+  const philox::Drop d2{seed_lo, seed_hi, site, 1u, thr_out, keep_out};
+  cudaError_t err = launch_bwd_c<true, true>(C, x, g, ln_w, ln_b, w1, b1, w2, part, a_bf, dh_bf,
+                                             ln_bf, db1_part, M, hidden, splits, eps, stream,
+                                             do_bf, d1, d2);
+  if (err != cudaSuccess) return (int)err;
+  err = bwd_reduce(x, g, ln_w, part, dx, M, C, splits, eps, stream);  // the residual: g unmasked
+  if (err != cudaSuccess) return (int)err;
+  err = gradk::ln_vec_grads(x, g, part, splits, vpart, vec, M, C, eps, stream, d2);  // db2 = sum do
+  if (err != cudaSuccess) return (int)err;
+  err = gradk::sum_partials(db1_part, db1, (size_t)hidden, (M + kRows - 1) / kRows, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gradk::weight_grad(dh_bf, ln_bf, dw_part, dw1, M, hidden, C, ksplit, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)gradk::weight_grad(do_bf, a_bf, dw_part, dw2, M, C, hidden, ksplit, stream);
 }

@@ -11,12 +11,15 @@
 //                          operands on the tensor cores, f32 accumulation
 //   ln_vec_partial_kernel  per block of 32 rows, the column sums of dln . nhat,
 //                          dln and g: the LayerNorm scale / bias gradients and
-//                          the output bias gradient
+//                          the output bias gradient (of g through the module's
+//                          output dropout, where it has one)
 //   sum_partials_kernel    out[i] = sum_z part[z][i], z in order
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
+
+#include "philox.cuh"
 
 namespace gradk {
 
@@ -131,11 +134,13 @@ static __global__ void sum_partials_kernel(const float* __restrict__ part, float
 // dln = sum_s dln_part[s] ((splits, M, C)); with nhat the normalised x it writes
 //   vpart[b, 0, c] = sum_rows dln * nhat   (LayerNorm scale gradient)
 //   vpart[b, 1, c] = sum_rows dln          (LayerNorm bias gradient)
-//   vpart[b, 2, c] = sum_rows g            (output bias gradient)
+//   vpart[b, 2, c] = sum_rows drop(g)      (output bias gradient; gdrop is the
+//                                           output dropout of element (row, c),
+//                                           which keeps everything at thr 0)
 static __global__ void __launch_bounds__(kVecThreads)
 ln_vec_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
                       const float* __restrict__ dln_part, int splits, float* __restrict__ vpart,
-                      int M, int C, float eps) {
+                      int M, int C, float eps, philox::Drop gdrop) {
   __shared__ float mu_s[kVecRows], rs_s[kVecRows];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = blockIdx.x * kVecRows;
@@ -170,7 +175,7 @@ ln_vec_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
       for (int s = 1; s < splits; ++s) dln += dln_part[s * n + idx];
       sg += dln * (x[idx] - mu_s[r]) * rs_s[r];
       sb += dln;
-      so += g[idx];
+      so += philox::apply(gdrop, idx, g[idx]);
     }
     float* dst = vpart + (size_t)blockIdx.x * 3 * C;
     dst[c] = sg;
@@ -213,10 +218,11 @@ cudaError_t weight_grad(const TA* A, const TB* B, float* ws, float* out, int M, 
 // vpart: (ceil(M / 32), 3, C) f32 workspace.
 inline cudaError_t ln_vec_grads(const float* x, const float* g, const float* dln_part,
                                 int splits, float* vpart, float* vec, int M, int C, float eps,
-                                cudaStream_t stream) {
+                                cudaStream_t stream,
+                                philox::Drop gdrop = philox::Drop{0u, 0u, 0u, 0u, 0u, 1.f}) {
   const int blocks = (M + kVecRows - 1) / kVecRows;
   ln_vec_partial_kernel<<<blocks, kVecThreads, 0, stream>>>(x, g, dln_part, splits, vpart, M, C,
-                                                            eps);
+                                                            eps, gdrop);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return sum_partials(vpart, vec, (size_t)3 * C, blocks, stream);

@@ -1,0 +1,55 @@
+// Dropout masks from a counter-based generator: Philox4x32-10 (Salmon et al.,
+// SC'11) written out by hand, the same function as
+// prediff_torch/ops/dropout.py computes in integer tensor arithmetic.
+//
+// Replaces the TPU kernels' stateful per-core generator
+// (prediff_tpu/ops/pallas_ffn.py::_keep_mask / seed_prng), which seeds once
+// per grid cell and so ties a mask to the tiling.  Here a mask is a pure
+// function of logical coordinates:
+//   keep(element) = philox(key = seed words,
+//                          counter = (element / 4 low, element / 4 high, tensor, site)
+//                          )[element % 4] >= thr
+// so a forward kernel and its backward regenerate the same mask whatever
+// their grids, and nothing is stored.  Kept values are divided by 1 - rate
+// (`keep`), as the TPU kernels do.  thr == 0 keeps everything and draws nothing.
+#pragma once
+#include <cuda_runtime.h>
+
+namespace philox {
+
+struct Drop {
+  unsigned k0, k1;   // the seed's low and high word
+  unsigned site;     // the module call within the forward
+  unsigned tensor;   // which mask of that call
+  unsigned thr;      // keep when the draw >= thr
+  float keep;        // 1 - rate
+};
+
+__device__ __forceinline__ uint4 philox4x32_10(unsigned k0, unsigned k1, uint4 c) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c;
+}
+
+// The draw of logical element `e` of the stream (seed, site, tensor).
+__device__ __forceinline__ unsigned draw(const Drop& d, unsigned long long e) {
+  const unsigned long long q = e >> 2;
+  const uint4 w = philox4x32_10(d.k0, d.k1,
+                                make_uint4((unsigned)q, (unsigned)(q >> 32), d.tensor, d.site));
+  const unsigned lane = (unsigned)e & 3u;
+  return lane == 0 ? w.x : (lane == 1 ? w.y : (lane == 2 ? w.z : w.w));
+}
+
+// v through the dropout of element e: v / keep when kept, else 0.
+__device__ __forceinline__ float apply(const Drop& d, unsigned long long e, float v) {
+  if (d.thr == 0u) return v;
+  return draw(d, e) >= d.thr ? v / d.keep : 0.f;
+}
+
+}  // namespace philox

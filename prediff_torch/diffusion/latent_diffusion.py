@@ -14,7 +14,9 @@ t % k == 0 (DDPM) or index % k == 0 (DDIM), the shift scaled by k.
 Training: the frozen VAE encodes the target (posterior sample) and the
 context (mode) under ``no_grad``, t and the noise are drawn from the caller's
 generator, and :meth:`LatentDiffusion.p_losses` weighs the denoiser's error
-(:func:`core.diffusion_loss`).
+(:func:`core.diffusion_loss`).  ``dropout_seed`` is the step's dropout stream
+(the JAX loss's ``rng_drop``): it reaches the denoiser's forward, which uses
+it in training mode only.
 """
 from typing import Dict, Optional, Sequence
 
@@ -108,15 +110,20 @@ class LatentDiffusion:
 
     def p_losses(self, logvar: torch.Tensor, z_start: torch.Tensor, zc: torch.Tensor,
                  t: torch.Tensor, noise: torch.Tensor, prefix: str = "train",
-                 unet_params: Optional[Dict[str, torch.Tensor]] = None):
+                 unet_params: Optional[Dict[str, torch.Tensor]] = None,
+                 dropout_seed: Optional[int] = None):
         """Noise ``z_start`` to step ``t`` with ``noise``, denoise, weigh:
         ``(loss, loss_dict)``.  ``unet_params`` (name -> tensor) runs the
-        denoiser with other weights than its own, such as the EMA shadow."""
+        denoiser with other weights than its own, such as the EMA shadow.
+        ``dropout_seed`` seeds the denoiser's dropout masks when it is in
+        training mode with a rate above 0 (it raises without one)."""
         z_noisy = core.q_sample(self.schedule, z_start, t, noise)
+        kwargs = {} if dropout_seed is None else {"dropout_seed": int(dropout_seed)}
         if unet_params is None:
-            model_out = self.unet(z_noisy, t, zc)
+            model_out = self.unet(z_noisy, t, zc, **kwargs)
         else:
-            model_out = torch.func.functional_call(self.unet, unet_params, (z_noisy, t, zc))
+            model_out = torch.func.functional_call(self.unet, unet_params, (z_noisy, t, zc),
+                                                   kwargs)
         return core.diffusion_loss(
             self.schedule, model_out, z_start, noise, t, logvar,
             parameterization=self.parameterization, loss_type=self.loss_type,
@@ -124,33 +131,37 @@ class LatentDiffusion:
             original_elbo_weight=self.original_elbo_weight, learn_logvar=self.learn_logvar,
             prefix=prefix)
 
-    def _draw_and_weigh(self, logvar, z, zc, generator, prefix, unet_params):
+    def _draw_and_weigh(self, logvar, z, zc, generator, prefix, unet_params, dropout_seed):
         t = torch.randint(0, self.num_timesteps, (z.shape[0],), generator=generator,
                           device=self.device)
         noise = torch.randn(z.shape, generator=generator, device=self.device, dtype=z.dtype)
-        return self.p_losses(logvar, z, zc, t, noise, prefix=prefix, unet_params=unet_params)
+        return self.p_losses(logvar, z, zc, t, noise, prefix=prefix, unet_params=unet_params,
+                             dropout_seed=dropout_seed)
 
     def training_loss(self, logvar: torch.Tensor, generator: Optional[torch.Generator],
                       x: torch.Tensor, y: torch.Tensor, prefix: str = "train",
-                      unet_params: Optional[Dict[str, torch.Tensor]] = None):
+                      unet_params: Optional[Dict[str, torch.Tensor]] = None,
+                      dropout_seed: Optional[int] = None):
         """The full forward: encode the target ``x`` (posterior sample) and the
         context ``y`` (mode), draw t and the noise from ``generator`` (on
-        ``self.device``), denoise, weigh."""
+        ``self.device``), denoise (with the dropout masks of ``dropout_seed``
+        in training mode), weigh."""
         z = self.encode_first_stage(x.to(self.device, torch.float32), generator,
                                     sample_posterior=True)
         zc = self.cond_stage_forward(y.to(self.device, torch.float32))
-        return self._draw_and_weigh(logvar, z, zc, generator, prefix, unet_params)
+        return self._draw_and_weigh(logvar, z, zc, generator, prefix, unet_params, dropout_seed)
 
     def training_loss_from_moments(self, logvar: torch.Tensor,
                                    generator: Optional[torch.Generator], mx: torch.Tensor,
                                    my: torch.Tensor, prefix: str = "train",
-                                   unet_params: Optional[Dict[str, torch.Tensor]] = None):
+                                   unet_params: Optional[Dict[str, torch.Tensor]] = None,
+                                   dropout_seed: Optional[int] = None):
         """:meth:`training_loss` fed from first-stage moments of the target
         (``mx``) and the context (``my``) instead of pixels; the draws are made
         in the same order, so ``mx = encode_moments(x)`` gives the same loss."""
         z = self.latents_from_moments(mx.to(self.device), generator, sample_posterior=True)
         zc = self.latents_from_moments(my.to(self.device), sample_posterior=False)
-        return self._draw_and_weigh(logvar, z, zc, generator, prefix, unet_params)
+        return self._draw_and_weigh(logvar, z, zc, generator, prefix, unet_params, dropout_seed)
 
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:

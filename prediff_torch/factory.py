@@ -23,6 +23,10 @@ def build_unet(cfg: ConfigDict) -> CuboidTransformerUNet:
         raise NotImplementedError(f"attention pattern '{m.self_pattern}' is not ported yet")
     if m.ffn_activation != "gelu" or m.gated_ffn or m.time_embed_use_scale_shift_norm:
         raise NotImplementedError("only the v1 FFN (gelu, not gated) and time embedding are ported")
+    if m.get("use_pallas_dropout", "auto") not in ("auto", True):
+        # a TPU dispatch switch: here dropout always runs inside the kernels
+        raise NotImplementedError(f"use_pallas_dropout={m.use_pallas_dropout!r} is not ported "
+                                  "(ROADMAP.md, not carried over)")
     return CuboidTransformerUNet(
         input_shape=tuple(m.input_shape), target_shape=tuple(m.target_shape),
         base_units=m.base_units, block_units=m.get("block_units"), scale_alpha=m.scale_alpha,
@@ -62,7 +66,8 @@ def build_alignment_model(cfg: ConfigDict) -> NoisyCuboidTransformerEncoder:
         scale_alpha=a.scale_alpha, depth=list(a.depth), downsample=a.downsample,
         block_attn_patterns=a.block_attn_patterns, num_heads=a.num_heads,
         padding_type=a.padding_type, time_embed_channels_mult=a.time_embed_channels_mult,
-        out_len=a.out_len,
+        out_len=a.out_len, attn_drop=a.attn_drop, proj_drop=a.proj_drop, ffn_drop=a.ffn_drop,
+        time_embed_dropout=a.time_embed_dropout,
     )
 
 
@@ -75,11 +80,11 @@ def build_pipeline(cfg: ConfigDict, with_alignment: bool = False, device=None,
     ``params`` holds state_dicts under "unet", "vae" and "align"; a model
     without one takes the seeded v1 initialisation.  For sampling every model
     is frozen and in eval mode: guidance asks each kernel's
-    ``autograd.Function`` for dx only.  ``trainable_unet`` (what
-    :func:`build_training_pipeline` passes) leaves the UNet's parameters
-    requiring grad and puts it in training mode, which raises if the
-    configuration has a dropout rate above 0; the VAE and the alignment net
-    stay frozen."""
+    ``autograd.Function`` for dx only, and eval mode ignores the dropout
+    rates.  ``trainable_unet`` (what :func:`build_training_pipeline` passes)
+    leaves the UNet's parameters requiring grad and puts it in training mode,
+    where the configuration's dropout rates are active; the VAE and the
+    alignment net stay frozen."""
     axes = parse_layout_shape(cfg.layout.layout)
     if (axes["batch_axis"], axes["t_axis"]) != (0, 1):
         raise ValueError(f"layout {cfg.layout.layout!r}: the port takes batch, then time first")

@@ -7,7 +7,10 @@ stage time blocks run the whole-resblock kernels (``fused=True``), as the
 JAX package's ``use_pallas_resblock`` does for this network; ``first_proj``
 changes width (1x1 skip) and keeps the GN-kernel path.  Global vectors,
 hierarchical position embeddings and the pooled (not per-frame) readout are
-not ported.
+not ported.  The modules carry the configuration's dropout rates, which eval
+mode (guidance) ignores; training this network is not ported, so training
+mode with a rate above 0 raises instead of training another model than the
+configuration names.
 """
 from typing import Optional, Sequence, Tuple, Union
 
@@ -63,8 +66,11 @@ class NoisyCuboidTransformerEncoder(nn.Module):
                  depth: Sequence[int] = (4, 4, 4), downsample: Union[int, Tuple] = 2,
                  block_attn_patterns: str = "axial", num_heads: int = 4,
                  padding_type: str = "zeros", time_embed_channels_mult: int = 4,
-                 out_len: Optional[int] = None):
+                 out_len: Optional[int] = None, attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 ffn_drop: float = 0.0, time_embed_dropout: float = 0.0):
         super().__init__()
+        self.dropout_rates = dict(attn_drop=attn_drop, proj_drop=proj_drop, ffn_drop=ffn_drop,
+                                  time_embed_dropout=time_embed_dropout)
         self.input_shape = tuple(input_shape)
         self.num_blocks = len(depth)
         self.depth = list(depth)
@@ -79,20 +85,23 @@ class NoisyCuboidTransformerEncoder(nn.Module):
         pattern = CuboidSelfAttentionPatterns[block_attn_patterns]
         tec = self.block_units[0] * time_embed_channels_mult
 
-        self.first_proj = TimeEmbedResBlock(self.input_shape[-1], base_units, use_embed=False)
+        self.first_proj = TimeEmbedResBlock(self.input_shape[-1], base_units, use_embed=False,
+                                            dropout=proj_drop)
         self.pos_embed = PosEmbed(base_units, *self.input_shape[:3])
         self.time_embed = TimeEmbedLayer(self.block_units[0], tec)
         self.downsample_layers = nn.ModuleList(
             PatchMerging3D(mem_shapes[i][-1], self.block_units[i + 1], downsample, padding_type)
             for i in range(self.num_blocks - 1))
         self.down_time_embed_blocks = nn.ModuleList(
-            TimeEmbedResBlock(mem_shapes[i][-1], mem_shapes[i][-1], emb_channels=tec, fused=True)
+            TimeEmbedResBlock(mem_shapes[i][-1], mem_shapes[i][-1], emb_channels=tec, fused=True,
+                              dropout=time_embed_dropout)
             for i in range(self.num_blocks))
 
         def stack(i):
             cuboid_size, strategy, shift_size = pattern(mem_shapes[i])
             return StackCuboidSelfAttentionBlock(mem_shapes[i][-1], num_heads, cuboid_size,
-                                                 shift_size, strategy)
+                                                 shift_size, strategy, attn_drop, proj_drop,
+                                                 ffn_drop)
 
         self.down_self_blocks = nn.ModuleList(
             nn.ModuleList(stack(i) for _ in range(self.depth[i])) for i in range(self.num_blocks))
@@ -102,6 +111,11 @@ class NoisyCuboidTransformerEncoder(nn.Module):
                                  AttentionPool3d(H_out * W_out, C_out, num_heads, out_channels))
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        active = {k: v for k, v in self.dropout_rates.items() if v and v > 0}
+        if self.training and active:
+            raise NotImplementedError(
+                f"training mode with dropout {active}: training the alignment network is not "
+                "ported yet (ROADMAP.md, queue 1 item 9); call .eval() for guidance")
         B = x.shape[0]
         x = self.first_proj(x)
         x = self.pos_embed(x)

@@ -6,7 +6,7 @@ of the axial attention kernel on the natural layout.  Other cuboid
 patterns, shifted windows and global vectors are not ported yet and raise.
 """
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -14,6 +14,7 @@ from torch import nn
 
 from ..ops.attention import fused_axial_attention
 from ..ops.cuboid import update_cuboid_size_shift_size
+from ..ops.dropout import DropoutStream, is_active
 from .layers import PositionwiseFFN
 
 
@@ -34,11 +35,15 @@ def compute_relative_position_index(cuboid_size: Tuple[int, int, int]) -> np.nda
 
 class CuboidSelfAttentionLayer(nn.Module):
     """LN -> QKV (no bias) -> per-cuboid softmax(q k^T scale + relbias) v ->
-    proj, with no residual; the block adds it."""
+    proj, with no residual; the block adds it.  In training mode with a rate
+    above 0 (``attn_drop`` on the attention weights, ``proj_drop`` on the
+    projected output) the call takes the next site of the forward's
+    :class:`DropoutStream` and runs the dropout kernels."""
 
     def __init__(self, dim: int, num_heads: int, cuboid_size=(2, 7, 7), shift_size=(0, 0, 0),
-                 strategy=("l", "l", "l")):
+                 strategy=("l", "l", "l"), attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         if dim % num_heads != 0:
             raise ValueError(f"dim {dim} not divisible by {num_heads} heads")
         self.dim, self.num_heads = dim, num_heads
@@ -73,27 +78,35 @@ class CuboidSelfAttentionLayer(nn.Module):
         bias = self.relative_position_bias_table[idx].reshape(vol, vol, self.num_heads)
         return bias.permute(2, 0, 1).contiguous()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop: Optional[DropoutStream] = None) -> torch.Tensor:
         axis = self._axis(x.shape)
         vol = x.shape[1 + axis]
+        rates = {}
+        if is_active(self, drop, self.attn_drop, self.proj_drop):
+            rates = dict(rate_attn=self.attn_drop, rate_proj=self.proj_drop, seed=drop.seed,
+                         site=drop.next_site())
         return fused_axial_attention(x.contiguous(), axis, self.norm.weight, self.norm.bias,
                                      self.qkv.weight, self.rel_bias(vol), self.proj.weight,
-                                     self.proj.bias, self.num_heads, self.scale, self.norm.eps)
+                                     self.proj.bias, self.num_heads, self.scale, self.norm.eps,
+                                     **rates)
 
 
 class StackCuboidSelfAttentionBlock(nn.Module):
     """x -> x + attn_i(x) -> ffn_i, for each pattern i (``use_inter_ffn``)."""
 
     def __init__(self, dim: int, num_heads: int, block_cuboid_size: Sequence,
-                 block_shift_size: Sequence, block_strategy: Sequence):
+                 block_shift_size: Sequence, block_strategy: Sequence, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, ffn_drop: float = 0.0):
         super().__init__()
         self.attn_l = nn.ModuleList([
-            CuboidSelfAttentionLayer(dim, num_heads, cs, ss, st)
+            CuboidSelfAttentionLayer(dim, num_heads, cs, ss, st, attn_drop, proj_drop)
             for cs, ss, st in zip(block_cuboid_size, block_shift_size, block_strategy)
         ])
-        self.ffn_l = nn.ModuleList([PositionwiseFFN(dim, 4 * dim) for _ in self.attn_l])
+        self.ffn_l = nn.ModuleList([
+            PositionwiseFFN(dim, 4 * dim, activation_dropout=ffn_drop, dropout=ffn_drop)
+            for _ in self.attn_l])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop: Optional[DropoutStream] = None) -> torch.Tensor:
         for attn, ffn in zip(self.attn_l, self.ffn_l):
-            x = ffn(x + attn(x))
+            x = ffn(x + attn(x, drop), drop)
         return x

@@ -6,11 +6,13 @@ flax tree mechanically (``utils/convert.py``).  Convolutions permute to
 NCTHW (channels-last strides, no copy) only around the ``conv3d`` call.
 """
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import DropoutStream, apply_mask, is_active, keep_mask
 from ..ops.ffn import fused_ffn
 from ..ops.groupnorm import fused_groupnorm_silu
 from ..ops.pad import generalize_padding
@@ -66,20 +68,29 @@ class PosEmbed(nn.Module):
 
 
 class PositionwiseFFN(nn.Module):
-    """Pre-norm GELU FFN with residual, through the fused FFN kernel."""
+    """Pre-norm GELU FFN with residual, through the fused FFN kernel.  In
+    training mode with a rate above 0 (``activation_dropout`` on gelu(h),
+    ``dropout`` on the output before the residual) the call takes the next
+    site of the forward's :class:`DropoutStream` and runs the dropout kernels."""
 
-    def __init__(self, units: int, hidden_size: int, layer_norm_eps: float = 1e-5):
+    def __init__(self, units: int, hidden_size: int, layer_norm_eps: float = 1e-5,
+                 activation_dropout: float = 0.0, dropout: float = 0.0):
         super().__init__()
         self.eps = layer_norm_eps
+        self.activation_dropout, self.dropout = activation_dropout, dropout
         self.layer_norm = nn.LayerNorm(units, eps=layer_norm_eps)
         self.ffn_1 = nn.Linear(units, hidden_size)
         self.ffn_2 = nn.Linear(hidden_size, units)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop: Optional[DropoutStream] = None) -> torch.Tensor:
         C = x.shape[-1]
+        rates = {}
+        if is_active(self, drop, self.activation_dropout, self.dropout):
+            rates = dict(rate_act=self.activation_dropout, rate_out=self.dropout, seed=drop.seed,
+                         site=drop.next_site())
         out = fused_ffn(x.reshape(-1, C).contiguous(), self.layer_norm.weight,
                         self.layer_norm.bias, self.ffn_1.weight, self.ffn_1.bias,
-                        self.ffn_2.weight, self.ffn_2.bias, self.eps)
+                        self.ffn_2.weight, self.ffn_2.bias, self.eps, **rates)
         return out.reshape(x.shape)
 
 
@@ -149,11 +160,18 @@ class TimeEmbedResBlock(nn.Module):
     GroupNorm+SiLU go through the GN kernel; the 3x3x3 convs are
     ``conv3d``.  With ``fused=True`` (identity skip only) the whole block is
     one call of the resblock kernels instead, as the JAX package's
-    ``use_pallas_resblock`` path; the parameters are the same either way."""
+    ``use_pallas_resblock`` path; the parameters are the same either way.
+    ``dropout`` falls between the second GroupNorm+SiLU and the second conv,
+    as in the reference: a masked multiply outside any kernel, the mask that
+    of the forward's :class:`DropoutStream`.  The fused block computes the
+    function without dropout, so it refuses an active one (the JAX block
+    leaves its kernel then)."""
 
     def __init__(self, channels: int, out_channels: int = None, emb_channels: int = None,
-                 use_embed: bool = True, norm_groups: int = 32, fused: bool = False):
+                 use_embed: bool = True, norm_groups: int = 32, fused: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         out_channels = out_channels or channels
         if fused and out_channels != channels:
             raise ValueError("the fused resblock takes only an identity skip")
@@ -165,8 +183,8 @@ class TimeEmbedResBlock(nn.Module):
         self.use_embed = use_embed
         if use_embed:
             self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, out_channels))
-        # index 2 is the reference's dropout (inactive when sampling); it keeps
-        # the conv at out_layers.3, the name the weights carry
+        # index 2 stands for the reference's dropout, applied in forward; it
+        # keeps the conv at out_layers.3, the name the weights carry
         self.out_layers = nn.Sequential(nn.GroupNorm(self.out_groups, out_channels, eps=1e-5),
                                         nn.SiLU(), nn.Identity(),
                                         nn.Conv3d(out_channels, out_channels, 3, padding=1))
@@ -191,13 +209,21 @@ class TimeEmbedResBlock(nn.Module):
                               conv2.bias, gn1.weight, gn1.bias, gn2.weight, gn2.bias,
                               gn1.num_groups, gn1.eps)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor = None,
+                drop: Optional[DropoutStream] = None) -> torch.Tensor:
         emb_out = self.emb_layers(emb).contiguous() if self.use_embed else None
+        active = is_active(self, drop, self.dropout)
         if self.fused:
+            if active:
+                raise NotImplementedError("the fused resblock computes the block without "
+                                          "dropout; build it with fused=False to train with one")
             return self._fused_forward(x, emb_out)
         h = self._gn_silu(self.in_layers[0], x)
         h = conv_nthwc(self.in_layers[2], h)
         h = self._gn_silu(self.out_layers[0], h, emb_out)
+        if active:
+            mask = keep_mask(drop.seed, drop.next_site(), 0, h.shape, self.dropout, h.device)
+            h = apply_mask(h, mask, self.dropout)
         h = conv_nthwc(self.out_layers[3], h)
         skip = x if isinstance(self.skip_connection, nn.Identity) else conv_nthwc(self.skip_connection, x)
         return skip + h

@@ -7,18 +7,23 @@ end.  Each stage's time block is one module called ``depth`` times, as in
 the JAX package, so those weights are shared the same way.  Global vectors
 are not ported yet.
 
-Dropout is not ported yet: the modules have none.  That is exact in eval
-mode, whatever the rates; in training mode the UNet refuses any rate above 0
-instead of silently training another model than the configuration names.
-With the rates at 0 it trains: every kernel's ``autograd.Function`` gives
-its parameter gradients from its all-gradients kernel when they are asked
-for (the parameters require grad) and dx alone when they are not.
+Training: every kernel's ``autograd.Function`` gives its parameter gradients
+from its all-gradients kernel when they are asked for (the parameters
+require grad) and dx alone when they are not.  Dropout (``attn_drop`` on the
+attention weights, ``proj_drop`` on each attention layer's output and in
+``first_proj``, ``ffn_drop`` on the FFN's activation and output,
+``time_embed_dropout`` in the time blocks) is active in training mode only:
+the forward then takes the step's ``dropout_seed``, and every module call
+that drops takes the next site of one :class:`~prediff_torch.ops.dropout.
+DropoutStream`, in call order, so each call's masks are a function of
+(seed, site) that its backward regenerates.  Eval mode ignores the rates.
 """
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
+from ..ops.dropout import DropoutStream
 from .cuboid_attention import StackCuboidSelfAttentionBlock
 from .layers import (PatchMerging3D, PosEmbed, TimeEmbedLayer, TimeEmbedResBlock,
                      Upsample3DLayer, timestep_embedding)
@@ -83,17 +88,20 @@ class CuboidTransformerUNet(nn.Module):
         pattern = CuboidSelfAttentionPatterns[block_attn_patterns]
         tec = self.block_units[0] * time_embed_channels_mult
 
-        self.first_proj = TimeEmbedResBlock(self.data_shape[-1], base_units, use_embed=False)
+        self.first_proj = TimeEmbedResBlock(self.data_shape[-1], base_units, use_embed=False,
+                                            dropout=proj_drop)
         self.pos_embed = PosEmbed(base_units, *self.data_shape[:3])
         self.time_embed = TimeEmbedLayer(self.block_units[0], tec)
 
         def stack(i):
             cuboid_size, strategy, shift_size = pattern(mem_shapes[i])
             return StackCuboidSelfAttentionBlock(mem_shapes[i][-1], num_heads, cuboid_size,
-                                                 shift_size, strategy)
+                                                 shift_size, strategy, attn_drop, proj_drop,
+                                                 ffn_drop)
 
         def time_block(i):
-            return TimeEmbedResBlock(mem_shapes[i][-1], mem_shapes[i][-1], emb_channels=tec)
+            return TimeEmbedResBlock(mem_shapes[i][-1], mem_shapes[i][-1], emb_channels=tec,
+                                     dropout=time_embed_dropout)
 
         self.down_time_embed_blocks = nn.ModuleList(time_block(i) for i in range(self.num_blocks))
         self.down_self_blocks = nn.ModuleList(
@@ -110,28 +118,23 @@ class CuboidTransformerUNet(nn.Module):
             for i in range(self.num_blocks - 1))
         self.final_proj = nn.Linear(base_units, C_out)
 
-    def _refuse_dropout(self) -> None:
-        active = {k: v for k, v in self.dropout_rates.items() if v and v > 0}
-        if active:
-            raise NotImplementedError(
-                f"training mode with dropout {active}: dropout is not ported yet (ROADMAP.md, "
-                "\"Still to port\", the in-kernel dropout kernels fused_ffn_dropout / "
-                "fused_ffn_dropout_bwd_full and the seed= attention variants); set the rates "
-                "to 0 to train, or call .eval() to forecast")
-
-    def train(self, mode: bool = True):
-        if mode:
-            self._refuse_dropout()
-        return super().train(mode)
-
-    def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        """x (B, T_out, H, W, C) noisy latent; t (B,); cond (B, T_in, H, W, C)."""
-        if self.training:  # a module starts in training mode without a call of train()
-            self._refuse_dropout()
+    def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        """x (B, T_out, H, W, C) noisy latent; t (B,); cond (B, T_in, H, W, C).
+        ``dropout_seed`` (a host integer, up to 64 bits) seeds this forward's
+        dropout masks; training mode with a rate above 0 needs it, eval mode
+        ignores it."""
+        drop = None
+        if self.training and any(v and v > 0 for v in self.dropout_rates.values()):
+            if dropout_seed is None:
+                raise ValueError("training mode with dropout "
+                                 f"{ {k: v for k, v in self.dropout_rates.items() if v} } "
+                                 "needs dropout_seed; call .eval() to forecast")
+            drop = DropoutStream(dropout_seed)
         x = torch.cat([cond, x], dim=1)
         obs = torch.zeros_like(x[..., :1])
         obs[:, :self.T_in] = 1.0
-        x = self.first_proj(torch.cat([x, obs], dim=-1))
+        x = self.first_proj(torch.cat([x, obs], dim=-1), drop=drop)
         x = self.pos_embed(x)
         t_emb = self.time_embed(timestep_embedding(t, self.block_units[0]).to(x.dtype))
 
@@ -140,16 +143,16 @@ class CuboidTransformerUNet(nn.Module):
             if i > 0:
                 x = self.downsample_layers[i - 1](x)
             for j in range(self.depth[i]):
-                x = self.down_time_embed_blocks[i](x, t_emb)
-                x = self.down_self_blocks[i][j](x)
+                x = self.down_time_embed_blocks[i](x, t_emb, drop)
+                x = self.down_self_blocks[i][j](x, drop)
             if self.unet_res_connect and i < self.num_blocks - 1:
                 res_connect.append(x)
         for i in range(self.num_blocks - 1, -1, -1):
             if self.unet_res_connect and i < self.num_blocks - 1:
                 x = x + res_connect[i]
             for j in range(self.depth[i]):
-                x = self.up_time_embed_blocks[i](x, t_emb)
-                x = self.up_self_blocks[i][j](x)
+                x = self.up_time_embed_blocks[i](x, t_emb, drop)
+                x = self.up_self_blocks[i][j](x, drop)
             if i > 0:
                 x = self.upsample_layers[i - 1](x)
         return self.final_proj(x[:, self.T_in:])

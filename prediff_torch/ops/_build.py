@@ -77,7 +77,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     return report
 
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 TARGET_BLOCKS = 264     # two blocks for each of the H100's 132 SMs
 
 
@@ -92,7 +92,7 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use.
 
     ``signatures`` maps each exported function to its ctypes argument types
-    (``P`` pointer or stream, ``I`` int, ``F`` float); each returns a CUDA
+    (``P`` pointer or stream, ``I`` int, ``U`` uint32, ``F`` float); each returns a CUDA
     error code as int."""
     with _lock:
         lib = _libs.get(name)
@@ -134,6 +134,23 @@ def plain_grads(fn, inputs, needs, g):
         wanted = [t for t, n in zip(leaves, needs) if n]
         grads = iter(torch.autograd.grad(fn(*leaves), wanted, g))
     return [next(grads) if n else None for n in needs]
+
+
+# a dropout kernel's trailing arguments: seed words, site, then (thr, 1 - rate) for its two masks
+DROP_ARGTYPES = [U, U, U, U, F, U, F]
+
+
+def drop_args(seed: int, site: int, *rates: float) -> list:
+    """The dropout arguments of a kernel (``DROP_ARGTYPES``): the seed's two
+    words, the site, and for each rate in [0, 1) its threshold and ``1 - rate``
+    (``csrc/philox.cuh``)."""
+    from .dropout import check_rates, seed_words, threshold
+
+    check_rates(*rates)
+    args = [*seed_words(seed), int(site)]
+    for rate in rates:
+        args += [threshold(rate), 1.0 - rate]
+    return args
 
 
 def check(err: int, what: str) -> None:

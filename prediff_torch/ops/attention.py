@@ -10,15 +10,23 @@ take bf16 operands with f32 accumulation.  Its input gradient
 (``axial_attention_bwd_dx``, same source) replaces
 ``pallas_attention.py::fused_axial_attention_5d_bwd_dx``, and its
 all-gradients backward (``axial_attention_bwd_full``) replaces
-``pallas_attention.py::fused_axial_attention_5d_bwd_full`` (without a
-dropout seed).  Weights are in PyTorch layout: ``w_qkv`` (3C, C), ``w_proj``
-(C, C); ``bias`` is (heads, vol, vol).
+``pallas_attention.py::fused_axial_attention_5d_bwd_full``.  With dropout
+(``axial_attention_dropout_forward``, ``axial_attention_dropout_bwd_full``)
+they replace the ``seed=`` forms of those two: ``p . m_a / (1 - rate_attn)``
+after the softmax and before ``p . v``, and ``(. Wproj^T + b) . m_p /
+(1 - rate_proj)`` on the output, the masks those of ``ops/dropout.py`` for
+``(seed, site)`` (tensor 0: (B * cuboids, heads, vol, vol) with the cuboids
+in ``cuboid_reorder``'s order, tensor 1: the natural (B, T, H, W, C)),
+regenerated in the backward.  Weights are in PyTorch layout: ``w_qkv``
+(3C, C), ``w_proj`` (C, C); ``bias`` is (heads, vol, vol).
 
 :func:`fused_axial_attention` is differentiable.  When a parameter gradient
 is asked for (training) its backward is one call of
 :func:`fused_axial_attention_bwd_full`, which gives dx and every parameter
 gradient; when only dx is asked for (guidance: the model is frozen) it is
-:func:`fused_axial_attention_bwd_dx`.
+:func:`fused_axial_attention_bwd_dx`.  With a ``seed`` it runs
+:func:`fused_axial_attention_dropout` and, backward,
+:func:`fused_axial_attention_dropout_bwd_full`.
 """
 from typing import Optional
 
@@ -26,12 +34,16 @@ import torch
 
 from . import _build
 from .cuboid import cuboid_reorder, cuboid_reorder_reverse
+from .dropout import apply_mask, resolve_masks
 from .ffn import _round, layer_norm_bwd_plain, layer_norm_plain
 
-_P, _I, _F = _build.P, _build.I, _build.F
+_P, _I, _F, _DROP = _build.P, _build.I, _build.F, _build.DROP_ARGTYPES
 _SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 7 + [_F, _F, _P],
                "axial_attention_bwd_dx": [_P] * 12 + [_I] * 7 + [_F, _F, _P],
-               "axial_attention_bwd_full": [_P] * 21 + [_I] * 10 + [_F, _F, _P]}
+               "axial_attention_bwd_full": [_P] * 21 + [_I] * 10 + [_F, _F, _P],
+               "axial_attention_dropout_forward": [_P] * 10 + [_I] * 7 + [_F, _F] + _DROP + [_P],
+               "axial_attention_dropout_bwd_full": ([_P] * 22 + [_I] * 10 + [_F, _F] + _DROP
+                                                    + [_P])}
 
 
 def axial_cuboid_size(shape, axis: int):
@@ -55,23 +67,40 @@ def _softmax_plain(q, k, bias, scale, mxu_dtype):
     return p / p.sum(dim=-1, keepdim=True)
 
 
+def _dropout_masks(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks):
+    """(m_a (B, nC, heads, vol, vol), m_p (B, T, H, W, C)), None at rate 0."""
+    B, T, H, W, C = x.shape
+    vol = (T, H, W)[axis]
+    nC = T * H * W // vol
+    return resolve_masks((rate_attn, rate_proj),
+                         ((B, nC, num_heads, vol, vol), (B, T, H, W, C)), seed, site, masks,
+                         x.device)
+
+
 def axial_attention_plain(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: torch.Tensor,
                           w_qkv: torch.Tensor, bias: torch.Tensor, w_proj: torch.Tensor,
                           b_proj: torch.Tensor, num_heads: int, scale: float,
-                          eps: float = 1e-5,
-                          mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                          eps: float = 1e-5, mxu_dtype: Optional[torch.dtype] = None,
+                          rate_attn: float = 0.0, rate_proj: float = 0.0,
+                          seed: Optional[int] = None, site: int = 0, masks=None) -> torch.Tensor:
     """Plain PyTorch version, through ``cuboid_reorder``.  ``mxu_dtype``
-    rounds the matmul operands where the kernel does; ``None`` keeps f32."""
+    rounds the matmul operands where the kernel does; ``None`` keeps f32.
+    Dropout on the attention weights (``rate_attn``) and on the projected
+    output (``rate_proj``) with the masks of ``(seed, site)``, or the explicit
+    ``masks = (m_a (B, cuboids, heads, vol, vol), m_p (B, T, H, W, C))`` of
+    0/1 values."""
     B, T, H, W, C = x.shape
+    m_a, m_p = _dropout_masks(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks)
     cs = axial_cuboid_size(x.shape, axis)
     xr = cuboid_reorder(x.float(), cs, ("l", "l", "l"))          # (B, nC, vol, C)
     nC, vol = xr.shape[1], xr.shape[2]
     q, k, v = _qkv_plain(xr, ln_w, ln_b, w_qkv, num_heads, eps, mxu_dtype)
-    p = _softmax_plain(q, k, bias, scale, mxu_dtype)
+    p = apply_mask(_softmax_plain(q, k, bias, scale, mxu_dtype), m_a, rate_attn)
     o = torch.einsum("bnhij,bnjhc->bnihc", _round(p, mxu_dtype), _round(v, mxu_dtype))
     o = o.reshape(B, nC, vol, C)
     out = _round(o, mxu_dtype) @ _round(w_proj, mxu_dtype).T + b_proj
-    return cuboid_reorder_reverse(out, cs, ("l", "l", "l"), (T, H, W)).to(x.dtype)
+    out = cuboid_reorder_reverse(out, cs, ("l", "l", "l"), (T, H, W))
+    return apply_mask(out, m_p, rate_proj).to(x.dtype)
 
 
 def axial_attention_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
@@ -107,32 +136,41 @@ def axial_attention_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
                                    ln_w: torch.Tensor, ln_b: torch.Tensor, w_qkv: torch.Tensor,
                                    bias: torch.Tensor, w_proj: torch.Tensor, num_heads: int,
                                    scale: float, eps: float = 1e-5,
-                                   mxu_dtype: Optional[torch.dtype] = None):
+                                   mxu_dtype: Optional[torch.dtype] = None,
+                                   rate_attn: float = 0.0, rate_proj: float = 0.0,
+                                   seed: Optional[int] = None, site: int = 0, masks=None):
     """Plain (dx, dln_w, dln_b, dw_qkv, dbias, dw_proj, db_proj) of
     :func:`axial_attention_plain` for the cotangent ``g``, the TPU kernel's
     formulas: everything recomputed from x, ``dbias`` the f32 ``ds`` summed
     over every cuboid and sample; ``mxu_dtype`` rounds the product operands
-    (LN(x), g, q . scale, k, v, p, the head outputs, ds, dqkv, the weights)
-    where the kernel does; every sum is f32."""
+    (LN(x), do, q . scale, k, v, p, the head outputs, ds, dqkv, the weights)
+    where the kernel does; every sum is f32.  With dropout the masks are
+    regenerated (or the explicit ``masks``): ``do = g . m_p / (1 - rate_proj)``
+    feeds dWproj, dbproj and dattn; ``dp`` carries ``m_a / (1 - rate_attn)``,
+    the softmax backward uses the undropped p, dv and the head outputs the
+    dropped one."""
     B, T, H, W, C = x.shape
     hc = C // num_heads
+    m_a, m_p = _dropout_masks(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks)
     cs = axial_cuboid_size(x.shape, axis)
     xr = cuboid_reorder(x.float(), cs, ("l", "l", "l"))
-    gr = _round(cuboid_reorder(g.float(), cs, ("l", "l", "l")), mxu_dtype)
+    do = apply_mask(g.float(), m_p, rate_proj)
+    gr = _round(cuboid_reorder(do, cs, ("l", "l", "l")), mxu_dtype)
     nC, vol = xr.shape[1], xr.shape[2]
     mu = xr.mean(dim=-1, keepdim=True)
     nhat = (xr - mu) * torch.rsqrt((xr - mu).square().mean(dim=-1, keepdim=True) + eps)
     ln = _round(nhat * ln_w + ln_b, mxu_dtype)
     q, k, v = _qkv_plain(xr, ln_w, ln_b, w_qkv, num_heads, eps, mxu_dtype)
     p = _softmax_plain(q, k, bias, scale, mxu_dtype)
-    o = torch.einsum("bnhij,bnjhc->bnihc", _round(p, mxu_dtype), _round(v, mxu_dtype))
+    p_d = _round(apply_mask(p, m_a, rate_attn), mxu_dtype)
+    o = torch.einsum("bnhij,bnjhc->bnihc", p_d, _round(v, mxu_dtype))
     d_o = _round((gr @ _round(w_proj, mxu_dtype)).reshape(B, nC, vol, num_heads, hc), mxu_dtype)
-    dp = torch.einsum("bnihc,bnjhc->bnhij", d_o, _round(v, mxu_dtype))
+    dp = apply_mask(torch.einsum("bnihc,bnjhc->bnhij", d_o, _round(v, mxu_dtype)), m_a, rate_attn)
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
     dsr = _round(ds, mxu_dtype)
     dq = torch.einsum("bnhij,bnjhc->bnihc", dsr, _round(k, mxu_dtype)) * scale
     dk = torch.einsum("bnhij,bnihc->bnjhc", dsr, _round(q * scale, mxu_dtype))
-    dv = torch.einsum("bnhij,bnihc->bnjhc", _round(p, mxu_dtype), d_o)
+    dv = torch.einsum("bnhij,bnihc->bnjhc", p_d, d_o)
     dqkv = _round(torch.stack([dq, dk, dv], dim=3).reshape(B, nC, vol, 3 * C), mxu_dtype)
     dln = dqkv @ _round(w_qkv, mxu_dtype)
     dx = cuboid_reorder_reverse(layer_norm_bwd_plain(xr, ln_w, dln, eps), cs, ("l", "l", "l"),
@@ -140,7 +178,7 @@ def axial_attention_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
     dw_qkv = dqkv.reshape(-1, 3 * C).T @ ln.reshape(-1, C)
     dw_proj = gr.reshape(-1, C).T @ _round(o.reshape(-1, C), mxu_dtype)
     return (dx, (dln * nhat).sum(dim=(0, 1, 2)), dln.sum(dim=(0, 1, 2)), dw_qkv,
-            ds.sum(dim=(0, 1)), dw_proj, g.float().sum(dim=(0, 1, 2, 3)))
+            ds.sum(dim=(0, 1)), dw_proj, do.sum(dim=(0, 1, 2, 3)))
 
 
 def _check(x, axis, num_heads):
@@ -157,7 +195,10 @@ def _check(x, axis, num_heads):
     return B * T * H * W, vol
 
 
-def _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps):
+def _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps,
+                      drop=None):
+    """Launch the forward; ``drop`` = (rate_attn, rate_proj, seed, site) takes
+    the dropout entry point."""
     B, T, H, W, C = x.shape
     M, vol = _check(x, axis, num_heads)
     _build.require("attention", [
@@ -168,12 +209,38 @@ def _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_head
     attn = torch.empty((M, C), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     lib = _build.load("attention", _SIGNATURES)
-    err = lib.axial_attention_forward(
-        *(_build.ptr(t) for t in (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv, attn, out)),
-        B, T, H, W, C, axis, num_heads, float(scale), float(eps), _build.stream_ptr(x.device))
-    _build.check(err, "axial_attention_forward")
-    fused_axial_attention.launches += 1
+    ptrs = [_build.ptr(t) for t in (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv, attn, out)]
+    dims = (B, T, H, W, C, axis, num_heads, float(scale), float(eps))
+    if drop is None:
+        err = lib.axial_attention_forward(*ptrs, *dims, _build.stream_ptr(x.device))
+        _build.check(err, "axial_attention_forward")
+        fused_axial_attention.launches += 1
+    else:
+        rate_attn, rate_proj, seed, site = drop
+        err = lib.axial_attention_dropout_forward(
+            *ptrs, *dims, *_build.drop_args(seed, site, rate_attn, rate_proj),
+            _build.stream_ptr(x.device))
+        _build.check(err, "axial_attention_dropout_forward")
+        fused_axial_attention_dropout.launches += 1
     return out
+
+
+def fused_axial_attention_dropout(x: torch.Tensor, axis: int, ln_w: torch.Tensor,
+                                  ln_b: torch.Tensor, w_qkv: torch.Tensor, bias: torch.Tensor,
+                                  w_proj: torch.Tensor, b_proj: torch.Tensor, num_heads: int,
+                                  scale: float, eps: float = 1e-5, rate_attn: float = 0.0,
+                                  rate_proj: float = 0.0, seed: int = 0,
+                                  site: int = 0) -> torch.Tensor:
+    """The layer with the dropout masks of ``(seed, site)``, forward only
+    (:func:`fused_axial_attention` with a seed is the differentiable form).
+    CPU tensor: the plain version in f32.  CUDA tensor: the kernel, or raise.
+    With both rates 0 it gives the bits of the kernel without dropout."""
+    if not x.is_cuda:
+        return axial_attention_plain(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
+                                     scale, eps, rate_attn=rate_attn, rate_proj=rate_proj,
+                                     seed=seed, site=site)
+    return _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale,
+                             eps, (rate_attn, rate_proj, seed, site))
 
 
 def fused_axial_attention_bwd_dx(x: torch.Tensor, g: torch.Tensor, axis: int,
@@ -215,6 +282,30 @@ def fused_axial_attention_bwd_full(x: torch.Tensor, g: torch.Tensor, axis: int,
     if not x.is_cuda:
         return axial_attention_bwd_full_plain(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj,
                                               num_heads, scale, eps)
+    return _attention_bwd_full_kernel(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
+                                      scale, eps)
+
+
+def fused_axial_attention_dropout_bwd_full(x: torch.Tensor, g: torch.Tensor, axis: int,
+                                           ln_w: torch.Tensor, ln_b: torch.Tensor,
+                                           w_qkv: torch.Tensor, bias: torch.Tensor,
+                                           w_proj: torch.Tensor, num_heads: int, scale: float,
+                                           eps: float = 1e-5, rate_attn: float = 0.0,
+                                           rate_proj: float = 0.0, seed: int = 0, site: int = 0):
+    """(dx, dln_w, dln_b, dw_qkv, dbias, dw_proj, db_proj) of
+    :func:`fused_axial_attention_dropout`, the masks regenerated from
+    ``(seed, site)``.  CPU tensor: the plain version in f32.  CUDA tensor:
+    the kernel, or raise."""
+    if not x.is_cuda:
+        return axial_attention_bwd_full_plain(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj,
+                                              num_heads, scale, eps, rate_attn=rate_attn,
+                                              rate_proj=rate_proj, seed=seed, site=site)
+    return _attention_bwd_full_kernel(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
+                                      scale, eps, (rate_attn, rate_proj, seed, site))
+
+
+def _attention_bwd_full_kernel(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, scale,
+                               eps, drop=None):
     B, T, H, W, C = x.shape
     M, vol = _check(x, axis, num_heads)
     _build.require("attention_bwd_full", [
@@ -239,22 +330,39 @@ def fused_axial_attention_bwd_full(x: torch.Tensor, g: torch.Tensor, axis: int,
                                   torch.empty_like(bias), torch.empty_like(w_proj))
     vec = torch.empty((3, C), **f32)
     lib = _build.load("attention", _SIGNATURES)
-    err = lib.axial_attention_bwd_full(
-        *(_build.ptr(t) for t in (x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln,
-                                  ln_bf, attn_bf, dbias_part, vpart, dw_part, dx, dw_qkv, dbias,
-                                  dw_proj, vec)),
-        B, T, H, W, C, axis, num_heads, per_block, ksplit_qkv, ksplit_proj, float(scale),
-        float(eps), _build.stream_ptr(x.device))
-    _build.check(err, "axial_attention_bwd_full")
-    fused_axial_attention_bwd_full.launches += 1
+    head = [x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln, ln_bf, attn_bf]
+    tail = [dbias_part, vpart, dw_part, dx, dw_qkv, dbias, dw_proj, vec]
+    dims = (B, T, H, W, C, axis, num_heads, per_block, ksplit_qkv, ksplit_proj, float(scale),
+            float(eps))
+    if drop is None:
+        err = lib.axial_attention_bwd_full(*(_build.ptr(t) for t in head + tail), *dims,
+                                           _build.stream_ptr(x.device))
+        _build.check(err, "axial_attention_bwd_full")
+        fused_axial_attention_bwd_full.launches += 1
+    else:
+        rate_attn, rate_proj, seed, site = drop
+        do_bf = torch.empty((M, C), **bf16)
+        err = lib.axial_attention_dropout_bwd_full(
+            *(_build.ptr(t) for t in head + [do_bf] + tail), *dims,
+            *_build.drop_args(seed, site, rate_attn, rate_proj), _build.stream_ptr(x.device))
+        _build.check(err, "axial_attention_dropout_bwd_full")
+        fused_axial_attention_dropout_bwd_full.launches += 1
     return dx, vec[0], vec[1], dw_qkv, dbias, dw_proj, vec[2]
 
 
 class _FusedAxialAttention(torch.autograd.Function):
+    """``drop`` is None or (rate_attn, rate_proj, seed, site), Python numbers
+    kept in ``ctx``: the backward regenerates the forward's masks from them."""
+
     @staticmethod
-    def forward(ctx, x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps):
+    def forward(ctx, x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps,
+                drop):
         ctx.save_for_backward(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj)
         ctx.args = (axis, num_heads, scale, eps)
+        ctx.drop = drop
+        if drop is not None:
+            return fused_axial_attention_dropout(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
+                                                 num_heads, scale, eps, *drop)
         if not x.is_cuda:
             return axial_attention_plain(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
                                          num_heads, scale, eps)
@@ -267,26 +375,41 @@ class _FusedAxialAttention(torch.autograd.Function):
         axis, num_heads, scale, eps = ctx.args
         g = g.contiguous()
         needs = ctx.needs_input_grad
-        if any(needs[2:8]):
-            dx, *dparams = fused_axial_attention_bwd_full(x, g, axis, *params[:-1], num_heads,
-                                                          scale, eps)
+        if ctx.drop is not None or any(needs[2:8]):
+            if ctx.drop is not None:
+                dx, *dparams = fused_axial_attention_dropout_bwd_full(
+                    x, g, axis, *params[:-1], num_heads, scale, eps, *ctx.drop)
+            else:
+                dx, *dparams = fused_axial_attention_bwd_full(x, g, axis, *params[:-1], num_heads,
+                                                              scale, eps)
             return (dx if needs[0] else None, None,
-                    *(gr if n else None for gr, n in zip(dparams, needs[2:8])), None, None, None)
+                    *(gr if n else None for gr, n in zip(dparams, needs[2:8])),
+                    None, None, None, None)
         dx = (fused_axial_attention_bwd_dx(x, g, axis, *params[:-1], num_heads, scale, eps)
               if needs[0] else None)
-        return (dx,) + (None,) * 10
+        return (dx,) + (None,) * 11
 
 
 def fused_axial_attention(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: torch.Tensor,
                           w_qkv: torch.Tensor, bias: torch.Tensor, w_proj: torch.Tensor,
                           b_proj: torch.Tensor, num_heads: int, scale: float,
-                          eps: float = 1e-5) -> torch.Tensor:
+                          eps: float = 1e-5, rate_attn: float = 0.0, rate_proj: float = 0.0,
+                          seed: Optional[int] = None, site: int = 0) -> torch.Tensor:
     """CPU tensor: the plain version in f32.  CUDA tensor: the kernel, or raise.
-    Differentiable on both."""
+    Differentiable on both.  With a ``seed`` the dropout kernels run, with the
+    masks of ``(seed, site)`` at the two rates; without one the rates must be 0."""
+    if seed is None:
+        if rate_attn > 0.0 or rate_proj > 0.0:
+            raise ValueError("fused_axial_attention: a dropout rate above 0 needs a seed")
+        drop = None
+    else:
+        drop = (float(rate_attn), float(rate_proj), int(seed), int(site))
     return _FusedAxialAttention.apply(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
-                                      num_heads, scale, eps)
+                                      num_heads, scale, eps, drop)
 
 
 fused_axial_attention.launches = 0
+fused_axial_attention_dropout.launches = 0
+fused_axial_attention_dropout_bwd_full.launches = 0
 fused_axial_attention_bwd_dx.launches = 0
 fused_axial_attention_bwd_full.launches = 0

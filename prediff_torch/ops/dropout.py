@@ -1,0 +1,136 @@
+"""Dropout masks from a counter-based generator, the same on the CPU and in
+the kernels.
+
+The TPU kernels (``prediff_tpu/ops/pallas_ffn.py::_keep_mask``) draw their
+masks from a stateful per-core generator seeded per grid cell, which ties the
+mask to the tiling.  Here a mask is a pure function of logical coordinates:
+
+    keep(seed, site, tensor, element)
+        = philox4x32_10(key = the seed's two words,
+                        counter = (element // 4 low, element // 4 high, tensor, site)
+                        )[element % 4] >= thr
+    thr = min(round(rate * 2**32), 2**32 - 1)
+
+``element`` is the row-major index in the logical tensor, ``tensor`` numbers
+the masks of one module call (0: the FFN's hidden activation or the attention
+weights, 1: the module's output) and ``site`` numbers the module calls of one
+forward.  Kept values are divided by ``1 - rate``.  A forward kernel and its
+backward, whatever their grids, regenerate the same mask from
+``(seed, site)``; nothing is stored.  ``csrc/philox.cuh`` is the same
+function on the card: integer arithmetic, so the two agree bit for bit.
+"""
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57      # Philox4x32 multipliers
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85      # key increments (Weyl sequence)
+_MASK32 = 0xFFFFFFFF
+
+
+def threshold(rate: float) -> int:
+    """The uint32 a draw must reach to be kept (the TPU kernels' rule)."""
+    return min(int(round(rate * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+def check_rates(*rates: float) -> None:
+    if not all(0.0 <= r < 1.0 for r in rates):
+        raise ValueError(f"dropout rates {rates} must lie in [0, 1)")
+
+
+def seed_words(seed: int) -> Tuple[int, int]:
+    """The two 32-bit key words of a seed (low, high)."""
+    seed = int(seed) % 2 ** 64
+    return seed & _MASK32, seed >> 32
+
+
+def _mulhilo(m: int, a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """High and low 32 bits of ``m * a`` for uint32 values held in int64,
+    through 16-bit halves so that no int64 product overflows."""
+    ah, al = a >> 16, a & 0xFFFF
+    hi_part, lo_part = ah * m, al * m                 # both below 2**48
+    hi = (hi_part + (lo_part >> 16)) >> 16
+    lo = (((hi_part & 0xFFFF) << 16) + lo_part) & _MASK32
+    return hi, lo
+
+
+def philox4x32(key: Tuple[int, int], counter: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Philox4x32-10 (Salmon et al., SC'11) on int64 tensors of uint32 values:
+    four counter words in, four random words out."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _W0) & _MASK32, (k1 + _W1) & _MASK32
+    return c0, c1, c2, c3
+
+
+def random_bits(seed: int, site: int, tensor: int, n: int, device=None) -> torch.Tensor:
+    """The first ``n`` uint32 draws (as int64) of the stream (seed, site, tensor)."""
+    idx = torch.arange(-(-n // 4), dtype=torch.int64, device=device)
+    const = torch.zeros_like(idx)
+    words = philox4x32(seed_words(seed), (idx & _MASK32, idx >> 32, const + int(tensor),
+                                          const + int(site)))
+    return torch.stack(words, dim=1).reshape(-1)[:n]
+
+
+def keep_mask(seed: int, site: int, tensor: int, shape: Sequence[int], rate: float,
+              device=None) -> torch.Tensor:
+    """The 0/1 float32 keep mask of a logical tensor of ``shape``."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    bits = random_bits(seed, site, tensor, n, device)
+    return (bits >= threshold(rate)).to(torch.float32).reshape(tuple(shape))
+
+
+def apply_mask(v: torch.Tensor, mask: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """``v * mask / (1 - rate)`` in float32, the kernels' arithmetic; ``v``
+    itself when there is no mask."""
+    if mask is None:
+        return v
+    return v * mask / torch.tensor(1.0 - rate, dtype=torch.float32, device=v.device)
+
+
+def resolve_masks(rates: Sequence[float], shapes: Sequence[Sequence[int]], seed: Optional[int],
+                  site: int, masks, device):
+    """One mask (or None at rate 0) for each of a module call's dropped
+    tensors: the explicit ``masks`` when given, else drawn from (seed, site)."""
+    check_rates(*rates)
+    if masks is not None:
+        return [None if r <= 0.0 else m.to(device=device, dtype=torch.float32).reshape(tuple(s))
+                for r, s, m in zip(rates, shapes, masks)]
+    if seed is None:
+        if any(r > 0.0 for r in rates):
+            raise ValueError("a dropout rate above 0 needs a seed or explicit masks")
+        return [None] * len(rates)
+    return [None if r <= 0.0 else keep_mask(seed, site, i, s, r, device)
+            for i, (r, s) in enumerate(zip(rates, shapes))]
+
+
+class DropoutStream:
+    """The dropout sites of one forward: the seed of the step and a counter
+    that numbers the module calls that draw, in call order (the counterpart
+    of flax's ``make_rng("dropout")`` folding in the module path)."""
+
+    def __init__(self, seed: int):
+        self.seed = int(seed) % 2 ** 64
+        self.site = 0
+
+    def next_site(self) -> int:
+        site = self.site
+        self.site += 1
+        return site
+
+
+def is_active(module: torch.nn.Module, drop: Optional[DropoutStream], *rates: float) -> bool:
+    """Whether ``module`` drops in this call: training mode and a rate above
+    0.  Raises if it should but was given no stream."""
+    if not module.training or not any(r > 0.0 for r in rates):
+        return False
+    if drop is None:
+        raise ValueError(f"{type(module).__name__}: training mode with a dropout rate above 0 "
+                         "needs the forward's DropoutStream (pass dropout_seed to the model)")
+    return True

@@ -6,24 +6,33 @@ operands with f32 accumulation on the tensor cores.  GELU uses the exact
 ``erff``; the TPU kernel's A&S 7.1.26 erf differs from it by at most 4e-7.
 Its input gradient (``ffn_bwd_dx`` in the same source) replaces
 ``pallas_ffn.py::fused_ffn_bwd_dx``, and its all-gradients backward
-(``ffn_bwd_full``) replaces ``pallas_ffn.py::fused_ffn_bwd_full``.  Weights
-are in PyTorch layout: ``w1`` (hidden, C), ``w2`` (C, hidden).
+(``ffn_bwd_full``) replaces ``pallas_ffn.py::fused_ffn_bwd_full``.  With
+dropout (``ffn_dropout_forward``, ``ffn_dropout_bwd_full``) they replace
+``pallas_ffn.py::fused_ffn_dropout`` and ``fused_ffn_dropout_bwd_full``:
+``a = gelu(h) . m1 / (1 - rate_act)``, ``out = x + (a . W2 + b2) . m2 /
+(1 - rate_out)``, the masks those of ``ops/dropout.py`` for ``(seed, site)``
+(tensor 0: (tokens, hidden), tensor 1: (tokens, C)), regenerated in the
+backward.  Weights are in PyTorch layout: ``w1`` (hidden, C), ``w2`` (C, hidden).
 
 :func:`fused_ffn` is differentiable.  When a parameter gradient is asked for
 (training) its backward is one call of :func:`fused_ffn_bwd_full`, which
 gives dx and every parameter gradient; when only dx is asked for (guidance:
-the model is frozen) it is :func:`fused_ffn_bwd_dx`.
+the model is frozen) it is :func:`fused_ffn_bwd_dx`.  With a ``seed`` it runs
+:func:`fused_ffn_dropout` and, backward, :func:`fused_ffn_dropout_bwd_full`.
 """
 from typing import Optional
 
 import torch
 
 from . import _build
+from .dropout import apply_mask, resolve_masks
 
-_P, _I, _F = _build.P, _build.I, _build.F
+_P, _I, _F, _DROP = _build.P, _build.I, _build.F, _build.DROP_ARGTYPES
 _SIGNATURES = {"ffn_forward": [_P] * 9 + [_I] * 4 + [_F, _P],
                "ffn_bwd_dx": [_P] * 9 + [_I] * 4 + [_F, _P],
-               "ffn_bwd_full": [_P] * 19 + [_I] * 5 + [_F, _P]}
+               "ffn_bwd_full": [_P] * 19 + [_I] * 5 + [_F, _P],
+               "ffn_dropout_forward": [_P] * 9 + [_I] * 4 + [_F] + _DROP + [_P],
+               "ffn_dropout_bwd_full": [_P] * 20 + [_I] * 5 + [_F] + _DROP + [_P]}
 KERNEL_WIDTHS = (128, 256, 512)
 _ROWS_PER_BLOCK = 32     # csrc/ffn.cu kRows
 _CHUNK = 64              # csrc/ffn.cu kChunk
@@ -69,18 +78,33 @@ def gelu_grad(h: torch.Tensor) -> torch.Tensor:
             + h * torch.exp(-0.5 * h * h) * (2.0 * torch.pi) ** -0.5)
 
 
-def ffn_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
-              b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
-              mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Plain PyTorch version.  ``mxu_dtype=torch.bfloat16`` rounds the matmul
-    operands (LN output, weights, hidden) where the kernel does; ``None``
-    keeps f32 throughout."""
+def ffn_dropout_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                      w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                      eps: float = 1e-5, rate_act: float = 0.0, rate_out: float = 0.0,
+                      seed: Optional[int] = None, site: int = 0, masks=None,
+                      mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain PyTorch version with dropout on gelu(h) (``rate_act``) and on the
+    output before the residual (``rate_out``).  The masks are those of
+    ``(seed, site)``, or the explicit ``masks = (m1 (tokens, hidden),
+    m2 (tokens, C))`` of 0/1 values.  ``mxu_dtype=torch.bfloat16`` rounds the
+    matmul operands (LN output, weights, the dropped hidden) where the kernel
+    does; ``None`` keeps f32 throughout."""
+    M, C = x.shape
+    m1, m2 = resolve_masks((rate_act, rate_out), ((M, w1.shape[0]), (M, C)), seed, site, masks,
+                           x.device)
     xf = x.float()
     ln = layer_norm_plain(xf, ln_w, ln_b, eps)
     h = _round(ln, mxu_dtype) @ _round(w1, mxu_dtype).T + b1
-    h = torch.nn.functional.gelu(h)
-    out = _round(h, mxu_dtype) @ _round(w2, mxu_dtype).T + b2
+    a = apply_mask(torch.nn.functional.gelu(h), m1, rate_act)
+    out = apply_mask(_round(a, mxu_dtype) @ _round(w2, mxu_dtype).T + b2, m2, rate_out)
     return (xf + out).to(x.dtype)
+
+
+def ffn_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
+              b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
+              mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain PyTorch version without dropout."""
+    return ffn_dropout_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, mxu_dtype=mxu_dtype)
 
 
 def ffn_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
@@ -98,28 +122,45 @@ def ffn_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b:
     return (gf + layer_norm_bwd_plain(xf, ln_w, dln, eps)).to(x.dtype)
 
 
-def ffn_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
-                       w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, eps: float = 1e-5,
-                       mxu_dtype: Optional[torch.dtype] = None):
-    """Plain (dx, dln_w, dln_b, dw1, db1, dw2, db2) of :func:`ffn_plain` for
-    the cotangent ``g``, the TPU kernel's formulas: everything recomputed
-    from x; ``mxu_dtype`` rounds LN(x), g, the weights, gelu(h) and dh before
-    the products, as the kernel does; every sum is f32."""
+def ffn_dropout_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
+                               ln_b: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                               w2: torch.Tensor, eps: float = 1e-5, rate_act: float = 0.0,
+                               rate_out: float = 0.0, seed: Optional[int] = None, site: int = 0,
+                               masks=None, mxu_dtype: Optional[torch.dtype] = None):
+    """Plain (dx, dln_w, dln_b, dw1, db1, dw2, db2) of
+    :func:`ffn_dropout_plain` for the cotangent ``g``, the TPU kernel's
+    formulas: everything recomputed from x, the masks regenerated (or the
+    explicit ``masks``).  ``do = g . m2 / (1 - rate_out)`` feeds dW2, db2 and
+    da, while the residual's share of dx is the unmasked g; the activation and
+    ``dz = da . gelu'(h)`` both carry ``m1 / (1 - rate_act)``.  ``mxu_dtype``
+    rounds LN(x), do, the weights, the dropped gelu(h) and dz before the
+    products, as the kernel does; every sum is f32."""
+    M, C = x.shape
+    m1, m2 = resolve_masks((rate_act, rate_out), ((M, w1.shape[0]), (M, C)), seed, site, masks,
+                           x.device)
     xf, gf = x.float(), g.float()
     mu = xf.mean(dim=-1, keepdim=True)
     nhat = (xf - mu) * torch.rsqrt((xf - mu).square().mean(dim=-1, keepdim=True) + eps)
     ln = _round(nhat * ln_w + ln_b, mxu_dtype)
-    gr = _round(gf, mxu_dtype)
+    do = apply_mask(gf, m2, rate_out)
+    dor = _round(do, mxu_dtype)
     h = ln @ _round(w1, mxu_dtype).T + b1
-    da = gr @ _round(w2, mxu_dtype)
-    dh = da * gelu_grad(h)
-    dhr = _round(dh, mxu_dtype)
-    dln = dhr @ _round(w1, mxu_dtype)
+    da = dor @ _round(w2, mxu_dtype)
+    dz = apply_mask(da * gelu_grad(h), m1, rate_act)
+    dzr = _round(dz, mxu_dtype)
+    dln = dzr @ _round(w1, mxu_dtype)
     dx = (gf + layer_norm_bwd_plain(xf, ln_w, dln, eps)).to(x.dtype)
-    dw2 = gr.T @ _round(torch.nn.functional.gelu(h), mxu_dtype)
-    dw1 = dhr.T @ ln
-    return (dx, (dln * nhat).sum(dim=0), dln.sum(dim=0), dw1, dh.sum(dim=0), dw2,
-            gf.sum(dim=0))
+    dw2 = dor.T @ _round(apply_mask(torch.nn.functional.gelu(h), m1, rate_act), mxu_dtype)
+    dw1 = dzr.T @ ln
+    return (dx, (dln * nhat).sum(dim=0), dln.sum(dim=0), dw1, dz.sum(dim=0), dw2,
+            do.sum(dim=0))
+
+
+def ffn_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                       w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, eps: float = 1e-5,
+                       mxu_dtype: Optional[torch.dtype] = None):
+    """Plain (dx, dln_w, dln_b, dw1, db1, dw2, db2) of :func:`ffn_plain`."""
+    return ffn_dropout_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, eps, mxu_dtype=mxu_dtype)
 
 
 def _check_widths(M: int, C: int, hidden: int) -> None:
@@ -128,7 +169,9 @@ def _check_widths(M: int, C: int, hidden: int) -> None:
                          "(takes multiples of 64) not supported")
 
 
-def _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps):
+def _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop=None):
+    """Launch the forward; ``drop`` = (rate_act, rate_out, seed, site) takes
+    the dropout entry point."""
     M, C = x.shape
     hidden = w1.shape[0]
     _check_widths(M, C, hidden)
@@ -139,11 +182,33 @@ def _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps):
     part = torch.empty((splits, M, C), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     lib = _build.load("ffn", _SIGNATURES)
-    err = lib.ffn_forward(*(_build.ptr(t) for t in (x, ln_w, ln_b, w1, b1, w2, b2, part, out)),
-                          M, C, hidden, splits, float(eps), _build.stream_ptr(x.device))
-    _build.check(err, "ffn_forward")
-    fused_ffn.launches += 1
+    ptrs = [_build.ptr(t) for t in (x, ln_w, ln_b, w1, b1, w2, b2, part, out)]
+    if drop is None:
+        err = lib.ffn_forward(*ptrs, M, C, hidden, splits, float(eps),
+                              _build.stream_ptr(x.device))
+        _build.check(err, "ffn_forward")
+        fused_ffn.launches += 1
+    else:
+        rate_act, rate_out, seed, site = drop
+        err = lib.ffn_dropout_forward(*ptrs, M, C, hidden, splits, float(eps),
+                                      *_build.drop_args(seed, site, rate_act, rate_out),
+                                      _build.stream_ptr(x.device))
+        _build.check(err, "ffn_dropout_forward")
+        fused_ffn_dropout.launches += 1
     return out
+
+
+def fused_ffn_dropout(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
+                      b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
+                      rate_act: float = 0.0, rate_out: float = 0.0, seed: int = 0,
+                      site: int = 0) -> torch.Tensor:
+    """The fused FFN with the dropout masks of ``(seed, site)``, forward only
+    (:func:`fused_ffn` with a seed is the differentiable form).  CPU tensor:
+    the plain version in f32.  CUDA tensor: the kernel, or raise.  With both
+    rates 0 it gives the bits of the kernel without dropout."""
+    if not x.is_cuda:
+        return ffn_dropout_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, rate_act, rate_out, seed, site)
+    return _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, (rate_act, rate_out, seed, site))
 
 
 def fused_ffn_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
@@ -178,6 +243,24 @@ def fused_ffn_bwd_full(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_
     forward), or raise."""
     if not x.is_cuda:
         return ffn_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, eps)
+    return _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps)
+
+
+def fused_ffn_dropout_bwd_full(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
+                               ln_b: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                               w2: torch.Tensor, eps: float = 1e-5, rate_act: float = 0.0,
+                               rate_out: float = 0.0, seed: int = 0, site: int = 0):
+    """(dx, dln_w, dln_b, dw1, db1, dw2, db2) of :func:`fused_ffn_dropout`, the
+    masks regenerated from ``(seed, site)``.  CPU tensor: the plain version in
+    f32.  CUDA tensor: the kernel, or raise."""
+    if not x.is_cuda:
+        return ffn_dropout_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, eps, rate_act, rate_out,
+                                          seed, site)
+    return _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps,
+                                (rate_act, rate_out, seed, site))
+
+
+def _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps, drop=None):
     M, C = x.shape
     hidden = w1.shape[0]
     _check_widths(M, C, hidden)
@@ -198,20 +281,35 @@ def fused_ffn_bwd_full(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_
                          torch.empty_like(w2))
     vec = torch.empty((3, C), **f32)
     lib = _build.load("ffn", _SIGNATURES)
-    err = lib.ffn_bwd_full(
-        *(_build.ptr(t) for t in (x, g, ln_w, ln_b, w1, b1, w2, part, a_bf, dh_bf, ln_bf,
-                                  db1_part, vpart, dw_part, dx, dw1, db1, dw2, vec)),
-        M, C, hidden, splits, ksplit, float(eps), _build.stream_ptr(x.device))
-    _build.check(err, "ffn_bwd_full")
-    fused_ffn_bwd_full.launches += 1
+    head = [x, g, ln_w, ln_b, w1, b1, w2, part, a_bf, dh_bf, ln_bf]
+    tail = [db1_part, vpart, dw_part, dx, dw1, db1, dw2, vec]
+    if drop is None:
+        err = lib.ffn_bwd_full(*(_build.ptr(t) for t in head + tail), M, C, hidden, splits,
+                               ksplit, float(eps), _build.stream_ptr(x.device))
+        _build.check(err, "ffn_bwd_full")
+        fused_ffn_bwd_full.launches += 1
+    else:
+        rate_act, rate_out, seed, site = drop
+        do_bf = torch.empty((M, C), **bf16)
+        err = lib.ffn_dropout_bwd_full(
+            *(_build.ptr(t) for t in head + [do_bf] + tail), M, C, hidden, splits, ksplit,
+            float(eps), *_build.drop_args(seed, site, rate_act, rate_out),
+            _build.stream_ptr(x.device))
+        _build.check(err, "ffn_dropout_bwd_full")
+        fused_ffn_dropout_bwd_full.launches += 1
     return dx, vec[0], vec[1], dw1, db1, dw2, vec[2]
 
 
 class _FusedFFN(torch.autograd.Function):
+    """``drop`` is None or (rate_act, rate_out, seed, site), Python numbers
+    kept in ``ctx``: the backward regenerates the forward's masks from them."""
+
     @staticmethod
-    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps):
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps, drop):
         ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
-        ctx.eps = eps
+        ctx.eps, ctx.drop = eps, drop
+        if drop is not None:
+            return fused_ffn_dropout(x, ln_w, ln_b, w1, b1, w2, b2, eps, *drop)
         if not x.is_cuda:
             return ffn_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
         return _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps)
@@ -221,21 +319,34 @@ class _FusedFFN(torch.autograd.Function):
         x, *params = ctx.saved_tensors
         g = g.contiguous()
         needs = ctx.needs_input_grad
-        if any(needs[1:7]):
-            grads = fused_ffn_bwd_full(x, g, *params[:-1], ctx.eps)
-            return (*(gr if n else None for gr, n in zip(grads, needs)), None)
+        if ctx.drop is not None or any(needs[1:7]):
+            if ctx.drop is not None:
+                grads = fused_ffn_dropout_bwd_full(x, g, *params[:-1], ctx.eps, *ctx.drop)
+            else:
+                grads = fused_ffn_bwd_full(x, g, *params[:-1], ctx.eps)
+            return (*(gr if n else None for gr, n in zip(grads, needs)), None, None)
         dx = fused_ffn_bwd_dx(x, g, *params[:-1], ctx.eps) if needs[0] else None
-        return (dx,) + (None,) * 7
+        return (dx,) + (None,) * 8
 
 
 def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
-              b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-              eps: float = 1e-5) -> torch.Tensor:
+              b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
+              rate_act: float = 0.0, rate_out: float = 0.0, seed: Optional[int] = None,
+              site: int = 0) -> torch.Tensor:
     """CPU tensor: the plain version in f32.  CUDA tensor: the kernel, or raise.
-    Differentiable on both."""
-    return _FusedFFN.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    Differentiable on both.  With a ``seed`` the dropout kernels run, with the
+    masks of ``(seed, site)`` at the two rates; without one the rates must be 0."""
+    if seed is None:
+        if rate_act > 0.0 or rate_out > 0.0:
+            raise ValueError("fused_ffn: a dropout rate above 0 needs a seed")
+        drop = None
+    else:
+        drop = (float(rate_act), float(rate_out), int(seed), int(site))
+    return _FusedFFN.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop)
 
 
 fused_ffn.launches = 0
+fused_ffn_dropout.launches = 0
+fused_ffn_dropout_bwd_full.launches = 0
 fused_ffn_bwd_dx.launches = 0
 fused_ffn_bwd_full.launches = 0

@@ -5,8 +5,12 @@ Counterpart of ``prediff_tpu/training/diffusion_trainer.py``.  Trainable:
 the UNet and, when ``learn_logvar``, the per-step ``logvar``; the VAE is
 frozen.  A step runs eagerly; what it draws (the posterior sample, t, the
 noise) comes from a generator seeded from the caller's seed and
-``state.step``, so a run restored from a checkpoint repeats the run it was
-saved from.  On the card the trainer switches cuDNN to its deterministic
+``state.step``, and its dropout masks from a third stream derived from the
+same two integers (:func:`step_dropout_seed`, the JAX loss's ``rng_drop``),
+on the host, without a device sync.  ``state.step`` counts micro-steps, so
+the micro-steps of one optimizer step draw different masks, and a run
+restored from a checkpoint repeats the run it was saved from.  On the card
+the trainer switches cuDNN to its deterministic
 algorithms (:func:`~prediff_torch.utils.device.set_deterministic`): the
 hand-written kernels sum in a fixed order, and with that switch the library's
 convolution gradients do too, so the same step gives the same bits.
@@ -43,6 +47,19 @@ def step_generator(seed: Union[int, torch.Generator], step: int, device) -> torc
     return torch.Generator(device).manual_seed((int(words[0]) << 31) ^ int(words[1]))
 
 
+def step_dropout_seed(seed: Union[int, torch.Generator], step: int) -> int:
+    """The 64-bit dropout seed of one micro-step: derived like
+    :func:`step_generator`'s from the run's seed and the step count
+    (``state.step``, which counts micro-steps: the micro-steps of one
+    optimizer step get different seeds), with a third word that keeps it
+    apart from the generator's stream.  The UNet numbers its dropout sites
+    under this seed in call order."""
+    if isinstance(seed, torch.Generator):
+        seed = seed.initial_seed()
+    words = np.random.SeedSequence([int(seed) % 2**63, int(step), 1]).generate_state(2, np.uint32)
+    return (int(words[0]) << 32) | int(words[1])
+
+
 class DiffusionTrainer:
     """Train and validation steps of the latent diffusion model ``ld`` (from
     :func:`~prediff_torch.factory.build_training_pipeline`)."""
@@ -71,8 +88,8 @@ class DiffusionTrainer:
             set_deterministic()
 
     def create_state(self) -> EmaTrainState:
-        """A fresh state over the pipeline's UNet (put in training mode, which
-        refuses dropout rates above 0) and a new ``logvar`` when it is learned."""
+        """A fresh state over the pipeline's UNet (put in training mode, where
+        its dropout rates are active) and a new ``logvar`` when it is learned."""
         self.ld.unet.train().requires_grad_(True)
         params: Dict[str, nn.Parameter] = {f"unet.{k}": p
                                            for k, p in self.ld.unet.named_parameters()}
@@ -82,10 +99,11 @@ class DiffusionTrainer:
         return EmaTrainState.create(params, tx, use_ema=self.use_ema, ema_decay=self.ema_decay)
 
     def _loss(self, logvar, generator, x, y, prefix: str, latent: Optional[bool] = None,
-              unet_params=None):
+              unet_params=None, dropout_seed: Optional[int] = None):
         latent = self.latent_inputs if latent is None else latent
         fn = self.ld.training_loss_from_moments if latent else self.ld.training_loss
-        return fn(logvar, generator, x, y, prefix=prefix, unet_params=unet_params)
+        return fn(logvar, generator, x, y, prefix=prefix, unet_params=unet_params,
+                  dropout_seed=dropout_seed)
 
     def _logvar(self, state: EmaTrainState) -> torch.Tensor:
         return state.params["logvar"] if "logvar" in state.params else self.ld.init_logvar()
@@ -100,7 +118,8 @@ class DiffusionTrainer:
         global norm of this micro-step's gradients before the clip)."""
         self.ld.unet.train()
         generator = step_generator(seed, state.step, self.ld.device)
-        loss, loss_dict = self._loss(self._logvar(state), generator, x, y, "train")
+        loss, loss_dict = self._loss(self._logvar(state), generator, x, y, "train",
+                                     dropout_seed=step_dropout_seed(seed, state.step))
         names = list(state.params)
         grads = torch.autograd.grad(loss, [state.params[k] for k in names])
         loss_dict = {k: v.detach() for k, v in loss_dict.items()}
@@ -122,7 +141,7 @@ class DiffusionTrainer:
                  y: torch.Tensor, use_ema: bool = True,
                  latent_inputs: Optional[bool] = None) -> Dict[str, torch.Tensor]:
         """The loss on a validation batch with the EMA weights (``use_ema``)
-        in eval mode; the ``loss_dict`` under ``val/``.  ``latent_inputs=False``
+        in eval mode (no dropout); the ``loss_dict`` under ``val/``.  ``latent_inputs=False``
         forces pixel inputs for a trainer that trains from moments."""
         unet_params = None
         if use_ema and state.use_ema:

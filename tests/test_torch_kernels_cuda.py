@@ -11,9 +11,14 @@ import torch
 from prediff_torch.ops.attention import (axial_attention_bwd_dx_plain,
                                          axial_attention_bwd_full_plain, axial_attention_plain,
                                          fused_axial_attention, fused_axial_attention_bwd_dx,
-                                         fused_axial_attention_bwd_full)
-from prediff_torch.ops.ffn import (ffn_bwd_dx_plain, ffn_bwd_full_plain, ffn_plain, fused_ffn,
-                                   fused_ffn_bwd_dx, fused_ffn_bwd_full)
+                                         fused_axial_attention_bwd_full,
+                                         fused_axial_attention_dropout,
+                                         fused_axial_attention_dropout_bwd_full)
+from prediff_torch.ops.dropout import keep_mask
+from prediff_torch.ops.ffn import (ffn_bwd_dx_plain, ffn_bwd_full_plain, ffn_dropout_bwd_full_plain,
+                                   ffn_dropout_plain, ffn_plain, fused_ffn, fused_ffn_bwd_dx,
+                                   fused_ffn_bwd_full, fused_ffn_dropout,
+                                   fused_ffn_dropout_bwd_full)
 from prediff_torch.ops.groupnorm import (fused_groupnorm_silu, fused_groupnorm_silu_bwd_full,
                                          groupnorm_silu_bwd_full_plain, groupnorm_silu_plain)
 from prediff_torch.ops.resblock import (fused_resblock, fused_resblock_bwd, fused_resblock_fwd,
@@ -265,3 +270,125 @@ def test_autograd_through_every_wrapper_on_the_card(dev):
             _close_rel(gt, wt)
     # asked for parameter gradients, each backward was its all-gradients kernel, once
     assert [f.launches for f in full + dx_only] == [b + 1 for b in before[:3]] + before[3:]
+
+
+# ---- dropout inside the kernels (the v1 recipe's training path) ----
+# The masks are a pure function of (seed, site, tensor, element), computed in
+# integer arithmetic by the kernels and by the plain versions alike, so they
+# are bit-identical and the tolerances above hold unchanged.
+SEED, SITE = 0x1234_5678_9ABC_DEF0, 5
+
+
+def test_keep_mask_on_the_card_equals_the_cpu(dev):
+    for shape, rate in (((6656, 1024), 0.1), ((2, 13, 16, 16, 256), 0.1), ((7, 5), 0.5)):
+        on_card = keep_mask(SEED, SITE, 1, shape, rate, dev)
+        assert torch.equal(on_card.cpu(), keep_mask(SEED, SITE, 1, shape, rate, "cpu"))
+        n = on_card.numel()
+        assert abs(float(on_card.mean()) - (1 - rate)) <= 4 * (rate * (1 - rate) / n) ** 0.5
+
+
+@pytest.mark.parametrize("M,C", [(6656, 256), (1664, 512), (100, 128)])
+@pytest.mark.parametrize("rates", [(0.1, 0.1), (0.3, 0.0), (0.0, 0.2)])
+def test_ffn_dropout_kernels_match_plain(dev, M, C, rates):
+    x, ln_w, ln_b, w1, b1, w2, b2 = _ffn_args(dev, M, C)
+    g = torch.randn(M, C, device=dev)
+    drop = (*rates, SEED, SITE)
+    before = (fused_ffn_dropout.launches, fused_ffn_dropout_bwd_full.launches, fused_ffn.launches,
+              fused_ffn_bwd_full.launches)
+    out = fused_ffn_dropout(x, ln_w, ln_b, w1, b1, w2, b2, 1e-5, *drop)
+    _close_bf16(out, ffn_dropout_plain(x, ln_w, ln_b, w1, b1, w2, b2, 1e-5, *drop,
+                                       mxu_dtype=torch.bfloat16))
+    got = fused_ffn_dropout_bwd_full(x, g, ln_w, ln_b, w1, b1, w2, 1e-5, *drop)
+    want = ffn_dropout_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, 1e-5, *drop,
+                                      mxu_dtype=torch.bfloat16)
+    for name, gt, wt in zip(FFN_GRADS, got, want):
+        assert gt.shape == wt.shape, name
+        _close_rel(gt, wt)
+    assert (fused_ffn_dropout.launches, fused_ffn_dropout_bwd_full.launches, fused_ffn.launches,
+            fused_ffn_bwd_full.launches) == (before[0] + 1, before[1] + 1, before[2], before[3])
+    again = fused_ffn_dropout_bwd_full(x, g, ln_w, ln_b, w1, b1, w2, 1e-5, *drop)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the dropped share of the output: where out == x the second mask dropped the FFN branch
+    if rates[1] > 0:
+        dropped = float((out == x).float().mean())
+        assert abs(dropped - rates[1]) <= 4 * (rates[1] * (1 - rates[1]) / out.numel()) ** 0.5
+
+
+@pytest.mark.parametrize("M,C", [(6656, 256), (100, 128)])
+def test_ffn_dropout_kernels_at_rate_0_give_the_bits_of_the_plain_kernels(dev, M, C):
+    x, ln_w, ln_b, w1, b1, w2, b2 = _ffn_args(dev, M, C)
+    g = torch.randn(M, C, device=dev)
+    assert torch.equal(fused_ffn_dropout(x, ln_w, ln_b, w1, b1, w2, b2, 1e-5, 0.0, 0.0, SEED, SITE),
+                       fused_ffn(x, ln_w, ln_b, w1, b1, w2, b2))
+    got = fused_ffn_dropout_bwd_full(x, g, ln_w, ln_b, w1, b1, w2, 1e-5, 0.0, 0.0, SEED, SITE)
+    want = fused_ffn_bwd_full(x, g, ln_w, ln_b, w1, b1, w2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("shape", [(2, 13, 16, 16, 256), (2, 13, 8, 8, 512), (2, 5, 3, 7, 64)])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_attention_dropout_kernels_match_plain(dev, shape, axis):
+    x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj = _attn_args(dev, shape, axis)
+    g = torch.randn(*shape, device=dev)
+    scale = (shape[-1] // 4) ** -0.5
+    drop = dict(rate_attn=0.1, rate_proj=0.1, seed=SEED, site=SITE)
+    before = (fused_axial_attention_dropout.launches,
+              fused_axial_attention_dropout_bwd_full.launches, fused_axial_attention.launches,
+              fused_axial_attention_bwd_full.launches)
+    out = fused_axial_attention_dropout(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, 4, scale,
+                                        **drop)
+    _close_bf16(out, axial_attention_plain(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, 4,
+                                           scale, mxu_dtype=torch.bfloat16, **drop))
+    args = (x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, 4, scale)
+    got = fused_axial_attention_dropout_bwd_full(*args, **drop)
+    want = axial_attention_bwd_full_plain(*args, mxu_dtype=torch.bfloat16, **drop)
+    for name, gt, wt in zip(ATTN_GRADS, got, want):
+        assert gt.shape == wt.shape, name
+        _close_rel(gt, wt)
+    after = (fused_axial_attention_dropout.launches,
+             fused_axial_attention_dropout_bwd_full.launches, fused_axial_attention.launches,
+             fused_axial_attention_bwd_full.launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2], before[3])
+    again = fused_axial_attention_dropout_bwd_full(*args, **drop)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    dropped = float((out == 0).float().mean())
+    assert abs(dropped - 0.1) <= 4 * (0.09 / out.numel()) ** 0.5
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_attention_dropout_kernels_at_rate_0_give_the_bits_of_the_plain_kernels(dev, axis):
+    shape = (2, 13, 16, 16, 256)
+    x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj = _attn_args(dev, shape, axis)
+    g = torch.randn(*shape, device=dev)
+    scale = (shape[-1] // 4) ** -0.5
+    assert torch.equal(
+        fused_axial_attention_dropout(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, 4, scale,
+                                      seed=SEED, site=SITE),
+        fused_axial_attention(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, 4, scale))
+    args = (x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, 4, scale)
+    got = fused_axial_attention_dropout_bwd_full(*args, seed=SEED, site=SITE)
+    assert all(torch.equal(a, b) for a, b in zip(got, fused_axial_attention_bwd_full(*args)))
+
+
+def test_autograd_through_the_dropout_wrappers_on_the_card(dev):
+    """With a seed each Function runs its dropout kernels, forward and
+    backward once, and gives the gradients of autograd of the f32 plain
+    version under the same masks."""
+    f = _ffn_args(dev, 384, 256)
+    a = _attn_args(dev, (1, 6, 8, 8, 256), 1)
+    cases = [
+        ("ffn", lambda *p: fused_ffn(*p, 1e-5, 0.1, 0.1, SEED, SITE),
+         lambda *p: ffn_dropout_plain(*p, 1e-5, 0.1, 0.1, SEED, SITE), f),
+        ("attention",
+         lambda x, *p: fused_axial_attention(x, 1, *p, 4, 0.125, 1e-5, 0.1, 0.1, SEED, SITE),
+         lambda x, *p: axial_attention_plain(x, 1, *p, 4, 0.125, rate_attn=0.1, rate_proj=0.1,
+                                             seed=SEED, site=SITE), a)]
+    counted = (fused_ffn_dropout, fused_ffn_dropout_bwd_full, fused_axial_attention_dropout,
+               fused_axial_attention_dropout_bwd_full)
+    before = [fn.launches for fn in counted]
+    for name, fused, plain, args in cases:
+        g = torch.randn_like(args[0])
+        for i, (gt, wt) in enumerate(zip(_grads(fused, args, g), _grads(plain, args, g))):
+            assert gt is not None and torch.isfinite(gt).all(), (name, i)
+            _close_rel(gt, wt)
+    assert [fn.launches for fn in counted] == [b + 1 for b in before]

@@ -3,7 +3,9 @@ configs/tiny_smoke.yaml (CPU, f32, dropout rates 0): the loss and the
 gradient of every leaf with the same randomized weights and the same z, zc,
 t and noise; accumulated optimizer steps with EMA against
 ``EmaTrainState.apply_gradients`` + ``build_optimizer``; the trainer, the
-checkpoint round trip, the loop; and the refusal of dropout rates above 0."""
+checkpoint round trip, the loop; and the dropout rates, honoured in training
+mode and ignored in eval mode (``test_torch_dropout.py`` holds the masked
+functions to the JAX kernels)."""
 import os
 
 import jax
@@ -346,27 +348,55 @@ def test_fit_stops_at_max_steps_validates_and_checkpoints(both, tmp_path):
 
 
 def test_dropout_rates_are_refused_in_training_mode():
+    """The name dates from when training mode refused every rate above 0.
+    Now the rates are honoured in training mode and ignored in eval mode."""
+    from prediff_torch.models.init import init_params_
     cfg = load_config(prediff_default_config)        # the v1 recipe: rates 0.1
     cfg.model.latent_model.update(input_shape=[3, 4, 4, 8], target_shape=[2, 4, 4, 8],
                                   base_units=16, depth=[1, 1])
-    unet = build_unet(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        unet.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):     # a fresh module is in training mode
-        unet(torch.zeros(1, 2, 4, 4, 8), torch.zeros(1, dtype=torch.long), torch.zeros(1, 3, 4, 4, 8))
-    assert torch.isfinite(unet.eval()(torch.zeros(1, 2, 4, 4, 8), torch.zeros(1, dtype=torch.long),
-                                      torch.zeros(1, 3, 4, 4, 8))).all()     # serving is unchanged
+    unet = init_params_(build_unet(cfg), torch.Generator().manual_seed(0), randomize=True)
+    rs = torch.Generator().manual_seed(1)
+    args = (torch.randn(1, 2, 4, 4, 8, generator=rs), torch.tensor([3]),
+            torch.randn(1, 3, 4, 4, 8, generator=rs))
+    unet.train()                                     # no refusal any more
+    with pytest.raises(ValueError, match="dropout_seed"):     # but the masks need a seed
+        unet(*args)
+    with torch.no_grad():
+        a, again, other = unet(*args, dropout_seed=5), unet(*args, dropout_seed=5), \
+            unet(*args, dropout_seed=6)
+        served = unet.eval()(*args)
+        assert torch.equal(served, unet(*args, dropout_seed=5))      # eval ignores rates and seed
+    assert torch.isfinite(a).all() and torch.equal(a, again)
+    assert not torch.equal(a, other) and not torch.equal(a, served)
+    cfg0 = load_config(prediff_default_config)
+    cfg0.model.latent_model.update(cfg.model.latent_model, attn_drop=0.0, proj_drop=0.0,
+                                   ffn_drop=0.0)
+    unet0 = build_unet(cfg0)
+    unet0.load_state_dict(unet.state_dict())
+    with torch.no_grad():                            # eval mode is the rate-0 model, bit for bit
+        assert torch.equal(served, unet0.train()(*args))
+    L = load_config(prediff_default_config, TINY).model.latent_model
+    targs = (torch.randn((2,) + tuple(L.target_shape), generator=rs), torch.tensor([1, 6]),
+             torch.randn((2,) + tuple(L.input_shape), generator=rs))
     for rate in ("attn_drop", "proj_drop", "ffn_drop", "time_embed_dropout"):
         one = load_config(prediff_default_config, TINY)
         one.model.latent_model[rate] = 0.1
-        with pytest.raises(NotImplementedError, match=rate):
-            build_training_pipeline(one, device="cpu")
-    tiny = load_config(prediff_default_config, TINY)             # rates 0: trains
+        ld = build_training_pipeline(one, device="cpu")       # each rate alone: builds and is live
+        init_params_(ld.unet, torch.Generator().manual_seed(2), randomize=True)
+        with torch.no_grad():
+            dropped = ld.unet(*targs, dropout_seed=9)
+            assert not torch.equal(dropped, ld.unet.eval()(*targs)), rate
+    tiny = load_config(prediff_default_config, TINY)             # rates 0: trains without a seed
     ld = build_training_pipeline(tiny, device="cpu")
     assert ld.unet.training and all(p.requires_grad for p in ld.unet.parameters())
+    assert torch.isfinite(ld.unet(*targs)).all()
     assert not any(p.requires_grad for p in ld.vae.parameters()) and not ld.vae.training
     served = build_pipeline(load_config(prediff_default_config, TINY), device="cpu")
     assert not served.unet.training and not any(p.requires_grad for p in served.unet.parameters())
+    bad = load_config(prediff_default_config, TINY)
+    bad.model.latent_model["use_pallas_dropout"] = False      # a TPU dispatch switch
+    with pytest.raises(NotImplementedError, match="use_pallas_dropout"):
+        build_unet(bad)
 
 
 def test_tpu_knobs_are_refused(both):
