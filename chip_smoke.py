@@ -15,9 +15,17 @@ through ``PreDiffPredictor.predict``, each with the kernels' launch counts
 set to 0 just before it and read just after: the 100-step unguided DDPM
 forecast, the 100-step guided DDPM forecast and the 50-step guided DDIM
 forecast (VAE encode, the steps, VAE decode); profiles of a UNet forward
-and of a guided step.  Then training.  ``train_rate0``, with the dropout
-rates at 0: one loss and backward on the card
-(kernels) against the CPU (plain, f32), then one accumulated optimizer step
+and of a guided step.  Then the same on the ``video_swin_1x8`` pattern
+(``swin_*`` phases: shifted 1x8x8 windows in the UNet and the alignment net):
+the general cuboid layer, its input gradient and the grouped masked core
+against their plain versions at its shapes and at vol 128, 256 and 1536, a
+UNet forward and a guidance shift card against CPU, the 100-step unguided
+and guided DDPM forecasts with exact launch counts, profiles; and for each
+of ``PATTERN_CHECKS`` (depth [1,1]) a UNet forward and a guidance shift card
+against CPU with exact launch counts.  Then
+training.  ``train_rate0``, with the dropout rates at 0: one loss and
+backward on the card (kernels) against the CPU (plain, f32), then one
+accumulated optimizer step
 through ``DiffusionTrainer.train_step``, which launches the all-gradients
 kernels without dropout.  At the recipe's own rates (0.1) and full depth:
 ``train_grads``, one loss and backward of the UNet on the card (the dropout
@@ -87,10 +95,24 @@ KERNELS = {
                                 "prediff_tpu/ops/pallas_attention.py:792", "train"),
     "axial_attention_dropout_bwd_full": ("prediff_torch/csrc/attention.cu",
                                          "prediff_tpu/ops/pallas_attention.py:1325", "train"),
+    # the non-axial cuboid patterns: the video_swin_1x8 configuration's path
+    "cuboid_attention": ("prediff_torch/csrc/attention.cu",
+                         "prediff_tpu/ops/pallas_attention.py:520", "swin_guided_forecast"),
+    "cuboid_attention_bwd_dx": ("prediff_torch/csrc/attention.cu",
+                                "prediff_tpu/ops/pallas_attention.py:862", "swin_guided_forecast"),
+    "cuboid_attention_grouped": ("prediff_torch/csrc/attention.cu",
+                                 "prediff_tpu/ops/pallas_attention.py:175",
+                                 "swin_guided_forecast"),
 }
 # which path's launches per step weigh a kernel's times
 PATH_WEIGHTS = {"guided_forecast": ("per_unet", "per_align"), "train": ("per_train",),
-                "train_rate0": ("per_train",)}
+                "train_rate0": ("per_train",), "swin_guided_forecast": ("per_unet", "per_align")}
+SWIN_PATTERN = "video_swin_1x8"   # the pattern of the swin phases, UNet and alignment net
+# patterns checked card against CPU at full width, depth [1,1]: between them
+# every route and strategy (general layer at vol 256 and on dilated cuboids,
+# the grouped core on padded, shifted and whole-input windows)
+PATTERN_CHECKS = ("divided_st", "spatial_lg_v1", "axial_space_dilate_2", "video_swin_2x8", "full")
+CUBOID_KERNELS = ("cuboid_attention", "cuboid_attention_bwd_dx", "cuboid_attention_grouped")
 FFN_FORWARDS = ("ffn", "ffn_dropout")
 FFN_BACKWARDS = ("ffn_bwd_full", "ffn_dropout_bwd_full")
 ATTN_FORWARDS = ("axial_attention", "axial_attention_dropout")
@@ -143,6 +165,28 @@ def bound(bytes_moved: float, bf16_flops: float = 0.0, f32_flops: float = 0.0):
 def errors(got, want):
     err = (got.double() - want.double()).abs()
     return float(err.max()), float(err.max() / want.double().abs().max().clamp_min(1e-30)), float(err.mean())
+
+
+# GN: no matmul, f32 both ways; only the sum order differs.  FFN and
+# attention forwards: bf16 operands rounded at the same points on both
+# sides; a flipped rounding moves a few outputs by up to ~1e-2 (absolute).
+# Gradients and the resblock chain more roundings: held to a share of
+# their own scale (max 3e-2, mean 2e-3 of max |plain|).
+def judge(c, got, want, tol=None, rel_tol=3e-2, rel_mean_tol=2e-3):
+    e = errors(got, want)
+    scale = float(want.abs().max())
+    if tol is not None:
+        ok = e[0] <= tol
+    else:
+        ok = e[0] <= rel_tol * scale and e[2] <= rel_mean_tol * scale
+    c.update(max_abs_err=e[0], max_rel_err=e[1], mean_abs_err=e[2], ok=ok,
+             tol=tol if tol is not None else {"rel_max": rel_tol, "rel_mean": rel_mean_tol})
+    return ok
+
+
+def timed(c, kernel, plain, nbytes, library=None, **flops):
+    c.update(ms=time_ms(kernel), plain_ms=time_ms(plain), bound=bound(nbytes, **flops),
+             library_ms=None if library is None else time_ms(library))
 
 
 # --------------------------------------------------------------------------- #
@@ -231,26 +275,6 @@ def check_kernels(cases, device):
 
     def vec(C, scale=0.1, shift=0.0):
         return randn(C, scale=scale, shift=shift)
-
-    # GN: no matmul, f32 both ways; only the sum order differs.  FFN and
-    # attention forwards: bf16 operands rounded at the same points on both
-    # sides; a flipped rounding moves a few outputs by up to ~1e-2 (absolute).
-    # Gradients and the resblock chain more roundings: held to a share of
-    # their own scale (max 3e-2, mean 2e-3 of max |plain|).
-    def judge(c, got, want, tol=None, rel_tol=3e-2, rel_mean_tol=2e-3):
-        e = errors(got, want)
-        scale = float(want.abs().max())
-        if tol is not None:
-            ok = e[0] <= tol
-        else:
-            ok = e[0] <= rel_tol * scale and e[2] <= rel_mean_tol * scale
-        c.update(max_abs_err=e[0], max_rel_err=e[1], mean_abs_err=e[2], ok=ok,
-                 tol=tol if tol is not None else {"rel_max": rel_tol, "rel_mean": rel_mean_tol})
-        return ok
-
-    def timed(c, kernel, plain, nbytes, library=None, **flops):
-        c.update(ms=time_ms(kernel), plain_ms=time_ms(plain), bound=bound(nbytes, **flops),
-                 library_ms=None if library is None else time_ms(library))
 
     def judge_all(c, names, got, want, **tols):
         """A kernel with several outputs: each held to its own scale; the
@@ -498,6 +522,173 @@ def check_kernels(cases, device):
     return failed
 
 
+def attention_layers(model, per_call: int):
+    """(stage shape, layer, calls per model call) for each attention layer of
+    each stage's block: a stage's blocks share one pattern, so the first block
+    stands for the stage; ``per_call`` is how many block calls a stage makes
+    per depth unit (2 on the UNet: down and up)."""
+    out = []
+    for i, shape in enumerate(model.mem_shapes):
+        for layer in model.down_self_blocks[i][0].attn_l:
+            out.append((tuple(shape), layer, per_call * model.depth[i]))
+    return out
+
+
+def swin_cases(unet, align):
+    """The three cuboid kernels' cases on the swin path: each route's shapes
+    in the UNet (``per_unet`` launches per forward at B=1) and the alignment
+    net (``per_align`` per guidance shift, forward and backward), plus shapes
+    no path of this configuration gives (weight 0): the layer kernels at
+    vol 128 and 256, the grouped core unmasked on video_swin_2x8's padded
+    2x8x8 cuboids, with "ignore" padding (fully masked rows) and at vol 1536
+    (the "full" pattern on the alignment net)."""
+    from prediff_torch.ops.cuboid import update_cuboid_size_shift_size
+
+    cases = {k: {} for k in CUBOID_KERNELS}
+
+    def add(name, key, n, **case):
+        c = cases[name].setdefault(key, dict(case, per_unet=0, per_align=0, per_train=0))
+        for k, v in n.items():
+            c[k] += v
+
+    for model, weight in ((unet, "per_unet"), (align, "per_align")):
+        for (t, h, w, c), layer, n in attention_layers(model, 2 if model is unet else 1):
+            route = layer.route((1, t, h, w, c))
+            cs, shift = update_cuboid_size_shift_size((t, h, w), layer.cuboid_size,
+                                                      layer.shift_size, layer.strategy)
+            vol = cs[0] * cs[1] * cs[2]
+            padded = [-(-d // b) * b for d, b in zip((t, h, w), cs)]
+            nC = padded[0] * padded[1] * padded[2] // vol
+            if route == "v4":
+                names = ["cuboid_attention"] + (["cuboid_attention_bwd_dx"] if model is align else [])
+                for name in names:
+                    add(name, (nC, vol, c), {weight: n}, shape=[1, nC, vol, c])
+            elif route.startswith("grouped"):
+                window = ([t, h, w], list(cs), list(shift), list(layer.strategy),
+                          layer.padding_type) if route == "grouped_masked" else None
+                hc = c // layer.num_heads
+                add("cuboid_attention_grouped", (nC, vol, hc, str(window)), {weight: n},
+                    shape=[1, layer.num_heads, nC, vol, hc], window=window)
+    for nC, vol, c in ((26, 128, 256), (13, 256, 256)):
+        for name in ("cuboid_attention", "cuboid_attention_bwd_dx"):
+            add(name, (nC, vol, c), {}, shape=[1, nC, vol, c])
+    for shape, window in (([1, 4, 28, 128, 64], None),
+                          ([1, 4, 28, 128, 64], [[13, 16, 16], [2, 8, 8], [0, 0, 0],
+                                                 ["l", "l", "l"], "ignore"]),
+                          ([1, 4, 1, 1536, 32], None)):
+        add("cuboid_attention_grouped", (tuple(shape), str(window)), {}, shape=shape,
+            window=window)
+    return {k: list(v.values()) for k, v in cases.items()}
+
+
+def path_launches(unet, align):
+    """Launches per UNet forward at B=1 and per guidance shift, every kernel,
+    for any pattern: the layers' routes give the attention kernels (a grouped
+    core has no backward kernel: its gradient is autograd of the plain
+    version), one FFN per attention layer; GN twice in ``first_proj`` and in
+    each time-block call, the alignment net's time blocks the resblock
+    kernels, its ``first_proj`` GN forward and all-gradients backward."""
+    per = {k: {"per_unet": 0, "per_align": 0} for k in KERNELS}
+    per["groupnorm_silu"]["per_unet"] = 2 + 2 * 2 * sum(unet.depth)
+    per["groupnorm_silu"]["per_align"] = per["groupnorm_silu_bwd_full"]["per_align"] = 2
+    per["resblock"]["per_align"] = per["resblock_bwd"]["per_align"] = sum(align.depth)
+    kernel = {"v4": "cuboid_attention", "grouped": "cuboid_attention_grouped",
+              "grouped_masked": "cuboid_attention_grouped", "axial": "axial_attention"}
+    for model, key in ((unet, "per_unet"), (align, "per_align")):
+        for (t, h, w, c), layer, n in attention_layers(model, 2 if model is unet else 1):
+            route = layer.route((1, t, h, w, c))
+            per[kernel[route]][key] += n
+            per["ffn"][key] += n
+            if model is align:
+                per["ffn_bwd_dx"][key] += n
+                if route in ("v4", "axial"):
+                    per[kernel[route] + "_bwd_dx"][key] += n
+    return per
+
+
+def check_cuboid_kernels(cases, device):
+    """The three cuboid kernels against their plain versions (the layer: bf16
+    operands at the same points; the grouped core: f32 on both sides, held
+    to 1e-5 of the output's max), with times and bounds; returns the failed
+    cases."""
+    import torch
+    import torch.nn.functional as F
+    from prediff_torch.ops.attention import (cuboid_attention_bwd_dx_plain,
+                                             cuboid_attention_plain,
+                                             fused_cuboid_attention_grouped,
+                                             fused_cuboid_attention_layer,
+                                             fused_cuboid_attention_layer_bwd_dx,
+                                             grouped_attention_plain)
+    from prediff_torch.ops.cuboid import NEG_INF, compute_cuboid_self_attention_mask
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    bf16, heads = torch.bfloat16, 4
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=device) * scale + shift
+
+    for name in ("cuboid_attention", "cuboid_attention_bwd_dx"):
+        for c in cases[name]:
+            B, nC, vol, C = c["shape"]
+            M = B * nC * vol
+            x, ln_w, ln_b = randn(B, nC, vol, C), randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1)
+            w_qkv, bias = randn(3 * C, C, scale=C ** -0.5), randn(heads, vol, vol, scale=0.5)
+            w_proj, b_proj = randn(C, C, scale=C ** -0.5), randn(C, scale=0.1)
+            scale = (C // heads) ** -0.5
+            if name == "cuboid_attention":
+                args = (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale)
+                got, want = fused_cuboid_attention_layer(*args), cuboid_attention_plain(
+                    *args, mxu_dtype=bf16)
+                sync(device)
+                judge(c, got, want, tol=2e-2)
+                timed(c, lambda: fused_cuboid_attention_layer(*args),
+                      lambda: cuboid_attention_plain(*args, mxu_dtype=bf16),
+                      4 * (2 * M * C + 4 * C * C + heads * vol * vol + 3 * C),
+                      bf16_flops=8 * M * C * C + 4 * M * vol * C)
+            else:
+                args = (x, randn(B, nC, vol, C), ln_w, ln_b, w_qkv, bias, w_proj, heads, scale)
+                got = fused_cuboid_attention_layer_bwd_dx(*args)
+                want = cuboid_attention_bwd_dx_plain(*args, mxu_dtype=bf16)
+                sync(device)
+                judge(c, got, want)
+                timed(c, lambda: fused_cuboid_attention_layer_bwd_dx(*args),
+                      lambda: cuboid_attention_bwd_dx_plain(*args, mxu_dtype=bf16),
+                      4 * (3 * M * C + 4 * C * C + heads * vol * vol + 2 * C),
+                      bf16_flops=14 * M * C * C + 10 * M * vol * C)
+
+    for c in cases["cuboid_attention_grouped"]:
+        B, h, nC, vol, hc = c["shape"]
+        q, k, v = (randn(B, h, nC, vol, hc) for _ in range(3))
+        bias = randn(h, vol, vol, scale=0.5)
+        mask = None
+        if c["window"] is not None:
+            dims, cs, shift, strategy, padding_type = c["window"]
+            mask = torch.from_numpy(compute_cuboid_self_attention_mask(
+                tuple(dims), tuple(cs), tuple(shift), tuple(strategy), padding_type)).to(device)
+            c["fully_masked_rows"] = int((~mask.any(-1)).sum())
+        scale = hc ** -0.5
+        got = fused_cuboid_attention_grouped(q, k, v, bias, mask, scale)
+        want = grouped_attention_plain(q, k, v, bias, mask, scale)
+        sync(device)
+        judge(c, got, want, tol=1e-5 * float(want.abs().max()))
+        if mask is not None and c["fully_masked_rows"]:
+            c["ok"] = c["ok"] and bool((got[:, :, ~mask.any(-1)] == 0).all())
+        # the library yardstick: SDPA in f32 with bias + mask as one float mask
+        # (the same function on every row with an unmasked key), one batch
+        # entry per (sample, head, cuboid)
+        add = bias[:, None] if mask is None else bias[:, None] + torch.where(mask, 0.0, NEG_INF)
+        add = add.expand(B, h, nC, vol, vol).reshape(B * h * nC, 1, vol, vol)
+        q4, k4, v4 = (t.reshape(B * h * nC, 1, vol, hc) for t in (q, k, v))
+        N = B * h * nC * vol
+        timed(c, lambda: fused_cuboid_attention_grouped(q, k, v, bias, mask, scale),
+              lambda: grouped_attention_plain(q, k, v, bias, mask, scale),
+              4 * (4 * N * hc + h * vol * vol) + (0 if mask is None else nC * vol * vol),
+              library=lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=add,
+                                                             scale=scale),
+              f32_flops=4 * N * vol * hc)
+    return [(name, c) for name in CUBOID_KERNELS for c in cases[name] if not c["ok"]]
+
+
 def expected_launches(cases, steps: int, guided: bool):
     return {name: steps * sum(c["per_unet"] + (c["per_align"] if guided else 0) for c in cs)
             for name, cs in cases.items()}
@@ -531,6 +722,8 @@ def summarize(cases, launches_by_path):
         source, replaces, main_path = KERNELS[name]
         keys = PATH_WEIGHTS[main_path]
         wts = [sum(c[k] for k in keys) for c in cs]
+        if not any(wts):   # no shape of the kernel on its path at this configuration
+            wts = [1] * len(cs)
         n = sum(wts)
 
         def mix(key, cs=cs, wts=wts, n=n):
@@ -550,6 +743,110 @@ def summarize(cases, launches_by_path):
             shapes=[{k: v for k, v in c.items() if k != "bound"}
                     | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]} for c in cs]))
     return out
+
+
+def forward_vs_cpu(phase, unet_cpu, predictor, cfg, rs, device):
+    """A denoise forward at full width: the card (kernels) against the CPU
+    (plain versions, f32); returns its inputs (x, t, cond)."""
+    import torch
+
+    d = cfg.model.diffusion
+    x = torch.randn((1,) + tuple(d.latent_shape), generator=rs)
+    cond = torch.randn((1,) + tuple(d.latent_cond_shape), generator=rs)
+    t = torch.tensor([500])
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        ref = unet_cpu(x, t, cond)
+        cpu_s = time.perf_counter() - t1
+        got = predictor.ld.unet(x.to(device), t.to(device), cond.to(device)).cpu()
+    rel_l2 = float((got - ref).norm() / ref.norm())
+    max_abs = float((got - ref).abs().max())
+    fwd_tol = 2e-2  # bf16 matmul operands on the card vs f32 on the CPU
+    emit({"phase": phase, "shape": list(got.shape), "rel_l2_err": rel_l2,
+          "max_abs_err": max_abs, "ref_max_abs": float(ref.abs().max()), "tol_rel_l2": fwd_tol,
+          "cpu_forward_s": cpu_s})
+    if not torch.isfinite(got).all() or rel_l2 > fwd_tol:
+        fail(f"{phase}: card forward differs from the CPU forward: rel_l2 {rel_l2}")
+    return x, t, cond
+
+
+def shift_vs_cpu(phase, align_cpu, predictor, cfg, rs, t, want_counts, device, zero_counts,
+                 read_counts):
+    """The guidance shift at full width: the card (kernels, their autograd
+    Functions) against the CPU (plain versions, f32), with its launch counts.
+    A kernel invisible to autograd would leave only the residual paths and
+    fail this.  Returns the knowledge target it used."""
+    import torch
+    from prediff_torch.diffusion.knowledge_alignment import KnowledgeAlignment
+
+    avg = torch.tensor([[AVG_X_GT]])
+    z = torch.randn((1,) + tuple(cfg.model.align.model_args.input_shape), generator=rs)
+    ka_cpu = KnowledgeAlignment(align_cpu, guide_scale=cfg.model.align.guide_scale)
+    t1 = time.perf_counter()
+    shift_cpu = ka_cpu.get_mean_shift(z, t, avg)
+    cpu_s = time.perf_counter() - t1
+    predictor.ld.alignment.get_mean_shift(z.to(device), t.to(device), avg.to(device))
+    sync(device)
+    zero_counts()
+    t1 = time.perf_counter()
+    shift_card = predictor.ld.alignment.get_mean_shift(z.to(device), t.to(device),
+                                                       avg.to(device))
+    sync(device)
+    card_ms = 1e3 * (time.perf_counter() - t1)
+    shift_card = shift_card.cpu()
+    shift_counts = read_counts()
+    rel_l2 = float((shift_card - shift_cpu).norm() / shift_cpu.norm())
+    cosine = float((shift_card * shift_cpu).sum() / (shift_card.norm() * shift_cpu.norm()))
+    emit({"phase": phase, "shape": list(shift_card.shape), "rel_l2_err": rel_l2,
+          "cosine": cosine, "tol_rel_l2": SHIFT_TOL_REL_L2, "min_cosine": SHIFT_MIN_COSINE,
+          "cpu_max_abs": float(shift_cpu.abs().max()), "cpu_shift_s": cpu_s,
+          "card_shift_ms": card_ms, "launches": shift_counts, "expected_launches": want_counts})
+    if not torch.isfinite(shift_card).all() or rel_l2 > SHIFT_TOL_REL_L2 or cosine < SHIFT_MIN_COSINE:
+        fail(f"{phase}: card guidance shift differs from the CPU's: rel_l2 {rel_l2}, "
+             f"cosine {cosine}")
+    if shift_counts != want_counts:
+        fail(f"{phase}: launches {shift_counts} != expected {want_counts}")
+    return avg
+
+
+def run_chains(predictor, context, chains, expect_shape, expected_fn, device, smi, zero_counts,
+               read_counts):
+    """Each chain ``phase: (predict kwargs, steps, guided)`` through
+    ``predictor.predict`` after a 2-step warm-up, with the launch counts set
+    to 0 just before it and read just after, held to ``expected_fn(steps,
+    guided)``; the first chain is the unguided one the guidance share is
+    taken against.  Returns the launches by phase."""
+    import torch
+
+    launches_by_path, ms_per_step = {}, {}
+    for phase, (kw, steps, guided) in chains.items():
+        warm = dict(kw, **({"ddim_steps": 2} if "ddim_steps" in kw else {"timesteps": 2}))
+        predictor.predict(context, generator=torch.Generator(device).manual_seed(1), **warm)
+        sync(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        zero_counts()
+        t1 = time.perf_counter()
+        out = predictor.predict(context, generator=torch.Generator(device).manual_seed(SEED), **kw)
+        sync(device)
+        chain_s = time.perf_counter() - t1
+        launches = read_counts()
+        expected = expected_fn(steps, guided)
+        launches_by_path[phase] = launches
+        ms_per_step[phase] = 1e3 * chain_s / steps
+        line = {"phase": phase, "steps": steps, "shape": list(out.shape),
+                "finite": bool(torch.isfinite(out).all()), "seconds": chain_s,
+                "ms_per_step": ms_per_step[phase], "steps_per_s": steps / chain_s,
+                "launches": launches, "expected_launches": expected, "card": smi,
+                "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+        if guided:
+            unguided = next(iter(ms_per_step.values()))
+            line["guidance_share_of_step"] = 1.0 - unguided / ms_per_step[phase]
+        emit(line)
+        if tuple(out.shape) != expect_shape or not torch.isfinite(out).all():
+            fail(f"{phase}: shape {tuple(out.shape)} (want {expect_shape}) or non-finite values")
+        if launches != expected:
+            fail(f"{phase}: kernel launches {launches} != expected {expected}")
+    return launches_by_path
 
 
 def profile(name: str, fn, reps: int):
@@ -624,13 +921,15 @@ def main() -> int:
 def run(device, cfg, smi: str) -> None:
     """Every phase after the build, on ``device``; raises SystemExit on a failed check."""
     import torch
-    from prediff_torch.diffusion.knowledge_alignment import KnowledgeAlignment
     from prediff_torch.factory import build_alignment_model, build_unet, build_vae
     from prediff_torch.models.init import init_params_
     from prediff_torch.ops.attention import (fused_axial_attention, fused_axial_attention_bwd_dx,
                                              fused_axial_attention_bwd_full,
                                              fused_axial_attention_dropout,
-                                             fused_axial_attention_dropout_bwd_full)
+                                             fused_axial_attention_dropout_bwd_full,
+                                             fused_cuboid_attention_grouped,
+                                             fused_cuboid_attention_layer,
+                                             fused_cuboid_attention_layer_bwd_dx)
     from prediff_torch.ops.ffn import (fused_ffn, fused_ffn_bwd_dx, fused_ffn_bwd_full,
                                        fused_ffn_dropout, fused_ffn_dropout_bwd_full)
     from prediff_torch.ops.groupnorm import fused_groupnorm_silu, fused_groupnorm_silu_bwd_full
@@ -649,7 +948,10 @@ def run(device, cfg, smi: str) -> None:
                 "ffn_dropout": fused_ffn_dropout,
                 "ffn_dropout_bwd_full": fused_ffn_dropout_bwd_full,
                 "axial_attention_dropout": fused_axial_attention_dropout,
-                "axial_attention_dropout_bwd_full": fused_axial_attention_dropout_bwd_full}
+                "axial_attention_dropout_bwd_full": fused_axial_attention_dropout_bwd_full,
+                "cuboid_attention": fused_cuboid_attention_layer,
+                "cuboid_attention_bwd_dx": fused_cuboid_attention_layer_bwd_dx,
+                "cuboid_attention_grouped": fused_cuboid_attention_grouped}
     gen = torch.Generator().manual_seed(SEED)
     unet_cpu = init_params_(build_unet(cfg), gen, randomize=True).eval().requires_grad_(False)
     vae_cpu = init_params_(build_vae(cfg), gen, randomize=True).eval().requires_grad_(False)
@@ -672,26 +974,6 @@ def run(device, cfg, smi: str) -> None:
                                               "align": align_cpu.state_dict()},
                                  with_alignment=True, device=device)
 
-    # Denoise forward at full width: the card (kernels) against the CPU (plain, f32).
-    rs = torch.Generator().manual_seed(SEED + 1)
-    d = cfg.model.diffusion
-    x = torch.randn((1,) + tuple(d.latent_shape), generator=rs)
-    cond = torch.randn((1,) + tuple(d.latent_cond_shape), generator=rs)
-    t = torch.tensor([500])
-    with torch.no_grad():
-        t1 = time.perf_counter()
-        ref = unet_cpu(x, t, cond)
-        cpu_s = time.perf_counter() - t1
-        got = predictor.ld.unet(x.to(device), t.to(device), cond.to(device)).cpu()
-    rel_l2 = float((got - ref).norm() / ref.norm())
-    max_abs = float((got - ref).abs().max())
-    fwd_tol = 2e-2  # bf16 matmul operands on the card vs f32 on the CPU
-    emit({"phase": "denoise_forward", "shape": list(got.shape), "rel_l2_err": rel_l2,
-          "max_abs_err": max_abs, "ref_max_abs": float(ref.abs().max()), "tol_rel_l2": fwd_tol,
-          "cpu_forward_s": cpu_s})
-    if not torch.isfinite(got).all() or rel_l2 > fwd_tol:
-        fail(f"card forward differs from the CPU forward: rel_l2 {rel_l2}")
-
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
@@ -699,32 +981,20 @@ def run(device, cfg, smi: str) -> None:
     def read_counts():
         return {k: fn.launches for k, fn in counters.items()}
 
-    # The guidance shift at full width: the card (kernels, their autograd
-    # Functions) against the CPU (plain versions, f32).  A kernel invisible to
-    # autograd would leave only the residual paths and fail this.
-    avg = torch.tensor([[AVG_X_GT]])
-    z = torch.randn((1,) + tuple(cfg.model.align.model_args.input_shape), generator=rs)
-    ka_cpu = KnowledgeAlignment(align_cpu, guide_scale=cfg.model.align.guide_scale)
-    t1 = time.perf_counter()
-    shift_cpu = ka_cpu.get_mean_shift(z, t, avg)
-    cpu_s = time.perf_counter() - t1
-    predictor.ld.alignment.get_mean_shift(z.to(device), t.to(device), avg.to(device))
-    sync(device)
-    zero_counts()
-    shift_card = predictor.ld.alignment.get_mean_shift(z.to(device), t.to(device),
-                                                       avg.to(device)).cpu()
-    shift_counts = read_counts()
+    # the launch counts of the other paths come from the layers' routes: on
+    # the axial path they must give what the kernel cases give
+    by_route = path_launches(unet_cpu, align_cpu)
+    by_case = {k: {key: sum(c[key] for c in cs) for key in ("per_unet", "per_align")}
+               for k, cs in cases.items()}
+    if by_route != by_case:
+        fail(f"launch counts by route {by_route} != by kernel case {by_case}")
+
+    rs = torch.Generator().manual_seed(SEED + 1)
+    d = cfg.model.diffusion
+    x, t, cond = forward_vs_cpu("denoise_forward", unet_cpu, predictor, cfg, rs, device)
     want_counts = {k: sum(c["per_align"] for c in cs) for k, cs in cases.items()}
-    rel_l2 = float((shift_card - shift_cpu).norm() / shift_cpu.norm())
-    cosine = float((shift_card * shift_cpu).sum() / (shift_card.norm() * shift_cpu.norm()))
-    emit({"phase": "guided_shift", "shape": list(shift_card.shape), "rel_l2_err": rel_l2,
-          "cosine": cosine, "tol_rel_l2": SHIFT_TOL_REL_L2, "min_cosine": SHIFT_MIN_COSINE,
-          "cpu_max_abs": float(shift_cpu.abs().max()), "cpu_shift_s": cpu_s,
-          "launches": shift_counts, "expected_launches": want_counts})
-    if not torch.isfinite(shift_card).all() or rel_l2 > SHIFT_TOL_REL_L2 or cosine < SHIFT_MIN_COSINE:
-        fail(f"card guidance shift differs from the CPU's: rel_l2 {rel_l2}, cosine {cosine}")
-    if shift_counts != want_counts:
-        fail(f"guidance shift launches {shift_counts} != expected {want_counts}")
+    avg = shift_vs_cpu("guided_shift", align_cpu, predictor, cfg, rs, t, want_counts, device,
+                       zero_counts, read_counts)
 
     # The three chains: VAE encode, the steps, VAE decode.
     img = cfg.layout
@@ -739,33 +1009,9 @@ def run(device, cfg, smi: str) -> None:
         "ddim_forecast": (dict(ddim_steps=cfg.eval.val_ddim_steps, use_alignment=True,
                                avg_x_gt=avg_x_gt), cfg.eval.val_ddim_steps, True),
     }
-    launches_by_path, ms_per_step = {}, {}
-    for phase, (kw, steps, guided) in chains.items():
-        warm = dict(kw, **({"ddim_steps": 2} if "ddim_steps" in kw else {"timesteps": 2}))
-        predictor.predict(context, generator=torch.Generator(device).manual_seed(1), **warm)
-        sync(device)
-        torch.cuda.reset_peak_memory_stats(device)
-        zero_counts()
-        t1 = time.perf_counter()
-        out = predictor.predict(context, generator=torch.Generator(device).manual_seed(SEED), **kw)
-        sync(device)
-        chain_s = time.perf_counter() - t1
-        launches = read_counts()
-        expected = expected_launches(cases, steps, guided)
-        launches_by_path[phase] = launches
-        ms_per_step[phase] = 1e3 * chain_s / steps
-        line = {"phase": phase, "steps": steps, "shape": list(out.shape),
-                "finite": bool(torch.isfinite(out).all()), "seconds": chain_s,
-                "ms_per_step": ms_per_step[phase], "steps_per_s": steps / chain_s,
-                "launches": launches, "expected_launches": expected, "card": smi,
-                "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30}
-        if guided:
-            line["guidance_share_of_step"] = 1.0 - ms_per_step["forecast"] / ms_per_step[phase]
-        emit(line)
-        if tuple(out.shape) != expect_shape or not torch.isfinite(out).all():
-            fail(f"{phase}: shape {tuple(out.shape)} (want {expect_shape}) or non-finite values")
-        if launches != expected:
-            fail(f"{phase}: kernel launches {launches} != expected {expected}")
+    launches_by_path = run_chains(predictor, context, chains, expect_shape,
+                                  lambda steps, guided: expected_launches(cases, steps, guided),
+                                  device, smi, zero_counts, read_counts)
 
     xd, td, cd = x.to(device), t.to(device), cond.to(device)
     emit(profile("profile_unet_forward", lambda: predictor.ld.unet(xd, td, cd), reps=5))
@@ -778,10 +1024,122 @@ def run(device, cfg, smi: str) -> None:
                  reps=5))
     emit(profile("profile_guidance_shift",
                  lambda: predictor.ld.alignment.get_mean_shift(zg, td, avg_d), reps=5))
+    del predictor
+    launches_by_path.update(swin_phases(device, cfg, smi, cases, zero_counts, read_counts))
+    pattern_phases(device, cfg, zero_counts, read_counts)
     launches_by_path.update(train_phases(device, cfg, smi, cases, unet_cpu.state_dict(),
                                          vae_cpu.state_dict(), zero_counts, read_counts))
     emit({"kernels": summarize(cases, launches_by_path)})
     print(smi, flush=True)
+
+
+def swin_phases(device, cfg, smi, cases, zero_counts, read_counts):
+    """The forecasts with the non-axial cuboid pattern ``SWIN_PATTERN`` in the
+    UNet and the alignment net, everything else as ``cfg``, weights random
+    from the seed: the three cuboid kernels against their plain versions
+    (``swin_kernels_vs_plain``; their cases join ``cases``), a UNet forward
+    and a guidance shift card against CPU, the 100-step unguided and guided
+    DDPM forecasts with exact launch counts, profiles of a UNet forward, a
+    guided step and a guidance shift.  Returns the launches of the two chains."""
+    import torch
+    from prediff_torch.config import ConfigDict, deep_merge
+    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.serving import PreDiffPredictor
+
+    scfg = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {
+        "latent_model": {"self_pattern": SWIN_PATTERN},
+        "align": {"model_args": {"block_attn_patterns": SWIN_PATTERN}}}}))
+    gen = torch.Generator().manual_seed(SEED)
+    models = {key: init_params_(build(scfg), gen, randomize=True).eval().requires_grad_(False)
+              for key, build in (("unet", build_unet), ("vae", build_vae),
+                                 ("align", build_alignment_model))}
+    unet_cpu, align_cpu = models["unet"], models["align"]
+    cases.update(swin_cases(unet_cpu, align_cpu))
+    bad = check_cuboid_kernels(cases, device)
+    routes = {name: [[layer.route((1, *shape)) for layer in blk.attn_l]
+                     for shape, blk in zip(m.mem_shapes, [b[0] for b in m.down_self_blocks])]
+              for name, m in (("unet", unet_cpu), ("align", align_cpu))}
+    emit({"phase": "swin_kernels_vs_plain", "pattern": SWIN_PATTERN, "routes": routes,
+          "cases": sum(len(cases[k]) for k in CUBOID_KERNELS), "failed": len(bad)})
+    if bad:
+        fail(f"cuboid kernel disagrees with its plain version: {bad}")
+
+    per = path_launches(unet_cpu, align_cpu)
+    predictor = PreDiffPredictor(scfg, params={k: m.state_dict() for k, m in models.items()},
+                                 with_alignment=True, device=device)
+    rs = torch.Generator().manual_seed(SEED + 1)
+    x, t, cond = forward_vs_cpu("swin_denoise_forward", unet_cpu, predictor, scfg, rs, device)
+    avg = shift_vs_cpu("swin_guided_shift", align_cpu, predictor, scfg, rs, t,
+                       {k: v["per_align"] for k, v in per.items()}, device, zero_counts,
+                       read_counts)
+    img = scfg.layout
+    context = torch.rand((1, img.in_len, img.img_height, img.img_width, img.data_channels),
+                         generator=rs)
+    expect_shape = (1, img.out_len, img.img_height, img.img_width, img.data_channels)
+    chains = {
+        "swin_forecast": (dict(timesteps=CHAIN_STEPS), CHAIN_STEPS, False),
+        "swin_guided_forecast": (dict(timesteps=CHAIN_STEPS, use_alignment=True,
+                                      avg_x_gt=avg.numpy()), CHAIN_STEPS, True),
+    }
+
+    def expected(steps, guided):
+        return {k: steps * (v["per_unet"] + (v["per_align"] if guided else 0))
+                for k, v in per.items()}
+
+    launches = run_chains(predictor, context, chains, expect_shape, expected, device, smi,
+                          zero_counts, read_counts)
+    xd, td, cd = x.to(device), t.to(device), cond.to(device)
+    emit(profile("swin_profile_unet_forward", lambda: predictor.ld.unet(xd, td, cd), reps=5))
+    zc = predictor.ld.cond_stage_forward(context.to(device))
+    zg = torch.randn((1,) + tuple(scfg.model.diffusion.latent_shape), device=device)
+    avg_d = avg.to(device)
+    emit(profile("swin_profile_guided_step",
+                 lambda: predictor.ld.p_sample_step(zg, predictor.ld.num_timesteps // 2, zc,
+                                                    1.0, None, avg_x_gt=avg_d),
+                 reps=5))
+    emit(profile("swin_profile_guidance_shift",
+                 lambda: predictor.ld.alignment.get_mean_shift(zg, td, avg_d), reps=5))
+    return launches
+
+
+def pattern_phases(device, cfg, zero_counts, read_counts):
+    """For each of ``PATTERN_CHECKS``, at full width with the UNet cut to
+    depth [1,1] and random weights from the seed: a UNet forward and a
+    guidance shift card against CPU, each with its exact launch counts."""
+    import torch
+    from prediff_torch.config import ConfigDict, deep_merge
+    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.serving import PreDiffPredictor
+
+    for pattern in PATTERN_CHECKS:
+        pcfg = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {
+            "latent_model": {"self_pattern": pattern, "depth": [1, 1]},
+            "align": {"model_args": {"block_attn_patterns": pattern}}}}))
+        gen = torch.Generator().manual_seed(SEED)
+        models = {key: init_params_(build(pcfg), gen, randomize=True).eval().requires_grad_(False)
+                  for key, build in (("unet", build_unet), ("vae", build_vae),
+                                     ("align", build_alignment_model))}
+        per = path_launches(models["unet"], models["align"])
+        predictor = PreDiffPredictor(pcfg, params={k: m.state_dict() for k, m in models.items()},
+                                     with_alignment=True, device=device)
+        rs = torch.Generator().manual_seed(SEED + 1)
+        zero_counts()
+        _, t, _ = forward_vs_cpu(f"pattern_{pattern}_forward", models["unet"], predictor, pcfg,
+                                 rs, device)
+        counts, want = read_counts(), {k: v["per_unet"] for k, v in per.items()}
+        routes = [[layer.route((1, *shape)) for layer in blk[0].attn_l]
+                  for shape, blk in zip(models["unet"].mem_shapes,
+                                        models["unet"].down_self_blocks)]
+        emit({"phase": f"pattern_{pattern}_forward_launches", "routes": routes,
+              "launches": counts, "expected_launches": want})
+        if counts != want:
+            fail(f"pattern {pattern}: forward launches {counts} != expected {want}")
+        shift_vs_cpu(f"pattern_{pattern}_shift", models["align"], predictor, pcfg, rs, t,
+                     {k: v["per_align"] for k, v in per.items()}, device, zero_counts,
+                     read_counts)
+        del predictor, models
 
 
 def train_phases(device, cfg, smi, cases, unet_sd, vae_sd, zero_counts, read_counts):

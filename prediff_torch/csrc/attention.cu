@@ -77,6 +77,39 @@
 // undropped p, while dv and the re-emitted head outputs use the dropped p.
 // The Drop forms are separate template instances, so the kernels without
 // dropout are untouched; with both rates 0 they give the same bits.
+//
+// General cuboids (cuboid_attention_forward, cuboid_attention_bwd_dx): replace
+// pallas_attention.py::fused_cuboid_attention_layer_v4 and
+// fused_cuboid_attention_layer_v4_bwd_dx (the same kernel bodies) for any
+// unshifted, unpadded cuboid of vol <= 256 rows: a 3-D box with an 'l' or 'd'
+// strategy per axis.  The caller reorders first (cuboid_reorder), so cuboid c
+// is rows c * vol .. c * vol + vol - 1 in cuboid_reorder's order, which is the
+// order the relative-position bias indexes.  The launches are those of the
+// axial layer; only the cores differ: k and v of the whole cuboid stay in
+// shared memory as bf16 (they are bf16 operands, so this is exact), and the
+// query rows go in tiles of q_tile, so a (vol, vol) score matrix never has to
+// fit (vol 256 at 64 head channels would take 256 KiB).  The forward core runs
+// one block per (cuboid, head, query tile); the gradient's core one block per
+// (cuboid, head) that walks the query tiles, writes dq per tile and adds each
+// tile's share of dk and dv into dqkv in place (each element always by the
+// same thread: no race, no atomics).  At the UNet's shapes the bytes the
+// layer must move (x in and out, the weights) and its operations give about
+// the same least time, as for the axial layer; the roundings are the axial
+// kernels'.
+//
+// Grouped masked core (cuboid_attention_grouped): replaces
+// pallas_attention.py::fused_cuboid_attention_grouped, the core of every
+// shifted or padded window: out = masked_softmax(q . scale . k^T + bias[h]) . v
+// in f32 throughout (FMA on the CUDA cores; no bf16, no TF32), with q, k, v, out
+// (B, heads, cuboids, vol, hc) and the mask (cuboids, vol, vol) as bytes,
+// shared over batch and heads.  A masked score is -1e18 after the bias; the
+// normaliser sums over every key and p is multiplied by the mask before p . v,
+// so a fully masked row gives 0.  vol is any size ("full" gives 3328): one
+// block per (cuboid, batch and head, 32 query rows) runs an online softmax over
+// key tiles of 32 (running max and sum per row, the partial p . v rescaled when
+// the max moves).  Per row it moves q, k, v and out (16 hc bytes) against
+// 4 vol hc f32 operations: bound by bytes up to vol ~80 (the UNet's 64), by
+// operations above.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -505,6 +538,253 @@ cudaError_t forward_launches(const float* x, const float* ln_w, const float* ln_
                             nullptr, d_proj);
 }
 
+// ---------------------------------------------------------------------------
+// General cuboid cores, on cuboid_reorder's layout: cuboid c is the rows
+// c * vol + r.  Shared memory: k, v of the cuboid (vol, hc + 2) bf16 each, then
+// f32 tiles of q_tile query rows.
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ void load_kv(const float* __restrict__ qkv, size_t row0, int vol,
+                                        int C, int hc, int h, __nv_bfloat16* k,
+                                        __nv_bfloat16* v, int ldkv) {
+  for (int i = threadIdx.x; i < vol * hc; i += kCoreThreads) {
+    const int r = i / hc, c = i % hc;
+    const float* row = qkv + (row0 + r) * 3 * C + h * hc + c;
+    k[r * ldkv + c] = __float2bfloat16(row[C]);
+    v[r * ldkv + c] = __float2bfloat16(row[2 * C]);
+  }
+}
+
+// s[r][j] = q[r] . k[j] + bh[q0 + r][j] for the nq rows of the tile, then the
+// softmax of each row in place (f32), one warp per row.
+__device__ __forceinline__ void tile_softmax(const float* q, int ldq, const __nv_bfloat16* k,
+                                             int ldkv, const float* __restrict__ bh, float* s,
+                                             int lds, int q0, int nq, int vol, int hc) {
+  for (int i = threadIdx.x; i < nq * vol; i += kCoreThreads) {
+    const int r = i / vol, j = i % vol;
+    float acc = 0.f;
+    for (int c = 0; c < hc; ++c) acc += q[r * ldq + c] * __bfloat162float(k[j * ldkv + c]);
+    s[r * lds + j] = acc + bh[(size_t)(q0 + r) * vol + j];
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < nq; r += kCoreThreads / 32) {
+    float* sr = s + r * lds;
+    float m = -INFINITY;
+    for (int j = lane; j < vol; j += 32) m = fmaxf(m, sr[j]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < vol; j += 32) {
+      sr[j] = expf(sr[j] - m);
+      sum += sr[j];
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < vol; j += 32) sr[j] /= sum;
+  }
+  __syncthreads();
+}
+
+size_t cuboid_core_smem(int vol, int hc, int q_tile, bool bwd) {
+  const size_t kv = 2 * sizeof(__nv_bfloat16) * (size_t)vol * (hc + 2);
+  const int tiles = bwd ? 2 : 1;  // q (and dO); s (and ds)
+  return kv + sizeof(float) * (size_t)tiles * q_tile * ((hc + 1) + (vol + 1));
+}
+
+// One block per (cuboid, head, query tile); attn (tokens, C) gets the tile's
+// rows of this head's hc columns, rounded to bf16.
+__global__ void __launch_bounds__(kCoreThreads)
+cuboid_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                   float* __restrict__ attn, int vol, int C, int heads, int q_tile,
+                   float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hc = C / heads, ldkv = hc + 2, ldq = hc + 1, lds = vol + 1;
+  __nv_bfloat16* k = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* v = k + vol * ldkv;
+  float* q = reinterpret_cast<float*>(v + vol * ldkv);  // bf16(q . scale)
+  float* s = q + q_tile * ldq;                           // [q_tile][vol] softmax
+  const int h = blockIdx.y, q0 = blockIdx.z * q_tile, tid = threadIdx.x;
+  const int nq = min(q_tile, vol - q0);
+  const size_t row0 = (size_t)blockIdx.x * vol;
+  load_kv(qkv, row0, vol, C, hc, h, k, v, ldkv);
+  for (int i = tid; i < nq * hc; i += kCoreThreads) {
+    const int r = i / hc, c = i % hc;
+    q[r * ldq + c] = bf16_round(qkv[(row0 + q0 + r) * 3 * C + h * hc + c] * scale);
+  }
+  __syncthreads();
+  tile_softmax(q, ldq, k, ldkv, bias + (size_t)h * vol * vol, s, lds, q0, nq, vol, hc);
+  for (int i = tid; i < nq * hc; i += kCoreThreads) {
+    const int r = i / hc, c = i % hc;
+    float acc = 0.f;
+    for (int j = 0; j < vol; ++j) acc += bf16_round(s[r * lds + j]) * __bfloat162float(v[j * ldkv + c]);
+    attn[(row0 + q0 + r) * C + h * hc + c] = bf16_round(acc);
+  }
+}
+
+// Gradient of the core, one block per (cuboid, head) walking the query tiles:
+// qkv (tokens, 3C) and dattn (tokens, C) in; dqkv (tokens, 3C) out (dq | dk | dv).
+__global__ void __launch_bounds__(kCoreThreads)
+cuboid_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
+                       const float* __restrict__ bias, float* __restrict__ dqkv, int vol, int C,
+                       int heads, int q_tile, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hc = C / heads, ldkv = hc + 2, ldq = hc + 1, lds = vol + 1;
+  __nv_bfloat16* k = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* v = k + vol * ldkv;
+  float* q = reinterpret_cast<float*>(v + vol * ldkv);  // bf16(q . scale)
+  float* dO = q + q_tile * ldq;                          // bf16(dattn)
+  float* p = dO + q_tile * ldq;                          // [q_tile][vol] softmax, then bf16(p)
+  float* ds = p + q_tile * lds;                          // [q_tile][vol] dp, then bf16(ds)
+  const int h = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const size_t row0 = (size_t)blockIdx.x * vol;
+  const float* bh = bias + (size_t)h * vol * vol;
+  load_kv(qkv, row0, vol, C, hc, h, k, v, ldkv);
+
+  for (int q0 = 0; q0 < vol; q0 += q_tile) {
+    const int nq = min(q_tile, vol - q0);
+    __syncthreads();  // the previous tile's values are read no more
+    for (int i = tid; i < nq * hc; i += kCoreThreads) {
+      const int r = i / hc, c = i % hc;
+      const size_t tok = row0 + q0 + r;
+      q[r * ldq + c] = bf16_round(qkv[tok * 3 * C + h * hc + c] * scale);
+      dO[r * ldq + c] = bf16_round(dattn[tok * C + h * hc + c]);
+    }
+    __syncthreads();
+    tile_softmax(q, ldq, k, ldkv, bh, p, lds, q0, nq, vol, hc);
+    for (int i = tid; i < nq * vol; i += kCoreThreads) {  // dp = dO . v^T
+      const int r = i / vol, j = i % vol;
+      float acc = 0.f;
+      for (int c = 0; c < hc; ++c) acc += dO[r * ldq + c] * __bfloat162float(v[j * ldkv + c]);
+      ds[r * lds + j] = acc;
+    }
+    __syncthreads();
+    for (int r = warp; r < nq; r += kCoreThreads / 32) {  // ds = p (dp - rowsum(dp p))
+      float dot = 0.f;
+      for (int j = lane; j < vol; j += 32) dot += ds[r * lds + j] * p[r * lds + j];
+      dot = warp_sum(dot);
+      for (int j = lane; j < vol; j += 32) {
+        ds[r * lds + j] = bf16_round(p[r * lds + j] * (ds[r * lds + j] - dot));
+        p[r * lds + j] = bf16_round(p[r * lds + j]);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < nq * hc; i += kCoreThreads) {  // dq of the tile's rows
+      const int r = i / hc, c = i % hc;
+      float acc = 0.f;
+      for (int j = 0; j < vol; ++j) acc += ds[r * lds + j] * __bfloat162float(k[j * ldkv + c]);
+      dqkv[(row0 + q0 + r) * 3 * C + h * hc + c] = acc * scale;
+    }
+    for (int i = tid; i < vol * hc; i += kCoreThreads) {  // the tile's share of dk, dv
+      const int j = i / hc, c = i % hc;
+      float ak = 0.f, av = 0.f;
+      for (int r = 0; r < nq; ++r) {
+        ak += ds[r * lds + j] * q[r * ldq + c];
+        av += p[r * lds + j] * dO[r * ldq + c];
+      }
+      float* out = dqkv + (row0 + j) * 3 * C + h * hc + c;
+      if (q0 == 0) {
+        out[C] = ak;
+        out[2 * C] = av;
+      } else {
+        out[C] += ak;
+        out[2 * C] += av;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Grouped masked core, f32: one block per (cuboid, batch * heads + head, tile
+// of kGq query rows), an online softmax over key tiles of kGk (= warp) rows.
+constexpr int kGq = 32, kGk = 32;
+constexpr float kNegInf = -1e18f;
+
+size_t grouped_smem(int hc) {
+  return sizeof(float) * ((size_t)(2 * kGq + 2 * kGk) * (hc + 1) + kGq * (kGk + 1) + 3 * kGq);
+}
+
+__global__ void __launch_bounds__(kCoreThreads)
+grouped_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ bias,
+                    const unsigned char* __restrict__ mask, float* __restrict__ out, int heads,
+                    int nC, int vol, int hc, float scale) {
+  extern __shared__ float sm[];
+  const int ld = hc + 1, lds = kGk + 1;
+  float* qs = sm;                 // [kGq][ld] q . scale
+  float* ks = qs + kGq * ld;      // [kGk][ld]
+  float* vs = ks + kGk * ld;      // [kGk][ld]
+  float* acc = vs + kGk * ld;     // [kGq][ld] sum of p . v, at the running max
+  float* s = acc + kGq * ld;      // [kGq][kGk + 1] scores, then p . mask
+  float* m_run = s + kGq * lds;   // [kGq] running max
+  float* l_run = m_run + kGq;     // [kGq] running sum of exp
+  float* alpha = l_run + kGq;     // [kGq] this tile's rescale
+  const int n = blockIdx.x, h = blockIdx.y % heads, q0 = blockIdx.z * kGq, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int nq = min(kGq, vol - q0);
+  const size_t base = ((size_t)blockIdx.y * nC + n) * vol;  // the cuboid's first row
+  const float* bh = bias + (size_t)h * vol * vol;
+  const unsigned char* mk = mask == nullptr ? nullptr : mask + (size_t)n * vol * vol;
+
+  for (int i = tid; i < nq * hc; i += kCoreThreads) {
+    const int r = i / hc, c = i % hc;
+    qs[r * ld + c] = q[(base + q0 + r) * hc + c] * scale;
+    acc[r * ld + c] = 0.f;
+  }
+  for (int r = tid; r < nq; r += kCoreThreads) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
+  }
+  for (int k0 = 0; k0 < vol; k0 += kGk) {
+    const int nk = min(kGk, vol - k0);
+    __syncthreads();  // the previous tile's k, v and p are read no more
+    for (int i = tid; i < nk * hc; i += kCoreThreads) {
+      const int j = i / hc, c = i % hc;
+      ks[j * ld + c] = k[(base + k0 + j) * hc + c];
+      vs[j * ld + c] = v[(base + k0 + j) * hc + c];
+    }
+    __syncthreads();
+    for (int i = tid; i < nq * nk; i += kCoreThreads) {
+      const int r = i / nk, j = i % nk;
+      float dot = 0.f;
+      for (int c = 0; c < hc; ++c) dot = fmaf(qs[r * ld + c], ks[j * ld + c], dot);
+      const size_t e = (size_t)(q0 + r) * vol + k0 + j;
+      s[r * lds + j] = (mk != nullptr && !mk[e]) ? kNegInf : dot + bh[e];
+    }
+    __syncthreads();
+    for (int r = warp; r < nq; r += kCoreThreads / 32) {  // one warp per row, a lane per key
+      const bool key = lane < nk;
+      const float sv = key ? s[r * lds + lane] : -INFINITY;
+      const float m_new = fmaxf(m_run[r], warp_max(sv));
+      const float e = key ? expf(sv - m_new) : 0.f;
+      const float tile_sum = warp_sum(e);
+      const bool keep = key && (mk == nullptr || mk[(size_t)(q0 + r) * vol + k0 + lane]);
+      if (key) s[r * lds + lane] = keep ? e : 0.f;
+      if (lane == 0) {
+        const float a = expf(m_run[r] - m_new);
+        alpha[r] = a;
+        l_run[r] = l_run[r] * a + tile_sum;
+        m_run[r] = m_new;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < nq * hc; i += kCoreThreads) {
+      const int r = i / hc, c = i % hc;
+      float a = acc[r * ld + c] * alpha[r];
+      for (int j = 0; j < nk; ++j) a = fmaf(s[r * lds + j], vs[j * ld + c], a);
+      acc[r * ld + c] = a;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < nq * hc; i += kCoreThreads) {
+    const int r = i / hc, c = i % hc;
+    out[(base + q0 + r) * hc + c] = acc[r * ld + c] / l_run[r];
+  }
+}
+
 }  // namespace
 
 // x, qkv scratch (tokens, 3C), attn scratch (tokens, C), out (tokens, C).
@@ -613,4 +893,77 @@ extern "C" int axial_attention_dropout_bwd_full(
   err = gradk::weight_grad(dqkv, ln_bf, dw_part, dw_qkv, M, 3 * C, C, ksplit_qkv, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)gradk::weight_grad(do_bf, attn_bf, dw_part, dw_proj, M, C, C, ksplit_proj, stream);
+}
+
+// The general cuboid layer on x in cuboid_reorder's layout (n_cuboids * vol
+// tokens, C); scratch qkv (tokens, 3C) and attn (tokens, C); bias (heads, vol, vol).
+extern "C" int cuboid_attention_forward(const float* x, const float* ln_w, const float* ln_b,
+                                        const float* w_qkv, const float* bias,
+                                        const float* w_proj, const float* b_proj, float* qkv,
+                                        float* attn, float* out, int n_cuboids, int vol, int C,
+                                        int heads, int q_tile, float scale, float eps,
+                                        cudaStream_t stream) {
+  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || vol < 1 || q_tile < 1)
+    return (int)cudaErrorInvalidValue;
+  const int M = n_cuboids * vol;
+  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = cuboid_core_smem(vol, C / heads, q_tile, false);
+  err = cudaFuncSetAttribute(cuboid_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cuboid_core_kernel<<<dim3(n_cuboids, heads, (vol + q_tile - 1) / q_tile), kCoreThreads, smem,
+                       stream>>>(qkv, bias, attn, vol, C, heads, q_tile, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)gemm(attn, nullptr, nullptr, w_proj, b_proj, out, M, C, C, 0, eps, stream);
+}
+
+// dx of the general cuboid layer for the output cotangent g (tokens, C), both
+// in cuboid_reorder's layout; scratch qkv and dqkv (tokens, 3C), dattn and dln
+// (tokens, C).
+extern "C" int cuboid_attention_bwd_dx(const float* x, const float* g, const float* ln_w,
+                                       const float* ln_b, const float* w_qkv, const float* bias,
+                                       const float* w_proj, float* qkv, float* dattn,
+                                       float* dqkv, float* dln, float* dx, int n_cuboids,
+                                       int vol, int C, int heads, int q_tile, float scale,
+                                       float eps, cudaStream_t stream) {
+  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || vol < 1 || q_tile < 1)
+    return (int)cudaErrorInvalidValue;
+  const int M = n_cuboids * vol;
+  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gemm(g, nullptr, nullptr, w_proj, nullptr, dattn, M, C, C, 1, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = cuboid_core_smem(vol, C / heads, q_tile, true);
+  err = cudaFuncSetAttribute(cuboid_core_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cuboid_core_bwd_kernel<<<dim3(n_cuboids, heads), kCoreThreads, smem, stream>>>(
+      qkv, dattn, bias, dqkv, vol, C, heads, q_tile, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = gemm(dqkv, nullptr, nullptr, w_qkv, nullptr, dln, M, C, 3 * C, 1, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kRowsPerBlock = 8;  // one warp per row
+  ln_backward_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(
+      x, ln_w, dln, dx, M, C, eps);
+  return (int)cudaGetLastError();
+}
+
+// The grouped core: q, k, v, out (B, heads, n_cuboids, vol, hc) f32, bias
+// (heads, vol, vol), mask (n_cuboids, vol, vol) bytes or null.
+extern "C" int cuboid_attention_grouped(const float* q, const float* k, const float* v,
+                                        const float* bias, const unsigned char* mask,
+                                        float* out, int B, int heads, int n_cuboids, int vol,
+                                        int hc, float scale, cudaStream_t stream) {
+  if (B < 1 || heads < 1 || n_cuboids < 1 || vol < 1 || hc < 1 || B * heads > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = grouped_smem(hc);
+  cudaError_t err = cudaFuncSetAttribute(grouped_core_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  grouped_core_kernel<<<dim3(n_cuboids, B * heads, (vol + kGq - 1) / kGq), kCoreThreads, smem,
+                        stream>>>(q, k, v, bias, mask, out, heads, n_cuboids, vol, hc, scale);
+  return (int)cudaGetLastError();
 }

@@ -9,18 +9,26 @@ from .diffusion.latent_diffusion import LatentDiffusion
 from .diffusion.schedule import make_gaussian_schedule
 from .models.alignment import NoisyCuboidTransformerEncoder
 from .models.init import init_params_
+from .models.patterns import CuboidSelfAttentionPatterns
 from .models.unet import CuboidTransformerUNet
 from .models.vae import AutoencoderKL
 from .utils.device import resolve_device
 from .utils.layout import parse_layout_shape
 
 
+def _check_pattern(pattern) -> None:
+    names = [pattern] if isinstance(pattern, str) else list(pattern)
+    unknown = [n for n in names if n not in CuboidSelfAttentionPatterns]
+    if unknown:
+        raise ValueError(f"attention patterns {unknown} are not registered "
+                         f"({sorted(CuboidSelfAttentionPatterns)})")
+
+
 def build_unet(cfg: ConfigDict) -> CuboidTransformerUNet:
     m = cfg.model.latent_model
     if m.num_global_vectors:
         raise NotImplementedError("global vectors are not ported yet")
-    if m.self_pattern != "axial":
-        raise NotImplementedError(f"attention pattern '{m.self_pattern}' is not ported yet")
+    _check_pattern(m.self_pattern)
     if m.ffn_activation != "gelu" or m.gated_ffn or m.time_embed_use_scale_shift_norm:
         raise NotImplementedError("only the v1 FFN (gelu, not gated) and time embedding are ported")
     if m.get("use_pallas_dropout", "auto") not in ("auto", True):
@@ -57,8 +65,7 @@ def build_alignment_model(cfg: ConfigDict) -> NoisyCuboidTransformerEncoder:
     if a.downsample_type != "patch_merge" or a.pool != "attention" or not a.readout_seq:
         raise NotImplementedError(f"downsample '{a.downsample_type}' / pool '{a.pool}' / "
                                   f"readout_seq {a.readout_seq}")
-    if a.block_attn_patterns != "axial":
-        raise NotImplementedError(f"attention pattern '{a.block_attn_patterns}' is not ported yet")
+    _check_pattern(a.block_attn_patterns)
     if a.ffn_activation != "gelu" or a.gated_ffn or a.time_embed_use_scale_shift_norm:
         raise NotImplementedError("only the v1 FFN (gelu, not gated) and time embedding are ported")
     return NoisyCuboidTransformerEncoder(
@@ -128,6 +135,12 @@ def build_training_pipeline(cfg: ConfigDict, device=None,
                             params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                             seed: int = 0) -> LatentDiffusion:
     """The pipeline a :class:`~prediff_torch.training.DiffusionTrainer` trains:
-    a trainable UNet in training mode, a frozen VAE, no alignment."""
+    a trainable UNet in training mode, a frozen VAE, no alignment.  Training
+    is ported for the axial pattern only."""
+    pattern = cfg.model.latent_model.self_pattern
+    if any(n != "axial" for n in ([pattern] if isinstance(pattern, str) else pattern)):
+        raise NotImplementedError(
+            f"training with the attention pattern '{pattern}' is not ported yet: its "
+            "all-gradients and dropout kernels are PERF.md rows 13b and 15e (ROADMAP.md)")
     return build_pipeline(cfg, with_alignment=False, device=device, params=params, seed=seed,
                           trainable_unet=True)

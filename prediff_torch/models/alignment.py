@@ -21,7 +21,7 @@ from ..ops.groupnorm import groupnorm_silu_plain
 from .cuboid_attention import StackCuboidSelfAttentionBlock
 from .layers import (PatchMerging3D, PosEmbed, TimeEmbedLayer, TimeEmbedResBlock, conv_nthwc,
                      timestep_embedding)
-from .patterns import CuboidSelfAttentionPatterns
+from .patterns import block_patterns
 from .unet import _normalize_downsample, compute_block_units, compute_mem_shapes
 
 
@@ -64,7 +64,7 @@ class NoisyCuboidTransformerEncoder(nn.Module):
     def __init__(self, input_shape: Tuple[int, int, int, int], out_channels: int = 1,
                  base_units: int = 128, scale_alpha: float = 1.0,
                  depth: Sequence[int] = (4, 4, 4), downsample: Union[int, Tuple] = 2,
-                 block_attn_patterns: str = "axial", num_heads: int = 4,
+                 block_attn_patterns: Union[str, Sequence[str]] = "axial", num_heads: int = 4,
                  padding_type: str = "zeros", time_embed_channels_mult: int = 4,
                  out_len: Optional[int] = None, attn_drop: float = 0.0, proj_drop: float = 0.0,
                  ffn_drop: float = 0.0, time_embed_dropout: float = 0.0):
@@ -82,7 +82,7 @@ class NoisyCuboidTransformerEncoder(nn.Module):
         mem_shapes = compute_mem_shapes(self.input_shape, base_units, self.num_blocks, downsample,
                                         self.block_units)
         self.mem_shapes = mem_shapes
-        pattern = CuboidSelfAttentionPatterns[block_attn_patterns]
+        patterns = block_patterns(block_attn_patterns, self.num_blocks)
         tec = self.block_units[0] * time_embed_channels_mult
 
         self.first_proj = TimeEmbedResBlock(self.input_shape[-1], base_units, use_embed=False,
@@ -98,10 +98,10 @@ class NoisyCuboidTransformerEncoder(nn.Module):
             for i in range(self.num_blocks))
 
         def stack(i):
-            cuboid_size, strategy, shift_size = pattern(mem_shapes[i])
+            cuboid_size, strategy, shift_size = patterns[i](mem_shapes[i])
             return StackCuboidSelfAttentionBlock(mem_shapes[i][-1], num_heads, cuboid_size,
                                                  shift_size, strategy, attn_drop, proj_drop,
-                                                 ffn_drop)
+                                                 ffn_drop, padding_type)
 
         self.down_self_blocks = nn.ModuleList(
             nn.ModuleList(stack(i) for _ in range(self.depth[i])) for i in range(self.num_blocks))

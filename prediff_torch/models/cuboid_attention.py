@@ -1,21 +1,73 @@
-"""Cuboid self-attention on the axial whole-layer path.
+"""Cuboid self-attention (Earthformer's core): attention within
+non-overlapping local ('l') or dilated ('d') cuboids, with Swin-style
+shifted windows, padding of ragged axes and a learned relative-position
+bias.
 
-An axial layer attends along one whole axis (cuboid (T,1,1), (1,H,1) or
-(1,1,W)), so it needs no shift, no padding and no mask; it runs as one call
-of the axial attention kernel on the natural layout.  Other cuboid
-patterns, shifted windows and global vectors are not ported yet and raise.
+Each layer takes one of four routes, as the JAX package's
+``CuboidSelfAttentionLayer._try_fused_layer`` decides (:func:`attention_route`):
+
+- ``axial``: the cuboid spans one whole axis and is 1 on the others, with no
+  shift, pad or mask: the axial kernel on the natural layout;
+- ``v4``: any other cuboid of at most 256 rows (``V4_MAX_ROWS``) with no
+  shift, pad or mask: ``cuboid_reorder``, the general layer kernel, reverse;
+- ``grouped`` / ``grouped_masked``: every padded or shifted window, and any
+  cuboid above 256 rows: LN, pad, roll, reorder and the QKV product as plain
+  f32 ``nn.LayerNorm`` / ``nn.Linear`` (``nn.Dense`` outside any Pallas kernel
+  in the JAX package), the grouped core kernel with the window mask (or none),
+  the output ``nn.Linear``, then reverse, roll back and unpad.
+
+The JAX package also gates its TPU kernels on a VMEM byte budget, on
+``dim % 128 == 0`` and on ``G * vol % 8 == 0``; they choose which Pallas kernel
+fits a TPU core, not what the layer computes, and the port drops them: its
+axial and v4 kernels take any C that is a multiple of 64 (and raise
+otherwise), its grouped core any vol.  Where such a gate sends a TPU layer
+to the grouped route, the port runs the fused one, so the two differ by the
+bf16 operand rounding only.  Global vectors are not ported and raise.
+
+Training is ported for the axial route only: in training mode any other
+route raises (its all-gradients and dropout kernels, PERF.md rows 13b and
+15e, are still to port).
 """
 import functools
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..ops.attention import fused_axial_attention
-from ..ops.cuboid import update_cuboid_size_shift_size
+from ..ops.attention import (V4_MAX_ROWS, fused_axial_attention, fused_cuboid_attention_grouped,
+                             fused_cuboid_attention_layer)
+from ..ops.cuboid import (compute_cuboid_self_attention_mask, cuboid_reorder,
+                          cuboid_reorder_reverse, update_cuboid_size_shift_size)
 from ..ops.dropout import DropoutStream, is_active
+from ..ops.pad import generalize_padding, generalize_unpadding
 from .layers import PositionwiseFFN
+
+def attention_route(data_shape: Tuple[int, int, int], cuboid_size, shift_size, strategy,
+                    padding_type: str) -> str:
+    """The route a layer takes on a (T, H, W) input: "axial", "v4", "grouped"
+    or "grouped_masked" (a shift always gives a mask)."""
+    data_shape = tuple(data_shape)
+    cs, shift = update_cuboid_size_shift_size(data_shape, cuboid_size, shift_size, strategy)
+    if compute_cuboid_self_attention_mask(data_shape, cs, shift, tuple(strategy),
+                                          padding_type) is not None:
+        return "grouped_masked"
+    if any(n % c for n, c in zip(data_shape, cs)):
+        return "grouped"
+    for ax in range(3):
+        if cs[ax] == data_shape[ax] and all(cs[o] == 1 for o in range(3) if o != ax):
+            return "axial"
+    return "v4" if math.prod(cs) <= V4_MAX_ROWS else "grouped"
+
+
+@functools.lru_cache(maxsize=None)
+def _device_mask(data_shape, cuboid_size, shift_size, strategy, padding_type,
+                 device: torch.device) -> torch.Tensor:
+    """The window mask as a bool tensor on ``device``, made once per shape."""
+    mask = compute_cuboid_self_attention_mask(data_shape, cuboid_size, shift_size, strategy,
+                                              padding_type)
+    return torch.from_numpy(mask).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -38,18 +90,22 @@ class CuboidSelfAttentionLayer(nn.Module):
     proj, with no residual; the block adds it.  In training mode with a rate
     above 0 (``attn_drop`` on the attention weights, ``proj_drop`` on the
     projected output) the call takes the next site of the forward's
-    :class:`DropoutStream` and runs the dropout kernels."""
+    :class:`DropoutStream` and runs the dropout kernels (axial route)."""
 
     def __init__(self, dim: int, num_heads: int, cuboid_size=(2, 7, 7), shift_size=(0, 0, 0),
-                 strategy=("l", "l", "l"), attn_drop: float = 0.0, proj_drop: float = 0.0):
+                 strategy=("l", "l", "l"), padding_type: str = "ignore",
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         if dim % num_heads != 0:
             raise ValueError(f"dim {dim} not divisible by {num_heads} heads")
+        if padding_type not in ("ignore", "zeros", "nearest"):
+            raise ValueError(f"padding_type '{padding_type}'")
         self.dim, self.num_heads = dim, num_heads
         self.cuboid_size = tuple(cuboid_size)
         self.shift_size = tuple(shift_size)
         self.strategy = tuple(strategy)
+        self.padding_type = padding_type
         self.scale = (dim // num_heads) ** -0.5
         self.norm = nn.LayerNorm(dim, eps=1e-5)
         self.qkv = nn.Linear(dim, 3 * dim, bias=False)
@@ -61,16 +117,10 @@ class CuboidSelfAttentionLayer(nn.Module):
         self.register_buffer("relative_position_index", torch.from_numpy(rel_idx.astype(np.int64)),
                              persistent=False)
 
-    def _axis(self, shape) -> int:
-        _, T, H, W, _ = shape
-        cs, shift = update_cuboid_size_shift_size((T, H, W), self.cuboid_size, self.shift_size,
-                                                  self.strategy)
-        if any(shift):
-            raise NotImplementedError("shifted cuboid windows are not ported yet")
-        for axis, axial in enumerate(((T, 1, 1), (1, H, 1), (1, 1, W))):
-            if cs == axial:
-                return axis
-        raise NotImplementedError(f"cuboid {cs} on {(T, H, W)} is not an axial pattern")
+    def route(self, shape) -> str:
+        """This layer's route (:func:`attention_route`) on a (B, T, H, W, C) input."""
+        return attention_route(tuple(shape[1:4]), self.cuboid_size, self.shift_size,
+                               self.strategy, self.padding_type)
 
     def rel_bias(self, vol: int) -> torch.Tensor:
         """(heads, vol, vol) relative-position bias gathered from the table."""
@@ -79,16 +129,58 @@ class CuboidSelfAttentionLayer(nn.Module):
         return bias.permute(2, 0, 1).contiguous()
 
     def forward(self, x: torch.Tensor, drop: Optional[DropoutStream] = None) -> torch.Tensor:
-        axis = self._axis(x.shape)
-        vol = x.shape[1 + axis]
-        rates = {}
-        if is_active(self, drop, self.attn_drop, self.proj_drop):
-            rates = dict(rate_attn=self.attn_drop, rate_proj=self.proj_drop, seed=drop.seed,
-                         site=drop.next_site())
-        return fused_axial_attention(x.contiguous(), axis, self.norm.weight, self.norm.bias,
-                                     self.qkv.weight, self.rel_bias(vol), self.proj.weight,
-                                     self.proj.bias, self.num_heads, self.scale, self.norm.eps,
-                                     **rates)
+        _, T, H, W, _ = x.shape
+        route = self.route(x.shape)
+        if self.training and route != "axial":
+            raise NotImplementedError(
+                f"training a cuboid attention layer on the '{route}' route (cuboid "
+                f"{self.cuboid_size}, shift {self.shift_size} on {(T, H, W)}) is not ported yet: "
+                "its all-gradients and dropout kernels are PERF.md rows 13b and 15e (ROADMAP.md); "
+                "call .eval() to forecast")
+        cs, shift = update_cuboid_size_shift_size((T, H, W), self.cuboid_size, self.shift_size,
+                                                  self.strategy)
+        vol = math.prod(cs)
+        if route == "axial":
+            axis = next(ax for ax in range(3) if cs[ax] == (T, H, W)[ax]
+                        and all(cs[o] == 1 for o in range(3) if o != ax))
+            rates = {}
+            if is_active(self, drop, self.attn_drop, self.proj_drop):
+                rates = dict(rate_attn=self.attn_drop, rate_proj=self.proj_drop, seed=drop.seed,
+                             site=drop.next_site())
+            return fused_axial_attention(x.contiguous(), axis, self.norm.weight, self.norm.bias,
+                                         self.qkv.weight, self.rel_bias(vol), self.proj.weight,
+                                         self.proj.bias, self.num_heads, self.scale,
+                                         self.norm.eps, **rates)
+        if route == "v4":
+            xr = cuboid_reorder(x, cs, self.strategy).contiguous()
+            out = fused_cuboid_attention_layer(xr, self.norm.weight, self.norm.bias,
+                                               self.qkv.weight, self.rel_bias(vol),
+                                               self.proj.weight, self.proj.bias, self.num_heads,
+                                               self.scale, self.norm.eps)
+            return cuboid_reorder_reverse(out, cs, self.strategy, (T, H, W))
+        return self._grouped(x, cs, shift, route == "grouped_masked")
+
+    def _grouped(self, x, cs, shift, masked: bool) -> torch.Tensor:
+        B, T, H, W, C = x.shape
+        heads = self.num_heads
+        pads = [(c - n % c) % c for n, c in zip((T, H, W), cs)]
+        x = generalize_padding(self.norm(x), *pads, self.padding_type)
+        if any(shift):
+            x = torch.roll(x, shifts=tuple(-s for s in shift), dims=(1, 2, 3))
+        xr = cuboid_reorder(x, cs, self.strategy)
+        _, nC, vol, _ = xr.shape
+        qkv = self.qkv(xr).reshape(B, nC, vol, 3, heads, C // heads)
+        qkv = qkv.permute(3, 0, 4, 1, 2, 5).contiguous()          # (3, B, heads, nC, vol, hc)
+        mask = (_device_mask((T, H, W), cs, shift, self.strategy, self.padding_type, x.device)
+                if masked else None)
+        out = fused_cuboid_attention_grouped(qkv[0], qkv[1], qkv[2], self.rel_bias(vol), mask,
+                                             self.scale)
+        out = self.proj(out.permute(0, 2, 3, 1, 4).reshape(B, nC, vol, C))
+        x = cuboid_reorder_reverse(out, cs, self.strategy,
+                                   (T + pads[0], H + pads[1], W + pads[2]))
+        if any(shift):
+            x = torch.roll(x, shifts=tuple(shift), dims=(1, 2, 3))
+        return generalize_unpadding(x, *pads, self.padding_type)
 
 
 class StackCuboidSelfAttentionBlock(nn.Module):
@@ -96,10 +188,11 @@ class StackCuboidSelfAttentionBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, block_cuboid_size: Sequence,
                  block_shift_size: Sequence, block_strategy: Sequence, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0, ffn_drop: float = 0.0):
+                 proj_drop: float = 0.0, ffn_drop: float = 0.0, padding_type: str = "ignore"):
         super().__init__()
         self.attn_l = nn.ModuleList([
-            CuboidSelfAttentionLayer(dim, num_heads, cs, ss, st, attn_drop, proj_drop)
+            CuboidSelfAttentionLayer(dim, num_heads, cs, ss, st, padding_type, attn_drop,
+                                     proj_drop)
             for cs, ss, st in zip(block_cuboid_size, block_shift_size, block_strategy)
         ])
         self.ffn_l = nn.ModuleList([

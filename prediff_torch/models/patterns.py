@@ -1,6 +1,13 @@
-"""Cuboid attention patterns: a mem shape (T, H, W, C) -> per-layer
-(cuboid_size, strategy, shift_size) lists.  The port carries the pattern the
-v1 UNet uses."""
+"""Cuboid self-attention patterns: a mem shape (T, H, W, C) -> per-layer
+(cuboid_size, strategy, shift_size) lists, under the names Earthformer's
+``cuboid_transformer_patterns.py`` registers.  The cross-attention patterns
+have no user in the port (ROADMAP.md)."""
+import functools
+
+
+def full_attention(input_shape):
+    T, H, W, _ = input_shape
+    return [(T, H, W)], [("l", "l", "l")], [(0, 0, 0)]
 
 
 def self_axial(input_shape):
@@ -12,4 +19,68 @@ def self_axial(input_shape):
     return cuboid_size, strategy, shift_size
 
 
-CuboidSelfAttentionPatterns = {"axial": self_axial}
+def self_video_swin(input_shape, P=2, M=4):
+    """Video Swin: two local windows, the second shifted by half."""
+    T, H, W, _ = input_shape
+    P = min(P, T)
+    M = min(M, H, W)
+    cuboid_size = [(P, M, M), (P, M, M)]
+    strategy = [("l", "l", "l"), ("l", "l", "l")]
+    shift_size = [(0, 0, 0), (P // 2, M // 2, M // 2)]
+    return cuboid_size, strategy, shift_size
+
+
+def self_divided_space_time(input_shape):
+    T, H, W, _ = input_shape
+    cuboid_size = [(T, 1, 1), (1, H, W)]
+    strategy = [("l", "l", "l"), ("l", "l", "l")]
+    shift_size = [(0, 0, 0), (0, 0, 0)]
+    return cuboid_size, strategy, shift_size
+
+
+def self_spatial_lg_v1(input_shape, M=4):
+    """Axial in time, then local and dilated M x M windows in space."""
+    T, H, W, _ = input_shape
+    if H <= M and W <= M:
+        cuboid_size = [(T, 1, 1), (1, H, W)]
+        strategy = [("l", "l", "l"), ("l", "l", "l")]
+        shift_size = [(0, 0, 0), (0, 0, 0)]
+    else:
+        cuboid_size = [(T, 1, 1), (1, M, M), (1, M, M)]
+        strategy = [("l", "l", "l"), ("l", "l", "l"), ("d", "d", "d")]
+        shift_size = [(0, 0, 0), (0, 0, 0), (0, 0, 0)]
+    return cuboid_size, strategy, shift_size
+
+
+def self_axial_space_dilate_K(input_shape, K=2):
+    T, H, W, _ = input_shape
+    K = min(K, H, W)
+    cuboid_size = [(T, 1, 1), (1, H // K, 1), (1, H // K, 1), (1, 1, W // K), (1, 1, W // K)]
+    strategy = [("l", "l", "l"), ("d", "d", "d"), ("l", "l", "l"), ("d", "d", "d"),
+                ("l", "l", "l")]
+    shift_size = [(0, 0, 0)] * 5
+    return cuboid_size, strategy, shift_size
+
+
+CuboidSelfAttentionPatterns = {"full": full_attention, "axial": self_axial,
+                               "video_swin": self_video_swin,
+                               "divided_st": self_divided_space_time}
+for _p in (1, 2, 4, 8, 10):
+    for _m in (1, 2, 4, 8, 16, 32):
+        CuboidSelfAttentionPatterns[f"video_swin_{_p}x{_m}"] = functools.partial(
+            self_video_swin, P=_p, M=_m)
+CuboidSelfAttentionPatterns["spatial_lg_v1"] = self_spatial_lg_v1
+for _m in (1, 2, 4, 8, 16, 32):
+    CuboidSelfAttentionPatterns[f"spatial_lg_{_m}"] = functools.partial(self_spatial_lg_v1, M=_m)
+for _k in (2, 4, 8):
+    CuboidSelfAttentionPatterns[f"axial_space_dilate_{_k}"] = functools.partial(
+        self_axial_space_dilate_K, K=_k)
+
+
+def block_patterns(names, num_blocks: int):
+    """The pattern function of each of ``num_blocks`` stages from one
+    registered name, or one name per stage."""
+    names = [names] * num_blocks if isinstance(names, str) else list(names)
+    if len(names) != num_blocks:
+        raise ValueError(f"{len(names)} attention patterns for {num_blocks} stages")
+    return [CuboidSelfAttentionPatterns[n] for n in names]

@@ -27,7 +27,7 @@ from ..ops.dropout import DropoutStream
 from .cuboid_attention import StackCuboidSelfAttentionBlock
 from .layers import (PatchMerging3D, PosEmbed, TimeEmbedLayer, TimeEmbedResBlock,
                      Upsample3DLayer, timestep_embedding)
-from .patterns import CuboidSelfAttentionPatterns
+from .patterns import block_patterns
 
 
 def round_to(dat: int, c: int) -> int:
@@ -61,7 +61,7 @@ class CuboidTransformerUNet(nn.Module):
     def __init__(self, input_shape, target_shape, base_units: int = 128,
                  block_units: Optional[Sequence[int]] = None, scale_alpha: float = 1.0,
                  depth: Sequence[int] = (4, 4), downsample: Union[int, Tuple] = 2,
-                 block_attn_patterns: str = "axial", num_heads: int = 4,
+                 block_attn_patterns: Union[str, Sequence[str]] = "axial", num_heads: int = 4,
                  padding_type: str = "ignore", upsample_kernel_size: int = 3,
                  time_embed_channels_mult: int = 4, unet_res_connect: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0, ffn_drop: float = 0.0,
@@ -85,7 +85,7 @@ class CuboidTransformerUNet(nn.Module):
         mem_shapes = compute_mem_shapes(self.data_shape, base_units, self.num_blocks, downsample,
                                         self.block_units)
         self.mem_shapes = mem_shapes
-        pattern = CuboidSelfAttentionPatterns[block_attn_patterns]
+        patterns = block_patterns(block_attn_patterns, self.num_blocks)
         tec = self.block_units[0] * time_embed_channels_mult
 
         self.first_proj = TimeEmbedResBlock(self.data_shape[-1], base_units, use_embed=False,
@@ -94,10 +94,10 @@ class CuboidTransformerUNet(nn.Module):
         self.time_embed = TimeEmbedLayer(self.block_units[0], tec)
 
         def stack(i):
-            cuboid_size, strategy, shift_size = pattern(mem_shapes[i])
+            cuboid_size, strategy, shift_size = patterns[i](mem_shapes[i])
             return StackCuboidSelfAttentionBlock(mem_shapes[i][-1], num_heads, cuboid_size,
                                                  shift_size, strategy, attn_drop, proj_drop,
-                                                 ffn_drop)
+                                                 ffn_drop, padding_type)
 
         def time_block(i):
             return TimeEmbedResBlock(mem_shapes[i][-1], mem_shapes[i][-1], emb_channels=tec,

@@ -1,4 +1,8 @@
-"""Axial whole-layer attention on the natural (B, T, H, W, C) layout.
+"""Whole-layer cuboid attention: the axial layer on the natural
+(B, T, H, W, C) layout, the general cuboid layer on cuboid_reorder's layout,
+and the grouped masked core of shifted and padded windows.
+
+Axial layer.
 
 ``LN -> . Wqkv^T -> per head softmax(q . scale . k^T + relbias[h]) . v ->
 . Wproj^T + b`` along one axis (0: T, 1: H, 2: W), with no residual.  The
@@ -27,13 +31,32 @@ gradient; when only dx is asked for (guidance: the model is frozen) it is
 :func:`fused_axial_attention_bwd_dx`.  With a ``seed`` it runs
 :func:`fused_axial_attention_dropout` and, backward,
 :func:`fused_axial_attention_dropout_bwd_full`.
+
+General cuboid layer (:func:`fused_cuboid_attention_layer`): the same
+function on x already reordered into (B, cuboids, vol, C) by
+``cuboid_reorder``, for any unshifted, unpadded cuboid of vol <= 256
+(``V4_MAX_ROWS``); ``bias`` (heads, vol, vol) is indexed in the reorder's
+within-cuboid order.  Its kernel replaces
+``pallas_attention.py::fused_cuboid_attention_layer_v4`` and its input
+gradient (:func:`fused_cuboid_attention_layer_bwd_dx`)
+``fused_cuboid_attention_layer_v4_bwd_dx``, with the axial kernels' bf16
+rounding points.  As the JAX package's dx-only backward does, the
+``autograd.Function`` takes dx from the dx kernel and the parameter
+gradients, only when asked for, from autograd of the f32 plain version.
+
+Grouped core (:func:`fused_cuboid_attention_grouped`):
+``masked_softmax(q . scale . k^T + bias[h]) . v`` on the head-major
+(B, heads, cuboids, vol, hc) layout, mask (cuboids, vol, vol) or None, all
+f32.  Its kernel replaces ``pallas_attention.py::fused_cuboid_attention_grouped``
+and takes any vol; its backward is autograd of the plain version, as the JAX
+package's is ``jax.vjp`` of its reference.
 """
 from typing import Optional
 
 import torch
 
 from . import _build
-from .cuboid import cuboid_reorder, cuboid_reorder_reverse
+from .cuboid import cuboid_reorder, cuboid_reorder_reverse, masked_softmax
 from .dropout import apply_mask, resolve_masks
 from .ffn import _round, layer_norm_bwd_plain, layer_norm_plain
 
@@ -43,7 +66,13 @@ _SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 7 + [_F, _F, _P],
                "axial_attention_bwd_full": [_P] * 21 + [_I] * 10 + [_F, _F, _P],
                "axial_attention_dropout_forward": [_P] * 10 + [_I] * 7 + [_F, _F] + _DROP + [_P],
                "axial_attention_dropout_bwd_full": ([_P] * 22 + [_I] * 10 + [_F, _F] + _DROP
-                                                    + [_P])}
+                                                    + [_P]),
+               "cuboid_attention_forward": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
+               "cuboid_attention_bwd_dx": [_P] * 12 + [_I] * 5 + [_F, _F, _P],
+               "cuboid_attention_grouped": [_P] * 6 + [_I] * 5 + [_F, _P]}
+# the most rows of one cuboid the general layer takes (the JAX package's v4 gate)
+V4_MAX_ROWS = 256
+SMEM_BYTES = 227 * 1024   # shared memory one block may use on an H100
 
 
 def axial_cuboid_size(shape, axis: int):
@@ -413,3 +442,224 @@ fused_axial_attention_dropout.launches = 0
 fused_axial_attention_dropout_bwd_full.launches = 0
 fused_axial_attention_bwd_dx.launches = 0
 fused_axial_attention_bwd_full.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# General cuboid layer on cuboid_reorder's layout (B, cuboids, vol, C).
+
+def cuboid_attention_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                           w_qkv: torch.Tensor, bias: torch.Tensor, w_proj: torch.Tensor,
+                           b_proj: torch.Tensor, num_heads: int, scale: float, eps: float = 1e-5,
+                           mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain version of the general cuboid layer; ``mxu_dtype`` rounds the
+    matmul operands where the kernel does, ``None`` keeps f32."""
+    B, nC, vol, C = x.shape
+    q, k, v = _qkv_plain(x.float(), ln_w, ln_b, w_qkv, num_heads, eps, mxu_dtype)
+    p = _softmax_plain(q, k, bias, scale, mxu_dtype)
+    o = torch.einsum("bnhij,bnjhc->bnihc", _round(p, mxu_dtype), _round(v, mxu_dtype))
+    out = _round(o.reshape(B, nC, vol, C), mxu_dtype) @ _round(w_proj, mxu_dtype).T + b_proj
+    return out.to(x.dtype)
+
+
+def cuboid_attention_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
+                                  ln_b: torch.Tensor, w_qkv: torch.Tensor, bias: torch.Tensor,
+                                  w_proj: torch.Tensor, num_heads: int, scale: float,
+                                  eps: float = 1e-5,
+                                  mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain dx of :func:`cuboid_attention_plain` for the cotangent ``g``,
+    the TPU kernel's formulas (recompute, ``ds = p (dp - rowsum(dp p))``);
+    ``mxu_dtype`` rounds the product operands where the kernel does."""
+    B, nC, vol, C = x.shape
+    hc = C // num_heads
+    xr = x.float()
+    q, k, v = _qkv_plain(xr, ln_w, ln_b, w_qkv, num_heads, eps, mxu_dtype)
+    p = _softmax_plain(q, k, bias, scale, mxu_dtype)
+    d_o = (_round(g.float(), mxu_dtype) @ _round(w_proj, mxu_dtype)).reshape(B, nC, vol,
+                                                                             num_heads, hc)
+    d_o = _round(d_o, mxu_dtype)
+    dp = torch.einsum("bnihc,bnjhc->bnhij", d_o, _round(v, mxu_dtype))
+    ds = _round(p * (dp - (dp * p).sum(dim=-1, keepdim=True)), mxu_dtype)
+    dq = torch.einsum("bnhij,bnjhc->bnihc", ds, _round(k, mxu_dtype)) * scale
+    dk = torch.einsum("bnhij,bnihc->bnjhc", ds, _round(q * scale, mxu_dtype))
+    dv = torch.einsum("bnhij,bnihc->bnjhc", _round(p, mxu_dtype), d_o)
+    dqkv = torch.stack([dq, dk, dv], dim=3).reshape(B, nC, vol, 3 * C)
+    dln = _round(dqkv, mxu_dtype) @ _round(w_qkv, mxu_dtype)
+    return layer_norm_bwd_plain(xr, ln_w, dln, eps).to(x.dtype)
+
+
+def _cuboid_query_tile(vol: int, hc: int) -> int:
+    """Query rows per tile of the general layer's cores: the most of 32, 16,
+    8 for which k and v of a whole cuboid (bf16) and the gradient core's four
+    f32 tiles fit in a block's shared memory; raise where none does."""
+    kv = 2 * 2 * vol * (hc + 2)
+    for rows in (32, 16, 8):
+        if kv + 4 * 2 * rows * ((hc + 1) + (vol + 1)) <= SMEM_BYTES:
+            return min(rows, vol)
+    raise ValueError(f"cuboid attention kernel: a cuboid of {vol} rows x {hc} head channels "
+                     "does not fit in shared memory")
+
+
+def _check_cuboid(x, num_heads):
+    B, nC, vol, C = x.shape
+    if C % 64 != 0 or C % num_heads != 0 or not 1 <= vol <= V4_MAX_ROWS:
+        raise ValueError(f"cuboid attention kernel: C={C} (takes multiples of 64), "
+                         f"heads={num_heads}, vol={vol} (takes 1..{V4_MAX_ROWS}) not supported")
+    return B * nC, vol, C, _cuboid_query_tile(vol, C // num_heads)
+
+
+def _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps):
+    n_cuboids, vol, C, q_tile = _check_cuboid(x, num_heads)
+    _build.require("cuboid_attention", [
+        ("x", x, tuple(x.shape)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
+        ("w_qkv", w_qkv, (3 * C, C)), ("bias", bias, (num_heads, vol, vol)),
+        ("w_proj", w_proj, (C, C)), ("b_proj", b_proj, (C,))])
+    M = n_cuboids * vol
+    qkv = torch.empty((M, 3 * C), dtype=torch.float32, device=x.device)
+    attn = torch.empty((M, C), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    lib = _build.load("attention", _SIGNATURES)
+    err = lib.cuboid_attention_forward(
+        *(_build.ptr(t) for t in (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv, attn, out)),
+        n_cuboids, vol, C, num_heads, q_tile, float(scale), float(eps),
+        _build.stream_ptr(x.device))
+    _build.check(err, "cuboid_attention_forward")
+    fused_cuboid_attention_layer.launches += 1
+    return out
+
+
+def fused_cuboid_attention_layer_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
+                                        ln_b: torch.Tensor, w_qkv: torch.Tensor,
+                                        bias: torch.Tensor, w_proj: torch.Tensor, num_heads: int,
+                                        scale: float, eps: float = 1e-5) -> torch.Tensor:
+    """dx of the general cuboid layer, x and g (B, cuboids, vol, C).  CPU
+    tensor: the plain version in f32.  CUDA tensor: the kernel, or raise."""
+    if not x.is_cuda:
+        return cuboid_attention_bwd_dx_plain(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
+                                             scale, eps)
+    n_cuboids, vol, C, q_tile = _check_cuboid(x, num_heads)
+    _build.require("cuboid_attention_bwd_dx", [
+        ("x", x, tuple(x.shape)), ("g", g, tuple(x.shape)), ("ln_w", ln_w, (C,)),
+        ("ln_b", ln_b, (C,)), ("w_qkv", w_qkv, (3 * C, C)),
+        ("bias", bias, (num_heads, vol, vol)), ("w_proj", w_proj, (C, C))])
+    M = n_cuboids * vol
+    f32 = dict(dtype=torch.float32, device=x.device)
+    qkv, dqkv = torch.empty((M, 3 * C), **f32), torch.empty((M, 3 * C), **f32)
+    dattn, dln = torch.empty((M, C), **f32), torch.empty((M, C), **f32)
+    dx = torch.empty_like(x)
+    lib = _build.load("attention", _SIGNATURES)
+    err = lib.cuboid_attention_bwd_dx(
+        *(_build.ptr(t) for t in (x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln,
+                                  dx)),
+        n_cuboids, vol, C, num_heads, q_tile, float(scale), float(eps),
+        _build.stream_ptr(x.device))
+    _build.check(err, "cuboid_attention_bwd_dx")
+    fused_cuboid_attention_layer_bwd_dx.launches += 1
+    return dx
+
+
+class _FusedCuboidAttention(torch.autograd.Function):
+    """dx from the dx kernel; the parameter gradients, when asked for, from
+    autograd of the f32 plain version (the JAX package's dx-only backward)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj)
+        ctx.args = (num_heads, scale, eps)
+        if not x.is_cuda:
+            return cuboid_attention_plain(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
+                                          scale, eps)
+        return _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        num_heads, scale, eps = ctx.args
+        g = g.contiguous()
+        needs = ctx.needs_input_grad
+        dx = (fused_cuboid_attention_layer_bwd_dx(x, g, *params[:-1], num_heads, scale, eps)
+              if needs[0] else None)
+        dparams = _build.plain_grads(
+            lambda *p: cuboid_attention_plain(x.detach(), *p, num_heads, scale, eps), params,
+            needs[1:7], g)
+        return (dx, *dparams, None, None, None)
+
+
+def fused_cuboid_attention_layer(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                                 w_qkv: torch.Tensor, bias: torch.Tensor, w_proj: torch.Tensor,
+                                 b_proj: torch.Tensor, num_heads: int, scale: float,
+                                 eps: float = 1e-5) -> torch.Tensor:
+    """The general cuboid layer on x (B, cuboids, vol, C).  CPU tensor: the
+    plain version in f32.  CUDA tensor: the kernel, or raise.  Differentiable
+    on both."""
+    return _FusedCuboidAttention.apply(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
+                                       scale, eps)
+
+
+# --------------------------------------------------------------------------- #
+# Grouped masked core on the head-major layout (B, heads, cuboids, vol, hc).
+
+def grouped_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            bias: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                            scale: float = 1.0) -> torch.Tensor:
+    """Plain version of the grouped core, f32: ``masked_softmax(q . scale .
+    k^T + bias[h]) . v``; ``mask`` (cuboids, vol, vol) bool, or None."""
+    s = torch.einsum("bhnic,bhnjc->bhnij", q * scale, k) + bias[None, :, None]
+    p = masked_softmax(s, None if mask is None else mask[None, None])
+    return torch.einsum("bhnij,bhnjc->bhnic", p, v)
+
+
+def _grouped_kernel(q, k, v, bias, mask, scale):
+    B, heads, nC, vol, hc = q.shape
+    if 4 * ((64 + 64) * (hc + 1) + 32 * 33 + 96) > SMEM_BYTES:
+        raise ValueError(f"grouped attention kernel: {hc} head channels do not fit in shared "
+                         "memory")
+    specs = [(name, t, (B, heads, nC, vol, hc)) for name, t in (("q", q), ("k", k), ("v", v))]
+    specs.append(("bias", bias, (heads, vol, vol)))
+    if mask is not None:
+        mask = mask.view(torch.uint8) if mask.dtype == torch.bool else mask
+        specs.append(("mask", mask, (nC, vol, vol), torch.uint8))
+    _build.require("cuboid_attention_grouped", specs)
+    out = torch.empty_like(q)
+    lib = _build.load("attention", _SIGNATURES)
+    err = lib.cuboid_attention_grouped(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(bias),
+        None if mask is None else _build.ptr(mask), _build.ptr(out), B, heads, nC, vol, hc,
+        float(scale), _build.stream_ptr(q.device))
+    _build.check(err, "cuboid_attention_grouped")
+    fused_cuboid_attention_grouped.launches += 1
+    return out
+
+
+class _GroupedAttention(torch.autograd.Function):
+    """Backward: autograd of the plain version, as the JAX package's is
+    ``jax.vjp`` of its reference."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, scale):
+        ctx.save_for_backward(q, k, v, bias, mask)
+        ctx.scale = scale
+        if not q.is_cuda:
+            return grouped_attention_plain(q, k, v, bias, mask, scale)
+        return _grouped_kernel(q, k, v, bias, mask, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, mask = ctx.saved_tensors
+        grads = _build.plain_grads(
+            lambda *a: grouped_attention_plain(*a, mask, ctx.scale), (q, k, v, bias),
+            ctx.needs_input_grad[:4], g)
+        return (*grads, None, None)
+
+
+def fused_cuboid_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   bias: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                                   scale: float = 1.0) -> torch.Tensor:
+    """The grouped core, q, k, v (B, heads, cuboids, vol, hc), bias (heads,
+    vol, vol), mask (cuboids, vol, vol) bool or None.  CPU tensor: the plain
+    version.  CUDA tensor: the kernel, or raise.  Differentiable on both."""
+    return _GroupedAttention.apply(q, k, v, bias, mask, scale)
+
+
+fused_cuboid_attention_layer.launches = 0
+fused_cuboid_attention_layer_bwd_dx.launches = 0
+fused_cuboid_attention_grouped.launches = 0

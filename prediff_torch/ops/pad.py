@@ -1,6 +1,7 @@
-"""3-D padding of (B, T, H, W, C) tensors (the patch merge pads to a
-multiple of its window): 'zeros' and 'ignore' pad with zeros at the end of
-each axis, 'nearest' resizes by nearest neighbour."""
+"""3-D padding of (B, T, H, W, C) tensors to a multiple of a patch-merge
+window or a cuboid, and its inverse: 'zeros' and 'ignore' pad with zeros at
+the end of each axis ('ignore' also masks the pad out of attention, see
+``ops/cuboid.py``), 'nearest' resizes by nearest neighbour."""
 import torch
 
 
@@ -14,14 +15,30 @@ def _nearest_resize_thw(x: torch.Tensor, T_new: int, H_new: int, W_new: int) -> 
     return x[:, t_idx][:, :, h_idx][:, :, :, w_idx]
 
 
+def _check_type(padding_type: str) -> None:
+    if padding_type not in ("zeros", "ignore", "nearest"):
+        raise ValueError(f"padding_type '{padding_type}'")
+
+
 def generalize_padding(x: torch.Tensor, pad_t: int, pad_h: int, pad_w: int,
                        padding_type: str) -> torch.Tensor:
     if pad_t == 0 and pad_h == 0 and pad_w == 0:
         return x
-    if padding_type not in ("zeros", "ignore", "nearest"):
-        raise ValueError(f"padding_type '{padding_type}'")
+    _check_type(padding_type)
     _, T, H, W, _ = x.shape
     if padding_type == "nearest":
         return _nearest_resize_thw(x, T + pad_t, H + pad_h, W + pad_w)
     return torch.nn.functional.pad(x, (0, 0, 0, pad_w, 0, pad_h, 0, pad_t))
 
+
+def generalize_unpadding(x: torch.Tensor, pad_t: int, pad_h: int, pad_w: int,
+                         padding_type: str) -> torch.Tensor:
+    """Inverse of :func:`generalize_padding`: crop the end of each axis, or
+    for 'nearest' resize back."""
+    _check_type(padding_type)
+    if pad_t == 0 and pad_h == 0 and pad_w == 0:
+        return x
+    _, T, H, W, _ = x.shape
+    if padding_type == "nearest":
+        return _nearest_resize_thw(x, T - pad_t, H - pad_h, W - pad_w)
+    return x[:, :T - pad_t, :H - pad_h, :W - pad_w, :]

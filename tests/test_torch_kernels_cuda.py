@@ -14,6 +14,12 @@ from prediff_torch.ops.attention import (axial_attention_bwd_dx_plain,
                                          fused_axial_attention_bwd_full,
                                          fused_axial_attention_dropout,
                                          fused_axial_attention_dropout_bwd_full)
+from prediff_torch.ops.attention import (cuboid_attention_bwd_dx_plain, cuboid_attention_plain,
+                                         fused_cuboid_attention_grouped,
+                                         fused_cuboid_attention_layer,
+                                         fused_cuboid_attention_layer_bwd_dx,
+                                         grouped_attention_plain)
+from prediff_torch.ops.cuboid import compute_cuboid_self_attention_mask
 from prediff_torch.ops.dropout import keep_mask
 from prediff_torch.ops.ffn import (ffn_bwd_dx_plain, ffn_bwd_full_plain, ffn_dropout_bwd_full_plain,
                                    ffn_dropout_plain, ffn_plain, fused_ffn, fused_ffn_bwd_dx,
@@ -392,3 +398,89 @@ def test_autograd_through_the_dropout_wrappers_on_the_card(dev):
             assert gt is not None and torch.isfinite(gt).all(), (name, i)
             _close_rel(gt, wt)
     assert [fn.launches for fn in counted] == [b + 1 for b in before]
+
+
+# ---- the general cuboid layer and the grouped masked core ----
+# (B, cuboids, vol, C): the video_swin_1x8 UNet (13x16x16x256, 13x8x8x512) and
+# alignment net (6x16x16x128) shapes, and vol 128 and 256 (query tiles of 32
+# and 16 rows), vol 36 (a ragged tile)
+CUBOID_SHAPES = [(1, 52, 64, 256), (1, 13, 64, 512), (1, 24, 64, 128), (1, 26, 128, 256),
+                 (1, 13, 256, 256), (2, 5, 36, 64)]
+
+
+def _cuboid_args(dev, shape, heads=4):
+    B, nC, vol, C = shape
+    return (torch.randn(*shape, device=dev), 1.0 + 0.1 * torch.randn(C, device=dev),
+            0.1 * torch.randn(C, device=dev), torch.randn(3 * C, C, device=dev) / C ** 0.5,
+            0.5 * torch.randn(heads, vol, vol, device=dev), torch.randn(C, C, device=dev) / C ** 0.5,
+            0.1 * torch.randn(C, device=dev))
+
+
+@pytest.mark.parametrize("shape", CUBOID_SHAPES)
+def test_cuboid_layer_kernels_match_plain(dev, shape):
+    heads = 4
+    args = _cuboid_args(dev, shape, heads)
+    scale = (shape[3] // heads) ** -0.5
+    before = (fused_cuboid_attention_layer.launches, fused_cuboid_attention_layer_bwd_dx.launches)
+    _close_bf16(fused_cuboid_attention_layer(*args, heads, scale),
+                cuboid_attention_plain(*args, heads, scale, mxu_dtype=torch.bfloat16))
+    g = torch.randn_like(args[0])
+    _close_rel(fused_cuboid_attention_layer_bwd_dx(args[0], g, *args[1:6], heads, scale),
+               cuboid_attention_bwd_dx_plain(args[0], g, *args[1:6], heads, scale,
+                                             mxu_dtype=torch.bfloat16))
+    assert (fused_cuboid_attention_layer.launches,
+            fused_cuboid_attention_layer_bwd_dx.launches) == (before[0] + 1, before[1] + 1)
+
+
+# (B, heads, cuboids, vol, hc), and the window mask's (T, H, W), cuboid, shift,
+# padding type: the UNet's shifted 1x8x8 windows (vol 64), video_swin_2x8's
+# padded 2x8x8 cuboids unmasked (vol 128), "ignore" padding with fully masked
+# rows, a 1x32x40 window (vol 1280), and "full" on the UNet (vol 3328)
+GROUPED_CASES = [
+    ((1, 4, 52, 64, 64), ((13, 16, 16), (1, 8, 8), (0, 4, 4), "zeros")),
+    ((1, 4, 28, 128, 64), None),
+    ((2, 2, 12, 32, 32), ((5, 6, 6), (2, 4, 4), (0, 0, 0), "ignore")),
+    ((1, 4, 2, 1280, 32), None),
+    ((1, 4, 1, 3328, 64), None),
+]
+
+
+@pytest.mark.parametrize("shape,window", GROUPED_CASES)
+def test_grouped_kernel_matches_plain(dev, shape, window):
+    B, heads, nC, vol, hc = shape
+    q, k, v = (torch.randn(*shape, device=dev) for _ in range(3))
+    bias = 0.5 * torch.randn(heads, vol, vol, device=dev)
+    mask = None
+    if window is not None:
+        mask = torch.from_numpy(compute_cuboid_self_attention_mask(
+            window[0], window[1], window[2], ("l", "l", "l"), window[3])).to(dev)
+        assert tuple(mask.shape) == (nC, vol, vol)
+    before = fused_cuboid_attention_grouped.launches
+    got = fused_cuboid_attention_grouped(q, k, v, bias, mask, hc ** -0.5)
+    want = grouped_attention_plain(q, k, v, bias, mask, hc ** -0.5)
+    assert fused_cuboid_attention_grouped.launches == before + 1
+    # f32 throughout on both sides; another sum order and the online softmax
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+    if mask is not None and (~mask.any(-1)).any():
+        assert (got[:, :, ~mask.any(-1)] == 0).all()
+
+
+def test_autograd_through_the_cuboid_wrappers_on_the_card(dev):
+    """Guidance: dx through the layer from the dx kernel, q, k, v and bias
+    through the grouped core from autograd of its plain version; parameter
+    gradients of the layer from autograd of its f32 plain version."""
+    args = _cuboid_args(dev, (1, 6, 64, 128))
+    g = torch.randn_like(args[0])
+    got = _grads(lambda *a: fused_cuboid_attention_layer(*a, 4, 0.17), args, g)
+    want = _grads(lambda *a: cuboid_attention_plain(*a, 4, 0.17), args, g)
+    for gt, wt in zip(got, want):
+        _close_rel(gt, wt)
+    q, k, v = (torch.randn(1, 2, 3, 64, 32, device=dev) for _ in range(3))
+    bias = torch.randn(2, 64, 64, device=dev)
+    mask = torch.rand(3, 64, 64, device=dev) > 0.3
+    gq = torch.randn_like(q)
+    got = _grads(lambda *a: fused_cuboid_attention_grouped(*a, mask, 0.2), (q, k, v, bias), gq)
+    want = _grads(lambda *a: grouped_attention_plain(*a, mask, 0.2), (q, k, v, bias), gq)
+    for gt, wt in zip(got, want):
+        torch.testing.assert_close(gt, wt, rtol=1e-4, atol=1e-4)
