@@ -17,8 +17,9 @@ forecast, the 100-step guided DDPM forecast and the 50-step guided DDIM
 forecast (VAE encode, the steps, VAE decode); profiles of a UNet forward
 and of a guided step.  Then the same on the ``video_swin_1x8`` pattern
 (``swin_*`` phases: shifted 1x8x8 windows in the UNet and the alignment net):
-the general cuboid layer, its input gradient and the grouped masked core
-against their plain versions at its shapes and at vol 128, 256 and 1536, a
+the general cuboid layer, its input gradient, its all-gradients backward and
+their dropout forms and the grouped masked core against their plain versions
+at its shapes (forecasting and training) and at vol 128, 256 and 1536, a
 UNet forward and a guidance shift card against CPU, the 100-step unguided
 and guided DDPM forecasts with exact launch counts, profiles; and for each
 of ``PATTERN_CHECKS`` (depth [1,1]) a UNet forward and a guidance shift card
@@ -33,8 +34,12 @@ kernels) against the CPU (plain, f32, the same masks regenerated from the same
 seed), twice on the card for bit-equal gradients; ``train``, ``fit`` with
 ``DiffusionTrainer`` for a few accumulated optimizer steps from synthetic
 batches with a validation step on the EMA weights (eval mode: no dropout) and
-a checkpoint restored into a fresh state; a profile of one micro-step.  Then
-the ``kernels`` summary line, the card's name
+a checkpoint restored into a fresh state; a profile of one micro-step.  The
+same four training phases then run on ``video_swin_1x8`` (``swin_train_rate0``
+at depth [1,1], ``swin_train_grads``, ``swin_train``,
+``profile_swin_train_step``): the general layer's all-gradients and dropout
+kernels, the grouped core at rate 0, the einsum route under attention
+dropout.  Then the ``kernels`` summary line, the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that line is printed.
 """
@@ -103,20 +108,37 @@ KERNELS = {
     "cuboid_attention_grouped": ("prediff_torch/csrc/attention.cu",
                                  "prediff_tpu/ops/pallas_attention.py:175",
                                  "swin_guided_forecast"),
+    # training the non-axial patterns: the general layer's all gradients, and
+    # the seed= forms of the layer and of that backward (the line of their seed argument)
+    "cuboid_attention_bwd_full": ("prediff_torch/csrc/attention.cu",
+                                  "prediff_tpu/ops/pallas_attention.py:1196", "swin_train_rate0"),
+    "cuboid_attention_dropout": ("prediff_torch/csrc/attention.cu",
+                                 "prediff_tpu/ops/pallas_attention.py:533", "swin_train"),
+    "cuboid_attention_dropout_bwd_full": ("prediff_torch/csrc/attention.cu",
+                                          "prediff_tpu/ops/pallas_attention.py:1209",
+                                          "swin_train"),
 }
 # which path's launches per step weigh a kernel's times
 PATH_WEIGHTS = {"guided_forecast": ("per_unet", "per_align"), "train": ("per_train",),
-                "train_rate0": ("per_train",), "swin_guided_forecast": ("per_unet", "per_align")}
+                "train_rate0": ("per_train",), "swin_guided_forecast": ("per_unet", "per_align"),
+                "swin_train": ("per_train",), "swin_train_rate0": ("per_train",)}
 SWIN_PATTERN = "video_swin_1x8"   # the pattern of the swin phases, UNet and alignment net
 # patterns checked card against CPU at full width, depth [1,1]: between them
 # every route and strategy (general layer at vol 256 and on dilated cuboids,
 # the grouped core on padded, shifted and whole-input windows)
 PATTERN_CHECKS = ("divided_st", "spatial_lg_v1", "axial_space_dilate_2", "video_swin_2x8", "full")
-CUBOID_KERNELS = ("cuboid_attention", "cuboid_attention_bwd_dx", "cuboid_attention_grouped")
+CUBOID_LAYER_KERNELS = ("cuboid_attention", "cuboid_attention_bwd_dx", "cuboid_attention_bwd_full",
+                        "cuboid_attention_dropout", "cuboid_attention_dropout_bwd_full")
+CUBOID_KERNELS = CUBOID_LAYER_KERNELS + ("cuboid_attention_grouped",)
+# each pair: the kernel without dropout, then its dropout form
 FFN_FORWARDS = ("ffn", "ffn_dropout")
 FFN_BACKWARDS = ("ffn_bwd_full", "ffn_dropout_bwd_full")
 ATTN_FORWARDS = ("axial_attention", "axial_attention_dropout")
 ATTN_BACKWARDS = ("axial_attention_bwd_full", "axial_attention_dropout_bwd_full")
+CUBOID_FORWARDS = ("cuboid_attention", "cuboid_attention_dropout")
+CUBOID_BACKWARDS = ("cuboid_attention_bwd_full", "cuboid_attention_dropout_bwd_full")
+PAIRS = (FFN_FORWARDS, FFN_BACKWARDS, ATTN_FORWARDS, ATTN_BACKWARDS, CUBOID_FORWARDS,
+         CUBOID_BACKWARDS)
 
 
 LOG = []  # open files that every emitted line is also written to
@@ -182,6 +204,45 @@ def judge(c, got, want, tol=None, rel_tol=3e-2, rel_mean_tol=2e-3):
     c.update(max_abs_err=e[0], max_rel_err=e[1], mean_abs_err=e[2], ok=ok,
              tol=tol if tol is not None else {"rel_max": rel_tol, "rel_mean": rel_mean_tol})
     return ok
+
+
+def judge_all(c, names, got, want, **tols):
+    """A kernel with several outputs: each held to its own scale; the case
+    keeps the worst absolute error and every output's."""
+    per_output = {}
+    for name, gt, wt in zip(names, got, want):
+        if wt is None:
+            continue
+        one = {}
+        judge(one, gt, wt, **tols)
+        per_output[name] = one
+    worst = max(per_output.values(), key=lambda o: o["max_rel_err"])
+    c.update(worst, ok=all(o["ok"] for o in per_output.values()),
+             max_abs_err=max(o["max_abs_err"] for o in per_output.values()),
+             outputs={k: {"max_abs_err": o["max_abs_err"], "max_rel_err": o["max_rel_err"]}
+                      for k, o in per_output.items()})
+
+
+def judge_drop(c, shapes, observed_drop, bit_equal, device):
+    """The dropout cases' own checks.  The kept share of each mask the kernel
+    regenerates (``keep_mask`` on the card: the kernel agrees with the plain
+    version under it) and, where the output shows it, the share the kernel
+    itself dropped, each within 4 sigma of its rate; and the kernel at rate 0
+    with a seed against the kernel without dropout."""
+    from prediff_torch.ops.dropout import keep_mask
+
+    shares = {}
+    for tensor, shape in enumerate(shapes):
+        m = keep_mask(DROP_SEED, DROP_SITE, tensor, shape, DROP_RATE, device)
+        shares[f"tensor{tensor}"] = (float(m.mean()), m.numel())
+    if observed_drop is not None:
+        shares["observed"] = (1.0 - float(observed_drop[0]), observed_drop[1])
+    c["kept_share"] = {k: v[0] for k, v in shares.items()}
+    c["kept_share_ok"] = all(
+        abs(share - (1 - DROP_RATE)) <= 4 * (DROP_RATE * (1 - DROP_RATE) / n) ** 0.5
+        for share, n in shares.values())
+    c["rate0_bit_equal"] = bit_equal
+    c["ok"] = c["ok"] and c["kept_share_ok"] and bit_equal
 
 
 def timed(c, kernel, plain, nbytes, library=None, **flops):
@@ -257,7 +318,6 @@ def check_kernels(cases, device):
                                              fused_axial_attention_bwd_full,
                                              fused_axial_attention_dropout,
                                              fused_axial_attention_dropout_bwd_full)
-    from prediff_torch.ops.dropout import keep_mask
     from prediff_torch.ops.ffn import (ffn_bwd_dx_plain, ffn_bwd_full_plain,
                                        ffn_dropout_bwd_full_plain, ffn_dropout_plain, ffn_plain,
                                        fused_ffn, fused_ffn_bwd_dx, fused_ffn_bwd_full,
@@ -275,41 +335,6 @@ def check_kernels(cases, device):
 
     def vec(C, scale=0.1, shift=0.0):
         return randn(C, scale=scale, shift=shift)
-
-    def judge_all(c, names, got, want, **tols):
-        """A kernel with several outputs: each held to its own scale; the
-        case keeps the worst absolute error and every output's."""
-        per_output = {}
-        for name, gt, wt in zip(names, got, want):
-            if wt is None:
-                continue
-            one = {}
-            judge(one, gt, wt, **tols)
-            per_output[name] = one
-        worst = max(per_output.values(), key=lambda o: o["max_rel_err"])
-        c.update(worst, ok=all(o["ok"] for o in per_output.values()),
-                 max_abs_err=max(o["max_abs_err"] for o in per_output.values()),
-                 outputs={k: {"max_abs_err": o["max_abs_err"], "max_rel_err": o["max_rel_err"]}
-                          for k, o in per_output.items()})
-
-    def judge_drop(c, shapes, observed_drop, bit_equal):
-        """The dropout cases' own checks.  The kept share of each mask the
-        kernel regenerates (``keep_mask`` on the card: the kernel agrees with
-        the plain version under it) and, where the output shows it, the share
-        the kernel itself dropped, each within 4 sigma of its rate; and the
-        kernel at rate 0 with a seed against the kernel without dropout."""
-        shares = {}
-        for tensor, shape in enumerate(shapes):
-            m = keep_mask(DROP_SEED, DROP_SITE, tensor, shape, DROP_RATE, device)
-            shares[f"tensor{tensor}"] = (float(m.mean()), m.numel())
-        if observed_drop is not None:
-            shares["observed"] = (1.0 - float(observed_drop[0]), observed_drop[1])
-        c["kept_share"] = {k: v[0] for k, v in shares.items()}
-        c["kept_share_ok"] = all(
-            abs(share - (1 - DROP_RATE)) <= 4 * (DROP_RATE * (1 - DROP_RATE) / n) ** 0.5
-            for share, n in shares.values())
-        c["rate0_bit_equal"] = bit_equal
-        c["ok"] = c["ok"] and c["kept_share_ok"] and bit_equal
 
     failed = []
     for c in cases["groupnorm_silu"]:
@@ -368,7 +393,7 @@ def check_kernels(cases, device):
             # the residual is never masked: out == x exactly where the output mask dropped
             judge_drop(c, [(M, hid), (M, C)], (float((got == x).float().mean()), M * C),
                        torch.equal(fused_ffn_dropout(*args, 0.0, 0.0, DROP_SEED, DROP_SITE),
-                                   fused_ffn(*args)))
+                                   fused_ffn(*args)), device)
             timed(c, lambda: fused_ffn_dropout(*args, *drop),
                   lambda: ffn_dropout_plain(*args, *drop, mxu_dtype=bf16),
                   4 * (2 * M * C + 2 * C * hid + hid + 3 * C), bf16_flops=4 * M * C * hid)
@@ -380,7 +405,8 @@ def check_kernels(cases, device):
             judge_all(c, ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2"), got, want)
             zero = fused_ffn_dropout_bwd_full(*args, 0.0, 0.0, DROP_SEED, DROP_SITE)
             judge_drop(c, [(M, hid), (M, C)], None,
-                       all(torch.equal(a, b) for a, b in zip(zero, fused_ffn_bwd_full(*args))))
+                       all(torch.equal(a, b) for a, b in zip(zero, fused_ffn_bwd_full(*args))),
+                       device)
             timed(c, lambda: fused_ffn_dropout_bwd_full(*args, *drop),
                   lambda: ffn_dropout_bwd_full_plain(*args, *drop, mxu_dtype=bf16),
                   4 * (3 * M * C + 4 * C * hid + 2 * hid + 5 * C), bf16_flops=10 * M * C * hid)
@@ -432,7 +458,7 @@ def check_kernels(cases, device):
             judge_drop(c, mask_shapes, (float((got == 0).float().mean()), M * C),
                        torch.equal(fused_axial_attention_dropout(*args, 0.0, 0.0, DROP_SEED,
                                                                  DROP_SITE),
-                                   fused_axial_attention(*args)))
+                                   fused_axial_attention(*args)), device)
             timed(c, lambda: fused_axial_attention_dropout(*args, *drop),
                   lambda: axial_attention_plain(*args, bf16, *drop),
                   4 * (2 * M * C + 4 * C * C + heads * vol * vol + 3 * C),
@@ -448,7 +474,7 @@ def check_kernels(cases, device):
             zero = fused_axial_attention_dropout_bwd_full(*args, 0.0, 0.0, DROP_SEED, DROP_SITE)
             judge_drop(c, mask_shapes, None,
                        all(torch.equal(a, b)
-                           for a, b in zip(zero, fused_axial_attention_bwd_full(*args))))
+                           for a, b in zip(zero, fused_axial_attention_bwd_full(*args))), device)
             timed(c, lambda: fused_axial_attention_dropout_bwd_full(*args, *drop),
                   lambda: axial_attention_bwd_full_plain(*args, bf16, *drop),
                   4 * (3 * M * C + 8 * C * C + 2 * heads * vol * vol + 5 * C),
@@ -534,14 +560,16 @@ def attention_layers(model, per_call: int):
     return out
 
 
-def swin_cases(unet, align):
-    """The three cuboid kernels' cases on the swin path: each route's shapes
-    in the UNet (``per_unet`` launches per forward at B=1) and the alignment
-    net (``per_align`` per guidance shift, forward and backward), plus shapes
-    no path of this configuration gives (weight 0): the layer kernels at
-    vol 128 and 256, the grouped core unmasked on video_swin_2x8's padded
-    2x8x8 cuboids, with "ignore" padding (fully masked rows) and at vol 1536
-    (the "full" pattern on the alignment net)."""
+def swin_cases(unet, align, train_batch: int):
+    """The cuboid kernels' cases on the swin paths: each route's shapes in the
+    UNet (``per_unet`` launches per forward at B=1; ``per_train`` per training
+    micro-step at ``train_batch`` samples, the general layer's forward and
+    all-gradients kernels, with and without dropout) and the alignment net
+    (``per_align`` per guidance shift, forward and backward), plus shapes no
+    path of this configuration gives (weight 0): the layer kernels at vol 128
+    and 256, the grouped core unmasked on video_swin_2x8's padded 2x8x8
+    cuboids, with "ignore" padding (fully masked rows) and at vol 1536 (the
+    "full" pattern on the alignment net)."""
     from prediff_torch.ops.cuboid import update_cuboid_size_shift_size
 
     cases = {k: {} for k in CUBOID_KERNELS}
@@ -563,6 +591,10 @@ def swin_cases(unet, align):
                 names = ["cuboid_attention"] + (["cuboid_attention_bwd_dx"] if model is align else [])
                 for name in names:
                     add(name, (nC, vol, c), {weight: n}, shape=[1, nC, vol, c])
+                if model is unet:
+                    for name in CUBOID_FORWARDS + CUBOID_BACKWARDS:
+                        add(name, ("train", nC, vol, c), {"per_train": n},
+                            shape=[train_batch, nC, vol, c])
             elif route.startswith("grouped"):
                 window = ([t, h, w], list(cs), list(shift), list(layer.strategy),
                           layer.padding_type) if route == "grouped_masked" else None
@@ -570,7 +602,7 @@ def swin_cases(unet, align):
                 add("cuboid_attention_grouped", (nC, vol, hc, str(window)), {weight: n},
                     shape=[1, layer.num_heads, nC, vol, hc], window=window)
     for nC, vol, c in ((26, 128, 256), (13, 256, 256)):
-        for name in ("cuboid_attention", "cuboid_attention_bwd_dx"):
+        for name in CUBOID_LAYER_KERNELS:
             add(name, (nC, vol, c), {}, shape=[1, nC, vol, c])
     for shape, window in (([1, 4, 28, 128, 64], None),
                           ([1, 4, 28, 128, 64], [[13, 16, 16], [2, 8, 8], [0, 0, 0],
@@ -581,24 +613,39 @@ def swin_cases(unet, align):
     return {k: list(v.values()) for k, v in cases.items()}
 
 
-def path_launches(unet, align):
-    """Launches per UNet forward at B=1 and per guidance shift, every kernel,
-    for any pattern: the layers' routes give the attention kernels (a grouped
-    core has no backward kernel: its gradient is autograd of the plain
-    version), one FFN per attention layer; GN twice in ``first_proj`` and in
-    each time-block call, the alignment net's time blocks the resblock
-    kernels, its ``first_proj`` GN forward and all-gradients backward."""
-    per = {k: {"per_unet": 0, "per_align": 0} for k in KERNELS}
-    per["groupnorm_silu"]["per_unet"] = 2 + 2 * 2 * sum(unet.depth)
-    per["groupnorm_silu"]["per_align"] = per["groupnorm_silu_bwd_full"]["per_align"] = 2
-    per["resblock"]["per_align"] = per["resblock_bwd"]["per_align"] = sum(align.depth)
+def path_launches(unet, align=None):
+    """Launches per UNet forward at B=1, per guidance shift and per training
+    micro-step, every kernel, for any pattern: the layers' routes give the
+    attention kernels (a grouped core has no backward kernel: its gradient is
+    autograd of the plain version), one FFN per attention layer; GN twice in
+    ``first_proj`` and in each time-block call, the alignment net's time
+    blocks the resblock kernels, its ``first_proj`` GN forward and
+    all-gradients backward.  ``per_train`` counts each forward kernel of a
+    micro-step, its all-gradients backward, and both their dropout forms
+    (``expected_train_launches`` picks the forms a run takes)."""
+    per = {k: {"per_unet": 0, "per_align": 0, "per_train": 0} for k in KERNELS}
+    gn = 2 + 2 * 2 * sum(unet.depth)
+    per["groupnorm_silu"]["per_unet"] = gn
+    per["groupnorm_silu"]["per_train"] = per["groupnorm_silu_bwd_full"]["per_train"] = gn
     kernel = {"v4": "cuboid_attention", "grouped": "cuboid_attention_grouped",
               "grouped_masked": "cuboid_attention_grouped", "axial": "axial_attention"}
-    for model, key in ((unet, "per_unet"), (align, "per_align")):
+    models = [(unet, "per_unet")]
+    if align is not None:
+        per["groupnorm_silu"]["per_align"] = per["groupnorm_silu_bwd_full"]["per_align"] = 2
+        per["resblock"]["per_align"] = per["resblock_bwd"]["per_align"] = sum(align.depth)
+        models.append((align, "per_align"))
+    for model, key in models:
         for (t, h, w, c), layer, n in attention_layers(model, 2 if model is unet else 1):
             route = layer.route((1, t, h, w, c))
             per[kernel[route]][key] += n
             per["ffn"][key] += n
+            if model is unet:
+                train = [kernel[route], *FFN_FORWARDS, *FFN_BACKWARDS]
+                if route in ("v4", "axial"):
+                    train += [kernel[route] + s for s in ("_bwd_full", "_dropout",
+                                                          "_dropout_bwd_full")]
+                for name in train:
+                    per[name]["per_train"] += n
             if model is align:
                 per["ffn_bwd_dx"][key] += n
                 if route in ("v4", "axial"):
@@ -607,17 +654,23 @@ def path_launches(unet, align):
 
 
 def check_cuboid_kernels(cases, device):
-    """The three cuboid kernels against their plain versions (the layer: bf16
-    operands at the same points; the grouped core: f32 on both sides, held
-    to 1e-5 of the output's max), with times and bounds; returns the failed
-    cases."""
+    """The cuboid kernels against their plain versions (the layer kernels:
+    bf16 operands at the same points, the dropout forms under the same masks;
+    the grouped core: f32 on both sides, held to 1e-5 of the output's max),
+    with times and bounds; returns the failed cases."""
     import torch
     import torch.nn.functional as F
     from prediff_torch.ops.attention import (cuboid_attention_bwd_dx_plain,
+                                             cuboid_attention_bwd_full_plain,
+                                             cuboid_attention_dropout_bwd_full_plain,
+                                             cuboid_attention_dropout_plain,
                                              cuboid_attention_plain,
                                              fused_cuboid_attention_grouped,
                                              fused_cuboid_attention_layer,
                                              fused_cuboid_attention_layer_bwd_dx,
+                                             fused_cuboid_attention_layer_bwd_full,
+                                             fused_cuboid_attention_layer_dropout,
+                                             fused_cuboid_attention_layer_dropout_bwd_full,
                                              grouped_attention_plain)
     from prediff_torch.ops.cuboid import NEG_INF, compute_cuboid_self_attention_mask
 
@@ -627,7 +680,9 @@ def check_cuboid_kernels(cases, device):
     def randn(*shape, scale=1.0, shift=0.0):
         return torch.randn(shape, generator=gen, device=device) * scale + shift
 
-    for name in ("cuboid_attention", "cuboid_attention_bwd_dx"):
+    drop = (DROP_RATE, DROP_RATE, DROP_SEED, DROP_SITE)
+    grad_names = ("dx", "dln_w", "dln_b", "dw_qkv", "dbias", "dw_proj", "db_proj")
+    for name in CUBOID_LAYER_KERNELS:
         for c in cases[name]:
             B, nC, vol, C = c["shape"]
             M = B * nC * vol
@@ -635,15 +690,55 @@ def check_cuboid_kernels(cases, device):
             w_qkv, bias = randn(3 * C, C, scale=C ** -0.5), randn(heads, vol, vol, scale=0.5)
             w_proj, b_proj = randn(C, C, scale=C ** -0.5), randn(C, scale=0.1)
             scale = (C // heads) ** -0.5
-            if name == "cuboid_attention":
+            mask_shapes = [(B, nC, heads, vol, vol), (B, nC, vol, C)]
+            fwd_bytes = 4 * (2 * M * C + 4 * C * C + heads * vol * vol + 3 * C)
+            bwd_bytes = 4 * (3 * M * C + 8 * C * C + 2 * heads * vol * vol + 5 * C)
+            if name == "cuboid_attention_dropout":
+                args = (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale, 1e-5)
+                got = fused_cuboid_attention_layer_dropout(*args, *drop)
+                want = cuboid_attention_dropout_plain(*args, bf16, *drop)
+                sync(device)
+                judge(c, got, want, tol=2e-2)
+                judge_drop(c, mask_shapes, (float((got == 0).float().mean()), M * C),
+                           torch.equal(fused_cuboid_attention_layer_dropout(
+                               *args, 0.0, 0.0, DROP_SEED, DROP_SITE),
+                               fused_cuboid_attention_layer(*args)), device)
+                timed(c, lambda: fused_cuboid_attention_layer_dropout(*args, *drop),
+                      lambda: cuboid_attention_dropout_plain(*args, bf16, *drop), fwd_bytes,
+                      bf16_flops=8 * M * C * C + 4 * M * vol * C)
+            elif name in CUBOID_BACKWARDS:
+                args = (x, randn(B, nC, vol, C), ln_w, ln_b, w_qkv, bias, w_proj, heads, scale,
+                        1e-5)
+                if name == "cuboid_attention_bwd_full":
+                    kernel = lambda: fused_cuboid_attention_layer_bwd_full(*args)  # noqa: E731
+                    plain = lambda: cuboid_attention_bwd_full_plain(*args, bf16)  # noqa: E731
+                else:
+                    kernel = lambda: fused_cuboid_attention_layer_dropout_bwd_full(  # noqa: E731
+                        *args, *drop)
+                    plain = lambda: cuboid_attention_dropout_bwd_full_plain(  # noqa: E731
+                        *args, bf16, *drop)
+                got, want = kernel(), plain()
+                sync(device)
+                judge_all(c, grad_names, got, want)
+                if name != "cuboid_attention_bwd_full":
+                    zero = fused_cuboid_attention_layer_dropout_bwd_full(
+                        *args, 0.0, 0.0, DROP_SEED, DROP_SITE)
+                    judge_drop(c, mask_shapes, None, all(
+                        torch.equal(a, b)
+                        for a, b in zip(zero, fused_cuboid_attention_layer_bwd_full(*args))),
+                        device)
+                c["bit_equal_across_two_runs"] = all(torch.equal(a, b)
+                                                     for a, b in zip(got, kernel()))
+                c["ok"] = c["ok"] and c["bit_equal_across_two_runs"]
+                timed(c, kernel, plain, bwd_bytes, bf16_flops=22 * M * C * C + 12 * M * vol * C)
+            elif name == "cuboid_attention":
                 args = (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale)
                 got, want = fused_cuboid_attention_layer(*args), cuboid_attention_plain(
                     *args, mxu_dtype=bf16)
                 sync(device)
                 judge(c, got, want, tol=2e-2)
                 timed(c, lambda: fused_cuboid_attention_layer(*args),
-                      lambda: cuboid_attention_plain(*args, mxu_dtype=bf16),
-                      4 * (2 * M * C + 4 * C * C + heads * vol * vol + 3 * C),
+                      lambda: cuboid_attention_plain(*args, mxu_dtype=bf16), fwd_bytes,
                       bf16_flops=8 * M * C * C + 4 * M * vol * C)
             else:
                 args = (x, randn(B, nC, vol, C), ln_w, ln_b, w_qkv, bias, w_proj, heads, scale)
@@ -694,21 +789,21 @@ def expected_launches(cases, steps: int, guided: bool):
             for name, cs in cases.items()}
 
 
-def expected_train_launches(cases, micro_steps: int, val_steps: int, dropout: bool):
+def expected_train_launches(per_train, micro_steps: int, val_steps: int, dropout: bool):
     """Wrapper calls of ``micro_steps`` training micro-steps and ``val_steps``
-    validation steps.  A validation step runs in eval mode: the forward
-    kernels without dropout, alone.  A micro-step with ``dropout`` runs the
-    FFN's and the attention's dropout kernels, forward and all-gradients, and
-    none of their forms without dropout."""
-    with_drop = FFN_FORWARDS[1:] + FFN_BACKWARDS[1:] + ATTN_FORWARDS[1:] + ATTN_BACKWARDS[1:]
-    without = FFN_FORWARDS[:1] + FFN_BACKWARDS[:1] + ATTN_FORWARDS[:1] + ATTN_BACKWARDS[:1]
-    out = {}
-    for name, cs in cases.items():
-        per = sum(c["per_train"] for c in cs)
-        forward = name in ("groupnorm_silu", "ffn", "axial_attention")
-        in_micro = name not in (without if dropout else with_drop)
-        out[name] = (micro_steps * in_micro + val_steps * forward) * per
-    return out
+    validation steps, from each kernel's ``per_train`` (``path_launches``).
+    A validation step runs in eval mode: the forward kernels without dropout,
+    alone.  A micro-step with ``dropout`` (the recipe's rates, all above 0)
+    runs the FFN's and the attention layers' dropout kernels, forward and
+    all-gradients, and none of their forms without dropout; nor the grouped
+    core, whose windows take the einsum route under attention dropout."""
+    with_drop = tuple(pair[1] for pair in PAIRS)
+    without = tuple(pair[0] for pair in PAIRS) + ("cuboid_attention_grouped",)
+    forward = ("groupnorm_silu", "ffn", "axial_attention", "cuboid_attention",
+               "cuboid_attention_grouped")
+    return {name: (micro_steps * (name not in (without if dropout else with_drop))
+                   + val_steps * (name in forward)) * per
+            for name, per in per_train.items()}
 
 
 def summarize(cases, launches_by_path):
@@ -929,7 +1024,10 @@ def run(device, cfg, smi: str) -> None:
                                              fused_axial_attention_dropout_bwd_full,
                                              fused_cuboid_attention_grouped,
                                              fused_cuboid_attention_layer,
-                                             fused_cuboid_attention_layer_bwd_dx)
+                                             fused_cuboid_attention_layer_bwd_dx,
+                                             fused_cuboid_attention_layer_bwd_full,
+                                             fused_cuboid_attention_layer_dropout,
+                                             fused_cuboid_attention_layer_dropout_bwd_full)
     from prediff_torch.ops.ffn import (fused_ffn, fused_ffn_bwd_dx, fused_ffn_bwd_full,
                                        fused_ffn_dropout, fused_ffn_dropout_bwd_full)
     from prediff_torch.ops.groupnorm import fused_groupnorm_silu, fused_groupnorm_silu_bwd_full
@@ -951,7 +1049,10 @@ def run(device, cfg, smi: str) -> None:
                 "axial_attention_dropout_bwd_full": fused_axial_attention_dropout_bwd_full,
                 "cuboid_attention": fused_cuboid_attention_layer,
                 "cuboid_attention_bwd_dx": fused_cuboid_attention_layer_bwd_dx,
-                "cuboid_attention_grouped": fused_cuboid_attention_grouped}
+                "cuboid_attention_grouped": fused_cuboid_attention_grouped,
+                "cuboid_attention_bwd_full": fused_cuboid_attention_layer_bwd_full,
+                "cuboid_attention_dropout": fused_cuboid_attention_layer_dropout,
+                "cuboid_attention_dropout_bwd_full": fused_cuboid_attention_layer_dropout_bwd_full}
     gen = torch.Generator().manual_seed(SEED)
     unet_cpu = init_params_(build_unet(cfg), gen, randomize=True).eval().requires_grad_(False)
     vae_cpu = init_params_(build_vae(cfg), gen, randomize=True).eval().requires_grad_(False)
@@ -984,7 +1085,7 @@ def run(device, cfg, smi: str) -> None:
     # the launch counts of the other paths come from the layers' routes: on
     # the axial path they must give what the kernel cases give
     by_route = path_launches(unet_cpu, align_cpu)
-    by_case = {k: {key: sum(c[key] for c in cs) for key in ("per_unet", "per_align")}
+    by_case = {k: {key: sum(c[key] for c in cs) for key in ("per_unet", "per_align", "per_train")}
                for k, cs in cases.items()}
     if by_route != by_case:
         fail(f"launch counts by route {by_route} != by kernel case {by_case}")
@@ -1025,10 +1126,15 @@ def run(device, cfg, smi: str) -> None:
     emit(profile("profile_guidance_shift",
                  lambda: predictor.ld.alignment.get_mean_shift(zg, td, avg_d), reps=5))
     del predictor
-    launches_by_path.update(swin_phases(device, cfg, smi, cases, zero_counts, read_counts))
+    swin_launches, swin_unet = swin_phases(device, cfg, smi, cases, zero_counts, read_counts)
+    launches_by_path.update(swin_launches)
     pattern_phases(device, cfg, zero_counts, read_counts)
-    launches_by_path.update(train_phases(device, cfg, smi, cases, unet_cpu.state_dict(),
-                                         vae_cpu.state_dict(), zero_counts, read_counts))
+    per_train = {k: v["per_train"] for k, v in by_route.items()}
+    launches_by_path.update(train_phases(device, cfg, smi, per_train,
+                                         {"unet": unet_cpu.state_dict(),
+                                          "vae": vae_cpu.state_dict()}, zero_counts, read_counts))
+    launches_by_path.update(swin_train_phases(device, cfg, smi, swin_unet, vae_cpu.state_dict(),
+                                              zero_counts, read_counts))
     emit({"kernels": summarize(cases, launches_by_path)})
     print(smi, flush=True)
 
@@ -1040,7 +1146,8 @@ def swin_phases(device, cfg, smi, cases, zero_counts, read_counts):
     (``swin_kernels_vs_plain``; their cases join ``cases``), a UNet forward
     and a guidance shift card against CPU, the 100-step unguided and guided
     DDPM forecasts with exact launch counts, profiles of a UNet forward, a
-    guided step and a guidance shift.  Returns the launches of the two chains."""
+    guided step and a guidance shift.  Returns the launches of the two chains
+    and the UNet (CPU, random weights) the training phases start from."""
     import torch
     from prediff_torch.config import ConfigDict, deep_merge
     from prediff_torch.factory import build_alignment_model, build_unet, build_vae
@@ -1055,7 +1162,7 @@ def swin_phases(device, cfg, smi, cases, zero_counts, read_counts):
               for key, build in (("unet", build_unet), ("vae", build_vae),
                                  ("align", build_alignment_model))}
     unet_cpu, align_cpu = models["unet"], models["align"]
-    cases.update(swin_cases(unet_cpu, align_cpu))
+    cases.update(swin_cases(unet_cpu, align_cpu, cfg.optim.micro_batch_size))
     bad = check_cuboid_kernels(cases, device)
     routes = {name: [[layer.route((1, *shape)) for layer in blk.attn_l]
                      for shape, blk in zip(m.mem_shapes, [b[0] for b in m.down_self_blocks])]
@@ -1100,7 +1207,33 @@ def swin_phases(device, cfg, smi, cases, zero_counts, read_counts):
                  reps=5))
     emit(profile("swin_profile_guidance_shift",
                  lambda: predictor.ld.alignment.get_mean_shift(zg, td, avg_d), reps=5))
-    return launches
+    return launches, unet_cpu
+
+
+def swin_train_phases(device, cfg, smi, unet_cpu, vae_sd, zero_counts, read_counts):
+    """The training phases (``train_phases``) on ``SWIN_PATTERN`` in the UNet:
+    ``swin_train_rate0`` on a randomized UNet cut to depth [1,1] (its counts
+    from that model's routes), ``swin_train_grads``, ``swin_train`` and
+    ``profile_swin_train_step`` at full depth from ``unet_cpu``'s weights.
+    Returns the launches of the rate-0 optimizer step and of the ``fit`` run."""
+    import torch
+    from prediff_torch.config import ConfigDict, deep_merge
+    from prediff_torch.factory import build_unet
+    from prediff_torch.models.init import init_params_
+
+    def swin_cfg(over):
+        return ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {
+            "latent_model": dict(over, self_pattern=SWIN_PATTERN)}}))
+
+    scfg = swin_cfg({})
+    cfg0 = swin_cfg(dict(depth=[1, 1], attn_drop=0.0, proj_drop=0.0, ffn_drop=0.0,
+                         time_embed_dropout=0.0))
+    unet0 = init_params_(build_unet(cfg0), torch.Generator().manual_seed(SEED), randomize=True)
+    per0 = {k: v["per_train"] for k, v in path_launches(unet0).items()}
+    per = {k: v["per_train"] for k, v in path_launches(unet_cpu).items()}
+    return train_phases(device, scfg, smi, per, {"unet": unet_cpu.state_dict(), "vae": vae_sd},
+                        zero_counts, read_counts, prefix="swin_",
+                        rate0=(cfg0, {"unet": unet0.state_dict(), "vae": vae_sd}, per0))
 
 
 def pattern_phases(device, cfg, zero_counts, read_counts):
@@ -1142,12 +1275,16 @@ def pattern_phases(device, cfg, zero_counts, read_counts):
         del predictor, models
 
 
-def train_phases(device, cfg, smi, cases, unet_sd, vae_sd, zero_counts, read_counts):
+def train_phases(device, cfg, smi, per_train, weights, zero_counts, read_counts, prefix="",
+                 rate0=None):
     """``train_rate0`` (dropout rates 0), then ``train_grads``, ``train`` and
     ``profile_train_step`` at the configuration's own rates, all at its
-    widths and depth on ``device``;
-    returns the kernels' launch counts of the ``train_rate0`` optimizer step
-    and of the ``fit`` run."""
+    widths and depth on ``device``, each phase's name after ``prefix``;
+    ``per_train`` is ``path_launches``' count per micro-step of each kernel,
+    ``weights`` the state dicts of "unet" and "vae".  ``rate0`` = (config at
+    rates 0, its weights, its ``per_train``) replaces the rate-0 check's
+    default: ``cfg`` at rates 0 with ``weights``.  Returns the kernels' launch
+    counts of the ``train_rate0`` optimizer step and of the ``fit`` run."""
     import numpy as np
     import torch
     from prediff_torch.config import ConfigDict, deep_merge
@@ -1245,11 +1382,13 @@ def train_phases(device, cfg, smi, cases, unet_sd, vae_sd, zero_counts, read_cou
     xy = (batch[:, L.in_len:].to(device), batch[:, :L.in_len].to(device))
 
     # The kernels without dropout: the rates at 0, the same randomized weights.
-    cfg0 = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"latent_model": dict(
-        attn_drop=0.0, proj_drop=0.0, ffn_drop=0.0, time_embed_dropout=0.0)}}))
-    weights = {"unet": unet_sd, "vae": vae_sd}
-    ld0, trainer0 = card_vs_cpu("train_rate0", cfg0, weights, None,
-                                expected_train_launches(cases, 1, 0, dropout=False))
+    if rate0 is None:
+        rate0 = (ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"latent_model": dict(
+            attn_drop=0.0, proj_drop=0.0, ffn_drop=0.0, time_embed_dropout=0.0)}})), weights,
+            per_train)
+    cfg0, weights0, per0 = rate0
+    ld0, trainer0 = card_vs_cpu(f"{prefix}train_rate0", cfg0, weights0, None,
+                                expected_train_launches(per0, 1, 0, dropout=False))
     init_params_(ld0.unet, torch.Generator().manual_seed(SEED))
     state0 = trainer0.create_state()
     zero_counts()
@@ -1257,18 +1396,19 @@ def train_phases(device, cfg, smi, cases, unet_sd, vae_sd, zero_counts, read_cou
         state0, metrics0 = trainer0.train_step(state0, SEED, *xy)
     sync(device)
     launches0 = read_counts()
-    expected0 = expected_train_launches(cases, TRAIN_ACCUM, 0, dropout=False)
-    emit({"phase": "train_rate0_step", "micro_steps": state0.step,
+    expected0 = expected_train_launches(per0, TRAIN_ACCUM, 0, dropout=False)
+    emit({"phase": f"{prefix}train_rate0_step", "micro_steps": state0.step,
           "optimizer_steps": state0.tx.count, "loss": float(metrics0["train/loss"]),
           "launches": launches0, "expected_launches": expected0})
     if (state0.tx.count != 1 or not np.isfinite(float(metrics0["train/loss"]))
             or launches0 != expected0):
-        fail(f"train_rate0: optimizer steps {state0.tx.count}, launches {launches0} != {expected0}")
+        fail(f"{prefix}train_rate0: optimizer steps {state0.tx.count}, launches {launches0} != "
+             f"{expected0}")
     del ld0, trainer0, state0
 
     # The recipe's rates, full depth: one loss and backward, the card against the CPU.
-    per_micro = expected_train_launches(cases, 1, 0, dropout=True)
-    ld, trainer = card_vs_cpu("train_grads", cfg, weights, DROP_SEED, per_micro)
+    per_micro = expected_train_launches(per_train, 1, 0, dropout=True)
+    ld, trainer = card_vs_cpu(f"{prefix}train_grads", cfg, weights, DROP_SEED, per_micro)
 
     # fit: a few accumulated optimizer steps on one synthetic batch repeated,
     # validation on the EMA weights, a checkpoint, its restore.  The UNet starts
@@ -1328,12 +1468,13 @@ def train_phases(device, cfg, smi, cases, unet_sd, vae_sd, zero_counts, read_cou
         and all(torch.equal(a["ema_params"][k], b["ema_params"][k]) for k in a["ema_params"])
         and all(torch.equal(opt_a[i][k], opt_b[i][k]) for i in opt_a for k in opt_a[i]))
     del ld2, fresh
-    expected = expected_train_launches(cases, micro_steps, len(val_losses), dropout=True)
+    expected = expected_train_launches(per_train, micro_steps, len(val_losses), dropout=True)
     steady = sorted(m["ms"] for m in micro[2:])
     ms_per_micro = steady[len(steady) // 2]
     step_loss = [sum(m["loss"] for m in micro[i:i + TRAIN_ACCUM]) / TRAIN_ACCUM
                  for i in range(0, micro_steps, TRAIN_ACCUM)]
-    emit({"phase": "train", "batch": B, "accum_steps": TRAIN_ACCUM, "dropout": rates,
+    emit({"phase": f"{prefix}train", "batch": B, "accum_steps": TRAIN_ACCUM, "dropout": rates,
+          "pattern": cfg.model.latent_model.self_pattern,
           "optimizer_steps": state.tx.count,
           "micro_steps": state.step, "micro": micro, "loss_per_optimizer_step": step_loss,
           "ms_per_micro_step": ms_per_micro, "samples_per_s": 1e3 * B / ms_per_micro,
@@ -1341,20 +1482,23 @@ def train_phases(device, cfg, smi, cases, unet_sd, vae_sd, zero_counts, read_cou
           "fixed_draw_loss_before": fixed_before, "fixed_draw_loss_after": fixed_after,
           "checkpoint_steps": steps, "restored_bit_equal": restored_equal, "launches": launches,
           "expected_launches": expected, "card": smi})
+    phase = f"{prefix}train"
     if state.step != micro_steps or state.tx.count != TRAIN_OPT_STEPS:
-        fail(f"train: {state.step} micro-steps, {state.tx.count} optimizer steps")
+        fail(f"{phase}: {state.step} micro-steps, {state.tx.count} optimizer steps")
     if not all(np.isfinite(m["loss"]) for m in micro) or not np.isfinite(val_losses).all():
-        fail("train: non-finite loss")
+        fail(f"{phase}: non-finite loss")
     if not fixed_after < fixed_before:
-        fail(f"train: the loss did not fall: {fixed_before} -> {fixed_after} (same batch and draws)")
+        fail(f"{phase}: the loss did not fall: {fixed_before} -> {fixed_after} (same batch and "
+             "draws)")
     if any(m["launches"] != per_micro for m in micro) or launches != expected:
-        fail(f"train: kernel launches {launches} != expected {expected} "
+        fail(f"{phase}: kernel launches {launches} != expected {expected} "
              f"(per micro-step {[m['launches'] for m in micro]})")
     if steps != [micro_steps] or not restored_equal:
-        fail(f"train: checkpoint steps {steps}, restored state equal: {restored_equal}")
+        fail(f"{phase}: checkpoint steps {steps}, restored state equal: {restored_equal}")
 
-    emit(profile("profile_train_step", lambda: trainer.train_step(state, SEED, *xy), reps=2))
-    return {"train_rate0": launches0, "train": launches}
+    emit(profile(f"profile_{prefix}train_step", lambda: trainer.train_step(state, SEED, *xy),
+                 reps=2))
+    return {f"{prefix}train_rate0": launches0, phase: launches}
 
 
 if __name__ == "__main__":

@@ -89,13 +89,34 @@
 // shared memory as bf16 (they are bf16 operands, so this is exact), and the
 // query rows go in tiles of q_tile, so a (vol, vol) score matrix never has to
 // fit (vol 256 at 64 head channels would take 256 KiB).  The forward core runs
-// one block per (cuboid, head, query tile); the gradient's core one block per
-// (cuboid, head) that walks the query tiles, writes dq per tile and adds each
-// tile's share of dk and dv into dqkv in place (each element always by the
-// same thread: no race, no atomics).  At the UNet's shapes the bytes the
+// one block per (cuboid, head, query tile); the gradient's core is the split
+// pair of the all-gradients backward below, without its extra outputs.  At
+// the UNet's shapes the bytes the
 // layer must move (x in and out, the weights) and its operations give about
 // the same least time, as for the axial layer; the roundings are the axial
 // kernels'.
+//
+// The general layer's all gradients (cuboid_attention_bwd_full) and its
+// dropout forms (cuboid_attention_dropout_forward,
+// cuboid_attention_dropout_bwd_full): replace
+// pallas_attention.py::fused_cuboid_attention_layer_v4_bwd_full and the seed=
+// forms of it and of fused_cuboid_attention_layer_v4 (bodies
+// _fused_layer_bwd_full_kernel_v4 and _fused_layer_kernel_v4), the training
+// path of every non-axial pattern.  The launches are the axial all-gradients
+// ones; the gradient core is split so that no block walks a whole cuboid
+// alone.  A first core, one block per (cuboid, head, query tile), has the
+// tile's rows whole: p, dp, D = rowsum(dp . p) (the identity D = dO . O holds
+// under dropout too, but the row sum is the TPU kernel's formula), ds, dq,
+// the head outputs for dWproj, and per row the softmax's max and sum and D.
+// A second, one block per (group of cuboids, head, key tile), recomputes p
+// from those and dp for every query of its keys and sums dk and dv in shared
+// memory and the relative-bias gradient of its key columns over the group's
+// cuboids; the groups' partials are added in a fixed order.  The TPU kernel
+// folds its block-diagonal ds back with rep^T . ds . rep; here ds is already
+// per cuboid.  Dropout: m_a of (cuboid, head, i, j) in cuboid_reorder's order
+// and m_p of the reordered (token, channel), the layouts flax's einsum route
+// drops; the Drop forms are separate template instances, bit-equal to the
+// kernels without dropout at rate 0.
 //
 // Grouped masked core (cuboid_attention_grouped): replaces
 // pallas_attention.py::fused_cuboid_attention_grouped, the core of every
@@ -472,6 +493,14 @@ cudaError_t gemm(const float* A, const float* ln_w, const float* ln_b, const flo
   return cudaGetLastError();
 }
 
+cudaError_t ln_backward(const float* x, const float* ln_w, const float* dln, float* dx, int M,
+                        int C, float eps, cudaStream_t stream) {
+  constexpr int kRowsPerBlock = 8;  // one warp per row
+  ln_backward_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(
+      x, ln_w, dln, dx, M, C, eps);
+  return cudaGetLastError();
+}
+
 // The launches that give dx; Full adds LN(x) and attn in bf16 and the dbias
 // partials; Drop (with Full) the two dropouts, and the dropped g in bf16 (do_bf).
 template <bool Full, bool Drop = false>
@@ -505,10 +534,7 @@ cudaError_t bwd_dx_launches(const float* x, const float* g, const float* ln_w, c
   if (err != cudaSuccess) return err;
   err = gemm(dqkv, nullptr, nullptr, w_qkv, nullptr, dln, M, C, 3 * C, 1, eps, stream);
   if (err != cudaSuccess) return err;
-  constexpr int kRowsPerBlock = 8;  // one warp per row
-  ln_backward_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(
-      x, ln_w, dln, dx, M, C, eps);
-  return cudaGetLastError();
+  return ln_backward(x, ln_w, dln, dx, M, C, eps, stream);
 }
 
 // The three launches of the forward; Drop adds the two dropouts.
@@ -560,10 +586,12 @@ __device__ __forceinline__ void load_kv(const float* __restrict__ qkv, size_t ro
 }
 
 // s[r][j] = q[r] . k[j] + bh[q0 + r][j] for the nq rows of the tile, then the
-// softmax of each row in place (f32), one warp per row.
+// softmax of each row in place (f32), one warp per row.  With stat, row r's
+// max and sum of exp go to stat[3 r] and stat[3 r + 1].
 __device__ __forceinline__ void tile_softmax(const float* q, int ldq, const __nv_bfloat16* k,
                                              int ldkv, const float* __restrict__ bh, float* s,
-                                             int lds, int q0, int nq, int vol, int hc) {
+                                             int lds, int q0, int nq, int vol, int hc,
+                                             float* __restrict__ stat = nullptr) {
   for (int i = threadIdx.x; i < nq * vol; i += kCoreThreads) {
     const int r = i / vol, j = i % vol;
     float acc = 0.f;
@@ -584,6 +612,10 @@ __device__ __forceinline__ void tile_softmax(const float* q, int ldq, const __nv
     }
     sum = warp_sum(sum);
     for (int j = lane; j < vol; j += 32) sr[j] /= sum;
+    if (stat != nullptr && lane == 0) {
+      stat[3 * r] = m;
+      stat[3 * r + 1] = sum;
+    }
   }
   __syncthreads();
 }
@@ -595,11 +627,13 @@ size_t cuboid_core_smem(int vol, int hc, int q_tile, bool bwd) {
 }
 
 // One block per (cuboid, head, query tile); attn (tokens, C) gets the tile's
-// rows of this head's hc columns, rounded to bf16.
+// rows of this head's hc columns, rounded to bf16.  Drop: p goes through the
+// dropout d of element (cuboid, head, i, j) before p . v.
+template <bool Drop>
 __global__ void __launch_bounds__(kCoreThreads)
 cuboid_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
                    float* __restrict__ attn, int vol, int C, int heads, int q_tile,
-                   float scale) {
+                   float scale, philox::Drop d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hc = C / heads, ldkv = hc + 2, ldq = hc + 1, lds = vol + 1;
   __nv_bfloat16* k = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -616,6 +650,14 @@ cuboid_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias
   }
   __syncthreads();
   tile_softmax(q, ldq, k, ldkv, bias + (size_t)h * vol * vol, s, lds, q0, nq, vol, hc);
+  if (Drop) {
+    const unsigned long long e0 = (((unsigned long long)blockIdx.x * heads + h) * vol + q0) * vol;
+    for (int i = tid; i < nq * vol; i += kCoreThreads) {
+      const int r = i / vol, j = i % vol;
+      s[r * lds + j] = philox::apply(d, e0 + i, s[r * lds + j]);
+    }
+    __syncthreads();
+  }
   for (int i = tid; i < nq * hc; i += kCoreThreads) {
     const int r = i / hc, c = i % hc;
     float acc = 0.f;
@@ -624,76 +666,183 @@ cuboid_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias
   }
 }
 
-// Gradient of the core, one block per (cuboid, head) walking the query tiles:
-// qkv (tokens, 3C) and dattn (tokens, C) in; dqkv (tokens, 3C) out (dq | dk | dv).
+// The gradient core, split in two launches so that no block walks a whole
+// cuboid's gradient alone.  First, one block per (cuboid, head, query tile):
+// p of the tile's rows again, dp = dO . v^T (through the dropout), per row
+// D = rowsum(dp . p), ds = p (dp - D), dq = ds . k . scale into dqkv, and per
+// (cuboid, head, row) the softmax's max, its sum of exp and D into stats.
+// Full: also the forward's head outputs (p through the dropout) . v into
+// attn (bf16), which dWproj needs.
+template <bool Full, bool Drop>
 __global__ void __launch_bounds__(kCoreThreads)
-cuboid_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
-                       const float* __restrict__ bias, float* __restrict__ dqkv, int vol, int C,
-                       int heads, int q_tile, float scale) {
+cuboid_core_bwd_q_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
+                         const float* __restrict__ bias, float* __restrict__ dqkv,
+                         __nv_bfloat16* __restrict__ attn, float* __restrict__ stats, int vol,
+                         int C, int heads, int q_tile, float scale, philox::Drop drop) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hc = C / heads, ldkv = hc + 2, ldq = hc + 1, lds = vol + 1;
   __nv_bfloat16* k = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* v = k + vol * ldkv;
   float* q = reinterpret_cast<float*>(v + vol * ldkv);  // bf16(q . scale)
   float* dO = q + q_tile * ldq;                          // bf16(dattn)
-  float* p = dO + q_tile * ldq;                          // [q_tile][vol] softmax, then bf16(p)
+  float* p = dO + q_tile * ldq;                          // [q_tile][vol] softmax, then bf16(p drop)
   float* ds = p + q_tile * lds;                          // [q_tile][vol] dp, then bf16(ds)
-  const int h = blockIdx.y, tid = threadIdx.x;
+  const int h = blockIdx.y, q0 = blockIdx.z * q_tile, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  const int nq = min(q_tile, vol - q0);
   const size_t row0 = (size_t)blockIdx.x * vol;
-  const float* bh = bias + (size_t)h * vol * vol;
+  const size_t srow = ((size_t)blockIdx.x * heads + h) * vol + q0;  // this tile's first stats row
+  const unsigned long long e0 = (unsigned long long)srow * vol;     // its first mask element
   load_kv(qkv, row0, vol, C, hc, h, k, v, ldkv);
+  for (int i = tid; i < nq * hc; i += kCoreThreads) {
+    const int r = i / hc, c = i % hc;
+    const size_t tok = row0 + q0 + r;
+    q[r * ldq + c] = bf16_round(qkv[tok * 3 * C + h * hc + c] * scale);
+    dO[r * ldq + c] = bf16_round(dattn[tok * C + h * hc + c]);
+  }
+  __syncthreads();
+  tile_softmax(q, ldq, k, ldkv, bias + (size_t)h * vol * vol, p, lds, q0, nq, vol, hc,
+               stats + 3 * srow);
+  for (int i = tid; i < nq * vol; i += kCoreThreads) {  // dp = dO . v^T
+    const int r = i / vol, j = i % vol;
+    float acc = 0.f;
+    for (int c = 0; c < hc; ++c) acc += dO[r * ldq + c] * __bfloat162float(v[j * ldkv + c]);
+    ds[r * lds + j] = Drop ? philox::apply(drop, e0 + i, acc) : acc;
+  }
+  __syncthreads();
+  for (int r = warp; r < nq; r += kCoreThreads / 32) {  // ds = p (dp - D)
+    float dot = 0.f;
+    for (int j = lane; j < vol; j += 32) dot += ds[r * lds + j] * p[r * lds + j];
+    dot = warp_sum(dot);
+    if (lane == 0) stats[3 * (srow + r) + 2] = dot;
+    for (int j = lane; j < vol; j += 32) {
+      const float pj = p[r * lds + j];
+      ds[r * lds + j] = bf16_round(pj * (ds[r * lds + j] - dot));
+      p[r * lds + j] = bf16_round(Drop ? philox::apply(drop, e0 + r * vol + j, pj) : pj);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < nq * hc; i += kCoreThreads) {  // dq and the head output of the tile's rows
+    const int r = i / hc, c = i % hc;
+    float aq = 0.f, ao = 0.f;
+    for (int j = 0; j < vol; ++j) {
+      aq += ds[r * lds + j] * __bfloat162float(k[j * ldkv + c]);
+      if (Full) ao += p[r * lds + j] * __bfloat162float(v[j * ldkv + c]);
+    }
+    const size_t tok = row0 + q0 + r;
+    dqkv[tok * 3 * C + h * hc + c] = aq * scale;
+    if (Full) attn[tok * C + h * hc + c] = __float2bfloat16(ao);
+  }
+}
 
-  for (int q0 = 0; q0 < vol; q0 += q_tile) {
-    const int nq = min(q_tile, vol - q0);
-    __syncthreads();  // the previous tile's values are read no more
-    for (int i = tid; i < nq * hc; i += kCoreThreads) {
-      const int r = i / hc, c = i % hc;
-      const size_t tok = row0 + q0 + r;
-      q[r * ldq + c] = bf16_round(qkv[tok * 3 * C + h * hc + c] * scale);
-      dO[r * ldq + c] = bf16_round(dattn[tok * C + h * hc + c]);
-    }
-    __syncthreads();
-    tile_softmax(q, ldq, k, ldkv, bh, p, lds, q0, nq, vol, hc);
-    for (int i = tid; i < nq * vol; i += kCoreThreads) {  // dp = dO . v^T
-      const int r = i / vol, j = i % vol;
-      float acc = 0.f;
-      for (int c = 0; c < hc; ++c) acc += dO[r * ldq + c] * __bfloat162float(v[j * ldkv + c]);
-      ds[r * lds + j] = acc;
-    }
-    __syncthreads();
-    for (int r = warp; r < nq; r += kCoreThreads / 32) {  // ds = p (dp - rowsum(dp p))
-      float dot = 0.f;
-      for (int j = lane; j < vol; j += 32) dot += ds[r * lds + j] * p[r * lds + j];
-      dot = warp_sum(dot);
-      for (int j = lane; j < vol; j += 32) {
-        ds[r * lds + j] = bf16_round(p[r * lds + j] * (ds[r * lds + j] - dot));
-        p[r * lds + j] = bf16_round(p[r * lds + j]);
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < nq * hc; i += kCoreThreads) {  // dq of the tile's rows
-      const int r = i / hc, c = i % hc;
-      float acc = 0.f;
-      for (int j = 0; j < vol; ++j) acc += ds[r * lds + j] * __bfloat162float(k[j * ldkv + c]);
-      dqkv[(row0 + q0 + r) * 3 * C + h * hc + c] = acc * scale;
-    }
-    for (int i = tid; i < vol * hc; i += kCoreThreads) {  // the tile's share of dk, dv
+// Second, one block per (group of cuboids_per_block cuboids, head, key tile of
+// `tile` rows): it walks the query tiles of each of its cuboids, recomputes p
+// from stats and dp, and adds into shared memory the tile's dk = ds^T . q and
+// dv = (p through the dropout)^T . dO, which it writes once per cuboid, and
+// (Full) ds into the group's relative-bias partial dbias_part[group, h, :,
+// key tile] (every element always by the same thread: no race, no atomics).
+// q, dO, k and v are staged as the bf16 operands they are.
+size_t cuboid_kv_smem(int vol, int hc, int tile) {
+  return sizeof(__nv_bfloat16) * 4 * (size_t)tile * (hc + 2) +
+         sizeof(float) * ((size_t)2 * tile * (hc + 1) + (size_t)2 * tile * (tile + 1) + 3 * tile +
+                          (size_t)vol * tile);
+}
+
+template <bool Full, bool Drop>
+__global__ void __launch_bounds__(kCoreThreads)
+cuboid_core_bwd_kv_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
+                          const float* __restrict__ bias, const float* __restrict__ stats,
+                          float* __restrict__ dqkv, float* __restrict__ dbias_part, int n_cuboids,
+                          int vol, int C, int heads, int tile, int cuboids_per_block, float scale,
+                          philox::Drop drop) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hc = C / heads, ldb = hc + 2, ldf = hc + 1, ldt = tile + 1;
+  __nv_bfloat16* kb = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [tile][ldb] k
+  __nv_bfloat16* vb = kb + tile * ldb;                               // v
+  __nv_bfloat16* qb = vb + tile * ldb;                               // q . scale
+  __nv_bfloat16* ob = qb + tile * ldb;                               // dO
+  float* dk = reinterpret_cast<float*>(ob + tile * ldb);             // [tile][ldf]
+  float* dv = dk + tile * ldf;
+  float* pt = dv + tile * ldf;    // [tile][ldt] bf16(p through the dropout)
+  float* dst = pt + tile * ldt;   // [tile][ldt] bf16(ds)
+  float* st = dst + tile * ldt;   // [tile][3] max, sum, D of the query tile's rows
+  float* dbacc = st + 3 * tile;   // [vol][tile] the group's sum of the f32 ds
+  const int h = blockIdx.y, k0 = blockIdx.z * tile, tid = threadIdx.x;
+  const int nk = min(tile, vol - k0);
+  const float* bh = bias + (size_t)h * vol * vol;
+  if (Full)
+    for (int i = tid; i < vol * tile; i += kCoreThreads) dbacc[i] = 0.f;
+
+  for (int ci = 0; ci < cuboids_per_block; ++ci) {
+    const int cub = blockIdx.x * cuboids_per_block + ci;
+    if (cub >= n_cuboids) break;
+    const size_t row0 = (size_t)cub * vol;
+    const size_t srow = ((size_t)cub * heads + h) * vol;
+    __syncthreads();  // the previous cuboid's tiles are read no more
+    for (int i = tid; i < nk * hc; i += kCoreThreads) {
       const int j = i / hc, c = i % hc;
-      float ak = 0.f, av = 0.f;
-      for (int r = 0; r < nq; ++r) {
-        ak += ds[r * lds + j] * q[r * ldq + c];
-        av += p[r * lds + j] * dO[r * ldq + c];
+      const float* row = qkv + (row0 + k0 + j) * 3 * C + h * hc + c;
+      kb[j * ldb + c] = __float2bfloat16(row[C]);
+      vb[j * ldb + c] = __float2bfloat16(row[2 * C]);
+      dk[j * ldf + c] = 0.f;
+      dv[j * ldf + c] = 0.f;
+    }
+    for (int q0 = 0; q0 < vol; q0 += tile) {
+      const int nq = min(tile, vol - q0);
+      __syncthreads();  // the previous query tile's values are read no more
+      for (int i = tid; i < nq * hc; i += kCoreThreads) {
+        const int r = i / hc, c = i % hc;
+        const size_t tok = row0 + q0 + r;
+        qb[r * ldb + c] = __float2bfloat16(qkv[tok * 3 * C + h * hc + c] * scale);
+        ob[r * ldb + c] = __float2bfloat16(dattn[tok * C + h * hc + c]);
       }
-      float* out = dqkv + (row0 + j) * 3 * C + h * hc + c;
-      if (q0 == 0) {
-        out[C] = ak;
-        out[2 * C] = av;
-      } else {
-        out[C] += ak;
-        out[2 * C] += av;
+      for (int i = tid; i < 3 * nq; i += kCoreThreads) st[i] = stats[3 * (srow + q0) + i];
+      __syncthreads();
+      for (int i = tid; i < nq * nk; i += kCoreThreads) {
+        const int r = i / nk, j = i % nk;
+        float s = 0.f, dp = 0.f;
+        for (int c = 0; c < hc; ++c) {
+          s += __bfloat162float(qb[r * ldb + c]) * __bfloat162float(kb[j * ldb + c]);
+          dp += __bfloat162float(ob[r * ldb + c]) * __bfloat162float(vb[j * ldb + c]);
+        }
+        s += bh[(size_t)(q0 + r) * vol + k0 + j];
+        const float p = expf(s - st[3 * r]) / st[3 * r + 1];
+        float pd = p;
+        if (Drop) {
+          const unsigned long long e = (srow + q0 + r) * vol + k0 + j;
+          dp = philox::apply(drop, e, dp);
+          pd = philox::apply(drop, e, p);
+        }
+        const float d = p * (dp - st[3 * r + 2]);
+        if (Full) dbacc[(q0 + r) * tile + j] += d;
+        pt[r * ldt + j] = bf16_round(pd);
+        dst[r * ldt + j] = bf16_round(d);
+      }
+      __syncthreads();
+      for (int i = tid; i < nk * hc; i += kCoreThreads) {
+        const int j = i / hc, c = i % hc;
+        float ak = 0.f, av = 0.f;
+        for (int r = 0; r < nq; ++r) {
+          ak += dst[r * ldt + j] * __bfloat162float(qb[r * ldb + c]);
+          av += pt[r * ldt + j] * __bfloat162float(ob[r * ldb + c]);
+        }
+        dk[j * ldf + c] += ak;
+        dv[j * ldf + c] += av;
       }
     }
+    for (int i = tid; i < nk * hc; i += kCoreThreads) {  // each element by the thread that summed it
+      const int j = i / hc, c = i % hc;
+      float* out = dqkv + (row0 + k0 + j) * 3 * C + h * hc + c;
+      out[C] = dk[j * ldf + c];
+      out[2 * C] = dv[j * ldf + c];
+    }
+  }
+  if (!Full) return;
+  __syncthreads();
+  float* dst_part = dbias_part + ((size_t)blockIdx.x * heads + h) * vol * vol + k0;
+  for (int i = tid; i < vol * nk; i += kCoreThreads) {
+    const int r = i / nk, j = i % nk;
+    dst_part[(size_t)r * vol + j] = dbacc[r * tile + j];
   }
 }
 
@@ -783,6 +932,106 @@ grouped_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = i / hc, c = i % hc;
     out[(base + q0 + r) * hc + c] = acc[r * ld + c] / l_run[r];
   }
+}
+
+// The three launches of the general layer's forward; Drop adds the two dropouts.
+template <bool Drop>
+cudaError_t cuboid_forward_launches(const float* x, const float* ln_w, const float* ln_b,
+                                    const float* w_qkv, const float* bias, const float* w_proj,
+                                    const float* b_proj, float* qkv, float* attn, float* out,
+                                    int n_cuboids, int vol, int C, int heads, int q_tile,
+                                    float scale, float eps, cudaStream_t stream,
+                                    philox::Drop d_attn = philox::Drop{},
+                                    philox::Drop d_proj = philox::Drop{}) {
+  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || vol < 1 || q_tile < 1)
+    return cudaErrorInvalidValue;
+  const int M = n_cuboids * vol;
+  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream);
+  if (err != cudaSuccess) return err;
+  const size_t smem = cuboid_core_smem(vol, C / heads, q_tile, false);
+  err = cudaFuncSetAttribute(cuboid_core_kernel<Drop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  cuboid_core_kernel<Drop><<<dim3(n_cuboids, heads, (vol + q_tile - 1) / q_tile), kCoreThreads,
+                             smem, stream>>>(qkv, bias, attn, vol, C, heads, q_tile, scale, d_attn);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return gemm<Drop ? 2 : 0>(attn, nullptr, nullptr, w_proj, b_proj, out, M, C, C, 0, eps, stream,
+                            nullptr, d_proj);
+}
+
+// The two gradient cores: dqkv and stats (and, Full, attn and the dbias partials).
+template <bool Full, bool Drop>
+cudaError_t cuboid_core_bwd_launches(const float* qkv, const float* dattn, const float* bias,
+                                     float* dqkv, __nv_bfloat16* attn_bf, float* stats,
+                                     float* dbias_part, int n_cuboids, int vol, int C, int heads,
+                                     int q_tile, int tile, int cuboids_per_block, float scale,
+                                     cudaStream_t stream, philox::Drop d_attn) {
+  const int hc = C / heads;
+  size_t smem = cuboid_core_smem(vol, hc, q_tile, true);
+  cudaError_t err = cudaFuncSetAttribute(cuboid_core_bwd_q_kernel<Full, Drop>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cuboid_core_bwd_q_kernel<Full, Drop><<<dim3(n_cuboids, heads, (vol + q_tile - 1) / q_tile),
+                                         kCoreThreads, smem, stream>>>(
+      qkv, dattn, bias, dqkv, attn_bf, stats, vol, C, heads, q_tile, scale, d_attn);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  smem = cuboid_kv_smem(vol, hc, tile);
+  err = cudaFuncSetAttribute(cuboid_core_bwd_kv_kernel<Full, Drop>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int groups = (n_cuboids + cuboids_per_block - 1) / cuboids_per_block;
+  cuboid_core_bwd_kv_kernel<Full, Drop><<<dim3(groups, heads, (vol + tile - 1) / tile),
+                                          kCoreThreads, smem, stream>>>(
+      qkv, dattn, bias, stats, dqkv, dbias_part, n_cuboids, vol, C, heads, tile,
+      cuboids_per_block, scale, d_attn);
+  return cudaGetLastError();
+}
+
+// The launches of the general layer's all-gradients backward: the LN+QKV and
+// dattn products as in the dx backward, the two gradient cores, the dln
+// product and the LN backward, then the fixed-order sums of the relative-bias
+// and vector partials and the two weight gradients.  Drop: the two dropouts,
+// and the dropped g in bf16 (do_bf) for dWproj.
+template <bool Drop>
+cudaError_t cuboid_bwd_full_launches(
+    const float* x, const float* g, const float* ln_w, const float* ln_b, const float* w_qkv,
+    const float* bias, const float* w_proj, float* qkv, float* dattn, float* dqkv, float* dln,
+    __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, __nv_bfloat16* do_bf, float* stats,
+    float* dbias_part, float* vpart, float* dw_part, float* dx, float* dw_qkv, float* dbias,
+    float* dw_proj, float* vec, int n_cuboids, int vol, int C, int heads, int q_tile, int tile,
+    int cuboids_per_block, int ksplit_qkv, int ksplit_proj, float scale, float eps,
+    cudaStream_t stream, philox::Drop d_attn = philox::Drop{},
+    philox::Drop d_proj = philox::Drop{}) {
+  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || vol < 1 || q_tile < 1 || tile < 1 ||
+      cuboids_per_block < 1 || ksplit_qkv < 1 || ksplit_proj < 1)
+    return cudaErrorInvalidValue;
+  const int M = n_cuboids * vol;
+  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream, ln_bf);
+  if (err != cudaSuccess) return err;
+  err = gemm<Drop ? 1 : 0>(g, nullptr, nullptr, w_proj, nullptr, dattn, M, C, C, 1, eps, stream,
+                           do_bf, d_proj);
+  if (err != cudaSuccess) return err;
+  err = cuboid_core_bwd_launches<true, Drop>(qkv, dattn, bias, dqkv, attn_bf, stats, dbias_part,
+                                             n_cuboids, vol, C, heads, q_tile, tile,
+                                             cuboids_per_block, scale, stream, d_attn);
+  if (err != cudaSuccess) return err;
+  const int groups = (n_cuboids + cuboids_per_block - 1) / cuboids_per_block;
+  err = gemm(dqkv, nullptr, nullptr, w_qkv, nullptr, dln, M, C, 3 * C, 1, eps, stream);
+  if (err != cudaSuccess) return err;
+  err = ln_backward(x, ln_w, dln, dx, M, C, eps, stream);
+  if (err != cudaSuccess) return err;
+  err = gradk::sum_partials(dbias_part, dbias, (size_t)heads * vol * vol, groups, stream);
+  if (err != cudaSuccess) return err;
+  err = gradk::ln_vec_grads(x, g, dln, 1, vpart, vec, M, C, eps, stream, d_proj);  // dbproj = sum do
+  if (err != cudaSuccess) return err;
+  err = gradk::weight_grad(dqkv, ln_bf, dw_part, dw_qkv, M, 3 * C, C, ksplit_qkv, stream);
+  if (err != cudaSuccess) return err;
+  if constexpr (Drop)
+    return gradk::weight_grad(do_bf, attn_bf, dw_part, dw_proj, M, C, C, ksplit_proj, stream);
+  else
+    return gradk::weight_grad(g, attn_bf, dw_part, dw_proj, M, C, C, ksplit_proj, stream);
 }
 
 }  // namespace
@@ -903,52 +1152,92 @@ extern "C" int cuboid_attention_forward(const float* x, const float* ln_w, const
                                         float* attn, float* out, int n_cuboids, int vol, int C,
                                         int heads, int q_tile, float scale, float eps,
                                         cudaStream_t stream) {
-  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || vol < 1 || q_tile < 1)
-    return (int)cudaErrorInvalidValue;
-  const int M = n_cuboids * vol;
-  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = cuboid_core_smem(vol, C / heads, q_tile, false);
-  err = cudaFuncSetAttribute(cuboid_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cuboid_core_kernel<<<dim3(n_cuboids, heads, (vol + q_tile - 1) / q_tile), kCoreThreads, smem,
-                       stream>>>(qkv, bias, attn, vol, C, heads, q_tile, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)gemm(attn, nullptr, nullptr, w_proj, b_proj, out, M, C, C, 0, eps, stream);
+  return (int)cuboid_forward_launches<false>(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv,
+                                             attn, out, n_cuboids, vol, C, heads, q_tile, scale,
+                                             eps, stream);
+}
+
+// The general cuboid layer with dropout on the attention weights and on the
+// projected output (its (tokens, C) rows in cuboid_reorder's order): the masks
+// of the stream (seed_lo, seed_hi, site), tensors 0 and 1, as
+// axial_attention_dropout_forward.
+extern "C" int cuboid_attention_dropout_forward(
+    const float* x, const float* ln_w, const float* ln_b, const float* w_qkv, const float* bias,
+    const float* w_proj, const float* b_proj, float* qkv, float* attn, float* out, int n_cuboids,
+    int vol, int C, int heads, int q_tile, float scale, float eps, unsigned seed_lo,
+    unsigned seed_hi, unsigned site, unsigned thr_attn, float keep_attn, unsigned thr_proj,
+    float keep_proj, cudaStream_t stream) {
+  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn};
+  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj};
+  return (int)cuboid_forward_launches<true>(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv, attn,
+                                            out, n_cuboids, vol, C, heads, q_tile, scale, eps,
+                                            stream, d_attn, d_proj);
 }
 
 // dx of the general cuboid layer for the output cotangent g (tokens, C), both
 // in cuboid_reorder's layout; scratch qkv and dqkv (tokens, 3C), dattn and dln
-// (tokens, C).
+// (tokens, C), stats (cuboids, heads, vol, 3).
 extern "C" int cuboid_attention_bwd_dx(const float* x, const float* g, const float* ln_w,
                                        const float* ln_b, const float* w_qkv, const float* bias,
                                        const float* w_proj, float* qkv, float* dattn,
-                                       float* dqkv, float* dln, float* dx, int n_cuboids,
-                                       int vol, int C, int heads, int q_tile, float scale,
-                                       float eps, cudaStream_t stream) {
-  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || vol < 1 || q_tile < 1)
+                                       float* dqkv, float* dln, float* stats, float* dx,
+                                       int n_cuboids, int vol, int C, int heads, int q_tile,
+                                       int tile, float scale, float eps, cudaStream_t stream) {
+  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || vol < 1 || q_tile < 1 || tile < 1)
     return (int)cudaErrorInvalidValue;
   const int M = n_cuboids * vol;
   cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream);
   if (err != cudaSuccess) return (int)err;
   err = gemm(g, nullptr, nullptr, w_proj, nullptr, dattn, M, C, C, 1, eps, stream);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = cuboid_core_smem(vol, C / heads, q_tile, true);
-  err = cudaFuncSetAttribute(cuboid_core_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cuboid_core_bwd_kernel<<<dim3(n_cuboids, heads), kCoreThreads, smem, stream>>>(
-      qkv, dattn, bias, dqkv, vol, C, heads, q_tile, scale);
-  err = cudaGetLastError();
+  err = cuboid_core_bwd_launches<false, false>(qkv, dattn, bias, dqkv, nullptr, stats, nullptr,
+                                               n_cuboids, vol, C, heads, q_tile, tile, 1, scale,
+                                               stream, philox::Drop{});
   if (err != cudaSuccess) return (int)err;
   err = gemm(dqkv, nullptr, nullptr, w_qkv, nullptr, dln, M, C, 3 * C, 1, eps, stream);
   if (err != cudaSuccess) return (int)err;
-  constexpr int kRowsPerBlock = 8;  // one warp per row
-  ln_backward_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(
-      x, ln_w, dln, dx, M, C, eps);
-  return (int)cudaGetLastError();
+  return (int)ln_backward(x, ln_w, dln, dx, M, C, eps, stream);
+}
+
+// Every gradient of the general cuboid layer for the output cotangent g, both
+// in cuboid_reorder's layout.  Scratch as for cuboid_attention_bwd_dx, and
+// ln_bf, attn_bf (tokens, C) bf16, stats (cuboids, heads, vol, 3), dbias_part
+// (ceil(cuboids / cuboids_per_block), heads, vol, vol), vpart (ceil(tokens /
+// 32), 3, C) and dw_part (max(ksplit_qkv * 3, ksplit_proj), C, C) f32.  Out:
+// dx, dw_qkv (3C, C), dbias (heads, vol, vol), dw_proj (C, C), vec (3, C) =
+// dgamma, dbeta, dbproj.
+extern "C" int cuboid_attention_bwd_full(
+    const float* x, const float* g, const float* ln_w, const float* ln_b, const float* w_qkv,
+    const float* bias, const float* w_proj, float* qkv, float* dattn, float* dqkv, float* dln,
+    __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, float* stats, float* dbias_part, float* vpart,
+    float* dw_part, float* dx, float* dw_qkv, float* dbias, float* dw_proj, float* vec,
+    int n_cuboids, int vol, int C, int heads, int q_tile, int tile, int cuboids_per_block,
+    int ksplit_qkv, int ksplit_proj, float scale, float eps, cudaStream_t stream) {
+  return (int)cuboid_bwd_full_launches<false>(
+      x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln, ln_bf, attn_bf, nullptr,
+      stats, dbias_part, vpart, dw_part, dx, dw_qkv, dbias, dw_proj, vec, n_cuboids, vol, C,
+      heads, q_tile, tile, cuboids_per_block, ksplit_qkv, ksplit_proj, scale, eps, stream);
+}
+
+// Every gradient of cuboid_attention_dropout_forward for the output cotangent
+// g, the masks regenerated from the same (seed, site).  Scratch and outputs as
+// cuboid_attention_bwd_full, and do_bf (tokens, C) bf16 for the dropped cotangent.
+extern "C" int cuboid_attention_dropout_bwd_full(
+    const float* x, const float* g, const float* ln_w, const float* ln_b, const float* w_qkv,
+    const float* bias, const float* w_proj, float* qkv, float* dattn, float* dqkv, float* dln,
+    __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, __nv_bfloat16* do_bf, float* stats,
+    float* dbias_part, float* vpart, float* dw_part, float* dx, float* dw_qkv, float* dbias,
+    float* dw_proj, float* vec, int n_cuboids, int vol, int C, int heads, int q_tile, int tile,
+    int cuboids_per_block, int ksplit_qkv, int ksplit_proj, float scale, float eps,
+    unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn, float keep_attn,
+    unsigned thr_proj, float keep_proj, cudaStream_t stream) {
+  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn};
+  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj};
+  return (int)cuboid_bwd_full_launches<true>(
+      x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln, ln_bf, attn_bf, do_bf, stats,
+      dbias_part, vpart, dw_part, dx, dw_qkv, dbias, dw_proj, vec, n_cuboids, vol, C, heads,
+      q_tile, tile, cuboids_per_block, ksplit_qkv, ksplit_proj, scale, eps, stream, d_attn,
+      d_proj);
 }
 
 // The grouped core: q, k, v, out (B, heads, n_cuboids, vol, hc) f32, bias

@@ -24,11 +24,31 @@ def _check_pattern(pattern) -> None:
                          f"({sorted(CuboidSelfAttentionPatterns)})")
 
 
+# The values of the configuration knobs the port builds; any other value
+# raises (the variants are ROADMAP.md queue 1, "The model variants the JAX
+# package builds from config").  The init modes are those init_params_ follows.
+_INIT_MODES = dict(attn_linear_init_mode="0", ffn_linear_init_mode="0",
+                   ffn2_linear_init_mode="2", attn_proj_linear_init_mode="2", conv_init_mode="0",
+                   global_proj_linear_init_mode="2", norm_init_mode="0")
+_PORTED = dict(pos_embed_type="t+h+w", use_relative_pos=True, self_attn_use_final_proj=True,
+               downsample_type="patch_merge", **_INIT_MODES)
+UNET_PORTED = dict(_PORTED, upsample_type="upsample", down_up_linear_init_mode="0")
+ALIGN_PORTED = dict(_PORTED, down_linear_init_mode="0")
+
+
+def _check_ported(section, ported, what: str) -> None:
+    for key, want in ported.items():
+        got = section.get(key, want)
+        if got != want:
+            raise NotImplementedError(f"{what}: {key}={got!r} is not ported (only {want!r})")
+
+
 def build_unet(cfg: ConfigDict) -> CuboidTransformerUNet:
     m = cfg.model.latent_model
     if m.num_global_vectors:
         raise NotImplementedError("global vectors are not ported yet")
     _check_pattern(m.self_pattern)
+    _check_ported(m, UNET_PORTED, "UNet")
     if m.ffn_activation != "gelu" or m.gated_ffn or m.time_embed_use_scale_shift_norm:
         raise NotImplementedError("only the v1 FFN (gelu, not gated) and time embedding are ported")
     if m.get("use_pallas_dropout", "auto") not in ("auto", True):
@@ -62,10 +82,10 @@ def build_alignment_model(cfg: ConfigDict) -> NoisyCuboidTransformerEncoder:
     if a.num_global_vectors or a.hierarchical_pos_embed or not a.use_inter_ffn:
         raise NotImplementedError("only the v1 alignment net (no global vectors, no "
                                   "hierarchical position embedding, inter FFNs) is ported")
-    if a.downsample_type != "patch_merge" or a.pool != "attention" or not a.readout_seq:
-        raise NotImplementedError(f"downsample '{a.downsample_type}' / pool '{a.pool}' / "
-                                  f"readout_seq {a.readout_seq}")
+    if a.pool != "attention" or not a.readout_seq:
+        raise NotImplementedError(f"pool '{a.pool}' / readout_seq {a.readout_seq}")
     _check_pattern(a.block_attn_patterns)
+    _check_ported(a, ALIGN_PORTED, "alignment net")
     if a.ffn_activation != "gelu" or a.gated_ffn or a.time_embed_use_scale_shift_norm:
         raise NotImplementedError("only the v1 FFN (gelu, not gated) and time embedding are ported")
     return NoisyCuboidTransformerEncoder(
@@ -135,12 +155,7 @@ def build_training_pipeline(cfg: ConfigDict, device=None,
                             params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                             seed: int = 0) -> LatentDiffusion:
     """The pipeline a :class:`~prediff_torch.training.DiffusionTrainer` trains:
-    a trainable UNet in training mode, a frozen VAE, no alignment.  Training
-    is ported for the axial pattern only."""
-    pattern = cfg.model.latent_model.self_pattern
-    if any(n != "axial" for n in ([pattern] if isinstance(pattern, str) else pattern)):
-        raise NotImplementedError(
-            f"training with the attention pattern '{pattern}' is not ported yet: its "
-            "all-gradients and dropout kernels are PERF.md rows 13b and 15e (ROADMAP.md)")
+    a trainable UNet in training mode, a frozen VAE, no alignment.  Every
+    pattern :func:`build_unet` builds trains."""
     return build_pipeline(cfg, with_alignment=False, device=device, params=params, seed=seed,
                           trainable_unet=True)

@@ -30,6 +30,8 @@ class AttentionPool3d(nn.Module):
     out at token 0.  Input (N, L, C); ``qkv_proj`` and ``c_proj`` are 1x1
     ``Conv1d``s as in the reference; softmax in f32, q and k both scaled by
     ch**-0.25."""
+    # seeded initialisation: flax's default (lecun_normal), as the JAX pool's nn.Conv
+    FLAX_DEFAULT_INIT = True
 
     def __init__(self, data_dim: int, embed_dim: int, num_heads: int,
                  output_dim: Optional[int] = None):
@@ -115,7 +117,8 @@ class NoisyCuboidTransformerEncoder(nn.Module):
         if self.training and active:
             raise NotImplementedError(
                 f"training mode with dropout {active}: training the alignment network is not "
-                "ported yet (ROADMAP.md, queue 1 item 9); call .eval() for guidance")
+                "ported yet (ROADMAP.md, queue 1, 'VAE-GAN and alignment training'); call "
+                ".eval() for guidance")
         B = x.shape[0]
         x = self.first_proj(x)
         x = self.pos_embed(x)

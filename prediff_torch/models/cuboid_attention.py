@@ -3,7 +3,7 @@ non-overlapping local ('l') or dilated ('d') cuboids, with Swin-style
 shifted windows, padding of ragged axes and a learned relative-position
 bias.
 
-Each layer takes one of four routes, as the JAX package's
+Each layer takes one of five routes, as the JAX package's
 ``CuboidSelfAttentionLayer._try_fused_layer`` decides (:func:`attention_route`):
 
 - ``axial``: the cuboid spans one whole axis and is 1 on the others, with no
@@ -14,7 +14,12 @@ Each layer takes one of four routes, as the JAX package's
   cuboid above 256 rows: LN, pad, roll, reorder and the QKV product as plain
   f32 ``nn.LayerNorm`` / ``nn.Linear`` (``nn.Dense`` outside any Pallas kernel
   in the JAX package), the grouped core kernel with the window mask (or none),
-  the output ``nn.Linear``, then reverse, roll back and unpad.
+  the output ``nn.Linear``, then reverse, roll back and unpad;
+- ``grouped_einsum``: such a window in training mode with ``attn_drop`` above
+  0.  The JAX package keeps its grouped kernel off this case (the kernel has
+  no dropout on the weights) and computes the core with XLA einsums; here it
+  is plain torch likewise: ``masked_softmax``, the attention-weight mask,
+  ``p . v``, ``proj``.
 
 The JAX package also gates its TPU kernels on a VMEM byte budget, on
 ``dim % 128 == 0`` and on ``G * vol % 8 == 0``; they choose which Pallas kernel
@@ -24,9 +29,11 @@ otherwise), its grouped core any vol.  Where such a gate sends a TPU layer
 to the grouped route, the port runs the fused one, so the two differ by the
 bf16 operand rounding only.  Global vectors are not ported and raise.
 
-Training is ported for the axial route only: in training mode any other
-route raises (its all-gradients and dropout kernels, PERF.md rows 13b and
-15e, are still to port).
+In training mode with a rate above 0 a layer call takes one site of the
+forward's :class:`DropoutStream`: the axial and v4 routes run the dropout
+kernels, the grouped routes drop the projected output (and the einsum route
+the attention weights) with the masks of ``ops/dropout.py`` on the reordered
+layout, where flax's ``Dropout`` acts in the JAX layer.
 """
 import functools
 import math
@@ -39,35 +46,39 @@ from torch import nn
 from ..ops.attention import (V4_MAX_ROWS, fused_axial_attention, fused_cuboid_attention_grouped,
                              fused_cuboid_attention_layer)
 from ..ops.cuboid import (compute_cuboid_self_attention_mask, cuboid_reorder,
-                          cuboid_reorder_reverse, update_cuboid_size_shift_size)
-from ..ops.dropout import DropoutStream, is_active
+                          cuboid_reorder_reverse, masked_softmax, update_cuboid_size_shift_size)
+from ..ops.dropout import DropoutStream, apply_mask, cuboid_layer_masks, is_active
 from ..ops.pad import generalize_padding, generalize_unpadding
 from .layers import PositionwiseFFN
 
 def attention_route(data_shape: Tuple[int, int, int], cuboid_size, shift_size, strategy,
-                    padding_type: str) -> str:
+                    padding_type: str, attn_dropout: bool = False) -> str:
     """The route a layer takes on a (T, H, W) input: "axial", "v4", "grouped"
-    or "grouped_masked" (a shift always gives a mask)."""
+    or "grouped_masked" (a shift always gives a mask); "grouped_einsum" for
+    either grouped route under active attention-weight dropout."""
     data_shape = tuple(data_shape)
     cs, shift = update_cuboid_size_shift_size(data_shape, cuboid_size, shift_size, strategy)
     if compute_cuboid_self_attention_mask(data_shape, cs, shift, tuple(strategy),
                                           padding_type) is not None:
-        return "grouped_masked"
-    if any(n % c for n, c in zip(data_shape, cs)):
-        return "grouped"
-    for ax in range(3):
-        if cs[ax] == data_shape[ax] and all(cs[o] == 1 for o in range(3) if o != ax):
-            return "axial"
-    return "v4" if math.prod(cs) <= V4_MAX_ROWS else "grouped"
+        route = "grouped_masked"
+    elif any(n % c for n, c in zip(data_shape, cs)):
+        route = "grouped"
+    elif any(cs[ax] == data_shape[ax] and all(cs[o] == 1 for o in range(3) if o != ax)
+             for ax in range(3)):
+        route = "axial"
+    else:
+        route = "v4" if math.prod(cs) <= V4_MAX_ROWS else "grouped"
+    return "grouped_einsum" if attn_dropout and route.startswith("grouped") else route
 
 
 @functools.lru_cache(maxsize=None)
 def _device_mask(data_shape, cuboid_size, shift_size, strategy, padding_type,
-                 device: torch.device) -> torch.Tensor:
-    """The window mask as a bool tensor on ``device``, made once per shape."""
+                 device: torch.device) -> Optional[torch.Tensor]:
+    """The window mask as a bool tensor on ``device`` (None: no mask), made
+    once per shape."""
     mask = compute_cuboid_self_attention_mask(data_shape, cuboid_size, shift_size, strategy,
                                               padding_type)
-    return torch.from_numpy(mask).to(device)
+    return None if mask is None else torch.from_numpy(mask).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,7 +101,7 @@ class CuboidSelfAttentionLayer(nn.Module):
     proj, with no residual; the block adds it.  In training mode with a rate
     above 0 (``attn_drop`` on the attention weights, ``proj_drop`` on the
     projected output) the call takes the next site of the forward's
-    :class:`DropoutStream` and runs the dropout kernels (axial route)."""
+    :class:`DropoutStream`."""
 
     def __init__(self, dim: int, num_heads: int, cuboid_size=(2, 7, 7), shift_size=(0, 0, 0),
                  strategy=("l", "l", "l"), padding_type: str = "ignore",
@@ -118,9 +129,11 @@ class CuboidSelfAttentionLayer(nn.Module):
                              persistent=False)
 
     def route(self, shape) -> str:
-        """This layer's route (:func:`attention_route`) on a (B, T, H, W, C) input."""
+        """This layer's route (:func:`attention_route`) on a (B, T, H, W, C)
+        input in its current mode."""
         return attention_route(tuple(shape[1:4]), self.cuboid_size, self.shift_size,
-                               self.strategy, self.padding_type)
+                               self.strategy, self.padding_type,
+                               attn_dropout=self.training and self.attn_drop > 0.0)
 
     def rel_bias(self, vol: int) -> torch.Tensor:
         """(heads, vol, vol) relative-position bias gathered from the table."""
@@ -131,22 +144,16 @@ class CuboidSelfAttentionLayer(nn.Module):
     def forward(self, x: torch.Tensor, drop: Optional[DropoutStream] = None) -> torch.Tensor:
         _, T, H, W, _ = x.shape
         route = self.route(x.shape)
-        if self.training and route != "axial":
-            raise NotImplementedError(
-                f"training a cuboid attention layer on the '{route}' route (cuboid "
-                f"{self.cuboid_size}, shift {self.shift_size} on {(T, H, W)}) is not ported yet: "
-                "its all-gradients and dropout kernels are PERF.md rows 13b and 15e (ROADMAP.md); "
-                "call .eval() to forecast")
         cs, shift = update_cuboid_size_shift_size((T, H, W), self.cuboid_size, self.shift_size,
                                                   self.strategy)
         vol = math.prod(cs)
+        rates = {}
+        if is_active(self, drop, self.attn_drop, self.proj_drop):
+            rates = dict(rate_attn=self.attn_drop, rate_proj=self.proj_drop, seed=drop.seed,
+                         site=drop.next_site())
         if route == "axial":
             axis = next(ax for ax in range(3) if cs[ax] == (T, H, W)[ax]
                         and all(cs[o] == 1 for o in range(3) if o != ax))
-            rates = {}
-            if is_active(self, drop, self.attn_drop, self.proj_drop):
-                rates = dict(rate_attn=self.attn_drop, rate_proj=self.proj_drop, seed=drop.seed,
-                             site=drop.next_site())
             return fused_axial_attention(x.contiguous(), axis, self.norm.weight, self.norm.bias,
                                          self.qkv.weight, self.rel_bias(vol), self.proj.weight,
                                          self.proj.bias, self.num_heads, self.scale,
@@ -156,11 +163,11 @@ class CuboidSelfAttentionLayer(nn.Module):
             out = fused_cuboid_attention_layer(xr, self.norm.weight, self.norm.bias,
                                                self.qkv.weight, self.rel_bias(vol),
                                                self.proj.weight, self.proj.bias, self.num_heads,
-                                               self.scale, self.norm.eps)
+                                               self.scale, self.norm.eps, **rates)
             return cuboid_reorder_reverse(out, cs, self.strategy, (T, H, W))
-        return self._grouped(x, cs, shift, route == "grouped_masked")
+        return self._grouped(x, cs, shift, route == "grouped_einsum", rates)
 
-    def _grouped(self, x, cs, shift, masked: bool) -> torch.Tensor:
+    def _grouped(self, x, cs, shift, einsum: bool, rates) -> torch.Tensor:
         B, T, H, W, C = x.shape
         heads = self.num_heads
         pads = [(c - n % c) % c for n, c in zip((T, H, W), cs)]
@@ -169,13 +176,25 @@ class CuboidSelfAttentionLayer(nn.Module):
             x = torch.roll(x, shifts=tuple(-s for s in shift), dims=(1, 2, 3))
         xr = cuboid_reorder(x, cs, self.strategy)
         _, nC, vol, _ = xr.shape
+        m_a = m_p = None
+        if rates:   # tensor 0 the attention weights, tensor 1 the projected output, as flax's
+            m_a, m_p = cuboid_layer_masks(xr.shape, heads, rates["rate_attn"], rates["rate_proj"],
+                                          rates["seed"], rates["site"], device=x.device)
         qkv = self.qkv(xr).reshape(B, nC, vol, 3, heads, C // heads)
-        qkv = qkv.permute(3, 0, 4, 1, 2, 5).contiguous()          # (3, B, heads, nC, vol, hc)
-        mask = (_device_mask((T, H, W), cs, shift, self.strategy, self.padding_type, x.device)
-                if masked else None)
-        out = fused_cuboid_attention_grouped(qkv[0], qkv[1], qkv[2], self.rel_bias(vol), mask,
-                                             self.scale)
-        out = self.proj(out.permute(0, 2, 3, 1, 4).reshape(B, nC, vol, C))
+        mask = _device_mask((T, H, W), cs, shift, self.strategy, self.padding_type, x.device)
+        if einsum:
+            # the JAX layer's XLA einsum route (no Pallas kernel there either)
+            q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
+            s = torch.einsum("bnihc,bnjhc->bnhij", q * self.scale, k) + self.rel_bias(vol)
+            p = masked_softmax(s, None if mask is None else mask[None, :, None])
+            out = torch.einsum("bnhij,bnjhc->bnihc", apply_mask(p, m_a, self.attn_drop), v)
+            out = out.reshape(B, nC, vol, C)
+        else:
+            qkv = qkv.permute(3, 0, 4, 1, 2, 5).contiguous()      # (3, B, heads, nC, vol, hc)
+            out = fused_cuboid_attention_grouped(qkv[0], qkv[1], qkv[2], self.rel_bias(vol),
+                                                 mask, self.scale)
+            out = out.permute(0, 2, 3, 1, 4).reshape(B, nC, vol, C)
+        out = apply_mask(self.proj(out), m_p, self.proj_drop)
         x = cuboid_reorder_reverse(out, cs, self.strategy,
                                    (T + pads[0], H + pads[1], W + pads[2]))
         if any(shift):

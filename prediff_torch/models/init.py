@@ -1,12 +1,18 @@
 """Seeded standalone initialisation for runs without pretrained weights.
 
-``init_params_`` follows the v1 init modes of the JAX package: Linear and
-Conv weights N(0, 1/fan_in), biases 0, norm scales 1, embeddings and
-relative-position tables truncated N(0, 0.02), the attention pool's
-position embedding N(0, 1/embed_dim), and zeros for the layers v1
-zero-fills (``ffn_2``, the attention ``proj``, ``out_layers.3``,
-``final_proj``).  ``randomize=True`` fills every parameter, those zero-filled
-ones and all biases and norm affines too, so that comparisons between two
+``init_params_`` follows the v1 init modes of the JAX package
+(``prediff_tpu/models/init.py``): Linear weights N(0, 1/fan_in) (linear mode
+"0"), convolution kernels U(+-sqrt(1/fan_in)) (conv mode "0", the torch
+default), biases 0, norm scales 1, embeddings and relative-position tables a
+normal of std 0.02 truncated at 2 std (resampled, as
+``jax.nn.initializers.truncated_normal``), the attention pool's position
+embedding N(0, 1/embed_dim), and zeros for the layers v1 zero-fills
+(``ffn_2``, the attention ``proj``, ``out_layers.3``, ``final_proj``).  A
+module whose class sets ``FLAX_DEFAULT_INIT`` (the VAE, the attention pool)
+takes flax's default instead for every conv and Linear weight inside it:
+``lecun_normal``, a normal truncated at 2 std and rescaled to variance
+1/fan_in.  ``randomize=True`` fills every parameter, those zero-filled ones
+and all biases and norm affines too, so that comparisons between two
 implementations exercise every weight.
 """
 import math
@@ -15,17 +21,28 @@ import torch
 from torch import nn
 
 ZERO_INIT_SUFFIXES = ("ffn_2.weight", ".proj.weight", "out_layers.3.weight", "final_proj.weight")
+# the std of a standard normal truncated at +-2 (jax.nn.initializers.variance_scaling)
+_TRUNC2_STD = 0.87962566103423978
+
+
+def _trunc_normal(shape, std, generator):
+    return nn.init.trunc_normal_(torch.empty(shape), std=std, a=-2.0 * std, b=2.0 * std,
+                                 generator=generator)
 
 
 @torch.no_grad()
 def init_params_(module: nn.Module, generator: torch.Generator, randomize: bool = False) -> nn.Module:
     """Fill every parameter of ``module`` in place from ``generator`` (a CPU
     generator: the same seed gives the same weights on every device)."""
+    lecun_scopes = [name for name, mod in module.named_modules()
+                    if getattr(mod, "FLAX_DEFAULT_INIT", False)]
     for mod_name, mod in module.named_modules():
         for pname, p in mod.named_parameters(recurse=False):
             name = f"{mod_name}.{pname}"
+            fan_in = math.prod(p.shape[1:])
             if isinstance(mod, nn.Embedding) or pname == "relative_position_bias_table":
-                vals = torch.randn(p.shape, generator=generator).clamp_(-2.0, 2.0) * 0.02
+                vals = (torch.randn(p.shape, generator=generator).clamp_(-2.0, 2.0) * 0.02
+                        if randomize else _trunc_normal(p.shape, 0.02, generator))
             elif pname == "positional_embedding":   # attention pool: N(0, 1/embed_dim)
                 vals = torch.randn(p.shape, generator=generator) / math.sqrt(p.shape[0])
             elif pname == "bias":
@@ -34,10 +51,16 @@ def init_params_(module: nn.Module, generator: torch.Generator, randomize: bool 
             elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
                 vals = (1.0 + 0.1 * torch.randn(p.shape, generator=generator) if randomize
                         else torch.ones(p.shape))
-            elif not randomize and name.endswith(ZERO_INIT_SUFFIXES):
+            elif randomize:
+                vals = torch.randn(p.shape, generator=generator) / math.sqrt(fan_in)
+            elif name.endswith(ZERO_INIT_SUFFIXES):
                 vals = torch.zeros(p.shape)
+            elif any(s in ("", mod_name) or mod_name.startswith(s + ".") for s in lecun_scopes):
+                vals = _trunc_normal(p.shape, 1.0 / math.sqrt(fan_in) / _TRUNC2_STD, generator)
+            elif isinstance(mod, nn.modules.conv._ConvNd):
+                bound = 1.0 / math.sqrt(fan_in)
+                vals = torch.rand(p.shape, generator=generator) * (2.0 * bound) - bound
             else:
-                fan_in = math.prod(p.shape[1:])
                 vals = torch.randn(p.shape, generator=generator) / math.sqrt(fan_in)
             p.copy_(vals.to(p.device, p.dtype))
     return module

@@ -164,6 +164,9 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
+    # seeded initialisation: flax's defaults (lecun_normal), as the JAX VAE's nn.Conv / nn.Dense
+    FLAX_DEFAULT_INIT = True
+
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  block_out_channels: Sequence[int] = (128, 256, 512, 512),
                  layers_per_block: int = 2, latent_channels: int = 64, norm_num_groups: int = 32):

@@ -123,9 +123,10 @@ def plain_grads(fn, inputs, needs, g):
     """Gradients of ``fn(*inputs)`` for the cotangent ``g`` by autograd of a
     plain version, for the inputs flagged in ``needs`` (None elsewhere, and
     nothing runs when none is flagged).  The resblock's ``autograd.Function``
-    takes its parameter gradients from here, as the JAX package recomputes
-    them from its jnp reference; the FFN, attention and GroupNorm Functions
-    have all-gradients kernels instead."""
+    takes its parameter gradients from here and the grouped attention core
+    all its gradients, as the JAX package recomputes them from its jnp
+    references; the FFN, attention layer and GroupNorm Functions have
+    all-gradients kernels instead."""
     if not any(needs):
         return [None] * len(inputs)
     with torch.enable_grad():

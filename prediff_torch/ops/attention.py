@@ -40,9 +40,17 @@ within-cuboid order.  Its kernel replaces
 ``pallas_attention.py::fused_cuboid_attention_layer_v4`` and its input
 gradient (:func:`fused_cuboid_attention_layer_bwd_dx`)
 ``fused_cuboid_attention_layer_v4_bwd_dx``, with the axial kernels' bf16
-rounding points.  As the JAX package's dx-only backward does, the
-``autograd.Function`` takes dx from the dx kernel and the parameter
-gradients, only when asked for, from autograd of the f32 plain version.
+rounding points; its all-gradients backward
+(:func:`fused_cuboid_attention_layer_bwd_full`)
+``fused_cuboid_attention_layer_v4_bwd_full``, and with dropout
+(:func:`fused_cuboid_attention_layer_dropout`,
+:func:`fused_cuboid_attention_layer_dropout_bwd_full`) the ``seed=`` forms of
+those two, the masks on x's layout: tensor 0 (B, cuboids, heads, vol, vol),
+tensor 1 the projected output (B, cuboids, vol, C) before the reverse
+reorder.  The axial plain versions are these on the axis's cuboids.
+:func:`fused_cuboid_attention_layer` is differentiable and picks its
+backward kernel as :func:`fused_axial_attention` does (the JAX package's
+``full_bwd = not deterministic``).
 
 Grouped core (:func:`fused_cuboid_attention_grouped`):
 ``masked_softmax(q . scale . k^T + bias[h]) . v`` on the head-major
@@ -57,7 +65,7 @@ import torch
 
 from . import _build
 from .cuboid import cuboid_reorder, cuboid_reorder_reverse, masked_softmax
-from .dropout import apply_mask, resolve_masks
+from .dropout import apply_mask, cuboid_layer_masks, resolve_masks
 from .ffn import _round, layer_norm_bwd_plain, layer_norm_plain
 
 _P, _I, _F, _DROP = _build.P, _build.I, _build.F, _build.DROP_ARGTYPES
@@ -68,7 +76,10 @@ _SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 7 + [_F, _F, _P],
                "axial_attention_dropout_bwd_full": ([_P] * 22 + [_I] * 10 + [_F, _F] + _DROP
                                                     + [_P]),
                "cuboid_attention_forward": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
-               "cuboid_attention_bwd_dx": [_P] * 12 + [_I] * 5 + [_F, _F, _P],
+               "cuboid_attention_dropout_forward": [_P] * 10 + [_I] * 5 + [_F, _F] + _DROP + [_P],
+               "cuboid_attention_bwd_dx": [_P] * 13 + [_I] * 6 + [_F, _F, _P],
+               "cuboid_attention_bwd_full": [_P] * 22 + [_I] * 9 + [_F, _F, _P],
+               "cuboid_attention_dropout_bwd_full": [_P] * 23 + [_I] * 9 + [_F, _F] + _DROP + [_P],
                "cuboid_attention_grouped": [_P] * 6 + [_I] * 5 + [_F, _P]}
 # the most rows of one cuboid the general layer takes (the JAX package's v4 gate)
 V4_MAX_ROWS = 256
@@ -96,14 +107,22 @@ def _softmax_plain(q, k, bias, scale, mxu_dtype):
     return p / p.sum(dim=-1, keepdim=True)
 
 
-def _dropout_masks(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks):
-    """(m_a (B, nC, heads, vol, vol), m_p (B, T, H, W, C)), None at rate 0."""
+_AXIAL = ("l", "l", "l")
+
+
+def _axial_reordered(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks):
+    """x in cuboids (B, nC, vol, C), f32, its cuboid size, and the dropout
+    masks (m_a (B, nC, heads, vol, vol), m_p natural (B, T, H, W, C)) with m_p
+    reordered as x, None at rate 0."""
     B, T, H, W, C = x.shape
     vol = (T, H, W)[axis]
-    nC = T * H * W // vol
-    return resolve_masks((rate_attn, rate_proj),
-                         ((B, nC, num_heads, vol, vol), (B, T, H, W, C)), seed, site, masks,
-                         x.device)
+    cs = axial_cuboid_size(x.shape, axis)
+    m_a, m_p = resolve_masks((rate_attn, rate_proj),
+                             ((B, T * H * W // vol, num_heads, vol, vol), (B, T, H, W, C)),
+                             seed, site, masks, x.device)
+    if m_p is not None:
+        m_p = cuboid_reorder(m_p, cs, _AXIAL)
+    return cuboid_reorder(x.float(), cs, _AXIAL), cs, (m_a, m_p)
 
 
 def axial_attention_plain(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: torch.Tensor,
@@ -112,24 +131,16 @@ def axial_attention_plain(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: 
                           eps: float = 1e-5, mxu_dtype: Optional[torch.dtype] = None,
                           rate_attn: float = 0.0, rate_proj: float = 0.0,
                           seed: Optional[int] = None, site: int = 0, masks=None) -> torch.Tensor:
-    """Plain PyTorch version, through ``cuboid_reorder``.  ``mxu_dtype``
-    rounds the matmul operands where the kernel does; ``None`` keeps f32.
-    Dropout on the attention weights (``rate_attn``) and on the projected
-    output (``rate_proj``) with the masks of ``(seed, site)``, or the explicit
-    ``masks = (m_a (B, cuboids, heads, vol, vol), m_p (B, T, H, W, C))`` of
-    0/1 values."""
-    B, T, H, W, C = x.shape
-    m_a, m_p = _dropout_masks(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks)
-    cs = axial_cuboid_size(x.shape, axis)
-    xr = cuboid_reorder(x.float(), cs, ("l", "l", "l"))          # (B, nC, vol, C)
-    nC, vol = xr.shape[1], xr.shape[2]
-    q, k, v = _qkv_plain(xr, ln_w, ln_b, w_qkv, num_heads, eps, mxu_dtype)
-    p = apply_mask(_softmax_plain(q, k, bias, scale, mxu_dtype), m_a, rate_attn)
-    o = torch.einsum("bnhij,bnjhc->bnihc", _round(p, mxu_dtype), _round(v, mxu_dtype))
-    o = o.reshape(B, nC, vol, C)
-    out = _round(o, mxu_dtype) @ _round(w_proj, mxu_dtype).T + b_proj
-    out = cuboid_reorder_reverse(out, cs, ("l", "l", "l"), (T, H, W))
-    return apply_mask(out, m_p, rate_proj).to(x.dtype)
+    """Plain PyTorch version: :func:`cuboid_attention_plain` on the axis's
+    cuboids (``cuboid_reorder``).  ``mxu_dtype`` rounds the matmul operands
+    where the kernel does; ``None`` keeps f32.  Dropout on the attention
+    weights (``rate_attn``) and on the projected output (``rate_proj``) with
+    the masks of ``(seed, site)``, or the explicit ``masks = (m_a (B, cuboids,
+    heads, vol, vol), m_p (B, T, H, W, C))`` of 0/1 values."""
+    xr, cs, drop = _axial_reordered(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks)
+    out = cuboid_attention_plain(xr, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale,
+                                 eps, mxu_dtype, rate_attn, rate_proj, masks=drop)
+    return cuboid_reorder_reverse(out, cs, _AXIAL, x.shape[1:4]).to(x.dtype)
 
 
 def axial_attention_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
@@ -137,28 +148,13 @@ def axial_attention_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
                                  bias: torch.Tensor, w_proj: torch.Tensor, num_heads: int,
                                  scale: float, eps: float = 1e-5,
                                  mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Plain dx of :func:`axial_attention_plain` for the cotangent ``g``, the
-    TPU kernel's formulas (recompute, ``ds = p (dp - rowsum(dp p))``);
-    ``mxu_dtype`` rounds the product operands where the kernel does."""
-    B, T, H, W, C = x.shape
-    hc = C // num_heads
+    """Plain dx of :func:`axial_attention_plain` for the cotangent ``g``:
+    :func:`cuboid_attention_bwd_dx_plain` on the axis's cuboids."""
     cs = axial_cuboid_size(x.shape, axis)
-    xr = cuboid_reorder(x.float(), cs, ("l", "l", "l"))
-    gr = cuboid_reorder(g.float(), cs, ("l", "l", "l"))
-    nC, vol = xr.shape[1], xr.shape[2]
-    q, k, v = _qkv_plain(xr, ln_w, ln_b, w_qkv, num_heads, eps, mxu_dtype)
-    p = _softmax_plain(q, k, bias, scale, mxu_dtype)
-    d_o = (_round(gr, mxu_dtype) @ _round(w_proj, mxu_dtype)).reshape(B, nC, vol, num_heads, hc)
-    d_o = _round(d_o, mxu_dtype)
-    dp = torch.einsum("bnihc,bnjhc->bnhij", d_o, _round(v, mxu_dtype))
-    ds = _round(p * (dp - (dp * p).sum(dim=-1, keepdim=True)), mxu_dtype)
-    dq = torch.einsum("bnhij,bnjhc->bnihc", ds, _round(k, mxu_dtype)) * scale
-    dk = torch.einsum("bnhij,bnihc->bnjhc", ds, _round(q * scale, mxu_dtype))
-    dv = torch.einsum("bnhij,bnihc->bnjhc", _round(p, mxu_dtype), d_o)
-    dqkv = torch.stack([dq, dk, dv], dim=3).reshape(B, nC, vol, 3 * C)
-    dln = _round(dqkv, mxu_dtype) @ _round(w_qkv, mxu_dtype)
-    dx = layer_norm_bwd_plain(xr, ln_w, dln, eps)
-    return cuboid_reorder_reverse(dx, cs, ("l", "l", "l"), (T, H, W)).to(x.dtype)
+    dx = cuboid_attention_bwd_dx_plain(cuboid_reorder(x.float(), cs, _AXIAL),
+                                       cuboid_reorder(g.float(), cs, _AXIAL), ln_w, ln_b, w_qkv,
+                                       bias, w_proj, num_heads, scale, eps, mxu_dtype)
+    return cuboid_reorder_reverse(dx, cs, _AXIAL, x.shape[1:4]).to(x.dtype)
 
 
 def axial_attention_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
@@ -169,45 +165,14 @@ def axial_attention_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
                                    rate_attn: float = 0.0, rate_proj: float = 0.0,
                                    seed: Optional[int] = None, site: int = 0, masks=None):
     """Plain (dx, dln_w, dln_b, dw_qkv, dbias, dw_proj, db_proj) of
-    :func:`axial_attention_plain` for the cotangent ``g``, the TPU kernel's
-    formulas: everything recomputed from x, ``dbias`` the f32 ``ds`` summed
-    over every cuboid and sample; ``mxu_dtype`` rounds the product operands
-    (LN(x), do, q . scale, k, v, p, the head outputs, ds, dqkv, the weights)
-    where the kernel does; every sum is f32.  With dropout the masks are
-    regenerated (or the explicit ``masks``): ``do = g . m_p / (1 - rate_proj)``
-    feeds dWproj, dbproj and dattn; ``dp`` carries ``m_a / (1 - rate_attn)``,
-    the softmax backward uses the undropped p, dv and the head outputs the
-    dropped one."""
-    B, T, H, W, C = x.shape
-    hc = C // num_heads
-    m_a, m_p = _dropout_masks(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks)
-    cs = axial_cuboid_size(x.shape, axis)
-    xr = cuboid_reorder(x.float(), cs, ("l", "l", "l"))
-    do = apply_mask(g.float(), m_p, rate_proj)
-    gr = _round(cuboid_reorder(do, cs, ("l", "l", "l")), mxu_dtype)
-    nC, vol = xr.shape[1], xr.shape[2]
-    mu = xr.mean(dim=-1, keepdim=True)
-    nhat = (xr - mu) * torch.rsqrt((xr - mu).square().mean(dim=-1, keepdim=True) + eps)
-    ln = _round(nhat * ln_w + ln_b, mxu_dtype)
-    q, k, v = _qkv_plain(xr, ln_w, ln_b, w_qkv, num_heads, eps, mxu_dtype)
-    p = _softmax_plain(q, k, bias, scale, mxu_dtype)
-    p_d = _round(apply_mask(p, m_a, rate_attn), mxu_dtype)
-    o = torch.einsum("bnhij,bnjhc->bnihc", p_d, _round(v, mxu_dtype))
-    d_o = _round((gr @ _round(w_proj, mxu_dtype)).reshape(B, nC, vol, num_heads, hc), mxu_dtype)
-    dp = apply_mask(torch.einsum("bnihc,bnjhc->bnhij", d_o, _round(v, mxu_dtype)), m_a, rate_attn)
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dsr = _round(ds, mxu_dtype)
-    dq = torch.einsum("bnhij,bnjhc->bnihc", dsr, _round(k, mxu_dtype)) * scale
-    dk = torch.einsum("bnhij,bnihc->bnjhc", dsr, _round(q * scale, mxu_dtype))
-    dv = torch.einsum("bnhij,bnihc->bnjhc", p_d, d_o)
-    dqkv = _round(torch.stack([dq, dk, dv], dim=3).reshape(B, nC, vol, 3 * C), mxu_dtype)
-    dln = dqkv @ _round(w_qkv, mxu_dtype)
-    dx = cuboid_reorder_reverse(layer_norm_bwd_plain(xr, ln_w, dln, eps), cs, ("l", "l", "l"),
-                                (T, H, W)).to(x.dtype)
-    dw_qkv = dqkv.reshape(-1, 3 * C).T @ ln.reshape(-1, C)
-    dw_proj = gr.reshape(-1, C).T @ _round(o.reshape(-1, C), mxu_dtype)
-    return (dx, (dln * nhat).sum(dim=(0, 1, 2)), dln.sum(dim=(0, 1, 2)), dw_qkv,
-            ds.sum(dim=(0, 1)), dw_proj, do.sum(dim=(0, 1, 2, 3)))
+    :func:`axial_attention_plain` for the cotangent ``g``:
+    :func:`cuboid_attention_bwd_full_plain` on the axis's cuboids, with the
+    same masks."""
+    xr, cs, drop = _axial_reordered(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks)
+    dx, *dparams = cuboid_attention_bwd_full_plain(
+        xr, cuboid_reorder(g.float(), cs, _AXIAL), ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
+        scale, eps, mxu_dtype, rate_attn, rate_proj, masks=drop)
+    return (cuboid_reorder_reverse(dx, cs, _AXIAL, x.shape[1:4]).to(x.dtype), *dparams)
 
 
 def _check(x, axis, num_heads):
@@ -450,15 +415,23 @@ fused_axial_attention_bwd_full.launches = 0
 def cuboid_attention_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                            w_qkv: torch.Tensor, bias: torch.Tensor, w_proj: torch.Tensor,
                            b_proj: torch.Tensor, num_heads: int, scale: float, eps: float = 1e-5,
-                           mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                           mxu_dtype: Optional[torch.dtype] = None, rate_attn: float = 0.0,
+                           rate_proj: float = 0.0, seed: Optional[int] = None, site: int = 0,
+                           masks=None) -> torch.Tensor:
     """Plain version of the general cuboid layer; ``mxu_dtype`` rounds the
-    matmul operands where the kernel does, ``None`` keeps f32."""
+    matmul operands where the kernel does, ``None`` keeps f32.  Dropout as
+    :func:`axial_attention_plain`, the masks (or the explicit ``masks = (m_a
+    (B, cuboids, heads, vol, vol), m_p (B, cuboids, vol, C))``) on x's layout:
+    ``p . m_a / (1 - rate_attn)`` before ``p . v``, ``out . m_p / (1 -
+    rate_proj)`` after the projection."""
     B, nC, vol, C = x.shape
+    m_a, m_p = cuboid_layer_masks(x.shape, num_heads, rate_attn, rate_proj, seed, site, masks,
+                                  x.device)
     q, k, v = _qkv_plain(x.float(), ln_w, ln_b, w_qkv, num_heads, eps, mxu_dtype)
-    p = _softmax_plain(q, k, bias, scale, mxu_dtype)
+    p = apply_mask(_softmax_plain(q, k, bias, scale, mxu_dtype), m_a, rate_attn)
     o = torch.einsum("bnhij,bnjhc->bnihc", _round(p, mxu_dtype), _round(v, mxu_dtype))
     out = _round(o.reshape(B, nC, vol, C), mxu_dtype) @ _round(w_proj, mxu_dtype).T + b_proj
-    return out.to(x.dtype)
+    return apply_mask(out, m_p, rate_proj).to(x.dtype)
 
 
 def cuboid_attention_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
@@ -487,14 +460,82 @@ def cuboid_attention_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.
     return layer_norm_bwd_plain(xr, ln_w, dln, eps).to(x.dtype)
 
 
+def cuboid_attention_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
+                                    ln_b: torch.Tensor, w_qkv: torch.Tensor, bias: torch.Tensor,
+                                    w_proj: torch.Tensor, num_heads: int, scale: float,
+                                    eps: float = 1e-5, mxu_dtype: Optional[torch.dtype] = None,
+                                    rate_attn: float = 0.0, rate_proj: float = 0.0,
+                                    seed: Optional[int] = None, site: int = 0, masks=None):
+    """Plain (dx, dln_w, dln_b, dw_qkv, dbias, dw_proj, db_proj) of
+    :func:`cuboid_attention_plain` for the cotangent ``g``, the TPU kernel's
+    formulas: everything recomputed from x, ``dbias`` the f32 ``ds`` summed
+    over every cuboid and sample; ``mxu_dtype`` rounds the product operands
+    (LN(x), do, q . scale, k, v, p, the head outputs, ds, dqkv, the weights)
+    where the kernel does; every sum is f32.  With dropout the masks are
+    regenerated (or the explicit ``masks``): ``do = g . m_p / (1 - rate_proj)``
+    feeds dWproj, dbproj and dattn; ``dp`` carries ``m_a / (1 - rate_attn)``,
+    the softmax backward uses the undropped p, dv and the head outputs the
+    dropped one."""
+    B, nC, vol, C = x.shape
+    hc = C // num_heads
+    m_a, m_p = cuboid_layer_masks(x.shape, num_heads, rate_attn, rate_proj, seed, site, masks,
+                                  x.device)
+    xr = x.float()
+    do = apply_mask(g.float(), m_p, rate_proj)
+    gr = _round(do, mxu_dtype)
+    mu = xr.mean(dim=-1, keepdim=True)
+    nhat = (xr - mu) * torch.rsqrt((xr - mu).square().mean(dim=-1, keepdim=True) + eps)
+    ln = _round(nhat * ln_w + ln_b, mxu_dtype)
+    q, k, v = _qkv_plain(xr, ln_w, ln_b, w_qkv, num_heads, eps, mxu_dtype)
+    p = _softmax_plain(q, k, bias, scale, mxu_dtype)
+    p_d = _round(apply_mask(p, m_a, rate_attn), mxu_dtype)
+    o = torch.einsum("bnhij,bnjhc->bnihc", p_d, _round(v, mxu_dtype))
+    d_o = _round((gr @ _round(w_proj, mxu_dtype)).reshape(B, nC, vol, num_heads, hc), mxu_dtype)
+    dp = apply_mask(torch.einsum("bnihc,bnjhc->bnhij", d_o, _round(v, mxu_dtype)), m_a, rate_attn)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dsr = _round(ds, mxu_dtype)
+    dq = torch.einsum("bnhij,bnjhc->bnihc", dsr, _round(k, mxu_dtype)) * scale
+    dk = torch.einsum("bnhij,bnihc->bnjhc", dsr, _round(q * scale, mxu_dtype))
+    dv = torch.einsum("bnhij,bnihc->bnjhc", p_d, d_o)
+    dqkv = _round(torch.stack([dq, dk, dv], dim=3).reshape(B, nC, vol, 3 * C), mxu_dtype)
+    dln = dqkv @ _round(w_qkv, mxu_dtype)
+    dx = layer_norm_bwd_plain(xr, ln_w, dln, eps).to(x.dtype)
+    dw_qkv = dqkv.reshape(-1, 3 * C).T @ ln.reshape(-1, C)
+    dw_proj = gr.reshape(-1, C).T @ _round(o.reshape(-1, C), mxu_dtype)
+    return (dx, (dln * nhat).sum(dim=(0, 1, 2)), dln.sum(dim=(0, 1, 2)), dw_qkv,
+            ds.sum(dim=(0, 1)), dw_proj, do.sum(dim=(0, 1, 2)))
+
+
+# the plain versions of the dropout kernels: the same functions, with the rates
+cuboid_attention_dropout_plain = cuboid_attention_plain
+cuboid_attention_dropout_bwd_full_plain = cuboid_attention_bwd_full_plain
+
+
 def _cuboid_query_tile(vol: int, hc: int) -> int:
-    """Query rows per tile of the general layer's cores: the most of 32, 16,
-    8 for which k and v of a whole cuboid (bf16) and the gradient core's four
-    f32 tiles fit in a block's shared memory; raise where none does."""
+    """Query rows per tile of the general layer's forward and query-tile
+    gradient cores: the most of 32, 16, 8 for which k and v of a whole cuboid
+    (bf16) and the gradient core's four f32 tiles fit in a block's shared
+    memory; raise where none does."""
     kv = 2 * 2 * vol * (hc + 2)
     for rows in (32, 16, 8):
         if kv + 4 * 2 * rows * ((hc + 1) + (vol + 1)) <= SMEM_BYTES:
             return min(rows, vol)
+    raise ValueError(f"cuboid attention kernel: a cuboid of {vol} rows x {hc} head channels "
+                     "does not fit in shared memory")
+
+
+def _cuboid_key_tile(vol: int, hc: int) -> int:
+    """Key rows (and query rows) per tile of the all-gradients key-tile core:
+    the most of 32, 16, 8, 4, 2, 1 (at most vol) for which k, v, q and dO
+    tiles (bf16), the dk and dv sums, the p and ds tiles, the row statistics
+    and the (vol, tile) bias-gradient sum (f32) fit in a block's shared
+    memory (``cuboid_kv_smem`` in ``csrc/attention.cu``).  Where the query
+    tiles of :func:`_cuboid_query_tile` fit, a tile of 1 fits too."""
+    for rows in (32, 16, 8, 4, 2, 1):
+        t = min(rows, vol)
+        if 2 * 4 * t * (hc + 2) + 4 * (2 * t * (hc + 1) + 2 * t * (t + 1) + 3 * t + vol * t) \
+                <= SMEM_BYTES:
+            return t
     raise ValueError(f"cuboid attention kernel: a cuboid of {vol} rows x {hc} head channels "
                      "does not fit in shared memory")
 
@@ -507,7 +548,9 @@ def _check_cuboid(x, num_heads):
     return B * nC, vol, C, _cuboid_query_tile(vol, C // num_heads)
 
 
-def _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps):
+def _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps, drop=None):
+    """Launch the forward; ``drop`` = (rate_attn, rate_proj, seed, site) takes
+    the dropout entry point."""
     n_cuboids, vol, C, q_tile = _check_cuboid(x, num_heads)
     _build.require("cuboid_attention", [
         ("x", x, tuple(x.shape)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
@@ -518,13 +561,39 @@ def _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale,
     attn = torch.empty((M, C), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     lib = _build.load("attention", _SIGNATURES)
-    err = lib.cuboid_attention_forward(
-        *(_build.ptr(t) for t in (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv, attn, out)),
-        n_cuboids, vol, C, num_heads, q_tile, float(scale), float(eps),
-        _build.stream_ptr(x.device))
-    _build.check(err, "cuboid_attention_forward")
-    fused_cuboid_attention_layer.launches += 1
+    ptrs = [_build.ptr(t) for t in (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv, attn, out)]
+    dims = (n_cuboids, vol, C, num_heads, q_tile, float(scale), float(eps))
+    if drop is None:
+        err = lib.cuboid_attention_forward(*ptrs, *dims, _build.stream_ptr(x.device))
+        _build.check(err, "cuboid_attention_forward")
+        fused_cuboid_attention_layer.launches += 1
+    else:
+        rate_attn, rate_proj, seed, site = drop
+        err = lib.cuboid_attention_dropout_forward(
+            *ptrs, *dims, *_build.drop_args(seed, site, rate_attn, rate_proj),
+            _build.stream_ptr(x.device))
+        _build.check(err, "cuboid_attention_dropout_forward")
+        fused_cuboid_attention_layer_dropout.launches += 1
     return out
+
+
+def fused_cuboid_attention_layer_dropout(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                                         w_qkv: torch.Tensor, bias: torch.Tensor,
+                                         w_proj: torch.Tensor, b_proj: torch.Tensor,
+                                         num_heads: int, scale: float, eps: float = 1e-5,
+                                         rate_attn: float = 0.0, rate_proj: float = 0.0,
+                                         seed: int = 0, site: int = 0) -> torch.Tensor:
+    """The general layer with the dropout masks of ``(seed, site)``, forward
+    only (:func:`fused_cuboid_attention_layer` with a seed is the
+    differentiable form).  CPU tensor: the plain version in f32.  CUDA
+    tensor: the kernel, or raise.  With both rates 0 it gives the bits of the
+    kernel without dropout."""
+    if not x.is_cuda:
+        return cuboid_attention_plain(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
+                                      scale, eps, rate_attn=rate_attn, rate_proj=rate_proj,
+                                      seed=seed, site=site)
+    return _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps,
+                          (rate_attn, rate_proj, seed, site))
 
 
 def fused_cuboid_attention_layer_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
@@ -545,26 +614,111 @@ def fused_cuboid_attention_layer_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: 
     f32 = dict(dtype=torch.float32, device=x.device)
     qkv, dqkv = torch.empty((M, 3 * C), **f32), torch.empty((M, 3 * C), **f32)
     dattn, dln = torch.empty((M, C), **f32), torch.empty((M, C), **f32)
+    stats = torch.empty((n_cuboids, num_heads, vol, 3), **f32)
     dx = torch.empty_like(x)
     lib = _build.load("attention", _SIGNATURES)
     err = lib.cuboid_attention_bwd_dx(
         *(_build.ptr(t) for t in (x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln,
-                                  dx)),
-        n_cuboids, vol, C, num_heads, q_tile, float(scale), float(eps),
-        _build.stream_ptr(x.device))
+                                  stats, dx)),
+        n_cuboids, vol, C, num_heads, q_tile, _cuboid_key_tile(vol, C // num_heads),
+        float(scale), float(eps), _build.stream_ptr(x.device))
     _build.check(err, "cuboid_attention_bwd_dx")
     fused_cuboid_attention_layer_bwd_dx.launches += 1
     return dx
 
 
+def fused_cuboid_attention_layer_bwd_full(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
+                                          ln_b: torch.Tensor, w_qkv: torch.Tensor,
+                                          bias: torch.Tensor, w_proj: torch.Tensor,
+                                          num_heads: int, scale: float, eps: float = 1e-5):
+    """(dx, dln_w, dln_b, dw_qkv, dbias, dw_proj, db_proj) of the general
+    cuboid layer, x and g (B, cuboids, vol, C).  CPU tensor: the plain
+    version in f32.  CUDA tensor: the kernel, or raise."""
+    if not x.is_cuda:
+        return cuboid_attention_bwd_full_plain(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
+                                               scale, eps)
+    return _cuboid_bwd_full_kernel(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, scale, eps)
+
+
+def fused_cuboid_attention_layer_dropout_bwd_full(x: torch.Tensor, g: torch.Tensor,
+                                                  ln_w: torch.Tensor, ln_b: torch.Tensor,
+                                                  w_qkv: torch.Tensor, bias: torch.Tensor,
+                                                  w_proj: torch.Tensor, num_heads: int,
+                                                  scale: float, eps: float = 1e-5,
+                                                  rate_attn: float = 0.0, rate_proj: float = 0.0,
+                                                  seed: int = 0, site: int = 0):
+    """(dx, dln_w, dln_b, dw_qkv, dbias, dw_proj, db_proj) of
+    :func:`fused_cuboid_attention_layer_dropout`, the masks regenerated from
+    ``(seed, site)``.  CPU tensor: the plain version in f32.  CUDA tensor: the
+    kernel, or raise."""
+    if not x.is_cuda:
+        return cuboid_attention_bwd_full_plain(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
+                                               scale, eps, rate_attn=rate_attn,
+                                               rate_proj=rate_proj, seed=seed, site=site)
+    return _cuboid_bwd_full_kernel(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, scale, eps,
+                                   (rate_attn, rate_proj, seed, site))
+
+
+def _cuboid_bwd_full_kernel(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, scale, eps,
+                            drop=None):
+    n_cuboids, vol, C, q_tile = _check_cuboid(x, num_heads)
+    tile = _cuboid_key_tile(vol, C // num_heads)
+    _build.require("cuboid_attention_bwd_full", [
+        ("x", x, tuple(x.shape)), ("g", g, tuple(x.shape)), ("ln_w", ln_w, (C,)),
+        ("ln_b", ln_b, (C,)), ("w_qkv", w_qkv, (3 * C, C)),
+        ("bias", bias, (num_heads, vol, vol)), ("w_proj", w_proj, (C, C))])
+    M = n_cuboids * vol
+    # cuboids per key-tile block: fewer dbias partials, still about two blocks per SM
+    per_block = max(1, min(8, n_cuboids * num_heads * -(-vol // tile) // _build.TARGET_BLOCKS))
+    groups = -(-n_cuboids // per_block)
+    tiles = (C // 64) ** 2
+    ksplit_qkv, ksplit_proj = _build.token_splits(3 * tiles, M), _build.token_splits(tiles, M)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    bf16 = dict(dtype=torch.bfloat16, device=x.device)
+    qkv, dqkv = torch.empty((M, 3 * C), **f32), torch.empty((M, 3 * C), **f32)
+    dattn, dln = torch.empty((M, C), **f32), torch.empty((M, C), **f32)
+    ln_bf, attn_bf = torch.empty((M, C), **bf16), torch.empty((M, C), **bf16)
+    stats = torch.empty((n_cuboids, num_heads, vol, 3), **f32)
+    dbias_part = torch.empty((groups, num_heads, vol, vol), **f32)
+    vpart = torch.empty((-(-M // 32), 3, C), **f32)
+    dw_part = torch.empty((max(3 * ksplit_qkv, ksplit_proj), C, C), **f32)
+    dx, dw_qkv, dbias, dw_proj = (torch.empty_like(x), torch.empty_like(w_qkv),
+                                  torch.empty_like(bias), torch.empty_like(w_proj))
+    vec = torch.empty((3, C), **f32)
+    lib = _build.load("attention", _SIGNATURES)
+    head = [x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln, ln_bf, attn_bf]
+    tail = [stats, dbias_part, vpart, dw_part, dx, dw_qkv, dbias, dw_proj, vec]
+    dims = (n_cuboids, vol, C, num_heads, q_tile, tile, per_block, ksplit_qkv, ksplit_proj,
+            float(scale), float(eps))
+    if drop is None:
+        err = lib.cuboid_attention_bwd_full(*(_build.ptr(t) for t in head + tail), *dims,
+                                            _build.stream_ptr(x.device))
+        _build.check(err, "cuboid_attention_bwd_full")
+        fused_cuboid_attention_layer_bwd_full.launches += 1
+    else:
+        rate_attn, rate_proj, seed, site = drop
+        do_bf = torch.empty((M, C), **bf16)
+        err = lib.cuboid_attention_dropout_bwd_full(
+            *(_build.ptr(t) for t in head + [do_bf] + tail), *dims,
+            *_build.drop_args(seed, site, rate_attn, rate_proj), _build.stream_ptr(x.device))
+        _build.check(err, "cuboid_attention_dropout_bwd_full")
+        fused_cuboid_attention_layer_dropout_bwd_full.launches += 1
+    return dx, vec[0], vec[1], dw_qkv, dbias, dw_proj, vec[2]
+
+
 class _FusedCuboidAttention(torch.autograd.Function):
-    """dx from the dx kernel; the parameter gradients, when asked for, from
-    autograd of the f32 plain version (the JAX package's dx-only backward)."""
+    """As :class:`_FusedAxialAttention`: the all-gradients kernel when a
+    parameter gradient is asked for or dropout is on (training), the dx
+    kernel when only dx is (guidance: the model is frozen)."""
 
     @staticmethod
-    def forward(ctx, x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps):
+    def forward(ctx, x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps, drop):
         ctx.save_for_backward(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj)
         ctx.args = (num_heads, scale, eps)
+        ctx.drop = drop
+        if drop is not None:
+            return fused_cuboid_attention_layer_dropout(x, ln_w, ln_b, w_qkv, bias, w_proj,
+                                                        b_proj, num_heads, scale, eps, *drop)
         if not x.is_cuda:
             return cuboid_attention_plain(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
                                           scale, eps)
@@ -576,23 +730,39 @@ class _FusedCuboidAttention(torch.autograd.Function):
         num_heads, scale, eps = ctx.args
         g = g.contiguous()
         needs = ctx.needs_input_grad
+        if ctx.drop is not None or any(needs[1:7]):
+            if ctx.drop is not None:
+                dx, *dparams = fused_cuboid_attention_layer_dropout_bwd_full(
+                    x, g, *params[:-1], num_heads, scale, eps, *ctx.drop)
+            else:
+                dx, *dparams = fused_cuboid_attention_layer_bwd_full(x, g, *params[:-1],
+                                                                     num_heads, scale, eps)
+            return (dx if needs[0] else None,
+                    *(gr if n else None for gr, n in zip(dparams, needs[1:7])),
+                    None, None, None, None)
         dx = (fused_cuboid_attention_layer_bwd_dx(x, g, *params[:-1], num_heads, scale, eps)
               if needs[0] else None)
-        dparams = _build.plain_grads(
-            lambda *p: cuboid_attention_plain(x.detach(), *p, num_heads, scale, eps), params,
-            needs[1:7], g)
-        return (dx, *dparams, None, None, None)
+        return (dx,) + (None,) * 10
 
 
 def fused_cuboid_attention_layer(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                                  w_qkv: torch.Tensor, bias: torch.Tensor, w_proj: torch.Tensor,
                                  b_proj: torch.Tensor, num_heads: int, scale: float,
-                                 eps: float = 1e-5) -> torch.Tensor:
+                                 eps: float = 1e-5, rate_attn: float = 0.0,
+                                 rate_proj: float = 0.0, seed: Optional[int] = None,
+                                 site: int = 0) -> torch.Tensor:
     """The general cuboid layer on x (B, cuboids, vol, C).  CPU tensor: the
     plain version in f32.  CUDA tensor: the kernel, or raise.  Differentiable
-    on both."""
+    on both.  With a ``seed`` the dropout kernels run, with the masks of
+    ``(seed, site)`` at the two rates; without one the rates must be 0."""
+    if seed is None:
+        if rate_attn > 0.0 or rate_proj > 0.0:
+            raise ValueError("fused_cuboid_attention_layer: a dropout rate above 0 needs a seed")
+        drop = None
+    else:
+        drop = (float(rate_attn), float(rate_proj), int(seed), int(site))
     return _FusedCuboidAttention.apply(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
-                                       scale, eps)
+                                       scale, eps, drop)
 
 
 # --------------------------------------------------------------------------- #
@@ -661,5 +831,8 @@ def fused_cuboid_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Te
 
 
 fused_cuboid_attention_layer.launches = 0
+fused_cuboid_attention_layer_dropout.launches = 0
 fused_cuboid_attention_layer_bwd_dx.launches = 0
+fused_cuboid_attention_layer_bwd_full.launches = 0
+fused_cuboid_attention_layer_dropout_bwd_full.launches = 0
 fused_cuboid_attention_grouped.launches = 0

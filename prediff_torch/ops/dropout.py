@@ -110,6 +110,19 @@ def resolve_masks(rates: Sequence[float], shapes: Sequence[Sequence[int]], seed:
             for i, (r, s) in enumerate(zip(rates, shapes))]
 
 
+def cuboid_layer_masks(shape: Sequence[int], num_heads: int, rate_attn: float, rate_proj: float,
+                       seed: Optional[int], site: int, masks=None, device=None):
+    """The two masks of one cuboid attention layer call on ``cuboid_reorder``'s
+    layout, x of ``shape`` (B, cuboids, vol, C): tensor 0 the attention
+    weights (B, cuboids, heads, vol, vol), tensor 1 the projected output (B,
+    cuboids, vol, C) before the reverse reorder, where flax's ``Dropout``
+    acts in the JAX layer; None at rate 0.  The general layer's kernels and
+    plain versions and the grouped and einsum routes all draw this layout."""
+    B, nC, vol, C = shape
+    return resolve_masks((rate_attn, rate_proj), ((B, nC, num_heads, vol, vol), (B, nC, vol, C)),
+                         seed, site, masks, device)
+
+
 class DropoutStream:
     """The dropout sites of one forward: the seed of the step and a counter
     that numbers the module calls that draw, in call order (the counterpart

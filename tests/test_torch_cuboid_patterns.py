@@ -161,8 +161,9 @@ def test_factory_builds_the_swin_configuration_and_refuses_what_is_not_ported():
     assert len(layers) == 32 and {m.padding_type for m in layers} == {"zeros"}
     assert tuple(unet.down_self_blocks[0][0].attn_l[1].shift_size) == (0, 4, 4)
     assert tuple(align.down_self_blocks[0][0].attn_l[0].cuboid_size) == (1, 8, 8)
-    with pytest.raises(NotImplementedError, match="13b and 15e"):
-        build_training_pipeline(cfg, device="cpu")
+    ld = build_training_pipeline(cfg, device="cpu")       # trains since PERF.md rows 13b, 15e
+    assert ld.unet.training and all(p.requires_grad for p in ld.unet.parameters())
+    assert ld.alignment is None and not ld.vae.training
     gv = _swin_cfg()
     gv.model.latent_model["num_global_vectors"] = 8
     with pytest.raises(NotImplementedError, match="global vectors"):
@@ -172,11 +173,26 @@ def test_factory_builds_the_swin_configuration_and_refuses_what_is_not_ported():
 
 
 def test_a_non_axial_layer_refuses_training_mode():
-    layer = CuboidSelfAttentionLayer(16, 2, (1, 2, 2), (0, 1, 1), padding_type="zeros")
+    """The name dates from when training mode refused every route but the
+    axial one.  Now each route trains: at rates 0 training mode is the eval
+    function, with dropout the call needs the forward's DropoutStream, and
+    attention-weight dropout sends a grouped window to the einsum route."""
+    from prediff_torch.ops.dropout import DropoutStream
     x = torch.randn(1, 2, 4, 4, 16)
-    layer.eval()(x)
-    with pytest.raises(NotImplementedError, match="13b and 15e"):
-        layer.train()(x)
+    for cs, shift, route in (((1, 2, 2), (0, 1, 1), "grouped_masked"), ((1, 2, 2), (0, 0, 0), "v4")):
+        layer = CuboidSelfAttentionLayer(16, 2, cs, shift, padding_type="zeros")
+        with torch.no_grad():
+            assert torch.equal(layer.train()(x), layer.eval()(x))
+        assert layer.train().route(x.shape) == layer.eval().route(x.shape) == route
+        layer = CuboidSelfAttentionLayer(16, 2, cs, shift, padding_type="zeros", attn_drop=0.1,
+                                         proj_drop=0.1).train()
+        with pytest.raises(ValueError, match="DropoutStream"):
+            layer(x)
+        stream = DropoutStream(3)
+        out = layer(x, stream)
+        assert stream.site == 1 and torch.isfinite(out).all()
+        assert layer.route(x.shape) == ("v4" if route == "v4" else "grouped_einsum")
+        assert layer.eval().route(x.shape) == route
 
 
 def test_bridge_round_trip_of_a_video_swin_unet():

@@ -459,7 +459,7 @@ def test_alignment_net_refuses_to_train_with_dropout():
     assert net.down_self_blocks[0][0].attn_l[0].attn_drop == 0.1
     assert net.down_self_blocks[0][0].ffn_l[0].dropout == 0.1 and net.first_proj.dropout == 0.1
     zt, t = torch.zeros((1,) + tuple(cfg.model.align.model_args.input_shape)), torch.tensor([3])
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="VAE-GAN and alignment training"):
         net.train()(zt, t)
     with torch.no_grad():
         assert torch.isfinite(net.eval()(zt, t)).all()

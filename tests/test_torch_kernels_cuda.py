@@ -14,10 +14,16 @@ from prediff_torch.ops.attention import (axial_attention_bwd_dx_plain,
                                          fused_axial_attention_bwd_full,
                                          fused_axial_attention_dropout,
                                          fused_axial_attention_dropout_bwd_full)
-from prediff_torch.ops.attention import (cuboid_attention_bwd_dx_plain, cuboid_attention_plain,
+from prediff_torch.ops.attention import (cuboid_attention_bwd_dx_plain,
+                                         cuboid_attention_bwd_full_plain,
+                                         cuboid_attention_dropout_bwd_full_plain,
+                                         cuboid_attention_dropout_plain, cuboid_attention_plain,
                                          fused_cuboid_attention_grouped,
                                          fused_cuboid_attention_layer,
                                          fused_cuboid_attention_layer_bwd_dx,
+                                         fused_cuboid_attention_layer_bwd_full,
+                                         fused_cuboid_attention_layer_dropout,
+                                         fused_cuboid_attention_layer_dropout_bwd_full,
                                          grouped_attention_plain)
 from prediff_torch.ops.cuboid import compute_cuboid_self_attention_mask
 from prediff_torch.ops.dropout import keep_mask
@@ -467,15 +473,22 @@ def test_grouped_kernel_matches_plain(dev, shape, window):
 
 
 def test_autograd_through_the_cuboid_wrappers_on_the_card(dev):
-    """Guidance: dx through the layer from the dx kernel, q, k, v and bias
-    through the grouped core from autograd of its plain version; parameter
-    gradients of the layer from autograd of its f32 plain version."""
+    """Training: dx and every parameter gradient of the layer from its
+    all-gradients kernel, once; guidance: dx alone from the dx kernel; q, k,
+    v and bias through the grouped core from autograd of its plain version."""
     args = _cuboid_args(dev, (1, 6, 64, 128))
     g = torch.randn_like(args[0])
+    counted = (fused_cuboid_attention_layer_bwd_full, fused_cuboid_attention_layer_bwd_dx)
+    before = [fn.launches for fn in counted]
     got = _grads(lambda *a: fused_cuboid_attention_layer(*a, 4, 0.17), args, g)
     want = _grads(lambda *a: cuboid_attention_plain(*a, 4, 0.17), args, g)
     for gt, wt in zip(got, want):
         _close_rel(gt, wt)
+    assert [fn.launches for fn in counted] == [before[0] + 1, before[1]]
+    x = args[0].clone().requires_grad_(True)
+    (dx,) = torch.autograd.grad(fused_cuboid_attention_layer(x, *args[1:], 4, 0.17), [x], g)
+    _close_rel(dx, want[0])
+    assert [fn.launches for fn in counted] == [before[0] + 1, before[1] + 1]
     q, k, v = (torch.randn(1, 2, 3, 64, 32, device=dev) for _ in range(3))
     bias = torch.randn(2, 64, 64, device=dev)
     mask = torch.rand(3, 64, 64, device=dev) > 0.3
@@ -484,3 +497,79 @@ def test_autograd_through_the_cuboid_wrappers_on_the_card(dev):
     want = _grads(lambda *a: grouped_attention_plain(*a, mask, 0.2), (q, k, v, bias), gq)
     for gt, wt in zip(got, want):
         torch.testing.assert_close(gt, wt, rtol=1e-4, atol=1e-4)
+
+
+# ---- training the general layer: all gradients, and dropout inside the kernels ----
+@pytest.mark.parametrize("shape", CUBOID_SHAPES + [(2, 52, 64, 256), (2, 13, 64, 512)])
+def test_cuboid_bwd_full_kernel_matches_plain(dev, shape):
+    heads = 4
+    args = _cuboid_args(dev, shape, heads)[:6]
+    g = torch.randn_like(args[0])
+    scale = (shape[3] // heads) ** -0.5
+    before = fused_cuboid_attention_layer_bwd_full.launches
+    got = fused_cuboid_attention_layer_bwd_full(args[0], g, *args[1:], heads, scale)
+    want = cuboid_attention_bwd_full_plain(args[0], g, *args[1:], heads, scale,
+                                           mxu_dtype=torch.bfloat16)
+    for name, gt, wt in zip(ATTN_GRADS, got, want):
+        assert gt.shape == wt.shape, name
+        _close_rel(gt, wt)
+    assert fused_cuboid_attention_layer_bwd_full.launches == before + 1
+    again = fused_cuboid_attention_layer_bwd_full(args[0], g, *args[1:], heads, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics: same bits
+
+
+@pytest.mark.parametrize("shape", [(2, 52, 64, 256), (2, 13, 64, 512), (1, 13, 256, 256),
+                                   (2, 5, 36, 64)])
+def test_cuboid_dropout_kernels_match_plain(dev, shape):
+    heads = 4
+    args = _cuboid_args(dev, shape, heads)
+    g = torch.randn_like(args[0])
+    scale = (shape[3] // heads) ** -0.5
+    drop = dict(rate_attn=0.1, rate_proj=0.1, seed=SEED, site=SITE)
+    counted = (fused_cuboid_attention_layer_dropout, fused_cuboid_attention_layer_dropout_bwd_full,
+               fused_cuboid_attention_layer, fused_cuboid_attention_layer_bwd_full)
+    before = [fn.launches for fn in counted]
+    out = fused_cuboid_attention_layer_dropout(*args, heads, scale, **drop)
+    _close_bf16(out, cuboid_attention_dropout_plain(*args, heads, scale,
+                                                    mxu_dtype=torch.bfloat16, **drop))
+    bargs = (args[0], g, *args[1:6], heads, scale)
+    got = fused_cuboid_attention_layer_dropout_bwd_full(*bargs, **drop)
+    want = cuboid_attention_dropout_bwd_full_plain(*bargs, mxu_dtype=torch.bfloat16, **drop)
+    for name, gt, wt in zip(ATTN_GRADS, got, want):
+        assert gt.shape == wt.shape, name
+        _close_rel(gt, wt)
+    assert [fn.launches for fn in counted] == [before[0] + 1, before[1] + 1] + before[2:]
+    again = fused_cuboid_attention_layer_dropout_bwd_full(*bargs, **drop)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    dropped = float((out == 0).float().mean())
+    assert abs(dropped - 0.1) <= 4 * (0.09 / out.numel()) ** 0.5
+
+
+@pytest.mark.parametrize("shape", [(2, 52, 64, 256), (1, 13, 256, 256)])
+def test_cuboid_dropout_kernels_at_rate_0_give_the_bits_of_the_plain_kernels(dev, shape):
+    args = _cuboid_args(dev, shape)
+    g = torch.randn_like(args[0])
+    scale = (shape[3] // 4) ** -0.5
+    assert torch.equal(fused_cuboid_attention_layer_dropout(*args, 4, scale, seed=SEED, site=SITE),
+                       fused_cuboid_attention_layer(*args, 4, scale))
+    bargs = (args[0], g, *args[1:6], 4, scale)
+    got = fused_cuboid_attention_layer_dropout_bwd_full(*bargs, seed=SEED, site=SITE)
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, fused_cuboid_attention_layer_bwd_full(*bargs)))
+
+
+def test_autograd_through_the_cuboid_dropout_wrapper_on_the_card(dev):
+    """With a seed the layer's Function runs its dropout kernels, forward and
+    backward once, and gives the gradients of autograd of the f32 plain
+    version under the same masks."""
+    args = _cuboid_args(dev, (2, 6, 64, 128))
+    g = torch.randn_like(args[0])
+    kw = dict(rate_attn=0.1, rate_proj=0.2, seed=SEED, site=SITE)
+    counted = (fused_cuboid_attention_layer_dropout, fused_cuboid_attention_layer_dropout_bwd_full)
+    before = [fn.launches for fn in counted]
+    got = _grads(lambda *a: fused_cuboid_attention_layer(*a, 4, 0.17, 1e-5, **kw), args, g)
+    want = _grads(lambda *a: cuboid_attention_plain(*a, 4, 0.17, **kw), args, g)
+    for gt, wt in zip(got, want):
+        assert torch.isfinite(gt).all()
+        _close_rel(gt, wt)
+    assert [fn.launches for fn in counted] == [b + 1 for b in before]
