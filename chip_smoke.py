@@ -24,9 +24,9 @@ UNet forward and a guidance shift card against CPU, the 100-step unguided
 and guided DDPM forecasts with exact launch counts, profiles; and for each
 of ``PATTERN_CHECKS`` (depth [1,1]) a UNet forward and a guidance shift card
 against CPU with exact launch counts.  Then
-training.  ``train_rate0``, with the dropout rates at 0: one loss and
-backward on the card (kernels) against the CPU (plain, f32), then one
-accumulated optimizer step
+training.  ``train_rate0``, with the dropout rates at 0 and the UNet cut to
+depth [1,1]: one loss and backward on the card (kernels) against the CPU
+(plain, f32), then one accumulated optimizer step
 through ``DiffusionTrainer.train_step``, which launches the all-gradients
 kernels without dropout.  At the recipe's own rates (0.1) and full depth:
 ``train_grads``, one loss and backward of the UNet on the card (the dropout
@@ -39,7 +39,16 @@ same four training phases then run on ``video_swin_1x8`` (``swin_train_rate0``
 at depth [1,1], ``swin_train_grads``, ``swin_train``,
 ``profile_swin_train_step``): the general layer's all-gradients and dropout
 kernels, the grouped core at rate 0, the einsum route under attention
-dropout.  Then the ``kernels`` summary line, the card's name
+dropout.  The opt-in bf16 conv route (``use_pallas_conv=True`` in both
+networks) and the round-1 cuboid ops: ``conv_kernels_vs_plain`` (the conv
+forward and its input gradient at every shape of the route),
+``cuboid_core_vs_plain`` and ``cuboid_layer_v3_vs_plain`` right after
+``kernels_vs_plain``; after the axial forecasts ``conv_routes`` (the route's
+launches per call held to the JAX routing rule's), a UNet forward and a
+guidance shift card against CPU, ``conv_forecast`` and
+``conv_guided_forecast`` with exact counts, profiles; after ``train``,
+``conv_train_grads``, ``conv_train`` and ``profile_conv_train_step`` (no
+rate-0 phase).  Then the ``kernels`` summary line, the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that line is printed.
 """
@@ -117,11 +126,25 @@ KERNELS = {
     "cuboid_attention_dropout_bwd_full": ("prediff_torch/csrc/attention.cu",
                                           "prediff_tpu/ops/pallas_attention.py:1209",
                                           "swin_train"),
+    # the opt-in bf16 3x3x3 conv (use_pallas_conv=True): its forward, and its
+    # input gradient (the same pallas_call on the flipped weights, from _diff_bwd)
+    "conv3x3x3": ("prediff_torch/csrc/conv3d.cu", "prediff_tpu/ops/pallas_conv3d.py:129",
+                  "conv_guided_forecast"),
+    "conv3x3x3_dx": ("prediff_torch/csrc/conv3d.cu", "prediff_tpu/ops/pallas_conv3d.py:189",
+                     "conv_train"),
+    # the round-1 core and whole layer ("v3"): standalone ops that no model calls,
+    # so on no path (launches 0)
+    "cuboid_core": ("prediff_torch/csrc/attention.cu", "prediff_tpu/ops/pallas_attention.py:103",
+                    None),
+    "cuboid_layer_v3": ("prediff_torch/csrc/attention.cu",
+                        "prediff_tpu/ops/pallas_attention.py:322", None),
 }
 # which path's launches per step weigh a kernel's times
 PATH_WEIGHTS = {"guided_forecast": ("per_unet", "per_align"), "train": ("per_train",),
                 "train_rate0": ("per_train",), "swin_guided_forecast": ("per_unet", "per_align"),
-                "swin_train": ("per_train",), "swin_train_rate0": ("per_train",)}
+                "swin_train": ("per_train",), "swin_train_rate0": ("per_train",),
+                "conv_guided_forecast": ("conv_per_unet", "conv_per_align"),
+                "conv_train": ("conv_per_train",), None: ()}
 SWIN_PATTERN = "video_swin_1x8"   # the pattern of the swin phases, UNet and alignment net
 # patterns checked card against CPU at full width, depth [1,1]: between them
 # every route and strategy (general layer at vol 256 and on dilated cuboids,
@@ -130,6 +153,14 @@ PATTERN_CHECKS = ("divided_st", "spatial_lg_v1", "axial_space_dilate_2", "video_
 CUBOID_LAYER_KERNELS = ("cuboid_attention", "cuboid_attention_bwd_dx", "cuboid_attention_bwd_full",
                         "cuboid_attention_dropout", "cuboid_attention_dropout_bwd_full")
 CUBOID_KERNELS = CUBOID_LAYER_KERNELS + ("cuboid_attention_grouped",)
+CONV_KERNELS = ("conv3x3x3", "conv3x3x3_dx")
+ROUND1_KERNELS = ("cuboid_core", "cuboid_layer_v3")
+# the conv route's launches on the v1 recipe (the JAX package's routing rule):
+# per UNet forward at B=1, per guidance shift, per training micro-step at B=2
+CONV_EXPECTED = {"conv3x3x3": {"per_unet": 33, "per_align": 1, "per_train": 16},
+                 "conv3x3x3_dx": {"per_unet": 0, "per_align": 1, "per_train": 16}}
+CONV_TOL_REL = 1e-3      # conv kernel vs plain: share of the output's max (same bf16 rounding)
+ROUND1_TOL_REL = 1e-5    # round-1 core and layer vs plain: f32 on both sides
 # each pair: the kernel without dropout, then its dropout form
 FFN_FORWARDS = ("ffn", "ffn_dropout")
 FFN_BACKWARDS = ("ffn_bwd_full", "ffn_dropout_bwd_full")
@@ -548,6 +579,172 @@ def check_kernels(cases, device):
     return failed
 
 
+def conv_sites(model, batch: int, grad: bool, force: bool = False):
+    """The 3x3x3 convs of ``model`` (UNet or alignment net) that take the conv
+    kernel at ``batch`` samples, as (kernel, [B, T, H, W, C, OC], calls per
+    model call): the time-embedding blocks with the conv route on (every
+    block when ``force``; never the alignment net's fused resblocks), each
+    conv the JAX routing rule admits, and with ``grad`` (guidance, training)
+    its input gradient where the rule admits the cotangent."""
+    from prediff_torch.ops.conv3d import supports_shape
+
+    if hasattr(model, "up_time_embed_blocks"):   # the UNet: down and up calls of each stage
+        blocks = [(model.first_proj, model.data_shape, 1)] + [
+            (blk, model.mem_shapes[i], model.depth[i])
+            for blks in (model.down_time_embed_blocks, model.up_time_embed_blocks)
+            for i, blk in enumerate(blks)]
+    else:
+        blocks = [(model.first_proj, model.input_shape, 1)] + [
+            (blk, model.mem_shapes[i], model.depth[i])
+            for i, blk in enumerate(model.down_time_embed_blocks)]
+    out = []
+    for blk, (t, h, w, _), n in blocks:
+        if blk.fused or not (force or blk.conv_kernel):
+            continue
+        for conv in (blk.in_layers[2], blk.out_layers[3]):
+            c, oc = conv.in_channels, conv.out_channels
+            if supports_shape(t, h, w, c, oc, batch):
+                out.append(("conv3x3x3", [batch, t, h, w, c, oc], n))
+                if grad and supports_shape(t, h, w, oc, c, batch):
+                    out.append(("conv3x3x3_dx", [batch, t, h, w, c, oc], n))
+    return out
+
+
+def conv_cases(unet, align, train_batch: int):
+    """The conv kernels' cases: each shape of the conv route on the v1 recipe,
+    its launches per UNet forward at B=1, per guidance shift and per training
+    micro-step under ``conv_per_unet`` / ``conv_per_align`` /
+    ``conv_per_train`` (the default route launches none: ``per_*`` are 0)."""
+    cases = {k: {} for k in CONV_KERNELS}
+    for model, batch, grad, key in ((unet, 1, False, "conv_per_unet"),
+                                    (align, 1, True, "conv_per_align"),
+                                    (unet, train_batch, True, "conv_per_train")):
+        for name, shape, n in conv_sites(model, batch, grad, force=True):
+            c = cases[name].setdefault(tuple(shape), dict(
+                shape=shape, per_unet=0, per_align=0, per_train=0, conv_per_unet=0,
+                conv_per_align=0, conv_per_train=0))
+            c[key] += n
+    return {k: list(v.values()) for k, v in cases.items()}
+
+
+def check_conv_kernels(cases, device):
+    """The conv forward and input gradient against their plain versions (x,
+    g and the weights rounded to bf16 on both sides, f32 sums), held to
+    ``CONV_TOL_REL`` of the output's max, with times, bounds and two library
+    yardsticks: cuDNN on bf16 channels-last tensors (``library_ms``) and the
+    f32 cuDNN conv the default route runs (``library_f32_ms``)."""
+    import torch
+    import torch.nn.functional as F
+    from prediff_torch.ops.conv3d import (conv3x3x3_dx, conv3x3x3_dx_plain, conv3x3x3_forward,
+                                          conv3x3x3_plain)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    cl = torch.channels_last_3d
+    for name in CONV_KERNELS:
+        for c in cases[name]:
+            B, T, H, W, C, OC = c["shape"]
+            M = B * T * H * W
+            w = torch.randn((OC, C, 3, 3, 3), generator=gen, device=device) * (27 * C) ** -0.5
+            b = 0.1 * torch.randn((OC,), generator=gen, device=device)
+            wb = w.to(torch.bfloat16).contiguous(memory_format=cl)
+            if name == "conv3x3x3":
+                x = torch.randn((B, T, H, W, C), generator=gen, device=device)
+                kernel = lambda: conv3x3x3_forward(x, w, b)  # noqa: E731
+                plain = lambda: conv3x3x3_plain(x, w, b)  # noqa: E731
+                xb, bb = x.to(torch.bfloat16).permute(0, 4, 1, 2, 3), b.to(torch.bfloat16)
+                library = lambda: F.conv3d(xb, wb, bb, padding=1)  # noqa: E731
+                library_f32 = lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), w, b,  # noqa: E731
+                                               padding=1)
+            else:
+                g = torch.randn((B, T, H, W, OC), generator=gen, device=device)
+                kernel = lambda: conv3x3x3_dx(g, w)  # noqa: E731
+                plain = lambda: conv3x3x3_dx_plain(g, w)  # noqa: E731
+                gb = g.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+                library = lambda: F.conv_transpose3d(gb, wb, padding=1)  # noqa: E731
+                library_f32 = lambda: F.conv_transpose3d(  # noqa: E731
+                    g.permute(0, 4, 1, 2, 3), w, padding=1)
+            got, want = kernel(), plain()
+            sync(device)
+            judge(c, got, want, tol=CONV_TOL_REL * float(want.abs().max()))
+            timed(c, kernel, plain, 4 * (M * C + M * OC + 27 * C * OC + OC), library=library,
+                  bf16_flops=2 * M * 27 * C * OC)
+            c["library_f32_ms"] = time_ms(library_f32)
+    return [(name, c) for name in CONV_KERNELS for c in cases[name] if not c["ok"]]
+
+
+# the round-1 cases: the core at video_swin_1x8's stage-0 shape with and without
+# its shifted-window mask, the whole layer at the UNet's stage-0 cuboids
+SWIN_STAGE0_WINDOW = [[13, 16, 16], [1, 8, 8], [0, 4, 4], ["l", "l", "l"], "zeros"]
+
+
+def round1_cases():
+    zero = dict(per_unet=0, per_align=0, per_train=0)
+    return {"cuboid_core": [dict(zero, shape=[1, 52, 4, 64, 64], window=SWIN_STAGE0_WINDOW),
+                            dict(zero, shape=[1, 52, 4, 64, 64], window=None)],
+            "cuboid_layer_v3": [dict(zero, shape=[1, 52, 64, 256], heads=4)]}
+
+
+def check_round1_kernels(cases, device):
+    """The round-1 core and whole layer against their plain versions, f32 on
+    both sides, held to ``ROUND1_TOL_REL`` of the output's max; the core's
+    library yardstick is SDPA in f32 with bias and mask as one float mask (as
+    row 10's), the layer has none (no one call does LN + QKV + attention +
+    projection)."""
+    import torch
+    import torch.nn.functional as F
+    from prediff_torch.ops.attention import (cuboid_attention_layer_v3_plain,
+                                             cuboid_attention_plain_core, fused_cuboid_attention,
+                                             fused_cuboid_attention_layer_v3)
+    from prediff_torch.ops.cuboid import NEG_INF, compute_cuboid_self_attention_mask
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=device) * scale + shift
+
+    with torch.no_grad():
+        for c in cases["cuboid_core"]:
+            B, nC, heads, vol, hc = c["shape"]
+            q, k, v = (randn(B, nC, heads, vol, hc) for _ in range(3))
+            bias = randn(heads, vol, vol, scale=0.5)
+            mask = None
+            if c["window"] is not None:
+                dims, cs, shift, strategy, padding_type = c["window"]
+                mask = torch.from_numpy(compute_cuboid_self_attention_mask(
+                    tuple(dims), tuple(cs), tuple(shift), tuple(strategy), padding_type)).to(device)
+            scale = hc ** -0.5
+            got = fused_cuboid_attention(q, k, v, bias, mask, scale)
+            want = cuboid_attention_plain_core(q, k, v, bias, mask, scale)
+            sync(device)
+            judge(c, got, want, tol=ROUND1_TOL_REL * float(want.abs().max()))
+            add = bias[None, None] if mask is None else (
+                bias[None, None] + torch.where(mask, 0.0, NEG_INF)[None, :, None])
+            add = add.expand(B, nC, heads, vol, vol).reshape(B * nC * heads, 1, vol, vol)
+            q4, k4, v4 = (t.reshape(B * nC * heads, 1, vol, hc) for t in (q, k, v))
+            N = B * nC * heads * vol
+            timed(c, lambda: fused_cuboid_attention(q, k, v, bias, mask, scale),
+                  lambda: cuboid_attention_plain_core(q, k, v, bias, mask, scale),
+                  4 * (4 * N * hc + heads * vol * vol) + (0 if mask is None else nC * vol * vol),
+                  library=lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=add,
+                                                                 scale=scale),
+                  f32_flops=4 * N * vol * hc)
+        for c in cases["cuboid_layer_v3"]:
+            B, nC, vol, C = c["shape"]
+            heads, M = c["heads"], B * nC * vol
+            args = (randn(B, nC, vol, C), randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1),
+                    randn(3 * C, C, scale=C ** -0.5), randn(heads, vol, vol, scale=0.5),
+                    randn(C, C, scale=C ** -0.5), randn(C, scale=0.1), heads, (C // heads) ** -0.5)
+            got = fused_cuboid_attention_layer_v3(*args)
+            want = cuboid_attention_layer_v3_plain(*args)
+            sync(device)
+            judge(c, got, want, tol=ROUND1_TOL_REL * float(want.abs().max()))
+            timed(c, lambda: fused_cuboid_attention_layer_v3(*args),
+                  lambda: cuboid_attention_layer_v3_plain(*args),
+                  4 * (2 * M * C + 4 * C * C + heads * vol * vol + 3 * C),
+                  f32_flops=8 * M * C * C + 4 * M * vol * C)
+    return [(name, c) for name in ROUND1_KERNELS for c in cases[name] if not c["ok"]]
+
+
 def attention_layers(model, per_call: int):
     """(stage shape, layer, calls per model call) for each attention layer of
     each stage's block: a stage's blocks share one pattern, so the first block
@@ -613,16 +810,18 @@ def swin_cases(unet, align, train_batch: int):
     return {k: list(v.values()) for k, v in cases.items()}
 
 
-def path_launches(unet, align=None):
+def path_launches(unet, align=None, train_batch: int = 2):
     """Launches per UNet forward at B=1, per guidance shift and per training
     micro-step, every kernel, for any pattern: the layers' routes give the
     attention kernels (a grouped core has no backward kernel: its gradient is
     autograd of the plain version), one FFN per attention layer; GN twice in
     ``first_proj`` and in each time-block call, the alignment net's time
     blocks the resblock kernels, its ``first_proj`` GN forward and
-    all-gradients backward.  ``per_train`` counts each forward kernel of a
-    micro-step, its all-gradients backward, and both their dropout forms
-    (``expected_train_launches`` picks the forms a run takes)."""
+    all-gradients backward; the conv kernel at each conv of a block with the
+    conv route that the routing rule admits at the batch (``conv_sites``;
+    a micro-step at ``train_batch`` samples).  ``per_train`` counts each
+    forward kernel of a micro-step, its all-gradients backward, and both their
+    dropout forms (``expected_train_launches`` picks the forms a run takes)."""
     per = {k: {"per_unet": 0, "per_align": 0, "per_train": 0} for k in KERNELS}
     gn = 2 + 2 * 2 * sum(unet.depth)
     per["groupnorm_silu"]["per_unet"] = gn
@@ -650,6 +849,12 @@ def path_launches(unet, align=None):
                 per["ffn_bwd_dx"][key] += n
                 if route in ("v4", "axial"):
                     per[kernel[route] + "_bwd_dx"][key] += n
+    convs = [(unet, "per_unet", 1, False), (unet, "per_train", train_batch, True)]
+    if align is not None:
+        convs.append((align, "per_align", 1, True))
+    for model, key, batch, grad in convs:
+        for name, _, n in conv_sites(model, batch, grad):
+            per[name][key] += n
     return per
 
 
@@ -800,7 +1005,7 @@ def expected_train_launches(per_train, micro_steps: int, val_steps: int, dropout
     with_drop = tuple(pair[1] for pair in PAIRS)
     without = tuple(pair[0] for pair in PAIRS) + ("cuboid_attention_grouped",)
     forward = ("groupnorm_silu", "ffn", "axial_attention", "cuboid_attention",
-               "cuboid_attention_grouped")
+               "cuboid_attention_grouped", "conv3x3x3")
     return {name: (micro_steps * (name not in (without if dropout else with_drop))
                    + val_steps * (name in forward)) * per
             for name, per in per_train.items()}
@@ -811,7 +1016,9 @@ def summarize(cases, launches_by_path):
     and its times weighted over that path's mix of shapes: one guided step
     (launches per UNet forward plus per guidance shift), or one training
     micro-step for the training kernels (at the recipe's dropout rates; the
-    all-gradients kernels without dropout: one micro-step of ``train_rate0``)."""
+    all-gradients kernels without dropout: one micro-step of ``train_rate0``;
+    the conv kernels: one guided step, one micro-step of ``conv_train``).  The
+    round-1 kernels are on no path: launches 0, their cases weighed alike."""
     out = []
     for name, cs in cases.items():
         source, replaces, main_path = KERNELS[name]
@@ -826,15 +1033,16 @@ def summarize(cases, launches_by_path):
 
         bytes_share = sum(w for c, w in zip(cs, wts) if c["bound"][1] == "bytes") / n
         has_library = all(c["library_ms"] is not None for c in cs)
+        extra = {"library_f32_ms": mix("library_f32_ms")} if "library_f32_ms" in cs[0] else {}
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches_by_path[main_path][name],
+            launches=launches_by_path[main_path][name] if main_path else 0,
             max_abs_err=max(c["max_abs_err"] for c in cs), ms=mix("ms"), plain_ms=mix("plain_ms"),
             bound_ms=sum(c["bound"][0] * w for c, w in zip(cs, wts)) / n,
             bound_by="bytes" if bytes_share >= 0.5 else "operations",
             library_ms=mix("library_ms") if has_library else None, main_path=main_path,
             launches_by_path={p: v[name] for p, v in launches_by_path.items()},
-            launches_per_step_mix=n,
+            launches_per_step_mix=n, **extra,
             shapes=[{k: v for k, v in c.items() if k != "bound"}
                     | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]} for c in cs]))
     return out
@@ -1018,6 +1226,7 @@ def run(device, cfg, smi: str) -> None:
     import torch
     from prediff_torch.factory import build_alignment_model, build_unet, build_vae
     from prediff_torch.models.init import init_params_
+    from prediff_torch.ops.attention import fused_cuboid_attention, fused_cuboid_attention_layer_v3
     from prediff_torch.ops.attention import (fused_axial_attention, fused_axial_attention_bwd_dx,
                                              fused_axial_attention_bwd_full,
                                              fused_axial_attention_dropout,
@@ -1028,6 +1237,7 @@ def run(device, cfg, smi: str) -> None:
                                              fused_cuboid_attention_layer_bwd_full,
                                              fused_cuboid_attention_layer_dropout,
                                              fused_cuboid_attention_layer_dropout_bwd_full)
+    from prediff_torch.ops.conv3d import conv3x3x3_dx, conv3x3x3_forward
     from prediff_torch.ops.ffn import (fused_ffn, fused_ffn_bwd_dx, fused_ffn_bwd_full,
                                        fused_ffn_dropout, fused_ffn_dropout_bwd_full)
     from prediff_torch.ops.groupnorm import fused_groupnorm_silu, fused_groupnorm_silu_bwd_full
@@ -1052,7 +1262,10 @@ def run(device, cfg, smi: str) -> None:
                 "cuboid_attention_grouped": fused_cuboid_attention_grouped,
                 "cuboid_attention_bwd_full": fused_cuboid_attention_layer_bwd_full,
                 "cuboid_attention_dropout": fused_cuboid_attention_layer_dropout,
-                "cuboid_attention_dropout_bwd_full": fused_cuboid_attention_layer_dropout_bwd_full}
+                "cuboid_attention_dropout_bwd_full": fused_cuboid_attention_layer_dropout_bwd_full,
+                "conv3x3x3": conv3x3x3_forward, "conv3x3x3_dx": conv3x3x3_dx,
+                "cuboid_core": fused_cuboid_attention,
+                "cuboid_layer_v3": fused_cuboid_attention_layer_v3}
     gen = torch.Generator().manual_seed(SEED)
     unet_cpu = init_params_(build_unet(cfg), gen, randomize=True).eval().requires_grad_(False)
     vae_cpu = init_params_(build_vae(cfg), gen, randomize=True).eval().requires_grad_(False)
@@ -1069,6 +1282,22 @@ def run(device, cfg, smi: str) -> None:
           "failed": len(bad)})
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
+    # the conv route's kernels at every shape of its path, and the round-1 ops
+    cases.update(conv_cases(unet_cpu, align_cpu, cfg.optim.micro_batch_size))
+    bad = check_conv_kernels(cases, device)
+    emit({"phase": "conv_kernels_vs_plain", "cases": sum(len(cases[k]) for k in CONV_KERNELS),
+          "failed": len(bad), "tol_rel": CONV_TOL_REL,
+          "worst_rel_err": max(c["max_rel_err"] for k in CONV_KERNELS for c in cases[k])})
+    if bad:
+        fail(f"conv kernel disagrees with its plain version: {bad}")
+    cases.update(round1_cases())
+    bad = check_round1_kernels(cases, device)
+    for name in ROUND1_KERNELS:
+        emit({"phase": f"{name}_vs_plain", "cases": len(cases[name]),
+              "failed": sum(n == name for n, _ in bad), "tol_rel": ROUND1_TOL_REL,
+              "worst_rel_err": max(c["max_rel_err"] for c in cases[name])})
+    if bad:
+        fail(f"round-1 kernel disagrees with its plain version: {bad}")
 
     predictor = PreDiffPredictor(cfg, params={"unet": unet_cpu.state_dict(),
                                               "vae": vae_cpu.state_dict(),
@@ -1126,17 +1355,98 @@ def run(device, cfg, smi: str) -> None:
     emit(profile("profile_guidance_shift",
                  lambda: predictor.ld.alignment.get_mean_shift(zg, td, avg_d), reps=5))
     del predictor
+    weights = {"unet": unet_cpu.state_dict(), "vae": vae_cpu.state_dict(),
+               "align": align_cpu.state_dict()}
+    conv_launches, conv_per = conv_serving_phases(device, cfg, smi, weights, zero_counts,
+                                                  read_counts)
+    launches_by_path.update(conv_launches)
     swin_launches, swin_unet = swin_phases(device, cfg, smi, cases, zero_counts, read_counts)
     launches_by_path.update(swin_launches)
     pattern_phases(device, cfg, zero_counts, read_counts)
     per_train = {k: v["per_train"] for k, v in by_route.items()}
-    launches_by_path.update(train_phases(device, cfg, smi, per_train,
-                                         {"unet": unet_cpu.state_dict(),
-                                          "vae": vae_cpu.state_dict()}, zero_counts, read_counts))
+    train_weights = {"unet": weights["unet"], "vae": weights["vae"]}
+    launches_by_path.update(train_phases(device, cfg, smi, per_train, train_weights, zero_counts,
+                                         read_counts))
+    # the conv route in training: the recipe's rates (no rate-0 phase), B=2
+    launches_by_path.update(train_phases(
+        device, conv_config(cfg), smi, {k: v["per_train"] for k, v in conv_per.items()},
+        train_weights, zero_counts, read_counts, prefix="conv_", rate0=False))
     launches_by_path.update(swin_train_phases(device, cfg, smi, swin_unet, vae_cpu.state_dict(),
                                               zero_counts, read_counts))
     emit({"kernels": summarize(cases, launches_by_path)})
     print(smi, flush=True)
+
+
+def conv_config(cfg):
+    """``cfg`` with the opt-in bf16 conv route in the UNet and the alignment net."""
+    from prediff_torch.config import ConfigDict, deep_merge
+
+    return ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {
+        "latent_model": {"use_pallas_conv": True},
+        "align": {"model_args": {"use_pallas_conv": True}}}}))
+
+
+def conv_serving_phases(device, cfg, smi, weights, zero_counts, read_counts):
+    """Forecasts on the conv route (``conv_config``), the same random weights:
+    the route's launches from the models' blocks held to ``CONV_EXPECTED``, a
+    UNet forward (with its exact counts) and a guidance shift card against CPU
+    (the CPU takes the plain conv with the same bf16 rounding), the 100-step
+    unguided and guided DDPM forecasts with exact counts, profiles of a UNet
+    forward and a guided step.  Returns the chains' launches and the route's
+    ``path_launches``."""
+    import torch
+    from prediff_torch.factory import build_alignment_model, build_unet
+    from prediff_torch.serving import PreDiffPredictor
+
+    ccfg = conv_config(cfg)
+    unet_cpu, align_cpu = build_unet(ccfg), build_alignment_model(ccfg)
+    unet_cpu.load_state_dict(weights["unet"])
+    align_cpu.load_state_dict(weights["align"])
+    unet_cpu.eval().requires_grad_(False)
+    align_cpu.eval().requires_grad_(False)
+    per = path_launches(unet_cpu, align_cpu, ccfg.optim.micro_batch_size)
+    routed = {k: per[k] for k in CONV_KERNELS}
+    emit({"phase": "conv_routes", "launches_per_call": routed, "expected": CONV_EXPECTED})
+    if routed != CONV_EXPECTED:
+        fail(f"conv route: launches by route {routed} != expected {CONV_EXPECTED}")
+    predictor = PreDiffPredictor(ccfg, params=weights, with_alignment=True, device=device)
+    rs = torch.Generator().manual_seed(SEED + 1)
+    zero_counts()
+    x, t, cond = forward_vs_cpu("conv_denoise_forward", unet_cpu, predictor, ccfg, rs, device)
+    counts, want = read_counts(), {k: v["per_unet"] for k, v in per.items()}
+    emit({"phase": "conv_denoise_forward_launches", "launches": counts,
+          "expected_launches": want})
+    if counts != want:
+        fail(f"conv route: forward launches {counts} != expected {want}")
+    avg = shift_vs_cpu("conv_guided_shift", align_cpu, predictor, ccfg, rs, t,
+                       {k: v["per_align"] for k, v in per.items()}, device, zero_counts,
+                       read_counts)
+    img = ccfg.layout
+    context = torch.rand((1, img.in_len, img.img_height, img.img_width, img.data_channels),
+                         generator=rs)
+    expect_shape = (1, img.out_len, img.img_height, img.img_width, img.data_channels)
+    chains = {
+        "conv_forecast": (dict(timesteps=CHAIN_STEPS), CHAIN_STEPS, False),
+        "conv_guided_forecast": (dict(timesteps=CHAIN_STEPS, use_alignment=True,
+                                      avg_x_gt=avg.numpy()), CHAIN_STEPS, True),
+    }
+
+    def expected(steps, guided):
+        return {k: steps * (v["per_unet"] + (v["per_align"] if guided else 0))
+                for k, v in per.items()}
+
+    launches = run_chains(predictor, context, chains, expect_shape, expected, device, smi,
+                          zero_counts, read_counts)
+    xd, td, cd = x.to(device), t.to(device), cond.to(device)
+    emit(profile("conv_profile_unet_forward", lambda: predictor.ld.unet(xd, td, cd), reps=5))
+    zc = predictor.ld.cond_stage_forward(context.to(device))
+    zg = torch.randn((1,) + tuple(ccfg.model.diffusion.latent_shape), device=device)
+    avg_d = avg.to(device)
+    emit(profile("conv_profile_guided_step",
+                 lambda: predictor.ld.p_sample_step(zg, predictor.ld.num_timesteps // 2, zc,
+                                                    1.0, None, avg_x_gt=avg_d),
+                 reps=5))
+    return launches, per
 
 
 def swin_phases(device, cfg, smi, cases, zero_counts, read_counts):
@@ -1212,28 +1522,17 @@ def swin_phases(device, cfg, smi, cases, zero_counts, read_counts):
 
 def swin_train_phases(device, cfg, smi, unet_cpu, vae_sd, zero_counts, read_counts):
     """The training phases (``train_phases``) on ``SWIN_PATTERN`` in the UNet:
-    ``swin_train_rate0`` on a randomized UNet cut to depth [1,1] (its counts
-    from that model's routes), ``swin_train_grads``, ``swin_train`` and
-    ``profile_swin_train_step`` at full depth from ``unet_cpu``'s weights.
-    Returns the launches of the rate-0 optimizer step and of the ``fit`` run."""
-    import torch
+    ``swin_train_rate0`` on a randomized UNet cut to depth [1,1],
+    ``swin_train_grads``, ``swin_train`` and ``profile_swin_train_step`` at
+    full depth from ``unet_cpu``'s weights.  Returns the launches of the
+    rate-0 optimizer step and of the ``fit`` run."""
     from prediff_torch.config import ConfigDict, deep_merge
-    from prediff_torch.factory import build_unet
-    from prediff_torch.models.init import init_params_
 
-    def swin_cfg(over):
-        return ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {
-            "latent_model": dict(over, self_pattern=SWIN_PATTERN)}}))
-
-    scfg = swin_cfg({})
-    cfg0 = swin_cfg(dict(depth=[1, 1], attn_drop=0.0, proj_drop=0.0, ffn_drop=0.0,
-                         time_embed_dropout=0.0))
-    unet0 = init_params_(build_unet(cfg0), torch.Generator().manual_seed(SEED), randomize=True)
-    per0 = {k: v["per_train"] for k, v in path_launches(unet0).items()}
+    scfg = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {
+        "latent_model": {"self_pattern": SWIN_PATTERN}}}))
     per = {k: v["per_train"] for k, v in path_launches(unet_cpu).items()}
     return train_phases(device, scfg, smi, per, {"unet": unet_cpu.state_dict(), "vae": vae_sd},
-                        zero_counts, read_counts, prefix="swin_",
-                        rate0=(cfg0, {"unet": unet0.state_dict(), "vae": vae_sd}, per0))
+                        zero_counts, read_counts, prefix="swin_")
 
 
 def pattern_phases(device, cfg, zero_counts, read_counts):
@@ -1275,15 +1574,52 @@ def pattern_phases(device, cfg, zero_counts, read_counts):
         del predictor, models
 
 
+def rate0_phases(card_vs_cpu, cfg, vae_sd, xy, device, zero_counts, read_counts, prefix):
+    """``train_rate0`` (one loss and backward card against CPU) and
+    ``train_rate0_step`` (one accumulated optimizer step) with the dropout
+    rates at 0, on a randomized UNet of ``cfg`` cut to depth [1,1] (its counts
+    from that model's routes).  Returns the step's launch counts."""
+    import numpy as np
+    import torch
+    from prediff_torch.config import ConfigDict, deep_merge
+    from prediff_torch.factory import build_unet
+    from prediff_torch.models.init import init_params_
+
+    cfg0 = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"latent_model": dict(
+        depth=[1, 1], attn_drop=0.0, proj_drop=0.0, ffn_drop=0.0, time_embed_dropout=0.0)}}))
+    unet0 = init_params_(build_unet(cfg0), torch.Generator().manual_seed(SEED), randomize=True)
+    per0 = {k: v["per_train"]
+            for k, v in path_launches(unet0, train_batch=cfg.optim.micro_batch_size).items()}
+    weights0 = {"unet": unet0.state_dict(), "vae": vae_sd}
+    ld0, trainer0 = card_vs_cpu(f"{prefix}train_rate0", cfg0, weights0, None,
+                                expected_train_launches(per0, 1, 0, dropout=False))
+    init_params_(ld0.unet, torch.Generator().manual_seed(SEED))
+    state0 = trainer0.create_state()
+    zero_counts()
+    for _ in range(TRAIN_ACCUM):
+        state0, metrics0 = trainer0.train_step(state0, SEED, *xy)
+    sync(device)
+    launches0 = read_counts()
+    expected0 = expected_train_launches(per0, TRAIN_ACCUM, 0, dropout=False)
+    emit({"phase": f"{prefix}train_rate0_step", "micro_steps": state0.step,
+          "optimizer_steps": state0.tx.count, "loss": float(metrics0["train/loss"]),
+          "launches": launches0, "expected_launches": expected0})
+    if (state0.tx.count != 1 or not np.isfinite(float(metrics0["train/loss"]))
+            or launches0 != expected0):
+        fail(f"{prefix}train_rate0: optimizer steps {state0.tx.count}, launches {launches0} != "
+             f"{expected0}")
+    del ld0, trainer0, state0
+    return launches0
+
+
 def train_phases(device, cfg, smi, per_train, weights, zero_counts, read_counts, prefix="",
-                 rate0=None):
-    """``train_rate0`` (dropout rates 0), then ``train_grads``, ``train`` and
+                 rate0=True):
+    """``train_rate0`` (dropout rates 0, depth [1,1]: ``rate0_phases``; not
+    run when ``rate0`` is False), then ``train_grads``, ``train`` and
     ``profile_train_step`` at the configuration's own rates, all at its
     widths and depth on ``device``, each phase's name after ``prefix``;
     ``per_train`` is ``path_launches``' count per micro-step of each kernel,
-    ``weights`` the state dicts of "unet" and "vae".  ``rate0`` = (config at
-    rates 0, its weights, its ``per_train``) replaces the rate-0 check's
-    default: ``cfg`` at rates 0 with ``weights``.  Returns the kernels' launch
+    ``weights`` the state dicts of "unet" and "vae".  Returns the kernels' launch
     counts of the ``train_rate0`` optimizer step and of the ``fit`` run."""
     import numpy as np
     import torch
@@ -1381,30 +1717,11 @@ def train_phases(device, cfg, smi, per_train, weights, zero_counts, read_counts,
         B, L.in_len + L.out_len, L.img_height, L.img_width, seed=SEED)))
     xy = (batch[:, L.in_len:].to(device), batch[:, :L.in_len].to(device))
 
-    # The kernels without dropout: the rates at 0, the same randomized weights.
-    if rate0 is None:
-        rate0 = (ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"latent_model": dict(
-            attn_drop=0.0, proj_drop=0.0, ffn_drop=0.0, time_embed_dropout=0.0)}})), weights,
-            per_train)
-    cfg0, weights0, per0 = rate0
-    ld0, trainer0 = card_vs_cpu(f"{prefix}train_rate0", cfg0, weights0, None,
-                                expected_train_launches(per0, 1, 0, dropout=False))
-    init_params_(ld0.unet, torch.Generator().manual_seed(SEED))
-    state0 = trainer0.create_state()
-    zero_counts()
-    for _ in range(TRAIN_ACCUM):
-        state0, metrics0 = trainer0.train_step(state0, SEED, *xy)
-    sync(device)
-    launches0 = read_counts()
-    expected0 = expected_train_launches(per0, TRAIN_ACCUM, 0, dropout=False)
-    emit({"phase": f"{prefix}train_rate0_step", "micro_steps": state0.step,
-          "optimizer_steps": state0.tx.count, "loss": float(metrics0["train/loss"]),
-          "launches": launches0, "expected_launches": expected0})
-    if (state0.tx.count != 1 or not np.isfinite(float(metrics0["train/loss"]))
-            or launches0 != expected0):
-        fail(f"{prefix}train_rate0: optimizer steps {state0.tx.count}, launches {launches0} != "
-             f"{expected0}")
-    del ld0, trainer0, state0
+    # The kernels without dropout: the rates at 0.
+    launches_by_phase = {}
+    if rate0:
+        launches_by_phase[f"{prefix}train_rate0"] = rate0_phases(
+            card_vs_cpu, cfg, weights["vae"], xy, device, zero_counts, read_counts, prefix)
 
     # The recipe's rates, full depth: one loss and backward, the card against the CPU.
     per_micro = expected_train_launches(per_train, 1, 0, dropout=True)
@@ -1498,7 +1815,7 @@ def train_phases(device, cfg, smi, per_train, weights, zero_counts, read_counts,
 
     emit(profile(f"profile_{prefix}train_step", lambda: trainer.train_step(state, SEED, *xy),
                  reps=2))
-    return {f"{prefix}train_rate0": launches0, phase: launches}
+    return dict(launches_by_phase, **{phase: launches})
 
 
 if __name__ == "__main__":

@@ -131,6 +131,24 @@
 // the max moves).  Per row it moves q, k, v and out (16 hc bytes) against
 // 4 vol hc f32 operations: bound by bytes up to vol ~80 (the UNet's 64), by
 // operations above.
+//
+// Round-1 per-cuboid core (cuboid_core_forward): replaces
+// pallas_attention.py::fused_cuboid_attention (bodies _attn_kernel_nomask and
+// _attn_kernel_masked), the same function as the grouped core on the
+// cuboid-major (B, cuboids, heads, vol, hc) layout.  It is grouped_core_kernel
+// itself, which reads every layout through element strides, so no permute is
+// made; one launch.  And the round-1 whole layer, "v3"
+// (cuboid_layer_v3_forward): replaces pallas_attention.py::
+// fused_cuboid_attention_layer (body _fused_layer_kernel), LN + QKV + per-head
+// core (no mask) + out-proj on reordered cuboids (B, cuboids, vol, C), all f32
+// as the TPU kernel computes it, in four launches:
+//   ln_rows_kernel        ln = LN(x), one warp per row                (tokens, C)
+//   f32_gemm_kernel       qkv = ln . Wqkv^T                           (tokens, 3C)
+//   grouped_core_kernel   per (cuboid, head), q k v read in place    (tokens, C)
+//   f32_gemm_kernel       out = o . Wproj^T + b_proj                  (tokens, C)
+// The two products carry 8 C^2 of the 8 C^2 + 4 vol C operations per token;
+// in f32 on the CUDA cores (67 TFLOP/s) they bound the layer.  The GEMM is a
+// plain shared-memory tiling (64 x 64 outputs a block, 4 x 4 a thread).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -856,11 +874,17 @@ size_t grouped_smem(int hc) {
   return sizeof(float) * ((size_t)(2 * kGq + 2 * kGk) * (hc + 1) + kGq * (kGk + 1) + 3 * kGq);
 }
 
+// Element strides of (sample, cuboid, head, row) in a layout of q, k, v or
+// out; a row's hc channels are contiguous.
+struct CoreLayout {
+  long long b, n, h, r;
+};
+
 __global__ void __launch_bounds__(kCoreThreads)
 grouped_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ bias,
-                    const unsigned char* __restrict__ mask, float* __restrict__ out, int heads,
-                    int nC, int vol, int hc, float scale) {
+                    const unsigned char* __restrict__ mask, float* __restrict__ out,
+                    CoreLayout in, CoreLayout ol, int heads, int vol, int hc, float scale) {
   extern __shared__ float sm[];
   const int ld = hc + 1, lds = kGk + 1;
   float* qs = sm;                 // [kGq][ld] q . scale
@@ -872,15 +896,17 @@ grouped_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* l_run = m_run + kGq;     // [kGq] running sum of exp
   float* alpha = l_run + kGq;     // [kGq] this tile's rescale
   const int n = blockIdx.x, h = blockIdx.y % heads, q0 = blockIdx.z * kGq, tid = threadIdx.x;
+  const int b = blockIdx.y / heads;
   const int warp = tid >> 5, lane = tid & 31;
   const int nq = min(kGq, vol - q0);
-  const size_t base = ((size_t)blockIdx.y * nC + n) * vol;  // the cuboid's first row
+  // the first row of this (sample, cuboid, head) in the input and output layouts
+  const size_t base = b * in.b + n * in.n + h * in.h, obase = b * ol.b + n * ol.n + h * ol.h;
   const float* bh = bias + (size_t)h * vol * vol;
   const unsigned char* mk = mask == nullptr ? nullptr : mask + (size_t)n * vol * vol;
 
   for (int i = tid; i < nq * hc; i += kCoreThreads) {
     const int r = i / hc, c = i % hc;
-    qs[r * ld + c] = q[(base + q0 + r) * hc + c] * scale;
+    qs[r * ld + c] = q[base + (q0 + r) * in.r + c] * scale;
     acc[r * ld + c] = 0.f;
   }
   for (int r = tid; r < nq; r += kCoreThreads) {
@@ -892,8 +918,8 @@ grouped_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // the previous tile's k, v and p are read no more
     for (int i = tid; i < nk * hc; i += kCoreThreads) {
       const int j = i / hc, c = i % hc;
-      ks[j * ld + c] = k[(base + k0 + j) * hc + c];
-      vs[j * ld + c] = v[(base + k0 + j) * hc + c];
+      ks[j * ld + c] = k[base + (k0 + j) * in.r + c];
+      vs[j * ld + c] = v[base + (k0 + j) * in.r + c];
     }
     __syncthreads();
     for (int i = tid; i < nq * nk; i += kCoreThreads) {
@@ -930,7 +956,7 @@ grouped_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
   for (int i = tid; i < nq * hc; i += kCoreThreads) {
     const int r = i / hc, c = i % hc;
-    out[(base + q0 + r) * hc + c] = acc[r * ld + c] / l_run[r];
+    out[obase + (q0 + r) * ol.r + c] = acc[r * ld + c] / l_run[r];
   }
 }
 
@@ -1032,6 +1058,98 @@ cudaError_t cuboid_bwd_full_launches(
     return gradk::weight_grad(do_bf, attn_bf, dw_part, dw_proj, M, C, C, ksplit_proj, stream);
   else
     return gradk::weight_grad(g, attn_bf, dw_part, dw_proj, M, C, C, ksplit_proj, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The round-1 whole layer ("v3"), f32: LN rows, then plain f32 GEMMs around
+// the grouped core.
+constexpr int kLnThreads = 256;   // 8 rows a block, a warp each
+
+__global__ void __launch_bounds__(kLnThreads)
+ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ b, float* __restrict__ out, int M, int C, float eps) {
+  const int row = blockIdx.x * (kLnThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const float* xr = x + (size_t)row * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += xr[c];
+  const float mean = warp_sum(s) / C;
+  float v = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = xr[c] - mean;
+    v += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(v) / C + eps);
+  for (int c = lane; c < C; c += 32) out[(size_t)row * C + c] = (xr[c] - mean) * rstd * w[c] + b[c];
+}
+
+constexpr int kFm = 64, kFn = 64, kFk = 16, kF32Threads = 256;   // 16 x 16 threads, 4 x 4 each
+
+// out[M, N] = A[M, K] . W[N, K]^T (+ bias[N]), f32 FMA, K in order.
+__global__ void __launch_bounds__(kF32Threads)
+f32_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Wt,
+                const float* __restrict__ bias, float* __restrict__ out, int M, int N, int K) {
+  __shared__ float As[kFk][kFm + 4];
+  __shared__ float Ws[kFk][kFn + 4];
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int m0 = blockIdx.y * kFm, n0 = blockIdx.x * kFn;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += kFk) {
+    for (int i = threadIdx.x; i < kFm * kFk; i += kF32Threads) {
+      const int r = i / kFk, kk = i % kFk, m = m0 + r, n = n0 + r, k = k0 + kk;
+      As[kk][r] = (m < M && k < K) ? A[(size_t)m * K + k] : 0.f;
+      Ws[kk][r] = (n < N && k < K) ? Wt[(size_t)n * K + k] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kFk; ++kk) {
+      float a[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = As[kk][ty + 16 * i];
+        w[i] = Ws[kk][tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < N) out[(size_t)m * N + n] = acc[i][j] + (bias != nullptr ? bias[n] : 0.f);
+    }
+  }
+}
+
+cudaError_t f32_gemm(const float* A, const float* Wt, const float* bias, float* out, int M, int N,
+                     int K, cudaStream_t stream) {
+  f32_gemm_kernel<<<dim3((N + kFn - 1) / kFn, (M + kFm - 1) / kFm), kF32Threads, 0, stream>>>(
+      A, Wt, bias, out, M, N, K);
+  return cudaGetLastError();
+}
+
+// grouped_core_kernel over (B, n_cuboids, heads) with the given layouts.
+cudaError_t core_launch(const float* q, const float* k, const float* v, const float* bias,
+                        const unsigned char* mask, float* out, CoreLayout in, CoreLayout ol,
+                        int B, int heads, int n_cuboids, int vol, int hc, float scale,
+                        cudaStream_t stream) {
+  if (B < 1 || heads < 1 || n_cuboids < 1 || vol < 1 || hc < 1 || B * heads > 65535 ||
+      (vol + kGq - 1) / kGq > 65535)
+    return cudaErrorInvalidValue;
+  const size_t smem = grouped_smem(hc);
+  cudaError_t err = cudaFuncSetAttribute(grouped_core_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  grouped_core_kernel<<<dim3(n_cuboids, B * heads, (vol + kGq - 1) / kGq), kCoreThreads, smem,
+                        stream>>>(q, k, v, bias, mask, out, in, ol, heads, vol, hc, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1246,13 +1364,48 @@ extern "C" int cuboid_attention_grouped(const float* q, const float* k, const fl
                                         const float* bias, const unsigned char* mask,
                                         float* out, int B, int heads, int n_cuboids, int vol,
                                         int hc, float scale, cudaStream_t stream) {
-  if (B < 1 || heads < 1 || n_cuboids < 1 || vol < 1 || hc < 1 || B * heads > 65535)
+  const long long row = hc, cub = (long long)vol * hc;
+  const CoreLayout head_major{heads * n_cuboids * cub, cub, n_cuboids * cub, row};
+  return (int)core_launch(q, k, v, bias, mask, out, head_major, head_major, B, heads, n_cuboids,
+                          vol, hc, scale, stream);
+}
+
+// The round-1 core: q, k, v, out (B, n_cuboids, heads, vol, hc) f32, bias
+// (heads, vol, vol), mask (n_cuboids, vol, vol) bytes or null.
+extern "C" int cuboid_core_forward(const float* q, const float* k, const float* v,
+                                   const float* bias, const unsigned char* mask, float* out, int B,
+                                   int n_cuboids, int heads, int vol, int hc, float scale,
+                                   cudaStream_t stream) {
+  const long long row = hc, cub = (long long)vol * hc;
+  const CoreLayout cuboid_major{n_cuboids * heads * cub, heads * cub, cub, row};
+  return (int)core_launch(q, k, v, bias, mask, out, cuboid_major, cuboid_major, B, heads,
+                          n_cuboids, vol, hc, scale, stream);
+}
+
+// The round-1 whole layer: x, out (B, n_cuboids, vol, C) f32; w_qkv (3C, C),
+// w_proj (C, C) in PyTorch layout; bias (heads, vol, vol); ln (M, C), qkv
+// (M, 3C) and o (M, C) f32 workspaces, M = B * n_cuboids * vol.
+extern "C" int cuboid_layer_v3_forward(const float* x, const float* ln_w, const float* ln_b,
+                                       const float* w_qkv, const float* bias,
+                                       const float* w_proj, const float* b_proj, float* ln,
+                                       float* qkv, float* o, float* out, int B, int n_cuboids,
+                                       int vol, int C, int heads, float scale, float eps,
+                                       cudaStream_t stream) {
+  if (B < 1 || n_cuboids < 1 || vol < 1 || heads < 1 || C % heads != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = grouped_smem(hc);
-  cudaError_t err = cudaFuncSetAttribute(grouped_core_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int M = B * n_cuboids * vol, hc = C / heads;
+  if ((M + kFm - 1) / kFm > 65535) return (int)cudaErrorInvalidValue;
+  ln_rows_kernel<<<(M + kLnThreads / 32 - 1) / (kLnThreads / 32), kLnThreads, 0, stream>>>(
+      x, ln_w, ln_b, ln, M, C, eps);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  grouped_core_kernel<<<dim3(n_cuboids, B * heads, (vol + kGq - 1) / kGq), kCoreThreads, smem,
-                        stream>>>(q, k, v, bias, mask, out, heads, n_cuboids, vol, hc, scale);
-  return (int)cudaGetLastError();
+  err = f32_gemm(ln, w_qkv, nullptr, qkv, M, 3 * C, C, stream);
+  if (err != cudaSuccess) return (int)err;
+  const long long cub = (long long)vol;
+  const CoreLayout in{n_cuboids * cub * 3 * C, cub * 3 * C, hc, 3LL * C};
+  const CoreLayout ol{n_cuboids * cub * C, cub * C, hc, C};
+  err = core_launch(qkv, qkv + C, qkv + 2 * C, bias, nullptr, o, in, ol, B, heads, n_cuboids, vol,
+                    hc, scale, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)f32_gemm(o, w_proj, b_proj, out, M, C, C, stream);
 }

@@ -43,6 +43,19 @@ def _check_ported(section, ported, what: str) -> None:
             raise NotImplementedError(f"{what}: {key}={got!r} is not ported (only {want!r})")
 
 
+def _conv_route(section, what: str) -> bool:
+    """``use_pallas_conv`` of a model's section: True sends the eligible 3x3x3
+    convs to the bf16 conv kernel; False and "auto" keep the f32 convs (the
+    JAX package resolves "auto" to its kernel on a TPU only, so off a TPU
+    both packages compute the f32 conv for it); any other value raises."""
+    value = section.get("use_pallas_conv", False)
+    if value is True:
+        return True
+    if value is False or value == "auto":
+        return False
+    raise ValueError(f"{what}: use_pallas_conv={value!r} (True, False or 'auto')")
+
+
 def build_unet(cfg: ConfigDict) -> CuboidTransformerUNet:
     m = cfg.model.latent_model
     if m.num_global_vectors:
@@ -64,7 +77,7 @@ def build_unet(cfg: ConfigDict) -> CuboidTransformerUNet:
         time_embed_channels_mult=m.time_embed_channels_mult,
         unet_res_connect=m.unet_res_connect,
         attn_drop=m.attn_drop, proj_drop=m.proj_drop, ffn_drop=m.ffn_drop,
-        time_embed_dropout=m.time_embed_dropout,
+        time_embed_dropout=m.time_embed_dropout, use_pallas_conv=_conv_route(m, "UNet"),
     )
 
 
@@ -95,6 +108,7 @@ def build_alignment_model(cfg: ConfigDict) -> NoisyCuboidTransformerEncoder:
         padding_type=a.padding_type, time_embed_channels_mult=a.time_embed_channels_mult,
         out_len=a.out_len, attn_drop=a.attn_drop, proj_drop=a.proj_drop, ffn_drop=a.ffn_drop,
         time_embed_dropout=a.time_embed_dropout,
+        use_pallas_conv=_conv_route(a, "alignment net"),
     )
 
 

@@ -5,12 +5,14 @@ Counterpart of ``prediff_tpu/models/alignment.py`` (reference
 NoisyCuboidTransformerEncoder, models.py:107; AttentionPool3d, :49).  The
 stage time blocks run the whole-resblock kernels (``fused=True``), as the
 JAX package's ``use_pallas_resblock`` does for this network; ``first_proj``
-changes width (1x1 skip) and keeps the GN-kernel path.  Global vectors,
-hierarchical position embeddings and the pooled (not per-frame) readout are
-not ported.  The modules carry the configuration's dropout rates, which eval
-mode (guidance) ignores; training this network is not ported, so training
-mode with a rate above 0 raises instead of training another model than the
-configuration names.
+changes width (1x1 skip) and keeps the GN-kernel path, with its 3x3x3 convs
+on the bf16 conv kernel under ``use_pallas_conv`` where the JAX package's
+routing rule admits them (the stage blocks' resblock kernel comes first, as
+in the JAX package).  Global vectors, hierarchical position embeddings and
+the pooled (not per-frame) readout are not ported.  The modules carry the
+configuration's dropout rates, which eval mode (guidance) ignores; training
+this network is not ported, so training mode with a rate above 0 raises
+instead of training another model than the configuration names.
 """
 from typing import Optional, Sequence, Tuple, Union
 
@@ -69,7 +71,8 @@ class NoisyCuboidTransformerEncoder(nn.Module):
                  block_attn_patterns: Union[str, Sequence[str]] = "axial", num_heads: int = 4,
                  padding_type: str = "zeros", time_embed_channels_mult: int = 4,
                  out_len: Optional[int] = None, attn_drop: float = 0.0, proj_drop: float = 0.0,
-                 ffn_drop: float = 0.0, time_embed_dropout: float = 0.0):
+                 ffn_drop: float = 0.0, time_embed_dropout: float = 0.0,
+                 use_pallas_conv: bool = False):
         super().__init__()
         self.dropout_rates = dict(attn_drop=attn_drop, proj_drop=proj_drop, ffn_drop=ffn_drop,
                                   time_embed_dropout=time_embed_dropout)
@@ -88,7 +91,7 @@ class NoisyCuboidTransformerEncoder(nn.Module):
         tec = self.block_units[0] * time_embed_channels_mult
 
         self.first_proj = TimeEmbedResBlock(self.input_shape[-1], base_units, use_embed=False,
-                                            dropout=proj_drop)
+                                            dropout=proj_drop, conv_kernel=use_pallas_conv)
         self.pos_embed = PosEmbed(base_units, *self.input_shape[:3])
         self.time_embed = TimeEmbedLayer(self.block_units[0], tec)
         self.downsample_layers = nn.ModuleList(

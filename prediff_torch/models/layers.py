@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv3d import fused_conv3x3x3, supports_shape
 from ..ops.dropout import DropoutStream, apply_mask, is_active, keep_mask
 from ..ops.ffn import fused_ffn
 from ..ops.groupnorm import fused_groupnorm_silu
@@ -158,7 +159,11 @@ class TimeEmbedResBlock(nn.Module):
     """Residual block with the timestep embedding folded into its second
     GroupNorm (the non-scale-shift path, no up/down resampling).  Both
     GroupNorm+SiLU go through the GN kernel; the 3x3x3 convs are
-    ``conv3d``.  With ``fused=True`` (identity skip only) the whole block is
+    ``conv3d`` in f32 or, with ``conv_kernel=True`` (the configuration's
+    ``use_pallas_conv``), the bf16 conv kernel at each call whose shape and
+    batch the JAX package's routing rule admits
+    (``ops/conv3d.supports_shape``), as its ``Conv3x3x3`` decides.  With
+    ``fused=True`` (identity skip only) the whole block is
     one call of the resblock kernels instead, as the JAX package's
     ``use_pallas_resblock`` path; the parameters are the same either way.
     ``dropout`` falls between the second GroupNorm+SiLU and the second conv,
@@ -169,9 +174,10 @@ class TimeEmbedResBlock(nn.Module):
 
     def __init__(self, channels: int, out_channels: int = None, emb_channels: int = None,
                  use_embed: bool = True, norm_groups: int = 32, fused: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, conv_kernel: bool = False):
         super().__init__()
         self.dropout = dropout
+        self.conv_kernel = conv_kernel
         out_channels = out_channels or channels
         if fused and out_channels != channels:
             raise ValueError("the fused resblock takes only an identity skip")
@@ -200,6 +206,12 @@ class TimeEmbedResBlock(nn.Module):
                                  emb, norm.num_groups, norm.eps)
         return y.reshape(x.shape)
 
+    def _conv3(self, conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
+        B, T, H, W, C = x.shape
+        if self.conv_kernel and supports_shape(T, H, W, C, conv.out_channels, B):
+            return fused_conv3x3x3(x.contiguous(), conv.weight, conv.bias)
+        return conv_nthwc(conv, x)
+
     def _fused_forward(self, x: torch.Tensor, emb_out) -> torch.Tensor:
         if emb_out is None:
             emb_out = x.new_zeros((x.shape[0], x.shape[-1]))
@@ -219,11 +231,11 @@ class TimeEmbedResBlock(nn.Module):
                                           "dropout; build it with fused=False to train with one")
             return self._fused_forward(x, emb_out)
         h = self._gn_silu(self.in_layers[0], x)
-        h = conv_nthwc(self.in_layers[2], h)
+        h = self._conv3(self.in_layers[2], h)
         h = self._gn_silu(self.out_layers[0], h, emb_out)
         if active:
             mask = keep_mask(drop.seed, drop.next_site(), 0, h.shape, self.dropout, h.device)
             h = apply_mask(h, mask, self.dropout)
-        h = conv_nthwc(self.out_layers[3], h)
+        h = self._conv3(self.out_layers[3], h)
         skip = x if isinstance(self.skip_connection, nn.Identity) else conv_nthwc(self.skip_connection, x)
         return skip + h

@@ -5,7 +5,9 @@ Input: noisy latent x (B, T_out, H, W, C) and conditioning latent
 channel; output: the prediction over the last T_out frames.  NTHWC end to
 end.  Each stage's time block is one module called ``depth`` times, as in
 the JAX package, so those weights are shared the same way.  Global vectors
-are not ported yet.
+are not ported yet.  ``use_pallas_conv`` sends the 3x3x3 convs of
+``first_proj`` and the time blocks to the bf16 conv kernel where the JAX
+package's routing rule admits the call (``TimeEmbedResBlock``).
 
 Training: every kernel's ``autograd.Function`` gives its parameter gradients
 from its all-gradients kernel when they are asked for (the parameters
@@ -65,7 +67,7 @@ class CuboidTransformerUNet(nn.Module):
                  padding_type: str = "ignore", upsample_kernel_size: int = 3,
                  time_embed_channels_mult: int = 4, unet_res_connect: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0, ffn_drop: float = 0.0,
-                 time_embed_dropout: float = 0.0):
+                 time_embed_dropout: float = 0.0, use_pallas_conv: bool = False):
         super().__init__()
         self.dropout_rates = dict(attn_drop=attn_drop, proj_drop=proj_drop, ffn_drop=ffn_drop,
                                   time_embed_dropout=time_embed_dropout)
@@ -89,7 +91,7 @@ class CuboidTransformerUNet(nn.Module):
         tec = self.block_units[0] * time_embed_channels_mult
 
         self.first_proj = TimeEmbedResBlock(self.data_shape[-1], base_units, use_embed=False,
-                                            dropout=proj_drop)
+                                            dropout=proj_drop, conv_kernel=use_pallas_conv)
         self.pos_embed = PosEmbed(base_units, *self.data_shape[:3])
         self.time_embed = TimeEmbedLayer(self.block_units[0], tec)
 
@@ -101,7 +103,7 @@ class CuboidTransformerUNet(nn.Module):
 
         def time_block(i):
             return TimeEmbedResBlock(mem_shapes[i][-1], mem_shapes[i][-1], emb_channels=tec,
-                                     dropout=time_embed_dropout)
+                                     dropout=time_embed_dropout, conv_kernel=use_pallas_conv)
 
         self.down_time_embed_blocks = nn.ModuleList(time_block(i) for i in range(self.num_blocks))
         self.down_self_blocks = nn.ModuleList(

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("groupnorm", "ffn", "attention", "resblock")
+SOURCES = ("groupnorm", "ffn", "attention", "resblock", "conv3d")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

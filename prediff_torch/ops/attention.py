@@ -58,6 +58,17 @@ Grouped core (:func:`fused_cuboid_attention_grouped`):
 f32.  Its kernel replaces ``pallas_attention.py::fused_cuboid_attention_grouped``
 and takes any vol; its backward is autograd of the plain version, as the JAX
 package's is ``jax.vjp`` of its reference.
+
+Round-1 ops, which no model calls (the JAX package's models do not either):
+:func:`fused_cuboid_attention`, the per-cuboid core on the cuboid-major
+(B, cuboids, heads, vol, hc) layout, replaces
+``pallas_attention.py::fused_cuboid_attention`` (the grouped core's kernel
+reading that layout by strides), and :func:`fused_cuboid_attention_layer_v3`,
+the whole layer on reordered cuboids without a mask, replaces
+``pallas_attention.py::fused_cuboid_attention_layer`` (the JAX docstring's
+"v3"; the port's :func:`fused_cuboid_attention_layer` is the v4 layer).  Both
+are f32 throughout, as the TPU kernels compute them, and forward-only, as
+theirs are (no VJP): a call that would need a gradient raises.
 """
 from typing import Optional
 
@@ -80,7 +91,9 @@ _SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 7 + [_F, _F, _P],
                "cuboid_attention_bwd_dx": [_P] * 13 + [_I] * 6 + [_F, _F, _P],
                "cuboid_attention_bwd_full": [_P] * 22 + [_I] * 9 + [_F, _F, _P],
                "cuboid_attention_dropout_bwd_full": [_P] * 23 + [_I] * 9 + [_F, _F] + _DROP + [_P],
-               "cuboid_attention_grouped": [_P] * 6 + [_I] * 5 + [_F, _P]}
+               "cuboid_attention_grouped": [_P] * 6 + [_I] * 5 + [_F, _P],
+               "cuboid_core_forward": [_P] * 6 + [_I] * 5 + [_F, _P],
+               "cuboid_layer_v3_forward": [_P] * 11 + [_I] * 5 + [_F, _F, _P]}
 # the most rows of one cuboid the general layer takes (the JAX package's v4 gate)
 V4_MAX_ROWS = 256
 SMEM_BYTES = 227 * 1024   # shared memory one block may use on an H100
@@ -778,24 +791,38 @@ def grouped_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhnij,bhnjc->bhnic", p, v)
 
 
-def _grouped_kernel(q, k, v, bias, mask, scale):
-    B, heads, nC, vol, hc = q.shape
+def _check_core_hc(hc: int, what: str) -> None:
+    """The grouped core kernel's shared memory: 32-row q, k, v and output
+    tiles, the scores and the row state, f32."""
     if 4 * ((64 + 64) * (hc + 1) + 32 * 33 + 96) > SMEM_BYTES:
-        raise ValueError(f"grouped attention kernel: {hc} head channels do not fit in shared "
-                         "memory")
-    specs = [(name, t, (B, heads, nC, vol, hc)) for name, t in (("q", q), ("k", k), ("v", v))]
+        raise ValueError(f"{what} kernel: {hc} head channels do not fit in shared memory")
+
+
+def _core_kernel(entry: str, q, k, v, bias, mask, scale, heads: int, nC: int):
+    """Launch one of ``csrc/attention.cu``'s entry points to the grouped core
+    kernel on q, k, v of q's layout (the entry point takes q's five sizes in
+    order), bias (heads, vol, vol) and mask (cuboids, vol, vol) or None."""
+    vol, hc = q.shape[-2:]
+    _check_core_hc(hc, entry)
+    specs = [(name, t, tuple(q.shape)) for name, t in (("q", q), ("k", k), ("v", v))]
     specs.append(("bias", bias, (heads, vol, vol)))
     if mask is not None:
         mask = mask.view(torch.uint8) if mask.dtype == torch.bool else mask
         specs.append(("mask", mask, (nC, vol, vol), torch.uint8))
-    _build.require("cuboid_attention_grouped", specs)
+    _build.require(entry, specs)
     out = torch.empty_like(q)
     lib = _build.load("attention", _SIGNATURES)
-    err = lib.cuboid_attention_grouped(
+    err = getattr(lib, entry)(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(bias),
-        None if mask is None else _build.ptr(mask), _build.ptr(out), B, heads, nC, vol, hc,
-        float(scale), _build.stream_ptr(q.device))
-    _build.check(err, "cuboid_attention_grouped")
+        None if mask is None else _build.ptr(mask), _build.ptr(out), *q.shape, float(scale),
+        _build.stream_ptr(q.device))
+    _build.check(err, entry)
+    return out
+
+
+def _grouped_kernel(q, k, v, bias, mask, scale):
+    out = _core_kernel("cuboid_attention_grouped", q, k, v, bias, mask, scale, q.shape[1],
+                       q.shape[2])
     fused_cuboid_attention_grouped.launches += 1
     return out
 
@@ -830,6 +857,86 @@ def fused_cuboid_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     return _GroupedAttention.apply(q, k, v, bias, mask, scale)
 
 
+# --------------------------------------------------------------------------- #
+# Round-1 core and whole layer (no model route), forward-only, f32.
+
+def _forward_only(what: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} is forward-only, as the JAX kernel it replaces (no VJP); "
+                           "call it under torch.no_grad() or on tensors without grad")
+
+
+def cuboid_attention_plain_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                bias: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                                scale: float = 1.0) -> torch.Tensor:
+    """Plain version of the round-1 core, f32: ``masked_softmax(q . scale .
+    k^T + bias[h]) . v`` on q, k, v (B, cuboids, heads, vol, hc), bias (heads,
+    vol, vol), mask (cuboids, vol, vol) bool or None."""
+    s = torch.einsum("bnhic,bnhjc->bnhij", q * scale, k) + bias[None, None]
+    p = masked_softmax(s, None if mask is None else mask[None, :, None])
+    return torch.einsum("bnhij,bnhjc->bnhic", p, v)
+
+
+def fused_cuboid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                           scale: float = 1.0) -> torch.Tensor:
+    """The round-1 core on the cuboid-major layout (see
+    :func:`cuboid_attention_plain_core`).  CPU tensor: the plain version.
+    CUDA tensor: the kernel, or raise.  Forward-only."""
+    _forward_only("fused_cuboid_attention", q, k, v, bias)
+    if not q.is_cuda:
+        return cuboid_attention_plain_core(q, k, v, bias, mask, scale)
+    out = _core_kernel("cuboid_core_forward", q, k, v, bias, mask, scale, q.shape[2],
+                       q.shape[1])
+    fused_cuboid_attention.launches += 1
+    return out
+
+
+def cuboid_attention_layer_v3_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                                    w_qkv: torch.Tensor, bias: torch.Tensor,
+                                    w_proj: torch.Tensor, b_proj: torch.Tensor, num_heads: int,
+                                    scale: float, eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of the round-1 whole layer: the general layer's function
+    (:func:`cuboid_attention_plain`) in f32, without a mask or dropout."""
+    return cuboid_attention_plain(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale,
+                                  eps)
+
+
+def fused_cuboid_attention_layer_v3(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                                    w_qkv: torch.Tensor, bias: torch.Tensor,
+                                    w_proj: torch.Tensor, b_proj: torch.Tensor, num_heads: int,
+                                    scale: float, eps: float = 1e-5) -> torch.Tensor:
+    """The round-1 whole layer, "v3" in the JAX docstring, on x (B, cuboids,
+    vol, C) reordered; weights in PyTorch layout (``w_qkv`` (3C, C), ``w_proj``
+    (C, C)), ``bias`` (heads, vol, vol).  CPU tensor: the plain version.  CUDA
+    tensor: the kernels (four launches), or raise.  Forward-only."""
+    _forward_only("fused_cuboid_attention_layer_v3", x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj)
+    if not x.is_cuda:
+        return cuboid_attention_layer_v3_plain(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
+                                               num_heads, scale, eps)
+    B, nC, vol, C = x.shape
+    if C % num_heads:
+        raise ValueError(f"cuboid layer v3 kernel: C={C} not a multiple of {num_heads} heads")
+    _check_core_hc(C // num_heads, "cuboid layer v3")
+    _build.require("cuboid_layer_v3", [
+        ("x", x, (B, nC, vol, C)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
+        ("w_qkv", w_qkv, (3 * C, C)), ("bias", bias, (num_heads, vol, vol)),
+        ("w_proj", w_proj, (C, C)), ("b_proj", b_proj, (C,))])
+    M = B * nC * vol
+    ln, o = (torch.empty((M, C), dtype=torch.float32, device=x.device) for _ in range(2))
+    qkv = torch.empty((M, 3 * C), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    lib = _build.load("attention", _SIGNATURES)
+    err = lib.cuboid_layer_v3_forward(
+        *(_build.ptr(t) for t in (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, ln, qkv, o, out)),
+        B, nC, vol, C, num_heads, float(scale), float(eps), _build.stream_ptr(x.device))
+    _build.check(err, "cuboid_layer_v3_forward")
+    fused_cuboid_attention_layer_v3.launches += 1
+    return out
+
+
+fused_cuboid_attention.launches = 0
+fused_cuboid_attention_layer_v3.launches = 0
 fused_cuboid_attention_layer.launches = 0
 fused_cuboid_attention_layer_dropout.launches = 0
 fused_cuboid_attention_layer_bwd_dx.launches = 0

@@ -10,7 +10,8 @@ The kernels (``csrc/resblock.cu``) replace
 the backward (bf16 from the kernel, as the TPU kernel keeps it); the
 backward gives (dx, demb).  Conv weights are in PyTorch ``Conv3d`` layout
 (C, C, 3, 3, 3); the wrappers lay them out as (27, in, out) for the
-kernel, flipped and transposed for the backward.
+kernel, flipped and transposed for the backward (``ops/conv3d.py``, whose
+kernel shares the resblock's conv, ``csrc/conv3.cuh``).
 
 :func:`fused_resblock` is differentiable: (dx, demb) from
 :func:`fused_resblock_bwd`, parameter gradients (only when asked for) from
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .conv3d import conv_weight, conv_weight_t
 from .ffn import _round
 from .groupnorm import groupnorm_silu_plain
 
@@ -104,16 +106,6 @@ def resblock_bwd_plain(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g, groups: int = 
     return dx.to(x.dtype), demb.to(emb.dtype)
 
 
-def _fwd_weight(k: torch.Tensor) -> torch.Tensor:
-    """Conv3d weight (out, in, 3, 3, 3) -> (27, in, out)."""
-    return k.permute(2, 3, 4, 1, 0).reshape(27, k.shape[1], k.shape[0]).contiguous()
-
-
-def _bwd_weight(k: torch.Tensor) -> torch.Tensor:
-    """The transposed conv's weight: flipped taps, (27, out, in)."""
-    return k.flip(2, 3, 4).permute(2, 3, 4, 0, 1).reshape(27, k.shape[0], k.shape[1]).contiguous()
-
-
 def _workspace(x: torch.Tensor) -> torch.Tensor:
     """The convs' per-split partial sums, (splits, tokens, C) f32."""
     return torch.empty((_TAP_SPLITS, x[..., 0].numel(), x.shape[-1]), dtype=torch.float32,
@@ -138,7 +130,7 @@ def fused_resblock_fwd(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups: int =
     B, T, H, W, C = x.shape
     _build.require("resblock", _specs(x, emb, groups, b1=b1, b2=b2, g1s=g1s, g1b=g1b,
                                       g2s=g2s, g2b=g2b))
-    w1, w2 = _fwd_weight(k1.float()), _fwd_weight(k2.float())
+    w1, w2 = conv_weight(k1.float()), conv_weight(k2.float())
     _build.require("resblock", [("k1", w1, (27, C, C)), ("k2", w2, (27, C, C))])
     h = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     h2 = torch.empty_like(h)
@@ -162,7 +154,7 @@ def fused_resblock_bwd(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g, groups: int = 
     B, T, H, W, C = x.shape
     _build.require("resblock_bwd", _specs(x, emb, groups, g1s=g1s, g1b=g1b, g2s=g2s, g2b=g2b)
                    + [("g", g, x.shape), ("h2", h2, x.shape, torch.bfloat16)])
-    w1t, w2t = _bwd_weight(k1.float()), _bwd_weight(k2.float())
+    w1t, w2t = conv_weight_t(k1.float()), conv_weight_t(k2.float())
     _build.require("resblock_bwd", [("k1", w1t, (27, C, C)), ("k2", w2t, (27, C, C))])
     dh = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     dv = torch.empty_like(dh)

@@ -25,6 +25,11 @@ from prediff_torch.ops.attention import (cuboid_attention_bwd_dx_plain,
                                          fused_cuboid_attention_layer_dropout,
                                          fused_cuboid_attention_layer_dropout_bwd_full,
                                          grouped_attention_plain)
+from prediff_torch.ops.attention import (cuboid_attention_layer_v3_plain,
+                                         cuboid_attention_plain_core, fused_cuboid_attention,
+                                         fused_cuboid_attention_layer_v3)
+from prediff_torch.ops.conv3d import (conv3x3x3_dx, conv3x3x3_dx_plain, conv3x3x3_forward,
+                                      conv3x3x3_plain, fused_conv3x3x3, tap_splits)
 from prediff_torch.ops.cuboid import compute_cuboid_self_attention_mask
 from prediff_torch.ops.dropout import keep_mask
 from prediff_torch.ops.ffn import (ffn_bwd_dx_plain, ffn_bwd_full_plain, ffn_dropout_bwd_full_plain,
@@ -573,3 +578,104 @@ def test_autograd_through_the_cuboid_dropout_wrapper_on_the_card(dev):
         assert torch.isfinite(gt).all()
         _close_rel(gt, wt)
     assert [fn.launches for fn in counted] == [b + 1 for b in before]
+
+
+# ---- the bf16 3x3x3 conv (use_pallas_conv) and the round-1 cuboid ops ----
+# The conv: x and the weights rounded to bf16 from the same f32 values on both
+# sides, f32 sums in another order: 1e-3 of the output's max covers it.
+TOL_CONV = 1e-3
+
+
+def _conv_close(got, want):
+    err = (got - want).abs().max().item()
+    assert err <= TOL_CONV * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("shape", [(1, 13, 16, 16, 256, 256), (1, 13, 8, 8, 512, 512),
+                                   (2, 13, 8, 8, 512, 512), (1, 6, 16, 16, 128, 128),
+                                   (1, 5, 8, 8, 128, 256)])
+def test_conv_kernels_match_plain(dev, shape):
+    B, T, H, W, C, OC = shape
+    x = torch.randn(B, T, H, W, C, device=dev)
+    w = torch.randn(OC, C, 3, 3, 3, device=dev) / (27 * C) ** 0.5
+    b = 0.1 * torch.randn(OC, device=dev)
+    g = torch.randn(B, T, H, W, OC, device=dev)
+    before = (conv3x3x3_forward.launches, conv3x3x3_dx.launches)
+    _conv_close(conv3x3x3_forward(x, w, b), conv3x3x3_plain(x, w, b))
+    _conv_close(conv3x3x3_dx(g, w), conv3x3x3_dx_plain(g, w))
+    assert (conv3x3x3_forward.launches, conv3x3x3_dx.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_autograd_through_the_conv_wrapper_on_the_card(dev):
+    """dx from the kernel, dw (f32 from the unrounded x) and db from autograd,
+    against the plain route's gradients."""
+    x = torch.randn(1, 6, 16, 16, 128, device=dev, requires_grad=True)
+    w = (torch.randn(128, 128, 3, 3, 3, device=dev) / (27 * 128) ** 0.5).requires_grad_(True)
+    b = (0.1 * torch.randn(128, device=dev)).requires_grad_(True)
+    g = torch.randn(1, 6, 16, 16, 128, device=dev)
+    got = torch.autograd.grad(fused_conv3x3x3(x, w, b), (x, w, b), g)
+    dx = conv3x3x3_dx_plain(g, w.detach())
+    dw = torch.nn.grad.conv3d_weight(x.detach().permute(0, 4, 1, 2, 3), w.shape,
+                                     g.permute(0, 4, 1, 2, 3), padding=1)
+    _conv_close(got[0], dx)
+    _conv_close(got[1], dw)
+    _conv_close(got[2], g.sum(dim=(0, 1, 2, 3)))
+
+
+def test_resblock_conv_is_the_shared_conv(dev):
+    """The resblock kernels and the conv kernel run one conv (csrc/conv3.cuh):
+    with GN2's gamma at 0 the resblock's second conv sees h3 = bf16(silu(beta2))
+    per channel, and its output is that conv plus x, bit for bit, at a shape
+    where the conv takes the resblock's 9 tap splits."""
+    shape = (1, 6, 8, 8, 256)
+    assert tap_splits(6 * 8 * 8, 256) == 9
+    x, emb, k1, b1, k2, b2, g1s, g1b, _, g2b = _resblock_args(dev, shape)
+    out, _ = fused_resblock_fwd(x, emb, k1, b1, k2, b2, g1s, g1b, torch.zeros_like(g2b), g2b)
+    h3 = (g2b / (1 + torch.exp(-g2b))).to(torch.bfloat16).float().expand(shape).contiguous()
+    assert torch.equal(out, conv3x3x3_forward(h3, k2, b2) + x)
+
+
+CORE_CASES = [((1, 52, 4, 64, 64), ((13, 16, 16), (1, 8, 8), (0, 4, 4), "zeros")),
+              ((1, 52, 4, 64, 64), None), ((2, 16, 4, 13, 64), None),
+              ((2, 12, 2, 32, 32), ((5, 6, 6), (2, 4, 4), (0, 0, 0), "ignore"))]
+
+
+@pytest.mark.parametrize("shape,window", CORE_CASES)
+def test_cuboid_core_kernel_matches_plain(dev, shape, window):
+    """The round-1 core on the cuboid-major layout; f32 on both sides."""
+    B, nC, heads, vol, hc = shape
+    q, k, v = (torch.randn(*shape, device=dev) for _ in range(3))
+    bias = 0.5 * torch.randn(heads, vol, vol, device=dev)
+    mask = None
+    if window is not None:
+        mask = torch.from_numpy(compute_cuboid_self_attention_mask(
+            window[0], window[1], window[2], ("l", "l", "l"), window[3])).to(dev)
+    before = fused_cuboid_attention.launches
+    got = fused_cuboid_attention(q, k, v, bias, mask, hc ** -0.5)
+    want = cuboid_attention_plain_core(q, k, v, bias, mask, hc ** -0.5)
+    assert fused_cuboid_attention.launches == before + 1
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+    if mask is not None and (~mask.any(-1)).any():   # (cuboid, row) fully masked: 0 on every head
+        assert (got.transpose(1, 2)[:, :, ~mask.any(-1)] == 0).all()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fused_cuboid_attention(q.requires_grad_(True), k, v, bias, mask, hc ** -0.5)
+
+
+@pytest.mark.parametrize("shape", [(1, 52, 64, 256), (2, 13, 16, 64), (1, 8, 16, 32)])
+def test_cuboid_layer_v3_kernel_matches_plain(dev, shape):
+    """The round-1 whole layer, f32 on both sides (no tensor cores, no TF32)."""
+    B, nC, vol, C = shape
+    heads = 4 if C > 32 else 2
+    x = torch.randn(*shape, device=dev)
+    ln_w, ln_b = 1.0 + 0.1 * torch.randn(C, device=dev), 0.1 * torch.randn(C, device=dev)
+    w_qkv = torch.randn(3 * C, C, device=dev) / C ** 0.5
+    bias = 0.5 * torch.randn(heads, vol, vol, device=dev)
+    w_proj, b_proj = torch.randn(C, C, device=dev) / C ** 0.5, 0.1 * torch.randn(C, device=dev)
+    args = (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, (C // heads) ** -0.5)
+    before = fused_cuboid_attention_layer_v3.launches
+    got = fused_cuboid_attention_layer_v3(*args)
+    want = cuboid_attention_layer_v3_plain(*args)
+    assert fused_cuboid_attention_layer_v3.launches == before + 1
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
