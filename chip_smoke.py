@@ -48,8 +48,10 @@ launches per call held to the JAX routing rule's), a UNet forward and a
 guidance shift card against CPU, ``conv_forecast`` and
 ``conv_guided_forecast`` with exact counts, profiles; after ``train``,
 ``conv_train_grads``, ``conv_train`` and ``profile_conv_train_step`` (no
-rate-0 phase).  Then the ``kernels`` summary line, the card's name
-and power limit, and as the last line ``{"ok": true, "device": {...}}``.
+rate-0 phase).  Then the ``kernels`` summary line (per kernel its ms,
+bound, library call and ``vs_library``; the conv and the grouped cores also
+their device time alone from CUDA-graph replay), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that line is printed.
 """
 import argparse
@@ -61,9 +63,10 @@ import tempfile
 import time
 
 # Published peaks of one H100 SXM (dense): HBM 3.35 TB/s, bf16 tensor cores
-# 989 TFLOP/s, f32 outside the tensor cores 67 TFLOP/s.
+# 989 TFLOP/s, TF32 tensor cores 495, f32 outside the tensor cores 67 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 F32_FLOP_PER_S = 67e12
 
 CHAIN_STEPS = 100
@@ -209,9 +212,82 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(bytes_moved: float, bf16_flops: float = 0.0, f32_flops: float = 0.0):
+def graph_time_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time per call: ``iters`` calls captured in one CUDA graph,
+    replayed, timed with events.  No host time: what ``time_ms`` measures
+    when a wrapper's own cost is below the kernel's."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * iters)
+
+
+def kernel_name(mangled: str) -> str:
+    """The last name of an Itanium-mangled (nested) function name, with its
+    integer template argument: ``_ZN..._9_conv3d_cu_...17conv_wgmma_kernelE...``
+    -> ``conv_wgmma_kernel``, ``...19grouped_core_kernelILi8EE...`` ->
+    ``grouped_core_kernel<8>``."""
+    import re
+
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    arg = re.match(r"ILi(\d+)E", mangled[i:])
+    return f"{name}<{arg.group(1)}>" if arg else name
+
+
+def ptxas_by_function(log: str) -> dict:
+    """``nvcc -Xptxas -v``'s report per kernel: registers, static shared
+    memory and spills (bytes) under the kernel's name."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            name += f"#{sum(k.split('#')[0] == name for k in out)}" if name in out else ""
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(name, {}).update(registers=int(m.group(1)),
+                                            static_smem=int(smem.group(1)) if smem else 0)
+    return out
+
+
+def bound(bytes_moved: float, bf16_flops: float = 0.0, f32_flops: float = 0.0,
+          tf32_flops: float = 0.0):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = bf16_flops / BF16_FLOP_PER_S + f32_flops / F32_FLOP_PER_S
+    t_ops = (bf16_flops / BF16_FLOP_PER_S + f32_flops / F32_FLOP_PER_S
+             + tf32_flops / TF32_FLOP_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -276,9 +352,18 @@ def judge_drop(c, shapes, observed_drop, bit_equal, device):
     c["ok"] = c["ok"] and c["kept_share_ok"] and bit_equal
 
 
-def timed(c, kernel, plain, nbytes, library=None, **flops):
+def timed(c, kernel, plain, nbytes, library=None, device_time=False, **flops):
+    """Times a case: ``ms`` per wrapper call (events around back-to-back
+    calls: the host's share included where it is the larger), the plain
+    version's, the bound, the library call's and ``vs_library`` = ms /
+    library_ms; with ``device_time`` also both calls' device time alone
+    (``graph_time_ms``) and their ratio."""
     c.update(ms=time_ms(kernel), plain_ms=time_ms(plain), bound=bound(nbytes, **flops),
              library_ms=None if library is None else time_ms(library))
+    c["vs_library"] = None if library is None else c["ms"] / c["library_ms"]
+    if device_time:
+        c.update(device_ms=graph_time_ms(kernel), library_device_ms=graph_time_ms(library))
+        c["vs_library_device"] = c["device_ms"] / c["library_device_ms"]
 
 
 # --------------------------------------------------------------------------- #
@@ -667,7 +752,7 @@ def check_conv_kernels(cases, device):
             sync(device)
             judge(c, got, want, tol=CONV_TOL_REL * float(want.abs().max()))
             timed(c, kernel, plain, 4 * (M * C + M * OC + 27 * C * OC + OC), library=library,
-                  bf16_flops=2 * M * 27 * C * OC)
+                  device_time=True, bf16_flops=2 * M * 27 * C * OC)
             c["library_f32_ms"] = time_ms(library_f32)
     return [(name, c) for name in CONV_KERNELS for c in cases[name] if not c["ok"]]
 
@@ -727,7 +812,10 @@ def check_round1_kernels(cases, device):
                   4 * (4 * N * hc + heads * vol * vol) + (0 if mask is None else nC * vol * vol),
                   library=lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=add,
                                                                  scale=scale),
-                  f32_flops=4 * N * vol * hc)
+                  device_time=True, f32_flops=4 * N * vol * hc)
+            c["bound_3xtf32"] = bound(4 * (4 * N * hc + heads * vol * vol)
+                                      + (0 if mask is None else nC * vol * vol),
+                                      tf32_flops=12 * N * vol * hc)
         for c in cases["cuboid_layer_v3"]:
             B, nC, vol, C = c["shape"]
             heads, M = c["heads"], B * nC * vol
@@ -985,7 +1073,11 @@ def check_cuboid_kernels(cases, device):
               4 * (4 * N * hc + h * vol * vol) + (0 if mask is None else nC * vol * vol),
               library=lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=add,
                                                              scale=scale),
-              f32_flops=4 * N * vol * hc)
+              device_time=True, f32_flops=4 * N * vol * hc)
+        # the kernel's own bound: the same bytes, 3 TF32 passes on the tensor cores
+        c["bound_3xtf32"] = bound(4 * (4 * N * hc + h * vol * vol)
+                                  + (0 if mask is None else nC * vol * vol),
+                                  tf32_flops=12 * N * vol * hc)
     return [(name, c) for name in CUBOID_KERNELS for c in cases[name] if not c["ok"]]
 
 
@@ -1033,7 +1125,14 @@ def summarize(cases, launches_by_path):
 
         bytes_share = sum(w for c, w in zip(cs, wts) if c["bound"][1] == "bytes") / n
         has_library = all(c["library_ms"] is not None for c in cs)
-        extra = {"library_f32_ms": mix("library_f32_ms")} if "library_f32_ms" in cs[0] else {}
+        extra = {k: mix(k) for k in ("library_f32_ms", "device_ms", "library_device_ms")
+                 if k in cs[0]}
+        if "device_ms" in extra:
+            extra["vs_library_device"] = extra["device_ms"] / extra["library_device_ms"]
+        if has_library:
+            extra["vs_library"] = mix("ms") / mix("library_ms")
+        if "bound_3xtf32" in cs[0]:
+            extra["bound_3xtf32_ms"] = sum(c["bound_3xtf32"][0] * w for c, w in zip(cs, wts)) / n
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches_by_path[main_path][name] if main_path else 0,
@@ -1043,8 +1142,10 @@ def summarize(cases, launches_by_path):
             library_ms=mix("library_ms") if has_library else None, main_path=main_path,
             launches_by_path={p: v[name] for p, v in launches_by_path.items()},
             launches_per_step_mix=n, **extra,
-            shapes=[{k: v for k, v in c.items() if k != "bound"}
-                    | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]} for c in cs]))
+            shapes=[{k: v for k, v in c.items() if k not in ("bound", "bound_3xtf32")}
+                    | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
+                    | ({"bound_3xtf32_ms": c["bound_3xtf32"][0]} if "bound_3xtf32" in c else {})
+                    for c in cs]))
     return out
 
 
@@ -1213,8 +1314,7 @@ def main() -> int:
     report = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v["seconds"] for k, v in report.items()},
-          "ptxas": {k: [ln.strip() for ln in v["ptxas"].splitlines() if "Used" in ln or "spill" in ln]
-                    for k, v in report.items()}})
+          "ptxas": {k: ptxas_by_function(v["ptxas"]) for k, v in report.items()}})
     run(device, prediff_default_config(), smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

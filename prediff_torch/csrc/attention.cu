@@ -121,16 +121,29 @@
 // Grouped masked core (cuboid_attention_grouped): replaces
 // pallas_attention.py::fused_cuboid_attention_grouped, the core of every
 // shifted or padded window: out = masked_softmax(q . scale . k^T + bias[h]) . v
-// in f32 throughout (FMA on the CUDA cores; no bf16, no TF32), with q, k, v, out
-// (B, heads, cuboids, vol, hc) and the mask (cuboids, vol, vol) as bytes,
-// shared over batch and heads.  A masked score is -1e18 after the bias; the
-// normaliser sums over every key and p is multiplied by the mask before p . v,
-// so a fully masked row gives 0.  vol is any size ("full" gives 3328): one
-// block per (cuboid, batch and head, 32 query rows) runs an online softmax over
-// key tiles of 32 (running max and sum per row, the partial p . v rescaled when
-// the max moves).  Per row it moves q, k, v and out (16 hc bytes) against
-// 4 vol hc f32 operations: bound by bytes up to vol ~80 (the UNet's 64), by
-// operations above.
+// in f32, with q, k, v, out (B, heads, cuboids, vol, hc) and the mask
+// (cuboids, vol, vol) as bytes, shared over batch and heads.  A masked score
+// is -1e18 after the bias; the normaliser sums over every key and p is
+// multiplied by the mask before p . v, so a fully masked row gives 0.  vol is
+// any size ("full" gives 3328).  Both products run on the tensor cores in
+// 3xTF32: each f32 operand is split a = tf32(a) + tf32(a - tf32(a)) and
+// mma.sync m16n8k8 adds small.big + big.small + big.big in f32, which keeps
+// ~f32 accuracy (one TF32 pass keeps ~3 decimal digits, short of the core's
+// 1e-5 of the output's max).  The tensor cores' f32 sums lose more than
+// IEEE adds do (summed over all 3328 keys of the "full" pattern in one
+// accumulator, the output was off by 2.5e-5 of its max on the H100), so
+// p . v sums one key tile at a time and the tiles are added in f32 on the
+// CUDA cores.  One block per (cuboid, batch and head, 64
+// query rows x up to 64 output channels): 4 warps of 16 query rows, an
+// online softmax over key tiles of 64 with the scores, p and the running
+// max and sum in registers.  The score accumulator of m16n8 gives a thread
+// keys 2c and 2c + 1 of each 8, where the A operand of m16n8k8 wants keys c
+// and c + 4: p . v reads v's rows in that order instead (the sum over keys
+// does not care), so p never leaves the registers.  q, k, v come in by
+// 16-byte cp.async through the layout's strides, 64 channels at a time
+// (zeros past hc and vol); bias and mask are read once per block.  Per row
+// it moves q, k, v and out (16 hc bytes) against 4 vol hc operations: bound
+// by bytes up to vol ~80 at f32 rates (the UNet's 64), by operations above.
 //
 // Round-1 per-cuboid core (cuboid_core_forward): replaces
 // pallas_attention.py::fused_cuboid_attention (bodies _attn_kernel_nomask and
@@ -153,6 +166,7 @@
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "grad_common.cuh"
 #include "philox.cuh"
@@ -865,14 +879,13 @@ cuboid_core_bwd_kv_kernel(const float* __restrict__ qkv, const float* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// Grouped masked core, f32: one block per (cuboid, batch * heads + head, tile
-// of kGq query rows), an online softmax over key tiles of kGk (= warp) rows.
-constexpr int kGq = 32, kGk = 32;
+// Grouped masked core, f32 on the tensor cores in 3xTF32: one block per
+// (cuboid, batch * heads + head, query tile x channel slice).
+constexpr int kGq = 64, kGk = 64, kGc = 64;   // query rows, keys, channels a tile
+constexpr int kGld = kGc + 4;                 // smem row stride: fragment loads conflict-free
 constexpr float kNegInf = -1e18f;
 
-size_t grouped_smem(int hc) {
-  return sizeof(float) * ((size_t)(2 * kGq + 2 * kGk) * (hc + 1) + kGq * (kGk + 1) + 3 * kGq);
-}
+size_t grouped_smem() { return sizeof(float) * (size_t)(kGq + 2 * kGk) * kGld; }
 
 // Element strides of (sample, cuboid, head, row) in a layout of q, k, v or
 // out; a row's hc channels are contiguous.
@@ -880,83 +893,195 @@ struct CoreLayout {
   long long b, n, h, r;
 };
 
+// x = big + small: big is x rounded to TF32 (to nearest, ties away: add half
+// a TF32 ulp, clear the 13 low bits), small = x - big exactly in f32, which
+// the tensor cores read truncated to TF32 (its error is 2^-11 of small).
+__device__ __forceinline__ void tf32_split(float x, unsigned& big, unsigned& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a . b in 3xTF32 from the split operands, the small cross terms first.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ab)[4],
+                                           const unsigned (&as)[4], const unsigned (&bb)[2],
+                                           const unsigned (&bs)[2]) {
+  mma_tf32(d, as, bb);
+  mma_tf32(d, ab, bs);
+  mma_tf32(d, ab, bb);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// rows x kGc channels [c0, c0 + kGc) of rows [r0, r0 + rows) of a
+// (sample, cuboid, head) at `base` into dst (row stride kGld); zeros past
+// `nrows` rows and `hc` channels.
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long base,
+                                          long long rstride, int r0, int nrows, int c0, int hc,
+                                          int tid) {
+  for (int i = tid; i < kGq * (kGc / 4); i += kCoreThreads) {
+    const int r = i / (kGc / 4), c = c0 + (i % (kGc / 4)) * 4;
+    const bool valid = r0 + r < nrows && c < hc;
+    cp_async16(dst + r * kGld + (c - c0), valid ? src + base + (r0 + r) * rstride + c : src,
+               valid);
+  }
+}
+
+// NB: 8-channel blocks of the block's output slice (1, 2, 4 or 8).
+template <int NB>
 __global__ void __launch_bounds__(kCoreThreads)
 grouped_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ bias,
                     const unsigned char* __restrict__ mask, float* __restrict__ out,
                     CoreLayout in, CoreLayout ol, int heads, int vol, int hc, float scale) {
   extern __shared__ float sm[];
-  const int ld = hc + 1, lds = kGk + 1;
-  float* qs = sm;                 // [kGq][ld] q . scale
-  float* ks = qs + kGq * ld;      // [kGk][ld]
-  float* vs = ks + kGk * ld;      // [kGk][ld]
-  float* acc = vs + kGk * ld;     // [kGq][ld] sum of p . v, at the running max
-  float* s = acc + kGq * ld;      // [kGq][kGk + 1] scores, then p . mask
-  float* m_run = s + kGq * lds;   // [kGq] running max
-  float* l_run = m_run + kGq;     // [kGq] running sum of exp
-  float* alpha = l_run + kGq;     // [kGq] this tile's rescale
-  const int n = blockIdx.x, h = blockIdx.y % heads, q0 = blockIdx.z * kGq, tid = threadIdx.x;
-  const int b = blockIdx.y / heads;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int nq = min(kGq, vol - q0);
-  // the first row of this (sample, cuboid, head) in the input and output layouts
-  const size_t base = b * in.b + n * in.n + h * in.h, obase = b * ol.b + n * ol.n + h * ol.h;
+  float* qs = sm;                // [kGq][kGld] q, one channel chunk
+  float* ks = qs + kGq * kGld;   // [kGk][kGld] k, one channel chunk
+  float* vs = ks + kGk * kGld;   // [kGk][kGld] v, the block's output slice
+  const int slices = (hc + 8 * NB - 1) / (8 * NB);
+  const int n = blockIdx.x, h = blockIdx.y % heads, b = blockIdx.y / heads;
+  const int q0 = (blockIdx.z / slices) * kGq, s0 = (blockIdx.z % slices) * (8 * NB);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c4 = lane & 3;            // fragment row group, column pair
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const long long base = b * in.b + n * in.n + h * in.h, obase = b * ol.b + n * ol.n + h * ol.h;
   const float* bh = bias + (size_t)h * vol * vol;
   const unsigned char* mk = mask == nullptr ? nullptr : mask + (size_t)n * vol * vol;
+  const int chunks = (hc + kGc - 1) / kGc;
 
-  for (int i = tid; i < nq * hc; i += kCoreThreads) {
-    const int r = i / hc, c = i % hc;
-    qs[r * ld + c] = q[base + (q0 + r) * in.r + c] * scale;
-    acc[r * ld + c] = 0.f;
-  }
-  for (int r = tid; r < nq; r += kCoreThreads) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.f;
-  }
+  float o[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  if (chunks == 1) load_tile(qs, q, base, in.r, q0, vol, 0, hc, tid);
   for (int k0 = 0; k0 < vol; k0 += kGk) {
-    const int nk = min(kGk, vol - k0);
-    __syncthreads();  // the previous tile's k, v and p are read no more
-    for (int i = tid; i < nk * hc; i += kCoreThreads) {
-      const int j = i / hc, c = i % hc;
-      ks[j * ld + c] = k[base + (k0 + j) * in.r + c];
-      vs[j * ld + c] = v[base + (k0 + j) * in.r + c];
+    // scores of this warp's 16 rows x 64 keys: key 8 j + 2 c4 (+1), rows g (+8)
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int c0 = 0; c0 < hc; c0 += kGc) {
+      if (chunks > 1) load_tile(qs, q, base, in.r, q0, vol, c0, hc, tid);
+      load_tile(ks, k, base, in.r, k0, vol, c0, hc, tid);
+      if (c0 + kGc >= hc) load_tile(vs, v, base, in.r, k0, vol, s0, min(hc, s0 + 8 * NB), tid);
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+      __syncthreads();
+      const int steps = (min(kGc, hc - c0) + 7) / 8;
+      for (int kc = 0; kc < steps; ++kc) {
+        const float* qa = qs + (warp * 16 + g) * kGld + kc * 8 + c4;
+        unsigned ab[4], as[4];
+        tf32_split(qa[0] * scale, ab[0], as[0]);
+        tf32_split(qa[8 * kGld] * scale, ab[1], as[1]);
+        tf32_split(qa[4] * scale, ab[2], as[2]);
+        tf32_split(qa[8 * kGld + 4] * scale, ab[3], as[3]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float* kb = ks + (8 * j + g) * kGld + kc * 8 + c4;
+          unsigned bb[2], bs[2];
+          tf32_split(kb[0], bb[0], bs[0]);
+          tf32_split(kb[4], bb[1], bs[1]);
+          mma_3xtf32(s[j], ab, as, bb, bs);
+        }
+      }
+      if (c0 + kGc < hc) __syncthreads();   // the next chunk overwrites qs and ks
     }
-    __syncthreads();
-    for (int i = tid; i < nq * nk; i += kCoreThreads) {
-      const int r = i / nk, j = i % nk;
-      float dot = 0.f;
-      for (int c = 0; c < hc; ++c) dot = fmaf(qs[r * ld + c], ks[j * ld + c], dot);
-      const size_t e = (size_t)(q0 + r) * vol + k0 + j;
-      s[r * lds + j] = (mk != nullptr && !mk[e]) ? kNegInf : dot + bh[e];
-    }
-    __syncthreads();
-    for (int r = warp; r < nq; r += kCoreThreads / 32) {  // one warp per row, a lane per key
-      const bool key = lane < nk;
-      const float sv = key ? s[r * lds + lane] : -INFINITY;
-      const float m_new = fmaxf(m_run[r], warp_max(sv));
-      const float e = key ? expf(sv - m_new) : 0.f;
-      const float tile_sum = warp_sum(e);
-      const bool keep = key && (mk == nullptr || mk[(size_t)(q0 + r) * vol + k0 + lane]);
-      if (key) s[r * lds + lane] = keep ? e : 0.f;
-      if (lane == 0) {
-        const float a = expf(m_run[r] - m_new);
-        alpha[r] = a;
-        l_run[r] = l_run[r] * a + tile_sum;
-        m_run[r] = m_new;
+    // bias, mask, and the online softmax of rows g and g + 8 (a quad shares a row)
+    float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? row0 : row1, key = k0 + 8 * j + 2 * c4 + (e & 1);
+        float sv = -INFINITY;   // past vol: no weight and no share of the sum
+        if (row < vol && key < vol) {
+          const size_t at = (size_t)row * vol + key;
+          sv = (mk != nullptr && !mk[at]) ? kNegInf : s[j][e] + bh[at];
+        }
+        s[j][e] = sv;
+        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], sv);
       }
     }
-    __syncthreads();
-    for (int i = tid; i < nq * hc; i += kCoreThreads) {
-      const int r = i / hc, c = i % hc;
-      float a = acc[r * ld + c] * alpha[r];
-      for (int j = 0; j < nk; ++j) a = fmaf(s[r * lds + j], vs[j * ld + c], a);
-      acc[r * ld + c] = a;
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = tile_max[r];
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx);
+      // a query row past vol has no key: keep its state finite
+      alpha[r] = m_new == -INFINITY ? 1.f : expf(m_run[r] - m_new);
+      tile_max[r] = m_new;
+      m_run[r] = m_new;
     }
+    float tile_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, row = r ? row1 : row0, key = k0 + 8 * j + 2 * c4 + (e & 1);
+        const float ev = s[j][e] == -INFINITY ? 0.f : expf(s[j][e] - tile_max[r]);
+        tile_sum[r] += ev;
+        const bool keep = mk == nullptr || (row < vol && key < vol && mk[(size_t)row * vol + key]);
+        s[j][e] = keep ? ev : 0.f;   // p . mask at the running max
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float t = tile_sum[r];
+      t += __shfl_xor_sync(0xffffffffu, t, 1);
+      t += __shfl_xor_sync(0xffffffffu, t, 2);
+      l_run[r] = l_run[r] * alpha[r] + t;
+    }
+    // o = o alpha + p . v: the A fragment of keys 8 kb + {2 c4, 2 c4 + 1} is
+    // this thread's own score pair, so v's rows are read in that order
+    float pv[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) pv[j][0] = pv[j][1] = pv[j][2] = pv[j][3] = 0.f;
+#pragma unroll
+    for (int kb = 0; kb < 8; ++kb) {
+      unsigned ab[4], as[4];
+      tf32_split(s[kb][0], ab[0], as[0]);
+      tf32_split(s[kb][2], ab[1], as[1]);
+      tf32_split(s[kb][1], ab[2], as[2]);
+      tf32_split(s[kb][3], ab[3], as[3]);
+      const float* vb = vs + (8 * kb + 2 * c4) * kGld + g;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        unsigned bb[2], bs[2];
+        tf32_split(vb[8 * j], bb[0], bs[0]);
+        tf32_split(vb[kGld + 8 * j], bb[1], bs[1]);
+        mma_3xtf32(pv[j], ab, as, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = o[j][e] * alpha[e >> 1] + pv[j][e];
+    __syncthreads();   // the next key tile overwrites ks and vs
   }
-  __syncthreads();
-  for (int i = tid; i < nq * hc; i += kCoreThreads) {
-    const int r = i / hc, c = i % hc;
-    out[obase + (q0 + r) * ol.r + c] = acc[r * ld + c] / l_run[r];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const int c = s0 + 8 * j + 2 * c4;
+    if (c >= hc) continue;
+    if (row0 < vol)
+      *reinterpret_cast<float2*>(out + obase + row0 * ol.r + c) =
+          make_float2(o[j][0] / l_run[0], o[j][1] / l_run[0]);
+    if (row1 < vol)
+      *reinterpret_cast<float2*>(out + obase + row1 * ol.r + c) =
+          make_float2(o[j][2] / l_run[1], o[j][3] / l_run[1]);
   }
 }
 
@@ -1135,21 +1260,51 @@ cudaError_t f32_gemm(const float* A, const float* Wt, const float* bias, float* 
   return cudaGetLastError();
 }
 
-// grouped_core_kernel over (B, n_cuboids, heads) with the given layouts.
+template <int NB>
+cudaError_t core_launch_nb(const float* q, const float* k, const float* v, const float* bias,
+                           const unsigned char* mask, float* out, CoreLayout in, CoreLayout ol,
+                           int B, int heads, int n_cuboids, int vol, int hc, float scale,
+                           cudaStream_t stream) {
+  const size_t smem = grouped_smem();
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(grouped_core_kernel<NB>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const long long tiles = (long long)((vol + kGq - 1) / kGq) * ((hc + 8 * NB - 1) / (8 * NB));
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  grouped_core_kernel<NB><<<dim3(n_cuboids, B * heads, (unsigned)tiles), kCoreThreads, smem,
+                            stream>>>(q, k, v, bias, mask, out, in, ol, heads, vol, hc, scale);
+  return cudaGetLastError();
+}
+
+// grouped_core_kernel over (B, n_cuboids, heads) with the given layouts: the
+// output slice as wide as hc to a multiple of 8, at most 64 channels.  Rows
+// are read 16 bytes at a time: hc, every stride and the pointers are
+// multiples of 4 floats.
 cudaError_t core_launch(const float* q, const float* k, const float* v, const float* bias,
                         const unsigned char* mask, float* out, CoreLayout in, CoreLayout ol,
                         int B, int heads, int n_cuboids, int vol, int hc, float scale,
                         cudaStream_t stream) {
-  if (B < 1 || heads < 1 || n_cuboids < 1 || vol < 1 || hc < 1 || B * heads > 65535 ||
-      (vol + kGq - 1) / kGq > 65535)
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (B < 1 || heads < 1 || n_cuboids < 1 || vol < 1 || hc < 4 || hc % 4 || B * heads > 65535 ||
+      (in.b | in.n | in.h | in.r) % 4 || (ol.b | ol.n | ol.h | ol.r) % 2 || !aligned(q) ||
+      !aligned(k) || !aligned(v) || (reinterpret_cast<uintptr_t>(out) & 7))
     return cudaErrorInvalidValue;
-  const size_t smem = grouped_smem(hc);
-  cudaError_t err = cudaFuncSetAttribute(grouped_core_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  grouped_core_kernel<<<dim3(n_cuboids, B * heads, (vol + kGq - 1) / kGq), kCoreThreads, smem,
-                        stream>>>(q, k, v, bias, mask, out, in, ol, heads, vol, hc, scale);
-  return cudaGetLastError();
+  const int width = (hc + 7) / 8;
+  if (width <= 1)
+    return core_launch_nb<1>(q, k, v, bias, mask, out, in, ol, B, heads, n_cuboids, vol, hc,
+                             scale, stream);
+  if (width <= 2)
+    return core_launch_nb<2>(q, k, v, bias, mask, out, in, ol, B, heads, n_cuboids, vol, hc,
+                             scale, stream);
+  if (width <= 4)
+    return core_launch_nb<4>(q, k, v, bias, mask, out, in, ol, B, heads, n_cuboids, vol, hc,
+                             scale, stream);
+  return core_launch_nb<8>(q, k, v, bias, mask, out, in, ol, B, heads, n_cuboids, vol, hc, scale,
+                           stream);
 }
 
 }  // namespace

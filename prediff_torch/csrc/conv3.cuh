@@ -1,7 +1,7 @@
 // SAME 3x3x3 stride-1 convolution as an implicit GEMM on the tensor cores,
-// channel-last (B, T, H, W, K) -> (B, T, H, W, N), shared by resblock.cu (the
-// whole-resblock kernels' four convs) and conv3d.cu (the standalone conv and
-// its input gradient):
+// channel-last (B, T, H, W, K) -> (B, T, H, W, N): the whole-resblock
+// kernels' four convs (resblock.cu; the standalone conv, conv3d.cu, is its own
+// TMA + wgmma kernel):
 //   part[z, m, n] = sum_{tap in split z, k} in[m + off(tap), k] . w[tap, k, n]
 //   out[m, n]     = sum_z part[z, m, n] (+ bias[n]) (+ skip[m, n])
 // with M = B*T*H*W tokens, w (27, K, N) f32 laid out as [tap][in][out] (a

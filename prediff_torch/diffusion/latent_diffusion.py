@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.device import resolve_device
 from ..utils.distributions import latents_from_moments_seq
 from . import core
 from .knowledge_alignment import KnowledgeAlignment
@@ -33,7 +34,9 @@ from .schedule import GaussianSchedule, make_ddim_sampling_parameters, make_ddim
 class LatentDiffusion:
     """Holds the denoiser and the VAE (both ``nn.Module``s on ``device``),
     the schedule and, for guided sampling, the knowledge alignment; not
-    itself a module."""
+    itself a module.  ``device=None`` means the card, as at every entry point
+    (``utils.device.resolve_device``: raises without one); ``"cpu"`` runs the
+    plain versions."""
 
     def __init__(self, unet: nn.Module, vae: nn.Module, schedule: GaussianSchedule,
                  latent_shape: Sequence[int], cond_latent_shape: Optional[Sequence[int]] = None,
@@ -45,7 +48,7 @@ class LatentDiffusion:
                  logvar_init: float = 0.0):
         if parameterization not in ("eps", "x0"):
             raise ValueError(f"parameterization '{parameterization}'")
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.unet = unet
         self.vae = vae
         self.alignment = alignment

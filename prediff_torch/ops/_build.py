@@ -94,6 +94,9 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     ``signatures`` maps each exported function to its ctypes argument types
     (``P`` pointer or stream, ``I`` int, ``U`` uint32, ``F`` float); each returns a CUDA
     error code as int."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -160,9 +163,22 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device`` (a tensor's, so it has an index)
+    as a ``P`` argument, from PyTorch's raw accessor (the one its generated
+    code launches on): ``torch.cuda.current_stream(device).cuda_stream``
+    gives the same handle but builds a ``Stream`` object per call, host time
+    on every launch of a host-bound path."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    """A tensor's address for a ``P`` argument (ctypes converts the int)."""
+    return t.data_ptr()
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on ``tensors``: a wrapper that
+    would not goes straight to its kernel, without the cost of an
+    ``autograd.Function``."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)

@@ -791,11 +791,48 @@ def grouped_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhnij,bhnjc->bhnic", p, v)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero: the tensor cores' ``cvt.rna.tf32.f32``."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """f32 read as TF32 by the tensor cores: the 13 low mantissa bits dropped."""
+    return (x.float().contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """``einsum(eq, a, b)`` from TF32 parts: one pass multiplies the rounded
+    operands; three (3xTF32, as the kernel) split each operand into big =
+    tf32_round(x) and small = x - big, which the tensor cores read truncated,
+    and add small.big + big.small + big.big."""
+    ab, bb = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return torch.einsum(eq, ab, bb)
+    if passes != 3:
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    sa, sb = _tf32_truncate(a - ab), _tf32_truncate(b - bb)
+    return torch.einsum(eq, sa, bb) + torch.einsum(eq, ab, sb) + torch.einsum(eq, ab, bb)
+
+
+def grouped_attention_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                           scale: float = 1.0, passes: int = 3) -> torch.Tensor:
+    """The grouped core kernel's arithmetic in plain torch: the function of
+    :func:`grouped_attention_plain` with both products on TF32 parts
+    (``passes`` 3, as the kernel runs them; 1, a single TF32 product)."""
+    s = _tf32_product("bhnic,bhnjc->bhnij", q * scale, k, passes) + bias[None, :, None]
+    p = masked_softmax(s, None if mask is None else mask[None, None])
+    return _tf32_product("bhnij,bhnjc->bhnic", p, v, passes)
+
+
 def _check_core_hc(hc: int, what: str) -> None:
-    """The grouped core kernel's shared memory: 32-row q, k, v and output
-    tiles, the scores and the row state, f32."""
-    if 4 * ((64 + 64) * (hc + 1) + 32 * 33 + 96) > SMEM_BYTES:
-        raise ValueError(f"{what} kernel: {hc} head channels do not fit in shared memory")
+    """The grouped core kernel reads rows 16 bytes at a time (its shared
+    memory does not depend on hc: 64 channels a chunk)."""
+    if hc < 4 or hc % 4:
+        raise ValueError(f"{what} kernel: {hc} head channels not supported (a multiple of 4)")
 
 
 def _core_kernel(entry: str, q, k, v, bias, mask, scale, heads: int, nC: int):
@@ -806,10 +843,12 @@ def _core_kernel(entry: str, q, k, v, bias, mask, scale, heads: int, nC: int):
     _check_core_hc(hc, entry)
     specs = [(name, t, tuple(q.shape)) for name, t in (("q", q), ("k", k), ("v", v))]
     specs.append(("bias", bias, (heads, vol, vol)))
-    if mask is not None:
-        mask = mask.view(torch.uint8) if mask.dtype == torch.bool else mask
-        specs.append(("mask", mask, (nC, vol, vol), torch.uint8))
+    if mask is not None:   # bool or uint8: one byte an element either way
+        specs.append(("mask", mask, (nC, vol, vol),
+                      torch.bool if mask.dtype == torch.bool else torch.uint8))
     _build.require(entry, specs)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{entry} kernel: q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     lib = _build.load("attention", _SIGNATURES)
     err = getattr(lib, entry)(
@@ -854,7 +893,11 @@ def fused_cuboid_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     """The grouped core, q, k, v (B, heads, cuboids, vol, hc), bias (heads,
     vol, vol), mask (cuboids, vol, vol) bool or None.  CPU tensor: the plain
     version.  CUDA tensor: the kernel, or raise.  Differentiable on both."""
-    return _GroupedAttention.apply(q, k, v, bias, mask, scale)
+    if _build.needs_grad(q, k, v, bias):
+        return _GroupedAttention.apply(q, k, v, bias, mask, scale)
+    if not q.is_cuda:
+        return grouped_attention_plain(q, k, v, bias, mask, scale)
+    return _grouped_kernel(q, k, v, bias, mask, scale)
 
 
 # --------------------------------------------------------------------------- #

@@ -4,15 +4,23 @@ channel-last (B, T, H, W, C) f32, weights in PyTorch ``Conv3d`` layout
 
     out = conv(bf16(x), bf16(w)) + b        (f32 accumulation, f32 out)
 
-The kernel (``csrc/conv3d.cu``, the implicit GEMM of ``csrc/conv3.cuh``)
-replaces ``prediff_tpu/ops/pallas_conv3d.py::fused_conv3x3x3``, the opt-in
-route of the JAX package's ``Conv3x3x3`` (``use_pallas_conv=True``).
+The kernel (``csrc/conv3d.cu``: TMA and wgmma on Hopper) replaces
+``prediff_tpu/ops/pallas_conv3d.py::fused_conv3x3x3``, the opt-in route of
+the JAX package's ``Conv3x3x3`` (``use_pallas_conv=True``).
 :func:`fused_conv3x3x3` is differentiable as the JAX package's
 ``fused_conv3x3x3_diff`` is: dx is the same kernel on the cotangent with the
 flipped, channel-transposed weights where :func:`supports_shape` admits the
 cotangent's shape, else the f32 transposed conv; dw is the f32 weight
 gradient from the unrounded x; db the f32 sum of the cotangent.
+
+What the kernel is handed is plain Python here, so the CPU tests reach it:
+:func:`conv_plan` (the token box, the tiles and the cluster split) and
+:func:`weight_layout` (the bf16 weights laid out once per parameter version).
 """
+import ctypes
+import weakref
+from dataclasses import dataclass
+from functools import lru_cache
 from typing import Optional
 
 import torch
@@ -22,11 +30,15 @@ from . import _build
 from .ffn import _round
 
 _P, _I = _build.P, _build.I
-_SIGNATURES = {"conv3x3x3_forward": [_P] * 5 + [_I] * 7 + [_P]}
+_SIGNATURES = {"conv3x3x3_forward": [_P] * 5 + [_I] * 10 + [_P],
+               "conv3x3x3_weight_map": [_P, _I, _I, _P]}
 # the JAX package's VMEM budget of its routing rule (prediff_tpu/ops/dispatch.py)
 VMEM_BUDGET_BYTES = 12 * 1024 * 1024
-TAP_SPLITS = (1, 3, 9)   # how the conv may split its 27 taps (each divides 27)
-_TOKEN_TILE, _CHANNEL_TILE = 32, 64   # csrc/conv3.cuh kCM, kCN
+# csrc/conv3d.cu: kBM tokens (one box) x 256 or 128 output channels a block
+# (tile_n), K in slices of kBK
+TOKEN_TILE, K_SLICE = 128, 64
+SMS = 132   # the H100's SMs: one block each (the ring takes most of an SM's shared memory)
+SPLITS = (1, 2, 4, 8)   # cluster sizes that pack into the H100's GPCs (3, 5 or 6 do not)
 
 
 def _plan(T: int, H: int, W: int, C: int, OC: int, bytes_per_el: int = 2):
@@ -64,7 +76,8 @@ def supports_shape(T: int, H: int, W: int, C: int, OC: int, B: int = 1) -> bool:
     package's routing rule (``pallas_conv3d.supports_shape``, arithmetic
     copied), kept so that both packages send the same sites, at each batch
     size, to the bf16 route.  It is the TPU kernel's VMEM budget, not a limit
-    of the CUDA kernel, which takes any C and OC that are multiples of 64."""
+    of the CUDA kernel, which takes any C that is a multiple of 64 and OC of
+    128 (the rule admits multiples of 128 only)."""
     plan = _plan(T, H, W, C, OC)
     if plan is None:
         return False
@@ -115,33 +128,142 @@ def conv_weight_t(k: torch.Tensor) -> torch.Tensor:
                                                           k.shape[1]).contiguous()
 
 
-def tap_splits(tokens: int, out_channels: int) -> int:
-    """The fewest tap splits that give about ``_build.TARGET_BLOCKS`` blocks
-    from the conv's (32-token, 64-channel) tiles."""
-    tiles = -(-tokens // _TOKEN_TILE) * (out_channels // _CHANNEL_TILE)
-    return next((s for s in TAP_SPLITS if tiles * s >= _build.TARGET_BLOCKS), TAP_SPLITS[-1])
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """The kernel on x (B, T, H, W, K) and w (27, K, N) laid out for it."""
+@dataclass(frozen=True)
+class ConvPlan:
+    """What the kernel is handed for a conv of (B, T, H, W) tokens, K -> N
+    channels: the token box (bt, bh, bw) of ``TOKEN_TILE`` tokens, the boxes
+    per axis, the output-channel tile (256 where N allows, else 128) and how
+    many blocks of a cluster split the 27 x K / ``K_SLICE`` slices of the
+    reduction."""
+    B: int
+    T: int
+    H: int
+    W: int
+    K: int
+    N: int
+    box: tuple
+    boxes: tuple
+    n_tile: int
+    splits: int
+
+    @property
+    def n_tiles(self) -> int:
+        return self.N // self.n_tile
+
+    @property
+    def m_tiles(self) -> int:
+        return self.B * self.boxes[0] * self.boxes[1] * self.boxes[2]
+
+    @property
+    def slices(self) -> int:
+        return 27 * self.K // K_SLICE
+
+    def origin(self, m_tile: int):
+        """(sample, t0, h0, w0) of a token tile, in the kernel's order."""
+        nbt, nbh, nbw = self.boxes
+        bt, bh, bw = self.box
+        iw, rest = m_tile % nbw, m_tile // nbw
+        ih, rest = rest % nbh, rest // nbh
+        return rest // nbt, (rest % nbt) * bt, ih * bh, iw * bw
+
+    def split_slices(self, rank: int) -> range:
+        """The (tap, channel slice) indices, tap-major, that block ``rank`` of
+        a cluster adds."""
+        return range(rank * self.slices // self.splits, (rank + 1) * self.slices // self.splits)
+
+
+@lru_cache(maxsize=None)
+def conv_plan(B: int, T: int, H: int, W: int, K: int, N: int) -> ConvPlan:
+    """The box is as wide as W (to a power of two, at most the tile), then
+    as high as H, then deep in t to fill ``TOKEN_TILE`` tokens; the most
+    splits of ``SPLITS`` that keep every block in one wave over the ``SMS``
+    SMs (a second wave would double the time)."""
+    if K % K_SLICE or N % 128 or min(B, T, H, W, K, N) < 1:
+        raise ValueError(f"conv3x3x3 kernel: {K} -> {N} channels not supported "
+                         f"(K % {K_SLICE} == 0, N % 128 == 0)")
+    bw = min(_pow2_at_least(W), TOKEN_TILE)
+    bh = min(_pow2_at_least(H), TOKEN_TILE // bw)
+    bt = TOKEN_TILE // (bw * bh)
+    boxes = (-(-T // bt), -(-H // bh), -(-W // bw))
+    n_tile = 256 if N % 256 == 0 else 128
+    tiles = B * boxes[0] * boxes[1] * boxes[2] * (N // n_tile)
+    slices = 27 * K // K_SLICE
+    splits = max(s for s in SPLITS if s == 1 or (s <= slices and tiles * s <= SMS))
+    return ConvPlan(B, T, H, W, K, N, (bt, bh, bw), boxes, n_tile, splits)
+
+
+def weight_layout(weight: torch.Tensor, dx: bool = False) -> torch.Tensor:
+    """The kernel's bf16 weights, K-contiguous (27, N, K): the forward's
+    ``[tap][out][in]`` (``conv_weight`` transposed), or with ``dx`` the input
+    gradient's flipped ``[tap][in][out]`` (``conv_weight_t`` transposed).
+
+    Laid out once per parameter version: the layout is kept under the
+    parameter's ``(data_ptr(), _version)``, so an in-place update
+    (``optimizer.step()``, ``copy_`` under ``no_grad``) makes a new one at
+    the next call; the cache holds the parameter by weak reference and drops
+    its entry when the parameter goes.  An update through ``weight.data``
+    bypasses PyTorch's version counter and is not seen."""
+    return _cached(weight, dx)[2]
+
+
+# (id(weight), dx) -> [weak reference to weight, its (data_ptr, _version, device),
+# the bf16 layout, the layout's TMA tensor map or None]
+_LAYOUTS: dict = {}
+
+
+def _cached(weight: torch.Tensor, dx: bool) -> list:
+    key = (weight.data_ptr(), weight._version, weight.device)
+    slot = (id(weight), dx)
+    entry = _LAYOUTS.get(slot)
+    if entry is None or entry[0]() is not weight or entry[1] != key:
+        with torch.no_grad():
+            k = weight.detach()
+            layout = (conv_weight_t(k) if dx else conv_weight(k)).transpose(1, 2)
+            layout = layout.to(torch.bfloat16).contiguous()
+        ref = weakref.ref(weight, lambda _, slot=slot: _LAYOUTS.pop(slot, None))
+        entry = _LAYOUTS[slot] = [ref, key, layout, None]
+    return entry
+
+
+def _weight_map(weight: torch.Tensor, dx: bool):
+    """The cached layout and its TMA tensor map (128 bytes, made on first use)."""
+    entry = _cached(weight, dx)
+    if entry[3] is None:
+        _, N, K = entry[2].shape
+        lib = _build.load("conv3d", _SIGNATURES)
+        desc = ctypes.create_string_buffer(128)
+        _build.check(lib.conv3x3x3_weight_map(_build.ptr(entry[2]), N, K, desc),
+                     "conv3x3x3_weight_map")
+        entry[3] = desc
+    return entry[2], entry[3]
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+            dx: bool) -> torch.Tensor:
+    """The kernel on x (B, T, H, W, K) with ``weight``'s cached layout."""
     B, T, H, W, K = x.shape
-    N = w.shape[-1]
-    if K % 32 or N % 64:
-        raise ValueError(f"conv3x3x3 kernel: {K} -> {N} channels not supported (K % 32 == 0, "
-                         "N % 64 == 0)")
-    specs = [("x", x, (B, T, H, W, K)), ("w", w, (27, K, N))]
+    N = weight.shape[1] if dx else weight.shape[0]
+    plan = conv_plan(B, T, H, W, K, N)
+    specs = [("x", x, (B, T, H, W, K))]
     if bias is not None:
         specs.append(("bias", bias, (N,)))
     _build.require("conv3x3x3", specs)
+    if tuple(weight.shape) != ((K, N) if dx else (N, K)) + (3, 3, 3) or not weight.is_cuda:
+        raise ValueError(f"conv3x3x3 kernel: weight {tuple(weight.shape)} on {weight.device} "
+                         f"does not fit x {tuple(x.shape)} -> {N} channels")
     if x.data_ptr() % 16:
         raise ValueError("conv3x3x3 kernel: x must be 16-byte aligned")
-    splits = tap_splits(B * T * H * W, N)
-    part = torch.empty((splits, B * T * H * W, N), dtype=torch.float32, device=x.device)
+    layout, desc = _weight_map(weight, dx)
+    xb = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     out = torch.empty((B, T, H, W, N), dtype=torch.float32, device=x.device)
     lib = _build.load("conv3d", _SIGNATURES)
-    err = lib.conv3x3x3_forward(_build.ptr(x), _build.ptr(w),
-                                None if bias is None else _build.ptr(bias), _build.ptr(part),
-                                _build.ptr(out), B, T, H, W, K, N, splits,
+    err = lib.conv3x3x3_forward(_build.ptr(x), _build.ptr(xb), desc,
+                                None if bias is None else _build.ptr(bias), _build.ptr(out),
+                                B, T, H, W, K, N, *plan.box, plan.splits,
                                 _build.stream_ptr(x.device))
     _build.check(err, "conv3x3x3_forward")
     return out
@@ -152,7 +274,7 @@ def conv3x3x3_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor)
     rounding).  CUDA tensor: the kernel, or raise."""
     if not x.is_cuda:
         return conv3x3x3_plain(x, weight, bias)
-    out = _launch(x, conv_weight(weight.float()), bias)
+    out = _launch(x, weight, bias, dx=False)
     conv3x3x3_forward.launches += 1
     return out
 
@@ -163,7 +285,7 @@ def conv3x3x3_dx(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     channel-transposed weights, or raise."""
     if not g.is_cuda:
         return conv3x3x3_dx_plain(g, weight)
-    dx = _launch(g, conv_weight_t(weight.float()), None)
+    dx = _launch(g, weight, None, dx=True)
     conv3x3x3_dx.launches += 1
     return dx
 
@@ -198,7 +320,9 @@ def fused_conv3x3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -
     OC); differentiable.  The caller gates with :func:`supports_shape`, as
     the JAX package's ``Conv3x3x3`` does.  CPU tensor: the plain versions.
     CUDA tensor: the kernels, or raise."""
-    return _FusedConv3x3x3.apply(x, weight, bias)
+    if _build.needs_grad(x, weight, bias):
+        return _FusedConv3x3x3.apply(x, weight, bias)
+    return conv3x3x3_forward(x, weight, bias)
 
 
 conv3x3x3_forward.launches = 0

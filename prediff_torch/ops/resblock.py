@@ -10,8 +10,8 @@ The kernels (``csrc/resblock.cu``) replace
 the backward (bf16 from the kernel, as the TPU kernel keeps it); the
 backward gives (dx, demb).  Conv weights are in PyTorch ``Conv3d`` layout
 (C, C, 3, 3, 3); the wrappers lay them out as (27, in, out) for the
-kernel, flipped and transposed for the backward (``ops/conv3d.py``, whose
-kernel shares the resblock's conv, ``csrc/conv3.cuh``).
+kernel, flipped and transposed for the backward (``ops/conv3d.py``'s
+``conv_weight`` / ``conv_weight_t``; the conv itself is ``csrc/conv3.cuh``).
 
 :func:`fused_resblock` is differentiable: (dx, demb) from
 :func:`fused_resblock_bwd`, parameter gradients (only when asked for) from

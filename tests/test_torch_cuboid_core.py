@@ -1,7 +1,10 @@
 """The round-1 cuboid attention ops (no model calls them): the per-cuboid core
 and the whole layer "v3", the port's plain versions (what their wrappers run on
 the CPU) against ``prediff_tpu/ops/pallas_attention.py``'s reference and its
-interpret-mode kernels, f32 on both sides (CPU)."""
+interpret-mode kernels, f32 on both sides (CPU).  And the arithmetic of the
+grouped core kernel they share with the grouped route, 3xTF32 on the tensor
+cores, emulated in torch at the card tests' shapes; and ``LatentDiffusion``'s
+device."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,9 +14,14 @@ from prediff_tpu.ops.cuboid import compute_cuboid_self_attention_mask
 from prediff_tpu.ops.pallas_attention import (cuboid_attention_reference,
                                               fused_cuboid_attention_layer as jax_layer_v3)
 from prediff_tpu.ops.pallas_attention import fused_cuboid_attention as jax_core
+from prediff_torch.diffusion.latent_diffusion import LatentDiffusion
+from prediff_torch.diffusion.schedule import make_gaussian_schedule
 from prediff_torch.ops.attention import (cuboid_attention_layer_v3_plain,
                                          cuboid_attention_plain_core, fused_cuboid_attention,
-                                         fused_cuboid_attention_layer_v3)
+                                         fused_cuboid_attention_layer_v3, grouped_attention_plain,
+                                         grouped_attention_tf32, tf32_round)
+from prediff_torch.ops.cuboid import compute_cuboid_self_attention_mask as torch_window_mask
+from test_torch_kernels_cuda import CORE_CASES, GROUPED_CASES
 
 # f32 throughout on both sides; only the order of the sums differs
 TOL = 1e-5
@@ -118,3 +126,77 @@ def test_round1_ops_are_forward_only():
         fused_cuboid_attention_layer_v3(*layer, 2, 0.5)
     with torch.no_grad():
         assert fused_cuboid_attention_layer_v3(*layer, 2, 0.5).shape == layer[0].shape
+
+
+def test_tf32_round_keeps_ten_mantissa_bits_to_nearest():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -12, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 - 2.0 ** -20, 3.0e-30])
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0,
+                         3.0e-30])
+    got = tf32_round(x)
+    assert torch.equal(got[:5], want[:5])   # ties away from zero
+    assert abs(float(got[5]) / 3.0e-30 - 1) <= 2.0 ** -11
+    bits = got.view(torch.int32)
+    assert bool(((bits & 0x1FFF) == 0).all())
+
+
+# the card tests' grouped (head-major) and round-1 (cuboid-major) shapes
+TF32_CASES = ([("grouped", s, w) for s, w in GROUPED_CASES]
+              + [("cuboid", s, w) for s, w in CORE_CASES])
+
+
+def _tf32_errors(layout, shape, window):
+    """The 3-pass and 1-pass emulations' worst error against the f32 plain
+    version as a share of the output's max, and the 3-pass output
+    (head-major)."""
+    rng = np.random.RandomState(sum(shape))
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32)) for _ in range(3))
+    heads, vol, hc = (shape[1] if layout == "grouped" else shape[2]), shape[3], shape[4]
+    bias = torch.from_numpy((0.5 * rng.randn(heads, vol, vol)).astype(np.float32))
+    mask = None if window is None else torch.from_numpy(torch_window_mask(
+        window[0], window[1], window[2], ("l", "l", "l"), window[3]))
+    if layout == "cuboid":   # the same function on (B, cuboids, heads, vol, hc)
+        want = cuboid_attention_plain_core(q, k, v, bias, mask, hc ** -0.5)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    else:
+        want = grouped_attention_plain(q, k, v, bias, mask, hc ** -0.5)
+    errors, out = {}, None
+    for passes in (3, 1):
+        got = grouped_attention_tf32(q, k, v, bias, mask, hc ** -0.5, passes=passes)
+        diff = (got.transpose(1, 2) if layout == "cuboid" else got) - want
+        errors[passes] = float(diff.abs().max()) / float(want.abs().max())
+        out = got if out is None else out
+    return errors, out, mask
+
+
+@pytest.mark.parametrize("layout,shape,window", TF32_CASES)
+def test_core_in_3xtf32_meets_the_bar_and_one_pass_does_not(layout, shape, window):
+    """The kernel's 3xTF32 products stay within the core's 1e-5 of the
+    output's max against the f32 plain version; a single TF32 pass does not."""
+    errors, got, mask = _tf32_errors(layout, shape, window)
+    assert errors[3] <= TOL and errors[1] > TOL, errors
+    if mask is not None and (~mask.any(-1)).any():   # fully masked rows stay exactly 0
+        assert bool((got[:, :, ~mask.any(-1)] == 0).all())
+
+
+def _latent_diffusion(device):
+    schedule = make_gaussian_schedule(timesteps=10)
+    return LatentDiffusion(torch.nn.Identity(), torch.nn.Identity(), schedule,
+                           latent_shape=(2, 4, 4, 1), device=device)
+
+
+def test_latent_diffusion_defaults_to_the_card(monkeypatch):
+    """``device=None`` means the card, as at every entry point: without one
+    it raises rather than carry on on the CPU; ``"cpu"`` asks for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        _latent_diffusion(None)
+    ld = _latent_diffusion("cpu")
+    assert ld.device == torch.device("cpu")
+    assert ld.schedule.betas.device == torch.device("cpu")
+
+
+if __name__ == "__main__":   # the errors themselves: python tests/test_torch_cuboid_core.py
+    for layout, shape, window in TF32_CASES:
+        errors = _tf32_errors(layout, shape, window)[0]
+        print(layout, shape, "masked" if window else "", {p: f"{e:.2e}" for p, e in errors.items()})

@@ -29,7 +29,7 @@ from prediff_torch.ops.attention import (cuboid_attention_layer_v3_plain,
                                          cuboid_attention_plain_core, fused_cuboid_attention,
                                          fused_cuboid_attention_layer_v3)
 from prediff_torch.ops.conv3d import (conv3x3x3_dx, conv3x3x3_dx_plain, conv3x3x3_forward,
-                                      conv3x3x3_plain, fused_conv3x3x3, tap_splits)
+                                      conv3x3x3_plain, fused_conv3x3x3)
 from prediff_torch.ops.cuboid import compute_cuboid_self_attention_mask
 from prediff_torch.ops.dropout import keep_mask
 from prediff_torch.ops.ffn import (ffn_bwd_dx_plain, ffn_bwd_full_plain, ffn_dropout_bwd_full_plain,
@@ -446,13 +446,17 @@ def test_cuboid_layer_kernels_match_plain(dev, shape):
 # (B, heads, cuboids, vol, hc), and the window mask's (T, H, W), cuboid, shift,
 # padding type: the UNet's shifted 1x8x8 windows (vol 64), video_swin_2x8's
 # padded 2x8x8 cuboids unmasked (vol 128), "ignore" padding with fully masked
-# rows, a 1x32x40 window (vol 1280), and "full" on the UNet (vol 3328)
+# rows, a 1x32x40 window (vol 1280), "full" on the UNet (vol 3328), and head
+# widths the kernel pads (12: not a multiple of 8; 200: four 64-channel
+# chunks, the last one partial)
 GROUPED_CASES = [
     ((1, 4, 52, 64, 64), ((13, 16, 16), (1, 8, 8), (0, 4, 4), "zeros")),
     ((1, 4, 28, 128, 64), None),
     ((2, 2, 12, 32, 32), ((5, 6, 6), (2, 4, 4), (0, 0, 0), "ignore")),
     ((1, 4, 2, 1280, 32), None),
     ((1, 4, 1, 3328, 64), None),
+    ((1, 2, 3, 20, 12), None),
+    ((1, 2, 3, 70, 200), None),
 ]
 
 
@@ -470,11 +474,19 @@ def test_grouped_kernel_matches_plain(dev, shape, window):
     got = fused_cuboid_attention_grouped(q, k, v, bias, mask, hc ** -0.5)
     want = grouped_attention_plain(q, k, v, bias, mask, hc ** -0.5)
     assert fused_cuboid_attention_grouped.launches == before + 1
-    # f32 throughout on both sides; another sum order and the online softmax
+    # the kernel's 3xTF32 products against f32; another sum order and the
+    # online softmax
     err = (got - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item(), err
     if mask is not None and (~mask.any(-1)).any():
         assert (got[:, :, ~mask.any(-1)] == 0).all()
+
+
+def test_grouped_kernel_refuses_rows_it_cannot_copy_in_16_bytes(dev):
+    q = torch.randn(1, 2, 3, 20, 6, device=dev)
+    bias = torch.randn(2, 20, 20, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_cuboid_attention_grouped(q, q, q, bias, None, 0.5)
 
 
 def test_autograd_through_the_cuboid_wrappers_on_the_card(dev):
@@ -591,9 +603,11 @@ def _conv_close(got, want):
     assert err <= TOL_CONV * want.abs().max().item(), err
 
 
-@pytest.mark.parametrize("shape", [(1, 13, 16, 16, 256, 256), (1, 13, 8, 8, 512, 512),
-                                   (2, 13, 8, 8, 512, 512), (1, 6, 16, 16, 128, 128),
-                                   (1, 5, 8, 8, 128, 256)])
+CONV_SHAPES = [(1, 13, 16, 16, 256, 256), (1, 13, 8, 8, 512, 512), (2, 13, 8, 8, 512, 512),
+               (1, 6, 16, 16, 128, 128), (1, 5, 8, 8, 128, 256), (2, 13, 16, 16, 256, 256)]
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
 def test_conv_kernels_match_plain(dev, shape):
     B, T, H, W, C, OC = shape
     x = torch.randn(B, T, H, W, C, device=dev)
@@ -622,17 +636,30 @@ def test_autograd_through_the_conv_wrapper_on_the_card(dev):
     _conv_close(got[2], g.sum(dim=(0, 1, 2, 3)))
 
 
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_kernel_repeats_bit_for_bit(dev, shape):
+    """Two launches give the same bits, with and without a cluster split
+    (the partials are added in rank order, no atomics)."""
+    B, T, H, W, C, OC = shape
+    x = torch.randn(B, T, H, W, C, device=dev)
+    w = torch.randn(OC, C, 3, 3, 3, device=dev) / (27 * C) ** 0.5
+    b = 0.1 * torch.randn(OC, device=dev)
+    g = torch.randn(B, T, H, W, OC, device=dev)
+    assert torch.equal(conv3x3x3_forward(x, w, b), conv3x3x3_forward(x, w, b))
+    assert torch.equal(conv3x3x3_dx(g, w), conv3x3x3_dx(g, w))
+
+
 def test_resblock_conv_is_the_shared_conv(dev):
-    """The resblock kernels and the conv kernel run one conv (csrc/conv3.cuh):
-    with GN2's gamma at 0 the resblock's second conv sees h3 = bf16(silu(beta2))
-    per channel, and its output is that conv plus x, bit for bit, at a shape
-    where the conv takes the resblock's 9 tap splits."""
+    """The resblock's second conv against the plain conv: with GN2's gamma at
+    0 the conv sees h3 = bf16(silu(beta2)) per channel, and the resblock's
+    output is that conv plus x.  (The resblock keeps the implicit GEMM of
+    csrc/conv3.cuh; the standalone conv is now its own TMA + wgmma kernel,
+    so the two agree to the conv's tolerance, no longer bit for bit.)"""
     shape = (1, 6, 8, 8, 256)
-    assert tap_splits(6 * 8 * 8, 256) == 9
     x, emb, k1, b1, k2, b2, g1s, g1b, _, g2b = _resblock_args(dev, shape)
     out, _ = fused_resblock_fwd(x, emb, k1, b1, k2, b2, g1s, g1b, torch.zeros_like(g2b), g2b)
     h3 = (g2b / (1 + torch.exp(-g2b))).to(torch.bfloat16).float().expand(shape).contiguous()
-    assert torch.equal(out, conv3x3x3_forward(h3, k2, b2) + x)
+    _conv_close(out, conv3x3x3_plain(h3, k2, b2) + x)
 
 
 CORE_CASES = [((1, 52, 4, 64, 64), ((13, 16, 16), (1, 8, 8), (0, 4, 4), "zeros")),
@@ -642,7 +669,7 @@ CORE_CASES = [((1, 52, 4, 64, 64), ((13, 16, 16), (1, 8, 8), (0, 4, 4), "zeros")
 
 @pytest.mark.parametrize("shape,window", CORE_CASES)
 def test_cuboid_core_kernel_matches_plain(dev, shape, window):
-    """The round-1 core on the cuboid-major layout; f32 on both sides."""
+    """The round-1 core on the cuboid-major layout; 3xTF32 against f32."""
     B, nC, heads, vol, hc = shape
     q, k, v = (torch.randn(*shape, device=dev) for _ in range(3))
     bias = 0.5 * torch.randn(heads, vol, vol, device=dev)
@@ -664,7 +691,7 @@ def test_cuboid_core_kernel_matches_plain(dev, shape, window):
 
 @pytest.mark.parametrize("shape", [(1, 52, 64, 256), (2, 13, 16, 64), (1, 8, 16, 32)])
 def test_cuboid_layer_v3_kernel_matches_plain(dev, shape):
-    """The round-1 whole layer, f32 on both sides (no tensor cores, no TF32)."""
+    """The round-1 whole layer: f32 LN and GEMMs, the core in 3xTF32."""
     B, nC, vol, C = shape
     heads = 4 if C > 32 else 2
     x = torch.randn(*shape, device=dev)
