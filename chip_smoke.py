@@ -49,8 +49,10 @@ guidance shift card against CPU, ``conv_forecast`` and
 ``conv_guided_forecast`` with exact counts, profiles; after ``train``,
 ``conv_train_grads``, ``conv_train`` and ``profile_conv_train_step`` (no
 rate-0 phase).  Then the ``kernels`` summary line (per kernel its ms,
-bound, library call and ``vs_library``; the conv and the grouped cores also
-their device time alone from CUDA-graph replay), the card's name and power
+bound, library call and ``vs_library``; the conv, the grouped cores and the
+FFN and axial attention forwards also their device time alone from
+CUDA-graph replay, the last two with ``library_seq_ms``, the sequence of
+library calls that computes their function), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that line is printed.
 """
@@ -240,9 +242,10 @@ def graph_time_ms(fn, iters: int = 20, replays: int = 5) -> float:
 
 def kernel_name(mangled: str) -> str:
     """The last name of an Itanium-mangled (nested) function name, with its
-    integer template argument: ``_ZN..._9_conv3d_cu_...17conv_wgmma_kernelE...``
+    integer and bool template arguments: ``_ZN..._9_conv3d_cu_...17conv_wgmma_kernelE...``
     -> ``conv_wgmma_kernel``, ``...19grouped_core_kernelILi8EE...`` ->
-    ``grouped_core_kernel<8>``."""
+    ``grouped_core_kernel<8>``, ``...16ffn_wgmma_kernelILi256ELb1EE...`` ->
+    ``ffn_wgmma_kernel<256, true>``."""
     import re
 
     i = 3 if mangled.startswith("_ZN") else 2
@@ -253,8 +256,12 @@ def kernel_name(mangled: str) -> str:
             j += 1
         n = int(mangled[i:j])
         name, i = mangled[j:j + n], j + n
-    arg = re.match(r"ILi(\d+)E", mangled[i:])
-    return f"{name}<{arg.group(1)}>" if arg else name
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[i:])
+    if not args:
+        return name
+    vals = [("true" if v == "1" else "false") if t == "b" else v
+            for t, v in re.findall(r"L([ib])(\d+)E", args.group(1))]
+    return f"{name}<{', '.join(vals)}>"
 
 
 def ptxas_by_function(log: str) -> dict:
@@ -352,18 +359,74 @@ def judge_drop(c, shapes, observed_drop, bit_equal, device):
     c["ok"] = c["ok"] and c["kept_share_ok"] and bit_equal
 
 
-def timed(c, kernel, plain, nbytes, library=None, device_time=False, **flops):
+def timed(c, kernel, plain, nbytes, library=None, device_time=False, library_seq=None,
+          **flops):
     """Times a case: ``ms`` per wrapper call (events around back-to-back
     calls: the host's share included where it is the larger), the plain
     version's, the bound, the library call's and ``vs_library`` = ms /
-    library_ms; with ``device_time`` also both calls' device time alone
-    (``graph_time_ms``) and their ratio."""
+    library_ms; ``library_seq_ms``, where no single call computes the
+    function, the time of the sequence of library calls that does (a
+    yardstick, labelled apart from ``library_ms``, which stays None); with
+    ``device_time`` also each call's device time alone (``graph_time_ms``)."""
     c.update(ms=time_ms(kernel), plain_ms=time_ms(plain), bound=bound(nbytes, **flops),
              library_ms=None if library is None else time_ms(library))
     c["vs_library"] = None if library is None else c["ms"] / c["library_ms"]
+    if library_seq is not None:
+        c["library_seq_ms"] = time_ms(library_seq)
     if device_time:
-        c.update(device_ms=graph_time_ms(kernel), library_device_ms=graph_time_ms(library))
-        c["vs_library_device"] = c["device_ms"] / c["library_device_ms"]
+        c["device_ms"] = graph_time_ms(kernel)
+        if library is not None:
+            c["library_device_ms"] = graph_time_ms(library)
+            c["vs_library_device"] = c["device_ms"] / c["library_device_ms"]
+        if library_seq is not None:
+            c["library_seq_device_ms"] = graph_time_ms(library_seq)
+
+
+def ffn_library_seq(x, ln_w, ln_b, w1, b1, w2, b2, rate_act=0.0, rate_out=0.0):
+    """The FFN as a sequence of library calls on pre-cast bf16 weights:
+    ``F.layer_norm`` -> ``F.linear`` -> ``F.gelu`` (-> ``F.dropout``) ->
+    ``F.linear`` (-> ``F.dropout``) -> + x."""
+    import torch
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    w1b, b1b, w2b, b2b = (t.to(bf16) for t in (w1, b1, w2, b2))
+    C = x.shape[-1]
+
+    def run():
+        h = F.gelu(F.linear(F.layer_norm(x, (C,), ln_w, ln_b, 1e-5).to(bf16), w1b, b1b))
+        if rate_act:
+            h = F.dropout(h, rate_act)
+        y = F.linear(h, w2b, b2b)
+        return x + (F.dropout(y, rate_out) if rate_out else y).float()
+
+    return run
+
+
+def attention_library_seq(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale,
+                          rate_attn=0.0, rate_proj=0.0):
+    """The axial layer as a sequence of library calls on pre-cast bf16
+    weights: ``F.layer_norm`` -> ``F.linear`` -> SDPA on the axis's cuboids
+    with the relative bias as ``attn_mask`` (and ``dropout_p``) ->
+    ``F.linear`` (-> ``F.dropout``)."""
+    import torch
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    wq, bb, wp, bp = (t.to(bf16) for t in (w_qkv, bias, w_proj, b_proj))
+    C = x.shape[-1]
+
+    def run():
+        qkv = F.linear(F.layer_norm(x, (C,), ln_w, ln_b, 1e-5).to(bf16), wq).movedim(1 + axis, 3)
+        lead = qkv.shape[:4]
+        q, k, v = qkv.reshape(-1, lead[3], 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bb, dropout_p=rate_attn,
+                                           scale=scale)
+        o = o.transpose(1, 2).reshape(*lead, C).movedim(3, 1 + axis)
+        y = F.linear(o, wp, bp)
+        return (F.dropout(y, rate_proj) if rate_proj else y).float()
+
+    return run
 
 
 # --------------------------------------------------------------------------- #
@@ -512,7 +575,8 @@ def check_kernels(cases, device):
                                    fused_ffn(*args)), device)
             timed(c, lambda: fused_ffn_dropout(*args, *drop),
                   lambda: ffn_dropout_plain(*args, *drop, mxu_dtype=bf16),
-                  4 * (2 * M * C + 2 * C * hid + hid + 3 * C), bf16_flops=4 * M * C * hid)
+                  4 * (2 * M * C + 2 * C * hid + hid + 3 * C), device_time=True,
+                  library_seq=ffn_library_seq(*args[:7], *drop[:2]), bf16_flops=4 * M * C * hid)
         elif name == "ffn_dropout_bwd_full":
             args = (x, randn(M, C), ln_w, ln_b, w1, b1, w2, 1e-5)
             got = fused_ffn_dropout_bwd_full(*args, *drop)
@@ -541,7 +605,8 @@ def check_kernels(cases, device):
             sync(device)
             judge(c, got, want, tol=2e-2)
             timed(c, lambda: fused_ffn(*args), lambda: ffn_plain(*args, mxu_dtype=bf16),
-                  4 * (2 * M * C + 2 * C * hid + hid + 3 * C), bf16_flops=4 * M * C * hid)
+                  4 * (2 * M * C + 2 * C * hid + hid + 3 * C), device_time=True,
+                  library_seq=ffn_library_seq(*args), bf16_flops=4 * M * C * hid)
         else:
             args = (x, randn(M, C), ln_w, ln_b, w1, b1, w2)
             got = fused_ffn_bwd_dx(*args)
@@ -577,7 +642,8 @@ def check_kernels(cases, device):
                                    fused_axial_attention(*args)), device)
             timed(c, lambda: fused_axial_attention_dropout(*args, *drop),
                   lambda: axial_attention_plain(*args, bf16, *drop),
-                  4 * (2 * M * C + 4 * C * C + heads * vol * vol + 3 * C),
+                  4 * (2 * M * C + 4 * C * C + heads * vol * vol + 3 * C), device_time=True,
+                  library_seq=attention_library_seq(*args[:10], *drop[:2]),
                   bf16_flops=8 * M * C * C + 4 * M * vol * C)
         elif name == "axial_attention_dropout_bwd_full":
             args = (x, randn(B, T, H, W, C), axis, ln_w, ln_b, w_qkv, bias, w_proj, heads, scale,
@@ -613,7 +679,8 @@ def check_kernels(cases, device):
             judge(c, got, want, tol=2e-2)
             timed(c, lambda: fused_axial_attention(*args),
                   lambda: axial_attention_plain(*args, mxu_dtype=bf16),
-                  4 * (2 * M * C + 4 * C * C + heads * vol * vol + 3 * C),
+                  4 * (2 * M * C + 4 * C * C + heads * vol * vol + 3 * C), device_time=True,
+                  library_seq=attention_library_seq(*args),
                   bf16_flops=8 * M * C * C + 4 * M * vol * C)
         else:
             args = (x, randn(B, T, H, W, C), axis, ln_w, ln_b, w_qkv, bias, w_proj, heads, scale)
@@ -1125,9 +1192,9 @@ def summarize(cases, launches_by_path):
 
         bytes_share = sum(w for c, w in zip(cs, wts) if c["bound"][1] == "bytes") / n
         has_library = all(c["library_ms"] is not None for c in cs)
-        extra = {k: mix(k) for k in ("library_f32_ms", "device_ms", "library_device_ms")
-                 if k in cs[0]}
-        if "device_ms" in extra:
+        extra = {k: mix(k) for k in ("library_f32_ms", "device_ms", "library_device_ms",
+                                     "library_seq_ms", "library_seq_device_ms") if k in cs[0]}
+        if "library_device_ms" in extra:
             extra["vs_library_device"] = extra["device_ms"] / extra["library_device_ms"]
         if has_library:
             extra["vs_library"] = mix("ms") / mix("library_ms")

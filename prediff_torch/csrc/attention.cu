@@ -4,9 +4,9 @@
 //
 // Replaces prediff_tpu/ops/pallas_attention.py::fused_axial_attention_5d
 // (body _fused_layer_kernel_v4, plan axial_attention_plan).  Three launches:
-//   ln_gemm_kernel (LN fused)  qkv = LN(x) . Wqkv^T            (tokens, 3C) f32
-//   axial_core_kernel          one block per (cuboid, head)     (tokens, C)  f32
-//   ln_gemm_kernel (no LN)     out = attn . Wproj^T + b_proj    (tokens, C)  f32
+//   fwd_gemm_kernel (LN fused)  qkv = LN(x) . Wqkv^T, q scaled   (tokens, 3C) bf16
+//   axial_core_kernel           one block per (cuboid, head)    (tokens, C)  bf16
+//   fwd_gemm_kernel             out = attn . Wproj^T + b_proj    (tokens, C)  f32
 // The TPU kernel packed G cuboids into one dense R x R product under a
 // block-diagonal -inf mask to feed its 128 x 128 matrix unit; that trick is
 // not copied.  A cuboid here is vol rows that lie at a fixed stride in the
@@ -15,11 +15,17 @@
 // power of two and every loop masks its ragged edge.
 //
 // Bound: the two projections carry nearly all the operations (8 C^2 per
-// token); the core is ~vol/C of that.  At the UNet's shapes the layer is
-// bound by operations; the projections run on the tensor cores (WMMA bf16,
-// f32 accumulation), the small core on CUDA cores.  Operands are rounded to
-// bf16 at the TPU kernel's points: LN output, weights, q . scale, k, v, p and
-// the attention output.
+// token); the core is ~vol/C of that.  At the UNet's shapes the layer moves
+// ~7 MB and does ~1.8 GFLOP: bytes and operations give about the same least
+// time (~0.002 ms).  The projections run on TMA + wgmma (the block below),
+// with the weights as bf16 copies kept per parameter version
+// (ops/weights.py), 128 x 256 (QKV, where that fills about half the SMs or
+// more) or 128 x 128 output tiles a block, and LN(x)'s row statistics once
+// per row tile; q . scale, k, v and the head outputs go to device memory as
+// bf16, the core's operands (half the bytes of f32, rounded where the TPU
+// kernel rounds them).  The small core runs on CUDA cores.
+// Operands are rounded to bf16 at the TPU kernel's points: LN output,
+// weights, q . scale, k, v, p and the attention output.
 //
 // Input gradient (axial_attention_bwd_dx): replaces
 // pallas_attention.py::fused_axial_attention_5d_bwd_dx (body
@@ -169,6 +175,7 @@
 #include <stdint.h>
 
 #include "grad_common.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
 
 using namespace nvcuda;
@@ -186,7 +193,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// out[M, N] = A'[M, K] . W[N, K]^T (+ bias[N]); A' = LN(A) when ln_w != null.
+// The gradients' and the general layer's products (WMMA on weights staged
+// from f32): out[M, N] = A'[M, K] . W[N, K]^T (+ bias[N]); A' = LN(A) when ln_w != null.
 // With w_kn != 0, W is stored as [K, N] instead: out = A' . W.  With ln_out,
 // A' is also written as bf16 (M, K), by the blocks of the first column tile.
 // DropWhere 1: A (no LN) goes through the dropout `drop` of element (row, k) as
@@ -351,12 +359,14 @@ __device__ __forceinline__ void scores_softmax(const float* q, const float* k,
   __syncthreads();
 }
 
-// Drop: p goes through the dropout d of element (cuboid, head, i, j) before p . v.
+// The forward's core: q . scale, k, v from qkv (tokens, 3C) bf16, the head
+// outputs into attn (tokens, C) bf16.  Drop: p goes through the dropout d of
+// element (cuboid, head, i, j) before p . v.
 template <bool Drop>
 __global__ void __launch_bounds__(kCoreThreads)
-axial_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
-                  float* __restrict__ attn, int T, int H, int W, int C, int axis, int heads,
-                  float scale, philox::Drop d) {
+axial_core_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
+                  __nv_bfloat16* __restrict__ attn, int T, int H, int W, int C, int axis,
+                  int heads, philox::Drop d) {
   extern __shared__ float sm[];
   const int hc = C / heads;
   const int ld = hc + 1;  // odd stride: rows fall in different banks
@@ -370,12 +380,32 @@ axial_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
   int stride;
   cuboid_rows(cub, T, H, W, axis, base, stride);
 
-  for (int i = tid; i < vol * hc; i += kCoreThreads) {
+  // 8 channels (16 bytes) of q, k and v a thread at a time, all in flight together
+  const int g8 = hc % 8 == 0 ? hc / 8 : 0;
+  for (int i = tid; i < vol * g8; i += kCoreThreads) {
+    const int r = i / g8, c = 8 * (i % g8);
+    const __nv_bfloat16* row = qkv + (base + (size_t)r * stride) * 3 * C + h * hc + c;
+    const uint4 raw[3] = {*reinterpret_cast<const uint4*>(row),
+                          *reinterpret_cast<const uint4*>(row + C),
+                          *reinterpret_cast<const uint4*>(row + 2 * C)};
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw[t]);
+      float* dst = (t == 0 ? q : t == 1 ? k : v) + r * ld + c;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(pair[e]);
+        dst[2 * e] = f.x;
+        dst[2 * e + 1] = f.y;
+      }
+    }
+  }
+  for (int i = tid; g8 == 0 && i < vol * hc; i += kCoreThreads) {
     const int r = i / hc, c = i % hc;
-    const float* row = qkv + (base + (size_t)r * stride) * 3 * C + h * hc + c;
-    q[r * ld + c] = bf16_round(row[0] * scale);
-    k[r * ld + c] = bf16_round(row[C]);
-    v[r * ld + c] = bf16_round(row[2 * C]);
+    const __nv_bfloat16* row = qkv + (base + (size_t)r * stride) * 3 * C + h * hc + c;
+    q[r * ld + c] = __bfloat162float(row[0]);
+    k[r * ld + c] = __bfloat162float(row[C]);
+    v[r * ld + c] = __bfloat162float(row[2 * C]);
   }
   __syncthreads();
   scores_softmax(q, k, bias + (size_t)h * vol * vol, s, vol, hc, ld);
@@ -387,8 +417,9 @@ axial_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
   for (int i = tid; i < vol * hc; i += kCoreThreads) {
     const int r = i / hc, c = i % hc;
     float acc = 0.f;
+#pragma unroll 4
     for (int j = 0; j < vol; ++j) acc += bf16_round(s[r * vol + j]) * v[j * ld + c];
-    attn[(base + (size_t)r * stride) * C + h * hc + c] = bf16_round(acc);
+    attn[(base + (size_t)r * stride) * C + h * hc + c] = __float2bfloat16(acc);
   }
 }
 
@@ -569,31 +600,238 @@ cudaError_t bwd_dx_launches(const float* x, const float* g, const float* ln_w, c
   return ln_backward(x, ln_w, dln, dx, M, C, eps, stream);
 }
 
-// The three launches of the forward; Drop adds the two dropouts.
+// ---------------------------------------------------------------------------
+// The axial forward's two products on TMA + wgmma: out[M, N] = A . W^T with
+// W (N, K) the bf16 copy of a weight (ops/weights.py), read by TMA in 64-deep
+// slices of BN rows through a ring of up to kMaxStages stages kept full by a
+// producer warp; two consumer warpgroups of 64 rows run wgmma m64nBNk16, one
+// slice's group in flight.  A block owns 128 rows x BN columns.
+//   LnA (the QKV product): A = LN(x), computed once per row tile from the f32
+//     x and kept whole (K / 64 swizzled tiles) in shared memory; the epilogue
+//     writes bf16 (M, N): q . q_scale for the first q_cols columns, k and v
+//     as they are (the core's operands, rounded where the TPU kernel rounds).
+//   otherwise (the output projection): A = the bf16 head outputs, read by
+//     TMA beside W; the epilogue adds the bias (Drop: the dropout of element
+//     (row, column)) and writes f32.
+// Rows past M read zeros (the LN tile, the TMA unit) and columns past N
+// zeros (the TMA unit); the epilogue masks both.
+namespace fwd {
+
+using namespace hopper;
+
+constexpr int kBM = 128, kMaxStages = 4, kConsumers = 256, kThreads = kConsumers + 32;
+constexpr int kATile = kBM * 128;        // a 64-deep slice of the 128 rows: 16 KB
+constexpr int kSmemCap = 232448 - 128;   // dynamic shared memory a block may take
+
+template <int BN, bool LnA>
+__host__ __device__ constexpr int stage_bytes() {
+  return (LnA ? 0 : kATile) + BN * 128;
+}
+
+// The ring's depth for K: as deep as kMaxStages allows beside the LN tile, at
+// least 2 (0: does not fit).
+template <int BN, bool LnA>
+int stages_for(int K) {
+  const int free_bytes = kSmemCap - 1024 - (LnA ? kBM * K * 2 : 0);
+  const int s = free_bytes / stage_bytes<BN, LnA>();
+  return s < 2 ? 0 : (s < kMaxStages ? s : kMaxStages);
+}
+
+// LnPer > 0: A = LN(x) (the QKV product), a lane's LN columns in groups of
+// 256 (K <= 256 LnPer); 0: A by TMA (the projection).
+template <int BN, int LnPer, bool Drop>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
+                const __grid_constant__ CUtensorMap w_map, const float* __restrict__ x,
+                const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+                const float* __restrict__ bias, void* __restrict__ out, int M, int N, int K,
+                int stages, int q_cols, float q_scale, float eps, philox::Drop drop) {
+  constexpr bool LnA = LnPer > 0;
+  constexpr int kStage = stage_bytes<BN, LnA>(), kAcc = BN / 2;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t a_s = (raw + 1023) & ~1023u;   // 1024-byte aligned for the 128-byte swizzle
+  const uint32_t ring = a_s + (LnA ? kBM * K * 2 : 0);
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  const int slices = K / 64;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {   // producer
+      for (int ks = 0; ks < slices; ++ks) {
+        const int s = ks % stages;
+        mbar_wait(smem_u32(&empty[s]), ((ks / stages) & 1) ^ 1);
+        const uint32_t bar = smem_u32(&full[s]), dst = ring + s * kStage;
+        mbar_expect_tx(bar, kStage);
+        if (!LnA) tma_load_2d(dst, &a_map, bar, ks * 64, m0);
+        tma_load_2d(dst + (LnA ? 0 : kATile), &w_map, bar, ks * 64, n0);
+      }
+    }
+    return;
+  }
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid & 31;
+  if (LnA) {
+    ln_rows_sw128<LnA ? LnPer : 1, LnA ? 8 / LnPer : 1>(
+        x, ln_w, ln_b, smem_raw + (a_s - raw), kBM, m0, M, K, eps, tid / 32, kConsumers / 32);
+    fence_async_smem();
+    named_barrier(1, kConsumers);
+  }
+  float acc[kAcc];
+#pragma unroll
+  for (int e = 0; e < kAcc; ++e) acc[e] = 0.f;
+  // the projection's bias now: its loads are in flight while the product runs
+  float bias_v[LnA ? 1 : BN / 8][2];
+#pragma unroll
+  for (int jb = 0; jb < (LnA ? 0 : BN / 8); ++jb) {
+    const int n = n0 + 8 * jb + 2 * (lane & 3);
+    const float2 b = n < N ? *reinterpret_cast<const float2*>(bias + n) : make_float2(0.f, 0.f);
+    bias_v[jb][0] = b.x;
+    bias_v[jb][1] = b.y;
+  }
+  for (int ks = 0; ks < slices; ++ks) {
+    const int s = ks % stages;
+    mbar_wait(smem_u32(&full[s]), (ks / stages) & 1);
+    const uint32_t st = ring + s * kStage;
+    const uint64_t da = sw128_desc((LnA ? a_s + ks * kATile : st) + wg * 64 * 128);
+    const uint64_t db = sw128_desc(st + (LnA ? 0 : kATile));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_k16(acc, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (ks > 0 && lane == 0) mbar_arrive(smem_u32(&empty[(ks - 1) % stages]));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // epilogue: rows r0 and r0 + 8 of the warpgroup's 64, columns 8 jb + 2 (lane % 4) (+1)
+  const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int jb = 0; jb < BN / 8; ++jb) {
+    const int n = n0 + 8 * jb + 2 * (lane & 3);
+    if (n >= N) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 8 * half;
+      if (row >= M) continue;
+      const size_t o = (size_t)row * N + n;
+      float v0 = acc[4 * jb + 2 * half], v1 = acc[4 * jb + 2 * half + 1];
+      if (LnA) {
+        if (n < q_cols) {
+          v0 *= q_scale;
+          v1 *= q_scale;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
+            __floats2bfloat162_rn(v0, v1);
+      } else {
+        v0 += bias_v[LnA ? 0 : jb][0];
+        v1 += bias_v[LnA ? 0 : jb][1];
+        if (Drop) philox::apply2(drop, o, v0, v1);
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+template <int BN, int LnPer, bool Drop>
+cudaError_t gemm(const CUtensorMap& a, const CUtensorMap& w, const float* x, const float* ln_w,
+                 const float* ln_b, const float* bias, void* out, int M, int N, int K, int q_cols,
+                 float q_scale, float eps, philox::Drop drop, cudaStream_t stream) {
+  constexpr bool LnA = LnPer > 0;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(fwd_gemm_kernel<BN, LnPer, Drop>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int stages = stages_for<BN, LnA>(K);
+  if (stages == 0 || K % 64 || K < 64 || (LnA && K > 256 * LnPer) || M < 1 || N < 2 || N % 2)
+    return cudaErrorInvalidValue;
+  const int smem = 1024 + (LnA ? kBM * K * 2 : 0) + stages * stage_bytes<BN, LnA>();
+  const dim3 grid((N + BN - 1) / BN, (M + kBM - 1) / kBM);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  fwd_gemm_kernel<BN, LnPer, Drop><<<grid, kThreads, smem, stream>>>(
+      a, w, x, ln_w, ln_b, bias, out, M, N, K, stages, q_cols, q_scale, eps, drop);
+  return cudaGetLastError();
+}
+
+// The QKV product: the instance for its column tile and width.
+cudaError_t qkv_gemm(int bn, const CUtensorMap& w, const float* x, const float* ln_w,
+                     const float* ln_b, __nv_bfloat16* qkv, int M, int C, float scale, float eps,
+                     cudaStream_t stream) {
+  const int per = (C + 255) / 256;
+  const philox::Drop none{};
+  if (bn == 256 && per == 1)
+    return gemm<256, 1, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
+                               stream);
+  if (bn == 256 && per == 2)
+    return gemm<256, 2, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
+                               stream);
+  if (bn == 128 && per == 1)
+    return gemm<128, 1, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
+                               stream);
+  if (bn == 128 && per == 2)
+    return gemm<128, 2, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
+                               stream);
+  if (bn == 128 && per == 3)   // C <= 768: the widest LN tile beside a 2-stage ring
+    return gemm<128, 3, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
+                               stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace fwd
+
+// The three launches of the forward; Drop adds the two dropouts.  qkv (tokens,
+// 3C) and attn (tokens, C) bf16 scratch; bn_qkv the QKV product's column tile.
 template <bool Drop>
 cudaError_t forward_launches(const float* x, const float* ln_w, const float* ln_b,
-                             const float* w_qkv, const float* bias, const float* w_proj,
-                             const float* b_proj, float* qkv, float* attn, float* out, int B,
-                             int T, int H, int W, int C, int axis, int heads, float scale,
-                             float eps, cudaStream_t stream, philox::Drop d_attn = philox::Drop{},
+                             const void* wqkv_map, const float* bias, const void* wproj_map,
+                             const float* b_proj, __nv_bfloat16* qkv, __nv_bfloat16* attn,
+                             float* out, int B, int T, int H, int W, int C, int axis, int heads,
+                             int bn_qkv, float scale, float eps, cudaStream_t stream,
+                             philox::Drop d_attn = philox::Drop{},
                              philox::Drop d_proj = philox::Drop{}) {
-  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || axis < 0 || axis > 2)
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (C % 64 != 0 || C % heads != 0 || axis < 0 || axis > 2 || (bn_qkv != 128 && bn_qkv != 256) ||
+      !aligned(x) || !aligned(ln_w) || !aligned(ln_b) || !aligned(qkv) || !aligned(attn) ||
+      !aligned(b_proj) || (reinterpret_cast<uintptr_t>(out) & 7))
     return cudaErrorInvalidValue;
   const int M = B * T * H * W;
-  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream);
+  CUtensorMap wqkv, wproj, attn_map;
+  memcpy(&wqkv, wqkv_map, sizeof(wqkv));
+  memcpy(&wproj, wproj_map, sizeof(wproj));
+  cudaError_t err = fwd::qkv_gemm(bn_qkv, wqkv, x, ln_w, ln_b, qkv, M, C, scale, eps, stream);
   if (err != cudaSuccess) return err;
   const int vol = axis == 0 ? T : (axis == 1 ? H : W);
   const int hc = C / heads;
   const size_t smem = sizeof(float) * (3 * vol * (hc + 1) + vol * vol);
-  err = cudaFuncSetAttribute(axial_core_kernel<Drop>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  static bool configured = false;   // once, at the most a block may take: no host call per launch
+  if (!configured) {
+    err = cudaFuncSetAttribute(axial_core_kernel<Drop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               fwd::kSmemCap);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  if (smem > (size_t)fwd::kSmemCap) return cudaErrorInvalidValue;
   axial_core_kernel<Drop><<<dim3(M / vol, heads), kCoreThreads, smem, stream>>>(
-      qkv, bias, attn, T, H, W, C, axis, heads, scale, d_attn);
+      qkv, bias, attn, T, H, W, C, axis, heads, d_attn);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return gemm<Drop ? 2 : 0>(attn, nullptr, nullptr, w_proj, b_proj, out, M, C, C, 0, eps, stream,
-                            nullptr, d_proj);
+  const int enc = hopper::encode_bf16_matrix(&attn_map, attn, M, C, fwd::kBM);
+  if (enc != 0) return (cudaError_t)enc;
+  return fwd::gemm<128, 0, Drop>(attn_map, wproj, nullptr, nullptr, nullptr, b_proj, out, M, C, C,
+                                 0, 1.f, eps, d_proj, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1309,31 +1547,37 @@ cudaError_t core_launch(const float* q, const float* k, const float* v, const fl
 
 }  // namespace
 
-// x, qkv scratch (tokens, 3C), attn scratch (tokens, C), out (tokens, C).
+// x, out (tokens, C) f32; wqkv_map / wproj_map the tensor maps of the bf16
+// copies of w_qkv (3C, C) and w_proj (C, C) (bf16_matrix_map, boxes of
+// bn_qkv and 128 rows); qkv (tokens, 3C) and attn (tokens, C) bf16 scratch.
 extern "C" int axial_attention_forward(const float* x, const float* ln_w, const float* ln_b,
-                                       const float* w_qkv, const float* bias,
-                                       const float* w_proj, const float* b_proj, float* qkv,
-                                       float* attn, float* out, int B, int T, int H, int W,
-                                       int C, int axis, int heads, float scale, float eps,
+                                       const void* wqkv_map, const float* bias,
+                                       const void* wproj_map, const float* b_proj, void* qkv,
+                                       void* attn, float* out, int B, int T, int H, int W, int C,
+                                       int axis, int heads, int bn_qkv, float scale, float eps,
                                        cudaStream_t stream) {
-  return (int)forward_launches<false>(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv, attn, out,
-                                      B, T, H, W, C, axis, heads, scale, eps, stream);
+  return (int)forward_launches<false>(x, ln_w, ln_b, wqkv_map, bias, wproj_map, b_proj,
+                                      static_cast<__nv_bfloat16*>(qkv),
+                                      static_cast<__nv_bfloat16*>(attn), out, B, T, H, W, C, axis,
+                                      heads, bn_qkv, scale, eps, stream);
 }
 
 // The layer with dropout on the attention weights (thr_attn, keep_attn =
 // 1 - rate) and on the projected output (thr_proj, keep_proj); the masks are
-// those of the stream (seed_lo, seed_hi, site), tensors 0 and 1.
+// those of the stream (seed_lo, seed_hi, site), tensors 0 and 1.  Arguments
+// as axial_attention_forward.
 extern "C" int axial_attention_dropout_forward(
-    const float* x, const float* ln_w, const float* ln_b, const float* w_qkv, const float* bias,
-    const float* w_proj, const float* b_proj, float* qkv, float* attn, float* out, int B, int T,
-    int H, int W, int C, int axis, int heads, float scale, float eps, unsigned seed_lo,
-    unsigned seed_hi, unsigned site, unsigned thr_attn, float keep_attn, unsigned thr_proj,
-    float keep_proj, cudaStream_t stream) {
+    const float* x, const float* ln_w, const float* ln_b, const void* wqkv_map, const float* bias,
+    const void* wproj_map, const float* b_proj, void* qkv, void* attn, float* out, int B, int T,
+    int H, int W, int C, int axis, int heads, int bn_qkv, float scale, float eps,
+    unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn, float keep_attn,
+    unsigned thr_proj, float keep_proj, cudaStream_t stream) {
   const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn};
   const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj};
-  return (int)forward_launches<true>(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv, attn, out,
-                                     B, T, H, W, C, axis, heads, scale, eps, stream, d_attn,
-                                     d_proj);
+  return (int)forward_launches<true>(x, ln_w, ln_b, wqkv_map, bias, wproj_map, b_proj,
+                                     static_cast<__nv_bfloat16*>(qkv),
+                                     static_cast<__nv_bfloat16*>(attn), out, B, T, H, W, C, axis,
+                                     heads, bn_qkv, scale, eps, stream, d_attn, d_proj);
 }
 
 // dx of the layer for the output cotangent g (tokens, C); scratch qkv and

@@ -3,24 +3,35 @@
 // Replaces prediff_tpu/ops/pallas_ffn.py::fused_ffn (_ffn_kernel).  Weights
 // in PyTorch layout: w1 (hidden, C), w2 (C, hidden), f32 in memory.
 //
-// Bound: at the UNet's shapes (3328 x 256 -> 1024, 832 x 512 -> 2048) the
-// work is ~3.5 GFLOP per call against ~7-13 MB of traffic, above the card's
-// ridge point, so it is bound by operations.  The design keeps the hidden
-// activation on chip as the TPU kernel did: a block owns kRows token rows;
-// it writes LN(x) to shared memory as bf16 once, then loops over the hidden
-// dimension in chunks of kChunk: h = gelu(LN . W1[chunk]^T + b1) lands in
-// shared memory (f32, then bf16), and out += h . W2[:, chunk]^T accumulates in
-// tensor-core fragments that stay in registers across all chunks.  Products
-// run on the tensor cores through WMMA 16x16x16 bf16 with f32 accumulation,
-// rounding at the TPU kernel's points (LN output, weights, hidden).  Weights
-// are converted to bf16 while they are staged into shared memory.  wgmma and
-// TMA are later work.
-//
-// Few token rows (832 at the 8x8 stage) give few row blocks, so the hidden
-// dimension is also split over a second grid axis: block (i, s) sums the
-// hidden chunks of split s into a partial (splits, M, C) f32 workspace, and
-// ffn_reduce_kernel adds the splits in a fixed order with b2 and the
-// residual.  No atomics: the result does not depend on block order.
+// Forward (ffn_forward, ffn_wgmma_kernel): at the UNet's shapes (3328 x 256
+// -> 1024, 832 x 512 -> 2048) the work is ~3.5 GFLOP per call against ~7-13
+// MB of traffic, far above the card's ridge point, so the tensor cores bound
+// it (~0.0035 ms at 989 TFLOP/s bf16).  The hidden activation stays on chip,
+// as in the TPU kernel, and the design is the conv's (conv3d.cu) on Hopper's
+// own units, in one launch:
+//   - The weights are bf16 copies laid out once per parameter version by the
+//     wrapper (ops/weights.py), read as 64 x 64 (W1) and 256 x 64 (W2) TMA
+//     tiles through a 4-stage mbarrier ring kept full by one producer warp;
+//     nothing of the weights is converted per call.
+//   - A block owns 128 token rows (two consumer warpgroups of 64) at C = 128
+//     and 256.  LN(x) of its rows is computed once from the f32 x and written
+//     to shared memory as bf16 in the 128-byte-swizzled K-major layout: the A
+//     operand of the first product.  Per hidden chunk of 64: h = LN . W1c^T by
+//     wgmma m64n64 into registers; + b1, exact-erf GELU (Drop: m1 at (token,
+//     hidden column)), rounded to bf16 into a swizzled shared tile; out +=
+//     gelu(h) . W2c^T by wgmma m64nCk16, accumulated in registers across the
+//     chunks.  At C = 512 the 64 x 512 f32 accumulator (256 registers a
+//     thread) does not fit beside h: a block owns 64 rows, each warpgroup
+//     computes half of h's 64 columns (m64n32) and half of the output's
+//     (m64n256), and h (double-buffered) is shared through shared memory.
+//   - The hidden dimension is split over a thread-block cluster of 1, 2, 4
+//     or 8 blocks (about one wave on 132 SMs: 26 x 4 blocks at 3328 x 256,
+//     13 x 8 at 832 x 512).  Each parks its f32 partial in its own shared
+//     memory; the blocks add them through distributed shared memory in rank
+//     order (each a share of the columns), then + b2 (Drop: m2 at (token,
+//     channel)) and + x.  No workspace, no atomics: two runs give the same bits.
+// Rounding follows the TPU kernel: LN(x), the weights and gelu(h) are bf16
+// operands; every sum is f32.
 //
 // Input gradient (ffn_bwd_dx): replaces pallas_ffn.py::fused_ffn_bwd_dx
 // (_ffn_bwd_dx_kernel), flash-style: nothing of the forward is saved, the
@@ -29,8 +40,9 @@
 // (two products over C), dh = da * gelu'(h) in bf16, dln += dh . W1c.  The
 // W1 chunk is staged once and read both ways (as W1c^T and as W1c).  Three
 // products of 2 M C hidden each: bound by operations at the alignment
-// shapes, like the forward.  The hidden dimension is split over a second
-// grid axis as in the forward; ffn_bwd_reduce_kernel adds the splits and
+// shapes, like the forward.  A block owns 32 token rows (WMMA 16x16x16 on
+// weights staged from f32), and the hidden dimension is split over a second
+// grid axis into an f32 workspace; ffn_bwd_reduce_kernel adds the splits and
 // applies the LayerNorm backward, which needs the whole dln row, then adds
 // the residual's g.  Rounding follows the TPU kernel: LN(x), g, the weights
 // and dh are bf16 operands; h, gelu' and every sum stay f32.
@@ -64,29 +76,31 @@
 // kernels here do not share a grid (the hidden dimension is split over a
 // grid axis, and m2 falls on the sum of the splits), so a mask is a function
 // of the logical element instead (philox.cuh): m1 of (token, hidden column)
-// is applied to gelu(h) in the main kernel, before the bf16 rounding; m2 of
-// (token, channel) in ffn_reduce_kernel, on the summed a . W2 + b2 and before
-// the residual, which is never masked.  The backward regenerates both:
-// do = g . m2 / (1 - r_out) feeds dW2, db2 and da, the residual's share of dx
-// is the unmasked g; the stored bf16 gelu(h) is the dropped, rescaled one and
-// dz = da . gelu'(h) . m1 / (1 - r_act).  The Drop forms are separate template
-// instances, so the kernels without dropout are untouched; with both rates 0
-// they give the same bits.  The draws add ~100 integer operations per hidden
+// is applied to gelu(h) before the bf16 rounding; m2 of (token, channel) on
+// the summed a . W2 + b2 and before the residual, which is never masked.
+// The backward regenerates both: do = g . m2 / (1 - r_out) feeds dW2, db2
+// and da, the residual's share of dx is the unmasked g; the stored bf16
+// gelu(h) is the dropped, rescaled one and dz = da . gelu'(h) . m1 /
+// (1 - r_act).  The Drop forms are separate template instances of the same
+// bodies, so with both rates 0 they give the bits of the kernels without
+// dropout.  The draws add ~100 integer operations per hidden
 // element to kernels that stay bound by their products.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <mma.h>
 
 #include "grad_common.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
 
 using namespace nvcuda;
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kRows = 32;      // token rows per block
 constexpr int kChunk = 64;     // hidden units per chunk
-constexpr int kKSlice = 64;    // depth of one W1 staging slice
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kPadB = 8;       // bf16 row padding (keeps 32-byte alignment)
 constexpr int kPadF = 4;       // f32 row padding
@@ -125,133 +139,6 @@ __device__ __forceinline__ void ln_rows_bf16(const float* __restrict__ x,
     } else {
       for (int c = lane; c < C; c += 32) dst[c] = __float2bfloat16(0.f);
     }
-  }
-}
-
-template <int C>
-constexpr size_t smem_bytes() {
-  return sizeof(__nv_bfloat16) * (kRows * (C + kPadB) + kChunk * (kKSlice + kPadB) +
-                                   C * (kChunk + kPadB) + kRows * (kChunk + kPadB)) +
-         sizeof(float) * kRows * (kChunk + kPadF);
-}
-
-// Drop: gelu(h) goes through the dropout d1 of element (token, hidden column).
-template <int C, bool Drop>
-__global__ void __launch_bounds__(kThreads)
-ffn_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
-           const float* __restrict__ ln_b, const float* __restrict__ w1,
-           const float* __restrict__ b1, const float* __restrict__ w2,
-           float* __restrict__ part, int M, int hidden, int chunks_per_split, float eps,
-           philox::Drop d1) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ldA = C + kPadB;
-  constexpr int ldW1 = kKSlice + kPadB;
-  constexpr int ldW2 = kChunk + kPadB;
-  constexpr int ldH = kChunk + kPadB;
-  constexpr int ldHf = kChunk + kPadF;
-  __nv_bfloat16* lnA = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][ldA]
-  __nv_bfloat16* w1s = lnA + kRows * ldA;                       // [kChunk][ldW1]  (n, k)
-  __nv_bfloat16* w2s = w1s + kChunk * ldW1;                     // [C][ldW2]       (n, k)
-  __nv_bfloat16* hb = w2s + C * ldW2;                           // [kRows][ldH]
-  float* hs = reinterpret_cast<float*>(hb + kRows * ldH);       // [kRows][ldHf]
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int row0 = blockIdx.x * kRows;
-  ln_rows_bf16<C>(x, ln_w, ln_b, lnA, ldA, row0, M, eps);
-
-  // This warp's output columns [warp * kCols, (warp + 1) * kCols), all rows.
-  constexpr int kCols = C / 8;
-  constexpr int kColTiles = kCols / 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][kColTiles];
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int ct = 0; ct < kColTiles; ++ct) wmma::fill_fragment(acc[rt][ct], 0.f);
-  // This warp's tile of the hidden chunk: rows hr*16, columns hc*16.
-  const int hr = warp >> 2, hc = warp & 3;
-  __syncthreads();
-
-  const int j_begin = blockIdx.y * chunks_per_split * kChunk;
-  const int j_end = min(hidden, j_begin + chunks_per_split * kChunk);
-  for (int j0 = j_begin; j0 < j_end; j0 += kChunk) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc;
-    wmma::fill_fragment(hacc, 0.f);
-    for (int k0 = 0; k0 < C; k0 += kKSlice) {
-      for (int i = tid; i < kChunk * kKSlice; i += kThreads) {
-        const int n = i / kKSlice, k = i % kKSlice;
-        w1s[n * ldW1 + k] = __float2bfloat16(w1[(size_t)(j0 + n) * C + k0 + k]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kKSlice; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, lnA + hr * 16 * ldA + k0 + kk, ldA);
-        wmma::load_matrix_sync(b, w1s + hc * 16 * ldW1 + kk, ldW1);
-        wmma::mma_sync(hacc, a, b, hacc);
-      }
-      __syncthreads();
-    }
-    wmma::store_matrix_sync(hs + hr * 16 * ldHf + hc * 16, hacc, ldHf, wmma::mem_row_major);
-    for (int i = tid; i < C * kChunk; i += kThreads) {
-      const int n = i / kChunk, k = i % kChunk;
-      w2s[n * ldW2 + k] = __float2bfloat16(w2[(size_t)n * hidden + j0 + k]);
-    }
-    __syncthreads();
-    for (int i = tid; i < kRows * kChunk; i += kThreads) {
-      const int r = i / kChunk, k = i % kChunk;
-      const float h = hs[r * ldHf + k] + b1[j0 + k];
-      float a = h * 0.5f * (1.f + erff(h * 0.70710678118654752f));
-      if (Drop) a = philox::apply(d1, (unsigned long long)(row0 + r) * hidden + j0 + k, a);
-      hb[r * ldH + k] = __float2bfloat16(a);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
-      wmma::load_matrix_sync(a0, hb + kk, ldH);
-      wmma::load_matrix_sync(a1, hb + 16 * ldH + kk, ldH);
-#pragma unroll
-      for (int ct = 0; ct < kColTiles; ++ct) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, w2s + (warp * kCols + ct * 16) * ldW2 + kk, ldW2);
-        wmma::mma_sync(acc[0][ct], a0, b, acc[0][ct]);
-        wmma::mma_sync(acc[1][ct], a1, b, acc[1][ct]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // Epilogue through shared memory (the W2 staging area is free now): this
-  // split's partial sum, rows past M dropped.
-  constexpr int ldO = C + kPadF;
-  float* os = reinterpret_cast<float*>(w2s);
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int ct = 0; ct < kColTiles; ++ct)
-      wmma::store_matrix_sync(os + rt * 16 * ldO + warp * kCols + ct * 16, acc[rt][ct], ldO,
-                              wmma::mem_row_major);
-  __syncthreads();
-  float* dst = part + (size_t)blockIdx.y * M * C;
-  for (int i = tid; i < kRows * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    const int gr = row0 + r;
-    if (gr < M) dst[(size_t)gr * C + c] = os[r * ldO + c];
-  }
-}
-
-// out = x + drop(sum_s part[s] + b2), the splits added in order; the dropout
-// d2 of element (token, channel) keeps everything when its thr is 0.
-__global__ void ffn_reduce_kernel(const float* __restrict__ x, const float* __restrict__ part,
-                                  const float* __restrict__ b2, float* __restrict__ out, int M,
-                                  int C, int splits, philox::Drop d2) {
-  const size_t n = (size_t)M * C;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float acc = part[i];
-    for (int s = 1; s < splits; ++s) acc += part[s * n + i];
-    out[i] = x[i] + philox::apply(d2, i, acc + b2[i % C]);
   }
 }
 
@@ -479,24 +366,6 @@ cudaError_t launch_bwd(const float* x, const float* g, const float* ln_w, const 
   return cudaGetLastError();
 }
 
-template <int C, bool Drop = false>
-cudaError_t launch(const float* x, const float* ln_w, const float* ln_b, const float* w1,
-                   const float* b1, const float* w2, float* part, int M, int hidden,
-                   int splits, float eps, cudaStream_t stream,
-                   philox::Drop d1 = philox::Drop{}) {
-  static_assert(sizeof(float) * kRows * (C + kPadF) <=
-                    sizeof(__nv_bfloat16) * C * (kChunk + kPadB),
-                "epilogue tile must fit the W2 staging area");
-  constexpr size_t bytes = smem_bytes<C>();
-  cudaError_t err = cudaFuncSetAttribute(ffn_kernel<C, Drop>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const int chunks_per_split = hidden / kChunk / splits;
-  ffn_kernel<C, Drop><<<dim3((M + kRows - 1) / kRows, splits), kThreads, bytes, stream>>>(
-      x, ln_w, ln_b, w1, b1, w2, part, M, hidden, chunks_per_split, eps, d1);
-  return cudaGetLastError();
-}
-
 // part -> dx: the splits added in order, the LayerNorm backward, the residual's g.
 cudaError_t bwd_reduce(const float* x, const float* g, const float* ln_w, const float* part,
                        float* dx, int M, int C, int splits, float eps, cudaStream_t stream) {
@@ -521,35 +390,359 @@ cudaError_t launch_bwd_c(int C, const float* x, const float* g, const float* ln_
   }
 }
 
-// out = x + drop(sum of the splits + b2) after the main kernel has filled part.
-cudaError_t fwd_reduce(const float* x, const float* part, const float* b2, float* out, int M,
-                       int C, int splits, philox::Drop d2, cudaStream_t stream) {
-  const int threads = 256;
-  const size_t want = ((size_t)M * C + threads - 1) / threads;
-  const int blocks = want < 1024 ? (int)want : 1024;
-  ffn_reduce_kernel<<<blocks, threads, 0, stream>>>(x, part, b2, out, M, C, splits, d2);
+// ---------------------------------------------------------------------------
+// The forward on TMA + wgmma (the note at the top of the file).
+namespace fwd {
+
+using namespace hopper;
+
+constexpr int kStages = 4, kStageBytes = 32768;   // ring of weight tiles
+constexpr int kHC = 64;                           // hidden units per chunk
+// two consumer warpgroups and a producer warpgroup, one thread of which
+// issues the loads; setmaxnreg moves the producer's registers to the
+// consumers (40 + 2 x 232 a thread: 128 x 40 + 256 x 232 <= 65536)
+constexpr int kConsumers = 256, kThreads = kConsumers + 128;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kMaxSplits = 8;                     // portable cluster size
+
+template <int C>
+struct Cfg {
+  // C = 512: the two warpgroups split the columns of one 64-row tile
+  static constexpr bool kSplitCols = C == 512;
+  static constexpr int kBM = kSplitCols ? 64 : 128;        // token rows a block
+  static constexpr int kN1 = kSplitCols ? 32 : 64;         // h columns a warpgroup
+  static constexpr int kN2 = kSplitCols ? C / 2 : C;       // output columns a warpgroup
+  static constexpr int kAcc = kN2 / 2, kHAcc = kN1 / 2;    // f32 accumulators a thread
+  // a ring item: W1c's columns [i, i + kItemK) (64 x 64 boxes) or W2c's rows
+  // [i, i + kItemK) (one kItemK x 64 box); kItems of each per chunk
+  static constexpr int kItemK = C < 256 ? C : 256;
+  static constexpr int kItems = C / kItemK;
+  static constexpr int kItemBytes = kHC * kItemK * 2;
+  static constexpr int kLnBytes = kBM * C * 2;
+  static constexpr int kHBytes = 16384;   // one 128 x 64 bf16 tile, or two 64 x 64
+  static constexpr int kSmem = 1024 + kLnBytes + kHBytes + kStages * kStageBytes;
+  static_assert(kItemBytes <= kStageBytes, "an item fits a stage");
+  static_assert(2 * kItems <= kStages, "a chunk's W2c and the next chunk's W1c fit the ring");
+  static_assert(kConsumers * kAcc * 4 <= kStages * kStageBytes, "the partial fits the ring");
+  static_assert(kSmem <= 232448, "exceeds the 227 KB of shared memory a block can use");
+};
+
+__device__ __forceinline__ float gelu_erf(float h) {
+  return h * 0.5f * (1.f + erff(h * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// grid (row tiles, 1, splits), clusters of (1, 1, splits): block z of a
+// cluster adds hidden chunks [z, z + 1) * chunks / splits.
+template <int C, bool Drop>
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
+                 const __grid_constant__ CUtensorMap w2_map, const float* __restrict__ x,
+                 const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+                 const float* __restrict__ b1, const float* __restrict__ b2,
+                 float* __restrict__ out, int M, int hidden, float eps, philox::Drop d1,
+                 philox::Drop d2) {
+  using K = Cfg<C>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ln_s = (raw + 1023) & ~1023u;   // 1024-byte aligned for the 128-byte swizzle
+  const uint32_t h_s = ln_s + K::kLnBytes, ring = h_s + K::kHBytes;
+  uint8_t* ln_g = smem_raw + (ln_s - raw);
+  float* red = reinterpret_cast<float*>(ln_g + K::kLnBytes + K::kHBytes);
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * K::kBM;
+  const int splits = gridDim.z, rank = blockIdx.z;
+  const int chunks = hidden / kHC;
+  const int c_begin = rank * chunks / splits, c_end = (rank + 1) * chunks / splits;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // producer: one thread keeps the ring full, W1c's items then W2c's per
+    // chunk; the warpgroup then meets the consumers' two cluster barriers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (tid == kConsumers) {
+      int item = 0;
+      for (int c = c_begin; c < c_end; ++c) {
+        for (int it = 0; it < 2 * K::kItems; ++it, ++item) {
+          const int s = item % kStages;
+          mbar_wait(smem_u32(&empty[s]), ((item / kStages) & 1) ^ 1);
+          const uint32_t bar = smem_u32(&full[s]), dst = ring + s * kStageBytes;
+          mbar_expect_tx(bar, K::kItemBytes);
+          if (it < K::kItems) {
+            for (int b = 0; b < K::kItemK / 64; ++b)
+              tma_load_2d(dst + b * 8192, &w1_map, bar, it * K::kItemK + b * 64, c * kHC);
+          } else {
+            tma_load_2d(dst, &w2_map, bar, c * kHC, (it - K::kItems) * K::kItemK);
+          }
+        }
+      }
+    }
+    if (splits > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      cluster.sync();
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid & 31;
+    const int arow = K::kSplitCols ? 0 : 64 * wg;      // the warpgroup's rows of the tile
+    const int ocol = K::kSplitCols ? K::kN2 * wg : 0;  // its output columns
+    ln_rows_sw128<(C + 255) / 256, 8 / ((C + 255) / 256)>(x, ln_w, ln_b, ln_g, K::kBM, m0, M, C,
+                                                          eps, tid / 32, kConsumers / 32);
+    fence_async_smem();
+    named_barrier(1, kConsumers);
+    const int hcol = K::kSplitCols ? K::kN1 * wg : 0;   // the warpgroup's columns of h
+    float acc[K::kAcc], hacc[K::kHAcc];   // hacc: each chunk's first wgmma overwrites it
+#pragma unroll
+    for (int e = 0; e < K::kAcc; ++e) acc[e] = 0.f;
+    int item = 0;
+    for (int c = c_begin; c < c_end; ++c) {
+      const int j0 = c * kHC;
+      const uint32_t hb = h_s + (K::kSplitCols ? ((c - c_begin) & 1) * 8192 : 0);
+      // the chunk's b1 now: its loads are in flight while the product runs
+      float bj[K::kN1 / 8][2];
+#pragma unroll
+      for (int jb = 0; jb < K::kN1 / 8; ++jb) {
+        const float2 b = *reinterpret_cast<const float2*>(b1 + j0 + hcol + 8 * jb + 2 * (lane & 3));
+        bj[jb][0] = b.x;
+        bj[jb][1] = b.y;
+      }
+      // h = LN . W1c^T
+      wgmma_fence();
+#pragma unroll
+      for (int it = 0; it < K::kItems; ++it) {
+        const int s = (item + it) % kStages;
+        mbar_wait(smem_u32(&full[s]), ((item + it) / kStages) & 1);
+        const uint32_t st = ring + s * kStageBytes;
+#pragma unroll
+        for (int b = 0; b < K::kItemK / 64; ++b) {
+          const int slice = it * (K::kItemK / 64) + b;
+          const uint64_t da = sw128_desc(ln_s + slice * K::kBM * 128 + arow * 128);
+          const uint64_t db = sw128_desc(st + b * 8192 + hcol * 128);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_k16(hacc, da + 2 * kk, db + 2 * kk, slice + kk > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();   // also the previous chunk's out product: its W2c items go too
+      fence_regs(hacc);
+      if (lane == 0) {
+#pragma unroll
+        for (int it = 0; it < K::kItems; ++it) {
+          mbar_arrive(smem_u32(&empty[(item + it) % kStages]));
+          if (c > c_begin) mbar_arrive(smem_u32(&empty[(item - K::kItems + it) % kStages]));
+        }
+      }
+      item += K::kItems;
+      // gelu(h + b1), dropped, rounded to bf16 into the h tile
+#pragma unroll
+      for (int jb = 0; jb < K::kN1 / 8; ++jb) {
+        const int j = hcol + 8 * jb + 2 * (lane & 3);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = arow + warp * 16 + (lane >> 2) + 8 * half;
+          float a0 = gelu_erf(hacc[4 * jb + 2 * half] + bj[jb][0]);
+          float a1 = gelu_erf(hacc[4 * jb + 2 * half + 1] + bj[jb][1]);
+          if (Drop) philox::apply2(d1, (unsigned long long)(m0 + r) * hidden + j0 + j, a0, a1);
+          *reinterpret_cast<uint32_t*>(ln_g + (hb - ln_s) + sw128_offset(r, j)) =
+              pack_bf16(a0, a1);
+        }
+      }
+      fence_async_smem();
+      if (K::kSplitCols)
+        named_barrier(2, kConsumers);
+      else
+        named_barrier(2 + wg, 128);
+      // out += gelu(h) . W2c^T
+      wgmma_fence();
+#pragma unroll
+      for (int it = 0; it < K::kItems; ++it) {
+        const int s = (item + it) % kStages;
+        mbar_wait(smem_u32(&full[s]), ((item + it) / kStages) & 1);
+        if (!K::kSplitCols || it == wg) {
+          const uint64_t da = sw128_desc(hb + arow * 128);
+          const uint64_t db = sw128_desc(ring + s * kStageBytes);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wgmma_k16(acc, da + 2 * kk, db + 2 * kk);
+        }
+      }
+      wgmma_commit();
+      item += K::kItems;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // epilogue: rows r0 and r0 + 8 of the warpgroup's, columns ocol + 8 jb +
+    // 2 (lane % 4) (+1): out = x + drop(sum + b2)
+    const int row0 = m0 + arow + warp * 16 + (lane >> 2), row1 = row0 + 8;
+    auto store = [&](int jb, float v0, float v1, float v2, float v3) {
+      const int n = ocol + 8 * jb + 2 * (lane & 3);
+      const float c0 = b2[n], c1 = b2[n + 1];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = half ? row1 : row0;
+        if (row >= M) continue;
+        const size_t o = (size_t)row * C + n;
+        float y0 = (half ? v2 : v0) + c0, y1 = (half ? v3 : v1) + c1;
+        if (Drop) philox::apply2(d2, o, y0, y1);
+        const float2 xv = *reinterpret_cast<const float2*>(x + o);
+        *reinterpret_cast<float2*>(out + o) = make_float2(xv.x + y0, xv.y + y1);
+      }
+    };
+    if (splits == 1) {
+#pragma unroll
+      for (int jb = 0; jb < K::kN2 / 8; ++jb)
+        store(jb, acc[4 * jb], acc[4 * jb + 1], acc[4 * jb + 2], acc[4 * jb + 3]);
+      return;
+    }
+    // split over a cluster: park the partial, then each rank adds the partials
+    // of its share of the columns (8-column groups jb = rank + t * splits) in
+    // rank order and stores them, two groups at a time with every load (the
+    // peers' partials, x, b2) in flight before any is used
+    cg::cluster_group cluster = cg::this_cluster();
+    named_barrier(1, kConsumers);   // the partial overwrites the ring: every wgmma has read it
+#pragma unroll
+    for (int e = 0; e < K::kAcc; ++e) red[e * kConsumers + tid] = acc[e];
+    cluster.sync();
+    const int mine = (K::kN2 / 8 - rank + splits - 1) / splits;
+    for (int t = 0; t < mine; t += 2) {
+      float part[2][kMaxSplits][4], xv[2][4], bv[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (t + i >= mine) break;
+        const int jb = rank + (t + i) * splits, n = ocol + 8 * jb + 2 * (lane & 3);
+#pragma unroll
+        for (int q = 0; q < kMaxSplits; ++q) {
+          if (q >= splits) break;
+          const float* peer = cluster.map_shared_rank(red, q);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][q][e] = peer[(4 * jb + e) * kConsumers + tid];
+        }
+        const float2 b = *reinterpret_cast<const float2*>(b2 + n);
+        bv[i][0] = b.x;
+        bv[i][1] = b.y;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = half ? row1 : row0;
+          const float2 xr = row < M ? *reinterpret_cast<const float2*>(x + (size_t)row * C + n)
+                                    : make_float2(0.f, 0.f);
+          xv[i][2 * half] = xr.x;
+          xv[i][2 * half + 1] = xr.y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (t + i >= mine) break;
+        const int jb = rank + (t + i) * splits, n = ocol + 8 * jb + 2 * (lane & 3);
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int q = 0; q < kMaxSplits; ++q) {
+          if (q >= splits) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] += part[i][q][e];
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = half ? row1 : row0;
+          if (row >= M) continue;
+          const size_t o = (size_t)row * C + n;
+          float y0 = v[2 * half] + bv[i][0], y1 = v[2 * half + 1] + bv[i][1];
+          if (Drop) philox::apply2(d2, o, y0, y1);
+          *reinterpret_cast<float2*>(out + o) =
+              make_float2(xv[i][2 * half] + y0, xv[i][2 * half + 1] + y1);
+        }
+      }
+    }
+    cluster.sync();   // no block leaves while a peer may still read its partial
+  }
+}
+
+template <int C, bool Drop>
+cudaError_t launch(const CUtensorMap& w1, const CUtensorMap& w2, const float* x,
+                   const float* ln_w, const float* ln_b, const float* b1, const float* b2,
+                   float* out, int M, int hidden, int splits, float eps, philox::Drop d1,
+                   philox::Drop d2, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(ffn_wgmma_kernel<C, Drop>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           Cfg<C>::kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((M + Cfg<C>::kBM - 1) / Cfg<C>::kBM, 1, splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Cfg<C>::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, ffn_wgmma_kernel<C, Drop>, w1, w2, x, ln_w, ln_b, b1,
+                                       b2, out, M, hidden, eps, d1, d2);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// part: (splits, M, C) f32 workspace; splits must divide hidden / 64.
-extern "C" int ffn_forward(const float* x, const float* ln_w, const float* ln_b,
-                           const float* w1, const float* b1, const float* w2, const float* b2,
-                           float* part, float* out, int M, int C, int hidden, int splits,
-                           float eps, cudaStream_t stream) {
-  if (hidden % kChunk != 0 || splits < 1 || (hidden / kChunk) % splits != 0)
+template <bool Drop>
+int forward(const float* x, const float* ln_w, const float* ln_b, const void* w1_map,
+            const float* b1, const void* w2_map, const float* b2, float* out, int M, int C,
+            int hidden, int splits, float eps, philox::Drop d1, philox::Drop d2,
+            cudaStream_t stream) {
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (M < 1 || hidden < kHC || hidden % kHC || splits < 1 || splits > kMaxSplits ||
+      splits > hidden / kHC || !aligned(x) || !aligned(ln_w) || !aligned(ln_b) || !aligned(b1) ||
+      !aligned(b2) || (reinterpret_cast<uintptr_t>(out) & 7))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err;
+  CUtensorMap w1, w2;
+  memcpy(&w1, w1_map, sizeof(w1));
+  memcpy(&w2, w2_map, sizeof(w2));
   switch (C) {
-    case 128: err = launch<128>(x, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream); break;
-    case 256: err = launch<256>(x, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream); break;
-    case 512: err = launch<512>(x, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream); break;
+    case 128:
+      return (int)launch<128, Drop>(w1, w2, x, ln_w, ln_b, b1, b2, out, M, hidden, splits, eps,
+                                    d1, d2, stream);
+    case 256:
+      return (int)launch<256, Drop>(w1, w2, x, ln_w, ln_b, b1, b2, out, M, hidden, splits, eps,
+                                    d1, d2, stream);
+    case 512:
+      return (int)launch<512, Drop>(w1, w2, x, ln_w, ln_b, b1, b2, out, M, hidden, splits, eps,
+                                    d1, d2, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return (int)err;
-  return (int)fwd_reduce(x, part, b2, out, M, C, splits, philox::Drop{0u, 0u, 0u, 0u, 0u, 1.f},
-                         stream);
+}
+
+}  // namespace fwd
+
+}  // namespace
+
+// x, out (M, C) f32; w1_map / w2_map the tensor maps of the bf16 copies of
+// w1 (hidden, C) and w2 (C, hidden) (bf16_matrix_map, boxes of 64 and
+// min(C, 256) rows); the cluster's `splits` of the hidden / 64 chunks.  One
+// launch.
+extern "C" int ffn_forward(const float* x, const float* ln_w, const float* ln_b,
+                           const void* w1_map, const float* b1, const void* w2_map,
+                           const float* b2, float* out, int M, int C, int hidden, int splits,
+                           float eps, cudaStream_t stream) {
+  return fwd::forward<false>(x, ln_w, ln_b, w1_map, b1, w2_map, b2, out, M, C, hidden, splits, eps,
+                             philox::Drop{}, philox::Drop{}, stream);
 }
 
 // dx of the fused FFN for the output cotangent g; part: (splits, M, C) f32
@@ -596,27 +789,17 @@ extern "C" int ffn_bwd_full(const float* x, const float* g, const float* ln_w,
 
 // The fused FFN with dropout on gelu(h) (thr_act, keep_act = 1 - rate) and on
 // the output before the residual (thr_out, keep_out); the masks are those of
-// the stream (seed_lo, seed_hi, site), tensors 0 and 1.  Workspace as ffn_forward.
+// the stream (seed_lo, seed_hi, site), tensors 0 and 1.  Arguments as ffn_forward.
 extern "C" int ffn_dropout_forward(const float* x, const float* ln_w, const float* ln_b,
-                                   const float* w1, const float* b1, const float* w2,
-                                   const float* b2, float* part, float* out, int M, int C,
-                                   int hidden, int splits, float eps, unsigned seed_lo,
-                                   unsigned seed_hi, unsigned site, unsigned thr_act,
-                                   float keep_act, unsigned thr_out, float keep_out,
-                                   cudaStream_t stream) {
-  if (hidden % kChunk != 0 || splits < 1 || (hidden / kChunk) % splits != 0)
-    return (int)cudaErrorInvalidValue;
+                                   const void* w1_map, const float* b1, const void* w2_map,
+                                   const float* b2, float* out, int M, int C, int hidden,
+                                   int splits, float eps, unsigned seed_lo, unsigned seed_hi,
+                                   unsigned site, unsigned thr_act, float keep_act,
+                                   unsigned thr_out, float keep_out, cudaStream_t stream) {
   const philox::Drop d1{seed_lo, seed_hi, site, 0u, thr_act, keep_act};
   const philox::Drop d2{seed_lo, seed_hi, site, 1u, thr_out, keep_out};
-  cudaError_t err;
-  switch (C) {
-    case 128: err = launch<128, true>(x, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream, d1); break;
-    case 256: err = launch<256, true>(x, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream, d1); break;
-    case 512: err = launch<512, true>(x, ln_w, ln_b, w1, b1, w2, part, M, hidden, splits, eps, stream, d1); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
-  return (int)fwd_reduce(x, part, b2, out, M, C, splits, d2, stream);
+  return fwd::forward<true>(x, ln_w, ln_b, w1_map, b1, w2_map, b2, out, M, C, hidden, splits, eps,
+                            d1, d2, stream);
 }
 
 // Every gradient of ffn_dropout_forward for the output cotangent g, the masks

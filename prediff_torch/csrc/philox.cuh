@@ -52,4 +52,16 @@ __device__ __forceinline__ float apply(const Drop& d, unsigned long long e, floa
   return draw(d, e) >= d.thr ? v / d.keep : 0.f;
 }
 
+// v0, v1 through the dropout of elements e and e + 1, e even: both draws
+// come from one Philox block (elements 4q .. 4q + 3), computed once.
+__device__ __forceinline__ void apply2(const Drop& d, unsigned long long e, float& v0, float& v1) {
+  if (d.thr == 0u) return;
+  const unsigned long long q = e >> 2;
+  const uint4 w = philox4x32_10(d.k0, d.k1,
+                                make_uint4((unsigned)q, (unsigned)(q >> 32), d.tensor, d.site));
+  const bool hi = (e & 2ull) != 0ull;
+  v0 = (hi ? w.z : w.x) >= d.thr ? v0 / d.keep : 0.f;
+  v1 = (hi ? w.w : w.y) >= d.thr ? v1 / d.keep : 0.f;
+}
+
 }  // namespace philox

@@ -172,6 +172,12 @@ def stream_ptr(device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+def aligned16(*tensors) -> list:
+    """Each tensor, or a fresh copy where its address is not a multiple of
+    16 bytes (the TMA and vector loads of the wgmma kernels need that)."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
+
+
 def ptr(t) -> int:
     """A tensor's address for a ``P`` argument (ctypes converts the int)."""
     return t.data_ptr()

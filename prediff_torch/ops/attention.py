@@ -8,10 +8,12 @@ Axial layer.
 . Wproj^T + b`` along one axis (0: T, 1: H, 2: W), with no residual.  The
 kernel (``csrc/attention.cu``) replaces
 ``prediff_tpu/ops/pallas_attention.py::fused_axial_attention_5d``.  It runs
-as three hand-written launches (LN+QKV product, the per-cuboid core, the
-output projection) that read cuboids in place by strides; matrix products
-take bf16 operands with f32 accumulation.  Its input gradient
-(``axial_attention_bwd_dx``, same source) replaces
+as three hand-written launches (LN+QKV product and output projection on TMA
++ wgmma with the bf16 weights of ``ops/weights.py``, :func:`attention_plan`
+their tiles; between them the per-cuboid core, which reads cuboids in place
+by strides); matrix products take bf16 operands with f32 accumulation, and
+q, k, v and the head outputs pass between the launches as bf16.  Its input
+gradient (``axial_attention_bwd_dx``, same source) replaces
 ``pallas_attention.py::fused_axial_attention_5d_bwd_dx``, and its
 all-gradients backward (``axial_attention_bwd_full``) replaces
 ``pallas_attention.py::fused_axial_attention_5d_bwd_full``.  With dropout
@@ -70,20 +72,22 @@ the whole layer on reordered cuboids without a mask, replaces
 are f32 throughout, as the TPU kernels compute them, and forward-only, as
 theirs are (no VJP): a call that would need a gradient raises.
 """
+from dataclasses import dataclass
+from functools import lru_cache
 from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, weights
 from .cuboid import cuboid_reorder, cuboid_reorder_reverse, masked_softmax
 from .dropout import apply_mask, cuboid_layer_masks, resolve_masks
 from .ffn import _round, layer_norm_bwd_plain, layer_norm_plain
 
 _P, _I, _F, _DROP = _build.P, _build.I, _build.F, _build.DROP_ARGTYPES
-_SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 7 + [_F, _F, _P],
+_SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
                "axial_attention_bwd_dx": [_P] * 12 + [_I] * 7 + [_F, _F, _P],
                "axial_attention_bwd_full": [_P] * 21 + [_I] * 10 + [_F, _F, _P],
-               "axial_attention_dropout_forward": [_P] * 10 + [_I] * 7 + [_F, _F] + _DROP + [_P],
+               "axial_attention_dropout_forward": [_P] * 10 + [_I] * 8 + [_F, _F] + _DROP + [_P],
                "axial_attention_dropout_bwd_full": ([_P] * 22 + [_I] * 10 + [_F, _F] + _DROP
                                                     + [_P]),
                "cuboid_attention_forward": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
@@ -93,10 +97,76 @@ _SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 7 + [_F, _F, _P],
                "cuboid_attention_dropout_bwd_full": [_P] * 23 + [_I] * 9 + [_F, _F] + _DROP + [_P],
                "cuboid_attention_grouped": [_P] * 6 + [_I] * 5 + [_F, _P],
                "cuboid_core_forward": [_P] * 6 + [_I] * 5 + [_F, _P],
-               "cuboid_layer_v3_forward": [_P] * 11 + [_I] * 5 + [_F, _F, _P]}
+               "cuboid_layer_v3_forward": [_P] * 11 + [_I] * 5 + [_F, _F, _P],
+               **weights.MAP_SIGNATURE}
 # the most rows of one cuboid the general layer takes (the JAX package's v4 gate)
 V4_MAX_ROWS = 256
 SMEM_BYTES = 227 * 1024   # shared memory one block may use on an H100
+# csrc/attention.cu fwd: the axial forward's products on TMA + wgmma
+GEMM_ROWS, GEMM_MAX_STAGES, GEMM_SMEM_CAP, LN_MAX_K = 128, 4, 232448 - 128, 768
+SMS = 132
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """One of the axial forward's products (``csrc/attention.cu``
+    ``fwd_gemm_kernel``): out (M, N) = A (M, K) . W (N, K)^T in tiles of
+    ``GEMM_ROWS`` x ``bn``; with ``ln`` A = LN(x) held whole in shared memory
+    (the QKV product), else A comes by TMA beside W (the projection)."""
+    M: int
+    N: int
+    K: int
+    bn: int
+    ln: bool
+
+    @property
+    def m_tiles(self) -> int:
+        return -(-self.M // GEMM_ROWS)
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.N // self.bn)
+
+    def tile(self, m_tile: int, n_tile: int):
+        """(rows, columns) of the output that block (n_tile, m_tile) writes."""
+        return (range(m_tile * GEMM_ROWS, min(self.M, (m_tile + 1) * GEMM_ROWS)),
+                range(n_tile * self.bn, min(self.N, (n_tile + 1) * self.bn)))
+
+    @property
+    def stage_bytes(self) -> int:
+        return (0 if self.ln else GEMM_ROWS * 128) + self.bn * 128
+
+    @property
+    def stages(self) -> int:
+        """The ring's depth (``stages_for``): 0 where even two do not fit."""
+        free = GEMM_SMEM_CAP - 1024 - (GEMM_ROWS * self.K * 2 if self.ln else 0)
+        s = free // self.stage_bytes
+        return 0 if s < 2 else min(s, GEMM_MAX_STAGES)
+
+    @property
+    def smem_bytes(self) -> int:
+        return 1024 + (GEMM_ROWS * self.K * 2 if self.ln else 0) + self.stages * self.stage_bytes
+
+    @property
+    def accumulators(self) -> int:
+        """f32 registers a consumer thread holds: 64 rows x bn over 128 threads."""
+        return self.bn // 2
+
+
+@lru_cache(maxsize=None)
+def attention_plan(M: int, C: int):
+    """(QKV, projection) plans of the axial forward at M tokens of width C:
+    the QKV product in 128 x 256 tiles where 3C allows it, the ring fits and
+    that still fills half the SMs, else 128 x 128; the projection in 128 x
+    128.  Raises where the LN tile cannot be held (C above ``LN_MAX_K``)."""
+    m_tiles = -(-M // GEMM_ROWS)
+    wide = GemmPlan(M, 3 * C, C, 256, True)
+    qkv = wide if (3 * C % 256 == 0 and m_tiles * wide.n_tiles >= SMS // 2
+                   and wide.stages >= 2) else GemmPlan(M, 3 * C, C, 128, True)
+    if C > LN_MAX_K or qkv.stages == 0:
+        raise ValueError(f"attention kernel: C={C} exceeds the forward's LayerNorm tile "
+                         f"(at most {LN_MAX_K} channels)")
+    return qkv, GemmPlan(M, C, C, 128, False)
 
 
 def axial_cuboid_size(shape, axis: int):
@@ -204,20 +274,27 @@ def _check(x, axis, num_heads):
 
 def _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps,
                       drop=None):
-    """Launch the forward; ``drop`` = (rate_attn, rate_proj, seed, site) takes
-    the dropout entry point."""
+    """Launch the forward on the bf16 copies of w_qkv and w_proj kept per
+    parameter version, with one bf16 scratch for qkv and the head outputs;
+    ``drop`` = (rate_attn, rate_proj, seed, site) takes the dropout entry
+    point."""
     B, T, H, W, C = x.shape
     M, vol = _check(x, axis, num_heads)
+    qkv_plan, proj_plan = attention_plan(M, C)
     _build.require("attention", [
         ("x", x, (B, T, H, W, C)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
         ("w_qkv", w_qkv, (3 * C, C)), ("bias", bias, (num_heads, vol, vol)),
         ("w_proj", w_proj, (C, C)), ("b_proj", b_proj, (C,))])
-    qkv = torch.empty((M, 3 * C), dtype=torch.float32, device=x.device)
-    attn = torch.empty((M, C), dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
+    x, ln_w, ln_b, b_proj = _build.aligned16(x, ln_w, ln_b, b_proj)
     lib = _build.load("attention", _SIGNATURES)
-    ptrs = [_build.ptr(t) for t in (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv, attn, out)]
-    dims = (B, T, H, W, C, axis, num_heads, float(scale), float(eps))
+    _, wqkv_map = weights.linear_map(w_qkv, qkv_plan.bn, lib)
+    _, wproj_map = weights.linear_map(w_proj, proj_plan.bn, lib)
+    scratch = torch.empty(M * 4 * C, dtype=torch.bfloat16, device=x.device)   # qkv | attn
+    out = torch.empty_like(x)
+    ptrs = [_build.ptr(x), _build.ptr(ln_w), _build.ptr(ln_b), wqkv_map, _build.ptr(bias),
+            wproj_map, _build.ptr(b_proj), _build.ptr(scratch), _build.ptr(scratch) + 6 * M * C,
+            _build.ptr(out)]
+    dims = (B, T, H, W, C, axis, num_heads, qkv_plan.bn, float(scale), float(eps))
     if drop is None:
         err = lib.axial_attention_forward(*ptrs, *dims, _build.stream_ptr(x.device))
         _build.check(err, "axial_attention_forward")
@@ -357,6 +434,17 @@ def _attention_bwd_full_kernel(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, num_
     return dx, vec[0], vec[1], dw_qkv, dbias, dw_proj, vec[2]
 
 
+def _axial_forward(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps, drop):
+    if drop is not None:
+        return fused_axial_attention_dropout(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
+                                             num_heads, scale, eps, *drop)
+    if not x.is_cuda:
+        return axial_attention_plain(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
+                                     num_heads, scale, eps)
+    return _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
+                             scale, eps)
+
+
 class _FusedAxialAttention(torch.autograd.Function):
     """``drop`` is None or (rate_attn, rate_proj, seed, site), Python numbers
     kept in ``ctx``: the backward regenerates the forward's masks from them."""
@@ -367,14 +455,8 @@ class _FusedAxialAttention(torch.autograd.Function):
         ctx.save_for_backward(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj)
         ctx.args = (axis, num_heads, scale, eps)
         ctx.drop = drop
-        if drop is not None:
-            return fused_axial_attention_dropout(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
-                                                 num_heads, scale, eps, *drop)
-        if not x.is_cuda:
-            return axial_attention_plain(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
-                                         num_heads, scale, eps)
-        return _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
-                                 scale, eps)
+        return _axial_forward(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale,
+                              eps, drop)
 
     @staticmethod
     def backward(ctx, g):
@@ -403,16 +485,21 @@ def fused_axial_attention(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: 
                           eps: float = 1e-5, rate_attn: float = 0.0, rate_proj: float = 0.0,
                           seed: Optional[int] = None, site: int = 0) -> torch.Tensor:
     """CPU tensor: the plain version in f32.  CUDA tensor: the kernel, or raise.
-    Differentiable on both.  With a ``seed`` the dropout kernels run, with the
-    masks of ``(seed, site)`` at the two rates; without one the rates must be 0."""
+    Differentiable on both; where autograd records nothing the call goes
+    straight to the forward, without the ``autograd.Function``.  With a
+    ``seed`` the dropout kernels run, with the masks of ``(seed, site)`` at
+    the two rates; without one the rates must be 0."""
     if seed is None:
         if rate_attn > 0.0 or rate_proj > 0.0:
             raise ValueError("fused_axial_attention: a dropout rate above 0 needs a seed")
         drop = None
     else:
         drop = (float(rate_attn), float(rate_proj), int(seed), int(site))
-    return _FusedAxialAttention.apply(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
-                                      num_heads, scale, eps, drop)
+    if _build.needs_grad(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj):
+        return _FusedAxialAttention.apply(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
+                                          num_heads, scale, eps, drop)
+    return _axial_forward(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps,
+                          drop)
 
 
 fused_axial_attention.launches = 0

@@ -15,10 +15,10 @@ gradient from the unrounded x; db the f32 sum of the cotangent.
 
 What the kernel is handed is plain Python here, so the CPU tests reach it:
 :func:`conv_plan` (the token box, the tiles and the cluster split) and
-:func:`weight_layout` (the bf16 weights laid out once per parameter version).
+:func:`weight_layout` (the bf16 weights laid out once per parameter version,
+in the cache of ``ops/weights.py``).
 """
 import ctypes
-import weakref
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Optional
@@ -26,12 +26,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, weights
 from .ffn import _round
 
 _P, _I = _build.P, _build.I
 _SIGNATURES = {"conv3x3x3_forward": [_P] * 5 + [_I] * 10 + [_P],
-               "conv3x3x3_weight_map": [_P, _I, _I, _P]}
+               "conv3x3x3_weight_map": [_P, _I, _I, _P], **weights.MAP_SIGNATURE}
 # the JAX package's VMEM budget of its routing rule (prediff_tpu/ops/dispatch.py)
 VMEM_BUDGET_BYTES = 12 * 1024 * 1024
 # csrc/conv3d.cu: kBM tokens (one box) x 256 or 128 output channels a block
@@ -196,50 +196,37 @@ def conv_plan(B: int, T: int, H: int, W: int, K: int, N: int) -> ConvPlan:
     return ConvPlan(B, T, H, W, K, N, (bt, bh, bw), boxes, n_tile, splits)
 
 
+def _forward_layout(k: torch.Tensor) -> torch.Tensor:
+    return conv_weight(k).transpose(1, 2)
+
+
+def _dx_layout(k: torch.Tensor) -> torch.Tensor:
+    return conv_weight_t(k).transpose(1, 2)
+
+
 def weight_layout(weight: torch.Tensor, dx: bool = False) -> torch.Tensor:
     """The kernel's bf16 weights, K-contiguous (27, N, K): the forward's
     ``[tap][out][in]`` (``conv_weight`` transposed), or with ``dx`` the input
     gradient's flipped ``[tap][in][out]`` (``conv_weight_t`` transposed).
-
-    Laid out once per parameter version: the layout is kept under the
-    parameter's ``(data_ptr(), _version)``, so an in-place update
-    (``optimizer.step()``, ``copy_`` under ``no_grad``) makes a new one at
-    the next call; the cache holds the parameter by weak reference and drops
-    its entry when the parameter goes.  An update through ``weight.data``
-    bypasses PyTorch's version counter and is not seen."""
-    return _cached(weight, dx)[2]
+    Laid out once per parameter version by the shared cache of
+    ``ops/weights.py`` (an update through ``weight.data`` is not seen)."""
+    return weights.layout(weight, *_KINDS[dx])
 
 
-# (id(weight), dx) -> [weak reference to weight, its (data_ptr, _version, device),
-# the bf16 layout, the layout's TMA tensor map or None]
-_LAYOUTS: dict = {}
-
-
-def _cached(weight: torch.Tensor, dx: bool) -> list:
-    key = (weight.data_ptr(), weight._version, weight.device)
-    slot = (id(weight), dx)
-    entry = _LAYOUTS.get(slot)
-    if entry is None or entry[0]() is not weight or entry[1] != key:
-        with torch.no_grad():
-            k = weight.detach()
-            layout = (conv_weight_t(k) if dx else conv_weight(k)).transpose(1, 2)
-            layout = layout.to(torch.bfloat16).contiguous()
-        ref = weakref.ref(weight, lambda _, slot=slot: _LAYOUTS.pop(slot, None))
-        entry = _LAYOUTS[slot] = [ref, key, layout, None]
-    return entry
+_KINDS = {False: ("conv", _forward_layout), True: ("conv_dx", _dx_layout)}
 
 
 def _weight_map(weight: torch.Tensor, dx: bool):
     """The cached layout and its TMA tensor map (128 bytes, made on first use)."""
-    entry = _cached(weight, dx)
-    if entry[3] is None:
-        _, N, K = entry[2].shape
+    def encode(layout):
+        _, N, K = layout.shape
         lib = _build.load("conv3d", _SIGNATURES)
         desc = ctypes.create_string_buffer(128)
-        _build.check(lib.conv3x3x3_weight_map(_build.ptr(entry[2]), N, K, desc),
+        _build.check(lib.conv3x3x3_weight_map(_build.ptr(layout), N, K, desc),
                      "conv3x3x3_weight_map")
-        entry[3] = desc
-    return entry[2], entry[3]
+        return desc
+
+    return weights.tensor_map(weight, *_KINDS[dx], None, encode)
 
 
 def _launch(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],

@@ -2,7 +2,9 @@
 
 The kernel (``csrc/ffn.cu``) replaces ``prediff_tpu/ops/pallas_ffn.py::fused_ffn``:
 the hidden activation never leaves the chip, matrix products take bf16
-operands with f32 accumulation on the tensor cores.  GELU uses the exact
+operands with f32 accumulation on the tensor cores (the forward on TMA +
+wgmma, with the bf16 weights of ``ops/weights.py``; :func:`ffn_plan` is what
+it is handed, plain Python so that the CPU tests reach it).  GELU uses the exact
 ``erff``; the TPU kernel's A&S 7.1.26 erf differs from it by at most 4e-7.
 Its input gradient (``ffn_bwd_dx`` in the same source) replaces
 ``pallas_ffn.py::fused_ffn_bwd_dx``, and its all-gradients backward
@@ -20,33 +22,115 @@ gives dx and every parameter gradient; when only dx is asked for (guidance:
 the model is frozen) it is :func:`fused_ffn_bwd_dx`.  With a ``seed`` it runs
 :func:`fused_ffn_dropout` and, backward, :func:`fused_ffn_dropout_bwd_full`.
 """
+from dataclasses import dataclass
+from functools import lru_cache
 from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, weights
 from .dropout import apply_mask, resolve_masks
 
 _P, _I, _F, _DROP = _build.P, _build.I, _build.F, _build.DROP_ARGTYPES
-_SIGNATURES = {"ffn_forward": [_P] * 9 + [_I] * 4 + [_F, _P],
+_SIGNATURES = {"ffn_forward": [_P] * 8 + [_I] * 4 + [_F, _P],
                "ffn_bwd_dx": [_P] * 9 + [_I] * 4 + [_F, _P],
                "ffn_bwd_full": [_P] * 19 + [_I] * 5 + [_F, _P],
-               "ffn_dropout_forward": [_P] * 9 + [_I] * 4 + [_F] + _DROP + [_P],
-               "ffn_dropout_bwd_full": [_P] * 20 + [_I] * 5 + [_F] + _DROP + [_P]}
+               "ffn_dropout_forward": [_P] * 8 + [_I] * 4 + [_F] + _DROP + [_P],
+               "ffn_dropout_bwd_full": [_P] * 20 + [_I] * 5 + [_F] + _DROP + [_P],
+               **weights.MAP_SIGNATURE}
 KERNEL_WIDTHS = (128, 256, 512)
-_ROWS_PER_BLOCK = 32     # csrc/ffn.cu kRows
-_CHUNK = 64              # csrc/ffn.cu kChunk
+_ROWS_PER_BLOCK = 32     # csrc/ffn.cu kRows (the backward kernels)
+_CHUNK = 64              # csrc/ffn.cu kChunk, fwd::kHC: hidden units per chunk
+# csrc/ffn.cu fwd: the forward's ring of weight tiles, its consumer threads
+# and their registers (setmaxnreg), the SMs of an H100 and the cluster sizes
+# that pack into its GPCs (3, 5 or 6 do not)
+STAGES, STAGE_BYTES, CONSUMERS, CONSUMER_REGISTERS = 4, 32768, 256, 232
+SMS, SPLITS = 132, (1, 2, 4, 8)
+SMEM_LIMIT = 232448      # the shared memory one block may use on an H100
 
 
 def hidden_splits(M: int, hidden: int) -> int:
-    """Splits of the hidden dimension: the fewest that give about
-    ``_build.TARGET_BLOCKS`` blocks, among the divisors of hidden / 64."""
+    """Splits of the hidden dimension in the backward kernels: the fewest
+    that give about ``_build.TARGET_BLOCKS`` blocks, among the divisors of
+    hidden / 64."""
     row_blocks = -(-M // _ROWS_PER_BLOCK)
     chunks = hidden // _CHUNK
     for s in range(1, chunks + 1):
         if chunks % s == 0 and row_blocks * s >= _build.TARGET_BLOCKS:
             return s
     return chunks
+
+
+@dataclass(frozen=True)
+class FfnPlan:
+    """What the forward kernel (``csrc/ffn.cu`` ``ffn_wgmma_kernel<C>``) is
+    handed for M tokens of width C and ``hidden`` units: token tiles of
+    ``rows`` rows (128; 64 at C = 512, where the two warpgroups split the
+    columns), the hidden dimension in chunks of 64 split over a cluster of
+    ``splits`` blocks, and what that costs in shared memory and registers."""
+    M: int
+    C: int
+    hidden: int
+    rows: int
+    splits: int
+
+    @property
+    def split_cols(self) -> bool:
+        return self.C == 512
+
+    @property
+    def row_tiles(self) -> int:
+        return -(-self.M // self.rows)
+
+    @property
+    def chunks(self) -> int:
+        return self.hidden // _CHUNK
+
+    def chunk_range(self, rank: int) -> range:
+        """The hidden chunks that block ``rank`` of a cluster adds."""
+        return range(rank * self.chunks // self.splits, (rank + 1) * self.chunks // self.splits)
+
+    def warpgroup_tile(self, wg: int):
+        """(rows, h columns within a chunk, output columns) of consumer warpgroup ``wg``."""
+        if self.split_cols:
+            return (range(0, 64), range(32 * wg, 32 * wg + 32),
+                    range(self.C // 2 * wg, self.C // 2 * (wg + 1)))
+        return range(64 * wg, 64 * wg + 64), range(0, 64), range(0, self.C)
+
+    @property
+    def item_k(self) -> int:
+        """W1c columns / W2c rows of one ring item (the W2 map's box height)."""
+        return min(self.C, 256)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Alignment, the bf16 LN tile, the h tile(s) and the ring."""
+        return 1024 + self.rows * self.C * 2 + 16384 + STAGES * STAGE_BYTES
+
+    @property
+    def accumulators(self) -> int:
+        """f32 registers a consumer thread holds: out (64 x its columns) and h."""
+        out_cols = self.C // 2 if self.split_cols else self.C
+        h_cols = 32 if self.split_cols else 64
+        return (64 * out_cols + 64 * h_cols) // 128
+
+    @property
+    def partial_bytes(self) -> int:
+        """The f32 partial a block parks in its ring for the cluster's sum."""
+        out_cols = self.C // 2 if self.split_cols else self.C
+        return CONSUMERS * (64 * out_cols // 128) * 4
+
+
+@lru_cache(maxsize=None)
+def ffn_plan(M: int, C: int, hidden: int) -> FfnPlan:
+    """The most splits of ``SPLITS`` (at most one per chunk) that keep every
+    block in one wave over the ``SMS`` SMs."""
+    _check_widths(M, C, hidden)
+    rows = 64 if C == 512 else 128
+    row_tiles = -(-M // rows)
+    chunks = hidden // _CHUNK
+    splits = max(s for s in SPLITS if s == 1 or (s <= chunks and row_tiles * s <= SMS))
+    return FfnPlan(M, C, hidden, rows, splits)
 
 
 def _round(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -170,28 +254,29 @@ def _check_widths(M: int, C: int, hidden: int) -> None:
 
 
 def _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop=None):
-    """Launch the forward; ``drop`` = (rate_act, rate_out, seed, site) takes
-    the dropout entry point."""
+    """Launch the forward (one launch, no workspace) on the bf16 copies of
+    w1 and w2 kept per parameter version; ``drop`` = (rate_act, rate_out,
+    seed, site) takes the dropout entry point."""
     M, C = x.shape
     hidden = w1.shape[0]
-    _check_widths(M, C, hidden)
+    plan = ffn_plan(M, C, hidden)
     _build.require("ffn", [("x", x, (M, C)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
                            ("w1", w1, (hidden, C)), ("b1", b1, (hidden,)),
                            ("w2", w2, (C, hidden)), ("b2", b2, (C,))])
-    splits = hidden_splits(M, hidden)
-    part = torch.empty((splits, M, C), dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
+    x, ln_w, ln_b, b1, b2 = _build.aligned16(x, ln_w, ln_b, b1, b2)
     lib = _build.load("ffn", _SIGNATURES)
-    ptrs = [_build.ptr(t) for t in (x, ln_w, ln_b, w1, b1, w2, b2, part, out)]
+    _, w1_map = weights.linear_map(w1, 64, lib)
+    _, w2_map = weights.linear_map(w2, plan.item_k, lib)
+    out = torch.empty_like(x)
+    args = [_build.ptr(x), _build.ptr(ln_w), _build.ptr(ln_b), w1_map, _build.ptr(b1), w2_map,
+            _build.ptr(b2), _build.ptr(out), M, C, hidden, plan.splits, float(eps)]
     if drop is None:
-        err = lib.ffn_forward(*ptrs, M, C, hidden, splits, float(eps),
-                              _build.stream_ptr(x.device))
+        err = lib.ffn_forward(*args, _build.stream_ptr(x.device))
         _build.check(err, "ffn_forward")
         fused_ffn.launches += 1
     else:
         rate_act, rate_out, seed, site = drop
-        err = lib.ffn_dropout_forward(*ptrs, M, C, hidden, splits, float(eps),
-                                      *_build.drop_args(seed, site, rate_act, rate_out),
+        err = lib.ffn_dropout_forward(*args, *_build.drop_args(seed, site, rate_act, rate_out),
                                       _build.stream_ptr(x.device))
         _build.check(err, "ffn_dropout_forward")
         fused_ffn_dropout.launches += 1
@@ -300,6 +385,14 @@ def _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps, drop=None):
     return dx, vec[0], vec[1], dw1, db1, dw2, vec[2]
 
 
+def _ffn_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop):
+    if drop is not None:
+        return fused_ffn_dropout(x, ln_w, ln_b, w1, b1, w2, b2, eps, *drop)
+    if not x.is_cuda:
+        return ffn_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    return _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+
+
 class _FusedFFN(torch.autograd.Function):
     """``drop`` is None or (rate_act, rate_out, seed, site), Python numbers
     kept in ``ctx``: the backward regenerates the forward's masks from them."""
@@ -308,11 +401,7 @@ class _FusedFFN(torch.autograd.Function):
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps, drop):
         ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
         ctx.eps, ctx.drop = eps, drop
-        if drop is not None:
-            return fused_ffn_dropout(x, ln_w, ln_b, w1, b1, w2, b2, eps, *drop)
-        if not x.is_cuda:
-            return ffn_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
-        return _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+        return _ffn_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop)
 
     @staticmethod
     def backward(ctx, g):
@@ -334,15 +423,19 @@ def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch
               rate_act: float = 0.0, rate_out: float = 0.0, seed: Optional[int] = None,
               site: int = 0) -> torch.Tensor:
     """CPU tensor: the plain version in f32.  CUDA tensor: the kernel, or raise.
-    Differentiable on both.  With a ``seed`` the dropout kernels run, with the
-    masks of ``(seed, site)`` at the two rates; without one the rates must be 0."""
+    Differentiable on both; where autograd records nothing the call goes
+    straight to the forward, without the ``autograd.Function``.  With a
+    ``seed`` the dropout kernels run, with the masks of ``(seed, site)`` at
+    the two rates; without one the rates must be 0."""
     if seed is None:
         if rate_act > 0.0 or rate_out > 0.0:
             raise ValueError("fused_ffn: a dropout rate above 0 needs a seed")
         drop = None
     else:
         drop = (float(rate_act), float(rate_out), int(seed), int(site))
-    return _FusedFFN.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop)
+    if _build.needs_grad(x, ln_w, ln_b, w1, b1, w2, b2):
+        return _FusedFFN.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop)
+    return _ffn_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop)
 
 
 fused_ffn.launches = 0

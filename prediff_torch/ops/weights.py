@@ -1,0 +1,83 @@
+"""bf16 copies of the weights that the Hopper kernels read by TMA, laid out
+once per parameter version, with their TMA tensor maps.
+
+A layout is kept under the parameter's ``(data_ptr(), _version, device)``,
+so an in-place update (``optimizer.step()``, ``torch._foreach_lerp_``,
+``copy_`` under ``no_grad``) makes a new one at the next call.  The cache is
+a module dict that holds each parameter by weak reference and drops its
+entry when the parameter goes: nothing is stored on the parameter, so
+nothing of it travels into ``torch.save``.  Each distinct tensor has its own
+entry: the EMA tensors handed to ``torch.func.functional_call`` are laid out
+apart from the parameters they shadow.  An update through ``weight.data``
+bypasses PyTorch's version counter and is not seen.
+
+Kinds: ``"linear"``, the bf16 copy of a ``Linear`` weight (N, K), whose
+PyTorch layout already is the K-major operand a wgmma wants, with a tensor
+map per box height (``csrc/hopper.cuh`` ``bf16_matrix_map``: boxes of 64
+columns); the conv's layouts (``ops/conv3d.weight_layout``) are kinds of
+their own.
+"""
+import ctypes
+import weakref
+from typing import Callable
+
+import torch
+
+from . import _build
+
+# (id(weight), kind) -> [weak reference to weight, its (data_ptr, _version,
+# device), the bf16 layout, {map key: 128-byte TMA tensor map}]
+_LAYOUTS: dict = {}
+
+
+def _entry(weight: torch.Tensor, kind: str, make: Callable) -> list:
+    key = (weight.data_ptr(), weight._version, weight.device)
+    slot = (id(weight), kind)
+    entry = _LAYOUTS.get(slot)
+    if entry is None or entry[0]() is not weight or entry[1] != key:
+        with torch.no_grad():
+            layout = make(weight.detach()).to(torch.bfloat16).contiguous()
+        ref = weakref.ref(weight, lambda _, slot=slot: _LAYOUTS.pop(slot, None))
+        entry = _LAYOUTS[slot] = [ref, key, layout, {}]
+    return entry
+
+
+def layout(weight: torch.Tensor, kind: str, make: Callable) -> torch.Tensor:
+    """The bf16 ``make(weight)`` of this version of ``weight``."""
+    return _entry(weight, kind, make)[2]
+
+
+def tensor_map(weight: torch.Tensor, kind: str, make: Callable, map_key, encode: Callable):
+    """The layout and its tensor map ``encode(layout)``, made on first use
+    and kept under ``map_key`` beside the layout."""
+    entry = _entry(weight, kind, make)
+    desc = entry[3].get(map_key)
+    if desc is None:
+        desc = entry[3][map_key] = encode(entry[2])
+    return entry[2], desc
+
+
+def _same(w: torch.Tensor) -> torch.Tensor:
+    return w
+
+
+def linear_bf16(weight: torch.Tensor) -> torch.Tensor:
+    """The bf16 copy of a ``Linear`` weight (N, K), in its own layout."""
+    return layout(weight, "linear", _same)
+
+
+def linear_map(weight: torch.Tensor, box_rows: int, lib: ctypes.CDLL):
+    """The bf16 copy of a ``Linear`` weight (N, K) and its tensor map with
+    boxes of 64 columns x ``box_rows`` rows, encoded by ``lib``'s
+    ``bf16_matrix_map`` (every library built on ``csrc/hopper.cuh``)."""
+    def encode(w):
+        desc = ctypes.create_string_buffer(128)
+        _build.check(lib.bf16_matrix_map(_build.ptr(w), w.shape[0], w.shape[1], box_rows, desc),
+                     "bf16_matrix_map")
+        return desc
+
+    return tensor_map(weight, "linear", _same, box_rows, encode)
+
+
+# the argument types of bf16_matrix_map, for each library's signatures
+MAP_SIGNATURE = {"bf16_matrix_map": [_build.P, _build.I, _build.I, _build.I, _build.P]}

@@ -17,6 +17,7 @@ import math
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
+from torch.autograd.graph import increment_version
 
 
 def build_lr_schedule(lr: float, total_num_steps: int, warmup_percentage: float = 0.1,
@@ -107,6 +108,10 @@ class Optimizer:
         self.optimizer.step()
         for p in self.params:
             p.grad = None
+            # the fused AdamW step writes the parameters without bumping their
+            # version counters; the kernels' bf16 weight copies (ops/weights.py)
+            # are kept per version, so bump them here
+            increment_version(p)
         self.count += 1
         return True
 
