@@ -49,11 +49,12 @@ guidance shift card against CPU, ``conv_forecast`` and
 ``conv_guided_forecast`` with exact counts, profiles; after ``train``,
 ``conv_train_grads``, ``conv_train`` and ``profile_conv_train_step`` (no
 rate-0 phase).  Then the ``kernels`` summary line (per kernel its ms,
-bound, library call and ``vs_library``; the conv, the grouped cores and the
-FFN and axial attention forwards also their device time alone from
-CUDA-graph replay, the last two with ``library_seq_ms``, the sequence of
-library calls that computes their function), the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.
+bound, library call and ``vs_library``; the conv, the grouped cores, the
+GroupNorm+SiLU forward and the FFN, axial attention and general cuboid layer
+forwards also their device time alone from CUDA-graph replay, the last four
+with ``library_seq_ms``, the sequence of library calls that computes their
+function), the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that line is printed.
 """
 import argparse
@@ -429,6 +430,42 @@ def attention_library_seq(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, head
     return run
 
 
+def gn_library_seq(x, w, b, emb, groups):
+    """GroupNorm + emb + SiLU as library calls on the channel-last (B, N, C):
+    ``F.silu(F.group_norm(x + emb[:, None]))`` through channel-first views."""
+    import torch.nn.functional as F
+
+    def run():
+        xe = x if emb is None else x + emb[:, None]
+        return F.silu(F.group_norm(xe.transpose(1, 2), groups, w, b, 1e-5)).transpose(1, 2)
+
+    return run
+
+
+def cuboid_library_seq(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale, rate_attn=0.0,
+                       rate_proj=0.0):
+    """The general layer as library calls on pre-cast bf16 weights, on the
+    reordered (B, cuboids, vol, C): ``F.layer_norm`` -> ``F.linear`` -> SDPA
+    per cuboid with the relative bias as a float ``attn_mask`` (and
+    ``dropout_p``) -> ``F.linear`` (-> ``F.dropout``)."""
+    import torch
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    wq, bb, wp, bp = (t.to(bf16) for t in (w_qkv, bias, w_proj, b_proj))
+    B, nC, vol, C = x.shape
+
+    def run():
+        qkv = F.linear(F.layer_norm(x, (C,), ln_w, ln_b, 1e-5).to(bf16), wq)
+        q, k, v = qkv.reshape(B * nC, vol, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bb, dropout_p=rate_attn,
+                                           scale=scale)
+        y = F.linear(o.transpose(1, 2).reshape(B, nC, vol, C), wp, bp)
+        return (F.dropout(y, rate_proj) if rate_proj else y).float()
+
+    return run
+
+
 # --------------------------------------------------------------------------- #
 def kernel_cases(unet, align, train_batch: int):
     """Every (kernel, shape) of the paths, with launches per UNet forward at
@@ -466,6 +503,8 @@ def kernel_cases(unet, align, train_batch: int):
                 for axis in range(3):
                     add(name, shape=[B, t, h, w, c], axis=axis, **{key: n})
 
+    # a group past a cluster's shared memory: the two-pass route (on no path)
+    add("groupnorm_silu", shape=[1, 240000, 64], groups=32, emb=True)
     T, H, W, Cin = align.input_shape
     fp = align.first_proj
     # first_proj changes width, so it keeps the GN kernel, whose backward is the all-gradients one
@@ -502,7 +541,8 @@ def check_kernels(cases, device):
                                        fused_ffn, fused_ffn_bwd_dx, fused_ffn_bwd_full,
                                        fused_ffn_dropout, fused_ffn_dropout_bwd_full)
     from prediff_torch.ops.groupnorm import (fused_groupnorm_silu, fused_groupnorm_silu_bwd_full,
-                                             groupnorm_silu_bwd_full_plain, groupnorm_silu_plain)
+                                             gn_plan, groupnorm_silu_bwd_full_plain,
+                                             groupnorm_silu_plain)
     from prediff_torch.ops.resblock import (fused_resblock_bwd, fused_resblock_fwd,
                                             resblock_bwd_plain, resblock_plain)
 
@@ -525,9 +565,13 @@ def check_kernels(cases, device):
         got, want = fused_groupnorm_silu(x, w, b, emb, groups), groupnorm_silu_plain(x, w, b, emb, groups)
         sync(device)
         judge(c, got, want, tol=1e-4)
+        c["route"] = "two_pass" if gn_plan(B, N, C, groups) is None else "cluster"
+        c["bit_equal_across_two_runs"] = torch.equal(got, fused_groupnorm_silu(x, w, b, emb, groups))
+        c["ok"] = c["ok"] and c["bit_equal_across_two_runs"]
         timed(c, lambda: fused_groupnorm_silu(x, w, b, emb, groups),
               lambda: groupnorm_silu_plain(x, w, b, emb, groups),
               4 * (2 * B * N * C + 2 * C + (B * C if emb is not None else 0)),
+              device_time=True, library_seq=gn_library_seq(x, w, b, emb, groups),
               f32_flops=12 * B * N * C)
 
     for c in cases["groupnorm_silu_bwd_full"]:
@@ -918,7 +962,8 @@ def swin_cases(unet, align, train_batch: int):
     micro-step at ``train_batch`` samples, the general layer's forward and
     all-gradients kernels, with and without dropout) and the alignment net
     (``per_align`` per guidance shift, forward and backward), plus shapes no
-    path of this configuration gives (weight 0): the layer kernels at vol 128
+    path of this configuration gives (weight 0): the layer's forwards at C =
+    1024 (past the QKV product's LN tile), the layer kernels at vol 128
     and 256, the grouped core unmasked on video_swin_2x8's padded 2x8x8
     cuboids, with "ignore" padding (fully masked rows) and at vol 1536 (the
     "full" pattern on the alignment net)."""
@@ -956,6 +1001,8 @@ def swin_cases(unet, align, train_batch: int):
     for nC, vol, c in ((26, 128, 256), (13, 256, 256)):
         for name in CUBOID_LAYER_KERNELS:
             add(name, (nC, vol, c), {}, shape=[1, nC, vol, c])
+    for name in CUBOID_FORWARDS:   # past the QKV product's LN tile: bf16 LN rows first
+        add(name, (4, 64, 1024), {}, shape=[1, 4, 64, 1024])
     for shape, window in (([1, 4, 28, 128, 64], None),
                           ([1, 4, 28, 128, 64], [[13, 16, 16], [2, 8, 8], [0, 0, 0],
                                                  ["l", "l", "l"], "ignore"]),
@@ -1063,8 +1110,13 @@ def check_cuboid_kernels(cases, device):
                            torch.equal(fused_cuboid_attention_layer_dropout(
                                *args, 0.0, 0.0, DROP_SEED, DROP_SITE),
                                fused_cuboid_attention_layer(*args)), device)
+                c["bit_equal_across_two_runs"] = torch.equal(
+                    got, fused_cuboid_attention_layer_dropout(*args, *drop))
+                c["ok"] = c["ok"] and c["bit_equal_across_two_runs"]
                 timed(c, lambda: fused_cuboid_attention_layer_dropout(*args, *drop),
                       lambda: cuboid_attention_dropout_plain(*args, bf16, *drop), fwd_bytes,
+                      device_time=True,
+                      library_seq=cuboid_library_seq(*args[:9], *drop[:2]),
                       bf16_flops=8 * M * C * C + 4 * M * vol * C)
             elif name in CUBOID_BACKWARDS:
                 args = (x, randn(B, nC, vol, C), ln_w, ln_b, w_qkv, bias, w_proj, heads, scale,
@@ -1097,8 +1149,11 @@ def check_cuboid_kernels(cases, device):
                     *args, mxu_dtype=bf16)
                 sync(device)
                 judge(c, got, want, tol=2e-2)
+                c["bit_equal_across_two_runs"] = torch.equal(got, fused_cuboid_attention_layer(*args))
+                c["ok"] = c["ok"] and c["bit_equal_across_two_runs"]
                 timed(c, lambda: fused_cuboid_attention_layer(*args),
                       lambda: cuboid_attention_plain(*args, mxu_dtype=bf16), fwd_bytes,
+                      device_time=True, library_seq=cuboid_library_seq(*args),
                       bf16_flops=8 * M * C * C + 4 * M * vol * C)
             else:
                 args = (x, randn(B, nC, vol, C), ln_w, ln_b, w_qkv, bias, w_proj, heads, scale)

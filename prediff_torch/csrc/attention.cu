@@ -90,14 +90,15 @@
 // unshifted, unpadded cuboid of vol <= 256 rows: a 3-D box with an 'l' or 'd'
 // strategy per axis.  The caller reorders first (cuboid_reorder), so cuboid c
 // is rows c * vol .. c * vol + vol - 1 in cuboid_reorder's order, which is the
-// order the relative-position bias indexes.  The launches are those of the
-// axial layer; only the cores differ: k and v of the whole cuboid stay in
-// shared memory as bf16 (they are bf16 operands, so this is exact), and the
-// query rows go in tiles of q_tile, so a (vol, vol) score matrix never has to
-// fit (vol 256 at 64 head channels would take 256 KiB).  The forward core runs
-// one block per (cuboid, head, query tile); the gradient's core is the split
-// pair of the all-gradients backward below, without its extra outputs.  At
-// the UNet's shapes the bytes the
+// order the relative-position bias indexes.  The forward's launches are the
+// axial layer's products (the QKV product is over rows, so their order does
+// not matter to it) around a core of its own on the tensor cores
+// (cuboid_tc_core_kernel: mma.sync m16n8k16 in bf16, k and v of the whole
+// cuboid in shared memory, p in registers, one block per (cuboid, head, 16 to
+// 64 query rows)); past the LN tile (C > 768) the QKV product runs on bf16 LN
+// rows written by ln_bf16_rows_kernel.  The gradient's core is the split pair
+// of the all-gradients backward below, without its extra outputs, on the
+// WMMA products.  At the UNet's shapes the bytes the
 // layer must move (x in and out, the weights) and its operations give about
 // the same least time, as for the axial layer; the roundings are the axial
 // kernels'.
@@ -193,12 +194,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// The gradients' and the general layer's products (WMMA on weights staged
-// from f32): out[M, N] = A'[M, K] . W[N, K]^T (+ bias[N]); A' = LN(A) when ln_w != null.
+// The gradients' products (WMMA on weights staged from f32):
+// out[M, N] = A'[M, K] . W[N, K]^T; A' = LN(A) when ln_w != null.
 // With w_kn != 0, W is stored as [K, N] instead: out = A' . W.  With ln_out,
 // A' is also written as bf16 (M, K), by the blocks of the first column tile.
 // DropWhere 1: A (no LN) goes through the dropout `drop` of element (row, k) as
-// it is staged; DropWhere 2: the output does, after the bias, at (row, n).
+// it is staged.
 constexpr int kBM = 64, kBN = 64, kBK = 32, kGemmThreads = 128;  // 4 warps, 32 x 32 each
 constexpr int kLdS = kBK + 8;   // bf16 staging row stride
 constexpr int kLdC = kBN + 4;   // f32 epilogue row stride
@@ -207,8 +208,8 @@ template <int DropWhere>
 __global__ void __launch_bounds__(kGemmThreads)
 ln_gemm_kernel(const float* __restrict__ A, const float* __restrict__ ln_w,
                const float* __restrict__ ln_b, const float* __restrict__ W,
-               const float* __restrict__ bias, float* __restrict__ out,
-               __nv_bfloat16* __restrict__ ln_out, int M, int N, int K, int w_kn, float eps,
+               float* __restrict__ out, __nv_bfloat16* __restrict__ ln_out, int M, int N, int K,
+               int w_kn, float eps,
                philox::Drop drop) {
   __shared__ __align__(32) __nv_bfloat16 As[kBM * kLdS];
   __shared__ __align__(32) __nv_bfloat16 Ws[kBN * kLdS];
@@ -302,12 +303,7 @@ ln_gemm_kernel(const float* __restrict__ A, const float* __restrict__ ln_w,
   for (int i = tid; i < kBM * kBN; i += kGemmThreads) {
     const int r = i / kBN, n = i % kBN;
     const int gr = m0 + r;
-    if (gr < M) {
-      float v = Cs[r * kLdC + n];
-      if (bias != nullptr) v += bias[n0 + n];
-      if (DropWhere == 2) v = philox::apply(drop, (unsigned long long)gr * N + n0 + n, v);
-      out[(size_t)gr * N + n0 + n] = v;
-    }
+    if (gr < M) out[(size_t)gr * N + n0 + n] = Cs[r * kLdC + n];
   }
 }
 
@@ -546,13 +542,12 @@ __global__ void ln_backward_kernel(const float* __restrict__ x, const float* __r
 }
 
 template <int DropWhere = 0>
-cudaError_t gemm(const float* A, const float* ln_w, const float* ln_b, const float* W,
-                 const float* bias, float* out, int M, int N, int K, int w_kn, float eps,
-                 cudaStream_t stream, __nv_bfloat16* ln_out = nullptr,
-                 philox::Drop drop = philox::Drop{}) {
+cudaError_t gemm(const float* A, const float* ln_w, const float* ln_b, const float* W, float* out,
+                 int M, int N, int K, int w_kn, float eps, cudaStream_t stream,
+                 __nv_bfloat16* ln_out = nullptr, philox::Drop drop = philox::Drop{}) {
   dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-  ln_gemm_kernel<DropWhere><<<grid, kGemmThreads, 0, stream>>>(A, ln_w, ln_b, W, bias, out,
-                                                               ln_out, M, N, K, w_kn, eps, drop);
+  ln_gemm_kernel<DropWhere><<<grid, kGemmThreads, 0, stream>>>(A, ln_w, ln_b, W, out, ln_out, M,
+                                                               N, K, w_kn, eps, drop);
   return cudaGetLastError();
 }
 
@@ -577,9 +572,9 @@ cudaError_t bwd_dx_launches(const float* x, const float* g, const float* ln_w, c
                             philox::Drop d_attn = philox::Drop{},
                             philox::Drop d_proj = philox::Drop{}) {
   static_assert(Full || !Drop, "dropout runs only on the all-gradients form");
-  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream, ln_bf);
+  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, qkv, M, 3 * C, C, 0, eps, stream, ln_bf);
   if (err != cudaSuccess) return err;
-  err = gemm<Drop ? 1 : 0>(g, nullptr, nullptr, w_proj, nullptr, dattn, M, C, C, 1, eps, stream,
+  err = gemm<Drop ? 1 : 0>(g, nullptr, nullptr, w_proj, dattn, M, C, C, 1, eps, stream,
                            do_bf, d_proj);
   if (err != cudaSuccess) return err;
   const int vol = axis == 0 ? T : (axis == 1 ? H : W);
@@ -595,24 +590,27 @@ cudaError_t bwd_dx_launches(const float* x, const float* g, const float* ln_w, c
       cuboids_per_block, d_attn);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = gemm(dqkv, nullptr, nullptr, w_qkv, nullptr, dln, M, C, 3 * C, 1, eps, stream);
+  err = gemm(dqkv, nullptr, nullptr, w_qkv, dln, M, C, 3 * C, 1, eps, stream);
   if (err != cudaSuccess) return err;
   return ln_backward(x, ln_w, dln, dx, M, C, eps, stream);
 }
 
 // ---------------------------------------------------------------------------
-// The axial forward's two products on TMA + wgmma: out[M, N] = A . W^T with
+// The forwards' two products on TMA + wgmma (the axial layer's and the
+// general cuboid layer's): out[M, N] = A . W^T with
 // W (N, K) the bf16 copy of a weight (ops/weights.py), read by TMA in 64-deep
 // slices of BN rows through a ring of up to kMaxStages stages kept full by a
 // producer warp; two consumer warpgroups of 64 rows run wgmma m64nBNk16, one
 // slice's group in flight.  A block owns 128 rows x BN columns.
 //   LnA (the QKV product): A = LN(x), computed once per row tile from the f32
-//     x and kept whole (K / 64 swizzled tiles) in shared memory; the epilogue
-//     writes bf16 (M, N): q . q_scale for the first q_cols columns, k and v
-//     as they are (the core's operands, rounded where the TPU kernel rounds).
-//   otherwise (the output projection): A = the bf16 head outputs, read by
-//     TMA beside W; the epilogue adds the bias (Drop: the dropout of element
-//     (row, column)) and writes f32.
+//     x and kept whole (K / 64 swizzled tiles) in shared memory.
+//   otherwise: A = a bf16 matrix read by TMA beside W (the head outputs for
+//     the output projection; bf16 LN rows for a QKV product wider than the
+//     LN tile).
+//   QkvOut (by default with LnA): the epilogue writes bf16 (M, N): q . q_scale
+//     for the first q_cols columns, k and v as they are (the core's operands,
+//     rounded where the TPU kernel rounds).  Otherwise it adds the bias
+//     (Drop: the dropout of element (row, column)) and writes f32.
 // Rows past M read zeros (the LN tile, the TMA unit) and columns past N
 // zeros (the TMA unit); the epilogue masks both.
 namespace fwd {
@@ -638,8 +636,8 @@ int stages_for(int K) {
 }
 
 // LnPer > 0: A = LN(x) (the QKV product), a lane's LN columns in groups of
-// 256 (K <= 256 LnPer); 0: A by TMA (the projection).
-template <int BN, int LnPer, bool Drop>
+// 256 (K <= 256 LnPer); 0: A by TMA.
+template <int BN, int LnPer, bool Drop, bool QkvOut>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
                 const __grid_constant__ CUtensorMap w_map, const float* __restrict__ x,
@@ -690,9 +688,9 @@ fwd_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
 #pragma unroll
   for (int e = 0; e < kAcc; ++e) acc[e] = 0.f;
   // the projection's bias now: its loads are in flight while the product runs
-  float bias_v[LnA ? 1 : BN / 8][2];
+  float bias_v[QkvOut ? 1 : BN / 8][2];
 #pragma unroll
-  for (int jb = 0; jb < (LnA ? 0 : BN / 8); ++jb) {
+  for (int jb = 0; jb < (QkvOut ? 0 : BN / 8); ++jb) {
     const int n = n0 + 8 * jb + 2 * (lane & 3);
     const float2 b = n < N ? *reinterpret_cast<const float2*>(bias + n) : make_float2(0.f, 0.f);
     bias_v[jb][0] = b.x;
@@ -726,7 +724,7 @@ fwd_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
       if (row >= M) continue;
       const size_t o = (size_t)row * N + n;
       float v0 = acc[4 * jb + 2 * half], v1 = acc[4 * jb + 2 * half + 1];
-      if (LnA) {
+      if (QkvOut) {
         if (n < q_cols) {
           v0 *= q_scale;
           v1 *= q_scale;
@@ -734,8 +732,8 @@ fwd_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
         *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
             __floats2bfloat162_rn(v0, v1);
       } else {
-        v0 += bias_v[LnA ? 0 : jb][0];
-        v1 += bias_v[LnA ? 0 : jb][1];
+        v0 += bias_v[QkvOut ? 0 : jb][0];
+        v1 += bias_v[QkvOut ? 0 : jb][1];
         if (Drop) philox::apply2(drop, o, v0, v1);
         *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v0, v1);
       }
@@ -743,14 +741,14 @@ fwd_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
   }
 }
 
-template <int BN, int LnPer, bool Drop>
+template <int BN, int LnPer, bool Drop, bool QkvOut = (LnPer > 0)>
 cudaError_t gemm(const CUtensorMap& a, const CUtensorMap& w, const float* x, const float* ln_w,
                  const float* ln_b, const float* bias, void* out, int M, int N, int K, int q_cols,
                  float q_scale, float eps, philox::Drop drop, cudaStream_t stream) {
   constexpr bool LnA = LnPer > 0;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(fwd_gemm_kernel<BN, LnPer, Drop>,
+    cudaError_t err = cudaFuncSetAttribute(fwd_gemm_kernel<BN, LnPer, Drop, QkvOut>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
     if (err != cudaSuccess) return err;
     configured = true;
@@ -761,7 +759,7 @@ cudaError_t gemm(const CUtensorMap& a, const CUtensorMap& w, const float* x, con
   const int smem = 1024 + (LnA ? kBM * K * 2 : 0) + stages * stage_bytes<BN, LnA>();
   const dim3 grid((N + BN - 1) / BN, (M + kBM - 1) / kBM);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  fwd_gemm_kernel<BN, LnPer, Drop><<<grid, kThreads, smem, stream>>>(
+  fwd_gemm_kernel<BN, LnPer, Drop, QkvOut><<<grid, kThreads, smem, stream>>>(
       a, w, x, ln_w, ln_b, bias, out, M, N, K, stages, q_cols, q_scale, eps, drop);
   return cudaGetLastError();
 }
@@ -835,9 +833,9 @@ cudaError_t forward_launches(const float* x, const float* ln_w, const float* ln_
 }
 
 // ---------------------------------------------------------------------------
-// General cuboid cores, on cuboid_reorder's layout: cuboid c is the rows
-// c * vol + r.  Shared memory: k, v of the cuboid (vol, hc + 2) bf16 each, then
-// f32 tiles of q_tile query rows.
+// The general layer's gradient cores, on cuboid_reorder's layout: cuboid c is
+// the rows c * vol + r.  Shared memory: k, v of the cuboid (vol, hc + 2) bf16
+// each, then f32 tiles of q_tile query rows.
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -890,49 +888,312 @@ __device__ __forceinline__ void tile_softmax(const float* q, int ldq, const __nv
   __syncthreads();
 }
 
-size_t cuboid_core_smem(int vol, int hc, int q_tile, bool bwd) {
+// The query-tile gradient core's shared memory: k, v; the q and dO tiles, p and ds.
+size_t cuboid_core_smem(int vol, int hc, int q_tile) {
   const size_t kv = 2 * sizeof(__nv_bfloat16) * (size_t)vol * (hc + 2);
-  const int tiles = bwd ? 2 : 1;  // q (and dO); s (and ds)
-  return kv + sizeof(float) * (size_t)tiles * q_tile * ((hc + 1) + (vol + 1));
+  return kv + sizeof(float) * (size_t)2 * q_tile * ((hc + 1) + (vol + 1));
 }
 
-// One block per (cuboid, head, query tile); attn (tokens, C) gets the tile's
-// rows of this head's hc columns, rounded to bf16.  Drop: p goes through the
-// dropout d of element (cuboid, head, i, j) before p . v.
-template <bool Drop>
-__global__ void __launch_bounds__(kCoreThreads)
-cuboid_core_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
-                   float* __restrict__ attn, int vol, int C, int heads, int q_tile,
-                   float scale, philox::Drop d) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int hc = C / heads, ldkv = hc + 2, ldq = hc + 1, lds = vol + 1;
-  __nv_bfloat16* k = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v = k + vol * ldkv;
-  float* q = reinterpret_cast<float*>(v + vol * ldkv);  // bf16(q . scale)
-  float* s = q + q_tile * ldq;                           // [q_tile][vol] softmax
-  const int h = blockIdx.y, q0 = blockIdx.z * q_tile, tid = threadIdx.x;
-  const int nq = min(q_tile, vol - q0);
-  const size_t row0 = (size_t)blockIdx.x * vol;
-  load_kv(qkv, row0, vol, C, hc, h, k, v, ldkv);
-  for (int i = tid; i < nq * hc; i += kCoreThreads) {
-    const int r = i / hc, c = i % hc;
-    q[r * ldq + c] = bf16_round(qkv[(row0 + q0 + r) * 3 * C + h * hc + c] * scale);
-  }
-  __syncthreads();
-  tile_softmax(q, ldq, k, ldkv, bias + (size_t)h * vol * vol, s, lds, q0, nq, vol, hc);
-  if (Drop) {
-    const unsigned long long e0 = (((unsigned long long)blockIdx.x * heads + h) * vol + q0) * vol;
-    for (int i = tid; i < nq * vol; i += kCoreThreads) {
-      const int r = i / vol, j = i % vol;
-      s[r * lds + j] = philox::apply(d, e0 + i, s[r * lds + j]);
+// ---------------------------------------------------------------------------
+// The general layer's forward core on the tensor cores: mma.sync m16n8k16,
+// bf16 operands, f32 sums.  One block per (cuboid, head, 16 x warps query
+// rows); k and v of the whole cuboid and the block's q . scale rows come from
+// the bf16 (tokens, 3C) product by 16-byte cp.async into shared memory (k and
+// q first, v while the scores run), rows of hcp (hc rounded up to 16)
+// channels at a stride of hcp + 8 (an odd number of 16-byte groups: every
+// ldmatrix below is free of bank conflicts), zeros past vol and past hc.  A
+// warp owns 16 query rows:
+//   scores  s = q . k^T over 64-key tiles, a warp's 16 x 64 tile in
+//           registers (the accumulator layout: rows g and g + 8, keys
+//           8 j + 2 c4 (+1)), + the f32 bias, keys past vol at -inf;
+//   softmax the row max over every tile, then the sum of exp(s - max), then
+//           per tile p = exp(s - max) / sum, through the dropout (Drop) and
+//           rounded to bf16: the TPU kernel's rounding points, p normalised
+//           before it is rounded and multiplied by v.  One tile holds a row
+//           up to vol 64; past it the scores are recomputed in each pass;
+//   p . v   p's accumulator pairs are the A fragments of m16n8k16 as they
+//           stand (keys 2 c4, 2 c4 + 1 of each 8), so p never leaves the
+//           registers; v's B fragments come by ldmatrix.trans; 64 output
+//           channels at a time, written as bf16.
+// KT: 64-key tiles held for p (vol <= 64 KT).
+constexpr int kTcKeys = 64;
+
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                               unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to bf16 into one register, lo in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&t);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lanes 8 i .. 8 i + 7 giving
+// the row addresses of matrix i: with Trans each thread holds (rows
+// 2 (lane % 4) and + 1, column lane / 4) of each, else (row lane / 4,
+// columns 2 (lane % 4) and + 1): the fragments of mma.sync m16n8k16.
+template <bool Trans>
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const __nv_bfloat16* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  if (Trans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a));
+}
+
+// Rows r0 .. r0 + rows - 1 of one head's hc columns of the bf16 (tokens, 3C)
+// product (src at the head's first column of q, k or v) into dst (stride ld),
+// hcp columns a row; zeros at rows >= valid and columns >= hc.
+__device__ __forceinline__ void tc_load_rows(__nv_bfloat16* dst, int ld,
+                                             const __nv_bfloat16* __restrict__ src, size_t r0,
+                                             int valid, int rows, int C, int hc, int hcp) {
+  const int chunks = hcp / 8;
+  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
+    const int r = i / chunks, c = 8 * (i % chunks);
+    __nv_bfloat16* d = dst + r * ld + c;
+    const __nv_bfloat16* s = src + (r0 + r) * 3 * C + c;
+    if (r < valid && c + 8 <= hc && hc % 8 == 0) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       static_cast<unsigned>(__cvta_generic_to_shared(d))),
+                   "l"(s)
+                   : "memory");
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d[e] = (r < valid && c + e < hc) ? s[e] : __float2bfloat16(0.f);
     }
-    __syncthreads();
   }
-  for (int i = tid; i < nq * hc; i += kCoreThreads) {
-    const int r = i / hc, c = i % hc;
-    float acc = 0.f;
-    for (int j = 0; j < vol; ++j) acc += bf16_round(s[r * lds + j]) * __bfloat162float(v[j * ldkv + c]);
-    attn[(row0 + q0 + r) * C + h * hc + c] = bf16_round(acc);
+}
+
+// s = q . k^T (+ bias) of the warp's 16 rows and keys k0 .. k0 + 63; keys
+// past vol -inf, rows past vol without bias.  The bias loads are issued
+// first, so they are in flight while the products run.
+__device__ __forceinline__ void tc_scores(float (&s)[8][4], const __nv_bfloat16* qw,
+                                          const __nv_bfloat16* ks, int ld, int hcp,
+                                          const float* __restrict__ bh, int row0, int k0,
+                                          int vol) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
+  float bv[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + g + 8 * (e >> 1), key = k0 + 8 * j + 2 * c4 + (e & 1);
+      bv[j][e] = row < vol && key < vol ? __ldg(bh + (size_t)row * vol + key) : 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  // matrices of q: rows 0-7 / 8-15 x channels kc, then kc + 8; of k: keys
+  // 8 j .. 8 j + 7 x channels kc, kc + 8, then keys 8 j + 8 .. for j + 1
+  const __nv_bfloat16* qrow = qw + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 8 * (lane >> 4);
+  const __nv_bfloat16* krow = ks + (k0 + (lane & 7) + 8 * (lane >> 4)) * ld + 8 * ((lane >> 3) & 1);
+  for (int kc = 0; kc < hcp; kc += 16) {
+    unsigned a[4];
+    ldsm_x4<false>(a, qrow + kc);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      if (k0 + 8 * j >= vol) continue;   // keys to 8 j + 15 lie in the zero-padded vol16 rows
+      unsigned b[4];
+      ldsm_x4<false>(b, krow + 8 * j * ld + kc);
+      mma_bf16_16816(s[j], a, b[0], b[1]);
+      mma_bf16_16816(s[j + 1], a, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * c4 + (e & 1);
+      s[j][e] = key >= vol ? -INFINITY : s[j][e] + bv[j][e];
+    }
+  }
+}
+
+// p of the warp's 16 rows as bf16 A fragments of m16n8k16, 16 keys a
+// k-step: the softmax's max, then its sum of exp, for rows g and g + 8 (a
+// quad shares a row), each over every key tile (past one tile the scores are
+// recomputed, so the sum is taken at the final max, as the TPU kernel does);
+// then p = exp(s - max) / sum, through the dropout of element
+// (e0 + row) * vol + key (Drop), rounded to bf16.
+template <int KT, bool Drop>
+__device__ __forceinline__ void tc_softmax(unsigned (&pa)[4 * KT][4], const __nv_bfloat16* qw,
+                                           const __nv_bfloat16* ks, int ld, int hcp,
+                                           const float* __restrict__ bh, int row0, int vol,
+                                           unsigned long long e0, const philox::Drop& d) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
+  float s[8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt * kTcKeys >= vol) continue;
+    tc_scores(s, qw, ks, ld, hcp, bh, row0, kt * kTcKeys, vol);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) m[r] = fmaxf(m[r], fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+  }
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt * kTcKeys >= vol) continue;
+    if (KT > 1) tc_scores(s, qw, ks, ld, hcp, bh, row0, kt * kTcKeys, vol);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = expf(s[j][e] - m[e >> 1]);
+        l[e >> 1] += x;
+        if (KT == 1) s[j][e] = x;   // one tile: exp(s - max) stays for p
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt * kTcKeys >= vol) continue;
+    if (KT > 1) tc_scores(s, qw, ks, ld, hcp, bh, row0, kt * kTcKeys, vol);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float p0 = (KT == 1 ? s[j][2 * r] : expf(s[j][2 * r] - m[r])) / l[r];
+        float p1 = (KT == 1 ? s[j][2 * r + 1] : expf(s[j][2 * r + 1] - m[r])) / l[r];
+        const int row = row0 + g + 8 * r, key = kt * kTcKeys + 8 * j + 2 * c4;
+        if (Drop && row < vol && key < vol) {
+          const unsigned long long e = (e0 + row) * vol + key;
+          if ((e & 1ull) == 0ull) {
+            philox::apply2(d, e, p0, p1);
+          } else {
+            p0 = philox::apply(d, e, p0);
+            if (key + 1 < vol) p1 = philox::apply(d, e + 1, p1);
+          }
+        }
+        pa[4 * kt + j / 2][2 * (j & 1) + r] = pack_bf16(p0, p1);
+      }
+    }
+  }
+}
+
+template <int KT, bool Drop>
+__global__ void __launch_bounds__(128)
+cuboid_tc_core_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ attn, int vol, int C, int heads, int hcp,
+                      philox::Drop d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hc = C / heads, ld = hcp + 8, vol16 = (vol + 15) & ~15, rows = blockDim.x / 2;
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [vol16][ld]
+  __nv_bfloat16* vs = ks + vol16 * ld;                               // [vol16][ld]
+  __nv_bfloat16* qs = vs + vol16 * ld;                               // [rows][ld]
+  const int cub = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * rows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
+  const size_t tok0 = (size_t)cub * vol;
+  const __nv_bfloat16* head = qkv + (size_t)h * hc;
+  // k and q, then v, in two groups: v arrives while the scores are computed
+  tc_load_rows(ks, ld, head + C, tok0, vol, vol16, C, hc, hcp);
+  tc_load_rows(qs, ld, head, tok0 + q0, vol - q0, rows, C, hc, hcp);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  tc_load_rows(vs, ld, head + 2 * C, tok0, vol, vol16, C, hc, hcp);
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;" ::: "memory");
+  __syncthreads();
+  const int row0 = q0 + warp * 16;   // the warp's first query row
+  const bool rows_here = row0 < vol;  // a ragged cuboid's last warp may have none
+  const __nv_bfloat16* qw = qs + warp * 16 * ld;
+  const float* bh = bias + (size_t)h * vol * vol;
+  unsigned pa[4 * KT][4];
+  if (rows_here)
+    tc_softmax<KT, Drop>(pa, qw, ks, ld, hcp, bh, row0, vol,
+                         ((unsigned long long)cub * heads + h) * vol, d);
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+  if (!rows_here) return;
+  // o = p . v, 64 output channels at a time
+  __nv_bfloat16* out = attn + (size_t)h * hc;
+  for (int c0 = 0; c0 < hcp; c0 += 64) {
+    float o[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    // matrices of v, transposed: keys 16 kk .. + 7 / + 8 .. + 15 x channels
+    // 8 j .. 8 j + 7, then the same for j + 1
+    const __nv_bfloat16* vrow = vs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + c0 + 8 * (lane >> 4);
+#pragma unroll
+    for (int kk = 0; kk < 4 * KT; ++kk) {
+      if (16 * kk >= vol) continue;
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        if (c0 + 8 * j >= hcp) continue;   // hcp is a multiple of 16: j + 1 too
+        unsigned b[4];
+        ldsm_x4<true>(b, vrow + 16 * kk * ld + 8 * j);
+        mma_bf16_16816(o[j], pa[kk], b[0], b[1]);
+        mma_bf16_16816(o[j + 1], pa[kk], b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = c0 + 8 * j + 2 * c4;
+      if (c >= hc) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + g + 8 * r;
+        if (row >= vol) continue;
+        __nv_bfloat16* dst = out + (tok0 + row) * C + c;
+        if (hc % 2 == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(o[j][2 * r], o[j][2 * r + 1]);
+        } else {
+          dst[0] = __float2bfloat16(o[j][2 * r]);
+          if (c + 1 < hc) dst[1] = __float2bfloat16(o[j][2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// LN(x) of every row into bf16 (M, K), one warp per row: the two-pass mean
+// and variance of ln_rows_sw128, for a QKV product wider than its LN tile.
+// x, w, b 16-byte aligned, K % 4 == 0.
+constexpr int kLnRowsPerBlock = 8;
+
+__global__ void __launch_bounds__(32 * kLnRowsPerBlock)
+ln_bf16_rows_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ b, __nv_bfloat16* __restrict__ out, int M, int K,
+                    float eps) {
+  const int row = blockIdx.x * kLnRowsPerBlock + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)row * K);
+  float s = 0.f;
+  for (int c = lane; c < K / 4; c += 32) {
+    const float4 v = xr[c];
+    s += (v.x + v.y) + (v.z + v.w);
+  }
+  const float mu = warp_sum(s) / K;
+  float var = 0.f;
+  for (int c = lane; c < K / 4; c += 32) {
+    const float4 v = xr[c];
+    var += (v.x - mu) * (v.x - mu) + (v.y - mu) * (v.y - mu) + (v.z - mu) * (v.z - mu) +
+           (v.w - mu) * (v.w - mu);
+  }
+  const float rs = rsqrtf(warp_sum(var) / K + eps);
+  for (int c = lane; c < K / 4; c += 32) {
+    const float4 v = xr[c], wv = reinterpret_cast<const float4*>(w)[c],
+                 bv = reinterpret_cast<const float4*>(b)[c];
+    const uint2 packed = make_uint2(pack_bf16((v.x - mu) * rs * wv.x + bv.x, (v.y - mu) * rs * wv.y + bv.y),
+                                    pack_bf16((v.z - mu) * rs * wv.z + bv.z, (v.w - mu) * rs * wv.w + bv.w));
+    reinterpret_cast<uint2*>(out + (size_t)row * K)[c] = packed;
   }
 }
 
@@ -1323,30 +1584,76 @@ grouped_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// The three launches of the general layer's forward; Drop adds the two dropouts.
+// The three launches of the general layer's forward; Drop adds the two
+// dropouts.  qkv (tokens, 3C) and attn (tokens, C) bf16 scratch; the QKV
+// product with the LN tile (ln_tile, bn_qkv its column tile) or, wider than
+// that tile, on bf16 LN rows written into attn first; the core in blocks of
+// q_rows query rows (16, 32 or 64) over key_tiles 64-key tiles (1, 2 or 4).
+template <int KT, bool Drop>
+cudaError_t tc_core(const __nv_bfloat16* qkv, const float* bias, __nv_bfloat16* attn,
+                    int n_cuboids, int vol, int C, int heads, int q_rows, philox::Drop d,
+                    cudaStream_t stream) {
+  static bool configured = false;   // once, at the most a block may take: no host call per launch
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cuboid_tc_core_kernel<KT, Drop>, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd::kSmemCap);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int hcp = (C / heads + 15) & ~15, vol16 = (vol + 15) & ~15;
+  const size_t smem = sizeof(__nv_bfloat16) * (size_t)(hcp + 8) * (2 * vol16 + q_rows);
+  if (smem > (size_t)fwd::kSmemCap) return cudaErrorInvalidValue;
+  cuboid_tc_core_kernel<KT, Drop><<<dim3(n_cuboids, heads, (vol + q_rows - 1) / q_rows),
+                                    2 * q_rows, smem, stream>>>(qkv, bias, attn, vol, C, heads,
+                                                                hcp, d);
+  return cudaGetLastError();
+}
+
 template <bool Drop>
 cudaError_t cuboid_forward_launches(const float* x, const float* ln_w, const float* ln_b,
-                                    const float* w_qkv, const float* bias, const float* w_proj,
-                                    const float* b_proj, float* qkv, float* attn, float* out,
-                                    int n_cuboids, int vol, int C, int heads, int q_tile,
-                                    float scale, float eps, cudaStream_t stream,
+                                    const void* wqkv_map, const float* bias,
+                                    const void* wproj_map, const float* b_proj,
+                                    __nv_bfloat16* qkv, __nv_bfloat16* attn, float* out,
+                                    int n_cuboids, int vol, int C, int heads, int bn_qkv,
+                                    int ln_tile, int q_rows, int key_tiles, float scale,
+                                    float eps, cudaStream_t stream,
                                     philox::Drop d_attn = philox::Drop{},
                                     philox::Drop d_proj = philox::Drop{}) {
-  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || vol < 1 || q_tile < 1)
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (C % 64 != 0 || C % heads != 0 || vol < 1 || vol > kTcKeys * key_tiles ||
+      (q_rows != 16 && q_rows != 32 && q_rows != 64) ||
+      (key_tiles != 1 && key_tiles != 2 && key_tiles != 4) || (bn_qkv != 128 && bn_qkv != 256) ||
+      !aligned(x) || !aligned(ln_w) || !aligned(ln_b) || !aligned(qkv) || !aligned(attn) ||
+      !aligned(b_proj) || (reinterpret_cast<uintptr_t>(out) & 7))
     return cudaErrorInvalidValue;
   const int M = n_cuboids * vol;
-  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream);
+  CUtensorMap wqkv, wproj, attn_map;
+  memcpy(&wqkv, wqkv_map, sizeof(wqkv));
+  memcpy(&wproj, wproj_map, sizeof(wproj));
+  const int enc = hopper::encode_bf16_matrix(&attn_map, attn, M, C, fwd::kBM);
+  if (enc != 0) return (cudaError_t)enc;
+  const philox::Drop none{};
+  cudaError_t err;
+  if (ln_tile) {
+    err = fwd::qkv_gemm(bn_qkv, wqkv, x, ln_w, ln_b, qkv, M, C, scale, eps, stream);
+  } else {   // LN rows into attn (free until the core), then the product on them by TMA
+    ln_bf16_rows_kernel<<<(M + kLnRowsPerBlock - 1) / kLnRowsPerBlock, 32 * kLnRowsPerBlock, 0,
+                          stream>>>(x, ln_w, ln_b, attn, M, C, eps);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = fwd::gemm<128, 0, false, true>(attn_map, wqkv, nullptr, nullptr, nullptr, nullptr, qkv, M,
+                                         3 * C, C, C, scale, eps, none, stream);
+  }
   if (err != cudaSuccess) return err;
-  const size_t smem = cuboid_core_smem(vol, C / heads, q_tile, false);
-  err = cudaFuncSetAttribute(cuboid_core_kernel<Drop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  if (key_tiles == 1)
+    err = tc_core<1, Drop>(qkv, bias, attn, n_cuboids, vol, C, heads, q_rows, d_attn, stream);
+  else if (key_tiles == 2)
+    err = tc_core<2, Drop>(qkv, bias, attn, n_cuboids, vol, C, heads, q_rows, d_attn, stream);
+  else
+    err = tc_core<4, Drop>(qkv, bias, attn, n_cuboids, vol, C, heads, q_rows, d_attn, stream);
   if (err != cudaSuccess) return err;
-  cuboid_core_kernel<Drop><<<dim3(n_cuboids, heads, (vol + q_tile - 1) / q_tile), kCoreThreads,
-                             smem, stream>>>(qkv, bias, attn, vol, C, heads, q_tile, scale, d_attn);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return gemm<Drop ? 2 : 0>(attn, nullptr, nullptr, w_proj, b_proj, out, M, C, C, 0, eps, stream,
-                            nullptr, d_proj);
+  return fwd::gemm<128, 0, Drop>(attn_map, wproj, nullptr, nullptr, nullptr, b_proj, out, M, C, C,
+                                 0, 1.f, eps, d_proj, stream);
 }
 
 // The two gradient cores: dqkv and stats (and, Full, attn and the dbias partials).
@@ -1357,7 +1664,7 @@ cudaError_t cuboid_core_bwd_launches(const float* qkv, const float* dattn, const
                                      int q_tile, int tile, int cuboids_per_block, float scale,
                                      cudaStream_t stream, philox::Drop d_attn) {
   const int hc = C / heads;
-  size_t smem = cuboid_core_smem(vol, hc, q_tile, true);
+  size_t smem = cuboid_core_smem(vol, hc, q_tile);
   cudaError_t err = cudaFuncSetAttribute(cuboid_core_bwd_q_kernel<Full, Drop>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1397,9 +1704,9 @@ cudaError_t cuboid_bwd_full_launches(
       cuboids_per_block < 1 || ksplit_qkv < 1 || ksplit_proj < 1)
     return cudaErrorInvalidValue;
   const int M = n_cuboids * vol;
-  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream, ln_bf);
+  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, qkv, M, 3 * C, C, 0, eps, stream, ln_bf);
   if (err != cudaSuccess) return err;
-  err = gemm<Drop ? 1 : 0>(g, nullptr, nullptr, w_proj, nullptr, dattn, M, C, C, 1, eps, stream,
+  err = gemm<Drop ? 1 : 0>(g, nullptr, nullptr, w_proj, dattn, M, C, C, 1, eps, stream,
                            do_bf, d_proj);
   if (err != cudaSuccess) return err;
   err = cuboid_core_bwd_launches<true, Drop>(qkv, dattn, bias, dqkv, attn_bf, stats, dbias_part,
@@ -1407,7 +1714,7 @@ cudaError_t cuboid_bwd_full_launches(
                                              cuboids_per_block, scale, stream, d_attn);
   if (err != cudaSuccess) return err;
   const int groups = (n_cuboids + cuboids_per_block - 1) / cuboids_per_block;
-  err = gemm(dqkv, nullptr, nullptr, w_qkv, nullptr, dln, M, C, 3 * C, 1, eps, stream);
+  err = gemm(dqkv, nullptr, nullptr, w_qkv, dln, M, C, 3 * C, 1, eps, stream);
   if (err != cudaSuccess) return err;
   err = ln_backward(x, ln_w, dln, dx, M, C, eps, stream);
   if (err != cudaSuccess) return err;
@@ -1662,33 +1969,39 @@ extern "C" int axial_attention_dropout_bwd_full(
 }
 
 // The general cuboid layer on x in cuboid_reorder's layout (n_cuboids * vol
-// tokens, C); scratch qkv (tokens, 3C) and attn (tokens, C); bias (heads, vol, vol).
+// tokens, C); wqkv_map / wproj_map the tensor maps of the bf16 copies of
+// w_qkv (boxes of bn_qkv rows) and w_proj (128 rows); qkv (tokens, 3C) and
+// attn (tokens, C) bf16 scratch; bias (heads, vol, vol); ln_tile, q_rows and
+// key_tiles as ops/attention.cuboid_layer_plan gives them.
 extern "C" int cuboid_attention_forward(const float* x, const float* ln_w, const float* ln_b,
-                                        const float* w_qkv, const float* bias,
-                                        const float* w_proj, const float* b_proj, float* qkv,
-                                        float* attn, float* out, int n_cuboids, int vol, int C,
-                                        int heads, int q_tile, float scale, float eps,
+                                        const void* wqkv_map, const float* bias,
+                                        const void* wproj_map, const float* b_proj, void* qkv,
+                                        void* attn, float* out, int n_cuboids, int vol, int C,
+                                        int heads, int bn_qkv, int ln_tile, int q_rows,
+                                        int key_tiles, float scale, float eps,
                                         cudaStream_t stream) {
-  return (int)cuboid_forward_launches<false>(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv,
-                                             attn, out, n_cuboids, vol, C, heads, q_tile, scale,
-                                             eps, stream);
+  return (int)cuboid_forward_launches<false>(
+      x, ln_w, ln_b, wqkv_map, bias, wproj_map, b_proj, static_cast<__nv_bfloat16*>(qkv),
+      static_cast<__nv_bfloat16*>(attn), out, n_cuboids, vol, C, heads, bn_qkv, ln_tile, q_rows,
+      key_tiles, scale, eps, stream);
 }
 
 // The general cuboid layer with dropout on the attention weights and on the
 // projected output (its (tokens, C) rows in cuboid_reorder's order): the masks
 // of the stream (seed_lo, seed_hi, site), tensors 0 and 1, as
-// axial_attention_dropout_forward.
+// axial_attention_dropout_forward.  Arguments as cuboid_attention_forward.
 extern "C" int cuboid_attention_dropout_forward(
-    const float* x, const float* ln_w, const float* ln_b, const float* w_qkv, const float* bias,
-    const float* w_proj, const float* b_proj, float* qkv, float* attn, float* out, int n_cuboids,
-    int vol, int C, int heads, int q_tile, float scale, float eps, unsigned seed_lo,
-    unsigned seed_hi, unsigned site, unsigned thr_attn, float keep_attn, unsigned thr_proj,
-    float keep_proj, cudaStream_t stream) {
+    const float* x, const float* ln_w, const float* ln_b, const void* wqkv_map, const float* bias,
+    const void* wproj_map, const float* b_proj, void* qkv, void* attn, float* out, int n_cuboids,
+    int vol, int C, int heads, int bn_qkv, int ln_tile, int q_rows, int key_tiles, float scale,
+    float eps, unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn,
+    float keep_attn, unsigned thr_proj, float keep_proj, cudaStream_t stream) {
   const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn};
   const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj};
-  return (int)cuboid_forward_launches<true>(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv, attn,
-                                            out, n_cuboids, vol, C, heads, q_tile, scale, eps,
-                                            stream, d_attn, d_proj);
+  return (int)cuboid_forward_launches<true>(
+      x, ln_w, ln_b, wqkv_map, bias, wproj_map, b_proj, static_cast<__nv_bfloat16*>(qkv),
+      static_cast<__nv_bfloat16*>(attn), out, n_cuboids, vol, C, heads, bn_qkv, ln_tile, q_rows,
+      key_tiles, scale, eps, stream, d_attn, d_proj);
 }
 
 // dx of the general cuboid layer for the output cotangent g (tokens, C), both
@@ -1703,15 +2016,15 @@ extern "C" int cuboid_attention_bwd_dx(const float* x, const float* g, const flo
   if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || vol < 1 || q_tile < 1 || tile < 1)
     return (int)cudaErrorInvalidValue;
   const int M = n_cuboids * vol;
-  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, nullptr, qkv, M, 3 * C, C, 0, eps, stream);
+  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, qkv, M, 3 * C, C, 0, eps, stream);
   if (err != cudaSuccess) return (int)err;
-  err = gemm(g, nullptr, nullptr, w_proj, nullptr, dattn, M, C, C, 1, eps, stream);
+  err = gemm(g, nullptr, nullptr, w_proj, dattn, M, C, C, 1, eps, stream);
   if (err != cudaSuccess) return (int)err;
   err = cuboid_core_bwd_launches<false, false>(qkv, dattn, bias, dqkv, nullptr, stats, nullptr,
                                                n_cuboids, vol, C, heads, q_tile, tile, 1, scale,
                                                stream, philox::Drop{});
   if (err != cudaSuccess) return (int)err;
-  err = gemm(dqkv, nullptr, nullptr, w_qkv, nullptr, dln, M, C, 3 * C, 1, eps, stream);
+  err = gemm(dqkv, nullptr, nullptr, w_qkv, dln, M, C, 3 * C, 1, eps, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)ln_backward(x, ln_w, dln, dx, M, C, eps, stream);
 }

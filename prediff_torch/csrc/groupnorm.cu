@@ -2,20 +2,35 @@
 //
 // Replaces prediff_tpu/ops/pallas_groupnorm.py::fused_groupnorm_silu (its
 // _stats_kernel + _apply_kernel).  The TPU carried per-group sums across a
-// sequential grid; here blocks run in no order, so the statistics take two
-// launches:
+// sequential grid; here blocks run in no order.  The work is bound by bytes
+// (x read once, y written once: ~7 MB at the UNet's widest site, 2 us at the
+// card's memory rate), so the design reads x from device memory once.
+//
+// gn_cluster_kernel (one launch): a thread-block cluster of 1, 2, 4 or 8
+// blocks per (sample, group), split along the tokens, so that B x groups x
+// cluster fills the card at B = 1 (32 groups: clusters of 4).  Each block
+// copies its tokens x the group's channels into shared memory by cp.async
+// (16 bytes where the group's channels allow it, else 4), every value in
+// flight at once; each thread runs Welford (count, mean, M2) over a strided
+// strip of the tile, the warp's lanes and then the block's warps merge by
+// Chan's formula in a fixed tree, and the ranks read each other's partials
+// through distributed shared memory and merge them in rank order (every rank
+// the same order, so every rank and every run gets the same bits).  Each
+// block then normalises, applies the affine and SiLU from its shared tile and
+// stores y.  No workspace, no atomics, no second read of x.  Welford and
+// Chan's merge never form E[x^2] - E[x]^2, so there is no cancellation when
+// |mean| >> std.  emb is added where a value is read from the tile, so
+// x + emb never reaches memory.
+//
+// Where a (sample, group) does not fit the shared memory of a cluster of 8
+// (ops/groupnorm.gn_plan, by shape), the two launches of the first design
+// run instead:
 //   gn_stats_kernel  grid (splits, B): each block reads a slice of tokens,
 //                    every thread keeps a Welford (count, mean, M2) per
-//                    channel (coalesced: neighbouring threads, neighbouring
-//                    channels), then the channels of each group are merged
+//                    channel, then the channels of each group are merged
 //                    (Chan's formula) into one partial per (b, split, group).
 //   gn_apply_kernel  grid (token tiles, B): merges the partials of its
 //                    sample, then normalise + affine + SiLU in one pass.
-// Welford and Chan's merge never form E[x^2] - E[x]^2, so there is no
-// cancellation when |mean| >> std.  emb is added in both passes, so x + emb
-// never reaches memory.  No matrix product: the work is bound by bytes
-// (x read twice, y written once), and the design keeps each pass to one
-// coalesced sweep.
 //
 // All gradients (gn_silu_bwd_full): replaces
 // pallas_groupnorm.py::fused_groupnorm_silu_bwd_full (_gn_bwd_full_kernel):
@@ -35,9 +50,13 @@
 // sum_partials_kernel adds the samples in order: no atomics.  No matrix
 // product: bound by bytes (x and g read, dx written).
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "grad_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -137,6 +156,108 @@ gn_apply_kernel(const float* __restrict__ x, const float* __restrict__ emb,
     float t = (v - mean[g]) * rstd[g] * gamma[c] + beta[c];
     y[base + i] = t / (1.f + expf(-t));
   }
+}
+
+// ---------------------------------------------------------------------------
+// One launch: a cluster of `gridDim.x / groups` blocks per (sample, group)
+// along the tokens, rank r taking tokens r * tpr .. r * tpr + tpr - 1.  VW
+// floats per copy: 4 (16 bytes; cpg % 4 == 0 and 16-byte aligned x and y) or 1.
+constexpr int kGnThreads = 256;
+
+__device__ __forceinline__ Stat shfl_down(Stat s, int o) {
+  return Stat{__shfl_down_sync(0xffffffffu, s.n, o), __shfl_down_sync(0xffffffffu, s.mean, o),
+              __shfl_down_sync(0xffffffffu, s.m2, o)};
+}
+
+template <int VW>
+__global__ void __launch_bounds__(kGnThreads)
+gn_cluster_kernel(const float* __restrict__ x, const float* __restrict__ emb,
+                  const float* __restrict__ gamma, const float* __restrict__ beta,
+                  float* __restrict__ y, int N, int C, int cpg, int tpr, float eps) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);   // [tpr][cpg] this rank's tokens
+  float* es = xs + (size_t)tpr * cpg;            // [cpg] emb, gamma, beta of the group
+  float* gs = es + cpg;
+  float* bs = gs + cpg;
+  __shared__ Stat warp_part[kGnThreads / 32];
+  __shared__ Stat part;                          // this rank's partial, read by the cluster
+  __shared__ float mean_rstd[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), ranks = (int)cluster.num_blocks();
+  const int g = blockIdx.x / ranks, b = blockIdx.y, tid = threadIdx.x;
+  const int n0 = rank * tpr, nt = max(0, min(tpr, N - n0));
+  const int count = nt * cpg, cw = cpg / VW;     // values, copies per token
+  const size_t base = ((size_t)b * N + n0) * C + (size_t)g * cpg;
+
+  for (int i = tid; i < nt * cw; i += kGnThreads) {
+    const int t = i / cw, c = (i % cw) * VW;
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(xs + t * cpg + c));
+    const float* src = x + base + (size_t)t * C + c;
+    if (VW == 4)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  for (int c = tid; c < cpg; c += kGnThreads) {   // while the tile is in flight
+    const int ch = g * cpg + c;
+    es[c] = emb != nullptr ? emb[(size_t)b * C + ch] : 0.f;
+    gs[c] = gamma[ch];
+    bs[c] = beta[ch];
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+
+  // Welford over values tid, tid + kGnThreads, ... of the tile; value i is
+  // channel i % cpg, which advances by kGnThreads % cpg per step
+  Stat st{0.f, 0.f, 0.f};
+  const int step = kGnThreads % cpg;
+  int c = tid % cpg;
+  for (int i = tid; i < count; i += kGnThreads) {
+    const float v = xs[i] + es[c];
+    st.n += 1.f;
+    const float d = v - st.mean;
+    st.mean += d / st.n;
+    st.m2 += d * (v - st.mean);
+    c += step;
+    if (c >= cpg) c -= cpg;
+  }
+  // lanes, then warps, then ranks, each merged in a fixed order
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) st = merge(st, shfl_down(st, o));
+  if ((tid & 31) == 0) warp_part[tid >> 5] = st;
+  __syncthreads();
+  if (tid == 0) {
+    Stat acc = warp_part[0];
+    for (int w = 1; w < kGnThreads / 32; ++w) acc = merge(acc, warp_part[w]);
+    part = acc;
+  }
+  cluster.sync();   // every rank's partial is written and visible
+  if (tid == 0) {
+    Stat acc = *cluster.map_shared_rank(&part, 0);
+    for (int r = 1; r < ranks; ++r) acc = merge(acc, *cluster.map_shared_rank(&part, r));
+    mean_rstd[0] = acc.mean;
+    mean_rstd[1] = rsqrtf(acc.m2 / acc.n + eps);
+  }
+  __syncthreads();
+  // this rank is done with its peers' partials; it waits for theirs on its own at the end
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  const float mean = mean_rstd[0], rstd = mean_rstd[1];
+  for (int i = tid; i < nt * cw; i += kGnThreads) {
+    const int t = i / cw, c0 = (i % cw) * VW;
+    float out[VW];
+#pragma unroll
+    for (int e = 0; e < VW; ++e) {
+      const float v = (xs[t * cpg + c0 + e] + es[c0 + e] - mean) * rstd * gs[c0 + e] + bs[c0 + e];
+      out[e] = v / (1.f + expf(-v));
+    }
+    float* dst = y + base + (size_t)t * C + c0;
+    if (VW == 4)
+      *reinterpret_cast<float4*>(dst) = make_float4(out[0], out[1], out[2], out[3]);
+    else
+      dst[0] = out[0];
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -247,6 +368,55 @@ extern "C" int gn_silu_bwd_full(const float* x, const float* emb, const float* g
   return (int)gradk::sum_partials(gpart, vec, (size_t)2 * C, B, stream);
 }
 
+// One launch: clusters of `cluster` blocks (1, 2, 4 or 8) per (sample,
+// group), tpr tokens a rank (cluster * tpr >= N), vw floats per copy (4 or
+// 1); the rank's tile and the group's emb, gamma and beta in shared memory.
+extern "C" int gn_silu_cluster_forward(const float* x, const float* emb, const float* gamma,
+                                       const float* beta, float* y, int B, int N, int C,
+                                       int groups, int cluster, int tpr, int vw, float eps,
+                                       cudaStream_t stream) {
+  constexpr int kSmemCap = 232448 - 1024;   // beside the kernel's static shared memory
+  if (groups < 1 || C % groups != 0 || B < 1 || B > 65535 || N < 1 || tpr < 1 ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+      (long long)cluster * tpr < N || (vw != 1 && vw != 4))
+    return (int)cudaErrorInvalidValue;
+  const int cpg = C / groups;
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (vw == 4 && (cpg % 4 != 0 || !aligned(x) || !aligned(y))) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)tpr * cpg + 3 * (size_t)cpg);
+  if (smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
+  static bool configured[2] = {false, false};   // once per instance, at the most a block may take
+  const int which = vw == 4;
+  if (!configured[which]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        which ? gn_cluster_kernel<4> : gn_cluster_kernel<1>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
+    if (err != cudaSuccess) return (int)err;
+    configured[which] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups * cluster, B);
+  cfg.blockDim = dim3(kGnThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      which ? cudaLaunchKernelEx(&cfg, gn_cluster_kernel<4>, x, emb, gamma, beta, y, N, C, cpg,
+                                 tpr, eps)
+            : cudaLaunchKernelEx(&cfg, gn_cluster_kernel<1>, x, emb, gamma, beta, y, N, C, cpg,
+                                 tpr, eps);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The two launches of the first design, for the groups no cluster holds:
+// part (B, ceil(N / tok_per_split), groups, 3) f32 workspace.
 extern "C" int gn_silu_forward(const float* x, const float* emb, const float* gamma,
                                const float* beta, float* y, float* part, int B, int N,
                                int C, int groups, int tok_per_split, int tok_per_block,

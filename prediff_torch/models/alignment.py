@@ -17,9 +17,9 @@ instead of training another model than the configuration names.
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.groupnorm import groupnorm_silu_plain
 from .cuboid_attention import StackCuboidSelfAttentionBlock
 from .layers import (PatchMerging3D, PosEmbed, TimeEmbedLayer, TimeEmbedResBlock, conv_nthwc,
                      timestep_embedding)
@@ -136,6 +136,7 @@ class NoisyCuboidTransformerEncoder(nn.Module):
             x = x[:, -self.out_len:]
         T_cur, C = x.shape[1], x.shape[-1]
         norm, pool = self.out[0], self.out[2]
-        tokens = groupnorm_silu_plain(x.reshape(B * T_cur, -1, C), norm.weight, norm.bias,
-                                      groups=norm.num_groups, eps=norm.eps)
+        # the readout's GroupNorm + SiLU are library calls, as the JAX net's flax ops are
+        tokens = F.silu(F.group_norm(x.reshape(B * T_cur, -1, C).transpose(1, 2), norm.num_groups,
+                                     norm.weight, norm.bias, norm.eps)).transpose(1, 2)
         return pool(tokens).reshape(B, T_cur, self.out_channels)

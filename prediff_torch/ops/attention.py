@@ -39,7 +39,9 @@ function on x already reordered into (B, cuboids, vol, C) by
 ``cuboid_reorder``, for any unshifted, unpadded cuboid of vol <= 256
 (``V4_MAX_ROWS``); ``bias`` (heads, vol, vol) is indexed in the reorder's
 within-cuboid order.  Its kernel replaces
-``pallas_attention.py::fused_cuboid_attention_layer_v4`` and its input
+``pallas_attention.py::fused_cuboid_attention_layer_v4``: the axial
+forward's two products around a core on the tensor cores (bf16 ``mma.sync``,
+p in registers), tiled by :func:`cuboid_layer_plan`; its input
 gradient (:func:`fused_cuboid_attention_layer_bwd_dx`)
 ``fused_cuboid_attention_layer_v4_bwd_dx``, with the axial kernels' bf16
 rounding points; its all-gradients backward
@@ -90,8 +92,8 @@ _SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
                "axial_attention_dropout_forward": [_P] * 10 + [_I] * 8 + [_F, _F] + _DROP + [_P],
                "axial_attention_dropout_bwd_full": ([_P] * 22 + [_I] * 10 + [_F, _F] + _DROP
                                                     + [_P]),
-               "cuboid_attention_forward": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
-               "cuboid_attention_dropout_forward": [_P] * 10 + [_I] * 5 + [_F, _F] + _DROP + [_P],
+               "cuboid_attention_forward": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
+               "cuboid_attention_dropout_forward": [_P] * 10 + [_I] * 8 + [_F, _F] + _DROP + [_P],
                "cuboid_attention_bwd_dx": [_P] * 13 + [_I] * 6 + [_F, _F, _P],
                "cuboid_attention_bwd_full": [_P] * 22 + [_I] * 9 + [_F, _F, _P],
                "cuboid_attention_dropout_bwd_full": [_P] * 23 + [_I] * 9 + [_F, _F] + _DROP + [_P],
@@ -167,6 +169,89 @@ def attention_plan(M: int, C: int):
         raise ValueError(f"attention kernel: C={C} exceeds the forward's LayerNorm tile "
                          f"(at most {LN_MAX_K} channels)")
     return qkv, GemmPlan(M, C, C, 128, False)
+
+
+@dataclass(frozen=True)
+class CoreTile:
+    """The general layer's forward core (``csrc/attention.cu``
+    ``cuboid_tc_core_kernel``): one block per (cuboid, head, ``rows`` query
+    rows), a warp per 16 rows; k and v of the whole cuboid (``vol16`` rows,
+    zeros past vol) and the block's q rows in shared memory as bf16 rows of
+    ``hcp`` channels (hc rounded up to 16, zeros past hc) at a stride of
+    ``hcp + 8``; p of ``key_tiles`` 64-key tiles in registers."""
+    n_cuboids: int
+    heads: int
+    vol: int
+    hc: int
+    rows: int
+
+    @property
+    def hcp(self) -> int:
+        return -(-self.hc // 16) * 16
+
+    @property
+    def vol16(self) -> int:
+        return -(-self.vol // 16) * 16
+
+    @property
+    def key_tiles(self) -> int:
+        """The kernel instance: 64-key tiles of p a warp holds (1, 2 or 4)."""
+        return next(t for t in (1, 2, 4) if self.vol <= 64 * t)
+
+    @property
+    def blocks(self):
+        """The grid: (cuboids, heads, query tiles)."""
+        return self.n_cuboids, self.heads, -(-self.vol // self.rows)
+
+    @property
+    def smem_bytes(self) -> int:
+        return 2 * (self.hcp + 8) * (2 * self.vol16 + self.rows)
+
+    @property
+    def fragment_registers(self) -> int:
+        """32-bit registers of fragment state a thread holds: p (bf16 pairs,
+        4 per 16 keys), a 16 x 64 score tile and a 16 x 64 output slice (32
+        f32 each), one q fragment (4)."""
+        return 16 * self.key_tiles + 32 + 32 + 4
+
+    def tile(self, cuboid: int, head: int, z: int, warp: int) -> range:
+        """The query rows of (cuboid, head) that warp ``warp`` of block z writes."""
+        r0 = z * self.rows + 16 * warp
+        return range(min(r0, self.vol), min(r0 + 16, self.vol))
+
+
+@dataclass(frozen=True)
+class CuboidLayerPlan:
+    """The general layer's three launches: the QKV product (with the LN tile
+    where C <= ``LN_MAX_K``, else on bf16 LN rows by TMA), the core, the
+    projection."""
+    qkv: GemmPlan
+    core: CoreTile
+    proj: GemmPlan
+
+
+@lru_cache(maxsize=None)
+def cuboid_layer_plan(n_cuboids: int, vol: int, C: int, heads: int) -> CuboidLayerPlan:
+    """The products as the axial forward tiles them (:func:`attention_plan`)
+    over M = cuboids x vol rows; where C exceeds the LN tile, the QKV product
+    reads bf16 LN rows by TMA in 128 x 128 tiles instead.  The core in
+    blocks of the most of 64, 32, 16 query rows (at most vol rounded up to
+    16) that fits shared memory: the cuboid's k and v are copied once for
+    more rows, and the warps of a block hide each other's latency (on the
+    H100, 64-row blocks beat 16-row ones at every UNet shape, also where they
+    leave SMs idle); raise where none fits."""
+    M, hc = n_cuboids * vol, C // heads
+    if C <= LN_MAX_K:
+        qkv, proj = attention_plan(M, C)
+    else:
+        qkv, proj = GemmPlan(M, 3 * C, C, 128, False), GemmPlan(M, C, C, 128, False)
+    fits = [t for t in (CoreTile(n_cuboids, heads, vol, hc, rows) for rows in (64, 32, 16)
+                        if rows <= -(-vol // 16) * 16)
+            if t.smem_bytes <= GEMM_SMEM_CAP]
+    if not fits:
+        raise ValueError(f"cuboid attention kernel: a cuboid of {vol} rows x {hc} head channels "
+                         "does not fit in shared memory")
+    return CuboidLayerPlan(qkv, fits[0], proj)
 
 
 def axial_cuboid_size(shape, axis: int):
@@ -649,20 +734,28 @@ def _check_cuboid(x, num_heads):
 
 
 def _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps, drop=None):
-    """Launch the forward; ``drop`` = (rate_attn, rate_proj, seed, site) takes
-    the dropout entry point."""
-    n_cuboids, vol, C, q_tile = _check_cuboid(x, num_heads)
+    """Launch the forward on the bf16 copies of w_qkv and w_proj kept per
+    parameter version, with one bf16 scratch for qkv and the head outputs
+    (also the LN rows where C exceeds the LN tile); ``drop`` = (rate_attn,
+    rate_proj, seed, site) takes the dropout entry point."""
+    n_cuboids, vol, C, _ = _check_cuboid(x, num_heads)
+    plan = cuboid_layer_plan(n_cuboids, vol, C, num_heads)
     _build.require("cuboid_attention", [
         ("x", x, tuple(x.shape)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
         ("w_qkv", w_qkv, (3 * C, C)), ("bias", bias, (num_heads, vol, vol)),
         ("w_proj", w_proj, (C, C)), ("b_proj", b_proj, (C,))])
+    x, ln_w, ln_b, b_proj = _build.aligned16(x, ln_w, ln_b, b_proj)
     M = n_cuboids * vol
-    qkv = torch.empty((M, 3 * C), dtype=torch.float32, device=x.device)
-    attn = torch.empty((M, C), dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
     lib = _build.load("attention", _SIGNATURES)
-    ptrs = [_build.ptr(t) for t in (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, qkv, attn, out)]
-    dims = (n_cuboids, vol, C, num_heads, q_tile, float(scale), float(eps))
+    _, wqkv_map = weights.linear_map(w_qkv, plan.qkv.bn, lib)
+    _, wproj_map = weights.linear_map(w_proj, plan.proj.bn, lib)
+    scratch = torch.empty(M * 4 * C, dtype=torch.bfloat16, device=x.device)   # qkv | attn
+    out = torch.empty_like(x)
+    ptrs = [_build.ptr(x), _build.ptr(ln_w), _build.ptr(ln_b), wqkv_map, _build.ptr(bias),
+            wproj_map, _build.ptr(b_proj), _build.ptr(scratch), _build.ptr(scratch) + 6 * M * C,
+            _build.ptr(out)]
+    dims = (n_cuboids, vol, C, num_heads, plan.qkv.bn, int(plan.qkv.ln), plan.core.rows,
+            plan.core.key_tiles, float(scale), float(eps))
     if drop is None:
         err = lib.cuboid_attention_forward(*ptrs, *dims, _build.stream_ptr(x.device))
         _build.check(err, "cuboid_attention_forward")
@@ -806,6 +899,16 @@ def _cuboid_bwd_full_kernel(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, sc
     return dx, vec[0], vec[1], dw_qkv, dbias, dw_proj, vec[2]
 
 
+def _cuboid_forward(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps, drop):
+    if drop is not None:
+        return fused_cuboid_attention_layer_dropout(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
+                                                    num_heads, scale, eps, *drop)
+    if not x.is_cuda:
+        return cuboid_attention_plain(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
+                                      scale, eps)
+    return _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps)
+
+
 class _FusedCuboidAttention(torch.autograd.Function):
     """As :class:`_FusedAxialAttention`: the all-gradients kernel when a
     parameter gradient is asked for or dropout is on (training), the dx
@@ -816,13 +919,8 @@ class _FusedCuboidAttention(torch.autograd.Function):
         ctx.save_for_backward(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj)
         ctx.args = (num_heads, scale, eps)
         ctx.drop = drop
-        if drop is not None:
-            return fused_cuboid_attention_layer_dropout(x, ln_w, ln_b, w_qkv, bias, w_proj,
-                                                        b_proj, num_heads, scale, eps, *drop)
-        if not x.is_cuda:
-            return cuboid_attention_plain(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
-                                          scale, eps)
-        return _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps)
+        return _cuboid_forward(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps,
+                               drop)
 
     @staticmethod
     def backward(ctx, g):
@@ -853,16 +951,21 @@ def fused_cuboid_attention_layer(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torc
                                  site: int = 0) -> torch.Tensor:
     """The general cuboid layer on x (B, cuboids, vol, C).  CPU tensor: the
     plain version in f32.  CUDA tensor: the kernel, or raise.  Differentiable
-    on both.  With a ``seed`` the dropout kernels run, with the masks of
-    ``(seed, site)`` at the two rates; without one the rates must be 0."""
+    on both; where autograd records nothing the call goes straight to the
+    forward, without the ``autograd.Function``.  With a ``seed`` the dropout
+    kernels run, with the masks of ``(seed, site)`` at the two rates; without
+    one the rates must be 0."""
     if seed is None:
         if rate_attn > 0.0 or rate_proj > 0.0:
             raise ValueError("fused_cuboid_attention_layer: a dropout rate above 0 needs a seed")
         drop = None
     else:
         drop = (float(rate_attn), float(rate_proj), int(seed), int(site))
-    return _FusedCuboidAttention.apply(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
-                                       scale, eps, drop)
+    if _build.needs_grad(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj):
+        return _FusedCuboidAttention.apply(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
+                                           scale, eps, drop)
+    return _cuboid_forward(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps,
+                           drop)
 
 
 # --------------------------------------------------------------------------- #

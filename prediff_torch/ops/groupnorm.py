@@ -2,11 +2,18 @@
 
 The kernel (``csrc/groupnorm.cu``) replaces
 ``prediff_tpu/ops/pallas_groupnorm.py::fused_groupnorm_silu``.  It is bound
-by bytes: a stats pass and an apply pass, each one coalesced sweep over x,
-with ``emb`` folded into both so that ``x + emb`` never reaches memory.
-Statistics are Welford per channel merged by Chan's formula, never
-E[x^2] - E[x]^2.  It takes any ``groups`` that divides C <= 1024, so the
-UNet's 65-channel ``first_proj.in_layers_0`` (groups = 65) runs it too.
+by bytes, and reads x once: one launch of a thread-block cluster per
+(sample, group), split along the tokens (:func:`gn_plan`), each block holding
+its tokens x the group's channels in shared memory; statistics are Welford
+per thread merged by Chan's formula (lanes, warps, then the cluster's ranks
+in rank order through distributed shared memory), never E[x^2] - E[x]^2.
+``emb`` is added where a value is read, so ``x + emb`` never reaches memory.
+It takes any ``groups`` that divides C <= 1024, so the UNet's 65-channel
+``first_proj.in_layers_0`` (groups = 65, one channel a group) runs it too.
+The route is chosen by shape, never on failure: a (sample, group) that
+does not fit the shared memory of a cluster of ``GN_MAX_CLUSTER`` blocks
+(more than ~1.8 MB of values) takes the first design's two launches, a
+stats pass and an apply pass, each one coalesced sweep over x.
 
 :func:`fused_groupnorm_silu` is differentiable: its backward is one call of
 :func:`fused_groupnorm_silu_bwd_full` (``gn_silu_bwd_full`` in the same
@@ -15,17 +22,81 @@ source), which replaces
 dbias and demb together, whichever of them was asked for.
 """
 import math
+from dataclasses import dataclass
+from functools import lru_cache
 from typing import Optional
 
 import torch
 
 from . import _build
 
-_TOK_PER_SPLIT = 64    # tokens per stats block
-_TOK_PER_BLOCK = 16    # tokens per apply block
+_TOK_PER_SPLIT = 64    # tokens per stats block (two-pass route)
+_TOK_PER_BLOCK = 16    # tokens per apply block (two-pass route)
 _P, _I, _F = _build.P, _build.I, _build.F
 _SIGNATURES = {"gn_silu_forward": [_P] * 6 + [_I] * 6 + [_F, _P],
+               "gn_silu_cluster_forward": [_P] * 5 + [_I] * 7 + [_F, _P],
                "gn_silu_bwd_full": [_P] * 9 + [_I] * 5 + [_F, _P]}
+# csrc/groupnorm.cu gn_cluster_kernel: dynamic shared memory a block may take,
+# threads a block, the largest (portable) cluster, and the blocks a launch
+# aims for (about one per SM of the H100's 132)
+GN_SMEM_CAP, GN_THREADS, GN_MAX_CLUSTER, GN_TARGET_BLOCKS = 232448 - 1024, 256, 8, 128
+
+
+@dataclass(frozen=True)
+class GnPlan:
+    """The one-launch kernel's split: a cluster of ``cluster`` blocks per
+    (sample, group), rank r holding tokens ``r * tpr .. r * tpr + tpr - 1``
+    (the last rank fewer) x the group's ``cpg`` channels in shared memory,
+    copied ``vw`` floats at a time (16 bytes where cpg allows)."""
+    B: int
+    N: int
+    C: int
+    groups: int
+    cluster: int
+
+    @property
+    def cpg(self) -> int:
+        return self.C // self.groups
+
+    @property
+    def tpr(self) -> int:
+        return -(-self.N // self.cluster)
+
+    @property
+    def vw(self) -> int:
+        return 4 if self.cpg % 4 == 0 else 1
+
+    @property
+    def blocks(self) -> int:
+        return self.B * self.groups * self.cluster
+
+    @property
+    def smem_bytes(self) -> int:
+        """The rank's tile and the group's emb, gamma and beta."""
+        return 4 * (self.tpr * self.cpg + 3 * self.cpg)
+
+    def tile(self, b: int, group: int, rank: int):
+        """(sample, tokens, channels) that block ``rank`` of the cluster of
+        (b, group) holds and writes."""
+        n0 = rank * self.tpr
+        return (b, range(min(n0, self.N), min(n0 + self.tpr, self.N)),
+                range(group * self.cpg, (group + 1) * self.cpg))
+
+
+@lru_cache(maxsize=None)
+def gn_plan(B: int, N: int, C: int, groups: int) -> Optional[GnPlan]:
+    """The one-launch kernel's plan for x (B, N, C), or None where a
+    (sample, group) does not fit even a cluster of ``GN_MAX_CLUSTER`` blocks:
+    that shape takes the two-pass kernels.  The cluster is the smallest of
+    1, 2, 4, 8 (at most N) that gives ``GN_TARGET_BLOCKS`` blocks, or larger
+    until a rank's tile fits ``GN_SMEM_CAP``."""
+    sizes = [c for c in (1, 2, 4, GN_MAX_CLUSTER) if c <= max(N, 1)]
+    want = next((c for c in sizes if B * groups * c >= GN_TARGET_BLOCKS), sizes[-1])
+    for c in sizes:
+        plan = GnPlan(B, N, C, groups, c)
+        if c >= want and plan.smem_bytes <= GN_SMEM_CAP:
+            return plan
+    return None
 
 
 def groupnorm_silu_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -112,18 +183,31 @@ def _groupnorm_kernel(x, weight, bias, emb, groups, eps):
     _build.require("groupnorm", [("x", x, (B, N, C)), ("weight", weight, (C,)),
                                  ("bias", bias, (C,))]
                    + ([("emb", emb, (B, C))] if emb is not None else []))
-    nsplit = -(-N // _TOK_PER_SPLIT)
-    part = torch.empty((B, nsplit, groups, 3), dtype=torch.float32, device=x.device)
+    plan = gn_plan(B, N, C, groups)
+    if plan is not None and plan.vw == 4:   # 16-byte copies
+        (x,) = _build.aligned16(x)
     y = torch.empty_like(x)
     lib = _build.load("groupnorm", _SIGNATURES)
-    err = lib.gn_silu_forward(
-        _build.ptr(x), _build.ptr(emb) if emb is not None else None,
-        _build.ptr(weight), _build.ptr(bias), _build.ptr(y), _build.ptr(part),
-        B, N, C, groups, _TOK_PER_SPLIT, _TOK_PER_BLOCK, float(eps),
-        _build.stream_ptr(x.device))
-    _build.check(err, "gn_silu_forward")
+    head = (_build.ptr(x), _build.ptr(emb) if emb is not None else None, _build.ptr(weight),
+            _build.ptr(bias), _build.ptr(y))
+    if plan is not None:
+        err = lib.gn_silu_cluster_forward(*head, B, N, C, groups, plan.cluster, plan.tpr, plan.vw,
+                                          float(eps), _build.stream_ptr(x.device))
+        _build.check(err, "gn_silu_cluster_forward")
+    else:
+        part = torch.empty((B, -(-N // _TOK_PER_SPLIT), groups, 3), dtype=torch.float32,
+                           device=x.device)
+        err = lib.gn_silu_forward(*head, _build.ptr(part), B, N, C, groups, _TOK_PER_SPLIT,
+                                  _TOK_PER_BLOCK, float(eps), _build.stream_ptr(x.device))
+        _build.check(err, "gn_silu_forward")
     fused_groupnorm_silu.launches += 1
     return y
+
+
+def _groupnorm_forward(x, weight, bias, emb, groups, eps):
+    if not x.is_cuda:
+        return groupnorm_silu_plain(x, weight, bias, emb, groups, eps)
+    return _groupnorm_kernel(x, weight, bias, emb, groups, eps)
 
 
 class _FusedGroupNormSiLU(torch.autograd.Function):
@@ -131,9 +215,7 @@ class _FusedGroupNormSiLU(torch.autograd.Function):
     def forward(ctx, x, weight, bias, emb, groups, eps):
         ctx.save_for_backward(x, weight, bias, emb)
         ctx.args = (groups, eps)
-        if not x.is_cuda:
-            return groupnorm_silu_plain(x, weight, bias, emb, groups, eps)
-        return _groupnorm_kernel(x, weight, bias, emb, groups, eps)
+        return _groupnorm_forward(x, weight, bias, emb, groups, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -146,8 +228,11 @@ def fused_groupnorm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
                          emb: Optional[torch.Tensor] = None, groups: int = 32,
                          eps: float = 1e-5) -> torch.Tensor:
     """CPU tensor: the plain version.  CUDA tensor: the kernel, or raise.
-    Differentiable on both."""
-    return _FusedGroupNormSiLU.apply(x, weight, bias, emb, groups, eps)
+    Differentiable on both; where autograd records nothing the call goes
+    straight to the forward, without the ``autograd.Function``."""
+    if _build.needs_grad(x, weight, bias, emb):
+        return _FusedGroupNormSiLU.apply(x, weight, bias, emb, groups, eps)
+    return _groupnorm_forward(x, weight, bias, emb, groups, eps)
 
 
 fused_groupnorm_silu.launches = 0

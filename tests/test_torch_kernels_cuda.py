@@ -81,6 +81,25 @@ def test_groupnorm_kernel_matches_plain(dev, N, C, groups, with_emb):
     assert fused_groupnorm_silu.launches == before + 1
 
 
+# (B, N, C, groups): B=2 (clusters of 2), the alignment net's 2 channels a
+# group (4-byte copies), 3 a group, and a group past a cluster's shared
+# memory (the two-pass route)
+@pytest.mark.parametrize("B,N,C,groups", [(2, 3328, 256, 32), (1, 1536, 64, 32),
+                                          (1, 100, 96, 32), (1, 240000, 64, 32)])
+def test_groupnorm_kernel_routes_match_plain_and_repeat(dev, B, N, C, groups):
+    from prediff_torch.ops.groupnorm import gn_plan
+
+    x = torch.randn(B, N, C, device=dev) * 2.0 + 3.0
+    w = 1.0 + 0.1 * torch.randn(C, device=dev)
+    b = 0.1 * torch.randn(C, device=dev)
+    emb = torch.randn(B, C, device=dev)
+    assert (gn_plan(B, N, C, groups) is None) == (N == 240000)
+    got = fused_groupnorm_silu(x, w, b, emb, groups=groups)
+    torch.testing.assert_close(got, groupnorm_silu_plain(x, w, b, emb, groups=groups),
+                               rtol=TOL_GN, atol=TOL_GN)
+    assert torch.equal(got, fused_groupnorm_silu(x, w, b, emb, groups=groups))
+
+
 @pytest.mark.parametrize("M,C", [(3328, 256), (832, 512), (100, 128)])
 def test_ffn_kernel_matches_plain(dev, M, C):
     hid = 4 * C
@@ -441,6 +460,22 @@ def test_cuboid_layer_kernels_match_plain(dev, shape):
                                              mxu_dtype=torch.bfloat16))
     assert (fused_cuboid_attention_layer.launches,
             fused_cuboid_attention_layer_bwd_dx.launches) == (before[0] + 1, before[1] + 1)
+
+
+# (B, cuboids, vol, C), heads: past the QKV product's LN tile (bf16 LN rows),
+# 12 head channels (the core's element-wise copies, hc padded to 16), ragged
+# vol in three key tiles
+@pytest.mark.parametrize("shape,heads", [((1, 4, 64, 1024), 4), ((1, 3, 40, 192), 16),
+                                         ((2, 5, 150, 128), 4)])
+def test_cuboid_layer_forward_routes_match_plain(dev, shape, heads):
+    args = _cuboid_args(dev, shape, heads)
+    scale = (shape[3] // heads) ** -0.5
+    got = fused_cuboid_attention_layer(*args, heads, scale)
+    err = (got - cuboid_attention_plain(*args, heads, scale, mxu_dtype=torch.bfloat16)).abs()
+    # the products sum C terms: a flipped bf16 rounding of q, k or v grows as
+    # sqrt(C), so the mean bar is MEAN_TOL_BF16's at C = 512 and above, as sqrt(C / 512)
+    assert err.max().item() <= TOL_BF16, err.max().item()
+    assert err.mean().item() <= MEAN_TOL_BF16 * max(1.0, shape[3] / 512) ** 0.5, err.mean().item()
 
 
 # (B, heads, cuboids, vol, hc), and the window mask's (T, H, W), cuboid, shift,
