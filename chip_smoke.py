@@ -7,7 +7,12 @@
 Phases, one JSON line each: the card; the kernels' build from
 ``prediff_torch/csrc``; each hand-written kernel against its plain PyTorch
 version at every shape the UNet (forecasting at B=1, training at the
-micro-batch size) and the alignment net give it, with times;
+micro-batch size) and the alignment net give it, with times; ``bwd_split``,
+each launch's share of the all-gradients backwards at the training shapes;
+the ``tiny_*`` phases on ``configs/tiny_smoke.yaml``, whose widths (16, 32)
+every FFN, attention and resblock kernel refuses: a forecast, a guidance
+shift and a training step at dropout 0 and 0.1, card against CPU, with no
+launch of those kernels;
 a full-width UNet forward on the card (kernels) against the same forward on
 the CPU (plain versions) with randomized weights; the guidance shift of the
 full-width alignment net on the card against the CPU's; then three chains
@@ -51,9 +56,11 @@ guidance shift card against CPU, ``conv_forecast`` and
 rate-0 phase).  Then the ``kernels`` summary line (per kernel its ms,
 bound, library call and ``vs_library``; the conv, the grouped cores, the
 GroupNorm+SiLU forward and the FFN, axial attention and general cuboid layer
-forwards also their device time alone from CUDA-graph replay, the last four
-with ``library_seq_ms``, the sequence of library calls that computes their
-function), the card's name and power limit, and as the last line
+forwards and all-gradients backwards also their device time alone from
+CUDA-graph replay, the forwards and the FFN and axial dropout backwards with
+``library_seq_ms``, the sequence of library calls that computes their
+function (for a backward: autograd's backward of that sequence, with the
+kernels' masks)), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that line is printed.
 """
@@ -466,6 +473,65 @@ def cuboid_library_seq(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale,
     return run
 
 
+def ffn_library_bwd(x, g, ln_w, ln_b, w1, b1, w2, rate_act, rate_out, seed, site):
+    """The yardstick of the FFN's all-gradients backward with dropout:
+    autograd's backward of ``ffn_library_seq``'s calls on bf16 weights with
+    the kernels' masks (``keep_mask`` of ``(seed, site)``) multiplied in, all
+    seven gradients.  Returns the closure that runs it."""
+    import torch
+    import torch.nn.functional as F
+    from prediff_torch.ops.dropout import keep_mask
+
+    M, C = x.shape
+    bf16 = torch.bfloat16
+    m1 = keep_mask(seed, site, 0, (M, w1.shape[0]), rate_act, x.device) / (1 - rate_act)
+    m2 = keep_mask(seed, site, 1, (M, C), rate_out, x.device) / (1 - rate_out)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, ln_w, ln_b, w1, b1, w2, torch.zeros_like(ln_b))]
+    xl, lw, lb, w1l, b1l, w2l, b2l = leaves
+    h = F.gelu(F.linear(F.layer_norm(xl, (C,), lw, lb, 1e-5).to(bf16), w1l.to(bf16), b1l.to(bf16)))
+    out = xl + F.linear(h * m1.to(bf16), w2l.to(bf16), b2l.to(bf16)).float() * m2
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def attention_library_bwd(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, heads, scale, rate_attn,
+                          rate_proj, seed, site):
+    """The yardstick of the axial layer's all-gradients backward with
+    dropout: autograd's backward of ``attention_library_seq``'s calls (LN,
+    linear, the scores with the relative bias, softmax, p . v, linear) on
+    bf16 weights with the kernels' two masks multiplied in (the attention
+    mask in the layout's cuboid order: the same work), all seven gradients."""
+    import torch
+    import torch.nn.functional as F
+    from prediff_torch.ops.dropout import keep_mask
+
+    B, T, H, W, C = x.shape
+    vol = (T, H, W)[axis]
+    bf16 = torch.bfloat16
+    n = B * T * H * W // vol
+    m_a = keep_mask(seed, site, 0, (n, heads, vol, vol), rate_attn, x.device) / (1 - rate_attn)
+    m_p = keep_mask(seed, site, 1, tuple(x.shape), rate_proj, x.device) / (1 - rate_proj)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, ln_w, ln_b, w_qkv, bias, w_proj, torch.zeros_like(ln_b))]
+    xl, lw, lb, wq, bl, wp, bp = leaves
+    qkv = F.linear(F.layer_norm(xl, (C,), lw, lb, 1e-5).to(bf16), wq.to(bf16)).movedim(1 + axis, 3)
+    lead = qkv.shape[:4]
+    q, k, v = qkv.reshape(-1, vol, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+    s = (q * scale) @ k.transpose(-1, -2) + bl.to(bf16)
+    p = torch.softmax(s.float(), dim=-1) * m_a
+    o = (p.to(bf16) @ v).transpose(1, 2).reshape(*lead, C).movedim(3, 1 + axis)
+    out = F.linear(o, wp.to(bf16), bp.to(bf16)).float() * m_p
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def yardstick(c, fn):
+    """A backward yardstick's times on the case: ``library_seq_ms`` per call
+    and ``library_seq_device_ms``, its kernels' device time summed by the
+    profiler (autograd's backward is not captured in a CUDA graph)."""
+    c["library_seq_ms"] = time_ms(fn)
+    c["library_seq_device_ms"] = launch_split(fn)[0]
+
+
 # --------------------------------------------------------------------------- #
 def kernel_cases(unet, align, train_batch: int):
     """Every (kernel, shape) of the paths, with launches per UNet forward at
@@ -633,7 +699,9 @@ def check_kernels(cases, device):
                        device)
             timed(c, lambda: fused_ffn_dropout_bwd_full(*args, *drop),
                   lambda: ffn_dropout_bwd_full_plain(*args, *drop, mxu_dtype=bf16),
-                  4 * (3 * M * C + 4 * C * hid + 2 * hid + 5 * C), bf16_flops=10 * M * C * hid)
+                  4 * (3 * M * C + 4 * C * hid + 2 * hid + 5 * C), device_time=True,
+                  bf16_flops=10 * M * C * hid)
+            yardstick(c, ffn_library_bwd(*args[:7], *drop))
         elif name == "ffn_bwd_full":
             args = (x, randn(M, C), ln_w, ln_b, w1, b1, w2)
             got = fused_ffn_bwd_full(*args)
@@ -642,7 +710,8 @@ def check_kernels(cases, device):
             judge_all(c, ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2"), got, want)
             timed(c, lambda: fused_ffn_bwd_full(*args),
                   lambda: ffn_bwd_full_plain(*args, mxu_dtype=bf16),
-                  4 * (3 * M * C + 4 * C * hid + 2 * hid + 5 * C), bf16_flops=10 * M * C * hid)
+                  4 * (3 * M * C + 4 * C * hid + 2 * hid + 5 * C), device_time=True,
+                  bf16_flops=10 * M * C * hid)
         elif name == "ffn":
             args = (x, ln_w, ln_b, w1, b1, w2, b2)
             got, want = fused_ffn(*args), ffn_plain(*args, mxu_dtype=bf16)
@@ -703,8 +772,9 @@ def check_kernels(cases, device):
                            for a, b in zip(zero, fused_axial_attention_bwd_full(*args))), device)
             timed(c, lambda: fused_axial_attention_dropout_bwd_full(*args, *drop),
                   lambda: axial_attention_bwd_full_plain(*args, bf16, *drop),
-                  4 * (3 * M * C + 8 * C * C + 2 * heads * vol * vol + 5 * C),
+                  4 * (3 * M * C + 8 * C * C + 2 * heads * vol * vol + 5 * C), device_time=True,
                   bf16_flops=22 * M * C * C + 12 * M * vol * C)
+            yardstick(c, attention_library_bwd(*args[:10], *drop))
         elif name == "axial_attention_bwd_full":
             args = (x, randn(B, T, H, W, C), axis, ln_w, ln_b, w_qkv, bias, w_proj, heads, scale)
             got = fused_axial_attention_bwd_full(*args)
@@ -713,7 +783,7 @@ def check_kernels(cases, device):
             judge_all(c, ("dx", "dln_w", "dln_b", "dw_qkv", "dbias", "dw_proj", "db_proj"), got, want)
             timed(c, lambda: fused_axial_attention_bwd_full(*args),
                   lambda: axial_attention_bwd_full_plain(*args, mxu_dtype=bf16),
-                  4 * (3 * M * C + 8 * C * C + 2 * heads * vol * vol + 5 * C),
+                  4 * (3 * M * C + 8 * C * C + 2 * heads * vol * vol + 5 * C), device_time=True,
                   bf16_flops=22 * M * C * C + 12 * M * vol * C)
         elif name == "axial_attention":
             args = (x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale)
@@ -1023,7 +1093,11 @@ def path_launches(unet, align=None, train_batch: int = 2):
     conv route that the routing rule admits at the batch (``conv_sites``;
     a micro-step at ``train_batch`` samples).  ``per_train`` counts each
     forward kernel of a micro-step, its all-gradients backward, and both their
-    dropout forms (``expected_train_launches`` picks the forms a run takes)."""
+    dropout forms (``expected_train_launches`` picks the forms a run takes).
+    Every layer it counts takes a kernel route (the library routes of the
+    tiny configuration are ``tiny_phases``')."""
+    from prediff_torch.ops.ffn import supports_shape as supports_ffn
+
     per = {k: {"per_unet": 0, "per_align": 0, "per_train": 0} for k in KERNELS}
     gn = 2 + 2 * 2 * sum(unet.depth)
     per["groupnorm_silu"]["per_unet"] = gn
@@ -1038,6 +1112,8 @@ def path_launches(unet, align=None, train_batch: int = 2):
     for model, key in models:
         for (t, h, w, c), layer, n in attention_layers(model, 2 if model is unet else 1):
             route = layer.route((1, t, h, w, c))
+            if route not in kernel or not supports_ffn(t * h * w, c, 4 * c):
+                fail(f"path_launches: a layer of width {c} takes the library route ({route})")
             per[kernel[route]][key] += n
             per["ffn"][key] += n
             if model is unet:
@@ -1142,7 +1218,8 @@ def check_cuboid_kernels(cases, device):
                 c["bit_equal_across_two_runs"] = all(torch.equal(a, b)
                                                      for a, b in zip(got, kernel()))
                 c["ok"] = c["ok"] and c["bit_equal_across_two_runs"]
-                timed(c, kernel, plain, bwd_bytes, bf16_flops=22 * M * C * C + 12 * M * vol * C)
+                timed(c, kernel, plain, bwd_bytes, device_time=True,
+                      bf16_flops=22 * M * C * C + 12 * M * vol * C)
             elif name == "cuboid_attention":
                 args = (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale)
                 got, want = fused_cuboid_attention_layer(*args), cuboid_attention_plain(
@@ -1403,10 +1480,109 @@ def profile(name: str, fn, reps: int):
             "top": [{"ms": r[0], "calls": r[1], "kernel": r[2][:90]} for r in rows[:25]]}
 
 
+def launch_split(fn, reps: int = 10):
+    """Each launch of one call of ``fn``: device ms per call by kernel
+    (torch.profiler), its share of their sum, and the sum."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            rows.append(((e.self_cuda_time_total if us is None else us) / 1e3 / reps,
+                         e.count / reps, e.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    return total, [{"kernel": k[:80], "ms": ms, "calls": n, "share": ms / total}
+                   for ms, n, k in rows]
+
+
+# rows 12 / 15b and 13 / 15d at the training micro-batch (B=2) of the v1 recipe
+BWD_SPLIT_FFN = ((6656, 256), (1664, 512))
+BWD_SPLIT_ATTN = ((2, 13, 16, 16, 256), (2, 13, 8, 8, 512))
+# rows 13b / 15e's backward at video_swin_1x8's training shapes (B, cuboids, vol, C)
+BWD_SPLIT_CUBOID = ((2, 52, 64, 256), (2, 13, 64, 512))
+
+
+def bwd_split(device):
+    """The all-gradients backwards of the FFN, the axial layer and the
+    general layer (rows 12, 15b, 13, 15d, 13b, 15e) at the B=2 training
+    shapes: each launch's share of one
+    call's device time (profiler), the call's device time from CUDA-graph
+    replay, and for the dropout forms the yardstick: autograd's backward of
+    the library sequence (``ffn_library_seq`` / ``attention_library_seq`` on
+    bf16 weights) with the kernels' masks multiplied in, its device time by
+    the profiler's sum."""
+    import torch
+    from prediff_torch.ops.attention import (fused_axial_attention_bwd_full,
+                                             fused_axial_attention_dropout_bwd_full,
+                                             fused_cuboid_attention_layer_bwd_full,
+                                             fused_cuboid_attention_layer_dropout_bwd_full)
+    from prediff_torch.ops.ffn import fused_ffn_bwd_full, fused_ffn_dropout_bwd_full
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    heads = 4
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    def one(kernel, shape, fn, yard=None):
+        total, split = launch_split(fn)
+        line = {"phase": "bwd_split", "kernel": kernel, "shape": list(shape),
+                "device_ms_profiler": total, "device_ms": graph_time_ms(fn),
+                "ms": time_ms(fn), "launches": split}
+        if yard is not None:
+            line["library_bwd_device_ms"] = launch_split(yard)[0]
+            line["library_bwd_ms"] = time_ms(yard)
+        emit(line)
+
+    drop = (DROP_RATE, DROP_RATE, DROP_SEED, DROP_SITE)
+    for M, C in BWD_SPLIT_FFN:
+        hid = 4 * C
+        args = (randn(M, C), randn(M, C), 1.0 + randn(C, scale=0.1), randn(C, scale=0.1),
+                randn(hid, C, scale=C ** -0.5), randn(hid, scale=0.1),
+                randn(C, hid, scale=hid ** -0.5), 1e-5)
+        one("ffn_bwd_full", (M, C), lambda: fused_ffn_bwd_full(*args))
+        one("ffn_dropout_bwd_full", (M, C), lambda: fused_ffn_dropout_bwd_full(*args, *drop),
+            ffn_library_bwd(*args[:7], *drop))
+    for shape in BWD_SPLIT_ATTN:
+        C = shape[-1]
+        for axis in range(3):
+            vol = shape[1 + axis]
+            args = (randn(*shape), randn(*shape), axis, 1.0 + randn(C, scale=0.1),
+                    randn(C, scale=0.1), randn(3 * C, C, scale=C ** -0.5),
+                    randn(heads, vol, vol, scale=0.5), randn(C, C, scale=C ** -0.5), heads,
+                    (C // heads) ** -0.5, 1e-5)
+            one("axial_attention_bwd_full", shape + (axis,),
+                lambda: fused_axial_attention_bwd_full(*args))
+            one("axial_attention_dropout_bwd_full", shape + (axis,),
+                lambda: fused_axial_attention_dropout_bwd_full(*args, *drop),
+                attention_library_bwd(*args[:10], *drop))
+    for shape in BWD_SPLIT_CUBOID:
+        B, nC, vol, C = shape
+        args = (randn(*shape), randn(*shape), 1.0 + randn(C, scale=0.1), randn(C, scale=0.1),
+                randn(3 * C, C, scale=C ** -0.5), randn(heads, vol, vol, scale=0.5),
+                randn(C, C, scale=C ** -0.5), heads, (C // heads) ** -0.5, 1e-5)
+        one("cuboid_attention_bwd_full", shape, lambda: fused_cuboid_attention_layer_bwd_full(*args))
+        one("cuboid_attention_dropout_bwd_full", shape,
+            lambda: fused_cuboid_attention_layer_dropout_bwd_full(*args, *drop))
+
+
 # --------------------------------------------------------------------------- #
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", help="also write every JSON line to this file")
+    ap.add_argument("--only", choices=["bwd_split"],
+                    help="run this phase alone (after the device line and the build) and stop: "
+                         "bwd_split, each launch's share of the FFN, axial and general "
+                         "attention all-gradients backwards")
     args = ap.parse_args()
     try:
         import torch
@@ -1437,6 +1613,13 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v["seconds"] for k, v in report.items()},
           "ptxas": {k: ptxas_by_function(v["ptxas"]) for k, v in report.items()}})
+    if args.only == "bwd_split":
+        from prediff_torch.utils.device import set_numerics
+
+        set_numerics()
+        bwd_split(device)
+        print(smi, flush=True)
+        return 0
     run(device, prediff_default_config(), smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -1504,6 +1687,7 @@ def run(device, cfg, smi: str) -> None:
           "failed": len(bad)})
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
+    bwd_split(device)
     # the conv route's kernels at every shape of its path, and the round-1 ops
     cases.update(conv_cases(unet_cpu, align_cpu, cfg.optim.micro_batch_size))
     bad = check_conv_kernels(cases, device)
@@ -1532,6 +1716,8 @@ def run(device, cfg, smi: str) -> None:
 
     def read_counts():
         return {k: fn.launches for k, fn in counters.items()}
+
+    tiny_phases(device, zero_counts, read_counts)
 
     # the launch counts of the other paths come from the layers' routes: on
     # the axial path they must give what the kernel cases give
@@ -1669,6 +1855,148 @@ def conv_serving_phases(device, cfg, smi, weights, zero_counts, read_counts):
                                                     1.0, None, avg_x_gt=avg_d),
                  reps=5))
     return launches, per
+
+
+TINY_CONFIG = "configs/tiny_smoke.yaml"   # base_units 16: widths 16 and 32
+TINY_FWD_TOL_REL_L2 = 2e-2                 # card vs CPU forecast (the UNet forward's bar)
+TINY_RATE = 0.1                            # the recipe's rates for the tiny training step
+# the kernels whose widths (C a multiple of 64; the resblock's too) the tiny
+# configuration's layers do not reach: they must launch none there
+TINY_REFUSED = tuple(k for k in KERNELS if k.startswith(("ffn", "axial_attention", "cuboid",
+                                                         "resblock")))
+
+
+def tiny_phases(device, zero_counts, read_counts):
+    """``configs/tiny_smoke.yaml`` through the port's entry points on the
+    card, random weights from the seed: each fused layer routes by shape, so
+    the FFN, attention and resblock layers run their library ops (f32) and
+    the GN kernels run where they take the width.  ``tiny_forecast``: an
+    8-step DDPM forecast through ``PreDiffPredictor.predict`` (finite, of the
+    output's shape) and the same chain from a fixed x_T at temperature 0
+    card against CPU; ``tiny_guided_shift``: the guidance shift card against
+    CPU; ``tiny_train``: at rates 0 and 0.1 one loss and backward at B=2
+    card against CPU (the same draws and masks), then one
+    ``DiffusionTrainer.train_step`` from ``build_training_pipeline``.  Each
+    counts the kernels' launches: none of ``TINY_REFUSED``."""
+    import numpy as np
+    import torch
+    from prediff_torch.config import ConfigDict, deep_merge, load_config, prediff_default_config
+    from prediff_torch.datasets.synthetic import synthetic_batch_iterator
+    from prediff_torch.factory import (build_alignment_model, build_training_pipeline,
+                                       build_unet, build_vae)
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.serving import PreDiffPredictor
+    from prediff_torch.training import DiffusionTrainer
+
+    cfg = load_config(prediff_default_config,
+                      os.path.join(os.path.dirname(os.path.abspath(__file__)), TINY_CONFIG))
+    gen = torch.Generator().manual_seed(SEED)
+    models = {key: init_params_(build(cfg), gen, randomize=True).eval().requires_grad_(False)
+              for key, build in (("unet", build_unet), ("vae", build_vae),
+                                 ("align", build_alignment_model))}
+    weights = {k: m.state_dict() for k, m in models.items()}
+    routes = sorted({layer.route((1, *shape)) for m in (models["unet"], models["align"])
+                     for shape, layer, _ in attention_layers(m, 1)})
+
+    def check_counts(phase, counts, gn_expected=True):
+        launched = {k: counts[k] for k in TINY_REFUSED if counts[k]}
+        if launched:
+            fail(f"{phase}: kernels launched at widths they refuse: {launched}")
+        if gn_expected and not counts["groupnorm_silu"]:
+            fail(f"{phase}: the GN kernel, which takes these widths, never launched")
+
+    predictor = PreDiffPredictor(cfg, params=weights, with_alignment=True, device=device)
+    cpu = PreDiffPredictor(cfg, params=weights, with_alignment=True, device="cpu")
+    rs = torch.Generator().manual_seed(SEED + 3)
+    L, d = cfg.layout, cfg.model.diffusion
+    context = torch.rand((1, L.in_len, L.img_height, L.img_width, L.data_channels), generator=rs)
+    x_T = torch.randn((1,) + tuple(d.latent_shape), generator=rs)
+    steps = d.timesteps
+    zero_counts()
+    t1 = time.perf_counter()
+    forecast = predictor.predict(context, timesteps=steps)
+    sync(device)
+    wall = time.perf_counter() - t1
+    counts = read_counts()
+    with torch.no_grad():
+        card = predictor.ld.sample(context, x_T=x_T, temperature=0.0, timesteps=steps).cpu()
+        ref = cpu.ld.sample(context, x_T=x_T, temperature=0.0, timesteps=steps)
+    rel_l2 = float((card - ref).norm() / ref.norm())
+    expect = (1, L.out_len, L.img_height, L.img_width, L.data_channels)
+    emit({"phase": "tiny_forecast", "config": TINY_CONFIG, "steps": steps, "routes": routes,
+          "shape": list(forecast.shape), "finite": bool(torch.isfinite(forecast).all()),
+          "wall_s": wall, "rel_l2_err_temperature0": rel_l2, "tol_rel_l2": TINY_FWD_TOL_REL_L2,
+          "launches": counts})
+    if tuple(forecast.shape) != expect or not torch.isfinite(forecast).all():
+        fail(f"tiny_forecast: forecast {tuple(forecast.shape)} (want {expect}) or not finite")
+    if not torch.isfinite(card).all() or rel_l2 > TINY_FWD_TOL_REL_L2:
+        fail(f"tiny_forecast: the card's chain differs from the CPU's: rel_l2 {rel_l2}")
+    check_counts("tiny_forecast", counts)
+
+    t = torch.tensor([steps // 2])
+    avg = torch.tensor([[AVG_X_GT]])
+    z = torch.randn((1,) + tuple(cfg.model.align.model_args.input_shape), generator=rs)
+    shift_cpu = cpu.ld.alignment.get_mean_shift(z, t, avg)
+    zero_counts()
+    shift = predictor.ld.alignment.get_mean_shift(z.to(device), t.to(device),
+                                                  avg.to(device)).cpu()
+    sync(device)
+    counts = read_counts()
+    rel_l2 = float((shift - shift_cpu).norm() / shift_cpu.norm())
+    cosine = float((shift * shift_cpu).sum() / (shift.norm() * shift_cpu.norm()))
+    emit({"phase": "tiny_guided_shift", "rel_l2_err": rel_l2, "cosine": cosine,
+          "tol_rel_l2": SHIFT_TOL_REL_L2, "min_cosine": SHIFT_MIN_COSINE, "launches": counts})
+    if not torch.isfinite(shift).all() or rel_l2 > SHIFT_TOL_REL_L2 or cosine < SHIFT_MIN_COSINE:
+        fail(f"tiny_guided_shift: card differs from the CPU: rel_l2 {rel_l2}, cosine {cosine}")
+    check_counts("tiny_guided_shift", counts)
+    del predictor, cpu
+
+    B = cfg.optim.micro_batch_size
+    z = torch.randn((B,) + tuple(d.latent_shape), generator=rs)
+    zc = torch.randn((B,) + tuple(d.latent_cond_shape), generator=rs)
+    tt = torch.randint(0, d.timesteps, (B,), generator=rs)
+    noise = torch.randn(z.shape, generator=rs)
+    logvar0 = 0.1 * torch.randn(d.timesteps, generator=rs)
+    batch = torch.from_numpy(next(synthetic_batch_iterator(
+        B, L.in_len + L.out_len, L.img_height, L.img_width, seed=SEED)))
+    for rate in (0.0, TINY_RATE):
+        c = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"latent_model": {
+            k: rate for k in ("attn_drop", "proj_drop", "ffn_drop")}}}))
+        out = {}
+        for dev in ("cpu", device):
+            ld = build_training_pipeline(c, device=dev, params=weights)
+            logvar = logvar0.to(dev).requires_grad_(True)
+            zero_counts()
+            loss, _ = ld.p_losses(logvar, z.to(dev), zc.to(dev), tt.to(dev), noise.to(dev),
+                                  dropout_seed=DROP_SEED)
+            grads = torch.autograd.grad(loss, list(ld.unet.parameters()) + [logvar])
+            sync(torch.device(dev))
+            out[str(dev)] = (float(loss.detach()), [gr.detach().cpu().double().flatten()
+                                                     for gr in grads], read_counts())
+        (loss_cpu, g_cpu, _), (loss_card, g_card, counts) = out["cpu"], out[str(device)]
+        diff = torch.cat([a - b for a, b in zip(g_card, g_cpu)])
+        rel_l2 = float(diff.norm() / torch.cat(g_cpu).norm())
+        loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        trainer = DiffusionTrainer(ld, optim_config=dict(lr=1e-3, total_num_steps=10))
+        state = trainer.create_state()
+        zero_counts()
+        state, metrics = trainer.train_step(state, SEED, batch[:, L.in_len:].to(device),
+                                            batch[:, :L.in_len].to(device))
+        sync(device)
+        step_counts = read_counts()
+        step_loss = float(metrics["train/loss"])
+        emit({"phase": "tiny_train", "rate": rate, "batch": B, "loss_card": loss_card,
+              "loss_cpu": loss_cpu, "loss_rel_err": loss_rel, "tol_loss_rel": LOSS_TOL_REL,
+              "grad_rel_l2_err": rel_l2, "tol_rel_l2": GRAD_TOL_REL_L2, "launches": counts,
+              "train_step_loss": step_loss, "train_step_launches": step_counts})
+        if loss_rel > LOSS_TOL_REL or rel_l2 > GRAD_TOL_REL_L2:
+            fail(f"tiny_train at rate {rate}: card differs from the CPU: loss {loss_rel}, "
+                 f"gradient rel_l2 {rel_l2}")
+        if not np.isfinite(step_loss):
+            fail(f"tiny_train at rate {rate}: train_step's loss {step_loss}")
+        check_counts(f"tiny_train at rate {rate}", counts)
+        check_counts(f"tiny_train step at rate {rate}", step_counts)
+        del ld, trainer, state
 
 
 def swin_phases(device, cfg, smi, cases, zero_counts, read_counts):
@@ -1818,18 +2146,24 @@ def rate0_phases(card_vs_cpu, cfg, vae_sd, xy, device, zero_counts, read_counts,
     init_params_(ld0.unet, torch.Generator().manual_seed(SEED))
     state0 = trainer0.create_state()
     zero_counts()
+    micro_ms = []
     for _ in range(TRAIN_ACCUM):
+        t0 = time.perf_counter()
         state0, metrics0 = trainer0.train_step(state0, SEED, *xy)
-    sync(device)
+        sync(device)
+        micro_ms.append(1e3 * (time.perf_counter() - t0))
     launches0 = read_counts()
     expected0 = expected_train_launches(per0, TRAIN_ACCUM, 0, dropout=False)
     emit({"phase": f"{prefix}train_rate0_step", "micro_steps": state0.step,
           "optimizer_steps": state0.tx.count, "loss": float(metrics0["train/loss"]),
+          "micro_ms": micro_ms, "depth": list(cfg0.model.latent_model.depth),
           "launches": launches0, "expected_launches": expected0})
     if (state0.tx.count != 1 or not np.isfinite(float(metrics0["train/loss"]))
             or launches0 != expected0):
         fail(f"{prefix}train_rate0: optimizer steps {state0.tx.count}, launches {launches0} != "
              f"{expected0}")
+    emit(profile(f"profile_{prefix}train_rate0_step",
+                 lambda: trainer0.train_step(state0, SEED, *xy), reps=2))
     del ld0, trainer0, state0
     return launches0
 

@@ -30,13 +30,17 @@
 // Input gradient (axial_attention_bwd_dx): replaces
 // pallas_attention.py::fused_axial_attention_5d_bwd_dx (body
 // _fused_layer_bwd_dx_kernel_v4), flash-style: nothing of the forward is
-// saved, everything is recomputed from x.  Five launches:
-//   ln_gemm_kernel (LN fused)  qkv   = LN(x) . Wqkv^T            (tokens, 3C)
-//   ln_gemm_kernel (W as K,N)  dattn = g . Wproj                 (tokens, C)
-//   axial_core_bwd_kernel      one block per (cuboid, head): s, p again,
-//                              ds = p (dp - rowsum(dp p)), dq dk dv   (tokens, 3C)
-//   ln_gemm_kernel (W as K,N)  dln   = dqkv . Wqkv               (tokens, C)
-//   ln_backward_kernel         dx = LayerNorm backward of dln, one warp per row
+// saved, everything is recomputed from x.  Six launches, the products on the
+// forward's TMA + wgmma pieces (fwd_gemm_kernel) with bf16 weight copies kept
+// per parameter version (ops/weights.py: W_qkv, and the transposes of W_proj
+// and W_qkv, so that every product reads a K-major B operand):
+//   fwd_gemm_kernel (LN fused)  qkv = LN(x) . Wqkv^T: bf16 q . scale, k, v
+//   cast_t_kernel               do = g in bf16                   (tokens, C)
+//   fwd_gemm_kernel             dattn = do . Wproj, bf16          (tokens, C)
+//   axial_core_bwd_kernel       one block per (cuboid, head): s, p again,
+//                               ds = p (dp - rowsum(dp p)), dq dk dv, bf16
+//   fwd_gemm_kernel             dln = dqkv . Wqkv, f32            (tokens, C)
+//   ln_backward_kernel          dx = LayerNorm backward of dln, one warp per row
 // The three products carry 14 C^2 operations per token against ~12 C bytes,
 // so the gradient is bound by operations like the forward.  One block per
 // cuboid, as in the forward core, so no cross-cuboid mask is needed.
@@ -52,18 +56,21 @@
 // share into outputs that stay resident across its sequential grid and
 // folds ds back to within-cuboid pairs with rep^T . ds . rep; here blocks
 // run in no order and a block already is one cuboid, so dbias is a plain
-// sum of the f32 ds over blocks.  The dx launches above run with three
-// additions: the LN+QKV product also writes LN(x) in bf16; the core, in its
-// Full form, walks a few cuboids per block, adds their ds into a
-// shared-memory tile it writes once as its partial, and writes the
-// forward's head outputs (attn, bf16) that dWproj needs.  The two weight
-// gradients are transposed products over the tokens on the tensor cores
-// (tn_gemm_kernel in grad_common.cuh) split over the tokens; the vector
-// gradients are column sums per 32-row block; sum_partials_kernel adds every
-// set of partials in a fixed order.  No atomics: two runs give the same bits.
-// 22 C^2 operations per token in the five products against ~12 C f32 bytes
-// per token plus 32 C^2 for the weights and their gradients: bound by
-// operations at the UNet's training shapes.
+// sum of the f32 ds over blocks.  The dx launches above run with additions:
+// the LN+QKV product also writes LN(x)^T in bf16, width-major (a row per
+// channel, tokens contiguous), and do^T beside do; the core, in its Full
+// form, walks a few cuboids per block, adds their ds into a shared-memory
+// tile it writes once as its partial, and writes the forward's head outputs
+// (attn, bf16) that dWproj needs.  dqkv and attn are laid out width-major
+// too (cast_t_kernel), so the two weight gradients are the wgmma TN product
+// of grad_common.cuh (wgrad_kernel: both operands K-major by TMA, the tokens
+// split over a cluster added in rank order); the vector gradients are column
+// sums per 8-row block; sum_partials_kernel adds every set of partials in
+// a fixed order.  No atomics: two runs give the same bits.  22 C^2
+// operations per token in the five products against ~12 C f32 bytes per
+// token plus 32 C^2 for the weights and their gradients: bound by operations
+// at the UNet's training shapes.  The core stays on the CUDA cores over f32
+// tiles of its bf16 inputs.
 //
 // Dropout (axial_attention_dropout_forward, axial_attention_dropout_bwd_full):
 // replaces the seed= forms of fused_axial_attention_5d and
@@ -77,8 +84,9 @@
 // and the backward core a few, so a mask is a function of the logical element
 // instead (philox.cuh): m_a of (cuboid in the order of cuboid_rows, head, i, j),
 // in-cuboid entries only, and m_p of the natural (token, channel).  The
-// backward regenerates both: do = g . m_p / (1 - r_proj) is staged into the
-// dattn product (and kept in bf16 for dWproj; dbproj sums the f32 do);
+// backward regenerates both: do = g . m_p / (1 - r_proj) is cast to bf16 for
+// the dattn product and dWproj (4 channels a thread: one whole Philox block;
+// dbproj sums the f32 do);
 // dp = (dattn . v^T) . m_a / (1 - r_attn); the softmax backward uses the
 // undropped p, while dv and the re-emitted head outputs use the dropped p.
 // The Drop forms are separate template instances, so the kernels without
@@ -420,16 +428,17 @@ axial_core_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict
 }
 
 // Gradient of the core, one block per (cuboids_per_block cuboids, head).  qkv
-// (tokens, 3C) and dattn (tokens, C) in; dqkv (tokens, 3C) out: dq | dk | dv
-// blocks of C.  Full: also attn (tokens, C) bf16, the forward's head outputs,
+// (tokens, 3C: q . scale | k | v) and dattn (tokens, C) in, bf16; dqkv
+// (tokens, 3C) out, bf16: dq | dk | dv blocks of C.  Full: also attn (tokens, C) bf16, the forward's head outputs,
 // and dbias_part[blockIdx.x, h] = the f32 ds summed over this block's cuboids.
 // Drop: dp and the p that feeds dv and attn go through the dropout `drop` of element
 // (cuboid, head, i, j); ds = p (dp - rowsum(dp p)) keeps the undropped p.
 template <bool Full, bool Drop>
 __global__ void __launch_bounds__(kCoreThreads)
-axial_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
-                      const float* __restrict__ bias, float* __restrict__ dqkv,
-                      __nv_bfloat16* __restrict__ attn, float* __restrict__ dbias_part, int T,
+axial_core_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
+                      const __nv_bfloat16* __restrict__ dattn, const float* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ dqkv, __nv_bfloat16* __restrict__ attn,
+                      float* __restrict__ dbias_part, int T,
                       int H, int W, int C, int axis, int heads, float scale, int n_cuboids,
                       int cuboids_per_block, philox::Drop drop) {
   extern __shared__ float sm[];
@@ -458,11 +467,11 @@ axial_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ d
     for (int i = tid; i < vol * hc; i += kCoreThreads) {
       const int r = i / hc, c = i % hc;
       const size_t tok = base + (size_t)r * stride;
-      const float* row = qkv + tok * 3 * C + h * hc + c;
-      q[r * ld + c] = bf16_round(row[0] * scale);
-      k[r * ld + c] = bf16_round(row[C]);
-      v[r * ld + c] = bf16_round(row[2 * C]);
-      dO[r * ld + c] = bf16_round(dattn[tok * C + h * hc + c]);
+      const __nv_bfloat16* row = qkv + tok * 3 * C + h * hc + c;   // q . scale | k | v
+      q[r * ld + c] = __bfloat162float(row[0]);
+      k[r * ld + c] = __bfloat162float(row[C]);
+      v[r * ld + c] = __bfloat162float(row[2 * C]);
+      dO[r * ld + c] = __bfloat162float(dattn[tok * C + h * hc + c]);
     }
     __syncthreads();
     scores_softmax(q, k, bias + (size_t)h * vol * vol, p, vol, hc, ld);
@@ -497,10 +506,10 @@ axial_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ d
         if (Full) ao += p[r * vol + j] * v[j * ld + c];
       }
       const size_t tok = base + (size_t)r * stride;
-      float* out = dqkv + tok * 3 * C + h * hc + c;
-      out[0] = aq * scale;
-      out[C] = ak;
-      out[2 * C] = av;
+      __nv_bfloat16* out = dqkv + tok * 3 * C + h * hc + c;   // the bf16 operands of dln and dWqkv
+      out[0] = __float2bfloat16(aq * scale);
+      out[C] = __float2bfloat16(ak);
+      out[2 * C] = __float2bfloat16(av);
       if (Full) attn[tok * C + h * hc + c] = __float2bfloat16(ao);
     }
   }
@@ -559,42 +568,6 @@ cudaError_t ln_backward(const float* x, const float* ln_w, const float* dln, flo
   return cudaGetLastError();
 }
 
-// The launches that give dx; Full adds LN(x) and attn in bf16 and the dbias
-// partials; Drop (with Full) the two dropouts, and the dropped g in bf16 (do_bf).
-template <bool Full, bool Drop = false>
-cudaError_t bwd_dx_launches(const float* x, const float* g, const float* ln_w, const float* ln_b,
-                            const float* w_qkv, const float* bias, const float* w_proj,
-                            float* qkv, float* dattn, float* dqkv, float* dln, float* dx,
-                            __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, float* dbias_part,
-                            int M, int T, int H, int W, int C, int axis, int heads,
-                            int cuboids_per_block, float scale, float eps, cudaStream_t stream,
-                            __nv_bfloat16* do_bf = nullptr,
-                            philox::Drop d_attn = philox::Drop{},
-                            philox::Drop d_proj = philox::Drop{}) {
-  static_assert(Full || !Drop, "dropout runs only on the all-gradients form");
-  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, qkv, M, 3 * C, C, 0, eps, stream, ln_bf);
-  if (err != cudaSuccess) return err;
-  err = gemm<Drop ? 1 : 0>(g, nullptr, nullptr, w_proj, dattn, M, C, C, 1, eps, stream,
-                           do_bf, d_proj);
-  if (err != cudaSuccess) return err;
-  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
-  const int hc = C / heads;
-  const size_t smem = sizeof(float) * (4 * vol * (hc + 1) + (Full ? 3 : 2) * vol * vol);
-  err = cudaFuncSetAttribute(axial_core_bwd_kernel<Full, Drop>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int n_cuboids = M / vol;
-  const int blocks = (n_cuboids + cuboids_per_block - 1) / cuboids_per_block;
-  axial_core_bwd_kernel<Full, Drop><<<dim3(blocks, heads), kCoreThreads, smem, stream>>>(
-      qkv, dattn, bias, dqkv, attn_bf, dbias_part, T, H, W, C, axis, heads, scale, n_cuboids,
-      cuboids_per_block, d_attn);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = gemm(dqkv, nullptr, nullptr, w_qkv, dln, M, C, 3 * C, 1, eps, stream);
-  if (err != cudaSuccess) return err;
-  return ln_backward(x, ln_w, dln, dx, M, C, eps, stream);
-}
-
 // ---------------------------------------------------------------------------
 // The forwards' two products on TMA + wgmma (the axial layer's and the
 // general cuboid layer's): out[M, N] = A . W^T with
@@ -643,7 +616,8 @@ fwd_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
                 const __grid_constant__ CUtensorMap w_map, const float* __restrict__ x,
                 const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                 const float* __restrict__ bias, void* __restrict__ out, int M, int N, int K,
-                int stages, int q_cols, float q_scale, float eps, philox::Drop drop) {
+                int stages, int q_cols, float q_scale, float eps, philox::Drop drop,
+                __nv_bfloat16* __restrict__ ln_t, int ld) {
   constexpr bool LnA = LnPer > 0;
   constexpr int kStage = stage_bytes<BN, LnA>(), kAcc = BN / 2;
   extern __shared__ uint8_t smem_raw[];
@@ -683,6 +657,27 @@ fwd_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
         x, ln_w, ln_b, smem_raw + (a_s - raw), kBM, m0, M, K, eps, tid / 32, kConsumers / 32);
     fence_async_smem();
     named_barrier(1, kConsumers);
+    if (ln_t != nullptr && blockIdx.x == 0) {
+      // LN(x)^T (K, ld) bf16 for a weight gradient: 8 rows of one channel a
+      // thread, gathered from the swizzled tile (rows past M are zeros)
+      const uint8_t* tile = smem_raw + (a_s - raw);
+      for (int i = tid; i < K * (kBM / 8); i += kConsumers) {
+        const int k = i / (kBM / 8), r8 = (i % (kBM / 8)) * 8;
+        if (m0 + r8 >= ld) continue;
+        uint32_t packed[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          __nv_bfloat162 pr;
+          pr.x = *reinterpret_cast<const __nv_bfloat16*>(
+              tile + (k >> 6) * kATile + sw128_offset(r8 + 2 * e, k & 63));
+          pr.y = *reinterpret_cast<const __nv_bfloat16*>(
+              tile + (k >> 6) * kATile + sw128_offset(r8 + 2 * e + 1, k & 63));
+          packed[e] = *reinterpret_cast<uint32_t*>(&pr);
+        }
+        *reinterpret_cast<uint4*>(ln_t + (size_t)k * ld + m0 + r8) =
+            make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      }
+    }
   }
   float acc[kAcc];
 #pragma unroll
@@ -692,7 +687,8 @@ fwd_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
 #pragma unroll
   for (int jb = 0; jb < (QkvOut ? 0 : BN / 8); ++jb) {
     const int n = n0 + 8 * jb + 2 * (lane & 3);
-    const float2 b = n < N ? *reinterpret_cast<const float2*>(bias + n) : make_float2(0.f, 0.f);
+    const float2 b = bias != nullptr && n < N ? *reinterpret_cast<const float2*>(bias + n)
+                                              : make_float2(0.f, 0.f);
     bias_v[jb][0] = b.x;
     bias_v[jb][1] = b.y;
   }
@@ -744,7 +740,8 @@ fwd_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
 template <int BN, int LnPer, bool Drop, bool QkvOut = (LnPer > 0)>
 cudaError_t gemm(const CUtensorMap& a, const CUtensorMap& w, const float* x, const float* ln_w,
                  const float* ln_b, const float* bias, void* out, int M, int N, int K, int q_cols,
-                 float q_scale, float eps, philox::Drop drop, cudaStream_t stream) {
+                 float q_scale, float eps, philox::Drop drop, cudaStream_t stream,
+                 __nv_bfloat16* ln_t = nullptr, int ld = 0) {
   constexpr bool LnA = LnPer > 0;
   static bool configured = false;
   if (!configured) {
@@ -759,32 +756,33 @@ cudaError_t gemm(const CUtensorMap& a, const CUtensorMap& w, const float* x, con
   const int smem = 1024 + (LnA ? kBM * K * 2 : 0) + stages * stage_bytes<BN, LnA>();
   const dim3 grid((N + BN - 1) / BN, (M + kBM - 1) / kBM);
   if (grid.y > 65535) return cudaErrorInvalidValue;
+  if (ln_t != nullptr && (!LnA || ld % 8 || ld < M)) return cudaErrorInvalidValue;
   fwd_gemm_kernel<BN, LnPer, Drop, QkvOut><<<grid, kThreads, smem, stream>>>(
-      a, w, x, ln_w, ln_b, bias, out, M, N, K, stages, q_cols, q_scale, eps, drop);
+      a, w, x, ln_w, ln_b, bias, out, M, N, K, stages, q_cols, q_scale, eps, drop, ln_t, ld);
   return cudaGetLastError();
 }
 
 // The QKV product: the instance for its column tile and width.
 cudaError_t qkv_gemm(int bn, const CUtensorMap& w, const float* x, const float* ln_w,
                      const float* ln_b, __nv_bfloat16* qkv, int M, int C, float scale, float eps,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, __nv_bfloat16* ln_t = nullptr, int ld = 0) {
   const int per = (C + 255) / 256;
   const philox::Drop none{};
   if (bn == 256 && per == 1)
     return gemm<256, 1, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
-                               stream);
+                               stream, ln_t, ld);
   if (bn == 256 && per == 2)
     return gemm<256, 2, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
-                               stream);
+                               stream, ln_t, ld);
   if (bn == 128 && per == 1)
     return gemm<128, 1, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
-                               stream);
+                               stream, ln_t, ld);
   if (bn == 128 && per == 2)
     return gemm<128, 2, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
-                               stream);
+                               stream, ln_t, ld);
   if (bn == 128 && per == 3)   // C <= 768: the widest LN tile beside a 2-stage ring
     return gemm<128, 3, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
-                               stream);
+                               stream, ln_t, ld);
   return cudaErrorInvalidValue;
 }
 
@@ -1688,20 +1686,21 @@ cudaError_t cuboid_core_bwd_launches(const float* qkv, const float* dattn, const
 // The launches of the general layer's all-gradients backward: the LN+QKV and
 // dattn products as in the dx backward, the two gradient cores, the dln
 // product and the LN backward, then the fixed-order sums of the relative-bias
-// and vector partials and the two weight gradients.  Drop: the two dropouts,
-// and the dropped g in bf16 (do_bf) for dWproj.
+// and vector partials, the weight gradients' operands laid out width-major
+// (cast_t_kernel) and the two weight gradients on the wgmma TN product.
+// Drop: the two dropouts, and the dropped g in bf16 (do_bf) for dWproj.
 template <bool Drop>
 cudaError_t cuboid_bwd_full_launches(
     const float* x, const float* g, const float* ln_w, const float* ln_b, const float* w_qkv,
     const float* bias, const float* w_proj, float* qkv, float* dattn, float* dqkv, float* dln,
     __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, __nv_bfloat16* do_bf, float* stats,
-    float* dbias_part, float* vpart, float* dw_part, float* dx, float* dw_qkv, float* dbias,
+    float* dbias_part, float* vpart, __nv_bfloat16* tbuf, float* dx, float* dw_qkv, float* dbias,
     float* dw_proj, float* vec, int n_cuboids, int vol, int C, int heads, int q_tile, int tile,
-    int cuboids_per_block, int ksplit_qkv, int ksplit_proj, float scale, float eps,
+    int cuboids_per_block, int ld, int ws_qkv, int ws_proj, float scale, float eps,
     cudaStream_t stream, philox::Drop d_attn = philox::Drop{},
     philox::Drop d_proj = philox::Drop{}) {
   if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || vol < 1 || q_tile < 1 || tile < 1 ||
-      cuboids_per_block < 1 || ksplit_qkv < 1 || ksplit_proj < 1)
+      cuboids_per_block < 1 || ld % 64 || (reinterpret_cast<uintptr_t>(tbuf) & 15))
     return cudaErrorInvalidValue;
   const int M = n_cuboids * vol;
   cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, qkv, M, 3 * C, C, 0, eps, stream, ln_bf);
@@ -1722,12 +1721,23 @@ cudaError_t cuboid_bwd_full_launches(
   if (err != cudaSuccess) return err;
   err = gradk::ln_vec_grads(x, g, dln, 1, vpart, vec, M, C, eps, stream, d_proj);  // dbproj = sum do
   if (err != cudaSuccess) return err;
-  err = gradk::weight_grad(dqkv, ln_bf, dw_part, dw_qkv, M, 3 * C, C, ksplit_qkv, stream);
+  // the weight gradients' operands width-major in tbuf: dqkv^T (3C), LN^T, do^T, attn^T (C each)
+  __nv_bfloat16 *dqkv_t = tbuf, *ln_t = tbuf + (size_t)3 * C * ld, *do_t = ln_t + (size_t)C * ld,
+                *attn_t = do_t + (size_t)C * ld;
+  err = gradk::cast_t<float>(dqkv, nullptr, dqkv_t, M, 3 * C, ld, stream);
+  if (err != cudaSuccess) return err;
+  err = gradk::cast_t<__nv_bfloat16>(ln_bf, nullptr, ln_t, M, C, ld, stream);
   if (err != cudaSuccess) return err;
   if constexpr (Drop)
-    return gradk::weight_grad(do_bf, attn_bf, dw_part, dw_proj, M, C, C, ksplit_proj, stream);
+    err = gradk::cast_t<__nv_bfloat16>(do_bf, nullptr, do_t, M, C, ld, stream);
   else
-    return gradk::weight_grad(g, attn_bf, dw_part, dw_proj, M, C, C, ksplit_proj, stream);
+    err = gradk::cast_t<float>(g, nullptr, do_t, M, C, ld, stream);
+  if (err != cudaSuccess) return err;
+  err = gradk::cast_t<__nv_bfloat16>(attn_bf, nullptr, attn_t, M, C, ld, stream);
+  if (err != cudaSuccess) return err;
+  err = gradk::weight_grad(dqkv_t, ln_t, dw_qkv, 3 * C, C, M, ld, ws_qkv, stream);
+  if (err != cudaSuccess) return err;
+  return gradk::weight_grad(do_t, attn_t, dw_proj, C, C, M, ld, ws_proj, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1852,6 +1862,97 @@ cudaError_t core_launch(const float* q, const float* k, const float* v, const fl
                            stream);
 }
 
+// The axial layer's backward: the launches that give dx and, Full, every
+// parameter gradient (the note at the top of the file).  Scratch, bf16: qkv
+// (tokens, 3C), do_bf, dattn (tokens, C), dqkv (tokens, 3C); f32 dln
+// (tokens, C).  Full adds the bf16 head outputs attn (tokens, C), the
+// width-major operands of the weight gradients ln_t, do_t, attn_t (C, ld)
+// and dqkv_t (3C, ld), and the partials of dbias and of the vector gradients.
+// Past C = 768 (no LN tile) the LN rows go to do_bf first (free until the
+// cotangent is staged) and the QKV product reads them by TMA.
+template <bool Full, bool Drop>
+cudaError_t axial_bwd_launches(
+    const float* x, const float* g, const float* ln_w, const float* ln_b, const void* wqkv_map,
+    const float* bias, const void* wprojt_map, const void* wqkvt_map, __nv_bfloat16* qkv,
+    __nv_bfloat16* do_bf, __nv_bfloat16* dattn, __nv_bfloat16* dqkv, float* dln, float* dx,
+    __nv_bfloat16* attn, __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* attn_t,
+    __nv_bfloat16* dqkv_t, float* dbias_part, float* vpart, float* dw_qkv, float* dbias,
+    float* dw_proj, float* vec, int B, int T, int H, int W, int C, int axis, int heads, int bn_qkv,
+    int cuboids_per_block, int ld, int ws_qkv, int ws_proj, float scale, float eps,
+    cudaStream_t stream, philox::Drop d_attn = philox::Drop{},
+    philox::Drop d_proj = philox::Drop{0u, 0u, 0u, 1u, 0u, 1.f}) {
+  static_assert(Full || !Drop, "dropout runs only on the all-gradients form");
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (C % 64 != 0 || C % heads != 0 || axis < 0 || axis > 2 || cuboids_per_block < 1 ||
+      (bn_qkv != 128 && bn_qkv != 256) || !aligned(x) || !aligned(ln_w) || !aligned(ln_b) ||
+      !aligned(qkv) || !aligned(do_bf) || !aligned(dattn) || !aligned(dqkv) || !aligned(dln) ||
+      !aligned(dx) || (Full && (ld % 64 || !aligned(ln_t) || !aligned(do_t) || !aligned(attn_t) ||
+                                !aligned(dqkv_t))))
+    return cudaErrorInvalidValue;
+  const int M = B * T * H * W;
+  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
+  const int hc = C / heads;
+  CUtensorMap wqkv, wprojt, wqkvt, do_map, dqkv_map;
+  memcpy(&wqkv, wqkv_map, sizeof(wqkv));
+  memcpy(&wprojt, wprojt_map, sizeof(wprojt));
+  memcpy(&wqkvt, wqkvt_map, sizeof(wqkvt));
+  int enc = hopper::encode_bf16_matrix(&do_map, do_bf, M, C, fwd::kBM);
+  if (enc == 0) enc = hopper::encode_bf16_matrix(&dqkv_map, dqkv, M, 3 * C, fwd::kBM);
+  if (enc != 0) return (cudaError_t)enc;
+  const philox::Drop none{};
+  // q . scale, k, v (and LN(x)^T) recomputed in bf16 by the forward's product
+  cudaError_t err;
+  if (C <= 3 * 256) {
+    err = fwd::qkv_gemm(bn_qkv, wqkv, x, ln_w, ln_b, qkv, M, C, scale, eps, stream,
+                        Full ? ln_t : nullptr, ld);
+  } else {
+    ln_bf16_rows_kernel<<<(M + kLnRowsPerBlock - 1) / kLnRowsPerBlock, 32 * kLnRowsPerBlock, 0,
+                          stream>>>(x, ln_w, ln_b, do_bf, M, C, eps);
+    err = cudaGetLastError();
+    if (err == cudaSuccess)
+      err = fwd::gemm<128, 0, false, true>(do_map, wqkv, nullptr, nullptr, nullptr, nullptr, qkv,
+                                           M, 3 * C, C, C, scale, eps, none, stream);
+    if (err == cudaSuccess && Full)
+      err = gradk::cast_t<__nv_bfloat16>(do_bf, nullptr, ln_t, M, C, ld, stream);
+  }
+  if (err != cudaSuccess) return err;
+  // do = g (. m_p / (1 - r_proj)) in bf16, as it is and (Full) width-major
+  err = gradk::cast_t<float>(g, do_bf, Full ? do_t : nullptr, M, C, ld, stream, d_proj);
+  if (err != cudaSuccess) return err;
+  // dattn = do . Wproj, bf16
+  err = fwd::gemm<128, 0, false, true>(do_map, wprojt, nullptr, nullptr, nullptr, nullptr, dattn, M,
+                                       C, C, 0, 1.f, eps, none, stream);
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(float) * (4 * vol * (hc + 1) + (Full ? 3 : 2) * vol * vol);
+  err = cudaFuncSetAttribute(axial_core_bwd_kernel<Full, Drop>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_cuboids = M / vol;
+  const int blocks = (n_cuboids + cuboids_per_block - 1) / cuboids_per_block;
+  axial_core_bwd_kernel<Full, Drop><<<dim3(blocks, heads), kCoreThreads, smem, stream>>>(
+      qkv, dattn, bias, dqkv, attn, dbias_part, T, H, W, C, axis, heads, scale, n_cuboids,
+      cuboids_per_block, d_attn);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // dln = dqkv . Wqkv, f32; dx its LayerNorm backward
+  err = fwd::gemm<128, 0, false, false>(dqkv_map, wqkvt, nullptr, nullptr, nullptr, nullptr, dln, M,
+                                        C, 3 * C, 0, 1.f, eps, none, stream);
+  if (err != cudaSuccess) return err;
+  err = ln_backward(x, ln_w, dln, dx, M, C, eps, stream);
+  if (err != cudaSuccess || !Full) return err;
+  err = gradk::sum_partials(dbias_part, dbias, (size_t)heads * vol * vol, blocks, stream);
+  if (err != cudaSuccess) return err;
+  err = gradk::ln_vec_grads(x, g, dln, 1, vpart, vec, M, C, eps, stream, d_proj);  // dbproj = sum do
+  if (err != cudaSuccess) return err;
+  err = gradk::cast_t<__nv_bfloat16>(dqkv, nullptr, dqkv_t, M, 3 * C, ld, stream);
+  if (err != cudaSuccess) return err;
+  err = gradk::cast_t<__nv_bfloat16>(attn, nullptr, attn_t, M, C, ld, stream);
+  if (err != cudaSuccess) return err;
+  err = gradk::weight_grad(dqkv_t, ln_t, dw_qkv, 3 * C, C, M, ld, ws_qkv, stream);  // dqkv^T . LN
+  if (err != cudaSuccess) return err;
+  return gradk::weight_grad(do_t, attn_t, dw_proj, C, C, M, ld, ws_proj, stream);   // do^T . attn
+}
+
 }  // namespace
 
 // x, out (tokens, C) f32; wqkv_map / wproj_map the tensor maps of the bf16
@@ -1887,85 +1988,73 @@ extern "C" int axial_attention_dropout_forward(
                                      heads, bn_qkv, scale, eps, stream, d_attn, d_proj);
 }
 
-// dx of the layer for the output cotangent g (tokens, C); scratch qkv and
-// dqkv (tokens, 3C), dattn and dln (tokens, C).
+// dx of the layer for the output cotangent g (tokens, C); wqkv_map the tensor
+// map of the bf16 copy of w_qkv (boxes of bn_qkv rows), wprojt_map and
+// wqkvt_map those of the bf16 transposes of w_proj (C, C) and w_qkv (C, 3C)
+// (boxes of 128 rows); bf16 scratch qkv, dqkv (tokens, 3C), do_bf, dattn
+// (tokens, C), f32 dln (tokens, C).  Six launches.
 extern "C" int axial_attention_bwd_dx(const float* x, const float* g, const float* ln_w,
-                                      const float* ln_b, const float* w_qkv, const float* bias,
-                                      const float* w_proj, float* qkv, float* dattn,
-                                      float* dqkv, float* dln, float* dx, int B, int T, int H,
-                                      int W, int C, int axis, int heads, float scale, float eps,
-                                      cudaStream_t stream) {
-  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || axis < 0 || axis > 2)
-    return (int)cudaErrorInvalidValue;
-  return (int)bwd_dx_launches<false>(x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln,
-                                     dx, nullptr, nullptr, nullptr, B * T * H * W, T, H, W, C,
-                                     axis, heads, 1, scale, eps, stream);
+                                      const float* ln_b, const void* wqkv_map, const float* bias,
+                                      const void* wprojt_map, const void* wqkvt_map, void* qkv,
+                                      void* do_bf, void* dattn, void* dqkv, float* dln, float* dx,
+                                      int B, int T, int H, int W, int C, int axis, int heads,
+                                      int bn_qkv, float scale, float eps, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  return (int)axial_bwd_launches<false, false>(
+      x, g, ln_w, ln_b, wqkv_map, bias, wprojt_map, wqkvt_map, static_cast<bf*>(qkv),
+      static_cast<bf*>(do_bf), static_cast<bf*>(dattn), static_cast<bf*>(dqkv), dln, dx, nullptr,
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, B,
+      T, H, W, C, axis, heads, bn_qkv, 1, 0, 1, 1, scale, eps, stream);
 }
 
-// Every gradient of the layer for the output cotangent g.  Scratch as for
-// axial_attention_bwd_dx, and ln_bf, attn_bf (tokens, C) bf16, dbias_part
-// (ceil(cuboids / cuboids_per_block), heads, vol, vol), vpart
-// (ceil(tokens / 32), 3, C) and dw_part (max(ksplit_qkv * 3, ksplit_proj), C, C)
-// f32.  Out: dx, dw_qkv (3C, C), dbias (heads, vol, vol), dw_proj (C, C),
-// vec (3, C) = dgamma, dbeta, dbproj.
+// Every gradient of the layer for the output cotangent g.  Maps and scratch
+// as axial_attention_bwd_dx, and attn (tokens, C) bf16; the weight
+// gradients' width-major bf16 operands ln_t, do_t, attn_t (C, ld) and dqkv_t
+// (3C, ld), ld >= tokens rounded up to 64; dbias_part (ceil(cuboids /
+// cuboids_per_block), heads, vol, vol) and vpart (ceil(tokens / 8), 3, C)
+// f32; ws_qkv, ws_proj the weight-gradient products' token splits.  Out: dx,
+// dw_qkv (3C, C), dbias (heads, vol, vol), dw_proj (C, C), vec (3, C) =
+// dgamma, dbeta, dbproj.
 extern "C" int axial_attention_bwd_full(
-    const float* x, const float* g, const float* ln_w, const float* ln_b, const float* w_qkv,
-    const float* bias, const float* w_proj, float* qkv, float* dattn, float* dqkv, float* dln,
-    __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, float* dbias_part, float* vpart,
-    float* dw_part, float* dx, float* dw_qkv, float* dbias, float* dw_proj, float* vec, int B,
-    int T, int H, int W, int C, int axis, int heads, int cuboids_per_block, int ksplit_qkv,
-    int ksplit_proj, float scale, float eps, cudaStream_t stream) {
-  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || axis < 0 || axis > 2 ||
-      cuboids_per_block < 1 || ksplit_qkv < 1 || ksplit_proj < 1)
-    return (int)cudaErrorInvalidValue;
-  const int M = B * T * H * W;
-  cudaError_t err = bwd_dx_launches<true>(x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv,
-                                          dln, dx, ln_bf, attn_bf, dbias_part, M, T, H, W, C,
-                                          axis, heads, cuboids_per_block, scale, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
-  const int blocks = (M / vol + cuboids_per_block - 1) / cuboids_per_block;
-  err = gradk::sum_partials(dbias_part, dbias, (size_t)heads * vol * vol, blocks, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = gradk::ln_vec_grads(x, g, dln, 1, vpart, vec, M, C, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = gradk::weight_grad(dqkv, ln_bf, dw_part, dw_qkv, M, 3 * C, C, ksplit_qkv, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)gradk::weight_grad(g, attn_bf, dw_part, dw_proj, M, C, C, ksplit_proj, stream);
+    const float* x, const float* g, const float* ln_w, const float* ln_b, const void* wqkv_map,
+    const float* bias, const void* wprojt_map, const void* wqkvt_map, void* qkv, void* do_bf,
+    void* dattn, void* dqkv, float* dln, void* attn, void* ln_t, void* do_t, void* attn_t,
+    void* dqkv_t, float* dbias_part, float* vpart, float* dx, float* dw_qkv, float* dbias,
+    float* dw_proj, float* vec, int B, int T, int H, int W, int C, int axis, int heads,
+    int bn_qkv, int cuboids_per_block, int ld, int ws_qkv, int ws_proj, float scale, float eps,
+    cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  return (int)axial_bwd_launches<true, false>(
+      x, g, ln_w, ln_b, wqkv_map, bias, wprojt_map, wqkvt_map, static_cast<bf*>(qkv),
+      static_cast<bf*>(do_bf), static_cast<bf*>(dattn), static_cast<bf*>(dqkv), dln, dx,
+      static_cast<bf*>(attn), static_cast<bf*>(ln_t), static_cast<bf*>(do_t),
+      static_cast<bf*>(attn_t), static_cast<bf*>(dqkv_t), dbias_part, vpart, dw_qkv, dbias,
+      dw_proj, vec, B, T, H, W, C, axis, heads, bn_qkv, cuboids_per_block, ld, ws_qkv, ws_proj,
+      scale, eps, stream);
 }
 
 // Every gradient of axial_attention_dropout_forward for the output cotangent g,
-// the masks regenerated from the same (seed, site).  Scratch and outputs as
-// axial_attention_bwd_full, and do_bf (tokens, C) bf16 for the dropped cotangent.
+// the masks regenerated from the same (seed, site).  Arguments as
+// axial_attention_bwd_full; do_bf and do_t hold the dropped cotangent.
 extern "C" int axial_attention_dropout_bwd_full(
-    const float* x, const float* g, const float* ln_w, const float* ln_b, const float* w_qkv,
-    const float* bias, const float* w_proj, float* qkv, float* dattn, float* dqkv, float* dln,
-    __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, __nv_bfloat16* do_bf, float* dbias_part,
-    float* vpart, float* dw_part, float* dx, float* dw_qkv, float* dbias, float* dw_proj,
-    float* vec, int B, int T, int H, int W, int C, int axis, int heads, int cuboids_per_block,
-    int ksplit_qkv, int ksplit_proj, float scale, float eps, unsigned seed_lo, unsigned seed_hi,
-    unsigned site, unsigned thr_attn, float keep_attn, unsigned thr_proj, float keep_proj,
-    cudaStream_t stream) {
-  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || axis < 0 || axis > 2 ||
-      cuboids_per_block < 1 || ksplit_qkv < 1 || ksplit_proj < 1)
-    return (int)cudaErrorInvalidValue;
+    const float* x, const float* g, const float* ln_w, const float* ln_b, const void* wqkv_map,
+    const float* bias, const void* wprojt_map, const void* wqkvt_map, void* qkv, void* do_bf,
+    void* dattn, void* dqkv, float* dln, void* attn, void* ln_t, void* do_t, void* attn_t,
+    void* dqkv_t, float* dbias_part, float* vpart, float* dx, float* dw_qkv, float* dbias,
+    float* dw_proj, float* vec, int B, int T, int H, int W, int C, int axis, int heads,
+    int bn_qkv, int cuboids_per_block, int ld, int ws_qkv, int ws_proj, float scale, float eps,
+    unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn, float keep_attn,
+    unsigned thr_proj, float keep_proj, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
   const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn};
   const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj};
-  const int M = B * T * H * W;
-  cudaError_t err = bwd_dx_launches<true, true>(
-      x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln, dx, ln_bf, attn_bf,
-      dbias_part, M, T, H, W, C, axis, heads, cuboids_per_block, scale, eps, stream, do_bf,
-      d_attn, d_proj);
-  if (err != cudaSuccess) return (int)err;
-  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
-  const int blocks = (M / vol + cuboids_per_block - 1) / cuboids_per_block;
-  err = gradk::sum_partials(dbias_part, dbias, (size_t)heads * vol * vol, blocks, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = gradk::ln_vec_grads(x, g, dln, 1, vpart, vec, M, C, eps, stream, d_proj);  // dbproj = sum do
-  if (err != cudaSuccess) return (int)err;
-  err = gradk::weight_grad(dqkv, ln_bf, dw_part, dw_qkv, M, 3 * C, C, ksplit_qkv, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)gradk::weight_grad(do_bf, attn_bf, dw_part, dw_proj, M, C, C, ksplit_proj, stream);
+  return (int)axial_bwd_launches<true, true>(
+      x, g, ln_w, ln_b, wqkv_map, bias, wprojt_map, wqkvt_map, static_cast<bf*>(qkv),
+      static_cast<bf*>(do_bf), static_cast<bf*>(dattn), static_cast<bf*>(dqkv), dln, dx,
+      static_cast<bf*>(attn), static_cast<bf*>(ln_t), static_cast<bf*>(do_t),
+      static_cast<bf*>(attn_t), static_cast<bf*>(dqkv_t), dbias_part, vpart, dw_qkv, dbias,
+      dw_proj, vec, B, T, H, W, C, axis, heads, bn_qkv, cuboids_per_block, ld, ws_qkv, ws_proj,
+      scale, eps, stream, d_attn, d_proj);
 }
 
 // The general cuboid layer on x in cuboid_reorder's layout (n_cuboids * vol
@@ -2032,21 +2121,22 @@ extern "C" int cuboid_attention_bwd_dx(const float* x, const float* g, const flo
 // Every gradient of the general cuboid layer for the output cotangent g, both
 // in cuboid_reorder's layout.  Scratch as for cuboid_attention_bwd_dx, and
 // ln_bf, attn_bf (tokens, C) bf16, stats (cuboids, heads, vol, 3), dbias_part
-// (ceil(cuboids / cuboids_per_block), heads, vol, vol), vpart (ceil(tokens /
-// 32), 3, C) and dw_part (max(ksplit_qkv * 3, ksplit_proj), C, C) f32.  Out:
-// dx, dw_qkv (3C, C), dbias (heads, vol, vol), dw_proj (C, C), vec (3, C) =
-// dgamma, dbeta, dbproj.
+// (ceil(cuboids / cuboids_per_block), heads, vol, vol) and vpart (ceil(tokens
+// / 8), 3, C) f32; tbuf (6C, ld) bf16 for the weight gradients' width-major
+// operands, ld >= tokens rounded up to 64; ws_qkv, ws_proj the products'
+// token splits.  Out: dx, dw_qkv (3C, C), dbias (heads, vol, vol), dw_proj
+// (C, C), vec (3, C) = dgamma, dbeta, dbproj.
 extern "C" int cuboid_attention_bwd_full(
     const float* x, const float* g, const float* ln_w, const float* ln_b, const float* w_qkv,
     const float* bias, const float* w_proj, float* qkv, float* dattn, float* dqkv, float* dln,
     __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, float* stats, float* dbias_part, float* vpart,
-    float* dw_part, float* dx, float* dw_qkv, float* dbias, float* dw_proj, float* vec,
+    __nv_bfloat16* tbuf, float* dx, float* dw_qkv, float* dbias, float* dw_proj, float* vec,
     int n_cuboids, int vol, int C, int heads, int q_tile, int tile, int cuboids_per_block,
-    int ksplit_qkv, int ksplit_proj, float scale, float eps, cudaStream_t stream) {
+    int ld, int ws_qkv, int ws_proj, float scale, float eps, cudaStream_t stream) {
   return (int)cuboid_bwd_full_launches<false>(
       x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln, ln_bf, attn_bf, nullptr,
-      stats, dbias_part, vpart, dw_part, dx, dw_qkv, dbias, dw_proj, vec, n_cuboids, vol, C,
-      heads, q_tile, tile, cuboids_per_block, ksplit_qkv, ksplit_proj, scale, eps, stream);
+      stats, dbias_part, vpart, tbuf, dx, dw_qkv, dbias, dw_proj, vec, n_cuboids, vol, C,
+      heads, q_tile, tile, cuboids_per_block, ld, ws_qkv, ws_proj, scale, eps, stream);
 }
 
 // Every gradient of cuboid_attention_dropout_forward for the output cotangent
@@ -2056,17 +2146,17 @@ extern "C" int cuboid_attention_dropout_bwd_full(
     const float* x, const float* g, const float* ln_w, const float* ln_b, const float* w_qkv,
     const float* bias, const float* w_proj, float* qkv, float* dattn, float* dqkv, float* dln,
     __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, __nv_bfloat16* do_bf, float* stats,
-    float* dbias_part, float* vpart, float* dw_part, float* dx, float* dw_qkv, float* dbias,
+    float* dbias_part, float* vpart, __nv_bfloat16* tbuf, float* dx, float* dw_qkv, float* dbias,
     float* dw_proj, float* vec, int n_cuboids, int vol, int C, int heads, int q_tile, int tile,
-    int cuboids_per_block, int ksplit_qkv, int ksplit_proj, float scale, float eps,
+    int cuboids_per_block, int ld, int ws_qkv, int ws_proj, float scale, float eps,
     unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn, float keep_attn,
     unsigned thr_proj, float keep_proj, cudaStream_t stream) {
   const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn};
   const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj};
   return (int)cuboid_bwd_full_launches<true>(
       x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln, ln_bf, attn_bf, do_bf, stats,
-      dbias_part, vpart, dw_part, dx, dw_qkv, dbias, dw_proj, vec, n_cuboids, vol, C, heads,
-      q_tile, tile, cuboids_per_block, ksplit_qkv, ksplit_proj, scale, eps, stream, d_attn,
+      dbias_part, vpart, tbuf, dx, dw_qkv, dbias, dw_proj, vec, n_cuboids, vol, C, heads,
+      q_tile, tile, cuboids_per_block, ld, ws_qkv, ws_proj, scale, eps, stream, d_attn,
       d_proj);
 }
 

@@ -33,37 +33,41 @@
 // Rounding follows the TPU kernel: LN(x), the weights and gelu(h) are bf16
 // operands; every sum is f32.
 //
-// Input gradient (ffn_bwd_dx): replaces pallas_ffn.py::fused_ffn_bwd_dx
-// (_ffn_bwd_dx_kernel), flash-style: nothing of the forward is saved, the
+// Input gradient (ffn_bwd_dx) and all gradients (ffn_bwd_full): replace
+// pallas_ffn.py::fused_ffn_bwd_dx (_ffn_bwd_dx_kernel) and fused_ffn_bwd_full
+// (_ffn_bwd_full_kernel), flash-style: nothing of the forward is saved, the
 // hidden activation is recomputed chunk by chunk and never leaves the chip.
-// Per chunk of 64 hidden units: h = LN(x) . W1c^T + b1 and da = g . W2c
-// (two products over C), dh = da * gelu'(h) in bf16, dln += dh . W1c.  The
-// W1 chunk is staged once and read both ways (as W1c^T and as W1c).  Three
-// products of 2 M C hidden each: bound by operations at the alignment
-// shapes, like the forward.  A block owns 32 token rows (WMMA 16x16x16 on
-// weights staged from f32), and the hidden dimension is split over a second
-// grid axis into an f32 workspace; ffn_bwd_reduce_kernel adds the splits and
-// applies the LayerNorm backward, which needs the whole dln row, then adds
-// the residual's g.  Rounding follows the TPU kernel: LN(x), g, the weights
-// and dh are bf16 operands; h, gelu' and every sum stay f32.
-//
-// All gradients (ffn_bwd_full): replaces pallas_ffn.py::fused_ffn_bwd_full
-// (_ffn_bwd_full_kernel): dx as above and, from the same recomputed values,
-// dgamma = sum dln . nhat, dbeta = sum dln, dW1 = dh^T . LN(x), db1 = sum dh,
-// dW2 = g^T . gelu(h), db2 = sum g, every sum over all tokens.  The TPU kernel
-// adds each token tile's share into outputs that stay resident across its
-// sequential grid; here blocks run in no order, and a weight gradient
-// (256 x 1024 or 512 x 2048 f32) is far more than a block's shared memory.
-// So the dx kernel, in its Full form, also writes what the weight gradients
-// contract over the tokens - gelu(h) and dh, rounded to bf16 as the TPU kernel
-// rounds them before those products, and LN(x) in bf16 - and its per-block
-// column sums of the f32 dh.  The two weight gradients are then transposed
-// products over the tokens on the tensor cores (tn_gemm_kernel in
-// grad_common.cuh), split over the tokens into an f32 workspace; the vector
-// gradients are column sums per 32-row block; sum_partials_kernel adds every
-// set of partials in a fixed order.  No atomics: two runs give the same bits.
 // Five products of 2 M C hidden operations against ~(3 M C + 4 C hidden) f32
-// bytes: bound by operations at the UNet's training shapes.
+// bytes: bound by operations at the UNet's training shapes (~0.018 ms).  One
+// launch of ffn_bwd_kernel, on the forward's pieces:
+//   - A block owns 64 token rows.  LN(x) is computed once into a swizzled
+//     bf16 A tile, and do = g (. m2 / (1 - r_out)) is staged beside it as a
+//     second one.  The weights are bf16 copies kept per parameter version
+//     (ops/weights.py): W1 (hidden, C) as it is, and the transposed copies
+//     W2^T (hidden, C) and W1^T (C, hidden), so that every product reads a
+//     K-major B operand by TMA; a producer warp keeps a ring of their tiles
+//     full.
+//   - Per hidden chunk of 64, each of the two consumer warpgroups takes 32
+//     of its columns: h = LN . W1c^T and da = do . W2c (wgmma m64n32), then
+//     dh = da . gelu'(h + b1) (. m1 / (1 - r_act)) rounded to bf16 into a
+//     shared dh tile; then dln += dh . W1c (wgmma m64n(C/2)), each warpgroup
+//     on half of dln's columns, accumulated in registers across the chunks
+//     (at C = 512 the 64 x 512 f32 accumulator does not fit one warpgroup).
+//   - The hidden dimension is split over a thread-block cluster of 1, 2, 4
+//     or 8 blocks (about one wave on 132 SMs).  Each parks its f32 dln
+//     partial in its own shared memory; each rank adds the partials of a
+//     share of the rows in rank order through distributed shared memory and
+//     applies the LayerNorm backward, which needs whole dln rows, + g.
+//   - All gradients: the weight gradients dW1 = dh^T . LN(x) and dW2 = do^T .
+//     gelu(h) contract over the tokens, so the kernel writes their operands
+//     width-major (a row per hidden unit or channel, tokens contiguous), in
+//     bf16 as the TPU kernel rounds them: both are then K-major operands of
+//     the wgmma TN product (grad_common.cuh wgrad_kernel, the tokens split
+//     over a cluster).  The vector gradients are per-block column sums
+//     (dln . nhat, dln, do, the f32 dh) added in a fixed order by
+//     sum_partials_kernel.  No atomics: two runs give the same bits.
+// Rounding follows the TPU kernel: LN(x), do, the weights and dh are bf16
+// operands; h, gelu' and every sum stay f32.
 //
 // Dropout (ffn_dropout_forward, ffn_dropout_bwd_full): replaces
 // pallas_ffn.py::fused_ffn_dropout (_ffn_dropout_fwd_kernel) and
@@ -81,314 +85,24 @@
 // The backward regenerates both: do = g . m2 / (1 - r_out) feeds dW2, db2
 // and da, the residual's share of dx is the unmasked g; the stored bf16
 // gelu(h) is the dropped, rescaled one and dz = da . gelu'(h) . m1 /
-// (1 - r_act).  The Drop forms are separate template instances of the same
-// bodies, so with both rates 0 they give the bits of the kernels without
-// dropout.  The draws add ~100 integer operations per hidden
-// element to kernels that stay bound by their products.
+// (1 - r_act).  Each Philox block is drawn once in the backward: do takes 8
+// channels a thread (two whole blocks), and a pair of lanes that holds one
+// block's four hidden units in two rows draws one block each and swaps
+// halves (philox::draw_rows2).  The Drop forms are separate template
+// instances of the same bodies, so with both rates 0 they give the bits of
+// the kernels without dropout.  The draws add ~100 integer operations per
+// hidden element to kernels that stay bound by their products.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cooperative_groups.h>
-#include <mma.h>
 
 #include "grad_common.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
 
-using namespace nvcuda;
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kRows = 32;      // token rows per block
-constexpr int kChunk = 64;     // hidden units per chunk
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kPadB = 8;       // bf16 row padding (keeps 32-byte alignment)
-constexpr int kPadF = 4;       // f32 row padding
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// LayerNorm of kRows rows of x into bf16 rows of lnA (zeros past M), one
-// warp per row, two-pass mean / var.
-template <int C>
-__device__ __forceinline__ void ln_rows_bf16(const float* __restrict__ x,
-                                             const float* __restrict__ ln_w,
-                                             const float* __restrict__ ln_b,
-                                             __nv_bfloat16* lnA, int ldA, int row0, int M,
-                                             float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < kRows; r += kThreads / 32) {
-    const int gr = row0 + r;
-    __nv_bfloat16* dst = lnA + r * ldA;
-    if (gr < M) {
-      const float* xr = x + (size_t)gr * C;
-      float s = 0.f;
-      for (int c = lane; c < C; c += 32) s += xr[c];
-      const float mu = warp_sum(s) / C;
-      float v = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        float d = xr[c] - mu;
-        v += d * d;
-      }
-      const float rs = rsqrtf(warp_sum(v) / C + eps);
-      for (int c = lane; c < C; c += 32)
-        dst[c] = __float2bfloat16((xr[c] - mu) * rs * ln_w[c] + ln_b[c]);
-    } else {
-      for (int c = lane; c < C; c += 32) dst[c] = __float2bfloat16(0.f);
-    }
-  }
-}
-
-template <int C>
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (2 * kRows * (C + kPadB) + kChunk * (C + kPadB) +
-                                   C * (kChunk + kPadB) + kRows * (kChunk + kPadB)) +
-         sizeof(float) * 2 * kRows * (kChunk + kPadF);
-}
-
-// Full: also write gelu(h) and dh as bf16 (M, hidden), LN(x) as bf16 (M, C)
-// and this block's column sums of the f32 dh into db1_part (row blocks, hidden).
-// Drop (with Full): g goes through the dropout d2 as it is staged (do, also
-// written as bf16 (M, C) into do_out), gelu(h) and dh through d1.
-template <int C, bool Full, bool Drop>
-__global__ void __launch_bounds__(kThreads)
-ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                  const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-                  const float* __restrict__ w1, const float* __restrict__ b1,
-                  const float* __restrict__ w2, float* __restrict__ part,
-                  __nv_bfloat16* __restrict__ a_out, __nv_bfloat16* __restrict__ dh_out,
-                  __nv_bfloat16* __restrict__ ln_out, float* __restrict__ db1_part, int M,
-                  int hidden, int chunks_per_split, float eps, __nv_bfloat16* __restrict__ do_out,
-                  philox::Drop d1, philox::Drop d2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ldA = C + kPadB;
-  constexpr int ldW2 = kChunk + kPadB;
-  constexpr int ldH = kChunk + kPadB;
-  constexpr int ldHf = kChunk + kPadF;
-  __nv_bfloat16* lnA = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][ldA]
-  __nv_bfloat16* gA = lnA + kRows * ldA;                         // [kRows][ldA]
-  __nv_bfloat16* w1c = gA + kRows * ldA;                         // [kChunk][ldA]  (j, c)
-  __nv_bfloat16* w2c = w1c + kChunk * ldA;                       // [C][ldW2]      (c, j)
-  __nv_bfloat16* hb = w2c + C * ldW2;                            // [kRows][ldH]   dh
-  float* hs = reinterpret_cast<float*>(hb + kRows * ldH);        // [kRows][ldHf]  h
-  float* das = hs + kRows * ldHf;                                // [kRows][ldHf]  da
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int row0 = blockIdx.x * kRows;
-  ln_rows_bf16<C>(x, ln_w, ln_b, lnA, ldA, row0, M, eps);
-  for (int i = tid; i < kRows * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    const int gr = row0 + r;
-    float gv = gr < M ? g[(size_t)gr * C + c] : 0.f;
-    if (Drop) gv = philox::apply(d2, (unsigned long long)gr * C + c, gv);
-    gA[r * ldA + c] = __float2bfloat16(gv);
-  }
-
-  // dln: this warp's output columns [warp * kCols, (warp + 1) * kCols), all rows.
-  constexpr int kCols = C / 8;
-  constexpr int kColTiles = kCols / 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][kColTiles];
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int ct = 0; ct < kColTiles; ++ct) wmma::fill_fragment(acc[rt][ct], 0.f);
-  const int hr = warp >> 2, hc = warp & 3;  // this warp's 16 x 16 tile of the chunk
-  __syncthreads();
-  if (Full && blockIdx.y == 0) {
-    for (int i = tid; i < kRows * C; i += kThreads) {
-      const int r = i / C, c = i % C;
-      if (row0 + r < M) {
-        ln_out[(size_t)(row0 + r) * C + c] = lnA[r * ldA + c];
-        if (Drop) do_out[(size_t)(row0 + r) * C + c] = gA[r * ldA + c];
-      }
-    }
-  }
-
-  const int j_begin = blockIdx.y * chunks_per_split * kChunk;
-  const int j_end = min(hidden, j_begin + chunks_per_split * kChunk);
-  for (int j0 = j_begin; j0 < j_end; j0 += kChunk) {
-    for (int i = tid; i < kChunk * C; i += kThreads) {
-      const int n = i / C, k = i % C;
-      w1c[n * ldA + k] = __float2bfloat16(w1[(size_t)(j0 + n) * C + k]);
-    }
-    for (int i = tid; i < C * kChunk; i += kThreads) {
-      const int n = i / kChunk, k = i % kChunk;
-      w2c[n * ldW2 + k] = __float2bfloat16(w2[(size_t)n * hidden + j0 + k]);
-    }
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc, dacc;
-    wmma::fill_fragment(hacc, 0.f);
-    wmma::fill_fragment(dacc, 0.f);
-#pragma unroll 4
-    for (int kk = 0; kk < C; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bt;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, lnA + hr * 16 * ldA + kk, ldA);
-      wmma::load_matrix_sync(bt, w1c + hc * 16 * ldA + kk, ldA);
-      wmma::mma_sync(hacc, a, bt, hacc);
-      wmma::load_matrix_sync(a, gA + hr * 16 * ldA + kk, ldA);
-      wmma::load_matrix_sync(b, w2c + kk * ldW2 + hc * 16, ldW2);
-      wmma::mma_sync(dacc, a, b, dacc);
-    }
-    wmma::store_matrix_sync(hs + hr * 16 * ldHf + hc * 16, hacc, ldHf, wmma::mem_row_major);
-    wmma::store_matrix_sync(das + hr * 16 * ldHf + hc * 16, dacc, ldHf, wmma::mem_row_major);
-    __syncthreads();
-    float dh_sum = 0.f;  // Full: this thread's column (tid % kChunk) over its rows
-    for (int i = tid; i < kRows * kChunk; i += kThreads) {
-      const int r = i / kChunk, k = i % kChunk;
-      const float h = hs[r * ldHf + k] + b1[j0 + k];
-      const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
-      const float pdf = expf(-0.5f * h * h) * 0.39894228040143268f;
-      float dh = das[r * ldHf + k] * (cdf + h * pdf);
-      float a = h * cdf;
-      if (Drop && d1.thr != 0u) {  // one draw masks the activation and its gradient
-        const bool kept =
-            philox::draw(d1, (unsigned long long)(row0 + r) * hidden + j0 + k) >= d1.thr;
-        dh = kept ? dh / d1.keep : 0.f;
-        a = kept ? a / d1.keep : 0.f;
-      }
-      const __nv_bfloat16 dhb = __float2bfloat16(dh);
-      hb[r * ldH + k] = dhb;
-      if (Full) {
-        dh_sum += dh;  // rows past M have g = 0, so dh = 0
-        if (row0 + r < M) {
-          const size_t o = (size_t)(row0 + r) * hidden + j0 + k;
-          a_out[o] = __float2bfloat16(a);
-          dh_out[o] = dhb;
-        }
-      }
-    }
-    __syncthreads();
-    if (Full) das[tid] = dh_sum;  // das is free until the next chunk's products
-#pragma unroll
-    for (int kk = 0; kk < kChunk; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
-      wmma::load_matrix_sync(a0, hb + kk, ldH);
-      wmma::load_matrix_sync(a1, hb + 16 * ldH + kk, ldH);
-#pragma unroll
-      for (int ct = 0; ct < kColTiles; ++ct) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, w1c + kk * ldA + warp * kCols + ct * 16, ldA);
-        wmma::mma_sync(acc[0][ct], a0, b, acc[0][ct]);
-        wmma::mma_sync(acc[1][ct], a1, b, acc[1][ct]);
-      }
-    }
-    __syncthreads();
-    if (Full && tid < kChunk) {  // kThreads / kChunk threads share a column, added in order
-      float t = das[tid];
-      for (int q = 1; q < kThreads / kChunk; ++q) t += das[q * kChunk + tid];
-      db1_part[(size_t)blockIdx.x * hidden + j0 + tid] = t;
-    }
-  }
-
-  // This split's partial dln through shared memory (the W2 staging area).
-  constexpr int ldO = C + kPadF;
-  float* os = reinterpret_cast<float*>(w2c);
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int ct = 0; ct < kColTiles; ++ct)
-      wmma::store_matrix_sync(os + rt * 16 * ldO + warp * kCols + ct * 16, acc[rt][ct], ldO,
-                              wmma::mem_row_major);
-  __syncthreads();
-  float* dst = part + (size_t)blockIdx.y * M * C;
-  for (int i = tid; i < kRows * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    const int gr = row0 + r;
-    if (gr < M) dst[(size_t)gr * C + c] = os[r * ldO + c];
-  }
-}
-
-// dx = g + LayerNorm backward of dln = sum_s part[s], one warp per row:
-//   dnhat = dln * ln_w,  dx_ln = rs * (dnhat - mean(dnhat) - nhat * mean(dnhat * nhat)).
-__global__ void ffn_bwd_reduce_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                                      const float* __restrict__ ln_w,
-                                      const float* __restrict__ part, float* __restrict__ dx,
-                                      int M, int C, int splits, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= M) return;
-  const size_t n = (size_t)M * C;
-  const float* xr = x + (size_t)row * C;
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += xr[c];
-  const float mu = warp_sum(s) / C;
-  float v = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    float d = xr[c] - mu;
-    v += d * d;
-  }
-  const float rs = rsqrtf(warp_sum(v) / C + eps);
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    float dln = 0.f;
-    for (int sp = 0; sp < splits; ++sp) dln += part[sp * n + (size_t)row * C + c];
-    const float dnhat = dln * ln_w[c];
-    s1 += dnhat;
-    s2 += dnhat * (xr[c] - mu) * rs;
-  }
-  const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
-  for (int c = lane; c < C; c += 32) {
-    float dln = 0.f;
-    for (int sp = 0; sp < splits; ++sp) dln += part[sp * n + (size_t)row * C + c];
-    const float nhat = (xr[c] - mu) * rs;
-    dx[(size_t)row * C + c] = g[(size_t)row * C + c] + rs * (dln * ln_w[c] - m1 - nhat * m2);
-  }
-}
-
-template <int C, bool Full, bool Drop = false>
-cudaError_t launch_bwd(const float* x, const float* g, const float* ln_w, const float* ln_b,
-                       const float* w1, const float* b1, const float* w2, float* part,
-                       __nv_bfloat16* a_out, __nv_bfloat16* dh_out, __nv_bfloat16* ln_out,
-                       float* db1_part, int M, int hidden, int splits, float eps,
-                       cudaStream_t stream, __nv_bfloat16* do_out = nullptr,
-                       philox::Drop d1 = philox::Drop{}, philox::Drop d2 = philox::Drop{}) {
-  static_assert(Full || !Drop, "dropout runs only on the all-gradients form");
-  static_assert(kThreads % kChunk == 0 && kThreads <= kRows * (kChunk + kPadF),
-                "the dh column sums pass through the da tile");
-  static_assert(sizeof(float) * kRows * (C + kPadF) <=
-                    sizeof(__nv_bfloat16) * C * (kChunk + kPadB),
-                "epilogue tile must fit the W2 staging area");
-  constexpr size_t bytes = bwd_smem_bytes<C>();
-  static_assert(bytes <= 232448, "exceeds the 227 KB of shared memory a block can use");
-  cudaError_t err = cudaFuncSetAttribute(ffn_bwd_dx_kernel<C, Full, Drop>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const int chunks_per_split = hidden / kChunk / splits;
-  ffn_bwd_dx_kernel<C, Full, Drop>
-      <<<dim3((M + kRows - 1) / kRows, splits), kThreads, bytes, stream>>>(
-          x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden,
-          chunks_per_split, eps, do_out, d1, d2);
-  return cudaGetLastError();
-}
-
-// part -> dx: the splits added in order, the LayerNorm backward, the residual's g.
-cudaError_t bwd_reduce(const float* x, const float* g, const float* ln_w, const float* part,
-                       float* dx, int M, int C, int splits, float eps, cudaStream_t stream) {
-  constexpr int kRowsPerBlock = 8;  // one warp per row
-  ffn_bwd_reduce_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0,
-                          stream>>>(x, g, ln_w, part, dx, M, C, splits, eps);
-  return cudaGetLastError();
-}
-
-template <bool Full, bool Drop = false>
-cudaError_t launch_bwd_c(int C, const float* x, const float* g, const float* ln_w,
-                         const float* ln_b, const float* w1, const float* b1, const float* w2,
-                         float* part, __nv_bfloat16* a_out, __nv_bfloat16* dh_out,
-                         __nv_bfloat16* ln_out, float* db1_part, int M, int hidden, int splits,
-                         float eps, cudaStream_t stream, __nv_bfloat16* do_out = nullptr,
-                         philox::Drop d1 = philox::Drop{}, philox::Drop d2 = philox::Drop{}) {
-  switch (C) {
-    case 128: return launch_bwd<128, Full, Drop>(x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden, splits, eps, stream, do_out, d1, d2);
-    case 256: return launch_bwd<256, Full, Drop>(x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden, splits, eps, stream, do_out, d1, d2);
-    case 512: return launch_bwd<512, Full, Drop>(x, g, ln_w, ln_b, w1, b1, w2, part, a_out, dh_out, ln_out, db1_part, M, hidden, splits, eps, stream, do_out, d1, d2);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The forward on TMA + wgmma (the note at the top of the file).
@@ -731,6 +445,571 @@ int forward(const float* x, const float* ln_w, const float* ln_b, const void* w1
 
 }  // namespace fwd
 
+// ---------------------------------------------------------------------------
+// The backwards on TMA + wgmma (the note at the top of the file).
+namespace bwd {
+
+using namespace hopper;
+
+constexpr int kBM = 64;                            // token rows a block
+constexpr int kHC = 64;                            // hidden units a chunk
+constexpr int kStageBytes = 32768;                 // a ring stage
+// two consumer warpgroups and a producer warpgroup, as the forward
+constexpr int kConsumers = 256, kThreads = kConsumers + 128;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kMaxSplits = 8;
+constexpr int kLdT = kBM + 8;                      // row stride of the transposed staging tiles
+
+template <int C>
+struct Cfg {
+  // a ring item: 64 rows (hidden units) x kItemK channels of W1c or W2^T c
+  // (kItemK / 64 boxes of 64 x 64), or kItemK channels x 64 hidden units of
+  // W1^T c (one box); kItems of each per chunk
+  static constexpr int kItemK = C < 256 ? C : 256;
+  static constexpr int kItems = C / kItemK;
+  static constexpr int kItemBytes = kHC * kItemK * 2;
+  static constexpr int kStages = C == 512 ? 2 : 4;
+  static constexpr int kTileBytes = kBM * C * 2;     // the LN(x) and do tiles
+  static constexpr int kDhBytes = kBM * kHC * 2;     // the dh tile
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kTBytes = 2 * kHC * kLdT * 2; // gelu(h)^T and dh^T staging
+  static constexpr int kN2 = C / 2, kAcc = kN2 / 2;  // dln columns a warpgroup, f32 a thread
+  static constexpr int kSmem = 1024 + 2 * kTileBytes + kDhBytes + kRingBytes + kTBytes;
+  // after the products: the rank's dln partial (64 x C f32) from the LN tile
+  // on, then the warps' column sums (8 x 2 x C f32)
+  static constexpr int kRedBytes = kBM * C * 4, kVBytes = 8 * 2 * C * 4;
+  static_assert(kItemBytes <= kStageBytes, "an item fits a stage");
+  static_assert(kRedBytes + kVBytes <= kSmem - 1024, "the epilogue fits the tiles and the ring");
+  static_assert(kConsumers * 8 * 4 <= kTBytes, "the do column sums fit the staging tiles");
+  static_assert(kSmem + 2048 <= 232448, "exceeds the 227 KB of shared memory a block can use");
+};
+
+// grid (row tiles, 1, splits), clusters of (1, 1, splits): block z adds
+// hidden chunks [z, z + 1) * chunks / splits; the ranks then add their dln
+// partials in rank order, each for its share of the tile's rows.
+// Full: also the width-major bf16 side outputs of the weight gradients
+// (ld tokens a row): LN(x)^T, do^T (C, ld) by rank 0, gelu(h)^T (dropped)
+// and dh^T (hidden, ld) for each rank's chunks; vpart[tile * splits + rank]
+// (3, C): the rank's column sums of dln . nhat and dln over its rows and
+// (rank 0) of do over the tile; db1_part[tile] (hidden): the column sums of
+// the f32 dh, each rank for its chunks.
+template <int C, bool Full, bool Drop>
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_bwd_kernel(const __grid_constant__ CUtensorMap w1_map,
+               const __grid_constant__ CUtensorMap w2t_map,
+               const __grid_constant__ CUtensorMap w1t_map, const float* __restrict__ x,
+               const float* __restrict__ g, const float* __restrict__ ln_w,
+               const float* __restrict__ ln_b, const float* __restrict__ b1,
+               float* __restrict__ dx, __nv_bfloat16* __restrict__ ln_t,
+               __nv_bfloat16* __restrict__ do_t, __nv_bfloat16* __restrict__ a_t,
+               __nv_bfloat16* __restrict__ dh_t, float* __restrict__ vpart,
+               float* __restrict__ db1_part, int M, int hidden, int ld, float eps,
+               philox::Drop d1, philox::Drop d2) {
+  using K = Cfg<C>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[K::kStages], empty[K::kStages];
+  __shared__ float csum[kConsumers / 32][32];   // the warps' column sums of dh
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ln_s = (raw + 1023) & ~1023u;   // 1024-byte aligned for the 128-byte swizzle
+  const uint32_t do_s = ln_s + K::kTileBytes, dh_s = do_s + K::kTileBytes;
+  const uint32_t ring = dh_s + K::kDhBytes;
+  uint8_t* base = smem_raw + (ln_s - raw);
+  __nv_bfloat16* at_s = reinterpret_cast<__nv_bfloat16*>(base + 2 * K::kTileBytes + K::kDhBytes +
+                                                         K::kRingBytes);   // [kHC][kLdT]
+  __nv_bfloat16* dht_s = at_s + kHC * kLdT;
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * kBM;
+  const int splits = gridDim.z, rank = blockIdx.z;
+  const int chunks = hidden / kHC;
+  const int c_begin = rank * chunks / splits, c_end = (rank + 1) * chunks / splits;
+  const int slot = blockIdx.x * splits + rank;
+
+  if (tid == 0) {
+    for (int s = 0; s < K::kStages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // producer: one thread keeps the ring full, per chunk W1c's items, then
+    // W2^T c's, then W1^T c's, in the order the consumers take them
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (tid == kConsumers) {
+      int item = 0;
+      for (int c = c_begin; c < c_end; ++c) {
+        for (int it = 0; it < 3 * K::kItems; ++it, ++item) {
+          const int s = item % K::kStages;
+          mbar_wait(smem_u32(&empty[s]), ((item / K::kStages) & 1) ^ 1);
+          const uint32_t bar = smem_u32(&full[s]), dst = ring + s * kStageBytes;
+          mbar_expect_tx(bar, K::kItemBytes);
+          const int op = it / K::kItems, part = it % K::kItems;
+          if (op < 2) {
+            const CUtensorMap* map = op == 0 ? &w1_map : &w2t_map;
+            for (int b = 0; b < K::kItemK / 64; ++b)
+              tma_load_2d(dst + b * 8192, map, bar, part * K::kItemK + b * 64, c * kHC);
+          } else {
+            tma_load_2d(dst, &w1t_map, bar, c * kHC, part * K::kItemK);
+          }
+        }
+      }
+    }
+    if (splits > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      cluster.sync();
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid & 31;
+  const int hcol = 32 * wg;          // the warpgroup's columns of h, da and dh within a chunk
+  const int ocol = K::kN2 * wg;      // its columns of dln
+  ln_rows_sw128<(C + 255) / 256, 8 / ((C + 255) / 256)>(x, ln_w, ln_b, base, kBM, m0, M, C, eps,
+                                                        tid / 32, kConsumers / 32);
+  {
+    // do = g (Drop: . m2 / (1 - r_out)) rounded to bf16 into the do tile, 8
+    // columns a thread at a time (two whole Philox blocks); Full: the
+    // thread's column sums of the f32 do
+    constexpr int G = C / 8, kRowStep = kConsumers / G;
+    const int g8 = tid % G;
+    float cs[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) cs[k] = 0.f;
+    for (int r = tid / G; r < kBM; r += kRowStep) {
+      const int row = m0 + r;
+      float v[8];
+      if (row < M) {
+        const float4* src = reinterpret_cast<const float4*>(g + (size_t)row * C + 8 * g8);
+        const float4 p = src[0], q = src[1];
+        v[0] = p.x, v[1] = p.y, v[2] = p.z, v[3] = p.w, v[4] = q.x, v[5] = q.y, v[6] = q.z,
+        v[7] = q.w;
+        if (Drop) philox::apply8(d2, (unsigned long long)row * C + 8 * g8, v);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = 0.f;
+      }
+      uint32_t packed[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        cs[2 * k] += v[2 * k];
+        cs[2 * k + 1] += v[2 * k + 1];
+        packed[k] = fwd::pack_bf16(v[2 * k], v[2 * k + 1]);
+      }
+      *reinterpret_cast<uint4*>(base + K::kTileBytes + (8 * g8 >> 6) * kBM * 128 +
+                                sw128_offset(r, (8 * g8) & 63)) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    }
+    if (Full) {
+      float* scratch = reinterpret_cast<float*>(at_s);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) scratch[tid * 8 + k] = cs[k];
+    }
+  }
+  fence_async_smem();
+  named_barrier(1, kConsumers);
+  if (Full) {
+    // db2's partial: the threads of a column group in thread order
+    const float* scratch = reinterpret_cast<const float*>(at_s);
+    constexpr int G = C / 8;
+    for (int c = tid; c < C; c += kConsumers) {
+      float t = 0.f;
+      for (int q = c / 8; q < kConsumers; q += G) t += scratch[q * 8 + c % 8];
+      vpart[(size_t)slot * 3 * C + 2 * C + c] = rank == 0 ? t : 0.f;
+    }
+    if (rank == 0) {
+      // LN(x)^T and do^T: 8 rows of one channel a thread, gathered from the swizzled tiles
+      for (int i = tid; i < C * (kBM / 8); i += kConsumers) {
+        const int c = i / (kBM / 8), r8 = (i % (kBM / 8)) * 8;
+        const uint32_t off = (c >> 6) * kBM * 128;
+        uint32_t lp[4], dp[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const __nv_bfloat16* l0 = reinterpret_cast<const __nv_bfloat16*>(
+              base + off + sw128_offset(r8 + 2 * k, c & 63));
+          const __nv_bfloat16* l1 = reinterpret_cast<const __nv_bfloat16*>(
+              base + off + sw128_offset(r8 + 2 * k + 1, c & 63));
+          __nv_bfloat162 lv, dv;
+          lv.x = l0[0], lv.y = l1[0];
+          dv.x = l0[K::kTileBytes / 2], dv.y = l1[K::kTileBytes / 2];
+          lp[k] = *reinterpret_cast<uint32_t*>(&lv);
+          dp[k] = *reinterpret_cast<uint32_t*>(&dv);
+        }
+        const size_t o = (size_t)c * ld + m0 + r8;
+        *reinterpret_cast<uint4*>(ln_t + o) = make_uint4(lp[0], lp[1], lp[2], lp[3]);
+        *reinterpret_cast<uint4*>(do_t + o) = make_uint4(dp[0], dp[1], dp[2], dp[3]);
+      }
+    }
+    named_barrier(1, kConsumers);   // the scratch is staging again
+  }
+
+  float acc[K::kAcc];
+#pragma unroll
+  for (int e = 0; e < K::kAcc; ++e) acc[e] = 0.f;
+  int item = 0;
+  for (int c = c_begin; c < c_end; ++c) {
+    const int j0 = c * kHC;
+    float bj[4][2];   // the chunk's b1 at this thread's columns: in flight during the products
+#pragma unroll
+    for (int jb = 0; jb < 4; ++jb) {
+      const float2 b = *reinterpret_cast<const float2*>(b1 + j0 + hcol + 8 * jb + 2 * (lane & 3));
+      bj[jb][0] = b.x;
+      bj[jb][1] = b.y;
+    }
+    // h = LN . W1c^T and da = do . W2^T c on the warpgroup's 32 columns: h's
+    // items, then da's, one product group in flight behind the next (each
+    // item released once its group is done)
+    float hacc[16], dacc[16];
+    const int rA = warp * 16 + (lane >> 2);
+    constexpr int kHD = 2 * K::kItems;
+#pragma unroll
+    for (int q = 0; q < kHD; ++q) {
+      const int op = q / K::kItems, it = q % K::kItems;
+      const int s = (item + q) % K::kStages;
+      mbar_wait(smem_u32(&full[s]), ((item + q) / K::kStages) & 1);
+      const uint32_t st = ring + s * kStageBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int b = 0; b < K::kItemK / 64; ++b) {
+        const int slice = it * (K::kItemK / 64) + b;
+        const uint64_t da = sw128_desc((op == 0 ? ln_s : do_s) + slice * kBM * 128);
+        const uint64_t db = sw128_desc(st + b * 8192 + hcol * 128);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (op == 0)
+            wgmma_k16(hacc, da + 2 * kk, db + 2 * kk, slice + kk > 0);
+          else
+            wgmma_k16(dacc, da + 2 * kk, db + 2 * kk, slice + kk > 0);
+        }
+      }
+      wgmma_commit();
+      if (q + 1 < kHD)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      if (lane == 0) {
+        if (q > 0) mbar_arrive(smem_u32(&empty[(item + q - 1) % K::kStages]));
+        if (q + 1 == kHD) mbar_arrive(smem_u32(&empty[(item + q) % K::kStages]));
+      }
+    }
+    item += kHD;
+    fence_regs(hacc);
+    fence_regs(dacc);
+    // both warpgroups are past the previous chunk's reads of the dh tile and
+    // the staging tiles
+    named_barrier(1, kConsumers);
+    // dh = da . gelu'(h + b1) and a = gelu(h + b1), both (Drop) . m1 / (1 -
+    // r_act) of (token, hidden unit); dh rounded to bf16 into the dh tile
+    float dsum[4][2];
+#pragma unroll
+    for (int jb = 0; jb < 4; ++jb) {
+      const int jl = hcol + 8 * jb + 2 * (lane & 3);
+      unsigned w[2][2] = {{0u, 0u}, {0u, 0u}};
+      if (Drop && d1.thr != 0u) {
+        const unsigned long long eA = (unsigned long long)(m0 + rA) * hidden + j0 + jl;
+        philox::draw_rows2(d1, eA, eA + 8ull * hidden, w[0], w[1]);
+      }
+      dsum[jb][0] = dsum[jb][1] = 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = rA + 8 * half;
+        float av[2], dv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float h = hacc[4 * jb + 2 * half + e] + bj[jb][e];
+          const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
+          const float pdf = expf(-0.5f * h * h) * 0.39894228040143268f;
+          float dh = dacc[4 * jb + 2 * half + e] * (cdf + h * pdf);
+          float a = h * cdf;
+          if (Drop && d1.thr != 0u) {
+            const bool kept = w[half][e] >= d1.thr;
+            dh = kept ? dh / d1.keep : 0.f;
+            a = kept ? a / d1.keep : 0.f;
+          }
+          av[e] = a;
+          dv[e] = dh;
+          dsum[jb][e] += dh;   // rows past M have do = 0, so dh = 0
+        }
+        const uint32_t dhp = fwd::pack_bf16(dv[0], dv[1]);
+        *reinterpret_cast<uint32_t*>(base + (dh_s - ln_s) + sw128_offset(r, jl)) = dhp;
+        if (Full) {
+          const __nv_bfloat162 ap = __floats2bfloat162_rn(av[0], av[1]);
+          const __nv_bfloat162 hp = *reinterpret_cast<const __nv_bfloat162*>(&dhp);
+          at_s[jl * kLdT + r] = ap.x;
+          at_s[(jl + 1) * kLdT + r] = ap.y;
+          dht_s[jl * kLdT + r] = hp.x;
+          dht_s[(jl + 1) * kLdT + r] = hp.y;
+        }
+      }
+    }
+    fence_async_smem();
+    named_barrier(1, kConsumers);
+    // dln += dh . W1^T c on the warpgroup's columns
+#pragma unroll
+    for (int it = 0; it < K::kItems; ++it) {
+      const int s = (item + it) % K::kStages;
+      mbar_wait(smem_u32(&full[s]), ((item + it) / K::kStages) & 1);
+      if (K::kItems == 1 || it == wg) {
+        const uint64_t da = sw128_desc(dh_s);
+        const uint64_t db = sw128_desc(ring + s * kStageBytes + (K::kItems == 1 ? ocol * 128 : 0));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_k16(acc, da + 2 * kk, db + 2 * kk);
+        wgmma_commit();
+      }
+    }
+    if (Full) {
+      // while the product runs: gelu(h)^T and dh^T of the chunk, 16 bytes (8
+      // tokens of one hidden unit) a store, and the chunk's dh column sums
+      for (int i = tid; i < kHC * (kBM / 8); i += kConsumers) {
+        const int j = i / (kBM / 8), r8 = (i % (kBM / 8)) * 8;
+        const size_t o = (size_t)(j0 + j) * ld + m0 + r8;
+        *reinterpret_cast<uint4*>(a_t + o) = *reinterpret_cast<const uint4*>(at_s + j * kLdT + r8);
+        *reinterpret_cast<uint4*>(dh_t + o) = *reinterpret_cast<const uint4*>(dht_s + j * kLdT + r8);
+      }
+#pragma unroll
+      for (int jb = 0; jb < 4; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float t = dsum[jb][e];
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+          dsum[jb][e] = t;
+        }
+      if (lane < 4) {
+#pragma unroll
+        for (int jb = 0; jb < 4; ++jb) {
+          csum[tid / 32][8 * jb + 2 * lane] = dsum[jb][0];
+          csum[tid / 32][8 * jb + 2 * lane + 1] = dsum[jb][1];
+        }
+      }
+      named_barrier(2, kConsumers);
+      if (tid < kHC) {   // a warpgroup's four warps in order
+        const int w0 = (tid / 32) * 4;
+        float t = csum[w0][tid % 32];
+        for (int q = 1; q < 4; ++q) t += csum[w0 + q][tid % 32];
+        db1_part[(size_t)blockIdx.x * hidden + j0 + tid] = t;
+      }
+    }
+    wgmma_wait<0>();
+    if (lane == 0) {
+#pragma unroll
+      for (int it = 0; it < K::kItems; ++it) mbar_arrive(smem_u32(&empty[(item + it) % K::kStages]));
+    }
+    item += K::kItems;
+  }
+  fence_regs(acc);
+
+  // the rank's dln partial, row-major f32 from the LN tile on (every product
+  // of both warpgroups has read the tiles)
+  float* red = reinterpret_cast<float*>(base);
+  named_barrier(1, kConsumers);
+  {
+    const int r0 = warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int jb = 0; jb < K::kN2 / 8; ++jb) {
+      const int n = ocol + 8 * jb + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(red + r0 * C + n) = make_float2(acc[4 * jb], acc[4 * jb + 1]);
+      *reinterpret_cast<float2*>(red + (r0 + 8) * C + n) =
+          make_float2(acc[4 * jb + 2], acc[4 * jb + 3]);
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  if (splits > 1)
+    cluster.sync();
+  else
+    named_barrier(1, kConsumers);
+  // dx = g + the LayerNorm backward of dln = the ranks' partials added in
+  // rank order; a warp per row, rank r the rows [r, r + 1) * 64 / splits; a
+  // lane 4 channels of each 128
+  constexpr int kPer = C / 128;
+  float sg[kPer][4], sb[kPer][4];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) sg[p][k] = sb[p][k] = 0.f;
+  const int nr = kBM / splits;
+  for (int r = rank * nr + tid / 32; r < (rank + 1) * nr; r += kConsumers / 32) {
+    const int row = m0 + r;
+    if (row >= M) break;
+    float dl[kPer][4], xv[kPer][4];
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const int c = 4 * lane + 128 * p;
+      const float4 xq = *reinterpret_cast<const float4*>(x + (size_t)row * C + c);
+      xv[p][0] = xq.x, xv[p][1] = xq.y, xv[p][2] = xq.z, xv[p][3] = xq.w;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dl[p][k] = 0.f;
+      for (int q = 0; q < splits; ++q) {
+        const float* peer = splits > 1 ? cluster.map_shared_rank(red, q) : red;
+        const float4 v = *reinterpret_cast<const float4*>(peer + r * C + c);
+        dl[p][0] += v.x, dl[p][1] += v.y, dl[p][2] += v.z, dl[p][3] += v.w;
+      }
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int p = 0; p < kPer; ++p)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s += xv[p][k];
+    const float mu = gradk::warp_sum_all(s) / C;
+    float var = 0.f;
+#pragma unroll
+    for (int p = 0; p < kPer; ++p)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float d = xv[p][k] - mu;
+        var += d * d;
+      }
+    const float rs = rsqrtf(gradk::warp_sum_all(var) / C + eps);
+    float s1 = 0.f, s2 = 0.f, wv[kPer][4];
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const float4 wq = *reinterpret_cast<const float4*>(ln_w + 4 * lane + 128 * p);
+      wv[p][0] = wq.x, wv[p][1] = wq.y, wv[p][2] = wq.z, wv[p][3] = wq.w;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float dn = dl[p][k] * wv[p][k];
+        s1 += dn;
+        s2 += dn * (xv[p][k] - mu) * rs;
+      }
+    }
+    const float m1 = gradk::warp_sum_all(s1) / C, m2 = gradk::warp_sum_all(s2) / C;
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const size_t o = (size_t)row * C + 4 * lane + 128 * p;
+      const float4 gq = *reinterpret_cast<const float4*>(g + o);
+      const float gv[4] = {gq.x, gq.y, gq.z, gq.w};
+      float out[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float nhat = (xv[p][k] - mu) * rs;
+        out[k] = gv[k] + rs * (dl[p][k] * wv[p][k] - m1 - nhat * m2);
+        if (Full) {
+          sg[p][k] += dl[p][k] * nhat;
+          sb[p][k] += dl[p][k];
+        }
+      }
+      *reinterpret_cast<float4*>(dx + o) = make_float4(out[0], out[1], out[2], out[3]);
+    }
+  }
+  if (Full) {
+    // the rank's dgamma / dbeta partials: the warps' column sums in warp order
+    float* vs = red + kBM * C;   // [warp][2][C], past every rank's partial
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const int c = 4 * lane + 128 * p;
+      *reinterpret_cast<float4*>(vs + (tid / 32) * 2 * C + c) =
+          make_float4(sg[p][0], sg[p][1], sg[p][2], sg[p][3]);
+      *reinterpret_cast<float4*>(vs + (tid / 32) * 2 * C + C + c) =
+          make_float4(sb[p][0], sb[p][1], sb[p][2], sb[p][3]);
+    }
+    named_barrier(1, kConsumers);
+    for (int i = tid; i < 2 * C; i += kConsumers) {
+      float t = vs[i];
+      for (int q = 1; q < kConsumers / 32; ++q) t += vs[q * 2 * C + i];
+      vpart[(size_t)slot * 3 * C + i] = t;
+    }
+  }
+  if (splits > 1) cluster.sync();   // no block leaves while a peer may still read its partial
+}
+
+template <int C, bool Full, bool Drop>
+cudaError_t launch(const CUtensorMap& w1, const CUtensorMap& w2t, const CUtensorMap& w1t,
+                   const float* x, const float* g, const float* ln_w, const float* ln_b,
+                   const float* b1, float* dx, __nv_bfloat16* ln_t, __nv_bfloat16* do_t,
+                   __nv_bfloat16* a_t, __nv_bfloat16* dh_t, float* vpart, float* db1_part, int M,
+                   int hidden, int ld, int splits, float eps, philox::Drop d1, philox::Drop d2,
+                   cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(ffn_bwd_kernel<C, Full, Drop>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           Cfg<C>::kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((M + kBM - 1) / kBM, 1, splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Cfg<C>::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, ffn_bwd_kernel<C, Full, Drop>, w1, w2t, w1t, x, g,
+                                       ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t, vpart, db1_part,
+                                       M, hidden, ld, eps, d1, d2);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The backward kernel for C; checks the arguments (a refusal returns
+// cudaErrorInvalidValue).
+template <bool Full, bool Drop>
+cudaError_t backward(const void* w1_map, const void* w2t_map, const void* w1t_map, const float* x,
+                     const float* g, const float* ln_w, const float* ln_b, const float* b1,
+                     float* dx, __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* a_t,
+                     __nv_bfloat16* dh_t, float* vpart, float* db1_part, int M, int C, int hidden,
+                     int ld, int splits, float eps, philox::Drop d1, philox::Drop d2,
+                     cudaStream_t stream) {
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (M < 1 || hidden < kHC || hidden % kHC || splits < 1 || splits > kMaxSplits ||
+      (splits & (splits - 1)) || splits > hidden / kHC || !aligned(x) || !aligned(g) ||
+      !aligned(ln_w) || !aligned(ln_b) || !aligned(b1) || !aligned(dx) ||
+      (Full && (ld % 64 || ld < (M + kBM - 1) / kBM * kBM || !aligned(ln_t) || !aligned(do_t) ||
+                !aligned(a_t) || !aligned(dh_t))))
+    return cudaErrorInvalidValue;
+  CUtensorMap w1, w2t, w1t;
+  memcpy(&w1, w1_map, sizeof(w1));
+  memcpy(&w2t, w2t_map, sizeof(w2t));
+  memcpy(&w1t, w1t_map, sizeof(w1t));
+  switch (C) {
+    case 128:
+      return launch<128, Full, Drop>(w1, w2t, w1t, x, g, ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t,
+                                     vpart, db1_part, M, hidden, ld, splits, eps, d1, d2, stream);
+    case 256:
+      return launch<256, Full, Drop>(w1, w2t, w1t, x, g, ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t,
+                                     vpart, db1_part, M, hidden, ld, splits, eps, d1, d2, stream);
+    case 512:
+      return launch<512, Full, Drop>(w1, w2t, w1t, x, g, ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t,
+                                     vpart, db1_part, M, hidden, ld, splits, eps, d1, d2, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Every gradient: the kernel, then the vector gradients' partials added in
+// order and the two weight gradients on the wgmma TN product.
+template <bool Drop>
+cudaError_t full(const void* w1_map, const void* w2t_map, const void* w1t_map, const float* x,
+                 const float* g, const float* ln_w, const float* ln_b, const float* b1,
+                 __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* a_t,
+                 __nv_bfloat16* dh_t, float* vpart, float* db1_part, float* dx, float* dw1,
+                 float* db1, float* dw2, float* vec, int M, int C, int hidden, int ld, int splits,
+                 int wsplit1, int wsplit2, float eps, philox::Drop d1, philox::Drop d2,
+                 cudaStream_t stream) {
+  cudaError_t err = backward<true, Drop>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1, dx, ln_t,
+                                         do_t, a_t, dh_t, vpart, db1_part, M, C, hidden, ld,
+                                         splits, eps, d1, d2, stream);
+  if (err != cudaSuccess) return err;
+  const int tiles = (M + kBM - 1) / kBM;
+  err = gradk::sum_partials(vpart, vec, (size_t)3 * C, tiles * splits, stream);
+  if (err != cudaSuccess) return err;
+  err = gradk::sum_partials(db1_part, db1, (size_t)hidden, tiles, stream);
+  if (err != cudaSuccess) return err;
+  err = gradk::weight_grad(dh_t, ln_t, dw1, hidden, C, M, ld, wsplit1, stream);   // dh^T . LN(x)
+  if (err != cudaSuccess) return err;
+  return gradk::weight_grad(do_t, a_t, dw2, C, hidden, M, ld, wsplit2, stream);   // do^T . a
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // x, out (M, C) f32; w1_map / w2_map the tensor maps of the bf16 copies of
@@ -745,46 +1024,38 @@ extern "C" int ffn_forward(const float* x, const float* ln_w, const float* ln_b,
                              philox::Drop{}, philox::Drop{}, stream);
 }
 
-// dx of the fused FFN for the output cotangent g; part: (splits, M, C) f32
-// workspace; splits must divide hidden / 64.
+// dx of the fused FFN for the output cotangent g; w1_map, w2t_map, w1t_map
+// the tensor maps of the bf16 copies of w1 (hidden, C) (boxes of 64 rows),
+// w2^T (hidden, C) (64 rows) and w1^T (C, hidden) (min(C, 256) rows); the
+// cluster's `splits` of the hidden / 64 chunks.  One launch.
 extern "C" int ffn_bwd_dx(const float* x, const float* g, const float* ln_w, const float* ln_b,
-                          const float* w1, const float* b1, const float* w2, float* part,
-                          float* dx, int M, int C, int hidden, int splits, float eps,
-                          cudaStream_t stream) {
-  if (hidden % kChunk != 0 || splits < 1 || (hidden / kChunk) % splits != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = launch_bwd_c<false>(C, x, g, ln_w, ln_b, w1, b1, w2, part, nullptr, nullptr,
-                                        nullptr, nullptr, M, hidden, splits, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)bwd_reduce(x, g, ln_w, part, dx, M, C, splits, eps, stream);
+                          const void* w1_map, const float* b1, const void* w2t_map,
+                          const void* w1t_map, float* dx, int M, int C, int hidden, int splits,
+                          float eps, cudaStream_t stream) {
+  return (int)bwd::backward<false, false>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1, dx,
+                                          nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M,
+                                          C, hidden, 0, splits, eps, philox::Drop{},
+                                          philox::Drop{}, stream);
 }
 
-// Every gradient of the fused FFN for the output cotangent g.  Workspaces:
-// part (splits, M, C) f32; a_bf, dh_bf (M, hidden) and ln_bf (M, C) bf16;
-// db1_part (ceil(M / 32), hidden), vpart (ceil(M / 32), 3, C) and dw_part
-// (ksplit, C, hidden) f32.  Out: dx (M, C), dw1 (hidden, C), db1 (hidden),
-// dw2 (C, hidden), vec (3, C) = dgamma, dbeta, db2.
+// Every gradient of the fused FFN for the output cotangent g.  Maps and
+// splits as ffn_bwd_dx.  Workspaces: ln_t, do_t (C, ld) and a_t, dh_t
+// (hidden, ld) bf16, width-major with ld >= M rounded up to 64 tokens;
+// vpart (ceil(M / 64) * splits, 3, C) and db1_part (ceil(M / 64), hidden)
+// f32.  wsplit1, wsplit2: the weight-gradient products' token splits.  Out:
+// dx (M, C), dw1 (hidden, C), db1 (hidden), dw2 (C, hidden), vec (3, C) =
+// dgamma, dbeta, db2.  Five launches.
 extern "C" int ffn_bwd_full(const float* x, const float* g, const float* ln_w,
-                            const float* ln_b, const float* w1, const float* b1,
-                            const float* w2, float* part, __nv_bfloat16* a_bf,
-                            __nv_bfloat16* dh_bf, __nv_bfloat16* ln_bf, float* db1_part,
-                            float* vpart, float* dw_part, float* dx, float* dw1, float* db1,
-                            float* dw2, float* vec, int M, int C, int hidden, int splits,
-                            int ksplit, float eps, cudaStream_t stream) {
-  if (hidden % kChunk != 0 || splits < 1 || (hidden / kChunk) % splits != 0 || ksplit < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = launch_bwd_c<true>(C, x, g, ln_w, ln_b, w1, b1, w2, part, a_bf, dh_bf, ln_bf,
-                                       db1_part, M, hidden, splits, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = bwd_reduce(x, g, ln_w, part, dx, M, C, splits, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = gradk::ln_vec_grads(x, g, part, splits, vpart, vec, M, C, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = gradk::sum_partials(db1_part, db1, (size_t)hidden, (M + kRows - 1) / kRows, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = gradk::weight_grad(dh_bf, ln_bf, dw_part, dw1, M, hidden, C, ksplit, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)gradk::weight_grad(g, a_bf, dw_part, dw2, M, C, hidden, ksplit, stream);
+                            const float* ln_b, const void* w1_map, const float* b1,
+                            const void* w2t_map, const void* w1t_map, __nv_bfloat16* ln_t,
+                            __nv_bfloat16* do_t, __nv_bfloat16* a_t, __nv_bfloat16* dh_t,
+                            float* vpart, float* db1_part, float* dx, float* dw1, float* db1,
+                            float* dw2, float* vec, int M, int C, int hidden, int ld, int splits,
+                            int wsplit1, int wsplit2, float eps, cudaStream_t stream) {
+  return (int)bwd::full<false>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1, ln_t, do_t, a_t,
+                               dh_t, vpart, db1_part, dx, dw1, db1, dw2, vec, M, C, hidden, ld,
+                               splits, wsplit1, wsplit2, eps, philox::Drop{}, philox::Drop{},
+                               stream);
 }
 
 // The fused FFN with dropout on gelu(h) (thr_act, keep_act = 1 - rate) and on
@@ -803,34 +1074,21 @@ extern "C" int ffn_dropout_forward(const float* x, const float* ln_w, const floa
 }
 
 // Every gradient of ffn_dropout_forward for the output cotangent g, the masks
-// regenerated from the same (seed, site).  Workspaces and outputs as
-// ffn_bwd_full, and do_bf (M, C) bf16 for the dropped cotangent.
+// regenerated from the same (seed, site).  Arguments as ffn_bwd_full; do_t
+// holds the dropped cotangent.
 extern "C" int ffn_dropout_bwd_full(const float* x, const float* g, const float* ln_w,
-                                    const float* ln_b, const float* w1, const float* b1,
-                                    const float* w2, float* part, __nv_bfloat16* a_bf,
-                                    __nv_bfloat16* dh_bf, __nv_bfloat16* ln_bf,
-                                    __nv_bfloat16* do_bf, float* db1_part, float* vpart,
-                                    float* dw_part, float* dx, float* dw1, float* db1,
-                                    float* dw2, float* vec, int M, int C, int hidden,
-                                    int splits, int ksplit, float eps, unsigned seed_lo,
-                                    unsigned seed_hi, unsigned site, unsigned thr_act,
-                                    float keep_act, unsigned thr_out, float keep_out,
-                                    cudaStream_t stream) {
-  if (hidden % kChunk != 0 || splits < 1 || (hidden / kChunk) % splits != 0 || ksplit < 1)
-    return (int)cudaErrorInvalidValue;
+                                    const float* ln_b, const void* w1_map, const float* b1,
+                                    const void* w2t_map, const void* w1t_map,
+                                    __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* a_t,
+                                    __nv_bfloat16* dh_t, float* vpart, float* db1_part, float* dx,
+                                    float* dw1, float* db1, float* dw2, float* vec, int M, int C,
+                                    int hidden, int ld, int splits, int wsplit1, int wsplit2,
+                                    float eps, unsigned seed_lo, unsigned seed_hi, unsigned site,
+                                    unsigned thr_act, float keep_act, unsigned thr_out,
+                                    float keep_out, cudaStream_t stream) {
   const philox::Drop d1{seed_lo, seed_hi, site, 0u, thr_act, keep_act};
   const philox::Drop d2{seed_lo, seed_hi, site, 1u, thr_out, keep_out};
-  cudaError_t err = launch_bwd_c<true, true>(C, x, g, ln_w, ln_b, w1, b1, w2, part, a_bf, dh_bf,
-                                             ln_bf, db1_part, M, hidden, splits, eps, stream,
-                                             do_bf, d1, d2);
-  if (err != cudaSuccess) return (int)err;
-  err = bwd_reduce(x, g, ln_w, part, dx, M, C, splits, eps, stream);  // the residual: g unmasked
-  if (err != cudaSuccess) return (int)err;
-  err = gradk::ln_vec_grads(x, g, part, splits, vpart, vec, M, C, eps, stream, d2);  // db2 = sum do
-  if (err != cudaSuccess) return (int)err;
-  err = gradk::sum_partials(db1_part, db1, (size_t)hidden, (M + kRows - 1) / kRows, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = gradk::weight_grad(dh_bf, ln_bf, dw_part, dw1, M, hidden, C, ksplit, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)gradk::weight_grad(do_bf, a_bf, dw_part, dw2, M, C, hidden, ksplit, stream);
+  return (int)bwd::full<true>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1, ln_t, do_t, a_t,
+                              dh_t, vpart, db1_part, dx, dw1, db1, dw2, vec, M, C, hidden, ld,
+                              splits, wsplit1, wsplit2, eps, d1, d2, stream);
 }

@@ -64,4 +64,45 @@ __device__ __forceinline__ void apply2(const Drop& d, unsigned long long e, floa
   v1 = (hi ? w.w : w.y) >= d.thr ? v1 / d.keep : 0.f;
 }
 
+// The four draws of elements 4q .. 4q + 3 (q = e / 4): one whole Philox block.
+__device__ __forceinline__ uint4 block(const Drop& d, unsigned long long e) {
+  const unsigned long long q = e >> 2;
+  return philox4x32_10(d.k0, d.k1, make_uint4((unsigned)q, (unsigned)(q >> 32), d.tensor, d.site));
+}
+
+// v[0..7] through the dropout of elements e .. e + 7, e % 4 == 0: two blocks,
+// each drawn once and all four of its words used.
+__device__ __forceinline__ void apply8(const Drop& d, unsigned long long e, float (&v)[8]) {
+  if (d.thr == 0u) return;
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    const uint4 w = block(d, e + 4 * b);
+    const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[4 * b + k] = u[k] >= d.thr ? v[4 * b + k] / d.keep : 0.f;
+  }
+}
+
+// The draws of an mma accumulator's element pairs: lanes L (L even) and
+// L ^ 1 of a warp hold columns (2c, 2c + 1) and (2c + 2, 2c + 3) of one
+// Philox block, 2c % 4 == 0, in two rows A and B (elements eA, eA + 1 and eB,
+// eB + 1 of the lane itself).  Each lane of the pair draws one whole block (L
+// row A's, L ^ 1 row B's) and hands the half its partner needs across the
+// pair: every block is drawn once.  wa / wb: the lane's two draws in rows A
+// and B.  The whole warp calls it.
+__device__ __forceinline__ void draw_rows2(const Drop& d, unsigned long long eA,
+                                           unsigned long long eB, unsigned (&wa)[2],
+                                           unsigned (&wb)[2]) {
+  const bool odd = (threadIdx.x & 1) != 0;
+  const uint4 w = block(d, odd ? eB : eA);
+  // the even lane keeps row A's (x, y) and sends (z, w); the odd lane keeps
+  // row B's (z, w) and sends (x, y)
+  const unsigned r0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+  const unsigned r1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+  wa[0] = odd ? r0 : w.x;
+  wa[1] = odd ? r1 : w.y;
+  wb[0] = odd ? w.z : r0;
+  wb[1] = odd ? w.w : r1;
+}
+
 }  // namespace philox

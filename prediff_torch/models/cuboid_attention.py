@@ -19,7 +19,14 @@ Each layer takes one of five routes, as the JAX package's
   0.  The JAX package keeps its grouped kernel off this case (the kernel has
   no dropout on the weights) and computes the core with XLA einsums; here it
   is plain torch likewise: ``masked_softmax``, the attention-weight mask,
-  ``p . v``, ``proj``.
+  ``p . v``, ``proj``;
+- ``einsum``: an ``axial`` or ``v4`` cuboid whose width the kernels refuse
+  (``ops/attention.supports_axial`` / ``supports_cuboid``: C not a multiple
+  of 64, as at ``configs/tiny_smoke.yaml``'s 16 and 32): the same einsum
+  code in f32 on the layer's own ``norm``, ``qkv``, relative bias and
+  ``proj``, as the JAX layer runs flax's modules where its kernels refuse a
+  shape.  Under dropout it takes the site and the masks the kernel route
+  would (an axial layer's output mask on the natural layout).
 
 The JAX package also gates its TPU kernels on a VMEM byte budget, on
 ``dim % 128 == 0`` and on ``G * vol % 8 == 0``; they choose which Pallas kernel
@@ -44,10 +51,11 @@ import torch
 from torch import nn
 
 from ..ops.attention import (V4_MAX_ROWS, fused_axial_attention, fused_cuboid_attention_grouped,
-                             fused_cuboid_attention_layer)
+                             fused_cuboid_attention_layer, supports_axial, supports_cuboid)
 from ..ops.cuboid import (compute_cuboid_self_attention_mask, cuboid_reorder,
                           cuboid_reorder_reverse, masked_softmax, update_cuboid_size_shift_size)
-from ..ops.dropout import DropoutStream, apply_mask, cuboid_layer_masks, is_active
+from ..ops.dropout import (DropoutStream, apply_mask, cuboid_layer_masks, is_active,
+                           resolve_masks)
 from ..ops.pad import generalize_padding, generalize_unpadding
 from .layers import PositionwiseFFN
 
@@ -63,12 +71,18 @@ def attention_route(data_shape: Tuple[int, int, int], cuboid_size, shift_size, s
         route = "grouped_masked"
     elif any(n % c for n, c in zip(data_shape, cs)):
         route = "grouped"
-    elif any(cs[ax] == data_shape[ax] and all(cs[o] == 1 for o in range(3) if o != ax)
-             for ax in range(3)):
+    elif _axial_axis(cs, data_shape) is not None:
         route = "axial"
     else:
         route = "v4" if math.prod(cs) <= V4_MAX_ROWS else "grouped"
     return "grouped_einsum" if attn_dropout and route.startswith("grouped") else route
+
+
+def _axial_axis(cuboid_size, data_shape) -> Optional[int]:
+    """The axis a cuboid spans whole, being 1 on the others (an axial
+    layer's), or None."""
+    return next((ax for ax in range(3) if cuboid_size[ax] == data_shape[ax]
+                 and all(cuboid_size[o] == 1 for o in range(3) if o != ax)), None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,10 +144,21 @@ class CuboidSelfAttentionLayer(nn.Module):
 
     def route(self, shape) -> str:
         """This layer's route (:func:`attention_route`) on a (B, T, H, W, C)
-        input in its current mode."""
-        return attention_route(tuple(shape[1:4]), self.cuboid_size, self.shift_size,
-                               self.strategy, self.padding_type,
-                               attn_dropout=self.training and self.attn_drop > 0.0)
+        input in its current mode; "einsum" where that is "axial" or "v4"
+        and the kernels refuse the width."""
+        B, T, H, W, C = shape
+        route = attention_route((T, H, W), self.cuboid_size, self.shift_size, self.strategy,
+                                self.padding_type,
+                                attn_dropout=self.training and self.attn_drop > 0.0)
+        cs, _ = update_cuboid_size_shift_size((T, H, W), self.cuboid_size, self.shift_size,
+                                              self.strategy)
+        vol = math.prod(cs)
+        if route == "axial" and not supports_axial(shape, _axial_axis(cs, (T, H, W)),
+                                                   self.num_heads):
+            return "einsum"
+        if route == "v4" and not supports_cuboid(B * T * H * W // vol, vol, C, self.num_heads):
+            return "einsum"
+        return route
 
     def rel_bias(self, vol: int) -> torch.Tensor:
         """(heads, vol, vol) relative-position bias gathered from the table."""
@@ -152,12 +177,10 @@ class CuboidSelfAttentionLayer(nn.Module):
             rates = dict(rate_attn=self.attn_drop, rate_proj=self.proj_drop, seed=drop.seed,
                          site=drop.next_site())
         if route == "axial":
-            axis = next(ax for ax in range(3) if cs[ax] == (T, H, W)[ax]
-                        and all(cs[o] == 1 for o in range(3) if o != ax))
-            return fused_axial_attention(x.contiguous(), axis, self.norm.weight, self.norm.bias,
-                                         self.qkv.weight, self.rel_bias(vol), self.proj.weight,
-                                         self.proj.bias, self.num_heads, self.scale,
-                                         self.norm.eps, **rates)
+            return fused_axial_attention(x.contiguous(), _axial_axis(cs, (T, H, W)),
+                                         self.norm.weight, self.norm.bias, self.qkv.weight,
+                                         self.rel_bias(vol), self.proj.weight, self.proj.bias,
+                                         self.num_heads, self.scale, self.norm.eps, **rates)
         if route == "v4":
             xr = cuboid_reorder(x, cs, self.strategy).contiguous()
             out = fused_cuboid_attention_layer(xr, self.norm.weight, self.norm.bias,
@@ -165,9 +188,10 @@ class CuboidSelfAttentionLayer(nn.Module):
                                                self.proj.weight, self.proj.bias, self.num_heads,
                                                self.scale, self.norm.eps, **rates)
             return cuboid_reorder_reverse(out, cs, self.strategy, (T, H, W))
-        return self._grouped(x, cs, shift, route == "grouped_einsum", rates)
+        natural = route == "einsum" and _axial_axis(cs, (T, H, W)) is not None
+        return self._grouped(x, cs, shift, route.endswith("einsum"), rates, natural)
 
-    def _grouped(self, x, cs, shift, einsum: bool, rates) -> torch.Tensor:
+    def _grouped(self, x, cs, shift, einsum: bool, rates, natural_proj_mask=False) -> torch.Tensor:
         B, T, H, W, C = x.shape
         heads = self.num_heads
         pads = [(c - n % c) % c for n, c in zip((T, H, W), cs)]
@@ -177,7 +201,13 @@ class CuboidSelfAttentionLayer(nn.Module):
         xr = cuboid_reorder(x, cs, self.strategy)
         _, nC, vol, _ = xr.shape
         m_a = m_p = None
-        if rates:   # tensor 0 the attention weights, tensor 1 the projected output, as flax's
+        if rates and natural_proj_mask:   # the axial kernel's masks: m_p on (B, T, H, W, C)
+            m_a, m_p = resolve_masks((rates["rate_attn"], rates["rate_proj"]),
+                                     ((B, nC, heads, vol, vol), (B, T, H, W, C)), rates["seed"],
+                                     rates["site"], None, x.device)
+            if m_p is not None:
+                m_p = cuboid_reorder(m_p, cs, self.strategy)
+        elif rates:   # tensor 0 the attention weights, tensor 1 the projected output, as flax's
             m_a, m_p = cuboid_layer_masks(xr.shape, heads, rates["rate_attn"], rates["rate_proj"],
                                           rates["seed"], rates["site"], device=x.device)
         qkv = self.qkv(xr).reshape(B, nC, vol, 3, heads, C // heads)

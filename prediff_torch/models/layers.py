@@ -12,8 +12,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import ffn as ffn_ops, groupnorm as gn_ops, resblock as resblock_ops
 from ..ops.conv3d import fused_conv3x3x3, supports_shape
-from ..ops.dropout import DropoutStream, apply_mask, is_active, keep_mask
+from ..ops.dropout import DropoutStream, apply_mask, is_active, keep_mask, resolve_masks
 from ..ops.ffn import fused_ffn
 from ..ops.groupnorm import fused_groupnorm_silu
 from ..ops.pad import generalize_padding
@@ -69,10 +70,16 @@ class PosEmbed(nn.Module):
 
 
 class PositionwiseFFN(nn.Module):
-    """Pre-norm GELU FFN with residual, through the fused FFN kernel.  In
-    training mode with a rate above 0 (``activation_dropout`` on gelu(h),
-    ``dropout`` on the output before the residual) the call takes the next
-    site of the forward's :class:`DropoutStream` and runs the dropout kernels."""
+    """Pre-norm GELU FFN with residual, through the fused FFN kernel where it
+    takes the width (``ops/ffn.supports_shape``), else through the layer's
+    own library ops in f32 (``layer_norm``, ``ffn_1``, exact-erf GELU,
+    ``ffn_2``, + x), as the JAX package's FFN leaves its kernel for flax's
+    modules; the route depends on the shape alone.  In training mode with a
+    rate above 0 (``activation_dropout`` on gelu(h), ``dropout`` on the
+    output before the residual) the call takes the next site of the
+    forward's :class:`DropoutStream`: the kernel route runs the dropout
+    kernels, the library route multiplies in the same masks (tensor 0
+    (tokens, hidden), tensor 1 (tokens, C))."""
 
     def __init__(self, units: int, hidden_size: int, layer_norm_eps: float = 1e-5,
                  activation_dropout: float = 0.0, dropout: float = 0.0):
@@ -89,10 +96,20 @@ class PositionwiseFFN(nn.Module):
         if is_active(self, drop, self.activation_dropout, self.dropout):
             rates = dict(rate_act=self.activation_dropout, rate_out=self.dropout, seed=drop.seed,
                          site=drop.next_site())
-        out = fused_ffn(x.reshape(-1, C).contiguous(), self.layer_norm.weight,
-                        self.layer_norm.bias, self.ffn_1.weight, self.ffn_1.bias,
-                        self.ffn_2.weight, self.ffn_2.bias, self.eps, **rates)
+        x2 = x.reshape(-1, C)
+        if not ffn_ops.supports_shape(x2.shape[0], C, self.ffn_1.out_features):
+            return self._library(x2, **rates).reshape(x.shape)
+        out = fused_ffn(x2.contiguous(), self.layer_norm.weight, self.layer_norm.bias,
+                        self.ffn_1.weight, self.ffn_1.bias, self.ffn_2.weight, self.ffn_2.bias,
+                        self.eps, **rates)
         return out.reshape(x.shape)
+
+    def _library(self, x: torch.Tensor, rate_act: float = 0.0, rate_out: float = 0.0,
+                 seed: Optional[int] = None, site: int = 0) -> torch.Tensor:
+        m1, m2 = resolve_masks((rate_act, rate_out), ((x.shape[0], self.ffn_1.out_features),
+                                                      tuple(x.shape)), seed, site, None, x.device)
+        h = apply_mask(F.gelu(self.ffn_1(self.layer_norm(x))), m1, rate_act)
+        return x + apply_mask(self.ffn_2(h), m2, rate_out)
 
 
 class PatchMerging3D(nn.Module):
@@ -165,7 +182,11 @@ class TimeEmbedResBlock(nn.Module):
     (``ops/conv3d.supports_shape``), as its ``Conv3x3x3`` decides.  With
     ``fused=True`` (identity skip only) the whole block is
     one call of the resblock kernels instead, as the JAX package's
-    ``use_pallas_resblock`` path; the parameters are the same either way.
+    ``use_pallas_resblock`` path, where the kernels take the width
+    (``ops/resblock.supports``; elsewhere the block runs unfused, as the JAX
+    block leaves its kernel by shape); the parameters are the same either
+    way.  Each GroupNorm+SiLU likewise runs ``F.group_norm`` + SiLU where
+    the GN kernels refuse its width (``ops/groupnorm.supports``).
     ``dropout`` falls between the second GroupNorm+SiLU and the second conv,
     as in the reference: a masked multiply outside any kernel, the mask that
     of the forward's :class:`DropoutStream`.  The fused block computes the
@@ -202,6 +223,12 @@ class TimeEmbedResBlock(nn.Module):
     @staticmethod
     def _gn_silu(norm: nn.GroupNorm, x: torch.Tensor, emb=None) -> torch.Tensor:
         B, T, H, W, C = x.shape
+        if not gn_ops.supports(C, norm.num_groups):
+            # the library route: F.group_norm through a channel-first view, + SiLU
+            h = x if emb is None else x + emb[:, None, None, None, :]
+            h = F.group_norm(h.reshape(B, T * H * W, C).transpose(1, 2), norm.num_groups,
+                             norm.weight, norm.bias, norm.eps)
+            return F.silu(h).transpose(1, 2).reshape(x.shape)
         y = fused_groupnorm_silu(x.reshape(B, T * H * W, C).contiguous(), norm.weight, norm.bias,
                                  emb, norm.num_groups, norm.eps)
         return y.reshape(x.shape)
@@ -225,7 +252,7 @@ class TimeEmbedResBlock(nn.Module):
                 drop: Optional[DropoutStream] = None) -> torch.Tensor:
         emb_out = self.emb_layers(emb).contiguous() if self.use_embed else None
         active = is_active(self, drop, self.dropout)
-        if self.fused:
+        if self.fused and resblock_ops.supports(x.shape[-1], self.in_groups):
             if active:
                 raise NotImplementedError("the fused resblock computes the block without "
                                           "dropout; build it with fused=False to train with one")

@@ -81,13 +81,6 @@ P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 TARGET_BLOCKS = 264     # two blocks for each of the H100's 132 SMs
 
 
-def token_splits(tiles: int, tokens: int, most: int = 16) -> int:
-    """Splits over the tokens of a weight-gradient product with ``tiles``
-    64 x 64 output tiles: the fewest that give about ``TARGET_BLOCKS`` blocks,
-    each split keeping at least 128 tokens."""
-    return max(1, min(-(-TARGET_BLOCKS // tiles), tokens // 128, most))
-
-
 def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use.
 

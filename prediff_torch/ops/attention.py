@@ -16,7 +16,10 @@ q, k, v and the head outputs pass between the launches as bf16.  Its input
 gradient (``axial_attention_bwd_dx``, same source) replaces
 ``pallas_attention.py::fused_axial_attention_5d_bwd_dx``, and its
 all-gradients backward (``axial_attention_bwd_full``) replaces
-``pallas_attention.py::fused_axial_attention_5d_bwd_full``.  With dropout
+``pallas_attention.py::fused_axial_attention_5d_bwd_full``: both recompute
+LN + QKV with the forward's product and run dattn and dln on the same
+product with the transposed bf16 weights of ``ops/weights.py``
+(:func:`axial_bwd_plan`), the weight gradients on ``ops/wgrad.py``'s.  With dropout
 (``axial_attention_dropout_forward``, ``axial_attention_dropout_bwd_full``)
 they replace the ``seed=`` forms of those two: ``p . m_a / (1 - rate_attn)``
 after the softmax and before ``p . v``, and ``(. Wproj^T + b) . m_p /
@@ -80,23 +83,24 @@ from typing import Optional
 
 import torch
 
-from . import _build, weights
+from . import _build, weights, wgrad
 from .cuboid import cuboid_reorder, cuboid_reorder_reverse, masked_softmax
 from .dropout import apply_mask, cuboid_layer_masks, resolve_masks
 from .ffn import _round, layer_norm_bwd_plain, layer_norm_plain
 
 _P, _I, _F, _DROP = _build.P, _build.I, _build.F, _build.DROP_ARGTYPES
 _SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
-               "axial_attention_bwd_dx": [_P] * 12 + [_I] * 7 + [_F, _F, _P],
-               "axial_attention_bwd_full": [_P] * 21 + [_I] * 10 + [_F, _F, _P],
+               "axial_attention_bwd_dx": [_P] * 14 + [_I] * 8 + [_F, _F, _P],
+               "axial_attention_bwd_full": [_P] * 25 + [_I] * 12 + [_F, _F, _P],
                "axial_attention_dropout_forward": [_P] * 10 + [_I] * 8 + [_F, _F] + _DROP + [_P],
-               "axial_attention_dropout_bwd_full": ([_P] * 22 + [_I] * 10 + [_F, _F] + _DROP
+               "axial_attention_dropout_bwd_full": ([_P] * 25 + [_I] * 12 + [_F, _F] + _DROP
                                                     + [_P]),
                "cuboid_attention_forward": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
                "cuboid_attention_dropout_forward": [_P] * 10 + [_I] * 8 + [_F, _F] + _DROP + [_P],
                "cuboid_attention_bwd_dx": [_P] * 13 + [_I] * 6 + [_F, _F, _P],
-               "cuboid_attention_bwd_full": [_P] * 22 + [_I] * 9 + [_F, _F, _P],
-               "cuboid_attention_dropout_bwd_full": [_P] * 23 + [_I] * 9 + [_F, _F] + _DROP + [_P],
+               "cuboid_attention_bwd_full": [_P] * 22 + [_I] * 10 + [_F, _F, _P],
+               "cuboid_attention_dropout_bwd_full": ([_P] * 23 + [_I] * 10 + [_F, _F] + _DROP
+                                                     + [_P]),
                "cuboid_attention_grouped": [_P] * 6 + [_I] * 5 + [_F, _P],
                "cuboid_core_forward": [_P] * 6 + [_I] * 5 + [_F, _P],
                "cuboid_layer_v3_forward": [_P] * 11 + [_I] * 5 + [_F, _F, _P],
@@ -107,6 +111,7 @@ SMEM_BYTES = 227 * 1024   # shared memory one block may use on an H100
 # csrc/attention.cu fwd: the axial forward's products on TMA + wgmma
 GEMM_ROWS, GEMM_MAX_STAGES, GEMM_SMEM_CAP, LN_MAX_K = 128, 4, 232448 - 128, 768
 SMS = 132
+VEC_ROWS = 8   # csrc/grad_common.cuh kVecRows: rows per partial of the vector gradients
 
 
 @dataclass(frozen=True)
@@ -169,6 +174,42 @@ def attention_plan(M: int, C: int):
         raise ValueError(f"attention kernel: C={C} exceeds the forward's LayerNorm tile "
                          f"(at most {LN_MAX_K} channels)")
     return qkv, GemmPlan(M, C, C, 128, False)
+
+
+@dataclass(frozen=True)
+class AxialBwdPlan:
+    """The axial backward's launches (``csrc/attention.cu``
+    ``axial_bwd_launches``) at M tokens of width C, cuboids of ``vol`` rows:
+    the forward's LN + QKV product (past the LN tile on bf16 LN rows by
+    TMA), the products ``dattn = do . Wproj`` and ``dln = dqkv . Wqkv`` on
+    the transposed weights by TMA, the core in blocks of ``per_block``
+    cuboids (one per (block, head)) over f32 tiles in ``core_smem`` bytes,
+    and the two weight gradients on the wgmma TN product over width-major
+    operands of ``ld`` tokens a row."""
+    qkv: GemmPlan
+    dattn: GemmPlan
+    dln: GemmPlan
+    per_block: int
+    core_blocks: int
+    core_smem: int
+    wgrad_qkv: wgrad.WgradPlan
+    wgrad_proj: wgrad.WgradPlan
+    ld: int
+
+
+@lru_cache(maxsize=None)
+def axial_bwd_plan(M: int, C: int, vol: int, heads: int) -> AxialBwdPlan:
+    n_cuboids = M // vol
+    # cuboids per core block: the core is bound by latency, so about eight
+    # blocks per SM first, then fewer dbias partials
+    per_block = max(1, min(8, n_cuboids * heads // (8 * SMS)))
+    qkv = (attention_plan(M, C)[0] if C <= LN_MAX_K else GemmPlan(M, 3 * C, C, GEMM_ROWS, False))
+    hc = C // heads
+    return AxialBwdPlan(qkv, GemmPlan(M, C, C, GEMM_ROWS, False),
+                        GemmPlan(M, C, 3 * C, GEMM_ROWS, False), per_block,
+                        -(-n_cuboids // per_block), 4 * (4 * vol * (hc + 1) + 3 * vol * vol),
+                        wgrad.wgrad_plan(3 * C, C, M), wgrad.wgrad_plan(C, C, M),
+                        wgrad.token_ld(M))
 
 
 @dataclass(frozen=True)
@@ -343,18 +384,39 @@ def axial_attention_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
     return (cuboid_reorder_reverse(dx, cs, _AXIAL, x.shape[1:4]).to(x.dtype), *dparams)
 
 
-def _check(x, axis, num_heads):
-    B, T, H, W, C = x.shape
-    vol = (T, H, W)[axis]
+def _axial_refusal(shape, axis: int, num_heads: int, forward: bool = True) -> Optional[str]:
+    """Why the axial kernels refuse x of ``shape`` (B, T, H, W, C) along
+    ``axis``, or None where they all launch; ``forward=False``: the
+    backwards alone, which take C past the forward's LayerNorm tile."""
+    B, T, H, W, C = shape
     if C % 64 != 0 or C % num_heads != 0 or axis not in (0, 1, 2):
-        raise ValueError(f"attention kernel: C={C} (takes multiples of 64), heads={num_heads}, "
-                         f"axis={axis} not supported")
+        return (f"attention kernel: C={C} (takes multiples of 64), heads={num_heads}, "
+                f"axis={axis} not supported")
+    if forward and C > LN_MAX_K:
+        return (f"attention kernel: C={C} exceeds the forward's LayerNorm tile "
+                f"(at most {LN_MAX_K} channels)")
+    vol = (T, H, W)[axis]
     # the gradient's core holds four (vol, hc + 1) tiles and up to three (vol, vol)
-    smem = 4 * (4 * vol * (C // num_heads + 1) + 3 * vol * vol)
-    if smem > 227 * 1024:
-        raise ValueError(f"attention kernel: cuboid of {vol} rows x {C // num_heads} head "
-                         "channels exceeds shared memory")
-    return B * T * H * W, vol
+    if 4 * (4 * vol * (C // num_heads + 1) + 3 * vol * vol) > 227 * 1024:
+        return (f"attention kernel: cuboid of {vol} rows x {C // num_heads} head channels "
+                "exceeds shared memory")
+    return None
+
+
+def supports_axial(shape, axis: int, num_heads: int) -> bool:
+    """True exactly where the axial kernels (forward, dx, all gradients,
+    their dropout forms) launch on a CUDA tensor of ``shape`` (B, T, H, W, C)
+    instead of raising.  ``CuboidSelfAttentionLayer`` routes by it; the route
+    depends on the shape alone."""
+    return _axial_refusal(tuple(shape), axis, num_heads) is None
+
+
+def _check(x, axis, num_heads, forward=True):
+    why = _axial_refusal(tuple(x.shape), axis, num_heads, forward)
+    if why is not None:
+        raise ValueError(why)
+    B, T, H, W, _ = x.shape
+    return B * T * H * W, (T, H, W)[axis]
 
 
 def _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps,
@@ -422,23 +484,37 @@ def fused_axial_attention_bwd_dx(x: torch.Tensor, g: torch.Tensor, axis: int,
         return axial_attention_bwd_dx_plain(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj,
                                             num_heads, scale, eps)
     B, T, H, W, C = x.shape
-    M, vol = _check(x, axis, num_heads)
+    M, vol = _check(x, axis, num_heads, forward=False)
     _build.require("attention_bwd_dx", [
         ("x", x, (B, T, H, W, C)), ("g", g, (B, T, H, W, C)), ("ln_w", ln_w, (C,)),
         ("ln_b", ln_b, (C,)), ("w_qkv", w_qkv, (3 * C, C)),
         ("bias", bias, (num_heads, vol, vol)), ("w_proj", w_proj, (C, C))])
-    f32 = dict(dtype=torch.float32, device=x.device)
-    qkv, dqkv = torch.empty((M, 3 * C), **f32), torch.empty((M, 3 * C), **f32)
-    dattn, dln = torch.empty((M, C), **f32), torch.empty((M, C), **f32)
-    dx = torch.empty_like(x)
+    x, g, ln_w, ln_b = _build.aligned16(x, g, ln_w, ln_b)
+    plan = axial_bwd_plan(M, C, vol, num_heads)
     lib = _build.load("attention", _SIGNATURES)
+    maps = _bwd_maps(plan, w_qkv, w_proj, lib)
+    bf16 = dict(dtype=torch.bfloat16, device=x.device)
+    scratch = [torch.empty((M, 3 * C), **bf16), torch.empty((M, C), **bf16),   # qkv, do
+               torch.empty((M, C), **bf16), torch.empty((M, 3 * C), **bf16),   # dattn, dqkv
+               torch.empty((M, C), dtype=torch.float32, device=x.device)]      # dln
+    dx = torch.empty_like(x)
     err = lib.axial_attention_bwd_dx(
-        *(_build.ptr(t) for t in (x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv,
-                                  dln, dx)),
-        B, T, H, W, C, axis, num_heads, float(scale), float(eps), _build.stream_ptr(x.device))
+        _build.ptr(x), _build.ptr(g), _build.ptr(ln_w), _build.ptr(ln_b), maps[0],
+        _build.ptr(bias), maps[1], maps[2], *(_build.ptr(t) for t in scratch + [dx]),
+        B, T, H, W, C, axis, num_heads, plan.qkv.bn, float(scale), float(eps),
+        _build.stream_ptr(x.device))
     _build.check(err, "axial_attention_bwd_dx")
     fused_axial_attention_bwd_dx.launches += 1
     return dx
+
+
+def _bwd_maps(plan, w_qkv, w_proj, lib):
+    """The axial backward's bf16 weight operands: W_qkv (boxes of the QKV
+    product's column tile) and the transposes of W_proj and W_qkv (boxes of
+    128 rows)."""
+    return (weights.linear_map(w_qkv, plan.qkv.bn, lib)[1],
+            weights.linear_t_map(w_proj, plan.dattn.bn, lib)[1],
+            weights.linear_t_map(w_qkv, plan.dln.bn, lib)[1])
 
 
 def fused_axial_attention_bwd_full(x: torch.Tensor, g: torch.Tensor, axis: int,
@@ -476,44 +552,41 @@ def fused_axial_attention_dropout_bwd_full(x: torch.Tensor, g: torch.Tensor, axi
 def _attention_bwd_full_kernel(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, scale,
                                eps, drop=None):
     B, T, H, W, C = x.shape
-    M, vol = _check(x, axis, num_heads)
+    M, vol = _check(x, axis, num_heads, forward=False)
     _build.require("attention_bwd_full", [
         ("x", x, (B, T, H, W, C)), ("g", g, (B, T, H, W, C)), ("ln_w", ln_w, (C,)),
         ("ln_b", ln_b, (C,)), ("w_qkv", w_qkv, (3 * C, C)),
         ("bias", bias, (num_heads, vol, vol)), ("w_proj", w_proj, (C, C))])
-    n_cuboids = M // vol
-    # cuboids per core block: fewer dbias partials, still about two blocks per SM
-    per_block = max(1, min(8, n_cuboids * num_heads // _build.TARGET_BLOCKS))
-    core_blocks = -(-n_cuboids // per_block)
-    tiles = (C // 64) ** 2
-    ksplit_qkv, ksplit_proj = _build.token_splits(3 * tiles, M), _build.token_splits(tiles, M)
+    x, g, ln_w, ln_b = _build.aligned16(x, g, ln_w, ln_b)
+    plan = axial_bwd_plan(M, C, vol, num_heads)
+    ld = plan.ld
+    lib = _build.load("attention", _SIGNATURES)
+    maps = _bwd_maps(plan, w_qkv, w_proj, lib)
     f32 = dict(dtype=torch.float32, device=x.device)
     bf16 = dict(dtype=torch.bfloat16, device=x.device)
-    qkv, dqkv = torch.empty((M, 3 * C), **f32), torch.empty((M, 3 * C), **f32)
-    dattn, dln = torch.empty((M, C), **f32), torch.empty((M, C), **f32)
-    ln_bf, attn_bf = torch.empty((M, C), **bf16), torch.empty((M, C), **bf16)
-    dbias_part = torch.empty((core_blocks, num_heads, vol, vol), **f32)
-    vpart = torch.empty((-(-M // 32), 3, C), **f32)
-    dw_part = torch.empty((max(3 * ksplit_qkv, ksplit_proj), C, C), **f32)
+    scratch = [torch.empty((M, 3 * C), **bf16), torch.empty((M, C), **bf16),   # qkv, do
+               torch.empty((M, C), **bf16), torch.empty((M, 3 * C), **bf16),   # dattn, dqkv
+               torch.empty((M, C), **f32), torch.empty((M, C), **bf16),        # dln, attn
+               torch.empty((C, ld), **bf16), torch.empty((C, ld), **bf16),     # LN^T, do^T
+               torch.empty((C, ld), **bf16), torch.empty((3 * C, ld), **bf16),  # attn^T, dqkv^T
+               torch.empty((plan.core_blocks, num_heads, vol, vol), **f32),
+               torch.empty((-(-M // VEC_ROWS), 3, C), **f32)]
     dx, dw_qkv, dbias, dw_proj = (torch.empty_like(x), torch.empty_like(w_qkv),
                                   torch.empty_like(bias), torch.empty_like(w_proj))
     vec = torch.empty((3, C), **f32)
-    lib = _build.load("attention", _SIGNATURES)
-    head = [x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln, ln_bf, attn_bf]
-    tail = [dbias_part, vpart, dw_part, dx, dw_qkv, dbias, dw_proj, vec]
-    dims = (B, T, H, W, C, axis, num_heads, per_block, ksplit_qkv, ksplit_proj, float(scale),
-            float(eps))
+    args = [_build.ptr(x), _build.ptr(g), _build.ptr(ln_w), _build.ptr(ln_b), maps[0],
+            _build.ptr(bias), maps[1], maps[2],
+            *(_build.ptr(t) for t in scratch + [dx, dw_qkv, dbias, dw_proj, vec]),
+            B, T, H, W, C, axis, num_heads, plan.qkv.bn, plan.per_block, ld,
+            plan.wgrad_qkv.splits, plan.wgrad_proj.splits, float(scale), float(eps)]
     if drop is None:
-        err = lib.axial_attention_bwd_full(*(_build.ptr(t) for t in head + tail), *dims,
-                                           _build.stream_ptr(x.device))
+        err = lib.axial_attention_bwd_full(*args, _build.stream_ptr(x.device))
         _build.check(err, "axial_attention_bwd_full")
         fused_axial_attention_bwd_full.launches += 1
     else:
         rate_attn, rate_proj, seed, site = drop
-        do_bf = torch.empty((M, C), **bf16)
         err = lib.axial_attention_dropout_bwd_full(
-            *(_build.ptr(t) for t in head + [do_bf] + tail), *dims,
-            *_build.drop_args(seed, site, rate_attn, rate_proj), _build.stream_ptr(x.device))
+            *args, *_build.drop_args(seed, site, rate_attn, rate_proj), _build.stream_ptr(x.device))
         _build.check(err, "axial_attention_dropout_bwd_full")
         fused_axial_attention_dropout_bwd_full.launches += 1
     return dx, vec[0], vec[1], dw_qkv, dbias, dw_proj, vec[2]
@@ -725,11 +798,37 @@ def _cuboid_key_tile(vol: int, hc: int) -> int:
                      "does not fit in shared memory")
 
 
+def _cuboid_refusal(n_cuboids: int, vol: int, C: int, num_heads: int) -> Optional[str]:
+    """Why the general layer's kernels refuse ``n_cuboids`` cuboids of
+    ``vol`` rows x C channels, or None where they all launch: the widths,
+    the forward's plan (:func:`cuboid_layer_plan`) and the gradient cores'
+    tiles (:func:`_cuboid_query_tile`, :func:`_cuboid_key_tile`)."""
+    if C % 64 != 0 or C % num_heads != 0 or not 1 <= vol <= V4_MAX_ROWS or n_cuboids < 1:
+        return (f"cuboid attention kernel: C={C} (takes multiples of 64), heads={num_heads}, "
+                f"vol={vol} (takes 1..{V4_MAX_ROWS}) not supported")
+    try:
+        cuboid_layer_plan(n_cuboids, vol, C, num_heads)
+        _cuboid_query_tile(vol, C // num_heads)
+        _cuboid_key_tile(vol, C // num_heads)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def supports_cuboid(n_cuboids: int, vol: int, C: int, num_heads: int) -> bool:
+    """True exactly where the general layer's kernels (forward, dx, all
+    gradients, their dropout forms) launch on a CUDA tensor of ``n_cuboids``
+    cuboids x ``vol`` rows x C channels instead of raising.
+    ``CuboidSelfAttentionLayer`` routes by it; the route depends on the shape
+    alone."""
+    return _cuboid_refusal(n_cuboids, vol, C, num_heads) is None
+
+
 def _check_cuboid(x, num_heads):
     B, nC, vol, C = x.shape
-    if C % 64 != 0 or C % num_heads != 0 or not 1 <= vol <= V4_MAX_ROWS:
-        raise ValueError(f"cuboid attention kernel: C={C} (takes multiples of 64), "
-                         f"heads={num_heads}, vol={vol} (takes 1..{V4_MAX_ROWS}) not supported")
+    why = _cuboid_refusal(B * nC, vol, C, num_heads)
+    if why is not None:
+        raise ValueError(why)
     return B * nC, vol, C, _cuboid_query_tile(vol, C // num_heads)
 
 
@@ -864,8 +963,7 @@ def _cuboid_bwd_full_kernel(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, sc
     # cuboids per key-tile block: fewer dbias partials, still about two blocks per SM
     per_block = max(1, min(8, n_cuboids * num_heads * -(-vol // tile) // _build.TARGET_BLOCKS))
     groups = -(-n_cuboids // per_block)
-    tiles = (C // 64) ** 2
-    ksplit_qkv, ksplit_proj = _build.token_splits(3 * tiles, M), _build.token_splits(tiles, M)
+    ld = wgrad.token_ld(M)
     f32 = dict(dtype=torch.float32, device=x.device)
     bf16 = dict(dtype=torch.bfloat16, device=x.device)
     qkv, dqkv = torch.empty((M, 3 * C), **f32), torch.empty((M, 3 * C), **f32)
@@ -873,15 +971,16 @@ def _cuboid_bwd_full_kernel(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, sc
     ln_bf, attn_bf = torch.empty((M, C), **bf16), torch.empty((M, C), **bf16)
     stats = torch.empty((n_cuboids, num_heads, vol, 3), **f32)
     dbias_part = torch.empty((groups, num_heads, vol, vol), **f32)
-    vpart = torch.empty((-(-M // 32), 3, C), **f32)
-    dw_part = torch.empty((max(3 * ksplit_qkv, ksplit_proj), C, C), **f32)
+    vpart = torch.empty((-(-M // VEC_ROWS), 3, C), **f32)
+    tbuf = torch.empty((6 * C, ld), **bf16)   # dqkv^T, LN^T, do^T, attn^T: the wgrad operands
     dx, dw_qkv, dbias, dw_proj = (torch.empty_like(x), torch.empty_like(w_qkv),
                                   torch.empty_like(bias), torch.empty_like(w_proj))
     vec = torch.empty((3, C), **f32)
     lib = _build.load("attention", _SIGNATURES)
     head = [x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln, ln_bf, attn_bf]
-    tail = [stats, dbias_part, vpart, dw_part, dx, dw_qkv, dbias, dw_proj, vec]
-    dims = (n_cuboids, vol, C, num_heads, q_tile, tile, per_block, ksplit_qkv, ksplit_proj,
+    tail = [stats, dbias_part, vpart, tbuf, dx, dw_qkv, dbias, dw_proj, vec]
+    dims = (n_cuboids, vol, C, num_heads, q_tile, tile, per_block, ld,
+            wgrad.wgrad_plan(3 * C, C, M).splits, wgrad.wgrad_plan(C, C, M).splits,
             float(scale), float(eps))
     if drop is None:
         err = lib.cuboid_attention_bwd_full(*(_build.ptr(t) for t in head + tail), *dims,

@@ -8,7 +8,11 @@ it is handed, plain Python so that the CPU tests reach it).  GELU uses the exact
 ``erff``; the TPU kernel's A&S 7.1.26 erf differs from it by at most 4e-7.
 Its input gradient (``ffn_bwd_dx`` in the same source) replaces
 ``pallas_ffn.py::fused_ffn_bwd_dx``, and its all-gradients backward
-(``ffn_bwd_full``) replaces ``pallas_ffn.py::fused_ffn_bwd_full``.  With
+(``ffn_bwd_full``) replaces ``pallas_ffn.py::fused_ffn_bwd_full``: one
+kernel on the same pieces (:func:`ffn_bwd_plan`; W1 and the transposed
+copies W2^T and W1^T of ``ops/weights.py``) and, for all gradients, the
+weight-gradient product of ``ops/wgrad.py`` on its width-major bf16 side
+outputs.  With
 dropout (``ffn_dropout_forward``, ``ffn_dropout_bwd_full``) they replace
 ``pallas_ffn.py::fused_ffn_dropout`` and ``fused_ffn_dropout_bwd_full``:
 ``a = gelu(h) . m1 / (1 - rate_act)``, ``out = x + (a . W2 + b2) . m2 /
@@ -28,37 +32,25 @@ from typing import Optional
 
 import torch
 
-from . import _build, weights
+from . import _build, weights, wgrad
 from .dropout import apply_mask, resolve_masks
 
 _P, _I, _F, _DROP = _build.P, _build.I, _build.F, _build.DROP_ARGTYPES
 _SIGNATURES = {"ffn_forward": [_P] * 8 + [_I] * 4 + [_F, _P],
                "ffn_bwd_dx": [_P] * 9 + [_I] * 4 + [_F, _P],
-               "ffn_bwd_full": [_P] * 19 + [_I] * 5 + [_F, _P],
+               "ffn_bwd_full": [_P] * 19 + [_I] * 7 + [_F, _P],
                "ffn_dropout_forward": [_P] * 8 + [_I] * 4 + [_F] + _DROP + [_P],
-               "ffn_dropout_bwd_full": [_P] * 20 + [_I] * 5 + [_F] + _DROP + [_P],
+               "ffn_dropout_bwd_full": [_P] * 19 + [_I] * 7 + [_F] + _DROP + [_P],
                **weights.MAP_SIGNATURE}
 KERNEL_WIDTHS = (128, 256, 512)
-_ROWS_PER_BLOCK = 32     # csrc/ffn.cu kRows (the backward kernels)
-_CHUNK = 64              # csrc/ffn.cu kChunk, fwd::kHC: hidden units per chunk
+_CHUNK = 64              # csrc/ffn.cu fwd::kHC, bwd::kHC: hidden units per chunk
 # csrc/ffn.cu fwd: the forward's ring of weight tiles, its consumer threads
 # and their registers (setmaxnreg), the SMs of an H100 and the cluster sizes
 # that pack into its GPCs (3, 5 or 6 do not)
 STAGES, STAGE_BYTES, CONSUMERS, CONSUMER_REGISTERS = 4, 32768, 256, 232
 SMS, SPLITS = 132, (1, 2, 4, 8)
 SMEM_LIMIT = 232448      # the shared memory one block may use on an H100
-
-
-def hidden_splits(M: int, hidden: int) -> int:
-    """Splits of the hidden dimension in the backward kernels: the fewest
-    that give about ``_build.TARGET_BLOCKS`` blocks, among the divisors of
-    hidden / 64."""
-    row_blocks = -(-M // _ROWS_PER_BLOCK)
-    chunks = hidden // _CHUNK
-    for s in range(1, chunks + 1):
-        if chunks % s == 0 and row_blocks * s >= _build.TARGET_BLOCKS:
-            return s
-    return chunks
+BWD_ROWS, BWD_LDT = 64, 64 + 8   # csrc/ffn.cu bwd::kBM, kLdT
 
 
 @dataclass(frozen=True)
@@ -131,6 +123,78 @@ def ffn_plan(M: int, C: int, hidden: int) -> FfnPlan:
     chunks = hidden // _CHUNK
     splits = max(s for s in SPLITS if s == 1 or (s <= chunks and row_tiles * s <= SMS))
     return FfnPlan(M, C, hidden, rows, splits)
+
+
+@dataclass(frozen=True)
+class FfnBwdPlan:
+    """What the backward kernel (``csrc/ffn.cu`` ``ffn_bwd_kernel<C>``) is
+    handed for M tokens of width C and ``hidden`` units: 64-row token tiles,
+    the hidden dimension in chunks of 64 split over a cluster of ``splits``
+    blocks; each consumer warpgroup takes 32 columns of h, da and dh in a
+    chunk and half of dln's columns; after the products rank r adds the
+    cluster's dln partials for rows ``rank_rows(r)`` and applies the
+    LayerNorm backward."""
+    M: int
+    C: int
+    hidden: int
+    splits: int
+
+    @property
+    def row_tiles(self) -> int:
+        return -(-self.M // BWD_ROWS)
+
+    @property
+    def chunks(self) -> int:
+        return self.hidden // _CHUNK
+
+    def chunk_range(self, rank: int) -> range:
+        return range(rank * self.chunks // self.splits, (rank + 1) * self.chunks // self.splits)
+
+    def rank_rows(self, rank: int) -> range:
+        """The rows of a tile whose dx rank ``rank`` writes."""
+        n = BWD_ROWS // self.splits
+        return range(rank * n, (rank + 1) * n)
+
+    def warpgroup_tile(self, wg: int):
+        """(columns of h / da / dh within a chunk, columns of dln) of warpgroup ``wg``."""
+        return range(32 * wg, 32 * wg + 32), range(self.C // 2 * wg, self.C // 2 * (wg + 1))
+
+    @property
+    def item_k(self) -> int:
+        return min(self.C, 256)
+
+    @property
+    def stages(self) -> int:
+        return 2 if self.C == 512 else 4
+
+    @property
+    def smem_bytes(self) -> int:
+        """Alignment, the LN(x) and do tiles, the dh tile, the ring, the
+        transposed staging tiles of gelu(h) and dh."""
+        return (1024 + 2 * BWD_ROWS * self.C * 2 + BWD_ROWS * _CHUNK * 2
+                + self.stages * STAGE_BYTES + 2 * _CHUNK * BWD_LDT * 2)
+
+    @property
+    def epilogue_bytes(self) -> int:
+        """The rank's f32 dln partial and the warps' column sums, laid over
+        the tiles and the ring once the products are done."""
+        return BWD_ROWS * self.C * 4 + 8 * 2 * self.C * 4
+
+    @property
+    def accumulators(self) -> int:
+        """f32 registers a consumer thread holds: dln (64 x C / 2), h and da (64 x 32 each)."""
+        return (64 * self.C // 2 + 2 * 64 * 32) // 128
+
+
+@lru_cache(maxsize=None)
+def ffn_bwd_plan(M: int, C: int, hidden: int) -> FfnBwdPlan:
+    """The most splits of ``SPLITS`` (at most one per chunk) that keep every
+    block in one wave over the ``SMS`` SMs."""
+    _check_widths(M, C, hidden)
+    row_tiles = -(-M // BWD_ROWS)
+    chunks = hidden // _CHUNK
+    splits = max(s for s in SPLITS if s == 1 or (s <= chunks and row_tiles * s <= SMS))
+    return FfnBwdPlan(M, C, hidden, splits)
 
 
 def _round(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -247,9 +311,18 @@ def ffn_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_
     return ffn_dropout_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, eps, mxu_dtype=mxu_dtype)
 
 
+def supports_shape(M: int, C: int, hidden: int) -> bool:
+    """True exactly where the FFN kernels (forward, dx, all gradients, their
+    dropout forms) launch on a CUDA tensor instead of raising: C in
+    ``KERNEL_WIDTHS``, hidden a positive multiple of 64.  ``PositionwiseFFN``
+    routes by it, as the JAX package's FFN routes by
+    ``pallas_ffn.supports_shape``; the route depends on the shape alone."""
+    return M >= 1 and C in KERNEL_WIDTHS and hidden >= _CHUNK and hidden % _CHUNK == 0
+
+
 def _check_widths(M: int, C: int, hidden: int) -> None:
-    if C not in KERNEL_WIDTHS or hidden % 64 != 0:
-        raise ValueError(f"ffn kernel: C={C} (takes {KERNEL_WIDTHS}), hidden={hidden} "
+    if not supports_shape(M, C, hidden):
+        raise ValueError(f"ffn kernel: M={M}, C={C} (takes {KERNEL_WIDTHS}), hidden={hidden} "
                          "(takes multiples of 64) not supported")
 
 
@@ -296,6 +369,13 @@ def fused_ffn_dropout(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w
     return _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, (rate_act, rate_out, seed, site))
 
 
+def _bwd_maps(w1, w2, C, lib):
+    """The backward's bf16 weight operands (their tensor maps): W1 (boxes of
+    64 rows, the forward's), W2^T (64 rows) and W1^T (min(C, 256) rows)."""
+    return (weights.linear_map(w1, 64, lib)[1], weights.linear_t_map(w2, 64, lib)[1],
+            weights.linear_t_map(w1, min(C, 256), lib)[1])
+
+
 def fused_ffn_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                      w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                      eps: float = 1e-5) -> torch.Tensor:
@@ -306,16 +386,17 @@ def fused_ffn_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b:
         return ffn_bwd_dx_plain(x, g, ln_w, ln_b, w1, b1, w2, eps)
     M, C = x.shape
     hidden = w1.shape[0]
-    _check_widths(M, C, hidden)
+    plan = ffn_bwd_plan(M, C, hidden)
     _build.require("ffn_bwd_dx", [
         ("x", x, (M, C)), ("g", g, (M, C)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
         ("w1", w1, (hidden, C)), ("b1", b1, (hidden,)), ("w2", w2, (C, hidden))])
-    splits = hidden_splits(M, hidden)
-    part = torch.empty((splits, M, C), dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
+    x, g, ln_w, ln_b, b1 = _build.aligned16(x, g, ln_w, ln_b, b1)
     lib = _build.load("ffn", _SIGNATURES)
-    err = lib.ffn_bwd_dx(*(_build.ptr(t) for t in (x, g, ln_w, ln_b, w1, b1, w2, part, dx)),
-                         M, C, hidden, splits, float(eps), _build.stream_ptr(x.device))
+    w1_map, w2t_map, w1t_map = _bwd_maps(w1, w2, C, lib)
+    dx = torch.empty_like(x)
+    err = lib.ffn_bwd_dx(_build.ptr(x), _build.ptr(g), _build.ptr(ln_w), _build.ptr(ln_b), w1_map,
+                         _build.ptr(b1), w2t_map, w1t_map, _build.ptr(dx), M, C, hidden,
+                         plan.splits, float(eps), _build.stream_ptr(x.device))
     _build.check(err, "ffn_bwd_dx")
     fused_ffn_bwd_dx.launches += 1
     return dx
@@ -346,40 +427,41 @@ def fused_ffn_dropout_bwd_full(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Ten
 
 
 def _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps, drop=None):
+    """Launch the all-gradients backward (``drop`` = (rate_act, rate_out,
+    seed, site): its dropout entry point): the kernel, the ordered sums of
+    the vector gradients' partials, the two weight-gradient products."""
     M, C = x.shape
     hidden = w1.shape[0]
-    _check_widths(M, C, hidden)
+    plan = ffn_bwd_plan(M, C, hidden)
     _build.require("ffn_bwd_full", [
         ("x", x, (M, C)), ("g", g, (M, C)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
         ("w1", w1, (hidden, C)), ("b1", b1, (hidden,)), ("w2", w2, (C, hidden))])
-    splits = hidden_splits(M, hidden)
-    ksplit = _build.token_splits((C // 64) * (hidden // 64), M)
-    row_blocks = -(-M // _ROWS_PER_BLOCK)
+    x, g, ln_w, ln_b, b1 = _build.aligned16(x, g, ln_w, ln_b, b1)
+    lib = _build.load("ffn", _SIGNATURES)
+    maps = _bwd_maps(w1, w2, C, lib)
+    ld = wgrad.token_ld(M)
     f32 = dict(dtype=torch.float32, device=x.device)
     bf16 = dict(dtype=torch.bfloat16, device=x.device)
-    part = torch.empty((splits, M, C), **f32)
-    a_bf, dh_bf, ln_bf = (torch.empty((M, hidden), **bf16), torch.empty((M, hidden), **bf16),
-                          torch.empty((M, C), **bf16))
-    db1_part, vpart = torch.empty((row_blocks, hidden), **f32), torch.empty((row_blocks, 3, C), **f32)
-    dw_part = torch.empty((ksplit, C, hidden), **f32)
+    side = [torch.empty((C, ld), **bf16), torch.empty((C, ld), **bf16),            # LN^T, do^T
+            torch.empty((hidden, ld), **bf16), torch.empty((hidden, ld), **bf16)]  # a^T, dh^T
+    parts = [torch.empty((plan.row_tiles * plan.splits, 3, C), **f32),
+             torch.empty((plan.row_tiles, hidden), **f32)]
     dx, dw1, db1, dw2 = (torch.empty_like(x), torch.empty_like(w1), torch.empty_like(b1),
                          torch.empty_like(w2))
     vec = torch.empty((3, C), **f32)
-    lib = _build.load("ffn", _SIGNATURES)
-    head = [x, g, ln_w, ln_b, w1, b1, w2, part, a_bf, dh_bf, ln_bf]
-    tail = [db1_part, vpart, dw_part, dx, dw1, db1, dw2, vec]
+    args = [_build.ptr(x), _build.ptr(g), _build.ptr(ln_w), _build.ptr(ln_b), maps[0],
+            _build.ptr(b1), maps[1], maps[2],
+            *(_build.ptr(t) for t in side + parts + [dx, dw1, db1, dw2, vec]),
+            M, C, hidden, ld, plan.splits, wgrad.wgrad_plan(hidden, C, M).splits,
+            wgrad.wgrad_plan(C, hidden, M).splits, float(eps)]
     if drop is None:
-        err = lib.ffn_bwd_full(*(_build.ptr(t) for t in head + tail), M, C, hidden, splits,
-                               ksplit, float(eps), _build.stream_ptr(x.device))
+        err = lib.ffn_bwd_full(*args, _build.stream_ptr(x.device))
         _build.check(err, "ffn_bwd_full")
         fused_ffn_bwd_full.launches += 1
     else:
         rate_act, rate_out, seed, site = drop
-        do_bf = torch.empty((M, C), **bf16)
-        err = lib.ffn_dropout_bwd_full(
-            *(_build.ptr(t) for t in head + [do_bf] + tail), M, C, hidden, splits, ksplit,
-            float(eps), *_build.drop_args(seed, site, rate_act, rate_out),
-            _build.stream_ptr(x.device))
+        err = lib.ffn_dropout_bwd_full(*args, *_build.drop_args(seed, site, rate_act, rate_out),
+                                       _build.stream_ptr(x.device))
         _build.check(err, "ffn_dropout_bwd_full")
         fused_ffn_dropout_bwd_full.launches += 1
     return dx, vec[0], vec[1], dw1, db1, dw2, vec[2]

@@ -140,6 +140,17 @@ def groupnorm_silu_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, weight: torc
             dx.sum(dim=1) if emb is not None else None)
 
 
+def supports(C: int, groups: int) -> bool:
+    """True exactly where both GN kernels (the forward and the all-gradients
+    backward) launch on a CUDA tensor of C channels in ``groups`` groups
+    instead of raising: groups divides C, C <= 1024 (the forward), and a
+    backward block (a multiple of 32 threads and of the group's channels)
+    stays within 1024 threads.  The
+    blocks that call GN route by it; the route depends on the shape alone."""
+    return (groups >= 1 and C % groups == 0 and C <= 1024
+            and math.lcm(C // groups, 32) <= 1024)
+
+
 def fused_groupnorm_silu_bwd_full(x: torch.Tensor, g: torch.Tensor, weight: torch.Tensor,
                                   bias: torch.Tensor, emb: Optional[torch.Tensor] = None,
                                   groups: int = 32, eps: float = 1e-5):
@@ -149,14 +160,11 @@ def fused_groupnorm_silu_bwd_full(x: torch.Tensor, g: torch.Tensor, weight: torc
     if not x.is_cuda:
         return groupnorm_silu_bwd_full_plain(x, g, weight, bias, emb, groups, eps)
     B, N, C = x.shape
-    if C % groups != 0:
-        raise ValueError(f"groupnorm kernel: C={C}, groups={groups} not supported")
+    if C % groups != 0 or math.lcm(C // groups, 32) > 1024:
+        raise ValueError(f"groupnorm_bwd_full kernel: C={C}, groups={groups} not supported")
     # a block of a (group, sample): a multiple of 32 threads and of the
     # group's channels, so that each thread stays on one channel
     unit = math.lcm(C // groups, 32)
-    if unit > 1024:
-        raise ValueError(f"groupnorm_bwd_full kernel: {C // groups} channels per group "
-                         "not supported")
     threads = max(256 // unit, 1) * unit
     _build.require("groupnorm_bwd_full", [("x", x, (B, N, C)), ("g", g, (B, N, C)),
                                           ("weight", weight, (C,)), ("bias", bias, (C,))]

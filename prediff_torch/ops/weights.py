@@ -14,8 +14,10 @@ bypasses PyTorch's version counter and is not seen.
 Kinds: ``"linear"``, the bf16 copy of a ``Linear`` weight (N, K), whose
 PyTorch layout already is the K-major operand a wgmma wants, with a tensor
 map per box height (``csrc/hopper.cuh`` ``bf16_matrix_map``: boxes of 64
-columns); the conv's layouts (``ops/conv3d.weight_layout``) are kinds of
-their own.
+columns); ``"linear_t"``, the bf16 copy of its transpose (K, N), the K-major
+operand of a product that contracts over the weight's rows (the backwards'
+``do . W`` and ``dh . W1``), laid out once per version like the other; the
+conv's layouts (``ops/conv3d.weight_layout``) are kinds of their own.
 """
 import ctypes
 import weakref
@@ -66,17 +68,36 @@ def linear_bf16(weight: torch.Tensor) -> torch.Tensor:
     return layout(weight, "linear", _same)
 
 
-def linear_map(weight: torch.Tensor, box_rows: int, lib: ctypes.CDLL):
-    """The bf16 copy of a ``Linear`` weight (N, K) and its tensor map with
-    boxes of 64 columns x ``box_rows`` rows, encoded by ``lib``'s
-    ``bf16_matrix_map`` (every library built on ``csrc/hopper.cuh``)."""
+def _transposed(w: torch.Tensor) -> torch.Tensor:
+    return w.t()
+
+
+def linear_t_bf16(weight: torch.Tensor) -> torch.Tensor:
+    """The bf16 copy of a ``Linear`` weight's transpose (K, N), contiguous."""
+    return layout(weight, "linear_t", _transposed)
+
+
+def _map_encoder(box_rows: int, lib: ctypes.CDLL) -> Callable:
     def encode(w):
         desc = ctypes.create_string_buffer(128)
         _build.check(lib.bf16_matrix_map(_build.ptr(w), w.shape[0], w.shape[1], box_rows, desc),
                      "bf16_matrix_map")
         return desc
 
-    return tensor_map(weight, "linear", _same, box_rows, encode)
+    return encode
+
+
+def linear_map(weight: torch.Tensor, box_rows: int, lib: ctypes.CDLL):
+    """The bf16 copy of a ``Linear`` weight (N, K) and its tensor map with
+    boxes of 64 columns x ``box_rows`` rows, encoded by ``lib``'s
+    ``bf16_matrix_map`` (every library built on ``csrc/hopper.cuh``)."""
+    return tensor_map(weight, "linear", _same, box_rows, _map_encoder(box_rows, lib))
+
+
+def linear_t_map(weight: torch.Tensor, box_rows: int, lib: ctypes.CDLL):
+    """The bf16 copy of a ``Linear`` weight's transpose (K, N), contiguous,
+    and its tensor map with boxes of 64 columns x ``box_rows`` rows."""
+    return tensor_map(weight, "linear_t", _transposed, box_rows, _map_encoder(box_rows, lib))
 
 
 # the argument types of bf16_matrix_map, for each library's signatures

@@ -178,13 +178,13 @@ def test_a_non_axial_layer_refuses_training_mode():
     function, with dropout the call needs the forward's DropoutStream, and
     attention-weight dropout sends a grouped window to the einsum route."""
     from prediff_torch.ops.dropout import DropoutStream
-    x = torch.randn(1, 2, 4, 4, 16)
+    x = torch.randn(1, 2, 4, 4, 64)   # a width the v4 kernels take
     for cs, shift, route in (((1, 2, 2), (0, 1, 1), "grouped_masked"), ((1, 2, 2), (0, 0, 0), "v4")):
-        layer = CuboidSelfAttentionLayer(16, 2, cs, shift, padding_type="zeros")
+        layer = CuboidSelfAttentionLayer(64, 2, cs, shift, padding_type="zeros")
         with torch.no_grad():
             assert torch.equal(layer.train()(x), layer.eval()(x))
         assert layer.train().route(x.shape) == layer.eval().route(x.shape) == route
-        layer = CuboidSelfAttentionLayer(16, 2, cs, shift, padding_type="zeros", attn_drop=0.1,
+        layer = CuboidSelfAttentionLayer(64, 2, cs, shift, padding_type="zeros", attn_drop=0.1,
                                          proj_drop=0.1).train()
         with pytest.raises(ValueError, match="DropoutStream"):
             layer(x)

@@ -171,7 +171,7 @@ def _recording(monkeypatch):
 def test_train_mode_route_matches_flax_with_injected_masks(monkeypatch, route, shape, cs, shift,
                                                            strategy, padding_type, attn_drop,
                                                            proj_drop):
-    C, heads = 32, 4
+    C, heads = 64, 4   # a width the v4 kernels take (at 32 the layer routes to einsum)
     jl = JaxLayer(dim=C, num_heads=heads, cuboid_size=cs, shift_size=shift, strategy=strategy,
                   padding_type=padding_type, attn_drop=attn_drop, proj_drop=proj_drop)
     rs = np.random.RandomState(30)
@@ -209,11 +209,13 @@ def test_train_mode_route_matches_flax_with_injected_masks(monkeypatch, route, s
 # ---- the slice: a tiny video_swin_2x2 UNet ----
 def _swin_over(**latent):
     """configs/tiny_smoke.yaml with video_swin_2x2 and 2 context frames: T = 4
-    in the UNet, where both stages route a v4 and a grouped_masked layer."""
+    in the UNet, where both stages route a v4 and a grouped_masked layer; at
+    base_units 64, a width the general layer's kernels take (at the config's
+    16 its unshifted windows take the einsum route)."""
     return {"layout": {"in_len": 2},
             "model": {"diffusion": {"latent_cond_shape": [2, 4, 4, 8]},
                       "latent_model": dict(input_shape=[2, 4, 4, 8], self_pattern=PATTERN,
-                                           **latent)}}
+                                           base_units=64, **latent)}}
 
 
 def _swin_cfg(**latent):

@@ -350,7 +350,7 @@ def test_ffn_dropout_kernels_match_plain(dev, M, C, rates):
         assert abs(dropped - rates[1]) <= 4 * (rates[1] * (1 - rates[1]) / out.numel()) ** 0.5
 
 
-@pytest.mark.parametrize("M,C", [(6656, 256), (100, 128)])
+@pytest.mark.parametrize("M,C", [(6656, 256), (1664, 512), (100, 128)])
 def test_ffn_dropout_kernels_at_rate_0_give_the_bits_of_the_plain_kernels(dev, M, C):
     x, ln_w, ln_b, w1, b1, w2, b2 = _ffn_args(dev, M, C)
     g = torch.randn(M, C, device=dev)
@@ -391,9 +391,9 @@ def test_attention_dropout_kernels_match_plain(dev, shape, axis):
     assert abs(dropped - 0.1) <= 4 * (0.09 / out.numel()) ** 0.5
 
 
+@pytest.mark.parametrize("shape", [(2, 13, 16, 16, 256), (2, 13, 8, 8, 512)])
 @pytest.mark.parametrize("axis", [0, 1, 2])
-def test_attention_dropout_kernels_at_rate_0_give_the_bits_of_the_plain_kernels(dev, axis):
-    shape = (2, 13, 16, 16, 256)
+def test_attention_dropout_kernels_at_rate_0_give_the_bits_of_the_plain_kernels(dev, shape, axis):
     x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj = _attn_args(dev, shape, axis)
     g = torch.randn(*shape, device=dev)
     scale = (shape[-1] // 4) ** -0.5

@@ -137,3 +137,49 @@ def test_entry_goes_with_its_parameter():
     del lin
     gc.collect()
     assert ref() is None and slot not in weights._LAYOUTS
+
+
+# ---- the transposed kind: the backwards' W^T operands ----
+def _is_transposed_copy_of(layout, w):
+    return (layout.dtype == torch.bfloat16 and layout.is_contiguous()
+            and torch.equal(layout, w.detach().t().to(torch.bfloat16)))
+
+
+def test_transposed_layout_is_kept_once_per_version_beside_the_other():
+    lin = nn.Linear(128, 384)
+    t1 = weights.linear_t_bf16(lin.weight)
+    assert t1.shape == (128, 384) and _is_transposed_copy_of(t1, lin.weight)
+    assert weights.linear_t_bf16(lin.weight) is t1
+    plain = weights.linear_bf16(lin.weight)
+    assert weights.linear_t_bf16(lin.weight) is t1 and weights.linear_bf16(lin.weight) is plain
+    with torch.no_grad():
+        lin.weight.mul_(2.0)
+    t2 = weights.linear_t_bf16(lin.weight)
+    assert t2 is not t1 and _is_transposed_copy_of(t2, lin.weight)
+
+
+@pytest.mark.parametrize("impl", ["port", "fused"])
+def test_transposed_layout_follows_the_optimizer_step(impl):
+    torch.manual_seed(1)
+    lin = nn.Linear(64, 128)
+    params = list(lin.parameters())
+    if impl == "port":
+        tx = build_optimizer(params, lr=1e-2, total_num_steps=10)
+    else:
+        opt = torch.optim.AdamW(params, lr=1e-2, fused=True)
+        tx = Optimizer(params, opt, lambda count: 1e-2, 1.0, 1)
+    first = weights.linear_t_bf16(lin.weight)
+    _step(lin, tx)
+    second = weights.linear_t_bf16(lin.weight)
+    assert second is not first and _is_transposed_copy_of(second, lin.weight)
+    assert not torch.equal(second, first)
+
+
+def test_transposed_entry_goes_with_its_parameter():
+    lin = nn.Linear(128, 256)
+    slot = (id(lin.weight), "linear_t")
+    ref = weakref.ref(weights.linear_t_bf16(lin.weight))
+    assert slot in weights._LAYOUTS and ref() is not None
+    del lin
+    gc.collect()
+    assert ref() is None and slot not in weights._LAYOUTS
