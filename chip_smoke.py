@@ -8,7 +8,8 @@ Phases, one JSON line each: the card; the kernels' build from
 ``prediff_torch/csrc``; each hand-written kernel against its plain PyTorch
 version at every shape the UNet (forecasting at B=1, training at the
 micro-batch size) and the alignment net give it, with times; ``bwd_split``,
-each launch's share of the all-gradients backwards at the training shapes;
+each launch's share of the all-gradients backwards at the training shapes,
+of the general layer's dx and of the resblock;
 the ``tiny_*`` phases on ``configs/tiny_smoke.yaml``, whose widths (16, 32)
 every FFN, attention and resblock kernel refuses: a forecast, a guidance
 shift and a training step at dropout 0 and 0.1, card against CPU, with no
@@ -524,6 +525,62 @@ def attention_library_bwd(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, heads, sc
     return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
 
 
+def cuboid_library_bwd(x, g, ln_w, ln_b, w_qkv, bias, w_proj, heads, scale, rate_attn,
+                       rate_proj, seed, site):
+    """The yardstick of the general layer's all-gradients backward with
+    dropout: autograd's backward of ``cuboid_library_seq``'s calls (LN,
+    linear, the scores with the relative bias, softmax, p . v, linear) on
+    bf16 weights with the kernels' two masks multiplied in, on the reordered
+    (B, cuboids, vol, C), all seven gradients."""
+    import torch
+    import torch.nn.functional as F
+    from prediff_torch.ops.dropout import keep_mask
+
+    B, nC, vol, C = x.shape
+    bf16 = torch.bfloat16
+    m_a = keep_mask(seed, site, 0, (B, nC, heads, vol, vol), rate_attn, x.device) / (1 - rate_attn)
+    m_p = keep_mask(seed, site, 1, tuple(x.shape), rate_proj, x.device) / (1 - rate_proj)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, ln_w, ln_b, w_qkv, bias, w_proj, torch.zeros_like(ln_b))]
+    xl, lw, lb, wq, bl, wp, bp = leaves
+    qkv = F.linear(F.layer_norm(xl, (C,), lw, lb, 1e-5).to(bf16), wq.to(bf16))
+    q, k, v = qkv.reshape(B, nC, vol, 3, heads, C // heads).permute(3, 0, 1, 4, 2, 5)
+    s = (q * scale) @ k.transpose(-1, -2) + bl.to(bf16)
+    p = torch.softmax(s.float(), dim=-1) * m_a
+    o = (p.to(bf16) @ v).transpose(2, 3).reshape(B, nC, vol, C)
+    out = F.linear(o, wp.to(bf16), bp.to(bf16)).float() * m_p
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def resblock_library_seq(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups):
+    """The whole resblock as library calls, a yardstick (no one call does
+    the block): ``F.group_norm`` -> ``F.silu`` -> the cuDNN bf16 conv
+    (channels-last 3-D) -> + emb -> ``F.group_norm`` -> ``F.silu`` -> the
+    cuDNN bf16 conv -> + x, on x's channel-last memory through
+    channel-first views.  Returns (the forward's closure, the closure of
+    autograd's backward of it for a cotangent to x and emb)."""
+    import torch
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    cl = torch.channels_last_3d
+    k1b, k2b = (k.to(bf16).contiguous(memory_format=cl) for k in (k1, k2))
+    b1b, b2b = b1.to(bf16), b2.to(bf16)
+
+    def block(xl, el):
+        xc = xl.permute(0, 4, 1, 2, 3)
+        h = F.silu(F.group_norm(xc, groups, g1s, g1b, 1e-5)).to(bf16)
+        h2 = F.conv3d(h, k1b, b1b, padding=1).float() + el[:, :, None, None, None]
+        h = F.silu(F.group_norm(h2, groups, g2s, g2b, 1e-5)).to(bf16)
+        return (xc + F.conv3d(h, k2b, b2b, padding=1).float()).permute(0, 2, 3, 4, 1)
+
+    xl, el = (t.detach().clone().requires_grad_(True) for t in (x, emb))
+    out = block(xl, el)
+    g = torch.randn_like(out)
+    return (lambda: block(x, emb),
+            lambda: torch.autograd.grad(out, (xl, el), g, retain_graph=True))
+
+
 def yardstick(c, fn):
     """A backward yardstick's times on the case: ``library_seq_ms`` per call
     and ``library_seq_device_ms``, its kernels' device time summed by the
@@ -822,9 +879,11 @@ def check_kernels(cases, device):
         c_fwd["ok"] = ok and c_fwd["h2_max_abs_err"] <= 3e-2 * float(want_h2.abs().max())
         conv_flops = 2 * 2 * M * 27 * C * C
         weights = 4 * 2 * 27 * C * C
+        library_fwd, library_bwd = resblock_library_seq(*args, groups)
         timed(c_fwd, lambda: fused_resblock_fwd(*args, groups),
               lambda: resblock_plain(*args, groups, mxu_dtype=bf16),
-              4 * 2 * M * C + 2 * M * C + weights + 4 * (B * C + 6 * C), bf16_flops=conv_flops)
+              4 * 2 * M * C + 2 * M * C + weights + 4 * (B * C + 6 * C), device_time=True,
+              library_seq=library_fwd, bf16_flops=conv_flops)
         x, emb, _, _, _, _, g1s, g1b, g2s, g2b = args
         bargs = (x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, randn(B, T, H, W, C), groups)
         dx, demb = fused_resblock_bwd(*bargs)
@@ -837,8 +896,9 @@ def check_kernels(cases, device):
         timed(c_bwd, lambda: fused_resblock_bwd(*bargs),
               lambda: resblock_bwd_plain(*bargs[:8], h2.float(), bargs[9], groups,
                                          mxu_dtype=bf16),
-              4 * 3 * M * C + 2 * M * C + weights + 4 * (2 * B * C + 4 * C),
+              4 * 3 * M * C + 2 * M * C + weights + 4 * (2 * B * C + 4 * C), device_time=True,
               bf16_flops=conv_flops)
+        yardstick(c_bwd, library_bwd)
 
     for name, cs in cases.items():
         failed += [(name, c) for c in cs if not c["ok"]]
@@ -1240,7 +1300,7 @@ def check_cuboid_kernels(cases, device):
                 judge(c, got, want)
                 timed(c, lambda: fused_cuboid_attention_layer_bwd_dx(*args),
                       lambda: cuboid_attention_bwd_dx_plain(*args, mxu_dtype=bf16),
-                      4 * (3 * M * C + 4 * C * C + heads * vol * vol + 2 * C),
+                      4 * (3 * M * C + 4 * C * C + heads * vol * vol + 2 * C), device_time=True,
                       bf16_flops=14 * M * C * C + 10 * M * vol * C)
 
     for c in cases["cuboid_attention_grouped"]:
@@ -1507,25 +1567,33 @@ def launch_split(fn, reps: int = 10):
 # rows 12 / 15b and 13 / 15d at the training micro-batch (B=2) of the v1 recipe
 BWD_SPLIT_FFN = ((6656, 256), (1664, 512))
 BWD_SPLIT_ATTN = ((2, 13, 16, 16, 256), (2, 13, 8, 8, 512))
-# rows 13b / 15e's backward at video_swin_1x8's training shapes (B, cuboids, vol, C)
+# rows 13b / 15e's backward at video_swin_1x8's training shapes (B, cuboids, vol, C),
+# row 5 (its dx) at the swin guided chain's UNet and alignment-net shapes
 BWD_SPLIT_CUBOID = ((2, 52, 64, 256), (2, 13, 64, 512))
+BWD_SPLIT_CUBOID_DX = ((1, 52, 64, 256), (1, 13, 64, 512), (1, 24, 64, 128), (1, 6, 64, 256))
+# row 7 at the alignment net's stage blocks
+BWD_SPLIT_RESBLOCK = ((1, 6, 16, 16, 128), (1, 6, 8, 8, 256))
 
 
 def bwd_split(device):
     """The all-gradients backwards of the FFN, the axial layer and the
     general layer (rows 12, 15b, 13, 15d, 13b, 15e) at the B=2 training
-    shapes: each launch's share of one
-    call's device time (profiler), the call's device time from CUDA-graph
-    replay, and for the dropout forms the yardstick: autograd's backward of
-    the library sequence (``ffn_library_seq`` / ``attention_library_seq`` on
-    bf16 weights) with the kernels' masks multiplied in, its device time by
-    the profiler's sum."""
+    shapes, the general layer's dx (row 5) at the swin guided chain's and
+    the whole resblock (row 7, forward and backward) at the alignment net's:
+    each launch's share of one call's device time (profiler), the call's
+    device time from CUDA-graph replay, and for the dropout forms the
+    yardstick: autograd's backward of the library sequence
+    (``ffn_library_seq`` / ``attention_library_seq`` / ``cuboid_library_seq``
+    on bf16 weights) with the kernels' masks multiplied in, its device time
+    by the profiler's sum."""
     import torch
     from prediff_torch.ops.attention import (fused_axial_attention_bwd_full,
                                              fused_axial_attention_dropout_bwd_full,
+                                             fused_cuboid_attention_layer_bwd_dx,
                                              fused_cuboid_attention_layer_bwd_full,
                                              fused_cuboid_attention_layer_dropout_bwd_full)
     from prediff_torch.ops.ffn import fused_ffn_bwd_full, fused_ffn_dropout_bwd_full
+    from prediff_torch.ops.resblock import fused_resblock_bwd, fused_resblock_fwd
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     heads = 4
@@ -1572,7 +1640,26 @@ def bwd_split(device):
                 randn(C, C, scale=C ** -0.5), heads, (C // heads) ** -0.5, 1e-5)
         one("cuboid_attention_bwd_full", shape, lambda: fused_cuboid_attention_layer_bwd_full(*args))
         one("cuboid_attention_dropout_bwd_full", shape,
-            lambda: fused_cuboid_attention_layer_dropout_bwd_full(*args, *drop))
+            lambda: fused_cuboid_attention_layer_dropout_bwd_full(*args, *drop),
+            cuboid_library_bwd(*args[:9], *drop))
+    for shape in BWD_SPLIT_CUBOID_DX:
+        B, nC, vol, C = shape
+        args = (randn(*shape), randn(*shape), 1.0 + randn(C, scale=0.1), randn(C, scale=0.1),
+                randn(3 * C, C, scale=C ** -0.5), randn(heads, vol, vol, scale=0.5),
+                randn(C, C, scale=C ** -0.5), heads, (C // heads) ** -0.5, 1e-5)
+        one("cuboid_attention_bwd_dx", shape, lambda: fused_cuboid_attention_layer_bwd_dx(*args))
+    for shape in BWD_SPLIT_RESBLOCK:
+        B, T, H, W, C = shape
+        args = (randn(*shape, scale=0.5), randn(B, C, scale=0.3),
+                randn(C, C, 3, 3, 3, scale=(27 * C) ** -0.5), randn(C, scale=0.1),
+                randn(C, C, 3, 3, 3, scale=(27 * C) ** -0.5), randn(C, scale=0.1),
+                1.0 + randn(C, scale=0.1), randn(C, scale=0.1), 1.0 + randn(C, scale=0.1),
+                randn(C, scale=0.1))
+        _, h2 = fused_resblock_fwd(*args)
+        x, emb, k1, _, k2, _, g1s, g1b, g2s, g2b = args
+        bargs = (x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, randn(*shape))
+        one("resblock", shape, lambda: fused_resblock_fwd(*args))
+        one("resblock_bwd", shape, lambda: fused_resblock_bwd(*bargs))
 
 
 # --------------------------------------------------------------------------- #
@@ -1582,7 +1669,8 @@ def main() -> int:
     ap.add_argument("--only", choices=["bwd_split"],
                     help="run this phase alone (after the device line and the build) and stop: "
                          "bwd_split, each launch's share of the FFN, axial and general "
-                         "attention all-gradients backwards")
+                         "attention all-gradients backwards, the general layer's dx and the "
+                         "resblock")
     args = ap.parse_args()
     try:
         import torch

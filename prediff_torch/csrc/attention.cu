@@ -104,12 +104,11 @@
 // (cuboid_tc_core_kernel: mma.sync m16n8k16 in bf16, k and v of the whole
 // cuboid in shared memory, p in registers, one block per (cuboid, head, 16 to
 // 64 query rows)); past the LN tile (C > 768) the QKV product runs on bf16 LN
-// rows written by ln_bf16_rows_kernel.  The gradient's core is the split pair
-// of the all-gradients backward below, without its extra outputs, on the
-// WMMA products.  At the UNet's shapes the bytes the
-// layer must move (x in and out, the weights) and its operations give about
-// the same least time, as for the axial layer; the roundings are the axial
-// kernels'.
+// rows written by ln_bf16_rows_kernel.  The input gradient is the axial
+// layer's dx launches (layer_bwd_launches) around a gradient core of its own
+// on the tensor cores (below).  At the UNet's shapes the bytes the layer must
+// move (x in and out, the weights) and its operations give about the same
+// least time, as for the axial layer; the roundings are the axial kernels'.
 //
 // The general layer's all gradients (cuboid_attention_bwd_full) and its
 // dropout forms (cuboid_attention_dropout_forward,
@@ -118,19 +117,29 @@
 // forms of it and of fused_cuboid_attention_layer_v4 (bodies
 // _fused_layer_bwd_full_kernel_v4 and _fused_layer_kernel_v4), the training
 // path of every non-axial pattern.  The launches are the axial all-gradients
-// ones; the gradient core is split so that no block walks a whole cuboid
-// alone.  A first core, one block per (cuboid, head, query tile), has the
-// tile's rows whole: p, dp, D = rowsum(dp . p) (the identity D = dO . O holds
-// under dropout too, but the row sum is the TPU kernel's formula), ds, dq,
-// the head outputs for dWproj, and per row the softmax's max and sum and D.
-// A second, one block per (group of cuboids, head, key tile), recomputes p
-// from those and dp for every query of its keys and sums dk and dv in shared
-// memory and the relative-bias gradient of its key columns over the group's
-// cuboids; the groups' partials are added in a fixed order.  The TPU kernel
-// folds its block-diagonal ds back with rep^T . ds . rep; here ds is already
-// per cuboid.  Dropout: m_a of (cuboid, head, i, j) in cuboid_reorder's order
-// and m_p of the reordered (token, channel), the layouts flax's einsum route
-// drops; the Drop forms are separate template instances, bit-equal to the
+// ones (LN + QKV and the dattn / dln products on TMA + wgmma with the cached
+// bf16 weights and their transposes, the width-major casts, the weight
+// gradients on grad_common.cuh's TN product); the gradient core runs on the
+// tensor cores (mma.sync m16n8k16 bf16 -> f32, ldmatrix fragments, as the
+// forward's core).  Where a cuboid's q . scale, k, v, dattn and its bf16 ds
+// and dropped p fit one block (vol <= 64: the UNet's windows),
+// cuboid_bwd_core_kernel takes a whole (cuboid, head) per block: each warp
+// has 16 query rows of s, p, dp, D = rowsum(dp . p) (the TPU kernel's
+// formula; D = dO . O holds under dropout too), ds = p (dp - D), dq and the
+// head outputs in registers, hands its bf16 ds and dropped p to the block in
+// shared memory, then takes 16 keys of dk = ds^T . q and dv = p_d^T . dO: one
+// launch, no atomics, and the relative-bias gradient's f32 ds added into the
+// block's partial by the thread that owns each element.  Larger cuboids (to
+// vol 256) split in two launches on the same fragments: a query-row launch
+// (dq, the head outputs, ds into a per-cuboid partial, and each row's max, sum
+// and D) with k and v whole in shared memory, and a key-row launch that
+// recomputes p and ds transposed from those statistics (dk, dv) with q and
+// dattn whole in shared memory; the other operand's fragments come from
+// device memory.  The TPU kernel folds its block-diagonal ds back with
+// rep^T . ds . rep; here ds is already per cuboid.  Dropout: m_a of (cuboid,
+// head, i, j) in cuboid_reorder's order and m_p of the reordered (token,
+// channel), the layouts flax's einsum route drops, drawn as the forward draws
+// them; the Drop forms are separate template instances, bit-equal to the
 // kernels without dropout at rate 0.
 //
 // Grouped masked core (cuboid_attention_grouped): replaces
@@ -179,15 +188,12 @@
 // plain shared-memory tiling (64 x 64 outputs a block, 4 x 4 a thread).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "grad_common.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -199,120 +205,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// ---------------------------------------------------------------------------
-// The gradients' products (WMMA on weights staged from f32):
-// out[M, N] = A'[M, K] . W[N, K]^T; A' = LN(A) when ln_w != null.
-// With w_kn != 0, W is stored as [K, N] instead: out = A' . W.  With ln_out,
-// A' is also written as bf16 (M, K), by the blocks of the first column tile.
-// DropWhere 1: A (no LN) goes through the dropout `drop` of element (row, k) as
-// it is staged.
-constexpr int kBM = 64, kBN = 64, kBK = 32, kGemmThreads = 128;  // 4 warps, 32 x 32 each
-constexpr int kLdS = kBK + 8;   // bf16 staging row stride
-constexpr int kLdC = kBN + 4;   // f32 epilogue row stride
-
-template <int DropWhere>
-__global__ void __launch_bounds__(kGemmThreads)
-ln_gemm_kernel(const float* __restrict__ A, const float* __restrict__ ln_w,
-               const float* __restrict__ ln_b, const float* __restrict__ W,
-               float* __restrict__ out, __nv_bfloat16* __restrict__ ln_out, int M, int N, int K,
-               int w_kn, float eps,
-               philox::Drop drop) {
-  __shared__ __align__(32) __nv_bfloat16 As[kBM * kLdS];
-  __shared__ __align__(32) __nv_bfloat16 Ws[kBN * kLdS];
-  __shared__ __align__(32) float Cs[kBM * kLdC];
-  __shared__ float mu_s[kBM], rs_s[kBM];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const bool ln = ln_w != nullptr;
-
-  if (ln) {  // two-pass row statistics, one warp per row
-    for (int r = warp; r < kBM; r += kGemmThreads / 32) {
-      const int gr = m0 + r;
-      float mu = 0.f, rs = 0.f;
-      if (gr < M) {
-        const float* ar = A + (size_t)gr * K;
-        float s = 0.f;
-        for (int c = lane; c < K; c += 32) s += ar[c];
-        mu = warp_sum(s) / K;
-        float v = 0.f;
-        for (int c = lane; c < K; c += 32) {
-          float d = ar[c] - mu;
-          v += d * d;
-        }
-        rs = rsqrtf(warp_sum(v) / K + eps);
-      }
-      if (lane == 0) {
-        mu_s[r] = mu;
-        rs_s[r] = rs;
-      }
-    }
-    __syncthreads();
-  }
-
-  const int wr = warp >> 1, wc = warp & 1;  // this warp's 32 x 32 quadrant
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int i = tid; i < kBM * kBK; i += kGemmThreads) {
-      const int r = i / kBK, k = i % kBK;
-      const int gr = m0 + r;
-      float a = 0.f;
-      if (gr < M) {
-        a = A[(size_t)gr * K + k0 + k];
-        if (ln) a = (a - mu_s[r]) * rs_s[r] * ln_w[k0 + k] + ln_b[k0 + k];
-        if (DropWhere == 1) a = philox::apply(drop, (unsigned long long)gr * K + k0 + k, a);
-      }
-      const __nv_bfloat16 ab = __float2bfloat16(a);
-      As[r * kLdS + k] = ab;
-      if (ln_out != nullptr && blockIdx.x == 0 && gr < M) ln_out[(size_t)gr * K + k0 + k] = ab;
-    }
-    if (w_kn) {
-      for (int i = tid; i < kBN * kBK; i += kGemmThreads) {
-        const int k = i / kBN, n = i % kBN;
-        Ws[n * kLdS + k] = __float2bfloat16(W[(size_t)(k0 + k) * N + n0 + n]);
-      }
-    } else {
-      for (int i = tid; i < kBN * kBK; i += kGemmThreads) {
-        const int n = i / kBK, k = i % kBK;
-        Ws[n * kLdS + k] = __float2bfloat16(W[(size_t)(n0 + n) * K + k0 + k]);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * kLdS + kk, kLdS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Ws + (wc * 32 + j * 16) * kLdS + kk, kLdS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * kLdC + wc * 32 + j * 16, acc[i][j],
-                              kLdC, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < kBM * kBN; i += kGemmThreads) {
-    const int r = i / kBN, n = i % kBN;
-    const int gr = m0 + r;
-    if (gr < M) out[(size_t)gr * N + n0 + n] = Cs[r * kLdC + n];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -548,16 +440,6 @@ __global__ void ln_backward_kernel(const float* __restrict__ x, const float* __r
   const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
   for (int c = lane; c < C; c += 32)
     dx[(size_t)row * C + c] = rs * (dr[c] * ln_w[c] - m1 - (xr[c] - mu) * rs * m2);
-}
-
-template <int DropWhere = 0>
-cudaError_t gemm(const float* A, const float* ln_w, const float* ln_b, const float* W, float* out,
-                 int M, int N, int K, int w_kn, float eps, cudaStream_t stream,
-                 __nv_bfloat16* ln_out = nullptr, philox::Drop drop = philox::Drop{}) {
-  dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-  ln_gemm_kernel<DropWhere><<<grid, kGemmThreads, 0, stream>>>(A, ln_w, ln_b, W, out, ln_out, M,
-                                                               N, K, w_kn, eps, drop);
-  return cudaGetLastError();
 }
 
 cudaError_t ln_backward(const float* x, const float* ln_w, const float* dln, float* dx, int M,
@@ -831,68 +713,6 @@ cudaError_t forward_launches(const float* x, const float* ln_w, const float* ln_
 }
 
 // ---------------------------------------------------------------------------
-// The general layer's gradient cores, on cuboid_reorder's layout: cuboid c is
-// the rows c * vol + r.  Shared memory: k, v of the cuboid (vol, hc + 2) bf16
-// each, then f32 tiles of q_tile query rows.
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ void load_kv(const float* __restrict__ qkv, size_t row0, int vol,
-                                        int C, int hc, int h, __nv_bfloat16* k,
-                                        __nv_bfloat16* v, int ldkv) {
-  for (int i = threadIdx.x; i < vol * hc; i += kCoreThreads) {
-    const int r = i / hc, c = i % hc;
-    const float* row = qkv + (row0 + r) * 3 * C + h * hc + c;
-    k[r * ldkv + c] = __float2bfloat16(row[C]);
-    v[r * ldkv + c] = __float2bfloat16(row[2 * C]);
-  }
-}
-
-// s[r][j] = q[r] . k[j] + bh[q0 + r][j] for the nq rows of the tile, then the
-// softmax of each row in place (f32), one warp per row.  With stat, row r's
-// max and sum of exp go to stat[3 r] and stat[3 r + 1].
-__device__ __forceinline__ void tile_softmax(const float* q, int ldq, const __nv_bfloat16* k,
-                                             int ldkv, const float* __restrict__ bh, float* s,
-                                             int lds, int q0, int nq, int vol, int hc,
-                                             float* __restrict__ stat = nullptr) {
-  for (int i = threadIdx.x; i < nq * vol; i += kCoreThreads) {
-    const int r = i / vol, j = i % vol;
-    float acc = 0.f;
-    for (int c = 0; c < hc; ++c) acc += q[r * ldq + c] * __bfloat162float(k[j * ldkv + c]);
-    s[r * lds + j] = acc + bh[(size_t)(q0 + r) * vol + j];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < nq; r += kCoreThreads / 32) {
-    float* sr = s + r * lds;
-    float m = -INFINITY;
-    for (int j = lane; j < vol; j += 32) m = fmaxf(m, sr[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < vol; j += 32) {
-      sr[j] = expf(sr[j] - m);
-      sum += sr[j];
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < vol; j += 32) sr[j] /= sum;
-    if (stat != nullptr && lane == 0) {
-      stat[3 * r] = m;
-      stat[3 * r + 1] = sum;
-    }
-  }
-  __syncthreads();
-}
-
-// The query-tile gradient core's shared memory: k, v; the q and dO tiles, p and ds.
-size_t cuboid_core_smem(int vol, int hc, int q_tile) {
-  const size_t kv = 2 * sizeof(__nv_bfloat16) * (size_t)vol * (hc + 2);
-  return kv + sizeof(float) * (size_t)2 * q_tile * ((hc + 1) + (vol + 1));
-}
-
-// ---------------------------------------------------------------------------
 // The general layer's forward core on the tensor cores: mma.sync m16n8k16,
 // bf16 operands, f32 sums.  One block per (cuboid, head, 16 x warps query
 // rows); k and v of the whole cuboid and the block's q . scale rows come from
@@ -948,17 +768,18 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const __nv_bfloat16* r
                  : "r"(a));
 }
 
-// Rows r0 .. r0 + rows - 1 of one head's hc columns of the bf16 (tokens, 3C)
-// product (src at the head's first column of q, k or v) into dst (stride ld),
-// hcp columns a row; zeros at rows >= valid and columns >= hc.
+// Rows r0 .. r0 + rows - 1 of one head's hc columns of a bf16 matrix of row
+// stride `stride` (src at the head's first column: of q, k or v in the
+// (tokens, 3C) product, of dattn (tokens, C)) into dst (stride ld), hcp
+// columns a row; zeros at rows >= valid and columns >= hc.
 __device__ __forceinline__ void tc_load_rows(__nv_bfloat16* dst, int ld,
                                              const __nv_bfloat16* __restrict__ src, size_t r0,
-                                             int valid, int rows, int C, int hc, int hcp) {
+                                             int valid, int rows, int stride, int hc, int hcp) {
   const int chunks = hcp / 8;
   for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
     const int r = i / chunks, c = 8 * (i % chunks);
     __nv_bfloat16* d = dst + r * ld + c;
-    const __nv_bfloat16* s = src + (r0 + r) * 3 * C + c;
+    const __nv_bfloat16* s = src + (r0 + r) * stride + c;
     if (r < valid && c + 8 <= hc && hc % 8 == 0) {
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
                        static_cast<unsigned>(__cvta_generic_to_shared(d))),
@@ -971,13 +792,47 @@ __device__ __forceinline__ void tc_load_rows(__nv_bfloat16* dst, int ld,
   }
 }
 
-// s = q . k^T (+ bias) of the warp's 16 rows and keys k0 .. k0 + 63; keys
-// past vol -inf, rows past vol without bias.  The bias loads are issued
-// first, so they are in flight while the products run.
-__device__ __forceinline__ void tc_scores(float (&s)[8][4], const __nv_bfloat16* qw,
-                                          const __nv_bfloat16* ks, int ld, int hcp,
-                                          const float* __restrict__ bh, int row0, int k0,
-                                          int vol) {
+// acc = A . B^T over `depth` channels (a multiple of 16): A the warp's 16
+// rows, each 16-channel step's fragment from load_a(kc, a); B 64 rows of
+// shared memory at b (stride ldb) by ldmatrix; 16-row pairs of B at or past
+// nb are skipped (zeros there, and their sums are not read).
+template <typename LoadA>
+__device__ __forceinline__ void tc_nt(float (&acc)[8][4], LoadA load_a, const __nv_bfloat16* b,
+                                      int ldb, int depth, int nb) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const __nv_bfloat16* brow = b + ((lane & 7) + 8 * (lane >> 4)) * ldb + 8 * ((lane >> 3) & 1);
+  for (int kc = 0; kc < depth; kc += 16) {
+    unsigned a[4];
+    load_a(kc, a);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      if (8 * j >= nb) continue;
+      unsigned f[4];
+      ldsm_x4<false>(f, brow + 8 * j * ldb + kc);
+      mma_bf16_16816(acc[j], a, f[0], f[1]);
+      mma_bf16_16816(acc[j + 1], a, f[2], f[3]);
+    }
+  }
+}
+
+// The A fragments of 16 rows of shared memory at a (stride ld), for tc_nt:
+// matrices of rows 0-7 / 8-15 x channels kc, then kc + 8.
+__device__ __forceinline__ auto smem_rows(const __nv_bfloat16* a, int ld) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* row = a + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 8 * (lane >> 4);
+  return [row](int kc, unsigned (&f)[4]) { ldsm_x4<false>(f, row + kc); };
+}
+
+// s = q . k^T (+ bias) of the warp's 16 rows (their fragments from load_q)
+// and keys k0 .. k0 + 63 of ks; keys past vol -inf, rows past vol without
+// bias.  The bias loads are issued first, so they are in flight while the
+// products run.
+template <typename LoadA>
+__device__ __forceinline__ void tc_scores(float (&s)[8][4], LoadA load_q, const __nv_bfloat16* ks,
+                                          int ld, int hcp, const float* __restrict__ bh, int row0,
+                                          int k0, int vol) {
   const int lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
   float bv[8][4];
 #pragma unroll
@@ -988,24 +843,8 @@ __device__ __forceinline__ void tc_scores(float (&s)[8][4], const __nv_bfloat16*
       bv[j][e] = row < vol && key < vol ? __ldg(bh + (size_t)row * vol + key) : 0.f;
     }
   }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  // matrices of q: rows 0-7 / 8-15 x channels kc, then kc + 8; of k: keys
-  // 8 j .. 8 j + 7 x channels kc, kc + 8, then keys 8 j + 8 .. for j + 1
-  const __nv_bfloat16* qrow = qw + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 8 * (lane >> 4);
-  const __nv_bfloat16* krow = ks + (k0 + (lane & 7) + 8 * (lane >> 4)) * ld + 8 * ((lane >> 3) & 1);
-  for (int kc = 0; kc < hcp; kc += 16) {
-    unsigned a[4];
-    ldsm_x4<false>(a, qrow + kc);
-#pragma unroll
-    for (int j = 0; j < 8; j += 2) {
-      if (k0 + 8 * j >= vol) continue;   // keys to 8 j + 15 lie in the zero-padded vol16 rows
-      unsigned b[4];
-      ldsm_x4<false>(b, krow + 8 * j * ld + kc);
-      mma_bf16_16816(s[j], a, b[0], b[1]);
-      mma_bf16_16816(s[j + 1], a, b[2], b[3]);
-    }
-  }
+  // keys to 8 j + 15 past vol lie in the zero-padded vol16 rows: skipped
+  tc_nt(s, load_q, ks + k0 * ld, ld, hcp, vol - k0);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -1028,11 +867,12 @@ __device__ __forceinline__ void tc_softmax(unsigned (&pa)[4 * KT][4], const __nv
                                            const float* __restrict__ bh, int row0, int vol,
                                            unsigned long long e0, const philox::Drop& d) {
   const int lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
+  const auto load_q = smem_rows(qw, ld);
   float s[8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int kt = 0; kt < KT; ++kt) {
     if (kt * kTcKeys >= vol) continue;
-    tc_scores(s, qw, ks, ld, hcp, bh, row0, kt * kTcKeys, vol);
+    tc_scores(s, load_q, ks, ld, hcp, bh, row0, kt * kTcKeys, vol);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -1046,7 +886,7 @@ __device__ __forceinline__ void tc_softmax(unsigned (&pa)[4 * KT][4], const __nv
 #pragma unroll
   for (int kt = 0; kt < KT; ++kt) {
     if (kt * kTcKeys >= vol) continue;
-    if (KT > 1) tc_scores(s, qw, ks, ld, hcp, bh, row0, kt * kTcKeys, vol);
+    if (KT > 1) tc_scores(s, load_q, ks, ld, hcp, bh, row0, kt * kTcKeys, vol);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -1065,7 +905,7 @@ __device__ __forceinline__ void tc_softmax(unsigned (&pa)[4 * KT][4], const __nv
 #pragma unroll
   for (int kt = 0; kt < KT; ++kt) {
     if (kt * kTcKeys >= vol) continue;
-    if (KT > 1) tc_scores(s, qw, ks, ld, hcp, bh, row0, kt * kTcKeys, vol);
+    if (KT > 1) tc_scores(s, load_q, ks, ld, hcp, bh, row0, kt * kTcKeys, vol);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -1103,10 +943,10 @@ cuboid_tc_core_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __rest
   const size_t tok0 = (size_t)cub * vol;
   const __nv_bfloat16* head = qkv + (size_t)h * hc;
   // k and q, then v, in two groups: v arrives while the scores are computed
-  tc_load_rows(ks, ld, head + C, tok0, vol, vol16, C, hc, hcp);
-  tc_load_rows(qs, ld, head, tok0 + q0, vol - q0, rows, C, hc, hcp);
+  tc_load_rows(ks, ld, head + C, tok0, vol, vol16, 3 * C, hc, hcp);
+  tc_load_rows(qs, ld, head, tok0 + q0, vol - q0, rows, 3 * C, hc, hcp);
   asm volatile("cp.async.commit_group;" ::: "memory");
-  tc_load_rows(vs, ld, head + 2 * C, tok0, vol, vol16, C, hc, hcp);
+  tc_load_rows(vs, ld, head + 2 * C, tok0, vol, vol16, 3 * C, hc, hcp);
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;" ::: "memory");
   __syncthreads();
   const int row0 = q0 + warp * 16;   // the warp's first query row
@@ -1195,183 +1035,545 @@ ln_bf16_rows_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// The gradient core, split in two launches so that no block walks a whole
-// cuboid's gradient alone.  First, one block per (cuboid, head, query tile):
-// p of the tile's rows again, dp = dO . v^T (through the dropout), per row
-// D = rowsum(dp . p), ds = p (dp - D), dq = ds . k . scale into dqkv, and per
-// (cuboid, head, row) the softmax's max, its sum of exp and D into stats.
-// Full: also the forward's head outputs (p through the dropout) . v into
-// attn (bf16), which dWproj needs.
-template <bool Full, bool Drop>
-__global__ void __launch_bounds__(kCoreThreads)
-cuboid_core_bwd_q_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
-                         const float* __restrict__ bias, float* __restrict__ dqkv,
-                         __nv_bfloat16* __restrict__ attn, float* __restrict__ stats, int vol,
-                         int C, int heads, int q_tile, float scale, philox::Drop drop) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int hc = C / heads, ldkv = hc + 2, ldq = hc + 1, lds = vol + 1;
-  __nv_bfloat16* k = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v = k + vol * ldkv;
-  float* q = reinterpret_cast<float*>(v + vol * ldkv);  // bf16(q . scale)
-  float* dO = q + q_tile * ldq;                          // bf16(dattn)
-  float* p = dO + q_tile * ldq;                          // [q_tile][vol] softmax, then bf16(p drop)
-  float* ds = p + q_tile * lds;                          // [q_tile][vol] dp, then bf16(ds)
-  const int h = blockIdx.y, q0 = blockIdx.z * q_tile, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int nq = min(q_tile, vol - q0);
-  const size_t row0 = (size_t)blockIdx.x * vol;
-  const size_t srow = ((size_t)blockIdx.x * heads + h) * vol + q0;  // this tile's first stats row
-  const unsigned long long e0 = (unsigned long long)srow * vol;     // its first mask element
-  load_kv(qkv, row0, vol, C, hc, h, k, v, ldkv);
-  for (int i = tid; i < nq * hc; i += kCoreThreads) {
-    const int r = i / hc, c = i % hc;
-    const size_t tok = row0 + q0 + r;
-    q[r * ldq + c] = bf16_round(qkv[tok * 3 * C + h * hc + c] * scale);
-    dO[r * ldq + c] = bf16_round(dattn[tok * C + h * hc + c]);
-  }
-  __syncthreads();
-  tile_softmax(q, ldq, k, ldkv, bias + (size_t)h * vol * vol, p, lds, q0, nq, vol, hc,
-               stats + 3 * srow);
-  for (int i = tid; i < nq * vol; i += kCoreThreads) {  // dp = dO . v^T
-    const int r = i / vol, j = i % vol;
-    float acc = 0.f;
-    for (int c = 0; c < hc; ++c) acc += dO[r * ldq + c] * __bfloat162float(v[j * ldkv + c]);
-    ds[r * lds + j] = Drop ? philox::apply(drop, e0 + i, acc) : acc;
-  }
-  __syncthreads();
-  for (int r = warp; r < nq; r += kCoreThreads / 32) {  // ds = p (dp - D)
-    float dot = 0.f;
-    for (int j = lane; j < vol; j += 32) dot += ds[r * lds + j] * p[r * lds + j];
-    dot = warp_sum(dot);
-    if (lane == 0) stats[3 * (srow + r) + 2] = dot;
-    for (int j = lane; j < vol; j += 32) {
-      const float pj = p[r * lds + j];
-      ds[r * lds + j] = bf16_round(pj * (ds[r * lds + j] - dot));
-      p[r * lds + j] = bf16_round(Drop ? philox::apply(drop, e0 + r * vol + j, pj) : pj);
+// ---------------------------------------------------------------------------
+// The general layer's gradient core on the tensor cores, on cuboid_reorder's
+// layout (cuboid c is the rows c * vol + r of the bf16 q . scale | k | v
+// (tokens, 3C) and dattn (tokens, C)).  A warp's tile is 16 rows x 64
+// columns in the accumulator layout of m16n8k16: rows g and g + 8, columns
+// 8 j + 2 c4 (+1).
+
+// o (+)= A . B for columns c0 .. c0 + 63: A the warp's 16 rows as KS k-step
+// fragments pa (16 keys each), B the 16 KS rows at b (stride ldb, the k
+// dimension along its rows) by ldmatrix.trans; k-steps at or past nk and
+// columns at or past ncols (a multiple of 16) are skipped.
+template <int KS>
+__device__ __forceinline__ void tc_nn(float (&o)[8][4], const unsigned (&pa)[KS][4],
+                                      const __nv_bfloat16* b, int ldb, int c0, int nk, int ncols) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* brow = b + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ldb + c0 + 8 * (lane >> 4);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    if (16 * kk >= nk) continue;
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      if (c0 + 8 * j >= ncols) continue;
+      unsigned f[4];
+      ldsm_x4<true>(f, brow + 16 * kk * ldb + 8 * j);
+      mma_bf16_16816(o[j], pa[kk], f[0], f[1]);
+      mma_bf16_16816(o[j + 1], pa[kk], f[2], f[3]);
     }
-  }
-  __syncthreads();
-  for (int i = tid; i < nq * hc; i += kCoreThreads) {  // dq and the head output of the tile's rows
-    const int r = i / hc, c = i % hc;
-    float aq = 0.f, ao = 0.f;
-    for (int j = 0; j < vol; ++j) {
-      aq += ds[r * lds + j] * __bfloat162float(k[j * ldkv + c]);
-      if (Full) ao += p[r * lds + j] * __bfloat162float(v[j * ldkv + c]);
-    }
-    const size_t tok = row0 + q0 + r;
-    dqkv[tok * 3 * C + h * hc + c] = aq * scale;
-    if (Full) attn[tok * C + h * hc + c] = __float2bfloat16(ao);
   }
 }
 
-// Second, one block per (group of cuboids_per_block cuboids, head, key tile of
-// `tile` rows): it walks the query tiles of each of its cuboids, recomputes p
-// from stats and dp, and adds into shared memory the tile's dk = ds^T . q and
-// dv = (p through the dropout)^T . dO, which it writes once per cuboid, and
-// (Full) ds into the group's relative-bias partial dbias_part[group, h, :,
-// key tile] (every element always by the same thread: no race, no atomics).
-// q, dO, k and v are staged as the bf16 operands they are.
-size_t cuboid_kv_smem(int vol, int hc, int tile) {
-  return sizeof(__nv_bfloat16) * 4 * (size_t)tile * (hc + 2) +
-         sizeof(float) * ((size_t)2 * tile * (hc + 1) + (size_t)2 * tile * (tile + 1) + 3 * tile +
-                          (size_t)vol * tile);
+__device__ __forceinline__ void tc_zero(float (&o)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
 }
 
+// The A fragment of rows r0 .. r0 + 15 and channels kc .. kc + 15 of a bf16
+// matrix in device memory (row stride ld, from its row 0 at the head's first
+// channel); zeros at rows >= nrows and channels >= hc.
+__device__ __forceinline__ void frag_a_global(unsigned (&a)[4], const __nv_bfloat16* __restrict__ m,
+                                              size_t ld, int r0, int nrows, int kc, int hc) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + g + 8 * (i & 1), col = kc + 2 * c4 + 8 * (i >> 1);
+    __nv_bfloat162 pr;
+    pr.x = row < nrows && col < hc ? m[(size_t)row * ld + col] : zero;
+    pr.y = row < nrows && col + 1 < hc ? m[(size_t)row * ld + col + 1] : zero;
+    a[i] = *reinterpret_cast<const unsigned*>(&pr);
+  }
+}
+
+// Rows g and g + 8 of the tile summed (max) over the quad that shares them.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// The dropout of element (e0 + row) * vol + key on a and b at once: v / keep
+// where kept, else 0; rows or keys past vol untouched.  Rows row0 + g (+8),
+// keys k0 + 8 j + 2 c4 (+1).  Where vol % 4 == 0 a lane pair's four keys are
+// one Philox block in each of its two rows, so each lane draws one block and
+// hands its partner half (philox::draw_rows2; the whole warp calls); else
+// one block per key pair (or a draw per key at an odd element), as
+// tc_softmax draws them.  The same masks either way.
+__device__ __forceinline__ void tc_drop(const philox::Drop& d, unsigned long long e0, int row0,
+                                        int k0, int vol, float (&a)[8][4], float (&b)[8][4]) {
+  if (d.thr == 0u) return;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
+  if (vol % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int key = k0 + 8 * j + 2 * c4;
+      unsigned w[2][2];
+      philox::draw_rows2(d, (e0 + row0 + g) * vol + key, (e0 + row0 + g + 8) * vol + key, w[0],
+                         w[1]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (row0 + g + 8 * r >= vol || key >= vol) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool kept = w[r][h] >= d.thr;
+          a[j][2 * r + h] = kept ? a[j][2 * r + h] / d.keep : 0.f;
+          b[j][2 * r + h] = kept ? b[j][2 * r + h] / d.keep : 0.f;
+        }
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r, key = k0 + 8 * j + 2 * c4;
+      if (row >= vol || key >= vol) continue;
+      const unsigned long long e = (e0 + row) * vol + key;
+      unsigned u0, u1 = 0u;
+      if ((e & 1ull) == 0ull) {
+        const uint4 w = philox::block(d, e);
+        const bool hi = (e & 2ull) != 0ull;
+        u0 = hi ? w.z : w.x;
+        u1 = hi ? w.w : w.y;
+      } else {
+        u0 = philox::draw(d, e);
+        if (key + 1 < vol) u1 = philox::draw(d, e + 1);
+      }
+      a[j][2 * r] = u0 >= d.thr ? a[j][2 * r] / d.keep : 0.f;
+      b[j][2 * r] = u0 >= d.thr ? b[j][2 * r] / d.keep : 0.f;
+      if (key + 1 < vol) {
+        a[j][2 * r + 1] = u1 >= d.thr ? a[j][2 * r + 1] / d.keep : 0.f;
+        b[j][2 * r + 1] = u1 >= d.thr ? b[j][2 * r + 1] / d.keep : 0.f;
+      }
+    }
+  }
+}
+
+// The same on a transposed tile: rows are keys key0 + g (+8), columns are
+// queries q0 + 8 j + 2 c4 (+1), element (e0 + query) * vol + key.
+__device__ __forceinline__ void tc_drop_t(const philox::Drop& d, unsigned long long e0, int key0,
+                                          int q0, int vol, float (&a)[8][4], float (&b)[8][4]) {
+  if (d.thr == 0u) return;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + g + 8 * (e >> 1), q = q0 + 8 * j + 2 * c4 + (e & 1);
+      if (key >= vol || q >= vol) continue;
+      const bool kept = philox::draw(d, (e0 + q) * vol + key) >= d.thr;
+      a[j][e] = kept ? a[j][e] / d.keep : 0.f;
+      b[j][e] = kept ? b[j][e] / d.keep : 0.f;
+    }
+  }
+}
+
+// The tile as the A fragments of its four 16-key k-steps, rounded to bf16.
+__device__ __forceinline__ void tc_pack(unsigned (&pa)[4][4], const float (&s)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) pa[j / 2][2 * (j & 1) + r] = pack_bf16(s[j][2 * r], s[j][2 * r + 1]);
+}
+
+// o . mul into bf16 dst (row stride ld, from the cuboid's row 0 at the
+// head's first channel): rows r0 + g (+8) below nrows, channels c0 + 8 j +
+// 2 c4 (+1) below hc.
+__device__ __forceinline__ void tc_store(__nv_bfloat16* __restrict__ dst, size_t ld,
+                                         const float (&o)[8][4], int r0, int nrows, int c0, int hc,
+                                         float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = c0 + 8 * j + 2 * c4;
+    if (c >= hc) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + g + 8 * r;
+      if (row >= nrows) continue;
+      __nv_bfloat16* p = dst + (size_t)row * ld + c;
+      if (hc % 2 == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(p) =
+            __floats2bfloat162_rn(o[j][2 * r] * mul, o[j][2 * r + 1] * mul);
+      } else {
+        p[0] = __float2bfloat16(o[j][2 * r] * mul);
+        if (c + 1 < hc) p[1] = __float2bfloat16(o[j][2 * r + 1] * mul);
+      }
+    }
+  }
+}
+
+// The f32 ds of the tile added into the relative-bias partial dst (vol,
+// vol) of its (block or cuboid, head): stored where `first`, else added to
+// (each element always by the same thread: no race, a fixed order).
+__device__ __forceinline__ void tc_bias_grad(float* __restrict__ dst, const float (&ds)[8][4],
+                                             int row0, int k0, int vol, bool first) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + g + 8 * (e >> 1), key = k0 + 8 * j + 2 * c4 + (e & 1);
+      if (row >= vol || key >= vol) continue;
+      float* p = dst + (size_t)row * vol + key;
+      *p = first ? ds[j][e] : *p + ds[j][e];
+    }
+  }
+}
+
+// One block per (per_block cuboids, head) of vol <= 64 rows, vol16 / 16
+// warps.  Shared memory, bf16 rows of hcp channels at a stride of hcp + 8:
+// k, q . scale, v, dO of the whole cuboid, then ds and the dropped p
+// (vol16, vol16 + 8).  Warp w: query rows 16 w .. 16 w + 15 for s, p, dp,
+// D, ds, dq and (Full) the head outputs (p through the dropout) . v; then
+// keys 16 w .. for dk = ds^T . q and dv = p_d^T . dO.  Full: the block's f32
+// ds summed over its cuboids into dbias_part[blockIdx.x, h].
 template <bool Full, bool Drop>
-__global__ void __launch_bounds__(kCoreThreads)
-cuboid_core_bwd_kv_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
-                          const float* __restrict__ bias, const float* __restrict__ stats,
-                          float* __restrict__ dqkv, float* __restrict__ dbias_part, int n_cuboids,
-                          int vol, int C, int heads, int tile, int cuboids_per_block, float scale,
-                          philox::Drop drop) {
+__global__ void __launch_bounds__(128)
+cuboid_bwd_core_kernel(const __nv_bfloat16* __restrict__ qkv,
+                       const __nv_bfloat16* __restrict__ dattn, const float* __restrict__ bias,
+                       __nv_bfloat16* __restrict__ dqkv, __nv_bfloat16* __restrict__ attn,
+                       float* __restrict__ dbias_part, int n_cuboids, int vol, int C, int heads,
+                       int hcp, int per_block, float scale, philox::Drop d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int hc = C / heads, ldb = hc + 2, ldf = hc + 1, ldt = tile + 1;
-  __nv_bfloat16* kb = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [tile][ldb] k
-  __nv_bfloat16* vb = kb + tile * ldb;                               // v
-  __nv_bfloat16* qb = vb + tile * ldb;                               // q . scale
-  __nv_bfloat16* ob = qb + tile * ldb;                               // dO
-  float* dk = reinterpret_cast<float*>(ob + tile * ldb);             // [tile][ldf]
-  float* dv = dk + tile * ldf;
-  float* pt = dv + tile * ldf;    // [tile][ldt] bf16(p through the dropout)
-  float* dst = pt + tile * ldt;   // [tile][ldt] bf16(ds)
-  float* st = dst + tile * ldt;   // [tile][3] max, sum, D of the query tile's rows
-  float* dbacc = st + 3 * tile;   // [vol][tile] the group's sum of the f32 ds
-  const int h = blockIdx.y, k0 = blockIdx.z * tile, tid = threadIdx.x;
-  const int nk = min(tile, vol - k0);
+  const int hc = C / heads, ld = hcp + 8, vol16 = (vol + 15) & ~15, ldp = vol16 + 8;
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* qs = ks + vol16 * ld;
+  __nv_bfloat16* vs = qs + vol16 * ld;
+  __nv_bfloat16* os = vs + vol16 * ld;    // dO
+  __nv_bfloat16* dss = os + vol16 * ld;   // [vol16][ldp] bf16(ds)
+  __nv_bfloat16* pds = dss + vol16 * ldp; // [vol16][ldp] bf16(p through the dropout)
+  const int h = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c4 = lane & 3, r0 = 16 * warp;
   const float* bh = bias + (size_t)h * vol * vol;
-  if (Full)
-    for (int i = tid; i < vol * tile; i += kCoreThreads) dbacc[i] = 0.f;
-
-  for (int ci = 0; ci < cuboids_per_block; ++ci) {
-    const int cub = blockIdx.x * cuboids_per_block + ci;
+  const size_t ld3 = 3 * (size_t)C;
+  for (int ci = 0; ci < per_block; ++ci) {
+    const int cub = blockIdx.x * per_block + ci;
     if (cub >= n_cuboids) break;
-    const size_t row0 = (size_t)cub * vol;
-    const size_t srow = ((size_t)cub * heads + h) * vol;
-    __syncthreads();  // the previous cuboid's tiles are read no more
-    for (int i = tid; i < nk * hc; i += kCoreThreads) {
-      const int j = i / hc, c = i % hc;
-      const float* row = qkv + (row0 + k0 + j) * 3 * C + h * hc + c;
-      kb[j * ldb + c] = __float2bfloat16(row[C]);
-      vb[j * ldb + c] = __float2bfloat16(row[2 * C]);
-      dk[j * ldf + c] = 0.f;
-      dv[j * ldf + c] = 0.f;
+    const size_t tok0 = (size_t)cub * vol;
+    __syncthreads();   // the previous cuboid's tiles are read no more
+    // k and q, then v and dO, in two groups: v and dO arrive during the scores
+    tc_load_rows(ks, ld, qkv + h * hc + C, tok0, vol, vol16, 3 * C, hc, hcp);
+    tc_load_rows(qs, ld, qkv + h * hc, tok0, vol, vol16, 3 * C, hc, hcp);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    tc_load_rows(vs, ld, qkv + h * hc + 2 * C, tok0, vol, vol16, 3 * C, hc, hcp);
+    tc_load_rows(os, ld, dattn + h * hc, tok0, vol, vol16, C, hc, hcp);
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;" ::: "memory");
+    __syncthreads();
+    float p[8][4], m[2], l[2] = {0.f, 0.f};
+    tc_scores(p, smem_rows(qs + r0 * ld, ld), ks, ld, hcp, bh, r0, 0, vol);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) m[r] = fmaxf(m[r], fmaxf(p[j][2 * r], p[j][2 * r + 1]));
+      m[r] = quad_max(m[r]);
     }
-    for (int q0 = 0; q0 < vol; q0 += tile) {
-      const int nq = min(tile, vol - q0);
-      __syncthreads();  // the previous query tile's values are read no more
-      for (int i = tid; i < nq * hc; i += kCoreThreads) {
-        const int r = i / hc, c = i % hc;
-        const size_t tok = row0 + q0 + r;
-        qb[r * ldb + c] = __float2bfloat16(qkv[tok * 3 * C + h * hc + c] * scale);
-        ob[r * ldb + c] = __float2bfloat16(dattn[tok * C + h * hc + c]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[j][e] = expf(p[j][e] - m[e >> 1]);
+        l[e >> 1] += p[j][e];
       }
-      for (int i = tid; i < 3 * nq; i += kCoreThreads) st[i] = stats[3 * (srow + q0) + i];
-      __syncthreads();
-      for (int i = tid; i < nq * nk; i += kCoreThreads) {
-        const int r = i / nk, j = i % nk;
-        float s = 0.f, dp = 0.f;
-        for (int c = 0; c < hc; ++c) {
-          s += __bfloat162float(qb[r * ldb + c]) * __bfloat162float(kb[j * ldb + c]);
-          dp += __bfloat162float(ob[r * ldb + c]) * __bfloat162float(vb[j * ldb + c]);
-        }
-        s += bh[(size_t)(q0 + r) * vol + k0 + j];
-        const float p = expf(s - st[3 * r]) / st[3 * r + 1];
-        float pd = p;
-        if (Drop) {
-          const unsigned long long e = (srow + q0 + r) * vol + k0 + j;
-          dp = philox::apply(drop, e, dp);
-          pd = philox::apply(drop, e, p);
-        }
-        const float d = p * (dp - st[3 * r + 2]);
-        if (Full) dbacc[(q0 + r) * tile + j] += d;
-        pt[r * ldt + j] = bf16_round(pd);
-        dst[r * ldt + j] = bf16_round(d);
-      }
-      __syncthreads();
-      for (int i = tid; i < nk * hc; i += kCoreThreads) {
-        const int j = i / hc, c = i % hc;
-        float ak = 0.f, av = 0.f;
-        for (int r = 0; r < nq; ++r) {
-          ak += dst[r * ldt + j] * __bfloat162float(qb[r * ldb + c]);
-          av += pt[r * ldt + j] * __bfloat162float(ob[r * ldb + c]);
-        }
-        dk[j * ldf + c] += ak;
-        dv[j * ldf + c] += av;
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[j][e] /= l[e >> 1];
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    // dp = dO . v^T (through the dropout); D; ds = p (dp - D) in place of dp
+    float dp[8][4], pd[8][4];
+    tc_nt(dp, smem_rows(os + r0 * ld, ld), vs, ld, hcp, vol);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pd[j][e] = p[j][e];
+    if (Drop) tc_drop(d, ((unsigned long long)cub * heads + h) * vol, r0, 0, vol, dp, pd);
+    float D[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) D[e >> 1] += dp[j][e] * p[j][e];
+    D[0] = quad_sum(D[0]);
+    D[1] = quad_sum(D[1]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = p[j][e] * (dp[j][e] - D[e >> 1]);
+    if (Full)
+      tc_bias_grad(dbias_part + ((size_t)blockIdx.x * heads + h) * vol * vol, dp, r0, 0, vol,
+                   ci == 0);
+    unsigned dsa[4][4], pda[4][4];
+    tc_pack(dsa, dp);
+    tc_pack(pda, pd);
+    // dq = ds . k . scale and (Full) the head outputs p_d . v, 64 channels at a time
+    for (int c0 = 0; c0 < hcp; c0 += 64) {
+      float o[8][4];
+      tc_zero(o);
+      tc_nn<4>(o, dsa, ks, ld, c0, vol, hcp);
+      tc_store(dqkv + tok0 * ld3 + h * hc, ld3, o, r0, vol, c0, hc, scale);
+      if (Full) {
+        tc_zero(o);
+        tc_nn<4>(o, pda, vs, ld, c0, vol, hcp);
+        tc_store(attn + tok0 * C + h * hc, C, o, r0, vol, c0, hc, 1.f);
       }
     }
-    for (int i = tid; i < nk * hc; i += kCoreThreads) {  // each element by the thread that summed it
-      const int j = i / hc, c = i % hc;
-      float* out = dqkv + (row0 + k0 + j) * 3 * C + h * hc + c;
-      out[C] = dk[j * ldf + c];
-      out[2 * C] = dv[j * ldf + c];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (8 * j >= vol16) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int at = (r0 + g + 8 * r) * ldp + 8 * j + 2 * c4;
+        *reinterpret_cast<unsigned*>(dss + at) = pack_bf16(dp[j][2 * r], dp[j][2 * r + 1]);
+        *reinterpret_cast<unsigned*>(pds + at) = pack_bf16(pd[j][2 * r], pd[j][2 * r + 1]);
+      }
+    }
+    __syncthreads();
+    // dk = ds^T . q and dv = p_d^T . dO for keys r0 .. r0 + 15: ds^T's and
+    // p_d^T's fragments by ldmatrix.trans of the stored tiles
+    unsigned dst[4][4], pdt[4][4];
+    const int tr = ((lane & 7) + 8 * (lane >> 4)) * ldp + r0 + 8 * ((lane >> 3) & 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (16 * kk >= vol16) continue;
+      ldsm_x4<true>(dst[kk], dss + tr + 16 * kk * ldp);
+      ldsm_x4<true>(pdt[kk], pds + tr + 16 * kk * ldp);
+    }
+    for (int c0 = 0; c0 < hcp; c0 += 64) {
+      float dk[8][4], dv[8][4];
+      tc_zero(dk);
+      tc_zero(dv);
+      tc_nn<4>(dk, dst, qs, ld, c0, vol, hcp);
+      tc_nn<4>(dv, pdt, os, ld, c0, vol, hcp);
+      tc_store(dqkv + tok0 * ld3 + C + h * hc, ld3, dk, r0, vol, c0, hc, 1.f);
+      tc_store(dqkv + tok0 * ld3 + 2 * C + h * hc, ld3, dv, r0, vol, c0, hc, 1.f);
     }
   }
-  if (!Full) return;
+}
+
+// The split for larger cuboids, first the query rows: one block per
+// (cuboid, head, 16 x warps query rows), k and v of the whole cuboid in
+// shared memory, q . scale and dO fragments from device memory.  Over KT
+// 64-key tiles a warp takes its rows' max, sum and D (recomputing the
+// scores in each pass), then ds tile by tile (Full: the f32 ds into the
+// cuboid's relative-bias partial) as fragments for dq = ds . k . scale;
+// Full: again p through the dropout for the head outputs.  stats (cuboids,
+// heads, vol, 3): each row's max, sum and D for the key-row launch.
+template <int KT, bool Full, bool Drop>
+__global__ void __launch_bounds__(128)
+cuboid_bwd_q_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dattn,
+                    const float* __restrict__ bias, __nv_bfloat16* __restrict__ dqkv,
+                    __nv_bfloat16* __restrict__ attn, float* __restrict__ stats,
+                    float* __restrict__ dbias_part, int vol, int C, int heads, int hcp, float scale,
+                    philox::Drop d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hc = C / heads, ld = hcp + 8, vol16 = (vol + 15) & ~15;
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + vol16 * ld;
+  const int cub = blockIdx.x, h = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.z * (blockDim.x / 2) + 16 * warp;
+  const size_t tok0 = (size_t)cub * vol, ld3 = 3 * (size_t)C;
+  tc_load_rows(ks, ld, qkv + h * hc + C, tok0, vol, vol16, 3 * C, hc, hcp);
+  tc_load_rows(vs, ld, qkv + h * hc + 2 * C, tok0, vol, vol16, 3 * C, hc, hcp);
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
   __syncthreads();
-  float* dst_part = dbias_part + ((size_t)blockIdx.x * heads + h) * vol * vol + k0;
-  for (int i = tid; i < vol * nk; i += kCoreThreads) {
-    const int r = i / nk, j = i % nk;
-    dst_part[(size_t)r * vol + j] = dbacc[r * tile + j];
+  if (row0 >= vol) return;
+  const float* bh = bias + (size_t)h * vol * vol;
+  const __nv_bfloat16* qg = qkv + tok0 * ld3 + h * hc;
+  const __nv_bfloat16* og = dattn + tok0 * C + h * hc;
+  const unsigned long long e0 = ((unsigned long long)cub * heads + h) * vol;
+  const auto load_q = [&](int kc, unsigned (&f)[4]) { frag_a_global(f, qg, ld3, row0, vol, kc, hc); };
+  const auto load_o = [&](int kc, unsigned (&f)[4]) { frag_a_global(f, og, C, row0, vol, kc, hc); };
+  float s[8][4], dp[8][4], pd[8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float D[2] = {0.f, 0.f};
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {   // the rows' max
+    if (kt * kTcKeys >= vol) continue;
+    tc_scores(s, load_q, ks, ld, hcp, bh, row0, kt * kTcKeys, vol);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) m[r] = fmaxf(m[r], fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+  }
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+  // p of tile kt into s (and, Drop, through the dropout into pd with dp)
+  const auto probs = [&](int kt) {
+    tc_scores(s, load_q, ks, ld, hcp, bh, row0, kt * kTcKeys, vol);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - m[e >> 1]) / l[e >> 1];
+  };
+  const auto dprobs = [&](int kt) {
+    tc_nt(dp, load_o, vs + kt * kTcKeys * ld, ld, hcp, vol - kt * kTcKeys);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pd[j][e] = s[j][e];
+    if (Drop) tc_drop(d, e0, row0, kt * kTcKeys, vol, dp, pd);
+  };
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {   // the rows' sum of exp(s - max)
+    if (kt * kTcKeys >= vol) continue;
+    tc_scores(s, load_q, ks, ld, hcp, bh, row0, kt * kTcKeys, vol);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l[e >> 1] += expf(s[j][e] - m[e >> 1]);
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {   // D = rowsum(dp . p)
+    if (kt * kTcKeys >= vol) continue;
+    probs(kt);
+    dprobs(kt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) D[e >> 1] += dp[j][e] * s[j][e];
+  }
+  D[0] = quad_sum(D[0]);
+  D[1] = quad_sum(D[1]);
+  unsigned fa[4 * KT][4];
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {   // ds, as the fragments of dq's product
+    if (kt * kTcKeys >= vol) continue;
+    probs(kt);
+    dprobs(kt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] * (dp[j][e] - D[e >> 1]);
+    if (Full)
+      tc_bias_grad(dbias_part + ((size_t)cub * heads + h) * vol * vol, dp, row0, kt * kTcKeys,
+                   vol, true);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        fa[4 * kt + j / 2][2 * (j & 1) + r] = pack_bf16(dp[j][2 * r], dp[j][2 * r + 1]);
+  }
+  for (int c0 = 0; c0 < hcp; c0 += 64) {
+    float o[8][4];
+    tc_zero(o);
+    tc_nn<4 * KT>(o, fa, ks, ld, c0, vol, hcp);
+    tc_store(dqkv + tok0 * ld3 + h * hc, ld3, o, row0, vol, c0, hc, scale);
+  }
+  if (Full) {   // the head outputs: p through the dropout, as fragments of p_d . v
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      if (kt * kTcKeys >= vol) continue;
+      probs(kt);
+      dprobs(kt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          fa[4 * kt + j / 2][2 * (j & 1) + r] = pack_bf16(pd[j][2 * r], pd[j][2 * r + 1]);
+    }
+    for (int c0 = 0; c0 < hcp; c0 += 64) {
+      float o[8][4];
+      tc_zero(o);
+      tc_nn<4 * KT>(o, fa, vs, ld, c0, vol, hcp);
+      tc_store(attn + tok0 * C + h * hc, C, o, row0, vol, c0, hc, 1.f);
+    }
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + (lane >> 2) + 8 * r;
+      if (row >= vol) continue;
+      float* st = stats + (((size_t)cub * heads + h) * vol + row) * 3;
+      st[0] = m[r];
+      st[1] = l[r];
+      st[2] = D[r];
+    }
+  }
+}
+
+// Then the key rows: one block per (cuboid, head, 16 x warps keys), q . scale
+// and dO of the whole cuboid and the rows' statistics in shared memory, k
+// and v fragments from device memory.  A warp recomputes, 64 queries at a
+// time, s^T = k . q^T and dp^T = v . dO^T for its 16 keys, p^T from the
+// statistics, the dropout, ds^T = p^T (dp^T - D), and adds dk = ds^T . q and
+// dv = p_d^T . dO in registers, 64 channels at a time.
+template <bool Drop>
+__global__ void __launch_bounds__(128)
+cuboid_bwd_kv_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dattn,
+                     const float* __restrict__ bias, const float* __restrict__ stats,
+                     __nv_bfloat16* __restrict__ dqkv, int vol, int C, int heads, int hcp,
+                     philox::Drop d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hc = C / heads, ld = hcp + 8, vol16 = (vol + 15) & ~15;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* os = qs + vol16 * ld;
+  float* st = reinterpret_cast<float*>(os + vol16 * ld);   // [vol][3]: max, sum, D
+  const int cub = blockIdx.x, h = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c4 = lane & 3;
+  const int key0 = blockIdx.z * (blockDim.x / 2) + 16 * warp;
+  const size_t tok0 = (size_t)cub * vol, ld3 = 3 * (size_t)C;
+  tc_load_rows(qs, ld, qkv + h * hc, tok0, vol, vol16, 3 * C, hc, hcp);
+  tc_load_rows(os, ld, dattn + h * hc, tok0, vol, vol16, C, hc, hcp);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  const float* sg = stats + ((size_t)cub * heads + h) * vol * 3;
+  for (int i = threadIdx.x; i < 3 * vol; i += blockDim.x) st[i] = sg[i];
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+  if (key0 >= vol) return;
+  const float* bh = bias + (size_t)h * vol * vol;
+  const __nv_bfloat16* kg = qkv + tok0 * ld3 + C + h * hc;
+  const unsigned long long e0 = ((unsigned long long)cub * heads + h) * vol;
+  const auto load_k = [&](int kc, unsigned (&f)[4]) { frag_a_global(f, kg, ld3, key0, vol, kc, hc); };
+  const auto load_v = [&](int kc, unsigned (&f)[4]) {
+    frag_a_global(f, kg + C, ld3, key0, vol, kc, hc);
+  };
+  for (int c0 = 0; c0 < hcp; c0 += 64) {
+    float dk[8][4], dv[8][4];
+    tc_zero(dk);
+    tc_zero(dv);
+    for (int q0 = 0; q0 < vol; q0 += kTcKeys) {
+      float p[8][4], dp[8][4], pd[8][4];
+      tc_nt(p, load_k, qs + q0 * ld, ld, hcp, vol - q0);
+      tc_nt(dp, load_v, os + q0 * ld, ld, hcp, vol - q0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + g + 8 * (e >> 1), q = q0 + 8 * j + 2 * c4 + (e & 1);
+          const bool in = key < vol && q < vol;
+          p[j][e] = in ? expf(p[j][e] + __ldg(bh + (size_t)q * vol + key) - st[3 * q]) /
+                             st[3 * q + 1]
+                       : 0.f;
+          pd[j][e] = p[j][e];
+        }
+      if (Drop) tc_drop_t(d, e0, key0, q0, vol, dp, pd);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = q0 + 8 * j + 2 * c4 + (e & 1);
+          dp[j][e] = q < vol ? p[j][e] * (dp[j][e] - st[3 * q + 2]) : 0.f;
+        }
+      unsigned dsa[4][4], pda[4][4];
+      tc_pack(dsa, dp);
+      tc_pack(pda, pd);
+      tc_nn<4>(dk, dsa, qs + q0 * ld, ld, c0, vol - q0, hcp);
+      tc_nn<4>(dv, pda, os + q0 * ld, ld, c0, vol - q0, hcp);
+    }
+    tc_store(dqkv + tok0 * ld3 + C + h * hc, ld3, dk, key0, vol, c0, hc, 1.f);
+    tc_store(dqkv + tok0 * ld3 + 2 * C + h * hc, ld3, dv, key0, vol, c0, hc, 1.f);
   }
 }
 
@@ -1654,90 +1856,82 @@ cudaError_t cuboid_forward_launches(const float* x, const float* ln_w, const flo
                                  0, 1.f, eps, d_proj, stream);
 }
 
-// The two gradient cores: dqkv and stats (and, Full, attn and the dbias partials).
+// The general layer's gradient core: dq, dk, dv into dqkv (bf16) and, Full,
+// the head outputs into attn and the f32 ds into dbias_part.  fused: one
+// launch of cuboid_bwd_core_kernel, per_block cuboids a block (vol <= 64),
+// dbias_part (ceil(cuboids / per_block), heads, vol, vol); else the
+// query-row and key-row launches on `rows` rows a block, stats (cuboids,
+// heads, vol, 3) between them, dbias_part (cuboids, heads, vol, vol).
 template <bool Full, bool Drop>
-cudaError_t cuboid_core_bwd_launches(const float* qkv, const float* dattn, const float* bias,
-                                     float* dqkv, __nv_bfloat16* attn_bf, float* stats,
-                                     float* dbias_part, int n_cuboids, int vol, int C, int heads,
-                                     int q_tile, int tile, int cuboids_per_block, float scale,
-                                     cudaStream_t stream, philox::Drop d_attn) {
-  const int hc = C / heads;
-  size_t smem = cuboid_core_smem(vol, hc, q_tile);
-  cudaError_t err = cudaFuncSetAttribute(cuboid_core_bwd_q_kernel<Full, Drop>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  cuboid_core_bwd_q_kernel<Full, Drop><<<dim3(n_cuboids, heads, (vol + q_tile - 1) / q_tile),
-                                         kCoreThreads, smem, stream>>>(
-      qkv, dattn, bias, dqkv, attn_bf, stats, vol, C, heads, q_tile, scale, d_attn);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  smem = cuboid_kv_smem(vol, hc, tile);
-  err = cudaFuncSetAttribute(cuboid_core_bwd_kv_kernel<Full, Drop>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int groups = (n_cuboids + cuboids_per_block - 1) / cuboids_per_block;
-  cuboid_core_bwd_kv_kernel<Full, Drop><<<dim3(groups, heads, (vol + tile - 1) / tile),
-                                          kCoreThreads, smem, stream>>>(
-      qkv, dattn, bias, stats, dqkv, dbias_part, n_cuboids, vol, C, heads, tile,
-      cuboids_per_block, scale, d_attn);
+cudaError_t fused_core(const __nv_bfloat16* qkv, const __nv_bfloat16* dattn, const float* bias,
+                       __nv_bfloat16* dqkv, __nv_bfloat16* attn, float* dbias_part, int n_cuboids,
+                       int vol, int C, int heads, int hcp, int per_block, size_t smem, float scale,
+                       philox::Drop d, cudaStream_t stream) {
+  static bool configured = false;   // once, at the most a block may take: no host call per launch
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cuboid_bwd_core_kernel<Full, Drop>, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd::kSmemCap);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int vol16 = (vol + 15) & ~15;
+  cuboid_bwd_core_kernel<Full, Drop><<<dim3((n_cuboids + per_block - 1) / per_block, heads),
+                                       2 * vol16, smem, stream>>>(
+      qkv, dattn, bias, dqkv, attn, dbias_part, n_cuboids, vol, C, heads, hcp, per_block, scale, d);
   return cudaGetLastError();
 }
 
-// The launches of the general layer's all-gradients backward: the LN+QKV and
-// dattn products as in the dx backward, the two gradient cores, the dln
-// product and the LN backward, then the fixed-order sums of the relative-bias
-// and vector partials, the weight gradients' operands laid out width-major
-// (cast_t_kernel) and the two weight gradients on the wgmma TN product.
-// Drop: the two dropouts, and the dropped g in bf16 (do_bf) for dWproj.
-template <bool Drop>
-cudaError_t cuboid_bwd_full_launches(
-    const float* x, const float* g, const float* ln_w, const float* ln_b, const float* w_qkv,
-    const float* bias, const float* w_proj, float* qkv, float* dattn, float* dqkv, float* dln,
-    __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, __nv_bfloat16* do_bf, float* stats,
-    float* dbias_part, float* vpart, __nv_bfloat16* tbuf, float* dx, float* dw_qkv, float* dbias,
-    float* dw_proj, float* vec, int n_cuboids, int vol, int C, int heads, int q_tile, int tile,
-    int cuboids_per_block, int ld, int ws_qkv, int ws_proj, float scale, float eps,
-    cudaStream_t stream, philox::Drop d_attn = philox::Drop{},
-    philox::Drop d_proj = philox::Drop{}) {
-  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || vol < 1 || q_tile < 1 || tile < 1 ||
-      cuboids_per_block < 1 || ld % 64 || (reinterpret_cast<uintptr_t>(tbuf) & 15))
+template <int KT, bool Full, bool Drop>
+cudaError_t split_core(const __nv_bfloat16* qkv, const __nv_bfloat16* dattn, const float* bias,
+                       __nv_bfloat16* dqkv, __nv_bfloat16* attn, float* stats, float* dbias_part,
+                       int n_cuboids, int vol, int C, int heads, int hcp, int rows, size_t smem,
+                       float scale, philox::Drop d, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(cuboid_bwd_q_kernel<KT, Full, Drop>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, fwd::kSmemCap);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(cuboid_bwd_kv_kernel<Drop>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, fwd::kSmemCap);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid(n_cuboids, heads, (vol + rows - 1) / rows);
+  cuboid_bwd_q_kernel<KT, Full, Drop><<<grid, 2 * rows, smem, stream>>>(
+      qkv, dattn, bias, dqkv, attn, stats, dbias_part, vol, C, heads, hcp, scale, d);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int vol16 = (vol + 15) & ~15;
+  cuboid_bwd_kv_kernel<Drop><<<grid, 2 * rows, smem + sizeof(float) * 3 * vol16, stream>>>(
+      qkv, dattn, bias, stats, dqkv, vol, C, heads, hcp, d);
+  return cudaGetLastError();
+}
+
+template <bool Full, bool Drop>
+cudaError_t cuboid_core_bwd(const __nv_bfloat16* qkv, const __nv_bfloat16* dattn,
+                            const float* bias, __nv_bfloat16* dqkv, __nv_bfloat16* attn,
+                            float* stats, float* dbias_part, int n_cuboids, int vol, int C,
+                            int heads, int fused, int rows, int per_block, float scale,
+                            philox::Drop d, cudaStream_t stream) {
+  const int hcp = (C / heads + 15) & ~15, vol16 = (vol + 15) & ~15;
+  const size_t operand = sizeof(__nv_bfloat16) * (size_t)(hcp + 8) * vol16;   // one (vol16, hcp + 8) tile
+  if (fused) {
+    const size_t smem = 4 * operand + sizeof(__nv_bfloat16) * 2 * (size_t)vol16 * (vol16 + 8);
+    if (vol > kTcKeys || per_block < 1 || smem > (size_t)fwd::kSmemCap) return cudaErrorInvalidValue;
+    return fused_core<Full, Drop>(qkv, dattn, bias, dqkv, attn, dbias_part, n_cuboids, vol, C,
+                                  heads, hcp, per_block, smem, scale, d, stream);
+  }
+  if ((rows != 16 && rows != 32 && rows != 64) || vol > 4 * kTcKeys ||
+      2 * operand + sizeof(float) * 3 * vol16 > (size_t)fwd::kSmemCap)
     return cudaErrorInvalidValue;
-  const int M = n_cuboids * vol;
-  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, qkv, M, 3 * C, C, 0, eps, stream, ln_bf);
-  if (err != cudaSuccess) return err;
-  err = gemm<Drop ? 1 : 0>(g, nullptr, nullptr, w_proj, dattn, M, C, C, 1, eps, stream,
-                           do_bf, d_proj);
-  if (err != cudaSuccess) return err;
-  err = cuboid_core_bwd_launches<true, Drop>(qkv, dattn, bias, dqkv, attn_bf, stats, dbias_part,
-                                             n_cuboids, vol, C, heads, q_tile, tile,
-                                             cuboids_per_block, scale, stream, d_attn);
-  if (err != cudaSuccess) return err;
-  const int groups = (n_cuboids + cuboids_per_block - 1) / cuboids_per_block;
-  err = gemm(dqkv, nullptr, nullptr, w_qkv, dln, M, C, 3 * C, 1, eps, stream);
-  if (err != cudaSuccess) return err;
-  err = ln_backward(x, ln_w, dln, dx, M, C, eps, stream);
-  if (err != cudaSuccess) return err;
-  err = gradk::sum_partials(dbias_part, dbias, (size_t)heads * vol * vol, groups, stream);
-  if (err != cudaSuccess) return err;
-  err = gradk::ln_vec_grads(x, g, dln, 1, vpart, vec, M, C, eps, stream, d_proj);  // dbproj = sum do
-  if (err != cudaSuccess) return err;
-  // the weight gradients' operands width-major in tbuf: dqkv^T (3C), LN^T, do^T, attn^T (C each)
-  __nv_bfloat16 *dqkv_t = tbuf, *ln_t = tbuf + (size_t)3 * C * ld, *do_t = ln_t + (size_t)C * ld,
-                *attn_t = do_t + (size_t)C * ld;
-  err = gradk::cast_t<float>(dqkv, nullptr, dqkv_t, M, 3 * C, ld, stream);
-  if (err != cudaSuccess) return err;
-  err = gradk::cast_t<__nv_bfloat16>(ln_bf, nullptr, ln_t, M, C, ld, stream);
-  if (err != cudaSuccess) return err;
-  if constexpr (Drop)
-    err = gradk::cast_t<__nv_bfloat16>(do_bf, nullptr, do_t, M, C, ld, stream);
-  else
-    err = gradk::cast_t<float>(g, nullptr, do_t, M, C, ld, stream);
-  if (err != cudaSuccess) return err;
-  err = gradk::cast_t<__nv_bfloat16>(attn_bf, nullptr, attn_t, M, C, ld, stream);
-  if (err != cudaSuccess) return err;
-  err = gradk::weight_grad(dqkv_t, ln_t, dw_qkv, 3 * C, C, M, ld, ws_qkv, stream);
-  if (err != cudaSuccess) return err;
-  return gradk::weight_grad(do_t, attn_t, dw_proj, C, C, M, ld, ws_proj, stream);
+  if (vol <= kTcKeys)
+    return split_core<1, Full, Drop>(qkv, dattn, bias, dqkv, attn, stats, dbias_part, n_cuboids,
+                                     vol, C, heads, hcp, rows, 2 * operand, scale, d, stream);
+  if (vol <= 2 * kTcKeys)
+    return split_core<2, Full, Drop>(qkv, dattn, bias, dqkv, attn, stats, dbias_part, n_cuboids,
+                                     vol, C, heads, hcp, rows, 2 * operand, scale, d, stream);
+  return split_core<4, Full, Drop>(qkv, dattn, bias, dqkv, attn, stats, dbias_part, n_cuboids,
+                                   vol, C, heads, hcp, rows, 2 * operand, scale, d, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1862,36 +2056,33 @@ cudaError_t core_launch(const float* q, const float* k, const float* v, const fl
                            stream);
 }
 
-// The axial layer's backward: the launches that give dx and, Full, every
-// parameter gradient (the note at the top of the file).  Scratch, bf16: qkv
-// (tokens, 3C), do_bf, dattn (tokens, C), dqkv (tokens, 3C); f32 dln
-// (tokens, C).  Full adds the bf16 head outputs attn (tokens, C), the
-// width-major operands of the weight gradients ln_t, do_t, attn_t (C, ld)
-// and dqkv_t (3C, ld), and the partials of dbias and of the vector gradients.
-// Past C = 768 (no LN tile) the LN rows go to do_bf first (free until the
-// cotangent is staged) and the QKV product reads them by TMA.
-template <bool Full, bool Drop>
-cudaError_t axial_bwd_launches(
+// A whole layer's backward, axial or general: the launches that give dx and,
+// Full, every parameter gradient (the notes at the top of the file) around
+// the layer's gradient core `core()`, which reads qkv and dattn and writes
+// dqkv and, Full, the head outputs attn and `parts` partials of dbias
+// (n_bias floats each).  Scratch, bf16: qkv (tokens, 3C), do_bf, dattn
+// (tokens, C), dqkv (tokens, 3C); f32 dln (tokens, C).  Full adds attn
+// (tokens, C) bf16, the width-major operands of the weight gradients ln_t,
+// do_t, attn_t (C, ld) and dqkv_t (3C, ld), and the partials of dbias and of
+// the vector gradients.  Past C = 768 (no LN tile) the LN rows go to do_bf
+// first (free until the cotangent is staged) and the QKV product reads them
+// by TMA.
+template <bool Full, typename Core>
+cudaError_t layer_bwd_launches(
     const float* x, const float* g, const float* ln_w, const float* ln_b, const void* wqkv_map,
-    const float* bias, const void* wprojt_map, const void* wqkvt_map, __nv_bfloat16* qkv,
-    __nv_bfloat16* do_bf, __nv_bfloat16* dattn, __nv_bfloat16* dqkv, float* dln, float* dx,
-    __nv_bfloat16* attn, __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* attn_t,
-    __nv_bfloat16* dqkv_t, float* dbias_part, float* vpart, float* dw_qkv, float* dbias,
-    float* dw_proj, float* vec, int B, int T, int H, int W, int C, int axis, int heads, int bn_qkv,
-    int cuboids_per_block, int ld, int ws_qkv, int ws_proj, float scale, float eps,
-    cudaStream_t stream, philox::Drop d_attn = philox::Drop{},
-    philox::Drop d_proj = philox::Drop{0u, 0u, 0u, 1u, 0u, 1.f}) {
-  static_assert(Full || !Drop, "dropout runs only on the all-gradients form");
+    const void* wprojt_map, const void* wqkvt_map, __nv_bfloat16* qkv, __nv_bfloat16* do_bf,
+    __nv_bfloat16* dattn, __nv_bfloat16* dqkv, float* dln, float* dx, __nv_bfloat16* attn,
+    __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* attn_t, __nv_bfloat16* dqkv_t,
+    float* dbias_part, int parts, size_t n_bias, float* vpart, float* dw_qkv, float* dbias,
+    float* dw_proj, float* vec, int M, int C, int heads, int bn_qkv, int ld, int ws_qkv,
+    int ws_proj, float scale, float eps, cudaStream_t stream, philox::Drop d_proj, Core core) {
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  if (C % 64 != 0 || C % heads != 0 || axis < 0 || axis > 2 || cuboids_per_block < 1 ||
-      (bn_qkv != 128 && bn_qkv != 256) || !aligned(x) || !aligned(ln_w) || !aligned(ln_b) ||
-      !aligned(qkv) || !aligned(do_bf) || !aligned(dattn) || !aligned(dqkv) || !aligned(dln) ||
-      !aligned(dx) || (Full && (ld % 64 || !aligned(ln_t) || !aligned(do_t) || !aligned(attn_t) ||
-                                !aligned(dqkv_t))))
+  if (C % 64 != 0 || C % heads != 0 || (bn_qkv != 128 && bn_qkv != 256) || !aligned(x) ||
+      !aligned(ln_w) || !aligned(ln_b) || !aligned(qkv) || !aligned(do_bf) || !aligned(dattn) ||
+      !aligned(dqkv) || !aligned(dln) || !aligned(dx) ||
+      (Full && (ld % 64 || parts < 1 || !aligned(ln_t) || !aligned(do_t) || !aligned(attn_t) ||
+                !aligned(dqkv_t))))
     return cudaErrorInvalidValue;
-  const int M = B * T * H * W;
-  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
-  const int hc = C / heads;
   CUtensorMap wqkv, wprojt, wqkvt, do_map, dqkv_map;
   memcpy(&wqkv, wqkv_map, sizeof(wqkv));
   memcpy(&wprojt, wprojt_map, sizeof(wprojt));
@@ -1923,16 +2114,7 @@ cudaError_t axial_bwd_launches(
   err = fwd::gemm<128, 0, false, true>(do_map, wprojt, nullptr, nullptr, nullptr, nullptr, dattn, M,
                                        C, C, 0, 1.f, eps, none, stream);
   if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(float) * (4 * vol * (hc + 1) + (Full ? 3 : 2) * vol * vol);
-  err = cudaFuncSetAttribute(axial_core_bwd_kernel<Full, Drop>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int n_cuboids = M / vol;
-  const int blocks = (n_cuboids + cuboids_per_block - 1) / cuboids_per_block;
-  axial_core_bwd_kernel<Full, Drop><<<dim3(blocks, heads), kCoreThreads, smem, stream>>>(
-      qkv, dattn, bias, dqkv, attn, dbias_part, T, H, W, C, axis, heads, scale, n_cuboids,
-      cuboids_per_block, d_attn);
-  err = cudaGetLastError();
+  err = core();
   if (err != cudaSuccess) return err;
   // dln = dqkv . Wqkv, f32; dx its LayerNorm backward
   err = fwd::gemm<128, 0, false, false>(dqkv_map, wqkvt, nullptr, nullptr, nullptr, nullptr, dln, M,
@@ -1940,7 +2122,7 @@ cudaError_t axial_bwd_launches(
   if (err != cudaSuccess) return err;
   err = ln_backward(x, ln_w, dln, dx, M, C, eps, stream);
   if (err != cudaSuccess || !Full) return err;
-  err = gradk::sum_partials(dbias_part, dbias, (size_t)heads * vol * vol, blocks, stream);
+  err = gradk::sum_partials(dbias_part, dbias, n_bias, parts, stream);
   if (err != cudaSuccess) return err;
   err = gradk::ln_vec_grads(x, g, dln, 1, vpart, vec, M, C, eps, stream, d_proj);  // dbproj = sum do
   if (err != cudaSuccess) return err;
@@ -1951,6 +2133,72 @@ cudaError_t axial_bwd_launches(
   err = gradk::weight_grad(dqkv_t, ln_t, dw_qkv, 3 * C, C, M, ld, ws_qkv, stream);  // dqkv^T . LN
   if (err != cudaSuccess) return err;
   return gradk::weight_grad(do_t, attn_t, dw_proj, C, C, M, ld, ws_proj, stream);   // do^T . attn
+}
+
+// The axial layer's backward: layer_bwd_launches around axial_core_bwd_kernel
+// (blocks of cuboids_per_block cuboids, one dbias partial each).
+template <bool Full, bool Drop>
+cudaError_t axial_bwd_launches(
+    const float* x, const float* g, const float* ln_w, const float* ln_b, const void* wqkv_map,
+    const float* bias, const void* wprojt_map, const void* wqkvt_map, __nv_bfloat16* qkv,
+    __nv_bfloat16* do_bf, __nv_bfloat16* dattn, __nv_bfloat16* dqkv, float* dln, float* dx,
+    __nv_bfloat16* attn, __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* attn_t,
+    __nv_bfloat16* dqkv_t, float* dbias_part, float* vpart, float* dw_qkv, float* dbias,
+    float* dw_proj, float* vec, int B, int T, int H, int W, int C, int axis, int heads, int bn_qkv,
+    int cuboids_per_block, int ld, int ws_qkv, int ws_proj, float scale, float eps,
+    cudaStream_t stream, philox::Drop d_attn = philox::Drop{},
+    philox::Drop d_proj = philox::Drop{0u, 0u, 0u, 1u, 0u, 1.f}) {
+  static_assert(Full || !Drop, "dropout runs only on the all-gradients form");
+  if (C % 64 != 0 || C % heads != 0 || axis < 0 || axis > 2 || cuboids_per_block < 1)
+    return cudaErrorInvalidValue;
+  const int M = B * T * H * W;
+  const int vol = axis == 0 ? T : (axis == 1 ? H : W);
+  const int hc = C / heads, n_cuboids = M / vol;
+  const int blocks = (n_cuboids + cuboids_per_block - 1) / cuboids_per_block;
+  const auto core = [&]() {
+    const size_t smem = sizeof(float) * (4 * vol * (hc + 1) + (Full ? 3 : 2) * vol * vol);
+    cudaError_t err = cudaFuncSetAttribute(axial_core_bwd_kernel<Full, Drop>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    axial_core_bwd_kernel<Full, Drop><<<dim3(blocks, heads), kCoreThreads, smem, stream>>>(
+        qkv, dattn, bias, dqkv, attn, dbias_part, T, H, W, C, axis, heads, scale, n_cuboids,
+        cuboids_per_block, d_attn);
+    return cudaGetLastError();
+  };
+  return layer_bwd_launches<Full>(x, g, ln_w, ln_b, wqkv_map, wprojt_map, wqkvt_map, qkv, do_bf,
+                                  dattn, dqkv, dln, dx, attn, ln_t, do_t, attn_t, dqkv_t,
+                                  dbias_part, blocks, (size_t)heads * vol * vol, vpart, dw_qkv,
+                                  dbias, dw_proj, vec, M, C, heads, bn_qkv, ld, ws_qkv, ws_proj,
+                                  scale, eps, stream, d_proj, core);
+}
+
+// The general layer's backward: layer_bwd_launches around cuboid_core_bwd.
+template <bool Full, bool Drop>
+cudaError_t cuboid_bwd_launches(
+    const float* x, const float* g, const float* ln_w, const float* ln_b, const void* wqkv_map,
+    const float* bias, const void* wprojt_map, const void* wqkvt_map, __nv_bfloat16* qkv,
+    __nv_bfloat16* do_bf, __nv_bfloat16* dattn, __nv_bfloat16* dqkv, float* dln, float* dx,
+    __nv_bfloat16* attn, __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* attn_t,
+    __nv_bfloat16* dqkv_t, float* stats, float* dbias_part, float* vpart, float* dw_qkv,
+    float* dbias, float* dw_proj, float* vec, int n_cuboids, int vol, int C, int heads,
+    int bn_qkv, int fused, int rows, int per_block, int ld, int ws_qkv, int ws_proj, float scale,
+    float eps, cudaStream_t stream, philox::Drop d_attn = philox::Drop{},
+    philox::Drop d_proj = philox::Drop{0u, 0u, 0u, 1u, 0u, 1.f}) {
+  static_assert(Full || !Drop, "dropout runs only on the all-gradients form");
+  if (C % 64 != 0 || C % heads != 0 || vol < 1 || n_cuboids < 1 || per_block < 1 ||
+      (!fused && (reinterpret_cast<uintptr_t>(stats) & 15)))
+    return cudaErrorInvalidValue;
+  const int parts = fused ? (n_cuboids + per_block - 1) / per_block : n_cuboids;
+  const auto core = [&]() {
+    return cuboid_core_bwd<Full, Drop>(qkv, dattn, bias, dqkv, attn, stats, dbias_part, n_cuboids,
+                                       vol, C, heads, fused, rows, per_block, scale, d_attn,
+                                       stream);
+  };
+  return layer_bwd_launches<Full>(x, g, ln_w, ln_b, wqkv_map, wprojt_map, wqkvt_map, qkv, do_bf,
+                                  dattn, dqkv, dln, dx, attn, ln_t, do_t, attn_t, dqkv_t,
+                                  dbias_part, parts, (size_t)heads * vol * vol, vpart, dw_qkv,
+                                  dbias, dw_proj, vec, n_cuboids * vol, C, heads, bn_qkv, ld,
+                                  ws_qkv, ws_proj, scale, eps, stream, d_proj, core);
 }
 
 }  // namespace
@@ -2094,70 +2342,69 @@ extern "C" int cuboid_attention_dropout_forward(
 }
 
 // dx of the general cuboid layer for the output cotangent g (tokens, C), both
-// in cuboid_reorder's layout; scratch qkv and dqkv (tokens, 3C), dattn and dln
-// (tokens, C), stats (cuboids, heads, vol, 3).
+// in cuboid_reorder's layout; maps and bf16 scratch as axial_attention_bwd_dx,
+// and stats (cuboids, heads, vol, 3) f32 for the split core; fused, rows as
+// ops/attention.cuboid_bwd_plan gives them.  Six or seven launches.
 extern "C" int cuboid_attention_bwd_dx(const float* x, const float* g, const float* ln_w,
-                                       const float* ln_b, const float* w_qkv, const float* bias,
-                                       const float* w_proj, float* qkv, float* dattn,
-                                       float* dqkv, float* dln, float* stats, float* dx,
-                                       int n_cuboids, int vol, int C, int heads, int q_tile,
-                                       int tile, float scale, float eps, cudaStream_t stream) {
-  if (C % kBN != 0 || C % kBK != 0 || C % heads != 0 || vol < 1 || q_tile < 1 || tile < 1)
-    return (int)cudaErrorInvalidValue;
-  const int M = n_cuboids * vol;
-  cudaError_t err = gemm(x, ln_w, ln_b, w_qkv, qkv, M, 3 * C, C, 0, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = gemm(g, nullptr, nullptr, w_proj, dattn, M, C, C, 1, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = cuboid_core_bwd_launches<false, false>(qkv, dattn, bias, dqkv, nullptr, stats, nullptr,
-                                               n_cuboids, vol, C, heads, q_tile, tile, 1, scale,
-                                               stream, philox::Drop{});
-  if (err != cudaSuccess) return (int)err;
-  err = gemm(dqkv, nullptr, nullptr, w_qkv, dln, M, C, 3 * C, 1, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)ln_backward(x, ln_w, dln, dx, M, C, eps, stream);
+                                       const float* ln_b, const void* wqkv_map, const float* bias,
+                                       const void* wprojt_map, const void* wqkvt_map, void* qkv,
+                                       void* do_bf, void* dattn, void* dqkv, float* dln,
+                                       float* stats, float* dx, int n_cuboids, int vol, int C,
+                                       int heads, int bn_qkv, int fused, int rows, float scale,
+                                       float eps, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  return (int)cuboid_bwd_launches<false, false>(
+      x, g, ln_w, ln_b, wqkv_map, bias, wprojt_map, wqkvt_map, static_cast<bf*>(qkv),
+      static_cast<bf*>(do_bf), static_cast<bf*>(dattn), static_cast<bf*>(dqkv), dln, dx, nullptr,
+      nullptr, nullptr, nullptr, nullptr, stats, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, n_cuboids, vol, C, heads, bn_qkv, fused, rows, 1, 0, 1, 1, scale, eps, stream);
 }
 
 // Every gradient of the general cuboid layer for the output cotangent g, both
-// in cuboid_reorder's layout.  Scratch as for cuboid_attention_bwd_dx, and
-// ln_bf, attn_bf (tokens, C) bf16, stats (cuboids, heads, vol, 3), dbias_part
-// (ceil(cuboids / cuboids_per_block), heads, vol, vol) and vpart (ceil(tokens
-// / 8), 3, C) f32; tbuf (6C, ld) bf16 for the weight gradients' width-major
-// operands, ld >= tokens rounded up to 64; ws_qkv, ws_proj the products'
-// token splits.  Out: dx, dw_qkv (3C, C), dbias (heads, vol, vol), dw_proj
-// (C, C), vec (3, C) = dgamma, dbeta, dbproj.
+// in cuboid_reorder's layout.  Maps, scratch and outputs as
+// axial_attention_bwd_full, and stats (cuboids, heads, vol, 3); dbias_part
+// (parts, heads, vol, vol) with parts = ceil(cuboids / per_block) where fused,
+// else cuboids.
 extern "C" int cuboid_attention_bwd_full(
-    const float* x, const float* g, const float* ln_w, const float* ln_b, const float* w_qkv,
-    const float* bias, const float* w_proj, float* qkv, float* dattn, float* dqkv, float* dln,
-    __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, float* stats, float* dbias_part, float* vpart,
-    __nv_bfloat16* tbuf, float* dx, float* dw_qkv, float* dbias, float* dw_proj, float* vec,
-    int n_cuboids, int vol, int C, int heads, int q_tile, int tile, int cuboids_per_block,
-    int ld, int ws_qkv, int ws_proj, float scale, float eps, cudaStream_t stream) {
-  return (int)cuboid_bwd_full_launches<false>(
-      x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln, ln_bf, attn_bf, nullptr,
-      stats, dbias_part, vpart, tbuf, dx, dw_qkv, dbias, dw_proj, vec, n_cuboids, vol, C,
-      heads, q_tile, tile, cuboids_per_block, ld, ws_qkv, ws_proj, scale, eps, stream);
+    const float* x, const float* g, const float* ln_w, const float* ln_b, const void* wqkv_map,
+    const float* bias, const void* wprojt_map, const void* wqkvt_map, void* qkv, void* do_bf,
+    void* dattn, void* dqkv, float* dln, void* attn, void* ln_t, void* do_t, void* attn_t,
+    void* dqkv_t, float* stats, float* dbias_part, float* vpart, float* dx, float* dw_qkv,
+    float* dbias, float* dw_proj, float* vec, int n_cuboids, int vol, int C, int heads,
+    int bn_qkv, int fused, int rows, int per_block, int ld, int ws_qkv, int ws_proj, float scale,
+    float eps, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  return (int)cuboid_bwd_launches<true, false>(
+      x, g, ln_w, ln_b, wqkv_map, bias, wprojt_map, wqkvt_map, static_cast<bf*>(qkv),
+      static_cast<bf*>(do_bf), static_cast<bf*>(dattn), static_cast<bf*>(dqkv), dln, dx,
+      static_cast<bf*>(attn), static_cast<bf*>(ln_t), static_cast<bf*>(do_t),
+      static_cast<bf*>(attn_t), static_cast<bf*>(dqkv_t), stats, dbias_part, vpart, dw_qkv, dbias,
+      dw_proj, vec, n_cuboids, vol, C, heads, bn_qkv, fused, rows, per_block, ld, ws_qkv, ws_proj,
+      scale, eps, stream);
 }
 
 // Every gradient of cuboid_attention_dropout_forward for the output cotangent
-// g, the masks regenerated from the same (seed, site).  Scratch and outputs as
-// cuboid_attention_bwd_full, and do_bf (tokens, C) bf16 for the dropped cotangent.
+// g, the masks regenerated from the same (seed, site).  Arguments as
+// cuboid_attention_bwd_full; do_bf and do_t hold the dropped cotangent.
 extern "C" int cuboid_attention_dropout_bwd_full(
-    const float* x, const float* g, const float* ln_w, const float* ln_b, const float* w_qkv,
-    const float* bias, const float* w_proj, float* qkv, float* dattn, float* dqkv, float* dln,
-    __nv_bfloat16* ln_bf, __nv_bfloat16* attn_bf, __nv_bfloat16* do_bf, float* stats,
-    float* dbias_part, float* vpart, __nv_bfloat16* tbuf, float* dx, float* dw_qkv, float* dbias,
-    float* dw_proj, float* vec, int n_cuboids, int vol, int C, int heads, int q_tile, int tile,
-    int cuboids_per_block, int ld, int ws_qkv, int ws_proj, float scale, float eps,
-    unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn, float keep_attn,
-    unsigned thr_proj, float keep_proj, cudaStream_t stream) {
+    const float* x, const float* g, const float* ln_w, const float* ln_b, const void* wqkv_map,
+    const float* bias, const void* wprojt_map, const void* wqkvt_map, void* qkv, void* do_bf,
+    void* dattn, void* dqkv, float* dln, void* attn, void* ln_t, void* do_t, void* attn_t,
+    void* dqkv_t, float* stats, float* dbias_part, float* vpart, float* dx, float* dw_qkv,
+    float* dbias, float* dw_proj, float* vec, int n_cuboids, int vol, int C, int heads,
+    int bn_qkv, int fused, int rows, int per_block, int ld, int ws_qkv, int ws_proj, float scale,
+    float eps, unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn,
+    float keep_attn, unsigned thr_proj, float keep_proj, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
   const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn};
   const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj};
-  return (int)cuboid_bwd_full_launches<true>(
-      x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln, ln_bf, attn_bf, do_bf, stats,
-      dbias_part, vpart, tbuf, dx, dw_qkv, dbias, dw_proj, vec, n_cuboids, vol, C, heads,
-      q_tile, tile, cuboids_per_block, ld, ws_qkv, ws_proj, scale, eps, stream, d_attn,
-      d_proj);
+  return (int)cuboid_bwd_launches<true, true>(
+      x, g, ln_w, ln_b, wqkv_map, bias, wprojt_map, wqkvt_map, static_cast<bf*>(qkv),
+      static_cast<bf*>(do_bf), static_cast<bf*>(dattn), static_cast<bf*>(dqkv), dln, dx,
+      static_cast<bf*>(attn), static_cast<bf*>(ln_t), static_cast<bf*>(do_t),
+      static_cast<bf*>(attn_t), static_cast<bf*>(dqkv_t), stats, dbias_part, vpart, dw_qkv, dbias,
+      dw_proj, vec, n_cuboids, vol, C, heads, bn_qkv, fused, rows, per_block, ld, ws_qkv, ws_proj,
+      scale, eps, stream, d_attn, d_proj);
 }
 
 // The grouped core: q, k, v, out (B, heads, n_cuboids, vol, hc) f32, bias

@@ -55,6 +55,7 @@
 #include <stdint.h>
 
 #include "grad_common.cuh"
+#include "welford.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -62,22 +63,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxChannelsPerThread = 4;  // C <= 1024
-
-struct Stat {
-  float n, mean, m2;
-};
-
-__device__ __forceinline__ Stat merge(Stat a, Stat b) {
-  float n = a.n + b.n;
-  if (b.n == 0.f) return a;
-  float d = b.mean - a.mean;
-  float wb = b.n / n;
-  Stat r;
-  r.n = n;
-  r.mean = a.mean + d * wb;
-  r.m2 = a.m2 + b.m2 + d * d * a.n * wb;
-  return r;
-}
 
 __global__ void __launch_bounds__(kThreads)
 gn_stats_kernel(const float* __restrict__ x, const float* __restrict__ emb,
@@ -163,11 +148,6 @@ gn_apply_kernel(const float* __restrict__ x, const float* __restrict__ emb,
 // along the tokens, rank r taking tokens r * tpr .. r * tpr + tpr - 1.  VW
 // floats per copy: 4 (16 bytes; cpg % 4 == 0 and 16-byte aligned x and y) or 1.
 constexpr int kGnThreads = 256;
-
-__device__ __forceinline__ Stat shfl_down(Stat s, int o) {
-  return Stat{__shfl_down_sync(0xffffffffu, s.n, o), __shfl_down_sync(0xffffffffu, s.mean, o),
-              __shfl_down_sync(0xffffffffu, s.m2, o)};
-}
 
 template <int VW>
 __global__ void __launch_bounds__(kGnThreads)

@@ -8,47 +8,53 @@
 // The TPU kernel keeps the whole zero-padded volume in VMEM (about 660 KB at
 // 6x16x16x128 in bf16) and carries each GroupNorm's sums across its
 // sequential loop.  A Hopper block has at most 227 KB of shared memory and
-// blocks run in no order, so the block runs as six launches each way (a
-// conv is conv3_kernel + conv_epilogue_kernel):
+// blocks run in no order, so the block runs as four launches forward and
+// five backward:
 //   forward   gn_silu_group_kernel  GN1 of x -> h1 = silu(.) in bf16
 //             conv                   h2 = conv1(h1) + b1, stored bf16 (saved)
 //             gn_silu_group_kernel  GN2 of h2 + emb -> h3 = silu(.) in bf16
 //             conv                   out = conv2(h3) + b2 + x       (f32)
-//   backward  conv                   dh3 = conv2^T(g) in bf16
+//   backward  to_bf16_kernel         g in bf16 (the conv's operand)
+//             conv                   dh3 = conv2^T(g) in bf16
 //             gn_silu_bwd_group_kernel  dv = GN2 / SiLU backward in bf16,
 //                                    demb = sum of dv over the tokens
 //             conv                   dh1 = conv1^T(dv) in bf16
 //             gn_silu_bwd_group_kernel  dx = GN1 / SiLU backward + g  (f32)
-// A GroupNorm reduces over the whole volume, so a GN kernel gives one block
-// to each (group, sample): it holds the group's statistics itself and makes
-// its passes over the group's tokens (two-pass mean / variance, as the TPU
-// kernel does; the backward also sums u and u * xhat, and dv's per-channel
-// sums for demb).  A transposed conv is the same SAME conv with flipped taps
-// and in / out channels swapped (pallas_resblock.py:545-546); the wrapper
-// lays the weights out as (27, K, N) f32 for either direction, so one conv
-// kernel serves all four.
+// A GroupNorm reduces over the whole volume.  Each GN pass is one launch of
+// row 1's design (groupnorm.cu gn_cluster_kernel): a thread-block cluster
+// of 1-8 blocks per (group, sample) along the tokens, the group's values
+// read once into shared memory, Welford per thread and Chan merges across
+// warps and ranks in rank order; the backward adds its sums of u and
+// u * xhat, and demb's per-channel sums, over the ranks in rank order too.
+// A group past a cluster of 8 blocks' shared memory takes the first
+// design's kernels, one block per (group, sample) making its passes over
+// the group's tokens (two-pass mean / variance).  A transposed conv is the
+// same SAME conv with flipped taps and in / out channels swapped
+// (pallas_resblock.py:545-546).
 //
 // Bound: each 3x3x3 conv is 2 * 27 * C^2 operations per token; at the
-// alignment shapes the convs' operations and the f32 weights' bytes are of
-// one size (1536 tokens x 128: operations; 384 x 256: the 14 MB of weights),
-// so the block sits near the card's ridge point.  The conv is the implicit
-// GEMM of conv3.cuh (WMMA bf16, f32 accumulation, each tap's neighbour rows
-// gathered into shared memory, no padded copy or im2col matrix in device
-// memory), shared with the standalone conv of conv3d.cu.  The alignment
-// shapes give so few (token, channel) tiles that the 27 taps are split kTapSplits ways
-// (3 taps each) into an f32 (splits, M, N) workspace, which its epilogue adds
-// in a fixed order with the bias and the skip.
+// alignment shapes the convs' operations and the weights' bytes are of one
+// size (1536 tokens x 128: operations; 384 x 256: the weights), so the block
+// sits near the card's ridge point.  The four convs run on the standalone
+// conv's kernel (conv_wgmma.cuh: TMA + wgmma, SAME padding from the TMA
+// unit's zero fill, the taps split over a thread-block cluster whose
+// partials are added in rank order through distributed shared memory), with
+// the epilogues the block needs: + b1 stored bf16 (h2), + b2 + x stored f32
+// (out), a plain bf16 store (dh3, dh1).  Their inputs h1, h3 and dv are
+// bf16 already, so only g is rounded by a launch of its own.  The weights
+// are the bf16 (27, N, K) layouts of ops/conv3d.py, the forward's and the
+// flipped transpose, laid out once per parameter version with their tensor
+// maps (conv3x3x3_weight_map), so nothing of them is converted per call.
 //
 // Rounding points follow the TPU kernel: h1, h2, h3, dh3, dv and dh1 are
 // bf16, as are the conv weights and g as a conv operand; GN2's statistics
 // are taken from the bf16 h2; every sum, x, out, dx and demb stay f32.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
+#include <string.h>
 
-using namespace nvcuda;
-
-#include "conv3.cuh"
+#include "conv_wgmma.cuh"
+#include "welford.cuh"
 
 namespace {
 
@@ -69,6 +75,9 @@ __device__ float block_sum(float v, float* red) {
   __syncthreads();
   return warp_sum(lane < nw ? red[lane] : 0.f);
 }
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -176,68 +185,292 @@ gn_silu_bwd_group_kernel(const InT* __restrict__ src, const float* __restrict__ 
   }
 }
 
-constexpr int kTapSplits = 9;   // the convs' tap split (3 taps each), csrc/conv3.cuh
+// ---------------------------------------------------------------------------
+// The GroupNorm passes in one launch each, row 1's design (groupnorm.cu
+// gn_cluster_kernel): a thread-block cluster of `ranks` blocks per (group,
+// sample) along the tokens, rank r holding tokens r * tpr .. r * tpr + tpr - 1
+// of the group's channels in shared memory as f32 (read once), Welford per
+// thread, Chan merges down each warp, across the warps and across the ranks
+// in rank order through distributed shared memory (every rank the same
+// order: the same bits on every rank and run).  Value i of a tile is token
+// i / cpg, channel i % cpg; with kGnThreads % cpg == 0 a thread stays on one
+// channel.
 
+// mean and rstd of the group from each rank's tile xs (count values).
+__device__ __forceinline__ void cluster_stats(const float* xs, int count, float eps,
+                                              float& mean, float& rstd) {
+  namespace cg = cooperative_groups;
+  __shared__ Stat warp_part[kGnThreads / 32];
+  __shared__ Stat part;
+  __shared__ float mean_rstd[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, ranks = (int)cluster.num_blocks();
+  Stat st{0.f, 0.f, 0.f};
+  for (int i = tid; i < count; i += kGnThreads) push(st, xs[i]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) st = merge(st, shfl_down(st, o));
+  if ((tid & 31) == 0) warp_part[tid >> 5] = st;
+  __syncthreads();
+  if (tid == 0) {
+    Stat acc = warp_part[0];
+    for (int w = 1; w < kGnThreads / 32; ++w) acc = merge(acc, warp_part[w]);
+    part = acc;
+  }
+  cluster.sync();   // every rank's partial is written and visible
+  if (tid == 0) {
+    Stat acc = *cluster.map_shared_rank(&part, 0);
+    for (int r = 1; r < ranks; ++r) acc = merge(acc, *cluster.map_shared_rank(&part, r));
+    mean_rstd[0] = acc.mean;
+    mean_rstd[1] = rsqrtf(acc.m2 / acc.n + eps);
+  }
+  cluster.sync();   // every rank has read its peers' partials
+  mean = mean_rstd[0];
+  rstd = mean_rstd[1];
+}
+
+// out = bf16(silu(GroupNorm(src + emb))), src f32 or bf16 (B, N, C).
+template <typename InT>
+__global__ void __launch_bounds__(kGnThreads)
+gn_silu_cluster_kernel(const InT* __restrict__ src, const float* __restrict__ emb,
+                       const float* __restrict__ gamma, const float* __restrict__ beta,
+                       __nv_bfloat16* __restrict__ out, int N, int C, int cpg, int tpr,
+                       float eps) {
+  extern __shared__ float xs[];   // [tpr][cpg] src + emb
+  const int ranks = (int)cooperative_groups::this_cluster().num_blocks();
+  const int rank = blockIdx.x % ranks, g = blockIdx.x / ranks, b = blockIdx.y, tid = threadIdx.x;
+  const int n0 = rank * tpr, count = max(0, min(tpr, N - n0)) * cpg;
+  const size_t base = ((size_t)b * N + n0) * C + (size_t)g * cpg;
+  const int c = tid % cpg, ch = g * cpg + c;
+  const float e = emb != nullptr ? emb[(size_t)b * C + ch] : 0.f;
+  for (int i = tid; i < count; i += kGnThreads) xs[i] = to_f(src[base + (size_t)(i / cpg) * C + c]) + e;
+  __syncthreads();
+  float mean, rstd;
+  cluster_stats(xs, count, eps, mean, rstd);
+  const float gam = gamma[ch], bet = beta[ch];
+  for (int i = tid; i < count; i += kGnThreads)
+    out[base + (size_t)(i / cpg) * C + c] = __float2bfloat16(silu((xs[i] - mean) * rstd * gam + bet));
+}
+
+// Backward of y = silu(GroupNorm(src + emb)) for dy = dh (bf16), with u =
+// dh * silu'(a) * gamma: dv = rstd * (u - (S1 + xhat * S2) / count), S1 and
+// S2 the group's sums of u and u * xhat (each rank's block sum, in a fixed
+// tree, added over the ranks in rank order); out = dv (+ skip); demb[c] =
+// the sum of dv over the tokens (the block's threads of channel c in order,
+// then the ranks in order), where demb is given.
 template <typename InT, typename OutT>
-cudaError_t conv(const InT* in, const float* w, const float* bias, const float* skip, float* part,
-                 OutT* out, int B, int T, int H, int W, int C, cudaStream_t stream) {
-  return conv<InT, OutT>(in, w, bias, skip, part, out, B, T, H, W, C, C, kTapSplits, stream);
+__global__ void __launch_bounds__(kGnThreads)
+gn_silu_bwd_cluster_kernel(const InT* __restrict__ src, const float* __restrict__ emb,
+                           const __nv_bfloat16* __restrict__ dh, const float* __restrict__ gamma,
+                           const float* __restrict__ beta, const float* __restrict__ skip,
+                           OutT* __restrict__ out, float* __restrict__ demb, int N, int C,
+                           int cpg, int tpr, float eps) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float xs[];   // [tpr][cpg] src + emb, then [tpr][cpg] dh
+  __shared__ float red[kGnThreads];
+  __shared__ float2 sums;
+  __shared__ float dpart[kGnThreads];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = (int)cluster.num_blocks();
+  const int rank = blockIdx.x % ranks, g = blockIdx.x / ranks, b = blockIdx.y, tid = threadIdx.x;
+  const int n0 = rank * tpr, count = max(0, min(tpr, N - n0)) * cpg;
+  const size_t base = ((size_t)b * N + n0) * C + (size_t)g * cpg;
+  const int c = tid % cpg, ch = g * cpg + c;
+  const float e = emb != nullptr ? emb[(size_t)b * C + ch] : 0.f;
+  float* ds = xs + (size_t)tpr * cpg;
+  for (int i = tid; i < count; i += kGnThreads) {
+    const size_t idx = base + (size_t)(i / cpg) * C + c;
+    xs[i] = to_f(src[idx]) + e;
+    ds[i] = __bfloat162float(dh[idx]);
+  }
+  __syncthreads();
+  float mean, rstd;
+  cluster_stats(xs, count, eps, mean, rstd);
+  const float gam = gamma[ch], bet = beta[ch];
+  float s1 = 0.f, s2 = 0.f;
+  for (int i = tid; i < count; i += kGnThreads) {
+    const float xhat = (xs[i] - mean) * rstd;
+    const float u = ds[i] * silu_grad(xhat * gam + bet) * gam;
+    xs[i] = xhat;
+    ds[i] = u;
+    s1 += u;
+    s2 += u * xhat;
+  }
+  const float b1 = block_sum(s1, red), b2 = block_sum(s2, red);
+  if (tid == 0) sums = make_float2(b1, b2);
+  cluster.sync();   // every rank's sums are written and visible
+  float S1 = 0.f, S2 = 0.f;
+  for (int r = 0; r < ranks; ++r) {
+    const float2 p = *cluster.map_shared_rank(&sums, r);
+    S1 += p.x;
+    S2 += p.y;
+  }
+  const float total = (float)N * cpg;
+  float dsum = 0.f;
+  for (int i = tid; i < count; i += kGnThreads) {
+    const size_t idx = base + (size_t)(i / cpg) * C + c;
+    const float dv = rstd * (ds[i] - (S1 + xs[i] * S2) / total);
+    dsum += dv;
+    store(out + idx, dv + (skip != nullptr ? skip[idx] : 0.f));
+  }
+  if (demb != nullptr) {   // the channel's sum: this block's threads in order, then the ranks
+    dpart[tid] = dsum;
+    __syncthreads();
+    if (tid < cpg) {
+      float t = 0.f;
+      for (int j = tid; j < kGnThreads; j += cpg) t += dpart[j];
+      red[tid] = t;
+    }
+  }
+  cluster.sync();   // the peers' sums are read no more; their channel sums are written
+  if (demb != nullptr && rank == 0 && tid < cpg) {
+    float t = 0.f;
+    for (int r = 0; r < ranks; ++r) t += cluster.map_shared_rank(red, r)[tid];
+    demb[(size_t)b * C + ch] = t;
+  }
+  cluster.sync();   // no block leaves while rank 0 may still read its sums
 }
 
 bool supported(int C, int groups) {
-  if (C % kCN != 0 || groups < 1 || C % groups != 0) return false;
+  if (C % 64 != 0 || groups < 1 || C % groups != 0) return false;
   const int cpg = C / groups;
   return kGnThreads % cpg == 0;
 }
 
-}  // namespace
+// The output-channel tile, token box and cluster split of the four convs
+// (ops/conv3d.conv_tiles).
+struct Tiles {
+  int bn, bt, bh, bw, splits;
+};
 
-// Forward.  w1, w2: (27, C, C) f32 laid out as [tap][in][out]; h: (B, N, C)
-// bf16 scratch; h2: (B, N, C) bf16, kept for the backward; part: the convs'
-// (kTapSplits, B*N, C) f32 workspace; out (B, N, C) f32.
-extern "C" int resblock_forward(const float* x, const float* emb, const float* w1,
-                                const float* b1, const float* w2, const float* b2,
-                                const float* g1s, const float* g1b, const float* g2s,
-                                const float* g2b, __nv_bfloat16* h, __nv_bfloat16* h2,
-                                float* part, float* out, int B, int T, int H, int W, int C,
-                                int groups, float eps, cudaStream_t stream) {
-  if (!supported(C, groups)) return (int)cudaErrorInvalidValue;
-  const int N = T * H * W;
-  const dim3 gn_grid(groups, B);
-  gn_silu_group_kernel<float><<<gn_grid, kGnThreads, 0, stream>>>(x, nullptr, g1s, g1b, h, N, C,
-                                                                  groups, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = conv(h, w1, b1, nullptr, part, h2, B, T, H, W, C, stream);
-  if (err != cudaSuccess) return (int)err;
-  gn_silu_group_kernel<__nv_bfloat16><<<gn_grid, kGnThreads, 0, stream>>>(h2, emb, g2s, g2b, h,
-                                                                          N, C, groups, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)conv(h, w2, b2, x, part, out, B, T, H, W, C, stream);
+template <int Epi>
+cudaError_t rconv(const __nv_bfloat16* in, const void* w_map, const float* bias, void* out,
+                  const float* skip, int B, int T, int H, int W, int C, const Tiles& t,
+                  cudaStream_t stream) {
+  CUtensorMap w;
+  memcpy(&w, w_map, sizeof(w));
+  return conv::conv<Epi>(in, w, bias, out, skip, B, T, H, W, C, C, t.bn, t.bt, t.bh, t.bw,
+                         t.splits, stream);
 }
 
-// Backward.  w1t, w2t: (27, C, C) f32, the flipped taps laid out as
-// [tap][out][in]; dh, dv: (B, N, C) bf16 scratch; part as in the forward;
-// dx (B, N, C), demb (B, C).
-extern "C" int resblock_backward(const float* x, const float* emb, const float* g,
-                                 const __nv_bfloat16* h2, const float* w1t, const float* w2t,
-                                 const float* g1s, const float* g1b, const float* g2s,
-                                 const float* g2b, __nv_bfloat16* dh, __nv_bfloat16* dv,
-                                 float* part, float* dx, float* demb, int B, int T, int H, int W,
-                                 int C, int groups, float eps, cudaStream_t stream) {
-  if (!supported(C, groups)) return (int)cudaErrorInvalidValue;
+// The GroupNorm passes: in clusters of `ranks` blocks per (group, sample),
+// tpr tokens a rank, where ranks > 0; else one block per (group, sample).
+struct GnTiles {
+  int ranks, tpr;
+};
+
+template <typename... Params, typename... Args>
+cudaError_t launch_gn(void (*kernel)(Params...), int groups, int B, const GnTiles& t, int cpg,
+                      int tiles, cudaStream_t stream, Args... args) {
+  const size_t smem = sizeof(float) * (size_t)tiles * t.tpr * cpg;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups * t.ranks, B);
+  cfg.blockDim = dim3(kGnThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = t.ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename InT>
+cudaError_t gn_silu(const InT* src, const float* emb, const float* gamma, const float* beta,
+                    __nv_bfloat16* out, int B, int N, int C, int groups, const GnTiles& t,
+                    float eps, cudaStream_t stream) {
+  const int cpg = C / groups;
+  if (t.ranks == 0) {
+    gn_silu_group_kernel<InT><<<dim3(groups, B), kGnThreads, 0, stream>>>(src, emb, gamma, beta,
+                                                                          out, N, C, groups, eps);
+    return cudaGetLastError();
+  }
+  return launch_gn(gn_silu_cluster_kernel<InT>, groups, B, t, cpg, 1, stream, src, emb, gamma,
+                   beta, out, N, C, cpg, t.tpr, eps);
+}
+
+template <typename InT, typename OutT>
+cudaError_t gn_silu_bwd(const InT* src, const float* emb, const __nv_bfloat16* dh,
+                        const float* gamma, const float* beta, const float* skip, OutT* out,
+                        float* demb, int B, int N, int C, int groups, const GnTiles& t, float eps,
+                        cudaStream_t stream) {
+  const int cpg = C / groups;
+  if (t.ranks == 0) {
+    gn_silu_bwd_group_kernel<InT, OutT><<<dim3(groups, B), kGnThreads, 0, stream>>>(
+        src, emb, dh, gamma, beta, skip, out, demb, N, C, groups, eps);
+    return cudaGetLastError();
+  }
+  return launch_gn(gn_silu_bwd_cluster_kernel<InT, OutT>, groups, B, t, cpg, 2, stream, src, emb,
+                   dh, gamma, beta, skip, out, demb, N, C, cpg, t.tpr, eps);
+}
+
+bool gn_tiles_ok(const GnTiles& t, int N) {
+  return t.ranks == 0 || ((t.ranks == 1 || t.ranks == 2 || t.ranks == 4 || t.ranks == 8) &&
+                          t.tpr >= 1 && (long long)t.ranks * t.tpr >= N);
+}
+
+}  // namespace
+
+// Forward.  w1_map, w2_map: the tensor maps of the bf16 (27, C, C) forward
+// layouts of k1, k2 (conv3x3x3_weight_map); h: (B, N, C) bf16 scratch; h2:
+// (B, N, C) bf16, kept for the backward; out (B, N, C) f32; the convs'
+// output-channel tile bn (the weight maps' box rows), token box (bt, bh, bw)
+// and cluster split; the GroupNorm passes' clusters of
+// gn_ranks blocks of gn_tpr tokens (gn_ranks 0: a block per (group, sample)).
+extern "C" int resblock_forward(const float* x, const float* emb, const void* w1_map,
+                                const float* b1, const void* w2_map, const float* b2,
+                                const float* g1s, const float* g1b, const float* g2s,
+                                const float* g2b, __nv_bfloat16* h, __nv_bfloat16* h2,
+                                float* out, int B, int T, int H, int W, int C, int groups, int bn,
+                                int bt, int bh, int bw, int splits, int gn_ranks, int gn_tpr,
+                                float eps, cudaStream_t stream) {
   const int N = T * H * W;
-  const dim3 gn_grid(groups, B);
-  cudaError_t err = conv(g, w2t, nullptr, nullptr, part, dh, B, T, H, W, C, stream);
+  const GnTiles gt{gn_ranks, gn_tpr};
+  if (!supported(C, groups) || !gn_tiles_ok(gt, N)) return (int)cudaErrorInvalidValue;
+  const Tiles t{bn, bt, bh, bw, splits};
+  cudaError_t err = gn_silu<float>(x, nullptr, g1s, g1b, h, B, N, C, groups, gt, eps, stream);
   if (err != cudaSuccess) return (int)err;
-  gn_silu_bwd_group_kernel<__nv_bfloat16, __nv_bfloat16><<<gn_grid, kGnThreads, 0, stream>>>(
-      h2, emb, dh, g2s, g2b, nullptr, dv, demb, N, C, groups, eps);
-  err = cudaGetLastError();
+  err = rconv<conv::kBf16>(h, w1_map, b1, h2, nullptr, B, T, H, W, C, t, stream);
   if (err != cudaSuccess) return (int)err;
-  err = conv(dv, w1t, nullptr, nullptr, part, dh, B, T, H, W, C, stream);
+  err = gn_silu<__nv_bfloat16>(h2, emb, g2s, g2b, h, B, N, C, groups, gt, eps, stream);
   if (err != cudaSuccess) return (int)err;
-  gn_silu_bwd_group_kernel<float, float><<<gn_grid, kGnThreads, 0, stream>>>(
-      x, nullptr, dh, g1s, g1b, g, dx, nullptr, N, C, groups, eps);
-  return (int)cudaGetLastError();
+  return (int)rconv<conv::kF32Skip>(h, w2_map, b2, out, x, B, T, H, W, C, t, stream);
+}
+
+// Backward.  w1t_map, w2t_map: the tensor maps of the bf16 flipped, transposed
+// (27, C, C) layouts of k1, k2; gb, dh, dv: (B, N, C) bf16 scratch; dx (B, N,
+// C), demb (B, C); the tiles as in the forward.
+extern "C" int resblock_backward(const float* x, const float* emb, const float* g,
+                                 const __nv_bfloat16* h2, const void* w1t_map,
+                                 const void* w2t_map, const float* g1s, const float* g1b,
+                                 const float* g2s, const float* g2b, __nv_bfloat16* gb,
+                                 __nv_bfloat16* dh, __nv_bfloat16* dv, float* dx, float* demb,
+                                 int B, int T, int H, int W, int C, int groups, int bn, int bt,
+                                 int bh, int bw, int splits, int gn_ranks, int gn_tpr, float eps,
+                                 cudaStream_t stream) {
+  const int N = T * H * W;
+  const GnTiles gt{gn_ranks, gn_tpr};
+  if (!supported(C, groups) || !gn_tiles_ok(gt, N) || (reinterpret_cast<uintptr_t>(g) & 15))
+    return (int)cudaErrorInvalidValue;
+  const Tiles t{bn, bt, bh, bw, splits};
+  cudaError_t err = conv::to_bf16(g, gb, (size_t)B * N * C, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = rconv<conv::kBf16>(gb, w2t_map, nullptr, dh, nullptr, B, T, H, W, C, t, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gn_silu_bwd<__nv_bfloat16, __nv_bfloat16>(h2, emb, dh, g2s, g2b, nullptr, dv, demb, B, N,
+                                                  C, groups, gt, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = rconv<conv::kBf16>(dv, w1t_map, nullptr, dh, nullptr, B, T, H, W, C, t, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)gn_silu_bwd<float, float>(x, nullptr, dh, g1s, g1b, g, dx, nullptr, B, N, C, groups,
+                                        gt, eps, stream);
 }

@@ -46,8 +46,9 @@ within-cuboid order.  Its kernel replaces
 forward's two products around a core on the tensor cores (bf16 ``mma.sync``,
 p in registers), tiled by :func:`cuboid_layer_plan`; its input
 gradient (:func:`fused_cuboid_attention_layer_bwd_dx`)
-``fused_cuboid_attention_layer_v4_bwd_dx``, with the axial kernels' bf16
-rounding points; its all-gradients backward
+``fused_cuboid_attention_layer_v4_bwd_dx``: the axial backward's launches
+around a gradient core of its own on the tensor cores (:func:`cuboid_bwd_plan`),
+with the axial kernels' bf16 rounding points; its all-gradients backward
 (:func:`fused_cuboid_attention_layer_bwd_full`)
 ``fused_cuboid_attention_layer_v4_bwd_full``, and with dropout
 (:func:`fused_cuboid_attention_layer_dropout`,
@@ -97,9 +98,9 @@ _SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
                                                     + [_P]),
                "cuboid_attention_forward": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
                "cuboid_attention_dropout_forward": [_P] * 10 + [_I] * 8 + [_F, _F] + _DROP + [_P],
-               "cuboid_attention_bwd_dx": [_P] * 13 + [_I] * 6 + [_F, _F, _P],
-               "cuboid_attention_bwd_full": [_P] * 22 + [_I] * 10 + [_F, _F, _P],
-               "cuboid_attention_dropout_bwd_full": ([_P] * 23 + [_I] * 10 + [_F, _F] + _DROP
+               "cuboid_attention_bwd_dx": [_P] * 15 + [_I] * 7 + [_F, _F, _P],
+               "cuboid_attention_bwd_full": [_P] * 26 + [_I] * 11 + [_F, _F, _P],
+               "cuboid_attention_dropout_bwd_full": ([_P] * 26 + [_I] * 11 + [_F, _F] + _DROP
                                                      + [_P]),
                "cuboid_attention_grouped": [_P] * 6 + [_I] * 5 + [_F, _P],
                "cuboid_core_forward": [_P] * 6 + [_I] * 5 + [_F, _P],
@@ -203,13 +204,21 @@ def axial_bwd_plan(M: int, C: int, vol: int, heads: int) -> AxialBwdPlan:
     # cuboids per core block: the core is bound by latency, so about eight
     # blocks per SM first, then fewer dbias partials
     per_block = max(1, min(8, n_cuboids * heads // (8 * SMS)))
-    qkv = (attention_plan(M, C)[0] if C <= LN_MAX_K else GemmPlan(M, 3 * C, C, GEMM_ROWS, False))
+    qkv, dattn, dln, wgrad_qkv, wgrad_proj, ld = _bwd_products(M, C)
     hc = C // heads
-    return AxialBwdPlan(qkv, GemmPlan(M, C, C, GEMM_ROWS, False),
-                        GemmPlan(M, C, 3 * C, GEMM_ROWS, False), per_block,
-                        -(-n_cuboids // per_block), 4 * (4 * vol * (hc + 1) + 3 * vol * vol),
-                        wgrad.wgrad_plan(3 * C, C, M), wgrad.wgrad_plan(C, C, M),
-                        wgrad.token_ld(M))
+    return AxialBwdPlan(qkv, dattn, dln, per_block, -(-n_cuboids // per_block),
+                        4 * (4 * vol * (hc + 1) + 3 * vol * vol), wgrad_qkv, wgrad_proj, ld)
+
+
+def _bwd_products(M: int, C: int):
+    """What every layer backward (``csrc/attention.cu`` ``layer_bwd_launches``)
+    runs around its core at M tokens of width C: the forward's LN + QKV
+    product (past the LN tile on bf16 LN rows by TMA), ``dattn = do . Wproj``
+    and ``dln = dqkv . Wqkv``, the two weight gradients and the row stride of
+    their width-major operands."""
+    qkv = (attention_plan(M, C)[0] if C <= LN_MAX_K else GemmPlan(M, 3 * C, C, GEMM_ROWS, False))
+    return (qkv, GemmPlan(M, C, C, GEMM_ROWS, False), GemmPlan(M, C, 3 * C, GEMM_ROWS, False),
+            wgrad.wgrad_plan(3 * C, C, M), wgrad.wgrad_plan(C, C, M), wgrad.token_ld(M))
 
 
 @dataclass(frozen=True)
@@ -293,6 +302,115 @@ def cuboid_layer_plan(n_cuboids: int, vol: int, C: int, heads: int) -> CuboidLay
         raise ValueError(f"cuboid attention kernel: a cuboid of {vol} rows x {hc} head channels "
                          "does not fit in shared memory")
     return CuboidLayerPlan(qkv, fits[0], proj)
+
+
+@dataclass(frozen=True)
+class CuboidBwdPlan:
+    """The general layer's backward (``csrc/attention.cu``
+    ``cuboid_bwd_launches``) at ``n_cuboids`` cuboids of ``vol`` rows x C:
+    the axial backward's products and weight gradients (as
+    :func:`axial_bwd_plan` tiles them) around a gradient core on the tensor
+    cores.  ``fused``: one launch (``cuboid_bwd_core_kernel``), a block per
+    (``per_block`` cuboids, head) with ``vol16 / 16`` warps, a whole cuboid's
+    bf16 q . scale, k, v, dattn (``vol16`` rows of ``hcp`` channels at a
+    stride of ``hcp + 8``) and its bf16 ds and dropped p (``vol16`` x
+    ``vol16 + 8``) in shared memory, one dbias partial per block.  Else the
+    split pair (``cuboid_bwd_q_kernel``, ``cuboid_bwd_kv_kernel``), a block
+    per (cuboid, head, ``rows`` rows) with k and v (then q . scale and dattn
+    and the rows' statistics) of the whole cuboid in shared memory, one dbias
+    partial per cuboid."""
+    qkv: GemmPlan
+    dattn: GemmPlan
+    dln: GemmPlan
+    n_cuboids: int
+    vol: int
+    hc: int
+    heads: int
+    fused: bool
+    rows: int
+    per_block: int
+    wgrad_qkv: wgrad.WgradPlan
+    wgrad_proj: wgrad.WgradPlan
+    ld: int
+
+    @property
+    def hcp(self) -> int:
+        return -(-self.hc // 16) * 16
+
+    @property
+    def vol16(self) -> int:
+        return -(-self.vol // 16) * 16
+
+    @property
+    def parts(self) -> int:
+        """The dbias partials the fixed-order sum adds."""
+        return -(-self.n_cuboids // self.per_block) if self.fused else self.n_cuboids
+
+    @property
+    def core_smem(self) -> int:
+        """Shared memory of the core's largest block."""
+        operand = 2 * (self.hcp + 8) * self.vol16
+        if self.fused:
+            return 4 * operand + 2 * 2 * self.vol16 * (self.vol16 + 8)
+        return 2 * operand + 4 * 3 * self.vol16
+
+    @property
+    def key_tiles(self) -> int:
+        """64-key tiles of a query row (the query-row kernel's instance)."""
+        return next(t for t in (1, 2, 4) if self.vol <= 64 * t)
+
+    @property
+    def fragment_registers(self) -> int:
+        """32-bit registers of fragment state a thread holds at most: three
+        16 x 64 f32 tiles (s or p, dp, the dropped p) and an output slice (32
+        each), and the bf16 fragments of ds and the dropped p (16 per 64 keys;
+        the query-row kernel holds one set over all its key tiles, the
+        key-row kernel adds the dk and dv sums)."""
+        if self.fused:
+            return 4 * 32 + 2 * 16
+        return max(3 * 32 + 32 + 16 * self.key_tiles, 3 * 32 + 2 * 16 + 2 * 32)
+
+    @property
+    def grid(self):
+        return ((-(-self.n_cuboids // self.per_block), self.heads) if self.fused
+                else (self.n_cuboids, self.heads, -(-self.vol // self.rows)))
+
+    def warp_rows(self, z: int, warp: int) -> range:
+        """The rows (query rows, then keys) of its cuboids that warp ``warp``
+        of a block at grid z (0 where fused) takes."""
+        r0 = (0 if self.fused else z * self.rows) + 16 * warp
+        return range(min(r0, self.vol), min(r0 + 16, self.vol))
+
+    def block_cuboids(self, x: int) -> range:
+        """The cuboids of a block at grid x."""
+        if not self.fused:
+            return range(x, x + 1)
+        return range(x * self.per_block, min(self.n_cuboids, (x + 1) * self.per_block))
+
+
+@lru_cache(maxsize=None)
+def cuboid_bwd_plan(n_cuboids: int, vol: int, C: int, heads: int) -> CuboidBwdPlan:
+    """The fused core where vol <= 64 and it fits a block's shared memory,
+    cuboids per block such that about four blocks per SM remain (fewer
+    dbias partials past that), else the split pair on 64-row blocks (vol16
+    below that); raise where neither fits (never where the forward's
+    :func:`cuboid_layer_plan` does: each of the split's blocks holds two of
+    the cuboid's tiles, the forward's three)."""
+    hc, vol16 = C // heads, -(-vol // 16) * 16
+    qkv, dattn, dln, wgrad_qkv, wgrad_proj, ld = _bwd_products(n_cuboids * vol, C)
+
+    def plan(fused: bool, per_block: int) -> CuboidBwdPlan:
+        return CuboidBwdPlan(qkv, dattn, dln, n_cuboids, vol, hc, heads, fused, min(64, vol16),
+                             per_block, wgrad_qkv, wgrad_proj, ld)
+
+    fused = plan(True, max(1, min(8, n_cuboids * heads // (4 * SMS))))
+    if vol <= 64 and fused.core_smem <= GEMM_SMEM_CAP:
+        return fused
+    split = plan(False, 1)
+    if split.core_smem > GEMM_SMEM_CAP:
+        raise ValueError(f"cuboid attention kernel: a cuboid of {vol} rows x {hc} head channels "
+                         "does not fit in shared memory")
+    return split
 
 
 def axial_cuboid_size(shape, axis: int):
@@ -769,47 +887,17 @@ cuboid_attention_dropout_plain = cuboid_attention_plain
 cuboid_attention_dropout_bwd_full_plain = cuboid_attention_bwd_full_plain
 
 
-def _cuboid_query_tile(vol: int, hc: int) -> int:
-    """Query rows per tile of the general layer's forward and query-tile
-    gradient cores: the most of 32, 16, 8 for which k and v of a whole cuboid
-    (bf16) and the gradient core's four f32 tiles fit in a block's shared
-    memory; raise where none does."""
-    kv = 2 * 2 * vol * (hc + 2)
-    for rows in (32, 16, 8):
-        if kv + 4 * 2 * rows * ((hc + 1) + (vol + 1)) <= SMEM_BYTES:
-            return min(rows, vol)
-    raise ValueError(f"cuboid attention kernel: a cuboid of {vol} rows x {hc} head channels "
-                     "does not fit in shared memory")
-
-
-def _cuboid_key_tile(vol: int, hc: int) -> int:
-    """Key rows (and query rows) per tile of the all-gradients key-tile core:
-    the most of 32, 16, 8, 4, 2, 1 (at most vol) for which k, v, q and dO
-    tiles (bf16), the dk and dv sums, the p and ds tiles, the row statistics
-    and the (vol, tile) bias-gradient sum (f32) fit in a block's shared
-    memory (``cuboid_kv_smem`` in ``csrc/attention.cu``).  Where the query
-    tiles of :func:`_cuboid_query_tile` fit, a tile of 1 fits too."""
-    for rows in (32, 16, 8, 4, 2, 1):
-        t = min(rows, vol)
-        if 2 * 4 * t * (hc + 2) + 4 * (2 * t * (hc + 1) + 2 * t * (t + 1) + 3 * t + vol * t) \
-                <= SMEM_BYTES:
-            return t
-    raise ValueError(f"cuboid attention kernel: a cuboid of {vol} rows x {hc} head channels "
-                     "does not fit in shared memory")
-
-
 def _cuboid_refusal(n_cuboids: int, vol: int, C: int, num_heads: int) -> Optional[str]:
     """Why the general layer's kernels refuse ``n_cuboids`` cuboids of
-    ``vol`` rows x C channels, or None where they all launch: the widths,
-    the forward's plan (:func:`cuboid_layer_plan`) and the gradient cores'
-    tiles (:func:`_cuboid_query_tile`, :func:`_cuboid_key_tile`)."""
+    ``vol`` rows x C channels, or None where they all launch: the widths and
+    the plans of the forward (:func:`cuboid_layer_plan`) and of the backward
+    (:func:`cuboid_bwd_plan`)."""
     if C % 64 != 0 or C % num_heads != 0 or not 1 <= vol <= V4_MAX_ROWS or n_cuboids < 1:
         return (f"cuboid attention kernel: C={C} (takes multiples of 64), heads={num_heads}, "
                 f"vol={vol} (takes 1..{V4_MAX_ROWS}) not supported")
     try:
         cuboid_layer_plan(n_cuboids, vol, C, num_heads)
-        _cuboid_query_tile(vol, C // num_heads)
-        _cuboid_key_tile(vol, C // num_heads)
+        cuboid_bwd_plan(n_cuboids, vol, C, num_heads)
     except ValueError as e:
         return str(e)
     return None
@@ -829,7 +917,7 @@ def _check_cuboid(x, num_heads):
     why = _cuboid_refusal(B * nC, vol, C, num_heads)
     if why is not None:
         raise ValueError(why)
-    return B * nC, vol, C, _cuboid_query_tile(vol, C // num_heads)
+    return B * nC, vol, C
 
 
 def _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps, drop=None):
@@ -837,7 +925,7 @@ def _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale,
     parameter version, with one bf16 scratch for qkv and the head outputs
     (also the LN rows where C exceeds the LN tile); ``drop`` = (rate_attn,
     rate_proj, seed, site) takes the dropout entry point."""
-    n_cuboids, vol, C, _ = _check_cuboid(x, num_heads)
+    n_cuboids, vol, C = _check_cuboid(x, num_heads)
     plan = cuboid_layer_plan(n_cuboids, vol, C, num_heads)
     _build.require("cuboid_attention", [
         ("x", x, tuple(x.shape)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
@@ -897,23 +985,27 @@ def fused_cuboid_attention_layer_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: 
     if not x.is_cuda:
         return cuboid_attention_bwd_dx_plain(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
                                              scale, eps)
-    n_cuboids, vol, C, q_tile = _check_cuboid(x, num_heads)
+    n_cuboids, vol, C = _check_cuboid(x, num_heads)
     _build.require("cuboid_attention_bwd_dx", [
         ("x", x, tuple(x.shape)), ("g", g, tuple(x.shape)), ("ln_w", ln_w, (C,)),
         ("ln_b", ln_b, (C,)), ("w_qkv", w_qkv, (3 * C, C)),
         ("bias", bias, (num_heads, vol, vol)), ("w_proj", w_proj, (C, C))])
+    x, g, ln_w, ln_b = _build.aligned16(x, g, ln_w, ln_b)
+    plan = cuboid_bwd_plan(n_cuboids, vol, C, num_heads)
     M = n_cuboids * vol
-    f32 = dict(dtype=torch.float32, device=x.device)
-    qkv, dqkv = torch.empty((M, 3 * C), **f32), torch.empty((M, 3 * C), **f32)
-    dattn, dln = torch.empty((M, C), **f32), torch.empty((M, C), **f32)
-    stats = torch.empty((n_cuboids, num_heads, vol, 3), **f32)
-    dx = torch.empty_like(x)
     lib = _build.load("attention", _SIGNATURES)
+    maps = _bwd_maps(plan, w_qkv, w_proj, lib)
+    bf16 = dict(dtype=torch.bfloat16, device=x.device)
+    scratch = [torch.empty((M, 3 * C), **bf16), torch.empty((M, C), **bf16),   # qkv, do
+               torch.empty((M, C), **bf16), torch.empty((M, 3 * C), **bf16),   # dattn, dqkv
+               torch.empty((M, C), dtype=torch.float32, device=x.device),      # dln
+               _stats(plan, x.device)]
+    dx = torch.empty_like(x)
     err = lib.cuboid_attention_bwd_dx(
-        *(_build.ptr(t) for t in (x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln,
-                                  stats, dx)),
-        n_cuboids, vol, C, num_heads, q_tile, _cuboid_key_tile(vol, C // num_heads),
-        float(scale), float(eps), _build.stream_ptr(x.device))
+        _build.ptr(x), _build.ptr(g), _build.ptr(ln_w), _build.ptr(ln_b), maps[0],
+        _build.ptr(bias), maps[1], maps[2], *(_build.ptr(t) for t in scratch + [dx]),
+        n_cuboids, vol, C, num_heads, plan.qkv.bn, int(plan.fused), plan.rows, float(scale),
+        float(eps), _build.stream_ptr(x.device))
     _build.check(err, "cuboid_attention_bwd_dx")
     fused_cuboid_attention_layer_bwd_dx.launches += 1
     return dx
@@ -951,48 +1043,52 @@ def fused_cuboid_attention_layer_dropout_bwd_full(x: torch.Tensor, g: torch.Tens
                                    (rate_attn, rate_proj, seed, site))
 
 
+def _stats(plan: CuboidBwdPlan, device) -> torch.Tensor:
+    """The split core's per-row statistics (max, sum, D), or a stand-in where
+    the core is fused and reads none."""
+    shape = (plan.n_cuboids, plan.heads, plan.vol, 3) if not plan.fused else (4,)
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+
 def _cuboid_bwd_full_kernel(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, scale, eps,
                             drop=None):
-    n_cuboids, vol, C, q_tile = _check_cuboid(x, num_heads)
-    tile = _cuboid_key_tile(vol, C // num_heads)
+    n_cuboids, vol, C = _check_cuboid(x, num_heads)
     _build.require("cuboid_attention_bwd_full", [
         ("x", x, tuple(x.shape)), ("g", g, tuple(x.shape)), ("ln_w", ln_w, (C,)),
         ("ln_b", ln_b, (C,)), ("w_qkv", w_qkv, (3 * C, C)),
         ("bias", bias, (num_heads, vol, vol)), ("w_proj", w_proj, (C, C))])
-    M = n_cuboids * vol
-    # cuboids per key-tile block: fewer dbias partials, still about two blocks per SM
-    per_block = max(1, min(8, n_cuboids * num_heads * -(-vol // tile) // _build.TARGET_BLOCKS))
-    groups = -(-n_cuboids // per_block)
-    ld = wgrad.token_ld(M)
+    x, g, ln_w, ln_b = _build.aligned16(x, g, ln_w, ln_b)
+    plan = cuboid_bwd_plan(n_cuboids, vol, C, num_heads)
+    M, ld = n_cuboids * vol, plan.ld
+    lib = _build.load("attention", _SIGNATURES)
+    maps = _bwd_maps(plan, w_qkv, w_proj, lib)
     f32 = dict(dtype=torch.float32, device=x.device)
     bf16 = dict(dtype=torch.bfloat16, device=x.device)
-    qkv, dqkv = torch.empty((M, 3 * C), **f32), torch.empty((M, 3 * C), **f32)
-    dattn, dln = torch.empty((M, C), **f32), torch.empty((M, C), **f32)
-    ln_bf, attn_bf = torch.empty((M, C), **bf16), torch.empty((M, C), **bf16)
-    stats = torch.empty((n_cuboids, num_heads, vol, 3), **f32)
-    dbias_part = torch.empty((groups, num_heads, vol, vol), **f32)
-    vpart = torch.empty((-(-M // VEC_ROWS), 3, C), **f32)
-    tbuf = torch.empty((6 * C, ld), **bf16)   # dqkv^T, LN^T, do^T, attn^T: the wgrad operands
+    scratch = [torch.empty((M, 3 * C), **bf16), torch.empty((M, C), **bf16),   # qkv, do
+               torch.empty((M, C), **bf16), torch.empty((M, 3 * C), **bf16),   # dattn, dqkv
+               torch.empty((M, C), **f32), torch.empty((M, C), **bf16),        # dln, attn
+               torch.empty((C, ld), **bf16), torch.empty((C, ld), **bf16),     # LN^T, do^T
+               torch.empty((C, ld), **bf16), torch.empty((3 * C, ld), **bf16),  # attn^T, dqkv^T
+               _stats(plan, x.device),
+               torch.empty((plan.parts, num_heads, vol, vol), **f32),
+               torch.empty((-(-M // VEC_ROWS), 3, C), **f32)]
     dx, dw_qkv, dbias, dw_proj = (torch.empty_like(x), torch.empty_like(w_qkv),
                                   torch.empty_like(bias), torch.empty_like(w_proj))
     vec = torch.empty((3, C), **f32)
-    lib = _build.load("attention", _SIGNATURES)
-    head = [x, g, ln_w, ln_b, w_qkv, bias, w_proj, qkv, dattn, dqkv, dln, ln_bf, attn_bf]
-    tail = [stats, dbias_part, vpart, tbuf, dx, dw_qkv, dbias, dw_proj, vec]
-    dims = (n_cuboids, vol, C, num_heads, q_tile, tile, per_block, ld,
-            wgrad.wgrad_plan(3 * C, C, M).splits, wgrad.wgrad_plan(C, C, M).splits,
-            float(scale), float(eps))
+    args = [_build.ptr(x), _build.ptr(g), _build.ptr(ln_w), _build.ptr(ln_b), maps[0],
+            _build.ptr(bias), maps[1], maps[2],
+            *(_build.ptr(t) for t in scratch + [dx, dw_qkv, dbias, dw_proj, vec]),
+            n_cuboids, vol, C, num_heads, plan.qkv.bn, int(plan.fused), plan.rows,
+            plan.per_block, ld, plan.wgrad_qkv.splits, plan.wgrad_proj.splits, float(scale),
+            float(eps)]
     if drop is None:
-        err = lib.cuboid_attention_bwd_full(*(_build.ptr(t) for t in head + tail), *dims,
-                                            _build.stream_ptr(x.device))
+        err = lib.cuboid_attention_bwd_full(*args, _build.stream_ptr(x.device))
         _build.check(err, "cuboid_attention_bwd_full")
         fused_cuboid_attention_layer_bwd_full.launches += 1
     else:
         rate_attn, rate_proj, seed, site = drop
-        do_bf = torch.empty((M, C), **bf16)
         err = lib.cuboid_attention_dropout_bwd_full(
-            *(_build.ptr(t) for t in head + [do_bf] + tail), *dims,
-            *_build.drop_args(seed, site, rate_attn, rate_proj), _build.stream_ptr(x.device))
+            *args, *_build.drop_args(seed, site, rate_attn, rate_proj), _build.stream_ptr(x.device))
         _build.check(err, "cuboid_attention_dropout_bwd_full")
         fused_cuboid_attention_layer_dropout_bwd_full.launches += 1
     return dx, vec[0], vec[1], dw_qkv, dbias, dw_proj, vec[2]

@@ -30,12 +30,12 @@ from . import _build, weights
 from .ffn import _round
 
 _P, _I = _build.P, _build.I
-_SIGNATURES = {"conv3x3x3_forward": [_P] * 5 + [_I] * 10 + [_P],
-               "conv3x3x3_weight_map": [_P, _I, _I, _P], **weights.MAP_SIGNATURE}
+_SIGNATURES = {"conv3x3x3_forward": [_P] * 5 + [_I] * 11 + [_P],
+               "conv3x3x3_weight_map": [_P, _I, _I, _I, _P], **weights.MAP_SIGNATURE}
 # the JAX package's VMEM budget of its routing rule (prediff_tpu/ops/dispatch.py)
 VMEM_BUDGET_BYTES = 12 * 1024 * 1024
-# csrc/conv3d.cu: kBM tokens (one box) x 256 or 128 output channels a block
-# (tile_n), K in slices of kBK
+# csrc/conv_wgmma.cuh: kBM tokens (one box) x 256, 128 or 64 output channels
+# a block, K in slices of kBK
 TOKEN_TILE, K_SLICE = 128, 64
 SMS = 132   # the H100's SMs: one block each (the ring takes most of an SM's shared memory)
 SPLITS = (1, 2, 4, 8)   # cluster sizes that pack into the H100's GPCs (3, 5 or 6 do not)
@@ -136,7 +136,7 @@ def _pow2_at_least(n: int) -> int:
 class ConvPlan:
     """What the kernel is handed for a conv of (B, T, H, W) tokens, K -> N
     channels: the token box (bt, bh, bw) of ``TOKEN_TILE`` tokens, the boxes
-    per axis, the output-channel tile (256 where N allows, else 128) and how
+    per axis, the output-channel tile (256, 128 or 64) and how
     many blocks of a cluster split the 27 x K / ``K_SLICE`` slices of the
     reduction."""
     B: int
@@ -178,22 +178,37 @@ class ConvPlan:
 
 @lru_cache(maxsize=None)
 def conv_plan(B: int, T: int, H: int, W: int, K: int, N: int) -> ConvPlan:
-    """The box is as wide as W (to a power of two, at most the tile), then
-    as high as H, then deep in t to fill ``TOKEN_TILE`` tokens; the most
-    splits of ``SPLITS`` that keep every block in one wave over the ``SMS``
-    SMs (a second wave would double the time)."""
+    """The standalone conv's plan (:func:`conv_tiles`), for the channels its
+    entry point takes (N a multiple of 128)."""
     if K % K_SLICE or N % 128 or min(B, T, H, W, K, N) < 1:
         raise ValueError(f"conv3x3x3 kernel: {K} -> {N} channels not supported "
                          f"(K % {K_SLICE} == 0, N % 128 == 0)")
+    return conv_tiles(B, T, H, W, K, N)
+
+
+@lru_cache(maxsize=None)
+def conv_tiles(B: int, T: int, H: int, W: int, K: int, N: int) -> ConvPlan:
+    """The kernel's tiles (``csrc/conv_wgmma.cuh``, which the resblock shares):
+    the box is as wide as W (to a power of two, at most the tile), then as
+    high as H, then deep in t to fill ``TOKEN_TILE`` tokens; the output-channel
+    tile the widest of 256, 128, 64 dividing N whose blocks fill half the SMs
+    (a narrower tile re-reads each token box, so no narrower than that; 64
+    where none does); the most splits of ``SPLITS`` that keep every block in
+    one wave over the ``SMS`` SMs (a second wave would double the time)."""
+    if K % K_SLICE or N % 64 or min(B, T, H, W, K, N) < 1:
+        raise ValueError(f"conv kernel: {K} -> {N} channels not supported "
+                         f"(K % {K_SLICE} == 0, N % 64 == 0)")
     bw = min(_pow2_at_least(W), TOKEN_TILE)
     bh = min(_pow2_at_least(H), TOKEN_TILE // bw)
     bt = TOKEN_TILE // (bw * bh)
     boxes = (-(-T // bt), -(-H // bh), -(-W // bw))
-    n_tile = 256 if N % 256 == 0 else 128
-    tiles = B * boxes[0] * boxes[1] * boxes[2] * (N // n_tile)
     slices = 27 * K // K_SLICE
-    splits = max(s for s in SPLITS if s == 1 or (s <= slices and tiles * s <= SMS))
-    return ConvPlan(B, T, H, W, K, N, (bt, bh, bw), boxes, n_tile, splits)
+    plans = []
+    for n_tile in (t for t in (256, 128, 64) if N % t == 0):
+        tiles = B * boxes[0] * boxes[1] * boxes[2] * (N // n_tile)
+        splits = max(s for s in SPLITS if s == 1 or (s <= slices and tiles * s <= SMS))
+        plans.append(ConvPlan(B, T, H, W, K, N, (bt, bh, bw), boxes, n_tile, splits))
+    return next((p for p in plans if p.m_tiles * p.n_tiles * p.splits >= SMS // 2), plans[-1])
 
 
 def _forward_layout(k: torch.Tensor) -> torch.Tensor:
@@ -216,17 +231,18 @@ def weight_layout(weight: torch.Tensor, dx: bool = False) -> torch.Tensor:
 _KINDS = {False: ("conv", _forward_layout), True: ("conv_dx", _dx_layout)}
 
 
-def _weight_map(weight: torch.Tensor, dx: bool):
-    """The cached layout and its TMA tensor map (128 bytes, made on first use)."""
+def weight_map(weight: torch.Tensor, dx: bool, n_tile: int):
+    """The cached layout and its TMA tensor map (128 bytes, made on first use
+    for each output-channel tile: boxes of ``n_tile`` rows)."""
     def encode(layout):
         _, N, K = layout.shape
         lib = _build.load("conv3d", _SIGNATURES)
         desc = ctypes.create_string_buffer(128)
-        _build.check(lib.conv3x3x3_weight_map(_build.ptr(layout), N, K, desc),
+        _build.check(lib.conv3x3x3_weight_map(_build.ptr(layout), N, K, n_tile, desc),
                      "conv3x3x3_weight_map")
         return desc
 
-    return weights.tensor_map(weight, *_KINDS[dx], None, encode)
+    return weights.tensor_map(weight, *_KINDS[dx], n_tile, encode)
 
 
 def _launch(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -244,13 +260,13 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                          f"does not fit x {tuple(x.shape)} -> {N} channels")
     if x.data_ptr() % 16:
         raise ValueError("conv3x3x3 kernel: x must be 16-byte aligned")
-    layout, desc = _weight_map(weight, dx)
+    layout, desc = weight_map(weight, dx, plan.n_tile)
     xb = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     out = torch.empty((B, T, H, W, N), dtype=torch.float32, device=x.device)
     lib = _build.load("conv3d", _SIGNATURES)
     err = lib.conv3x3x3_forward(_build.ptr(x), _build.ptr(xb), desc,
                                 None if bias is None else _build.ptr(bias), _build.ptr(out),
-                                B, T, H, W, K, N, *plan.box, plan.splits,
+                                B, T, H, W, K, N, plan.n_tile, *plan.box, plan.splits,
                                 _build.stream_ptr(x.device))
     _build.check(err, "conv3x3x3_forward")
     return out

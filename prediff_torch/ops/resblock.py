@@ -4,14 +4,16 @@
 
 The kernels (``csrc/resblock.cu``) replace
 ``prediff_tpu/ops/pallas_resblock.py::fused_resblock`` and its backward
-``_fused_resblock_bwd``: the convolutions are hand-written implicit GEMMs
-(bf16 operands, f32 accumulation), the GroupNorms run one block per
-(group, sample).  The forward also returns ``h2 = conv1(.) + b1``, kept for
-the backward (bf16 from the kernel, as the TPU kernel keeps it); the
+``_fused_resblock_bwd``: the four convolutions run on the standalone conv's
+TMA + wgmma kernel (``csrc/conv_wgmma.cuh``; bf16 operands, f32
+accumulation, tiled by ``ops/conv3d.conv_tiles``), each GroupNorm pass in
+one launch of a thread-block cluster per (group, sample) (row 1's design,
+:func:`gn_tiles`).  The forward also returns ``h2 = conv1(.) + b1``, kept
+for the backward (bf16 from the kernel, as the TPU kernel keeps it); the
 backward gives (dx, demb).  Conv weights are in PyTorch ``Conv3d`` layout
-(C, C, 3, 3, 3); the wrappers lay them out as (27, in, out) for the
-kernel, flipped and transposed for the backward (``ops/conv3d.py``'s
-``conv_weight`` / ``conv_weight_t``; the conv itself is ``csrc/conv3.cuh``).
+(C, C, 3, 3, 3); the kernels read their bf16 layouts, the forward's and the
+flipped transpose of the backward, laid out once per parameter version by
+``ops/conv3d.weight_map`` (the cache of ``ops/weights.py``).
 
 :func:`fused_resblock` is differentiable: (dx, demb) from
 :func:`fused_resblock_bwd`, parameter gradients (only when asked for) from
@@ -22,21 +24,20 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import _build
-from .conv3d import conv_weight, conv_weight_t
+from . import _build, conv3d
 from .ffn import _round
-from .groupnorm import groupnorm_silu_plain
+from .groupnorm import GN_MAX_CLUSTER, GN_SMEM_CAP, GN_TARGET_BLOCKS, groupnorm_silu_plain
 
 _P, _I, _F = _build.P, _build.I, _build.F
-_SIGNATURES = {"resblock_forward": [_P] * 14 + [_I] * 6 + [_F, _P],
-               "resblock_backward": [_P] * 15 + [_I] * 6 + [_F, _P]}
+_SIGNATURES = {"resblock_forward": [_P] * 13 + [_I] * 13 + [_F, _P],
+               "resblock_backward": [_P] * 15 + [_I] * 13 + [_F, _P]}
 _GN_THREADS = 256   # csrc/resblock.cu kGnThreads
-_TAP_SPLITS = 9     # csrc/resblock.cu kTapSplits
 
 
 def supports(C: int, groups: int) -> bool:
     """What the kernels take: C a multiple of 64 (the conv's 64-channel
-    output tile; the alignment net's 128 and 256 fit), groups dividing C with
+    input slice and smallest output tile; the alignment net's 128 and 256
+    fit), groups dividing C with
     C / groups dividing 256 (the GN block's threads)."""
     return C % 64 == 0 and C % groups == 0 and _GN_THREADS % (C // groups) == 0
 
@@ -106,12 +107,6 @@ def resblock_bwd_plain(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g, groups: int = 
     return dx.to(x.dtype), demb.to(emb.dtype)
 
 
-def _workspace(x: torch.Tensor) -> torch.Tensor:
-    """The convs' per-split partial sums, (splits, tokens, C) f32."""
-    return torch.empty((_TAP_SPLITS, x[..., 0].numel(), x.shape[-1]), dtype=torch.float32,
-                       device=x.device)
-
-
 def _specs(x, emb, groups, **vectors):
     B, T, H, W, C = x.shape
     if not supports(C, groups):
@@ -119,6 +114,35 @@ def _specs(x, emb, groups, **vectors):
                          f"(C % 64 == 0, 256 % (C / groups) == 0)")
     return ([("x", x, (B, T, H, W, C)), ("emb", emb, (B, C))]
             + [(n, t, (C,)) for n, t in vectors.items()])
+
+
+def gn_tiles(B: int, N: int, C: int, groups: int):
+    """(ranks, tokens a rank) of the GroupNorm passes' clusters (row 1's
+    rule, ``ops/groupnorm.gn_plan``): the smallest of 1, 2, 4, 8 (at most N)
+    that gives ``GN_TARGET_BLOCKS`` blocks, larger until a rank's tiles fit
+    (the backward's two f32 tiles, the values and dh, beside the kernel's
+    own 2 KB); (0, 0) where even 8 ranks' do not: the one-block-per-group
+    kernels."""
+    cpg = C // groups
+    sizes = [r for r in (1, 2, 4, GN_MAX_CLUSTER) if r <= max(N, 1)]
+    want = next((r for r in sizes if B * groups * r >= GN_TARGET_BLOCKS), sizes[-1])
+    for r in sizes:
+        tpr = -(-N // r)
+        if r >= want and 8 * tpr * cpg <= GN_SMEM_CAP - 2048:
+            return r, tpr
+    return 0, 0
+
+
+def _conv_args(x, k1, k2, groups: int, dx: bool):
+    """The two convs' weight maps (the forward's layouts, or with ``dx`` the
+    flipped transposes) and the tiles: the convs' output-channel tile, box
+    (bt, bh, bw) and cluster split (``conv_tiles``), then the GroupNorm
+    passes' ranks and tokens a rank."""
+    B, T, H, W, C = x.shape
+    _build.require("resblock", [("k1", k1, (C, C, 3, 3, 3)), ("k2", k2, (C, C, 3, 3, 3))])
+    plan = conv3d.conv_tiles(B, T, H, W, C, C)
+    return ([conv3d.weight_map(k1, dx, plan.n_tile)[1], conv3d.weight_map(k2, dx, plan.n_tile)[1]],
+            [plan.n_tile, *plan.box, plan.splits, *gn_tiles(B, T * H * W, C, groups)])
 
 
 def fused_resblock_fwd(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups: int = 32,
@@ -130,16 +154,15 @@ def fused_resblock_fwd(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups: int =
     B, T, H, W, C = x.shape
     _build.require("resblock", _specs(x, emb, groups, b1=b1, b2=b2, g1s=g1s, g1b=g1b,
                                       g2s=g2s, g2b=g2b))
-    w1, w2 = conv_weight(k1.float()), conv_weight(k2.float())
-    _build.require("resblock", [("k1", w1, (27, C, C)), ("k2", w2, (27, C, C))])
+    (w1, w2), tiles = _conv_args(x, k1, k2, groups, dx=False)
     h = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     h2 = torch.empty_like(h)
-    part = _workspace(x)
     out = torch.empty_like(x)
     lib = _build.load("resblock", _SIGNATURES)
-    err = lib.resblock_forward(
-        *(_build.ptr(t) for t in (x, emb, w1, b1, w2, b2, g1s, g1b, g2s, g2b, h, h2, part, out)),
-        B, T, H, W, C, groups, float(eps), _build.stream_ptr(x.device))
+    p = _build.ptr
+    err = lib.resblock_forward(p(x), p(emb), w1, p(b1), w2, p(b2), p(g1s), p(g1b), p(g2s),
+                               p(g2b), p(h), p(h2), p(out), B, T, H, W, C, groups, *tiles,
+                               float(eps), _build.stream_ptr(x.device))
     _build.check(err, "resblock_forward")
     fused_resblock_fwd.launches += 1
     return out, h2
@@ -154,18 +177,17 @@ def fused_resblock_bwd(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g, groups: int = 
     B, T, H, W, C = x.shape
     _build.require("resblock_bwd", _specs(x, emb, groups, g1s=g1s, g1b=g1b, g2s=g2s, g2b=g2b)
                    + [("g", g, x.shape), ("h2", h2, x.shape, torch.bfloat16)])
-    w1t, w2t = conv_weight_t(k1.float()), conv_weight_t(k2.float())
-    _build.require("resblock_bwd", [("k1", w1t, (27, C, C)), ("k2", w2t, (27, C, C))])
-    dh = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-    dv = torch.empty_like(dh)
-    part = _workspace(x)
+    (w1t, w2t), tiles = _conv_args(x, k1, k2, groups, dx=True)
+    (g,) = _build.aligned16(g)
+    gb = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    dh, dv = torch.empty_like(gb), torch.empty_like(gb)
     dx = torch.empty_like(x)
     demb = torch.empty((B, C), dtype=torch.float32, device=x.device)
     lib = _build.load("resblock", _SIGNATURES)
-    err = lib.resblock_backward(
-        *(_build.ptr(t) for t in (x, emb, g, h2, w1t, w2t, g1s, g1b, g2s, g2b, dh, dv, part, dx,
-                                  demb)),
-        B, T, H, W, C, groups, float(eps), _build.stream_ptr(x.device))
+    p = _build.ptr
+    err = lib.resblock_backward(p(x), p(emb), p(g), p(h2), w1t, w2t, p(g1s), p(g1b), p(g2s),
+                                p(g2b), p(gb), p(dh), p(dv), p(dx), p(demb), B, T, H, W, C, groups,
+                                *tiles, float(eps), _build.stream_ptr(x.device))
     _build.check(err, "resblock_backward")
     fused_resblock_bwd.launches += 1
     return dx, demb

@@ -18,7 +18,7 @@ import torch
 
 from prediff_tpu.ops import pallas_attention
 from prediff_torch.ops import attention, weights
-from prediff_torch.ops.attention import (_cuboid_query_tile, attention_plan,
+from prediff_torch.ops.attention import (attention_plan,
                                          cuboid_attention_dropout_plain, cuboid_layer_plan)
 from prediff_torch.ops.ffn import layer_norm_plain
 
@@ -74,15 +74,17 @@ def test_core_tiles_at_the_swin_shapes():
 @pytest.mark.parametrize("vol", [1, 8, 37, 64, 100, 144, 200, 256])
 @pytest.mark.parametrize("hc", [4, 8, 24, 32, 64, 128, 192, 196, 256, 512, 2048])
 def test_no_shape_the_layer_took_is_refused(vol, hc):
-    """Wherever the layer's gate (the gradient cores' tiles) takes a cuboid,
-    the forward's core fits too."""
+    """Wherever the layer's first gate (the first gradient cores' query tile:
+    8 rows at least beside the cuboid's bf16 k and v) took a cuboid, the
+    forward's core fits too, and so does the backward's plan: the layer
+    still takes it."""
     heads = 64 // math.gcd(hc, 64)
-    try:
-        _cuboid_query_tile(vol, hc)
-    except ValueError:
+    if not any(4 * vol * (hc + 2) + 8 * rows * ((hc + 1) + (vol + 1)) <= attention.SMEM_BYTES
+               for rows in (32, 16, 8)):
         return
     plan = cuboid_layer_plan(3, vol, hc * heads, heads)
     assert plan.core.smem_bytes <= attention.GEMM_SMEM_CAP
+    assert attention.supports_cuboid(3, vol, hc * heads, heads)
 
 
 def test_qkv_product_route_by_width():

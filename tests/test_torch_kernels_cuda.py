@@ -29,7 +29,7 @@ from prediff_torch.ops.attention import (cuboid_attention_layer_v3_plain,
                                          cuboid_attention_plain_core, fused_cuboid_attention,
                                          fused_cuboid_attention_layer_v3)
 from prediff_torch.ops.conv3d import (conv3x3x3_dx, conv3x3x3_dx_plain, conv3x3x3_forward,
-                                      conv3x3x3_plain, fused_conv3x3x3)
+                                      conv3x3x3_plain, fused_conv3x3x3, weight_layout)
 from prediff_torch.ops.cuboid import compute_cuboid_self_attention_mask
 from prediff_torch.ops.dropout import keep_mask
 from prediff_torch.ops.ffn import (ffn_bwd_dx_plain, ffn_bwd_full_plain, ffn_dropout_bwd_full_plain,
@@ -199,7 +199,11 @@ def _resblock_args(dev, shape):
             k(), v(), v(m=1.0), v(), v(m=1.0), v())
 
 
-@pytest.mark.parametrize("shape", [(1, 6, 16, 16, 128), (1, 6, 8, 8, 256), (2, 3, 4, 5, 64)])
+# the alignment net's blocks at B = 1 and 2, a 64-channel one, and a group past
+# 8 cluster ranks' shared memory (131072 tokens x 2 channels: the one-block
+# GroupNorm kernels, ops/resblock.gn_tiles)
+@pytest.mark.parametrize("shape", [(1, 6, 16, 16, 128), (1, 6, 8, 8, 256), (2, 3, 4, 5, 64),
+                                   (2, 6, 16, 16, 128), (2, 6, 8, 8, 256), (1, 8, 128, 128, 64)])
 def test_resblock_kernels_match_plain(dev, shape):
     args = _resblock_args(dev, shape)
     out, h2 = fused_resblock_fwd(*args)
@@ -687,14 +691,72 @@ def test_conv_kernel_repeats_bit_for_bit(dev, shape):
 def test_resblock_conv_is_the_shared_conv(dev):
     """The resblock's second conv against the plain conv: with GN2's gamma at
     0 the conv sees h3 = bf16(silu(beta2)) per channel, and the resblock's
-    output is that conv plus x.  (The resblock keeps the implicit GEMM of
-    csrc/conv3.cuh; the standalone conv is now its own TMA + wgmma kernel,
-    so the two agree to the conv's tolerance, no longer bit for bit.)"""
+    output is that conv plus x.  Both run the kernel of csrc/conv_wgmma.cuh
+    on the same tiles, so the resblock's output is the standalone conv's
+    plus x bit for bit."""
     shape = (1, 6, 8, 8, 256)
     x, emb, k1, b1, k2, b2, g1s, g1b, _, g2b = _resblock_args(dev, shape)
     out, _ = fused_resblock_fwd(x, emb, k1, b1, k2, b2, g1s, g1b, torch.zeros_like(g2b), g2b)
     h3 = (g2b / (1 + torch.exp(-g2b))).to(torch.bfloat16).float().expand(shape).contiguous()
     _conv_close(out, conv3x3x3_plain(h3, k2, b2) + x)
+    assert torch.equal(out, conv3x3x3_forward(h3, k2, b2) + x)
+
+
+def test_resblock_weights_are_laid_out_once_per_version(dev):
+    """The resblock reads its convs' bf16 layouts from the per-version cache:
+    the same layouts on a second call, two calls bit-equal; an in-place
+    update makes new ones, and the block follows it (against the plain
+    version), as under a frozen model's requires_grad_(False)."""
+    shape = (1, 6, 8, 8, 256)
+    args = _resblock_args(dev, shape)
+    k1 = args[2]
+    out, h2 = fused_resblock_fwd(*args)
+    first = (weight_layout(k1), weight_layout(k1, dx=True))
+    g = torch.randn(*shape, device=dev)
+    bargs = (args[0], args[1], args[2], args[4], *args[6:], h2, g)
+    dx, demb = fused_resblock_bwd(*bargs)
+    again, _ = fused_resblock_fwd(*args)
+    assert torch.equal(out, again)
+    assert torch.equal(dx, fused_resblock_bwd(*bargs)[0])
+    assert weight_layout(k1) is first[0] and weight_layout(k1, dx=True) is first[1]
+    with torch.no_grad():
+        k1.mul_(0.5)
+    k1.requires_grad_(False)
+    out, h2 = fused_resblock_fwd(*args)
+    assert weight_layout(k1) is not first[0]
+    _close_rel(out, resblock_plain(*args, mxu_dtype=torch.bfloat16)[0])
+
+
+# (B, cuboids, vol, C), heads: each route of the general layer's backward --
+# fused at C = 1024 (hc 256) and at 12 head channels in a ragged 40-row
+# cuboid, 3 head channels (odd: element-wise stores), the split pair at vol
+# 150 (three key tiles), at hc 512 in a 64-row cuboid (the fused core's
+# tiles do not fit), and at vol 17
+CUBOID_BWD_ROUTES = [((1, 4, 64, 1024), 4), ((1, 3, 40, 192), 16), ((2, 3, 24, 192), 64),
+                     ((2, 5, 150, 128), 4), ((1, 2, 64, 2048), 4), ((3, 2, 17, 64), 2)]
+
+
+@pytest.mark.parametrize("shape,heads", CUBOID_BWD_ROUTES)
+def test_cuboid_bwd_routes_match_plain(dev, shape, heads):
+    args = _cuboid_args(dev, shape, heads)
+    g = torch.randn_like(args[0])
+    scale = (shape[3] // heads) ** -0.5
+    bargs = (args[0], g, *args[1:6], heads, scale)
+    _close_rel(fused_cuboid_attention_layer_bwd_dx(*bargs),
+               cuboid_attention_bwd_dx_plain(*bargs, mxu_dtype=torch.bfloat16))
+    got = fused_cuboid_attention_layer_bwd_full(*bargs)
+    want = cuboid_attention_bwd_full_plain(*bargs, mxu_dtype=torch.bfloat16)
+    for name, gt, wt in zip(ATTN_GRADS, got, want):
+        assert gt.shape == wt.shape, name
+        _close_rel(gt, wt)
+    assert all(torch.equal(a, b) for a, b in zip(got, fused_cuboid_attention_layer_bwd_full(*bargs)))
+    drop = dict(rate_attn=0.1, rate_proj=0.1, seed=SEED, site=SITE)
+    got = fused_cuboid_attention_layer_dropout_bwd_full(*bargs, **drop)
+    want = cuboid_attention_dropout_bwd_full_plain(*bargs, mxu_dtype=torch.bfloat16, **drop)
+    for name, gt, wt in zip(ATTN_GRADS, got, want):
+        _close_rel(gt, wt)
+    zero = fused_cuboid_attention_layer_dropout_bwd_full(*bargs, seed=SEED, site=SITE)
+    assert all(torch.equal(a, b) for a, b in zip(zero, fused_cuboid_attention_layer_bwd_full(*bargs)))
 
 
 CORE_CASES = [((1, 52, 4, 64, 64), ((13, 16, 16), (1, 8, 8), (0, 4, 4), "zeros")),
