@@ -8,8 +8,8 @@ Phases, one JSON line each: the card; the kernels' build from
 ``prediff_torch/csrc``; each hand-written kernel against its plain PyTorch
 version at every shape the UNet (forecasting at B=1, training at the
 micro-batch size) and the alignment net give it, with times; ``bwd_split``,
-each launch's share of the all-gradients backwards at the training shapes,
-of the general layer's dx and of the resblock;
+each launch's share of the all-gradients backwards at the training shapes
+(GroupNorm+SiLU's too), of the general layer's dx and of the resblock;
 the ``tiny_*`` phases on ``configs/tiny_smoke.yaml``, whose widths (16, 32)
 every FFN, attention and resblock kernel refuses: a forecast, a guidance
 shift and a training step at dropout 0 and 0.1, card against CPU, with no
@@ -56,9 +56,10 @@ guidance shift card against CPU, ``conv_forecast`` and
 ``conv_train_grads``, ``conv_train`` and ``profile_conv_train_step`` (no
 rate-0 phase).  Then the ``kernels`` summary line (per kernel its ms,
 bound, library call and ``vs_library``; the conv, the grouped cores, the
-GroupNorm+SiLU forward and the FFN, axial attention and general cuboid layer
-forwards and all-gradients backwards also their device time alone from
-CUDA-graph replay, the forwards and the FFN and axial dropout backwards with
+round-1 layer, the GroupNorm+SiLU forward and all-gradients backward and the
+FFN, axial attention and general cuboid layer forwards and all-gradients
+backwards also their device time alone from CUDA-graph replay, the forwards
+and the FFN and axial dropout backwards with
 ``library_seq_ms``, the sequence of library calls that computes their
 function (for a backward: autograd's backward of that sequence, with the
 kernels' masks)), the card's name and power limit, and as the last line
@@ -474,6 +475,25 @@ def cuboid_library_seq(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale,
     return run
 
 
+def v3_library_seq(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale):
+    """The round-1 whole layer as f32 library calls on the reordered (B,
+    cuboids, vol, C), the products in full f32 (TF32 off, as
+    ``set_numerics`` leaves it): ``F.layer_norm`` -> ``F.linear`` -> SDPA
+    per cuboid with the relative bias as a float ``attn_mask`` ->
+    ``F.linear``."""
+    import torch.nn.functional as F
+
+    B, nC, vol, C = x.shape
+
+    def run():
+        qkv = F.linear(F.layer_norm(x, (C,), ln_w, ln_b, 1e-5), w_qkv)
+        q, k, v = qkv.reshape(B * nC, vol, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
+        return F.linear(o.transpose(1, 2).reshape(B, nC, vol, C), w_proj, b_proj)
+
+    return run
+
+
 def ffn_library_bwd(x, g, ln_w, ln_b, w1, b1, w2, rate_act, rate_out, seed, site):
     """The yardstick of the FFN's all-gradients backward with dropout:
     autograd's backward of ``ffn_library_seq``'s calls on bf16 weights with
@@ -664,7 +684,7 @@ def check_kernels(cases, device):
                                        fused_ffn, fused_ffn_bwd_dx, fused_ffn_bwd_full,
                                        fused_ffn_dropout, fused_ffn_dropout_bwd_full)
     from prediff_torch.ops.groupnorm import (fused_groupnorm_silu, fused_groupnorm_silu_bwd_full,
-                                             gn_plan, groupnorm_silu_bwd_full_plain,
+                                             gn_bwd_plan, gn_plan, groupnorm_silu_bwd_full_plain,
                                              groupnorm_silu_plain)
     from prediff_torch.ops.resblock import (fused_resblock_bwd, fused_resblock_fwd,
                                             resblock_bwd_plain, resblock_plain)
@@ -709,17 +729,27 @@ def check_kernels(cases, device):
         # all f32 on both sides, only the order of the sums differs: 1e-4 of the
         # output's scale (dgamma and dbeta sum B * N terms and reach the hundreds)
         judge_all(c, ("dx", "dgamma", "dbeta", "demb"), got, want, rel_tol=1e-4, rel_mean_tol=1e-5)
+        c["route"] = "one_block" if gn_bwd_plan(B, N, C, groups) is None else "cluster"
+        again = fused_groupnorm_silu_bwd_full(x, g, w, b, emb, groups)
+        c["bit_equal_across_two_runs"] = all(a is b or torch.equal(a, b) for a, b in zip(got, again))
+        c["ok"] = c["ok"] and c["bit_equal_across_two_runs"]
         # the nearest library route: autograd of F.group_norm + F.silu, its backward alone
         leaves = [t.clone().requires_grad_(True) for t in (x, w, b)] + (
             [emb.clone().requires_grad_(True)] if emb is not None else [])
         xin = leaves[0] + leaves[3][:, None] if emb is not None else leaves[0]
         y = torch.nn.functional.silu(torch.nn.functional.group_norm(
             xin.transpose(1, 2), groups, leaves[1], leaves[2], 1e-5)).transpose(1, 2)
-        timed(c, lambda: fused_groupnorm_silu_bwd_full(x, g, w, b, emb, groups),
-              lambda: groupnorm_silu_bwd_full_plain(x, g, w, b, emb, groups),
+        kernel = lambda: fused_groupnorm_silu_bwd_full(x, g, w, b, emb, groups)  # noqa: E731
+        library = lambda: torch.autograd.grad(y, leaves, g, retain_graph=True)  # noqa: E731
+        timed(c, kernel, lambda: groupnorm_silu_bwd_full_plain(x, g, w, b, emb, groups),
               4 * (3 * B * N * C + 4 * C + (2 * B * C if emb is not None else 0)),
-              library=lambda: torch.autograd.grad(y, leaves, g, retain_graph=True),
-              f32_flops=30 * B * N * C)
+              library=library, f32_flops=30 * B * N * C)
+        # device time alone: the kernels' from graph replay; autograd's backward runs
+        # on its forward's stream and cannot be captured on a side stream, so the
+        # library's is its kernels' sum by the profiler
+        c["device_ms"] = graph_time_ms(kernel)
+        c["library_device_ms"] = launch_split(library)[0]
+        c["vs_library_device"] = c["device_ms"] / c["library_device_ms"]
 
     drop = (DROP_RATE, DROP_RATE, DROP_SEED, DROP_SITE)
     for name, c in [(n, c) for n in ("ffn", "ffn_bwd_dx", "ffn_bwd_full", "ffn_dropout",
@@ -1067,10 +1097,12 @@ def check_round1_kernels(cases, device):
             want = cuboid_attention_layer_v3_plain(*args)
             sync(device)
             judge(c, got, want, tol=ROUND1_TOL_REL * float(want.abs().max()))
+            nbytes = 4 * (2 * M * C + 4 * C * C + heads * vol * vol + 3 * C)
             timed(c, lambda: fused_cuboid_attention_layer_v3(*args),
-                  lambda: cuboid_attention_layer_v3_plain(*args),
-                  4 * (2 * M * C + 4 * C * C + heads * vol * vol + 3 * C),
-                  f32_flops=8 * M * C * C + 4 * M * vol * C)
+                  lambda: cuboid_attention_layer_v3_plain(*args), nbytes, device_time=True,
+                  library_seq=v3_library_seq(*args), f32_flops=8 * M * C * C + 4 * M * vol * C)
+            # the products and the core in 3xTF32: three TF32 products of each
+            c["bound_3xtf32"] = bound(nbytes, tf32_flops=3 * (8 * M * C * C + 4 * M * vol * C))
     return [(name, c) for name in ROUND1_KERNELS for c in cases[name] if not c["ok"]]
 
 
@@ -1573,19 +1605,23 @@ BWD_SPLIT_CUBOID = ((2, 52, 64, 256), (2, 13, 64, 512))
 BWD_SPLIT_CUBOID_DX = ((1, 52, 64, 256), (1, 13, 64, 512), (1, 24, 64, 128), (1, 6, 64, 256))
 # row 7 at the alignment net's stage blocks
 BWD_SPLIT_RESBLOCK = ((1, 6, 16, 16, 128), (1, 6, 8, 8, 256))
+# row 14 at the training micro-step's GN sites (B, N, C, groups)
+BWD_SPLIT_GN = ((2, 3328, 256, 32), (2, 832, 512, 32), (2, 3328, 65, 65))
 
 
 def bwd_split(device):
-    """The all-gradients backwards of the FFN, the axial layer and the
-    general layer (rows 12, 15b, 13, 15d, 13b, 15e) at the B=2 training
-    shapes, the general layer's dx (row 5) at the swin guided chain's and
-    the whole resblock (row 7, forward and backward) at the alignment net's:
+    """The all-gradients backwards of the FFN, the axial layer, the general
+    layer and GroupNorm+SiLU (rows 12, 15b, 13, 15d, 13b, 15e, 14) at the B=2
+    training shapes, the general layer's dx (row 5) at the swin guided
+    chain's and the whole resblock (row 7, forward and backward) at the
+    alignment net's:
     each launch's share of one call's device time (profiler), the call's
     device time from CUDA-graph replay, and for the dropout forms the
     yardstick: autograd's backward of the library sequence
     (``ffn_library_seq`` / ``attention_library_seq`` / ``cuboid_library_seq``
     on bf16 weights) with the kernels' masks multiplied in, its device time
-    by the profiler's sum."""
+    by the profiler's sum; for row 14 autograd's backward of
+    ``F.silu(F.group_norm(x + emb))``."""
     import torch
     from prediff_torch.ops.attention import (fused_axial_attention_bwd_full,
                                              fused_axial_attention_dropout_bwd_full,
@@ -1593,6 +1629,7 @@ def bwd_split(device):
                                              fused_cuboid_attention_layer_bwd_full,
                                              fused_cuboid_attention_layer_dropout_bwd_full)
     from prediff_torch.ops.ffn import fused_ffn_bwd_full, fused_ffn_dropout_bwd_full
+    from prediff_torch.ops.groupnorm import fused_groupnorm_silu_bwd_full
     from prediff_torch.ops.resblock import fused_resblock_bwd, fused_resblock_fwd
 
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -1660,6 +1697,16 @@ def bwd_split(device):
         bargs = (x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, randn(*shape))
         one("resblock", shape, lambda: fused_resblock_fwd(*args))
         one("resblock_bwd", shape, lambda: fused_resblock_bwd(*bargs))
+    for B, N, C, groups in BWD_SPLIT_GN:
+        x, g = randn(B, N, C, scale=2.0) + 1.0, randn(B, N, C)
+        w, b, emb = 1.0 + randn(C, scale=0.1), randn(C, scale=0.1), randn(B, C)
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b, emb)]
+        y = torch.nn.functional.silu(torch.nn.functional.group_norm(
+            (leaves[0] + leaves[3][:, None]).transpose(1, 2), groups, leaves[1], leaves[2],
+            1e-5)).transpose(1, 2)
+        one("groupnorm_silu_bwd_full", (B, N, C, groups),
+            lambda: fused_groupnorm_silu_bwd_full(x, g, w, b, emb, groups),
+            lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
 
 
 # --------------------------------------------------------------------------- #
@@ -1669,8 +1716,8 @@ def main() -> int:
     ap.add_argument("--only", choices=["bwd_split"],
                     help="run this phase alone (after the device line and the build) and stop: "
                          "bwd_split, each launch's share of the FFN, axial and general "
-                         "attention all-gradients backwards, the general layer's dx and the "
-                         "resblock")
+                         "attention and GroupNorm+SiLU all-gradients backwards, the general "
+                         "layer's dx and the resblock")
     args = ap.parse_args()
     try:
         import torch

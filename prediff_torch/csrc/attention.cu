@@ -179,13 +179,15 @@
 // fused_cuboid_attention_layer (body _fused_layer_kernel), LN + QKV + per-head
 // core (no mask) + out-proj on reordered cuboids (B, cuboids, vol, C), all f32
 // as the TPU kernel computes it, in four launches:
-//   ln_rows_kernel        ln = LN(x), one warp per row                (tokens, C)
-//   f32_gemm_kernel       qkv = ln . Wqkv^T                           (tokens, 3C)
-//   grouped_core_kernel   per (cuboid, head), q k v read in place    (tokens, C)
-//   f32_gemm_kernel       out = o . Wproj^T + b_proj                  (tokens, C)
-// The two products carry 8 C^2 of the 8 C^2 + 4 vol C operations per token;
-// in f32 on the CUDA cores (67 TFLOP/s) they bound the layer.  The GEMM is a
-// plain shared-memory tiling (64 x 64 outputs a block, 4 x 4 a thread).
+//   ln_stats_kernel          each row's mean and 1/sqrt(var + eps)      (tokens, 2)
+//   tf32_gemm_kernel<true>   qkv = LN(x) . Wqkv^T, LN in the A tiles    (tokens, 3C)
+//   grouped_core_kernel      per (cuboid, head), q k v read in place    (tokens, C)
+//   tf32_gemm_kernel<false>  out = o . Wproj^T + b_proj                  (tokens, C)
+// The two products carry 8 C^2 of the 8 C^2 + 4 vol C operations per token:
+// in f32 on the CUDA cores (67 TFLOP/s) they would bound the layer, so they
+// run on the tensor cores in 3xTF32 as the core does (three TF32 products at
+// 495 TFLOP/s: ~2.5x the f32 rate's bound), double-buffered cp.async tiles
+// of 64 x 64 outputs a block.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -1935,77 +1937,181 @@ cudaError_t cuboid_core_bwd(const __nv_bfloat16* qkv, const __nv_bfloat16* dattn
 }
 
 // ---------------------------------------------------------------------------
-// The round-1 whole layer ("v3"), f32: LN rows, then plain f32 GEMMs around
-// the grouped core.
-constexpr int kLnThreads = 256;   // 8 rows a block, a warp each
+// The round-1 whole layer ("v3"), f32: its two products in 3xTF32 on the
+// tensor cores around the grouped core.
+//
+// tf32_gemm_kernel: out[M, N] = A'[M, K] . W[N, K]^T (+ bias[N]), A' = LN(A)
+// rows (Ln) or A.  A block computes 64 x 64 outputs with 4 warps of 32 x 32
+// (2 x 4 m16n8k8 tiles); the A and W tiles of 32 K come in by 16-byte
+// cp.async into two stages of shared memory (rows padded to 36 floats, so
+// the fragment loads are free of bank conflicts), the next stage in flight
+// while the tensor cores work on this one.  Each operand is split into a
+// TF32 big part and the rest (tf32_split), and mma_3xtf32 adds
+// small.big + big.small + big.big: ~f32 accuracy, as the TPU kernel computes
+// the layer in f32.  Each 32-K stage sums into a fresh accumulator that is
+// added to the running f32 sum on the CUDA cores (the tensor cores' own
+// sums lose more than IEEE adds do, as row 10 found).  With Ln each thread
+// normalises the A values it copied once they land, (x - mean) * rstd * w +
+// b, from the rows' mean and 1/sqrt(var + eps) that ln_stats_kernel wrote
+// first (a warp a row, two passes, as a LayerNorm), so LN(x) never reaches
+// memory; taking the statistics inside the product instead would make every
+// column block recompute its 64 rows', a warp's 16 rows one after another.
+// The bias is added in the epilogue.
+constexpr int kLnRows = 8;   // ln_stats_kernel: rows a block, a warp each
 
-__global__ void __launch_bounds__(kLnThreads)
-ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ b, float* __restrict__ out, int M, int C, float eps) {
-  const int row = blockIdx.x * (kLnThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(32 * kLnRows)
+ln_stats_kernel(const float* __restrict__ x, float2* __restrict__ stats, int M, int K,
+                float eps) {
+  const int row = blockIdx.x * kLnRows + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;
-  const float* xr = x + (size_t)row * C;
+  const float* xr = x + (size_t)row * K;
   float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += xr[c];
-  const float mean = warp_sum(s) / C;
+  for (int c = lane; c < K; c += 32) s += xr[c];
+  const float mean = warp_sum(s) / K;
   float v = 0.f;
-  for (int c = lane; c < C; c += 32) {
+  for (int c = lane; c < K; c += 32) {
     const float d = xr[c] - mean;
     v += d * d;
   }
-  const float rstd = rsqrtf(warp_sum(v) / C + eps);
-  for (int c = lane; c < C; c += 32) out[(size_t)row * C + c] = (xr[c] - mean) * rstd * w[c] + b[c];
+  const float rstd = rsqrtf(warp_sum(v) / K + eps);
+  if (lane == 0) stats[row] = make_float2(mean, rstd);
 }
 
-constexpr int kFm = 64, kFn = 64, kFk = 16, kF32Threads = 256;   // 16 x 16 threads, 4 x 4 each
+constexpr int kTm = 64, kTn = 64, kTk = 32, kTld = kTk + 4, kTThreads = 128;
 
-// out[M, N] = A[M, K] . W[N, K]^T (+ bias[N]), f32 FMA, K in order.
-__global__ void __launch_bounds__(kF32Threads)
-f32_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Wt,
-                const float* __restrict__ bias, float* __restrict__ out, int M, int N, int K) {
-  __shared__ float As[kFk][kFm + 4];
-  __shared__ float Ws[kFk][kFn + 4];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int m0 = blockIdx.y * kFm, n0 = blockIdx.x * kFn;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kFk) {
-    for (int i = threadIdx.x; i < kFm * kFk; i += kF32Threads) {
-      const int r = i / kFk, kk = i % kFk, m = m0 + r, n = n0 + r, k = k0 + kk;
-      As[kk][r] = (m < M && k < K) ? A[(size_t)m * K + k] : 0.f;
-      Ws[kk][r] = (n < N && k < K) ? Wt[(size_t)n * K + k] : 0.f;
+template <bool Ln>
+__global__ void __launch_bounds__(kTThreads)
+tf32_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                 const float* __restrict__ bias, const float* __restrict__ ln_w,
+                 const float* __restrict__ ln_b, const float2* __restrict__ stats,
+                 float* __restrict__ out, int M, int N, int K) {
+  __shared__ __align__(16) float As[2][kTm * kTld];
+  __shared__ __align__(16) float Ws[2][kTn * kTld];
+  __shared__ float2 row_stats[kTm];   // mean, rstd
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c4 = lane & 3;            // fragment row group, column
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int m0 = blockIdx.y * kTm, n0 = blockIdx.x * kTn;
+  const int nk = (K + kTk - 1) / kTk;
+
+  // the stage's tiles: 64 rows x 32 K of A and of W, 4 floats a copy, zeros
+  // past M, N and K (K % 4 == 0)
+  const auto load = [&](int stage, int k0) {
+    for (int i = tid; i < kTm * (kTk / 4); i += kTThreads) {
+      const int r = i / (kTk / 4), k = k0 + (i % (kTk / 4)) * 4;
+      const bool va = m0 + r < M && k < K, vw = n0 + r < N && k < K;
+      cp_async16(&As[stage][r * kTld + (k - k0)], va ? A + (size_t)(m0 + r) * K + k : A, va);
+      cp_async16(&Ws[stage][r * kTld + (k - k0)], vw ? W + (size_t)(n0 + r) * K + k : W, vw);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  load(0, 0);
+  if constexpr (Ln) {
+    for (int r = tid; r < kTm; r += kTThreads)
+      row_stats[r] = m0 + r < M ? stats[m0 + r] : make_float2(0.f, 0.f);
+    __syncthreads();
+  }
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1, k0 = kt * kTk;
+    if (kt + 1 < nk)
+      load(st ^ 1, k0 + kTk);
+    else
+      asm volatile("cp.async.commit_group;" ::: "memory");   // keep one group a stage
+    asm volatile("cp.async.wait_group 1;" ::: "memory");       // this stage's copies landed
+    if constexpr (Ln) {   // each thread normalises the A values it copied
+      for (int i = tid; i < kTm * (kTk / 4); i += kTThreads) {
+        const int r = i / (kTk / 4), kk = (i % (kTk / 4)) * 4, k = k0 + kk;
+        if (m0 + r >= M || k >= K) continue;
+        float* a = &As[st][r * kTld + kk];
+        const float mean = row_stats[r].x, rstd = row_stats[r].y;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = (a[e] - mean) * rstd * ln_w[k + e] + ln_b[k + e];
+      }
     }
     __syncthreads();
+    float part[2][4][4];
 #pragma unroll
-    for (int kk = 0; kk < kFk; ++kk) {
-      float a[4], w[4];
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = As[kk][ty + 16 * i];
-        w[i] = Ws[kk][tx + 16 * i];
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kTk / 8; ++kc) {
+      unsigned ab[2][4], as[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* pa = &As[st][(wm + 16 * i + g) * kTld + kc * 8 + c4];
+        tf32_split(pa[0], ab[i][0], as[i][0]);
+        tf32_split(pa[8 * kTld], ab[i][1], as[i][1]);
+        tf32_split(pa[4], ab[i][2], as[i][2]);
+        tf32_split(pa[8 * kTld + 4], ab[i][3], as[i][3]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j) {
+        const float* pw = &Ws[st][(wn + 8 * j + g) * kTld + kc * 8 + c4];
+        unsigned bb[2], bs[2];
+        tf32_split(pw[0], bb[0], bs[0]);
+        tf32_split(pw[4], bb[1], bs[1]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+        for (int i = 0; i < 2; ++i) mma_3xtf32(part[i][j], ab[i], as[i], bb, bs);
+      }
     }
-    __syncthreads();
-  }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+    __syncthreads();   // the next iteration's copies overwrite this stage
+  }
+  // epilogue: rows g, g + 8 of each 16, columns 2 c4, 2 c4 + 1 of each 8 (N % 4 == 0)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) out[(size_t)m * N + n] = acc[i][j] + (bias != nullptr ? bias[n] : 0.f);
+      const int n = n0 + wn + 8 * j + 2 * c4;
+      if (n >= N) continue;
+      const float b0 = bias != nullptr ? bias[n] : 0.f, b1 = bias != nullptr ? bias[n + 1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + 16 * i + g + 8 * h;
+        if (m < M)
+          *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
+              make_float2(acc[i][j][2 * h] + b0, acc[i][j][2 * h + 1] + b1);
+      }
     }
   }
 }
 
-cudaError_t f32_gemm(const float* A, const float* Wt, const float* bias, float* out, int M, int N,
-                     int K, cudaStream_t stream) {
-  f32_gemm_kernel<<<dim3((N + kFn - 1) / kFn, (M + kFm - 1) / kFm), kF32Threads, 0, stream>>>(
-      A, Wt, bias, out, M, N, K);
+// out = LN(A) . W^T (Ln: stats (M) f32 pairs of workspace, ln_stats_kernel's)
+// or A . W^T + bias, f32 in 3xTF32; A (M, K), W (N, K) row-major, K and N
+// multiples of 4, A and W 16-byte aligned.
+template <bool Ln>
+cudaError_t tf32_gemm(const float* A, const float* W, const float* bias, const float* ln_w,
+                      const float* ln_b, float2* stats, float* out, int M, int N, int K,
+                      float eps, cudaStream_t stream) {
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (M < 1 || N < 4 || K < 4 || N % 4 || K % 4 || (M + kTm - 1) / kTm > 65535 || !aligned(A) ||
+      !aligned(W) || (reinterpret_cast<uintptr_t>(out) & 7) ||
+      (Ln && (reinterpret_cast<uintptr_t>(stats) & 7)))
+    return cudaErrorInvalidValue;
+  if (Ln) {
+    ln_stats_kernel<<<(M + kLnRows - 1) / kLnRows, 32 * kLnRows, 0, stream>>>(A, stats, M, K,
+                                                                              eps);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  tf32_gemm_kernel<Ln><<<dim3((N + kTn - 1) / kTn, (M + kTm - 1) / kTm), kTThreads, 0, stream>>>(
+      A, W, bias, ln_w, ln_b, stats, out, M, N, K);
   return cudaGetLastError();
 }
 
@@ -2432,23 +2538,21 @@ extern "C" int cuboid_core_forward(const float* q, const float* k, const float* 
 }
 
 // The round-1 whole layer: x, out (B, n_cuboids, vol, C) f32; w_qkv (3C, C),
-// w_proj (C, C) in PyTorch layout; bias (heads, vol, vol); ln (M, C), qkv
-// (M, 3C) and o (M, C) f32 workspaces, M = B * n_cuboids * vol.
+// w_proj (C, C) in PyTorch layout; bias (heads, vol, vol); stats (M, 2), qkv
+// (M, 3C) and o (M, C) f32 workspaces, M = B * n_cuboids * vol.  Four
+// launches: the LN statistics, LN + QKV, the core, the projection.
 extern "C" int cuboid_layer_v3_forward(const float* x, const float* ln_w, const float* ln_b,
                                        const float* w_qkv, const float* bias,
-                                       const float* w_proj, const float* b_proj, float* ln,
+                                       const float* w_proj, const float* b_proj, float* stats,
                                        float* qkv, float* o, float* out, int B, int n_cuboids,
                                        int vol, int C, int heads, float scale, float eps,
                                        cudaStream_t stream) {
   if (B < 1 || n_cuboids < 1 || vol < 1 || heads < 1 || C % heads != 0)
     return (int)cudaErrorInvalidValue;
   const int M = B * n_cuboids * vol, hc = C / heads;
-  if ((M + kFm - 1) / kFm > 65535) return (int)cudaErrorInvalidValue;
-  ln_rows_kernel<<<(M + kLnThreads / 32 - 1) / (kLnThreads / 32), kLnThreads, 0, stream>>>(
-      x, ln_w, ln_b, ln, M, C, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = f32_gemm(ln, w_qkv, nullptr, qkv, M, 3 * C, C, stream);
+  cudaError_t err = tf32_gemm<true>(x, w_qkv, nullptr, ln_w, ln_b,
+                                    reinterpret_cast<float2*>(stats), qkv, M, 3 * C, C, eps,
+                                    stream);
   if (err != cudaSuccess) return (int)err;
   const long long cub = (long long)vol;
   const CoreLayout in{n_cuboids * cub * 3 * C, cub * 3 * C, hc, 3LL * C};
@@ -2456,5 +2560,6 @@ extern "C" int cuboid_layer_v3_forward(const float* x, const float* ln_w, const 
   err = core_launch(qkv, qkv + C, qkv + 2 * C, bias, nullptr, o, in, ol, B, heads, n_cuboids, vol,
                     hc, scale, stream);
   if (err != cudaSuccess) return (int)err;
-  return (int)f32_gemm(o, w_proj, b_proj, out, M, C, C, stream);
+  return (int)tf32_gemm<false>(o, w_proj, b_proj, nullptr, nullptr, nullptr, out, M, C, C, eps,
+                               stream);
 }

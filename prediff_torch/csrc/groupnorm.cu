@@ -32,28 +32,41 @@
 //   gn_apply_kernel  grid (token tiles, B): merges the partials of its
 //                    sample, then normalise + affine + SiLU in one pass.
 //
-// All gradients (gn_silu_bwd_full): replaces
-// pallas_groupnorm.py::fused_groupnorm_silu_bwd_full (_gn_bwd_full_kernel):
-// dx, dgamma, dbeta and demb of y = silu(GroupNorm(x + emb)) for an output
-// cotangent g, the group statistics recomputed, all f32.  The TPU kernel
-// keeps a whole (N, C) sample in VMEM, refuses samples that do not fit, and
-// adds dgamma / dbeta across its sequential batch grid.  Here one block owns
-// one (group, sample), as the resblock's GroupNorm kernels do: it makes its
-// passes over the group's N x C/groups values (mean, variance, the two sums of
-// the normalisation's backward, then dx), which holds for every size, and
-// each thread stays on one channel of the group so the per-channel sums
-// (dgamma, dbeta, demb) fall out of the same passes.  With
+// All gradients: replaces pallas_groupnorm.py::fused_groupnorm_silu_bwd_full
+// (_gn_bwd_full_kernel): dx, dgamma, dbeta and demb of y = silu(GroupNorm(x
+// + emb)) for an output cotangent g, the group statistics recomputed, all
+// f32.  The TPU kernel keeps a whole (N, C) sample in VMEM, refuses samples
+// that do not fit, and adds dgamma / dbeta across its sequential batch grid.
+// With
 //   a = xhat * gamma + beta,  dy = g * silu'(a),  u = dy * gamma:
 //   dx = rstd * (u - (sum(u) + xhat * sum(u * xhat)) / count)
 //   demb[b, c] = sum_tokens dx;  dgamma[c] = sum_{b, tokens} dy * xhat;  dbeta[c] = sum dy.
-// dgamma and dbeta leave each block as a per-sample partial and
-// sum_partials_kernel adds the samples in order: no atomics.  No matrix
-// product: bound by bytes (x and g read, dx written).
+// No matrix product: bound by bytes (x and g read, dx written).
+//
+// gn_silu_bwd_cluster (the route wherever ops/groupnorm.gn_bwd_plan gives a
+// plan): the forward's design, one launch of gn_cluster.cuh's bwd_kernel, a
+// cluster of 1, 2, 4 or 8 blocks per (group, sample) along the tokens, each
+// rank's x and g copied into shared memory once by cp.async (16 bytes where
+// the group's channels allow), Welford statistics merged in rank order, one
+// pass for u and the sums, one for dx (16-byte stores), each thread on fixed
+// channels of the group so its dgamma / dbeta / demb sums are per channel;
+// the sums are added over the block's threads and then over the ranks in
+// order, rank 0 writing each sample's partial.  Then sum_partials_kernel
+// adds the samples in order: two launches, no atomics.
+//
+// gn_silu_bwd_full, the first design, only where the plan gives none: a
+// (group, sample) past a cluster of 8 blocks' shared memory, or a group
+// width a 256-thread block cannot hold on fixed channels (256 * vw % cpg).
+// One block owns one (group, sample) and makes its passes over the group's
+// N x C/groups values in device memory (mean, variance, the two sums of the
+// normalisation's backward, then dx), which holds for every size, each
+// thread on one channel of the group; then sum_partials_kernel as above.
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "gn_cluster.cuh"
 #include "grad_common.cuh"
 #include "welford.cuh"
 
@@ -344,6 +357,21 @@ extern "C" int gn_silu_bwd_full(const float* x, const float* emb, const float* g
   gn_silu_bwd_kernel<<<dim3(groups, B), threads, threads * sizeof(float), stream>>>(
       x, emb, g, gamma, beta, dx, emb != nullptr ? demb : nullptr, gpart, N, C, groups, eps);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)gradk::sum_partials(gpart, vec, (size_t)2 * C, B, stream);
+}
+
+// The same gradients in one launch of clusters of `cluster` blocks (1, 2, 4
+// or 8) per (group, sample), tpr tokens a rank (cluster * tpr >= N), vw
+// floats a copy (4: cpg % 4 == 0 and x, g, dx 16-byte aligned; or 1); then
+// the samples' partials added in order.  gpart, out as gn_silu_bwd_full.
+extern "C" int gn_silu_bwd_cluster(const float* x, const float* emb, const float* g,
+                                   const float* gamma, const float* beta, float* dx, float* demb,
+                                   float* gpart, float* vec, int B, int N, int C, int groups,
+                                   int cluster, int tpr, int vw, float eps, cudaStream_t stream) {
+  const cudaError_t err = gnc::bwd<float, float, float, true>(
+      B, N, C, groups, cluster, tpr, vw, x, emb, g, gamma, beta, nullptr, dx,
+      emb != nullptr ? demb : nullptr, gpart, eps, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)gradk::sum_partials(gpart, vec, (size_t)2 * C, B, stream);
 }

@@ -10,26 +10,31 @@
 // sequential loop.  A Hopper block has at most 227 KB of shared memory and
 // blocks run in no order, so the block runs as four launches forward and
 // five backward:
-//   forward   gn_silu_group_kernel  GN1 of x -> h1 = silu(.) in bf16
+//   forward   GN pass                GN1 of x -> h1 = silu(.) in bf16
 //             conv                   h2 = conv1(h1) + b1, stored bf16 (saved)
-//             gn_silu_group_kernel  GN2 of h2 + emb -> h3 = silu(.) in bf16
+//             GN pass                GN2 of h2 + emb -> h3 = silu(.) in bf16
 //             conv                   out = conv2(h3) + b2 + x       (f32)
 //   backward  to_bf16_kernel         g in bf16 (the conv's operand)
 //             conv                   dh3 = conv2^T(g) in bf16
-//             gn_silu_bwd_group_kernel  dv = GN2 / SiLU backward in bf16,
+//             GN backward pass       dv = GN2 / SiLU backward in bf16,
 //                                    demb = sum of dv over the tokens
 //             conv                   dh1 = conv1^T(dv) in bf16
-//             gn_silu_bwd_group_kernel  dx = GN1 / SiLU backward + g  (f32)
+//             GN backward pass       dx = GN1 / SiLU backward + g  (f32)
 // A GroupNorm reduces over the whole volume.  Each GN pass is one launch of
 // row 1's design (groupnorm.cu gn_cluster_kernel): a thread-block cluster
-// of 1-8 blocks per (group, sample) along the tokens, the group's values
-// read once into shared memory, Welford per thread and Chan merges across
-// warps and ranks in rank order; the backward adds its sums of u and
-// u * xhat, and demb's per-channel sums, over the ranks in rank order too.
-// A group past a cluster of 8 blocks' shared memory takes the first
-// design's kernels, one block per (group, sample) making its passes over
-// the group's tokens (two-pass mean / variance).  A transposed conv is the
-// same SAME conv with flipped taps and in / out channels swapped
+// of 1-8 blocks per (group, sample) along the tokens (ops/groupnorm.
+// gn_bwd_plan, one plan for both directions), the group's values read once
+// into shared memory, Welford per thread and Chan merges across warps and
+// ranks in rank order.  The forward passes are gn_silu_cluster_kernel below;
+// the backward passes are gn_cluster.cuh's bwd_kernel, row 14's
+// all-gradients kernel without dgamma / dbeta: the values and dh in shared
+// memory (16-byte copies where the group's channels allow), the sums of u
+// and u * xhat and demb's per-channel sums added over the ranks in rank
+// order.  Only a group past a cluster of 8 blocks' shared memory takes the
+// first design's kernels (gn_silu_group_kernel, gn_silu_bwd_group_kernel:
+// one block per (group, sample) making its passes over the group's tokens,
+// two-pass mean / variance), chosen by shape in the plan.  A transposed conv
+// is the same SAME conv with flipped taps and in / out channels swapped
 // (pallas_resblock.py:545-546).
 //
 // Bound: each 3x3x3 conv is 2 * 27 * C^2 operations per token; at the
@@ -54,6 +59,7 @@
 #include <string.h>
 
 #include "conv_wgmma.cuh"
+#include "gn_cluster.cuh"
 #include "welford.cuh"
 
 namespace {
@@ -79,15 +85,12 @@ __device__ float block_sum(float v, float* red) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
+using gnc::silu_grad;
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float silu(float a) { return a / (1.f + expf(-a)); }
-
-__device__ __forceinline__ float silu_grad(float a) {
-  const float s = 1.f / (1.f + expf(-a));
-  return s * (1.f + a * (1.f - s));
-}
 
 // Mean and 1/sqrt(var + eps) of src (+ emb) over one (group, sample): N
 // tokens x cpg channels, two passes.
@@ -191,42 +194,9 @@ gn_silu_bwd_group_kernel(const InT* __restrict__ src, const float* __restrict__ 
 // sample) along the tokens, rank r holding tokens r * tpr .. r * tpr + tpr - 1
 // of the group's channels in shared memory as f32 (read once), Welford per
 // thread, Chan merges down each warp, across the warps and across the ranks
-// in rank order through distributed shared memory (every rank the same
-// order: the same bits on every rank and run).  Value i of a tile is token
-// i / cpg, channel i % cpg; with kGnThreads % cpg == 0 a thread stays on one
-// channel.
-
-// mean and rstd of the group from each rank's tile xs (count values).
-__device__ __forceinline__ void cluster_stats(const float* xs, int count, float eps,
-                                              float& mean, float& rstd) {
-  namespace cg = cooperative_groups;
-  __shared__ Stat warp_part[kGnThreads / 32];
-  __shared__ Stat part;
-  __shared__ float mean_rstd[2];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int tid = threadIdx.x, ranks = (int)cluster.num_blocks();
-  Stat st{0.f, 0.f, 0.f};
-  for (int i = tid; i < count; i += kGnThreads) push(st, xs[i]);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) st = merge(st, shfl_down(st, o));
-  if ((tid & 31) == 0) warp_part[tid >> 5] = st;
-  __syncthreads();
-  if (tid == 0) {
-    Stat acc = warp_part[0];
-    for (int w = 1; w < kGnThreads / 32; ++w) acc = merge(acc, warp_part[w]);
-    part = acc;
-  }
-  cluster.sync();   // every rank's partial is written and visible
-  if (tid == 0) {
-    Stat acc = *cluster.map_shared_rank(&part, 0);
-    for (int r = 1; r < ranks; ++r) acc = merge(acc, *cluster.map_shared_rank(&part, r));
-    mean_rstd[0] = acc.mean;
-    mean_rstd[1] = rsqrtf(acc.m2 / acc.n + eps);
-  }
-  cluster.sync();   // every rank has read its peers' partials
-  mean = mean_rstd[0];
-  rstd = mean_rstd[1];
-}
+// in rank order through distributed shared memory (gn_cluster.cuh
+// cluster_stats: the same bits on every rank and run).  The backward passes
+// are gn_cluster.cuh's kernel, which row 14 (groupnorm.cu) runs too.
 
 // out = bf16(silu(GroupNorm(src + emb))), src f32 or bf16 (B, N, C).
 template <typename InT>
@@ -245,89 +215,11 @@ gn_silu_cluster_kernel(const InT* __restrict__ src, const float* __restrict__ em
   for (int i = tid; i < count; i += kGnThreads) xs[i] = to_f(src[base + (size_t)(i / cpg) * C + c]) + e;
   __syncthreads();
   float mean, rstd;
-  cluster_stats(xs, count, eps, mean, rstd);
+  const float no_emb[1] = {0.f};   // emb is in xs already
+  gnc::cluster_stats<1, false>(xs, count, 1, no_emb, eps, mean, rstd);
   const float gam = gamma[ch], bet = beta[ch];
   for (int i = tid; i < count; i += kGnThreads)
     out[base + (size_t)(i / cpg) * C + c] = __float2bfloat16(silu((xs[i] - mean) * rstd * gam + bet));
-}
-
-// Backward of y = silu(GroupNorm(src + emb)) for dy = dh (bf16), with u =
-// dh * silu'(a) * gamma: dv = rstd * (u - (S1 + xhat * S2) / count), S1 and
-// S2 the group's sums of u and u * xhat (each rank's block sum, in a fixed
-// tree, added over the ranks in rank order); out = dv (+ skip); demb[c] =
-// the sum of dv over the tokens (the block's threads of channel c in order,
-// then the ranks in order), where demb is given.
-template <typename InT, typename OutT>
-__global__ void __launch_bounds__(kGnThreads)
-gn_silu_bwd_cluster_kernel(const InT* __restrict__ src, const float* __restrict__ emb,
-                           const __nv_bfloat16* __restrict__ dh, const float* __restrict__ gamma,
-                           const float* __restrict__ beta, const float* __restrict__ skip,
-                           OutT* __restrict__ out, float* __restrict__ demb, int N, int C,
-                           int cpg, int tpr, float eps) {
-  namespace cg = cooperative_groups;
-  extern __shared__ float xs[];   // [tpr][cpg] src + emb, then [tpr][cpg] dh
-  __shared__ float red[kGnThreads];
-  __shared__ float2 sums;
-  __shared__ float dpart[kGnThreads];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int ranks = (int)cluster.num_blocks();
-  const int rank = blockIdx.x % ranks, g = blockIdx.x / ranks, b = blockIdx.y, tid = threadIdx.x;
-  const int n0 = rank * tpr, count = max(0, min(tpr, N - n0)) * cpg;
-  const size_t base = ((size_t)b * N + n0) * C + (size_t)g * cpg;
-  const int c = tid % cpg, ch = g * cpg + c;
-  const float e = emb != nullptr ? emb[(size_t)b * C + ch] : 0.f;
-  float* ds = xs + (size_t)tpr * cpg;
-  for (int i = tid; i < count; i += kGnThreads) {
-    const size_t idx = base + (size_t)(i / cpg) * C + c;
-    xs[i] = to_f(src[idx]) + e;
-    ds[i] = __bfloat162float(dh[idx]);
-  }
-  __syncthreads();
-  float mean, rstd;
-  cluster_stats(xs, count, eps, mean, rstd);
-  const float gam = gamma[ch], bet = beta[ch];
-  float s1 = 0.f, s2 = 0.f;
-  for (int i = tid; i < count; i += kGnThreads) {
-    const float xhat = (xs[i] - mean) * rstd;
-    const float u = ds[i] * silu_grad(xhat * gam + bet) * gam;
-    xs[i] = xhat;
-    ds[i] = u;
-    s1 += u;
-    s2 += u * xhat;
-  }
-  const float b1 = block_sum(s1, red), b2 = block_sum(s2, red);
-  if (tid == 0) sums = make_float2(b1, b2);
-  cluster.sync();   // every rank's sums are written and visible
-  float S1 = 0.f, S2 = 0.f;
-  for (int r = 0; r < ranks; ++r) {
-    const float2 p = *cluster.map_shared_rank(&sums, r);
-    S1 += p.x;
-    S2 += p.y;
-  }
-  const float total = (float)N * cpg;
-  float dsum = 0.f;
-  for (int i = tid; i < count; i += kGnThreads) {
-    const size_t idx = base + (size_t)(i / cpg) * C + c;
-    const float dv = rstd * (ds[i] - (S1 + xs[i] * S2) / total);
-    dsum += dv;
-    store(out + idx, dv + (skip != nullptr ? skip[idx] : 0.f));
-  }
-  if (demb != nullptr) {   // the channel's sum: this block's threads in order, then the ranks
-    dpart[tid] = dsum;
-    __syncthreads();
-    if (tid < cpg) {
-      float t = 0.f;
-      for (int j = tid; j < kGnThreads; j += cpg) t += dpart[j];
-      red[tid] = t;
-    }
-  }
-  cluster.sync();   // the peers' sums are read no more; their channel sums are written
-  if (demb != nullptr && rank == 0 && tid < cpg) {
-    float t = 0.f;
-    for (int r = 0; r < ranks; ++r) t += cluster.map_shared_rank(red, r)[tid];
-    demb[(size_t)b * C + ch] = t;
-  }
-  cluster.sync();   // no block leaves while rank 0 may still read its sums
 }
 
 bool supported(int C, int groups) {
@@ -360,8 +252,8 @@ struct GnTiles {
 
 template <typename... Params, typename... Args>
 cudaError_t launch_gn(void (*kernel)(Params...), int groups, int B, const GnTiles& t, int cpg,
-                      int tiles, cudaStream_t stream, Args... args) {
-  const size_t smem = sizeof(float) * (size_t)tiles * t.tpr * cpg;
+                      cudaStream_t stream, Args... args) {
+  const size_t smem = sizeof(float) * (size_t)t.tpr * cpg;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -394,7 +286,7 @@ cudaError_t gn_silu(const InT* src, const float* emb, const float* gamma, const 
                                                                           out, N, C, groups, eps);
     return cudaGetLastError();
   }
-  return launch_gn(gn_silu_cluster_kernel<InT>, groups, B, t, cpg, 1, stream, src, emb, gamma,
+  return launch_gn(gn_silu_cluster_kernel<InT>, groups, B, t, cpg, stream, src, emb, gamma,
                    beta, out, N, C, cpg, t.tpr, eps);
 }
 
@@ -409,8 +301,11 @@ cudaError_t gn_silu_bwd(const InT* src, const float* emb, const __nv_bfloat16* d
         src, emb, dh, gamma, beta, skip, out, demb, N, C, groups, eps);
     return cudaGetLastError();
   }
-  return launch_gn(gn_silu_bwd_cluster_kernel<InT, OutT>, groups, B, t, cpg, 2, stream, src, emb,
-                   dh, gamma, beta, skip, out, demb, N, C, cpg, t.tpr, eps);
+  // 16-byte copies where the group's channels allow: x, g and dx are 16-byte
+  // aligned (the wrapper), h2, dh and dv fresh allocations
+  return gnc::bwd<InT, __nv_bfloat16, OutT, false>(B, N, C, groups, t.ranks, t.tpr,
+                                                   cpg % 4 == 0 ? 4 : 1, src, emb, dh, gamma,
+                                                   beta, skip, out, demb, nullptr, eps, stream);
 }
 
 bool gn_tiles_ok(const GnTiles& t, int N) {

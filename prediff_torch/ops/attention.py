@@ -1337,7 +1337,9 @@ def fused_cuboid_attention_layer_v3(x: torch.Tensor, ln_w: torch.Tensor, ln_b: t
     """The round-1 whole layer, "v3" in the JAX docstring, on x (B, cuboids,
     vol, C) reordered; weights in PyTorch layout (``w_qkv`` (3C, C), ``w_proj``
     (C, C)), ``bias`` (heads, vol, vol).  CPU tensor: the plain version.  CUDA
-    tensor: the kernels (four launches), or raise.  Forward-only."""
+    tensor: the kernels (four launches: the LN statistics, LN + QKV and the
+    projection in 3xTF32 on the tensor cores, the grouped core between them),
+    or raise.  Forward-only."""
     _forward_only("fused_cuboid_attention_layer_v3", x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj)
     if not x.is_cuda:
         return cuboid_attention_layer_v3_plain(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
@@ -1351,12 +1353,14 @@ def fused_cuboid_attention_layer_v3(x: torch.Tensor, ln_w: torch.Tensor, ln_b: t
         ("w_qkv", w_qkv, (3 * C, C)), ("bias", bias, (num_heads, vol, vol)),
         ("w_proj", w_proj, (C, C)), ("b_proj", b_proj, (C,))])
     M = B * nC * vol
-    ln, o = (torch.empty((M, C), dtype=torch.float32, device=x.device) for _ in range(2))
-    qkv = torch.empty((M, 3 * C), dtype=torch.float32, device=x.device)
+    x, w_qkv, w_proj = _build.aligned16(x, w_qkv, w_proj)   # the products' 16-byte copies
+    f32 = dict(dtype=torch.float32, device=x.device)
+    stats, o = torch.empty((M, 2), **f32), torch.empty((M, C), **f32)
+    qkv = torch.empty((M, 3 * C), **f32)
     out = torch.empty_like(x)
     lib = _build.load("attention", _SIGNATURES)
     err = lib.cuboid_layer_v3_forward(
-        *(_build.ptr(t) for t in (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, ln, qkv, o, out)),
+        *(_build.ptr(t) for t in (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, stats, qkv, o, out)),
         B, nC, vol, C, num_heads, float(scale), float(eps), _build.stream_ptr(x.device))
     _build.check(err, "cuboid_layer_v3_forward")
     fused_cuboid_attention_layer_v3.launches += 1

@@ -16,10 +16,20 @@ does not fit the shared memory of a cluster of ``GN_MAX_CLUSTER`` blocks
 stats pass and an apply pass, each one coalesced sweep over x.
 
 :func:`fused_groupnorm_silu` is differentiable: its backward is one call of
-:func:`fused_groupnorm_silu_bwd_full` (``gn_silu_bwd_full`` in the same
-source), which replaces
+:func:`fused_groupnorm_silu_bwd_full`, which replaces
 ``pallas_groupnorm.py::fused_groupnorm_silu_bwd_full`` and gives dx, dweight,
-dbias and demb together, whichever of them was asked for.
+dbias and demb together, whichever of them was asked for.  It runs the
+forward's design (``gn_silu_bwd_cluster``, ``csrc/gn_cluster.cuh``): one
+launch of a cluster per (group, sample) (:func:`gn_bwd_plan`, the forward's
+rule for a rank holding two f32 tiles, x and g; one-channel groups eight to
+a cluster, so a token's row segment is 32 bytes), the values read once into
+shared memory, the statistics merged in rank order, each thread on fixed
+channels so dweight, dbias and demb are summed per channel over the block's
+threads and then the ranks in order; a second launch adds the samples'
+partials in order.  Where the plan gives none (a group past a cluster of 8
+blocks' shared memory, or one a 256-thread block cannot hold on fixed
+channels) the first design runs, by shape: one block per (group, sample)
+making its passes over the group in device memory (``gn_silu_bwd_full``).
 """
 import math
 from dataclasses import dataclass
@@ -35,28 +45,45 @@ _TOK_PER_BLOCK = 16    # tokens per apply block (two-pass route)
 _P, _I, _F = _build.P, _build.I, _build.F
 _SIGNATURES = {"gn_silu_forward": [_P] * 6 + [_I] * 6 + [_F, _P],
                "gn_silu_cluster_forward": [_P] * 5 + [_I] * 7 + [_F, _P],
-               "gn_silu_bwd_full": [_P] * 9 + [_I] * 5 + [_F, _P]}
+               "gn_silu_bwd_full": [_P] * 9 + [_I] * 5 + [_F, _P],
+               "gn_silu_bwd_cluster": [_P] * 9 + [_I] * 7 + [_F, _P]}
 # csrc/groupnorm.cu gn_cluster_kernel: dynamic shared memory a block may take,
 # threads a block, the largest (portable) cluster, and the blocks a launch
 # aims for (about one per SM of the H100's 132)
 GN_SMEM_CAP, GN_THREADS, GN_MAX_CLUSTER, GN_TARGET_BLOCKS = 232448 - 1024, 256, 8, 128
+# csrc/gn_cluster.cuh kSmemCap (the backward kernel's dynamic shared memory cap)
+# and kBundle (the one-channel groups one of its blocks takes together)
+GN_BWD_SMEM_CAP, GN_BUNDLE = 232448 - 12288, 8
 
 
 @dataclass(frozen=True)
 class GnPlan:
-    """The one-launch kernel's split: a cluster of ``cluster`` blocks per
-    (sample, group), rank r holding tokens ``r * tpr .. r * tpr + tpr - 1``
-    (the last rank fewer) x the group's ``cpg`` channels in shared memory,
-    copied ``vw`` floats at a time (16 bytes where cpg allows)."""
+    """The one-launch kernels' split: a cluster of ``cluster`` blocks per
+    (sample, unit), a unit being ``bundle`` neighbouring groups (the
+    backward's one-channel groups: 8; else 1), rank r holding tokens
+    ``r * tpr .. r * tpr + tpr - 1`` (the last rank fewer) x the unit's
+    ``width`` channels in shared memory (zeros past C), ``tiles`` f32 tiles
+    of them (the forward x; the backward x and g), copied ``vw`` floats at a
+    time (16 bytes where cpg allows)."""
     B: int
     N: int
     C: int
     groups: int
     cluster: int
+    tiles: int = 1
+    bundle: int = 1
 
     @property
     def cpg(self) -> int:
         return self.C // self.groups
+
+    @property
+    def width(self) -> int:
+        return self.cpg * self.bundle
+
+    @property
+    def units(self) -> int:
+        return -(-self.groups // self.bundle)
 
     @property
     def tpr(self) -> int:
@@ -68,35 +95,60 @@ class GnPlan:
 
     @property
     def blocks(self) -> int:
-        return self.B * self.groups * self.cluster
+        return self.B * self.units * self.cluster
 
     @property
     def smem_bytes(self) -> int:
-        """The rank's tile and the group's emb, gamma and beta."""
-        return 4 * (self.tpr * self.cpg + 3 * self.cpg)
+        """The rank's tiles and three channel vectors (the forward: the
+        group's emb, gamma and beta; the backward: the rank's dgamma, dbeta
+        and demb sums)."""
+        return 4 * (self.tiles * self.tpr * self.width + 3 * self.width)
 
-    def tile(self, b: int, group: int, rank: int):
+    @property
+    def smem_cap(self) -> int:
+        """The dynamic shared memory the kernel may take."""
+        return GN_SMEM_CAP if self.tiles == 1 else GN_BWD_SMEM_CAP
+
+    def tile(self, b: int, unit: int, rank: int):
         """(sample, tokens, channels) that block ``rank`` of the cluster of
-        (b, group) holds and writes."""
+        (b, unit) holds and writes."""
         n0 = rank * self.tpr
         return (b, range(min(n0, self.N), min(n0 + self.tpr, self.N)),
-                range(group * self.cpg, (group + 1) * self.cpg))
+                range(unit * self.width, min((unit + 1) * self.width, self.C)))
 
 
 @lru_cache(maxsize=None)
-def gn_plan(B: int, N: int, C: int, groups: int) -> Optional[GnPlan]:
+def gn_plan(B: int, N: int, C: int, groups: int, tiles: int = 1,
+            bundle: int = 1) -> Optional[GnPlan]:
     """The one-launch kernel's plan for x (B, N, C), or None where a
     (sample, group) does not fit even a cluster of ``GN_MAX_CLUSTER`` blocks:
     that shape takes the two-pass kernels.  The cluster is the smallest of
     1, 2, 4, 8 (at most N) that gives ``GN_TARGET_BLOCKS`` blocks, or larger
-    until a rank's tile fits ``GN_SMEM_CAP``."""
+    until a rank's ``tiles`` tiles fit the kernel's shared memory."""
     sizes = [c for c in (1, 2, 4, GN_MAX_CLUSTER) if c <= max(N, 1)]
-    want = next((c for c in sizes if B * groups * c >= GN_TARGET_BLOCKS), sizes[-1])
+    units = -(-groups // bundle)
+    want = next((c for c in sizes if B * units * c >= GN_TARGET_BLOCKS), sizes[-1])
     for c in sizes:
-        plan = GnPlan(B, N, C, groups, c)
-        if c >= want and plan.smem_bytes <= GN_SMEM_CAP:
+        plan = GnPlan(B, N, C, groups, c, tiles, bundle)
+        if c >= want and plan.smem_bytes <= plan.smem_cap:
             return plan
     return None
+
+
+def gn_bwd_plan(B: int, N: int, C: int, groups: int) -> Optional[GnPlan]:
+    """The cluster backward's plan (``csrc/gn_cluster.cuh``; the all-gradients
+    backward and the resblock's GN passes): the forward's rule for two tiles
+    a rank, x (+ emb) and the cotangent, one-channel groups in bundles of
+    ``GN_BUNDLE``; or None where a (sample, group) does not fit a cluster of
+    8 or a 256-thread block cannot keep each thread on fixed channels
+    (``GN_THREADS * vw % width``): the one-block-per-group kernels.  By shape
+    alone."""
+    if groups < 1 or C % groups:
+        return None
+    plan = gn_plan(B, N, C, groups, tiles=2, bundle=GN_BUNDLE if C == groups else 1)
+    if plan is None or (GN_THREADS * plan.vw) % plan.width:
+        return None
+    return plan
 
 
 def groupnorm_silu_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -155,31 +207,39 @@ def fused_groupnorm_silu_bwd_full(x: torch.Tensor, g: torch.Tensor, weight: torc
                                   bias: torch.Tensor, emb: Optional[torch.Tensor] = None,
                                   groups: int = 32, eps: float = 1e-5):
     """(dx, dweight, dbias, demb or None).  CPU tensor: the plain version.
-    CUDA tensor: the kernel (any ``groups`` that divides C, as the forward),
-    or raise."""
+    CUDA tensor: the kernels (any ``groups`` that divides C, as the forward;
+    the route by :func:`gn_bwd_plan`), or raise."""
     if not x.is_cuda:
         return groupnorm_silu_bwd_full_plain(x, g, weight, bias, emb, groups, eps)
     B, N, C = x.shape
     if C % groups != 0 or math.lcm(C // groups, 32) > 1024:
         raise ValueError(f"groupnorm_bwd_full kernel: C={C}, groups={groups} not supported")
-    # a block of a (group, sample): a multiple of 32 threads and of the
-    # group's channels, so that each thread stays on one channel
-    unit = math.lcm(C // groups, 32)
-    threads = max(256 // unit, 1) * unit
     _build.require("groupnorm_bwd_full", [("x", x, (B, N, C)), ("g", g, (B, N, C)),
                                           ("weight", weight, (C,)), ("bias", bias, (C,))]
                    + ([("emb", emb, (B, C))] if emb is not None else []))
+    plan = gn_bwd_plan(B, N, C, groups)
+    if plan is not None and plan.vw == 4:   # 16-byte copies
+        x, g = _build.aligned16(x, g)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     demb = torch.empty((B, C), **f32) if emb is not None else None
     gpart, vec = torch.empty((B, 2, C), **f32), torch.empty((2, C), **f32)
     lib = _build.load("groupnorm", _SIGNATURES)
-    err = lib.gn_silu_bwd_full(
-        _build.ptr(x), _build.ptr(emb) if emb is not None else None, _build.ptr(g),
-        _build.ptr(weight), _build.ptr(bias), _build.ptr(dx),
-        _build.ptr(demb) if demb is not None else None, _build.ptr(gpart), _build.ptr(vec),
-        B, N, C, groups, threads, float(eps), _build.stream_ptr(x.device))
-    _build.check(err, "gn_silu_bwd_full")
+    head = (_build.ptr(x), _build.ptr(emb) if emb is not None else None, _build.ptr(g),
+            _build.ptr(weight), _build.ptr(bias), _build.ptr(dx),
+            _build.ptr(demb) if demb is not None else None, _build.ptr(gpart), _build.ptr(vec),
+            B, N, C, groups)
+    if plan is not None:
+        err = lib.gn_silu_bwd_cluster(*head, plan.cluster, plan.tpr, plan.vw, float(eps),
+                                      _build.stream_ptr(x.device))
+        _build.check(err, "gn_silu_bwd_cluster")
+    else:
+        # a block of a (group, sample): a multiple of 32 threads and of the
+        # group's channels, so that each thread stays on one channel
+        unit = math.lcm(C // groups, 32)
+        threads = max(256 // unit, 1) * unit
+        err = lib.gn_silu_bwd_full(*head, threads, float(eps), _build.stream_ptr(x.device))
+        _build.check(err, "gn_silu_bwd_full")
     fused_groupnorm_silu_bwd_full.launches += 1
     return dx, vec[0], vec[1], demb
 

@@ -8,7 +8,8 @@ The kernels (``csrc/resblock.cu``) replace
 TMA + wgmma kernel (``csrc/conv_wgmma.cuh``; bf16 operands, f32
 accumulation, tiled by ``ops/conv3d.conv_tiles``), each GroupNorm pass in
 one launch of a thread-block cluster per (group, sample) (row 1's design,
-:func:`gn_tiles`).  The forward also returns ``h2 = conv1(.) + b1``, kept
+:func:`gn_tiles`; the backward passes on ``csrc/gn_cluster.cuh``, the
+kernel of GN+SiLU's all-gradients backward).  The forward also returns ``h2 = conv1(.) + b1``, kept
 for the backward (bf16 from the kernel, as the TPU kernel keeps it); the
 backward gives (dx, demb).  Conv weights are in PyTorch ``Conv3d`` layout
 (C, C, 3, 3, 3); the kernels read their bf16 layouts, the forward's and the
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 
 from . import _build, conv3d
 from .ffn import _round
-from .groupnorm import GN_MAX_CLUSTER, GN_SMEM_CAP, GN_TARGET_BLOCKS, groupnorm_silu_plain
+from .groupnorm import gn_bwd_plan, groupnorm_silu_plain
 
 _P, _I, _F = _build.P, _build.I, _build.F
 _SIGNATURES = {"resblock_forward": [_P] * 13 + [_I] * 13 + [_F, _P],
@@ -117,20 +118,12 @@ def _specs(x, emb, groups, **vectors):
 
 
 def gn_tiles(B: int, N: int, C: int, groups: int):
-    """(ranks, tokens a rank) of the GroupNorm passes' clusters (row 1's
-    rule, ``ops/groupnorm.gn_plan``): the smallest of 1, 2, 4, 8 (at most N)
-    that gives ``GN_TARGET_BLOCKS`` blocks, larger until a rank's tiles fit
-    (the backward's two f32 tiles, the values and dh, beside the kernel's
-    own 2 KB); (0, 0) where even 8 ranks' do not: the one-block-per-group
-    kernels."""
-    cpg = C // groups
-    sizes = [r for r in (1, 2, 4, GN_MAX_CLUSTER) if r <= max(N, 1)]
-    want = next((r for r in sizes if B * groups * r >= GN_TARGET_BLOCKS), sizes[-1])
-    for r in sizes:
-        tpr = -(-N // r)
-        if r >= want and 8 * tpr * cpg <= GN_SMEM_CAP - 2048:
-            return r, tpr
-    return 0, 0
+    """(ranks, tokens a rank) of the GroupNorm passes' clusters, forward and
+    backward: ``ops/groupnorm.gn_bwd_plan`` (row 1's rule for the backward's
+    two f32 tiles a rank, the values and dh); (0, 0) where it gives none: the
+    one-block-per-group kernels."""
+    plan = gn_bwd_plan(B, N, C, groups)
+    return (0, 0) if plan is None else (plan.cluster, plan.tpr)
 
 
 def _conv_args(x, k1, k2, groups: int, dx: bool):
@@ -178,7 +171,7 @@ def fused_resblock_bwd(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g, groups: int = 
     _build.require("resblock_bwd", _specs(x, emb, groups, g1s=g1s, g1b=g1b, g2s=g2s, g2b=g2b)
                    + [("g", g, x.shape), ("h2", h2, x.shape, torch.bfloat16)])
     (w1t, w2t), tiles = _conv_args(x, k1, k2, groups, dx=True)
-    (g,) = _build.aligned16(g)
+    x, g = _build.aligned16(x, g)   # the GN passes' 16-byte copies and the g cast
     gb = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     dh, dv = torch.empty_like(gb), torch.empty_like(gb)
     dx = torch.empty_like(x)

@@ -16,12 +16,12 @@ from prediff_tpu.ops.pallas_attention import (cuboid_attention_reference,
 from prediff_tpu.ops.pallas_attention import fused_cuboid_attention as jax_core
 from prediff_torch.diffusion.latent_diffusion import LatentDiffusion
 from prediff_torch.diffusion.schedule import make_gaussian_schedule
-from prediff_torch.ops.attention import (cuboid_attention_layer_v3_plain,
+from prediff_torch.ops.attention import (_tf32_product, cuboid_attention_layer_v3_plain,
                                          cuboid_attention_plain_core, fused_cuboid_attention,
                                          fused_cuboid_attention_layer_v3, grouped_attention_plain,
                                          grouped_attention_tf32, tf32_round)
 from prediff_torch.ops.cuboid import compute_cuboid_self_attention_mask as torch_window_mask
-from test_torch_kernels_cuda import CORE_CASES, GROUPED_CASES
+from test_torch_kernels_cuda import CORE_CASES, GROUPED_CASES, V3_SHAPES
 
 # f32 throughout on both sides; only the order of the sums differs
 TOL = 1e-5
@@ -179,6 +179,44 @@ def test_core_in_3xtf32_meets_the_bar_and_one_pass_does_not(layout, shape, windo
         assert bool((got[:, :, ~mask.any(-1)] == 0).all())
 
 
+def _v3_errors(shape):
+    """The round-1 layer with its two products on TF32 parts (3 passes, as
+    ``tf32_gemm_kernel``; or 1) around the core's 3xTF32 arithmetic: the
+    worst error against the f32 plain version as a share of the output's
+    max, for each number of passes, at the card tests' v3 shapes."""
+    B, nC, vol, C = shape
+    heads = 4 if C > 32 else 2
+    hc, rng = C // heads, np.random.RandomState(sum(shape))
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    ln_w = torch.from_numpy((1.0 + 0.1 * rng.randn(C)).astype(np.float32))
+    ln_b = torch.from_numpy((0.1 * rng.randn(C)).astype(np.float32))
+    w_qkv = torch.from_numpy((rng.randn(3 * C, C) / C ** 0.5).astype(np.float32))
+    bias = torch.from_numpy((0.5 * rng.randn(heads, vol, vol)).astype(np.float32))
+    w_proj = torch.from_numpy((rng.randn(C, C) / C ** 0.5).astype(np.float32))
+    b_proj = torch.from_numpy((0.1 * rng.randn(C)).astype(np.float32))
+    want = cuboid_attention_layer_v3_plain(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads,
+                                           hc ** -0.5)
+    ln = torch.nn.functional.layer_norm(x, (C,), ln_w, ln_b, 1e-5).reshape(-1, C)
+    errors = {}
+    for passes in (3, 1):
+        qkv = _tf32_product("mk,nk->mn", ln, w_qkv, passes)
+        q, k, v = qkv.reshape(B, nC, vol, 3, heads, hc).permute(3, 0, 4, 1, 2, 5)
+        o = grouped_attention_tf32(q, k, v, bias, None, hc ** -0.5, passes=3)
+        o = o.permute(0, 2, 3, 1, 4).reshape(-1, C)
+        got = (_tf32_product("mk,nk->mn", o, w_proj, passes) + b_proj).reshape(shape)
+        errors[passes] = float((got - want).abs().max()) / float(want.abs().max())
+    return errors
+
+
+@pytest.mark.parametrize("shape", V3_SHAPES)
+def test_layer_v3_products_in_3xtf32_meet_the_bar_and_one_pass_does_not(shape):
+    """The v3 layer's LN + QKV and projection products in 3xTF32 on the
+    tensor cores stay within the round-1 bar, 1e-5 of the output's max,
+    against the f32 plain version; one TF32 pass does not."""
+    errors = _v3_errors(shape)
+    assert errors[3] <= TOL and errors[1] > TOL, errors
+
+
 def _latent_diffusion(device):
     schedule = make_gaussian_schedule(timesteps=10)
     return LatentDiffusion(torch.nn.Identity(), torch.nn.Identity(), schedule,
@@ -200,3 +238,5 @@ if __name__ == "__main__":   # the errors themselves: python tests/test_torch_cu
     for layout, shape, window in TF32_CASES:
         errors = _tf32_errors(layout, shape, window)[0]
         print(layout, shape, "masked" if window else "", {p: f"{e:.2e}" for p, e in errors.items()})
+    for shape in V3_SHAPES:
+        print("v3", shape, {p: f"{e:.2e}" for p, e in _v3_errors(shape).items()})

@@ -277,6 +277,37 @@ def test_groupnorm_bwd_full_kernel_matches_plain(dev, B, N, C, groups, with_emb)
     assert all(a is b or torch.equal(a, b) for a, b in zip(got, again))
 
 
+# (B, N, C, groups) -> (cluster, vw) or the one-block route: the cluster
+# kernel with 16-byte copies (the training micro-step's 256 and 512 wide, the
+# alignment net's 128), with 4-byte copies (one channel a group, eight groups
+# a block; two a group), the one-block-per-group kernel for 3 channels a group
+# and for a group past a cluster's memory
+GN_BWD_ROUTES = {(2, 3328, 256, 32): (2, 4), (2, 832, 512, 32): (2, 4), (2, 3328, 65, 65): (8, 1),
+                 (1, 1536, 64, 32): (4, 1), (1, 1536, 128, 32): (4, 4), (3, 50, 96, 32): None,
+                 (1, 160000, 64, 32): None}
+
+
+@pytest.mark.parametrize("B,N,C,groups", list(GN_BWD_ROUTES))
+def test_groupnorm_bwd_full_routes_match_plain_and_repeat(dev, B, N, C, groups):
+    from prediff_torch.ops.groupnorm import gn_bwd_plan
+
+    plan = gn_bwd_plan(B, N, C, groups)
+    assert (None if plan is None else (plan.cluster, plan.vw)) == GN_BWD_ROUTES[(B, N, C, groups)]
+    x = torch.randn(B, N, C, device=dev) * 2.0 + 3.0
+    g = torch.randn(B, N, C, device=dev)
+    w = 1.0 + 0.1 * torch.randn(C, device=dev)
+    b = 0.1 * torch.randn(C, device=dev)
+    emb = torch.randn(B, C, device=dev)
+    before = fused_groupnorm_silu_bwd_full.launches
+    got = fused_groupnorm_silu_bwd_full(x, g, w, b, emb, groups=groups)
+    assert fused_groupnorm_silu_bwd_full.launches == before + 1
+    for gt, wt in zip(got, groupnorm_silu_bwd_full_plain(x, g, w, b, emb, groups=groups)):
+        scale = wt.abs().max().item()
+        assert (gt - wt).abs().max().item() <= TOL_GN * max(scale, 1.0)
+    again = fused_groupnorm_silu_bwd_full(x, g, w, b, emb, groups=groups)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def _grads(fn, args, g):
     leaves = [a.clone().requires_grad_(True) for a in args]
     return torch.autograd.grad(fn(*leaves), leaves, g)
@@ -786,9 +817,13 @@ def test_cuboid_core_kernel_matches_plain(dev, shape, window):
         fused_cuboid_attention(q.requires_grad_(True), k, v, bias, mask, hc ** -0.5)
 
 
-@pytest.mark.parametrize("shape", [(1, 52, 64, 256), (2, 13, 16, 64), (1, 8, 16, 32)])
+V3_SHAPES = [(1, 52, 64, 256), (2, 13, 16, 64), (1, 8, 16, 32)]
+
+
+@pytest.mark.parametrize("shape", V3_SHAPES)
 def test_cuboid_layer_v3_kernel_matches_plain(dev, shape):
-    """The round-1 whole layer: f32 LN and GEMMs, the core in 3xTF32."""
+    """The round-1 whole layer: the LN + QKV and projection products and the
+    core in 3xTF32 on the tensor cores, against f32."""
     B, nC, vol, C = shape
     heads = 4 if C > 32 else 2
     x = torch.randn(*shape, device=dev)
