@@ -20,8 +20,17 @@ full-width alignment net on the card against the CPU's; then three chains
 through ``PreDiffPredictor.predict``, each with the kernels' launch counts
 set to 0 just before it and read just after: the 100-step unguided DDPM
 forecast, the 100-step guided DDPM forecast and the 50-step guided DDIM
-forecast (VAE encode, the steps, VAE decode); profiles of a UNet forward
-and of a guided step.  Then the same on the ``video_swin_1x8`` pattern
+forecast (VAE encode, the steps, VAE decode).  Each chain's steps replay
+captured CUDA graphs (``prediff_torch/diffusion/graphs.py``): every chain
+runs twice from one seed, eager and on graphs (the graph run captures; the
+order alternates by chain), with exact launch counts in each, bit-equal
+outputs, the step loop's ms per step timed apart from the encode and the
+decode, its capture seconds, pool bytes, launches per replay and device
+time per step by replay; a ``graph_chains`` line gathers them before the
+``kernels`` line.  Profiles of a UNet forward and of a guided step;
+``graph_recapture``: a repeated forecast replays without capturing, then an
+in-place weight update makes the next one capture anew.  Then the same on the
+``video_swin_1x8`` pattern
 (``swin_*`` phases: shifted 1x8x8 windows in the UNet and the alignment net):
 the general cuboid layer, its input gradient, its all-gradients backward and
 their dropout forms and the grouped masked core against their plain versions
@@ -188,9 +197,14 @@ PAIRS = (FFN_FORWARDS, FFN_BACKWARDS, ATTN_FORWARDS, ATTN_BACKWARDS, CUBOID_FORW
 
 
 LOG = []  # open files that every emitted line is also written to
+GRAPH_CHAINS = {}  # phase -> the captured chain's numbers, for the graph_chains line
+T0 = time.perf_counter()  # every phase line carries its seconds since the start (t_s)
 
 
 def emit(obj) -> None:
+    """Print ``obj`` as one JSON line (and to ``LOG``); a phase line gains ``t_s``."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T0)
     line = json.dumps(obj)
     print(line, flush=True)
     for f in LOG:
@@ -1504,44 +1518,182 @@ def shift_vs_cpu(phase, align_cpu, predictor, cfg, rs, t, want_counts, device, z
     return avg
 
 
+def replay_ms(graph, reps: int = 20) -> float:
+    """Device ms per replay of a captured step, ``reps`` replays back to back
+    timed with events: the step's device time with the host out of the way."""
+    import torch
+
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def run_chains(predictor, context, chains, expect_shape, expected_fn, device, smi, zero_counts,
                read_counts):
     """Each chain ``phase: (predict kwargs, steps, guided)`` through
-    ``predictor.predict`` after a 2-step warm-up, with the launch counts set
-    to 0 just before it and read just after, held to ``expected_fn(steps,
-    guided)``; the first chain is the unguided one the guidance share is
-    taken against.  Returns the launches by phase."""
+    ``predictor.predict`` twice from one seed, eager (``_plain_chain``) and
+    on graphs, eager first on even chains and graph first on odd ones; each
+    run with the launch counts set to 0 just before it and read just after,
+    held to ``expected_fn(steps, guided)``, and the two bit-equal.  The graph
+    run captures on the way: the first step of each kind runs eagerly and is
+    captured, every later one replays.  Each run's step loop
+    (``LatentDiffusion._chain``) is timed on its own, synchronized on both
+    sides, so ``ms_per_step`` leaves out the context encode and the decode
+    (``outside_steps_ms``: what the forecast spends around the loop) and the
+    graph run's capture seconds.  Per chain also: captures, the pool's bytes,
+    launches per replay, device ms of a step by replay (``replay_ms``) and
+    each run's busy share against it.  The first chain is the unguided one
+    the guidance share is taken against.  Returns the launches by phase (the
+    graph run's)."""
+    import contextlib
+
     import torch
 
+    ld = predictor.ld
     launches_by_path, ms_per_step = {}, {}
-    for phase, (kw, steps, guided) in chains.items():
-        warm = dict(kw, **({"ddim_steps": 2} if "ddim_steps" in kw else {"timesteps": 2}))
-        predictor.predict(context, generator=torch.Generator(device).manual_seed(1), **warm)
+    loop_s = []
+    chain = ld._chain
+
+    def timed_chain(*args):
         sync(device)
-        torch.cuda.reset_peak_memory_stats(device)
-        zero_counts()
         t1 = time.perf_counter()
-        out = predictor.predict(context, generator=torch.Generator(device).manual_seed(SEED), **kw)
+        ends = chain(*args)
         sync(device)
-        chain_s = time.perf_counter() - t1
-        launches = read_counts()
-        expected = expected_fn(steps, guided)
-        launches_by_path[phase] = launches
-        ms_per_step[phase] = 1e3 * chain_s / steps
-        line = {"phase": phase, "steps": steps, "shape": list(out.shape),
-                "finite": bool(torch.isfinite(out).all()), "seconds": chain_s,
-                "ms_per_step": ms_per_step[phase], "steps_per_s": steps / chain_s,
-                "launches": launches, "expected_launches": expected, "card": smi,
-                "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30}
-        if guided:
-            unguided = next(iter(ms_per_step.values()))
-            line["guidance_share_of_step"] = 1.0 - unguided / ms_per_step[phase]
-        emit(line)
-        if tuple(out.shape) != expect_shape or not torch.isfinite(out).all():
-            fail(f"{phase}: shape {tuple(out.shape)} (want {expect_shape}) or non-finite values")
-        if launches != expected:
-            fail(f"{phase}: kernel launches {launches} != expected {expected}")
+        loop_s.append(time.perf_counter() - t1)
+        return ends
+
+    ld._chain = timed_chain
+    try:
+        for n, (phase, (kw, steps, guided)) in enumerate(chains.items()):
+            before = ld.graphs.entries()
+            captures, capture_s = ld.graphs.captures, ld.graphs.capture_seconds
+            runs = {}
+            for run in (("eager", "graph") if n % 2 == 0 else ("graph", "eager")):
+                sync(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                zero_counts()
+                t1 = time.perf_counter()
+                with ld._plain_chain() if run == "eager" else contextlib.nullcontext():
+                    out = predictor.predict(
+                        context, generator=torch.Generator(device).manual_seed(SEED), **kw)
+                sync(device)
+                wall_s = time.perf_counter() - t1
+                runs[run] = dict(wall_s=wall_s, loop_s=loop_s[-1], launches=read_counts(),
+                                 out=out, peak=torch.cuda.max_memory_allocated(device) / 2**30)
+            cap_s = ld.graphs.capture_seconds - capture_s
+            entry = next(e for e in ld.graphs.entries() if e not in before)
+            plan = entry.plan
+            step_ms = {kind: replay_ms(graph) for kind, (graph, _) in entry.graphs.items()}
+            device_ms = sum(step_ms[bool(g)] for g in plan.guided) / steps
+            expected = expected_fn(steps, guided)
+            out = runs["graph"]["out"]
+            graph_ms = 1e3 * (runs["graph"]["loop_s"] - cap_s) / steps
+            eager_ms = 1e3 * runs["eager"]["loop_s"] / steps
+            bit_equal = torch.equal(runs["eager"]["out"], out)
+            launches_by_path[phase] = runs["graph"]["launches"]
+            ms_per_step[phase] = graph_ms
+            line = {"phase": phase, "steps": steps, "order": list(runs),
+                    "shape": list(out.shape), "finite": bool(torch.isfinite(out).all()),
+                    "ms_per_step": graph_ms, "steps_per_s": 1e3 / graph_ms,
+                    "eager_ms_per_step": eager_ms, "device_ms_per_step": device_ms,
+                    "device_ms_per_replay": {
+                        "guided" if k else "unguided": v for k, v in step_ms.items()},
+                    "busy_share": device_ms / graph_ms, "eager_busy_share": device_ms / eager_ms,
+                    "wall_s": runs["graph"]["wall_s"], "eager_wall_s": runs["eager"]["wall_s"],
+                    "outside_steps_ms": 1e3 * (runs["graph"]["wall_s"] - runs["graph"]["loop_s"]),
+                    "eager_outside_steps_ms": 1e3 * (runs["eager"]["wall_s"]
+                                                     - runs["eager"]["loop_s"]),
+                    "captures": ld.graphs.captures - captures, "capture_s": cap_s,
+                    "pool_bytes": ld.graphs.pool_bytes(), "bit_equal_graph_eager": bit_equal,
+                    "launches_per_replay": {"guided" if k else "unguided": v
+                                            for k, v in entry.launches_per_replay().items()},
+                    "launches": runs["graph"]["launches"], "expected_launches": expected,
+                    "launches_equal_by_run": all(r["launches"] == expected
+                                                 for r in runs.values()),
+                    "card": smi, "peak_mem_gib": runs["graph"]["peak"]}
+            if guided:
+                unguided = next(iter(ms_per_step.values()))
+                line["guidance_share_of_step"] = 1.0 - unguided / ms_per_step[phase]
+            emit(line)
+            GRAPH_CHAINS[phase] = {k: line[k] for k in (
+                "order", "ms_per_step", "eager_ms_per_step", "device_ms_per_step", "busy_share",
+                "eager_busy_share", "outside_steps_ms", "eager_outside_steps_ms", "captures",
+                "capture_s", "pool_bytes", "bit_equal_graph_eager", "launches_equal_by_run")}
+            if tuple(out.shape) != expect_shape or not torch.isfinite(out).all():
+                fail(f"{phase}: shape {tuple(out.shape)} (want {expect_shape}) "
+                     "or non-finite values")
+            for run, r in runs.items():
+                if r["launches"] != expected:
+                    fail(f"{phase} ({run} run): kernel launches {r['launches']} "
+                         f"!= expected {expected}")
+            if not bit_equal:
+                fail(f"{phase}: the graph chain differs from the eager chain at the same seed")
+    finally:
+        del ld._chain
     return launches_by_path
+
+
+def graph_recapture(predictor, context, avg_x_gt, device):
+    """A second forecast of the same key replays the graphs it captured (no
+    capture, the same result); then an in-place update of one FFN weight
+    (bf16 layout cached per version) before a third: that one must capture
+    anew and equal the eager chain on the new weights, and differ from the
+    first.  The weight is put back after."""
+    import torch
+
+    ld = predictor.ld
+    kw = dict(timesteps=10, use_alignment=True, avg_x_gt=avg_x_gt)
+
+    def forecast():
+        return predictor.predict(context, generator=torch.Generator(device).manual_seed(SEED),
+                                 **kw)
+
+    name, w = next((n, p) for n, p in ld.unet.named_parameters()
+                   if "ffn" in n and p.ndim == 2)
+    first = forecast()
+    captures = ld.graphs.captures
+    reused = torch.equal(forecast(), first) and ld.graphs.captures == captures
+    saved = w.detach().clone()
+    with torch.no_grad():
+        w.mul_(1.5)
+    second = forecast()
+    recaptured = ld.graphs.captures - captures
+    with ld._plain_chain():
+        eager = forecast()
+    with torch.no_grad():
+        w.copy_(saved)
+    ok = (reused and recaptured == 1 and torch.equal(second, eager)
+          and not torch.equal(first, second))
+    emit({"phase": "graph_recapture", "updated": name, "reused_without_capture": reused,
+          "recaptured": recaptured,
+          "equal_to_eager": bool(torch.equal(second, eager)),
+          "moved_max_abs": float((second - first).abs().max()), "ok": ok})
+    if not ok:
+        fail("graph_recapture: a repeated forecast captured or differed, an updated weight "
+             "did not capture anew, or the new chain differs from the eager one")
+
+
+def guided_step(ld, z, zc, avg_x_gt):
+    """One guided DDPM step at t = T/2, temperature 1, as a chain runs it:
+    its plan, buffers and noise made here once, the call runs the step alone
+    (on the buffers, in place, under ``no_grad`` as in ``sample``)."""
+    import torch
+
+    plan = ld._chain_plan("ddpm", ld.num_timesteps, None, 0.0, False, 1.0, True, 1, False, 1)
+    bufs = ld._buffers(plan, z, zc, None, avg_x_gt, None, None)
+    bufs.t.fill_(ld.num_timesteps // 2)
+    ld._draw(bufs.noise, None)
+
+    def step():
+        with torch.no_grad():
+            ld._reverse_step(bufs, plan, True)
+
+    return step
 
 
 def profile(name: str, fn, reps: int):
@@ -1892,11 +2044,11 @@ def run(device, cfg, smi: str) -> None:
     zg = torch.randn((1,) + tuple(d.latent_shape), device=device)
     avg_d = avg.to(device)
     emit(profile("profile_guided_step",
-                 lambda: predictor.ld.p_sample_step(zg, predictor.ld.num_timesteps // 2, zc,
-                                             1.0, None, avg_x_gt=avg_d),
+                 guided_step(predictor.ld, zg, zc, avg_d),
                  reps=5))
     emit(profile("profile_guidance_shift",
                  lambda: predictor.ld.alignment.get_mean_shift(zg, td, avg_d), reps=5))
+    graph_recapture(predictor, context, avg_x_gt, device)
     del predictor
     weights = {"unet": unet_cpu.state_dict(), "vae": vae_cpu.state_dict(),
                "align": align_cpu.state_dict()}
@@ -1916,6 +2068,7 @@ def run(device, cfg, smi: str) -> None:
         train_weights, zero_counts, read_counts, prefix="conv_", rate0=False))
     launches_by_path.update(swin_train_phases(device, cfg, smi, swin_unet, vae_cpu.state_dict(),
                                               zero_counts, read_counts))
+    emit({"phase": "graph_chains", "card": smi, "chains": GRAPH_CHAINS})
     emit({"kernels": summarize(cases, launches_by_path)})
     print(smi, flush=True)
 
@@ -1986,8 +2139,7 @@ def conv_serving_phases(device, cfg, smi, weights, zero_counts, read_counts):
     zg = torch.randn((1,) + tuple(ccfg.model.diffusion.latent_shape), device=device)
     avg_d = avg.to(device)
     emit(profile("conv_profile_guided_step",
-                 lambda: predictor.ld.p_sample_step(zg, predictor.ld.num_timesteps // 2, zc,
-                                                    1.0, None, avg_x_gt=avg_d),
+                 guided_step(predictor.ld, zg, zc, avg_d),
                  reps=5))
     return launches, per
 
@@ -2197,8 +2349,7 @@ def swin_phases(device, cfg, smi, cases, zero_counts, read_counts):
     zg = torch.randn((1,) + tuple(scfg.model.diffusion.latent_shape), device=device)
     avg_d = avg.to(device)
     emit(profile("swin_profile_guided_step",
-                 lambda: predictor.ld.p_sample_step(zg, predictor.ld.num_timesteps // 2, zc,
-                                                    1.0, None, avg_x_gt=avg_d),
+                 guided_step(predictor.ld, zg, zc, avg_d),
                  reps=5))
     emit(profile("swin_profile_guidance_shift",
                  lambda: predictor.ld.alignment.get_mean_shift(zg, td, avg_d), reps=5))

@@ -29,9 +29,12 @@ class KnowledgeAlignment:
                  alignment_type: str = "avg_x", compute_dtype: str = "float32"):
         if alignment_type != "avg_x":
             raise NotImplementedError(f"alignment type '{alignment_type}' is not ported")
+        if compute_dtype == "auto":   # the JAX package's resolution off a TPU
+            compute_dtype = "float32"
         if compute_dtype != "float32":
-            raise NotImplementedError(f"guidance compute_dtype '{compute_dtype}': only float32 "
-                                      "is ported")
+            raise NotImplementedError(
+                f"guidance compute_dtype {compute_dtype!r}: only float32 is ported (ROADMAP.md "
+                "queue 1, compute_dtype='bfloat16' for the chain and for guidance)")
         self.model = model
         self.guide_scale = guide_scale
         self.alignment_type = alignment_type

@@ -1,6 +1,6 @@
 """Latent diffusion pipeline: VAE latent space + the cuboid-transformer UNet
-denoiser, DDPM or DDIM sampling as a Python loop, optionally steered by
-knowledge alignment, and the training loss.
+denoiser, DDPM or DDIM sampling, optionally steered by knowledge alignment,
+and the training loss.
 
 The chain: encode the context frame by frame (posterior mode), run the
 reverse steps, decode frame by frame.  DDPM runs t = T-1 .. 0 against the
@@ -11,6 +11,14 @@ uniform subsequence of the first ``timesteps or T`` steps.  With
 by the alignment gradient; ``guidance_every_k=k`` guides only the steps with
 t % k == 0 (DDPM) or index % k == 0 (DDIM), the shift scaled by k.
 
+A step reads t (or the DDIM index), its noise and the latent from static
+buffers and gathers the schedule's values on the device, so that one
+captured CUDA graph serves every step of its kind: on the card each step
+replays one (``graphs.py``, cached per static key as the JAX package caches
+its compiled chain).  On the CPU the same steps run eagerly: the chain's
+plain version.  The host draws each step's noise from the caller's
+generator into its buffer, where and in the order the eager chain draws it.
+
 Training: the frozen VAE encodes the target (posterior sample) and the
 context (mode) under ``no_grad``, t and the noise are drawn from the caller's
 generator, and :meth:`LatentDiffusion.p_losses` weighs the denoiser's error
@@ -18,7 +26,10 @@ generator, and :meth:`LatentDiffusion.p_losses` weighs the denoiser's error
 (the JAX loss's ``rng_drop``): it reaches the denoiser's forward, which uses
 it in training mode only.
 """
-from typing import Dict, Optional, Sequence
+import contextlib
+import functools
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,8 +38,31 @@ from torch import nn
 from ..utils.device import resolve_device
 from ..utils.distributions import latents_from_moments_seq
 from . import core
+from .graphs import StepBuffers, StepGraphCache, StepGraphs
 from .knowledge_alignment import KnowledgeAlignment
 from .schedule import GaussianSchedule, make_ddim_sampling_parameters, make_ddim_timesteps
+
+
+@dataclass
+class ChainPlan:
+    """The static part of a chain, what its captured steps bake in: per
+    step in chain order the value of the t buffer (DDPM t, or DDIM index),
+    whether it is guided and whether it draws its noise; the segments'
+    lengths; whether a step adds noise at all; the DDIM schedule as device
+    tensors (``ts``, ``sqrt_a``, ``sqrt_1ma``, ``sqrt_a_prev``, ``dir_coef``,
+    ``sigma``, computed in f32 on the host)."""
+    sampler: str
+    values: np.ndarray
+    guided: np.ndarray
+    draws: np.ndarray
+    segments: List[int]
+    temperature: float
+    noisy: bool
+    guidance_every_k: int
+    use_alignment: bool
+    use_mask: bool
+    clip_x0: bool
+    ddim: Optional[Dict[str, torch.Tensor]]
 
 
 class LatentDiffusion:
@@ -45,7 +79,7 @@ class LatentDiffusion:
                  alignment: Optional[KnowledgeAlignment] = None, device=None,
                  loss_type: str = "l2", l_simple_weight: float = 1.0,
                  original_elbo_weight: float = 0.0, learn_logvar: bool = False,
-                 logvar_init: float = 0.0):
+                 logvar_init: float = 0.0, log_every_t: int = 100):
         if parameterization not in ("eps", "x0"):
             raise ValueError(f"parameterization '{parameterization}'")
         self.device = resolve_device(device)
@@ -65,6 +99,13 @@ class LatentDiffusion:
         self.original_elbo_weight = original_elbo_weight
         self.learn_logvar = learn_logvar
         self.logvar_init = logvar_init
+        self.log_every_t = log_every_t
+        self.graphs = StepGraphCache(self._graph_modules)
+        self._plain = False
+
+    def _graph_modules(self):
+        """The modules whose parameters and buffers the captured steps read."""
+        return [self.unet] + ([self.alignment.model] if self.alignment is not None else [])
 
     @torch.no_grad()
     def first_stage_moments(self, frames: torch.Tensor) -> torch.Tensor:
@@ -176,32 +217,10 @@ class LatentDiffusion:
         dec = torch.cat([self.vae.decode(f) for f in torch.split(frames, chunk)])
         return dec.reshape((B, -1) + tuple(dec.shape[1:]))
 
-    def _shift(self, z, t_b, zc, y, avg_x_gt) -> torch.Tensor:
-        return self.alignment.get_mean_shift(z, t_b, avg_x_gt, zc=zc, y=y)
 
-    @torch.no_grad()
-    def p_sample_step(self, z: torch.Tensor, t: int, zc: torch.Tensor, temperature: float,
-                      generator: Optional[torch.Generator], y: Optional[torch.Tensor] = None,
-                      avg_x_gt: Optional[torch.Tensor] = None,
-                      guidance_every_k: int = 1) -> torch.Tensor:
-        """One DDPM reverse step; guided when ``avg_x_gt`` is given."""
-        t_b = torch.full((z.shape[0],), t, dtype=torch.long, device=z.device)
-        model_out = self.unet(z, t_b, zc)
-        mean, _, log_var, _ = core.p_mean_variance(
-            self.schedule, model_out, z, t_b, parameterization=self.parameterization,
-            clip_denoised=self.clip_denoised)
-        if avg_x_gt is not None:
-            k = int(guidance_every_k)
-            if k <= 1:
-                mean = mean - torch.exp(0.5 * log_var) * self._shift(z, t_b, zc, y, avg_x_gt)
-            elif t % k == 0:
-                shift = self._shift(z, t_b, zc, y, avg_x_gt)
-                mean = mean - torch.exp(0.5 * log_var) * (float(k) * shift)
-        if t == 0 or temperature == 0.0:
-            return mean
-        noise = torch.randn(z.shape, generator=generator, device=z.device, dtype=z.dtype)
-        return mean + torch.exp(0.5 * log_var) * noise * temperature
-
+    # ------------------------------------------------------------------ #
+    # sampling
+    # ------------------------------------------------------------------ #
     def ddim_schedule(self, ddim_steps: int, total_T: int, eta: float):
         """(timesteps, sigmas, alphas, alphas_prev) of the DDIM chain as numpy
         arrays, the parameters in f32; the timesteps clipped to the schedule,
@@ -211,53 +230,185 @@ class LatentDiffusion:
         params = make_ddim_sampling_parameters(alphacums, ts, eta)
         return (ts.astype(np.int64),) + tuple(np.asarray(a, np.float32) for a in params)
 
-    @torch.no_grad()
-    def ddim_step(self, z, idx: int, ddim, zc, temperature: float,
-                  generator: Optional[torch.Generator], clip_x0: bool = False, y=None,
-                  avg_x_gt=None, guidance_every_k: int = 1) -> torch.Tensor:
-        """DDIM step ``idx`` of the chain ``ddim`` (from :meth:`ddim_schedule`);
-        guided when ``avg_x_gt`` is given, by shifting eps by
-        sqrt(1 - a_t) x the alignment gradient.  The step's scalars are f32,
-        computed on the host."""
-        ts, sigmas, alphas, alphas_prev = ddim
-        t_b = torch.full((z.shape[0],), int(ts[idx]), dtype=torch.long, device=z.device)
-        model_out = self.unet(z, t_b, zc)
-        one = np.float32(1.0)
-        a_t, a_prev, sigma = alphas[idx], alphas_prev[idx], sigmas[idx]
-        sqrt_a, sqrt_1ma = float(np.sqrt(a_t)), float(np.sqrt(one - a_t))
+    def _chain_plan(self, sampler: str, total_T: int, ddim_steps: Optional[int], ddim_eta: float,
+                    ddim_clip_x0: bool, temperature: float, use_alignment: bool,
+                    guidance_every_k: int, use_mask: bool, num_segments: int) -> ChainPlan:
+        if sampler == "ddpm":
+            values = np.arange(total_T - 1, -1, -1)
+            draws = (values > 0) & (temperature != 0.0)
+            noisy, ddim = temperature != 0.0, None
+        elif sampler == "ddim":
+            if not ddim_steps:
+                raise ValueError("sampler 'ddim' needs ddim_steps")
+            ts, sigmas, alphas, alphas_prev = self.ddim_schedule(ddim_steps, total_T, ddim_eta)
+            values = np.arange(len(ts) - 1, -1, -1)
+            draws = (sigmas[values] != 0.0) & (temperature != 0.0)
+            noisy = bool(draws.any())
+            one = np.float32(1.0)
+            tables = dict(ts=ts, sqrt_a=np.sqrt(alphas), sqrt_1ma=np.sqrt(one - alphas),
+                          sqrt_a_prev=np.sqrt(alphas_prev), sigma=sigmas,
+                          dir_coef=np.sqrt(np.maximum(one - alphas_prev - sigmas * sigmas,
+                                                      np.float32(0.0))))
+            ddim = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                    for k, v in tables.items()}
+        else:
+            raise NotImplementedError(f"sampler '{sampler}'")
+        k = int(guidance_every_k)
+        guided = np.full(len(values), bool(use_alignment)) if k <= 1 else (
+            bool(use_alignment) & (values % k == 0))
+        return ChainPlan(sampler=sampler, values=values, guided=guided, draws=draws,
+                         segments=[len(s) for s in np.array_split(values, num_segments)],
+                         temperature=float(temperature), noisy=noisy, guidance_every_k=k,
+                         use_alignment=bool(use_alignment), use_mask=use_mask,
+                         clip_x0=bool(ddim_clip_x0), ddim=ddim)
+
+    @staticmethod
+    def _buffers(plan: ChainPlan, z, zc, y, avg_x_gt, mask, x0) -> StepBuffers:
+        """New buffers holding copies of a chain's inputs; the mask and x0
+        broadcast to the latent's shape."""
+        def copy(t):
+            return None if t is None else t.clone()
+
+        return StepBuffers(
+            z=z.clone(), t=torch.zeros((z.shape[0],), dtype=torch.long, device=z.device),
+            noise=torch.zeros_like(z) if plan.noisy else None,
+            noise2=torch.zeros_like(z) if plan.use_mask else None,
+            zc=zc.clone(), y=copy(y), avg_x_gt=copy(avg_x_gt),
+            mask=None if mask is None else torch.broadcast_to(mask, z.shape).clone(),
+            x0=None if x0 is None else torch.broadcast_to(x0, z.shape).clone())
+
+    @staticmethod
+    def _load(bufs: StepBuffers, z, zc, y, avg_x_gt, mask, x0) -> None:
+        """A chain's inputs into buffers of the same key."""
+        for buf, t in ((bufs.z, z), (bufs.zc, zc), (bufs.y, y), (bufs.avg_x_gt, avg_x_gt),
+                       (bufs.mask, mask), (bufs.x0, x0)):
+            if buf is not None:
+                buf.copy_(t)
+
+    def _draw(self, buf: torch.Tensor, generator: Optional[torch.Generator]) -> None:
+        """Standard normal noise into ``buf`` from ``generator``: the values
+        ``torch.randn`` of its shape would draw."""
+        buf.normal_(generator=generator)
+
+    def _shift(self, z, t_b, zc, y, avg_x_gt) -> torch.Tensor:
+        return self.alignment.get_mean_shift(z, t_b, avg_x_gt, zc=zc, y=y)
+
+    def _ddpm_update(self, s: StepBuffers, plan: ChainPlan, guided: bool) -> torch.Tensor:
+        z, t_b = s.z, s.t
+        model_out = self.unet(z, t_b, s.zc)
+        mean, _, log_var, _ = core.p_mean_variance(
+            self.schedule, model_out, z, t_b, parameterization=self.parameterization,
+            clip_denoised=self.clip_denoised)
+        if guided:
+            shift = self._shift(z, t_b, s.zc, s.y, s.avg_x_gt)
+            k = plan.guidance_every_k
+            mean = mean - torch.exp(0.5 * log_var) * (shift if k <= 1 else float(k) * shift)
+        if plan.noisy:   # the JAX body's ``nonzero``: no noise at t = 0
+            nonzero = (t_b > 0).to(z.dtype).reshape((-1,) + (1,) * (z.ndim - 1))
+            mean = mean + torch.exp(0.5 * log_var) * s.noise * plan.temperature * nonzero
+        if plan.use_mask:
+            z_orig = core.q_sample(self.schedule, s.x0, t_b, s.noise2)
+            mean = z_orig * s.mask + (1.0 - s.mask) * mean
+        return mean
+
+    def _ddim_update(self, s: StepBuffers, plan: ChainPlan, guided: bool) -> torch.Tensor:
+        """The DDIM update; like the JAX package's ``ddim_step`` it ignores
+        the inpainting mask."""
+        z, idx = s.z, s.t
+        shape = (-1,) + (1,) * (z.ndim - 1)
+
+        def at(name):
+            return plan.ddim[name][idx].reshape(shape)
+
+        t_b = plan.ddim["ts"][idx]
+        model_out = self.unet(z, t_b, s.zc)
+        sqrt_a, sqrt_1ma = at("sqrt_a"), at("sqrt_1ma")
         if self.parameterization == "eps":
             eps = model_out
             x0_pred = (z - sqrt_1ma * eps) / sqrt_a
         else:
             x0_pred = model_out
             eps = (z - sqrt_a * x0_pred) / sqrt_1ma
-        if clip_x0 or self.clip_denoised:
+        if plan.clip_x0 or self.clip_denoised:
             x0_pred = torch.clamp(x0_pred, -1.0, 1.0)
-        if avg_x_gt is not None:
-            k = int(guidance_every_k)
-            if k <= 1 or idx % k == 0:
-                shift = self._shift(z, t_b, zc, y, avg_x_gt)
-                eps = eps + sqrt_1ma * (float(max(k, 1)) * shift)
+        if guided:
+            shift = self._shift(z, t_b, s.zc, s.y, s.avg_x_gt)
+            eps = eps + sqrt_1ma * (float(max(plan.guidance_every_k, 1)) * shift)
+        if plan.use_alignment:   # on every step of a guided chain, as the JAX body does
             x0_pred = (z - sqrt_1ma * eps) / sqrt_a
-        dir_coef = float(np.sqrt(np.maximum(one - a_prev - sigma * sigma, np.float32(0.0))))
-        out = float(np.sqrt(a_prev)) * x0_pred + dir_coef * eps
-        if sigma != 0.0 and temperature != 0.0:
-            noise = torch.randn(z.shape, generator=generator, device=z.device, dtype=z.dtype)
-            out = out + float(sigma) * noise * temperature
+        out = at("sqrt_a_prev") * x0_pred + at("dir_coef") * eps
+        if plan.noisy:
+            out = out + at("sigma") * s.noise * plan.temperature
         return out
+
+    def _reverse_step(self, s: StepBuffers, plan: ChainPlan, guided: bool) -> None:
+        """One reverse step on the buffers: what a graph captures.  Every
+        value that changes between steps is read from ``s`` on the device."""
+        update = self._ddpm_update if plan.sampler == "ddpm" else self._ddim_update
+        s.z.copy_(update(s, plan, guided))
+
+    def _chain(self, plan: ChainPlan, bufs: StepBuffers, generator,
+               entry: Optional[StepGraphs]) -> list:
+        """The steps of ``plan``, each by replay of its captured graph in
+        ``entry`` (eagerly without one); the latent at each segment's end."""
+        ends, start = [], 0
+        for length in plan.segments:
+            for i in range(start, start + length):
+                bufs.t.fill_(int(plan.values[i]))
+                if plan.draws[i]:
+                    self._draw(bufs.noise, generator)
+                if plan.use_mask:
+                    self._draw(bufs.noise2, generator)
+                guided = bool(plan.guided[i])
+                if entry is None:
+                    self._reverse_step(bufs, plan, guided)
+                else:
+                    entry.run(guided, functools.partial(self._reverse_step, bufs, plan, guided))
+            start += length
+            ends.append(bufs.z.clone())
+        return ends
+
+    def _route(self) -> str:
+        return "conv" if any(getattr(m, "conv_kernel", False) for model in self._graph_modules()
+                             for m in model.modules()) else "default"
+
+    @contextlib.contextmanager
+    def _plain_chain(self):
+        """Run the chains in this block eagerly, as on the CPU: the captured
+        chain's plain version, for the tests and ``chip_smoke.py``."""
+        self._plain = True
+        try:
+            yield
+        finally:
+            self._plain = False
 
     @torch.no_grad()
     def sample(self, y: torch.Tensor, use_alignment: bool = False,
                alignment_kwargs: Optional[Dict[str, torch.Tensor]] = None,
-               sampler: str = "ddpm", ddim_steps: Optional[int] = None, ddim_eta: float = 0.0,
-               ddim_clip_x0: bool = False, guidance_every_k: int = 1,
                x_T: Optional[torch.Tensor] = None, timesteps: Optional[int] = None,
-               temperature: float = 1.0,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               mask: Optional[torch.Tensor] = None, x0: Optional[torch.Tensor] = None,
+               return_intermediates: bool = False, return_decoded: bool = True,
+               temperature: float = 1.0, sampler: str = "ddpm", ddim_steps: Optional[int] = None,
+               ddim_eta: float = 0.0, ddim_clip_x0: bool = False, compute_dtype="float32",
+               guidance_every_k: int = 1, generator: Optional[torch.Generator] = None):
         """Forecast from context ``y`` (B, T_in, H, W, C): decoded pixels
-        (B, T_out, H, W, C).  ``alignment_kwargs`` carries ``avg_x_gt`` (B, 1)
-        for ``use_alignment``.  ``generator`` (on ``self.device``) draws x_T,
-        unless given, and the per-step noise."""
+        (B, T_out, H, W, C), or the latent z without ``return_decoded``; with
+        ``return_intermediates`` also the state at the end of each of
+        ``max(1, total_T // log_every_t)`` segments of the chain (decoded
+        alike; None for one segment), as ``(out, intermediates)``.
+        ``alignment_kwargs`` carries ``avg_x_gt`` (B, 1) for
+        ``use_alignment``.  ``mask`` / ``x0`` (broadcastable to the latent)
+        inpaint: after each DDPM step ``z = q_sample(x0, t)·mask + (1 -
+        mask)·z``, with noise drawn after the step's own; DDIM ignores them,
+        as the JAX package does.  ``generator`` (on ``self.device``) draws
+        x_T, unless given, and the per-step noise.  On the card every step
+        replays a captured graph (``graphs.py``)."""
+        if compute_dtype not in ("float32", torch.float32):
+            raise NotImplementedError(
+                f"compute_dtype {compute_dtype!r}: only float32 is ported (ROADMAP.md queue 1, "
+                "compute_dtype='bfloat16' for the chain and for guidance)")
+        if (mask is None) != (x0 is None):
+            raise ValueError("inpainting needs both mask and x0")
         avg_x_gt = None
         if use_alignment:
             if self.alignment is None:
@@ -273,25 +424,49 @@ class LatentDiffusion:
         else:
             z = x_T.to(self.device, torch.float32)
         zc = self.cond_stage_forward(y)
-        guide = dict(y=y, avg_x_gt=avg_x_gt, guidance_every_k=guidance_every_k)
-        total_T = timesteps or self.num_timesteps
-        if sampler == "ddpm":
-            for t in range(total_T - 1, -1, -1):
-                z = self.p_sample_step(z, t, zc, temperature, generator, **guide)
-        elif sampler == "ddim":
-            if not ddim_steps:
-                raise ValueError("sampler 'ddim' needs ddim_steps")
-            ddim = self.ddim_schedule(ddim_steps, total_T, ddim_eta)
-            for idx in range(len(ddim[0]) - 1, -1, -1):
-                z = self.ddim_step(z, idx, ddim, zc, temperature, generator, ddim_clip_x0,
-                                   **guide)
+        use_mask = mask is not None and sampler == "ddpm"   # DDIM ignores the mask
+        if use_mask:
+            mask = torch.as_tensor(mask).to(self.device, torch.float32)
+            x0 = torch.as_tensor(x0).to(self.device, torch.float32)
         else:
-            raise NotImplementedError(f"sampler '{sampler}'")
-        return self.decode_first_stage(z)
+            mask = x0 = None
+        total_T = timesteps or self.num_timesteps
+        num_segments = max(1, total_T // self.log_every_t) if return_intermediates else 1
+        static = (sampler, total_T, ddim_steps, ddim_eta, ddim_clip_x0, temperature,
+                  use_alignment, guidance_every_k, use_mask, num_segments)
+        inputs = (z, zc, y, avg_x_gt, mask, x0)
+        entry = None
+        if self.device.type == "cuda" and not self._plain:
+            self.graphs.validate()
+            key = (tuple(y.shape), bool(use_alignment), timesteps, bool(return_decoded),
+                   use_mask, num_segments, float(temperature), "float32", sampler,
+                   ddim_steps, float(ddim_eta), bool(ddim_clip_x0), int(guidance_every_k),
+                   self._route(), self.parameterization, self.clip_denoised,
+                   self.alignment.guide_scale if use_alignment else None)
 
-    def sample_ensemble(self, y: torch.Tensor, num_samples: int, **kwargs) -> torch.Tensor:
+            def make():
+                plan = self._chain_plan(*static)
+                return plan, self._buffers(plan, *inputs)
+
+            entry, new = self.graphs.entry(key, make)
+            plan, bufs = entry.plan, entry.buffers
+            if not new:
+                self._load(bufs, *inputs)
+        else:
+            plan = self._chain_plan(*static)
+            bufs = self._buffers(plan, *inputs)
+        ends = self._chain(plan, bufs, generator, entry)
+        out, inter = ends[-1], (ends if num_segments > 1 else None)
+        if return_decoded:
+            out = self.decode_first_stage(out)
+            inter = None if inter is None else [self.decode_first_stage(i) for i in inter]
+        return (out, inter) if return_intermediates else out
+
+    def sample_ensemble(self, y: torch.Tensor, num_samples: int, **kwargs):
         """``num_samples`` forecasts per context, the ensemble folded into the
-        batch: (num_samples, B, T_out, H, W, C)."""
+        batch: (num_samples, B, ...), the intermediates likewise.  ``mask`` and
+        ``x0`` pass through as given, as in the JAX package: they broadcast
+        against the folded batch (one row serves every member)."""
         B = y.shape[0]
         y_rep = torch.repeat_interleave(y, num_samples, dim=0)
         align = kwargs.pop("alignment_kwargs", None)
@@ -300,4 +475,11 @@ class LatentDiffusion:
             align["avg_x_gt"] = torch.repeat_interleave(
                 torch.as_tensor(align["avg_x_gt"]), num_samples, dim=0)
         out = self.sample(y_rep, alignment_kwargs=align, **kwargs)
-        return out.reshape((B, num_samples) + tuple(out.shape[1:])).transpose(0, 1)
+
+        def fold(t):
+            return t.reshape((B, num_samples) + tuple(t.shape[1:])).transpose(0, 1)
+
+        if kwargs.get("return_intermediates"):
+            out, inter = out
+            return fold(out), None if inter is None else [fold(i) for i in inter]
+        return fold(out)

@@ -1,36 +1,77 @@
 """Serving API: build the pipeline once, produce (ensemble) forecasts.
 
 >>> predictor = PreDiffPredictor()                 # seeded weights, on the card
+>>> predictor = PreDiffPredictor.from_npz("weights/")      # the JAX package's export
+>>> predictor = PreDiffPredictor.from_torch("pretrained/")  # the reference's .pt files
 >>> forecast = predictor.predict(context)         # (B, 6, 128, 128, 1)
 >>> guided = predictor.predict(context, use_alignment=True, avg_x_gt=avg, ddim_steps=50)
 >>> ens = predictor.predict_ensemble(context, num_samples=8)   # (8, B, 6, 128, 128, 1)
+
+On the card every reverse step replays a captured CUDA graph, cached per
+static key (``diffusion/graphs.py``); the first forecast of a key captures.
 """
+import os
 from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from .config import ConfigDict, prediff_default_config
-from .factory import build_pipeline
+from .factory import build_alignment_model, build_pipeline, build_unet, build_vae
+from .utils.checkpoint import PRETRAINED_NAMES, load_flax_npz, load_torch_state_dict
+from .utils.convert import flax_params_to_torch
+
+# model -> (its factory function, the JAX package's .npz file, the reference's .pt file)
+_FILES = {"unet": (build_unet, "earthformerunet.npz", PRETRAINED_NAMES["earthformerunet"]),
+          "vae": (build_vae, "vae.npz", PRETRAINED_NAMES["vae"]),
+          "align": (build_alignment_model, "alignment.npz", PRETRAINED_NAMES["alignment"])}
 
 
 class PreDiffPredictor:
     """SEVIR-LR nowcaster on one device, optionally steered by knowledge
-    alignment toward an anticipated mean intensity."""
+    alignment toward an anticipated mean intensity.  ``compute_dtype`` is
+    the chain's (``LatentDiffusion.sample``): float32 only."""
 
     def __init__(self, cfg: Optional[ConfigDict] = None,
                  params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                 with_alignment: bool = True, device=None, seed: int = 0):
+                 with_alignment: bool = True, device=None, seed: int = 0,
+                 compute_dtype: str = "float32"):
         self.cfg = cfg or prediff_default_config()
         self.with_alignment = with_alignment
+        self.compute_dtype = compute_dtype
         self.ld = build_pipeline(self.cfg, with_alignment=with_alignment, device=device,
                                  params=params, seed=seed)
         self.device = self.ld.device
 
+    @classmethod
+    def from_npz(cls, weights_dir: str, cfg: Optional[ConfigDict] = None,
+                 with_alignment: bool = True, **kw) -> "PreDiffPredictor":
+        """Weights from the JAX package's ``.npz`` trees (``earthformerunet.npz``,
+        ``vae.npz``, ``alignment.npz``; a model whose file is absent takes the
+        seeded initialisation, as there)."""
+        cfg = cfg or prediff_default_config()
+        params = {}
+        for key, (build, npz, _) in _FILES.items():
+            path = os.path.join(weights_dir, npz)
+            if os.path.exists(path) and (key != "align" or with_alignment):
+                params[key] = flax_params_to_torch(build(cfg), load_flax_npz(path))
+        return cls(cfg=cfg, params=params, with_alignment=with_alignment, **kw)
+
+    @classmethod
+    def from_torch(cls, pt_dir: str, cfg: Optional[ConfigDict] = None,
+                   with_alignment: bool = True, **kw) -> "PreDiffPredictor":
+        """Weights from the reference's ``.pt`` files (``PRETRAINED_NAMES``),
+        plain or Lightning-wrapped; a key missing or left over raises."""
+        cfg = cfg or prediff_default_config()
+        keys = ("unet", "vae", "align") if with_alignment else ("unet", "vae")
+        params = {key: load_torch_state_dict(os.path.join(pt_dir, _FILES[key][2]),
+                                             _FILES[key][0](cfg)) for key in keys}
+        return cls(cfg=cfg, params=params, with_alignment=with_alignment, **kw)
+
     def _sample_kwargs(self, use_alignment: bool, avg_x_gt, ddim_steps: Optional[int],
                        timesteps: Optional[int], guidance_every_k: int,
                        generator: Optional[torch.Generator]):
-        kw = dict(timesteps=timesteps, generator=generator)
+        kw = dict(timesteps=timesteps, generator=generator, compute_dtype=self.compute_dtype)
         if ddim_steps:
             kw.update(sampler="ddim", ddim_steps=ddim_steps)
         if use_alignment:

@@ -1,11 +1,13 @@
-"""Checkpoint save / restore of a train state, and a flat ``.npz`` export of
-parameters.
+"""Checkpoint save / restore of a train state, a flat ``.npz`` export of
+parameters, and the readers of weights written elsewhere: the JAX package's
+``.npz`` parameter trees and the reference's ``.pt`` files.
 
 A checkpoint is ``<path>/step_<n>.pt``: ``torch.save`` of the state's
 ``state_dict()`` (tensors, numbers, lists and dicts only), read back with
 ``torch.load(weights_only=True)`` so that loading runs no code from the file.
 """
 import os
+import pickle
 import re
 from typing import Any, Dict, List, Optional
 
@@ -70,3 +72,55 @@ def save_params_npz(path: str, params: Dict[str, torch.Tensor]) -> None:
 def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
     with np.load(path) as data:
         return {k: torch.from_numpy(data[k]) for k in data.files}
+
+
+def load_flax_npz(path: str) -> Dict:
+    """The JAX package's ``.npz`` export (``prediff_tpu/utils/checkpoint.py``
+    ``save_params_npz``: leaves under ``/``-joined paths) as its nested flax
+    tree of numpy arrays, for ``utils.convert.flax_params_to_torch``."""
+    tree: Dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return tree
+
+
+# the reference's published weight files, by model (its utils/download.py)
+PRETRAINED_NAMES = {
+    "vae": "pretrained_sevirlr_vae_8x8x64_v1.pt",
+    "earthformerunet": "pretrained_sevirlr_earthformerunet_v1.pt",
+    "alignment": "pretrained_sevirlr_alignment_avg_x_cuboid_v1.pt",
+}
+
+# buffers of the reference's modules with no parameter of the port's (the
+# suffixes the JAX package's converter skips): left out where the model does
+# not keep them
+DERIVED_BUFFERS = (
+    "relative_position_index", "cond_ids", "betas", "alphas_cumprod", "alphas_cumprod_prev",
+    "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod", "log_one_minus_alphas_cumprod",
+    "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod", "posterior_variance",
+    "posterior_log_variance_clipped", "posterior_mean_coef1", "posterior_mean_coef2",
+    "lvlb_weights", "num_updates", "decay", "num_batches_tracked", "running_mean",
+    "running_var")
+
+
+def load_torch_state_dict(path: str, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A reference ``.pt`` file, plain or Lightning-wrapped (``{"state_dict":
+    ...}``), as a state_dict for ``model``: the reference's derived buffers
+    that ``model`` does not keep are left out.  Read with
+    ``torch.load(weights_only=True)`` unless the file holds more than
+    tensors and containers, which only a full unpickling (code from the
+    file) reads."""
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    own = model.state_dict()
+    return {k: v for k, v in ckpt.items()
+            if k in own or not k.endswith(DERIVED_BUFFERS)}

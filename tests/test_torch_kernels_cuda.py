@@ -838,3 +838,104 @@ def test_cuboid_layer_v3_kernel_matches_plain(dev, shape):
     assert fused_cuboid_attention_layer_v3.launches == before + 1
     err = (got - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item(), err
+
+
+# ---- the reverse chain as captured CUDA graphs (diffusion/graphs.py) ------ #
+def _graph_predictor(dev):
+    """configs/tiny_smoke.yaml at base_units 128 (widths 128 and 256, which
+    the FFN, attention and resblock kernels take), randomized weights (the
+    v1 init leaves the FFN's and attention's output products at 0), guided."""
+    import os
+
+    from prediff_torch.config import ConfigDict, deep_merge, load_config, prediff_default_config
+    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.serving import PreDiffPredictor
+
+    tiny = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
+                        "tiny_smoke.yaml")
+    cfg = load_config(prediff_default_config, tiny)
+    cfg = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {
+        "latent_model": {"base_units": 128}, "align": {"model_args": {"base_units": 128}}}}))
+    gen = torch.Generator().manual_seed(0)
+    params = {key: init_params_(build(cfg), gen, randomize=True).state_dict()
+              for key, build in (("unet", build_unet), ("vae", build_vae),
+                                 ("align", build_alignment_model))}
+    return PreDiffPredictor(cfg, params=params, with_alignment=True, device=dev)
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms.  At this configuration's shapes the
+    default input-gradient convolutions of the guidance step
+    (``convolveNd_dgrad_float_engine``, ``dgrad2d_grouped_direct_kernel``)
+    add with atomics, so two eager guided chains already differ in the last
+    bits; with deterministic algorithms the eager chain repeats, and the
+    graph chain must give its bits."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = before
+
+
+def _counts():
+    from prediff_torch.diffusion.graphs import launch_counters
+
+    return {fn.__name__: fn.launches for fn in launch_counters()}
+
+
+@pytest.mark.parametrize("kw", [
+    dict(timesteps=4, use_alignment=True, guidance_every_k=2),
+    dict(timesteps=6, ddim_steps=3, use_alignment=True, ddim_eta=0.5),
+    dict(timesteps=3, return_intermediates=True, return_decoded=False)])
+def test_graph_chain_gives_the_bits_of_the_eager_chain(dev, deterministic_cudnn, kw):
+    """Temperature 1, the same seed: the chain that captures, the chain that
+    only replays and the eager chain agree bit for bit, with the same
+    launch counts (each replay adds its graph's launches)."""
+    predictor = _graph_predictor(dev)
+    ld = predictor.ld
+    y = torch.rand((2, 3, 32, 32, 1), generator=torch.Generator().manual_seed(1)).to(dev)
+    args = dict(kw, sampler="ddim" if "ddim_steps" in kw else "ddpm")
+    if args.pop("use_alignment", False):
+        args.update(use_alignment=True, alignment_kwargs={"avg_x_gt": torch.tensor([[0.3], [0.6]])})
+    x0 = torch.randn((2,) + ld.latent_shape, generator=torch.Generator().manual_seed(3)).to(dev)
+    mask = (torch.rand((1,) + ld.latent_shape, generator=torch.Generator().manual_seed(4)) > 0.5)
+    if args.get("return_intermediates"):
+        ld.log_every_t = 1                           # three segments
+        args.update(mask=mask.float().to(dev), x0=x0)
+    outs, counts = [], []
+    for plain in (False, False, True):
+        before = _counts()
+        gen = torch.Generator(dev).manual_seed(7)
+        if plain:
+            with ld._plain_chain():
+                out = ld.sample(y, generator=gen, **args)
+        else:
+            out = ld.sample(y, generator=gen, **args)
+        torch.cuda.synchronize()
+        counts.append({k: v - before[k] for k, v in _counts().items()})
+        outs.append(out)
+    assert len(ld.graphs) == 1 and ld.graphs.captures == len(ld.graphs.entries()[0].graphs)
+    flat = [torch.cat([o[0].flatten()] + [i.flatten() for i in o[1]])
+            if isinstance(o, tuple) else o for o in outs]
+    assert torch.isfinite(flat[0]).all()
+    assert torch.equal(flat[0], flat[2]) and torch.equal(flat[1], flat[2])
+    assert counts[0] == counts[1] == counts[2] and sum(counts[2].values()) > 0
+
+
+def test_a_parameter_update_recaptures(dev, deterministic_cudnn):
+    """An in-place update between two forecasts drops the graphs; the second
+    forecast is captured anew and equals the eager chain on the new weights."""
+    predictor = _graph_predictor(dev)
+    y = torch.rand((1, 3, 32, 32, 1), generator=torch.Generator().manual_seed(2))
+    kw = dict(timesteps=3, use_alignment=True, avg_x_gt=[[0.4]])
+    first = predictor.predict(y, generator=torch.Generator(dev).manual_seed(5), **kw)
+    captures = predictor.ld.graphs.captures
+    w = next(p for n, p in predictor.ld.unet.named_parameters() if "ffn" in n and p.ndim == 2)
+    with torch.no_grad():
+        w.mul_(1.5)
+    second = predictor.predict(y, generator=torch.Generator(dev).manual_seed(5), **kw)
+    assert predictor.ld.graphs.captures == 2 * captures
+    with predictor.ld._plain_chain():
+        eager = predictor.predict(y, generator=torch.Generator(dev).manual_seed(5), **kw)
+    assert torch.equal(second, eager) and not torch.equal(first, second)
