@@ -181,8 +181,11 @@ CONV_KERNELS = ("conv3x3x3", "conv3x3x3_dx")
 ROUND1_KERNELS = ("cuboid_core", "cuboid_layer_v3")
 # the conv route's launches on the v1 recipe (the JAX package's routing rule):
 # per UNet forward at B=1, per guidance shift, per training micro-step at B=2
-CONV_EXPECTED = {"conv3x3x3": {"per_unet": 33, "per_align": 1, "per_train": 16},
-                 "conv3x3x3_dx": {"per_unet": 0, "per_align": 1, "per_train": 16}}
+# (the alignment net's training micro-step runs on the default route: no conv kernel)
+CONV_EXPECTED = {"conv3x3x3": {"per_unet": 33, "per_align": 1, "per_train": 16,
+                               "per_align_train": 0},
+                 "conv3x3x3_dx": {"per_unet": 0, "per_align": 1, "per_train": 16,
+                                  "per_align_train": 0}}
 CONV_TOL_REL = 1e-3      # conv kernel vs plain: share of the output's max (same bf16 rounding)
 ROUND1_TOL_REL = 1e-5    # round-1 core and layer vs plain: f32 on both sides
 # each pair: the kernel without dropout, then its dropout form
@@ -325,6 +328,15 @@ def bound(bytes_moved: float, bf16_flops: float = 0.0, f32_flops: float = 0.0,
 def errors(got, want):
     err = (got.double() - want.double()).abs()
     return float(err.max()), float(err.max() / want.double().abs().max().clamp_min(1e-30)), float(err.mean())
+
+
+def rel_l2_and_cosine(got, want):
+    """rel-L2 error and cosine of two lists of tensors over all their elements."""
+    import torch
+
+    g = torch.cat([t.detach().cpu().double().flatten() for t in got])
+    w = torch.cat([t.detach().cpu().double().flatten() for t in want])
+    return float((g - w).norm() / w.norm()), float(g @ w / (g.norm() * w.norm()))
 
 
 # GN: no matmul, f32 both ways; only the sum order differs.  FFN and
@@ -624,17 +636,19 @@ def yardstick(c, fn):
 
 
 # --------------------------------------------------------------------------- #
-def kernel_cases(unet, align, train_batch: int):
+def kernel_cases(unet, align, train_batch: int, align_batch: int):
     """Every (kernel, shape) of the paths, with launches per UNet forward at
     B=1 (``per_unet``), per guidance shift, alignment forward and backward
-    (``per_align``), and per training micro-step at ``train_batch`` samples,
+    (``per_align``), per training micro-step at ``train_batch`` samples,
     forward and backward (``per_train``; with dropout the dropout kernels
-    take the FFN's and the attention's launches)."""
+    take the FFN's and the attention's launches), and per alignment training
+    micro-step at ``align_batch`` samples and the recipe's rates
+    (``per_align_train``: the GN and resblock kernels and the dropout forms)."""
     cases = {k: [] for k in KERNELS}
 
-    def add(name, per_unet=0, per_align=0, per_train=0, **shape):
+    def add(name, per_unet=0, per_align=0, per_train=0, per_align_train=0, **shape):
         cases[name].append(dict(shape, per_unet=per_unet, per_align=per_align,
-                                per_train=per_train))
+                                per_train=per_train, per_align_train=per_align_train))
 
     for B, key in ((1, "per_unet"), (train_batch, "per_train")):
         # a micro-step runs each forward kernel once and, behind it, its all-gradients backward
@@ -679,6 +693,22 @@ def kernel_cases(unet, align, train_batch: int):
                 add(name, per_align=n, shape=[1, t, h, w, c], axis=axis)
         for name in ("resblock", "resblock_bwd"):
             add(name, per_align=n, shape=[1, t, h, w, c], groups=groups)
+    # the alignment net's training micro-step: the same sites at align_batch samples
+    Ba = align_batch
+    for name in ("groupnorm_silu", "groupnorm_silu_bwd_full"):
+        add(name, per_align_train=1, shape=[Ba, T * H * W, Cin], groups=fp.in_groups, emb=False)
+        add(name, per_align_train=1, shape=[Ba, T * H * W, align.mem_shapes[0][-1]],
+            groups=fp.out_groups, emb=False)
+    for i, (t, h, w, c) in enumerate(align.mem_shapes):
+        n = align.depth[i]
+        for name in ("ffn_dropout", "ffn_dropout_bwd_full"):
+            add(name, per_align_train=3 * n, shape=[Ba * t * h * w, c])
+        for name in ("axial_attention_dropout", "axial_attention_dropout_bwd_full"):
+            for axis in range(3):
+                add(name, per_align_train=n, shape=[Ba, t, h, w, c], axis=axis)
+        for name in ("resblock", "resblock_bwd"):
+            add(name, per_align_train=n, shape=[Ba, t, h, w, c],
+                groups=align.down_time_embed_blocks[i].in_groups)
     return cases
 
 
@@ -1189,8 +1219,11 @@ def swin_cases(unet, align, train_batch: int):
 
 
 def path_launches(unet, align=None, train_batch: int = 2):
-    """Launches per UNet forward at B=1, per guidance shift and per training
-    micro-step, every kernel, for any pattern: the layers' routes give the
+    """Launches per UNet forward at B=1, per guidance shift, per training
+    micro-step and per alignment training micro-step at the recipe's rates
+    (``per_align_train``: the dropout forms of the FFN and of the v4 and
+    axial layers, GN in ``first_proj`` and the resblocks), every kernel, for
+    any pattern: the layers' routes give the
     attention kernels (a grouped core has no backward kernel: its gradient is
     autograd of the plain version), one FFN per attention layer; GN twice in
     ``first_proj`` and in each time-block call, the alignment net's time
@@ -1204,7 +1237,8 @@ def path_launches(unet, align=None, train_batch: int = 2):
     tiny configuration are ``tiny_phases``')."""
     from prediff_torch.ops.ffn import supports_shape as supports_ffn
 
-    per = {k: {"per_unet": 0, "per_align": 0, "per_train": 0} for k in KERNELS}
+    per = {k: {"per_unet": 0, "per_align": 0, "per_train": 0, "per_align_train": 0}
+           for k in KERNELS}
     gn = 2 + 2 * 2 * sum(unet.depth)
     per["groupnorm_silu"]["per_unet"] = gn
     per["groupnorm_silu"]["per_train"] = per["groupnorm_silu_bwd_full"]["per_train"] = gn
@@ -1212,8 +1246,9 @@ def path_launches(unet, align=None, train_batch: int = 2):
               "grouped_masked": "cuboid_attention_grouped", "axial": "axial_attention"}
     models = [(unet, "per_unet")]
     if align is not None:
-        per["groupnorm_silu"]["per_align"] = per["groupnorm_silu_bwd_full"]["per_align"] = 2
-        per["resblock"]["per_align"] = per["resblock_bwd"]["per_align"] = sum(align.depth)
+        for key in ("per_align", "per_align_train"):
+            per["groupnorm_silu"][key] = per["groupnorm_silu_bwd_full"][key] = 2
+            per["resblock"][key] = per["resblock_bwd"][key] = sum(align.depth)
         models.append((align, "per_align"))
     for model, key in models:
         for (t, h, w, c), layer, n in attention_layers(model, 2 if model is unet else 1):
@@ -1231,8 +1266,12 @@ def path_launches(unet, align=None, train_batch: int = 2):
                     per[name]["per_train"] += n
             if model is align:
                 per["ffn_bwd_dx"][key] += n
+                for name in ("ffn_dropout", "ffn_dropout_bwd_full"):
+                    per[name]["per_align_train"] += n
                 if route in ("v4", "axial"):
                     per[kernel[route] + "_bwd_dx"][key] += n
+                    for form in ("_dropout", "_dropout_bwd_full"):
+                        per[kernel[route] + form]["per_align_train"] += n
     convs = [(unet, "per_unet", 1, False), (unet, "per_train", train_batch, True)]
     if align is not None:
         convs.append((align, "per_align", 1, True))
@@ -1865,11 +1904,9 @@ def bwd_split(device):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", help="also write every JSON line to this file")
-    ap.add_argument("--only", choices=["bwd_split"],
-                    help="run this phase alone (after the device line and the build) and stop: "
-                         "bwd_split, each launch's share of the FFN, axial and general "
-                         "attention and GroupNorm+SiLU all-gradients backwards, the general "
-                         "layer's dx and the resblock")
+    ap.add_argument("--only", type=lambda v: v.split(","),
+                    help="comma-separated phases to run alone (after the device line and the "
+                         f"build), then stop: {', '.join(ONLY)}")
     args = ap.parse_args()
     try:
         import torch
@@ -1900,11 +1937,12 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v["seconds"] for k, v in report.items()},
           "ptxas": {k: ptxas_by_function(v["ptxas"]) for k, v in report.items()}})
-    if args.only == "bwd_split":
-        from prediff_torch.utils.device import set_numerics
-
-        set_numerics()
-        bwd_split(device)
+    if args.only:
+        unknown = sorted(set(args.only) - set(ONLY))
+        if unknown:
+            print(f"chip_smoke: --only takes {', '.join(ONLY)}; not {unknown}", file=sys.stderr)
+            return 2
+        run_only(device, args.only, smi)
         print(smi, flush=True)
         return 0
     run(device, prediff_default_config(), smi)
@@ -1913,11 +1951,8 @@ def main() -> int:
     return 0
 
 
-def run(device, cfg, smi: str) -> None:
-    """Every phase after the build, on ``device``; raises SystemExit on a failed check."""
-    import torch
-    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
-    from prediff_torch.models.init import init_params_
+def kernel_counters():
+    """``(zero_counts, read_counts)`` over every kernel wrapper's launch count."""
     from prediff_torch.ops.attention import fused_cuboid_attention, fused_cuboid_attention_layer_v3
     from prediff_torch.ops.attention import (fused_axial_attention, fused_axial_attention_bwd_dx,
                                              fused_axial_attention_bwd_full,
@@ -1934,10 +1969,7 @@ def run(device, cfg, smi: str) -> None:
                                        fused_ffn_dropout, fused_ffn_dropout_bwd_full)
     from prediff_torch.ops.groupnorm import fused_groupnorm_silu, fused_groupnorm_silu_bwd_full
     from prediff_torch.ops.resblock import fused_resblock_bwd, fused_resblock_fwd
-    from prediff_torch.serving import PreDiffPredictor
-    from prediff_torch.utils.device import set_numerics
 
-    set_numerics()
     counters = {"groupnorm_silu": fused_groupnorm_silu, "ffn": fused_ffn,
                 "axial_attention": fused_axial_attention, "ffn_bwd_dx": fused_ffn_bwd_dx,
                 "axial_attention_bwd_dx": fused_axial_attention_bwd_dx,
@@ -1958,6 +1990,54 @@ def run(device, cfg, smi: str) -> None:
                 "conv3x3x3": conv3x3x3_forward, "conv3x3x3_dx": conv3x3x3_dx,
                 "cuboid_core": fused_cuboid_attention,
                 "cuboid_layer_v3": fused_cuboid_attention_layer_v3}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    return zero_counts, read_counts
+
+
+# the phases --only runs alone: bwd_split (each launch's share of the
+# all-gradients backwards, the general layer's dx and the resblock), guided_repeat,
+# vae_train (with vae_train_grads) and align_train (with align_train_grads)
+ONLY = ("bwd_split", "guided_repeat", "vae_train", "align_train")
+
+
+def run_only(device, names, smi: str) -> None:
+    from prediff_torch.config import alignment_default_config, prediff_default_config
+    from prediff_torch.factory import build_alignment_model, build_unet
+    from prediff_torch.utils.device import set_numerics
+
+    set_numerics()
+    for name in names:
+        if name == "bwd_split":
+            bwd_split(device)
+        elif name == "guided_repeat":
+            guided_repeat(device)
+        elif name == "vae_train":
+            vae_train_phases(device, smi)
+        else:
+            cfg = alignment_default_config()
+            per = path_launches(build_unet(prediff_default_config()), build_alignment_model(cfg),
+                                cfg.optim.micro_batch_size)
+            align_train_phases(device, smi, per, *kernel_counters())
+
+
+def run(device, cfg, smi: str) -> None:
+    """Every phase after the build, on ``device``; raises SystemExit on a failed check."""
+    import torch
+    from prediff_torch.config import alignment_default_config
+    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.serving import PreDiffPredictor
+    from prediff_torch.utils.device import set_numerics
+
+    set_numerics()
+    zero_counts, read_counts = kernel_counters()
     gen = torch.Generator().manual_seed(SEED)
     unet_cpu = init_params_(build_unet(cfg), gen, randomize=True).eval().requires_grad_(False)
     vae_cpu = init_params_(build_vae(cfg), gen, randomize=True).eval().requires_grad_(False)
@@ -1968,7 +2048,8 @@ def run(device, cfg, smi: str) -> None:
           "vae_params": sum(p.numel() for p in vae_cpu.parameters()),
           "align_params": sum(p.numel() for p in align_cpu.parameters())})
 
-    cases = kernel_cases(unet_cpu, align_cpu, cfg.optim.micro_batch_size)
+    cases = kernel_cases(unet_cpu, align_cpu, cfg.optim.micro_batch_size,
+                         alignment_default_config().optim.micro_batch_size)
     bad = check_kernels(cases, device)
     emit({"phase": "kernels_vs_plain", "cases": sum(len(v) for v in cases.values()),
           "failed": len(bad)})
@@ -1997,19 +2078,14 @@ def run(device, cfg, smi: str) -> None:
                                               "align": align_cpu.state_dict()},
                                  with_alignment=True, device=device)
 
-    def zero_counts():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read_counts():
-        return {k: fn.launches for k, fn in counters.items()}
-
     tiny_phases(device, zero_counts, read_counts)
+    guided_repeat(device)
 
     # the launch counts of the other paths come from the layers' routes: on
     # the axial path they must give what the kernel cases give
     by_route = path_launches(unet_cpu, align_cpu)
-    by_case = {k: {key: sum(c[key] for c in cs) for key in ("per_unet", "per_align", "per_train")}
+    by_case = {k: {key: sum(c.get(key, 0) for c in cs)
+                   for key in ("per_unet", "per_align", "per_train", "per_align_train")}
                for k, cs in cases.items()}
     if by_route != by_case:
         fail(f"launch counts by route {by_route} != by kernel case {by_case}")
@@ -2048,6 +2124,10 @@ def run(device, cfg, smi: str) -> None:
                  reps=5))
     emit(profile("profile_guidance_shift",
                  lambda: predictor.ld.alignment.get_mean_shift(zg, td, avg_d), reps=5))
+    emit(determinism_cost({
+        "guided_step": guided_step(predictor.ld, zg, zc, avg_d),
+        "unet_forward": lambda: predictor.ld.unet(xd, td, cd),
+        "guidance_shift": lambda: predictor.ld.alignment.get_mean_shift(zg, td, avg_d)}))
     graph_recapture(predictor, context, avg_x_gt, device)
     del predictor
     weights = {"unet": unet_cpu.state_dict(), "vae": vae_cpu.state_dict(),
@@ -2068,6 +2148,9 @@ def run(device, cfg, smi: str) -> None:
         train_weights, zero_counts, read_counts, prefix="conv_", rate0=False))
     launches_by_path.update(swin_train_phases(device, cfg, smi, swin_unet, vae_cpu.state_dict(),
                                               zero_counts, read_counts))
+    vae_train_phases(device, smi)
+    launches_by_path["align_train"] = align_train_phases(device, smi, by_route, zero_counts,
+                                                         read_counts)
     emit({"phase": "graph_chains", "card": smi, "chains": GRAPH_CHAINS})
     emit({"kernels": summarize(cases, launches_by_path)})
     print(smi, flush=True)
@@ -2526,9 +2609,7 @@ def train_phases(device, cfg, smi, per_train, weights, zero_counts, read_counts,
         sync(device)
         gc = [g.cpu().double().flatten() for g in grads_card]
         gr = [g.double().flatten() for g in grads_cpu]
-        rel_l2 = float(torch.cat([a - b for a, b in zip(gc, gr)]).norm() / torch.cat(gr).norm())
-        cosine = float(torch.cat(gc) @ torch.cat(gr)
-                       / (torch.cat(gc).norm() * torch.cat(gr).norm()))
+        rel_l2, cosine = rel_l2_and_cosine(gc, gr)
         leaf_rel = [float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(gc, gr)]
         worst = int(np.argmax(leaf_rel))
         bit_equal = all(torch.equal(a, b) for a, b in zip(grads_card, grads_again))
@@ -2658,6 +2739,419 @@ def train_phases(device, cfg, smi, per_train, weights, zero_counts, read_counts,
     emit(profile(f"profile_{prefix}train_step", lambda: trainer.train_step(state, SEED, *xy),
                  reps=2))
     return dict(launches_by_phase, **{phase: launches})
+
+
+# --------------------------------------------------------------------------- #
+GUIDED_REPEAT_STEPS = 3
+
+
+def guided_repeat(device):
+    """Whether a guided forecast repeats bit for bit: ``configs/tiny_smoke.yaml``
+    at base_units 128 (widths the FFN, attention and resblock kernels take),
+    randomized weights, a 3-step guided DDPM forecast through
+    ``PreDiffPredictor.predict``: two eager chains, then the captured chain
+    three times (one capture, two replays), all bit-equal, and two guidance
+    shifts bit-equal, under cuDNN's deterministic algorithms, which the
+    card's entry points set before anything is captured
+    (``utils.device.resolve_device``).  Also lists the cuDNN input-gradient
+    kernels one shift launches (by the profiler)."""
+    import torch
+    from prediff_torch.config import ConfigDict, deep_merge, load_config, prediff_default_config
+    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.serving import PreDiffPredictor
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    cfg = load_config(prediff_default_config,
+                      os.path.join(os.path.dirname(os.path.abspath(__file__)), TINY_CONFIG))
+    cfg = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {
+        "latent_model": {"base_units": 128}, "align": {"model_args": {"base_units": 128}}}}))
+    gen = torch.Generator().manual_seed(SEED)
+    params = {key: init_params_(build(cfg), gen, randomize=True).state_dict()
+              for key, build in (("unet", build_unet), ("vae", build_vae),
+                                 ("align", build_alignment_model))}
+    p = PreDiffPredictor(cfg, params=params, with_alignment=True, device=device)
+    L = cfg.layout
+    y = torch.rand((1, L.in_len, L.img_height, L.img_width, L.data_channels),
+                   generator=torch.Generator().manual_seed(SEED + 2))
+    kw = dict(timesteps=GUIDED_REPEAT_STEPS, use_alignment=True, avg_x_gt=[[0.4]])
+
+    def forecast():
+        return p.predict(y, generator=torch.Generator(device).manual_seed(SEED + 5), **kw)
+
+    with p.ld._plain_chain():
+        eager = [forecast(), forecast()]
+    captures = p.ld.graphs.captures
+    graph = [forecast() for _ in range(3)]
+    captured = p.ld.graphs.captures - captures
+    z = torch.randn((1,) + p.ld.latent_shape, device=device,
+                    generator=torch.Generator(device).manual_seed(SEED + 6))
+    t, avg = torch.tensor([1], device=device), torch.tensor([[0.4]], device=device)
+    shifts = [p.ld.alignment.get_mean_shift(z, t, avg) for _ in range(2)]
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        p.ld.alignment.get_mean_shift(z, t, avg)
+        torch.cuda.synchronize()
+    dgrad = sorted({e.key[:80] for e in prof.key_averages() if "dgrad" in e.key})
+    line = {"phase": "guided_repeat", "steps": GUIDED_REPEAT_STEPS, "base_units": 128,
+            "cudnn_deterministic": torch.backends.cudnn.deterministic,
+            "cudnn_benchmark": torch.backends.cudnn.benchmark, "captures": captured,
+            "eager_equals_eager": torch.equal(eager[0], eager[1]),
+            "graphs_equal_eager": [torch.equal(g, eager[0]) for g in graph],
+            "shift_equals_shift": torch.equal(shifts[0], shifts[1]),
+            "eager_max_abs_diff": float((eager[0] - eager[1]).abs().max()),
+            "finite": bool(torch.isfinite(eager[0]).all()), "dgrad_kernels": dgrad}
+    emit(line)
+    if not (line["eager_equals_eager"] and all(line["graphs_equal_eager"])
+            and line["shift_equals_shift"] and line["finite"] and captured > 0):
+        fail("guided_repeat: two guided forecasts from one seed differ (eager, or captured "
+             "against eager), a guidance shift does not repeat, or nothing was captured")
+
+
+def determinism_cost(fns):
+    """Eager ms per call of each of ``fns`` with cuDNN's default algorithms
+    (its heuristics: ``deterministic`` and ``benchmark`` off) and with its
+    deterministic ones, in turns off, on, on, off; the switch is left on."""
+    import torch
+    from prediff_torch.utils.device import set_deterministic
+
+    out = {}
+    for name, fn in fns.items():
+        ms = {False: [], True: []}
+        for det in (False, True, True, False):
+            torch.backends.cudnn.deterministic = det
+            ms[det].append(time_ms(fn, warmup=2, iters=10))
+        out[name] = {"default_ms": ms[False], "deterministic_ms": ms[True],
+                     "ratio": sum(ms[True]) / sum(ms[False])}
+    set_deterministic()
+    return {"phase": "determinism_cost", "eager": out}
+
+
+VAE_TRAIN_STEPS = 3
+VAE_LOSS_TOL_REL = 1e-4       # card vs CPU, f32 convolutions (TF32 off) on both sides
+VAE_GRAD_TOL_REL_L2 = 1e-3
+VAE_GRAD_MIN_COSINE = 0.999
+
+
+def vae_train_phases(device, smi):
+    """The VAE-GAN trainer of ``vae_training_default_config()`` (the v1 VAE
+    and discriminator, seeded initialisation) from
+    ``factory.build_vae_trainer`` on synthetic 128x128 frames.
+    ``vae_train_grads``: one step's losses and both states' gradients at B=1
+    and ``disc_start`` 0, card against CPU with the same posterior noise,
+    then twice on the card at the micro-batch for bit-equal gradients and
+    logs.  ``vae_train``: ``VAE_TRAIN_STEPS`` steps at the micro-batch, once
+    at the recipe's ``disc_start`` and once at 0 (the GAN terms carry
+    gradient), each with ``train/rec_loss`` of the batch with fixed posterior
+    noise before and after (it must fall), ms per step and frames/s; a
+    profile of one step.  No hand-written kernel runs here: the VAE and the
+    discriminator are cuDNN's convolutions."""
+    import numpy as np
+    import torch
+    from prediff_torch.config import vae_training_default_config
+    from prediff_torch.datasets.synthetic import synthetic_batch_iterator
+    from prediff_torch.factory import build_discriminator, build_vae, build_vae_trainer
+    from prediff_torch.models.init import init_params_
+
+    cfg = vae_training_default_config()
+    B, H, W = cfg.optim.micro_batch_size, cfg.layout.img_height, cfg.layout.img_width
+    gen = torch.Generator().manual_seed(SEED)
+    weights = {"vae": init_params_(build_vae(cfg), gen).state_dict(),
+               "disc": build_discriminator(cfg).reset_parameters(gen).state_dict()}
+    frames = torch.from_numpy(next(synthetic_batch_iterator(B, 1, H, W, seed=SEED + 4))[:, 0])
+    down = 2 ** (len(cfg.model.vae.block_out_channels) - 1)   # the encoder's downsampling
+    eps = torch.randn((B, H // down, W // down, cfg.model.vae.latent_channels),
+                      generator=torch.Generator().manual_seed(SEED + 5))
+
+    def trainer_on(dev, disc_start):
+        trainer = build_vae_trainer(cfg, device=dev, params=weights, seed=SEED)
+        trainer.disc_start = disc_start
+        return trainer, trainer.create_states()
+
+    def fixed_noise(trainer, noise):
+        """The trainer's posterior sample with ``noise`` in place of its draw."""
+        def reconstruct(x, generator):
+            posterior = trainer.vae.encode(x)
+            recon, feats = trainer.vae.decode_with_features(
+                posterior.mean + posterior.std * noise.to(x.device))
+            return recon, feats, posterior
+        trainer._reconstruct = reconstruct
+
+    # one step at B=1, card against CPU, the GAN terms on
+    t1 = time.perf_counter()
+    out = {}
+    for dev in ("cpu", device):
+        trainer, (g_state, d_state, _) = trainer_on(dev, 0)
+        fixed_noise(trainer, eps[:1])
+        g, d, logs = trainer.grads(g_state, d_state, SEED, frames[:1].to(dev))
+        out[str(dev)] = (g, d, {k: float(v) for k, v in logs.items()})
+        if dev == "cpu":
+            cpu_s = time.perf_counter() - t1
+        del trainer, g_state, d_state
+    (g_cpu, d_cpu, logs_cpu), (g_card, d_card, logs_card) = out["cpu"], out[str(device)]
+    loss_rel = {k: abs(logs_card[k] - logs_cpu[k]) / abs(logs_cpu[k])
+                for k in ("train/total_loss", "train/disc_loss", "train/nll_loss",
+                          "train/g_loss", "train/d_weight")}
+    gen_err, disc_err = rel_l2_and_cosine(g_card, g_cpu), rel_l2_and_cosine(d_card, d_cpu)
+    finite = all(torch.isfinite(t).all() for t in (*g_card, *d_card))
+    # twice on the card at the micro-batch
+    trainer, (g_state, d_state, _) = trainer_on(device, 0)
+    x = frames.to(device)
+    a = trainer.grads(g_state, d_state, SEED, x)
+    b = trainer.grads(g_state, d_state, SEED, x)
+    bit_equal = (all(torch.equal(u, v) for u, v in zip((*a[0], *a[1]), (*b[0], *b[1])))
+                 and all(torch.equal(a[2][k], b[2][k]) for k in a[2]))
+    del trainer, g_state, d_state, a, b
+    emit({"phase": "vae_train_grads", "batch_cpu": 1, "batch_card": B, "frames": [H, W],
+          "disc_start": 0, "logs_card": logs_card, "logs_cpu": logs_cpu,
+          "loss_rel_err": loss_rel, "tol_loss_rel": VAE_LOSS_TOL_REL,
+          "gen_grad_rel_l2_err": gen_err[0], "gen_grad_cosine": gen_err[1],
+          "disc_grad_rel_l2_err": disc_err[0], "disc_grad_cosine": disc_err[1],
+          "tol_rel_l2": VAE_GRAD_TOL_REL_L2, "min_cosine": VAE_GRAD_MIN_COSINE,
+          "gen_leaves": len(g_card), "disc_leaves": len(d_card),
+          "bit_equal_across_two_runs": bit_equal, "cpu_step_s": cpu_s})
+    if not finite:
+        fail("vae_train_grads: non-finite gradient on the card")
+    if (max(loss_rel.values()) > VAE_LOSS_TOL_REL
+            or max(gen_err[0], disc_err[0]) > VAE_GRAD_TOL_REL_L2
+            or min(gen_err[1], disc_err[1]) < VAE_GRAD_MIN_COSINE):
+        fail(f"vae_train_grads: card differs from the CPU: losses {loss_rel}, generator "
+             f"gradient {gen_err}, discriminator gradient {disc_err}")
+    if not bit_equal:
+        fail("vae_train_grads: two runs of the same step on the card differ")
+
+    for disc_start in (cfg.model.loss.disc_start, 0):
+        trainer, (g_state, d_state, stats) = trainer_on(device, disc_start)
+
+        @torch.no_grad()
+        def rec_loss():
+            posterior = trainer.vae.encode(x)
+            recon = trainer.vae.decode(posterior.mean + posterior.std * eps.to(device))
+            return float((x - recon).abs().mean())
+
+        before = rec_loss()
+        torch.cuda.reset_peak_memory_stats(device)
+        steps = []
+        for _ in range(VAE_TRAIN_STEPS):
+            sync(device)
+            t0 = time.perf_counter()
+            g_state, d_state, stats, logs = trainer.train_step(g_state, d_state, stats, SEED, x)
+            sync(device)
+            steps.append({"ms": 1e3 * (time.perf_counter() - t0),
+                          **{k.split("/")[1]: float(v) for k, v in logs.items()}})
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        after = rec_loss()
+        steady = sorted(st["ms"] for st in steps[1:])
+        ms = steady[len(steady) // 2]
+        emit({"phase": "vae_train", "batch": B, "frames": [H, W], "disc_start": disc_start,
+              "steps": steps, "ms_per_step": ms, "frames_per_s": 1e3 * B / ms,
+              "fixed_draw_rec_loss_before": before, "fixed_draw_rec_loss_after": after,
+              "running_var_mean": {k: float(v.mean()) for k, v in stats.items()},
+              "peak_mem_gib": peak, "card": smi})
+        if g_state.step != VAE_TRAIN_STEPS or d_state.tx.count != VAE_TRAIN_STEPS:
+            fail(f"vae_train: {g_state.step} generator steps, {d_state.tx.count} "
+                 "discriminator updates")
+        if not all(np.isfinite(v) for st in steps for v in st.values()):
+            fail("vae_train: non-finite loss or log")
+        if not after < before:
+            fail(f"vae_train (disc_start {disc_start}): rec_loss did not fall: {before} -> "
+                 f"{after} (same batch, same posterior noise)")
+        if disc_start == 0:
+            emit(profile("profile_vae_train_step",
+                         lambda: trainer.train_step(g_state, d_state, stats, SEED, x), reps=2))
+        del trainer, g_state, d_state, stats
+
+
+# card vs CPU: the alignment net's prediction within the UNet forward's bar; its
+# MSE loss within LOSS_TOL_REL or, where larger, what that prediction error
+# allows (a small residual makes the loss sensitive: 2e + e^2 for an error e
+# of the residual's norm)
+ALIGN_PRED_TOL_REL_L2 = 2e-2
+ALIGN_FIXED_DRAWS = 4    # draws (posterior sample, t, noise) of align_train's fixed-batch loss
+
+
+def align_train_launches(per, micro_steps: int, dropout: bool):
+    """Launches of ``micro_steps`` alignment training micro-steps from each
+    kernel's ``per_align_train`` (the recipe's rates); without ``dropout``
+    (rates 0) the FFN and attention kernels without dropout take the
+    dropout forms' launches."""
+    out = {name: micro_steps * v["per_align_train"] for name, v in per.items()}
+    if not dropout:
+        for plain, drop in PAIRS:
+            out[plain], out[drop] = out[drop], 0
+    return out
+
+
+def align_train_phases(device, smi, per, zero_counts, read_counts):
+    """The alignment trainer of ``alignment_default_config()`` (the v1
+    alignment net, axial, with the frozen v1 VAE) from
+    ``factory.build_alignment_trainer`` at the micro-batch.
+    ``align_train_grads`` at rates 0 and at the recipe's 0.1: one loss and
+    backward from fixed latents, t and noise (``AlignmentTrainer.p_losses``),
+    card (kernels) against CPU (plain, f32, the same Philox masks), with
+    randomized weights: the prediction (``ALIGN_PRED_TOL_REL_L2``), the loss
+    and every gradient; twice on the card for bit-equal gradients, with the
+    exact launch counts.  ``align_train``: ``TRAIN_OPT_STEPS`` micro-steps of
+    ``train_step`` on synthetic pixel windows (the VAE encode included) from
+    the same randomized weights at the recipe's rates and schedule, each with the exact
+    launches (GN+SiLU and its all-gradients backward in ``first_proj``, the
+    resblock kernels, the FFN and axial attention dropout kernels, nothing
+    else), ms per micro-step, samples/s, the loss of the batch at rates 0
+    (eval mode), the mean over ``ALIGN_FIXED_DRAWS`` fixed draws, before and
+    after (it must fall; AdamW's first steps move every weight by about lr,
+    and a loss of ~0.05 falls at the recipe's 1e-5 but overshoots on a
+    100-step schedule, whose third step takes 2.8e-5); a profile of one
+    micro-step.  ``per`` is ``path_launches``' count of each kernel
+    for the v1 networks.  Returns the launches of ``align_train``."""
+    import numpy as np
+    import torch
+    from prediff_torch.config import ConfigDict, alignment_default_config, deep_merge
+    from prediff_torch.datasets.synthetic import synthetic_batch_iterator
+    from prediff_torch.factory import build_alignment_model, build_alignment_trainer, build_vae
+    from prediff_torch.models.init import init_params_
+
+    cfg = alignment_default_config()
+    a, d, L = cfg.model.align.model_args, cfg.model.diffusion, cfg.layout
+    B = cfg.optim.micro_batch_size
+    if not (a.attn_drop > 0 and a.proj_drop > 0 and a.ffn_drop > 0):
+        fail(f"align_train: the configuration's dropout rates are not the recipe's ({a})")
+
+    def with_rates(rate):
+        return ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"align": {"model_args": dict(
+            attn_drop=rate, proj_drop=rate, ffn_drop=rate)}}}))
+
+    gen = torch.Generator().manual_seed(SEED)
+    vae_sd = init_params_(build_vae(cfg), gen).state_dict()
+    random_sd = init_params_(build_alignment_model(cfg), gen, randomize=True).state_dict()
+    rs = torch.Generator().manual_seed(SEED + 7)
+    z = torch.randn((B,) + tuple(a.input_shape), generator=rs)
+    t = torch.randint(0, d.timesteps, (B,), generator=rs)
+    noise = torch.randn(z.shape, generator=rs)
+    target = torch.rand((B, a.out_len, 1), generator=rs)
+
+    def loss_and_grads(trainer, state, dropout_seed):
+        """The loss, every gradient and the network's prediction."""
+        dev = trainer.device
+        preds = []
+        hook = trainer.model.register_forward_hook(lambda m, i, o: preds.append(o.detach()))
+        try:
+            loss, _ = trainer.p_losses(z.to(dev), t.to(dev), noise.to(dev), target.to(dev),
+                                       dropout_seed)
+        finally:
+            hook.remove()
+        return (float(loss.detach()), torch.autograd.grad(loss, list(state.params.values())),
+                preds[0].cpu())
+
+    for rate in (0.0, a.attn_drop):
+        c = with_rates(rate)
+        params = {"vae": vae_sd, "align": random_sd}
+        t1 = time.perf_counter()
+        cpu = build_alignment_trainer(c, device="cpu", params=params, seed=SEED)
+        loss_cpu, grads_cpu, pred_cpu = loss_and_grads(cpu, cpu.create_state(), DROP_SEED)
+        cpu_s = time.perf_counter() - t1
+        card = build_alignment_trainer(c, device=device, params=params, seed=SEED)
+        state = card.create_state()
+        loss_and_grads(card, state, DROP_SEED)    # warm-up: cuDNN picks its algorithms
+        sync(device)
+        zero_counts()
+        loss_card, grads_card, pred_card = loss_and_grads(card, state, DROP_SEED)
+        sync(device)
+        counts = read_counts()
+        _, grads_again, _ = loss_and_grads(card, state, DROP_SEED)
+        want_counts = align_train_launches(per, 1, dropout=rate > 0)
+        rel_l2, cosine = rel_l2_and_cosine(grads_card, grads_cpu)
+        leaf_rel = [float((u.cpu() - v).norm() / v.norm().clamp_min(1e-30))
+                    for u, v in zip(grads_card, grads_cpu)]
+        worst = int(np.argmax(leaf_rel))
+        names = list(state.params)
+        bit_equal = all(torch.equal(u, v) for u, v in zip(grads_card, grads_again))
+        loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        # the regression loss mean((pred - target)^2) moves by at most 2e + e^2 of
+        # itself when the prediction moves by e of the residual's norm (Cauchy-Schwarz)
+        pred_err = float((pred_card - pred_cpu).norm() / pred_cpu.norm())
+        e = float((pred_card - pred_cpu).norm() / (pred_cpu - target).norm())
+        loss_tol = max(LOSS_TOL_REL, 2 * e + e * e + 1e-6)
+        emit({"phase": "align_train_grads", "batch": B, "rate": rate,
+              "dropout_seed": DROP_SEED, "leaves": len(names), "loss_card": loss_card,
+              "loss_cpu": loss_cpu, "loss_rel_err": loss_rel, "tol_loss_rel": loss_tol,
+              "pred_rel_l2_err": pred_err, "tol_pred_rel_l2": ALIGN_PRED_TOL_REL_L2,
+              "pred_err_of_residual": e,
+              "grad_rel_l2_err": rel_l2, "grad_cosine": cosine, "tol_rel_l2": GRAD_TOL_REL_L2,
+              "min_cosine": GRAD_MIN_COSINE, "worst_leaf": names[worst],
+              "worst_leaf_rel_l2": leaf_rel[worst],
+              "bit_equal_across_two_runs": bit_equal, "launches": counts,
+              "expected_launches": want_counts, "cpu_loss_and_backward_s": cpu_s})
+        if not all(torch.isfinite(g).all() for g in grads_card):
+            fail("align_train_grads: non-finite gradient on the card")
+        if (pred_err > ALIGN_PRED_TOL_REL_L2 or loss_rel > loss_tol or rel_l2 > GRAD_TOL_REL_L2
+                or cosine < GRAD_MIN_COSINE):
+            fail(f"align_train_grads (rate {rate}): card differs from the CPU: prediction "
+                 f"{pred_err}, loss {loss_rel} (bar {loss_tol}), gradient rel_l2 {rel_l2}, "
+                 f"cosine {cosine}")
+        if not bit_equal:
+            fail(f"align_train_grads (rate {rate}): two runs on the card differ")
+        if counts != want_counts:
+            fail(f"align_train_grads (rate {rate}): kernel launches {counts} != {want_counts}")
+        del cpu, card, state
+
+    # train_step at the recipe's rates and schedule (30000 steps: a 3000-step warmup
+    # from lr 1e-5, as scripts/train_sevirlr_avg_x.py runs it)
+    trainer = build_alignment_trainer(cfg, device=device,
+                                      params={"vae": vae_sd, "align": random_sd}, seed=SEED)
+    state = trainer.create_state()
+    batch = torch.from_numpy(next(synthetic_batch_iterator(
+        B, L.in_len + L.out_len, L.img_height, L.img_width, seed=SEED + 8)))
+    x, y = batch[:, L.in_len:].to(device), batch[:, :L.in_len].to(device)
+
+    @torch.no_grad()
+    def fixed_loss():
+        """The eval-mode loss of the batch, the mean over ALIGN_FIXED_DRAWS fixed draws."""
+        trainer.model.eval()
+        try:
+            losses = [trainer.loss_fn(torch.Generator(device).manual_seed(SEED + k), x, y)[0]
+                      for k in range(ALIGN_FIXED_DRAWS)]
+            return float(sum(losses)) / ALIGN_FIXED_DRAWS
+        finally:
+            trainer.model.train()
+
+    before = fixed_loss()
+    per_micro = align_train_launches(per, 1, dropout=True)
+    micro = []
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    for _ in range(TRAIN_OPT_STEPS):
+        sync(device)
+        was = read_counts()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, SEED, x, y)
+        sync(device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        now = read_counts()
+        micro.append({"ms": ms, **{k: float(v) for k, v in metrics.items()},
+                      "launches": {k: now[k] - was[k] for k in now}})
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    after = fixed_loss()
+    expected = align_train_launches(per, TRAIN_OPT_STEPS, dropout=True)
+    steady = sorted(m["ms"] for m in micro[1:])
+    ms = steady[len(steady) // 2]
+    emit({"phase": "align_train", "batch": B, "rates": {k: a[k] for k in
+                                                         ("attn_drop", "proj_drop", "ffn_drop")},
+          "optimizer_steps": state.tx.count, "micro": micro, "ms_per_micro_step": ms,
+          "samples_per_s": 1e3 * B / ms, "fixed_draw_loss_before": before,
+          "fixed_draw_loss_after": after, "peak_mem_gib": peak, "launches": launches,
+          "expected_launches": expected, "launches_per_micro_step": per_micro, "card": smi})
+    if state.tx.count != TRAIN_OPT_STEPS:
+        fail(f"align_train: {state.tx.count} optimizer steps")
+    if not all(np.isfinite(m["train_loss"]) for m in micro):
+        fail("align_train: non-finite loss")
+    if not after < before:
+        fail(f"align_train: the loss did not fall: {before} -> {after} (same batch and draws)")
+    if any(m["launches"] != per_micro for m in micro) or launches != expected:
+        fail(f"align_train: kernel launches {launches} != expected {expected} "
+             f"(per micro-step {[m['launches'] for m in micro]})")
+    emit(profile("profile_align_train_step", lambda: trainer.train_step(state, SEED, x, y),
+                 reps=2))
+    return launches
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Factories: config tree -> models -> the sampling pipeline."""
+"""Factories: config tree -> models -> the sampling pipeline and the three
+trainers (the latent UNet's pipeline, the VAE-GAN's, the alignment net's)."""
 from typing import Dict, Optional
 
 import torch
@@ -12,6 +13,9 @@ from .models.init import init_params_
 from .models.patterns import CuboidSelfAttentionPatterns
 from .models.unet import CuboidTransformerUNet
 from .models.vae import AutoencoderKL
+from .training.alignment_trainer import AlignmentTrainer
+from .training.losses import NLayerDiscriminator
+from .training.vae_trainer import VAETrainer
 from .utils.device import resolve_device
 from .utils.layout import parse_layout_shape
 
@@ -130,22 +134,11 @@ def build_pipeline(cfg: ConfigDict, with_alignment: bool = False, device=None,
     if (axes["batch_axis"], axes["t_axis"]) != (0, 1):
         raise ValueError(f"layout {cfg.layout.layout!r}: the port takes batch, then time first")
     dev = resolve_device(device)
-    params = params or {}
-    gen = torch.Generator().manual_seed(seed)
-    builders = [("unet", build_unet), ("vae", build_vae)]
+    builders = {"unet": lambda: build_unet(cfg), "vae": lambda: build_vae(cfg)}
     if with_alignment:
-        builders.append(("align", build_alignment_model))
-    models = {}
-    for key, build in builders:
-        model = build(cfg)
-        if key in params:
-            model.load_state_dict(params[key])
-        else:
-            init_params_(model, gen)
-        if key == "unet" and trainable_unet:
-            models[key] = model.to(dev).train()
-        else:
-            models[key] = model.to(dev).eval().requires_grad_(False)
+        builders["align"] = lambda: build_alignment_model(cfg)
+    models = _models_on(dev, torch.Generator().manual_seed(seed), params or {}, builders,
+                        trainable=("unet",) if trainable_unet else ())
     alignment = None
     if with_alignment:
         al = cfg.model.align
@@ -173,3 +166,80 @@ def build_training_pipeline(cfg: ConfigDict, device=None,
     pattern :func:`build_unet` builds trains."""
     return build_pipeline(cfg, with_alignment=False, device=device, params=params, seed=seed,
                           trainable_unet=True)
+
+
+def _models_on(dev, gen: torch.Generator, params, builders, trainable):
+    """Each model of ``builders`` (key -> build fn) from ``params[key]`` or
+    its seeded initialisation, on ``dev``; those in ``trainable`` in training
+    mode, the others frozen in eval mode."""
+    models = {}
+    for key, build in builders.items():
+        model = build()
+        if key in params:
+            model.load_state_dict(params[key])
+        elif isinstance(model, NLayerDiscriminator):
+            model.reset_parameters(gen)
+        else:
+            init_params_(model, gen)
+        model = model.to(dev)
+        models[key] = (model.train() if key in trainable
+                       else model.eval().requires_grad_(False))
+    return models
+
+
+def build_discriminator(cfg: ConfigDict) -> NLayerDiscriminator:
+    loss = cfg.model.loss
+    return NLayerDiscriminator(input_nc=loss.disc_in_channels, n_layers=loss.disc_num_layers,
+                               use_actnorm=loss.use_actnorm)
+
+
+def build_vae_trainer(cfg: ConfigDict, device=None,
+                      params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                      seed: int = 0, total_num_steps: int = 100_000) -> VAETrainer:
+    """The VAE-GAN trainer of a ``vae_training_default_config()`` tree on
+    ``device`` (default: the card), as scripts/train_vae_sevirlr.py builds
+    it: the discriminator of ``cfg.model.loss``, Adam(W) with betas (0.5,
+    0.9), a constant rate and no clip for both optimizers.  ``params`` holds
+    state_dicts under "vae" and "disc"; a model without one takes its seeded
+    initialisation."""
+    dev = resolve_device(device)
+    models = _models_on(dev, torch.Generator().manual_seed(seed), params or {},
+                        {"vae": lambda: build_vae(cfg), "disc": lambda: build_discriminator(cfg)},
+                        trainable=("vae", "disc"))
+    loss = cfg.model.loss
+    return VAETrainer(
+        models["vae"], models["disc"], disc_start=loss.disc_start, kl_weight=loss.kl_weight,
+        disc_weight=loss.disc_weight, disc_factor=loss.disc_factor, disc_loss=loss.disc_loss,
+        logvar_init=loss.logvar_init, perceptual_weight=loss.perceptual_weight,
+        optim_config=dict(lr=cfg.optim.lr, total_num_steps=total_num_steps, betas=(0.5, 0.9),
+                          gradient_clip_val=None, lr_scheduler_mode="constant",
+                          warmup_percentage=0.0),
+        flat_update=cfg.optim.get("flat_update", False),
+        pack_small_thr=cfg.optim.get("pack_small_thr", 0),
+        compute_dtype=cfg.optim.get("vae_compute_dtype", None))
+
+
+def build_alignment_trainer(cfg: ConfigDict, device=None,
+                            params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                            seed: int = 0, total_num_steps: int = 30_000,
+                            latent_inputs: bool = False) -> AlignmentTrainer:
+    """The alignment trainer of an ``alignment_default_config()`` tree on
+    ``device`` (default: the card), as scripts/train_sevirlr_avg_x.py builds
+    it: the alignment net in training mode (its dropout rates active), the
+    frozen VAE, the diffusion schedule and scale factor, the recipe's AdamW.
+    ``params`` holds state_dicts under "align" and "vae"; a model without one
+    takes its seeded initialisation."""
+    dev = resolve_device(device)
+    models = _models_on(dev, torch.Generator().manual_seed(seed), params or {},
+                        {"vae": lambda: build_vae(cfg),
+                         "align": lambda: build_alignment_model(cfg)}, trainable=("align",))
+    d, o = cfg.model.diffusion, cfg.optim
+    return AlignmentTrainer(
+        models["align"], models["vae"], timesteps=d.timesteps, scale_factor=d.scale_factor,
+        optim_config=dict(lr=o.lr, total_num_steps=total_num_steps, wd=o.wd,
+                          betas=tuple(o.betas), gradient_clip_val=o.gradient_clip_val,
+                          warmup_percentage=o.warmup_percentage),
+        latent_inputs=latent_inputs, prng_impl=o.get("prng_impl", "auto"),
+        flat_update=o.get("flat_update", False), pack_small_thr=o.get("pack_small_thr", 0),
+        matmul_precision=o.get("matmul_precision", None),
+        conv3d_impl=o.get("conv3d_impl", "auto"))

@@ -10,9 +10,9 @@ on the bf16 conv kernel under ``use_pallas_conv`` where the JAX package's
 routing rule admits them (the stage blocks' resblock kernel comes first, as
 in the JAX package).  Global vectors, hierarchical position embeddings and
 the pooled (not per-frame) readout are not ported.  The modules carry the
-configuration's dropout rates, which eval mode (guidance) ignores; training
-this network is not ported, so training mode with a rate above 0 raises
-instead of training another model than the configuration names.
+configuration's dropout rates: eval mode (guidance) ignores them, training
+mode (``training.AlignmentTrainer``) takes the forward's dropout seed and
+runs the FFN and attention layers' dropout kernels, as the UNet does.
 """
 from typing import Optional, Sequence, Tuple, Union
 
@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import DropoutStream
 from .cuboid_attention import StackCuboidSelfAttentionBlock
 from .layers import (PatchMerging3D, PosEmbed, TimeEmbedLayer, TimeEmbedResBlock, conv_nthwc,
                      timestep_embedding)
@@ -115,23 +116,28 @@ class NoisyCuboidTransformerEncoder(nn.Module):
         self.out = nn.Sequential(nn.GroupNorm(min(C_out, 32), C_out, eps=1e-5), nn.SiLU(),
                                  AttentionPool3d(H_out * W_out, C_out, num_heads, out_channels))
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        active = {k: v for k, v in self.dropout_rates.items() if v and v > 0}
-        if self.training and active:
-            raise NotImplementedError(
-                f"training mode with dropout {active}: training the alignment network is not "
-                "ported yet (ROADMAP.md, queue 1, 'VAE-GAN and alignment training'); call "
-                ".eval() for guidance")
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        """``dropout_seed`` (a host integer, up to 64 bits) seeds this
+        forward's dropout masks; training mode with a rate above 0 needs it,
+        eval mode ignores it."""
+        drop = None
+        if self.training and any(v and v > 0 for v in self.dropout_rates.values()):
+            if dropout_seed is None:
+                raise ValueError("training mode with dropout "
+                                 f"{ {k: v for k, v in self.dropout_rates.items() if v} } "
+                                 "needs dropout_seed; call .eval() for guidance")
+            drop = DropoutStream(dropout_seed)
         B = x.shape[0]
-        x = self.first_proj(x)
+        x = self.first_proj(x, drop=drop)
         x = self.pos_embed(x)
         t_emb = self.time_embed(timestep_embedding(t, self.block_units[0]).to(x.dtype))
         for i in range(self.num_blocks):
             if i > 0:
                 x = self.downsample_layers[i - 1](x)
             for j in range(self.depth[i]):
-                x = self.down_time_embed_blocks[i](x, t_emb)
-                x = self.down_self_blocks[i][j](x)
+                x = self.down_time_embed_blocks[i](x, t_emb, drop)
+                x = self.down_self_blocks[i][j](x, drop)
         if self.out_len is not None:
             x = x[:, -self.out_len:]
         T_cur, C = x.shape[1], x.shape[-1]

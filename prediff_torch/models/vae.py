@@ -1,4 +1,6 @@
-"""Frame-wise KL autoencoder: ``encode_moments`` and ``decode``.
+"""Frame-wise KL autoencoder: ``encode_moments`` and ``decode`` for the
+diffusion pipeline, ``encode`` (the posterior), ``decode_with_features`` and
+``forward`` for the VAE-GAN trainer.
 
 Public functions take and return NHWC frames; inside, the network runs NCHW
 on PyTorch's convolutions, GroupNorms and one single-head attention block
@@ -6,11 +8,13 @@ on PyTorch's convolutions, GroupNorms and one single-head attention block
 diffusers AutoencoderKL, so the weight bridge maps them mechanically.  The
 decoder upsamples by nearest x2 + 3x3 conv.
 """
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils.distributions import DiagonalGaussianDistribution
 
 
 class ResnetBlock2D(nn.Module):
@@ -156,11 +160,15 @@ class Decoder(nn.Module):
         self.conv_norm_out = nn.GroupNorm(groups, rev[-1], eps=1e-6)
         self.conv_out = nn.Conv2d(rev[-1], out_channels, 3, padding=1)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, return_features: bool = False):
+        """With ``return_features`` also the features before ``conv_out``
+        (what the GAN's adaptive weight differentiates through)."""
         x = self.mid_block(self.conv_in(z))
         for blk in self.up_blocks:
             x = blk(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        x = F.silu(self.conv_norm_out(x))
+        out = self.conv_out(x)
+        return (out, x) if return_features else out
 
 
 class AutoencoderKL(nn.Module):
@@ -182,6 +190,25 @@ class AutoencoderKL(nn.Module):
         """(n, H, W, C) frames -> (n, h, w, 2c) posterior moments (mean | logvar)."""
         return self.quant_conv(self.encoder(x.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
 
+    def encode(self, x: torch.Tensor) -> DiagonalGaussianDistribution:
+        """(n, H, W, C) frames -> the posterior over (n, h, w, c) latents."""
+        return DiagonalGaussianDistribution.from_parameters(self.encode_moments(x))
+
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(n, h, w, c) latents -> (n, H, W, C) frames."""
         return self.decoder(self.post_quant_conv(z.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+
+    def decode_with_features(self, z: torch.Tensor):
+        """(n, h, w, c) latents -> the (n, H, W, C) frames and the NHWC
+        features before the decoder's ``conv_out``."""
+        out, feats = self.decoder(self.post_quant_conv(z.permute(0, 3, 1, 2)),
+                                  return_features=True)
+        return out.permute(0, 2, 3, 1), feats.permute(0, 2, 3, 1)
+
+    def forward(self, sample: torch.Tensor, sample_posterior: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Encode, take the posterior's sample (from ``generator``) or mode,
+        decode: ``(reconstruction, posterior)``."""
+        posterior = self.encode(sample)
+        z = posterior.sample(generator) if sample_posterior else posterior.mode()
+        return self.decode(z), posterior

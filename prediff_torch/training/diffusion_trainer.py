@@ -10,10 +10,10 @@ same two integers (:func:`step_dropout_seed`, the JAX loss's ``rng_drop``),
 on the host, without a device sync.  ``state.step`` counts micro-steps, so
 the micro-steps of one optimizer step draw different masks, and a run
 restored from a checkpoint repeats the run it was saved from.  On the card
-the trainer switches cuDNN to its deterministic
-algorithms (:func:`~prediff_torch.utils.device.set_deterministic`): the
-hand-written kernels sum in a fixed order, and with that switch the library's
-convolution gradients do too, so the same step gives the same bits.
+cuDNN runs its deterministic algorithms (set with the device,
+:func:`~prediff_torch.utils.device.set_deterministic`): the hand-written
+kernels sum in a fixed order, and with that switch the library's convolution
+gradients do too, so the same step gives the same bits.
 
 Not carried over from the JAX trainer, and refused when asked for:
 ``remat_unet``, ``make_train_step_scan``, the mesh (waits for the
@@ -29,13 +29,25 @@ from torch import nn
 
 from ..diffusion.latent_diffusion import LatentDiffusion
 from ..utils.convert import torch_key_to_flax_path
-from ..utils.device import set_deterministic
 from .optim import build_optimizer, global_norm
 from .train_state import EmaTrainState
 
 _TPU_KNOBS = {"mesh": None, "remat_unet": False, "prng_impl": None, "flat_update": False,
               "pack_small_thr": 0, "matmul_precision": None, "conv3d_impl": None,
               "ema_dtype": None}
+
+
+def refuse_knobs(owner: str, knobs: Dict, allowed: Dict) -> None:
+    """Raise for an argument ``owner`` does not take, and for a TPU knob of
+    ``allowed`` at anything but its default (``"auto"`` of ``prng_impl`` and
+    ``conv3d_impl`` is the default off a TPU)."""
+    for name, value in knobs.items():
+        if name not in allowed:
+            raise TypeError(f"{owner}: unexpected argument '{name}'")
+        if value != allowed[name] and not (name in ("prng_impl", "conv3d_impl")
+                                           and value == "auto"):
+            raise NotImplementedError(f"{name}={value!r} is not ported (ROADMAP.md, not carried "
+                                      "over)")
 
 
 def step_generator(seed: Union[int, torch.Generator], step: int, device) -> torch.Generator:
@@ -67,13 +79,7 @@ class DiffusionTrainer:
     def __init__(self, ld: LatentDiffusion, optim_config: Optional[Dict] = None,
                  use_ema: bool = True, ema_decay: float = 0.9999,
                  track_grad_norm: bool = False, latent_inputs: bool = False, **knobs):
-        for name, value in knobs.items():
-            if name not in _TPU_KNOBS:
-                raise TypeError(f"DiffusionTrainer: unexpected argument '{name}'")
-            if value != _TPU_KNOBS[name] and not (name in ("prng_impl", "conv3d_impl")
-                                                  and value == "auto"):
-                raise NotImplementedError(f"{name}={value!r} is not ported (ROADMAP.md, "
-                                          "not carried over)")
+        refuse_knobs("DiffusionTrainer", knobs, _TPU_KNOBS)
         if any(p.requires_grad for p in ld.vae.parameters()):
             raise ValueError("the VAE must be frozen")
         self.ld = ld
@@ -84,8 +90,6 @@ class DiffusionTrainer:
         # True: the steps take first-stage moments (mx, my) instead of pixel
         # windows (x, y), and the frozen VAE encode drops out of the step
         self.latent_inputs = latent_inputs
-        if ld.device.type == "cuda":
-            set_deterministic()
 
     def create_state(self) -> EmaTrainState:
         """A fresh state over the pipeline's UNet (put in training mode, where

@@ -1,0 +1,172 @@
+"""VAE-GAN training with two optimizers, on one device: the generator update
+(L1 reconstruction under a learned logvar, KL, the adaptive adversarial
+term), then the discriminator update (hinge on real and fake).
+
+Counterpart of ``prediff_tpu/training/vae_trainer.py`` (reference
+train_vae_sevirlr.py:433-475 and taming/losses/contperceptual.py).  The
+step follows the JAX step:
+
+* the posterior sample comes from a generator seeded from the caller's seed
+  and the generator state's step (``step_generator``), which is also the
+  step the ``disc_start`` gate reads, before its increment;
+* the generator's pass through the discriminator and the adaptive weight's
+  pass normalise by the batch's statistics and leave the running ones as
+  they are; only the discriminator update moves them, real batch then fake;
+* the adaptive weight differentiates with respect to the decoder's
+  ``conv_out`` weight alone, on the detached features before it
+  (``calculate_adaptive_weight``), and is computed, and logged, before
+  ``disc_start`` too;
+* the discriminator scores the reconstruction of the generator pass,
+  detached: made with the parameters from before the generator update;
+* the learned scalar ``logvar`` is a parameter of the generator state.
+
+On the card the convolutions are cuDNN's in f32 (TF32 off) with its
+deterministic algorithms (``utils.device.resolve_device``), so a step repeats
+bit for bit.  ``compute_dtype="bfloat16"`` waits for the bf16 slice;
+the mesh and the TPU optimizer-layout knobs are refused.
+"""
+from typing import Callable, Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..models.vae import AutoencoderKL
+from .diffusion_trainer import refuse_knobs, step_generator
+from .losses import (NLayerDiscriminator, calculate_adaptive_weight, discriminator_loss,
+                     generator_loss)
+from .optim import build_optimizer
+from .train_state import EmaTrainState
+
+_TPU_KNOBS = {"mesh": None, "flat_update": False, "pack_small_thr": 0}
+
+
+def resolve_compute_dtype(compute_dtype: Optional[str]) -> None:
+    """Only f32 is ported: ``None``, ``"float32"``, ``"f32"`` and ``"auto"``
+    (which the JAX package resolves to f32 off a TPU)."""
+    if compute_dtype in (None, "float32", "f32", "auto"):
+        return
+    if compute_dtype in ("bfloat16", "bf16"):
+        raise NotImplementedError(f"compute_dtype {compute_dtype!r}: only float32 is ported "
+                                  "(ROADMAP.md queue 1 item 2, compute_dtype='bfloat16')")
+    raise ValueError(f"compute_dtype {compute_dtype!r}")
+
+
+def _conv2d_same(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The decoder's 3x3 ``conv_out`` on NHWC features with another kernel."""
+    pad = (kernel.shape[-1] - 1) // 2
+    return F.conv2d(h.permute(0, 3, 1, 2), kernel, bias, padding=pad).permute(0, 2, 3, 1)
+
+
+class VAETrainer:
+    def __init__(self, vae: AutoencoderKL, disc: Optional[NLayerDiscriminator] = None,
+                 disc_start: int = 50001, kl_weight: float = 1e-6, disc_weight: float = 0.5,
+                 disc_factor: float = 1.0, disc_loss: str = "hinge", logvar_init: float = 0.0,
+                 perceptual_fn: Optional[Callable] = None, perceptual_weight: float = 0.0,
+                 optim_config: Optional[Dict] = None, disc_optim_config: Optional[Dict] = None,
+                 compute_dtype: Optional[str] = None, **knobs):
+        refuse_knobs("VAETrainer", knobs, _TPU_KNOBS)
+        resolve_compute_dtype(compute_dtype)
+        self.vae = vae
+        self.device = next(vae.parameters()).device
+        self.disc = disc or NLayerDiscriminator(
+            input_nc=vae.decoder.conv_out.out_channels,
+            n_layers=3).reset_parameters(torch.default_generator).to(self.device)
+        self.disc_start = disc_start
+        self.kl_weight = kl_weight
+        self.disc_weight = disc_weight
+        self.disc_factor = disc_factor
+        self.disc_loss = disc_loss
+        self.logvar_init = logvar_init
+        self.perceptual_fn = perceptual_fn
+        self.perceptual_weight = perceptual_weight
+        self.optim_config = dict(optim_config or {})
+        self.disc_optim_config = dict(disc_optim_config or self.optim_config)
+
+    def create_states(self, sample_input: Optional[torch.Tensor] = None
+                      ) -> Tuple[EmaTrainState, EmaTrainState, Dict[str, torch.Tensor]]:
+        """``(gen_state, disc_state, disc_batch_stats)``: the generator state
+        over ``"vae.<name>"`` and ``"logvar"``, the discriminator's over its
+        state_dict names, and its BatchNorms' running statistics (live
+        buffers, moved by ``train_step``).  ``sample_input`` (NHWC) initialises
+        the ActNorms from their inputs, as flax's ``init`` does."""
+        self.vae.train().requires_grad_(True)
+        self.disc.train().requires_grad_(True)
+        if sample_input is not None and self.disc.use_actnorm:
+            self.disc.data_init(sample_input.to(self.device, torch.float32))
+        gen: Dict[str, nn.Parameter] = {f"vae.{k}": p for k, p in self.vae.named_parameters()}
+        gen["logvar"] = nn.Parameter(torch.tensor(float(self.logvar_init), device=self.device))
+        disc = dict(self.disc.named_parameters())
+        gen_state = EmaTrainState.create(
+            gen, build_optimizer(list(gen.values()), **self.optim_config), use_ema=False)
+        disc_state = EmaTrainState.create(
+            disc, build_optimizer(list(disc.values()), **self.disc_optim_config), use_ema=False)
+        return gen_state, disc_state, self.disc.batch_stats()
+
+    def _reconstruct(self, x: torch.Tensor, generator: Optional[torch.Generator]):
+        """``(reconstruction, features before conv_out, posterior)`` of NHWC
+        frames, the latent sampled from ``generator``."""
+        posterior = self.vae.encode(x)
+        recon, feats = self.vae.decode_with_features(posterior.sample(generator))
+        return recon, feats, posterior
+
+    def _generator_loss(self, logvar: torch.Tensor, x: torch.Tensor,
+                        generator: Optional[torch.Generator], global_step: int):
+        recon, feats, posterior = self._reconstruct(x, generator)
+        logits_fake = self.disc(recon, train=True)
+        conv_out = self.vae.decoder.conv_out
+        h_sg, bias, logvar_sg = feats.detach(), conv_out.bias.detach(), logvar.detach()
+        use_perceptual = self.perceptual_fn is not None and self.perceptual_weight > 0
+
+        def nll_of_kernel(kernel):
+            rec_k = _conv2d_same(h_sg, kernel, bias)
+            rec = (x - rec_k).abs()
+            if use_perceptual:
+                rec = rec + self.perceptual_weight * self.perceptual_fn(x, rec_k)
+            return torch.sum(rec / torch.exp(logvar_sg) + logvar_sg) / x.shape[0]
+
+        def g_of_kernel(kernel):
+            return -self.disc(_conv2d_same(h_sg, kernel, bias), train=True).mean()
+
+        d_weight = calculate_adaptive_weight(nll_of_kernel, g_of_kernel, conv_out.weight,
+                                             self.disc_weight)
+        perceptual = self.perceptual_fn(x, recon) if use_perceptual else None
+        loss, log = generator_loss(
+            x, recon, posterior.kl(), logvar, logits_fake, d_weight, global_step,
+            self.disc_start, kl_weight=self.kl_weight, disc_factor=self.disc_factor,
+            perceptual=perceptual, perceptual_weight=self.perceptual_weight)
+        return loss, log, recon
+
+    def grads(self, gen_state: EmaTrainState, disc_state: EmaTrainState,
+              seed: Union[int, torch.Generator], x: torch.Tensor):
+        """The step's gradients of both states, in the order of their
+        ``params``, and its logs (0-dim tensors on the device).  Neither
+        gradient depends on the other update, so the JAX step's order (the
+        generator's update between the two) gives the same values; the
+        discriminator's passes move the running statistics."""
+        x = x.to(self.device, torch.float32)
+        global_step = gen_state.step
+        generator = step_generator(seed, global_step, self.device)
+        g_loss, g_log, recon = self._generator_loss(gen_state.params["logvar"], x, generator,
+                                                    global_step)
+        g_grads = torch.autograd.grad(g_loss, list(gen_state.params.values()))
+
+        recon_sg = recon.detach()
+        logits_real = self.disc(x, train=True, update_stats=True)
+        logits_fake = self.disc(recon_sg, train=True, update_stats=True)
+        d_loss, d_log = discriminator_loss(logits_real, logits_fake, global_step,
+                                           self.disc_start, disc_factor=self.disc_factor,
+                                           disc_loss=self.disc_loss)
+        d_grads = torch.autograd.grad(d_loss, list(disc_state.params.values()))
+        return g_grads, d_grads, {k: v.detach() for k, v in {**g_log, **d_log}.items()}
+
+    def train_step(self, gen_state: EmaTrainState, disc_state: EmaTrainState,
+                   batch_stats: Dict[str, torch.Tensor], seed: Union[int, torch.Generator],
+                   x: torch.Tensor):
+        """One step on NHWC frames ``x``: the generator update, then the
+        discriminator update; ``batch_stats`` (from ``create_states``) move in
+        place.  Returns ``(gen_state, disc_state, batch_stats, logs)``."""
+        g_grads, d_grads, logs = self.grads(gen_state, disc_state, seed, x)
+        gen_state.apply_gradients(g_grads)
+        disc_state.apply_gradients(d_grads)
+        return gen_state, disc_state, batch_stats, logs

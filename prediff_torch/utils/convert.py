@@ -1,6 +1,7 @@
-"""Weight bridge: a flax parameter tree (as numpy) -> a port module's state_dict,
-and a flax train-state tree (parameters, gradients or EMA shadow) -> the
-port's train-state names.
+"""Weight bridge: a flax parameter tree (as numpy), with its ``batch_stats``
+where the module has BatchNorms -> a port module's state_dict, and a flax
+train-state tree (parameters, gradients or EMA shadow) -> the port's
+train-state names.
 
 The port's module attribute paths follow the reference PyTorch names
 (``down_self_blocks.0.1.attn_l.0.qkv.weight``, the diffusers VAE names), and
@@ -15,6 +16,8 @@ flax path, and invert the flax leaf layout:
     Conv3d  kernel (kt,kh,kw,I,O)    -> weight (O,I,kt,kh,kw)
     Norm    scale                    -> weight
     Embed   embedding                -> weight
+    ActNorm loc, scale (1,1,1,C)     -> loc, scale (1,C,1,1)
+    BatchNorm batch_stats mean, var  -> running_mean, running_var
     anything else (bias, tables, the attention pool's positional_embedding)
                                      copied verbatim.
 """
@@ -45,7 +48,12 @@ def flatten_tree(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
     return out
 
 
+_RUNNING = {"running_mean": "mean", "running_var": "var"}
+
+
 def _to_torch_layout(flax_leaf: str, arr: np.ndarray) -> np.ndarray:
+    if flax_leaf in ("loc", "scale") and arr.ndim == 4:   # ActNorm, NHWC -> NCHW
+        return arr.transpose(0, 3, 1, 2)
     if flax_leaf != "kernel":
         return arr
     if arr.ndim == 2:                      # Linear
@@ -59,17 +67,27 @@ def _to_torch_layout(flax_leaf: str, arr: np.ndarray) -> np.ndarray:
     raise ValueError(f"unexpected kernel rank {arr.ndim}")
 
 
-def flax_params_to_torch(model: torch.nn.Module, flax_params) -> Dict[str, torch.Tensor]:
-    """Return a state_dict for ``model`` filled from ``flax_params``.
+def flax_params_to_torch(model: torch.nn.Module, flax_params,
+                         batch_stats=None) -> Dict[str, torch.Tensor]:
+    """Return a state_dict for ``model`` filled from ``flax_params`` and, for
+    its BatchNorms' running statistics, from the flax ``batch_stats`` (the
+    inverse of the JAX package's ``convert_torch_batch_stats``; the
+    ``num_batches_tracked`` counters, which flax has not, keep the model's).
 
     Strict both ways: every key of ``model.state_dict()`` takes exactly one
     flax leaf and every flax leaf is taken, else ``ValueError``."""
     flat = flatten_tree(flax_params)
+    flat.update({("batch_stats",) + k: v for k, v in flatten_tree(batch_stats or {}).items()})
     used = set()
     out = {}
     for key, ref in model.state_dict().items():
         base = torch_key_to_flax_path(key)
-        if base[-1] == "weight":
+        if base[-1] == "num_batches_tracked":
+            out[key] = ref.clone()
+            continue
+        if base[-1] in _RUNNING:
+            candidates = [("batch_stats",) + base[:-1] + (_RUNNING[base[-1]],)]
+        elif base[-1] == "weight":
             candidates = [base[:-1] + (leaf,) for leaf in ("kernel", "scale", "embedding")]
         else:
             candidates = [base]
@@ -90,13 +108,15 @@ def flax_params_to_torch(model: torch.nn.Module, flax_params) -> Dict[str, torch
     return out
 
 
-def flax_train_tree_to_torch(unet: torch.nn.Module, tree) -> Dict[str, torch.Tensor]:
-    """A flax tree over the trainable parameters, ``{"unet": ..., ["logvar":
-    ...]}`` -> the port's train-state names, ``"unet.<state_dict key>"`` and
-    ``"logvar"``, in the port's layouts.  The layout change is linear, so the
-    same function carries the parameters, a gradient tree or the EMA shadow
-    of a flax train state."""
-    out = {f"unet.{k}": v for k, v in flax_params_to_torch(unet, tree["unet"]).items()}
+def flax_train_tree_to_torch(model: torch.nn.Module, tree,
+                             name: str = "unet") -> Dict[str, torch.Tensor]:
+    """A flax tree over the trainable parameters, ``{name: ..., ["logvar":
+    ...]}`` -> the port's train-state names, ``"<name>.<state_dict key>"``
+    and ``"logvar"``, in the port's layouts: the diffusion trainer's
+    ``{"unet", "logvar"}`` and the VAE-GAN generator's ``{"vae", "logvar"}``.
+    The layout change is linear, so the same function carries the
+    parameters, a gradient tree or the EMA shadow of a flax train state."""
+    out = {f"{name}.{k}": v for k, v in flax_params_to_torch(model, tree[name]).items()}
     if "logvar" in tree:
         out["logvar"] = torch.from_numpy(np.array(tree["logvar"], dtype=np.float32))
     return out

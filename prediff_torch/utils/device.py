@@ -19,19 +19,25 @@ def set_numerics() -> None:
 
 def set_deterministic() -> None:
     """cuDNN's deterministic convolution algorithms, and no autotuned choice
-    among them, for training: by default cuDNN may take a weight-gradient
-    algorithm that adds with atomics, and two runs of one step then differ in
-    the last bits.  The hand-written kernels add in a fixed order by
-    themselves, and the other library ops on the training path (cuBLAS on one
-    stream, ``index_put`` with accumulation, which sorts) are deterministic
-    as they are, so this one switch makes a step repeat bit for bit."""
+    among them: by default cuDNN may take a weight- or input-gradient
+    algorithm that adds with atomics, and two runs of one training step, or
+    two guided forecasts (whose guidance takes the alignment net's input
+    gradient), then differ in the last bits.  The hand-written kernels add in
+    a fixed order by themselves, and the other library ops on these paths
+    (cuBLAS on one stream, ``index_put`` with accumulation, which sorts) are
+    deterministic as they are, so this one switch makes a training step and a
+    guided forecast repeat bit for bit.  A captured CUDA graph keeps the
+    algorithms chosen when it was captured, so the switch is on before any
+    capture: every entry point sets it (:func:`resolve_device`)."""
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """``None`` means the card.  Asking for CUDA on a host without one raises:
-    an entry point never carries on quietly on the CPU."""
+    an entry point never carries on quietly on the CPU.  On the card, full
+    f32 numerics and cuDNN's deterministic algorithms for everything that
+    runs after."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -40,4 +46,5 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
                 "Pass device='cpu' to run the plain PyTorch versions on the CPU."
             )
         set_numerics()
+        set_deterministic()
     return dev

@@ -449,9 +449,10 @@ def test_optimizer_steps_and_checkpoint_round_trip_with_dropout(tmp_path):
 
 
 def test_alignment_net_refuses_to_train_with_dropout():
-    """Alignment training is not ported: the shared blocks carry the
-    configuration's rates, eval mode (guidance) ignores them, training mode
-    raises; the fused resblock refuses an active dropout."""
+    """The alignment net trains with dropout only from a step's seed: the
+    shared blocks carry the configuration's rates, eval mode (guidance)
+    ignores them, training mode without ``dropout_seed`` raises and with one
+    draws its masks; the fused resblock refuses an active dropout."""
     cfg = load_config(prediff_default_config, TINY)
     cfg.model.align.model_args.update(RATES)
     net = build_alignment_model(cfg)
@@ -459,10 +460,13 @@ def test_alignment_net_refuses_to_train_with_dropout():
     assert net.down_self_blocks[0][0].attn_l[0].attn_drop == 0.1
     assert net.down_self_blocks[0][0].ffn_l[0].dropout == 0.1 and net.first_proj.dropout == 0.1
     zt, t = torch.zeros((1,) + tuple(cfg.model.align.model_args.input_shape)), torch.tensor([3])
-    with pytest.raises(NotImplementedError, match="VAE-GAN and alignment training"):
+    with pytest.raises(ValueError, match="dropout_seed"):
         net.train()(zt, t)
     with torch.no_grad():
+        dropped = net.train()(zt, t, dropout_seed=5)
+        assert torch.isfinite(dropped).all()
         assert torch.isfinite(net.eval()(zt, t)).all()
+        assert not torch.equal(dropped, net(zt, t))
     cfg.model.align.model_args.update(attn_drop=0.0, proj_drop=0.0, ffn_drop=0.0)
     with torch.no_grad():
         assert torch.isfinite(build_alignment_model(cfg).train()(zt, t)).all()   # rates 0: runs

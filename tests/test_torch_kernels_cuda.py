@@ -844,7 +844,11 @@ def test_cuboid_layer_v3_kernel_matches_plain(dev, shape):
 def _graph_predictor(dev):
     """configs/tiny_smoke.yaml at base_units 128 (widths 128 and 256, which
     the FFN, attention and resblock kernels take), randomized weights (the
-    v1 init leaves the FFN's and attention's output products at 0), guided."""
+    v1 init leaves the FFN's and attention's output products at 0), guided.
+    Building it switches cuDNN to its deterministic algorithms
+    (``resolve_device``): at these shapes the default input-gradient
+    convolutions of the guidance step add with atomics, and the eager chain
+    would not repeat."""
     import os
 
     from prediff_torch.config import ConfigDict, deep_merge, load_config, prediff_default_config
@@ -864,20 +868,6 @@ def _graph_predictor(dev):
     return PreDiffPredictor(cfg, params=params, with_alignment=True, device=dev)
 
 
-@pytest.fixture
-def deterministic_cudnn():
-    """cuDNN's deterministic algorithms.  At this configuration's shapes the
-    default input-gradient convolutions of the guidance step
-    (``convolveNd_dgrad_float_engine``, ``dgrad2d_grouped_direct_kernel``)
-    add with atomics, so two eager guided chains already differ in the last
-    bits; with deterministic algorithms the eager chain repeats, and the
-    graph chain must give its bits."""
-    before = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    yield
-    torch.backends.cudnn.deterministic = before
-
-
 def _counts():
     from prediff_torch.diffusion.graphs import launch_counters
 
@@ -888,7 +878,7 @@ def _counts():
     dict(timesteps=4, use_alignment=True, guidance_every_k=2),
     dict(timesteps=6, ddim_steps=3, use_alignment=True, ddim_eta=0.5),
     dict(timesteps=3, return_intermediates=True, return_decoded=False)])
-def test_graph_chain_gives_the_bits_of_the_eager_chain(dev, deterministic_cudnn, kw):
+def test_graph_chain_gives_the_bits_of_the_eager_chain(dev, kw):
     """Temperature 1, the same seed: the chain that captures, the chain that
     only replays and the eager chain agree bit for bit, with the same
     launch counts (each replay adds its graph's launches)."""
@@ -923,7 +913,7 @@ def test_graph_chain_gives_the_bits_of_the_eager_chain(dev, deterministic_cudnn,
     assert counts[0] == counts[1] == counts[2] and sum(counts[2].values()) > 0
 
 
-def test_a_parameter_update_recaptures(dev, deterministic_cudnn):
+def test_a_parameter_update_recaptures(dev):
     """An in-place update between two forecasts drops the graphs; the second
     forecast is captured anew and equals the eager chain on the new weights."""
     predictor = _graph_predictor(dev)
