@@ -1456,8 +1456,9 @@ def summarize(cases, launches_by_path):
     the conv kernels: one guided step, one micro-step of ``conv_train``).  The
     round-1 kernels are on no path: launches 0, their cases weighed alike."""
     out = []
+    table = {**KERNELS, **BF16_KERNELS}
     for name, cs in cases.items():
-        source, replaces, main_path = KERNELS[name]
+        source, replaces, main_path = table[name]
         keys = PATH_WEIGHTS[main_path]
         wts = [sum(c[k] for k in keys) for c in cs]
         if not any(wts):   # no shape of the kernel on its path at this configuration
@@ -1484,7 +1485,7 @@ def summarize(cases, launches_by_path):
             bound_ms=sum(c["bound"][0] * w for c, w in zip(cs, wts)) / n,
             bound_by="bytes" if bytes_share >= 0.5 else "operations",
             library_ms=mix("library_ms") if has_library else None, main_path=main_path,
-            launches_by_path={p: v[name] for p, v in launches_by_path.items()},
+            launches_by_path={p: v[name] for p, v in launches_by_path.items() if name in v},
             launches_per_step_mix=n, **extra,
             shapes=[{k: v for k, v in c.items() if k not in ("bound", "bound_3xtf32")}
                     | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
@@ -1901,6 +1902,643 @@ def bwd_split(device):
 
 
 # --------------------------------------------------------------------------- #
+# --------------------------------------------------------------------------- #
+# compute_dtype="bfloat16" and its kin (guidance's align.compute_dtype, the
+# encoder's first_stage_dtype, the VAE trainer's vae_compute_dtype): the bf16
+# forms of the kernels guidance runs on the alignment net's bf16 copy, the
+# bf16 chains, the bf16 encode and the bf16 VAE-GAN step.
+# The kernels with a bf16 form; ``<name>_bf16`` in the kernels line.  They run
+# where guidance's dtype differs from the carry's (the JAX package's rule):
+# on the bf16_guidance_forecast path (chain f32, guidance bf16), per shift.
+BF16_FORMS = ("groupnorm_silu", "groupnorm_silu_bwd_full", "ffn", "ffn_bwd_dx", "axial_attention",
+              "axial_attention_bwd_dx", "resblock", "resblock_bwd", "conv3x3x3", "conv3x3x3_dx")
+BF16_KERNELS = {f"{k}_bf16": KERNELS[k][:2] + ("conv_bf16_guidance_forecast"
+                                               if k.startswith("conv") else
+                                               "bf16_guidance_forecast",)
+                for k in BF16_FORMS}
+PATH_WEIGHTS.update({"bf16_guidance_forecast": ("per_align",),
+                     "conv_bf16_guidance_forecast": ("conv_per_align",)})
+BF16_CHAIN_STEPS = 5            # the bf16 guided chain held card against CPU (temperature 0)
+BF16_CHAIN_TOL_REL_L2 = 2e-2
+VAE_BF16_LOSS_TOL_REL = 1e-2    # card vs CPU, bf16 convolutions on both sides
+VAE_BF16_GRAD_TOL_REL_L2 = 5e-2  # the adaptive weight and the total it scales
+VAE_BF16_GRAD_MIN_COSINE = 0.99
+# A bf16 step's gradients lie ~1e-1 (rel-L2) from the f32 step's (the
+# backward rounds every activation gradient): the card's bf16 gradients are
+# held to the f32 gradients (CPU) at this share of the CPU bf16 step's own
+# distance to them, plus 1e-2
+VAE_BF16_GRAD_DRIFT_SHARE = 1.5
+PHASE_NUMBERS = {}   # phase -> numbers a later phase reports beside its own
+
+
+def bf16_counts():
+    """The bf16 forms' launches since the counts were last set to 0."""
+    return {k + "_bf16": fn.bf16_launches for k, fn in COUNTERS.items()
+            if hasattr(fn, "bf16_launches")}
+
+
+def bf16_ulp(t) -> float:
+    """One bf16 ulp of the largest magnitude of ``t``."""
+    import math
+
+    m = float(t.float().abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def judge_bf16(c, got, want, tol=None, rel_tol=3e-2, rel_mean_tol=2e-3):
+    """``judge`` of a bf16 form against its plain version on the same bf16
+    inputs: the f32 form's bar plus one bf16 ulp of the output's max (both
+    round their f32 result to bf16 once; the roundings may fall apart)."""
+    import torch
+
+    u, s = bf16_ulp(want), float(want.float().abs().max())
+    ok = judge(c, got.float(), want.float(), tol=None if tol is None else tol + u,
+               rel_tol=rel_tol + u / s, rel_mean_tol=rel_mean_tol + u / s)
+    c["bf16_ulp_of_max"] = u
+    c["bf16_output"] = got.dtype == torch.bfloat16
+    c["ok"] = ok and c["bf16_output"]
+    return c["ok"]
+
+
+def bf16_kernel_cases(cases):
+    """The bf16 forms' cases: each shape the alignment net gives the kernel
+    in a guidance shift (``per_align``; the conv route's ``conv_per_align``),
+    taken from the f32 forms' cases."""
+    keep = ("shape", "groups", "emb", "axis")
+    out = {}
+    for name in BF16_FORMS:
+        key = "conv_per_align" if name.startswith("conv") else "per_align"
+        out[name + "_bf16"] = [
+            {k: v for k, v in c.items() if k in keep}
+            | {k: 0 for k in ("per_unet", "per_align", "per_train", "per_align_train",
+                              "conv_per_unet", "conv_per_align", "conv_per_train")}
+            | {key: c[key]} for c in cases[name] if c.get(key, 0)]
+    return out
+
+
+def resblock_library_seq_bf16(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups):
+    """The whole resblock as library calls in bf16 (the bf16 form's
+    yardstick): ``F.group_norm`` -> ``F.silu`` -> cuDNN's bf16 conv -> + emb
+    -> ``F.group_norm`` -> ``F.silu`` -> the conv -> + x, every tensor bf16.
+    Returns (the forward's closure, the closure of autograd's backward of
+    it for a cotangent to x and emb)."""
+    import torch
+    import torch.nn.functional as F
+
+    cl = torch.channels_last_3d
+    k1c, k2c = (k.contiguous(memory_format=cl) for k in (k1, k2))
+
+    def block(xl, el):
+        xc = xl.permute(0, 4, 1, 2, 3)
+        h = F.silu(F.group_norm(xc, groups, g1s, g1b, 1e-5))
+        h2 = F.conv3d(h, k1c, b1, padding=1) + el[:, :, None, None, None]
+        h = F.silu(F.group_norm(h2, groups, g2s, g2b, 1e-5))
+        return (xc + F.conv3d(h, k2c, b2, padding=1)).permute(0, 2, 3, 4, 1)
+
+    xl, el = (t.detach().clone().requires_grad_(True) for t in (x, emb))
+    out = block(xl, el)
+    g = torch.randn_like(out)
+    return (lambda: block(x, emb),
+            lambda: torch.autograd.grad(out, (xl, el), g, retain_graph=True))
+
+
+def check_bf16_kernels(bcases, device):
+    """Each bf16 form against its plain version on the same bf16 inputs and
+    bf16 parameters (the alignment net's bf16 copy; the plain version widens
+    them to f32 and rounds its result to bf16), with the bar of the f32 form
+    plus one bf16 ulp of the output's max; times, device times by replay, the
+    bound at 2-byte activations and weights (the f32 copies of the parameter
+    vectors at 4), and the bf16 library sequence's device time."""
+    import torch
+    import torch.nn.functional as F
+    from prediff_torch.ops.attention import (axial_attention_bwd_dx_plain, axial_attention_plain,
+                                             fused_axial_attention, fused_axial_attention_bwd_dx)
+    from prediff_torch.ops.conv3d import (conv3x3x3_dx, conv3x3x3_dx_plain, conv3x3x3_forward,
+                                          conv3x3x3_plain)
+    from prediff_torch.ops.ffn import ffn_bwd_dx_plain, ffn_plain, fused_ffn, fused_ffn_bwd_dx
+    from prediff_torch.ops.groupnorm import (fused_groupnorm_silu, fused_groupnorm_silu_bwd_full,
+                                             groupnorm_silu_bwd_full_plain, groupnorm_silu_plain)
+    from prediff_torch.ops.resblock import (fused_resblock_bwd, fused_resblock_fwd,
+                                            resblock_bwd_plain, resblock_plain)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale + shift).to(bf16)
+
+    def vec(C, scale=0.1, shift=0.0):
+        return randn(C, scale=scale, shift=shift)
+
+    for c in bcases["groupnorm_silu_bf16"]:
+        B, N, C = c["shape"]
+        groups = c["groups"]
+        x, w, b = randn(B, N, C, scale=2.0, shift=1.0), vec(C, shift=1.0), vec(C)
+        got, want = fused_groupnorm_silu(x, w, b, None, groups), groupnorm_silu_plain(x, w, b,
+                                                                                      None, groups)
+        sync(device)
+        judge_bf16(c, got, want, tol=1e-4)
+        timed(c, lambda: fused_groupnorm_silu(x, w, b, None, groups),
+              lambda: groupnorm_silu_plain(x, w, b, None, groups), 2 * 2 * B * N * C + 4 * 2 * C,
+              device_time=True, library_seq=gn_library_seq(x, w, b, None, groups),
+              f32_flops=12 * B * N * C)
+
+    for c in bcases["groupnorm_silu_bwd_full_bf16"]:
+        B, N, C = c["shape"]
+        groups = c["groups"]
+        x, g = randn(B, N, C, scale=2.0, shift=1.0), randn(B, N, C)
+        w, b = vec(C, shift=1.0), vec(C)
+        got = fused_groupnorm_silu_bwd_full(x, g, w, b, None, groups)
+        want = groupnorm_silu_bwd_full_plain(x, g, w, b, None, groups)
+        sync(device)
+        judge_bf16(c, got[0], want[0], rel_tol=1e-4, rel_mean_tol=1e-5)
+        side = {}
+        judge_all(side, ("dgamma", "dbeta"), got[1:3], want[1:3], rel_tol=1e-4,
+                  rel_mean_tol=1e-5)
+        c["vector_grads"] = side["outputs"]
+        c["ok"] = c["ok"] and side["ok"]
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        y = F.silu(F.group_norm(leaves[0].transpose(1, 2), groups, leaves[1], leaves[2],
+                                1e-5)).transpose(1, 2)
+        kernel = lambda: fused_groupnorm_silu_bwd_full(x, g, w, b, None, groups)  # noqa: E731
+        timed(c, kernel, lambda: groupnorm_silu_bwd_full_plain(x, g, w, b, None, groups),
+              2 * 3 * B * N * C + 4 * 4 * C, device_time=True, f32_flops=30 * B * N * C)
+        yardstick(c, lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
+
+    for name, c in [(n, c) for n in ("ffn_bf16", "ffn_bwd_dx_bf16") for c in bcases[n]]:
+        M, C = c["shape"]
+        hid = 4 * C
+        x, ln_w, ln_b = randn(M, C), vec(C, shift=1.0), vec(C)
+        w1, b1 = randn(hid, C, scale=C ** -0.5), vec(hid)
+        w2, b2 = randn(C, hid, scale=hid ** -0.5), vec(C)
+        if name == "ffn_bf16":
+            args = (x, ln_w, ln_b, w1, b1, w2, b2)
+            got, want = fused_ffn(*args), ffn_plain(*args, mxu_dtype=bf16)
+            sync(device)
+            judge_bf16(c, got, want, tol=2e-2)
+            timed(c, lambda: fused_ffn(*args), lambda: ffn_plain(*args, mxu_dtype=bf16),
+                  2 * (2 * M * C + 2 * C * hid) + 4 * (hid + 3 * C), device_time=True,
+                  library_seq=ffn_library_seq(*args), bf16_flops=4 * M * C * hid)
+        else:
+            args = (x, randn(M, C), ln_w, ln_b, w1, b1, w2)
+            got, want = fused_ffn_bwd_dx(*args), ffn_bwd_dx_plain(*args, mxu_dtype=bf16)
+            sync(device)
+            judge_bf16(c, got, want)
+            timed(c, lambda: fused_ffn_bwd_dx(*args),
+                  lambda: ffn_bwd_dx_plain(*args, mxu_dtype=bf16),
+                  2 * (3 * M * C + 2 * C * hid) + 4 * (hid + 2 * C), device_time=True,
+                  bf16_flops=6 * M * C * hid)
+
+    heads = 4
+    for name, c in [(n, c) for n in ("axial_attention_bf16", "axial_attention_bwd_dx_bf16")
+                    for c in bcases[n]]:
+        B, T, H, W, C = c["shape"]
+        axis = c["axis"]
+        vol = (T, H, W)[axis]
+        M = B * T * H * W
+        x, ln_w, ln_b = randn(B, T, H, W, C), vec(C, shift=1.0), vec(C)
+        w_qkv, w_proj, b_proj = randn(3 * C, C, scale=C ** -0.5), randn(C, C, scale=C ** -0.5), vec(C)
+        bias = randn(heads, vol, vol, scale=0.5).float()   # the layer gathers it in f32
+        scale = (C // heads) ** -0.5
+        if name == "axial_attention_bf16":
+            args = (x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale)
+            got, want = fused_axial_attention(*args), axial_attention_plain(*args, mxu_dtype=bf16)
+            sync(device)
+            judge_bf16(c, got, want, tol=2e-2)
+            timed(c, lambda: fused_axial_attention(*args),
+                  lambda: axial_attention_plain(*args, mxu_dtype=bf16),
+                  2 * (2 * M * C + 4 * C * C) + 4 * (heads * vol * vol + 3 * C), device_time=True,
+                  library_seq=attention_library_seq(*args),
+                  bf16_flops=8 * M * C * C + 4 * M * vol * C)
+        else:
+            args = (x, randn(B, T, H, W, C), axis, ln_w, ln_b, w_qkv, bias, w_proj, heads, scale)
+            got = fused_axial_attention_bwd_dx(*args)
+            want = axial_attention_bwd_dx_plain(*args, mxu_dtype=bf16)
+            sync(device)
+            judge_bf16(c, got, want)
+            timed(c, lambda: fused_axial_attention_bwd_dx(*args),
+                  lambda: axial_attention_bwd_dx_plain(*args, mxu_dtype=bf16),
+                  2 * (3 * M * C + 4 * C * C) + 4 * (heads * vol * vol + 2 * C), device_time=True,
+                  bf16_flops=14 * M * C * C + 10 * M * vol * C)
+
+    for c_fwd, c_bwd in zip(bcases["resblock_bf16"], bcases["resblock_bwd_bf16"]):
+        B, T, H, W, C = c_fwd["shape"]
+        groups = c_fwd["groups"]
+        M = B * T * H * W
+        k1, k2 = (randn(C, C, 3, 3, 3, scale=(27 * C) ** -0.5) for _ in range(2))
+        args = (randn(B, T, H, W, C, scale=0.5), randn(B, C, scale=0.3), k1, vec(C), k2, vec(C),
+                vec(C, shift=1.0), vec(C), vec(C, shift=1.0), vec(C))
+        out, h2 = fused_resblock_fwd(*args, groups)
+        want_out, want_h2 = resblock_plain(*args, groups, mxu_dtype=bf16)
+        sync(device)
+        ok = judge_bf16(c_fwd, out, want_out)
+        c_fwd["h2_max_abs_err"] = errors(h2.float(), want_h2)[0]
+        c_fwd["ok"] = ok and c_fwd["h2_max_abs_err"] <= (3e-2 * float(want_h2.abs().max())
+                                                         + bf16_ulp(want_h2))
+        conv_flops = 2 * 2 * M * 27 * C * C
+        weights = 2 * 2 * 27 * C * C
+        library_fwd, library_bwd = resblock_library_seq_bf16(*args, groups)
+        timed(c_fwd, lambda: fused_resblock_fwd(*args, groups),
+              lambda: resblock_plain(*args, groups, mxu_dtype=bf16),
+              2 * 2 * M * C + 2 * M * C + weights + 2 * B * C + 4 * 6 * C, device_time=True,
+              library_seq=library_fwd, bf16_flops=conv_flops)
+        x, emb, _, _, _, _, g1s, g1b, g2s, g2b = args
+        bargs = (x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, randn(B, T, H, W, C), groups)
+        dx, demb = fused_resblock_bwd(*bargs)
+        want_dx, want_demb = resblock_bwd_plain(*bargs[:8], h2.float(), bargs[9], groups,
+                                                mxu_dtype=bf16)
+        sync(device)
+        ok = judge_bf16(c_bwd, dx, want_dx)
+        c_bwd["demb_max_abs_err"] = errors(demb, want_demb)[0]
+        c_bwd["ok"] = ok and c_bwd["demb_max_abs_err"] <= 3e-2 * float(want_demb.abs().max())
+        timed(c_bwd, lambda: fused_resblock_bwd(*bargs),
+              lambda: resblock_bwd_plain(*bargs[:8], h2.float(), bargs[9], groups,
+                                         mxu_dtype=bf16),
+              2 * 3 * M * C + 2 * M * C + weights + 2 * B * C + 4 * (B * C + 4 * C),
+              device_time=True, bf16_flops=conv_flops)
+        yardstick(c_bwd, library_bwd)
+
+    cl = torch.channels_last_3d
+    for name in ("conv3x3x3_bf16", "conv3x3x3_dx_bf16"):
+        for c in bcases[name]:
+            B, T, H, W, C, OC = c["shape"]
+            M = B * T * H * W
+            w = randn(OC, C, 3, 3, 3, scale=(27 * C) ** -0.5)
+            b = vec(OC)
+            wc = w.contiguous(memory_format=cl)
+            if name == "conv3x3x3_bf16":
+                x = randn(B, T, H, W, C)
+                kernel = lambda: conv3x3x3_forward(x, w, b)  # noqa: E731
+                plain = lambda: conv3x3x3_plain(x, w, b)  # noqa: E731
+                library = lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), wc, b,  # noqa: E731
+                                           padding=1)
+            else:
+                g = randn(B, T, H, W, OC)
+                kernel = lambda: conv3x3x3_dx(g, w)  # noqa: E731
+                plain = lambda: conv3x3x3_dx_plain(g, w)  # noqa: E731
+                library = lambda: F.conv_transpose3d(g.permute(0, 4, 1, 2, 3), wc,  # noqa: E731
+                                                     padding=1)
+            got, want = kernel(), plain()
+            sync(device)
+            judge_bf16(c, got, want, tol=CONV_TOL_REL * float(want.float().abs().max()))
+            timed(c, kernel, plain, 2 * (M * C + M * OC + 27 * C * OC) + 4 * OC, library=library,
+                  device_time=True, bf16_flops=2 * M * 27 * C * OC)
+    return [(name, c) for name, cs in bcases.items() for c in cs if not c["ok"]]
+
+
+def shift_bf16_vs_cpu(phase, align_cpu, predictor, cfg, rs, t, device, want):
+    """One guidance shift at full width with guidance in bf16 on an f32 z
+    (the net on its bf16 copy: the kernels' bf16 forms), the card against the
+    CPU (the plain versions on the same bf16 copy), and its launches."""
+    import torch
+    from prediff_torch.diffusion.knowledge_alignment import KnowledgeAlignment
+
+    avg = torch.tensor([[AVG_X_GT]])
+    z = torch.randn((1,) + tuple(cfg.model.align.model_args.input_shape), generator=rs)
+    ka_cpu = KnowledgeAlignment(align_cpu, guide_scale=cfg.model.align.guide_scale,
+                                compute_dtype="bfloat16")
+    shift_cpu = ka_cpu.get_mean_shift(z, t, avg)
+    ka = predictor.ld.alignment
+    ka.get_mean_shift(z.to(device), t.to(device), avg.to(device))
+    sync(device)
+    counters_zero()
+    shift_card = ka.get_mean_shift(z.to(device), t.to(device), avg.to(device))
+    sync(device)
+    counts = {**counters_read(), **bf16_counts()}
+    err = rel_l2_and_cosine([shift_card], [shift_cpu])
+    emit({"phase": phase, "guidance_dtype": ka.compute_dtype, "z_dtype": str(z.dtype),
+          "shift_dtype": str(shift_card.dtype), "rel_l2_err": err[0], "cosine": err[1],
+          "tol_rel_l2": SHIFT_TOL_REL_L2, "min_cosine": SHIFT_MIN_COSINE, "launches": counts,
+          "expected_launches": want})
+    if (not torch.isfinite(shift_card).all() or err[0] > SHIFT_TOL_REL_L2
+            or err[1] < SHIFT_MIN_COSINE or shift_card.dtype != z.dtype):
+        fail(f"{phase}: the card's bf16 shift differs from the CPU's: {err}, "
+             f"dtype {shift_card.dtype}")
+    if counts != want:
+        fail(f"{phase}: launches {counts} != expected {want}")
+
+
+def bf16_phases(device, cfg, smi, weights, cases, per, align_cpu):
+    """The bf16 forms against their plain versions at the alignment net's
+    guidance shapes; one bf16 shift card against CPU; the chains of a
+    predictor built with ``compute_dtype="bfloat16"`` and
+    ``align.compute_dtype: bfloat16`` (``bf16_forecast``: the carry in bf16,
+    unguided; ``bf16_guided_forecast``: carry and guidance in bf16, so the
+    net keeps its f32 parameters, the JAX package's rule) and of the same
+    pipeline with an f32 carry (``bf16_guidance_forecast``: the net on its
+    bf16 copy, every guidance launch a bf16 form), each eager and on graphs,
+    bit-equal, with exact counts (the f32 chains' and the bf16 forms'); the
+    latent output's dtype; a 5-step bf16 guided chain at temperature 0 card
+    against CPU; ``bf16_first_stage``: the 7-frame conditioning encode and
+    a 26-frame training encode with ``first_stage_dtype: bfloat16`` against
+    f32.  Returns the bf16 cases and the chains' launches."""
+    import copy
+
+    import torch
+    from prediff_torch.config import ConfigDict, deep_merge
+    from prediff_torch.factory import build_pipeline
+    from prediff_torch.serving import PreDiffPredictor
+
+    bcases = bf16_kernel_cases(cases)
+    bad = check_bf16_kernels(bcases, device)
+    emit({"phase": "bf16_kernels_vs_plain", "cases": sum(len(v) for v in bcases.values()),
+          "failed": len(bad), "card": smi,
+          "worst_rel_err": {k: max(c["max_rel_err"] for c in cs) for k, cs in bcases.items()}})
+    if bad:
+        fail(f"bf16 form disagrees with its plain version: {bad}")
+
+    bcfg = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"align": {
+        "compute_dtype": "bfloat16"}}}))
+    pred16 = PreDiffPredictor(bcfg, params=weights, with_alignment=True, device=device,
+                              compute_dtype="bfloat16")
+    guidance16 = copy.copy(pred16)   # the same pipeline, the carry in f32
+    guidance16.compute_dtype = "float32"
+    rs = torch.Generator().manual_seed(SEED + 16)
+    t = torch.tensor([cfg.model.diffusion.timesteps // 2])
+    zero_forms = {k: 0 for k in BF16_KERNELS}
+    shift_want = {**{k: sum(c["per_align"] for c in cs) for k, cs in cases.items()},
+                  **zero_forms, **{k + "_bf16": per[k]["per_align"] for k in BF16_FORMS}}
+    shift_bf16_vs_cpu("bf16_guided_shift", align_cpu, pred16, cfg, rs, t, device, shift_want)
+
+    img = cfg.layout
+    context = torch.rand((1, img.in_len, img.img_height, img.img_width, img.data_channels),
+                         generator=rs)
+    expect_shape = (1, img.out_len, img.img_height, img.img_width, img.data_channels)
+    avg_x_gt = torch.tensor([[AVG_X_GT]]).numpy()
+
+    def expected(forms):
+        def fn(steps, guided):
+            out = {**expected_launches(cases, steps, guided), **zero_forms}
+            if forms and guided:
+                out.update({k + "_bf16": steps * per[k]["per_align"] for k in BF16_FORMS})
+            return out
+        return fn
+
+    def read_all():
+        return {**counters_read(), **bf16_counts()}
+
+    launches = run_chains(pred16, context, {
+        "bf16_forecast": (dict(timesteps=CHAIN_STEPS), CHAIN_STEPS, False),
+        "bf16_guided_forecast": (dict(timesteps=CHAIN_STEPS, use_alignment=True,
+                                      avg_x_gt=avg_x_gt), CHAIN_STEPS, True)},
+        expect_shape, expected(False), device, smi, counters_zero, read_all)
+    launches.update(run_chains(guidance16, context, {
+        "bf16_guidance_forecast": (dict(timesteps=CHAIN_STEPS, use_alignment=True,
+                                        avg_x_gt=avg_x_gt), CHAIN_STEPS, True)},
+        expect_shape, expected(True), device, smi, counters_zero, read_all))
+    emit({"phase": "bf16_chains", "card": smi, "ms_per_step": {
+        k: GRAPH_CHAINS[k]["ms_per_step"] for k in ("forecast", "guided_forecast",
+                                                    "bf16_forecast", "bf16_guided_forecast",
+                                                    "bf16_guidance_forecast")
+        if k in GRAPH_CHAINS}, "device_ms_per_step": {
+        k: GRAPH_CHAINS[k]["device_ms_per_step"] for k in (
+            "forecast", "guided_forecast", "bf16_forecast", "bf16_guided_forecast",
+            "bf16_guidance_forecast") if k in GRAPH_CHAINS}})
+
+    # a short bf16 guided chain (carry and guidance in bf16) at temperature 0,
+    # latent output: the card against the CPU's plain versions, the same x_T
+    x_T = torch.randn((1,) + tuple(cfg.model.diffusion.latent_shape), generator=rs)
+    kw = dict(timesteps=BF16_CHAIN_STEPS, use_alignment=True,
+              alignment_kwargs={"avg_x_gt": torch.tensor([[AVG_X_GT]])}, x_T=x_T,
+              temperature=0.0, return_decoded=False, compute_dtype="bfloat16")
+    card = pred16.ld.sample(context.to(device), **kw)
+    ld_cpu = build_pipeline(bcfg, with_alignment=True, device="cpu", params=weights)
+    t1 = time.perf_counter()
+    cpu = ld_cpu.sample(context, **kw)
+    cpu_s = time.perf_counter() - t1
+    del ld_cpu
+    err = rel_l2_and_cosine([card.float()], [cpu.float()])
+    emit({"phase": "bf16_chain_vs_cpu", "steps": BF16_CHAIN_STEPS, "card_dtype": str(card.dtype),
+          "cpu_dtype": str(cpu.dtype), "rel_l2_err": err[0], "cosine": err[1],
+          "tol_rel_l2": BF16_CHAIN_TOL_REL_L2, "cpu_s": cpu_s})
+    if card.dtype != torch.bfloat16 or cpu.dtype != torch.bfloat16 or err[0] > BF16_CHAIN_TOL_REL_L2:
+        fail(f"bf16_chain_vs_cpu: latent {card.dtype} / {cpu.dtype}, rel-L2 {err[0]}")
+
+    # first_stage_dtype: bfloat16 against f32, the conditioning encode and a training encode
+    fcfg = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"diffusion": {
+        "first_stage_dtype": "bfloat16"}}}))
+    ld16 = build_pipeline(fcfg, with_alignment=False, device=device,
+                          params={k: weights[k] for k in ("unet", "vae")})
+    ld32 = pred16.ld
+    line = {"phase": "bf16_first_stage", "card": smi}
+    for label, n in (("context", img.in_len), ("training", 2 * (img.in_len + img.out_len))):
+        frames = torch.rand((n, img.img_height, img.img_width, img.data_channels),
+                            generator=rs).to(device)
+        m16, m32 = ld16.first_stage_moments(frames), ld32.first_stage_moments(frames)
+        err = rel_l2_and_cosine([m16], [m32])
+        line[label] = {"frames": n, "dtype": str(m16.dtype), "rel_l2_vs_f32": err[0],
+                       "ms": time_ms(lambda: ld16.first_stage_moments(frames), warmup=1, iters=5),
+                       "f32_ms": time_ms(lambda: ld32.first_stage_moments(frames), warmup=1,
+                                         iters=5)}
+        if m16.dtype != torch.float32 or not torch.isfinite(m16).all() or err[0] > 5e-2:
+            fail(f"bf16_first_stage ({label}): moments {m16.dtype}, rel-L2 {err[0]} against f32")
+    emit(line)
+    del ld16, pred16, guidance16
+    return bcases, launches
+
+
+def conv_bf16_guidance_chain(predictor, context, per, avg, expect_shape, device, smi):
+    """``conv_bf16_guidance_forecast``: the conv route's 100-step guided
+    chain (f32 carry) with guidance in bf16, as ``align.compute_dtype:
+    bfloat16`` builds it: the net on its bf16 copy, so the conv's bf16 form
+    (row 8) and the other bf16 forms run on a path; eager and on graphs,
+    bit-equal, exact counts.  The pipeline's f32 guidance is put back after."""
+    from prediff_torch.diffusion.knowledge_alignment import KnowledgeAlignment
+
+    ld = predictor.ld
+    f32_alignment = ld.alignment
+    ld.alignment = KnowledgeAlignment(f32_alignment.model, guide_scale=f32_alignment.guide_scale,
+                                      compute_dtype="bfloat16")
+
+    def expected(steps, guided):
+        out = {k: steps * (v["per_unet"] + (v["per_align"] if guided else 0))
+               for k, v in per.items()}
+        out.update({k + "_bf16": steps * per[k]["per_align"] for k in BF16_FORMS})
+        return out
+
+    try:
+        return run_chains(predictor, context, {"conv_bf16_guidance_forecast": (
+            dict(timesteps=CHAIN_STEPS, use_alignment=True, avg_x_gt=avg.numpy()), CHAIN_STEPS,
+            True)}, expect_shape, expected, device, smi, counters_zero,
+            lambda: {**counters_read(), **bf16_counts()})
+    finally:
+        ld.alignment = f32_alignment
+
+
+def bf16_alone(device, smi):
+    """``--only bf16``: the seeded full-width models as ``run`` makes them,
+    the f32 ``forecast`` and ``guided_forecast`` (the numbers the bf16 chains
+    are read beside), ``bf16_phases``, the conv route's f32 and bf16-guidance
+    chains, and the bf16 forms' ``kernels`` line."""
+    import torch
+    from prediff_torch.config import alignment_default_config, prediff_default_config
+    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.serving import PreDiffPredictor
+
+    cfg = prediff_default_config()
+    kernel_counters()
+    gen = torch.Generator().manual_seed(SEED)
+    unet_cpu = init_params_(build_unet(cfg), gen, randomize=True).eval().requires_grad_(False)
+    vae_cpu = init_params_(build_vae(cfg), gen, randomize=True).eval().requires_grad_(False)
+    align_cpu = init_params_(build_alignment_model(cfg), gen,
+                             randomize=True).eval().requires_grad_(False)
+    weights = {"unet": unet_cpu.state_dict(), "vae": vae_cpu.state_dict(),
+               "align": align_cpu.state_dict()}
+    cases = kernel_cases(unet_cpu, align_cpu, cfg.optim.micro_batch_size,
+                         alignment_default_config().optim.micro_batch_size)
+    cases.update(conv_cases(unet_cpu, align_cpu, cfg.optim.micro_batch_size))
+    cases.update(round1_cases())
+    by_route = path_launches(unet_cpu, align_cpu)
+    predictor = PreDiffPredictor(cfg, params=weights, with_alignment=True, device=device)
+    img = cfg.layout
+    context = torch.rand((1, img.in_len, img.img_height, img.img_width, img.data_channels),
+                         generator=torch.Generator().manual_seed(SEED + 1))
+    run_chains(predictor, context, {
+        "forecast": (dict(timesteps=CHAIN_STEPS), CHAIN_STEPS, False),
+        "guided_forecast": (dict(timesteps=CHAIN_STEPS, use_alignment=True,
+                                 avg_x_gt=torch.tensor([[AVG_X_GT]]).numpy()), CHAIN_STEPS,
+                            True)},
+        (1, img.out_len, img.img_height, img.img_width, img.data_channels),
+        lambda steps, guided: expected_launches(cases, steps, guided), device, smi,
+        counters_zero, counters_read)
+    del predictor
+    bcases, launches = bf16_phases(device, cfg, smi, weights, cases, by_route, align_cpu)
+    conv_launches, _ = conv_serving_phases(device, cfg, smi, weights, counters_zero,
+                                           counters_read)
+    launches.update(conv_launches)
+    emit({"kernels": summarize(bcases, launches)})
+
+
+def vae_train_bf16_phases(device, smi):
+    """The VAE-GAN trainer with ``optim.vae_compute_dtype: bfloat16``
+    (``factory.build_vae_trainer``): the VAE's encode and decode on its
+    parameters cast to bf16, the rest f32.  ``vae_train_bf16_grads``: one
+    step's losses and both states' gradients at B=1 and ``disc_start`` 0,
+    card against CPU (bf16 convolutions on both sides) with the same
+    posterior noise: the losses within 1e-2, the adaptive weight and the
+    total within 5e-2, the gradients at cosine >= 0.99 and no further from
+    the f32 step's (CPU) than ``VAE_BF16_GRAD_DRIFT_SHARE`` times the CPU bf16
+    step's distance plus 1e-2; then twice on the card at the micro-batch,
+    bit-equal.
+    ``vae_train_bf16``: ``VAE_TRAIN_STEPS`` steps at the micro-batch at the
+    recipe's ``disc_start`` and at 0, ms per step, frames/s, the profiler's
+    busy share, peak memory, the stored parameters still f32, beside the
+    same run's f32 ``vae_train``."""
+    import numpy as np
+    import torch
+    from prediff_torch.config import vae_training_default_config
+    from prediff_torch.datasets.synthetic import synthetic_batch_iterator
+    from prediff_torch.factory import build_discriminator, build_vae, build_vae_trainer
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.utils.distributions import DiagonalGaussianDistribution
+
+    cfg = vae_training_default_config()
+    cfg.optim.vae_compute_dtype = "bfloat16"
+    B, H, W = cfg.optim.micro_batch_size, cfg.layout.img_height, cfg.layout.img_width
+    gen = torch.Generator().manual_seed(SEED)
+    weights = {"vae": init_params_(build_vae(cfg), gen).state_dict(),
+               "disc": build_discriminator(cfg).reset_parameters(gen).state_dict()}
+    frames = torch.from_numpy(next(synthetic_batch_iterator(B, 1, H, W, seed=SEED + 4))[:, 0])
+    down = 2 ** (len(cfg.model.vae.block_out_channels) - 1)
+    eps = torch.randn((B, H // down, W // down, cfg.model.vae.latent_channels),
+                      generator=torch.Generator().manual_seed(SEED + 5))
+
+    def trainer_on(dev, disc_start):
+        trainer = build_vae_trainer(cfg, device=dev, params=weights, seed=SEED)
+        trainer.disc_start = disc_start
+        return trainer, trainer.create_states()
+
+    sample = DiagonalGaussianDistribution.sample
+    t1 = time.perf_counter()
+    out = {}
+    try:   # the posterior's sample with the same noise on both sides
+        for dev, dtype in (("cpu", "bfloat16"), ("cpu", None), (device, "bfloat16")):
+            DiagonalGaussianDistribution.sample = (
+                lambda self, generator=None: self.mean + self.std * eps[:1].to(self.mean.device))
+            trainer, (g_state, d_state, _) = trainer_on(dev, 0)
+            trainer.compute_dtype = None if dtype is None else torch.bfloat16
+            g, d, logs = trainer.grads(g_state, d_state, SEED, frames[:1].to(dev))
+            out[(str(dev), dtype)] = (g, d, {k: float(v) for k, v in logs.items()})
+            if len(out) == 1:
+                cpu_s = time.perf_counter() - t1
+            del trainer, g_state, d_state
+    finally:
+        DiagonalGaussianDistribution.sample = sample
+    (g_cpu, d_cpu, logs_cpu) = out[("cpu", "bfloat16")]
+    (g_card, d_card, logs_card) = out[(str(device), "bfloat16")]
+    g32, d32, _ = out[("cpu", None)]
+    drift = {"cpu_bf16": (rel_l2_and_cosine(g_cpu, g32)[0], rel_l2_and_cosine(d_cpu, d32)[0]),
+             "card_bf16": (rel_l2_and_cosine(g_card, g32)[0], rel_l2_and_cosine(d_card, d32)[0])}
+    drift_ok = all(c <= VAE_BF16_GRAD_DRIFT_SHARE * r + 1e-2
+                   for c, r in zip(drift["card_bf16"], drift["cpu_bf16"]))
+    loss_rel = {k: abs(logs_card[k] - logs_cpu[k]) / abs(logs_cpu[k])
+                for k in ("train/disc_loss", "train/nll_loss", "train/kl_loss",
+                          "train/g_loss", "train/rec_loss")}
+    # the adaptive weight is a ratio of two gradient norms through the bf16
+    # features, and the total carries it times g_loss: held at the gradients' bar
+    weight_rel = {k: abs(logs_card[k] - logs_cpu[k]) / abs(logs_cpu[k])
+                  for k in ("train/d_weight", "train/total_loss")}
+    gen_err, disc_err = rel_l2_and_cosine(g_card, g_cpu), rel_l2_and_cosine(d_card, d_cpu)
+    finite = all(torch.isfinite(t).all() for t in (*g_card, *d_card))
+    trainer, (g_state, d_state, _) = trainer_on(device, 0)
+    x = frames.to(device)
+    a = trainer.grads(g_state, d_state, SEED, x)
+    b = trainer.grads(g_state, d_state, SEED, x)
+    bit_equal = (all(torch.equal(u, v) for u, v in zip((*a[0], *a[1]), (*b[0], *b[1])))
+                 and all(torch.equal(a[2][k], b[2][k]) for k in a[2]))
+    del trainer, g_state, d_state, a, b
+    emit({"phase": "vae_train_bf16_grads", "batch_cpu": 1, "batch_card": B, "frames": [H, W],
+          "compute_dtype": "bfloat16", "disc_start": 0, "logs_card": logs_card,
+          "logs_cpu": logs_cpu, "loss_rel_err": loss_rel, "tol_loss_rel": VAE_BF16_LOSS_TOL_REL,
+          "weight_rel_err": weight_rel, "tol_weight_rel": VAE_BF16_GRAD_TOL_REL_L2,
+          "gen_grad_rel_l2_err": gen_err[0], "gen_grad_cosine": gen_err[1],
+          "disc_grad_rel_l2_err": disc_err[0], "disc_grad_cosine": disc_err[1],
+          "min_cosine": VAE_BF16_GRAD_MIN_COSINE,
+          "grad_rel_l2_to_f32": drift, "drift_share": VAE_BF16_GRAD_DRIFT_SHARE,
+          "bit_equal_across_two_runs": bit_equal, "cpu_step_s": cpu_s})
+    if not finite:
+        fail("vae_train_bf16_grads: non-finite gradient on the card")
+    if (max(loss_rel.values()) > VAE_BF16_LOSS_TOL_REL
+            or max(weight_rel.values()) > VAE_BF16_GRAD_TOL_REL_L2 or not drift_ok
+            or min(gen_err[1], disc_err[1]) < VAE_BF16_GRAD_MIN_COSINE):
+        fail(f"vae_train_bf16_grads: card differs from the CPU: losses {loss_rel}, generator "
+             f"gradient {gen_err}, discriminator gradient {disc_err}")
+    if not bit_equal:
+        fail("vae_train_bf16_grads: two runs of the same step on the card differ")
+
+    for disc_start in (cfg.model.loss.disc_start, 0):
+        trainer, (g_state, d_state, stats) = trainer_on(device, disc_start)
+        torch.cuda.reset_peak_memory_stats(device)
+        steps = []
+        for _ in range(VAE_TRAIN_STEPS):
+            sync(device)
+            t0 = time.perf_counter()
+            g_state, d_state, stats, logs = trainer.train_step(g_state, d_state, stats, SEED, x)
+            sync(device)
+            steps.append({"ms": 1e3 * (time.perf_counter() - t0),
+                          **{k.split("/")[1]: float(v) for k, v in logs.items()}})
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        steady = sorted(st["ms"] for st in steps[1:])
+        ms = steady[len(steady) // 2]
+        prof = profile("profile_vae_train_bf16_step",
+                       lambda: trainer.train_step(g_state, d_state, stats, SEED, x), reps=2)
+        stored_f32 = all(p.dtype == torch.float32 for p in g_state.params.values())
+        f32 = PHASE_NUMBERS.get(("vae_train", disc_start), {})
+        emit({"phase": "vae_train_bf16", "batch": B, "frames": [H, W], "disc_start": disc_start,
+              "compute_dtype": "bfloat16", "steps": steps, "ms_per_step": ms,
+              "frames_per_s": 1e3 * B / ms, "device_busy_share": prof["device_busy_share"],
+              "device_ms_per_step": prof["device_ms_per_call"], "peak_mem_gib": peak,
+              "stored_params_f32": stored_f32, "f32_ms_per_step": f32.get("ms_per_step"),
+              "f32_frames_per_s": f32.get("frames_per_s"), "f32_peak_mem_gib": f32.get("peak"),
+              "card": smi})
+        if disc_start == 0:
+            emit(prof)
+        if not stored_f32 or not all(np.isfinite(v) for st in steps for v in st.values()):
+            fail("vae_train_bf16: a stored parameter left f32, or a non-finite loss")
+        del trainer, g_state, d_state, stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", help="also write every JSON line to this file")
@@ -1951,8 +2589,24 @@ def main() -> int:
     return 0
 
 
+COUNTERS = {}   # kernel name -> its wrapper (kernel_counters)
+
+
+def counters_zero():
+    """Every wrapper's launch counts, its bf16 form's too, set to 0."""
+    for fn in COUNTERS.values():
+        fn.launches = 0
+        if hasattr(fn, "bf16_launches"):
+            fn.bf16_launches = 0
+
+
+def counters_read():
+    return {k: fn.launches for k, fn in COUNTERS.items()}
+
+
 def kernel_counters():
-    """``(zero_counts, read_counts)`` over every kernel wrapper's launch count."""
+    """``(zero_counts, read_counts)`` over every kernel wrapper's launch count
+    (``read_counts`` counts every form; ``bf16_counts`` the bf16 forms)."""
     from prediff_torch.ops.attention import fused_cuboid_attention, fused_cuboid_attention_layer_v3
     from prediff_torch.ops.attention import (fused_axial_attention, fused_axial_attention_bwd_dx,
                                              fused_axial_attention_bwd_full,
@@ -1991,20 +2645,15 @@ def kernel_counters():
                 "cuboid_core": fused_cuboid_attention,
                 "cuboid_layer_v3": fused_cuboid_attention_layer_v3}
 
-    def zero_counts():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read_counts():
-        return {k: fn.launches for k, fn in counters.items()}
-
-    return zero_counts, read_counts
+    COUNTERS.update(counters)
+    return counters_zero, counters_read
 
 
 # the phases --only runs alone: bwd_split (each launch's share of the
 # all-gradients backwards, the general layer's dx and the resblock), guided_repeat,
-# vae_train (with vae_train_grads) and align_train (with align_train_grads)
-ONLY = ("bwd_split", "guided_repeat", "vae_train", "align_train")
+# vae_train (with vae_train_grads), align_train (with align_train_grads), bf16
+# (bf16_phases with the f32 chains beside them) and vae_train_bf16 (with its grads)
+ONLY = ("bwd_split", "guided_repeat", "vae_train", "align_train", "bf16", "vae_train_bf16")
 
 
 def run_only(device, names, smi: str) -> None:
@@ -2020,6 +2669,10 @@ def run_only(device, names, smi: str) -> None:
             guided_repeat(device)
         elif name == "vae_train":
             vae_train_phases(device, smi)
+        elif name == "vae_train_bf16":
+            vae_train_bf16_phases(device, smi)
+        elif name == "bf16":
+            bf16_alone(device, smi)
         else:
             cfg = alignment_default_config()
             per = path_launches(build_unet(prediff_default_config()), build_alignment_model(cfg),
@@ -2132,6 +2785,8 @@ def run(device, cfg, smi: str) -> None:
     del predictor
     weights = {"unet": unet_cpu.state_dict(), "vae": vae_cpu.state_dict(),
                "align": align_cpu.state_dict()}
+    bcases, bf16_launches = bf16_phases(device, cfg, smi, weights, cases, by_route, align_cpu)
+    launches_by_path.update(bf16_launches)
     conv_launches, conv_per = conv_serving_phases(device, cfg, smi, weights, zero_counts,
                                                   read_counts)
     launches_by_path.update(conv_launches)
@@ -2149,10 +2804,11 @@ def run(device, cfg, smi: str) -> None:
     launches_by_path.update(swin_train_phases(device, cfg, smi, swin_unet, vae_cpu.state_dict(),
                                               zero_counts, read_counts))
     vae_train_phases(device, smi)
+    vae_train_bf16_phases(device, smi)
     launches_by_path["align_train"] = align_train_phases(device, smi, by_route, zero_counts,
                                                          read_counts)
     emit({"phase": "graph_chains", "card": smi, "chains": GRAPH_CHAINS})
-    emit({"kernels": summarize(cases, launches_by_path)})
+    emit({"kernels": summarize({**cases, **bcases}, launches_by_path)})
     print(smi, flush=True)
 
 
@@ -2216,6 +2872,8 @@ def conv_serving_phases(device, cfg, smi, weights, zero_counts, read_counts):
 
     launches = run_chains(predictor, context, chains, expect_shape, expected, device, smi,
                           zero_counts, read_counts)
+    launches.update(conv_bf16_guidance_chain(predictor, context, per, avg, expect_shape, device,
+                                             smi))
     xd, td, cd = x.to(device), t.to(device), cond.to(device)
     emit(profile("conv_profile_unet_forward", lambda: predictor.ld.unet(xd, td, cd), reps=5))
     zc = predictor.ld.cond_stage_forward(context.to(device))
@@ -2942,6 +3600,8 @@ def vae_train_phases(device, smi):
         after = rec_loss()
         steady = sorted(st["ms"] for st in steps[1:])
         ms = steady[len(steady) // 2]
+        PHASE_NUMBERS[("vae_train", disc_start)] = {"ms_per_step": ms,
+                                                     "frames_per_s": 1e3 * B / ms, "peak": peak}
         emit({"phase": "vae_train", "batch": B, "frames": [H, W], "disc_start": disc_start,
               "steps": steps, "ms_per_step": ms, "frames_per_s": 1e3 * B / ms,
               "fixed_draw_rec_loss_before": before, "fixed_draw_rec_loss_after": after,

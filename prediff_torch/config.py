@@ -5,8 +5,10 @@ values (the tests hold the two trees equal), so one YAML file configures
 both packages.  ``use_pallas_conv`` (UNet and alignment net) is read by the
 factories: True sends each 3x3x3 conv that the JAX package's routing rule
 admits to the bf16 conv kernel (``ops/conv3d.py``), False and "auto" keep
-the f32 convs.  The other keys that name TPU-only switches (the other
-``use_pallas_*``, ``first_stage_dtype``, ``decoder_subpixel``, ...) are kept
+the f32 convs.  ``diffusion.first_stage_dtype`` is read by the pipeline
+factories: the encoder computes in the dtype it names (``"auto"``: f32, the
+JAX package's resolution off a TPU).  The other keys that name TPU-only
+switches (the other ``use_pallas_*``, ``decoder_subpixel``, ...) are kept
 for tree equality and read by nothing in the port."""
 import copy
 from typing import Dict, Optional

@@ -416,20 +416,22 @@ axial_core_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
 
 // dx = LayerNorm backward of dln for the rows of x, one warp per row:
 //   dnhat = dln * ln_w,  dx = rs * (dnhat - mean(dnhat) - nhat * mean(dnhat * nhat)).
-__global__ void ln_backward_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
-                                   const float* __restrict__ dln, float* __restrict__ dx, int M,
+// x and dx f32, or bf16 (the bf16 form: widened as read, rounded as written).
+template <typename T>
+__global__ void ln_backward_kernel(const T* __restrict__ x, const float* __restrict__ ln_w,
+                                   const float* __restrict__ dln, T* __restrict__ dx, int M,
                                    int C, float eps) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= M) return;
-  const float* xr = x + (size_t)row * C;
+  const T* xr = x + (size_t)row * C;
   const float* dr = dln + (size_t)row * C;
   float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += xr[c];
+  for (int c = lane; c < C; c += 32) s += to_f(xr[c]);
   const float mu = warp_sum(s) / C;
   float v = 0.f;
   for (int c = lane; c < C; c += 32) {
-    float d = xr[c] - mu;
+    float d = to_f(xr[c]) - mu;
     v += d * d;
   }
   const float rs = rsqrtf(warp_sum(v) / C + eps);
@@ -437,18 +439,20 @@ __global__ void ln_backward_kernel(const float* __restrict__ x, const float* __r
   for (int c = lane; c < C; c += 32) {
     const float dnhat = dr[c] * ln_w[c];
     s1 += dnhat;
-    s2 += dnhat * (xr[c] - mu) * rs;
+    s2 += dnhat * (to_f(xr[c]) - mu) * rs;
   }
   const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
   for (int c = lane; c < C; c += 32)
-    dx[(size_t)row * C + c] = rs * (dr[c] * ln_w[c] - m1 - (xr[c] - mu) * rs * m2);
+    store(dx + (size_t)row * C + c,
+          rs * (dr[c] * ln_w[c] - m1 - (to_f(xr[c]) - mu) * rs * m2));
 }
 
-cudaError_t ln_backward(const float* x, const float* ln_w, const float* dln, float* dx, int M,
-                        int C, float eps, cudaStream_t stream) {
+template <typename T>
+cudaError_t ln_backward(const T* x, const float* ln_w, const float* dln, T* dx, int M, int C,
+                        float eps, cudaStream_t stream) {
   constexpr int kRowsPerBlock = 8;  // one warp per row
-  ln_backward_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(
-      x, ln_w, dln, dx, M, C, eps);
+  ln_backward_kernel<T><<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0,
+                          stream>>>(x, ln_w, dln, dx, M, C, eps);
   return cudaGetLastError();
 }
 
@@ -494,10 +498,12 @@ int stages_for(int K) {
 
 // LnPer > 0: A = LN(x) (the QKV product), a lane's LN columns in groups of
 // 256 (K <= 256 LnPer); 0: A by TMA.
-template <int BN, int LnPer, bool Drop, bool QkvOut>
+// XT: x's type with LnA (f32, or bf16 in the bf16 form); OT: the output's
+// type without QkvOut (f32, or bf16: the bf16 form's projection).
+template <int BN, int LnPer, bool Drop, bool QkvOut, typename XT, typename OT>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
-                const __grid_constant__ CUtensorMap w_map, const float* __restrict__ x,
+                const __grid_constant__ CUtensorMap w_map, const XT* __restrict__ x,
                 const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                 const float* __restrict__ bias, void* __restrict__ out, int M, int N, int K,
                 int stages, int q_cols, float q_scale, float eps, philox::Drop drop,
@@ -615,21 +621,27 @@ fwd_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
         v0 += bias_v[QkvOut ? 0 : jb][0];
         v1 += bias_v[QkvOut ? 0 : jb][1];
         if (Drop) philox::apply2(drop, o, v0, v1);
-        *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v0, v1);
+        store2(static_cast<OT*>(out) + o, v0, v1);
       }
     }
   }
 }
 
-template <int BN, int LnPer, bool Drop, bool QkvOut = (LnPer > 0)>
-cudaError_t gemm(const CUtensorMap& a, const CUtensorMap& w, const float* x, const float* ln_w,
-                 const float* ln_b, const float* bias, void* out, int M, int N, int K, int q_cols,
+template <typename T>
+struct Named {   // a parameter type that is not deduced: given, or defaulted
+  using type = T;
+};
+
+template <int BN, int LnPer, bool Drop, bool QkvOut = (LnPer > 0), typename XT = float,
+          typename OT = float>
+cudaError_t gemm(const CUtensorMap& a, const CUtensorMap& w, const typename Named<XT>::type* x,
+                 const float* ln_w, const float* ln_b, const float* bias, void* out, int M, int N, int K, int q_cols,
                  float q_scale, float eps, philox::Drop drop, cudaStream_t stream,
                  __nv_bfloat16* ln_t = nullptr, int ld = 0) {
   constexpr bool LnA = LnPer > 0;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(fwd_gemm_kernel<BN, LnPer, Drop, QkvOut>,
+    cudaError_t err = cudaFuncSetAttribute(fwd_gemm_kernel<BN, LnPer, Drop, QkvOut, XT, OT>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
     if (err != cudaSuccess) return err;
     configured = true;
@@ -641,31 +653,32 @@ cudaError_t gemm(const CUtensorMap& a, const CUtensorMap& w, const float* x, con
   const dim3 grid((N + BN - 1) / BN, (M + kBM - 1) / kBM);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   if (ln_t != nullptr && (!LnA || ld % 8 || ld < M)) return cudaErrorInvalidValue;
-  fwd_gemm_kernel<BN, LnPer, Drop, QkvOut><<<grid, kThreads, smem, stream>>>(
+  fwd_gemm_kernel<BN, LnPer, Drop, QkvOut, XT, OT><<<grid, kThreads, smem, stream>>>(
       a, w, x, ln_w, ln_b, bias, out, M, N, K, stages, q_cols, q_scale, eps, drop, ln_t, ld);
   return cudaGetLastError();
 }
 
-// The QKV product: the instance for its column tile and width.
-cudaError_t qkv_gemm(int bn, const CUtensorMap& w, const float* x, const float* ln_w,
+// The QKV product: the instance for its column tile and width (x f32 or bf16).
+template <typename XT>
+cudaError_t qkv_gemm(int bn, const CUtensorMap& w, const XT* x, const float* ln_w,
                      const float* ln_b, __nv_bfloat16* qkv, int M, int C, float scale, float eps,
                      cudaStream_t stream, __nv_bfloat16* ln_t = nullptr, int ld = 0) {
   const int per = (C + 255) / 256;
   const philox::Drop none{};
   if (bn == 256 && per == 1)
-    return gemm<256, 1, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
+    return gemm<256, 1, false, true, XT>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
                                stream, ln_t, ld);
   if (bn == 256 && per == 2)
-    return gemm<256, 2, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
+    return gemm<256, 2, false, true, XT>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
                                stream, ln_t, ld);
   if (bn == 128 && per == 1)
-    return gemm<128, 1, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
+    return gemm<128, 1, false, true, XT>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
                                stream, ln_t, ld);
   if (bn == 128 && per == 2)
-    return gemm<128, 2, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
+    return gemm<128, 2, false, true, XT>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
                                stream, ln_t, ld);
   if (bn == 128 && per == 3)   // C <= 768: the widest LN tile beside a 2-stage ring
-    return gemm<128, 3, false>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
+    return gemm<128, 3, false, true, XT>(w, w, x, ln_w, ln_b, nullptr, qkv, M, 3 * C, C, C, scale, eps, none,
                                stream, ln_t, ld);
   return cudaErrorInvalidValue;
 }
@@ -674,18 +687,18 @@ cudaError_t qkv_gemm(int bn, const CUtensorMap& w, const float* x, const float* 
 
 // The three launches of the forward; Drop adds the two dropouts.  qkv (tokens,
 // 3C) and attn (tokens, C) bf16 scratch; bn_qkv the QKV product's column tile.
-template <bool Drop>
-cudaError_t forward_launches(const float* x, const float* ln_w, const float* ln_b,
+template <bool Drop, typename XT>
+cudaError_t forward_launches(const XT* x, const float* ln_w, const float* ln_b,
                              const void* wqkv_map, const float* bias, const void* wproj_map,
                              const float* b_proj, __nv_bfloat16* qkv, __nv_bfloat16* attn,
-                             float* out, int B, int T, int H, int W, int C, int axis, int heads,
+                             XT* out, int B, int T, int H, int W, int C, int axis, int heads,
                              int bn_qkv, float scale, float eps, cudaStream_t stream,
                              philox::Drop d_attn = philox::Drop{},
                              philox::Drop d_proj = philox::Drop{}) {
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   if (C % 64 != 0 || C % heads != 0 || axis < 0 || axis > 2 || (bn_qkv != 128 && bn_qkv != 256) ||
       !aligned(x) || !aligned(ln_w) || !aligned(ln_b) || !aligned(qkv) || !aligned(attn) ||
-      !aligned(b_proj) || (reinterpret_cast<uintptr_t>(out) & 7))
+      !aligned(b_proj) || (reinterpret_cast<uintptr_t>(out) & (2 * sizeof(XT) - 1)))
     return cudaErrorInvalidValue;
   const int M = B * T * H * W;
   CUtensorMap wqkv, wproj, attn_map;
@@ -710,8 +723,9 @@ cudaError_t forward_launches(const float* x, const float* ln_w, const float* ln_
   if (err != cudaSuccess) return err;
   const int enc = hopper::encode_bf16_matrix(&attn_map, attn, M, C, fwd::kBM);
   if (enc != 0) return (cudaError_t)enc;
-  return fwd::gemm<128, 0, Drop>(attn_map, wproj, nullptr, nullptr, nullptr, b_proj, out, M, C, C,
-                                 0, 1.f, eps, d_proj, stream);
+  return fwd::gemm<128, 0, Drop, false, float, XT>(attn_map, wproj, nullptr, nullptr, nullptr,
+                                                  b_proj, out, M, C, C, 0, 1.f, eps, d_proj,
+                                                  stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1008,28 +1022,29 @@ cuboid_tc_core_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __rest
 // x, w, b 16-byte aligned, K % 4 == 0.
 constexpr int kLnRowsPerBlock = 8;
 
+template <typename XT>
 __global__ void __launch_bounds__(32 * kLnRowsPerBlock)
-ln_bf16_rows_kernel(const float* __restrict__ x, const float* __restrict__ w,
+ln_bf16_rows_kernel(const XT* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ b, __nv_bfloat16* __restrict__ out, int M, int K,
                     float eps) {
   const int row = blockIdx.x * kLnRowsPerBlock + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;
-  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)row * K);
+  const XT* xr = x + (size_t)row * K;
   float s = 0.f;
   for (int c = lane; c < K / 4; c += 32) {
-    const float4 v = xr[c];
+    const float4 v = load4(xr + 4 * c);
     s += (v.x + v.y) + (v.z + v.w);
   }
   const float mu = warp_sum(s) / K;
   float var = 0.f;
   for (int c = lane; c < K / 4; c += 32) {
-    const float4 v = xr[c];
+    const float4 v = load4(xr + 4 * c);
     var += (v.x - mu) * (v.x - mu) + (v.y - mu) * (v.y - mu) + (v.z - mu) * (v.z - mu) +
            (v.w - mu) * (v.w - mu);
   }
   const float rs = rsqrtf(warp_sum(var) / K + eps);
   for (int c = lane; c < K / 4; c += 32) {
-    const float4 v = xr[c], wv = reinterpret_cast<const float4*>(w)[c],
+    const float4 v = load4(xr + 4 * c), wv = reinterpret_cast<const float4*>(w)[c],
                  bv = reinterpret_cast<const float4*>(b)[c];
     const uint2 packed = make_uint2(pack_bf16((v.x - mu) * rs * wv.x + bv.x, (v.y - mu) * rs * wv.y + bv.y),
                                     pack_bf16((v.z - mu) * rs * wv.z + bv.z, (v.w - mu) * rs * wv.w + bv.w));
@@ -1839,8 +1854,8 @@ cudaError_t cuboid_forward_launches(const float* x, const float* ln_w, const flo
   if (ln_tile) {
     err = fwd::qkv_gemm(bn_qkv, wqkv, x, ln_w, ln_b, qkv, M, C, scale, eps, stream);
   } else {   // LN rows into attn (free until the core), then the product on them by TMA
-    ln_bf16_rows_kernel<<<(M + kLnRowsPerBlock - 1) / kLnRowsPerBlock, 32 * kLnRowsPerBlock, 0,
-                          stream>>>(x, ln_w, ln_b, attn, M, C, eps);
+    ln_bf16_rows_kernel<float><<<(M + kLnRowsPerBlock - 1) / kLnRowsPerBlock,
+                              32 * kLnRowsPerBlock, 0, stream>>>(x, ln_w, ln_b, attn, M, C, eps);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     err = fwd::gemm<128, 0, false, true>(attn_map, wqkv, nullptr, nullptr, nullptr, nullptr, qkv, M,
@@ -2173,11 +2188,11 @@ cudaError_t core_launch(const float* q, const float* k, const float* v, const fl
 // the vector gradients.  Past C = 768 (no LN tile) the LN rows go to do_bf
 // first (free until the cotangent is staged) and the QKV product reads them
 // by TMA.
-template <bool Full, typename Core>
+template <bool Full, typename Core, typename XT>
 cudaError_t layer_bwd_launches(
-    const float* x, const float* g, const float* ln_w, const float* ln_b, const void* wqkv_map,
+    const XT* x, const XT* g, const float* ln_w, const float* ln_b, const void* wqkv_map,
     const void* wprojt_map, const void* wqkvt_map, __nv_bfloat16* qkv, __nv_bfloat16* do_bf,
-    __nv_bfloat16* dattn, __nv_bfloat16* dqkv, float* dln, float* dx, __nv_bfloat16* attn,
+    __nv_bfloat16* dattn, __nv_bfloat16* dqkv, float* dln, XT* dx, __nv_bfloat16* attn,
     __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* attn_t, __nv_bfloat16* dqkv_t,
     float* dbias_part, int parts, size_t n_bias, float* vpart, float* dw_qkv, float* dbias,
     float* dw_proj, float* vec, int M, int C, int heads, int bn_qkv, int ld, int ws_qkv,
@@ -2189,13 +2204,19 @@ cudaError_t layer_bwd_launches(
       (Full && (ld % 64 || parts < 1 || !aligned(ln_t) || !aligned(do_t) || !aligned(attn_t) ||
                 !aligned(dqkv_t))))
     return cudaErrorInvalidValue;
-  CUtensorMap wqkv, wprojt, wqkvt, do_map, dqkv_map;
+  // the bf16 form's dx takes the bf16 cotangent as the product's operand as
+  // it is (no cast launch); the f32 forms and Full stage it in do_bf
+  constexpr bool direct = sizeof(XT) == 2 && !Full;
+  if (!aligned(g)) return cudaErrorInvalidValue;
+  CUtensorMap wqkv, wprojt, wqkvt, do_map, g_map, dqkv_map;
   memcpy(&wqkv, wqkv_map, sizeof(wqkv));
   memcpy(&wprojt, wprojt_map, sizeof(wprojt));
   memcpy(&wqkvt, wqkvt_map, sizeof(wqkvt));
   int enc = hopper::encode_bf16_matrix(&do_map, do_bf, M, C, fwd::kBM);
   if (enc == 0) enc = hopper::encode_bf16_matrix(&dqkv_map, dqkv, M, 3 * C, fwd::kBM);
+  if (enc == 0 && direct) enc = hopper::encode_bf16_matrix(&g_map, g, M, C, fwd::kBM);
   if (enc != 0) return (cudaError_t)enc;
+  if (!direct) g_map = do_map;
   const philox::Drop none{};
   // q . scale, k, v (and LN(x)^T) recomputed in bf16 by the forward's product
   cudaError_t err;
@@ -2203,8 +2224,8 @@ cudaError_t layer_bwd_launches(
     err = fwd::qkv_gemm(bn_qkv, wqkv, x, ln_w, ln_b, qkv, M, C, scale, eps, stream,
                         Full ? ln_t : nullptr, ld);
   } else {
-    ln_bf16_rows_kernel<<<(M + kLnRowsPerBlock - 1) / kLnRowsPerBlock, 32 * kLnRowsPerBlock, 0,
-                          stream>>>(x, ln_w, ln_b, do_bf, M, C, eps);
+    ln_bf16_rows_kernel<XT><<<(M + kLnRowsPerBlock - 1) / kLnRowsPerBlock,
+                              32 * kLnRowsPerBlock, 0, stream>>>(x, ln_w, ln_b, do_bf, M, C, eps);
     err = cudaGetLastError();
     if (err == cudaSuccess)
       err = fwd::gemm<128, 0, false, true>(do_map, wqkv, nullptr, nullptr, nullptr, nullptr, qkv,
@@ -2214,10 +2235,12 @@ cudaError_t layer_bwd_launches(
   }
   if (err != cudaSuccess) return err;
   // do = g (. m_p / (1 - r_proj)) in bf16, as it is and (Full) width-major
-  err = gradk::cast_t<float>(g, do_bf, Full ? do_t : nullptr, M, C, ld, stream, d_proj);
-  if (err != cudaSuccess) return err;
+  if (!direct) {
+    err = gradk::cast_t<XT>(g, do_bf, Full ? do_t : nullptr, M, C, ld, stream, d_proj);
+    if (err != cudaSuccess) return err;
+  }
   // dattn = do . Wproj, bf16
-  err = fwd::gemm<128, 0, false, true>(do_map, wprojt, nullptr, nullptr, nullptr, nullptr, dattn, M,
+  err = fwd::gemm<128, 0, false, true>(g_map, wprojt, nullptr, nullptr, nullptr, nullptr, dattn, M,
                                        C, C, 0, 1.f, eps, none, stream);
   if (err != cudaSuccess) return err;
   err = core();
@@ -2227,7 +2250,10 @@ cudaError_t layer_bwd_launches(
                                         C, 3 * C, 0, 1.f, eps, none, stream);
   if (err != cudaSuccess) return err;
   err = ln_backward(x, ln_w, dln, dx, M, C, eps, stream);
-  if (err != cudaSuccess || !Full) return err;
+  if constexpr (!Full) {
+    return err;
+  } else {
+  if (err != cudaSuccess) return err;
   err = gradk::sum_partials(dbias_part, dbias, n_bias, parts, stream);
   if (err != cudaSuccess) return err;
   err = gradk::ln_vec_grads(x, g, dln, 1, vpart, vec, M, C, eps, stream, d_proj);  // dbproj = sum do
@@ -2239,15 +2265,16 @@ cudaError_t layer_bwd_launches(
   err = gradk::weight_grad(dqkv_t, ln_t, dw_qkv, 3 * C, C, M, ld, ws_qkv, stream);  // dqkv^T . LN
   if (err != cudaSuccess) return err;
   return gradk::weight_grad(do_t, attn_t, dw_proj, C, C, M, ld, ws_proj, stream);   // do^T . attn
+  }
 }
 
 // The axial layer's backward: layer_bwd_launches around axial_core_bwd_kernel
 // (blocks of cuboids_per_block cuboids, one dbias partial each).
-template <bool Full, bool Drop>
+template <bool Full, bool Drop, typename XT>
 cudaError_t axial_bwd_launches(
-    const float* x, const float* g, const float* ln_w, const float* ln_b, const void* wqkv_map,
+    const XT* x, const XT* g, const float* ln_w, const float* ln_b, const void* wqkv_map,
     const float* bias, const void* wprojt_map, const void* wqkvt_map, __nv_bfloat16* qkv,
-    __nv_bfloat16* do_bf, __nv_bfloat16* dattn, __nv_bfloat16* dqkv, float* dln, float* dx,
+    __nv_bfloat16* do_bf, __nv_bfloat16* dattn, __nv_bfloat16* dqkv, float* dln, XT* dx,
     __nv_bfloat16* attn, __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* attn_t,
     __nv_bfloat16* dqkv_t, float* dbias_part, float* vpart, float* dw_qkv, float* dbias,
     float* dw_proj, float* vec, int B, int T, int H, int W, int C, int axis, int heads, int bn_qkv,
@@ -2324,6 +2351,21 @@ extern "C" int axial_attention_forward(const float* x, const float* ln_w, const 
                                       heads, bn_qkv, scale, eps, stream);
 }
 
+// The bf16 form: x and out (tokens, C) bf16 (the LN rows widened as read, the
+// projection + b_proj rounded once); the rest as axial_attention_forward.
+extern "C" int axial_attention_forward_bf16(const __nv_bfloat16* x, const float* ln_w,
+                                            const float* ln_b, const void* wqkv_map,
+                                            const float* bias, const void* wproj_map,
+                                            const float* b_proj, void* qkv, void* attn,
+                                            __nv_bfloat16* out, int B, int T, int H, int W, int C,
+                                            int axis, int heads, int bn_qkv, float scale,
+                                            float eps, cudaStream_t stream) {
+  return (int)forward_launches<false>(x, ln_w, ln_b, wqkv_map, bias, wproj_map, b_proj,
+                                      static_cast<__nv_bfloat16*>(qkv),
+                                      static_cast<__nv_bfloat16*>(attn), out, B, T, H, W, C, axis,
+                                      heads, bn_qkv, scale, eps, stream);
+}
+
 // The layer with dropout on the attention weights (thr_attn, keep_attn =
 // 1 - rate) and on the projected output (thr_proj, keep_proj); the masks are
 // those of the stream (seed_lo, seed_hi, site), tensors 0 and 1.  Arguments
@@ -2353,6 +2395,25 @@ extern "C" int axial_attention_bwd_dx(const float* x, const float* g, const floa
                                       void* do_bf, void* dattn, void* dqkv, float* dln, float* dx,
                                       int B, int T, int H, int W, int C, int axis, int heads,
                                       int bn_qkv, float scale, float eps, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  return (int)axial_bwd_launches<false, false>(
+      x, g, ln_w, ln_b, wqkv_map, bias, wprojt_map, wqkvt_map, static_cast<bf*>(qkv),
+      static_cast<bf*>(do_bf), static_cast<bf*>(dattn), static_cast<bf*>(dqkv), dln, dx, nullptr,
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, B,
+      T, H, W, C, axis, heads, bn_qkv, 1, 0, 1, 1, scale, eps, stream);
+}
+
+// The bf16 form of axial_attention_bwd_dx: x, g and dx (tokens, C) bf16, g
+// the dattn product's operand as it is (do_bf then unused but past C = 768,
+// where it holds the LN rows); five launches.
+extern "C" int axial_attention_bwd_dx_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                                           const float* ln_w, const float* ln_b,
+                                           const void* wqkv_map, const float* bias,
+                                           const void* wprojt_map, const void* wqkvt_map,
+                                           void* qkv, void* do_bf, void* dattn, void* dqkv,
+                                           float* dln, __nv_bfloat16* dx, int B, int T, int H,
+                                           int W, int C, int axis, int heads, int bn_qkv,
+                                           float scale, float eps, cudaStream_t stream) {
   using bf = __nv_bfloat16;
   return (int)axial_bwd_launches<false, false>(
       x, g, ln_w, ln_b, wqkv_map, bias, wprojt_map, wqkvt_map, static_cast<bf*>(qkv),

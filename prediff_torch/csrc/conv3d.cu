@@ -46,6 +46,8 @@
 //     bits).
 // x arrives as f32: a small kernel in the same call rounds it to bf16 once
 // (into a scratch the wrapper allocates) before the conv reads it by TMA.
+// The bf16 form (conv3x3x3_forward_bf16: guidance on the alignment net's
+// bf16 copy) reads a bf16 x as it is and writes acc + bias rounded to bf16.
 // The kernel itself is in conv_wgmma.cuh, which the resblock (resblock.cu)
 // shares with its bf16 and skip epilogues and a 64-channel output tile.
 //
@@ -76,6 +78,20 @@ extern "C" int conv3x3x3_weight_map(const void* w, int N, int K, int bn, void* m
   return err;
 }
 
+namespace {
+
+bool conv_args_ok(const void* x, int B, int T, int H, int W, int K, int N, int bn, int bt,
+                  int bh, int bw, int splits) {
+  return !(B < 1 || T < 1 || H < 1 || W < 1 || K < kBK || K % kBK || N < 128 || N % 128 ||
+           (bn != 64 && bn != 128 && bn != 256) || N % bn || bt < 1 || bh < 1 || bw < 1 ||
+           bt * bh * bw != kBM || bt > 256 || bh > 256 || bw > 256 || splits < 1 ||
+           splits > kMaxSplits || splits > 27 * (K / kBK) ||
+           (reinterpret_cast<uintptr_t>(x) & 15) ||
+           (long long)B * ((T + bt - 1) / bt) * ((H + bh - 1) / bh) * ((W + bw - 1) / bw) > 65535);
+}
+
+}  // namespace
+
 // x (B, T, H, W, K) f32, xb (B, T, H, W, K) bf16 scratch, w_map the weights'
 // map (conv3x3x3_weight_map, boxes of the output-channel tile bn), bias (N)
 // f32 or null, out (B, T, H, W, N) f32; the token box (bt, bh, bw) of 128
@@ -84,12 +100,8 @@ extern "C" int conv3x3x3_weight_map(const void* w, int N, int K, int bn, void* m
 extern "C" int conv3x3x3_forward(const float* x, void* xb, const void* w_map, const float* bias,
                                  float* out, int B, int T, int H, int W, int K, int N, int bn,
                                  int bt, int bh, int bw, int splits, cudaStream_t stream) {
-  if (B < 1 || T < 1 || H < 1 || W < 1 || K < kBK || K % kBK || N < 128 || N % 128 ||
-      (bn != 64 && bn != 128 && bn != 256) || N % bn || bt < 1 ||
-      bh < 1 || bw < 1 || bt * bh * bw != kBM || bt > 256 || bh > 256 || bw > 256 ||
-      splits < 1 || splits > kMaxSplits || splits > 27 * (K / kBK) ||
-      (reinterpret_cast<uintptr_t>(x) & 15) || (reinterpret_cast<uintptr_t>(xb) & 15) ||
-      (long long)B * ((T + bt - 1) / bt) * ((H + bh - 1) / bh) * ((W + bw - 1) / bw) > 65535)
+  if (!conv_args_ok(x, B, T, H, W, K, N, bn, bt, bh, bw, splits) ||
+      (reinterpret_cast<uintptr_t>(xb) & 15))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = to_bf16(x, xb, (size_t)B * T * H * W * K, stream);
   if (err != cudaSuccess) return (int)err;
@@ -97,4 +109,18 @@ extern "C" int conv3x3x3_forward(const float* x, void* xb, const void* w_map, co
   memcpy(&w, w_map, sizeof(w));
   return (int)conv::conv<kF32>(xb, w, bias, out, nullptr, B, T, H, W, K, N, bn, bt, bh, bw,
                                splits, stream);
+}
+
+// The bf16 form: x (B, T, H, W, K) bf16 is the conv's operand as it is (no
+// cast launch), out (B, T, H, W, N) bf16 = acc + bias rounded once; the rest
+// as conv3x3x3_forward.  One launch.
+extern "C" int conv3x3x3_forward_bf16(const void* x, const void* w_map, const float* bias,
+                                      void* out, int B, int T, int H, int W, int K, int N, int bn,
+                                      int bt, int bh, int bw, int splits, cudaStream_t stream) {
+  if (!conv_args_ok(x, B, T, H, W, K, N, bn, bt, bh, bw, splits))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap w;
+  memcpy(&w, w_map, sizeof(w));
+  return (int)conv::conv<kBf16>(x, w, bias, out, nullptr, B, T, H, W, K, N, bn, bt, bh, bw,
+                                splits, stream);
 }

@@ -10,6 +10,7 @@
 #include <string.h>
 
 #include "hopper.cuh"
+#include "io.cuh"
 
 // Everything here has internal linkage (an unnamed namespace): each library
 // built on this header keeps its own kernels (see grad_common.cuh).
@@ -49,32 +50,32 @@ __device__ __forceinline__ long long row_offset(const ConvGeom& g, int r, int b,
 }
 
 // What the epilogue stores: f32 acc + bias (the standalone conv), bf16 of
-// acc + bias (a bf16 activation or gradient of the resblock), or f32 acc +
-// bias + skip (the resblock's output with its identity skip); the bias may
-// be null.
-enum Epilogue { kF32 = 0, kBf16 = 1, kF32Skip = 2 };
+// acc + bias (a bf16 activation or gradient of the resblock, the standalone
+// conv's bf16 form), or acc + bias + skip (the resblock's output with its
+// identity skip) in f32, or with a bf16 skip rounded once to bf16 (the
+// resblock's bf16 form); the bias may be null.
+enum Epilogue { kF32 = 0, kBf16 = 1, kF32Skip = 2, kBf16Skip = 3 };
 
 template <int Epi>
-__device__ __forceinline__ void store_pair(void* out, const float* __restrict__ skip, long long o,
+__device__ __forceinline__ void store_pair(void* out, const void* __restrict__ skip, long long o,
                                            float v0, float v1) {
-  if (Epi == kBf16) {
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
-        __floats2bfloat162_rn(v0, v1);
-    return;
-  }
-  if (Epi == kF32Skip) {
-    const float2 s = *reinterpret_cast<const float2*>(skip + o);
+  if (Epi == kF32Skip || Epi == kBf16Skip) {
+    const float2 s = Epi == kF32Skip ? load2(static_cast<const float*>(skip) + o)
+                                     : load2(static_cast<const __nv_bfloat16*>(skip) + o);
     v0 += s.x;
     v1 += s.y;
   }
-  *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v0, v1);
+  if (Epi == kBf16 || Epi == kBf16Skip)
+    store2(static_cast<__nv_bfloat16*>(out) + o, v0, v1);
+  else
+    store2(static_cast<float*>(out) + o, v0, v1);
 }
 
 template <int BN, int Epi>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                   const __grid_constant__ CUtensorMap w_map, const float* __restrict__ bias,
-                  void* __restrict__ out, const float* __restrict__ skip, const ConvGeom g) {
+                  void* __restrict__ out, const void* __restrict__ skip, const ConvGeom g) {
   using Cfg = Tile<BN>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
@@ -205,7 +206,7 @@ __global__ void to_bf16_kernel(const float4* __restrict__ x, uint4* __restrict__
 
 template <int BN, int Epi>
 cudaError_t launch_conv(const CUtensorMap& x_map, const CUtensorMap& w_map, const float* bias,
-                        void* out, const float* skip, const ConvGeom& g, unsigned tiles,
+                        void* out, const void* skip, const ConvGeom& g, unsigned tiles,
                         int splits, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
@@ -251,7 +252,7 @@ inline int encode_input_map(CUtensorMap* map, const void* xb, int B, int T, int 
 // bh, bw) of kBM tokens and `splits` blocks of a cluster.  One launch.
 template <int Epi>
 cudaError_t conv(const void* xb, const CUtensorMap& w_map, const float* bias, void* out,
-                 const float* skip, int B, int T, int H, int W, int K, int N, int bn, int bt,
+                 const void* skip, int B, int T, int H, int W, int K, int N, int bn, int bt,
                  int bh, int bw, int splits, cudaStream_t stream) {
   if (B < 1 || T < 1 || H < 1 || W < 1 || K < kBK || K % kBK || (bn != 64 && bn != 128 &&
       bn != 256) || N < bn || N % bn || bt < 1 ||

@@ -152,13 +152,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // grid (row tiles, 1, splits), clusters of (1, 1, splits): block z of a
 // cluster adds hidden chunks [z, z + 1) * chunks / splits.
-template <int C, bool Drop>
+template <int C, bool Drop, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
-                 const __grid_constant__ CUtensorMap w2_map, const float* __restrict__ x,
+                 const __grid_constant__ CUtensorMap w2_map, const T* __restrict__ x,
                  const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                  const float* __restrict__ b1, const float* __restrict__ b2,
-                 float* __restrict__ out, int M, int hidden, float eps, philox::Drop d1,
+                 T* __restrict__ out, int M, int hidden, float eps, philox::Drop d1,
                  philox::Drop d2) {
   using K = Cfg<C>;
   extern __shared__ uint8_t smem_raw[];
@@ -313,8 +313,8 @@ ffn_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
         const size_t o = (size_t)row * C + n;
         float y0 = (half ? v2 : v0) + c0, y1 = (half ? v3 : v1) + c1;
         if (Drop) philox::apply2(d2, o, y0, y1);
-        const float2 xv = *reinterpret_cast<const float2*>(x + o);
-        *reinterpret_cast<float2*>(out + o) = make_float2(xv.x + y0, xv.y + y1);
+        const float2 xv = load2(x + o);
+        store2(out + o, xv.x + y0, xv.y + y1);
       }
     };
     if (splits == 1) {
@@ -352,8 +352,7 @@ ffn_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int row = half ? row1 : row0;
-          const float2 xr = row < M ? *reinterpret_cast<const float2*>(x + (size_t)row * C + n)
-                                    : make_float2(0.f, 0.f);
+          const float2 xr = row < M ? load2(x + (size_t)row * C + n) : make_float2(0.f, 0.f);
           xv[i][2 * half] = xr.x;
           xv[i][2 * half + 1] = xr.y;
         }
@@ -376,8 +375,7 @@ ffn_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
           const size_t o = (size_t)row * C + n;
           float y0 = v[2 * half] + bv[i][0], y1 = v[2 * half + 1] + bv[i][1];
           if (Drop) philox::apply2(d2, o, y0, y1);
-          *reinterpret_cast<float2*>(out + o) =
-              make_float2(xv[i][2 * half] + y0, xv[i][2 * half + 1] + y1);
+          store2(out + o, xv[i][2 * half] + y0, xv[i][2 * half + 1] + y1);
         }
       }
     }
@@ -385,14 +383,14 @@ ffn_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
   }
 }
 
-template <int C, bool Drop>
-cudaError_t launch(const CUtensorMap& w1, const CUtensorMap& w2, const float* x,
+template <int C, bool Drop, typename T>
+cudaError_t launch(const CUtensorMap& w1, const CUtensorMap& w2, const T* x,
                    const float* ln_w, const float* ln_b, const float* b1, const float* b2,
-                   float* out, int M, int hidden, int splits, float eps, philox::Drop d1,
+                   T* out, int M, int hidden, int splits, float eps, philox::Drop d1,
                    philox::Drop d2, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(ffn_wgmma_kernel<C, Drop>,
+    cudaError_t err = cudaFuncSetAttribute(ffn_wgmma_kernel<C, Drop, T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            Cfg<C>::kSmem);
     if (err != cudaSuccess) return err;
@@ -410,34 +408,34 @@ cudaError_t launch(const CUtensorMap& w1, const CUtensorMap& w2, const float* x,
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, ffn_wgmma_kernel<C, Drop>, w1, w2, x, ln_w, ln_b, b1,
-                                       b2, out, M, hidden, eps, d1, d2);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, ffn_wgmma_kernel<C, Drop, T>, w1, w2, x, ln_w, ln_b,
+                                       b1, b2, out, M, hidden, eps, d1, d2);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <bool Drop>
-int forward(const float* x, const float* ln_w, const float* ln_b, const void* w1_map,
-            const float* b1, const void* w2_map, const float* b2, float* out, int M, int C,
+template <bool Drop, typename T>
+int forward(const T* x, const float* ln_w, const float* ln_b, const void* w1_map,
+            const float* b1, const void* w2_map, const float* b2, T* out, int M, int C,
             int hidden, int splits, float eps, philox::Drop d1, philox::Drop d2,
             cudaStream_t stream) {
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   if (M < 1 || hidden < kHC || hidden % kHC || splits < 1 || splits > kMaxSplits ||
       splits > hidden / kHC || !aligned(x) || !aligned(ln_w) || !aligned(ln_b) || !aligned(b1) ||
-      !aligned(b2) || (reinterpret_cast<uintptr_t>(out) & 7))
+      !aligned(b2) || (reinterpret_cast<uintptr_t>(out) & (2 * sizeof(T) - 1)))
     return (int)cudaErrorInvalidValue;
   CUtensorMap w1, w2;
   memcpy(&w1, w1_map, sizeof(w1));
   memcpy(&w2, w2_map, sizeof(w2));
   switch (C) {
     case 128:
-      return (int)launch<128, Drop>(w1, w2, x, ln_w, ln_b, b1, b2, out, M, hidden, splits, eps,
+      return (int)launch<128, Drop, T>(w1, w2, x, ln_w, ln_b, b1, b2, out, M, hidden, splits, eps,
                                     d1, d2, stream);
     case 256:
-      return (int)launch<256, Drop>(w1, w2, x, ln_w, ln_b, b1, b2, out, M, hidden, splits, eps,
+      return (int)launch<256, Drop, T>(w1, w2, x, ln_w, ln_b, b1, b2, out, M, hidden, splits, eps,
                                     d1, d2, stream);
     case 512:
-      return (int)launch<512, Drop>(w1, w2, x, ln_w, ln_b, b1, b2, out, M, hidden, splits, eps,
+      return (int)launch<512, Drop, T>(w1, w2, x, ln_w, ln_b, b1, b2, out, M, hidden, splits, eps,
                                     d1, d2, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -493,14 +491,14 @@ struct Cfg {
 // (3, C): the rank's column sums of dln . nhat and dln over its rows and
 // (rank 0) of do over the tile; db1_part[tile] (hidden): the column sums of
 // the f32 dh, each rank for its chunks.
-template <int C, bool Full, bool Drop>
+template <int C, bool Full, bool Drop, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_bwd_kernel(const __grid_constant__ CUtensorMap w1_map,
                const __grid_constant__ CUtensorMap w2t_map,
-               const __grid_constant__ CUtensorMap w1t_map, const float* __restrict__ x,
-               const float* __restrict__ g, const float* __restrict__ ln_w,
+               const __grid_constant__ CUtensorMap w1t_map, const T* __restrict__ x,
+               const T* __restrict__ g, const float* __restrict__ ln_w,
                const float* __restrict__ ln_b, const float* __restrict__ b1,
-               float* __restrict__ dx, __nv_bfloat16* __restrict__ ln_t,
+               T* __restrict__ dx, __nv_bfloat16* __restrict__ ln_t,
                __nv_bfloat16* __restrict__ do_t, __nv_bfloat16* __restrict__ a_t,
                __nv_bfloat16* __restrict__ dh_t, float* __restrict__ vpart,
                float* __restrict__ db1_part, int M, int hidden, int ld, float eps,
@@ -583,10 +581,7 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap w1_map,
       const int row = m0 + r;
       float v[8];
       if (row < M) {
-        const float4* src = reinterpret_cast<const float4*>(g + (size_t)row * C + 8 * g8);
-        const float4 p = src[0], q = src[1];
-        v[0] = p.x, v[1] = p.y, v[2] = p.z, v[3] = p.w, v[4] = q.x, v[5] = q.y, v[6] = q.z,
-        v[7] = q.w;
+        load8(g + (size_t)row * C + 8 * g8, v);
         if (Drop) philox::apply8(d2, (unsigned long long)row * C + 8 * g8, v);
       } else {
 #pragma unroll
@@ -839,7 +834,7 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap w1_map,
 #pragma unroll
     for (int p = 0; p < kPer; ++p) {
       const int c = 4 * lane + 128 * p;
-      const float4 xq = *reinterpret_cast<const float4*>(x + (size_t)row * C + c);
+      const float4 xq = load4(x + (size_t)row * C + c);
       xv[p][0] = xq.x, xv[p][1] = xq.y, xv[p][2] = xq.z, xv[p][3] = xq.w;
 #pragma unroll
       for (int k = 0; k < 4; ++k) dl[p][k] = 0.f;
@@ -880,7 +875,7 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap w1_map,
 #pragma unroll
     for (int p = 0; p < kPer; ++p) {
       const size_t o = (size_t)row * C + 4 * lane + 128 * p;
-      const float4 gq = *reinterpret_cast<const float4*>(g + o);
+      const float4 gq = load4(g + o);
       const float gv[4] = {gq.x, gq.y, gq.z, gq.w};
       float out[4];
 #pragma unroll
@@ -892,7 +887,7 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap w1_map,
           sb[p][k] += dl[p][k];
         }
       }
-      *reinterpret_cast<float4*>(dx + o) = make_float4(out[0], out[1], out[2], out[3]);
+      store4(dx + o, make_float4(out[0], out[1], out[2], out[3]));
     }
   }
   if (Full) {
@@ -916,16 +911,16 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap w1_map,
   if (splits > 1) cluster.sync();   // no block leaves while a peer may still read its partial
 }
 
-template <int C, bool Full, bool Drop>
+template <int C, bool Full, bool Drop, typename T>
 cudaError_t launch(const CUtensorMap& w1, const CUtensorMap& w2t, const CUtensorMap& w1t,
-                   const float* x, const float* g, const float* ln_w, const float* ln_b,
-                   const float* b1, float* dx, __nv_bfloat16* ln_t, __nv_bfloat16* do_t,
+                   const T* x, const T* g, const float* ln_w, const float* ln_b,
+                   const float* b1, T* dx, __nv_bfloat16* ln_t, __nv_bfloat16* do_t,
                    __nv_bfloat16* a_t, __nv_bfloat16* dh_t, float* vpart, float* db1_part, int M,
                    int hidden, int ld, int splits, float eps, philox::Drop d1, philox::Drop d2,
                    cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(ffn_bwd_kernel<C, Full, Drop>,
+    cudaError_t err = cudaFuncSetAttribute(ffn_bwd_kernel<C, Full, Drop, T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            Cfg<C>::kSmem);
     if (err != cudaSuccess) return err;
@@ -943,7 +938,7 @@ cudaError_t launch(const CUtensorMap& w1, const CUtensorMap& w2t, const CUtensor
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, ffn_bwd_kernel<C, Full, Drop>, w1, w2t, w1t, x, g,
+  cudaError_t err = cudaLaunchKernelEx(&cfg, ffn_bwd_kernel<C, Full, Drop, T>, w1, w2t, w1t, x, g,
                                        ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t, vpart, db1_part,
                                        M, hidden, ld, eps, d1, d2);
   if (err != cudaSuccess) return err;
@@ -952,10 +947,10 @@ cudaError_t launch(const CUtensorMap& w1, const CUtensorMap& w2t, const CUtensor
 
 // The backward kernel for C; checks the arguments (a refusal returns
 // cudaErrorInvalidValue).
-template <bool Full, bool Drop>
-cudaError_t backward(const void* w1_map, const void* w2t_map, const void* w1t_map, const float* x,
-                     const float* g, const float* ln_w, const float* ln_b, const float* b1,
-                     float* dx, __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* a_t,
+template <bool Full, bool Drop, typename T>
+cudaError_t backward(const void* w1_map, const void* w2t_map, const void* w1t_map, const T* x,
+                     const T* g, const float* ln_w, const float* ln_b, const float* b1,
+                     T* dx, __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* a_t,
                      __nv_bfloat16* dh_t, float* vpart, float* db1_part, int M, int C, int hidden,
                      int ld, int splits, float eps, philox::Drop d1, philox::Drop d2,
                      cudaStream_t stream) {
@@ -972,13 +967,13 @@ cudaError_t backward(const void* w1_map, const void* w2t_map, const void* w1t_ma
   memcpy(&w1t, w1t_map, sizeof(w1t));
   switch (C) {
     case 128:
-      return launch<128, Full, Drop>(w1, w2t, w1t, x, g, ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t,
+      return launch<128, Full, Drop, T>(w1, w2t, w1t, x, g, ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t,
                                      vpart, db1_part, M, hidden, ld, splits, eps, d1, d2, stream);
     case 256:
-      return launch<256, Full, Drop>(w1, w2t, w1t, x, g, ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t,
+      return launch<256, Full, Drop, T>(w1, w2t, w1t, x, g, ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t,
                                      vpart, db1_part, M, hidden, ld, splits, eps, d1, d2, stream);
     case 512:
-      return launch<512, Full, Drop>(w1, w2t, w1t, x, g, ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t,
+      return launch<512, Full, Drop, T>(w1, w2t, w1t, x, g, ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t,
                                      vpart, db1_part, M, hidden, ld, splits, eps, d1, d2, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -994,9 +989,9 @@ cudaError_t full(const void* w1_map, const void* w2t_map, const void* w1t_map, c
                  float* db1, float* dw2, float* vec, int M, int C, int hidden, int ld, int splits,
                  int wsplit1, int wsplit2, float eps, philox::Drop d1, philox::Drop d2,
                  cudaStream_t stream) {
-  cudaError_t err = backward<true, Drop>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1, dx, ln_t,
-                                         do_t, a_t, dh_t, vpart, db1_part, M, C, hidden, ld,
-                                         splits, eps, d1, d2, stream);
+  cudaError_t err = backward<true, Drop, float>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1,
+                                                dx, ln_t, do_t, a_t, dh_t, vpart, db1_part, M, C,
+                                                hidden, ld, splits, eps, d1, d2, stream);
   if (err != cudaSuccess) return err;
   const int tiles = (M + kBM - 1) / kBM;
   err = gradk::sum_partials(vpart, vec, (size_t)3 * C, tiles * splits, stream);
@@ -1024,6 +1019,16 @@ extern "C" int ffn_forward(const float* x, const float* ln_w, const float* ln_b,
                              philox::Drop{}, philox::Drop{}, stream);
 }
 
+// The bf16 form of ffn_forward: x and out (M, C) bf16 (the residual added in
+// f32 and rounded once); the rest as there.  One launch.
+extern "C" int ffn_forward_bf16(const __nv_bfloat16* x, const float* ln_w, const float* ln_b,
+                                const void* w1_map, const float* b1, const void* w2_map,
+                                const float* b2, __nv_bfloat16* out, int M, int C, int hidden,
+                                int splits, float eps, cudaStream_t stream) {
+  return fwd::forward<false>(x, ln_w, ln_b, w1_map, b1, w2_map, b2, out, M, C, hidden, splits, eps,
+                             philox::Drop{}, philox::Drop{}, stream);
+}
+
 // dx of the fused FFN for the output cotangent g; w1_map, w2t_map, w1t_map
 // the tensor maps of the bf16 copies of w1 (hidden, C) (boxes of 64 rows),
 // w2^T (hidden, C) (64 rows) and w1^T (C, hidden) (min(C, 256) rows); the
@@ -1032,6 +1037,17 @@ extern "C" int ffn_bwd_dx(const float* x, const float* g, const float* ln_w, con
                           const void* w1_map, const float* b1, const void* w2t_map,
                           const void* w1t_map, float* dx, int M, int C, int hidden, int splits,
                           float eps, cudaStream_t stream) {
+  return (int)bwd::backward<false, false>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1, dx,
+                                          nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M,
+                                          C, hidden, 0, splits, eps, philox::Drop{},
+                                          philox::Drop{}, stream);
+}
+
+// The bf16 form of ffn_bwd_dx: x, g and dx (M, C) bf16; the rest as there.
+extern "C" int ffn_bwd_dx_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g, const float* ln_w,
+                               const float* ln_b, const void* w1_map, const float* b1,
+                               const void* w2t_map, const void* w1t_map, __nv_bfloat16* dx, int M,
+                               int C, int hidden, int splits, float eps, cudaStream_t stream) {
   return (int)bwd::backward<false, false>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1, dx,
                                           nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M,
                                           C, hidden, 0, splits, eps, philox::Drop{},

@@ -2,7 +2,10 @@
 // thread-block cluster per (group, sample), shared by groupnorm.cu (every
 // gradient of the standalone GN+SiLU, all f32: dx, dgamma, dbeta, demb) and
 // resblock.cu (the block's two GN passes: dv with demb, dx with the skip
-// added; bf16 operands where the block keeps them).
+// added; bf16 operands where the block keeps them).  The bf16 forms (guidance
+// on the alignment net's bf16 copy) read src, emb, the cotangent and the skip
+// in bf16 and write dx in bf16: every value is widened to f32 as it is read,
+// so the arithmetic and the shared-memory tiles are the f32 form's.
 //
 // Row 1's design (groupnorm.cu gn_cluster_kernel) carried to the backward:
 // the cluster's `ranks` blocks split the group's tokens, rank r holding
@@ -42,6 +45,7 @@
 
 #include <initializer_list>
 
+#include "io.cuh"
 #include "welford.cuh"
 
 // Internal linkage, as every header here: each library keeps its own kernels
@@ -137,6 +141,16 @@ __device__ __forceinline__ void get(const float* p, float (&v)[VW]) {
     v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
   } else {
     v[0] = p[0];
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void get(const __nv_bfloat16* p, float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    const float4 q = load4(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+    v[0] = __bfloat162float(p[0]);
   }
 }
 
@@ -247,15 +261,17 @@ __device__ void channel_sums(const float (&v)[NQ][VW], float* dpart, int cw, int
 
 // The backward above for the cotangent gin: out = dx (+ skip), demb (B, C)
 // where given, and with Affine gpart (B, 2, C) = each sample's dgamma, dbeta.
+// emb (ET) and skip (SkT) f32 or bf16, as src, gin and out.
 // The tile is one group of cpg channels, or with Bundled (cpg == 1, VW == 1)
 // kBundle one-channel groups (zeros past C), each thread on one of them, so
 // the statistics and S1 / S2 are per channel.  Dynamic shared memory:
 // smem_bytes(tpr, tile width).
-template <typename InT, typename GT, typename OutT, int VW, bool Affine, bool Bundled>
+template <typename InT, typename GT, typename OutT, typename ET, typename SkT, int VW, bool Affine,
+          bool Bundled>
 __global__ void __launch_bounds__(kThreads)
-bwd_kernel(const InT* __restrict__ src, const float* __restrict__ emb,
+bwd_kernel(const InT* __restrict__ src, const ET* __restrict__ emb,
            const GT* __restrict__ gin, const float* __restrict__ gamma,
-           const float* __restrict__ beta, const float* __restrict__ skip,
+           const float* __restrict__ beta, const SkT* __restrict__ skip,
            OutT* __restrict__ out, float* __restrict__ demb, float* __restrict__ gpart, int N,
            int C, int cpg, int tpr, float eps) {
   const int ct = Bundled ? kBundle : cpg;        // channels in the tile
@@ -283,7 +299,7 @@ bwd_kernel(const InT* __restrict__ src, const float* __restrict__ emb,
 #pragma unroll
   for (int k = 0; k < VW; ++k) {   // while the tiles are in flight
     const int ch = c_base + c0 + k;
-    e[k] = emb != nullptr && live ? emb[(size_t)b * C + ch] : 0.f;
+    e[k] = emb != nullptr && live ? to_f(emb[(size_t)b * C + ch]) : 0.f;
     gam[k] = live ? gamma[ch] : 0.f;
     bet[k] = live ? beta[ch] : 0.f;
   }
@@ -415,12 +431,13 @@ inline bool aligned(const void* p, int bytes) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
 }
 
-template <typename InT, typename GT, typename OutT, int VW, bool Affine, bool Bundled>
+template <typename InT, typename GT, typename OutT, typename ET, typename SkT, int VW, bool Affine,
+          bool Bundled>
 cudaError_t launch(int B, int units, int ranks, int tpr, int cpg, int ct, cudaStream_t stream,
-                   const InT* src, const float* emb, const GT* gin, const float* gamma,
-                   const float* beta, const float* skip, OutT* out, float* demb, float* gpart,
+                   const InT* src, const ET* emb, const GT* gin, const float* gamma,
+                   const float* beta, const SkT* skip, OutT* out, float* demb, float* gpart,
                    int N, int C, float eps) {
-  auto* const kernel = &bwd_kernel<InT, GT, OutT, VW, Affine, Bundled>;
+  auto* const kernel = &bwd_kernel<InT, GT, OutT, ET, SkT, VW, Affine, Bundled>;
   static bool configured = false;   // once per instance, at the most a block may take
   if (!configured) {
     const cudaError_t err =
@@ -472,29 +489,30 @@ inline bool plan_ok(int B, int N, int C, int groups, int ranks, int tpr, int vw,
 // One launch for (B, N, C): clusters of `ranks` blocks per (group, sample),
 // or per (bundle of kBundle one-channel groups, sample), vw values a copy (4
 // or 1); cudaErrorInvalidValue where the plan does not hold.
-template <typename InT, typename GT, typename OutT, bool Affine>
+template <typename InT, typename GT, typename OutT, bool Affine, typename ET, typename SkT>
 cudaError_t bwd(int B, int N, int C, int groups, int ranks, int tpr, int vw, const InT* src,
-                const float* emb, const GT* gin, const float* gamma, const float* beta,
-                const float* skip, OutT* out, float* demb, float* gpart, float eps,
+                const ET* emb, const GT* gin, const float* gamma, const float* beta,
+                const SkT* skip, OutT* out, float* demb, float* gpart, float eps,
                 cudaStream_t stream) {
   const auto f32 = [](const void* p, bool is_f32) { return is_f32 ? p : nullptr; };
   constexpr bool in32 = sizeof(InT) == 4, g32 = sizeof(GT) == 4, o32 = sizeof(OutT) == 4;
+  constexpr bool s32 = sizeof(SkT) == 4;
   if (!plan_ok(B, N, C, groups, ranks, tpr, vw,
-               {f32(src, in32), f32(gin, g32), f32(out, o32), skip},
-               {f32(src, !in32), f32(gin, !g32), f32(out, !o32)}))
+               {f32(src, in32), f32(gin, g32), f32(out, o32), f32(skip, s32)},
+               {f32(src, !in32), f32(gin, !g32), f32(out, !o32), f32(skip, !s32)}))
     return cudaErrorInvalidValue;
   const int cpg = C / groups;
   if (cpg == 1)
-    return launch<InT, GT, OutT, 1, Affine, true>(B, (C + kBundle - 1) / kBundle, ranks, tpr, cpg,
-                                                  kBundle, stream, src, emb, gin, gamma, beta,
-                                                  skip, out, demb, gpart, N, C, eps);
+    return launch<InT, GT, OutT, ET, SkT, 1, Affine, true>(
+        B, (C + kBundle - 1) / kBundle, ranks, tpr, cpg, kBundle, stream, src, emb, gin, gamma,
+        beta, skip, out, demb, gpart, N, C, eps);
   if (vw == 4)
-    return launch<InT, GT, OutT, 4, Affine, false>(B, groups, ranks, tpr, cpg, cpg, stream, src,
-                                                   emb, gin, gamma, beta, skip, out, demb, gpart,
-                                                   N, C, eps);
-  return launch<InT, GT, OutT, 1, Affine, false>(B, groups, ranks, tpr, cpg, cpg, stream, src,
-                                                 emb, gin, gamma, beta, skip, out, demb, gpart, N,
-                                                 C, eps);
+    return launch<InT, GT, OutT, ET, SkT, 4, Affine, false>(B, groups, ranks, tpr, cpg, cpg,
+                                                            stream, src, emb, gin, gamma, beta,
+                                                            skip, out, demb, gpart, N, C, eps);
+  return launch<InT, GT, OutT, ET, SkT, 1, Affine, false>(B, groups, ranks, tpr, cpg, cpg, stream,
+                                                          src, emb, gin, gamma, beta, skip, out,
+                                                          demb, gpart, N, C, eps);
 }
 
 }  // namespace

@@ -68,6 +68,7 @@
 
 #include "gn_cluster.cuh"
 #include "grad_common.cuh"
+#include "io.cuh"
 #include "welford.cuh"
 
 namespace cg = cooperative_groups;
@@ -77,8 +78,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxChannelsPerThread = 4;  // C <= 1024
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gn_stats_kernel(const float* __restrict__ x, const float* __restrict__ emb,
+gn_stats_kernel(const T* __restrict__ x, const T* __restrict__ emb,
                 float* __restrict__ part, int N, int C, int groups, int tok_per_split) {
   extern __shared__ Stat sh_stat[];  // C entries
   const int split = blockIdx.x, b = blockIdx.y, nsplit = gridDim.x;
@@ -90,15 +92,15 @@ gn_stats_kernel(const float* __restrict__ x, const float* __restrict__ emb,
   for (int k = 0; k < kMaxChannelsPerThread; ++k) {
     int c = threadIdx.x + k * kThreads;
     st[k] = Stat{0.f, 0.f, 0.f};
-    e[k] = (emb != nullptr && c < C) ? emb[(size_t)b * C + c] : 0.f;
+    e[k] = (emb != nullptr && c < C) ? to_f(emb[(size_t)b * C + c]) : 0.f;
   }
-  const float* xb = x + (size_t)b * N * C;
+  const T* xb = x + (size_t)b * N * C;
   for (int n = n0; n < n1; ++n) {
 #pragma unroll
     for (int k = 0; k < kMaxChannelsPerThread; ++k) {
       int c = threadIdx.x + k * kThreads;
       if (c < C) {
-        float v = xb[(size_t)n * C + c] + e[k];
+        float v = to_f(xb[(size_t)n * C + c]) + e[k];
         st[k].n += 1.f;
         float d = v - st[k].mean;
         st[k].mean += d / st[k].n;
@@ -123,10 +125,11 @@ gn_stats_kernel(const float* __restrict__ x, const float* __restrict__ emb,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gn_apply_kernel(const float* __restrict__ x, const float* __restrict__ emb,
+gn_apply_kernel(const T* __restrict__ x, const T* __restrict__ emb,
                 const float* __restrict__ part, const float* __restrict__ gamma,
-                const float* __restrict__ beta, float* __restrict__ y, int N, int C,
+                const float* __restrict__ beta, T* __restrict__ y, int N, int C,
                 int groups, int nsplit, int tok_per_block, float eps) {
   extern __shared__ float sh_norm[];  // mean[groups], rstd[groups]
   float* mean = sh_norm;
@@ -146,27 +149,30 @@ gn_apply_kernel(const float* __restrict__ x, const float* __restrict__ emb,
   const int t0 = blockIdx.x * tok_per_block;
   const int ntok = min(tok_per_block, N - t0);
   const size_t base = ((size_t)b * N + t0) * C;
-  const float* eb = emb != nullptr ? emb + (size_t)b * C : nullptr;
+  const T* eb = emb != nullptr ? emb + (size_t)b * C : nullptr;
   for (int i = threadIdx.x; i < ntok * C; i += kThreads) {
     int c = i % C;
     int g = c / cpg;
-    float v = x[base + i] + (eb != nullptr ? eb[c] : 0.f);
+    float v = to_f(x[base + i]) + (eb != nullptr ? to_f(eb[c]) : 0.f);
     float t = (v - mean[g]) * rstd[g] * gamma[c] + beta[c];
-    y[base + i] = t / (1.f + expf(-t));
+    store(y + base + i, t / (1.f + expf(-t)));
   }
 }
 
 // ---------------------------------------------------------------------------
 // One launch: a cluster of `gridDim.x / groups` blocks per (sample, group)
 // along the tokens, rank r taking tokens r * tpr .. r * tpr + tpr - 1.  VW
-// floats per copy: 4 (16 bytes; cpg % 4 == 0 and 16-byte aligned x and y) or 1.
+// values per copy: 4 (cpg % 4 == 0; 16 bytes by cp.async in f32, 8 bytes by
+// a plain load in bf16, x and y aligned to it) or 1.  T: f32, or bf16 (the
+// bf16 form: x, emb and y in bf16, widened into the same f32 tile, so the
+// plan, the shared memory and the arithmetic are the f32 form's).
 constexpr int kGnThreads = 256;
 
-template <int VW>
+template <int VW, typename T>
 __global__ void __launch_bounds__(kGnThreads)
-gn_cluster_kernel(const float* __restrict__ x, const float* __restrict__ emb,
+gn_cluster_kernel(const T* __restrict__ x, const T* __restrict__ emb,
                   const float* __restrict__ gamma, const float* __restrict__ beta,
-                  float* __restrict__ y, int N, int C, int cpg, int tpr, float eps) {
+                  T* __restrict__ y, int N, int C, int cpg, int tpr, float eps) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);   // [tpr][cpg] this rank's tokens
   float* es = xs + (size_t)tpr * cpg;            // [cpg] emb, gamma, beta of the group
@@ -184,17 +190,25 @@ gn_cluster_kernel(const float* __restrict__ x, const float* __restrict__ emb,
 
   for (int i = tid; i < nt * cw; i += kGnThreads) {
     const int t = i / cw, c = (i % cw) * VW;
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(xs + t * cpg + c));
-    const float* src = x + base + (size_t)t * C + c;
-    if (VW == 4)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
-    else
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
+    const T* src = x + base + (size_t)t * C + c;
+    if constexpr (sizeof(T) == 2) {   // widened by the load
+      if constexpr (VW == 4)
+        *reinterpret_cast<float4*>(xs + t * cpg + c) = load4(src);
+      else
+        xs[t * cpg + c] = to_f(src[0]);
+      continue;
+    } else {
+      const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(xs + t * cpg + c));
+      if (VW == 4)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
+      else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
+    }
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
   for (int c = tid; c < cpg; c += kGnThreads) {   // while the tile is in flight
     const int ch = g * cpg + c;
-    es[c] = emb != nullptr ? emb[(size_t)b * C + ch] : 0.f;
+    es[c] = emb != nullptr ? to_f(emb[(size_t)b * C + ch]) : 0.f;
     gs[c] = gamma[ch];
     bs[c] = beta[ch];
   }
@@ -244,11 +258,11 @@ gn_cluster_kernel(const float* __restrict__ x, const float* __restrict__ emb,
       const float v = (xs[t * cpg + c0 + e] + es[c0 + e] - mean) * rstd * gs[c0 + e] + bs[c0 + e];
       out[e] = v / (1.f + expf(-v));
     }
-    float* dst = y + base + (size_t)t * C + c0;
+    T* dst = y + base + (size_t)t * C + c0;
     if (VW == 4)
-      *reinterpret_cast<float4*>(dst) = make_float4(out[0], out[1], out[2], out[3]);
+      store4(dst, make_float4(out[0], out[1], out[2], out[3]));
     else
-      dst[0] = out[0];
+      store(dst, out[0]);
   }
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
@@ -285,10 +299,11 @@ __device__ void channel_sum(float v, float* chan, int cpg, float* out) {
 // One block per (group, sample); the block size is a multiple of 32 and of
 // cpg = C / groups, so each thread stays on one channel of its group.
 // gpart (B, 2, C): this sample's share of dgamma and dbeta.
+template <typename T>
 __global__ void __launch_bounds__(1024)
-gn_silu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
-                   const float* __restrict__ g, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, float* __restrict__ dx,
+gn_silu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ emb,
+                   const T* __restrict__ g, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, T* __restrict__ dx,
                    float* __restrict__ demb, float* __restrict__ gpart, int N, int C,
                    int groups, float eps) {
   extern __shared__ float chan[];  // blockDim floats
@@ -298,15 +313,15 @@ gn_silu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
   const int c = threadIdx.x % cpg;  // this thread's channel in the group
   const int ch = grp * cpg + c;
   const size_t off = (size_t)b * N * C + ch;
-  const float ec = emb != nullptr ? emb[(size_t)b * C + ch] : 0.f;
+  const float ec = emb != nullptr ? to_f(emb[(size_t)b * C + ch]) : 0.f;
   const float gam = gamma[ch], bet = beta[ch];
 
   float s = 0.f;
-  for (int i = threadIdx.x; i < count; i += blockDim.x) s += x[off + (size_t)(i / cpg) * C] + ec;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) s += to_f(x[off + (size_t)(i / cpg) * C]) + ec;
   const float mean = block_sum(s, red) / count;
   float v = 0.f;
   for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    const float d = x[off + (size_t)(i / cpg) * C] + ec - mean;
+    const float d = to_f(x[off + (size_t)(i / cpg) * C]) + ec - mean;
     v += d * d;
   }
   const float rstd = rsqrtf(block_sum(v, red) / count + eps);
@@ -314,10 +329,10 @@ gn_silu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
   float s1 = 0.f, s2 = 0.f, dg = 0.f, db = 0.f;
   for (int i = threadIdx.x; i < count; i += blockDim.x) {
     const size_t idx = off + (size_t)(i / cpg) * C;
-    const float xhat = (x[idx] + ec - mean) * rstd;
+    const float xhat = (to_f(x[idx]) + ec - mean) * rstd;
     const float a = xhat * gam + bet;
     const float sig = 1.f / (1.f + expf(-a));
-    const float dy = g[idx] * sig * (1.f + a * (1.f - sig));
+    const float dy = to_f(g[idx]) * sig * (1.f + a * (1.f - sig));
     dg += dy * xhat;
     db += dy;
     s1 += dy * gam;
@@ -330,31 +345,29 @@ gn_silu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
   float dsum = 0.f;
   for (int i = threadIdx.x; i < count; i += blockDim.x) {
     const size_t idx = off + (size_t)(i / cpg) * C;
-    const float xhat = (x[idx] + ec - mean) * rstd;
+    const float xhat = (to_f(x[idx]) + ec - mean) * rstd;
     const float a = xhat * gam + bet;
     const float sig = 1.f / (1.f + expf(-a));
-    const float u = g[idx] * sig * (1.f + a * (1.f - sig)) * gam;
+    const float u = to_f(g[idx]) * sig * (1.f + a * (1.f - sig)) * gam;
     const float d = rstd * (u - (S1 + xhat * S2) / count);
     dsum += d;
-    dx[idx] = d;
+    store(dx + idx, d);
   }
   if (demb != nullptr) channel_sum(dsum, chan, cpg, demb + (size_t)b * C + grp * cpg);
 }
 
-}  // namespace
-
 // Every gradient of silu(GroupNorm(x + emb)) for the output cotangent g.
 // threads: a multiple of 32 and of C / groups, at most 1024.  gpart (B, 2, C)
 // f32 workspace; out: dx (B, N, C), demb (B, C) when emb is given, vec (2, C)
-// = dgamma, dbeta.
-extern "C" int gn_silu_bwd_full(const float* x, const float* emb, const float* g,
-                                const float* gamma, const float* beta, float* dx, float* demb,
-                                float* gpart, float* vec, int B, int N, int C, int groups,
-                                int threads, float eps, cudaStream_t stream) {
+// = dgamma, dbeta (f32; T: x, emb, g and dx f32 or bf16).
+template <typename T>
+int bwd_full(const T* x, const T* emb, const T* g, const float* gamma, const float* beta, T* dx,
+             float* demb, float* gpart, float* vec, int B, int N, int C, int groups, int threads,
+             float eps, cudaStream_t stream) {
   if (C % groups != 0 || threads < 32 || threads > 1024 || threads % 32 != 0 ||
       threads % (C / groups) != 0)
     return (int)cudaErrorInvalidValue;
-  gn_silu_bwd_kernel<<<dim3(groups, B), threads, threads * sizeof(float), stream>>>(
+  gn_silu_bwd_kernel<T><<<dim3(groups, B), threads, threads * sizeof(float), stream>>>(
       x, emb, g, gamma, beta, dx, emb != nullptr ? demb : nullptr, gpart, N, C, groups, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -363,33 +376,35 @@ extern "C" int gn_silu_bwd_full(const float* x, const float* emb, const float* g
 
 // The same gradients in one launch of clusters of `cluster` blocks (1, 2, 4
 // or 8) per (group, sample), tpr tokens a rank (cluster * tpr >= N), vw
-// floats a copy (4: cpg % 4 == 0 and x, g, dx 16-byte aligned; or 1); then
-// the samples' partials added in order.  gpart, out as gn_silu_bwd_full.
-extern "C" int gn_silu_bwd_cluster(const float* x, const float* emb, const float* g,
-                                   const float* gamma, const float* beta, float* dx, float* demb,
-                                   float* gpart, float* vec, int B, int N, int C, int groups,
-                                   int cluster, int tpr, int vw, float eps, cudaStream_t stream) {
-  const cudaError_t err = gnc::bwd<float, float, float, true>(
-      B, N, C, groups, cluster, tpr, vw, x, emb, g, gamma, beta, nullptr, dx,
-      emb != nullptr ? demb : nullptr, gpart, eps, stream);
+// values a copy (4: cpg % 4 == 0 and x, g, dx 16-byte aligned in f32, 8-byte
+// in bf16; or 1); then the samples' partials added in order.
+template <typename T>
+int bwd_cluster(const T* x, const T* emb, const T* g, const float* gamma, const float* beta,
+                T* dx, float* demb, float* gpart, float* vec, int B, int N, int C, int groups,
+                int cluster, int tpr, int vw, float eps, cudaStream_t stream) {
+  const cudaError_t err = gnc::bwd<T, T, T, true>(
+      B, N, C, groups, cluster, tpr, vw, x, emb, g, gamma, beta, static_cast<const T*>(nullptr),
+      dx, emb != nullptr ? demb : nullptr, gpart, eps, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)gradk::sum_partials(gpart, vec, (size_t)2 * C, B, stream);
 }
 
 // One launch: clusters of `cluster` blocks (1, 2, 4 or 8) per (sample,
-// group), tpr tokens a rank (cluster * tpr >= N), vw floats per copy (4 or
+// group), tpr tokens a rank (cluster * tpr >= N), vw values per copy (4 or
 // 1); the rank's tile and the group's emb, gamma and beta in shared memory.
-extern "C" int gn_silu_cluster_forward(const float* x, const float* emb, const float* gamma,
-                                       const float* beta, float* y, int B, int N, int C,
-                                       int groups, int cluster, int tpr, int vw, float eps,
-                                       cudaStream_t stream) {
+template <typename T>
+int cluster_forward(const T* x, const T* emb, const float* gamma, const float* beta, T* y, int B,
+                    int N, int C, int groups, int cluster, int tpr, int vw, float eps,
+                    cudaStream_t stream) {
   constexpr int kSmemCap = 232448 - 1024;   // beside the kernel's static shared memory
   if (groups < 1 || C % groups != 0 || B < 1 || B > 65535 || N < 1 || tpr < 1 ||
       (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
       (long long)cluster * tpr < N || (vw != 1 && vw != 4))
     return (int)cudaErrorInvalidValue;
   const int cpg = C / groups;
-  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0;
+  };
   if (vw == 4 && (cpg % 4 != 0 || !aligned(x) || !aligned(y))) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)tpr * cpg + 3 * (size_t)cpg);
   if (smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
@@ -397,7 +412,7 @@ extern "C" int gn_silu_cluster_forward(const float* x, const float* emb, const f
   const int which = vw == 4;
   if (!configured[which]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        which ? gn_cluster_kernel<4> : gn_cluster_kernel<1>,
+        which ? gn_cluster_kernel<4, T> : gn_cluster_kernel<1, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
     if (err != cudaSuccess) return (int)err;
     configured[which] = true;
@@ -415,9 +430,9 @@ extern "C" int gn_silu_cluster_forward(const float* x, const float* emb, const f
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err =
-      which ? cudaLaunchKernelEx(&cfg, gn_cluster_kernel<4>, x, emb, gamma, beta, y, N, C, cpg,
+      which ? cudaLaunchKernelEx(&cfg, gn_cluster_kernel<4, T>, x, emb, gamma, beta, y, N, C, cpg,
                                  tpr, eps)
-            : cudaLaunchKernelEx(&cfg, gn_cluster_kernel<1>, x, emb, gamma, beta, y, N, C, cpg,
+            : cudaLaunchKernelEx(&cfg, gn_cluster_kernel<1, T>, x, emb, gamma, beta, y, N, C, cpg,
                                  tpr, eps);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -425,18 +440,87 @@ extern "C" int gn_silu_cluster_forward(const float* x, const float* emb, const f
 
 // The two launches of the first design, for the groups no cluster holds:
 // part (B, ceil(N / tok_per_split), groups, 3) f32 workspace.
-extern "C" int gn_silu_forward(const float* x, const float* emb, const float* gamma,
-                               const float* beta, float* y, float* part, int B, int N,
-                               int C, int groups, int tok_per_split, int tok_per_block,
-                               float eps, cudaStream_t stream) {
+template <typename T>
+int two_pass_forward(const T* x, const T* emb, const float* gamma, const float* beta, T* y,
+                     float* part, int B, int N, int C, int groups, int tok_per_split,
+                     int tok_per_block, float eps, cudaStream_t stream) {
   if (C > kThreads * kMaxChannelsPerThread || C % groups != 0) return (int)cudaErrorInvalidValue;
   const int nsplit = (N + tok_per_split - 1) / tok_per_split;
-  gn_stats_kernel<<<dim3(nsplit, B), kThreads, C * sizeof(Stat), stream>>>(
+  gn_stats_kernel<T><<<dim3(nsplit, B), kThreads, C * sizeof(Stat), stream>>>(
       x, emb, part, N, C, groups, tok_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nblk = (N + tok_per_block - 1) / tok_per_block;
-  gn_apply_kernel<<<dim3(nblk, B), kThreads, 2 * groups * sizeof(float), stream>>>(
+  gn_apply_kernel<T><<<dim3(nblk, B), kThreads, 2 * groups * sizeof(float), stream>>>(
       x, emb, part, gamma, beta, y, N, C, groups, nsplit, tok_per_block, eps);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+using bf16_t = __nv_bfloat16;
+
+// The f32 forms, and the bf16 forms (x, emb, g, dx, y in bf16; gamma, beta
+// and the f32 sums as in the f32 forms), of the four entry points above.
+extern "C" int gn_silu_bwd_full(const float* x, const float* emb, const float* g,
+                                const float* gamma, const float* beta, float* dx, float* demb,
+                                float* gpart, float* vec, int B, int N, int C, int groups,
+                                int threads, float eps, cudaStream_t stream) {
+  return bwd_full(x, emb, g, gamma, beta, dx, demb, gpart, vec, B, N, C, groups, threads, eps,
+                  stream);
+}
+
+extern "C" int gn_silu_bwd_full_bf16(const bf16_t* x, const bf16_t* emb, const bf16_t* g,
+                                     const float* gamma, const float* beta, bf16_t* dx,
+                                     float* demb, float* gpart, float* vec, int B, int N, int C,
+                                     int groups, int threads, float eps, cudaStream_t stream) {
+  return bwd_full(x, emb, g, gamma, beta, dx, demb, gpart, vec, B, N, C, groups, threads, eps,
+                  stream);
+}
+
+extern "C" int gn_silu_bwd_cluster(const float* x, const float* emb, const float* g,
+                                   const float* gamma, const float* beta, float* dx, float* demb,
+                                   float* gpart, float* vec, int B, int N, int C, int groups,
+                                   int cluster, int tpr, int vw, float eps, cudaStream_t stream) {
+  return bwd_cluster(x, emb, g, gamma, beta, dx, demb, gpart, vec, B, N, C, groups, cluster, tpr,
+                     vw, eps, stream);
+}
+
+extern "C" int gn_silu_bwd_cluster_bf16(const bf16_t* x, const bf16_t* emb, const bf16_t* g,
+                                        const float* gamma, const float* beta, bf16_t* dx,
+                                        float* demb, float* gpart, float* vec, int B, int N,
+                                        int C, int groups, int cluster, int tpr, int vw,
+                                        float eps, cudaStream_t stream) {
+  return bwd_cluster(x, emb, g, gamma, beta, dx, demb, gpart, vec, B, N, C, groups, cluster, tpr,
+                     vw, eps, stream);
+}
+
+extern "C" int gn_silu_cluster_forward(const float* x, const float* emb, const float* gamma,
+                                       const float* beta, float* y, int B, int N, int C,
+                                       int groups, int cluster, int tpr, int vw, float eps,
+                                       cudaStream_t stream) {
+  return cluster_forward(x, emb, gamma, beta, y, B, N, C, groups, cluster, tpr, vw, eps, stream);
+}
+
+extern "C" int gn_silu_cluster_forward_bf16(const bf16_t* x, const bf16_t* emb,
+                                            const float* gamma, const float* beta, bf16_t* y,
+                                            int B, int N, int C, int groups, int cluster, int tpr,
+                                            int vw, float eps, cudaStream_t stream) {
+  return cluster_forward(x, emb, gamma, beta, y, B, N, C, groups, cluster, tpr, vw, eps, stream);
+}
+
+extern "C" int gn_silu_forward(const float* x, const float* emb, const float* gamma,
+                               const float* beta, float* y, float* part, int B, int N,
+                               int C, int groups, int tok_per_split, int tok_per_block,
+                               float eps, cudaStream_t stream) {
+  return two_pass_forward(x, emb, gamma, beta, y, part, B, N, C, groups, tok_per_split,
+                          tok_per_block, eps, stream);
+}
+
+extern "C" int gn_silu_forward_bf16(const bf16_t* x, const bf16_t* emb, const float* gamma,
+                                    const float* beta, bf16_t* y, float* part, int B, int N,
+                                    int C, int groups, int tok_per_split, int tok_per_block,
+                                    float eps, cudaStream_t stream) {
+  return two_pass_forward(x, emb, gamma, beta, y, part, B, N, C, groups, tok_per_split,
+                          tok_per_block, eps, stream);
 }

@@ -18,6 +18,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "io.cuh"
+
 namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -228,8 +230,9 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 }
 
 // LayerNorm (two-pass mean and variance, f32) of rows m0 .. m0 + rows - 1 of
-// x (M, K) into a bf16 A operand of wgmma: K / 64 swizzled tiles of `rows`
-// rows, tile s at `tile` + s * rows * 128 (1024-byte aligned); rows past M
+// x (M, K), f32 or bf16 (widened as read), into a bf16 A operand of wgmma:
+// K / 64 swizzled tiles of `rows` rows, tile s at `tile` + s * rows * 128
+// (1024-byte aligned); rows past M
 // are zeros.  One warp per row, warps `warp` + i * `warps`, kBatch rows of a
 // warp at a time, interleaved through every step (their loads in flight
 // together, their shuffle reductions side by side: a row alone is a chain of
@@ -237,8 +240,8 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // columns at a time, so K <= 256 * kMaxPer and K % 64 == 0; its columns of w
 // and b stay in registers.  x, w and b are 16-byte aligned.  The caller
 // fences (fence_async_smem) and synchronises before a wgmma reads the tile.
-template <int kMaxPer, int kBatch>
-__device__ __forceinline__ void ln_rows_sw128(const float* __restrict__ x,
+template <int kMaxPer, int kBatch, typename XT>
+__device__ __forceinline__ void ln_rows_sw128(const XT* __restrict__ x,
                                               const float* __restrict__ w,
                                               const float* __restrict__ b, uint8_t* tile,
                                               int rows, int m0, int M, int K, float eps, int warp,
@@ -268,10 +271,7 @@ __device__ __forceinline__ void ln_rows_sw128(const float* __restrict__ x,
       for (int p = 0; p < kMaxPer; ++p) {
         const int q = lane + 32 * p;
         if (r < rows && q < groups && gr < M) {
-          const float4* src = reinterpret_cast<const float4*>(x + (size_t)gr * K + 8 * q);
-          const float4 a = src[0], c = src[1];
-          v[i][p][0] = a.x, v[i][p][1] = a.y, v[i][p][2] = a.z, v[i][p][3] = a.w;
-          v[i][p][4] = c.x, v[i][p][5] = c.y, v[i][p][6] = c.z, v[i][p][7] = c.w;
+          load8(x + (size_t)gr * K + 8 * q, v[i][p]);
         } else {
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[i][p][e] = 0.f;

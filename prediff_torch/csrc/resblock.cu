@@ -53,7 +53,12 @@
 //
 // Rounding points follow the TPU kernel: h1, h2, h3, dh3, dv and dh1 are
 // bf16, as are the conv weights and g as a conv operand; GN2's statistics
-// are taken from the bf16 h2; every sum, x, out, dx and demb stay f32.
+// are taken from the bf16 h2; every sum, x, out, dx and demb stay f32.  The
+// bf16 forms (resblock_forward_bf16, resblock_backward_bf16: guidance on the
+// alignment net's bf16 copy, as the TPU kernel runs on bf16 x) read x, emb
+// and g in bf16, take g as the conv's operand without the cast launch, and
+// write out and dx in bf16, the skip added in f32 and rounded once; demb
+// stays f32.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <string.h>
@@ -82,53 +87,47 @@ __device__ float block_sum(float v, float* red) {
   return warp_sum(lane < nw ? red[lane] : 0.f);
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
 using gnc::silu_grad;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float silu(float a) { return a / (1.f + expf(-a)); }
 
 // Mean and 1/sqrt(var + eps) of src (+ emb) over one (group, sample): N
 // tokens x cpg channels, two passes.
-template <typename InT>
-__device__ void group_stats(const InT* __restrict__ src, const float* __restrict__ emb, int N,
+template <typename InT, typename ET>
+__device__ void group_stats(const InT* __restrict__ src, const ET* __restrict__ emb, int N,
                             int C, int cpg, float eps, float* red, float& mean, float& rstd) {
   const int count = N * cpg;
   float s = 0.f;
   for (int i = threadIdx.x; i < count; i += blockDim.x) {
     const int n = i / cpg, c = i % cpg;
-    s += to_f(src[(size_t)n * C + c]) + (emb != nullptr ? emb[c] : 0.f);
+    s += to_f(src[(size_t)n * C + c]) + (emb != nullptr ? to_f(emb[c]) : 0.f);
   }
   mean = block_sum(s, red) / count;
   float v = 0.f;
   for (int i = threadIdx.x; i < count; i += blockDim.x) {
     const int n = i / cpg, c = i % cpg;
-    const float d = to_f(src[(size_t)n * C + c]) + (emb != nullptr ? emb[c] : 0.f) - mean;
+    const float d = to_f(src[(size_t)n * C + c]) + (emb != nullptr ? to_f(emb[c]) : 0.f) - mean;
     v += d * d;
   }
   rstd = rsqrtf(block_sum(v, red) / count + eps);
 }
 
 // out = bf16(silu(GroupNorm(src + emb))), one block per (group, sample).
-template <typename InT>
+template <typename InT, typename ET>
 __global__ void __launch_bounds__(kGnThreads)
-gn_silu_group_kernel(const InT* __restrict__ src, const float* __restrict__ emb,
+gn_silu_group_kernel(const InT* __restrict__ src, const ET* __restrict__ emb,
                      const float* __restrict__ gamma, const float* __restrict__ beta,
                      __nv_bfloat16* __restrict__ out, int N, int C, int groups, float eps) {
   __shared__ float red[32];
   const int g = blockIdx.x, b = blockIdx.y, cpg = C / groups;
   const size_t off = (size_t)b * N * C + g * cpg;
   const InT* s = src + off;
-  const float* e = emb != nullptr ? emb + (size_t)b * C + g * cpg : nullptr;
+  const ET* e = emb != nullptr ? emb + (size_t)b * C + g * cpg : nullptr;
   float mean, rstd;
   group_stats(s, e, N, C, cpg, eps, red, mean, rstd);
   for (int i = threadIdx.x; i < N * cpg; i += blockDim.x) {
     const int n = i / cpg, c = i % cpg;
-    const float v = to_f(s[(size_t)n * C + c]) + (e != nullptr ? e[c] : 0.f);
+    const float v = to_f(s[(size_t)n * C + c]) + (e != nullptr ? to_f(e[c]) : 0.f);
     const float a = (v - mean) * rstd * gamma[g * cpg + c] + beta[g * cpg + c];
     out[off + (size_t)n * C + c] = __float2bfloat16(silu(a));
   }
@@ -140,11 +139,11 @@ gn_silu_group_kernel(const InT* __restrict__ src, const float* __restrict__ emb,
 // out = dv (+ skip); demb[c] = sum over tokens of dv (when demb != null).
 // The block size must be a multiple of cpg, so each thread stays on one
 // channel of the group.
-template <typename InT, typename OutT>
+template <typename InT, typename OutT, typename ET, typename SkT>
 __global__ void __launch_bounds__(kGnThreads)
-gn_silu_bwd_group_kernel(const InT* __restrict__ src, const float* __restrict__ emb,
+gn_silu_bwd_group_kernel(const InT* __restrict__ src, const ET* __restrict__ emb,
                          const __nv_bfloat16* __restrict__ dh, const float* __restrict__ gamma,
-                         const float* __restrict__ beta, const float* __restrict__ skip,
+                         const float* __restrict__ beta, const SkT* __restrict__ skip,
                          OutT* __restrict__ out, float* __restrict__ demb, int N, int C,
                          int groups, float eps) {
   __shared__ float red[kGnThreads];
@@ -152,12 +151,12 @@ gn_silu_bwd_group_kernel(const InT* __restrict__ src, const float* __restrict__ 
   const int count = N * cpg;
   const size_t off = (size_t)b * N * C + g * cpg;
   const InT* s = src + off;
-  const float* e = emb != nullptr ? emb + (size_t)b * C + g * cpg : nullptr;
+  const ET* e = emb != nullptr ? emb + (size_t)b * C + g * cpg : nullptr;
   float mean, rstd;
   group_stats(s, e, N, C, cpg, eps, red, mean, rstd);
   const int c = threadIdx.x % cpg;  // this thread's channel in the group
   const float gam = gamma[g * cpg + c], bet = beta[g * cpg + c];
-  const float ec = e != nullptr ? e[c] : 0.f;
+  const float ec = e != nullptr ? to_f(e[c]) : 0.f;
   float s1 = 0.f, s2 = 0.f;
   for (int i = threadIdx.x; i < count; i += blockDim.x) {
     const size_t idx = (size_t)(i / cpg) * C + c;
@@ -174,7 +173,7 @@ gn_silu_bwd_group_kernel(const InT* __restrict__ src, const float* __restrict__ 
     const float u = __bfloat162float(dh[off + idx]) * silu_grad(xhat * gam + bet) * gam;
     const float dv = rstd * (u - (S1 + xhat * S2) / count);
     dsum += dv;
-    store(out + off + idx, dv + (skip != nullptr ? skip[off + idx] : 0.f));
+    store(out + off + idx, dv + (skip != nullptr ? to_f(skip[off + idx]) : 0.f));
   }
   if (demb != nullptr) {
     __syncthreads();
@@ -198,10 +197,10 @@ gn_silu_bwd_group_kernel(const InT* __restrict__ src, const float* __restrict__ 
 // cluster_stats: the same bits on every rank and run).  The backward passes
 // are gn_cluster.cuh's kernel, which row 14 (groupnorm.cu) runs too.
 
-// out = bf16(silu(GroupNorm(src + emb))), src f32 or bf16 (B, N, C).
-template <typename InT>
+// out = bf16(silu(GroupNorm(src + emb))), src and emb f32 or bf16 (B, N, C).
+template <typename InT, typename ET>
 __global__ void __launch_bounds__(kGnThreads)
-gn_silu_cluster_kernel(const InT* __restrict__ src, const float* __restrict__ emb,
+gn_silu_cluster_kernel(const InT* __restrict__ src, const ET* __restrict__ emb,
                        const float* __restrict__ gamma, const float* __restrict__ beta,
                        __nv_bfloat16* __restrict__ out, int N, int C, int cpg, int tpr,
                        float eps) {
@@ -211,7 +210,7 @@ gn_silu_cluster_kernel(const InT* __restrict__ src, const float* __restrict__ em
   const int n0 = rank * tpr, count = max(0, min(tpr, N - n0)) * cpg;
   const size_t base = ((size_t)b * N + n0) * C + (size_t)g * cpg;
   const int c = tid % cpg, ch = g * cpg + c;
-  const float e = emb != nullptr ? emb[(size_t)b * C + ch] : 0.f;
+  const float e = emb != nullptr ? to_f(emb[(size_t)b * C + ch]) : 0.f;
   for (int i = tid; i < count; i += kGnThreads) xs[i] = to_f(src[base + (size_t)(i / cpg) * C + c]) + e;
   __syncthreads();
   float mean, rstd;
@@ -236,7 +235,7 @@ struct Tiles {
 
 template <int Epi>
 cudaError_t rconv(const __nv_bfloat16* in, const void* w_map, const float* bias, void* out,
-                  const float* skip, int B, int T, int H, int W, int C, const Tiles& t,
+                  const void* skip, int B, int T, int H, int W, int C, const Tiles& t,
                   cudaStream_t stream) {
   CUtensorMap w;
   memcpy(&w, w_map, sizeof(w));
@@ -276,28 +275,28 @@ cudaError_t launch_gn(void (*kernel)(Params...), int groups, int B, const GnTile
   return cudaGetLastError();
 }
 
-template <typename InT>
-cudaError_t gn_silu(const InT* src, const float* emb, const float* gamma, const float* beta,
+template <typename InT, typename ET>
+cudaError_t gn_silu(const InT* src, const ET* emb, const float* gamma, const float* beta,
                     __nv_bfloat16* out, int B, int N, int C, int groups, const GnTiles& t,
                     float eps, cudaStream_t stream) {
   const int cpg = C / groups;
   if (t.ranks == 0) {
-    gn_silu_group_kernel<InT><<<dim3(groups, B), kGnThreads, 0, stream>>>(src, emb, gamma, beta,
-                                                                          out, N, C, groups, eps);
+    gn_silu_group_kernel<InT, ET><<<dim3(groups, B), kGnThreads, 0, stream>>>(
+        src, emb, gamma, beta, out, N, C, groups, eps);
     return cudaGetLastError();
   }
-  return launch_gn(gn_silu_cluster_kernel<InT>, groups, B, t, cpg, stream, src, emb, gamma,
+  return launch_gn(gn_silu_cluster_kernel<InT, ET>, groups, B, t, cpg, stream, src, emb, gamma,
                    beta, out, N, C, cpg, t.tpr, eps);
 }
 
-template <typename InT, typename OutT>
-cudaError_t gn_silu_bwd(const InT* src, const float* emb, const __nv_bfloat16* dh,
-                        const float* gamma, const float* beta, const float* skip, OutT* out,
+template <typename InT, typename OutT, typename ET, typename SkT>
+cudaError_t gn_silu_bwd(const InT* src, const ET* emb, const __nv_bfloat16* dh,
+                        const float* gamma, const float* beta, const SkT* skip, OutT* out,
                         float* demb, int B, int N, int C, int groups, const GnTiles& t, float eps,
                         cudaStream_t stream) {
   const int cpg = C / groups;
   if (t.ranks == 0) {
-    gn_silu_bwd_group_kernel<InT, OutT><<<dim3(groups, B), kGnThreads, 0, stream>>>(
+    gn_silu_bwd_group_kernel<InT, OutT, ET, SkT><<<dim3(groups, B), kGnThreads, 0, stream>>>(
         src, emb, dh, gamma, beta, skip, out, demb, N, C, groups, eps);
     return cudaGetLastError();
   }
@@ -313,7 +312,64 @@ bool gn_tiles_ok(const GnTiles& t, int N) {
                           t.tpr >= 1 && (long long)t.ranks * t.tpr >= N);
 }
 
+// The block's launches.  T: x, emb, out, g and dx in f32, or all in bf16
+// (the bf16 form: g is the conv's operand as it is, no cast launch; the
+// output and dx add the skip in f32 and are rounded once).
+template <typename T>
+int forward(const T* x, const T* emb, const void* w1_map, const float* b1, const void* w2_map,
+            const float* b2, const float* g1s, const float* g1b, const float* g2s,
+            const float* g2b, __nv_bfloat16* h, __nv_bfloat16* h2, T* out, int B, int T_, int H,
+            int W, int C, int groups, int bn, int bt, int bh, int bw, int splits, int gn_ranks,
+            int gn_tpr, float eps, cudaStream_t stream) {
+  const int N = T_ * H * W;
+  const GnTiles gt{gn_ranks, gn_tpr};
+  if (!supported(C, groups) || !gn_tiles_ok(gt, N)) return (int)cudaErrorInvalidValue;
+  const Tiles t{bn, bt, bh, bw, splits};
+  cudaError_t err = gn_silu(x, static_cast<const T*>(nullptr), g1s, g1b, h, B, N, C, groups, gt,
+                            eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = rconv<conv::kBf16>(h, w1_map, b1, h2, nullptr, B, T_, H, W, C, t, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gn_silu(static_cast<const __nv_bfloat16*>(h2), emb, g2s, g2b, h, B, N, C, groups, gt, eps,
+                stream);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kOut = sizeof(T) == 4 ? conv::kF32Skip : conv::kBf16Skip;
+  return (int)rconv<kOut>(h, w2_map, b2, out, x, B, T_, H, W, C, t, stream);
+}
+
+template <typename T>
+int backward(const T* x, const T* emb, const T* g, const __nv_bfloat16* h2, const void* w1t_map,
+             const void* w2t_map, const float* g1s, const float* g1b, const float* g2s,
+             const float* g2b, __nv_bfloat16* gb, __nv_bfloat16* dh, __nv_bfloat16* dv, T* dx,
+             float* demb, int B, int T_, int H, int W, int C, int groups, int bn, int bt, int bh,
+             int bw, int splits, int gn_ranks, int gn_tpr, float eps, cudaStream_t stream) {
+  const int N = T_ * H * W;
+  const GnTiles gt{gn_ranks, gn_tpr};
+  if (!supported(C, groups) || !gn_tiles_ok(gt, N) || (reinterpret_cast<uintptr_t>(g) & 15))
+    return (int)cudaErrorInvalidValue;
+  const Tiles t{bn, bt, bh, bw, splits};
+  const __nv_bfloat16* g_op = reinterpret_cast<const __nv_bfloat16*>(g);
+  cudaError_t err;
+  if constexpr (sizeof(T) == 4) {
+    err = conv::to_bf16(reinterpret_cast<const float*>(g), gb, (size_t)B * N * C, stream);
+    if (err != cudaSuccess) return (int)err;
+    g_op = gb;
+  }
+  err = rconv<conv::kBf16>(g_op, w2t_map, nullptr, dh, nullptr, B, T_, H, W, C, t, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gn_silu_bwd<__nv_bfloat16, __nv_bfloat16>(h2, emb, dh, g2s, g2b,
+                                                  static_cast<const float*>(nullptr), dv, demb, B,
+                                                  N, C, groups, gt, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = rconv<conv::kBf16>(dv, w1t_map, nullptr, dh, nullptr, B, T_, H, W, C, t, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)gn_silu_bwd<T, T>(x, static_cast<const float*>(nullptr), dh, g1s, g1b, g, dx,
+                                static_cast<float*>(nullptr), B, N, C, groups, gt, eps, stream);
+}
+
 }  // namespace
+
+using bf16_t = __nv_bfloat16;
 
 // Forward.  w1_map, w2_map: the tensor maps of the bf16 (27, C, C) forward
 // layouts of k1, k2 (conv3x3x3_weight_map); h: (B, N, C) bf16 scratch; h2:
@@ -324,48 +380,48 @@ bool gn_tiles_ok(const GnTiles& t, int N) {
 extern "C" int resblock_forward(const float* x, const float* emb, const void* w1_map,
                                 const float* b1, const void* w2_map, const float* b2,
                                 const float* g1s, const float* g1b, const float* g2s,
-                                const float* g2b, __nv_bfloat16* h, __nv_bfloat16* h2,
-                                float* out, int B, int T, int H, int W, int C, int groups, int bn,
-                                int bt, int bh, int bw, int splits, int gn_ranks, int gn_tpr,
-                                float eps, cudaStream_t stream) {
-  const int N = T * H * W;
-  const GnTiles gt{gn_ranks, gn_tpr};
-  if (!supported(C, groups) || !gn_tiles_ok(gt, N)) return (int)cudaErrorInvalidValue;
-  const Tiles t{bn, bt, bh, bw, splits};
-  cudaError_t err = gn_silu<float>(x, nullptr, g1s, g1b, h, B, N, C, groups, gt, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = rconv<conv::kBf16>(h, w1_map, b1, h2, nullptr, B, T, H, W, C, t, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = gn_silu<__nv_bfloat16>(h2, emb, g2s, g2b, h, B, N, C, groups, gt, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)rconv<conv::kF32Skip>(h, w2_map, b2, out, x, B, T, H, W, C, t, stream);
+                                const float* g2b, bf16_t* h, bf16_t* h2, float* out, int B,
+                                int T, int H, int W, int C, int groups, int bn, int bt, int bh,
+                                int bw, int splits, int gn_ranks, int gn_tpr, float eps,
+                                cudaStream_t stream) {
+  return forward(x, emb, w1_map, b1, w2_map, b2, g1s, g1b, g2s, g2b, h, h2, out, B, T, H, W, C,
+                 groups, bn, bt, bh, bw, splits, gn_ranks, gn_tpr, eps, stream);
+}
+
+// The bf16 form: x, emb and out (B, N, C) bf16; the rest as resblock_forward.
+extern "C" int resblock_forward_bf16(const bf16_t* x, const bf16_t* emb, const void* w1_map,
+                                     const float* b1, const void* w2_map, const float* b2,
+                                     const float* g1s, const float* g1b, const float* g2s,
+                                     const float* g2b, bf16_t* h, bf16_t* h2, bf16_t* out, int B,
+                                     int T, int H, int W, int C, int groups, int bn, int bt,
+                                     int bh, int bw, int splits, int gn_ranks, int gn_tpr,
+                                     float eps, cudaStream_t stream) {
+  return forward(x, emb, w1_map, b1, w2_map, b2, g1s, g1b, g2s, g2b, h, h2, out, B, T, H, W, C,
+                 groups, bn, bt, bh, bw, splits, gn_ranks, gn_tpr, eps, stream);
 }
 
 // Backward.  w1t_map, w2t_map: the tensor maps of the bf16 flipped, transposed
 // (27, C, C) layouts of k1, k2; gb, dh, dv: (B, N, C) bf16 scratch; dx (B, N,
 // C), demb (B, C); the tiles as in the forward.
 extern "C" int resblock_backward(const float* x, const float* emb, const float* g,
-                                 const __nv_bfloat16* h2, const void* w1t_map,
-                                 const void* w2t_map, const float* g1s, const float* g1b,
-                                 const float* g2s, const float* g2b, __nv_bfloat16* gb,
-                                 __nv_bfloat16* dh, __nv_bfloat16* dv, float* dx, float* demb,
-                                 int B, int T, int H, int W, int C, int groups, int bn, int bt,
-                                 int bh, int bw, int splits, int gn_ranks, int gn_tpr, float eps,
-                                 cudaStream_t stream) {
-  const int N = T * H * W;
-  const GnTiles gt{gn_ranks, gn_tpr};
-  if (!supported(C, groups) || !gn_tiles_ok(gt, N) || (reinterpret_cast<uintptr_t>(g) & 15))
-    return (int)cudaErrorInvalidValue;
-  const Tiles t{bn, bt, bh, bw, splits};
-  cudaError_t err = conv::to_bf16(g, gb, (size_t)B * N * C, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = rconv<conv::kBf16>(gb, w2t_map, nullptr, dh, nullptr, B, T, H, W, C, t, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = gn_silu_bwd<__nv_bfloat16, __nv_bfloat16>(h2, emb, dh, g2s, g2b, nullptr, dv, demb, B, N,
-                                                  C, groups, gt, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = rconv<conv::kBf16>(dv, w1t_map, nullptr, dh, nullptr, B, T, H, W, C, t, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)gn_silu_bwd<float, float>(x, nullptr, dh, g1s, g1b, g, dx, nullptr, B, N, C, groups,
-                                        gt, eps, stream);
+                                 const bf16_t* h2, const void* w1t_map, const void* w2t_map,
+                                 const float* g1s, const float* g1b, const float* g2s,
+                                 const float* g2b, bf16_t* gb, bf16_t* dh, bf16_t* dv, float* dx,
+                                 float* demb, int B, int T, int H, int W, int C, int groups,
+                                 int bn, int bt, int bh, int bw, int splits, int gn_ranks,
+                                 int gn_tpr, float eps, cudaStream_t stream) {
+  return backward(x, emb, g, h2, w1t_map, w2t_map, g1s, g1b, g2s, g2b, gb, dh, dv, dx, demb, B, T,
+                  H, W, C, groups, bn, bt, bh, bw, splits, gn_ranks, gn_tpr, eps, stream);
+}
+
+// The bf16 form: x, emb, g and dx bf16 (gb unused); demb f32 as in the f32 form.
+extern "C" int resblock_backward_bf16(const bf16_t* x, const bf16_t* emb, const bf16_t* g,
+                                      const bf16_t* h2, const void* w1t_map, const void* w2t_map,
+                                      const float* g1s, const float* g1b, const float* g2s,
+                                      const float* g2b, bf16_t* gb, bf16_t* dh, bf16_t* dv,
+                                      bf16_t* dx, float* demb, int B, int T, int H, int W, int C,
+                                      int groups, int bn, int bt, int bh, int bw, int splits,
+                                      int gn_ranks, int gn_tpr, float eps, cudaStream_t stream) {
+  return backward(x, emb, g, h2, w1t_map, w2t_map, g1s, g1b, g2s, g2b, gb, dh, dv, dx, demb, B, T,
+                  H, W, C, groups, bn, bt, bh, bw, splits, gn_ranks, gn_tpr, eps, stream);
 }

@@ -28,11 +28,11 @@ captures, once per forecast, and drops every graph when one has moved.  An
 update through ``.data`` bypasses the version counter and is not seen, as
 in ``ops/weights.py``.
 
-The kernels' ``.launches`` counters tick in Python, once per wrapper call;
-a capture would count one step however often it is replayed.  So the
-counts a capture adds are taken back and kept as the graph's launches per
-replay, and each replay adds them again: ``.launches`` still counts the
-kernels' launches on the card.
+The kernels' ``.launches`` counters (and ``.bf16_launches``, their bf16
+forms') tick in Python, once per wrapper call; a capture would count one
+step however often it is replayed.  So the counts a capture adds are taken
+back and kept as the graph's launches per replay, and each replay adds them
+again: the counters still count the kernels' launches on the card.
 """
 import time
 from dataclasses import dataclass
@@ -40,6 +40,8 @@ from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from ..utils.precision import versions
 
 
 @dataclass
@@ -59,6 +61,9 @@ class StepBuffers:
     x0: Optional[torch.Tensor]
 
 
+COUNTERS = ("launches", "bf16_launches")
+
+
 def launch_counters() -> List[Callable]:
     """Every kernel wrapper with a ``.launches`` counter."""
     from ..ops import attention, conv3d, ffn, groupnorm, resblock
@@ -69,6 +74,12 @@ def launch_counters() -> List[Callable]:
             if callable(fn) and isinstance(getattr(fn, "launches", None), int):
                 found[id(fn)] = fn
     return list(found.values())
+
+
+def _counts() -> List[Tuple[Callable, str, int]]:
+    """(wrapper, counter, value) of every counter of every kernel wrapper."""
+    return [(fn, attr, getattr(fn, attr)) for fn in launch_counters() for attr in COUNTERS
+            if hasattr(fn, attr)]
 
 
 class StepGraphs:
@@ -90,11 +101,14 @@ class StepGraphs:
             return
         graph, deltas = entry
         graph.replay()
-        for fn, n in deltas:
-            fn.launches += n
+        for fn, attr, n in deltas:
+            setattr(fn, attr, getattr(fn, attr) + n)
 
     def launches_per_replay(self) -> Dict[Hashable, Dict[str, int]]:
-        return {kind: {fn.__name__: n for fn, n in deltas}
+        """Per step kind, each wrapper's launches a replay adds (its bf16
+        form's under ``<name>.bf16``)."""
+        return {kind: {fn.__name__ + ("" if attr == "launches" else ".bf16"): n
+                       for fn, attr, n in deltas}
                 for kind, (_, deltas) in self.graphs.items()}
 
 
@@ -115,8 +129,7 @@ class StepGraphCache:
 
     def snapshot(self) -> tuple:
         """``(data_ptr, _version)`` of every parameter and buffer the steps read."""
-        return tuple((t.data_ptr(), t._version) for m in self._modules()
-                     for t in (*m.parameters(), *m.buffers()))
+        return tuple(v for m in self._modules() for v in versions(m))
 
     def validate(self) -> bool:
         """Drop every graph if a parameter or buffer moved since the
@@ -145,7 +158,6 @@ class StepGraphCache:
         """Run ``step`` eagerly on a side stream, then capture it into a
         graph of this cache's pool; returns the graph and its launches per
         replay."""
-        counters = launch_counters()
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
@@ -154,16 +166,17 @@ class StepGraphCache:
         current.wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        before = [(fn, fn.launches) for fn in counters]
+        before = _counts()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, pool=self._pool):
                 step()
         finally:
-            deltas = [(fn, fn.launches - n) for fn, n in before if fn.launches != n]
-            for fn, n in before:
-                fn.launches = n
+            deltas = [(fn, attr, getattr(fn, attr) - n) for fn, attr, n in before
+                      if getattr(fn, attr) != n]
+            for fn, attr, n in before:
+                setattr(fn, attr, n)
         self.capture_seconds += time.perf_counter() - t0
         self.captures += 1
         return graph, deltas

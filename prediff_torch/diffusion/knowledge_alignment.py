@@ -7,11 +7,21 @@ alignment_pl.py:423).  The guidance gradient is ``torch.autograd.grad`` of
 the squared error with respect to z_t, with the explicit chain rule of the
 JAX package's ``_shift_impl``: grad(sq) / (2 sqrt(sq + 1e-24)).  Under that
 gradient every kernel of the alignment net runs its input-gradient kernel.
+
+``compute_dtype`` follows the JAX package's rule (``get_mean_shift``): where
+it differs from z_t's dtype the net runs on a copy of its parameters in that
+dtype (``utils.precision.LowCopy``: one copy per parameter version) and on
+z_t cast to it, and the shift comes back in z_t's dtype; where it is z_t's
+dtype the net keeps its own parameters.  In bf16 the net's kernels run their
+bf16 forms.  The scalar tail stays f32 in every case: grad(sq) in the dtype
+of the z it was taken for, divided by the f32 sqrt in f32.
 """
-from typing import Dict
+from typing import Dict, List
 
 import torch
 from torch import nn
+
+from ..utils.precision import LowCopy, dtype_name, resolve_dtype
 
 
 def avg_x_objective(x: torch.Tensor) -> torch.Tensor:
@@ -29,24 +39,43 @@ class KnowledgeAlignment:
                  alignment_type: str = "avg_x", compute_dtype: str = "float32"):
         if alignment_type != "avg_x":
             raise NotImplementedError(f"alignment type '{alignment_type}' is not ported")
-        if compute_dtype == "auto":   # the JAX package's resolution off a TPU
-            compute_dtype = "float32"
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"guidance compute_dtype {compute_dtype!r}: only float32 is ported (ROADMAP.md "
-                "queue 1, compute_dtype='bfloat16' for the chain and for guidance)")
+        self.dtype = resolve_dtype(compute_dtype, "guidance compute_dtype")
         self.model = model
         self.guide_scale = guide_scale
         self.alignment_type = alignment_type
-        self.compute_dtype = compute_dtype
+        self.compute_dtype = dtype_name(self.dtype)
+        self._low = LowCopy(model, self.dtype)
 
-    def predict(self, zt: torch.Tensor, t: torch.Tensor, zc=None, y=None) -> torch.Tensor:
+    def _cast_net(self) -> nn.Module:
+        """The net in the guidance dtype: itself where its parameters are in
+        it, else its copy, brought up to date with the parameters."""
+        if next(self.model.parameters()).dtype == self.dtype:
+            return self.model
+        return self._low.get()
+
+    def modules(self, zt_dtype: torch.dtype) -> List[nn.Module]:
+        """The modules whose tensors guidance reads for a carry of
+        ``zt_dtype``, a copy brought up to date: what a captured guided step
+        bakes in."""
+        if self.dtype == zt_dtype:
+            return [self.model]
+        return list({id(m): m for m in (self.model, self._cast_net())}.values())
+
+    def tracked(self) -> List[nn.Module]:
+        """The net and, once made, its copy in the guidance dtype."""
+        return [self.model] + ([self._low.copy] if self._low.copy is not None else [])
+
+    def predict(self, zt: torch.Tensor, t: torch.Tensor, zc=None, y=None,
+                net: nn.Module = None) -> torch.Tensor:
         """U(z_t, t); ``zc`` and ``y`` are accepted and ignored, as the
-        reference's alignment net ignores them."""
-        return self.model(zt, t)
+        reference's alignment net ignores them.  As flax promotes, z_t is
+        widened to the parameters' dtype where that is wider."""
+        net = self.model if net is None else net
+        pdtype = next(net.parameters()).dtype
+        return net(zt.to(torch.promote_types(zt.dtype, pdtype)), t)
 
-    def _sq_error(self, zt, t, avg_x_gt, zc=None, y=None) -> torch.Tensor:
-        pred = self.predict(zt, t, zc=zc, y=y).float().mean(dim=1)   # (B, 1)
+    def _sq_error(self, zt, t, avg_x_gt, zc=None, y=None, net=None) -> torch.Tensor:
+        pred = self.predict(zt, t, zc=zc, y=y, net=net).float().mean(dim=1)   # (B, 1)
         return (pred - avg_x_gt.float()).square().sum()
 
     def alignment_energy(self, zt, t, avg_x_gt, zc=None, y=None) -> torch.Tensor:
@@ -54,12 +83,22 @@ class KnowledgeAlignment:
 
     def get_mean_shift(self, zt, t, avg_x_gt, zc=None, y=None) -> torch.Tensor:
         """guide_scale * d(energy)/d(z_t), taken by autograd whatever the
-        caller's grad mode."""
+        caller's grad mode: in z_t's dtype where the guidance dtype differs
+        from it, else in the promotion of z_t's dtype and f32, as the JAX
+        package returns it."""
+        if self.dtype != zt.dtype:
+            zc = None if zc is None else zc.to(self.dtype)
+            shift = self._shift(zt.to(self.dtype), t, avg_x_gt, zc, y, self._cast_net())
+            return self.guide_scale * shift.to(zt.dtype)
+        return self.guide_scale * self._shift(zt, t, avg_x_gt, zc, y, self.model)
+
+    def _shift(self, zt, t, avg_x_gt, zc, y, net) -> torch.Tensor:
         with torch.enable_grad():
             z = zt.detach().requires_grad_(True)
-            sq = self._sq_error(z, t, avg_x_gt, zc=zc, y=y)
+            sq = self._sq_error(z, t, avg_x_gt, zc=zc, y=y, net=net)
             (grad_sq,) = torch.autograd.grad(sq, z)
-        return self.guide_scale * (grad_sq / (2.0 * torch.sqrt(sq.detach() + 1e-24)))
+        # a 0-d f32 tensor does not promote a bf16 one in torch; in JAX it does
+        return grad_sq.float() / (2.0 * torch.sqrt(sq.detach() + 1e-24))
 
 
 def get_alignment_kwargs_avg_x(target_seq: torch.Tensor,

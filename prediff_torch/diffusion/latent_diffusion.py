@@ -19,6 +19,16 @@ its compiled chain).  On the CPU the same steps run eagerly: the chain's
 plain version.  The host draws each step's noise from the caller's
 generator into its buffer, where and in the order the eager chain draws it.
 
+``compute_dtype`` (float32, bfloat16 or float16) is the JAX package's: x_T
+and the context latent are rounded to it, and each step computes in f32
+from the rounded carry (the denoiser's parameters stay f32, so the network
+runs in f32, as flax promotes there) and rounds its result to it; the step
+noise is drawn in the carry's dtype, the inpainting noise in f32.  The
+static buffers take the dtype, the graph key carries it, and the latent
+output and intermediates come back in it.  ``first_stage_dtype`` likewise
+encodes on a copy of the encoder's parameters and the frames in that dtype
+and returns f32 moments; the decode stays f32.
+
 Training: the frozen VAE encodes the target (posterior sample) and the
 context (mode) under ``no_grad``, t and the noise are drawn from the caller's
 generator, and :meth:`LatentDiffusion.p_losses` weighs the denoiser's error
@@ -35,8 +45,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.vae import FirstStageEncoder
 from ..utils.device import resolve_device
 from ..utils.distributions import latents_from_moments_seq
+from ..utils.precision import LowCopy, dtype_name, resolve_dtype
 from . import core
 from .graphs import StepBuffers, StepGraphCache, StepGraphs
 from .knowledge_alignment import KnowledgeAlignment
@@ -70,7 +82,8 @@ class LatentDiffusion:
     the schedule and, for guided sampling, the knowledge alignment; not
     itself a module.  ``device=None`` means the card, as at every entry point
     (``utils.device.resolve_device``: raises without one); ``"cpu"`` runs the
-    plain versions."""
+    plain versions.  ``first_stage_dtype`` names the encoder's compute dtype
+    (``"auto"``: float32, the JAX package's resolution off a TPU)."""
 
     def __init__(self, unet: nn.Module, vae: nn.Module, schedule: GaussianSchedule,
                  latent_shape: Sequence[int], cond_latent_shape: Optional[Sequence[int]] = None,
@@ -79,7 +92,8 @@ class LatentDiffusion:
                  alignment: Optional[KnowledgeAlignment] = None, device=None,
                  loss_type: str = "l2", l_simple_weight: float = 1.0,
                  original_elbo_weight: float = 0.0, learn_logvar: bool = False,
-                 logvar_init: float = 0.0, log_every_t: int = 100):
+                 logvar_init: float = 0.0, log_every_t: int = 100,
+                 first_stage_dtype="auto"):
         if parameterization not in ("eps", "x0"):
             raise ValueError(f"parameterization '{parameterization}'")
         self.device = resolve_device(device)
@@ -100,17 +114,26 @@ class LatentDiffusion:
         self.learn_logvar = learn_logvar
         self.logvar_init = logvar_init
         self.log_every_t = log_every_t
+        self.first_stage_dtype = resolve_dtype(first_stage_dtype, "first_stage_dtype")
+        self._encoder = (None if self.first_stage_dtype == torch.float32
+                         else LowCopy(FirstStageEncoder(vae), self.first_stage_dtype))
         self.graphs = StepGraphCache(self._graph_modules)
         self._plain = False
 
     def _graph_modules(self):
-        """The modules whose parameters and buffers the captured steps read."""
-        return [self.unet] + ([self.alignment.model] if self.alignment is not None else [])
+        """The modules whose parameters and buffers the captured steps read
+        (the alignment net's copy in the guidance dtype too, once made)."""
+        return [self.unet] + (self.alignment.tracked() if self.alignment is not None else [])
 
     @torch.no_grad()
     def first_stage_moments(self, frames: torch.Tensor) -> torch.Tensor:
-        """(n, H, W, C) frames -> (n, h, w, 2c) f32 encoder moments; the VAE is frozen."""
-        return self.vae.encode_moments(frames).float()
+        """(n, H, W, C) frames -> (n, h, w, 2c) f32 encoder moments; the VAE is
+        frozen.  In another ``first_stage_dtype`` than f32 the frames and a
+        copy of the encoder's parameters (one per parameter version) are in
+        that dtype."""
+        if self.first_stage_dtype == torch.float32:
+            return self.vae.encode_moments(frames).float()
+        return self._encoder.get()(frames.to(self.first_stage_dtype)).float()
 
     def latents_from_moments(self, moments: torch.Tensor,
                              generator: Optional[torch.Generator] = None,
@@ -212,9 +235,10 @@ class LatentDiffusion:
         """Latent seq (B,T,h,w,c) -> pixel seq (B,T,H,W,C); ``decode_chunk_size``
         frames at a time when set, which bounds the decoder's activations."""
         B = z.shape[0]
+        # a bf16 latent is divided in bf16, then widened for the f32 VAE, as in JAX
         frames = (z / self.scale_factor).reshape((-1,) + tuple(z.shape[2:]))
         chunk = self.decode_chunk_size or frames.shape[0]
-        dec = torch.cat([self.vae.decode(f) for f in torch.split(frames, chunk)])
+        dec = torch.cat([self.vae.decode(f.float()) for f in torch.split(frames, chunk)])
         return dec.reshape((B, -1) + tuple(dec.shape[1:]))
 
 
@@ -265,14 +289,15 @@ class LatentDiffusion:
     @staticmethod
     def _buffers(plan: ChainPlan, z, zc, y, avg_x_gt, mask, x0) -> StepBuffers:
         """New buffers holding copies of a chain's inputs; the mask and x0
-        broadcast to the latent's shape."""
+        broadcast to the latent's shape.  z, zc and the step noise in the
+        chain's dtype, the mask's noise in f32."""
         def copy(t):
             return None if t is None else t.clone()
 
         return StepBuffers(
             z=z.clone(), t=torch.zeros((z.shape[0],), dtype=torch.long, device=z.device),
             noise=torch.zeros_like(z) if plan.noisy else None,
-            noise2=torch.zeros_like(z) if plan.use_mask else None,
+            noise2=torch.zeros_like(z, dtype=torch.float32) if plan.use_mask else None,
             zc=zc.clone(), y=copy(y), avg_x_gt=copy(avg_x_gt),
             mask=None if mask is None else torch.broadcast_to(mask, z.shape).clone(),
             x0=None if x0 is None else torch.broadcast_to(x0, z.shape).clone())
@@ -295,9 +320,10 @@ class LatentDiffusion:
 
     def _ddpm_update(self, s: StepBuffers, plan: ChainPlan, guided: bool) -> torch.Tensor:
         z, t_b = s.z, s.t
-        model_out = self.unet(z, t_b, s.zc)
+        zf = z.float()   # the f32 denoiser promotes a narrower carry, as flax does
+        model_out = self.unet(zf, t_b, s.zc.float())
         mean, _, log_var, _ = core.p_mean_variance(
-            self.schedule, model_out, z, t_b, parameterization=self.parameterization,
+            self.schedule, model_out, zf, t_b, parameterization=self.parameterization,
             clip_denoised=self.clip_denoised)
         if guided:
             shift = self._shift(z, t_b, s.zc, s.y, s.avg_x_gt)
@@ -305,7 +331,7 @@ class LatentDiffusion:
             mean = mean - torch.exp(0.5 * log_var) * (shift if k <= 1 else float(k) * shift)
         if plan.noisy:   # the JAX body's ``nonzero``: no noise at t = 0
             nonzero = (t_b > 0).to(z.dtype).reshape((-1,) + (1,) * (z.ndim - 1))
-            mean = mean + torch.exp(0.5 * log_var) * s.noise * plan.temperature * nonzero
+            mean = mean + nonzero * torch.exp(0.5 * log_var) * (s.noise * plan.temperature)
         if plan.use_mask:
             z_orig = core.q_sample(self.schedule, s.x0, t_b, s.noise2)
             mean = z_orig * s.mask + (1.0 - s.mask) * mean
@@ -321,7 +347,8 @@ class LatentDiffusion:
             return plan.ddim[name][idx].reshape(shape)
 
         t_b = plan.ddim["ts"][idx]
-        model_out = self.unet(z, t_b, s.zc)
+        carry, z = z, z.float()   # the f32 denoiser promotes a narrower carry, as flax does
+        model_out = self.unet(z, t_b, s.zc.float())
         sqrt_a, sqrt_1ma = at("sqrt_a"), at("sqrt_1ma")
         if self.parameterization == "eps":
             eps = model_out
@@ -332,13 +359,13 @@ class LatentDiffusion:
         if plan.clip_x0 or self.clip_denoised:
             x0_pred = torch.clamp(x0_pred, -1.0, 1.0)
         if guided:
-            shift = self._shift(z, t_b, s.zc, s.y, s.avg_x_gt)
+            shift = self._shift(carry, t_b, s.zc, s.y, s.avg_x_gt)
             eps = eps + sqrt_1ma * (float(max(plan.guidance_every_k, 1)) * shift)
         if plan.use_alignment:   # on every step of a guided chain, as the JAX body does
             x0_pred = (z - sqrt_1ma * eps) / sqrt_a
         out = at("sqrt_a_prev") * x0_pred + at("dir_coef") * eps
         if plan.noisy:
-            out = out + at("sigma") * s.noise * plan.temperature
+            out = out + at("sigma") * (s.noise * plan.temperature)
         return out
 
     def _reverse_step(self, s: StepBuffers, plan: ChainPlan, guided: bool) -> None:
@@ -401,12 +428,11 @@ class LatentDiffusion:
         inpaint: after each DDPM step ``z = q_sample(x0, t)·mask + (1 -
         mask)·z``, with noise drawn after the step's own; DDIM ignores them,
         as the JAX package does.  ``generator`` (on ``self.device``) draws
-        x_T, unless given, and the per-step noise.  On the card every step
-        replays a captured graph (``graphs.py``)."""
-        if compute_dtype not in ("float32", torch.float32):
-            raise NotImplementedError(
-                f"compute_dtype {compute_dtype!r}: only float32 is ported (ROADMAP.md queue 1, "
-                "compute_dtype='bfloat16' for the chain and for guidance)")
+        x_T, unless given, and the per-step noise.  ``compute_dtype``
+        (``"float32"``, ``"bfloat16"``, ``"float16"`` or the torch dtype) is
+        the carry's: see the module's note.  On the card every step replays a
+        captured graph (``graphs.py``)."""
+        dtype = resolve_dtype(compute_dtype, "compute_dtype")
         if (mask is None) != (x0 is None):
             raise ValueError("inpainting needs both mask and x0")
         avg_x_gt = None
@@ -423,7 +449,8 @@ class LatentDiffusion:
             z = torch.randn((B,) + self.latent_shape, generator=generator, device=self.device)
         else:
             z = x_T.to(self.device, torch.float32)
-        zc = self.cond_stage_forward(y)
+        z = z.to(dtype)
+        zc = self.cond_stage_forward(y).to(dtype)
         use_mask = mask is not None and sampler == "ddpm"   # DDIM ignores the mask
         if use_mask:
             mask = torch.as_tensor(mask).to(self.device, torch.float32)
@@ -436,13 +463,16 @@ class LatentDiffusion:
                   use_alignment, guidance_every_k, use_mask, num_segments)
         inputs = (z, zc, y, avg_x_gt, mask, x0)
         entry = None
+        if use_alignment:   # the copy in the guidance dtype, up to date before the snapshot
+            self.alignment.modules(dtype)
         if self.device.type == "cuda" and not self._plain:
             self.graphs.validate()
             key = (tuple(y.shape), bool(use_alignment), timesteps, bool(return_decoded),
-                   use_mask, num_segments, float(temperature), "float32", sampler,
+                   use_mask, num_segments, float(temperature), dtype_name(dtype), sampler,
                    ddim_steps, float(ddim_eta), bool(ddim_clip_x0), int(guidance_every_k),
                    self._route(), self.parameterization, self.clip_denoised,
-                   self.alignment.guide_scale if use_alignment else None)
+                   (self.alignment.guide_scale, self.alignment.compute_dtype)
+                   if use_alignment else None)
 
             def make():
                 plan = self._chain_plan(*static)

@@ -155,7 +155,8 @@ def build_pipeline(cfg: ConfigDict, with_alignment: bool = False, device=None,
         cond_latent_shape=d.latent_cond_shape, parameterization=d.parameterization,
         scale_factor=d.scale_factor, clip_denoised=d.clip_denoised,
         decode_chunk_size=d.get("decode_chunk_size"), alignment=alignment, device=dev,
-        learn_logvar=d.learn_logvar, logvar_init=d.logvar_init, log_every_t=d.log_every_t)
+        learn_logvar=d.learn_logvar, logvar_init=d.logvar_init, log_every_t=d.log_every_t,
+        first_stage_dtype=d.get("first_stage_dtype", "auto"))
 
 
 def build_training_pipeline(cfg: ConfigDict, device=None,

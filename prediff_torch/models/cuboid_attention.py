@@ -160,11 +160,16 @@ class CuboidSelfAttentionLayer(nn.Module):
             return "einsum"
         return route
 
-    def rel_bias(self, vol: int) -> torch.Tensor:
-        """(heads, vol, vol) relative-position bias gathered from the table."""
+    def rel_bias(self, vol: int, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """(heads, vol, vol) relative-position bias gathered from the table, in
+        ``dtype`` (the kernels read it in f32, whatever the table's dtype: a
+        bf16 table widens exactly) or the table's."""
         idx = self.relative_position_index[:vol, :vol].reshape(-1)
         bias = self.relative_position_bias_table[idx].reshape(vol, vol, self.num_heads)
-        return bias.permute(2, 0, 1).contiguous()
+        bias = bias.permute(2, 0, 1)
+        if dtype in (None, bias.dtype):
+            return bias.contiguous()
+        return bias.to(dtype, memory_format=torch.contiguous_format)
 
     def forward(self, x: torch.Tensor, drop: Optional[DropoutStream] = None) -> torch.Tensor:
         _, T, H, W, _ = x.shape
@@ -179,12 +184,13 @@ class CuboidSelfAttentionLayer(nn.Module):
         if route == "axial":
             return fused_axial_attention(x.contiguous(), _axial_axis(cs, (T, H, W)),
                                          self.norm.weight, self.norm.bias, self.qkv.weight,
-                                         self.rel_bias(vol), self.proj.weight, self.proj.bias,
-                                         self.num_heads, self.scale, self.norm.eps, **rates)
+                                         self.rel_bias(vol, torch.float32), self.proj.weight,
+                                         self.proj.bias, self.num_heads, self.scale,
+                                         self.norm.eps, **rates)
         if route == "v4":
             xr = cuboid_reorder(x, cs, self.strategy).contiguous()
             out = fused_cuboid_attention_layer(xr, self.norm.weight, self.norm.bias,
-                                               self.qkv.weight, self.rel_bias(vol),
+                                               self.qkv.weight, self.rel_bias(vol, torch.float32),
                                                self.proj.weight, self.proj.bias, self.num_heads,
                                                self.scale, self.norm.eps, **rates)
             return cuboid_reorder_reverse(out, cs, self.strategy, (T, H, W))

@@ -171,6 +171,33 @@ class Decoder(nn.Module):
         return (out, x) if return_features else out
 
 
+class FirstStageEncoder(nn.Module):
+    """The modules of :meth:`AutoencoderKL.encode_moments` (shared, not
+    copied), under the names they have in the VAE: what an encode in another
+    dtype casts."""
+
+    def __init__(self, vae: "AutoencoderKL"):
+        super().__init__()
+        self.encoder = vae.encoder
+        self.quant_conv = vae.quant_conv
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return AutoencoderKL.encode_moments(self, x)
+
+
+class FeatureDecoder(nn.Module):
+    """The modules of :meth:`AutoencoderKL.decode_with_features` (shared,
+    not copied), under the names they have in the VAE."""
+
+    def __init__(self, vae: "AutoencoderKL"):
+        super().__init__()
+        self.decoder = vae.decoder
+        self.post_quant_conv = vae.post_quant_conv
+
+    def forward(self, z: torch.Tensor):
+        return AutoencoderKL.decode_with_features(self, z)
+
+
 class AutoencoderKL(nn.Module):
     # seeded initialisation: flax's defaults (lecun_normal), as the JAX VAE's nn.Conv / nn.Dense
     FLAX_DEFAULT_INIT = True

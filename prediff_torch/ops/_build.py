@@ -11,6 +11,7 @@ built when a module is imported: the first launch builds what it needs, and
 started together.
 """
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -113,6 +114,45 @@ def require(kernel: str, specs) -> None:
             raise ValueError(f"{kernel} kernel: {name} must be a contiguous {dtype} CUDA tensor "
                              f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device}, "
                              f"contiguous={t.is_contiguous()}")
+
+
+def widened(plain):
+    """A plain version that also takes bf16 (or f16) tensors, as the JAX
+    package's XLA path does: its floating tensor arguments widened to f32
+    (exact), the function computed as in f32, and its result (the first of a
+    tuple: the output, or dx) in the dtype of its first argument; the
+    parameter gradients stay f32 (autograd casts them to their leaves')."""
+    def narrow(t):
+        return t.float() if isinstance(t, torch.Tensor) and t.is_floating_point() else t
+
+    @functools.wraps(plain)
+    def run(*args, **kwargs):
+        dtype = args[0].dtype
+        out = plain(*(narrow(a) for a in args), **{k: narrow(v) for k, v in kwargs.items()})
+        if isinstance(out, tuple):
+            return (out[0].to(dtype),) + out[1:]
+        return out.to(dtype)
+
+    return run
+
+
+def io_form(kernel: str, x: torch.Tensor) -> str:
+    """The suffix of the entry point for activations of ``x``'s dtype: ""
+    for the f32 form, "_bf16" for the bf16 form (the same kernel reading and
+    writing bf16, its arithmetic f32); any other dtype raises."""
+    if x.dtype == torch.float32:
+        return ""
+    if x.dtype == torch.bfloat16:
+        return "_bf16"
+    raise ValueError(f"{kernel} kernel: takes float32 or bfloat16 activations, got {x.dtype}")
+
+
+def count(wrapper, form: str) -> None:
+    """One launch of ``wrapper``'s kernel: ``.launches`` counts every form,
+    ``.bf16_launches`` the bf16 form's."""
+    wrapper.launches += 1
+    if form:
+        wrapper.bf16_launches += 1
 
 
 def plain_grads(fn, inputs, needs, g):

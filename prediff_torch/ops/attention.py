@@ -92,6 +92,8 @@ from .ffn import _round, layer_norm_bwd_plain, layer_norm_plain
 _P, _I, _F, _DROP = _build.P, _build.I, _build.F, _build.DROP_ARGTYPES
 _SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
                "axial_attention_bwd_dx": [_P] * 14 + [_I] * 8 + [_F, _F, _P],
+               "axial_attention_forward_bf16": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
+               "axial_attention_bwd_dx_bf16": [_P] * 14 + [_I] * 8 + [_F, _F, _P],
                "axial_attention_bwd_full": [_P] * 25 + [_I] * 12 + [_F, _F, _P],
                "axial_attention_dropout_forward": [_P] * 10 + [_I] * 8 + [_F, _F] + _DROP + [_P],
                "axial_attention_dropout_bwd_full": ([_P] * 25 + [_I] * 12 + [_F, _F] + _DROP
@@ -452,6 +454,7 @@ def _axial_reordered(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks
     return cuboid_reorder(x.float(), cs, _AXIAL), cs, (m_a, m_p)
 
 
+@_build.widened
 def axial_attention_plain(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: torch.Tensor,
                           w_qkv: torch.Tensor, bias: torch.Tensor, w_proj: torch.Tensor,
                           b_proj: torch.Tensor, num_heads: int, scale: float,
@@ -470,6 +473,7 @@ def axial_attention_plain(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: 
     return cuboid_reorder_reverse(out, cs, _AXIAL, x.shape[1:4]).to(x.dtype)
 
 
+@_build.widened
 def axial_attention_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
                                  ln_w: torch.Tensor, ln_b: torch.Tensor, w_qkv: torch.Tensor,
                                  bias: torch.Tensor, w_proj: torch.Tensor, num_heads: int,
@@ -484,6 +488,7 @@ def axial_attention_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
     return cuboid_reorder_reverse(dx, cs, _AXIAL, x.shape[1:4]).to(x.dtype)
 
 
+@_build.widened
 def axial_attention_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
                                    ln_w: torch.Tensor, ln_b: torch.Tensor, w_qkv: torch.Tensor,
                                    bias: torch.Tensor, w_proj: torch.Tensor, num_heads: int,
@@ -542,14 +547,19 @@ def _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_head
     """Launch the forward on the bf16 copies of w_qkv and w_proj kept per
     parameter version, with one bf16 scratch for qkv and the head outputs;
     ``drop`` = (rate_attn, rate_proj, seed, site) takes the dropout entry
-    point."""
+    point.  x and out f32, or bf16 (the bf16 form, without dropout); the
+    bias f32."""
     B, T, H, W, C = x.shape
     M, vol = _check(x, axis, num_heads)
     qkv_plan, proj_plan = attention_plan(M, C)
+    form = _build.io_form("attention", x)
+    if form and drop is not None:
+        raise ValueError("attention kernel: the bf16 form has no dropout form")
+    ln_w, ln_b, b_proj = (weights.f32(t) for t in (ln_w, ln_b, b_proj))
     _build.require("attention", [
-        ("x", x, (B, T, H, W, C)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
-        ("w_qkv", w_qkv, (3 * C, C)), ("bias", bias, (num_heads, vol, vol)),
-        ("w_proj", w_proj, (C, C)), ("b_proj", b_proj, (C,))])
+        ("x", x, (B, T, H, W, C), x.dtype), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
+        ("w_qkv", w_qkv, (3 * C, C), w_qkv.dtype), ("bias", bias, (num_heads, vol, vol)),
+        ("w_proj", w_proj, (C, C), w_proj.dtype), ("b_proj", b_proj, (C,))])
     x, ln_w, ln_b, b_proj = _build.aligned16(x, ln_w, ln_b, b_proj)
     lib = _build.load("attention", _SIGNATURES)
     _, wqkv_map = weights.linear_map(w_qkv, qkv_plan.bn, lib)
@@ -561,9 +571,10 @@ def _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_head
             _build.ptr(out)]
     dims = (B, T, H, W, C, axis, num_heads, qkv_plan.bn, float(scale), float(eps))
     if drop is None:
-        err = lib.axial_attention_forward(*ptrs, *dims, _build.stream_ptr(x.device))
-        _build.check(err, "axial_attention_forward")
-        fused_axial_attention.launches += 1
+        err = getattr(lib, "axial_attention_forward" + form)(*ptrs, *dims,
+                                                             _build.stream_ptr(x.device))
+        _build.check(err, "axial_attention_forward" + form)
+        _build.count(fused_axial_attention, form)
     else:
         rate_attn, rate_proj, seed, site = drop
         err = lib.axial_attention_dropout_forward(
@@ -597,16 +608,19 @@ def fused_axial_attention_bwd_dx(x: torch.Tensor, g: torch.Tensor, axis: int,
                                  bias: torch.Tensor, w_proj: torch.Tensor, num_heads: int,
                                  scale: float, eps: float = 1e-5) -> torch.Tensor:
     """dx of the layer.  CPU tensor: the plain version in f32.  CUDA tensor:
-    the kernel (C a multiple of 64, as the forward), or raise."""
+    the kernel (C a multiple of 64, as the forward), or raise.  x, g and dx
+    f32, or bf16 (the bf16 form); the bias f32."""
     if not x.is_cuda:
         return axial_attention_bwd_dx_plain(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj,
                                             num_heads, scale, eps)
     B, T, H, W, C = x.shape
     M, vol = _check(x, axis, num_heads, forward=False)
+    form, dt = _build.io_form("attention_bwd_dx", x), x.dtype
+    ln_w, ln_b = weights.f32(ln_w), weights.f32(ln_b)
     _build.require("attention_bwd_dx", [
-        ("x", x, (B, T, H, W, C)), ("g", g, (B, T, H, W, C)), ("ln_w", ln_w, (C,)),
-        ("ln_b", ln_b, (C,)), ("w_qkv", w_qkv, (3 * C, C)),
-        ("bias", bias, (num_heads, vol, vol)), ("w_proj", w_proj, (C, C))])
+        ("x", x, (B, T, H, W, C), dt), ("g", g, (B, T, H, W, C), dt), ("ln_w", ln_w, (C,)),
+        ("ln_b", ln_b, (C,)), ("w_qkv", w_qkv, (3 * C, C), w_qkv.dtype),
+        ("bias", bias, (num_heads, vol, vol)), ("w_proj", w_proj, (C, C), w_proj.dtype)])
     x, g, ln_w, ln_b = _build.aligned16(x, g, ln_w, ln_b)
     plan = axial_bwd_plan(M, C, vol, num_heads)
     lib = _build.load("attention", _SIGNATURES)
@@ -616,13 +630,13 @@ def fused_axial_attention_bwd_dx(x: torch.Tensor, g: torch.Tensor, axis: int,
                torch.empty((M, C), **bf16), torch.empty((M, 3 * C), **bf16),   # dattn, dqkv
                torch.empty((M, C), dtype=torch.float32, device=x.device)]      # dln
     dx = torch.empty_like(x)
-    err = lib.axial_attention_bwd_dx(
+    err = getattr(lib, "axial_attention_bwd_dx" + form)(
         _build.ptr(x), _build.ptr(g), _build.ptr(ln_w), _build.ptr(ln_b), maps[0],
         _build.ptr(bias), maps[1], maps[2], *(_build.ptr(t) for t in scratch + [dx]),
         B, T, H, W, C, axis, num_heads, plan.qkv.bn, float(scale), float(eps),
         _build.stream_ptr(x.device))
-    _build.check(err, "axial_attention_bwd_dx")
-    fused_axial_attention_bwd_dx.launches += 1
+    _build.check(err, "axial_attention_bwd_dx" + form)
+    _build.count(fused_axial_attention_bwd_dx, form)
     return dx
 
 
@@ -778,16 +792,17 @@ def fused_axial_attention(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: 
                           drop)
 
 
-fused_axial_attention.launches = 0
+fused_axial_attention.launches = fused_axial_attention.bf16_launches = 0
 fused_axial_attention_dropout.launches = 0
 fused_axial_attention_dropout_bwd_full.launches = 0
-fused_axial_attention_bwd_dx.launches = 0
+fused_axial_attention_bwd_dx.launches = fused_axial_attention_bwd_dx.bf16_launches = 0
 fused_axial_attention_bwd_full.launches = 0
 
 
 # --------------------------------------------------------------------------- #
 # General cuboid layer on cuboid_reorder's layout (B, cuboids, vol, C).
 
+@_build.widened
 def cuboid_attention_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                            w_qkv: torch.Tensor, bias: torch.Tensor, w_proj: torch.Tensor,
                            b_proj: torch.Tensor, num_heads: int, scale: float, eps: float = 1e-5,
@@ -810,6 +825,7 @@ def cuboid_attention_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tens
     return apply_mask(out, m_p, rate_proj).to(x.dtype)
 
 
+@_build.widened
 def cuboid_attention_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
                                   ln_b: torch.Tensor, w_qkv: torch.Tensor, bias: torch.Tensor,
                                   w_proj: torch.Tensor, num_heads: int, scale: float,
@@ -836,6 +852,7 @@ def cuboid_attention_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.
     return layer_norm_bwd_plain(xr, ln_w, dln, eps).to(x.dtype)
 
 
+@_build.widened
 def cuboid_attention_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
                                     ln_b: torch.Tensor, w_qkv: torch.Tensor, bias: torch.Tensor,
                                     w_proj: torch.Tensor, num_heads: int, scale: float,

@@ -31,6 +31,7 @@ from .ffn import _round
 
 _P, _I = _build.P, _build.I
 _SIGNATURES = {"conv3x3x3_forward": [_P] * 5 + [_I] * 11 + [_P],
+               "conv3x3x3_forward_bf16": [_P] * 4 + [_I] * 11 + [_P],
                "conv3x3x3_weight_map": [_P, _I, _I, _I, _P], **weights.MAP_SIGNATURE}
 # the JAX package's VMEM budget of its routing rule (prediff_tpu/ops/dispatch.py)
 VMEM_BUDGET_BYTES = 12 * 1024 * 1024
@@ -97,6 +98,7 @@ def _nthwc(v: torch.Tensor) -> torch.Tensor:
     return v.permute(0, 2, 3, 4, 1)
 
 
+@_build.widened
 def conv3x3x3_plain(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
                     mxu_dtype: Optional[torch.dtype] = torch.bfloat16) -> torch.Tensor:
     """Plain version: x and the weights rounded to ``mxu_dtype`` (``None``
@@ -108,6 +110,7 @@ def conv3x3x3_plain(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.
     return out.to(x.dtype)
 
 
+@_build.widened
 def conv3x3x3_dx_plain(g: torch.Tensor, weight: torch.Tensor,
                        mxu_dtype: Optional[torch.dtype] = torch.bfloat16) -> torch.Tensor:
     """Plain input gradient of :func:`conv3x3x3_plain` for the cotangent ``g``
@@ -247,11 +250,15 @@ def weight_map(weight: torch.Tensor, dx: bool, n_tile: int):
 
 def _launch(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
             dx: bool) -> torch.Tensor:
-    """The kernel on x (B, T, H, W, K) with ``weight``'s cached layout."""
+    """The kernel on x (B, T, H, W, K) with ``weight``'s cached layout: x
+    and out f32 (x rounded to bf16 by a launch of its own), or bf16 (the
+    bf16 form: x the operand as it is, out rounded once)."""
     B, T, H, W, K = x.shape
     N = weight.shape[1] if dx else weight.shape[0]
     plan = conv_plan(B, T, H, W, K, N)
-    specs = [("x", x, (B, T, H, W, K))]
+    form = _build.io_form("conv3x3x3", x)
+    bias = weights.f32(bias)
+    specs = [("x", x, (B, T, H, W, K), x.dtype)]
     if bias is not None:
         specs.append(("bias", bias, (N,)))
     _build.require("conv3x3x3", specs)
@@ -261,15 +268,18 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     if x.data_ptr() % 16:
         raise ValueError("conv3x3x3 kernel: x must be 16-byte aligned")
     layout, desc = weight_map(weight, dx, plan.n_tile)
-    xb = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-    out = torch.empty((B, T, H, W, N), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, T, H, W, N), dtype=x.dtype, device=x.device)
     lib = _build.load("conv3d", _SIGNATURES)
-    err = lib.conv3x3x3_forward(_build.ptr(x), _build.ptr(xb), desc,
-                                None if bias is None else _build.ptr(bias), _build.ptr(out),
-                                B, T, H, W, K, N, plan.n_tile, *plan.box, plan.splits,
-                                _build.stream_ptr(x.device))
-    _build.check(err, "conv3x3x3_forward")
-    return out
+    bias_p = None if bias is None else _build.ptr(bias)
+    dims = (B, T, H, W, K, N, plan.n_tile, *plan.box, plan.splits, _build.stream_ptr(x.device))
+    if form:
+        err = lib.conv3x3x3_forward_bf16(_build.ptr(x), desc, bias_p, _build.ptr(out), *dims)
+    else:
+        xb = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+        err = lib.conv3x3x3_forward(_build.ptr(x), _build.ptr(xb), desc, bias_p, _build.ptr(out),
+                                    *dims)
+    _build.check(err, "conv3x3x3_forward" + form)
+    return out, form
 
 
 def conv3x3x3_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -277,8 +287,8 @@ def conv3x3x3_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor)
     rounding).  CUDA tensor: the kernel, or raise."""
     if not x.is_cuda:
         return conv3x3x3_plain(x, weight, bias)
-    out = _launch(x, weight, bias, dx=False)
-    conv3x3x3_forward.launches += 1
+    out, form = _launch(x, weight, bias, dx=False)
+    _build.count(conv3x3x3_forward, form)
     return out
 
 
@@ -288,8 +298,8 @@ def conv3x3x3_dx(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     channel-transposed weights, or raise."""
     if not g.is_cuda:
         return conv3x3x3_dx_plain(g, weight)
-    dx = _launch(g, weight, None, dx=True)
-    conv3x3x3_dx.launches += 1
+    dx, form = _launch(g, weight, None, dx=True)
+    _build.count(conv3x3x3_dx, form)
     return dx
 
 
@@ -328,5 +338,5 @@ def fused_conv3x3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -
     return conv3x3x3_forward(x, weight, bias)
 
 
-conv3x3x3_forward.launches = 0
-conv3x3x3_dx.launches = 0
+conv3x3x3_forward.launches = conv3x3x3_forward.bf16_launches = 0
+conv3x3x3_dx.launches = conv3x3x3_dx.bf16_launches = 0

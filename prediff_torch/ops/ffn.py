@@ -41,6 +41,8 @@ _SIGNATURES = {"ffn_forward": [_P] * 8 + [_I] * 4 + [_F, _P],
                "ffn_bwd_full": [_P] * 19 + [_I] * 7 + [_F, _P],
                "ffn_dropout_forward": [_P] * 8 + [_I] * 4 + [_F] + _DROP + [_P],
                "ffn_dropout_bwd_full": [_P] * 19 + [_I] * 7 + [_F] + _DROP + [_P],
+               "ffn_forward_bf16": [_P] * 8 + [_I] * 4 + [_F, _P],
+               "ffn_bwd_dx_bf16": [_P] * 9 + [_I] * 4 + [_F, _P],
                **weights.MAP_SIGNATURE}
 KERNEL_WIDTHS = (128, 256, 512)
 _CHUNK = 64              # csrc/ffn.cu fwd::kHC, bwd::kHC: hidden units per chunk
@@ -226,6 +228,7 @@ def gelu_grad(h: torch.Tensor) -> torch.Tensor:
             + h * torch.exp(-0.5 * h * h) * (2.0 * torch.pi) ** -0.5)
 
 
+@_build.widened
 def ffn_dropout_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                       w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                       eps: float = 1e-5, rate_act: float = 0.0, rate_out: float = 0.0,
@@ -255,6 +258,7 @@ def ffn_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch
     return ffn_dropout_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, mxu_dtype=mxu_dtype)
 
 
+@_build.widened
 def ffn_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                      w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, eps: float = 1e-5,
                      mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -270,6 +274,7 @@ def ffn_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b:
     return (gf + layer_norm_bwd_plain(xf, ln_w, dln, eps)).to(x.dtype)
 
 
+@_build.widened
 def ffn_dropout_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
                                ln_b: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                                w2: torch.Tensor, eps: float = 1e-5, rate_act: float = 0.0,
@@ -329,13 +334,18 @@ def _check_widths(M: int, C: int, hidden: int) -> None:
 def _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop=None):
     """Launch the forward (one launch, no workspace) on the bf16 copies of
     w1 and w2 kept per parameter version; ``drop`` = (rate_act, rate_out,
-    seed, site) takes the dropout entry point."""
+    seed, site) takes the dropout entry point.  x and out f32, or bf16 (the
+    bf16 form, without dropout)."""
     M, C = x.shape
     hidden = w1.shape[0]
     plan = ffn_plan(M, C, hidden)
-    _build.require("ffn", [("x", x, (M, C)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
-                           ("w1", w1, (hidden, C)), ("b1", b1, (hidden,)),
-                           ("w2", w2, (C, hidden)), ("b2", b2, (C,))])
+    form = _build.io_form("ffn", x)
+    if form and drop is not None:
+        raise ValueError("ffn kernel: the bf16 form has no dropout form")
+    ln_w, ln_b, b1, b2 = (weights.f32(t) for t in (ln_w, ln_b, b1, b2))
+    _build.require("ffn", [("x", x, (M, C), x.dtype), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
+                           ("w1", w1, (hidden, C), w1.dtype), ("b1", b1, (hidden,)),
+                           ("w2", w2, (C, hidden), w2.dtype), ("b2", b2, (C,))])
     x, ln_w, ln_b, b1, b2 = _build.aligned16(x, ln_w, ln_b, b1, b2)
     lib = _build.load("ffn", _SIGNATURES)
     _, w1_map = weights.linear_map(w1, 64, lib)
@@ -344,9 +354,9 @@ def _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop=None):
     args = [_build.ptr(x), _build.ptr(ln_w), _build.ptr(ln_b), w1_map, _build.ptr(b1), w2_map,
             _build.ptr(b2), _build.ptr(out), M, C, hidden, plan.splits, float(eps)]
     if drop is None:
-        err = lib.ffn_forward(*args, _build.stream_ptr(x.device))
-        _build.check(err, "ffn_forward")
-        fused_ffn.launches += 1
+        err = getattr(lib, "ffn_forward" + form)(*args, _build.stream_ptr(x.device))
+        _build.check(err, "ffn_forward" + form)
+        _build.count(fused_ffn, form)
     else:
         rate_act, rate_out, seed, site = drop
         err = lib.ffn_dropout_forward(*args, *_build.drop_args(seed, site, rate_act, rate_out),
@@ -381,24 +391,28 @@ def fused_ffn_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b:
                      eps: float = 1e-5) -> torch.Tensor:
     """dx of the fused FFN.  CPU tensor: the plain version in f32.  CUDA
     tensor: the kernel (C in ``KERNEL_WIDTHS``, hidden a multiple of 64, as
-    the forward), or raise."""
+    the forward), or raise.  x, g and dx f32, or bf16 (the bf16 form)."""
     if not x.is_cuda:
         return ffn_bwd_dx_plain(x, g, ln_w, ln_b, w1, b1, w2, eps)
     M, C = x.shape
     hidden = w1.shape[0]
     plan = ffn_bwd_plan(M, C, hidden)
+    form, dt = _build.io_form("ffn_bwd_dx", x), x.dtype
+    ln_w, ln_b, b1 = (weights.f32(t) for t in (ln_w, ln_b, b1))
     _build.require("ffn_bwd_dx", [
-        ("x", x, (M, C)), ("g", g, (M, C)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
-        ("w1", w1, (hidden, C)), ("b1", b1, (hidden,)), ("w2", w2, (C, hidden))])
+        ("x", x, (M, C), dt), ("g", g, (M, C), dt), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
+        ("w1", w1, (hidden, C), w1.dtype), ("b1", b1, (hidden,)),
+        ("w2", w2, (C, hidden), w2.dtype)])
     x, g, ln_w, ln_b, b1 = _build.aligned16(x, g, ln_w, ln_b, b1)
     lib = _build.load("ffn", _SIGNATURES)
     w1_map, w2t_map, w1t_map = _bwd_maps(w1, w2, C, lib)
     dx = torch.empty_like(x)
-    err = lib.ffn_bwd_dx(_build.ptr(x), _build.ptr(g), _build.ptr(ln_w), _build.ptr(ln_b), w1_map,
-                         _build.ptr(b1), w2t_map, w1t_map, _build.ptr(dx), M, C, hidden,
-                         plan.splits, float(eps), _build.stream_ptr(x.device))
-    _build.check(err, "ffn_bwd_dx")
-    fused_ffn_bwd_dx.launches += 1
+    err = getattr(lib, "ffn_bwd_dx" + form)(
+        _build.ptr(x), _build.ptr(g), _build.ptr(ln_w), _build.ptr(ln_b), w1_map, _build.ptr(b1),
+        w2t_map, w1t_map, _build.ptr(dx), M, C, hidden, plan.splits, float(eps),
+        _build.stream_ptr(x.device))
+    _build.check(err, "ffn_bwd_dx" + form)
+    _build.count(fused_ffn_bwd_dx, form)
     return dx
 
 
@@ -520,8 +534,8 @@ def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch
     return _ffn_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop)
 
 
-fused_ffn.launches = 0
+fused_ffn.launches = fused_ffn.bf16_launches = 0
 fused_ffn_dropout.launches = 0
 fused_ffn_dropout_bwd_full.launches = 0
-fused_ffn_bwd_dx.launches = 0
+fused_ffn_bwd_dx.launches = fused_ffn_bwd_dx.bf16_launches = 0
 fused_ffn_bwd_full.launches = 0

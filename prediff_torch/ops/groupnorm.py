@@ -38,15 +38,16 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, weights
 
 _TOK_PER_SPLIT = 64    # tokens per stats block (two-pass route)
 _TOK_PER_BLOCK = 16    # tokens per apply block (two-pass route)
 _P, _I, _F = _build.P, _build.I, _build.F
-_SIGNATURES = {"gn_silu_forward": [_P] * 6 + [_I] * 6 + [_F, _P],
-               "gn_silu_cluster_forward": [_P] * 5 + [_I] * 7 + [_F, _P],
-               "gn_silu_bwd_full": [_P] * 9 + [_I] * 5 + [_F, _P],
-               "gn_silu_bwd_cluster": [_P] * 9 + [_I] * 7 + [_F, _P]}
+_SIGNATURES = {name + form: args for name, args in (
+    ("gn_silu_forward", [_P] * 6 + [_I] * 6 + [_F, _P]),
+    ("gn_silu_cluster_forward", [_P] * 5 + [_I] * 7 + [_F, _P]),
+    ("gn_silu_bwd_full", [_P] * 9 + [_I] * 5 + [_F, _P]),
+    ("gn_silu_bwd_cluster", [_P] * 9 + [_I] * 7 + [_F, _P])) for form in ("", "_bf16")}
 # csrc/groupnorm.cu gn_cluster_kernel: dynamic shared memory a block may take,
 # threads a block, the largest (portable) cluster, and the blocks a launch
 # aims for (about one per SM of the H100's 132)
@@ -151,6 +152,7 @@ def gn_bwd_plan(B: int, N: int, C: int, groups: int) -> Optional[GnPlan]:
     return plan
 
 
+@_build.widened
 def groupnorm_silu_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                          emb: Optional[torch.Tensor] = None, groups: int = 32,
                          eps: float = 1e-5) -> torch.Tensor:
@@ -166,6 +168,7 @@ def groupnorm_silu_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
     return (y * torch.sigmoid(y)).to(x.dtype)
 
 
+@_build.widened
 def groupnorm_silu_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, weight: torch.Tensor,
                                   bias: torch.Tensor, emb: Optional[torch.Tensor] = None,
                                   groups: int = 32, eps: float = 1e-5):
@@ -208,15 +211,18 @@ def fused_groupnorm_silu_bwd_full(x: torch.Tensor, g: torch.Tensor, weight: torc
                                   groups: int = 32, eps: float = 1e-5):
     """(dx, dweight, dbias, demb or None).  CPU tensor: the plain version.
     CUDA tensor: the kernels (any ``groups`` that divides C, as the forward;
-    the route by :func:`gn_bwd_plan`), or raise."""
+    the route by :func:`gn_bwd_plan`), or raise.  x, g, emb and dx f32, or
+    bf16 (the bf16 forms); dweight, dbias and demb f32."""
     if not x.is_cuda:
         return groupnorm_silu_bwd_full_plain(x, g, weight, bias, emb, groups, eps)
     B, N, C = x.shape
     if C % groups != 0 or math.lcm(C // groups, 32) > 1024:
         raise ValueError(f"groupnorm_bwd_full kernel: C={C}, groups={groups} not supported")
-    _build.require("groupnorm_bwd_full", [("x", x, (B, N, C)), ("g", g, (B, N, C)),
+    form, dt = _build.io_form("groupnorm_bwd_full", x), x.dtype
+    weight, bias = weights.f32(weight), weights.f32(bias)
+    _build.require("groupnorm_bwd_full", [("x", x, (B, N, C), dt), ("g", g, (B, N, C), dt),
                                           ("weight", weight, (C,)), ("bias", bias, (C,))]
-                   + ([("emb", emb, (B, C))] if emb is not None else []))
+                   + ([("emb", emb, (B, C), dt)] if emb is not None else []))
     plan = gn_bwd_plan(B, N, C, groups)
     if plan is not None and plan.vw == 4:   # 16-byte copies
         x, g = _build.aligned16(x, g)
@@ -230,17 +236,18 @@ def fused_groupnorm_silu_bwd_full(x: torch.Tensor, g: torch.Tensor, weight: torc
             _build.ptr(demb) if demb is not None else None, _build.ptr(gpart), _build.ptr(vec),
             B, N, C, groups)
     if plan is not None:
-        err = lib.gn_silu_bwd_cluster(*head, plan.cluster, plan.tpr, plan.vw, float(eps),
-                                      _build.stream_ptr(x.device))
-        _build.check(err, "gn_silu_bwd_cluster")
+        err = getattr(lib, "gn_silu_bwd_cluster" + form)(
+            *head, plan.cluster, plan.tpr, plan.vw, float(eps), _build.stream_ptr(x.device))
+        _build.check(err, "gn_silu_bwd_cluster" + form)
     else:
         # a block of a (group, sample): a multiple of 32 threads and of the
         # group's channels, so that each thread stays on one channel
         unit = math.lcm(C // groups, 32)
         threads = max(256 // unit, 1) * unit
-        err = lib.gn_silu_bwd_full(*head, threads, float(eps), _build.stream_ptr(x.device))
-        _build.check(err, "gn_silu_bwd_full")
-    fused_groupnorm_silu_bwd_full.launches += 1
+        err = getattr(lib, "gn_silu_bwd_full" + form)(*head, threads, float(eps),
+                                                      _build.stream_ptr(x.device))
+        _build.check(err, "gn_silu_bwd_full" + form)
+    _build.count(fused_groupnorm_silu_bwd_full, form)
     return dx, vec[0], vec[1], demb
 
 
@@ -248,9 +255,11 @@ def _groupnorm_kernel(x, weight, bias, emb, groups, eps):
     B, N, C = x.shape
     if C % groups != 0 or C > 1024:
         raise ValueError(f"groupnorm kernel: C={C}, groups={groups} not supported")
-    _build.require("groupnorm", [("x", x, (B, N, C)), ("weight", weight, (C,)),
+    form, dt = _build.io_form("groupnorm", x), x.dtype
+    weight, bias = weights.f32(weight), weights.f32(bias)
+    _build.require("groupnorm", [("x", x, (B, N, C), dt), ("weight", weight, (C,)),
                                  ("bias", bias, (C,))]
-                   + ([("emb", emb, (B, C))] if emb is not None else []))
+                   + ([("emb", emb, (B, C), dt)] if emb is not None else []))
     plan = gn_plan(B, N, C, groups)
     if plan is not None and plan.vw == 4:   # 16-byte copies
         (x,) = _build.aligned16(x)
@@ -259,16 +268,18 @@ def _groupnorm_kernel(x, weight, bias, emb, groups, eps):
     head = (_build.ptr(x), _build.ptr(emb) if emb is not None else None, _build.ptr(weight),
             _build.ptr(bias), _build.ptr(y))
     if plan is not None:
-        err = lib.gn_silu_cluster_forward(*head, B, N, C, groups, plan.cluster, plan.tpr, plan.vw,
-                                          float(eps), _build.stream_ptr(x.device))
-        _build.check(err, "gn_silu_cluster_forward")
+        err = getattr(lib, "gn_silu_cluster_forward" + form)(
+            *head, B, N, C, groups, plan.cluster, plan.tpr, plan.vw, float(eps),
+            _build.stream_ptr(x.device))
+        _build.check(err, "gn_silu_cluster_forward" + form)
     else:
         part = torch.empty((B, -(-N // _TOK_PER_SPLIT), groups, 3), dtype=torch.float32,
                            device=x.device)
-        err = lib.gn_silu_forward(*head, _build.ptr(part), B, N, C, groups, _TOK_PER_SPLIT,
-                                  _TOK_PER_BLOCK, float(eps), _build.stream_ptr(x.device))
-        _build.check(err, "gn_silu_forward")
-    fused_groupnorm_silu.launches += 1
+        err = getattr(lib, "gn_silu_forward" + form)(
+            *head, _build.ptr(part), B, N, C, groups, _TOK_PER_SPLIT, _TOK_PER_BLOCK, float(eps),
+            _build.stream_ptr(x.device))
+        _build.check(err, "gn_silu_forward" + form)
+    _build.count(fused_groupnorm_silu, form)
     return y
 
 
@@ -303,5 +314,5 @@ def fused_groupnorm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
     return _groupnorm_forward(x, weight, bias, emb, groups, eps)
 
 
-fused_groupnorm_silu.launches = 0
-fused_groupnorm_silu_bwd_full.launches = 0
+fused_groupnorm_silu.launches = fused_groupnorm_silu.bf16_launches = 0
+fused_groupnorm_silu_bwd_full.launches = fused_groupnorm_silu_bwd_full.bf16_launches = 0

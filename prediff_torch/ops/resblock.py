@@ -25,13 +25,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import _build, conv3d
+from . import _build, conv3d, weights
 from .ffn import _round
 from .groupnorm import gn_bwd_plan, groupnorm_silu_plain
 
 _P, _I, _F = _build.P, _build.I, _build.F
-_SIGNATURES = {"resblock_forward": [_P] * 13 + [_I] * 13 + [_F, _P],
-               "resblock_backward": [_P] * 15 + [_I] * 13 + [_F, _P]}
+_SIGNATURES = {name + form: args for name, args in (
+    ("resblock_forward", [_P] * 13 + [_I] * 13 + [_F, _P]),
+    ("resblock_backward", [_P] * 15 + [_I] * 13 + [_F, _P])) for form in ("", "_bf16")}
 _GN_THREADS = 256   # csrc/resblock.cu kGnThreads
 
 
@@ -64,6 +65,7 @@ def _gn_silu(v: torch.Tensor, scale, shift, groups: int, eps: float, emb=None) -
                                 eps).reshape(v.shape)
 
 
+@_build.widened
 def resblock_plain(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups: int = 32,
                    eps: float = 1e-5, mxu_dtype: Optional[torch.dtype] = None):
     """Plain PyTorch version: (out, h2).  ``mxu_dtype`` rounds h1, h2, h3 and
@@ -93,6 +95,7 @@ def _gn_silu_bwd(v, dy, scale, shift, groups, eps):
     return (rstd * (ug - (s1 + xg * s2) / count)).reshape(v.shape)
 
 
+@_build.widened
 def resblock_bwd_plain(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g, groups: int = 32,
                        eps: float = 1e-5, mxu_dtype: Optional[torch.dtype] = None):
     """Plain (dx, demb) of :func:`resblock_plain` for the cotangent ``g``,
@@ -109,11 +112,13 @@ def resblock_bwd_plain(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g, groups: int = 
 
 
 def _specs(x, emb, groups, **vectors):
+    """The checks of x and emb (f32, or bf16: the bf16 forms) and of the
+    parameter vectors (f32)."""
     B, T, H, W, C = x.shape
     if not supports(C, groups):
         raise ValueError(f"resblock kernel: C={C}, groups={groups} not supported "
                          f"(C % 64 == 0, 256 % (C / groups) == 0)")
-    return ([("x", x, (B, T, H, W, C)), ("emb", emb, (B, C))]
+    return ([("x", x, (B, T, H, W, C), x.dtype), ("emb", emb, (B, C), x.dtype)]
             + [(n, t, (C,)) for n, t in vectors.items()])
 
 
@@ -132,7 +137,8 @@ def _conv_args(x, k1, k2, groups: int, dx: bool):
     (bt, bh, bw) and cluster split (``conv_tiles``), then the GroupNorm
     passes' ranks and tokens a rank."""
     B, T, H, W, C = x.shape
-    _build.require("resblock", [("k1", k1, (C, C, 3, 3, 3)), ("k2", k2, (C, C, 3, 3, 3))])
+    _build.require("resblock", [("k1", k1, (C, C, 3, 3, 3), k1.dtype),
+                                ("k2", k2, (C, C, 3, 3, 3), k2.dtype)])
     plan = conv3d.conv_tiles(B, T, H, W, C, C)
     return ([conv3d.weight_map(k1, dx, plan.n_tile)[1], conv3d.weight_map(k2, dx, plan.n_tile)[1]],
             [plan.n_tile, *plan.box, plan.splits, *gn_tiles(B, T * H * W, C, groups)])
@@ -141,10 +147,12 @@ def _conv_args(x, k1, k2, groups: int, dx: bool):
 def fused_resblock_fwd(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups: int = 32,
                        eps: float = 1e-5):
     """(out, h2).  CPU tensor: the plain version in f32.  CUDA tensor: the
-    kernels, or raise."""
+    kernels, or raise.  x, emb and out f32, or bf16 (the bf16 forms); h2 bf16."""
     if not x.is_cuda:
         return resblock_plain(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups, eps)
     B, T, H, W, C = x.shape
+    form = _build.io_form("resblock", x)
+    b1, b2, g1s, g1b, g2s, g2b = (weights.f32(t) for t in (b1, b2, g1s, g1b, g2s, g2b))
     _build.require("resblock", _specs(x, emb, groups, b1=b1, b2=b2, g1s=g1s, g1b=g1b,
                                       g2s=g2s, g2b=g2b))
     (w1, w2), tiles = _conv_args(x, k1, k2, groups, dx=False)
@@ -153,36 +161,40 @@ def fused_resblock_fwd(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups: int =
     out = torch.empty_like(x)
     lib = _build.load("resblock", _SIGNATURES)
     p = _build.ptr
-    err = lib.resblock_forward(p(x), p(emb), w1, p(b1), w2, p(b2), p(g1s), p(g1b), p(g2s),
-                               p(g2b), p(h), p(h2), p(out), B, T, H, W, C, groups, *tiles,
-                               float(eps), _build.stream_ptr(x.device))
-    _build.check(err, "resblock_forward")
-    fused_resblock_fwd.launches += 1
+    err = getattr(lib, "resblock_forward" + form)(
+        p(x), p(emb), w1, p(b1), w2, p(b2), p(g1s), p(g1b), p(g2s), p(g2b), p(h), p(h2), p(out),
+        B, T, H, W, C, groups, *tiles, float(eps), _build.stream_ptr(x.device))
+    _build.check(err, "resblock_forward" + form)
+    _build.count(fused_resblock_fwd, form)
     return out, h2
 
 
 def fused_resblock_bwd(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g, groups: int = 32,
                        eps: float = 1e-5):
     """(dx, demb) for the cotangent ``g``.  CPU tensor: the plain version in
-    f32.  CUDA tensor: the kernels, or raise."""
+    f32.  CUDA tensor: the kernels, or raise.  x, emb, g and dx f32, or bf16
+    (the bf16 forms: g is the first conv's operand as it is); demb f32."""
     if not x.is_cuda:
         return resblock_bwd_plain(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g, groups, eps)
     B, T, H, W, C = x.shape
+    form = _build.io_form("resblock_bwd", x)
+    g1s, g1b, g2s, g2b = (weights.f32(t) for t in (g1s, g1b, g2s, g2b))
     _build.require("resblock_bwd", _specs(x, emb, groups, g1s=g1s, g1b=g1b, g2s=g2s, g2b=g2b)
-                   + [("g", g, x.shape), ("h2", h2, x.shape, torch.bfloat16)])
+                   + [("g", g, x.shape, x.dtype), ("h2", h2, x.shape, torch.bfloat16)])
     (w1t, w2t), tiles = _conv_args(x, k1, k2, groups, dx=True)
     x, g = _build.aligned16(x, g)   # the GN passes' 16-byte copies and the g cast
-    gb = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-    dh, dv = torch.empty_like(gb), torch.empty_like(gb)
+    # the f32 cotangent's bf16 copy (the bf16 form reads g as it is)
+    gb = torch.empty(x.shape if not form else (0,), dtype=torch.bfloat16, device=x.device)
+    dh, dv = (torch.empty(x.shape, dtype=torch.bfloat16, device=x.device) for _ in range(2))
     dx = torch.empty_like(x)
     demb = torch.empty((B, C), dtype=torch.float32, device=x.device)
     lib = _build.load("resblock", _SIGNATURES)
     p = _build.ptr
-    err = lib.resblock_backward(p(x), p(emb), p(g), p(h2), w1t, w2t, p(g1s), p(g1b), p(g2s),
-                                p(g2b), p(gb), p(dh), p(dv), p(dx), p(demb), B, T, H, W, C, groups,
-                                *tiles, float(eps), _build.stream_ptr(x.device))
-    _build.check(err, "resblock_backward")
-    fused_resblock_bwd.launches += 1
+    err = getattr(lib, "resblock_backward" + form)(
+        p(x), p(emb), p(g), p(h2), w1t, w2t, p(g1s), p(g1b), p(g2s), p(g2b), p(gb), p(dh), p(dv),
+        p(dx), p(demb), B, T, H, W, C, groups, *tiles, float(eps), _build.stream_ptr(x.device))
+    _build.check(err, "resblock_backward" + form)
+    _build.count(fused_resblock_bwd, form)
     return dx, demb
 
 
@@ -215,5 +227,5 @@ def fused_resblock(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups: int = 32,
     return _FusedResBlock.apply(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups, eps)
 
 
-fused_resblock_fwd.launches = 0
-fused_resblock_bwd.launches = 0
+fused_resblock_fwd.launches = fused_resblock_fwd.bf16_launches = 0
+fused_resblock_bwd.launches = fused_resblock_bwd.bf16_launches = 0

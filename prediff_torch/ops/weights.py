@@ -17,7 +17,9 @@ map per box height (``csrc/hopper.cuh`` ``bf16_matrix_map``: boxes of 64
 columns); ``"linear_t"``, the bf16 copy of its transpose (K, N), the K-major
 operand of a product that contracts over the weight's rows (the backwards'
 ``do . W`` and ``dh . W1``), laid out once per version like the other; the
-conv's layouts (``ops/conv3d.weight_layout``) are kinds of their own.
+conv's layouts (``ops/conv3d.weight_layout``) are kinds of their own;
+``"f32"`` (:func:`f32`), the f32 copy of a bf16 parameter vector (LN and GN
+scale and shift, biases), which the kernels read in f32 in their bf16 forms.
 """
 import ctypes
 import weakref
@@ -32,13 +34,14 @@ from . import _build
 _LAYOUTS: dict = {}
 
 
-def _entry(weight: torch.Tensor, kind: str, make: Callable) -> list:
+def _entry(weight: torch.Tensor, kind: str, make: Callable,
+           dtype: torch.dtype = torch.bfloat16) -> list:
     key = (weight.data_ptr(), weight._version, weight.device)
     slot = (id(weight), kind)
     entry = _LAYOUTS.get(slot)
     if entry is None or entry[0]() is not weight or entry[1] != key:
         with torch.no_grad():
-            layout = make(weight.detach()).to(torch.bfloat16).contiguous()
+            layout = make(weight.detach()).to(dtype).contiguous()
         ref = weakref.ref(weight, lambda _, slot=slot: _LAYOUTS.pop(slot, None))
         entry = _LAYOUTS[slot] = [ref, key, layout, {}]
     return entry
@@ -61,6 +64,14 @@ def tensor_map(weight: torch.Tensor, kind: str, make: Callable, map_key, encode:
 
 def _same(w: torch.Tensor) -> torch.Tensor:
     return w
+
+
+def f32(vector):
+    """A parameter vector in f32: itself where it is f32 (or None), else its
+    f32 copy (exact) of this version."""
+    if vector is None or vector.dtype == torch.float32:
+        return vector
+    return _entry(vector, "f32", _same, torch.float32)[2]
 
 
 def linear_bf16(weight: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,8 @@ _FILES = {"unet": (build_unet, "earthformerunet.npz", PRETRAINED_NAMES["earthfor
 class PreDiffPredictor:
     """SEVIR-LR nowcaster on one device, optionally steered by knowledge
     alignment toward an anticipated mean intensity.  ``compute_dtype`` is
-    the chain's (``LatentDiffusion.sample``): float32 only."""
+    the chain's (``LatentDiffusion.sample``: float32, bfloat16 or float16);
+    guidance takes its own from ``cfg.model.align.compute_dtype``."""
 
     def __init__(self, cfg: Optional[ConfigDict] = None,
                  params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,

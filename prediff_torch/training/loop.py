@@ -105,7 +105,8 @@ def fit(state: Any, train_step: Callable, train_batches_fn: Callable[[int], Iter
     (several steps per dispatch, a remedy for the TPU host's dispatch cost)
     is not ported."""
     if int(steps_per_call) > 1:
-        raise NotImplementedError("steps_per_call > 1 is not ported (ROADMAP.md, not carried over)")
+        raise NotImplementedError("steps_per_call > 1 is not ported (ROADMAP.md queue 1, the "
+                                  "trainer opt-ins: a TPU dispatch knob, not carried over)")
     logger = logger if logger is not None else MetricLogger(save_dir)
     tracker = CheckpointTracker(save_dir, monitor, monitor_mode, save_top_k)
     stopper = EarlyStopper(early_stop_patience, monitor_mode, early_stop)

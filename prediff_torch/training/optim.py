@@ -135,11 +135,10 @@ def build_optimizer(params: Sequence[torch.Tensor], lr: float = 1e-3,
                     min_lr_ratio: float = 1e-3, warmup_min_lr_ratio: float = 0.1,
                     accum_steps: int = 1, state_dtype: Optional[str] = None) -> Optimizer:
     """The recipe's optimizer over ``params``.  ``state_dtype`` (low-precision
-    Adam moments, a TPU memory-traffic knob) is not carried over: anything
-    but ``None`` raises."""
+    Adam moments) is not ported yet: anything but ``None`` raises."""
     if state_dtype is not None:
-        raise NotImplementedError("state_dtype: low-precision Adam moments are not ported "
-                                  "(ROADMAP.md, not carried over)")
+        raise NotImplementedError("state_dtype: low-precision Adam moments are not ported yet "
+                                  "(ROADMAP.md queue 1, the trainer opt-ins)")
     schedule = build_lr_schedule(lr, total_num_steps, warmup_percentage, lr_scheduler_mode,
                                  min_lr_ratio, warmup_min_lr_ratio)
     params = list(params)

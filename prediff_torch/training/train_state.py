@@ -33,11 +33,11 @@ class EmaTrainState:
     def create(cls, params: Dict[str, nn.Parameter], tx: Optimizer, use_ema: bool = True,
                ema_decay: float = 0.9999, ema_dtype: Optional[str] = None) -> "EmaTrainState":
         """``tx`` must have been built over ``params.values()`` in this order.
-        ``ema_dtype`` (a low-precision shadow, a TPU memory-traffic knob) is
-        not carried over: anything but ``None`` raises."""
+        ``ema_dtype`` (a low-precision shadow) is not ported yet: anything but
+        ``None`` raises."""
         if ema_dtype is not None:
-            raise NotImplementedError("ema_dtype: a low-precision EMA shadow is not ported "
-                                      "(ROADMAP.md, not carried over)")
+            raise NotImplementedError("ema_dtype: a low-precision EMA shadow is not ported yet "
+                                      "(ROADMAP.md queue 1, the trainer opt-ins)")
         if [id(p) for p in tx.params] != [id(p) for p in params.values()]:
             raise ValueError("the optimizer was built over other parameters than the state's")
         return cls(params, tx, use_ema=use_ema, ema_decay=ema_decay)

@@ -22,8 +22,15 @@ step follows the JAX step:
 
 On the card the convolutions are cuDNN's in f32 (TF32 off) with its
 deterministic algorithms (``utils.device.resolve_device``), so a step repeats
-bit for bit.  ``compute_dtype="bfloat16"`` waits for the bf16 slice;
-the mesh and the TPU optimizer-layout knobs are refused.
+bit for bit.  ``compute_dtype="bfloat16"`` (or float16) runs the VAE's
+encode and decode, forward and backward, on its parameters cast to that
+dtype (``torch.func.functional_call``; the cast is differentiated, so the
+gradients land on the stored f32 parameters) and on the frames and latent in
+it, as the JAX step does; the moments, the reconstruction and the features
+before ``conv_out`` come back in f32, so the KL, ``logvar``, the adaptive
+weight (on the stored f32 ``conv_out`` kernel), LPIPS, the discriminator and
+both optimizers stay f32.  The mesh and the TPU optimizer-layout knobs are
+refused.
 """
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -31,7 +38,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.vae import AutoencoderKL
+from ..models.vae import AutoencoderKL, FeatureDecoder, FirstStageEncoder
+from ..utils.distributions import DiagonalGaussianDistribution
+from ..utils.precision import resolve_dtype
 from .diffusion_trainer import refuse_knobs, step_generator
 from .losses import (NLayerDiscriminator, calculate_adaptive_weight, discriminator_loss,
                      generator_loss)
@@ -41,15 +50,16 @@ from .train_state import EmaTrainState
 _TPU_KNOBS = {"mesh": None, "flat_update": False, "pack_small_thr": 0}
 
 
-def resolve_compute_dtype(compute_dtype: Optional[str]) -> None:
-    """Only f32 is ported: ``None``, ``"float32"``, ``"f32"`` and ``"auto"``
-    (which the JAX package resolves to f32 off a TPU)."""
-    if compute_dtype in (None, "float32", "f32", "auto"):
-        return
-    if compute_dtype in ("bfloat16", "bf16"):
-        raise NotImplementedError(f"compute_dtype {compute_dtype!r}: only float32 is ported "
-                                  "(ROADMAP.md queue 1 item 2, compute_dtype='bfloat16')")
-    raise ValueError(f"compute_dtype {compute_dtype!r}")
+def resolve_compute_dtype(compute_dtype) -> Optional[torch.dtype]:
+    """None for the f32 step (``None``, ``"float32"``, ``"f32"``, and
+    ``"auto"``, which the JAX package resolves to f32 off a TPU); else the
+    dtype named (``"bfloat16"`` or ``"bf16"``, ``"float16"``, or the torch
+    dtype).  Anything else raises ``ValueError``."""
+    if compute_dtype in (None, "f32", "auto"):
+        return None
+    dtype = resolve_dtype("bfloat16" if compute_dtype == "bf16" else compute_dtype,
+                          "compute_dtype")
+    return None if dtype == torch.float32 else dtype
 
 
 def _conv2d_same(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -66,8 +76,9 @@ class VAETrainer:
                  optim_config: Optional[Dict] = None, disc_optim_config: Optional[Dict] = None,
                  compute_dtype: Optional[str] = None, **knobs):
         refuse_knobs("VAETrainer", knobs, _TPU_KNOBS)
-        resolve_compute_dtype(compute_dtype)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.vae = vae
+        self._encode, self._decode = FirstStageEncoder(vae), FeatureDecoder(vae)
         self.device = next(vae.parameters()).device
         self.disc = disc or NLayerDiscriminator(
             input_nc=vae.decoder.conv_out.out_channels,
@@ -105,10 +116,21 @@ class VAETrainer:
 
     def _reconstruct(self, x: torch.Tensor, generator: Optional[torch.Generator]):
         """``(reconstruction, features before conv_out, posterior)`` of NHWC
-        frames, the latent sampled from ``generator``."""
-        posterior = self.vae.encode(x)
-        recon, feats = self.vae.decode_with_features(posterior.sample(generator))
-        return recon, feats, posterior
+        frames, the latent sampled from ``generator``; in ``compute_dtype``
+        through the cast parameters, the outputs in f32."""
+        cd = self.compute_dtype
+        if cd is None:
+            posterior = self.vae.encode(x)
+            recon, feats = self.vae.decode_with_features(posterior.sample(generator))
+            return recon, feats, posterior
+        cast = {k: p.to(cd) for k, p in self.vae.named_parameters()}
+        moments = torch.func.functional_call(
+            self._encode, {k: cast[k] for k, _ in self._encode.named_parameters()}, (x.to(cd),))
+        posterior = DiagonalGaussianDistribution.from_parameters(moments.float())
+        recon, feats = torch.func.functional_call(
+            self._decode, {k: cast[k] for k, _ in self._decode.named_parameters()},
+            (posterior.sample(generator).to(cd),))
+        return recon.float(), feats.float(), posterior
 
     def _generator_loss(self, logvar: torch.Tensor, x: torch.Tensor,
                         generator: Optional[torch.Generator], global_step: int):

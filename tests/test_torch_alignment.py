@@ -97,5 +97,7 @@ def test_bridge_round_trips_the_flax_tree(nets):
 
 
 def test_alignment_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        KnowledgeAlignment(torch.nn.Identity(), compute_dtype="bfloat16")
+    # bfloat16 guidance is ported (tests/test_torch_bf16_guidance.py); other names are refused
+    assert KnowledgeAlignment(torch.nn.Identity(), compute_dtype="bfloat16").dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="compute_dtype"):
+        KnowledgeAlignment(torch.nn.Identity(), compute_dtype="int8")

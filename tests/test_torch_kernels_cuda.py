@@ -929,3 +929,113 @@ def test_a_parameter_update_recaptures(dev):
     with predictor.ld._plain_chain():
         eager = predictor.predict(y, generator=torch.Generator(dev).manual_seed(5), **kw)
     assert torch.equal(second, eager) and not torch.equal(first, second)
+
+
+# --------------------------------------------------------------------------- #
+# The bf16 forms (guidance on the alignment net's bf16 copy): each kernel on
+# bf16 inputs and parameters against its plain version on the same ones (which
+# widens them and rounds its result to bf16), at the f32 form's bar plus one
+# bf16 ulp of the output's max; the output bf16, the launch counted as a bf16
+# form.  At the alignment net's guidance shapes.
+BF16 = torch.bfloat16
+
+
+def _bf16_close(got, want, rel_tol):
+    assert got.dtype == BF16
+    scale = float(want.float().abs().max())
+    ulp = 2.0 ** (torch.floor(torch.log2(torch.tensor(scale))).item() - 7)
+    err = (got.float() - want.float()).abs()
+    assert float(err.max()) <= rel_tol * scale + ulp
+
+
+def _r(dev, *shape, scale=1.0, shift=0.0):
+    return (torch.randn(shape, device=dev) * scale + shift).to(BF16)
+
+
+@pytest.mark.parametrize("C", [64, 128])
+def test_groupnorm_bf16_forms_match_plain(dev, C):
+    x, w, b, g = _r(dev, 1, 1536, C, scale=2.0, shift=1.0), _r(dev, C, shift=1.0), _r(dev, C), \
+        _r(dev, 1, 1536, C)
+    n0, b0 = fused_groupnorm_silu.bf16_launches, fused_groupnorm_silu_bwd_full.bf16_launches
+    _bf16_close(fused_groupnorm_silu(x, w, b, None, 32), groupnorm_silu_plain(x, w, b, None, 32),
+                TOL_GN)
+    got = fused_groupnorm_silu_bwd_full(x, g, w, b, None, 32)
+    want = groupnorm_silu_bwd_full_plain(x, g, w, b, None, 32)
+    _bf16_close(got[0], want[0], TOL_GN)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4 * float(want[1].abs().max()))
+    assert fused_groupnorm_silu.bf16_launches == n0 + 1
+    assert fused_groupnorm_silu_bwd_full.bf16_launches == b0 + 1
+
+
+@pytest.mark.parametrize("M,C", [(1536, 128), (384, 256)])
+def test_ffn_bf16_forms_match_plain(dev, M, C):
+    hid = 4 * C
+    x, g = _r(dev, M, C), _r(dev, M, C)
+    p = (_r(dev, C, shift=1.0, scale=0.1), _r(dev, C, scale=0.1), _r(dev, hid, C, scale=C ** -0.5),
+         _r(dev, hid, scale=0.1), _r(dev, C, hid, scale=hid ** -0.5), _r(dev, C, scale=0.1))
+    _bf16_close(fused_ffn(x, *p), ffn_plain(x, *p, mxu_dtype=BF16), TOL_BF16)
+    _bf16_close(fused_ffn_bwd_dx(x, g, *p[:5]), ffn_bwd_dx_plain(x, g, *p[:5], mxu_dtype=BF16),
+                3e-2)
+
+
+@pytest.mark.parametrize("shape", [(1, 6, 16, 16, 128), (1, 6, 8, 8, 256)])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_axial_attention_bf16_forms_match_plain(dev, shape, axis):
+    C, vol, heads = shape[-1], shape[1 + axis], 4
+    x, g = _r(dev, *shape), _r(dev, *shape)
+    ln_w, ln_b = _r(dev, C, shift=1.0, scale=0.1), _r(dev, C, scale=0.1)
+    w_qkv, w_proj = _r(dev, 3 * C, C, scale=C ** -0.5), _r(dev, C, C, scale=C ** -0.5)
+    bias, b_proj = torch.randn(heads, vol, vol, device=dev) * 0.5, _r(dev, C, scale=0.1)
+    scale = (C // heads) ** -0.5
+    args = (ln_w, ln_b, w_qkv, bias, w_proj)
+    _bf16_close(fused_axial_attention(x, axis, *args, b_proj, heads, scale),
+                axial_attention_plain(x, axis, *args, b_proj, heads, scale, mxu_dtype=BF16),
+                TOL_BF16)
+    _bf16_close(fused_axial_attention_bwd_dx(x, g, axis, *args, heads, scale),
+                axial_attention_bwd_dx_plain(x, g, axis, *args, heads, scale, mxu_dtype=BF16),
+                3e-2)
+
+
+@pytest.mark.parametrize("shape", [(1, 6, 16, 16, 128), (1, 6, 8, 8, 256)])
+def test_resblock_bf16_forms_match_plain(dev, shape):
+    C = shape[-1]
+    k1, k2 = (_r(dev, C, C, 3, 3, 3, scale=(27 * C) ** -0.5) for _ in range(2))
+    vecs = [_r(dev, C, scale=0.1, shift=s) for s in (0.0, 0.0, 1.0, 0.0, 1.0, 0.0)]
+    x, emb, g = _r(dev, *shape, scale=0.5), _r(dev, 1, C, scale=0.3), _r(dev, *shape)
+    args = (x, emb, k1, vecs[0], k2, vecs[1], *vecs[2:])
+    out, h2 = fused_resblock_fwd(*args, 32)
+    _bf16_close(out, resblock_plain(*args, 32, mxu_dtype=BF16)[0], 3e-2)
+    dx, demb = fused_resblock_bwd(x, emb, k1, k2, *vecs[2:], h2, g, 32)
+    want_dx, _ = resblock_bwd_plain(x, emb, k1, k2, *vecs[2:], h2.float(), g, 32, mxu_dtype=BF16)
+    _bf16_close(dx, want_dx, 3e-2)
+    assert demb.dtype == torch.float32 and torch.isfinite(demb).all()
+
+
+def test_conv_bf16_form_matches_plain(dev):
+    x, g = _r(dev, 1, 6, 16, 16, 128), _r(dev, 1, 6, 16, 16, 128)
+    w, b = _r(dev, 128, 128, 3, 3, 3, scale=(27 * 128) ** -0.5), _r(dev, 128, scale=0.1)
+    _bf16_close(conv3x3x3_forward(x, w, b), conv3x3x3_plain(x, w, b), 1e-3)
+    _bf16_close(conv3x3x3_dx(g, w), conv3x3x3_dx_plain(g, w), 1e-3)
+
+
+def test_bf16_guidance_runs_the_bf16_forms(dev):
+    """A guidance shift with guidance in bf16 on an f32 carry at full width:
+    every kernel launch is a bf16 form."""
+    from prediff_torch.config import prediff_default_config
+    from prediff_torch.diffusion.knowledge_alignment import KnowledgeAlignment
+    from prediff_torch.factory import build_alignment_model
+    from prediff_torch.models.init import init_params_
+
+    cfg = prediff_default_config()
+    net = init_params_(build_alignment_model(cfg), torch.Generator().manual_seed(0),
+                       randomize=True).to(dev).eval().requires_grad_(False)
+    ka = KnowledgeAlignment(net, compute_dtype="bfloat16")
+    z = torch.randn((1,) + tuple(cfg.model.align.model_args.input_shape), device=dev)
+    fns = (fused_groupnorm_silu, fused_groupnorm_silu_bwd_full, fused_ffn, fused_ffn_bwd_dx,
+           fused_axial_attention, fused_axial_attention_bwd_dx, fused_resblock_fwd,
+           fused_resblock_bwd)
+    before = [(fn.launches, fn.bf16_launches) for fn in fns]
+    shift = ka.get_mean_shift(z, torch.tensor([500], device=dev), torch.tensor([[0.5]], device=dev))
+    assert shift.dtype == torch.float32 and torch.isfinite(shift).all()
+    for fn, (n, n16) in zip(fns, before):
+        assert fn.launches - n == fn.bf16_launches - n16 > 0, fn.__name__

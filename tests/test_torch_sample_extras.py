@@ -158,18 +158,22 @@ def test_ddim_ignores_the_mask_and_refusals(pipelines):
                                  x0=torch.from_numpy(d["x0"]),
                                  generator=torch.Generator().manual_seed(3), **noisy)
     torch.testing.assert_close(masked, plain, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        predictor.ld.sample(y, compute_dtype="bfloat16", **kw)
+    # compute_dtype takes the floating dtypes the JAX package names, and no other
+    with pytest.raises(ValueError, match="compute_dtype"):
+        predictor.ld.sample(y, compute_dtype="int8", **kw)
+    assert predictor.ld.sample(y, compute_dtype="bfloat16", **kw).dtype == torch.bfloat16
     with pytest.raises(ValueError):
         predictor.ld.sample(y, mask=torch.from_numpy(d["mask"]), **kw)
     cpu = PreDiffPredictor(predictor.cfg, device="cpu", compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cpu.predict(d["y"], timesteps=1)
+    out = cpu.predict(d["y"], timesteps=1)   # the decode stays f32
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
 
 
 def test_alignment_compute_dtype_auto_is_float32():
     """Off a TPU the JAX package resolves "auto" to float32; so does the port."""
     ka = KnowledgeAlignment(torch.nn.Identity(), compute_dtype="auto")
     assert ka.compute_dtype == "float32"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KnowledgeAlignment(torch.nn.Identity(), compute_dtype="bfloat16")
+    ka = KnowledgeAlignment(torch.nn.Identity(), compute_dtype=torch.bfloat16)
+    assert ka.compute_dtype == "bfloat16" and ka.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="compute_dtype"):
+        KnowledgeAlignment(torch.nn.Identity(), compute_dtype="int8")
