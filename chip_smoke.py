@@ -54,7 +54,15 @@ same four training phases then run on ``video_swin_1x8`` (``swin_train_rate0``
 at depth [1,1], ``swin_train_grads``, ``swin_train``,
 ``profile_swin_train_step``): the general layer's all-gradients and dropout
 kernels, the grouped core at rate 0, the einsum route under attention
-dropout.  The opt-in bf16 conv route (``use_pallas_conv=True`` in both
+dropout.  Evaluation and data (after ``graph_recapture``): ``eval_suite``,
+an ensemble forecast (2 members of 2 synthetic contexts, 50 DDIM steps)
+unguided and guided, each scored on the card by a ``ForecastEvalSuite``
+(skill scores, MSE, MAE, SSIM, CRPS, FVD on one seeded 224x224 I3D) and
+held against the same suites on the CPU; ``data_prefetch``, augmented
+training batches through ``prefetch_to_device`` (pinned memory, a side
+stream) bit-equal to the host's, and the diffusion trainer's validation
+step fed by it and by blocking copies, bit-equal, with the step's ms both
+ways.  The opt-in bf16 conv route (``use_pallas_conv=True`` in both
 networks) and the round-1 cuboid ops: ``conv_kernels_vs_plain`` (the conv
 forward and its input gradient at every shape of the route),
 ``cuboid_core_vs_plain`` and ``cuboid_layer_v3_vs_plain`` right after
@@ -2539,6 +2547,325 @@ def vae_train_bf16_phases(device, smi):
         del trainer, g_state, d_state, stats
 
 
+# eval_suite: JAX run_eval's "unaligned" and "aligned" suites over an ensemble
+# forecast; data_prefetch: training batches through prefetch_to_device
+EVAL_BATCH = 2            # contexts and targets
+EVAL_MEMBERS = 2          # ensemble members a context
+EVAL_DDIM_STEPS = 50
+EVAL_I3D_CLASSES = 400
+EVAL_TOL_REL = {"mse": 1e-6, "mae": 1e-6, "crps": 1e-6, "ssim": 1e-5, "fvd": 1e-3}
+EVAL_FEATURES_REL_L2 = 1e-4
+# compute()'s keys after the prefix, for the v1 recipe's thresholds and metrics
+EVAL_KEYS = (
+    "mse_epoch", "mae_epoch", "ssim_epoch",
+    "csi_16_epoch", "csi_74_epoch", "csi_133_epoch", "csi_160_epoch", "csi_181_epoch",
+    "csi_219_epoch", "csi_avg_epoch",
+    "pod_16_epoch", "pod_74_epoch", "pod_133_epoch", "pod_160_epoch", "pod_181_epoch",
+    "pod_219_epoch", "pod_avg_epoch",
+    "sucr_16_epoch", "sucr_74_epoch", "sucr_133_epoch", "sucr_160_epoch", "sucr_181_epoch",
+    "sucr_219_epoch", "sucr_avg_epoch",
+    "bias_16_epoch", "bias_74_epoch", "bias_133_epoch", "bias_160_epoch", "bias_181_epoch",
+    "bias_219_epoch", "bias_avg_epoch",
+    "loss_epoch", "crps_epoch", "fvd_epoch")
+# the kernels an ensemble forecast launches (PERF.md rows 1-4, 6, 7, 14): unguided, guided
+EVAL_KERNELS = {"test": ("groupnorm_silu", "ffn", "axial_attention"),
+                "test_aligned": ("groupnorm_silu", "ffn", "axial_attention",
+                                 "axial_attention_bwd_dx", "ffn_bwd_dx", "resblock",
+                                 "resblock_bwd", "groupnorm_silu_bwd_full")}
+PREFETCH_BATCHES = 6
+
+
+def eval_suites(cfg, feature_fn):
+    """The "unaligned" and "aligned" suites of JAX ``run_eval``, by prefix,
+    over one FVD extractor."""
+    from prediff_torch.evaluation import ForecastEvalSuite, FrechetVideoDistance
+
+    return {prefix: ForecastEvalSuite(
+        layout=cfg.layout.layout, metrics_mode=cfg.dataset.metrics_mode,
+        seq_len=cfg.layout.out_len, threshold_list=tuple(cfg.dataset.threshold_list),
+        metrics_list=tuple(cfg.dataset.metrics_list),
+        fvd=FrechetVideoDistance(feature_fn=feature_fn, num_features=EVAL_I3D_CLASSES,
+                                 auto_t=True, reset_real_features=False))
+        for prefix in ("test", "test_aligned")}
+
+
+def i3d_gflop(model, video_shape) -> float:
+    """The I3D's convolution GFLOP (2 x multiply-adds) on one video of
+    ``video_shape`` (T, H, W, C) after ``preprocess_video``, from a CPU
+    forward's output shapes."""
+    import torch
+
+    flop = []
+
+    def count(m, _, out):
+        flop.append(2.0 * out.numel() * m.weight[0].numel())
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, torch.nn.Conv3d)]
+    try:
+        with torch.no_grad():
+            model(torch.zeros((1,) + tuple(video_shape)))
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(flop) / 1e9
+
+
+def eval_suite(device, smi, predictor, cfg, zero_counts, read_counts):
+    """The ``eval_suite`` phase: ``predict_ensemble`` (``EVAL_MEMBERS``
+    members of ``EVAL_BATCH`` synthetic contexts, ``EVAL_DDIM_STEPS`` DDIM
+    steps) unguided and guided toward ``get_alignment_kwargs_avg_x`` of the
+    target, each scored on the card by its suite (one seeded
+    ``InceptionI3d(400)`` at 224x224 shared by both FVDs), then the same
+    tensors on the CPU by suites built the same way.  Checks: the chains'
+    kernels launched; counts equal, MSE / MAE / CRPS / SSIM / FVD within
+    ``EVAL_TOL_REL``, the I3D features rel-L2 <= ``EVAL_FEATURES_REL_L2``,
+    every value finite, the keys ``EVAL_KEYS`` under each prefix.  Times: the
+    chains' ms per step (the step loop alone, captures out), ms per
+    ``suite.update`` (after a first update at the same shapes, timed apart),
+    ms per I3D video, and the suites' share of an evaluated forecast."""
+    import numpy as np
+    import torch
+    from prediff_torch.datasets.synthetic import synthetic_batch_iterator
+    from prediff_torch.diffusion.knowledge_alignment import get_alignment_kwargs_avg_x
+    from prediff_torch.evaluation import i3d_feature_fn, seeded_i3d
+
+    img = cfg.layout
+    batch = next(synthetic_batch_iterator(batch_size=EVAL_BATCH,
+                                          seq_len=img.in_len + img.out_len, H=img.img_height,
+                                          W=img.img_width, seed=SEED + 17))
+    context = torch.from_numpy(batch[:, :img.in_len])
+    target = torch.from_numpy(batch[:, img.in_len:]).to(device)
+    avg_x_gt = get_alignment_kwargs_avg_x(target)["avg_x_gt"]
+    i3d = seeded_i3d(EVAL_I3D_CLASSES, seed=SEED)
+    feature_fn = i3d_feature_fn(i3d, cfg.eval.fvd_resolution)
+    suites = eval_suites(cfg, feature_fn)
+    # a first update at the same shapes, on a suite thrown away, timed apart: the
+    # extractor's copy on the card and cuDNN's plans for each convolution's shape
+    sync(device)
+    t1 = time.perf_counter()
+    eval_suites(cfg, feature_fn)["test"].update(target.expand((EVAL_MEMBERS,) + target.shape),
+                                                target)
+    sync(device)
+    first_update_ms = 1e3 * (time.perf_counter() - t1)
+
+    ld = predictor.ld
+    chain, loop_s = ld._chain, []
+
+    def timed_chain(*args):
+        sync(device)
+        t1 = time.perf_counter()
+        ends = chain(*args)
+        sync(device)
+        loop_s.append(time.perf_counter() - t1)
+        return ends
+
+    preds, forecast_s, update_ms, launches, chain_ms = {}, {}, {}, {}, {}
+    ld._chain = timed_chain
+    try:
+        for prefix, kw in (("test", {}), ("test_aligned", dict(use_alignment=True,
+                                                               avg_x_gt=avg_x_gt))):
+            capture_s = ld.graphs.capture_seconds
+            sync(device)
+            zero_counts()
+            t1 = time.perf_counter()
+            preds[prefix] = predictor.predict_ensemble(
+                context, num_samples=EVAL_MEMBERS, ddim_steps=EVAL_DDIM_STEPS,
+                generator=torch.Generator(device).manual_seed(SEED), **kw)
+            sync(device)
+            forecast_s[prefix] = time.perf_counter() - t1
+            launches[prefix] = read_counts()
+            chain_ms[prefix] = 1e3 * (loop_s[-1] - (ld.graphs.capture_seconds - capture_s)
+                                      ) / EVAL_DDIM_STEPS
+            t1 = time.perf_counter()
+            suites[prefix].update(preds[prefix], target)
+            sync(device)
+            update_ms[prefix] = 1e3 * (time.perf_counter() - t1)
+    finally:
+        del ld._chain
+
+    # the same tensors on the CPU, through suites built the same way
+    cpu_suites = eval_suites(cfg, feature_fn)
+    t1 = time.perf_counter()
+    for prefix, suite in cpu_suites.items():
+        suite.update(preds[prefix].cpu(), target.cpu())
+    cpu_update_s = time.perf_counter() - t1
+
+    # the I3D features of the aligned suite's videos (auto_t: T=12; tiled to 3 channels)
+    videos = torch.cat([preds["test_aligned"].flatten(0, 1), target])
+    videos = torch.repeat_interleave(videos, -(-9 // videos.shape[1]), dim=1).repeat(
+        1, 1, 1, 1, 3)
+    feats = feature_fn(videos).cpu().numpy()
+    feats_cpu = feature_fn(videos.cpu()).numpy()
+    features_rel_l2 = float(np.linalg.norm(feats - feats_cpu) / np.linalg.norm(feats_cpu))
+    per_video_ms = time_ms(lambda: feature_fn(videos), warmup=1, iters=3) / videos.shape[0]
+    gflop = i3d_gflop(i3d, (videos.shape[1], cfg.eval.fvd_resolution,
+                            cfg.eval.fvd_resolution, 3))
+
+    computed, errors_by_key, bad = {}, {}, []
+    for prefix, suite in suites.items():
+        got, want = suite.compute(prefix), cpu_suites[prefix].compute(prefix)
+        computed[prefix] = got
+        if set(got) != {f"{prefix}_{k}" for k in EVAL_KEYS} or set(want) != set(got):
+            bad.append(f"{prefix}: keys {sorted(got)}")
+        for name in ("hits", "misses", "fas"):
+            if not torch.equal(getattr(suite.score.state, name).cpu(),
+                               getattr(cpu_suites[prefix].score.state, name)):
+                bad.append(f"{prefix}: {name} card != CPU")
+        for k, v in got.items():
+            if not np.isfinite(v):
+                bad.append(f"{k} = {v}")
+            metric = k[len(prefix) + 1:].split("_")[0]
+            if metric in EVAL_TOL_REL:
+                err = abs(v - want[k]) / max(abs(want[k]), 1e-30)
+                errors_by_key[k] = err
+                if not err <= EVAL_TOL_REL[metric]:
+                    bad.append(f"{k}: card {v} CPU {want[k]} (rel {err:.3g})")
+        for kernel in EVAL_KERNELS[prefix]:
+            if launches[prefix][kernel] == 0:
+                bad.append(f"{prefix}: {kernel} launched no time")
+    if not features_rel_l2 <= EVAL_FEATURES_REL_L2:
+        bad.append(f"I3D features card vs CPU rel-L2 {features_rel_l2:.3g}")
+    shape = (EVAL_MEMBERS, EVAL_BATCH, img.out_len, img.img_height, img.img_width,
+             img.data_channels)
+    if any(tuple(p.shape) != shape or not torch.isfinite(p).all() for p in preds.values()):
+        bad.append(f"forecasts: shapes {[tuple(p.shape) for p in preds.values()]} (want "
+                   f"{shape}) or non-finite values")
+    evaluated_s = sum(forecast_s.values()) + sum(update_ms.values()) / 1e3
+    emit({"phase": "eval_suite", "card": smi, "batch": EVAL_BATCH, "members": EVAL_MEMBERS,
+          "ddim_steps": EVAL_DDIM_STEPS, "chain_ms_per_step": chain_ms,
+          "forecast_s": forecast_s, "suite_update_ms": update_ms,
+          "suite_share_of_evaluated_forecast": sum(update_ms.values()) / 1e3 / evaluated_s,
+          "first_update_ms": first_update_ms, "i3d_ms_per_video": per_video_ms, "i3d_input_shape": list(videos.shape[1:]),
+          "i3d_resolution": cfg.eval.fvd_resolution,
+          "i3d_gflop_per_video": gflop, "i3d_tflop_per_s": gflop / per_video_ms,
+          "i3d_bound_ms_f32": gflop * 1e9 / F32_FLOP_PER_S * 1e3,
+          "cpu_update_s": cpu_update_s, "features_rel_l2": features_rel_l2,
+          "rel_err": errors_by_key, "tol_rel": EVAL_TOL_REL, "launches": launches,
+          "compute": computed, "failed": bad})
+    if bad:
+        fail(f"eval_suite: {bad}")
+
+
+def data_prefetch(device, smi, cfg, weights):
+    """The ``data_prefetch`` phase: synthetic training batches augmented on
+    the host (``augment_seq`` mode "2" as the ``transform``) through
+    ``prefetch_to_device``: the first ``PREFETCH_BATCHES`` bit-equal to the
+    host batches, on the card, each staged through pinned memory (a spy on
+    ``prefetch.pinned``); the diffusion trainer's ``val_step`` at the
+    micro-batch size fed by the prefetch and by blocking copies in the loop
+    (the host's augmentation and copy in the step's way) gives bit-equal
+    losses; ms per step both ways, the steps' device ms (inputs already on
+    the card, CUDA events), each way's busy share, and the host's ms to make
+    and augment a batch."""
+    import numpy as np
+    import torch
+    from prediff_torch.datasets import augment_seq, prefetch
+    from prediff_torch.datasets.synthetic import synthetic_batch_iterator
+    from prediff_torch.factory import build_training_pipeline
+    from prediff_torch.training import DiffusionTrainer
+
+    img = cfg.layout
+    B = cfg.optim.micro_batch_size
+
+    def source():
+        return synthetic_batch_iterator(batch_size=B, seq_len=img.in_len + img.out_len,
+                                        H=img.img_height, W=img.img_width, seed=SEED + 23,
+                                        num_batches=PREFETCH_BATCHES)
+
+    def augmenter():
+        rng = np.random.default_rng(SEED)
+        return lambda b: np.stack([augment_seq(s, "THWC", "2", rng) for s in b])
+
+    aug = augmenter()
+    t1 = time.perf_counter()
+    host = [aug(b) for b in source()]
+    host_ms = 1e3 * (time.perf_counter() - t1) / PREFETCH_BATCHES
+    staged = []
+    pinned = prefetch.pinned
+
+    def spy(t):
+        p = pinned(t)
+        staged.append(p.is_pinned())
+        return p
+
+    prefetch.pinned = spy
+    try:
+        fed = list(prefetch.prefetch_to_device(source(), size=2, device=device,
+                                               transform=augmenter()))
+    finally:
+        prefetch.pinned = pinned
+    equal = all(torch.equal(f.cpu(), torch.from_numpy(h)) for f, h in zip(fed, host))
+    on_card = all(f.device == device for f in fed)
+
+    ld = build_training_pipeline(cfg, device=device, params=weights)
+    trainer = DiffusionTrainer(ld, optim_config=dict(lr=cfg.optim.lr, total_num_steps=100))
+    state = trainer.create_state()
+
+    def step(b):
+        return trainer.val_step(state, SEED, b[:, img.in_len:], b[:, :img.in_len])
+
+    step(fed[0])   # warm-up: cuDNN picks its algorithms for these shapes
+    runs = {}
+    for way in ("prefetch", "blocking", "blocking", "prefetch"):
+        sync(device)
+        t1 = time.perf_counter()
+        if way == "prefetch":
+            losses = [step(b) for b in prefetch.prefetch_to_device(
+                source(), size=2, device=device, transform=augmenter())]
+        else:
+            a = augmenter()
+            losses = [step(torch.from_numpy(a(b)).to(device)) for b in source()]
+        losses = [{k: v.cpu() for k, v in m.items()} for m in losses]
+        runs.setdefault(way, []).append((1e3 * (time.perf_counter() - t1) / len(losses),
+                                         losses))
+    bit_equal = all(set(p) == set(q) and all(torch.equal(p[k], q[k]) for k in p)
+                    for (_, lp) in runs["prefetch"] for (_, lb) in runs["blocking"]
+                    for p, q in zip(lp, lb))
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b in fed:
+        step(b)
+    stop.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(stop) / len(fed)
+    ms = {way: [r[0] for r in rs] for way, rs in runs.items()}
+    ok = (equal and on_card and staged == [True] * PREFETCH_BATCHES
+          and len(fed) == PREFETCH_BATCHES and bit_equal)
+    emit({"phase": "data_prefetch", "card": smi, "batch": B, "batches": PREFETCH_BATCHES,
+          "bit_equal_to_host": equal, "on_card": on_card, "pinned": staged,
+          "val_losses_bit_equal": bit_equal, "host_ms_per_batch": host_ms,
+          "ms_per_step": ms, "device_ms_per_step": device_ms,
+          "busy_share": {way: device_ms / float(np.median(v)) for way, v in ms.items()},
+          "val_loss": float(runs["prefetch"][0][1][0]["val/loss"]), "ok": ok})
+    if not ok:
+        fail("data_prefetch: batches differ from the host's, are off the card or not from "
+             "pinned memory, or the losses differ between the two feeds")
+
+
+def eval_data_alone(device, smi, names):
+    """``--only eval,data``: the seeded full-width models as ``run`` makes
+    them, then ``eval_suite`` and / or ``data_prefetch``."""
+    import torch
+    from prediff_torch.config import prediff_default_config
+    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.serving import PreDiffPredictor
+
+    cfg = prediff_default_config()
+    zero_counts, read_counts = kernel_counters()
+    gen = torch.Generator().manual_seed(SEED)
+    weights = {key: init_params_(build(cfg), gen, randomize=True).state_dict()
+               for key, build in (("unet", build_unet), ("vae", build_vae),
+                                  ("align", build_alignment_model))}
+    if "eval" in names:
+        predictor = PreDiffPredictor(cfg, params=weights, with_alignment=True, device=device)
+        eval_suite(device, smi, predictor, cfg, zero_counts, read_counts)
+        del predictor
+    if "data" in names:
+        data_prefetch(device, smi, cfg, {"unet": weights["unet"], "vae": weights["vae"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", help="also write every JSON line to this file")
@@ -2652,8 +2979,10 @@ def kernel_counters():
 # the phases --only runs alone: bwd_split (each launch's share of the
 # all-gradients backwards, the general layer's dx and the resblock), guided_repeat,
 # vae_train (with vae_train_grads), align_train (with align_train_grads), bf16
-# (bf16_phases with the f32 chains beside them) and vae_train_bf16 (with its grads)
-ONLY = ("bwd_split", "guided_repeat", "vae_train", "align_train", "bf16", "vae_train_bf16")
+# (bf16_phases with the f32 chains beside them), vae_train_bf16 (with its grads),
+# eval (eval_suite) and data (data_prefetch)
+ONLY = ("bwd_split", "guided_repeat", "vae_train", "align_train", "bf16", "vae_train_bf16",
+        "eval", "data")
 
 
 def run_only(device, names, smi: str) -> None:
@@ -2662,7 +2991,11 @@ def run_only(device, names, smi: str) -> None:
     from prediff_torch.utils.device import set_numerics
 
     set_numerics()
+    if "eval" in names or "data" in names:
+        eval_data_alone(device, smi, names)
     for name in names:
+        if name in ("eval", "data"):
+            continue
         if name == "bwd_split":
             bwd_split(device)
         elif name == "guided_repeat":
@@ -2782,9 +3115,11 @@ def run(device, cfg, smi: str) -> None:
         "unet_forward": lambda: predictor.ld.unet(xd, td, cd),
         "guidance_shift": lambda: predictor.ld.alignment.get_mean_shift(zg, td, avg_d)}))
     graph_recapture(predictor, context, avg_x_gt, device)
+    eval_suite(device, smi, predictor, cfg, zero_counts, read_counts)
     del predictor
     weights = {"unet": unet_cpu.state_dict(), "vae": vae_cpu.state_dict(),
                "align": align_cpu.state_dict()}
+    data_prefetch(device, smi, cfg, {"unet": weights["unet"], "vae": weights["vae"]})
     bcases, bf16_launches = bf16_phases(device, cfg, smi, weights, cases, by_route, align_cpu)
     launches_by_path.update(bf16_launches)
     conv_launches, conv_per = conv_serving_phases(device, cfg, smi, weights, zero_counts,

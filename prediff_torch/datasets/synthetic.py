@@ -1,10 +1,22 @@
-"""Synthetic SEVIR-LR-like batches: advected, pulsing Gaussian precipitation
-cells, made with numpy from a seed.  The port's own copy of the generator in
-``prediff_tpu/datasets/synthetic.py`` (the same seed gives the same batches),
-for training and benchmarking without any file."""
-from typing import Iterator, Optional
+"""Synthetic SEVIR-LR-like data: advected, pulsing Gaussian precipitation
+cells, made with numpy from a seed.  The port's own copy of
+``prediff_tpu/datasets/synthetic.py`` (the same seed gives the same arrays):
+batches for training and benchmarking without any file, and the HDF5 +
+``CATALOG.csv`` layout the real loader reads, so the whole data path
+(catalog -> windows -> preprocessing -> sharding) runs without the SEVIR
+archive.  h5py and pandas are imported only if present; the writer needs both."""
+import datetime
+import os
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
+
+try:
+    import h5py
+    import pandas as pd
+except ImportError:  # pragma: no cover
+    h5py = None
+    pd = None
 
 
 def _blob_event(rng: np.random.Generator, H: int, W: int, T: int) -> np.ndarray:
@@ -24,6 +36,36 @@ def _blob_event(rng: np.random.Generator, H: int, W: int, T: int) -> np.ndarray:
             frames[:, :, t] += amp * pulse * np.exp(
                 -(((xx - cxt) ** 2 + (yy - cyt) ** 2) / (2 * sigma**2)))
     return np.clip(frames, 0, 255).astype(np.uint8)
+
+
+def make_synthetic_sevir_lr(root: str, num_events: int = 8, H: int = 128, W: int = 128,
+                            T: int = 25, events_per_file: int = 4, seed: int = 0,
+                            train_frac_after: Tuple[int, int, int] = (2019, 6, 1)) -> str:
+    """Create ``root/CATALOG.csv`` + ``root/data/vil/2019/*.h5``; half the
+    events are dated before the reference train/test split date, half after."""
+    if h5py is None or pd is None:
+        raise ImportError("make_synthetic_sevir_lr needs h5py and pandas")
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "data", "vil", "2019"), exist_ok=True)
+    rows = []
+    file_idx = 0
+    ev = 0
+    while ev < num_events:
+        n = min(events_per_file, num_events - ev)
+        fname = f"vil/2019/SEVIR_VIL_SYNTH_{file_idx:04d}.h5"
+        arr = np.stack([_blob_event(rng, H, W, T) for _ in range(n)], axis=0)
+        with h5py.File(os.path.join(root, "data", fname), "w") as hf:
+            hf.create_dataset("vil", data=arr, maxshape=(None, H, W, T))
+        for i in range(n):
+            before = (ev + i) % 2 == 0
+            date = (datetime.datetime(2019, 3, 1) if before else datetime.datetime(2019, 7, 1)
+                    ) + datetime.timedelta(days=int(ev + i))
+            rows.append(dict(id=f"S{ev + i:05d}", file_name=fname, file_index=i, img_type="vil",
+                             time_utc=date, pct_missing=0.0))
+        ev += n
+        file_idx += 1
+    pd.DataFrame(rows).to_csv(os.path.join(root, "CATALOG.csv"), index=False)
+    return root
 
 
 def synthetic_batch_iterator(batch_size: int = 2, seq_len: int = 13, H: int = 128, W: int = 128,

@@ -1,5 +1,6 @@
 """Device selection and numerics for the port's entry points."""
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -15,6 +16,20 @@ def set_numerics() -> None:
     f32.  This is the one place the two switches are set."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def f32_numerics() -> Iterator[None]:
+    """:func:`set_numerics`'s two switches off for the ``with`` block only,
+    restored after: for library calls (the evaluation's convolutions and
+    products) that take tensors on any device without an entry point having
+    set them."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    set_numerics()
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def set_deterministic() -> None:
