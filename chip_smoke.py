@@ -71,7 +71,18 @@ launches per call held to the JAX routing rule's), a UNet forward and a
 guidance shift card against CPU, ``conv_forecast`` and
 ``conv_guided_forecast`` with exact counts, profiles; after ``train``,
 ``conv_train_grads``, ``conv_train`` and ``profile_conv_train_step`` (no
-rate-0 phase).  Then the ``kernels`` summary line (per kernel its ms,
+rate-0 phase).  The programs of ``prediff_torch/cli`` last (``cli_*``, also
+``--only cli``), at full width with the kernels' counts and a spy on every
+plain version (``cli_sample``, ``cli_test`` and ``cli_convert`` held to
+their chains' exact counts, read before the phase's own checks launch
+anything): ``cli_sample`` (guided DDIM forecasts bit-equal to the
+library call with the program's generators), ``cli_train`` (micro-steps,
+a validation, the JAX script's metric keys, a resume), ``cli_test``
+(``run_eval``'s keys; suites refilled from its ``.npy`` dumps agree),
+``cli_vae``, ``cli_align``, ``cli_convert`` (``from_npz`` on the converted
+files forecasts bit for bit as ``from_torch``) and ``cli_learning_check``;
+without h5py, pandas or matplotlib on the host they run the functions below
+each ``main`` on in-memory synthetic windows.  Then the ``kernels`` summary line (per kernel its ms,
 bound, library call and ``vs_library``; the conv, the grouped cores, the
 round-1 layer, the GroupNorm+SiLU forward and all-gradients backward and the
 FFN, axial attention and general cuboid layer forwards and all-gradients
@@ -2980,9 +2991,9 @@ def kernel_counters():
 # all-gradients backwards, the general layer's dx and the resblock), guided_repeat,
 # vae_train (with vae_train_grads), align_train (with align_train_grads), bf16
 # (bf16_phases with the f32 chains beside them), vae_train_bf16 (with its grads),
-# eval (eval_suite) and data (data_prefetch)
+# eval (eval_suite), data (data_prefetch) and cli (the cli_* phases)
 ONLY = ("bwd_split", "guided_repeat", "vae_train", "align_train", "bf16", "vae_train_bf16",
-        "eval", "data")
+        "eval", "data", "cli")
 
 
 def run_only(device, names, smi: str) -> None:
@@ -2996,7 +3007,9 @@ def run_only(device, names, smi: str) -> None:
     for name in names:
         if name in ("eval", "data"):
             continue
-        if name == "bwd_split":
+        if name == "cli":
+            cli_alone(device, smi)
+        elif name == "bwd_split":
             bwd_split(device)
         elif name == "guided_repeat":
             guided_repeat(device)
@@ -3142,6 +3155,7 @@ def run(device, cfg, smi: str) -> None:
     vae_train_bf16_phases(device, smi)
     launches_by_path["align_train"] = align_train_phases(device, smi, by_route, zero_counts,
                                                          read_counts)
+    launches_by_path.update(cli_phases(device, smi, weights, by_route, zero_counts, read_counts))
     emit({"phase": "graph_chains", "card": smi, "chains": GRAPH_CHAINS})
     emit({"kernels": summarize({**cases, **bcases}, launches_by_path)})
     print(smi, flush=True)
@@ -3704,6 +3718,7 @@ def train_phases(device, cfg, smi, per_train, weights, zero_counts, read_counts,
     expected = expected_train_launches(per_train, micro_steps, len(val_losses), dropout=True)
     steady = sorted(m["ms"] for m in micro[2:])
     ms_per_micro = steady[len(steady) // 2]
+    PHASE_NUMBERS[f"{prefix}train"] = ms_per_micro
     step_loss = [sum(m["loss"] for m in micro[i:i + TRAIN_ACCUM]) / TRAIN_ACCUM
                  for i in range(0, micro_steps, TRAIN_ACCUM)]
     emit({"phase": f"{prefix}train", "batch": B, "accum_steps": TRAIN_ACCUM, "dropout": rates,
@@ -4129,6 +4144,7 @@ def align_train_phases(device, smi, per, zero_counts, read_counts):
     expected = align_train_launches(per, TRAIN_OPT_STEPS, dropout=True)
     steady = sorted(m["ms"] for m in micro[1:])
     ms = steady[len(steady) // 2]
+    PHASE_NUMBERS["align_train"] = ms
     emit({"phase": "align_train", "batch": B, "rates": {k: a[k] for k in
                                                          ("attn_drop", "proj_drop", "ffn_drop")},
           "optimizer_steps": state.tx.count, "micro": micro, "ms_per_micro_step": ms,
@@ -4147,6 +4163,636 @@ def align_train_phases(device, smi, per, zero_counts, read_counts):
     emit(profile("profile_align_train_step", lambda: trainer.train_step(state, SEED, x, y),
                  reps=2))
     return launches
+
+
+
+# --------------------------------------------------------------------------- #
+# The command-line programs (prediff_torch/cli) at full width: the cli_* phases
+CLI_PACKAGES = ("h5py", "pandas", "matplotlib")   # the programs' data and panels need them
+CLI_CONTEXTS = 2          # cli_sample: contexts x members, guided DDIM
+CLI_MEMBERS = 2
+CLI_DDIM_STEPS = 50       # cli_sample, and cli_train's validation (the recipe's val_ddim_steps)
+CLI_TRAIN_MICRO_STEPS = 6     # at accum 2: three optimizer steps (as `train`), then a validation
+CLI_TEST_DDIM_STEPS = 20
+CLI_TRAINER_STEPS = 3     # cli_vae, cli_align
+CLI_CONVERT_DDIM_STEPS = 10
+CLI_TOL_REL = 1e-6        # cli_test: the suites refilled from the .npy dumps; FVD 1e-3
+CLI_FVD_TOL_REL = 1e-3
+# the kernels each program must launch at the v1 recipe (PERF.md rows 1-4, 6, 7; 1, 14, 15a-15d)
+CLI_GUIDED_KERNELS = ("groupnorm_silu", "ffn", "axial_attention", "axial_attention_bwd_dx",
+                      "ffn_bwd_dx", "resblock", "resblock_bwd")
+CLI_TRAIN_KERNELS = ("groupnorm_silu", "groupnorm_silu_bwd_full", "ffn_dropout",
+                     "ffn_dropout_bwd_full", "axial_attention_dropout",
+                     "axial_attention_dropout_bwd_full")
+CLI_ALIGN_KERNELS = CLI_TRAIN_KERNELS + ("resblock", "resblock_bwd")
+# tests/test_cli_smoke.py's test keys of the JAX script
+CLI_TEST_SMOKE_KEYS = ("test_csi_avg_epoch", "test_fvd_epoch", "test_aligned_csi_avg_epoch",
+                       "test_aligned_fvd_epoch", "test_crps_epoch", "test_ssim_epoch")
+
+
+class WindowModule:
+    """A test double of ``datasets.SEVIRDataModule`` for a host without h5py
+    or pandas: seeded synthetic windows (``synthetic_batch_iterator``,
+    (B, seq_len, H, W, 1) numpy in [0, 1]) in memory, with the methods and
+    the property the programs' functions below ``main`` read."""
+
+    def __init__(self, batch: int, seq_len: int, size: int, n_train: int, n_val: int = 1,
+                 n_test: int = 1, seed: int = SEED):
+        from prediff_torch.datasets import synthetic_batch_iterator
+
+        def windows(n, s):
+            return list(synthetic_batch_iterator(batch, seq_len, size, size, seed=s,
+                                                 num_batches=n))
+
+        self._train = windows(n_train, seed)
+        self._val = windows(n_val, seed + 1)
+        self._test = windows(n_test, seed + 2)
+        self.num_train_samples = n_train * batch
+
+    def train_batches(self, epoch_seed: int = 0):
+        yield from self._train
+
+    def val_batches(self):
+        yield from self._val
+
+    def test_batches(self):
+        yield from self._test
+
+
+def cli_route() -> dict:
+    """Which of h5py, pandas and matplotlib import here: with all three the
+    programs run whole (``main`` with ``--synthetic``), else their functions
+    below ``main`` on ``WindowModule``s."""
+    import importlib
+
+    have = {}
+    for name in CLI_PACKAGES:
+        try:
+            importlib.import_module(name)
+            have[name] = True
+        except ImportError:
+            have[name] = False
+    return {"packages": have, "route": "main" if all(have.values()) else "functions"}
+
+
+def plain_spy():
+    """``(install, count, remove)``: every plain version of the kernel
+    wrappers (``*_plain`` in ``prediff_torch.ops``) wrapped to count its
+    calls on CUDA tensors, which no program may make in place of a kernel.
+    Calls inside ``ops/_build.plain_grads`` are counted apart
+    (``recompute``): the resblock's parameter gradients are autograd of its
+    plain version on any device, as the JAX package takes them by
+    ``jax.vjp`` of ``resblock_reference`` (``pallas_resblock.py:636-641``)."""
+    import importlib
+
+    import torch
+    from prediff_torch.ops import _build
+
+    calls, recompute = {}, {}
+    saved = []
+    depth = [0]
+
+    def wrap(name, fn):
+        def spy(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda
+                   for a in list(args) + list(kwargs.values())):
+                tally = recompute if depth[0] else calls
+                tally[name] = tally.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return spy
+
+    def in_recompute(fn):
+        def marked(*args, **kwargs):
+            depth[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        return marked
+
+    def install():
+        calls.clear()
+        recompute.clear()
+        saved.append((_build, "plain_grads", _build.plain_grads))
+        _build.plain_grads = in_recompute(_build.plain_grads)
+        for m in ("attention", "conv3d", "ffn", "groupnorm", "resblock"):
+            mod = importlib.import_module(f"prediff_torch.ops.{m}")
+            for name in dir(mod):
+                fn = getattr(mod, name)
+                if callable(fn) and not name.startswith("_") and "_plain" in name:
+                    saved.append((mod, name, fn))
+                    setattr(mod, name, wrap(f"{m}.{name}", fn))
+
+    def remove():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        saved.clear()
+
+    return install, lambda: (dict(calls), dict(recompute)), remove
+
+
+class timed_method:
+    """Times each call of ``cls.name`` (synchronized on both sides) into
+    ``self.ms``, with the value of ``state.step`` (the first argument's)
+    before the call, for the ``with`` block; restores the method after."""
+
+    def __init__(self, cls, name, device):
+        self.cls, self.name, self.device = cls, name, device
+        self.ms, self.steps = [], []
+
+    def __enter__(self):
+        fn = getattr(self.cls, self.name)
+        self.fn = fn
+
+        def timed(obj, state, *args, **kwargs):
+            self.steps.append(int(getattr(state, "step", -1)))
+            sync(self.device)
+            t0 = time.perf_counter()
+            out = fn(obj, state, *args, **kwargs)
+            sync(self.device)
+            self.ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        setattr(self.cls, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.fn)
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def chain_launches(per, unguided_steps: int = 0, guided_steps: int = 0) -> dict:
+    """Launches of reverse chains of ``unguided_steps`` and ``guided_steps``
+    steps in all, from ``path_launches``' counts per UNet forward and per
+    guidance shift (a chain's launches do not depend on its batch)."""
+    return {k: (unguided_steps + guided_steps) * v["per_unet"] + guided_steps * v["per_align"]
+            for k, v in per.items()}
+
+
+def cli_phases(device, smi, weights, per, zero_counts, read_counts) -> dict:
+    """The programs of ``prediff_torch/cli`` at full width on ``device``,
+    each with the kernels' launch counts set to 0 just before it and read
+    just after the program, before the phase's own checks launch anything
+    (a phase calls ``mark()`` where its program ends, else the counts are
+    read at its end), a spy on every plain version (no call on the card)
+    and its printed lines kept (``stdout_tail``): ``cli_sample``,
+    ``cli_train``, ``cli_test``, ``cli_vae``, ``cli_align``, ``cli_convert``
+    and ``cli_learning_check``.  A phase whose line has
+    ``expected_launches`` is held to them exactly.  ``weights``: the
+    randomized v1 state dicts of "unet", "vae" and "align" (the trainers
+    start from the seeded initialisation, as a run does); ``per``:
+    ``path_launches`` of the v1 UNet and alignment net.  Returns the
+    launches by phase."""
+    import contextlib
+    import io
+
+    route = cli_route()
+    emit({"phase": "cli_route", **route})
+    install, spied, remove = plain_spy()
+    launches = {}
+    taken = []
+
+    def mark():
+        sync(device)
+        if not taken:
+            taken.append(read_counts())
+
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        phases = (("cli_sample", cli_sample), ("cli_train", cli_train), ("cli_test", cli_test),
+                  ("cli_vae", cli_vae), ("cli_align", cli_align), ("cli_convert", cli_convert),
+                  ("cli_learning_check", cli_learning_check))
+        for phase, fn in phases:
+            os.makedirs(os.path.join(root, phase))
+            out = io.StringIO()
+            install()
+            taken.clear()
+            try:
+                zero_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    line, want = fn(device, route["route"], os.path.join(root, phase), weights,
+                                    per, mark)
+                sync(device)
+                seconds = time.perf_counter() - t0
+                counts = taken[0] if taken else read_counts()
+            finally:
+                remove()
+            plain, recompute = spied()
+            launches[phase] = counts
+            line = {"phase": phase, **line, "seconds": seconds,
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "plain_calls_on_card": plain,
+                    "param_grad_recompute_on_card": recompute, "card": smi,
+                    "stdout_tail": out.getvalue().splitlines()[-6:]}
+            emit(line)
+            if plain:
+                fail(f"{phase}: plain versions ran on the card: {plain}")
+            missing = [k for k in want if not counts.get(k)]
+            if missing:
+                fail(f"{phase}: kernels {missing} never launched ({counts})")
+            expected = line.get("expected_launches")
+            wrong = {k: [n, expected.get(k, 0)] for k, n in counts.items()
+                     if expected is not None and n != expected.get(k, 0)}
+            if wrong:
+                fail(f"{phase}: launches [counted, expected] {wrong}")
+            if line.get("failed"):
+                fail(f"{phase}: {line['failed']}")
+    emit({"phase": "cli_all", "seconds": time.perf_counter() - t_all, "card": smi})
+    return launches
+
+
+def cli_chain_timer(ld, device):
+    """Wraps ``ld._chain`` to record each chain's step-loop seconds
+    (synchronized); returns the list it fills and the undo."""
+    loops = []
+    chain = ld._chain
+
+    def timed_chain(*args):
+        sync(device)
+        t0 = time.perf_counter()
+        ends = chain(*args)
+        sync(device)
+        loops.append(time.perf_counter() - t0)
+        return ends
+
+    ld._chain = timed_chain
+    return loops, lambda: delattr(ld, "_chain")
+
+
+def cli_sample(device, route, root, weights, per, mark):
+    """``sample_prediff``: ``CLI_CONTEXTS`` contexts x ``CLI_MEMBERS``
+    members, guided, ``CLI_DDIM_STEPS`` DDIM steps.  Each forecast
+    (1, 6, 128, 128, 1), finite, members different, and bit-equal to
+    ``LatentDiffusion.sample`` called directly with the generator the
+    program derives (``step_generator(seed, c * 997 + i)``); the program's
+    launches, read before those direct calls, exactly those of its
+    ``CLI_CONTEXTS * CLI_MEMBERS`` guided chains; ms per step of the step
+    loop (the captures apart)."""
+    import numpy as np
+    import torch
+    from prediff_torch.cli import sample_prediff
+    from prediff_torch.config import prediff_default_config
+    from prediff_torch.diffusion.knowledge_alignment import get_alignment_kwargs_avg_x
+    from prediff_torch.factory import build_pipeline
+    from prediff_torch.training.diffusion_trainer import step_generator
+
+    cfg = prediff_default_config()
+    L = cfg.layout
+    argv = ["--out", root, "--num-contexts", str(CLI_CONTEXTS), "--num-samples", str(CLI_MEMBERS),
+            "--use-alignment", "--ddim-steps", str(CLI_DDIM_STEPS)]
+    if route == "main":
+        argv.append("--vis")
+        args = sample_prediff.parse_args(argv + ["--synthetic"])
+        sample_prediff.main(argv + ["--synthetic"])
+        mark()
+        ld = sample_prediff.build_sampler(cfg, args, device)   # the same seeded weights
+        windows = list(sample_prediff.data_module(cfg, args).test_batches())[:CLI_CONTEXTS]
+        preds = [[np.load(os.path.join(root, f"ctx{c}_sample{i}.npy"))
+                  for i in range(CLI_MEMBERS)] for c in range(CLI_CONTEXTS)]
+        loops, undo = cli_chain_timer(ld, device)
+        captures = 0.0
+    else:
+        args = sample_prediff.parse_args(argv)
+        ld = build_pipeline(cfg, with_alignment=True, device=device, params=weights)
+        windows = WindowModule(1, cfg.dataset.seq_len, L.img_height, 0,
+                               n_test=CLI_CONTEXTS).test_batches()
+        windows = list(windows)
+        loops, undo = cli_chain_timer(ld, device)
+        cap0 = ld.graphs.capture_seconds
+        preds = sample_prediff.sample_contexts(args, cfg, ld, windows)
+        mark()
+        captures = ld.graphs.capture_seconds - cap0
+    program_loops = list(loops)
+    bit_equal, differ, finite, shapes = [], [], [], []
+    for c, batch in enumerate(windows):
+        b = torch.from_numpy(batch).to(device)
+        y, x = b[:, :L.in_len], b[:, L.in_len:L.in_len + L.out_len]
+        for i, got in enumerate(preds[c]):
+            want = ld.sample(y, use_alignment=True, alignment_kwargs=get_alignment_kwargs_avg_x(x),
+                             sampler="ddim", ddim_steps=CLI_DDIM_STEPS, guidance_every_k=1,
+                             generator=step_generator(args.seed, c * 997 + i, device))
+            bit_equal.append(bool(np.array_equal(got, want.cpu().numpy())))
+            finite.append(bool(np.isfinite(got).all()))
+            shapes.append(list(got.shape))
+        differ.append(not np.array_equal(preds[c][0], preds[c][1]))
+    direct_loops = loops[len(program_loops):]
+    undo()
+    step_ms = [1e3 * s / CLI_DDIM_STEPS for s in program_loops]
+    failed = []
+    if not all(bit_equal):
+        failed.append(f"forecasts differ from ld.sample with the program's generators {bit_equal}")
+    if not all(finite) or any(s != [1, L.out_len, L.img_height, L.img_width, 1] for s in shapes):
+        failed.append(f"shapes {shapes} or non-finite values")
+    if not all(differ):
+        failed.append("members of a context are equal")
+    return ({"route": route, "contexts": CLI_CONTEXTS, "members": CLI_MEMBERS,
+             "ddim_steps": CLI_DDIM_STEPS, "guided": True, "shapes": shapes, "finite": all(finite),
+             "members_differ": differ, "bit_equal_to_library_call": bit_equal,
+             "program_loop_ms_per_step": step_ms,
+             "ms_per_step": median(step_ms[1:]) if route == "functions" else None,
+             "capture_s": captures,
+             "direct_ms_per_step": [1e3 * s / CLI_DDIM_STEPS for s in direct_loops],
+             "expected_launches": chain_launches(
+                 per, guided_steps=CLI_CONTEXTS * CLI_MEMBERS * CLI_DDIM_STEPS),
+             "failed": failed}, CLI_GUIDED_KERNELS)
+
+
+def cli_train(device, route, root, weights, per, mark):
+    """``train_sevirlr_prediff`` at ``total_batch_size`` 4 (accum 2):
+    ``CLI_TRAIN_MICRO_STEPS`` micro-steps through ``fit`` and one validation
+    at ``CLI_DDIM_STEPS`` DDIM steps on the data-index-0 example (aligned
+    and unaligned suites, the train example); ``metrics.jsonl`` holds the
+    JAX script's keys and ``valid_loss_epoch == -valid_csi_avg_epoch``; a
+    resume from ``ckpt_last`` continues at the saved step.  Wall ms per
+    micro-step beside the ``train`` phase's at the same shapes, by the same
+    statistic (the median of micro-steps 3-6, the upper of the middle two)."""
+    import numpy as np
+    from prediff_torch.cli import train_sevirlr_prediff as tp
+    from prediff_torch.config import prediff_default_config
+    from prediff_torch.training import DiffusionTrainer
+    from prediff_torch.utils.checkpoint import all_steps
+
+    cfg = prediff_default_config()
+    cfg.optim.total_batch_size = 2 * cfg.optim.micro_batch_size
+    cfg.eval.val_ddim_steps = CLI_DDIM_STEPS
+    n = CLI_TRAIN_MICRO_STEPS
+    argv = ["--save", root, "--max-steps", str(n)]
+    if route == "main":
+        cfg_path = os.path.join(os.path.dirname(root), "cli_train.yaml")
+        from prediff_torch.config import save_yaml
+        save_yaml(cfg, cfg_path)
+        argv += ["--cfg", cfg_path, "--synthetic"]
+    argv_resume = ["--save", root, "--max-steps", str(n + 1), "--ckpt-name", "ckpt_last"]
+    argv_resume += argv[4:]
+    args = tp.parse_args(argv)
+    dm = (None if route == "main" else
+          WindowModule(cfg.optim.micro_batch_size, cfg.dataset.seq_len, cfg.layout.img_height, n))
+    first = None
+    with timed_method(DiffusionTrainer, "train_step", device) as steps:
+        if route == "main":
+            tp.main(argv)
+            tp.main(argv_resume)
+        else:
+            ld = tp.build_models(cfg, args, device)
+            state = tp.train(args, cfg, dm, device, root, ld)
+            first = [state.step, state.tx.count]
+            tp.train(tp.parse_args(argv_resume), cfg, dm, device, root, ld)
+    with open(os.path.join(root, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    keys = {k for r in records for k in r}
+    # no FVD in validation; CRPS with more than one member
+    metric_keys = [k for k in EVAL_KEYS if k != "fvd_epoch"
+                   and (k != "crps_epoch" or cfg.eval.num_samples_per_context > 1)]
+    want_keys = ({"step", "time", "logvar", "val/loss", "val/loss_gamma", "val/loss_simple",
+                  "val/loss_vlb"} | {f"{p}_{k}" for p in ("valid", "valid_aligned")
+                                     for k in metric_keys})
+    val = [r for r in records if "valid_loss_epoch" in r]
+    failed = []
+    if keys != want_keys:
+        failed.append(f"metrics keys {sorted(keys ^ want_keys)} differ from the JAX script's")
+    if not val or any(r["valid_loss_epoch"] != -r["valid_csi_avg_epoch"] for r in val):
+        failed.append("valid_loss_epoch != -valid_csi_avg_epoch")
+    if not all(np.isfinite(v) for r in records for v in r.values()):
+        failed.append("non-finite metric")
+    if [r["step"] for r in val] != [n, n + 1]:
+        failed.append(f"validations at steps {[r['step'] for r in val]}")
+    if steps.steps != list(range(n)) + [n]:
+        failed.append(f"micro-steps started at {steps.steps}: the resume did not continue at {n}")
+    saved = all_steps(os.path.join(root, "ckpt_last"))
+    if saved != [n, n + 1]:
+        failed.append(f"ckpt_last steps {saved}")
+    if first not in (None, [n, n // tp.accum_steps(cfg)]):
+        failed.append(f"(micro-steps, optimizer steps) {first} after the first run")
+    return ({"route": route, "micro_steps": n, "accum_steps": tp.accum_steps(cfg),
+             "micro_step_ms": steps.ms, "ms_per_micro_step": median(steps.ms[2:n]),
+             "train_phase_ms_this_run": PHASE_NUMBERS.get("train"),
+             "steps_after_first_run": first,
+             "resumed_at_step": steps.steps[n:],
+             "ckpt_last_steps": saved, "val_records": len(val),
+             "val_loss": [r["val/loss"] for r in val],
+             "valid_csi_avg_epoch": [r["valid_csi_avg_epoch"] for r in val],
+             "keys_equal_jax_script": keys == want_keys, "failed": failed}, CLI_TRAIN_KERNELS)
+
+
+def cli_test(device, route, root, weights, per, mark):
+    """``train_sevirlr_prediff --test --num-samples 2 --ddim-steps 20``
+    (``run_eval``) on one test batch of 2 windows, FVD over
+    ``seeded_i3d(400)`` at 224x224: every ``test_*`` / ``test_aligned_*``
+    key, and the program's launches exactly those of an unguided and a guided
+    chain per test batch; then suites filled from the ``.npy`` dumps give the
+    same values."""
+    import numpy as np
+    import torch
+    from prediff_torch.cli import train_sevirlr_prediff as tp
+    from prediff_torch.config import prediff_default_config
+    from prediff_torch.factory import build_pipeline
+    from prediff_torch.evaluation import FrechetVideoDistance
+
+    cfg = prediff_default_config()
+    L = cfg.layout
+    argv = ["--save", root, "--test", "--num-samples", "2", "--ddim-steps",
+            str(CLI_TEST_DDIM_STEPS)]
+    args = tp.parse_args(argv)
+    dm = WindowModule(cfg.optim.micro_batch_size, cfg.dataset.seq_len, L.img_height, 0)
+    if route == "main":
+        tp.main(argv + ["--synthetic"])
+        mark()
+        with open(os.path.join(root, "metrics.jsonl")) as f:
+            results = json.loads(f.readline())
+        dm = tp.data_module(cfg, tp.parse_args(argv + ["--synthetic"]), root)
+    else:
+        ld = build_pipeline(cfg, with_alignment=True, device=device, params=weights)
+        results = tp.run_eval(args, cfg, ld, dm, root)
+        mark()
+    batches = sum(f.endswith("_sample0.npy") for f in os.listdir(os.path.join(root, "npy")))
+    want = [f"{p}_{k}" for p in ("test", "test_aligned") for k in EVAL_KEYS]
+    missing = [k for k in want + list(CLI_TEST_SMOKE_KEYS) if k not in results]
+    # the same suites refilled from the dumps (the program's tensors, as saved)
+    feature_fn, nf = tp.build_fvd_feature_fn(cfg, None)
+    again = {}
+    batch = torch.from_numpy(next(iter(dm.test_batches()))).to(device)
+    x = batch[:, L.in_len:L.in_len + L.out_len]
+    for suffix, prefix in (("_aligned", "test_aligned"), ("", "test")):
+        suite = tp.make_suite(cfg, FrechetVideoDistance(feature_fn=feature_fn, num_features=nf,
+                                                        auto_t=True, reset_real_features=False))
+        preds = torch.from_numpy(np.stack([np.load(os.path.join(
+            root, "npy", f"batch0_rank0_sample{i}{suffix}.npy")) for i in range(2)])).to(device)
+        suite.update(preds, x)
+        again.update(suite.compute(prefix))
+    worst = {}
+    for k, v in again.items():
+        tol = CLI_FVD_TOL_REL if k.endswith("fvd_epoch") else CLI_TOL_REL
+        err = worst[k] = abs(v - results[k]) / max(1.0, abs(v))
+        if err > tol or not np.isfinite(results[k]):
+            missing.append(f"{k}: {results[k]} vs {v}")
+    failed = [f"keys or values: {missing}"] if missing else []
+    return ({"route": route, "ddim_steps": CLI_TEST_DDIM_STEPS, "members": 2,
+             "batch": cfg.optim.micro_batch_size, "i3d_classes": nf,
+             "fvd_resolution": cfg.eval.fvd_resolution, "keys": len(results),
+             "worst_rel_err_refilled": max(worst.values()) if worst else None,
+             "tol_rel": CLI_TOL_REL, "fvd_tol_rel": CLI_FVD_TOL_REL,
+             "test_fvd_epoch": results.get("test_fvd_epoch"),
+             "test_aligned_csi_avg_epoch": results.get("test_aligned_csi_avg_epoch"),
+             "npy": sorted(os.listdir(os.path.join(root, "npy"))),
+             "expected_launches": chain_launches(per, CLI_TEST_DDIM_STEPS * batches,
+                                                 CLI_TEST_DDIM_STEPS * batches),
+             "failed": failed}, CLI_GUIDED_KERNELS)
+
+
+def cli_vae(device, route, root, weights, per, mark):
+    """``train_vae_sevirlr`` at ``vae_training_default_config()`` (B=8
+    frames of 128x128): ``CLI_TRAINER_STEPS`` steps, finite losses,
+    ``ckpt_vae``; ms per step beside the ``vae_train`` phase's."""
+    import numpy as np
+    from prediff_torch.cli import train_vae_sevirlr as tv
+    from prediff_torch.config import vae_training_default_config
+    from prediff_torch.training import VAETrainer
+    from prediff_torch.utils.checkpoint import all_steps
+
+    cfg = vae_training_default_config()
+    argv = ["--save", root, "--max-steps", str(CLI_TRAINER_STEPS)]
+    with timed_method(VAETrainer, "train_step", device) as steps:
+        if route == "main":
+            tv.main(argv + ["--synthetic"])
+            logs = {}
+        else:
+            dm = WindowModule(cfg.optim.micro_batch_size, 1, cfg.layout.img_height,
+                              CLI_TRAINER_STEPS)
+            logs = tv.train(tv.parse_args(argv), cfg, dm, device, root)
+    saved = all_steps(os.path.join(root, "ckpt_vae"))
+    failed = []
+    if saved != [CLI_TRAINER_STEPS] or len(steps.ms) != CLI_TRAINER_STEPS:
+        failed.append(f"{len(steps.ms)} steps, ckpt_vae steps {saved}")
+    if not all(np.isfinite(v) for v in logs.values()):
+        failed.append(f"non-finite logs {logs}")
+    return ({"route": route, "batch": cfg.optim.micro_batch_size, "step_ms": steps.ms,
+             "ms_per_step": median(steps.ms[1:]),
+             "vae_train_phase_ms_this_run": PHASE_NUMBERS.get(
+                 ("vae_train", cfg.model.loss.disc_start), {}).get("ms_per_step"),
+             "nll_loss": logs.get("train/nll_loss"), "ckpt_vae_steps": saved,
+             "failed": failed}, ())
+
+
+def cli_align(device, route, root, weights, per, mark):
+    """``train_sevirlr_avg_x`` at ``alignment_default_config()`` (B=2 pixel
+    windows through the frozen VAE, rates 0.1): ``CLI_TRAINER_STEPS``
+    micro-steps, finite metrics, ``ckpt_align``; ms per micro-step beside
+    the ``align_train`` phase's."""
+    import numpy as np
+    from prediff_torch.cli import train_sevirlr_avg_x as ta
+    from prediff_torch.config import alignment_default_config
+    from prediff_torch.training import AlignmentTrainer
+    from prediff_torch.utils.checkpoint import all_steps
+
+    cfg = alignment_default_config()
+    argv = ["--save", root, "--max-steps", str(CLI_TRAINER_STEPS)]
+    with timed_method(AlignmentTrainer, "train_step", device) as steps:
+        if route == "main":
+            ta.main(argv + ["--synthetic"])
+            metrics = {}
+        else:
+            dm = WindowModule(cfg.optim.micro_batch_size, cfg.dataset.seq_len,
+                              cfg.layout.img_height, CLI_TRAINER_STEPS)
+            metrics = ta.train(ta.parse_args(argv), cfg, dm, device, root)
+    saved = all_steps(os.path.join(root, "ckpt_align"))
+    failed = []
+    if saved != [CLI_TRAINER_STEPS] or len(steps.ms) != CLI_TRAINER_STEPS:
+        failed.append(f"{len(steps.ms)} steps, ckpt_align steps {saved}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        failed.append(f"non-finite metrics {metrics}")
+    return ({"route": route, "batch": cfg.optim.micro_batch_size, "step_ms": steps.ms,
+             "ms_per_micro_step": median(steps.ms[1:]),
+             "align_train_phase_ms_this_run": PHASE_NUMBERS.get("align_train"),
+             "relative_mae": metrics.get("relative_mae"), "ckpt_align_steps": saved,
+             "failed": failed}, CLI_ALIGN_KERNELS)
+
+
+def cli_convert(device, route, root, weights, per, mark):
+    """``convert_pretrained`` on ``.pt`` files of the randomized full-width
+    models (the reference's names); ``PreDiffPredictor.from_npz`` on its
+    output forecasts bit for bit what ``from_torch`` on the ``.pt`` files
+    does (guided, ``CLI_CONVERT_DDIM_STEPS`` DDIM steps, one seed); the
+    launches are the ``from_npz`` forecast's alone, exactly one guided
+    chain's."""
+    import torch
+    from prediff_torch.cli import convert_pretrained
+    from prediff_torch.config import prediff_default_config
+    from prediff_torch.serving import PreDiffPredictor
+    from prediff_torch.utils.checkpoint import PRETRAINED_NAMES
+
+    cfg = prediff_default_config()
+    pt, out = os.path.join(root, "pt"), os.path.join(root, "weights")
+    os.makedirs(pt)
+    for key, name in (("unet", "earthformerunet"), ("vae", "vae"), ("align", "alignment")):
+        torch.save(weights[key], os.path.join(pt, PRETRAINED_NAMES[name]))
+    t0 = time.perf_counter()
+    convert_pretrained.main(["--pt-dir", pt, "--out", out])
+    convert_s = time.perf_counter() - t0
+    L = cfg.layout
+    context = torch.rand((1, L.in_len, L.img_height, L.img_width, 1),
+                         generator=torch.Generator().manual_seed(SEED + 11))
+    avg = torch.full((1, 1), AVG_X_GT)
+    forecasts = {}
+    for name, make in (("from_npz", PreDiffPredictor.from_npz),
+                       ("from_torch", PreDiffPredictor.from_torch)):
+        predictor = make(out if name == "from_npz" else pt, cfg, device=device)
+        forecasts[name] = predictor.predict(
+            context, use_alignment=True, avg_x_gt=avg, ddim_steps=CLI_CONVERT_DDIM_STEPS,
+            generator=torch.Generator(device).manual_seed(SEED)).cpu()
+        if name == "from_npz":
+            mark()
+        del predictor
+    equal = torch.equal(forecasts["from_npz"], forecasts["from_torch"])
+    failed = [] if equal and torch.isfinite(forecasts["from_npz"]).all() else [
+        "the from_npz forecast differs from the from_torch one"]
+    return ({"route": route, "npz": sorted(os.listdir(out)), "convert_s": convert_s,
+             "npz_mib": sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+             / 2**20, "forecast_bit_equal": equal, "ddim_steps": CLI_CONVERT_DDIM_STEPS,
+             "expected_launches": chain_launches(per, guided_steps=CLI_CONVERT_DDIM_STEPS),
+             "failed": failed}, CLI_GUIDED_KERNELS)
+
+
+def cli_learning_check(device, route, root, weights, per, mark):
+    """``learning_check`` on the card (400 steps of configs/tiny_smoke.yaml,
+    whose widths take the library routes): ``LEARNS OK`` after the
+    first-20 and last-20 means."""
+    import contextlib
+    import io
+
+    from prediff_torch.cli import learning_check
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = learning_check.main([])
+    lines = out.getvalue().splitlines()
+    print("\n".join(lines[-3:]))
+    means = next((ln for ln in lines if ln.startswith("first20=")), "")
+    ok = rc == 0 and lines[-1:] == ["LEARNS OK"] and means and lines.index(means) < len(lines) - 1
+    return ({"route": route, "rc": rc, "means": means, "last_line": lines[-1] if lines else None,
+             "failed": [] if ok else [f"learning_check: {lines[-3:]}"]}, ())
+
+
+def cli_alone(device, smi):
+    """``--only cli``: the randomized full-width models as ``run`` makes them,
+    then the ``cli_*`` phases."""
+    import torch
+    from prediff_torch.config import prediff_default_config
+    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
+    from prediff_torch.models.init import init_params_
+
+    cfg = prediff_default_config()
+    gen = torch.Generator().manual_seed(SEED)
+    models = {key: init_params_(build(cfg), gen, randomize=True)
+              for key, build in (("unet", build_unet), ("vae", build_vae),
+                                 ("align", build_alignment_model))}
+    weights = {key: m.state_dict() for key, m in models.items()}
+    cli_phases(device, smi, weights, path_launches(models["unet"], models["align"]),
+               *kernel_counters())
 
 
 if __name__ == "__main__":

@@ -1,0 +1,63 @@
+"""Pieces the programs share: the device flag, the experiment directory, the
+refusal of several hosts, the synthetic dataset, eval mode for sampling and
+host batches as tensors."""
+import argparse
+import contextlib
+import os
+from typing import Iterator, Optional
+
+import torch
+from torch import nn
+
+MULTI_GPU = "ROADMAP.md queue 1, multi-GPU: the mesh, sharded ensembles and DDP training"
+
+
+def add_device(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default=None, type=str,
+                   help="torch device (default: the CUDA card; 'cpu' runs the plain versions)")
+
+
+def experiment_dir(save: str) -> str:
+    """``experiments/<save>``, or ``save`` itself when it is absolute."""
+    return os.path.join("experiments", save)
+
+
+def refuse_multihost(args: argparse.Namespace) -> None:
+    """Several hosts or processes are not ported: raise for ``--multihost``,
+    ``--coordinator`` or ``--nodes`` above 1."""
+    if (getattr(args, "multihost", False) or getattr(args, "coordinator", None)
+            or getattr(args, "nodes", 1) > 1):
+        raise NotImplementedError(f"--multihost / --coordinator / --nodes > 1: more than one "
+                                  f"process is not ported ({MULTI_GPU})")
+
+
+def sevir_dir_of(args: argparse.Namespace, synthetic_root: str, cfg, num_events: int
+                 ) -> Optional[str]:
+    """``--sevir-dir``, or with ``--synthetic`` a synthetic SEVIR-LR dataset at
+    ``synthetic_root`` (written on the first call) at the configuration's
+    frame size."""
+    if not args.synthetic:
+        return args.sevir_dir
+    if not os.path.exists(synthetic_root):
+        from ..datasets import make_synthetic_sevir_lr
+
+        make_synthetic_sevir_lr(synthetic_root, num_events=num_events, H=cfg.layout.img_height,
+                                W=cfg.layout.img_width, T=25)
+    return synthetic_root
+
+
+@contextlib.contextmanager
+def eval_mode(module: nn.Module) -> Iterator[None]:
+    """``module`` in eval mode for the block (sampling from a model in
+    training: no dropout), its mode restored after."""
+    was = module.training
+    module.eval()
+    try:
+        yield
+    finally:
+        module.train(was)
+
+
+def as_tensor(batch, device) -> torch.Tensor:
+    """A host batch (numpy or tensor) as an f32 tensor on ``device``."""
+    return torch.as_tensor(batch, dtype=torch.float32).to(device)

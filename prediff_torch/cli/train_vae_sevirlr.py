@@ -1,0 +1,101 @@
+"""Train the frame-wise KL-VAE on SEVIR-LR with the GAN loss.
+
+Two optimizers (generator: L1 + logvar NLL + KL + the adaptive adversarial
+term; discriminator: hinge) over frames drawn as ``seq_len=1`` windows, the
+trainer of ``factory.build_vae_trainer``; ``ckpt_vae`` at the end.
+Counterpart of ``scripts/train_vae_sevirlr.py``.
+
+    python -m prediff_torch.cli.train_vae_sevirlr --save vae0 --cfg configs/vae_sevirlr_v1.yaml
+    python -m prediff_torch.cli.train_vae_sevirlr --save smoke --synthetic --max-steps 5 --device cpu
+"""
+import argparse
+import os
+import sys
+from typing import Dict, List, Optional
+
+import torch
+
+from ..config import load_config, save_yaml, vae_training_default_config
+from ..datasets import SEVIRDataModule, prefetch_to_device
+from ..factory import build_vae_trainer
+from ..training import MetricLogger
+from ..utils.checkpoint import save_checkpoint
+from ..utils.device import resolve_device
+from ._common import add_device, experiment_dir, refuse_multihost, sevir_dir_of
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--save", default="tmp_vae", type=str)
+    p.add_argument("--cfg", default=None, type=str)
+    p.add_argument("--sevir-dir", default=None, type=str)
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--max-steps", default=None, type=int)
+    p.add_argument("--multihost", action="store_true", help="several hosts (not ported: raises)")
+    p.add_argument("--coordinator", default=None, type=str)
+    add_device(p)
+    return p.parse_args(argv)
+
+
+def data_module(cfg, args: argparse.Namespace, save_dir: str) -> SEVIRDataModule:
+    """Frames: ``seq_len=1`` windows with stride 1."""
+    d = cfg.dataset
+    dm = SEVIRDataModule(
+        seq_len=1, stride=1, layout="NTHWC", aug_mode=d.aug_mode, dataset_name=d.dataset_name,
+        sevir_dir=sevir_dir_of(args, os.path.join(save_dir, "synthetic_sevirlr"), cfg, 16),
+        train_test_split_date=d.train_test_split_date, val_ratio=d.val_ratio,
+        batch_size=cfg.optim.micro_batch_size, seed=cfg.optim.seed)
+    dm.setup()
+    return dm
+
+
+def train(args: argparse.Namespace, cfg, dm, device, save_dir: str) -> Dict[str, float]:
+    """``--max-steps`` steps (else ``max_epochs``) of the VAE-GAN on ``dm``'s
+    frames on ``device``; logs every 50 steps, ``ckpt_vae`` under
+    ``save_dir``; returns the last step's logs."""
+    o = cfg.optim
+    trainer = build_vae_trainer(cfg, device=device, seed=o.seed,
+                                total_num_steps=args.max_steps or 100_000)
+    H = cfg.layout.img_height   # the JAX script initialises on one zero frame
+    gen_state, disc_state, batch_stats = trainer.create_states(
+        torch.zeros((1, H, H, cfg.model.vae.in_channels)))
+    logger = MetricLogger(save_dir, use_wandb=cfg.logging.use_wandb,
+                          run_name=cfg.logging.logging_prefix, config=cfg.to_dict())
+
+    def frame_batches(epoch):
+        frames = (b[:, 0] for b in dm.train_batches(epoch)   # (B, H, W, C)
+                  if b.shape[0] == o.micro_batch_size)
+        yield from prefetch_to_device(frames, size=2, device=device)
+
+    step, logs = 0, {}
+    for epoch in range(o.max_epochs):
+        for frames in frame_batches(epoch):
+            gen_state, disc_state, batch_stats, logs = trainer.train_step(
+                gen_state, disc_state, batch_stats, o.seed, frames)
+            step += 1
+            if step % 50 == 0:
+                logger.log(step, logs)
+            if args.max_steps and step >= args.max_steps:
+                break
+        if args.max_steps and step >= args.max_steps:
+            break
+    save_checkpoint(os.path.join(save_dir, "ckpt_vae"), gen_state)
+    logs = {k: float(v) for k, v in logs.items()}
+    print(f"VAE training done at step {step}; nll={logs['train/nll_loss']:.4f}", flush=True)
+    return logs
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = parse_args(argv)
+    refuse_multihost(args)
+    device = resolve_device(args.device)
+    cfg = load_config(vae_training_default_config, args.cfg)
+    save_dir = experiment_dir(args.save)
+    os.makedirs(save_dir, exist_ok=True)
+    save_yaml(cfg, os.path.join(save_dir, "cfg.yaml"))
+    train(args, cfg, data_module(cfg, args, save_dir), device, save_dir)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,19 +14,46 @@ from ..utils.checkpoint import delete_checkpoint, save_checkpoint
 
 
 class MetricLogger:
-    """Append-only jsonl logger: one record per call, ``<save_dir>/metrics.jsonl``."""
+    """Append-only jsonl logger, one record per call (``step``, ``time`` and
+    the metrics that are numbers, as floats) in ``<save_dir>/metrics.jsonl``;
+    also TensorBoard (``use_tensorboard``) and WandB (``use_wandb``), the
+    same keys, each only where its package imports and starts: a host
+    without them logs the jsonl alone, as the JAX package's logger does."""
 
-    def __init__(self, save_dir: str):
+    def __init__(self, save_dir: str, use_tensorboard: bool = False, use_wandb: bool = False,
+                 run_name: Optional[str] = None, config: Optional[Dict[str, Any]] = None):
         os.makedirs(save_dir, exist_ok=True)
         self.path = os.path.join(save_dir, "metrics.jsonl")
+        self._tb = self._wandb = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(save_dir)
+            except Exception:   # absent or failing to start: the jsonl stays
+                self._tb = None
+        if use_wandb:
+            try:
+                import wandb
+
+                self._wandb = wandb.init(
+                    project=run_name or os.path.basename(save_dir) or "prediff", dir=save_dir,
+                    config=config, resume="allow")
+            except Exception:
+                self._wandb = None
 
     def log(self, step: int, metrics: Dict[str, Any], prefix: str = "") -> None:
         rec = {"step": int(step), "time": time.time()}
         for k, v in metrics.items():
+            key = f"{prefix}{k}"
             try:
-                rec[f"{prefix}{k}"] = float(v)
+                rec[key] = float(v)
             except (TypeError, ValueError):
                 continue
+            if self._tb is not None:
+                self._tb.add_scalar(key, rec[key], step)
+        if self._wandb is not None:
+            self._wandb.log({k: v for k, v in rec.items() if k != "step"}, step=rec["step"])
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
 

@@ -74,6 +74,23 @@ def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(data[k]) for k in data.files}
 
 
+def save_flax_npz(path: str, tree: Dict) -> None:
+    """A nested flax tree of arrays as the JAX package's ``.npz`` export
+    (``prediff_tpu/utils/checkpoint.py`` ``save_params_npz``): each leaf
+    under its ``/``-joined path, so that both packages' ``from_npz`` read it."""
+    flat = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, prefix + (k,))
+        else:
+            flat["/".join(prefix)] = np.asarray(node)
+
+    walk(tree, ())
+    np.savez(path, **flat)
+
+
 def load_flax_npz(path: str) -> Dict:
     """The JAX package's ``.npz`` export (``prediff_tpu/utils/checkpoint.py``
     ``save_params_npz``: leaves under ``/``-joined paths) as its nested flax
@@ -94,6 +111,8 @@ PRETRAINED_NAMES = {
     "vae": "pretrained_sevirlr_vae_8x8x64_v1.pt",
     "earthformerunet": "pretrained_sevirlr_earthformerunet_v1.pt",
     "alignment": "pretrained_sevirlr_alignment_avg_x_cuboid_v1.pt",
+    "i3d400": "pretrained_i3d_400.pt",
+    "i3d600": "pretrained_i3d_600.pt",
 }
 
 # buffers of the reference's modules with no parameter of the port's (the

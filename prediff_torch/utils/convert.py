@@ -20,6 +20,13 @@ flax path, and invert the flax leaf layout:
     BatchNorm batch_stats mean, var  -> running_mean, running_var
     anything else (bias, tables, the attention pool's positional_embedding)
                                      copied verbatim.
+
+:func:`torch_params_to_flax` is the inverse: a reference state_dict (the
+published ``.pt`` files) -> the flax tree, names and layouts of the JAX
+package's converter (``prediff_tpu/utils/convert.py``
+``convert_torch_state_dict``), where the module that owns a ``weight``
+decides its flax leaf (Linear and Conv: ``kernel``; the norms: ``scale``;
+Embedding: ``embedding``).
 """
 from typing import Dict, Tuple
 
@@ -120,3 +127,78 @@ def flax_train_tree_to_torch(model: torch.nn.Module, tree,
     if "logvar" in tree:
         out["logvar"] = torch.from_numpy(np.array(tree["logvar"], dtype=np.float32))
     return out
+
+
+def _from_torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
+    """The flax layout of a port leaf (the inverse of :func:`_to_torch_layout`)."""
+    if leaf in ("loc", "scale") and arr.ndim == 4:        # ActNorm, NCHW -> NHWC
+        return arr.transpose(0, 2, 3, 1)
+    if leaf != "kernel":
+        return arr
+    if arr.ndim == 2:                      # Linear
+        return arr.T
+    if arr.ndim == 3:                      # Conv1d O,I,k -> k,I,O
+        return arr.transpose(2, 1, 0)
+    if arr.ndim == 4:                      # Conv2d O,I,kh,kw -> kh,kw,I,O
+        return arr.transpose(2, 3, 1, 0)
+    if arr.ndim == 5:                      # Conv3d O,I,kt,kh,kw -> kt,kh,kw,I,O
+        return arr.transpose(2, 3, 4, 1, 0)
+    raise ValueError(f"unexpected kernel rank {arr.ndim}")
+
+
+_NORMS = (torch.nn.LayerNorm, torch.nn.GroupNorm, torch.nn.modules.batchnorm._BatchNorm)
+
+
+def _flax_leaf(model: torch.nn.Module, key: str) -> str:
+    """The flax leaf name of ``model``'s state_dict entry ``key``."""
+    owner, _, leaf = key.rpartition(".")
+    if leaf != "weight":
+        return leaf
+    mod = model.get_submodule(owner)
+    if isinstance(mod, (torch.nn.Linear, torch.nn.modules.conv._ConvNd)):
+        return "kernel"
+    if isinstance(mod, _NORMS):
+        return "scale"
+    if isinstance(mod, torch.nn.Embedding):
+        return "embedding"
+    raise ValueError(f"'{key}': no flax leaf for the weight of a {type(mod).__name__}")
+
+
+def torch_params_to_flax(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor],
+                         skip_suffixes: Tuple[str, ...] = ()) -> Dict:
+    """The flax parameter tree (nested dicts of f32 numpy arrays, the JAX
+    package's names and layouts) of ``state_dict``, a state_dict of
+    ``model``'s architecture: what ``convert_torch_state_dict`` of the JAX
+    package makes of it.  The BatchNorms' running statistics and counters
+    (flax ``batch_stats``, which that converter leaves out) and keys ending
+    in ``skip_suffixes`` (buffers derived from the configuration) are left
+    out.  Strict: every parameter of ``model`` must be in ``state_dict`` and
+    every other key skipped, else ``ValueError``."""
+    own = model.state_dict()
+    tree: Dict = {}
+    left = []
+    for key, value in state_dict.items():
+        base = torch_key_to_flax_path(key)
+        if base[-1] in _RUNNING or base[-1] == "num_batches_tracked" or key.endswith(skip_suffixes):
+            continue
+        if key not in own:
+            left.append(key)
+            continue
+        arr = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+        if tuple(arr.shape) != tuple(own[key].shape):
+            raise ValueError(f"shape mismatch for '{key}': {arr.shape} vs port "
+                             f"{tuple(own[key].shape)}")
+        leaf = _flax_leaf(model, key)
+        node = tree
+        for part in base[:-1]:
+            node = node.setdefault(part, {})
+        if leaf in node:
+            raise ValueError(f"flax leaf {'/'.join(base[:-1] + (leaf,))} taken twice")
+        node[leaf] = _from_torch_layout(leaf, arr).astype(np.float32)
+    missing = [k for k in own if k not in state_dict
+               and torch_key_to_flax_path(k)[-1] not in _RUNNING
+               and not k.endswith(("num_batches_tracked",) + tuple(skip_suffixes))]
+    if left or missing:
+        raise ValueError(f"state_dict does not fit the model: {len(missing)} missing "
+                         f"{missing[:10]}, {len(left)} left over {left[:10]}")
+    return tree
