@@ -69,7 +69,14 @@ forward and its input gradient at every shape of the route),
 ``kernels_vs_plain``; after the axial forecasts ``conv_routes`` (the route's
 launches per call held to the JAX routing rule's), a UNet forward and a
 guidance shift card against CPU, ``conv_forecast`` and
-``conv_guided_forecast`` with exact counts, profiles; after ``train``,
+``conv_guided_forecast`` with exact counts, profiles; after the swin
+phases the forecast on bf16 parameters (``bf16params_*``, also ``--only
+bf16params``: ``cast_to_bf16`` of the seeded weights): the bf16 forms of
+rows 1-3 at the UNet's shapes and of the general layer, its input gradient
+and the grouped core at the swin path's, a bf16 UNet forward card against
+CPU, the 100-step DDPM and 50-step guided DDIM chains with a bf16 carry, the
+swin chains with guidance in bf16, and the bf16 tree on an f32 carry
+bit-equal to the f32 pipeline on the rounded weights; after ``train``,
 ``conv_train_grads``, ``conv_train`` and ``profile_conv_train_step`` (no
 rate-0 phase).  The programs of ``prediff_torch/cli`` last (``cli_*``, also
 ``--only cli``), at full width with the kernels' counts and a spy on every
@@ -1935,8 +1942,19 @@ BF16_KERNELS = {f"{k}_bf16": KERNELS[k][:2] + ("conv_bf16_guidance_forecast"
                                                if k.startswith("conv") else
                                                "bf16_guidance_forecast",)
                 for k in BF16_FORMS}
+# The bf16 forms of the general cuboid layer, its input gradient and the
+# grouped core (rows 9, 5, 10): a forecast on bf16 parameters (cast_to_bf16)
+# runs them on the swin path, the UNet with a bf16 carry and the alignment
+# net with guidance in bf16 (bf16params_swin_forecast, guided).
+BF16_CUBOID_FORMS = ("cuboid_attention", "cuboid_attention_bwd_dx", "cuboid_attention_grouped")
+BF16_KERNELS.update({f"{k}_bf16": KERNELS[k][:2] + ("bf16params_swin_guided_forecast",)
+                     for k in BF16_CUBOID_FORMS})
 PATH_WEIGHTS.update({"bf16_guidance_forecast": ("per_align",),
-                     "conv_bf16_guidance_forecast": ("conv_per_align",)})
+                     "conv_bf16_guidance_forecast": ("conv_per_align",),
+                     "bf16params_swin_guided_forecast": ("per_unet", "per_align")})
+BF16PARAMS_FORWARD_TOL = 2e-2     # the f32 forward phase's bar, card against CPU
+BF16PARAMS_DDIM_STEPS = 50        # the guided DDIM chain on bf16 parameters
+BF16PARAMS_F32_CARRY_STEPS = 20   # bf16params_f32_carry's DDPM and DDIM chains
 BF16_CHAIN_STEPS = 5            # the bf16 guided chain held card against CPU (temperature 0)
 BF16_CHAIN_TOL_REL_L2 = 2e-2
 VAE_BF16_LOSS_TOL_REL = 1e-2    # card vs CPU, bf16 convolutions on both sides
@@ -2053,13 +2071,15 @@ def check_bf16_kernels(bcases, device):
         B, N, C = c["shape"]
         groups = c["groups"]
         x, w, b = randn(B, N, C, scale=2.0, shift=1.0), vec(C, shift=1.0), vec(C)
-        got, want = fused_groupnorm_silu(x, w, b, None, groups), groupnorm_silu_plain(x, w, b,
-                                                                                      None, groups)
+        emb = randn(B, C, scale=0.3) if c.get("emb") else None
+        got, want = fused_groupnorm_silu(x, w, b, emb, groups), groupnorm_silu_plain(x, w, b,
+                                                                                     emb, groups)
         sync(device)
         judge_bf16(c, got, want, tol=1e-4)
-        timed(c, lambda: fused_groupnorm_silu(x, w, b, None, groups),
-              lambda: groupnorm_silu_plain(x, w, b, None, groups), 2 * 2 * B * N * C + 4 * 2 * C,
-              device_time=True, library_seq=gn_library_seq(x, w, b, None, groups),
+        timed(c, lambda: fused_groupnorm_silu(x, w, b, emb, groups),
+              lambda: groupnorm_silu_plain(x, w, b, emb, groups),
+              2 * 2 * B * N * C + 4 * 2 * C + (0 if emb is None else 2 * B * C),
+              device_time=True, library_seq=gn_library_seq(x, w, b, emb, groups),
               f32_flops=12 * B * N * C)
 
     for c in bcases["groupnorm_silu_bwd_full_bf16"]:
@@ -2372,6 +2392,7 @@ def conv_bf16_guidance_chain(predictor, context, per, avg, expect_shape, device,
     def expected(steps, guided):
         out = {k: steps * (v["per_unet"] + (v["per_align"] if guided else 0))
                for k, v in per.items()}
+        out.update({k: 0 for k in BF16_KERNELS})
         out.update({k + "_bf16": steps * per[k]["per_align"] for k in BF16_FORMS})
         return out
 
@@ -2427,6 +2448,368 @@ def bf16_alone(device, smi):
                                            counters_read)
     launches.update(conv_launches)
     emit({"kernels": summarize(bcases, launches)})
+
+
+# --------------------------------------------------------------------------- #
+# Forecasts on bf16 parameters (utils.precision.cast_to_bf16): the UNet, the
+# VAE and the alignment net on bf16 weights, each run as flax promotes it.
+def bf16params_kernel_cases(cases, swin):
+    """The cases of ``bf16params_kernels_vs_plain``: the bf16 forms of rows
+    1-3 at the UNet's shapes (the f32 forms' ``per_unet`` cases), and those of
+    rows 9, 5 and 10 at the swin path's shapes (``swin_cases``: launches per
+    UNet forward or per guidance shift)."""
+    keep = ("shape", "groups", "emb", "axis", "window")
+    zero = {k: 0 for k in ("per_unet", "per_align", "per_train", "per_align_train",
+                           "conv_per_unet", "conv_per_align", "conv_per_train")}
+
+    def pick(c):
+        return ({k: v for k, v in c.items() if k in keep} | zero
+                | {k: c[k] for k in ("per_unet", "per_align")})
+
+    out = {name + "_bf16": [pick(c) for c in cases[name] if c.get("per_unet", 0)]
+           for name in ("groupnorm_silu", "ffn", "axial_attention")}
+    out.update({name + "_bf16": [pick(c) for c in swin[name] if c["per_unet"] or c["per_align"]]
+                for name in BF16_CUBOID_FORMS})
+    return out
+
+
+def check_bf16_cuboid_kernels(pcases, device):
+    """The bf16 forms of the general layer, its input gradient and the grouped
+    core against their plain versions on the same bf16 inputs and parameters
+    (which widen them and round the output once), at the f32 forms' bars plus
+    one bf16 ulp of the output's max; times, device times by replay beside
+    the f32 form's on the widened inputs, the bound at 2-byte activations and
+    weights, and the bf16 library sequence (the layer: LN -> linear -> SDPA ->
+    linear; the core: SDPA in bf16 with bias and mask as one bf16 mask).  The
+    grouped core's bf16 form is the f32 form's sums on the widened inputs: its
+    output is the f32 kernel's rounded, bit for bit."""
+    import torch
+    import torch.nn.functional as F
+    from prediff_torch.ops.attention import (cuboid_attention_bwd_dx_plain,
+                                             cuboid_attention_plain,
+                                             fused_cuboid_attention_grouped,
+                                             fused_cuboid_attention_layer,
+                                             fused_cuboid_attention_layer_bwd_dx,
+                                             grouped_attention_plain)
+    from prediff_torch.ops.cuboid import NEG_INF, compute_cuboid_self_attention_mask
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    bf16, heads = torch.bfloat16, 4
+
+    def randn(*shape, scale=1.0, shift=0.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=device) * scale + shift).to(dtype)
+
+    for name in ("cuboid_attention_bf16", "cuboid_attention_bwd_dx_bf16"):
+        for c in pcases[name]:
+            B, nC, vol, C = c["shape"]
+            M = B * nC * vol
+            x, ln_w, ln_b = randn(B, nC, vol, C), randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1)
+            w_qkv, w_proj = randn(3 * C, C, scale=C ** -0.5), randn(C, C, scale=C ** -0.5)
+            bias = randn(heads, vol, vol, scale=0.5, dtype=torch.float32)   # gathered in f32
+            b_proj, scale = randn(C, scale=0.1), (C // heads) ** -0.5
+            vecs = 4 * (heads * vol * vol + 3 * C)
+            if name == "cuboid_attention_bf16":
+                args = (ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale)
+                kernel = lambda: fused_cuboid_attention_layer(x, *args)  # noqa: E731
+                plain = lambda: cuboid_attention_plain(x, *args, mxu_dtype=bf16)  # noqa: E731
+                f32_form = lambda: fused_cuboid_attention_layer(x.float(), *args)  # noqa: E731
+                got, want = kernel(), plain()
+                sync(device)
+                judge_bf16(c, got, want, tol=2e-2)
+                timed(c, kernel, plain, 2 * (2 * M * C + 4 * C * C) + vecs, device_time=True,
+                      library_seq=cuboid_library_seq(x, *args),
+                      bf16_flops=8 * M * C * C + 4 * M * vol * C)
+            else:
+                g = randn(B, nC, vol, C)
+                args = (ln_w, ln_b, w_qkv, bias, w_proj, heads, scale)
+                kernel = lambda: fused_cuboid_attention_layer_bwd_dx(x, g, *args)  # noqa: E731
+                plain = lambda: cuboid_attention_bwd_dx_plain(x, g, *args,  # noqa: E731
+                                                              mxu_dtype=bf16)
+                f32_form = lambda: fused_cuboid_attention_layer_bwd_dx(  # noqa: E731
+                    x.float(), g.float(), *args)
+                got, want = kernel(), plain()
+                sync(device)
+                judge_bf16(c, got, want)
+                timed(c, kernel, plain, 2 * (3 * M * C + 4 * C * C) + vecs - 4 * C,
+                      device_time=True, bf16_flops=14 * M * C * C + 10 * M * vol * C)
+            c["bit_equal_across_two_runs"] = torch.equal(got, kernel())
+            c["f32_form_device_ms"] = graph_time_ms(f32_form)
+            c["ok"] = c["ok"] and c["bit_equal_across_two_runs"]
+
+    for c in pcases["cuboid_attention_grouped_bf16"]:
+        B, h, nC, vol, hc = c["shape"]
+        q, k, v = (randn(B, h, nC, vol, hc) for _ in range(3))
+        bias = randn(h, vol, vol, scale=0.5, dtype=torch.float32)
+        mask = None
+        if c["window"] is not None:
+            dims, cs, shift, strategy, padding_type = c["window"]
+            mask = torch.from_numpy(compute_cuboid_self_attention_mask(
+                tuple(dims), tuple(cs), tuple(shift), tuple(strategy), padding_type)).to(device)
+        scale = hc ** -0.5
+        kernel = lambda: fused_cuboid_attention_grouped(q, k, v, bias, mask, scale)  # noqa: E731
+        plain = lambda: grouped_attention_plain(q, k, v, bias, mask, scale)  # noqa: E731
+        qf, kf, vf = q.float(), k.float(), v.float()
+        f32_form = lambda: fused_cuboid_attention_grouped(qf, kf, vf, bias, mask,  # noqa: E731
+                                                          scale)
+        got, want = kernel(), plain()
+        sync(device)
+        judge_bf16(c, got, want, tol=1e-5 * float(want.float().abs().max()))
+        c["equals_f32_form_rounded"] = torch.equal(got, f32_form().to(bf16))
+        c["ok"] = c["ok"] and c["equals_f32_form_rounded"]
+        add = bias[:, None] if mask is None else bias[:, None] + torch.where(mask, 0.0, NEG_INF)
+        add = add.expand(B, h, nC, vol, vol).reshape(B * h * nC, 1, vol, vol).to(bf16)
+        q4, k4, v4 = (t.reshape(B * h * nC, 1, vol, hc) for t in (q, k, v))
+        N = B * h * nC * vol
+        io = 2 * 4 * N * hc + 4 * h * vol * vol + (0 if mask is None else nC * vol * vol)
+        timed(c, kernel, plain, io,
+              library=lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=add,
+                                                             scale=scale),
+              device_time=True, bf16_flops=4 * N * vol * hc)
+        c["f32_form_device_ms"] = graph_time_ms(f32_form)
+        # the kernel's own bound: the same bytes, two TF32 passes a product
+        c["bound_2xtf32_ms"] = bound(io, tf32_flops=8 * N * vol * hc)[0]
+    return [(name, c) for name in pcases if name[:-5] in BF16_CUBOID_FORMS
+            for c in pcases[name] if not c["ok"]]
+
+
+def warm_shift(predictor, d, device):
+    """One guidance shift on a bf16 carry before a predictor's first chains:
+    the first use of a path's library calls (cuDNN's algorithms, the weight
+    layouts, the promoted copies) then falls outside the chains' timed loops,
+    whichever run (eager or graph) goes first."""
+    import torch
+
+    z = torch.randn((1,) + tuple(d.latent_shape), device=device).to(torch.bfloat16)
+    predictor.ld.alignment.get_mean_shift(z, torch.tensor([d.timesteps // 2], device=device),
+                                          torch.tensor([[AVG_X_GT]], device=device))
+    sync(device)
+
+
+def bf16params_phases(device, cfg, smi, weights, cases, per):
+    """A forecast on bf16 parameters (``cast_to_bf16`` of the seeded weights
+    ``run`` makes), at full width.  ``bf16params_kernels_vs_plain``: the
+    bf16 forms of rows 1-3 at the UNet's shapes and of rows 9, 5 and 10 at
+    the swin path's (``check_bf16_kernels``, ``check_bf16_cuboid_kernels``);
+    ``bf16params_forward``: one UNet forward on a bf16 carry, card against
+    CPU; ``bf16params_forecast`` (100 DDPM steps) and
+    ``bf16params_guided_forecast`` (50 guided DDIM steps, guidance f32: the
+    net on its f32 copy) with the carry in bf16, each eager and on graphs,
+    bit-equal, exact counts (the f32 chains' per step, the UNet's all bf16
+    forms), no plain version called on the card, the guided one repeated bit
+    for bit; the bf16 decode's ms beside the f32 one;
+    ``bf16params_swin_forecast`` / ``bf16params_swin_guided_forecast`` on
+    ``SWIN_PATTERN`` (guidance in bf16): every launch a bf16 form, rows 9,
+    10 and 5 among them; ``bf16params_f32_carry``: the bf16 tree on an f32
+    carry against the f32 pipeline on ``cast_to_fp32`` of it, bit for bit,
+    no bf16 launch.  Returns the kernel cases and the chains' launches."""
+    import copy
+
+    import torch
+    from prediff_torch.config import ConfigDict, deep_merge
+    from prediff_torch.factory import build_unet
+    from prediff_torch.serving import PreDiffPredictor
+    from prediff_torch.utils.precision import cast_to_bf16, cast_to_fp32
+
+    t_start = time.perf_counter()
+    scfg, smodels = swin_models(cfg)
+    swin = swin_cases(smodels["unet"], smodels["align"], cfg.optim.micro_batch_size)
+    swin_per = path_launches(smodels["unet"], smodels["align"])
+    pcases = bf16params_kernel_cases(cases, swin)
+    rows13 = {k + "_bf16": pcases.get(k + "_bf16", []) for k in BF16_FORMS}
+    t1 = time.perf_counter()
+    bad = check_bf16_kernels(rows13, device) + check_bf16_cuboid_kernels(pcases, device)
+    line = {"phase": "bf16params_kernels_vs_plain", "card": smi,
+            "cases": sum(len(v) for v in pcases.values()), "failed": len(bad),
+            "t_s": time.perf_counter() - t1}
+    for name, cs in pcases.items():
+        line[name] = [{k: c.get(k) for k in ("shape", "window", "max_rel_err", "ms", "device_ms",
+                                             "f32_form_device_ms", "library_ms",
+                                             "library_device_ms", "library_seq_device_ms",
+                                             "equals_f32_form_rounded")
+                       if k in c} | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
+                      for c in cs]
+    emit(line)
+    if bad:
+        fail(f"bf16 form disagrees with its plain version at the bf16-parameter shapes: {bad}")
+
+    bf16 = torch.bfloat16
+    w16 = cast_to_bf16(weights)
+    pred16 = PreDiffPredictor(cfg, params=w16, with_alignment=True, device=device,
+                              compute_dtype="bfloat16")
+    p32 = PreDiffPredictor(cfg, params=cast_to_fp32(w16), with_alignment=True, device=device)
+    d, img = cfg.model.diffusion, cfg.layout
+    rs = torch.Generator().manual_seed(SEED + 19)
+
+    # one UNet forward on a bf16 carry: the card (bf16 forms) against the CPU (plain versions)
+    x = torch.randn((1,) + tuple(d.latent_shape), generator=rs).to(bf16)
+    cond = torch.randn((1,) + tuple(d.latent_cond_shape), generator=rs).to(bf16)
+    t = torch.tensor([500])
+    unet_cpu = build_unet(cfg).to(bf16).eval().requires_grad_(False)
+    unet_cpu.load_state_dict(w16["unet"])
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        ref = unet_cpu(x, t, cond)
+        cpu_s = time.perf_counter() - t1
+        counters_zero()
+        got = pred16.ld.unet(x.to(device), t.to(device), cond.to(device))
+        sync(device)
+        counts = {**counters_read(), **bf16_counts()}
+    del unet_cpu
+    err = rel_l2_and_cosine([got.float()], [ref.float()])
+    want = {k: per[k]["per_unet"] for k in KERNELS} | {k: 0 for k in BF16_KERNELS}
+    want.update({k + "_bf16": per[k]["per_unet"] for k in BF16_FORMS + BF16_CUBOID_FORMS})
+    emit({"phase": "bf16params_forward", "dtype": str(got.dtype), "rel_l2_err": err[0],
+          "cosine": err[1], "tol_rel_l2": BF16PARAMS_FORWARD_TOL, "cpu_forward_s": cpu_s,
+          "launches": counts, "expected_launches": want})
+    if (got.dtype != bf16 or not torch.isfinite(got.float()).all()
+            or err[0] > BF16PARAMS_FORWARD_TOL or counts != want):
+        fail(f"bf16params_forward: {got.dtype}, rel-L2 {err[0]}, launches {counts} != {want}")
+
+    context = torch.rand((1, img.in_len, img.img_height, img.img_width, img.data_channels),
+                         generator=rs)
+    expect_shape = (1, img.out_len, img.img_height, img.img_width, img.data_channels)
+    avg = torch.tensor([[AVG_X_GT]]).numpy()
+    install, plain_calls, remove = plain_spy()
+
+    def read_all():
+        return {**counters_read(), **bf16_counts()}
+
+    def expected_by(per_, bf16_align):
+        """Exact counts: the f32 chains' per step; the UNet's launches all bf16
+        forms, the alignment net's too where ``bf16_align``."""
+        def fn(steps, guided):
+            out = {k: steps * (v["per_unet"] + (v["per_align"] if guided else 0))
+                   for k, v in per_.items()} | {k: 0 for k in BF16_KERNELS}
+            for k in BF16_FORMS + BF16_CUBOID_FORMS:
+                v = per_[k]
+                out[k + "_bf16"] = steps * (v["per_unet"]
+                                            + (v["per_align"] if guided and bf16_align else 0))
+            return out
+        return fn
+
+    guided_kw = dict(ddim_steps=BF16PARAMS_DDIM_STEPS, use_alignment=True, avg_x_gt=avg)
+    warm_shift(pred16, d, device)
+    install()
+    try:
+        launches = run_chains(pred16, context, {
+            "bf16params_forecast": (dict(timesteps=CHAIN_STEPS), CHAIN_STEPS, False),
+            "bf16params_guided_forecast": (guided_kw, BF16PARAMS_DDIM_STEPS, True)},
+            expect_shape, expected_by(per, False), device, smi, counters_zero, read_all)
+        repeat = [pred16.predict(context, generator=torch.Generator(device).manual_seed(SEED),
+                                 **guided_kw) for _ in range(2)]
+        calls = plain_calls()
+    finally:
+        remove()
+    zl = torch.randn((1,) + tuple(d.latent_shape), device=device)
+    decode_ms = time_ms(lambda: pred16.ld.decode_first_stage(zl.to(bf16)), warmup=1, iters=5)
+    decode_f32_ms = time_ms(lambda: p32.ld.decode_first_stage(zl), warmup=1, iters=5)
+    line = {"phase": "bf16params_chains", "card": smi, "plain_calls_on_card": calls[0],
+            "guided_repeats_bit_for_bit": torch.equal(repeat[0], repeat[1]),
+            "output_dtype": str(repeat[0].dtype), "decode_ms": decode_ms,
+            "decode_f32_ms": decode_f32_ms,
+            "ms_per_step": {k: GRAPH_CHAINS[k]["ms_per_step"] for k in (
+                "forecast", "ddim_forecast", "bf16params_forecast", "bf16params_guided_forecast")
+                if k in GRAPH_CHAINS},
+            "device_ms_per_step": {k: GRAPH_CHAINS[k]["device_ms_per_step"] for k in (
+                "forecast", "ddim_forecast", "bf16params_forecast", "bf16params_guided_forecast")
+                if k in GRAPH_CHAINS}}
+    emit(line)
+    if calls[0] or not line["guided_repeats_bit_for_bit"]:
+        fail(f"bf16params chains: plain versions called on the card {calls[0]}, or the guided "
+             "forecast does not repeat bit for bit")
+
+    # the swin pattern on bf16 parameters, guidance in bf16: rows 9, 10 and 5 in their bf16 forms
+    scfg16 = ConfigDict.wrap(deep_merge(scfg.to_dict(), {"model": {"align": {
+        "compute_dtype": "bfloat16"}}}))
+    spred = PreDiffPredictor(scfg16, params=cast_to_bf16({k: m.state_dict()
+                                                          for k, m in smodels.items()}),
+                             with_alignment=True, device=device, compute_dtype="bfloat16")
+    warm_shift(spred, d, device)
+    install()
+    try:
+        launches.update(run_chains(spred, context, {
+            "bf16params_swin_forecast": (dict(timesteps=CHAIN_STEPS), CHAIN_STEPS, False),
+            "bf16params_swin_guided_forecast": (dict(timesteps=CHAIN_STEPS, use_alignment=True,
+                                                     avg_x_gt=avg), CHAIN_STEPS, True)},
+            expect_shape, expected_by(swin_per, True), device, smi, counters_zero, read_all))
+        calls = plain_calls()
+    finally:
+        remove()
+    per_step = {k + "_bf16": {"per_unet": swin_per[k]["per_unet"],
+                              "per_align": swin_per[k]["per_align"]} for k in BF16_CUBOID_FORMS}
+    emit({"phase": "bf16params_swin", "pattern": SWIN_PATTERN, "card": smi,
+          "plain_calls_on_card": calls[0], "recomputed_on_card": calls[1],
+          "cuboid_forms_per_step": per_step})
+    if calls[0] or not all(launches["bf16params_swin_guided_forecast"][k + "_bf16"]
+                           for k in BF16_CUBOID_FORMS):
+        fail(f"bf16params_swin: plain versions called on the card {calls[0]}, or a cuboid "
+             f"kernel's bf16 form did not launch: {launches['bf16params_swin_guided_forecast']}")
+    del spred, smodels
+
+    # the bf16 tree on an f32 carry: the f32 network on a copy of the rounded weights
+    f32carry = copy.copy(pred16)
+    f32carry.compute_dtype = "float32"
+    line = {"phase": "bf16params_f32_carry", "card": smi, "steps": BF16PARAMS_F32_CARRY_STEPS}
+    ok = True
+    for label, kw in (("ddpm", dict(timesteps=BF16PARAMS_F32_CARRY_STEPS)),
+                      ("guided_ddim", dict(ddim_steps=BF16PARAMS_F32_CARRY_STEPS,
+                                           use_alignment=True, avg_x_gt=avg))):
+        counters_zero()
+        a = f32carry.predict(context, generator=torch.Generator(device).manual_seed(SEED), **kw)
+        sync(device)
+        forms = bf16_counts()
+        b = p32.predict(context, generator=torch.Generator(device).manual_seed(SEED), **kw)
+        line[label] = {"bit_equal": torch.equal(a, b), "dtype": str(a.dtype),
+                       "finite": bool(torch.isfinite(a).all()),
+                       "bf16_launches": sum(forms.values())}
+        ok = ok and torch.equal(a, b) and a.dtype == torch.float32 and not any(forms.values())
+    line["unet_copies"] = [str(next(m.parameters()).dtype) for m in pred16.ld._unet.copies()]
+    emit(line)
+    if not ok:
+        fail(f"bf16params_f32_carry: the bf16 tree on an f32 carry differs from the f32 "
+             f"pipeline on the rounded weights: {line}")
+    emit({"phase": "bf16params", "t_s": time.perf_counter() - t_start})
+    del pred16, p32, f32carry
+    return pcases, launches
+
+
+def bf16params_alone(device, smi):
+    """``--only bf16params``: the seeded full-width models as ``run`` makes
+    them, the f32 ``forecast`` and ``ddim_forecast`` (the numbers the bf16
+    chains are read beside), ``bf16params_phases`` and the new forms'
+    ``kernels`` line."""
+    import torch
+    from prediff_torch.config import alignment_default_config, prediff_default_config
+    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.serving import PreDiffPredictor
+
+    cfg = prediff_default_config()
+    kernel_counters()
+    gen = torch.Generator().manual_seed(SEED)
+    models = {key: init_params_(build(cfg), gen, randomize=True).eval().requires_grad_(False)
+              for key, build in (("unet", build_unet), ("vae", build_vae),
+                                 ("align", build_alignment_model))}
+    weights = {k: m.state_dict() for k, m in models.items()}
+    cases = kernel_cases(models["unet"], models["align"], cfg.optim.micro_batch_size,
+                         alignment_default_config().optim.micro_batch_size)
+    by_route = path_launches(models["unet"], models["align"])
+    predictor = PreDiffPredictor(cfg, params=weights, with_alignment=True, device=device)
+    img = cfg.layout
+    context = torch.rand((1, img.in_len, img.img_height, img.img_width, img.data_channels),
+                         generator=torch.Generator().manual_seed(SEED + 1))
+    run_chains(predictor, context, {
+        "forecast": (dict(timesteps=CHAIN_STEPS), CHAIN_STEPS, False),
+        "ddim_forecast": (dict(ddim_steps=BF16PARAMS_DDIM_STEPS, use_alignment=True,
+                               avg_x_gt=torch.tensor([[AVG_X_GT]]).numpy()),
+                          BF16PARAMS_DDIM_STEPS, True)},
+        (1, img.out_len, img.img_height, img.img_width, img.data_channels),
+        lambda steps, guided: expected_launches(cases, steps, guided), device, smi,
+        counters_zero, counters_read)
+    del predictor
+    pcases, launches = bf16params_phases(device, cfg, smi, weights, cases, by_route)
+    emit({"kernels": summarize({k: v for k, v in pcases.items()
+                                if k[:-5] in BF16_CUBOID_FORMS}, launches)})
 
 
 def vae_train_bf16_phases(device, smi):
@@ -2991,9 +3374,10 @@ def kernel_counters():
 # all-gradients backwards, the general layer's dx and the resblock), guided_repeat,
 # vae_train (with vae_train_grads), align_train (with align_train_grads), bf16
 # (bf16_phases with the f32 chains beside them), vae_train_bf16 (with its grads),
+# bf16params (bf16params_phases with the f32 chains beside them),
 # eval (eval_suite), data (data_prefetch) and cli (the cli_* phases)
 ONLY = ("bwd_split", "guided_repeat", "vae_train", "align_train", "bf16", "vae_train_bf16",
-        "eval", "data", "cli")
+        "bf16params", "eval", "data", "cli")
 
 
 def run_only(device, names, smi: str) -> None:
@@ -3019,6 +3403,8 @@ def run_only(device, names, smi: str) -> None:
             vae_train_bf16_phases(device, smi)
         elif name == "bf16":
             bf16_alone(device, smi)
+        elif name == "bf16params":
+            bf16params_alone(device, smi)
         else:
             cfg = alignment_default_config()
             per = path_launches(build_unet(prediff_default_config()), build_alignment_model(cfg),
@@ -3140,6 +3526,10 @@ def run(device, cfg, smi: str) -> None:
     launches_by_path.update(conv_launches)
     swin_launches, swin_unet = swin_phases(device, cfg, smi, cases, zero_counts, read_counts)
     launches_by_path.update(swin_launches)
+    pcases, bf16params_launches = bf16params_phases(device, cfg, smi, weights, cases, by_route)
+    launches_by_path.update(bf16params_launches)
+    for name, cs in pcases.items():   # rows 1-3 at the UNet's shapes join their bf16 rows
+        bcases.setdefault(name, []).extend(cs)
     pattern_phases(device, cfg, zero_counts, read_counts)
     per_train = {k: v["per_train"] for k, v in by_route.items()}
     train_weights = {"unet": weights["unet"], "vae": weights["vae"]}
@@ -3376,6 +3766,23 @@ def tiny_phases(device, zero_counts, read_counts):
         del ld, trainer, state
 
 
+def swin_models(cfg):
+    """``cfg`` with ``SWIN_PATTERN`` in the UNet and the alignment net, and
+    its three models on the CPU, weights random from the seed."""
+    import torch
+    from prediff_torch.config import ConfigDict, deep_merge
+    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
+    from prediff_torch.models.init import init_params_
+
+    scfg = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {
+        "latent_model": {"self_pattern": SWIN_PATTERN},
+        "align": {"model_args": {"block_attn_patterns": SWIN_PATTERN}}}}))
+    gen = torch.Generator().manual_seed(SEED)
+    return scfg, {key: init_params_(build(scfg), gen, randomize=True).eval().requires_grad_(False)
+                  for key, build in (("unet", build_unet), ("vae", build_vae),
+                                     ("align", build_alignment_model))}
+
+
 def swin_phases(device, cfg, smi, cases, zero_counts, read_counts):
     """The forecasts with the non-axial cuboid pattern ``SWIN_PATTERN`` in the
     UNet and the alignment net, everything else as ``cfg``, weights random
@@ -3386,18 +3793,9 @@ def swin_phases(device, cfg, smi, cases, zero_counts, read_counts):
     guided step and a guidance shift.  Returns the launches of the two chains
     and the UNet (CPU, random weights) the training phases start from."""
     import torch
-    from prediff_torch.config import ConfigDict, deep_merge
-    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
-    from prediff_torch.models.init import init_params_
     from prediff_torch.serving import PreDiffPredictor
 
-    scfg = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {
-        "latent_model": {"self_pattern": SWIN_PATTERN},
-        "align": {"model_args": {"block_attn_patterns": SWIN_PATTERN}}}}))
-    gen = torch.Generator().manual_seed(SEED)
-    models = {key: init_params_(build(scfg), gen, randomize=True).eval().requires_grad_(False)
-              for key, build in (("unet", build_unet), ("vae", build_vae),
-                                 ("align", build_alignment_model))}
+    scfg, models = swin_models(cfg)
     unet_cpu, align_cpu = models["unet"], models["align"]
     cases.update(swin_cases(unet_cpu, align_cpu, cfg.optim.micro_batch_size))
     bad = check_cuboid_kernels(cases, device)

@@ -109,6 +109,11 @@
 // on the tensor cores (below).  At the UNet's shapes the bytes the layer must
 // move (x in and out, the weights) and its operations give about the same
 // least time, as for the axial layer; the roundings are the axial kernels'.
+// Their bf16 forms (cuboid_attention_forward_bf16, cuboid_attention_bwd_dx_bf16,
+// a forecast on bf16 parameters) are the same launches with x, g, out and dx in
+// bf16: the LN rows widened as read, the output rounded once as written; the
+// kernels already round q . scale, k, v and the head outputs to bf16 between
+// launches, so only the input and output bytes change.
 //
 // The general layer's all gradients (cuboid_attention_bwd_full) and its
 // dropout forms (cuboid_attention_dropout_forward,
@@ -168,6 +173,11 @@
 // (zeros past hc and vol); bias and mask are read once per block.  Per row
 // it moves q, k, v and out (16 hc bytes) against 4 vol hc operations: bound
 // by bytes up to vol ~80 at f32 rates (the UNet's 64), by operations above.
+// Its bf16 form (cuboid_attention_grouped_bf16) reads q, k, v in bf16, widened
+// into the same f32 tiles, and rounds out once: k and v are exact in TF32, so
+// the passes on their small parts (zero) are left out and each product takes
+// two TF32 passes, q . scale and p still split; the f32 form's sums on the
+// widened inputs, bit for bit, whatever the scale.
 //
 // Round-1 per-cuboid core (cuboid_core_forward): replaces
 // pallas_attention.py::fused_cuboid_attention (bodies _attn_kernel_nomask and
@@ -1644,7 +1654,8 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
 
 // rows x kGc channels [c0, c0 + kGc) of rows [r0, r0 + rows) of a
 // (sample, cuboid, head) at `base` into dst (row stride kGld); zeros past
-// `nrows` rows and `hc` channels.
+// `nrows` rows and `hc` channels.  f32 by cp.async; bf16 (the bf16 form)
+// widened as read, 8 bytes a load, and stored as f32.
 __device__ __forceinline__ void load_tile(float* dst, const float* src, long long base,
                                           long long rstride, int r0, int nrows, int c0, int hc,
                                           int tid) {
@@ -1656,13 +1667,29 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
   }
 }
 
-// NB: 8-channel blocks of the block's output slice (1, 2, 4 or 8).
-template <int NB>
+__device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src, long long base,
+                                          long long rstride, int r0, int nrows, int c0, int hc,
+                                          int tid) {
+  for (int i = tid; i < kGq * (kGc / 4); i += kCoreThreads) {
+    const int r = i / (kGc / 4), c = c0 + (i % (kGc / 4)) * 4;
+    const bool valid = r0 + r < nrows && c < hc;
+    *reinterpret_cast<float4*>(dst + r * kGld + (c - c0)) =
+        valid ? load4(src + base + (r0 + r) * rstride + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// NB: 8-channel blocks of the block's output slice (1, 2, 4 or 8).  T: the
+// type of q, k, v and out (f32, or bf16: the bf16 form).  A bf16 k or v is
+// exact in TF32, so its small part is 0 and the two passes that read it are
+// left out: the bf16 form computes the f32 form's sums on the widened inputs,
+// bit for bit, in two TF32 passes a product instead of three.
+template <int NB, typename T>
 __global__ void __launch_bounds__(kCoreThreads)
-grouped_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ bias,
-                    const unsigned char* __restrict__ mask, float* __restrict__ out,
+grouped_core_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ bias,
+                    const unsigned char* __restrict__ mask, T* __restrict__ out,
                     CoreLayout in, CoreLayout ol, int heads, int vol, int hc, float scale) {
+  constexpr bool kExactB = sizeof(T) == 2;   // k and v exact in TF32: no small part
   extern __shared__ float sm[];
   float* qs = sm;                // [kGq][kGld] q, one channel chunk
   float* ks = qs + kGq * kGld;   // [kGk][kGld] k, one channel chunk
@@ -1709,7 +1736,12 @@ grouped_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
           unsigned bb[2], bs[2];
           tf32_split(kb[0], bb[0], bs[0]);
           tf32_split(kb[4], bb[1], bs[1]);
-          mma_3xtf32(s[j], ab, as, bb, bs);
+          if (kExactB) {
+            mma_tf32(s[j], as, bb);
+            mma_tf32(s[j], ab, bb);
+          } else {
+            mma_3xtf32(s[j], ab, as, bb, bs);
+          }
         }
       }
       if (c0 + kGc < hc) __syncthreads();   // the next chunk overwrites qs and ks
@@ -1779,7 +1811,12 @@ grouped_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
         unsigned bb[2], bs[2];
         tf32_split(vb[8 * j], bb[0], bs[0]);
         tf32_split(vb[kGld + 8 * j], bb[1], bs[1]);
-        mma_3xtf32(pv[j], ab, as, bb, bs);
+        if (kExactB) {
+          mma_tf32(pv[j], as, bb);
+          mma_tf32(pv[j], ab, bb);
+        } else {
+          mma_3xtf32(pv[j], ab, as, bb, bs);
+        }
       }
     }
 #pragma unroll
@@ -1792,12 +1829,8 @@ grouped_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < NB; ++j) {
     const int c = s0 + 8 * j + 2 * c4;
     if (c >= hc) continue;
-    if (row0 < vol)
-      *reinterpret_cast<float2*>(out + obase + row0 * ol.r + c) =
-          make_float2(o[j][0] / l_run[0], o[j][1] / l_run[0]);
-    if (row1 < vol)
-      *reinterpret_cast<float2*>(out + obase + row1 * ol.r + c) =
-          make_float2(o[j][2] / l_run[1], o[j][3] / l_run[1]);
+    if (row0 < vol) store2(out + obase + row0 * ol.r + c, o[j][0] / l_run[0], o[j][1] / l_run[0]);
+    if (row1 < vol) store2(out + obase + row1 * ol.r + c, o[j][2] / l_run[1], o[j][3] / l_run[1]);
   }
 }
 
@@ -1826,11 +1859,11 @@ cudaError_t tc_core(const __nv_bfloat16* qkv, const float* bias, __nv_bfloat16* 
   return cudaGetLastError();
 }
 
-template <bool Drop>
-cudaError_t cuboid_forward_launches(const float* x, const float* ln_w, const float* ln_b,
+template <bool Drop, typename XT = float>
+cudaError_t cuboid_forward_launches(const XT* x, const float* ln_w, const float* ln_b,
                                     const void* wqkv_map, const float* bias,
                                     const void* wproj_map, const float* b_proj,
-                                    __nv_bfloat16* qkv, __nv_bfloat16* attn, float* out,
+                                    __nv_bfloat16* qkv, __nv_bfloat16* attn, XT* out,
                                     int n_cuboids, int vol, int C, int heads, int bn_qkv,
                                     int ln_tile, int q_rows, int key_tiles, float scale,
                                     float eps, cudaStream_t stream,
@@ -1841,7 +1874,7 @@ cudaError_t cuboid_forward_launches(const float* x, const float* ln_w, const flo
       (q_rows != 16 && q_rows != 32 && q_rows != 64) ||
       (key_tiles != 1 && key_tiles != 2 && key_tiles != 4) || (bn_qkv != 128 && bn_qkv != 256) ||
       !aligned(x) || !aligned(ln_w) || !aligned(ln_b) || !aligned(qkv) || !aligned(attn) ||
-      !aligned(b_proj) || (reinterpret_cast<uintptr_t>(out) & 7))
+      !aligned(b_proj) || (reinterpret_cast<uintptr_t>(out) & (2 * sizeof(XT) - 1)))
     return cudaErrorInvalidValue;
   const int M = n_cuboids * vol;
   CUtensorMap wqkv, wproj, attn_map;
@@ -1854,8 +1887,8 @@ cudaError_t cuboid_forward_launches(const float* x, const float* ln_w, const flo
   if (ln_tile) {
     err = fwd::qkv_gemm(bn_qkv, wqkv, x, ln_w, ln_b, qkv, M, C, scale, eps, stream);
   } else {   // LN rows into attn (free until the core), then the product on them by TMA
-    ln_bf16_rows_kernel<float><<<(M + kLnRowsPerBlock - 1) / kLnRowsPerBlock,
-                              32 * kLnRowsPerBlock, 0, stream>>>(x, ln_w, ln_b, attn, M, C, eps);
+    ln_bf16_rows_kernel<XT><<<(M + kLnRowsPerBlock - 1) / kLnRowsPerBlock,
+                           32 * kLnRowsPerBlock, 0, stream>>>(x, ln_w, ln_b, attn, M, C, eps);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     err = fwd::gemm<128, 0, false, true>(attn_map, wqkv, nullptr, nullptr, nullptr, nullptr, qkv, M,
@@ -1869,8 +1902,9 @@ cudaError_t cuboid_forward_launches(const float* x, const float* ln_w, const flo
   else
     err = tc_core<4, Drop>(qkv, bias, attn, n_cuboids, vol, C, heads, q_rows, d_attn, stream);
   if (err != cudaSuccess) return err;
-  return fwd::gemm<128, 0, Drop>(attn_map, wproj, nullptr, nullptr, nullptr, b_proj, out, M, C, C,
-                                 0, 1.f, eps, d_proj, stream);
+  return fwd::gemm<128, 0, Drop, false, float, XT>(attn_map, wproj, nullptr, nullptr, nullptr,
+                                                  b_proj, out, M, C, C, 0, 1.f, eps, d_proj,
+                                                  stream);
 }
 
 // The general layer's gradient core: dq, dk, dv into dqkv (bf16) and, Full,
@@ -2130,38 +2164,41 @@ cudaError_t tf32_gemm(const float* A, const float* W, const float* bias, const f
   return cudaGetLastError();
 }
 
-template <int NB>
-cudaError_t core_launch_nb(const float* q, const float* k, const float* v, const float* bias,
-                           const unsigned char* mask, float* out, CoreLayout in, CoreLayout ol,
+template <int NB, typename T>
+cudaError_t core_launch_nb(const T* q, const T* k, const T* v, const float* bias,
+                           const unsigned char* mask, T* out, CoreLayout in, CoreLayout ol,
                            int B, int heads, int n_cuboids, int vol, int hc, float scale,
                            cudaStream_t stream) {
   const size_t smem = grouped_smem();
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(grouped_core_kernel<NB>,
+    cudaError_t err = cudaFuncSetAttribute(grouped_core_kernel<NB, T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const long long tiles = (long long)((vol + kGq - 1) / kGq) * ((hc + 8 * NB - 1) / (8 * NB));
   if (tiles > 65535) return cudaErrorInvalidValue;
-  grouped_core_kernel<NB><<<dim3(n_cuboids, B * heads, (unsigned)tiles), kCoreThreads, smem,
-                            stream>>>(q, k, v, bias, mask, out, in, ol, heads, vol, hc, scale);
+  grouped_core_kernel<NB, T><<<dim3(n_cuboids, B * heads, (unsigned)tiles), kCoreThreads, smem,
+                               stream>>>(q, k, v, bias, mask, out, in, ol, heads, vol, hc, scale);
   return cudaGetLastError();
 }
 
 // grouped_core_kernel over (B, n_cuboids, heads) with the given layouts: the
 // output slice as wide as hc to a multiple of 8, at most 64 channels.  Rows
-// are read 16 bytes at a time: hc, every stride and the pointers are
-// multiples of 4 floats.
-cudaError_t core_launch(const float* q, const float* k, const float* v, const float* bias,
-                        const unsigned char* mask, float* out, CoreLayout in, CoreLayout ol,
+// are read 4 elements at a time: hc, every stride and the pointers are
+// multiples of 4 elements (16 bytes in f32, 8 in bf16).
+template <typename T>
+cudaError_t core_launch(const T* q, const T* k, const T* v, const float* bias,
+                        const unsigned char* mask, T* out, CoreLayout in, CoreLayout ol,
                         int B, int heads, int n_cuboids, int vol, int hc, float scale,
                         cudaStream_t stream) {
-  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0;
+  };
   if (B < 1 || heads < 1 || n_cuboids < 1 || vol < 1 || hc < 4 || hc % 4 || B * heads > 65535 ||
       (in.b | in.n | in.h | in.r) % 4 || (ol.b | ol.n | ol.h | ol.r) % 2 || !aligned(q) ||
-      !aligned(k) || !aligned(v) || (reinterpret_cast<uintptr_t>(out) & 7))
+      !aligned(k) || !aligned(v) || (reinterpret_cast<uintptr_t>(out) & (2 * sizeof(T) - 1)))
     return cudaErrorInvalidValue;
   const int width = (hc + 7) / 8;
   if (width <= 1)
@@ -2306,11 +2343,11 @@ cudaError_t axial_bwd_launches(
 }
 
 // The general layer's backward: layer_bwd_launches around cuboid_core_bwd.
-template <bool Full, bool Drop>
+template <bool Full, bool Drop, typename XT = float>
 cudaError_t cuboid_bwd_launches(
-    const float* x, const float* g, const float* ln_w, const float* ln_b, const void* wqkv_map,
+    const XT* x, const XT* g, const float* ln_w, const float* ln_b, const void* wqkv_map,
     const float* bias, const void* wprojt_map, const void* wqkvt_map, __nv_bfloat16* qkv,
-    __nv_bfloat16* do_bf, __nv_bfloat16* dattn, __nv_bfloat16* dqkv, float* dln, float* dx,
+    __nv_bfloat16* do_bf, __nv_bfloat16* dattn, __nv_bfloat16* dqkv, float* dln, XT* dx,
     __nv_bfloat16* attn, __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* attn_t,
     __nv_bfloat16* dqkv_t, float* stats, float* dbias_part, float* vpart, float* dw_qkv,
     float* dbias, float* dw_proj, float* vec, int n_cuboids, int vol, int C, int heads,
@@ -2490,6 +2527,22 @@ extern "C" int cuboid_attention_forward(const float* x, const float* ln_w, const
       key_tiles, scale, eps, stream);
 }
 
+// The bf16 form: x and out (tokens, C) bf16 (the LN rows widened as read, the
+// projection + b_proj rounded once); the rest as cuboid_attention_forward.
+extern "C" int cuboid_attention_forward_bf16(const __nv_bfloat16* x, const float* ln_w,
+                                             const float* ln_b, const void* wqkv_map,
+                                             const float* bias, const void* wproj_map,
+                                             const float* b_proj, void* qkv, void* attn,
+                                             __nv_bfloat16* out, int n_cuboids, int vol, int C,
+                                             int heads, int bn_qkv, int ln_tile, int q_rows,
+                                             int key_tiles, float scale, float eps,
+                                             cudaStream_t stream) {
+  return (int)cuboid_forward_launches<false>(
+      x, ln_w, ln_b, wqkv_map, bias, wproj_map, b_proj, static_cast<__nv_bfloat16*>(qkv),
+      static_cast<__nv_bfloat16*>(attn), out, n_cuboids, vol, C, heads, bn_qkv, ln_tile, q_rows,
+      key_tiles, scale, eps, stream);
+}
+
 // The general cuboid layer with dropout on the attention weights and on the
 // projected output (its (tokens, C) rows in cuboid_reorder's order): the masks
 // of the stream (seed_lo, seed_hi, site), tensors 0 and 1, as
@@ -2519,6 +2572,26 @@ extern "C" int cuboid_attention_bwd_dx(const float* x, const float* g, const flo
                                        float* stats, float* dx, int n_cuboids, int vol, int C,
                                        int heads, int bn_qkv, int fused, int rows, float scale,
                                        float eps, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  return (int)cuboid_bwd_launches<false, false>(
+      x, g, ln_w, ln_b, wqkv_map, bias, wprojt_map, wqkvt_map, static_cast<bf*>(qkv),
+      static_cast<bf*>(do_bf), static_cast<bf*>(dattn), static_cast<bf*>(dqkv), dln, dx, nullptr,
+      nullptr, nullptr, nullptr, nullptr, stats, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, n_cuboids, vol, C, heads, bn_qkv, fused, rows, 1, 0, 1, 1, scale, eps, stream);
+}
+
+// The bf16 form of cuboid_attention_bwd_dx: x, g and dx (tokens, C) bf16, g
+// the dattn product's operand as it is (do_bf then unused but past C = 768,
+// where it holds the LN rows); one launch fewer.
+extern "C" int cuboid_attention_bwd_dx_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                                            const float* ln_w, const float* ln_b,
+                                            const void* wqkv_map, const float* bias,
+                                            const void* wprojt_map, const void* wqkvt_map,
+                                            void* qkv, void* do_bf, void* dattn, void* dqkv,
+                                            float* dln, float* stats, __nv_bfloat16* dx,
+                                            int n_cuboids, int vol, int C, int heads, int bn_qkv,
+                                            int fused, int rows, float scale, float eps,
+                                            cudaStream_t stream) {
   using bf = __nv_bfloat16;
   return (int)cuboid_bwd_launches<false, false>(
       x, g, ln_w, ln_b, wqkv_map, bias, wprojt_map, wqkvt_map, static_cast<bf*>(qkv),
@@ -2580,6 +2653,19 @@ extern "C" int cuboid_attention_grouped(const float* q, const float* k, const fl
                                         const float* bias, const unsigned char* mask,
                                         float* out, int B, int heads, int n_cuboids, int vol,
                                         int hc, float scale, cudaStream_t stream) {
+  const long long row = hc, cub = (long long)vol * hc;
+  const CoreLayout head_major{heads * n_cuboids * cub, cub, n_cuboids * cub, row};
+  return (int)core_launch(q, k, v, bias, mask, out, head_major, head_major, B, heads, n_cuboids,
+                          vol, hc, scale, stream);
+}
+
+// The bf16 form of the grouped core: q, k, v, out bf16 (widened as read, out
+// rounded once), bias f32; the rest as cuboid_attention_grouped.
+extern "C" int cuboid_attention_grouped_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                             const __nv_bfloat16* v, const float* bias,
+                                             const unsigned char* mask, __nv_bfloat16* out,
+                                             int B, int heads, int n_cuboids, int vol, int hc,
+                                             float scale, cudaStream_t stream) {
   const long long row = hc, cub = (long long)vol * hc;
   const CoreLayout head_major{heads * n_cuboids * cub, cub, n_cuboids * cub, row};
   return (int)core_launch(q, k, v, bias, mask, out, head_major, head_major, B, heads, n_cuboids,

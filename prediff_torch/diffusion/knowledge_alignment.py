@@ -12,7 +12,9 @@ gradient every kernel of the alignment net runs its input-gradient kernel.
 it differs from z_t's dtype the net runs on a copy of its parameters in that
 dtype (``utils.precision.LowCopy``: one copy per parameter version) and on
 z_t cast to it, and the shift comes back in z_t's dtype; where it is z_t's
-dtype the net keeps its own parameters.  In bf16 the net's kernels run their
+dtype the net keeps its own parameters, which promote with z_t as flax
+promotes (``utils.precision.Promoted``): a bf16 net on an f32 z_t runs in f32
+on a copy of its bf16 parameters in f32.  In bf16 the net's kernels run their
 bf16 forms.  The scalar tail stays f32 in every case: grad(sq) in the dtype
 of the z it was taken for, divided by the f32 sqrt in f32.
 """
@@ -21,7 +23,7 @@ from typing import Dict, List
 import torch
 from torch import nn
 
-from ..utils.precision import LowCopy, dtype_name, resolve_dtype
+from ..utils.precision import Promoted, dtype_name, param_dtype, resolve_dtype
 
 
 def avg_x_objective(x: torch.Tensor) -> torch.Tensor:
@@ -44,35 +46,36 @@ class KnowledgeAlignment:
         self.guide_scale = guide_scale
         self.alignment_type = alignment_type
         self.compute_dtype = dtype_name(self.dtype)
-        self._low = LowCopy(model, self.dtype)
+        self._promoted = Promoted(model)
+        self._low = self._promoted.low(self.dtype)
 
     def _cast_net(self) -> nn.Module:
         """The net in the guidance dtype: itself where its parameters are in
         it, else its copy, brought up to date with the parameters."""
-        if next(self.model.parameters()).dtype == self.dtype:
-            return self.model
-        return self._low.get()
+        return self._promoted.get(self.dtype)
 
     def modules(self, zt_dtype: torch.dtype) -> List[nn.Module]:
         """The modules whose tensors guidance reads for a carry of
         ``zt_dtype``, a copy brought up to date: what a captured guided step
         bakes in."""
-        if self.dtype == zt_dtype:
-            return [self.model]
-        return list({id(m): m for m in (self.model, self._cast_net())}.values())
+        net = (self._promoted.for_input(zt_dtype) if self.dtype == zt_dtype
+               else self._cast_net())
+        return list({id(m): m for m in (self.model, net)}.values())
 
     def tracked(self) -> List[nn.Module]:
-        """The net and, once made, its copy in the guidance dtype."""
-        return [self.model] + ([self._low.copy] if self._low.copy is not None else [])
+        """The net and, once made, its copies in other dtypes."""
+        return [self.model] + self._promoted.copies()
 
     def predict(self, zt: torch.Tensor, t: torch.Tensor, zc=None, y=None,
                 net: nn.Module = None) -> torch.Tensor:
         """U(z_t, t); ``zc`` and ``y`` are accepted and ignored, as the
-        reference's alignment net ignores them.  As flax promotes, z_t is
-        widened to the parameters' dtype where that is wider."""
-        net = self.model if net is None else net
-        pdtype = next(net.parameters()).dtype
-        return net(zt.to(torch.promote_types(zt.dtype, pdtype)), t)
+        reference's alignment net ignores them.  As flax promotes, the net
+        runs in ``promote(z_t dtype, parameter dtype)``: z_t is widened where
+        the parameters are wider, and the net (``net`` or its own) runs on
+        its copy in z_t's dtype where z_t is."""
+        if net is None or net is self.model:
+            net = self._promoted.for_input(zt.dtype)
+        return net(zt.to(torch.promote_types(zt.dtype, param_dtype(net))), t)
 
     def _sq_error(self, zt, t, avg_x_gt, zc=None, y=None, net=None) -> torch.Tensor:
         pred = self.predict(zt, t, zc=zc, y=y, net=net).float().mean(dim=1)   # (B, 1)

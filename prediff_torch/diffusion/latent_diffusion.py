@@ -20,14 +20,21 @@ plain version.  The host draws each step's noise from the caller's
 generator into its buffer, where and in the order the eager chain draws it.
 
 ``compute_dtype`` (float32, bfloat16 or float16) is the JAX package's: x_T
-and the context latent are rounded to it, and each step computes in f32
-from the rounded carry (the denoiser's parameters stay f32, so the network
-runs in f32, as flax promotes there) and rounds its result to it; the step
-noise is drawn in the carry's dtype, the inpainting noise in f32.  The
-static buffers take the dtype, the graph key carries it, and the latent
-output and intermediates come back in it.  ``first_stage_dtype`` likewise
-encodes on a copy of the encoder's parameters and the frames in that dtype
-and returns f32 moments; the decode stays f32.
+and the context latent are rounded to it; each step runs the denoiser as
+flax promotes (``utils.precision.Promoted``), in ``promote(carry dtype,
+parameter dtype)``: f32 parameters widen a bf16 carry, bf16 parameters
+(``cast_to_bf16``) on a bf16 carry give a bf16 network, and on an f32 carry
+an f32 network on a copy of the bf16-rounded weights.  The step's schedule
+math is f32, from the network's output and the carry widened, as JAX's
+promotes against its f32 schedule, and its result is rounded to the carry's
+dtype; the step noise is drawn in the carry's dtype, the inpainting noise in
+f32.  The static buffers take the dtype, the graph key carries it and the
+models' parameter dtypes, and the latent output and intermediates come back
+in it.  ``first_stage_dtype`` names the encode's dtype (a copy of the
+encoder's parameters in that dtype where it differs from theirs: f32 on
+bf16 parameters is their promotion) and the moments come back f32; the
+decode runs in ``promote(latent dtype, VAE parameter dtype)`` and returns
+that dtype.
 
 Training: the frozen VAE encodes the target (posterior sample) and the
 context (mode) under ``no_grad``, t and the noise are drawn from the caller's
@@ -48,7 +55,7 @@ from torch import nn
 from ..models.vae import FirstStageEncoder
 from ..utils.device import resolve_device
 from ..utils.distributions import latents_from_moments_seq
-from ..utils.precision import LowCopy, dtype_name, resolve_dtype
+from ..utils.precision import LowCopy, Promoted, dtype_name, param_dtype, resolve_dtype
 from . import core
 from .graphs import StepBuffers, StepGraphCache, StepGraphs
 from .knowledge_alignment import KnowledgeAlignment
@@ -115,25 +122,40 @@ class LatentDiffusion:
         self.logvar_init = logvar_init
         self.log_every_t = log_every_t
         self.first_stage_dtype = resolve_dtype(first_stage_dtype, "first_stage_dtype")
-        self._encoder = (None if self.first_stage_dtype == torch.float32
+        self._unet, self._vae = Promoted(unet), Promoted(vae)
+        # the JAX package casts the parameters to a first_stage_dtype other
+        # than f32, and f32 frames promote narrower ones to f32: the encode
+        # runs in first_stage_dtype either way
+        self._encoder = (None if self.first_stage_dtype == param_dtype(vae)
                          else LowCopy(FirstStageEncoder(vae), self.first_stage_dtype))
         self.graphs = StepGraphCache(self._graph_modules)
         self._plain = False
 
     def _graph_modules(self):
         """The modules whose parameters and buffers the captured steps read
-        (the alignment net's copy in the guidance dtype too, once made)."""
-        return [self.unet] + (self.alignment.tracked() if self.alignment is not None else [])
+        (the UNet's copies in a promoted dtype and the alignment net's in
+        the guidance dtype too, once made)."""
+        return ([self.unet] + self._unet.copies()
+                + (self.alignment.tracked() if self.alignment is not None else []))
+
+    def _denoise(self, z: torch.Tensor, t_b: torch.Tensor, zc: torch.Tensor) -> torch.Tensor:
+        """The denoiser as flax promotes: on z and zc in ``promote(carry dtype,
+        parameter dtype)``, on its copy in that dtype where its parameters are
+        narrower; the output widened to f32 for the schedule math."""
+        net = self._unet.for_input(z.dtype)
+        dtype = param_dtype(net)
+        return net(z.to(dtype), t_b, zc.to(dtype)).float()
 
     @torch.no_grad()
     def first_stage_moments(self, frames: torch.Tensor) -> torch.Tensor:
         """(n, H, W, C) frames -> (n, h, w, 2c) f32 encoder moments; the VAE is
-        frozen.  In another ``first_stage_dtype`` than f32 the frames and a
-        copy of the encoder's parameters (one per parameter version) are in
-        that dtype."""
-        if self.first_stage_dtype == torch.float32:
+        frozen.  The frames go in ``first_stage_dtype``, on a copy of the
+        encoder's parameters in it (one per parameter version) where theirs
+        differ."""
+        frames = frames.to(self.first_stage_dtype)
+        if self._encoder is None:
             return self.vae.encode_moments(frames).float()
-        return self._encoder.get()(frames.to(self.first_stage_dtype)).float()
+        return self._encoder.get()(frames).float()
 
     def latents_from_moments(self, moments: torch.Tensor,
                              generator: Optional[torch.Generator] = None,
@@ -233,12 +255,17 @@ class LatentDiffusion:
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         """Latent seq (B,T,h,w,c) -> pixel seq (B,T,H,W,C); ``decode_chunk_size``
-        frames at a time when set, which bounds the decoder's activations."""
+        frames at a time when set, which bounds the decoder's activations.
+        The VAE runs in ``promote(z dtype, its parameter dtype)``, which the
+        output takes (on its copy in that dtype where its parameters are
+        narrower), as flax promotes."""
         B = z.shape[0]
-        # a bf16 latent is divided in bf16, then widened for the f32 VAE, as in JAX
+        # a bf16 latent is divided in bf16, then promoted with the VAE, as in JAX
         frames = (z / self.scale_factor).reshape((-1,) + tuple(z.shape[2:]))
         chunk = self.decode_chunk_size or frames.shape[0]
-        dec = torch.cat([self.vae.decode(f.float()) for f in torch.split(frames, chunk)])
+        vae = self._vae.for_input(z.dtype)
+        dtype = param_dtype(vae)
+        dec = torch.cat([vae.decode(f.to(dtype)) for f in torch.split(frames, chunk)])
         return dec.reshape((B, -1) + tuple(dec.shape[1:]))
 
 
@@ -320,8 +347,8 @@ class LatentDiffusion:
 
     def _ddpm_update(self, s: StepBuffers, plan: ChainPlan, guided: bool) -> torch.Tensor:
         z, t_b = s.z, s.t
-        zf = z.float()   # the f32 denoiser promotes a narrower carry, as flax does
-        model_out = self.unet(zf, t_b, s.zc.float())
+        zf = z.float()   # the schedule math in f32, as JAX's promotes against its schedule
+        model_out = self._denoise(z, t_b, s.zc)
         mean, _, log_var, _ = core.p_mean_variance(
             self.schedule, model_out, zf, t_b, parameterization=self.parameterization,
             clip_denoised=self.clip_denoised)
@@ -347,8 +374,8 @@ class LatentDiffusion:
             return plan.ddim[name][idx].reshape(shape)
 
         t_b = plan.ddim["ts"][idx]
-        carry, z = z, z.float()   # the f32 denoiser promotes a narrower carry, as flax does
-        model_out = self.unet(z, t_b, s.zc.float())
+        model_out = self._denoise(z, t_b, s.zc)
+        carry, z = z, z.float()   # the schedule math in f32, as JAX's promotes against it
         sqrt_a, sqrt_1ma = at("sqrt_a"), at("sqrt_1ma")
         if self.parameterization == "eps":
             eps = model_out
@@ -398,6 +425,12 @@ class LatentDiffusion:
     def _route(self) -> str:
         return "conv" if any(getattr(m, "conv_kernel", False) for model in self._graph_modules()
                              for m in model.modules()) else "default"
+
+    def _param_dtypes(self, use_alignment: bool) -> tuple:
+        """The parameter dtypes a captured step's code depends on: the
+        UNet's, and the alignment net's on a guided chain."""
+        models = [self.unet] + ([self.alignment.model] if use_alignment else [])
+        return tuple(dtype_name(param_dtype(m)) for m in models)
 
     @contextlib.contextmanager
     def _plain_chain(self):
@@ -463,7 +496,8 @@ class LatentDiffusion:
                   use_alignment, guidance_every_k, use_mask, num_segments)
         inputs = (z, zc, y, avg_x_gt, mask, x0)
         entry = None
-        if use_alignment:   # the copy in the guidance dtype, up to date before the snapshot
+        self._unet.for_input(dtype)   # a promoted copy, up to date before the snapshot
+        if use_alignment:   # the copy in the guidance dtype, likewise
             self.alignment.modules(dtype)
         if self.device.type == "cuda" and not self._plain:
             self.graphs.validate()
@@ -472,7 +506,7 @@ class LatentDiffusion:
                    ddim_steps, float(ddim_eta), bool(ddim_clip_x0), int(guidance_every_k),
                    self._route(), self.parameterization, self.clip_denoised,
                    (self.alignment.guide_scale, self.alignment.compute_dtype)
-                   if use_alignment else None)
+                   if use_alignment else None, self._param_dtypes(use_alignment))
 
             def make():
                 plan = self._chain_plan(*static)

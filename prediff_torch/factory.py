@@ -18,6 +18,7 @@ from .training.losses import NLayerDiscriminator
 from .training.vae_trainer import VAETrainer
 from .utils.device import resolve_device
 from .utils.layout import parse_layout_shape
+from .utils.precision import floating_dtype
 
 
 def _check_pattern(pattern) -> None:
@@ -123,7 +124,10 @@ def build_pipeline(cfg: ConfigDict, with_alignment: bool = False, device=None,
     alignment when ``with_alignment``.
 
     ``params`` holds state_dicts under "unet", "vae" and "align"; a model
-    without one takes the seeded v1 initialisation.  For sampling every model
+    without one takes the seeded v1 initialisation.  Each model takes its
+    state_dict's dtype (every floating tensor of one model in one dtype, else
+    ``ValueError``): ``cast_to_bf16(params)`` gives bf16 models, which run as
+    flax promotes (``diffusion/latent_diffusion.py``).  For sampling every model
     is frozen and in eval mode: guidance asks each kernel's
     ``autograd.Function`` for dx only, and eval mode ignores the dropout
     rates.  ``trainable_unet`` (what :func:`build_training_pipeline` passes)
@@ -170,14 +174,19 @@ def build_training_pipeline(cfg: ConfigDict, device=None,
 
 
 def _models_on(dev, gen: torch.Generator, params, builders, trainable):
-    """Each model of ``builders`` (key -> build fn) from ``params[key]`` or
-    its seeded initialisation, on ``dev``; those in ``trainable`` in training
-    mode, the others frozen in eval mode."""
+    """Each model of ``builders`` (key -> build fn) from ``params[key]``, in
+    its tensors' floating dtype (one a model, else ``ValueError``; f32 for
+    those in ``trainable``), or its seeded f32 initialisation, on ``dev``;
+    those in ``trainable`` in training mode, the others frozen in eval mode."""
     models = {}
     for key, build in builders.items():
         model = build()
         if key in params:
-            model.load_state_dict(params[key])
+            dtype = floating_dtype(params[key].values(), f"params[{key!r}]") or torch.float32
+            if key in trainable and dtype != torch.float32:
+                raise NotImplementedError(f"params[{key!r}] in {dtype}: a model trains on f32 "
+                                          "parameters (low-precision training is not ported)")
+            model.to(dtype).load_state_dict(params[key])
         elif isinstance(model, NLayerDiscriminator):
             model.reset_parameters(gen)
         else:

@@ -14,7 +14,8 @@ Each layer takes one of five routes, as the JAX package's
   cuboid above 256 rows: LN, pad, roll, reorder and the QKV product as plain
   f32 ``nn.LayerNorm`` / ``nn.Linear`` (``nn.Dense`` outside any Pallas kernel
   in the JAX package), the grouped core kernel with the window mask (or none),
-  the output ``nn.Linear``, then reverse, roll back and unpad;
+  the output ``nn.Linear``, then reverse, roll back and unpad (on bf16
+  parameters all of it in bf16, the core's bf16 form, the bias in f32);
 - ``grouped_einsum``: such a window in training mode with ``attn_drop`` above
   0.  The JAX package keeps its grouped kernel off this case (the kernel has
   no dropout on the weights) and computes the core with XLA einsums; here it
@@ -227,8 +228,9 @@ class CuboidSelfAttentionLayer(nn.Module):
             out = out.reshape(B, nC, vol, C)
         else:
             qkv = qkv.permute(3, 0, 4, 1, 2, 5).contiguous()      # (3, B, heads, nC, vol, hc)
-            out = fused_cuboid_attention_grouped(qkv[0], qkv[1], qkv[2], self.rel_bias(vol),
-                                                 mask, self.scale)
+            out = fused_cuboid_attention_grouped(qkv[0], qkv[1], qkv[2],
+                                                 self.rel_bias(vol, torch.float32), mask,
+                                                 self.scale)
             out = out.permute(0, 2, 3, 1, 4).reshape(B, nC, vol, C)
         out = apply_mask(self.proj(out), m_p, self.proj_drop)
         x = cuboid_reorder_reverse(out, cs, self.strategy,

@@ -67,6 +67,15 @@ f32.  Its kernel replaces ``pallas_attention.py::fused_cuboid_attention_grouped`
 and takes any vol; its backward is autograd of the plain version, as the JAX
 package's is ``jax.vjp`` of its reference.
 
+bf16 forms.  The axial layer and its dx, the general layer and its dx, and
+the grouped core also take bf16 activations (x, g, out, dx; q, k, v): the
+same kernels reading and writing bf16 (``_build.io_form``'s ``_bf16`` entry
+points, counted in ``.bf16_launches`` beside ``.launches``), which a
+forecast on bf16 parameters and guidance in bf16 run.  The bias and the
+parameter vectors stay f32 (``ops/weights.f32`` widens a bf16 one), a bf16
+weight is its own bf16 operand.  Their plain versions widen the inputs, run
+the f32 plain version and round the output once.
+
 Round-1 ops, which no model calls (the JAX package's models do not either):
 :func:`fused_cuboid_attention`, the per-cuboid core on the cuboid-major
 (B, cuboids, heads, vol, hc) layout, replaces
@@ -99,12 +108,15 @@ _SIGNATURES = {"axial_attention_forward": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
                "axial_attention_dropout_bwd_full": ([_P] * 25 + [_I] * 12 + [_F, _F] + _DROP
                                                     + [_P]),
                "cuboid_attention_forward": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
+               "cuboid_attention_forward_bf16": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
                "cuboid_attention_dropout_forward": [_P] * 10 + [_I] * 8 + [_F, _F] + _DROP + [_P],
                "cuboid_attention_bwd_dx": [_P] * 15 + [_I] * 7 + [_F, _F, _P],
+               "cuboid_attention_bwd_dx_bf16": [_P] * 15 + [_I] * 7 + [_F, _F, _P],
                "cuboid_attention_bwd_full": [_P] * 26 + [_I] * 11 + [_F, _F, _P],
                "cuboid_attention_dropout_bwd_full": ([_P] * 26 + [_I] * 11 + [_F, _F] + _DROP
                                                      + [_P]),
                "cuboid_attention_grouped": [_P] * 6 + [_I] * 5 + [_F, _P],
+               "cuboid_attention_grouped_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
                "cuboid_core_forward": [_P] * 6 + [_I] * 5 + [_F, _P],
                "cuboid_layer_v3_forward": [_P] * 11 + [_I] * 5 + [_F, _F, _P],
                **weights.MAP_SIGNATURE}
@@ -941,13 +953,20 @@ def _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale,
     """Launch the forward on the bf16 copies of w_qkv and w_proj kept per
     parameter version, with one bf16 scratch for qkv and the head outputs
     (also the LN rows where C exceeds the LN tile); ``drop`` = (rate_attn,
-    rate_proj, seed, site) takes the dropout entry point."""
+    rate_proj, seed, site) takes the dropout entry point.  x and out f32, or
+    bf16 (the bf16 form, without dropout); the bias f32, the parameter
+    vectors read in f32 (a bf16 vector's f32 copy), the weights as their
+    bf16 copies (a bf16 weight as it is)."""
     n_cuboids, vol, C = _check_cuboid(x, num_heads)
     plan = cuboid_layer_plan(n_cuboids, vol, C, num_heads)
+    form = _build.io_form("cuboid_attention", x)
+    if form and drop is not None:
+        raise ValueError("cuboid attention kernel: the bf16 form has no dropout form")
+    ln_w, ln_b, b_proj = (weights.f32(t) for t in (ln_w, ln_b, b_proj))
     _build.require("cuboid_attention", [
-        ("x", x, tuple(x.shape)), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
-        ("w_qkv", w_qkv, (3 * C, C)), ("bias", bias, (num_heads, vol, vol)),
-        ("w_proj", w_proj, (C, C)), ("b_proj", b_proj, (C,))])
+        ("x", x, tuple(x.shape), x.dtype), ("ln_w", ln_w, (C,)), ("ln_b", ln_b, (C,)),
+        ("w_qkv", w_qkv, (3 * C, C), w_qkv.dtype), ("bias", bias, (num_heads, vol, vol)),
+        ("w_proj", w_proj, (C, C), w_proj.dtype), ("b_proj", b_proj, (C,))])
     x, ln_w, ln_b, b_proj = _build.aligned16(x, ln_w, ln_b, b_proj)
     M = n_cuboids * vol
     lib = _build.load("attention", _SIGNATURES)
@@ -961,9 +980,10 @@ def _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale,
     dims = (n_cuboids, vol, C, num_heads, plan.qkv.bn, int(plan.qkv.ln), plan.core.rows,
             plan.core.key_tiles, float(scale), float(eps))
     if drop is None:
-        err = lib.cuboid_attention_forward(*ptrs, *dims, _build.stream_ptr(x.device))
-        _build.check(err, "cuboid_attention_forward")
-        fused_cuboid_attention_layer.launches += 1
+        err = getattr(lib, "cuboid_attention_forward" + form)(*ptrs, *dims,
+                                                              _build.stream_ptr(x.device))
+        _build.check(err, "cuboid_attention_forward" + form)
+        _build.count(fused_cuboid_attention_layer, form)
     else:
         rate_attn, rate_proj, seed, site = drop
         err = lib.cuboid_attention_dropout_forward(
@@ -998,15 +1018,18 @@ def fused_cuboid_attention_layer_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: 
                                         bias: torch.Tensor, w_proj: torch.Tensor, num_heads: int,
                                         scale: float, eps: float = 1e-5) -> torch.Tensor:
     """dx of the general cuboid layer, x and g (B, cuboids, vol, C).  CPU
-    tensor: the plain version in f32.  CUDA tensor: the kernel, or raise."""
+    tensor: the plain version in f32.  CUDA tensor: the kernel, or raise.  x,
+    g and dx f32, or bf16 (the bf16 form); the bias f32."""
     if not x.is_cuda:
         return cuboid_attention_bwd_dx_plain(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
                                              scale, eps)
     n_cuboids, vol, C = _check_cuboid(x, num_heads)
+    form, dt = _build.io_form("cuboid_attention_bwd_dx", x), x.dtype
+    ln_w, ln_b = weights.f32(ln_w), weights.f32(ln_b)
     _build.require("cuboid_attention_bwd_dx", [
-        ("x", x, tuple(x.shape)), ("g", g, tuple(x.shape)), ("ln_w", ln_w, (C,)),
-        ("ln_b", ln_b, (C,)), ("w_qkv", w_qkv, (3 * C, C)),
-        ("bias", bias, (num_heads, vol, vol)), ("w_proj", w_proj, (C, C))])
+        ("x", x, tuple(x.shape), dt), ("g", g, tuple(x.shape), dt), ("ln_w", ln_w, (C,)),
+        ("ln_b", ln_b, (C,)), ("w_qkv", w_qkv, (3 * C, C), w_qkv.dtype),
+        ("bias", bias, (num_heads, vol, vol)), ("w_proj", w_proj, (C, C), w_proj.dtype)])
     x, g, ln_w, ln_b = _build.aligned16(x, g, ln_w, ln_b)
     plan = cuboid_bwd_plan(n_cuboids, vol, C, num_heads)
     M = n_cuboids * vol
@@ -1018,13 +1041,13 @@ def fused_cuboid_attention_layer_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: 
                torch.empty((M, C), dtype=torch.float32, device=x.device),      # dln
                _stats(plan, x.device)]
     dx = torch.empty_like(x)
-    err = lib.cuboid_attention_bwd_dx(
+    err = getattr(lib, "cuboid_attention_bwd_dx" + form)(
         _build.ptr(x), _build.ptr(g), _build.ptr(ln_w), _build.ptr(ln_b), maps[0],
         _build.ptr(bias), maps[1], maps[2], *(_build.ptr(t) for t in scratch + [dx]),
         n_cuboids, vol, C, num_heads, plan.qkv.bn, int(plan.fused), plan.rows, float(scale),
         float(eps), _build.stream_ptr(x.device))
-    _build.check(err, "cuboid_attention_bwd_dx")
-    fused_cuboid_attention_layer_bwd_dx.launches += 1
+    _build.check(err, "cuboid_attention_bwd_dx" + form)
+    _build.count(fused_cuboid_attention_layer_bwd_dx, form)
     return dx
 
 
@@ -1183,11 +1206,14 @@ def fused_cuboid_attention_layer(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torc
 # --------------------------------------------------------------------------- #
 # Grouped masked core on the head-major layout (B, heads, cuboids, vol, hc).
 
+@_build.widened
 def grouped_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             bias: torch.Tensor, mask: Optional[torch.Tensor] = None,
                             scale: float = 1.0) -> torch.Tensor:
     """Plain version of the grouped core, f32: ``masked_softmax(q . scale .
-    k^T + bias[h]) . v``; ``mask`` (cuboids, vol, vol) bool, or None."""
+    k^T + bias[h]) . v``; ``mask`` (cuboids, vol, vol) bool, or None.  bf16
+    q, k, v (the bf16 form's plain version) are widened, the output rounded
+    once."""
     s = torch.einsum("bhnic,bhnjc->bhnij", q * scale, k) + bias[None, :, None]
     p = masked_softmax(s, None if mask is None else mask[None, None])
     return torch.einsum("bhnij,bhnjc->bhnic", p, v)
@@ -1237,20 +1263,22 @@ def _check_core_hc(hc: int, what: str) -> None:
         raise ValueError(f"{what} kernel: {hc} head channels not supported (a multiple of 4)")
 
 
-def _core_kernel(entry: str, q, k, v, bias, mask, scale, heads: int, nC: int):
+def _core_kernel(entry: str, q, k, v, bias, mask, scale, heads: int, nC: int,
+                 dtype: torch.dtype = torch.float32):
     """Launch one of ``csrc/attention.cu``'s entry points to the grouped core
     kernel on q, k, v of q's layout (the entry point takes q's five sizes in
-    order), bias (heads, vol, vol) and mask (cuboids, vol, vol) or None."""
+    order) in ``dtype``, bias (heads, vol, vol) f32 and mask (cuboids, vol,
+    vol) or None."""
     vol, hc = q.shape[-2:]
     _check_core_hc(hc, entry)
-    specs = [(name, t, tuple(q.shape)) for name, t in (("q", q), ("k", k), ("v", v))]
+    specs = [(name, t, tuple(q.shape), dtype) for name, t in (("q", q), ("k", k), ("v", v))]
     specs.append(("bias", bias, (heads, vol, vol)))
     if mask is not None:   # bool or uint8: one byte an element either way
         specs.append(("mask", mask, (nC, vol, vol),
                       torch.bool if mask.dtype == torch.bool else torch.uint8))
     _build.require(entry, specs)
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{entry} kernel: q, k and v must be 16-byte aligned")
+    if any(t.data_ptr() % (4 * t.element_size()) for t in (q, k, v)):
+        raise ValueError(f"{entry} kernel: q, k and v must be aligned to 4 elements")
     out = torch.empty_like(q)
     lib = _build.load("attention", _SIGNATURES)
     err = getattr(lib, entry)(
@@ -1262,9 +1290,11 @@ def _core_kernel(entry: str, q, k, v, bias, mask, scale, heads: int, nC: int):
 
 
 def _grouped_kernel(q, k, v, bias, mask, scale):
-    out = _core_kernel("cuboid_attention_grouped", q, k, v, bias, mask, scale, q.shape[1],
-                       q.shape[2])
-    fused_cuboid_attention_grouped.launches += 1
+    """q, k, v and out f32, or bf16 (the bf16 form); the bias f32."""
+    form = _build.io_form("cuboid_attention_grouped", q)
+    out = _core_kernel("cuboid_attention_grouped" + form, q, k, v, bias, mask, scale, q.shape[1],
+                       q.shape[2], q.dtype)
+    _build.count(fused_cuboid_attention_grouped, form)
     return out
 
 
@@ -1294,7 +1324,8 @@ def fused_cuboid_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Te
                                    scale: float = 1.0) -> torch.Tensor:
     """The grouped core, q, k, v (B, heads, cuboids, vol, hc), bias (heads,
     vol, vol), mask (cuboids, vol, vol) bool or None.  CPU tensor: the plain
-    version.  CUDA tensor: the kernel, or raise.  Differentiable on both."""
+    version.  CUDA tensor: the kernel, or raise.  Differentiable on both.
+    q, k, v and the output f32, or bf16 (the bf16 form); the bias f32."""
     if _build.needs_grad(q, k, v, bias):
         return _GroupedAttention.apply(q, k, v, bias, mask, scale)
     if not q.is_cuda:
@@ -1386,9 +1417,10 @@ def fused_cuboid_attention_layer_v3(x: torch.Tensor, ln_w: torch.Tensor, ln_b: t
 
 fused_cuboid_attention.launches = 0
 fused_cuboid_attention_layer_v3.launches = 0
-fused_cuboid_attention_layer.launches = 0
+fused_cuboid_attention_layer.launches = fused_cuboid_attention_layer.bf16_launches = 0
 fused_cuboid_attention_layer_dropout.launches = 0
 fused_cuboid_attention_layer_bwd_dx.launches = 0
+fused_cuboid_attention_layer_bwd_dx.bf16_launches = 0
 fused_cuboid_attention_layer_bwd_full.launches = 0
 fused_cuboid_attention_layer_dropout_bwd_full.launches = 0
-fused_cuboid_attention_grouped.launches = 0
+fused_cuboid_attention_grouped.launches = fused_cuboid_attention_grouped.bf16_launches = 0

@@ -36,30 +36,42 @@ _LAYOUTS: dict = {}
 
 def _entry(weight: torch.Tensor, kind: str, make: Callable,
            dtype: torch.dtype = torch.bfloat16) -> list:
+    """The entry of this version of ``weight``; its layout None where
+    ``make(weight)`` in ``dtype`` is the weight itself (a bf16 weight's
+    "linear" kind): no copy is made, and the entry holds no strong
+    reference to the weight."""
     key = (weight.data_ptr(), weight._version, weight.device)
     slot = (id(weight), kind)
     entry = _LAYOUTS.get(slot)
     if entry is None or entry[0]() is not weight or entry[1] != key:
         with torch.no_grad():
             layout = make(weight.detach()).to(dtype).contiguous()
+        if layout.data_ptr() == weight.data_ptr():
+            layout = None
         ref = weakref.ref(weight, lambda _, slot=slot: _LAYOUTS.pop(slot, None))
         entry = _LAYOUTS[slot] = [ref, key, layout, {}]
     return entry
 
 
+def _layout_of(entry: list, weight: torch.Tensor) -> torch.Tensor:
+    return weight.detach() if entry[2] is None else entry[2]
+
+
 def layout(weight: torch.Tensor, kind: str, make: Callable) -> torch.Tensor:
-    """The bf16 ``make(weight)`` of this version of ``weight``."""
-    return _entry(weight, kind, make)[2]
+    """The bf16 ``make(weight)`` of this version of ``weight`` (the weight
+    itself where that is already its layout)."""
+    return _layout_of(_entry(weight, kind, make), weight)
 
 
 def tensor_map(weight: torch.Tensor, kind: str, make: Callable, map_key, encode: Callable):
     """The layout and its tensor map ``encode(layout)``, made on first use
     and kept under ``map_key`` beside the layout."""
     entry = _entry(weight, kind, make)
+    lay = _layout_of(entry, weight)
     desc = entry[3].get(map_key)
     if desc is None:
-        desc = entry[3][map_key] = encode(entry[2])
-    return entry[2], desc
+        desc = entry[3][map_key] = encode(lay)
+    return lay, desc
 
 
 def _same(w: torch.Tensor) -> torch.Tensor:
@@ -75,7 +87,8 @@ def f32(vector):
 
 
 def linear_bf16(weight: torch.Tensor) -> torch.Tensor:
-    """The bf16 copy of a ``Linear`` weight (N, K), in its own layout."""
+    """The bf16 copy of a ``Linear`` weight (N, K), in its own layout (a bf16
+    weight as it is: no second copy)."""
     return layout(weight, "linear", _same)
 
 

@@ -6,6 +6,12 @@
 >>> forecast = predictor.predict(context)         # (B, 6, 128, 128, 1)
 >>> guided = predictor.predict(context, use_alignment=True, avg_x_gt=avg, ddim_steps=50)
 >>> ens = predictor.predict_ensemble(context, num_samples=8)   # (8, B, 6, 128, 128, 1)
+>>> fast = PreDiffPredictor(params=cast_to_bf16(params), compute_dtype="bfloat16")
+
+A model takes its parameters' dtype (``utils.precision.cast_to_bf16`` of the
+parameter tree, or a bf16 ``.npz``) and runs as flax promotes: the bf16 tree
+on a bf16 carry is a bf16 network, on an f32 carry the f32 network on a copy
+of the rounded weights (``diffusion/latent_diffusion.py``).
 
 On the card every reverse step replays a captured CUDA graph, cached per
 static key (``diffusion/graphs.py``); the first forecast of a key captures.

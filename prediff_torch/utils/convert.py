@@ -56,6 +56,19 @@ def flatten_tree(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
 
 
 _RUNNING = {"running_mean": "mean", "running_var": "var"}
+_KEPT = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _leaf_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A flax leaf as a tensor of its own dtype; bf16 comes as numpy's
+    ``bfloat16`` extension type or, read back from an ``.npz``, as 2-byte
+    voids."""
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:   # a JAX array's buffer: the tensor gets its own copy
+        arr = arr.copy()
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _to_torch_layout(flax_leaf: str, arr: np.ndarray) -> np.ndarray:
@@ -82,7 +95,9 @@ def flax_params_to_torch(model: torch.nn.Module, flax_params,
     ``num_batches_tracked`` counters, which flax has not, keep the model's).
 
     Strict both ways: every key of ``model.state_dict()`` takes exactly one
-    flax leaf and every flax leaf is taken, else ``ValueError``."""
+    flax leaf and every flax leaf is taken, else ``ValueError``.  A leaf in
+    f32, bf16 or f16 keeps its dtype (the JAX package's ``cast_to_bf16``
+    trees, and its ``.npz`` files of them); any other takes the model's."""
     flat = flatten_tree(flax_params)
     flat.update({("batch_stats",) + k: v for k, v in flatten_tree(batch_stats or {}).items()})
     used = set()
@@ -108,7 +123,9 @@ def flax_params_to_torch(model: torch.nn.Module, flax_params,
         arr = _to_torch_layout(path[-1], flat[path])
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"shape mismatch for '{key}': flax {arr.shape} vs port {tuple(ref.shape)}")
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(ref.dtype)
+        leaf = _leaf_tensor(arr)
+        # a floating leaf keeps its dtype (a bf16 tree gives a bf16 state_dict)
+        out[key] = leaf if ref.is_floating_point() and leaf.dtype in _KEPT else leaf.to(ref.dtype)
     unused = sorted("/".join(p) for p in flat if p not in used)
     if unused:
         raise ValueError(f"flax leaves with no port parameter ({len(unused)}): {unused[:10]}")

@@ -1039,3 +1039,78 @@ def test_bf16_guidance_runs_the_bf16_forms(dev):
     assert shift.dtype == torch.float32 and torch.isfinite(shift).all()
     for fn, (n, n16) in zip(fns, before):
         assert fn.launches - n == fn.bf16_launches - n16 > 0, fn.__name__
+
+
+# The bf16 forms of the general layer, its input gradient and the grouped core
+# (a forecast on bf16 parameters; bf16 guidance on a non-axial net), at the
+# tiny swin shapes: each against its plain version on the same bf16 inputs.
+@pytest.mark.parametrize("shape", [(1, 6, 64, 64), (2, 5, 36, 64), (1, 4, 64, 128)])
+def test_cuboid_layer_bf16_forms_match_plain(dev, shape):
+    C, vol, heads = shape[-1], shape[2], 4
+    x, g = _r(dev, *shape), _r(dev, *shape)
+    ln_w, ln_b = _r(dev, C, shift=1.0, scale=0.1), _r(dev, C, scale=0.1)
+    w_qkv, w_proj = _r(dev, 3 * C, C, scale=C ** -0.5), _r(dev, C, C, scale=C ** -0.5)
+    bias, b_proj = torch.randn(heads, vol, vol, device=dev) * 0.5, _r(dev, C, scale=0.1)
+    scale = (C // heads) ** -0.5
+    args = (ln_w, ln_b, w_qkv, bias, w_proj)
+    counted = (fused_cuboid_attention_layer, fused_cuboid_attention_layer_bwd_dx)
+    before = [fn.bf16_launches for fn in counted]
+    _bf16_close(fused_cuboid_attention_layer(x, *args, b_proj, heads, scale),
+                cuboid_attention_plain(x, *args, b_proj, heads, scale, mxu_dtype=BF16), TOL_BF16)
+    _bf16_close(fused_cuboid_attention_layer_bwd_dx(x, g, *args, heads, scale),
+                cuboid_attention_bwd_dx_plain(x, g, *args, heads, scale, mxu_dtype=BF16), 3e-2)
+    assert [fn.bf16_launches for fn in counted] == [n + 1 for n in before]
+
+
+@pytest.mark.parametrize("shape,window", [
+    ((1, 2, 8, 64, 16), ((2, 16, 16), (1, 8, 8), (0, 4, 4), "zeros")),
+    ((2, 2, 12, 32, 32), ((5, 6, 6), (2, 4, 4), (0, 0, 0), "ignore")),
+    ((1, 2, 3, 20, 12), None)])
+def test_grouped_bf16_form_matches_plain(dev, shape, window):
+    """The bf16 form computes the f32 form's sums on the widened inputs (k
+    and v are exact in TF32): its output is the f32 kernel's rounded once."""
+    heads, nC, vol, hc = shape[1:]
+    q, k, v = (_r(dev, *shape) for _ in range(3))
+    bias = torch.randn(heads, vol, vol, device=dev) * 0.5
+    mask = None if window is None else torch.from_numpy(compute_cuboid_self_attention_mask(
+        window[0], window[1], window[2], ("l", "l", "l"), window[3])).to(dev)
+    n0 = fused_cuboid_attention_grouped.bf16_launches
+    got = fused_cuboid_attention_grouped(q, k, v, bias, mask, hc ** -0.5)
+    want = grouped_attention_plain(q, k, v, bias, mask, hc ** -0.5)
+    _bf16_close(got, want, 1e-5)
+    f32 = fused_cuboid_attention_grouped(q.float(), k.float(), v.float(), bias, mask, hc ** -0.5)
+    assert torch.equal(got, f32.to(BF16))
+    assert fused_cuboid_attention_grouped.bf16_launches == n0 + 1
+
+
+def test_bf16_parameters_on_an_f32_carry_give_the_f32_pipeline_on_rounded_weights(dev):
+    """Promotion: bf16 parameters on an f32 carry run the f32 network on a
+    copy of the bf16-rounded weights, so the forecast (unguided DDPM and
+    guided DDIM, on graphs) is the f32 pipeline's from cast_to_fp32 of the
+    same bf16 tree, bit for bit; the bf16 carry gives a bf16 latent."""
+    from pathlib import Path
+
+    from prediff_torch.config import load_config, prediff_default_config
+    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.serving import PreDiffPredictor
+    from prediff_torch.utils.precision import cast_to_bf16, cast_to_fp32
+
+    cfg = load_config(prediff_default_config,
+                      str(Path(__file__).resolve().parents[1] / "configs" / "tiny_smoke.yaml"))
+    gen = torch.Generator().manual_seed(0)
+    params = cast_to_bf16({k: init_params_(build(cfg), gen, randomize=True).state_dict()
+                           for k, build in (("unet", build_unet), ("vae", build_vae),
+                                            ("align", build_alignment_model))})
+    p16 = PreDiffPredictor(cfg, params=params, device=dev)
+    p32 = PreDiffPredictor(cfg, params=cast_to_fp32(params), device=dev)
+    assert next(p16.ld.unet.parameters()).dtype == BF16
+    y = torch.rand((1, 3, 32, 32, 1), generator=gen)
+    for kw in (dict(timesteps=5), dict(ddim_steps=3, use_alignment=True, avg_x_gt=[[0.5]])):
+        a, b = (p.predict(y, generator=torch.Generator(dev).manual_seed(3), **kw)
+                for p in (p16, p32))
+        assert a.dtype == torch.float32 and torch.isfinite(a).all() and torch.equal(a, b)
+    p16.compute_dtype = "bfloat16"
+    out = p16.ld.sample(y.to(dev), timesteps=3, return_decoded=False, compute_dtype="bfloat16",
+                        generator=torch.Generator(dev).manual_seed(3))
+    assert out.dtype == BF16 and torch.isfinite(out.float()).all()
