@@ -89,7 +89,19 @@ a validation, the JAX script's metric keys, a resume), ``cli_test``
 ``cli_vae``, ``cli_align``, ``cli_convert`` (``from_npz`` on the converted
 files forecasts bit for bit as ``from_torch``) and ``cli_learning_check``;
 without h5py, pandas or matplotlib on the host they run the functions below
-each ``main`` on in-memory synthetic windows.  Then the ``kernels`` summary line (per kernel its ms,
+each ``main`` on in-memory synthetic windows.  Then several ranks
+(``mesh_*``, also ``--only mesh``; ``prediff_torch/parallel``), child
+processes of this script that join their groups themselves: two gloo ranks
+on the one card (``mesh_ensemble``: 8 members of one context sharded 4 a
+rank, 20 DDPM steps on graphs, the draws each rank's rows of the
+one-process draws bit for bit, both ranks' outputs bit-equal, near the
+one-process ensemble; ``mesh_guided``: 10 guided DDIM steps, eager on gloo,
+and the guidance's energy summed over the ranks; ``mesh_eval``:
+``train_sevirlr_prediff --test --multihost``, the reduced metrics the merge
+of the ranks' suites bit for bit), then one NCCL rank
+(``mesh_nccl_graph``: the all-reduce inside a captured guided step,
+bit-equal to the eager chain and to the call without a mesh).
+Then the ``kernels`` summary line (per kernel its ms,
 bound, library call and ``vs_library``; the conv, the grouped cores, the
 round-1 layer, the GroupNorm+SiLU forward and all-gradients backward and the
 FFN, axial attention and general cuboid layer forwards and all-gradients
@@ -3266,7 +3278,11 @@ def main() -> int:
     ap.add_argument("--only", type=lambda v: v.split(","),
                     help="comma-separated phases to run alone (after the device line and the "
                          f"build), then stop: {', '.join(ONLY)}")
+    ap.add_argument("--mesh-child", nargs=2, metavar=("ROOT", "RANK"),
+                    help="run one rank of the mesh_* phases (started by them, not by hand)")
     args = ap.parse_args()
+    if args.mesh_child:
+        return mesh_child(args.mesh_child[0], int(args.mesh_child[1]))
     try:
         import torch
     except ImportError:
@@ -3375,9 +3391,10 @@ def kernel_counters():
 # vae_train (with vae_train_grads), align_train (with align_train_grads), bf16
 # (bf16_phases with the f32 chains beside them), vae_train_bf16 (with its grads),
 # bf16params (bf16params_phases with the f32 chains beside them),
-# eval (eval_suite), data (data_prefetch) and cli (the cli_* phases)
+# eval (eval_suite), data (data_prefetch), cli (the cli_* phases) and mesh
+# (the mesh_* phases)
 ONLY = ("bwd_split", "guided_repeat", "vae_train", "align_train", "bf16", "vae_train_bf16",
-        "bf16params", "eval", "data", "cli")
+        "bf16params", "eval", "data", "cli", "mesh")
 
 
 def run_only(device, names, smi: str) -> None:
@@ -3393,6 +3410,8 @@ def run_only(device, names, smi: str) -> None:
             continue
         if name == "cli":
             cli_alone(device, smi)
+        elif name == "mesh":
+            mesh_alone(device, smi)
         elif name == "bwd_split":
             bwd_split(device)
         elif name == "guided_repeat":
@@ -3546,6 +3565,7 @@ def run(device, cfg, smi: str) -> None:
     launches_by_path["align_train"] = align_train_phases(device, smi, by_route, zero_counts,
                                                          read_counts)
     launches_by_path.update(cli_phases(device, smi, weights, by_route, zero_counts, read_counts))
+    launches_by_path.update(mesh_phases(device, smi, cfg, weights, by_route))
     emit({"phase": "graph_chains", "card": smi, "chains": GRAPH_CHAINS})
     emit({"kernels": summarize({**cases, **bcases}, launches_by_path)})
     print(smi, flush=True)
@@ -5191,6 +5211,663 @@ def cli_alone(device, smi):
     weights = {key: m.state_dict() for key, m in models.items()}
     cli_phases(device, smi, weights, path_launches(models["unet"], models["align"]),
                *kernel_counters())
+
+
+MESH_MEMBERS = 8          # mesh_ensemble / mesh_guided: one context, 8 members, 4 a rank
+MESH_DDPM_STEPS = 20
+MESH_DDIM_STEPS = 10      # mesh_guided and mesh_nccl_graph
+MESH_NCCL_MEMBERS = 2
+MESH_EVAL_DDIM_STEPS = 4
+MESH_EVAL_MEMBERS = 2
+# rel-L2 of a sharded ensemble against the one-process ensemble of 8 on one card: a
+# forward at a batch of 4 rounds otherwise than at 8 (``--only mesh`` names the calls:
+# the FFN kernel, whose split of the hidden dimension grows with fewer row tiles, cuBLAS
+# and cuDNN), and a last-bit difference flips a kernel's bf16 operand rounding, which the
+# chain carries on (the kernels' bar against their plain versions is 2e-2); sharding
+# itself is held to the bit by the noise-free chain, equal to one process at the rank's
+# batch, and the guided chain's all-reduce by the guidance's own check below (at full
+# width the guided chain without it lands as near the one-process ensemble)
+MESH_ENSEMBLE_TOL = 1e-2
+MESH_GUIDED_TOL = 1e-2
+# rel of the guidance's energy and shift on the ranks' rows against one process's at the
+# rank's batch, rescaled to the whole batch's energy (the rescale's rounding); each rank's
+# energy alone (the control) misses it by far
+MESH_SHIFT_TOL = 1e-5
+MESH_TIMEOUT_S = 600      # a rank that has not finished by then is killed and the phase fails
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class chain_probe:
+    """For the ``with`` block: each chain's x_T and step noise as the rank
+    holds them (its rows of the whole batch's draws), its step loop's
+    seconds (synchronized) less the seconds its graphs took to capture, as
+    ``timed_chain`` counts them, and those capture seconds, by wrappers
+    around ``ld._chain`` and ``ld._draw``."""
+
+    def __init__(self, ld, device, keep_draws: bool = False):
+        self.ld, self.device, self.keep = ld, device, keep_draws
+        self.x_T, self.noise, self.loops, self.capture_s = None, [], [], []
+
+    def __enter__(self):
+        ld, chain, draw = self.ld, self.ld._chain, self.ld._draw
+        current = {}
+
+        def probed_chain(plan, bufs, generator, entry):
+            current["bufs"] = bufs
+            if self.keep:
+                self.x_T = bufs.z.clone()
+            capture_s = ld.graphs.capture_seconds
+            sync(self.device)
+            t0 = time.perf_counter()
+            ends = chain(plan, bufs, generator, entry)
+            sync(self.device)
+            self.capture_s.append(ld.graphs.capture_seconds - capture_s)
+            self.loops.append(time.perf_counter() - t0 - self.capture_s[-1])
+            return ends
+
+        def probed_draw(buf, generator):
+            draw(buf, generator)
+            bufs = current.get("bufs")
+            if self.keep and bufs is not None and buf is bufs.noise_all:
+                self.noise.append(bufs.noise.clone())
+
+        ld._chain, ld._draw = probed_chain, probed_draw
+        return self
+
+    def __exit__(self, *exc):
+        del self.ld._chain, self.ld._draw
+
+
+def batch_split_probe(ld, z, y, t: int) -> dict:
+    """``--only mesh``: where a forward at a batch of 8 rounds otherwise than
+    at 4 + 4.  The UNet forward (at step ``t``), the encode and the decode
+    run on the whole batch and on its halves; in the whole batch's run every
+    call of a hand-written kernel (rows 1-3: the batch-led inputs cut, both
+    halves through the kernel and through its plain version on the card)
+    and every library layer (Linear, the convolutions on cuDNN, GroupNorm,
+    LayerNorm) runs again on the two halves of its input.  Per name: the
+    calls, how many differ between the whole and the halves, and the largest
+    difference (0: no batch dependence)."""
+    import inspect
+
+    import torch
+    from torch import nn
+    from prediff_torch.models import cuboid_attention, layers
+    from prediff_torch.ops.attention import axial_attention_plain
+    from prediff_torch.ops.ffn import ffn_plain
+    from prediff_torch.ops.groupnorm import groupnorm_silu_plain
+
+    stats, active = {}, [False]
+
+    def note(name, whole, parts):
+        d = float((whole - torch.cat(parts)).abs().max())
+        s = stats.setdefault(name, {"calls": 0, "differ": 0, "max_abs": 0.0})
+        s["calls"] += 1
+        s["differ"] += int(d > 0)
+        s["max_abs"] = max(s["max_abs"], d)
+
+    def spied(name, kernel, plain, batch_led):
+        keep = inspect.signature(plain).parameters
+
+        def run(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            n = args[0].shape[0]
+            if active[0] and n % 2 == 0:
+                active[0] = False
+                halves = [[a[h] if i in batch_led and isinstance(a, torch.Tensor) else a
+                           for i, a in enumerate(args)]
+                          for h in (slice(0, n // 2), slice(n // 2, n))]
+                note(name, out, [kernel(*a, **kwargs) for a in halves])
+                pkw = {k: v for k, v in kwargs.items() if k in keep}
+                note(name + "_plain", plain(*args, **pkw), [plain(*a, **pkw) for a in halves])
+                active[0] = True
+            return out
+        return run
+
+    def hook(module, inputs, out):
+        x = inputs[0] if len(inputs) == 1 else None
+        if active[0] and isinstance(x, torch.Tensor) and x.dim() and x.shape[0] % 2 == 0:
+            n = x.shape[0]
+            note(type(module).__name__, out,
+                 [module.forward(x[:n // 2]), module.forward(x[n // 2:])])
+
+    patched = [(layers, "fused_ffn", spied("ffn", layers.fused_ffn, ffn_plain, (0,))),
+               (layers, "fused_groupnorm_silu", spied(
+                   "groupnorm_silu", layers.fused_groupnorm_silu, groupnorm_silu_plain, (0, 3))),
+               (cuboid_attention, "fused_axial_attention", spied(
+                   "axial_attention", cuboid_attention.fused_axial_attention,
+                   axial_attention_plain, (0,)))]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patched]
+    library = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+               nn.ConvTranspose3d, nn.GroupNorm, nn.LayerNorm)
+    handles = [m.register_forward_hook(hook) for model in (ld.unet, ld.vae)
+               for m in model.modules() if isinstance(m, library)]
+    for mod, attr, fn in patched:
+        setattr(mod, attr, fn)
+    out = {}
+    try:
+        with torch.no_grad():
+            n = z.shape[0]
+            tb = torch.full((n,), t, device=z.device)
+            zc = ld.cond_stage_forward(y)
+            for name, fn in (("unet", lambda h: ld.unet(z[h], tb[h], zc[h])),
+                             ("encode", lambda h: ld.cond_stage_forward(y[h])),
+                             ("decode", lambda h: ld.decode_first_stage(z[h]))):
+                stats.clear()
+                active[0] = True
+                whole = fn(slice(None))
+                active[0] = False
+                parts = [fn(slice(0, n // 2)), fn(slice(n // 2, n))]
+                out[name] = {"8_vs_4_max_abs": float((whole - torch.cat(parts)).abs().max()),
+                             "calls": dict(sorted(stats.items()))}
+    finally:
+        for h in handles:
+            h.remove()
+        for mod, attr, fn0 in saved:
+            setattr(mod, attr, fn0)
+    return out
+
+
+def mesh_phases(device, smi, cfg, weights, per, diagnose: bool = False) -> dict:
+    """The sharded forecasts and the rank-sharded evaluation
+    (``prediff_torch/parallel``) on ranks that are child processes of this
+    script (``--mesh-child``), each joining its group by
+    ``init_distributed`` itself; this process's group and state stay as they
+    were.  One card holds them all, so the two-rank phases run gloo (whose
+    collectives go through the host) and the NCCL phase one rank.  First the
+    one-process references on this card, on graphs: the ``MESH_MEMBERS``
+    ensemble of one context, ``MESH_DDPM_STEPS`` DDPM steps (its x_T and step
+    noise kept), and the guided ``MESH_DDIM_STEPS``-step DDIM ensemble.
+    Then two ranks, ``PreDiffPredictor(mesh="auto")``:
+    ``mesh_ensemble`` (each rank's x_T and noise are its rows of the
+    one-process draw bit for bit, both ranks return the same tensor, within
+    ``MESH_ENSEMBLE_TOL`` rel-L2 of the one-process ensemble, exact launches
+    per rank: the chain's per-step counts, no plain call), ``mesh_guided``
+    (route "eager": gloo cannot capture the all-reduce; within
+    ``MESH_GUIDED_TOL``; the guidance's energy and shift on fixed inputs,
+    each rank its rows, within ``MESH_SHIFT_TOL`` of one process's, which
+    each rank's energy alone misses), ``mesh_eval`` (``train_sevirlr_prediff --test
+    --multihost``: the reduced metrics equal the merge of the ranks' suites
+    before the reduce bit for bit, dumps named by rank, one metrics record,
+    rank 0's), then rank 0 alone in a new NCCL group of one:
+    ``mesh_nccl_graph`` (guided DDIM with the mesh on graphs, the all-reduce
+    inside the captured step, bit-equal to its eager chain and to the call
+    without a mesh).  A step's ms leaves out its graphs' capture, given as
+    ``capture_s``.  Per-step times of two ranks on one card share it: they
+    are no scaling.  ``diagnose`` (``--only mesh``) adds ``mesh_batch_split``
+    (``batch_split_probe``: which calls round a batch of 8 otherwise than
+    4 + 4) and the guided chain without the all-reduce.  Returns rank 0's
+    launches by phase."""
+    import torch
+    from prediff_torch.config import save_yaml
+    from prediff_torch.serving import PreDiffPredictor
+
+    t_all = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        save_yaml(cfg, os.path.join(root, "cfg.yaml"))
+        torch.save(weights, os.path.join(root, "weights.pt"))
+        img = cfg.layout
+        context = torch.rand((1, img.in_len, img.img_height, img.img_width, img.data_channels),
+                             generator=torch.Generator().manual_seed(SEED + 31))
+        avg = torch.full((1, 1), AVG_X_GT)
+        predictor = PreDiffPredictor(cfg, params=weights, with_alignment=True, device=device,
+                                     mesh=None)
+        with chain_probe(predictor.ld, device, keep_draws=True) as ens_probe:
+            ens = predictor.predict_ensemble(
+                context, MESH_MEMBERS, timesteps=MESH_DDPM_STEPS,
+                generator=torch.Generator(device).manual_seed(SEED))
+        with chain_probe(predictor.ld, device) as guided_probe:
+            guided = predictor.predict_ensemble(
+                context, MESH_MEMBERS, ddim_steps=MESH_DDIM_STEPS, use_alignment=True,
+                avg_x_gt=avg, generator=torch.Generator(device).manual_seed(SEED + 1))
+        # the noise-free chain (x_T given, temperature 0) on each rank's rows alone, a
+        # batch of 4 as on a rank
+        y8 = torch.repeat_interleave(context, MESH_MEMBERS, dim=0).to(device)
+        x_T = torch.randn((MESH_MEMBERS,) + tuple(cfg.model.diffusion.latent_shape),
+                          generator=torch.Generator().manual_seed(SEED + 3))
+        halves = [slice(0, MESH_MEMBERS // 2), slice(MESH_MEMBERS // 2, MESH_MEMBERS)]
+
+        def noise_free(rows):
+            return predictor.ld.sample(y8[rows], x_T=x_T[rows], timesteps=MESH_DDPM_STEPS,
+                                       temperature=0.0).cpu()
+
+        by_half = torch.cat([noise_free(h) for h in halves])
+        if diagnose:   # why the whole batch of 8 is not the one of 4 + 4
+            whole = noise_free(slice(None))
+            emit({"phase": "mesh_batch_split",
+                  "noise_free_whole_vs_halves_rel_l2": rel_l2_and_cosine([whole], [by_half])[0],
+                  "noise_free_whole_vs_halves_bit_equal": bool(torch.equal(whole, by_half)),
+                  **batch_split_probe(predictor.ld, x_T.to(device), y8, MESH_DDPM_STEPS - 1),
+                  "card": smi})
+        # the guidance's energy and shift on fixed inputs: each rank's rows alone, a batch of
+        # 4 as on a rank, rescaled to the energy of both (the ranks' shift is each rank's own
+        # times its energy over the whole's), and the whole batch of 8's
+        align, z8 = predictor.ld.alignment, x_T.to(device)
+        t8 = torch.full((MESH_MEMBERS,), MESH_DDPM_STEPS - 1, device=device)
+        avg8 = avg.expand(MESH_MEMBERS, 1).to(device)
+        alone = [(align.alignment_energy(z8[h], t8[h], avg8[h]),
+                  align.get_mean_shift(z8[h], t8[h], avg8[h])) for h in halves]
+        energy = torch.sqrt(sum(e.square() for e, _ in alone))
+        shift = torch.cat([s * (e / energy) for e, s in alone]).cpu()
+        energy = energy.reshape(1).cpu()
+        energy_whole = align.alignment_energy(z8, t8, avg8).reshape(1).cpu()
+        shift_whole = align.get_mean_shift(z8, t8, avg8).cpu()
+        torch.save({"context": context, "avg": avg, "ensemble": ens.cpu(),
+                    "x_T": ens_probe.x_T.cpu(), "noise": torch.stack(ens_probe.noise).cpu(),
+                    "guided": guided.cpu(), "noise_free_x_T": x_T, "noise_free_by_half": by_half,
+                    "energy": energy, "shift": shift, "energy_whole": energy_whole,
+                    "shift_whole": shift_whole},
+                   os.path.join(root, "reference.pt"))
+        one_ms = {"mesh_ensemble": 1e3 * ens_probe.loops[-1] / MESH_DDPM_STEPS,
+                  "mesh_guided": 1e3 * guided_probe.loops[-1] / MESH_DDIM_STEPS}
+        one_capture_s = {"mesh_ensemble": ens_probe.capture_s[-1],
+                         "mesh_guided": guided_probe.capture_s[-1]}
+        del predictor, ens_probe, guided_probe
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        with open(os.path.join(root, "plan.json"), "w") as f:
+            json.dump({"device": str(device), "world": 2, "port": free_port(),
+                       "port2": free_port(),
+                       "nccl_backend": "nccl" if device.type == "cuda" else "gloo",
+                       "per": per, "members": MESH_MEMBERS, "ddpm_steps": MESH_DDPM_STEPS,
+                       "ddim_steps": MESH_DDIM_STEPS, "nccl_members": MESH_NCCL_MEMBERS,
+                       "eval_ddim_steps": MESH_EVAL_DDIM_STEPS,
+                       "eval_members": MESH_EVAL_MEMBERS, "diagnose": diagnose}, f)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        t0 = time.perf_counter()
+        procs, logs = [], []
+        try:
+            for r in range(2):
+                logs.append(open(os.path.join(root, f"rank{r}.log"), "w"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--mesh-child", root, str(r)],
+                    stdout=logs[-1], stderr=subprocess.STDOUT, env=env))
+            deadline = time.time() + MESH_TIMEOUT_S
+            for p in procs:
+                try:
+                    p.wait(timeout=max(1.0, deadline - time.time()))
+                except subprocess.TimeoutExpired:
+                    pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        children_s = time.perf_counter() - t0
+        tails = {}
+        for r, p in enumerate(procs):
+            with open(os.path.join(root, f"rank{r}.log")) as f:
+                tails[r] = f.read()[-3000:]
+            if p.returncode != 0:
+                fail(f"mesh rank {r} exited with {p.returncode}:\n{tails[r]}")
+        res = []
+        for r in range(2):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+
+        def outputs(name):
+            return [torch.load(os.path.join(root, f"rank{r}_{name}.pt")) for r in range(2)]
+
+        ref = torch.load(os.path.join(root, "reference.pt"))
+
+        def noise_free():
+            """Sharding itself: the noise-free sharded chain bit for bit one
+            process's at the rank's batch (and both ranks alike)."""
+            free = outputs("mesh_noise_free")
+            return {"noise_free_sharded_bit_equal": bool(
+                        torch.equal(free[0], ref["noise_free_by_half"])
+                        and torch.equal(free[0], free[1]))}
+
+        def guidance(want):
+            """The guidance on fixed inputs, each rank its rows: the energy
+            summed over the ranks, and the shift, within ``MESH_SHIFT_TOL`` of
+            one process's at the rank's batch rescaled to the whole's energy;
+            each rank's energy alone, the control, must miss it.  Beside them
+            (no bar) the same against the whole batch of 8 in one process.
+            With ``diagnose`` also the guided chain with the all-reduce left
+            out."""
+            line = {"tol_shift": MESH_SHIFT_TOL}
+            for kind, prefix in (("summed", ""), ("alone", "no_reduce_")):
+                e, sh = outputs(f"energy_{kind}"), torch.cat(outputs(f"shift_{kind}"))
+                for whole in ("", "_whole"):
+                    line[f"{prefix}energy_rel_vs_one_process{whole}"] = max(
+                        float((x - ref["energy" + whole]).abs().max()
+                              / ref["energy" + whole].abs().max()) for x in e)
+                    line[f"{prefix}shift_rel_l2_vs_one_process{whole}"] = rel_l2_and_cosine(
+                        [sh], [ref["shift" + whole]])[0]
+            if diagnose:
+                line["no_reduce_chain_rel_l2_vs_one_process"] = rel_l2_and_cosine(
+                    [outputs("mesh_guided_no_reduce")[0]], [want])[0]
+            return line
+
+        for name, want, tol in (("mesh_ensemble", ref["ensemble"], MESH_ENSEMBLE_TOL),
+                                ("mesh_guided", ref["guided"], MESH_GUIDED_TOL)):
+            got = outputs(name)
+            rel, _ = rel_l2_and_cosine([got[0]], [want])
+            line = {"phase": name, **res[0][name],
+                    "rank1": {k: res[1][name][k] for k in ("launches", "ms_per_step",
+                                                           "capture_s", "draws_bit_equal")
+                              if k in res[1][name]},
+                    "ranks_bit_equal": bool(torch.equal(got[0], got[1])),
+                    "rel_l2_vs_one_process": rel, "tol_rel_l2": tol,
+                    "max_abs_vs_one_process": float((got[0] - want).abs().max()),
+                    "bit_equal_to_one_process": bool(torch.equal(got[0], want)),
+                    "one_process_ms_per_step": one_ms[name],
+                    "one_process_capture_s": one_capture_s[name],
+                    **(noise_free() if name == "mesh_ensemble" else guidance(want)),
+                    "ms_per_step_is": "two ranks sharing one card: not scaling", "card": smi}
+            emit(line)
+            failed = list(res[0][name]["failed"]) + list(res[1][name]["failed"])
+            if not line["ranks_bit_equal"]:
+                failed.append("the ranks' outputs differ")
+            if not (rel <= tol) or not bool(torch.isfinite(got[0]).all()):
+                failed.append(f"rel-L2 {rel} against the one-process ensemble > {tol}")
+            if name == "mesh_ensemble" and not line["noise_free_sharded_bit_equal"]:
+                failed.append("the noise-free sharded chain differs from one process at the "
+                              "rank's batch")
+            if name == "mesh_guided":
+                for key in ("energy_rel_vs_one_process", "shift_rel_l2_vs_one_process"):
+                    if not line[key] <= MESH_SHIFT_TOL:
+                        failed.append(f"the ranks' guidance {key} {line[key]} > {MESH_SHIFT_TOL}")
+                    if not line["no_reduce_" + key] > MESH_SHIFT_TOL:
+                        failed.append(f"without the all-reduce the guidance's {key} is within "
+                                      f"{MESH_SHIFT_TOL} too: the bar tells nothing")
+            if failed:
+                fail(f"{name}: {failed}")
+            launches[name] = res[0][name]["launches"]
+        for name in ("mesh_nccl_graph", "mesh_eval"):
+            line = {"phase": name, **res[0][name], "card": smi}
+            if name == "mesh_eval":
+                line["rank1"] = {k: res[1][name][k] for k in ("launches", "plain_calls_on_card")}
+            emit(line)
+            failed = list(res[0][name]["failed"]) + list(res[1].get(name, {}).get("failed", []))
+            if failed:
+                fail(f"{name}: {failed}")
+            launches[name] = res[0][name]["launches"]
+    emit({"phase": "mesh_all", "seconds": time.perf_counter() - t_all,
+          "children_seconds": children_s, "card": smi})
+    return launches
+
+
+def mesh_child(root: str, rank: int) -> int:
+    """One rank of ``mesh_phases`` (``--mesh-child ROOT RANK``): its results
+    in ``ROOT/rank{RANK}.json`` and its outputs beside it; a failed check is
+    listed there, an error exits non-zero."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from prediff_torch.cli import train_sevirlr_prediff as tp
+    from prediff_torch.config import load_config, prediff_default_config
+    from prediff_torch.diffusion import knowledge_alignment
+    from prediff_torch.evaluation import ForecastEvalSuite, FrechetVideoDistance
+    from prediff_torch.parallel import init_distributed, local_batch_slice, make_mesh
+    from prediff_torch.serving import PreDiffPredictor
+    from prediff_torch.utils.device import set_numerics
+
+    with open(os.path.join(root, "plan.json")) as f:
+        plan = json.load(f)
+    device = torch.device(plan["device"])
+    per = plan["per"]
+    members, ddpm_steps, ddim_steps = plan["members"], plan["ddpm_steps"], plan["ddim_steps"]
+    eval_members, eval_ddim_steps = plan["eval_members"], plan["eval_ddim_steps"]
+    nccl_members = plan["nccl_members"]
+    cfg = load_config(prediff_default_config, os.path.join(root, "cfg.yaml"))
+    weights = torch.load(os.path.join(root, "weights.pt"))
+    ref = torch.load(os.path.join(root, "reference.pt"))
+    context, avg = ref["context"], ref["avg"]
+    set_numerics()
+    zero_counts, read_counts = kernel_counters()
+    install, spied, remove = plain_spy()
+    out = {}
+
+    def phase(name, fn, want):
+        """``fn()`` with the counts set to 0 just before and read just after,
+        a spy on the plain versions; ``want(line)`` the exact launches."""
+        install()
+        try:
+            zero_counts()
+            sync(device)
+            t0 = time.perf_counter()
+            line = fn()
+            sync(device)
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            remove()
+        plain, _ = spied()
+        line = {**line, "seconds": seconds, "launches": {k: v for k, v in counts.items() if v},
+                "plain_calls_on_card": plain}
+        failed = line.setdefault("failed", [])
+        if plain:
+            failed.append(f"plain versions ran on the card: {plain}")
+        want = want(line)
+        if want is not None:
+            wrong = {k: [n, want.get(k, 0)] for k, n in counts.items() if n != want.get(k, 0)}
+            line["expected_launches"] = want
+            if wrong:
+                failed.append(f"launches [counted, expected] {wrong}")
+        out[name] = line
+
+    def save(name, t):
+        torch.save(t.cpu(), os.path.join(root, f"rank{rank}_{name}.pt"))
+
+    init_distributed(coordinator_address=f"localhost:{plan['port']}",
+                     num_processes=plan["world"], process_id=rank, backend="gloo",
+                     device=device, timeout=120.0)
+    predictor = PreDiffPredictor(cfg, params=weights, with_alignment=True)   # mesh="auto"
+    ld, mesh = predictor.ld, predictor.mesh
+    rows = local_batch_slice(members, mesh.size, mesh.index)
+
+    def ensemble():
+        with chain_probe(ld, device, keep_draws=True) as probe:
+            ens = predictor.predict_ensemble(context, members, timesteps=ddpm_steps,
+                                             generator=torch.Generator(device).manual_seed(SEED))
+        save("mesh_ensemble", ens)
+        draws = (torch.equal(probe.x_T.cpu(), ref["x_T"][rows])
+                 and torch.equal(torch.stack(probe.noise).cpu(), ref["noise"][:, rows]))
+        return {"ranks": mesh.size, "backend": mesh.backend, "members": members,
+                "members_per_rank": rows.stop - rows.start, "steps": ddpm_steps,
+                "draws_bit_equal": draws, "noise_draws": len(probe.noise),
+                "ms_per_step": 1e3 * probe.loops[-1] / ddpm_steps,
+                "capture_s": probe.capture_s[-1], "captured_graphs": ld.graphs.captures,
+                "failed": [] if draws else ["x_T or step noise not the one-process rows"]}
+
+    phase("mesh_ensemble", ensemble,
+          lambda line: chain_launches(per, unguided_steps=ddpm_steps))
+    # the noise-free chain on the whole batch's x_T, outside the counts
+    y8 = torch.repeat_interleave(context, members, dim=0)
+    save("mesh_noise_free", ld.sample(y8, x_T=ref["noise_free_x_T"], timesteps=ddpm_steps,
+                                      temperature=0.0, mesh=mesh))
+
+    def guided():
+        captures = ld.graphs.captures
+        with chain_probe(ld, device) as probe:
+            ens = predictor.predict_ensemble(
+                context, members, ddim_steps=ddim_steps, use_alignment=True,
+                avg_x_gt=avg, generator=torch.Generator(device).manual_seed(SEED + 1))
+        save("mesh_guided", ens)
+        routes = [k[-1][-1] for k in ld.graphs._entries if k[-1] is not None]
+        new = ld.graphs.captures - captures
+        eager = device.type != "cuda" or (routes and routes[-1] == "eager" and new == 0)
+        return {"ranks": mesh.size, "backend": mesh.backend, "steps": ddim_steps,
+                "avg_x_gt_shape": [members, 1], "route": routes[-1] if routes else None,
+                "captures": new, "ms_per_step": 1e3 * probe.loops[-1] / ddim_steps,
+                "capture_s": probe.capture_s[-1],
+                "failed": [] if eager
+                else [f"guided steps on gloo not eager (routes {routes}, captures {new})"]}
+
+    phase("mesh_guided", guided, lambda line: chain_launches(per, guided_steps=ddim_steps))
+    # outside the counts: the guidance on this rank's rows of fixed inputs, the energy summed
+    # over the ranks and, the control, this rank's alone
+    z_r = ref["noise_free_x_T"][rows].to(device)
+    t_r = torch.full((z_r.shape[0],), ddpm_steps - 1, device=device)
+    avg_r = avg.expand(members, 1)[rows].to(device)
+    for kind, m in (("summed", mesh), ("alone", None)):
+        save(f"energy_{kind}", ld.alignment.alignment_energy(z_r, t_r, avg_r, mesh=m).reshape(1))
+        save(f"shift_{kind}", ld.alignment.get_mean_shift(z_r, t_r, avg_r, mesh=m))
+    if plan["diagnose"]:   # the chain's control: the guided chain, each rank's energy alone
+        reduce = knowledge_alignment.all_reduce_sum
+        knowledge_alignment.all_reduce_sum = lambda t, mesh: t.clone()
+        try:
+            save("mesh_guided_no_reduce", predictor.predict_ensemble(
+                context, members, ddim_steps=ddim_steps, use_alignment=True, avg_x_gt=avg,
+                generator=torch.Generator(device).manual_seed(SEED + 1)))
+        finally:
+            knowledge_alignment.all_reduce_sum = reduce
+
+    def evaluation():
+        save_dir = os.path.join(root, "eval")
+        argv = ["--save", save_dir, "--cfg", os.path.join(root, "cfg.yaml"), "--test",
+                "--multihost", "--num-samples", str(eval_members),
+                "--ddim-steps", str(eval_ddim_steps)]
+        route = cli_route()["route"]
+        if route == "main":
+            argv.append("--synthetic")
+        else:   # no h5py / pandas: this rank's windows in memory, in place of its shard
+            tp.data_module = lambda cfg, args, save_dir: WindowModule(
+                cfg.optim.micro_batch_size, cfg.dataset.seq_len, cfg.layout.img_height, 0,
+                seed=SEED + 100 * (rank + 1))
+        before, prefixes = [], []
+        reduce, compute = ForecastEvalSuite.cross_process_reduce, ForecastEvalSuite.compute
+
+        def kept_reduce(suite):
+            before.append(suite.state_tree())
+            return reduce(suite)
+
+        def kept_compute(suite, prefix):
+            prefixes.append(prefix)
+            return compute(suite, prefix)
+
+        ForecastEvalSuite.cross_process_reduce = kept_reduce
+        ForecastEvalSuite.compute = kept_compute
+        try:
+            rc = tp.main(argv)
+        finally:
+            ForecastEvalSuite.cross_process_reduce, ForecastEvalSuite.compute = reduce, compute
+        for i, tree in enumerate(before):
+            np.savez(os.path.join(root, f"eval_before{rank}_{i}.npz"), **tree)
+        dist.barrier()
+        mine = [n for n in os.listdir(os.path.join(save_dir, "npy"))
+                if n.endswith(f"_rank{rank}_sample0.npy")]
+        line = {"route": route, "ranks": mesh.size, "members": eval_members,
+                "ddim_steps": eval_ddim_steps, "rc": rc, "batches": len(mine), "failed": []}
+        if rank == 0:
+            with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+                records = [json.loads(x) for x in f]
+            merged = {}
+            for i, prefix in enumerate(prefixes):
+                suites = []
+                for r in range(mesh.size):
+                    suite = tp.make_suite(cfg, FrechetVideoDistance(
+                        feature_fn=lambda v: v, auto_t=True, reset_real_features=False))
+                    suite.load_state_tree(dict(np.load(
+                        os.path.join(root, f"eval_before{r}_{i}.npz"))))
+                    suites.append(suite)
+                for other in suites[1:]:
+                    suites[0].merge(other)
+                merged.update(suites[0].compute(prefix))
+            got = {k: v for k, v in records[0].items() if k not in ("step", "time")}
+            npy = sorted(os.listdir(os.path.join(save_dir, "npy")))
+            differ = sorted(k for k in merged if got.get(k) != merged[k])
+            line.update(metrics_records=len(records), keys=len(got),
+                        bit_equal_to_merge=not differ and set(got) == set(merged),
+                        test_csi_avg_epoch=got.get("test_csi_avg_epoch"),
+                        test_fvd_epoch=got.get("test_fvd_epoch"), npy=npy)
+            if rc != 0 or len(records) != 1 or differ or set(got) != set(merged):
+                line["failed"].append(f"metrics not the merge: records {len(records)}, "
+                                      f"differ {differ}")
+            if not all(any(f"_rank{r}_" in n for n in npy) for r in range(mesh.size)):
+                line["failed"].append(f"dumps not named by both ranks: {npy}")
+        return line
+
+    phase("mesh_eval", evaluation, lambda line: chain_launches(
+        per, *(2 * [eval_ddim_steps * line["batches"]])))
+    dist.barrier()
+    dist.destroy_process_group()
+
+    if rank == 0:   # a new group of one rank on NCCL: the captured all-reduce
+        init_distributed(coordinator_address=f"localhost:{plan['port2']}", num_processes=1,
+                         process_id=0, backend=plan["nccl_backend"], device=device,
+                         timeout=120.0)
+        predictor.mesh = make_mesh()
+        calls = {"all": 0, "captured": 0}
+        all_reduce = dist.all_reduce
+
+        def counted(*args, **kwargs):
+            calls["all"] += 1
+            calls["captured"] += int(device.type == "cuda"
+                                     and torch.cuda.is_current_stream_capturing())
+            return all_reduce(*args, **kwargs)
+
+        kw = dict(num_samples=nccl_members, ddim_steps=ddim_steps, use_alignment=True,
+                  avg_x_gt=avg)
+
+        def forecast():
+            return predictor.predict_ensemble(
+                context, generator=torch.Generator(device).manual_seed(SEED + 2), **kw)
+
+        def nccl():
+            dist.all_reduce = counted
+            try:
+                captures = ld.graphs.captures
+                with chain_probe(ld, device) as probe:
+                    graphs = forecast()
+                new = ld.graphs.captures - captures
+            finally:
+                dist.all_reduce = all_reduce
+            with ld._plain_chain():
+                eager = forecast()
+            predictor.mesh = None
+            unsharded = forecast()
+            ok = torch.equal(graphs, eager) and torch.equal(graphs, unsharded)
+            captured_ok = device.type != "cuda" or (calls["captured"] >= 1 and new >= 1)
+            return {"ranks": 1, "backend": plan["nccl_backend"], "steps": ddim_steps,
+                    "members": nccl_members, "captures": new,
+                    "all_reduce_calls": calls["all"],
+                    "all_reduce_captured": calls["captured"],
+                    "bit_equal_eager_and_unsharded": ok,
+                    "ms_per_step": 1e3 * probe.loops[-1] / ddim_steps,
+                    "capture_s": probe.capture_s[-1],
+                    "note": "the only captured NCCL collective one card can check: a group of "
+                            "one rank, whose all-reduce is the identity",
+                    "failed": ([] if ok else ["graphs, eager and unsharded differ"])
+                    + ([] if captured_ok else ["no all-reduce inside a captured step"])}
+
+        phase("mesh_nccl_graph", nccl,
+              lambda line: chain_launches(per, guided_steps=3 * ddim_steps))
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def mesh_alone(device, smi):
+    """``--only mesh``: the randomized full-width models as ``run`` makes
+    them, then the ``mesh_*`` phases."""
+    import torch
+    from prediff_torch.config import prediff_default_config
+    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
+    from prediff_torch.models.init import init_params_
+
+    cfg = prediff_default_config()
+    gen = torch.Generator().manual_seed(SEED)
+    models = {key: init_params_(build(cfg), gen, randomize=True)
+              for key, build in (("unet", build_unet), ("vae", build_vae),
+                                 ("align", build_alignment_model))}
+    weights = {key: m.state_dict() for key, m in models.items()}
+    mesh_phases(device, smi, cfg, weights, path_launches(models["unet"], models["align"]),
+                diagnose=True)
 
 
 if __name__ == "__main__":

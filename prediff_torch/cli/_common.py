@@ -1,6 +1,7 @@
-"""Pieces the programs share: the device flag, the experiment directory, the
-refusal of several hosts, the synthetic dataset, eval mode for sampling and
-host batches as tensors."""
+"""Pieces the programs share: the device flag, the experiment directory,
+several processes (``--multihost`` / ``--coordinator``: the evaluation joins
+its cluster, training refuses it), the synthetic dataset, eval mode for
+sampling and host batches as tensors."""
 import argparse
 import contextlib
 import os
@@ -9,7 +10,9 @@ from typing import Iterator, Optional
 import torch
 from torch import nn
 
-MULTI_GPU = "ROADMAP.md queue 1, multi-GPU: the mesh, sharded ensembles and DDP training"
+from ..parallel.mesh import barrier, init_distributed, make_mesh, process_count, process_index
+from ..training.diffusion_trainer import DDP_SLICE
+from ..utils.device import resolve_device
 
 
 def add_device(p: argparse.ArgumentParser) -> None:
@@ -23,12 +26,25 @@ def experiment_dir(save: str) -> str:
 
 
 def refuse_multihost(args: argparse.Namespace) -> None:
-    """Several hosts or processes are not ported: raise for ``--multihost``,
-    ``--coordinator`` or ``--nodes`` above 1."""
+    """Training on several processes (DDP) is not ported: raise for
+    ``--multihost``, ``--coordinator`` or ``--nodes`` above 1."""
     if (getattr(args, "multihost", False) or getattr(args, "coordinator", None)
             or getattr(args, "nodes", 1) > 1):
-        raise NotImplementedError(f"--multihost / --coordinator / --nodes > 1: more than one "
-                                  f"process is not ported ({MULTI_GPU})")
+        raise NotImplementedError(f"--multihost / --coordinator / --nodes > 1: training on "
+                                  f"more than one process is not ported ({DDP_SLICE})")
+
+
+def join_processes(args: argparse.Namespace) -> torch.device:
+    """The JAX scripts' ``--multihost`` / ``--coordinator host:port``: join
+    the cluster that ``torchrun``'s environment or the coordinator names
+    (``parallel.init_distributed``; one process when none is named).  The
+    device: ``--device``, else the rank's card; cuDNN's deterministic
+    algorithms are set on every rank before anything runs."""
+    if args.multihost or args.coordinator:
+        init_distributed(coordinator_address=args.coordinator, device=args.device)
+    if args.device is None and process_count() > 1:
+        return resolve_device(make_mesh().device)
+    return resolve_device(args.device)
 
 
 def sevir_dir_of(args: argparse.Namespace, synthetic_root: str, cfg, num_events: int
@@ -38,11 +54,13 @@ def sevir_dir_of(args: argparse.Namespace, synthetic_root: str, cfg, num_events:
     frame size."""
     if not args.synthetic:
         return args.sevir_dir
-    if not os.path.exists(synthetic_root):
+    if not os.path.exists(synthetic_root) and process_index() == 0:   # one writer
         from ..datasets import make_synthetic_sevir_lr
 
         make_synthetic_sevir_lr(synthetic_root, num_events=num_events, H=cfg.layout.img_height,
                                 W=cfg.layout.img_width, T=25)
+    if process_count() > 1:
+        barrier(make_mesh())
     return synthetic_root
 
 

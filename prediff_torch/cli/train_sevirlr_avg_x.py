@@ -33,7 +33,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--latents", default=None, type=str,
                    help="train from a pre-encoded VAE latent cache (precompute_latents)")
     p.add_argument("--max-steps", default=None, type=int)
-    p.add_argument("--multihost", action="store_true", help="several hosts (not ported: raises)")
+    p.add_argument("--multihost", action="store_true",
+                   help="training on several processes (not ported: raises)")
     p.add_argument("--coordinator", default=None, type=str)
     add_device(p)
     return p.parse_args(argv)

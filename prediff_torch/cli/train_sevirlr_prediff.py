@@ -9,12 +9,18 @@ forecasts of the example windows scored by the aligned and unaligned suites,
 ``valid_loss_epoch = -valid_csi_avg_epoch`` the checkpoint monitor.
 ``--test``: ensemble forecasts of the test windows scored by the suites
 (skill scores, MSE / MAE / SSIM, CRPS, FVD), ``.npy`` dumps and an example
-PNG.  Counterpart of ``scripts/train_sevirlr_prediff.py``; its draws come
-from ``step_generator(cfg.optim.seed, n)`` with the JAX script's numbers ``n``.
+PNG; with ``--multihost`` on several ranks (``torchrun``) each rank scores its
+shard of the test events, the suites are summed across the ranks
+(``cross_process_reduce``) and rank 0 logs them.  Training on several ranks
+is not ported (DDP: the next slice).  Counterpart of
+``scripts/train_sevirlr_prediff.py``; its draws come from
+``step_generator(cfg.optim.seed, n)`` with the JAX script's numbers ``n``.
 
     python -m prediff_torch.cli.train_sevirlr_prediff --save exp0 --cfg configs/prediff_sevirlr_v1.yaml
     python -m prediff_torch.cli.train_sevirlr_prediff --save exp0 --test --pretrained-dir /path/to/pt
     python -m prediff_torch.cli.train_sevirlr_prediff --save smoke --synthetic --max-steps 10 --device cpu
+    torchrun --nproc_per_node=8 -m prediff_torch.cli.train_sevirlr_prediff --save exp0 --test \
+        --multihost --pretrained-dir /path/to/pt
 """
 import argparse
 import os
@@ -30,15 +36,15 @@ from ..diffusion.latent_diffusion import LatentDiffusion
 from ..evaluation import (ForecastEvalSuite, FrechetVideoDistance, InceptionI3d, i3d_feature_fn,
                           seeded_i3d)
 from ..factory import build_alignment_model, build_pipeline, build_unet, build_vae
+from ..parallel.mesh import process_count, process_index
 from ..training import DiffusionTrainer, MetricLogger, fit
 from ..training.diffusion_trainer import step_generator
 from ..training.train_state import EmaTrainState
 from ..utils.checkpoint import (PRETRAINED_NAMES, load_torch_state_dict, restore_checkpoint,
                                 save_checkpoint)
-from ..utils.device import resolve_device
 from ..utils.layout import layout_to_in_out_slice
-from ._common import (add_device, as_tensor, eval_mode, experiment_dir, refuse_multihost,
-                      sevir_dir_of)
+from ._common import (add_device, as_tensor, eval_mode, experiment_dir, join_processes,
+                      refuse_multihost, sevir_dir_of)
 
 # the JAX script's draw numbers (the data it folds into its key)
 VAL_SAMPLE = 7919        # validation n, batch b: 7919 * n + b
@@ -68,14 +74,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--timesteps", default=None, type=int,
                    help="truncate the DDPM chain during eval")
     p.add_argument("--multihost", action="store_true",
-                   help="several hosts (not ported: raises)")
+                   help="join the processes torchrun (or --coordinator) names; --test only "
+                        "(training on several processes is not ported: raises)")
     p.add_argument("--coordinator", default=None, type=str,
-                   help="coordinator address for --multihost (not ported: raises)")
+                   help="coordinator address for --multihost (host:port)")
     add_device(p)
     return p.parse_args(argv)
 
 
 def data_module(cfg, args: argparse.Namespace, save_dir: str) -> SEVIRDataModule:
+    """The SEVIR-LR data module; on several ranks each reads its shard of the
+    events (``num_shard`` / ``rank``), as the JAX script's."""
     d = cfg.dataset
     dm = SEVIRDataModule(
         seq_len=d.seq_len, stride=d.stride, layout=d.layout, aug_mode=d.aug_mode,
@@ -83,7 +92,7 @@ def data_module(cfg, args: argparse.Namespace, save_dir: str) -> SEVIRDataModule
         sevir_dir=sevir_dir_of(args, os.path.join(save_dir, "synthetic_sevirlr"), cfg, 16),
         start_date=d.start_date, train_test_split_date=d.train_test_split_date,
         end_date=d.end_date, val_ratio=d.val_ratio, batch_size=cfg.optim.micro_batch_size,
-        seed=cfg.optim.seed)
+        seed=cfg.optim.seed, num_shard=process_count(), rank=process_index())
     dm.setup()
     return dm
 
@@ -283,12 +292,34 @@ def build_fvd_feature_fn(cfg, pretrained_dir: Optional[str]) -> Tuple[Callable, 
 
 def run_eval(args: argparse.Namespace, cfg, ld: LatentDiffusion, dm, save_dir: str
              ) -> Dict[str, float]:
-    """Score ensemble forecasts of ``dm.test_batches()``: each batch, each
-    suite (aligned: steered by 2x the target's mean) draws
-    ``step_generator(seed, batch)``; ``npy/batch{b}_rank0_sample{i}[_aligned].npy``
-    and ``test_example_{idx}.png`` under ``save_dir``; the ``test_*``
-    metrics logged, printed and returned."""
+    """The ``test_*`` metrics of :func:`score_test_set`'s suites, summed
+    across the ranks (``cross_process_reduce``) and returned on each; rank 0
+    alone logs and prints them."""
+    suites = score_test_set(args, cfg, ld, dm, save_dir)
+    results = {}
+    for name, suite in suites.items():
+        suite.cross_process_reduce()
+        results.update(suite.compute("test" if name == "unaligned" else "test_aligned"))
+    if process_index() == 0:
+        MetricLogger(save_dir).log(0, results)
+        for k in sorted(results):
+            print(f"{k}: {results[k]:.4f}")
+    return results
+
+
+def score_test_set(args: argparse.Namespace, cfg, ld: LatentDiffusion, dm, save_dir: str
+                   ) -> Dict[str, ForecastEvalSuite]:
+    """Score ensemble forecasts of ``dm.test_batches()`` by the suites, by
+    name (``aligned``: steered by 2x the target's mean; ``unaligned``): each
+    batch, each suite draws ``step_generator(seed, batch)``;
+    ``npy/batch{b}_rank{r}_sample{i}[_aligned].npy`` and
+    ``test_example_{idx}.png`` under ``save_dir``.  On several ranks ``dm``
+    is this rank's shard and ``batch`` its own count, as the JAX script folds
+    its local batch index into the key; each rank samples its batches
+    without a mesh and writes its own dumps, and rank 0 alone draws the
+    examples."""
     device = ld.device
+    rank = process_index()
     seed = cfg.optim.seed
     use_align = uses_alignment(cfg) and cfg.eval.eval_aligned
     sampler = {}
@@ -327,24 +358,17 @@ def run_eval(args: argparse.Namespace, cfg, ld: LatentDiffusion, dm, save_dir: s
             if cfg.logging.save_npy:
                 suffix = "_aligned" if name == "aligned" else ""
                 for i, p in enumerate(preds):
-                    np.save(os.path.join(npy_dir, f"batch{bidx}_rank0_sample{i}{suffix}.npy"),
-                            p.cpu().numpy())
+                    fname = f"batch{bidx}_rank{rank}_sample{i}{suffix}.npy"
+                    np.save(os.path.join(npy_dir, fname), p.cpu().numpy())
             vis_preds.append(preds[0])
             vis_labels.append(f"{name}_pred")
-        if vis_preds:
+        if vis_preds and rank == 0:
             try:
                 save_example_vis(save_dir, cfg, y, x, vis_preds, vis_labels,
                                  f"test_example_{data_idx}")
             except Exception as e:   # an example panel never stops the evaluation
                 print(f"vis failed: {e}")
-    results = {}
-    for name, suite in suites.items():
-        suite.cross_process_reduce()
-        results.update(suite.compute("test" if name == "unaligned" else "test_aligned"))
-    MetricLogger(save_dir).log(0, results)
-    for k in sorted(results):
-        print(f"{k}: {results[k]:.4f}")
-    return results
+    return suites
 
 
 def save_example_vis(save_dir: str, cfg, y, x, preds, labels, tag: str) -> None:
@@ -360,12 +384,14 @@ def save_example_vis(save_dir: str, cfg, y, x, preds, labels, tag: str) -> None:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    refuse_multihost(args)
-    device = resolve_device(args.device)
+    if not args.test:
+        refuse_multihost(args)
+    device = join_processes(args)
     cfg = load_config(prediff_default_config, args.cfg)
     save_dir = experiment_dir(args.save)
     os.makedirs(save_dir, exist_ok=True)
-    save_yaml(cfg, os.path.join(save_dir, "cfg.yaml"))
+    if process_index() == 0:
+        save_yaml(cfg, os.path.join(save_dir, "cfg.yaml"))
     dm = data_module(cfg, args, save_dir)
     ld = build_models(cfg, args, device)
     if args.test:

@@ -31,7 +31,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--sevir-dir", default=None, type=str)
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--max-steps", default=None, type=int)
-    p.add_argument("--multihost", action="store_true", help="several hosts (not ported: raises)")
+    p.add_argument("--multihost", action="store_true",
+                   help="training on several processes (not ported: raises)")
     p.add_argument("--coordinator", default=None, type=str)
     add_device(p)
     return p.parse_args(argv)

@@ -4,7 +4,9 @@ up to ``size`` batches in flight, so HDF5 reads and augmentation on the host
 overlap the steps on the card.
 
 Counterpart of ``prediff_tpu/datasets/prefetch.py``.  Its ``sharding``
-argument waits for the multi-GPU slice (ROADMAP.md queue 1).
+takes a ``parallel.DataMesh``: each batch's rows of this rank
+(``local_batch_slice``) go to the rank's device, where JAX puts the batch
+across the mesh.
 """
 import queue
 import threading
@@ -13,6 +15,7 @@ from typing import Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import DataMesh, local_batch_slice
 from ..utils.device import resolve_device
 
 
@@ -38,11 +41,15 @@ def pinned(t: torch.Tensor) -> torch.Tensor:
 
 
 def prefetch_to_device(iterator: Iterable, size: int = 2, device=None,
-                       transform: Optional[Callable] = None) -> Iterator:
+                       transform: Optional[Callable] = None,
+                       sharding: Optional[DataMesh] = None) -> Iterator:
     """Yield the batches of ``iterator`` (numpy arrays or tensors, or tuples,
-    lists and dicts of them) as tensors on ``device`` (``None``: the card),
-    keeping up to ``size`` in flight.  ``transform`` runs on the host in the
-    producer thread (augmentation, layout slicing).
+    lists and dicts of them) as tensors on ``device`` (``None``: the card,
+    or the mesh's device with ``sharding``), keeping up to ``size`` in
+    flight.  ``transform`` runs on the host in the producer thread
+    (augmentation, layout slicing).  With ``sharding`` (a ``DataMesh``) each
+    leaf keeps this rank's rows of its leading axis, cut on the host before
+    the copy.
 
     On the card each leaf goes through pinned memory to the device by a
     non-blocking copy on a side stream; the consumer's stream waits on an
@@ -52,7 +59,7 @@ def prefetch_to_device(iterator: Iterable, size: int = 2, device=None,
     plain tensors.  An error in the producer is raised again in the
     consumer; the producer stops when the generator is closed or collected.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(sharding.device if device is None and sharding is not None else device)
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     q: "queue.Queue" = queue.Queue(maxsize=size)
     sentinel = object()
@@ -71,8 +78,13 @@ def prefetch_to_device(iterator: Iterable, size: int = 2, device=None,
                 continue
         return False
 
+    def rows(t):
+        return t[local_batch_slice(t.shape[0], sharding.size, sharding.index)]
+
     def stage(item):
         item = _map(_tensor, item)
+        if sharding is not None:
+            item = _map(rows, item)
         if side is None:
             return item, None
         with torch.cuda.stream(side):

@@ -523,7 +523,12 @@ class SEVIRDataset(torch.utils.data.Dataset):
     def __getitem__(self, index: int) -> np.ndarray:
         from .augmentation import augment_seq
 
-        data_dict = self.loader._idx_sample(index=index)
+        # this shard's windows start at its first event's, as the loader's
+        # own iteration counts them (the JAX package's dataset starts every
+        # shard at the first event: each rank would read the same windows)
+        loader = self.loader
+        first = loader.start_event_idx * loader.num_seq_per_event // loader.batch_size
+        data_dict = loader._idx_sample(index=index + first)
         data = data_dict["vil"].squeeze(0)  # layout without N
         if self.aug_mode != "0":
             data = augment_seq(data, self.loader.layout.replace("N", ""),

@@ -49,7 +49,10 @@ class StepBuffers:
     """What a reverse step reads and writes.  ``z`` takes the step's result
     in place; ``t`` (B,) int64 holds the DDPM t or the DDIM index; ``noise``
     the step's noise and ``noise2`` the mask's (None where the chain draws
-    none); the rest stay fixed through a chain."""
+    none); the rest stay fixed through a chain.  On a mesh the buffers hold
+    this rank's rows, and ``noise`` / ``noise2`` are views of this rank's
+    rows of ``noise_all`` / ``noise2_all``, the whole batch's draws, which the
+    host fills; without one ``noise_all`` is ``noise`` itself."""
     z: torch.Tensor
     t: torch.Tensor
     noise: Optional[torch.Tensor]
@@ -59,6 +62,8 @@ class StepBuffers:
     avg_x_gt: Optional[torch.Tensor]
     mask: Optional[torch.Tensor]
     x0: Optional[torch.Tensor]
+    noise_all: Optional[torch.Tensor] = None
+    noise2_all: Optional[torch.Tensor] = None
 
 
 COUNTERS = ("launches", "bf16_launches")

@@ -17,12 +17,22 @@ promotes (``utils.precision.Promoted``): a bf16 net on an f32 z_t runs in f32
 on a copy of its bf16 parameters in f32.  In bf16 the net's kernels run their
 bf16 forms.  The scalar tail stays f32 in every case: grad(sq) in the dtype
 of the z it was taken for, divided by the f32 sqrt in f32.
+
+With a ``mesh`` (``parallel.DataMesh``: each rank holds its rows of the
+batch) the squared error is summed over the ranks before the sqrt, since the
+energy couples the whole batch: E = sqrt(sum over ranks of sq_local + 1e-24)
+and dE/dz_local = grad(sq_local) / (2 E).  The all-reduce is of the detached
+f32 ``sq_local``: autograd never goes through the collective (the JAX package
+measured the gradient 8x too large on 8 devices when it did,
+``prediff_tpu/diffusion/knowledge_alignment.py:76-85``).  Without a mesh
+nothing changes, bit for bit.
 """
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
+from ..parallel.mesh import DataMesh, all_reduce_sum
 from ..utils.precision import Promoted, dtype_name, param_dtype, resolve_dtype
 
 
@@ -81,27 +91,40 @@ class KnowledgeAlignment:
         pred = self.predict(zt, t, zc=zc, y=y, net=net).float().mean(dim=1)   # (B, 1)
         return (pred - avg_x_gt.float()).square().sum()
 
-    def alignment_energy(self, zt, t, avg_x_gt, zc=None, y=None) -> torch.Tensor:
-        return torch.sqrt(self._sq_error(zt, t, avg_x_gt, zc=zc, y=y) + 1e-24)
+    def alignment_energy(self, zt, t, avg_x_gt, zc=None, y=None,
+                         mesh: Optional[DataMesh] = None) -> torch.Tensor:
+        """The energy; with ``mesh`` the whole batch's, z_t being this rank's
+        rows (the squared error all-reduced before the sqrt), a value that
+        autograd does not go through (``get_mean_shift`` gives its
+        gradient)."""
+        sq = self._sq_error(zt, t, avg_x_gt, zc=zc, y=y)
+        if mesh is not None:
+            sq = all_reduce_sum(sq.detach().float(), mesh)
+        return torch.sqrt(sq + 1e-24)
 
-    def get_mean_shift(self, zt, t, avg_x_gt, zc=None, y=None) -> torch.Tensor:
+    def get_mean_shift(self, zt, t, avg_x_gt, zc=None, y=None,
+                       mesh: Optional[DataMesh] = None) -> torch.Tensor:
         """guide_scale * d(energy)/d(z_t), taken by autograd whatever the
         caller's grad mode: in z_t's dtype where the guidance dtype differs
         from it, else in the promotion of z_t's dtype and f32, as the JAX
-        package returns it."""
+        package returns it.  With ``mesh`` z_t is this rank's rows and the
+        energy the whole batch's (the module's note)."""
         if self.dtype != zt.dtype:
             zc = None if zc is None else zc.to(self.dtype)
-            shift = self._shift(zt.to(self.dtype), t, avg_x_gt, zc, y, self._cast_net())
+            shift = self._shift(zt.to(self.dtype), t, avg_x_gt, zc, y, self._cast_net(), mesh)
             return self.guide_scale * shift.to(zt.dtype)
-        return self.guide_scale * self._shift(zt, t, avg_x_gt, zc, y, self.model)
+        return self.guide_scale * self._shift(zt, t, avg_x_gt, zc, y, self.model, mesh)
 
-    def _shift(self, zt, t, avg_x_gt, zc, y, net) -> torch.Tensor:
+    def _shift(self, zt, t, avg_x_gt, zc, y, net, mesh=None) -> torch.Tensor:
         with torch.enable_grad():
             z = zt.detach().requires_grad_(True)
             sq = self._sq_error(z, t, avg_x_gt, zc=zc, y=y, net=net)
             (grad_sq,) = torch.autograd.grad(sq, z)
+        sq = sq.detach()
+        if mesh is not None:   # the batch's energy: every rank's sum, no autograd through it
+            sq = all_reduce_sum(sq, mesh)
         # a 0-d f32 tensor does not promote a bf16 one in torch; in JAX it does
-        return grad_sq.float() / (2.0 * torch.sqrt(sq.detach() + 1e-24))
+        return grad_sq.float() / (2.0 * torch.sqrt(sq + 1e-24))
 
 
 def get_alignment_kwargs_avg_x(target_seq: torch.Tensor,

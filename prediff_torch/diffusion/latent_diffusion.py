@@ -36,6 +36,30 @@ bf16 parameters is their promotion) and the moments come back f32; the
 decode runs in ``promote(latent dtype, VAE parameter dtype)`` and returns
 that dtype.
 
+Several ranks (``mesh``, a ``parallel.DataMesh``; the JAX package's
+``shard_map`` chain, ``prediff_tpu/diffusion/latent_diffusion.py:392-552``):
+every rank is called with the whole batch and runs its rows of it through
+the encode, the steps and the decode, and the decoded output (and the
+intermediates) are all-gathered, so every rank returns the whole batch, the
+same bits on each.  Every draw is the whole batch's, of which a rank keeps its
+rows: x_T, each step's noise and the mask's noise, from a generator whose
+state every rank first takes from the mesh's first rank (a broadcast), so a
+sharded chain draws what one process draws.  Guidance sums the energy over
+the ranks (``knowledge_alignment.py``).  ``avg_x_gt``, ``mask`` and ``x0``
+with the batch's leading axis are cut to the rank's rows; a leading axis of 1
+broadcasts.  A batch the mesh does not divide runs unsharded on every rank
+(JAX's rule), each computing and returning the whole batch, from the first
+rank's generator state too.  A mesh of one rank runs the sharded chain,
+whose rows are the whole batch and whose collectives are the identity: the
+unsharded bits.  The mesh (its size, this
+rank's shard, its backend) and the guided steps' route are in the graph key:
+unguided steps replay graphs on any backend (their only collective, the
+gather, follows the chain); a guided step all-reduces inside the step, which
+a graph captures on NCCL (the generator's broadcast before the chain makes
+the communicator first) and which gloo cannot capture, so on a gloo mesh the
+guided steps run eagerly, on the same kernels (route ``"eager"``).  A
+capture that fails raises.
+
 Training: the frozen VAE encodes the target (posterior sample) and the
 context (mode) under ``no_grad``, t and the noise are drawn from the caller's
 generator, and :meth:`LatentDiffusion.p_losses` weighs the denoiser's error
@@ -53,6 +77,7 @@ import torch
 from torch import nn
 
 from ..models.vae import FirstStageEncoder
+from ..parallel.mesh import DataMesh, gather_batch, local_batch_slice, sync_generator
 from ..utils.device import resolve_device
 from ..utils.distributions import latents_from_moments_seq
 from ..utils.precision import LowCopy, Promoted, dtype_name, param_dtype, resolve_dtype
@@ -69,7 +94,8 @@ class ChainPlan:
     whether it is guided and whether it draws its noise; the segments'
     lengths; whether a step adds noise at all; the DDIM schedule as device
     tensors (``ts``, ``sqrt_a``, ``sqrt_1ma``, ``sqrt_a_prev``, ``dir_coef``,
-    ``sigma``, computed in f32 on the host)."""
+    ``sigma``, computed in f32 on the host); the mesh the guidance energy is
+    summed over, and whether guided steps run eagerly (a gloo mesh)."""
     sampler: str
     values: np.ndarray
     guided: np.ndarray
@@ -82,6 +108,8 @@ class ChainPlan:
     use_mask: bool
     clip_x0: bool
     ddim: Optional[Dict[str, torch.Tensor]]
+    mesh: Optional[DataMesh] = None
+    eager_guided: bool = False
 
 
 class LatentDiffusion:
@@ -283,7 +311,8 @@ class LatentDiffusion:
 
     def _chain_plan(self, sampler: str, total_T: int, ddim_steps: Optional[int], ddim_eta: float,
                     ddim_clip_x0: bool, temperature: float, use_alignment: bool,
-                    guidance_every_k: int, use_mask: bool, num_segments: int) -> ChainPlan:
+                    guidance_every_k: int, use_mask: bool, num_segments: int,
+                    mesh: Optional[DataMesh] = None) -> ChainPlan:
         if sampler == "ddpm":
             values = np.arange(total_T - 1, -1, -1)
             draws = (values > 0) & (temperature != 0.0)
@@ -311,23 +340,35 @@ class LatentDiffusion:
                          segments=[len(s) for s in np.array_split(values, num_segments)],
                          temperature=float(temperature), noisy=noisy, guidance_every_k=k,
                          use_alignment=bool(use_alignment), use_mask=use_mask,
-                         clip_x0=bool(ddim_clip_x0), ddim=ddim)
+                         clip_x0=bool(ddim_clip_x0), ddim=ddim, mesh=mesh,
+                         eager_guided=self._eager_guided(mesh))
 
     @staticmethod
-    def _buffers(plan: ChainPlan, z, zc, y, avg_x_gt, mask, x0) -> StepBuffers:
+    def _buffers(plan: ChainPlan, z, zc, y, avg_x_gt, mask, x0, rows: Optional[slice] = None,
+                 batch: Optional[int] = None) -> StepBuffers:
         """New buffers holding copies of a chain's inputs; the mask and x0
         broadcast to the latent's shape.  z, zc and the step noise in the
-        chain's dtype, the mask's noise in f32."""
+        chain's dtype, the mask's noise in f32.  On a mesh the inputs are
+        the rank's ``rows`` of ``batch``, and the noise buffers views of
+        those rows of the whole batch's draws."""
         def copy(t):
             return None if t is None else t.clone()
 
+        def drawn(dtype):
+            if rows is None:
+                buf = torch.zeros_like(z, dtype=dtype)
+                return buf, buf
+            whole = torch.zeros((batch,) + tuple(z.shape[1:]), dtype=dtype, device=z.device)
+            return whole[rows], whole
+
+        noise, noise_all = drawn(z.dtype) if plan.noisy else (None, None)
+        noise2, noise2_all = drawn(torch.float32) if plan.use_mask else (None, None)
         return StepBuffers(
             z=z.clone(), t=torch.zeros((z.shape[0],), dtype=torch.long, device=z.device),
-            noise=torch.zeros_like(z) if plan.noisy else None,
-            noise2=torch.zeros_like(z, dtype=torch.float32) if plan.use_mask else None,
-            zc=zc.clone(), y=copy(y), avg_x_gt=copy(avg_x_gt),
+            noise=noise, noise2=noise2, zc=zc.clone(), y=copy(y), avg_x_gt=copy(avg_x_gt),
             mask=None if mask is None else torch.broadcast_to(mask, z.shape).clone(),
-            x0=None if x0 is None else torch.broadcast_to(x0, z.shape).clone())
+            x0=None if x0 is None else torch.broadcast_to(x0, z.shape).clone(),
+            noise_all=noise_all, noise2_all=noise2_all)
 
     @staticmethod
     def _load(bufs: StepBuffers, z, zc, y, avg_x_gt, mask, x0) -> None:
@@ -342,8 +383,8 @@ class LatentDiffusion:
         ``torch.randn`` of its shape would draw."""
         buf.normal_(generator=generator)
 
-    def _shift(self, z, t_b, zc, y, avg_x_gt) -> torch.Tensor:
-        return self.alignment.get_mean_shift(z, t_b, avg_x_gt, zc=zc, y=y)
+    def _shift(self, z, t_b, zc, y, avg_x_gt, mesh: Optional[DataMesh] = None) -> torch.Tensor:
+        return self.alignment.get_mean_shift(z, t_b, avg_x_gt, zc=zc, y=y, mesh=mesh)
 
     def _ddpm_update(self, s: StepBuffers, plan: ChainPlan, guided: bool) -> torch.Tensor:
         z, t_b = s.z, s.t
@@ -353,7 +394,7 @@ class LatentDiffusion:
             self.schedule, model_out, zf, t_b, parameterization=self.parameterization,
             clip_denoised=self.clip_denoised)
         if guided:
-            shift = self._shift(z, t_b, s.zc, s.y, s.avg_x_gt)
+            shift = self._shift(z, t_b, s.zc, s.y, s.avg_x_gt, plan.mesh)
             k = plan.guidance_every_k
             mean = mean - torch.exp(0.5 * log_var) * (shift if k <= 1 else float(k) * shift)
         if plan.noisy:   # the JAX body's ``nonzero``: no noise at t = 0
@@ -386,7 +427,7 @@ class LatentDiffusion:
         if plan.clip_x0 or self.clip_denoised:
             x0_pred = torch.clamp(x0_pred, -1.0, 1.0)
         if guided:
-            shift = self._shift(carry, t_b, s.zc, s.y, s.avg_x_gt)
+            shift = self._shift(carry, t_b, s.zc, s.y, s.avg_x_gt, plan.mesh)
             eps = eps + sqrt_1ma * (float(max(plan.guidance_every_k, 1)) * shift)
         if plan.use_alignment:   # on every step of a guided chain, as the JAX body does
             x0_pred = (z - sqrt_1ma * eps) / sqrt_a
@@ -404,23 +445,46 @@ class LatentDiffusion:
     def _chain(self, plan: ChainPlan, bufs: StepBuffers, generator,
                entry: Optional[StepGraphs]) -> list:
         """The steps of ``plan``, each by replay of its captured graph in
-        ``entry`` (eagerly without one); the latent at each segment's end."""
+        ``entry`` (eagerly without one, and a guided step of a plan whose
+        guided steps run eagerly); the latent at each segment's end."""
         ends, start = [], 0
         for length in plan.segments:
             for i in range(start, start + length):
                 bufs.t.fill_(int(plan.values[i]))
                 if plan.draws[i]:
-                    self._draw(bufs.noise, generator)
+                    self._draw(bufs.noise_all, generator)
                 if plan.use_mask:
-                    self._draw(bufs.noise2, generator)
+                    self._draw(bufs.noise2_all, generator)
                 guided = bool(plan.guided[i])
-                if entry is None:
+                if entry is None or (guided and plan.eager_guided):
                     self._reverse_step(bufs, plan, guided)
                 else:
                     entry.run(guided, functools.partial(self._reverse_step, bufs, plan, guided))
             start += length
             ends.append(bufs.z.clone())
         return ends
+
+    @staticmethod
+    def _eager_guided(mesh: Optional[DataMesh]) -> bool:
+        """Whether guided steps run eagerly: on a mesh whose all-reduce a
+        CUDA graph cannot capture (gloo; NCCL's can)."""
+        return mesh is not None and mesh.backend != "nccl"
+
+    def _shard(self, mesh: Optional[DataMesh], batch: int,
+               generator: Optional[torch.Generator]) -> Optional[DataMesh]:
+        """The mesh a chain of ``batch`` runs on: None without a process group
+        or when the mesh does not divide the batch (every rank then runs it
+        whole, the JAX package's rule).  On any mesh with a group, sharded or
+        not, ``generator`` first takes the mesh's first rank's state, so every
+        rank draws the same numbers (and on NCCL this first collective makes
+        the communicator before any capture)."""
+        if mesh is None or not mesh.distributed:
+            return None
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh's device {mesh.device} is not the pipeline's {self.device}")
+        mesh.index   # raises on a rank outside the mesh
+        sync_generator(generator, self.device, mesh)
+        return None if batch % mesh.size else mesh
 
     def _route(self) -> str:
         return "conv" if any(getattr(m, "conv_kernel", False) for model in self._graph_modules()
@@ -450,7 +514,8 @@ class LatentDiffusion:
                return_intermediates: bool = False, return_decoded: bool = True,
                temperature: float = 1.0, sampler: str = "ddpm", ddim_steps: Optional[int] = None,
                ddim_eta: float = 0.0, ddim_clip_x0: bool = False, compute_dtype="float32",
-               guidance_every_k: int = 1, generator: Optional[torch.Generator] = None):
+               guidance_every_k: int = 1, generator: Optional[torch.Generator] = None,
+               mesh: Optional[DataMesh] = None):
         """Forecast from context ``y`` (B, T_in, H, W, C): decoded pixels
         (B, T_out, H, W, C), or the latent z without ``return_decoded``; with
         ``return_intermediates`` also the state at the end of each of
@@ -464,7 +529,9 @@ class LatentDiffusion:
         x_T, unless given, and the per-step noise.  ``compute_dtype``
         (``"float32"``, ``"bfloat16"``, ``"float16"`` or the torch dtype) is
         the carry's: see the module's note.  On the card every step replays a
-        captured graph (``graphs.py``)."""
+        captured graph (``graphs.py``).  ``mesh``: every rank of it calls
+        with the whole batch, runs its rows and returns the whole output (the
+        module's note)."""
         dtype = resolve_dtype(compute_dtype, "compute_dtype")
         if (mask is None) != (x0 is None):
             raise ValueError("inpainting needs both mask and x0")
@@ -478,39 +545,52 @@ class LatentDiffusion:
             avg_x_gt = torch.as_tensor(avg_x_gt, dtype=torch.float32, device=self.device)
         y = y.to(self.device, torch.float32)
         B = y.shape[0]
+        mesh = self._shard(mesh, B, generator)
+        rows = None if mesh is None else local_batch_slice(B, mesh.size, mesh.index)
+
+        def mine(t, ndim):
+            """The rank's rows of ``t`` where its leading axis is the batch's."""
+            return t[rows] if rows is not None and t.ndim == ndim and t.shape[0] == B else t
+
         if x_T is None:
             z = torch.randn((B,) + self.latent_shape, generator=generator, device=self.device)
         else:
             z = x_T.to(self.device, torch.float32)
-        z = z.to(dtype)
+        z = mine(z, z.ndim).to(dtype)
+        y = mine(y, y.ndim)
         zc = self.cond_stage_forward(y).to(dtype)
+        if avg_x_gt is not None:
+            avg_x_gt = mine(avg_x_gt, avg_x_gt.ndim)
         use_mask = mask is not None and sampler == "ddpm"   # DDIM ignores the mask
         if use_mask:
-            mask = torch.as_tensor(mask).to(self.device, torch.float32)
-            x0 = torch.as_tensor(x0).to(self.device, torch.float32)
+            mask = mine(torch.as_tensor(mask).to(self.device, torch.float32), z.ndim)
+            x0 = mine(torch.as_tensor(x0).to(self.device, torch.float32), z.ndim)
         else:
             mask = x0 = None
         total_T = timesteps or self.num_timesteps
         num_segments = max(1, total_T // self.log_every_t) if return_intermediates else 1
         static = (sampler, total_T, ddim_steps, ddim_eta, ddim_clip_x0, temperature,
-                  use_alignment, guidance_every_k, use_mask, num_segments)
+                  use_alignment, guidance_every_k, use_mask, num_segments, mesh)
         inputs = (z, zc, y, avg_x_gt, mask, x0)
+        shard = dict(rows=rows, batch=B)
         entry = None
         self._unet.for_input(dtype)   # a promoted copy, up to date before the snapshot
         if use_alignment:   # the copy in the guidance dtype, likewise
             self.alignment.modules(dtype)
         if self.device.type == "cuda" and not self._plain:
             self.graphs.validate()
-            key = (tuple(y.shape), bool(use_alignment), timesteps, bool(return_decoded),
+            key = ((B,) + tuple(y.shape), bool(use_alignment), timesteps, bool(return_decoded),
                    use_mask, num_segments, float(temperature), dtype_name(dtype), sampler,
                    ddim_steps, float(ddim_eta), bool(ddim_clip_x0), int(guidance_every_k),
                    self._route(), self.parameterization, self.clip_denoised,
                    (self.alignment.guide_scale, self.alignment.compute_dtype)
-                   if use_alignment else None, self._param_dtypes(use_alignment))
+                   if use_alignment else None, self._param_dtypes(use_alignment),
+                   None if mesh is None else mesh.key() + (
+                       "eager" if self._eager_guided(mesh) else "graph",))
 
             def make():
                 plan = self._chain_plan(*static)
-                return plan, self._buffers(plan, *inputs)
+                return plan, self._buffers(plan, *inputs, **shard)
 
             entry, new = self.graphs.entry(key, make)
             plan, bufs = entry.plan, entry.buffers
@@ -518,19 +598,24 @@ class LatentDiffusion:
                 self._load(bufs, *inputs)
         else:
             plan = self._chain_plan(*static)
-            bufs = self._buffers(plan, *inputs)
+            bufs = self._buffers(plan, *inputs, **shard)
         ends = self._chain(plan, bufs, generator, entry)
         out, inter = ends[-1], (ends if num_segments > 1 else None)
         if return_decoded:
             out = self.decode_first_stage(out)
             inter = None if inter is None else [self.decode_first_stage(i) for i in inter]
+        if mesh is not None:   # every rank returns the whole batch
+            out = gather_batch(out, mesh)
+            inter = None if inter is None else [gather_batch(i, mesh) for i in inter]
         return (out, inter) if return_intermediates else out
 
     def sample_ensemble(self, y: torch.Tensor, num_samples: int, **kwargs):
         """``num_samples`` forecasts per context, the ensemble folded into the
         batch: (num_samples, B, ...), the intermediates likewise.  ``mask`` and
         ``x0`` pass through as given, as in the JAX package: they broadcast
-        against the folded batch (one row serves every member)."""
+        against the folded batch (one row serves every member).  With
+        ``mesh`` the members shard across its ranks (a context's members are
+        neighbours in the folded batch) and every rank returns them all."""
         B = y.shape[0]
         y_rep = torch.repeat_interleave(y, num_samples, dim=0)
         align = kwargs.pop("alignment_kwargs", None)

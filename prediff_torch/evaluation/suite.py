@@ -13,7 +13,9 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import gather_parts, make_mesh, process_count
 from .fvd import FrechetVideoDistance, FVDState
 from .metrics import MeanMetric, crps_ensemble, mae, mse, ssim
 from .skill_scores import SEVIRSkillScore, SkillScoreState
@@ -111,14 +113,25 @@ class ForecastEvalSuite:
                     num_samples=tensor(tree[f"fvd_{name}_n"])))
 
     def cross_process_reduce(self):
-        """Sum metric state across processes before ``compute()``: nothing to
-        do in one process.  Across ranks of ``torch.distributed`` it is not
-        ported yet and raises."""
-        dist = torch.distributed
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "ForecastEvalSuite.cross_process_reduce over several ranks is not ported "
-                "(ROADMAP.md queue 1, multi-GPU: the mesh, sharded ensembles and DDP training)")
+        """Sum the metric state of every rank of ``torch.distributed`` before
+        ``compute()`` (the reference's torchmetrics ``dist_reduce_fx="sum"``,
+        train_sevirlr_prediff.py:818-819); nothing to do in one process.  As
+        the JAX suite's ``process_allgather``: every leaf of ``state_tree`` is
+        gathered from every rank and summed in rank order in its own dtype, so
+        every rank holds the same state, the ``merge`` of the ranks' suites
+        bit for bit (an all-reduce would sum in an order of NCCL's choosing)."""
+        if process_count() == 1:
+            return self
+        # the state is the host's: a gloo group gathers it there, NCCL on the card
+        mesh = make_mesh(device="cpu" if dist.get_backend() == "gloo" else None)
+        tree = {}
+        for name, leaf in self.state_tree().items():
+            parts = gather_parts(torch.from_numpy(np.array(leaf)), mesh)   # 0-d stays 0-d
+            total = parts[0].numpy()
+            for part in parts[1:]:
+                total = total + part.numpy()
+            tree[name] = total
+        self.load_state_tree(tree)
         return self
 
     def compute(self, prefix: str) -> Dict[str, float]:

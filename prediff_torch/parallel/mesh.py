@@ -1,0 +1,296 @@
+"""Ranks of ``torch.distributed`` as the JAX package's data mesh: one process
+per card, launched by ``torchrun`` or started by :func:`init_distributed`.
+
+Counterpart of ``prediff_tpu/parallel/mesh.py``.  There a 1-D ``data`` mesh
+places the parameters replicated and the batch (ensemble members included)
+sharded, and XLA inserts the collectives.  Here every rank holds the whole
+model and its own rows of the batch, and the collectives are written out:
+:func:`shard_batch` takes this rank's rows, :func:`replicate` broadcasts from
+the mesh's first rank, :func:`gather_batch` all-gathers axis 0 (the
+counterpart of reading a global ``jax.Array`` whole) and :func:`all_reduce_sum`
+sums a tensor over the ranks.
+
+The backend is NCCL on the card and gloo on the CPU.  Gloo takes a CUDA
+tensor only through the host, so the collectives here copy a CUDA tensor to
+the host and back on a gloo group: two ranks that share one card (NCCL
+refuses two ranks on one device) run that way, eagerly.  A gloo collective
+cannot be captured in a CUDA graph; an NCCL one can, once its communicator
+exists (``diffusion/latent_diffusion.py`` runs one before its first capture).
+
+The JAX module's ``replicated_sharding``, ``batch_sharding`` and
+``chunk_sharding`` are XLA placement objects; their uses take the functions
+above.  ``chunk_sharding`` served ``steps_per_call``, a TPU dispatch knob that
+is not carried over.
+"""
+import datetime
+import os
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from ..utils.device import resolve_device
+
+# the device init_distributed gave this process's rank
+_RANK_DEVICE = {}
+
+
+@dataclass(frozen=True)
+class DataMesh:
+    """A 1-D data mesh: the process group (None: the default group), its
+    global ranks in mesh order, this process's global rank and its device.
+    A rank outside ``ranks`` holds the mesh but takes no part in it
+    (``member`` is False), as :func:`make_data_mesh` leaves the ranks past
+    its prefix."""
+    group: Any
+    ranks: Tuple[int, ...]
+    rank: int
+    device: torch.device
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def member(self) -> bool:
+        return self.rank in self.ranks
+
+    @property
+    def index(self) -> int:
+        """This rank's position in the mesh (its shard)."""
+        if not self.member:
+            raise ValueError(f"rank {self.rank} is not in the mesh {self.ranks}")
+        return self.ranks.index(self.rank)
+
+    @property
+    def distributed(self) -> bool:
+        """Whether the mesh has a process group (a mesh made without one is
+        this process alone, and its collectives are the identity)."""
+        return dist.is_initialized()
+
+    @property
+    def backend(self) -> str:
+        return str(dist.get_backend(self.group)) if self.distributed else "none"
+
+    def key(self) -> tuple:
+        """What a captured step depends on: size, shard and backend."""
+        return (self.size, self.index, self.backend)
+
+
+def _env_int(name: str) -> Optional[int]:
+    value = os.environ.get(name)
+    return None if value in (None, "") else int(value)
+
+
+def _rank_device(device) -> torch.device:
+    """The rank's device: ``device`` if given, else ``cuda:LOCAL_RANK``
+    (raising without a card, or when ``LOCAL_RANK`` is past the cards)."""
+    if device is not None:
+        return resolve_device(device)
+    local = _env_int("LOCAL_RANK") or 0
+    resolve_device(None)   # raises without a card
+    if local >= torch.cuda.device_count():
+        raise RuntimeError(f"LOCAL_RANK {local} but only {torch.cuda.device_count()} CUDA "
+                           "devices: one process per card")
+    return torch.device("cuda", local)
+
+
+def init_distributed(coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None, process_id: Optional[int] = None,
+                     backend: Optional[str] = None, device=None,
+                     timeout: float = 300.0) -> bool:
+    """Join this process to its cluster: the DDP process group (reference
+    ``train_sevirlr_prediff.py:648`` DDPStrategy over NCCL).
+
+    The cluster is named by ``torchrun``'s environment (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``) or by the arguments
+    (``coordinator_address`` as ``host:port``, as JAX's, with
+    ``num_processes`` and ``process_id``, each from the environment where not
+    given).  The rank's device is ``device``, else ``cuda:LOCAL_RANK``, made
+    the current card; the backend NCCL on a card and gloo on the CPU unless
+    ``backend`` names one.  Returns True if the group is (already) up, False
+    when no cluster is named: the run has one process, JAX's no-cluster case.
+    A named cluster whose rendezvous fails within ``timeout`` seconds
+    raises: a run launched on several ranks never quietly becomes separate
+    runs."""
+    if dist.is_initialized():
+        return True
+    world = num_processes if num_processes is not None else _env_int("WORLD_SIZE")
+    rank = process_id if process_id is not None else _env_int("RANK")
+    if coordinator_address is None and (world is None or "MASTER_ADDR" not in os.environ):
+        if world is not None and world > 1:
+            raise ValueError("WORLD_SIZE is set but MASTER_ADDR is not: name the coordinator")
+        return False
+    if world is None or rank is None:
+        raise ValueError("a named cluster needs its world size and this process's rank "
+                         "(num_processes / process_id, or WORLD_SIZE / RANK)")
+    dev = _rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    init_method = (f"tcp://{coordinator_address}" if coordinator_address is not None
+                   else "env://")
+    dist.init_process_group(backend=backend, init_method=init_method, world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=timeout))
+    _RANK_DEVICE["device"] = dev
+    return True
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _default_device() -> torch.device:
+    """The device :func:`init_distributed` gave this rank; else, whatever
+    made the group (or with none), the rank's card: ``cuda:LOCAL_RANK``, or
+    the current card without ``LOCAL_RANK``.  It raises without a card: the
+    CPU is taken only where the caller names it."""
+    if "device" in _RANK_DEVICE:
+        return _RANK_DEVICE["device"]
+    if _env_int("LOCAL_RANK") is not None:
+        return _rank_device(None)
+    resolve_device(None)   # raises without a card
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def make_mesh(ranks: Optional[Sequence[int]] = None, device=None) -> DataMesh:
+    """A data mesh over every rank (or the given ones, a group made
+    collectively: every rank calls this with the same ``ranks``).  Without a
+    process group: a mesh of this one process.  ``device``: the rank's
+    (default: the one :func:`init_distributed` gave it, else its card)."""
+    dev = torch.device(device) if device is not None else _default_device()
+    if not dist.is_initialized():
+        return DataMesh(group=None, ranks=(0,), rank=0, device=dev)
+    world = dist.get_world_size()
+    ranks = tuple(range(world)) if ranks is None else tuple(int(r) for r in ranks)
+    group = None if ranks == tuple(range(world)) else dist.new_group(list(ranks))
+    return DataMesh(group=group, ranks=ranks, rank=dist.get_rank(), device=dev)
+
+
+def make_data_mesh(batch_size: int, ranks: Optional[Sequence[int]] = None,
+                   device=None) -> DataMesh:
+    """A data mesh over the largest prefix of the ranks whose count divides
+    ``batch_size`` (a 2-sample micro-batch on 8 ranks uses 2).  Every rank
+    calls it (the subgroup is made collectively); a rank past the prefix
+    gets a mesh whose ``member`` is False."""
+    ranks = list(range(process_count())) if ranks is None else list(ranks)
+    k = len(ranks)
+    while k > 1 and batch_size % k != 0:
+        k -= 1
+    return make_mesh(ranks[:k], device=device)
+
+
+def make_2d_mesh(data: int, model: int, ranks: Optional[Sequence[int]] = None, device=None):
+    """A (data, model) ``DeviceMesh`` for tensor-sharded variants; nothing
+    uses it, as in the JAX package.  The ranks' count must be
+    ``data * model``."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = list(range(process_count())) if ranks is None else list(ranks)
+    if len(ranks) != data * model:
+        raise ValueError(f"{len(ranks)} ranks for a ({data}, {model}) mesh")
+    dev = torch.device(device) if device is not None else _default_device()
+    return DeviceMesh(dev.type, torch.tensor(ranks).reshape(data, model),
+                      mesh_dim_names=("data", "model"))
+
+
+def local_batch_slice(global_batch_size: int, num_shards: Optional[int] = None,
+                      shard_id: Optional[int] = None) -> slice:
+    """The rows of shard ``shard_id`` of ``num_shards`` (default: this
+    process of all of them) in a global batch: the reference's
+    num_shard / rank split."""
+    num_shards = process_count() if num_shards is None else num_shards
+    shard_id = process_index() if shard_id is None else shard_id
+    if global_batch_size % num_shards != 0:
+        raise ValueError(f"batch {global_batch_size} does not split into {num_shards} shards")
+    per = global_batch_size // num_shards
+    return slice(shard_id * per, (shard_id + 1) * per)
+
+
+def _map(fn, tree):
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def shard_batch(batch, mesh: DataMesh):
+    """This rank's rows of every leaf's leading axis, on its device."""
+    def rows(t):
+        t = torch.as_tensor(t)
+        return t[local_batch_slice(t.shape[0], mesh.size, mesh.index)].to(mesh.device)
+
+    return _map(rows, batch)
+
+
+def _via_host(t: torch.Tensor, mesh: DataMesh) -> bool:
+    return t.is_cuda and mesh.backend == "gloo"
+
+
+def replicate(tree, mesh: DataMesh):
+    """Every leaf on the rank's device, equal to the mesh's first rank's
+    (a broadcast from it)."""
+    def bcast(t):
+        t = torch.as_tensor(t).to(mesh.device).clone()
+        if mesh.distributed:
+            buf = t.cpu() if _via_host(t, mesh) else t
+            dist.broadcast(buf, src=mesh.ranks[0], group=mesh.group)
+            t = buf.to(mesh.device)
+        return t
+
+    return _map(bcast, tree)
+
+
+def all_reduce_sum(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """A new tensor, the sum of ``t`` over the mesh's ranks: the same bits on
+    every rank.  Not differentiable: callers write their chain rule out."""
+    if not mesh.distributed:
+        return t.clone()
+    buf = t.cpu() if _via_host(t, mesh) else t.clone()
+    dist.all_reduce(buf, group=mesh.group)
+    return buf.to(t.device)
+
+
+def gather_batch(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """The ranks' ``x`` concatenated on axis 0 in mesh order, on every rank."""
+    if not mesh.distributed:
+        return x
+    buf = x.cpu() if _via_host(x, mesh) else x.contiguous()
+    parts = [torch.empty_like(buf) for _ in range(mesh.size)]
+    dist.all_gather(parts, buf, group=mesh.group)
+    return torch.cat(parts).to(x.device)
+
+
+def gather_parts(t: torch.Tensor, mesh: DataMesh) -> list:
+    """Every rank's ``t`` (same shape and dtype on each), in mesh order."""
+    return list(gather_batch(t[None].to(mesh.device), mesh).cpu())
+
+
+def barrier(mesh: DataMesh) -> None:
+    """Wait for every rank of the mesh (a collective on its device)."""
+    all_reduce_sum(torch.zeros(1, device=mesh.device), mesh)
+
+
+def sync_generator(generator: Optional[torch.Generator], device: torch.device,
+                   mesh: DataMesh) -> None:
+    """Set ``generator`` (None: ``device``'s default one) to the mesh's first
+    rank's state, on every rank: a torch generator is not replicated by
+    construction as a JAX key is."""
+    if not mesh.distributed:
+        return
+    if generator is None and device.type == "cuda":
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        generator = torch.cuda.default_generators[index]
+    elif generator is None:
+        generator = torch.default_generator
+    state = generator.get_state()
+    # on NCCL the broadcast goes through the card (and makes the communicator)
+    buf = state.to(mesh.device) if mesh.backend == "nccl" else state
+    dist.broadcast(buf, src=mesh.ranks[0], group=mesh.group)
+    generator.set_state(buf.cpu())

@@ -15,6 +15,12 @@ of the rounded weights (``diffusion/latent_diffusion.py``).
 
 On the card every reverse step replays a captured CUDA graph, cached per
 static key (``diffusion/graphs.py``); the first forecast of a key captures.
+
+On several ranks (``torchrun --nproc_per_node=N``, or
+``parallel.init_distributed``) ``mesh="auto"`` shards each forecast's batch,
+ensemble members included, across the ranks: every rank calls ``predict``
+with the same arguments and gets the whole output
+(``diffusion/latent_diffusion.py``'s note on a mesh).
 """
 import os
 from typing import Dict, Optional, Union
@@ -24,6 +30,7 @@ import torch
 
 from .config import ConfigDict, prediff_default_config
 from .factory import build_alignment_model, build_pipeline, build_unet, build_vae
+from .parallel.mesh import DataMesh, make_mesh, process_count
 from .utils.checkpoint import PRETRAINED_NAMES, load_flax_npz, load_torch_state_dict
 from .utils.convert import flax_params_to_torch
 
@@ -34,15 +41,28 @@ _FILES = {"unet": (build_unet, "earthformerunet.npz", PRETRAINED_NAMES["earthfor
 
 
 class PreDiffPredictor:
-    """SEVIR-LR nowcaster on one device, optionally steered by knowledge
-    alignment toward an anticipated mean intensity.  ``compute_dtype`` is
-    the chain's (``LatentDiffusion.sample``: float32, bfloat16 or float16);
-    guidance takes its own from ``cfg.model.align.compute_dtype``."""
+    """SEVIR-LR nowcaster, optionally steered by knowledge alignment toward
+    an anticipated mean intensity.  ``compute_dtype`` is the chain's
+    (``LatentDiffusion.sample``: float32, bfloat16 or float16); guidance
+    takes its own from ``cfg.model.align.compute_dtype``.  ``mesh="auto"``:
+    the ranks of a process group of more than one rank (``make_mesh()``),
+    else one device; a ``DataMesh`` or None overrides it.  It never starts
+    a group itself.  ``device`` defaults to the mesh's.  Every rank loads the
+    weights itself (from disk, or the same seed): nothing is broadcast."""
 
     def __init__(self, cfg: Optional[ConfigDict] = None,
                  params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                  with_alignment: bool = True, device=None, seed: int = 0,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", mesh="auto"):
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh={mesh!r}: 'auto', a DataMesh or None")
+            mesh = make_mesh() if process_count() > 1 else None
+        if mesh is not None and not isinstance(mesh, DataMesh):
+            raise TypeError(f"mesh must be a DataMesh, 'auto' or None, not {type(mesh)}")
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.device
         self.cfg = cfg or prediff_default_config()
         self.with_alignment = with_alignment
         self.compute_dtype = compute_dtype
@@ -78,7 +98,8 @@ class PreDiffPredictor:
     def _sample_kwargs(self, use_alignment: bool, avg_x_gt, ddim_steps: Optional[int],
                        timesteps: Optional[int], guidance_every_k: int,
                        generator: Optional[torch.Generator]):
-        kw = dict(timesteps=timesteps, generator=generator, compute_dtype=self.compute_dtype)
+        kw = dict(timesteps=timesteps, generator=generator, compute_dtype=self.compute_dtype,
+                  mesh=self.mesh)
         if ddim_steps:
             kw.update(sampler="ddim", ddim_steps=ddim_steps)
         if use_alignment:
@@ -106,8 +127,8 @@ class PreDiffPredictor:
                          ddim_steps: Optional[int] = None, timesteps: Optional[int] = None,
                          guidance_every_k: int = 1,
                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(num_samples, B, T_out, H, W, C): the members folded into the batch
-        on this one device."""
+        """(num_samples, B, T_out, H, W, C): the members folded into the
+        batch, across the mesh's ranks where there is one."""
         y = torch.as_tensor(context, dtype=torch.float32).to(self.device)
         return self.ld.sample_ensemble(
             y, num_samples, **self._sample_kwargs(use_alignment, avg_x_gt, ddim_steps, timesteps,

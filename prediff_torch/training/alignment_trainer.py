@@ -16,9 +16,9 @@ GroupNorm+SiLU kernels and each stage's time block the whole-resblock
 kernels, whose parameter gradients come from autograd of the plain version
 (``ops/_build.plain_grads``), as the JAX package takes them by XLA recompute.
 
-Not carried over, and refused when asked for: the mesh and the TPU knobs
-``prng_impl``, ``flat_update``, ``pack_small_thr``, ``matmul_precision`` and
-``conv3d_impl``.
+Refused when asked for: the mesh (DDP training, the next slice) and, not
+carried over, the TPU knobs ``prng_impl``, ``flat_update``,
+``pack_small_thr``, ``matmul_precision`` and ``conv3d_impl``.
 """
 from typing import Callable, Dict, Optional, Tuple, Union
 

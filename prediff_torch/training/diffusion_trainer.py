@@ -15,11 +15,12 @@ cuDNN runs its deterministic algorithms (set with the device,
 kernels sum in a fixed order, and with that switch the library's convolution
 gradients do too, so the same step gives the same bits.
 
-Not carried over from the JAX trainer, and refused when asked for:
-``remat_unet``, ``make_train_step_scan``, the mesh (waits for the
-multi-GPU slice) and the TPU / XLA layout and RNG knobs ``prng_impl``,
-``flat_update``, ``pack_small_thr``, ``matmul_precision``, ``conv3d_impl``,
-``ema_dtype``, ``state_dtype``.
+Refused when asked for: the mesh (DDP training, the slice after the sharded
+forecasts and evaluation), ``remat_unet``, ``ema_dtype`` and ``state_dtype``
+(not ported yet), and, not carried over from the JAX trainer,
+``make_train_step_scan`` and the TPU / XLA layout and RNG knobs
+``prng_impl``, ``flat_update``, ``pack_small_thr``, ``matmul_precision``,
+``conv3d_impl``.
 """
 from typing import Dict, Optional, Tuple, Union
 
@@ -32,6 +33,11 @@ from ..utils.convert import torch_key_to_flax_path
 from .optim import build_optimizer, global_norm
 from .train_state import EmaTrainState
 
+DDP_SLICE = "ROADMAP.md queue 1, the next slice: DDP training"
+# why a knob of the JAX trainers is refused; the others are TPU / XLA knobs
+_NOT_YET = {"mesh": f"training on several ranks is not ported yet ({DDP_SLICE})",
+            "remat_unet": "not ported yet (ROADMAP.md queue 1, the trainer opt-ins)",
+            "ema_dtype": "not ported yet (ROADMAP.md queue 1, the trainer opt-ins)"}
 _TPU_KNOBS = {"mesh": None, "remat_unet": False, "prng_impl": None, "flat_update": False,
               "pack_small_thr": 0, "matmul_precision": None, "conv3d_impl": None,
               "ema_dtype": None}
@@ -46,8 +52,8 @@ def refuse_knobs(owner: str, knobs: Dict, allowed: Dict) -> None:
             raise TypeError(f"{owner}: unexpected argument '{name}'")
         if value != allowed[name] and not (name in ("prng_impl", "conv3d_impl")
                                            and value == "auto"):
-            raise NotImplementedError(f"{name}={value!r} is not ported (ROADMAP.md, not carried "
-                                      "over)")
+            why = _NOT_YET.get(name, "a TPU / XLA knob, not carried over (ROADMAP.md)")
+            raise NotImplementedError(f"{name}={value!r}: {why}")
 
 
 def step_generator(seed: Union[int, torch.Generator], step: int, device) -> torch.Generator:

@@ -29,8 +29,8 @@ gradients land on the stored f32 parameters) and on the frames and latent in
 it, as the JAX step does; the moments, the reconstruction and the features
 before ``conv_out`` come back in f32, so the KL, ``logvar``, the adaptive
 weight (on the stored f32 ``conv_out`` kernel), LPIPS, the discriminator and
-both optimizers stay f32.  The mesh and the TPU optimizer-layout knobs are
-refused.
+both optimizers stay f32.  The mesh (DDP training, the next slice) and the
+TPU optimizer-layout knobs (not carried over) are refused.
 """
 from typing import Callable, Dict, Optional, Tuple, Union
 

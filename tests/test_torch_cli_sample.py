@@ -150,10 +150,10 @@ def test_refusals(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):   # no --device: the card, no fallback
         sample_prediff.main(["--out", str(tmp_path / "a"), "--cfg", TINY, "--synthetic"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(NotImplementedError, match="DDP training"):
         train_sevirlr_prediff.main(["--save", str(tmp_path / "b"), "--multihost",
                                     "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(NotImplementedError, match="DDP training"):
         train_sevirlr_prediff.main(["--save", str(tmp_path / "b"), "--nodes", "2",
                                     "--device", "cpu"])
     for main, argv in ((sample_prediff.main, ["--out", str(tmp_path / "c")]),

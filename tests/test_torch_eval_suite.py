@@ -2,7 +2,8 @@
 against the JAX package's on the same seeded ensembles, on the CPU: with and
 without a cheap FVD feature function shared by two suites, a ragged final
 batch, merge equal to one global suite, ``state_tree`` loaded across the two
-packages both ways, and the refusal of a multi-rank reduce.
+packages both ways, and a multi-rank reduce (its gather simulated here; two
+real gloo ranks in ``tests/test_torch_parallel_mesh.py``).
 
 Counts must be exactly equal.  MSE, MAE and CRPS are held at 1e-6 relative
 (SSIM 1e-5) to the JAX suite run in float64 (``jax.enable_x64``), and to the
@@ -180,17 +181,39 @@ def test_state_tree_across_packages(data):
 
 
 def test_cross_process_reduce(data, monkeypatch):
-    """One process: nothing to do.  Several ranks of torch.distributed:
-    refused, naming the ROADMAP item."""
-    port, _ = _suites(False)
+    """One process: nothing to do.  Several ranks of torch.distributed: every
+    leaf of every rank's ``state_tree`` summed in rank order, the ``merge``
+    of the ranks' suites bit for bit (the gather simulated: rank 1 holds a
+    suite fed other members)."""
+    from prediff_torch.evaluation import suite as suite_mod
+
+    preds, target = data
+    port, _ = _suites(True)
+    port.update(torch.from_numpy(preds), torch.from_numpy(target))
+    before = port.state_tree()
     assert port.cross_process_reduce() is port
-    monkeypatch.setattr(torch.distributed, "is_available", lambda: True)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 1)
     assert port.cross_process_reduce() is port
+    assert all(np.array_equal(before[k], v) for k, v in port.state_tree().items())
+    other, _ = _suites(True)
+    other.update(torch.from_numpy(preds[::-1].copy() * 0.5), torch.from_numpy(target))
+    theirs = other.state_tree()
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port.cross_process_reduce()
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda *a: "gloo")
+    monkeypatch.setattr(suite_mod, "make_mesh", lambda device=None: None)
+    rank1 = iter(theirs.values())   # the reduce walks state_tree's keys in order
+    monkeypatch.setattr(suite_mod, "gather_parts", lambda t, mesh: [
+        t, torch.from_numpy(np.array(next(rank1)))])
+    want, _ = _suites(True)
+    want.load_state_tree(before)
+    want.merge(other)
+    port.cross_process_reduce()
+    got, merged = port.state_tree(), want.state_tree()
+    assert set(got) == set(merged)
+    for k in got:
+        assert got[k].dtype == merged[k].dtype and np.array_equal(got[k], merged[k]), k
+    assert port.compute("test") == want.compute("test")
 
 
 def test_rejects_unbatched_preds(data):
