@@ -5,7 +5,10 @@
     python3 chip_smoke.py --log build/chip_smoke.jsonl   # also keep every line there
 
 Phases, one JSON line each: the card; the kernels' build from
-``prediff_torch/csrc``; each hand-written kernel against its plain PyTorch
+``prediff_torch/csrc``, in a thread of its own while the phases that need no
+kernel but GN's run (the ``tiny_*`` phases, ``cli_learning_check``, the
+randomized models and the kernel cases on the CPU; a GN launch waits for its
+source); each hand-written kernel against its plain PyTorch
 version at every shape the UNet (forecasting at B=1, training at the
 micro-batch size) and the alignment net give it, with times; ``bwd_split``,
 each launch's share of the all-gradients backwards at the training shapes
@@ -13,13 +16,15 @@ each launch's share of the all-gradients backwards at the training shapes
 the ``tiny_*`` phases on ``configs/tiny_smoke.yaml``, whose widths (16, 32)
 every FFN, attention and resblock kernel refuses: a forecast, a guidance
 shift and a training step at dropout 0 and 0.1, card against CPU, with no
-launch of those kernels;
+launch of those kernels; ``kernel_switches``, models built with each
+``use_pallas_*`` switch False launching none of its kernels (with "auto"
+each);
 a full-width UNet forward on the card (kernels) against the same forward on
 the CPU (plain versions) with randomized weights; the guidance shift of the
 full-width alignment net on the card against the CPU's; then three chains
 through ``PreDiffPredictor.predict``, each with the kernels' launch counts
-set to 0 just before it and read just after: the 100-step unguided DDPM
-forecast, the 100-step guided DDPM forecast and the 50-step guided DDIM
+set to 0 just before it and read just after: the ``CHAIN_STEPS``-step
+unguided DDPM forecast, the same guided and the 50-step guided DDIM
 forecast (VAE encode, the steps, VAE decode).  Each chain's steps replay
 captured CUDA graphs (``prediff_torch/diffusion/graphs.py``): every chain
 runs twice from one seed, eager and on graphs (the graph run captures; the
@@ -35,23 +40,24 @@ in-place weight update makes the next one capture anew.  Then the same on the
 the general cuboid layer, its input gradient, its all-gradients backward and
 their dropout forms and the grouped masked core against their plain versions
 at its shapes (forecasting and training) and at vol 128, 256 and 1536, a
-UNet forward and a guidance shift card against CPU, the 100-step unguided
-and guided DDPM forecasts with exact launch counts, profiles; and for each
+UNet forward and a guidance shift card against CPU, the ``CHAIN_STEPS``-step
+unguided and guided DDPM forecasts with exact launch counts, profiles; and for each
 of ``PATTERN_CHECKS`` (depth [1,1]) a UNet forward and a guidance shift card
 against CPU with exact launch counts.  Then
 training.  ``train_rate0``, with the dropout rates at 0 and the UNet cut to
 depth [1,1]: one loss and backward on the card (kernels) against the CPU
 (plain, f32), then one accumulated optimizer step
 through ``DiffusionTrainer.train_step``, which launches the all-gradients
-kernels without dropout.  At the recipe's own rates (0.1) and full depth:
-``train_grads``, one loss and backward of the UNet on the card (the dropout
-kernels) against the CPU (plain, f32, the same masks regenerated from the same
-seed), twice on the card for bit-equal gradients; ``train``, ``fit`` with
+kernels without dropout.  At the recipe's own rates (0.1): ``train_grads``,
+with the UNet cut to depth [1,1], one loss and backward of the UNet on the
+card (the dropout kernels) against the CPU (plain, f32, the same masks
+regenerated from the same seed), twice on the card for bit-equal gradients;
+at full depth ``train``, ``fit`` with
 ``DiffusionTrainer`` for a few accumulated optimizer steps from synthetic
 batches with a validation step on the EMA weights (eval mode: no dropout) and
 a checkpoint restored into a fresh state; a profile of one micro-step.  The
-same four training phases then run on ``video_swin_1x8`` (``swin_train_rate0``
-at depth [1,1], ``swin_train_grads``, ``swin_train``,
+same four training phases then run on ``video_swin_1x8``, all at depth [1,1]
+(``swin_train_rate0``, ``swin_train_grads``, ``swin_train``,
 ``profile_swin_train_step``): the general layer's all-gradients and dropout
 kernels, the grouped core at rate 0, the einsum route under attention
 dropout.  Evaluation and data (after ``graph_recapture``): ``eval_suite``,
@@ -74,20 +80,22 @@ phases the forecast on bf16 parameters (``bf16params_*``, also ``--only
 bf16params``: ``cast_to_bf16`` of the seeded weights): the bf16 forms of
 rows 1-3 at the UNet's shapes and of the general layer, its input gradient
 and the grouped core at the swin path's, a bf16 UNet forward card against
-CPU, the 100-step DDPM and 50-step guided DDIM chains with a bf16 carry, the
+CPU, the ``CHAIN_STEPS``-step DDPM and 50-step guided DDIM chains with a bf16 carry, the
 swin chains with guidance in bf16, and the bf16 tree on an f32 carry
 bit-equal to the f32 pipeline on the rounded weights; after ``train``,
 ``conv_train_grads``, ``conv_train`` and ``profile_conv_train_step`` (no
-rate-0 phase).  The programs of ``prediff_torch/cli`` last (``cli_*``, also
+rate-0 phase; depth [1,1]).  The programs of ``prediff_torch/cli`` last (``cli_*``, also
 ``--only cli``), at full width with the kernels' counts and a spy on every
 plain version (``cli_sample``, ``cli_test`` and ``cli_convert`` held to
 their chains' exact counts, read before the phase's own checks launch
 anything): ``cli_sample`` (guided DDIM forecasts bit-equal to the
-library call with the program's generators), ``cli_train`` (micro-steps,
-a validation, the JAX script's metric keys, a resume), ``cli_test``
+library call with the program's generators), ``cli_train`` (the UNet at
+depth [1,1]: micro-steps, a validation, the JAX script's metric keys, a
+resume), ``cli_test``
 (``run_eval``'s keys; suites refilled from its ``.npy`` dumps agree),
 ``cli_vae``, ``cli_align``, ``cli_convert`` (``from_npz`` on the converted
-files forecasts bit for bit as ``from_torch``) and ``cli_learning_check``;
+files forecasts bit for bit as ``from_torch``); ``cli_learning_check`` ran
+during the build;
 without h5py, pandas or matplotlib on the host they run the functions below
 each ``main`` on in-memory synthetic windows.  Then several ranks
 (``mesh_*``, also ``--only mesh``; ``prediff_torch/parallel``), child
@@ -100,7 +108,19 @@ and the guidance's energy summed over the ranks; ``mesh_eval``:
 ``train_sevirlr_prediff --test --multihost``, the reduced metrics the merge
 of the ranks' suites bit for bit), then one NCCL rank
 (``mesh_nccl_graph``: the all-reduce inside a captured guided step,
-bit-equal to the eager chain and to the call without a mesh).
+bit-equal to the eager chain and to the call without a mesh).  Then DDP
+training (``ddp_*``, also ``--only ddp``; the trainers' ``mesh=``), child
+processes likewise: two gloo ranks, one sample a rank, ``ddp_train`` (the
+recipe's UNet at its rates, 2 optimizer steps of 2 micro-steps: each rank's
+local gradients bit-equal to one process's at the rank's batch with the
+same draws and dropout element base, the reduced mean bit-equal to the mean
+of both, the ranks bit-equal after every micro-step, exact launches, ms per
+micro-step and per gradient all-reduce), ``ddp_align`` (the same for the
+alignment net), ``ddp_vae`` (the VAE-GAN at 4 frames a rank against one
+process at 8, each rank's own BatchNorm statistics the control that misses
+the bar), then one NCCL rank (``ddp_nccl``: a micro-step with the mesh
+bit-equal to one without).  The dropout kernels' cases also run at a
+nonzero element base (``DROP_BASES``) against their plain versions.
 Then the ``kernels`` summary line (per kernel its ms,
 bound, library call and ``vs_library``; the conv, the grouped cores, the
 round-1 layer, the GroupNorm+SiLU forward and all-gradients backward and the
@@ -128,7 +148,7 @@ BF16_FLOP_PER_S = 989e12
 TF32_FLOP_PER_S = 495e12
 F32_FLOP_PER_S = 67e12
 
-CHAIN_STEPS = 100
+CHAIN_STEPS = 25        # DDPM steps of each forecast chain (of the schedule's 1000)
 SEED = 0
 AVG_X_GT = 0.5          # the knowledge target of the guided chains
 SHIFT_TOL_REL_L2 = 5e-2  # card vs CPU guidance shift (tests/test_guidance_kernels.py bar)
@@ -431,6 +451,33 @@ def judge_drop(c, shapes, observed_drop, bit_equal, device):
         for share, n in shares.values())
     c["rate0_bit_equal"] = bit_equal
     c["ok"] = c["ok"] and c["kept_share_ok"] and bit_equal
+
+
+# the dropout kernels' element bases in the base checks: a rank past the first's masks
+# (ops/dropout.py), multiples of 4, one past 2**32 (the Philox counter's high word)
+DROP_BASES = (2 ** 32 + 4 * 1234, 4 * 5678)
+
+
+def judge_base(c, kernel_at, plain_at, names=None):
+    """A dropout kernel at the element bases ``DROP_BASES`` against its plain
+    version at the same bases, at the base-0 case's bar (the forwards 2e-2;
+    the backwards each gradient's own scale); its output must differ from the
+    kernel's at base 0 (the masks moved).  ``kernel_at(bases)``,
+    ``plain_at(bases)``; ``names``: a backward's outputs."""
+    import torch
+
+    got, want, at0 = kernel_at(DROP_BASES), plain_at(DROP_BASES), kernel_at((0, 0))
+    one = {}
+    if names is None:
+        judge(one, got, want, tol=2e-2)
+        moved = not torch.equal(got, at0)
+    else:
+        judge_all(one, names, got, want)
+        moved = not all(torch.equal(a, b) for a, b in zip(got, at0))
+    c["base"] = {"bases": list(DROP_BASES), "max_abs_err": one["max_abs_err"],
+                 "max_rel_err": one["max_rel_err"], "masks_moved": moved,
+                 "ok": bool(one["ok"] and moved)}
+    c["ok"] = c["ok"] and c["base"]["ok"]
 
 
 def timed(c, kernel, plain, nbytes, library=None, device_time=False, library_seq=None,
@@ -852,6 +899,8 @@ def check_kernels(cases, device):
             judge_drop(c, [(M, hid), (M, C)], (float((got == x).float().mean()), M * C),
                        torch.equal(fused_ffn_dropout(*args, 0.0, 0.0, DROP_SEED, DROP_SITE),
                                    fused_ffn(*args)), device)
+            judge_base(c, lambda b: fused_ffn_dropout(*args, *drop, bases=b),
+                       lambda b: ffn_dropout_plain(*args, *drop, mxu_dtype=bf16, bases=b))
             timed(c, lambda: fused_ffn_dropout(*args, *drop),
                   lambda: ffn_dropout_plain(*args, *drop, mxu_dtype=bf16),
                   4 * (2 * M * C + 2 * C * hid + hid + 3 * C), device_time=True,
@@ -866,6 +915,10 @@ def check_kernels(cases, device):
             judge_drop(c, [(M, hid), (M, C)], None,
                        all(torch.equal(a, b) for a, b in zip(zero, fused_ffn_bwd_full(*args))),
                        device)
+            judge_base(c, lambda b: fused_ffn_dropout_bwd_full(*args, *drop, bases=b),
+                       lambda b: ffn_dropout_bwd_full_plain(*args, *drop, mxu_dtype=bf16,
+                                                            bases=b),
+                       ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2"))
             timed(c, lambda: fused_ffn_dropout_bwd_full(*args, *drop),
                   lambda: ffn_dropout_bwd_full_plain(*args, *drop, mxu_dtype=bf16),
                   4 * (3 * M * C + 4 * C * hid + 2 * hid + 5 * C), device_time=True,
@@ -922,6 +975,8 @@ def check_kernels(cases, device):
                        torch.equal(fused_axial_attention_dropout(*args, 0.0, 0.0, DROP_SEED,
                                                                  DROP_SITE),
                                    fused_axial_attention(*args)), device)
+            judge_base(c, lambda b: fused_axial_attention_dropout(*args, *drop, bases=b),
+                       lambda b: axial_attention_plain(*args, bf16, *drop, bases=b))
             timed(c, lambda: fused_axial_attention_dropout(*args, *drop),
                   lambda: axial_attention_plain(*args, bf16, *drop),
                   4 * (2 * M * C + 4 * C * C + heads * vol * vol + 3 * C), device_time=True,
@@ -939,6 +994,9 @@ def check_kernels(cases, device):
             judge_drop(c, mask_shapes, None,
                        all(torch.equal(a, b)
                            for a, b in zip(zero, fused_axial_attention_bwd_full(*args))), device)
+            judge_base(c, lambda b: fused_axial_attention_dropout_bwd_full(*args, *drop, bases=b),
+                       lambda b: axial_attention_bwd_full_plain(*args, bf16, *drop, bases=b),
+                       ("dx", "dln_w", "dln_b", "dw_qkv", "dbias", "dw_proj", "db_proj"))
             timed(c, lambda: fused_axial_attention_dropout_bwd_full(*args, *drop),
                   lambda: axial_attention_bwd_full_plain(*args, bf16, *drop),
                   4 * (3 * M * C + 8 * C * C + 2 * heads * vol * vol + 5 * C), device_time=True,
@@ -1369,6 +1427,9 @@ def check_cuboid_kernels(cases, device):
                            torch.equal(fused_cuboid_attention_layer_dropout(
                                *args, 0.0, 0.0, DROP_SEED, DROP_SITE),
                                fused_cuboid_attention_layer(*args)), device)
+                judge_base(c, lambda b: fused_cuboid_attention_layer_dropout(*args, *drop,
+                                                                             bases=b),
+                           lambda b: cuboid_attention_dropout_plain(*args, bf16, *drop, bases=b))
                 c["bit_equal_across_two_runs"] = torch.equal(
                     got, fused_cuboid_attention_layer_dropout(*args, *drop))
                 c["ok"] = c["ok"] and c["bit_equal_across_two_runs"]
@@ -1398,6 +1459,10 @@ def check_cuboid_kernels(cases, device):
                         torch.equal(a, b)
                         for a, b in zip(zero, fused_cuboid_attention_layer_bwd_full(*args))),
                         device)
+                    judge_base(c, lambda b: fused_cuboid_attention_layer_dropout_bwd_full(
+                                   *args, *drop, bases=b),
+                               lambda b: cuboid_attention_dropout_bwd_full_plain(
+                                   *args, bf16, *drop, bases=b), grad_names)
                 c["bit_equal_across_two_runs"] = all(torch.equal(a, b)
                                                      for a, b in zip(got, kernel()))
                 c["ok"] = c["ok"] and c["bit_equal_across_two_runs"]
@@ -1967,7 +2032,7 @@ PATH_WEIGHTS.update({"bf16_guidance_forecast": ("per_align",),
 BF16PARAMS_FORWARD_TOL = 2e-2     # the f32 forward phase's bar, card against CPU
 BF16PARAMS_DDIM_STEPS = 50        # the guided DDIM chain on bf16 parameters
 BF16PARAMS_F32_CARRY_STEPS = 20   # bf16params_f32_carry's DDPM and DDIM chains
-BF16_CHAIN_STEPS = 5            # the bf16 guided chain held card against CPU (temperature 0)
+BF16_CHAIN_STEPS = 2            # the bf16 guided chain held card against CPU (temperature 0)
 BF16_CHAIN_TOL_REL_L2 = 2e-2
 VAE_BF16_LOSS_TOL_REL = 1e-2    # card vs CPU, bf16 convolutions on both sides
 VAE_BF16_GRAD_TOL_REL_L2 = 5e-2  # the adaptive weight and the total it scales
@@ -2389,7 +2454,7 @@ def bf16_phases(device, cfg, smi, weights, cases, per, align_cpu):
 
 
 def conv_bf16_guidance_chain(predictor, context, per, avg, expect_shape, device, smi):
-    """``conv_bf16_guidance_forecast``: the conv route's 100-step guided
+    """``conv_bf16_guidance_forecast``: the conv route's ``CHAIN_STEPS``-step guided
     chain (f32 carry) with guidance in bf16, as ``align.compute_dtype:
     bfloat16`` builds it: the net on its bf16 copy, so the conv's bf16 form
     (row 8) and the other bf16 forms run on a path; eager and on graphs,
@@ -2603,7 +2668,7 @@ def bf16params_phases(device, cfg, smi, weights, cases, per):
     bf16 forms of rows 1-3 at the UNet's shapes and of rows 9, 5 and 10 at
     the swin path's (``check_bf16_kernels``, ``check_bf16_cuboid_kernels``);
     ``bf16params_forward``: one UNet forward on a bf16 carry, card against
-    CPU; ``bf16params_forecast`` (100 DDPM steps) and
+    CPU; ``bf16params_forecast`` (``CHAIN_STEPS`` DDPM steps) and
     ``bf16params_guided_forecast`` (50 guided DDIM steps, guidance f32: the
     net on its f32 copy) with the carry in bf16, each eager and on graphs,
     bit-equal, exact counts (the f32 chains' per step, the UNet's all bf16
@@ -3280,9 +3345,13 @@ def main() -> int:
                          f"build), then stop: {', '.join(ONLY)}")
     ap.add_argument("--mesh-child", nargs=2, metavar=("ROOT", "RANK"),
                     help="run one rank of the mesh_* phases (started by them, not by hand)")
+    ap.add_argument("--ddp-child", nargs=2, metavar=("ROOT", "RANK"),
+                    help="run one rank of the ddp_* phases (started by them, not by hand)")
     args = ap.parse_args()
     if args.mesh_child:
         return mesh_child(args.mesh_child[0], int(args.mesh_child[1]))
+    if args.ddp_child:
+        return ddp_child(args.ddp_child[0], int(args.ddp_child[1]))
     try:
         import torch
     except ImportError:
@@ -3298,32 +3367,64 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
 
-    if args.log:
-        os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
-        LOG.append(open(args.log, "w"))
-    device = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
-
-    t0 = time.perf_counter()
-    report = _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source_seconds": {k: v["seconds"] for k, v in report.items()},
-          "ptxas": {k: ptxas_by_function(v["ptxas"]) for k, v in report.items()}})
     if args.only:
         unknown = sorted(set(args.only) - set(ONLY))
         if unknown:
             print(f"chip_smoke: --only takes {', '.join(ONLY)}; not {unknown}", file=sys.stderr)
             return 2
+    if args.log:
+        os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
+        LOG.append(open(args.log, "w"))
+    # the kernels build in a thread of their own while the phases that need
+    # none of them, or the GN kernels alone, run (``run``)
+    build = Build(_build.build_all)
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
+    if args.only:
+        build.wait()
         run_only(device, args.only, smi)
         print(smi, flush=True)
         return 0
-    run(device, prediff_default_config(), smi)
+    try:
+        run(device, prediff_default_config(), smi, build)
+    finally:   # a failed phase leaves no nvcc behind
+        _build.stop_builds()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+class Build:
+    """``build_all`` in a thread of its own, started at once; ``wait`` joins
+    it, emits the ``build`` line (each source's nvcc seconds, ptxas's report,
+    the phases that ran meanwhile) and raises what the build raised."""
+
+    def __init__(self, build_all):
+        import threading
+
+        self.t0, self.report, self.error = time.perf_counter(), None, None
+        self.thread = threading.Thread(target=self._run, args=(build_all,), daemon=True)
+        self.thread.start()
+
+    def _run(self, build_all):
+        try:
+            self.report = build_all()
+        except BaseException as e:   # re-raised in wait
+            self.error = e
+        self.seconds = time.perf_counter() - self.t0
+
+    def wait(self, meanwhile=()):
+        t_call = time.perf_counter() - self.t0
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        emit({"phase": "build", "seconds": self.seconds,
+              "waited_s": max(0.0, self.seconds - t_call), "meanwhile": list(meanwhile),
+              "per_source_seconds": {k: v["seconds"] for k, v in self.report.items()},
+              "ptxas": {k: ptxas_by_function(v["ptxas"]) for k, v in self.report.items()}})
 
 
 COUNTERS = {}   # kernel name -> its wrapper (kernel_counters)
@@ -3391,10 +3492,10 @@ def kernel_counters():
 # vae_train (with vae_train_grads), align_train (with align_train_grads), bf16
 # (bf16_phases with the f32 chains beside them), vae_train_bf16 (with its grads),
 # bf16params (bf16params_phases with the f32 chains beside them),
-# eval (eval_suite), data (data_prefetch), cli (the cli_* phases) and mesh
-# (the mesh_* phases)
+# eval (eval_suite), data (data_prefetch), cli (the cli_* phases), mesh
+# (the mesh_* phases) and ddp (the ddp_* phases)
 ONLY = ("bwd_split", "guided_repeat", "vae_train", "align_train", "bf16", "vae_train_bf16",
-        "bf16params", "eval", "data", "cli", "mesh")
+        "bf16params", "eval", "data", "cli", "mesh", "ddp")
 
 
 def run_only(device, names, smi: str) -> None:
@@ -3412,6 +3513,8 @@ def run_only(device, names, smi: str) -> None:
             cli_alone(device, smi)
         elif name == "mesh":
             mesh_alone(device, smi)
+        elif name == "ddp":
+            ddp_alone(device, smi)
         elif name == "bwd_split":
             bwd_split(device)
         elif name == "guided_repeat":
@@ -3431,8 +3534,12 @@ def run_only(device, names, smi: str) -> None:
             align_train_phases(device, smi, per, *kernel_counters())
 
 
-def run(device, cfg, smi: str) -> None:
-    """Every phase after the build, on ``device``; raises SystemExit on a failed check."""
+def run(device, cfg, smi: str, build) -> None:
+    """Every phase on ``device``, the first while ``build`` (``Build``) runs:
+    the tiny phases and ``cli_learning_check`` (the configuration's widths
+    take no kernel but GN's, whose first launch waits for its source), the
+    randomized models and the kernel cases on the CPU; raises SystemExit on a
+    failed check."""
     import torch
     from prediff_torch.config import alignment_default_config
     from prediff_torch.factory import build_alignment_model, build_unet, build_vae
@@ -3442,6 +3549,9 @@ def run(device, cfg, smi: str) -> None:
 
     set_numerics()
     zero_counts, read_counts = kernel_counters()
+    tiny_phases(device, zero_counts, read_counts)
+    launches_early = cli_phases(device, smi, None, None, zero_counts, read_counts,
+                                names=("cli_learning_check",))
     gen = torch.Generator().manual_seed(SEED)
     unet_cpu = init_params_(build_unet(cfg), gen, randomize=True).eval().requires_grad_(False)
     vae_cpu = init_params_(build_vae(cfg), gen, randomize=True).eval().requires_grad_(False)
@@ -3454,6 +3564,8 @@ def run(device, cfg, smi: str) -> None:
 
     cases = kernel_cases(unet_cpu, align_cpu, cfg.optim.micro_batch_size,
                          alignment_default_config().optim.micro_batch_size)
+    build.wait(meanwhile=["tiny_forecast", "tiny_guided_shift", "tiny_train",
+                          "cli_learning_check", "weights", "kernel cases"])
     bad = check_kernels(cases, device)
     emit({"phase": "kernels_vs_plain", "cases": sum(len(v) for v in cases.values()),
           "failed": len(bad)})
@@ -3482,7 +3594,7 @@ def run(device, cfg, smi: str) -> None:
                                               "align": align_cpu.state_dict()},
                                  with_alignment=True, device=device)
 
-    tiny_phases(device, zero_counts, read_counts)
+    kernel_switches(device, cfg, smi, zero_counts, read_counts)
     guided_repeat(device)
 
     # the launch counts of the other paths come from the layers' routes: on
@@ -3543,7 +3655,7 @@ def run(device, cfg, smi: str) -> None:
     conv_launches, conv_per = conv_serving_phases(device, cfg, smi, weights, zero_counts,
                                                   read_counts)
     launches_by_path.update(conv_launches)
-    swin_launches, swin_unet = swin_phases(device, cfg, smi, cases, zero_counts, read_counts)
+    swin_launches = swin_phases(device, cfg, smi, cases, zero_counts, read_counts)
     launches_by_path.update(swin_launches)
     pcases, bf16params_launches = bf16params_phases(device, cfg, smi, weights, cases, by_route)
     launches_by_path.update(bf16params_launches)
@@ -3557,15 +3669,18 @@ def run(device, cfg, smi: str) -> None:
     # the conv route in training: the recipe's rates (no rate-0 phase), B=2
     launches_by_path.update(train_phases(
         device, conv_config(cfg), smi, {k: v["per_train"] for k, v in conv_per.items()},
-        train_weights, zero_counts, read_counts, prefix="conv_", rate0=False))
-    launches_by_path.update(swin_train_phases(device, cfg, smi, swin_unet, vae_cpu.state_dict(),
+        train_weights, zero_counts, read_counts, prefix="conv_", rate0=False, depth1=True))
+    launches_by_path.update(swin_train_phases(device, cfg, smi, vae_cpu.state_dict(),
                                               zero_counts, read_counts))
     vae_train_phases(device, smi)
     vae_train_bf16_phases(device, smi)
     launches_by_path["align_train"] = align_train_phases(device, smi, by_route, zero_counts,
                                                          read_counts)
-    launches_by_path.update(cli_phases(device, smi, weights, by_route, zero_counts, read_counts))
+    launches_by_path.update(launches_early)
+    launches_by_path.update(cli_phases(device, smi, weights, by_route, zero_counts, read_counts,
+                                       names=CLI_PHASES[:-1]))
     launches_by_path.update(mesh_phases(device, smi, cfg, weights, by_route))
+    launches_by_path.update(ddp_phases(device, smi, cfg, weights, by_route))
     emit({"phase": "graph_chains", "card": smi, "chains": GRAPH_CHAINS})
     emit({"kernels": summarize({**cases, **bcases}, launches_by_path)})
     print(smi, flush=True)
@@ -3584,8 +3699,8 @@ def conv_serving_phases(device, cfg, smi, weights, zero_counts, read_counts):
     """Forecasts on the conv route (``conv_config``), the same random weights:
     the route's launches from the models' blocks held to ``CONV_EXPECTED``, a
     UNet forward (with its exact counts) and a guidance shift card against CPU
-    (the CPU takes the plain conv with the same bf16 rounding), the 100-step
-    unguided and guided DDPM forecasts with exact counts, profiles of a UNet
+    (the CPU takes the plain conv with the same bf16 rounding), the
+    ``CHAIN_STEPS``-step unguided and guided DDPM forecasts with exact counts, profiles of a UNet
     forward and a guided step.  Returns the chains' launches and the route's
     ``path_launches``."""
     import torch
@@ -3651,6 +3766,69 @@ TINY_RATE = 0.1                            # the recipe's rates for the tiny tra
 # configuration's layers do not reach: they must launch none there
 TINY_REFUSED = tuple(k for k in KERNELS if k.startswith(("ffn", "axial_attention", "cuboid",
                                                          "resblock")))
+
+
+# the configuration's use_pallas_* switches: the network section each is set in and the
+# kernels a model built with it False must not launch
+KERNEL_SWITCHES = (
+    ("use_pallas_attention", "latent_model", ("axial_attention", "axial_attention_bwd_dx")),
+    ("use_pallas_ffn", "latent_model", ("ffn", "ffn_bwd_dx")),
+    ("use_pallas_gn", "latent_model", ("groupnorm_silu", "groupnorm_silu_bwd_full")),
+    ("use_pallas_resblock", "align", ("resblock", "resblock_bwd")))
+
+
+def kernel_switches(device, cfg, smi, zero_counts, read_counts):
+    """``kernel_switches``: for each switch of ``KERNEL_SWITCHES`` a model
+    built with it False and one built with it "auto" (the default; the UNet at
+    the configuration's widths cut to depth [1,1], the alignment net of
+    ``alignment_default_config`` for ``use_pallas_resblock``) run a forward
+    and its input gradient on the card (frozen, as in guidance), the counts
+    set to 0 just before and read just after: False launches none of the
+    switch's kernels, "auto" launches each (the control)."""
+    import torch
+    from prediff_torch.config import ConfigDict, alignment_default_config, deep_merge
+    from prediff_torch.factory import build_alignment_model, build_unet
+    from prediff_torch.models.init import init_params_
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 61)
+    acfg = alignment_default_config()
+    out, failed = {}, []
+    for key, section, kernels in KERNEL_SWITCHES:
+        out[key] = {}
+        for value in ("auto", False):
+            if section == "latent_model":
+                c = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"latent_model": {
+                    "depth": [1, 1], key: value}}}))
+                model, build = None, build_unet
+                x = torch.randn((1,) + tuple(c.model.diffusion.latent_shape), generator=gen)
+                cond = torch.randn((1,) + tuple(c.model.diffusion.latent_cond_shape),
+                                   generator=gen).to(device)
+                extra = (cond,)
+            else:
+                c = ConfigDict.wrap(deep_merge(acfg.to_dict(), {"model": {"align": {
+                    "model_args": {key: value}}}}))
+                build = build_alignment_model
+                x = torch.randn((1,) + tuple(c.model.align.model_args.input_shape), generator=gen)
+                extra = ()
+            model = init_params_(build(c), torch.Generator().manual_seed(SEED)).to(device)
+            model.eval().requires_grad_(False)
+            x = x.to(device).requires_grad_(True)
+            t = torch.full((1,), 3, device=device)
+            zero_counts()
+            torch.autograd.grad(model(x, t, *extra).square().sum(), x)
+            sync(device)
+            counts = read_counts()
+            out[key][str(value)] = {k: counts[k] for k in kernels}
+            if value is False and any(counts[k] for k in kernels):
+                failed.append(f"{key}: False launched {out[key][str(value)]}")
+            if value == "auto" and not all(counts[k] for k in kernels):
+                failed.append(f"{key}: 'auto' did not launch every kernel of {kernels}")
+            del model
+    emit({"phase": "kernel_switches", "launches": out, "seconds": time.perf_counter() - t0,
+          "failed": failed, "card": smi})
+    if failed:
+        fail(f"kernel_switches: {failed}")
 
 
 def tiny_phases(device, zero_counts, read_counts):
@@ -3808,10 +3986,9 @@ def swin_phases(device, cfg, smi, cases, zero_counts, read_counts):
     UNet and the alignment net, everything else as ``cfg``, weights random
     from the seed: the three cuboid kernels against their plain versions
     (``swin_kernels_vs_plain``; their cases join ``cases``), a UNet forward
-    and a guidance shift card against CPU, the 100-step unguided and guided
+    and a guidance shift card against CPU, the ``CHAIN_STEPS``-step unguided and guided
     DDPM forecasts with exact launch counts, profiles of a UNet forward, a
-    guided step and a guidance shift.  Returns the launches of the two chains
-    and the UNet (CPU, random weights) the training phases start from."""
+    guided step and a guidance shift.  Returns the launches of the two chains."""
     import torch
     from prediff_torch.serving import PreDiffPredictor
 
@@ -3861,22 +4038,21 @@ def swin_phases(device, cfg, smi, cases, zero_counts, read_counts):
                  reps=5))
     emit(profile("swin_profile_guidance_shift",
                  lambda: predictor.ld.alignment.get_mean_shift(zg, td, avg_d), reps=5))
-    return launches, unet_cpu
+    return launches
 
 
-def swin_train_phases(device, cfg, smi, unet_cpu, vae_sd, zero_counts, read_counts):
-    """The training phases (``train_phases``) on ``SWIN_PATTERN`` in the UNet:
-    ``swin_train_rate0`` on a randomized UNet cut to depth [1,1],
-    ``swin_train_grads``, ``swin_train`` and ``profile_swin_train_step`` at
-    full depth from ``unet_cpu``'s weights.  Returns the launches of the
-    rate-0 optimizer step and of the ``fit`` run."""
+def swin_train_phases(device, cfg, smi, vae_sd, zero_counts, read_counts):
+    """The training phases (``train_phases``) on ``SWIN_PATTERN`` in the UNet,
+    each on a randomized UNet cut to depth [1,1] (``vae_sd`` the VAE's
+    weights): ``swin_train_rate0``, ``swin_train_grads``, ``swin_train`` and
+    ``profile_swin_train_step``.  Returns the launches of the rate-0
+    optimizer step and of the ``fit`` run."""
     from prediff_torch.config import ConfigDict, deep_merge
 
     scfg = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {
         "latent_model": {"self_pattern": SWIN_PATTERN}}}))
-    per = {k: v["per_train"] for k, v in path_launches(unet_cpu).items()}
-    return train_phases(device, scfg, smi, per, {"unet": unet_cpu.state_dict(), "vae": vae_sd},
-                        zero_counts, read_counts, prefix="swin_")
+    return train_phases(device, scfg, smi, None, {"vae": vae_sd}, zero_counts, read_counts,
+                        prefix="swin_", depth1=True)
 
 
 def pattern_phases(device, cfg, zero_counts, read_counts):
@@ -3918,6 +4094,25 @@ def pattern_phases(device, cfg, zero_counts, read_counts):
         del predictor, models
 
 
+def depth1_unet(cfg, vae_sd, **latent):
+    """``cfg`` with its UNet cut to depth [1,1] (and ``latent``'s settings of
+    it), a randomized UNet of that configuration from the seed with
+    ``vae_sd`` as the training pipeline's weights, and the UNet's launches per
+    training micro-step (``path_launches``)."""
+    import torch
+    from prediff_torch.config import ConfigDict, deep_merge
+    from prediff_torch.factory import build_unet
+    from prediff_torch.models.init import init_params_
+
+    cfg1 = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"latent_model": dict(
+        depth=[1, 1], **latent)}}))
+    unet = init_params_(build_unet(cfg1), torch.Generator().manual_seed(SEED),
+                        randomize=True).eval()   # the routes path_launches reads
+    per = {k: v["per_train"]
+           for k, v in path_launches(unet, train_batch=cfg.optim.micro_batch_size).items()}
+    return cfg1, {"unet": unet.state_dict(), "vae": vae_sd}, per
+
+
 def rate0_phases(card_vs_cpu, cfg, vae_sd, xy, device, zero_counts, read_counts, prefix):
     """``train_rate0`` (one loss and backward card against CPU) and
     ``train_rate0_step`` (one accumulated optimizer step) with the dropout
@@ -3925,16 +4120,10 @@ def rate0_phases(card_vs_cpu, cfg, vae_sd, xy, device, zero_counts, read_counts,
     from that model's routes).  Returns the step's launch counts."""
     import numpy as np
     import torch
-    from prediff_torch.config import ConfigDict, deep_merge
-    from prediff_torch.factory import build_unet
     from prediff_torch.models.init import init_params_
 
-    cfg0 = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"latent_model": dict(
-        depth=[1, 1], attn_drop=0.0, proj_drop=0.0, ffn_drop=0.0, time_embed_dropout=0.0)}}))
-    unet0 = init_params_(build_unet(cfg0), torch.Generator().manual_seed(SEED), randomize=True)
-    per0 = {k: v["per_train"]
-            for k, v in path_launches(unet0, train_batch=cfg.optim.micro_batch_size).items()}
-    weights0 = {"unet": unet0.state_dict(), "vae": vae_sd}
+    cfg0, weights0, per0 = depth1_unet(cfg, vae_sd, attn_drop=0.0, proj_drop=0.0, ffn_drop=0.0,
+                                       time_embed_dropout=0.0)
     ld0, trainer0 = card_vs_cpu(f"{prefix}train_rate0", cfg0, weights0, None,
                                 expected_train_launches(per0, 1, 0, dropout=False))
     init_params_(ld0.unet, torch.Generator().manual_seed(SEED))
@@ -3956,24 +4145,23 @@ def rate0_phases(card_vs_cpu, cfg, vae_sd, xy, device, zero_counts, read_counts,
             or launches0 != expected0):
         fail(f"{prefix}train_rate0: optimizer steps {state0.tx.count}, launches {launches0} != "
              f"{expected0}")
-    emit(profile(f"profile_{prefix}train_rate0_step",
-                 lambda: trainer0.train_step(state0, SEED, *xy), reps=2))
     del ld0, trainer0, state0
     return launches0
 
 
 def train_phases(device, cfg, smi, per_train, weights, zero_counts, read_counts, prefix="",
-                 rate0=True):
+                 rate0=True, depth1=False):
     """``train_rate0`` (dropout rates 0, depth [1,1]: ``rate0_phases``; not
     run when ``rate0`` is False), then ``train_grads``, ``train`` and
     ``profile_train_step`` at the configuration's own rates, all at its
-    widths and depth on ``device``, each phase's name after ``prefix``;
+    widths on ``device`` (``train_grads`` with the UNet cut to depth [1,1],
+    the others at the configuration's depth, or at [1,1] too with ``depth1``),
+    each phase's name after ``prefix``;
     ``per_train`` is ``path_launches``' count per micro-step of each kernel,
     ``weights`` the state dicts of "unet" and "vae".  Returns the kernels' launch
     counts of the ``train_rate0`` optimizer step and of the ``fit`` run."""
     import numpy as np
     import torch
-    from prediff_torch.config import ConfigDict, deep_merge
     from prediff_torch.datasets.synthetic import synthetic_batch_iterator
     from prediff_torch.factory import build_training_pipeline
     from prediff_torch.models.init import init_params_
@@ -4071,9 +4259,17 @@ def train_phases(device, cfg, smi, per_train, weights, zero_counts, read_counts,
         launches_by_phase[f"{prefix}train_rate0"] = rate0_phases(
             card_vs_cpu, cfg, weights["vae"], xy, device, zero_counts, read_counts, prefix)
 
-    # The recipe's rates, full depth: one loss and backward, the card against the CPU.
+    # The recipe's rates: one loss and backward, the card against the CPU, on a
+    # randomized UNet cut to depth [1,1] (the same widths and shapes; the CPU's
+    # backward at full depth took 30-45 s a phase).  fit below runs at full depth.
+    cfg1, weights1, per1 = depth1_unet(cfg, weights["vae"])
+    card_vs_cpu(f"{prefix}train_grads", cfg1, weights1, DROP_SEED,
+                expected_train_launches(per1, 1, 0, dropout=True))
+    if depth1:
+        cfg, weights, per_train = cfg1, weights1, per1
     per_micro = expected_train_launches(per_train, 1, 0, dropout=True)
-    ld, trainer = card_vs_cpu(f"{prefix}train_grads", cfg, weights, DROP_SEED, per_micro)
+    ld = build_training_pipeline(cfg, device=device, params=weights)
+    trainer = make_trainer(ld, cfg)
 
     # fit: a few accumulated optimizer steps on one synthetic batch repeated,
     # validation on the EMA weights, a checkpoint, its restore.  The UNet starts
@@ -4136,7 +4332,6 @@ def train_phases(device, cfg, smi, per_train, weights, zero_counts, read_counts,
     expected = expected_train_launches(per_train, micro_steps, len(val_losses), dropout=True)
     steady = sorted(m["ms"] for m in micro[2:])
     ms_per_micro = steady[len(steady) // 2]
-    PHASE_NUMBERS[f"{prefix}train"] = ms_per_micro
     step_loss = [sum(m["loss"] for m in micro[i:i + TRAIN_ACCUM]) / TRAIN_ACCUM
                  for i in range(0, micro_steps, TRAIN_ACCUM)]
     emit({"phase": f"{prefix}train", "batch": B, "accum_steps": TRAIN_ACCUM, "dropout": rates,
@@ -4586,10 +4781,12 @@ def align_train_phases(device, smi, per, zero_counts, read_counts):
 
 # --------------------------------------------------------------------------- #
 # The command-line programs (prediff_torch/cli) at full width: the cli_* phases
+CLI_PHASES = ("cli_sample", "cli_train", "cli_test", "cli_vae", "cli_align", "cli_convert",
+              "cli_learning_check")   # each a function of this name
 CLI_PACKAGES = ("h5py", "pandas", "matplotlib")   # the programs' data and panels need them
 CLI_CONTEXTS = 2          # cli_sample: contexts x members, guided DDIM
 CLI_MEMBERS = 2
-CLI_DDIM_STEPS = 50       # cli_sample, and cli_train's validation (the recipe's val_ddim_steps)
+CLI_DDIM_STEPS = 20       # cli_sample, and cli_train's validation (the recipe's: 50)
 CLI_TRAIN_MICRO_STEPS = 6     # at accum 2: three optimizer steps (as `train`), then a validation
 CLI_TEST_DDIM_STEPS = 20
 CLI_TRAINER_STEPS = 3     # cli_vae, cli_align
@@ -4612,7 +4809,7 @@ class WindowModule:
     """A test double of ``datasets.SEVIRDataModule`` for a host without h5py
     or pandas: seeded synthetic windows (``synthetic_batch_iterator``,
     (B, seq_len, H, W, 1) numpy in [0, 1]) in memory, with the methods and
-    the property the programs' functions below ``main`` read."""
+    the properties the programs' functions below ``main`` read."""
 
     def __init__(self, batch: int, seq_len: int, size: int, n_train: int, n_val: int = 1,
                  n_test: int = 1, seed: int = SEED):
@@ -4626,6 +4823,7 @@ class WindowModule:
         self._val = windows(n_val, seed + 1)
         self._test = windows(n_test, seed + 2)
         self.num_train_samples = n_train * batch
+        self.num_val_samples = n_val * batch
 
     def train_batches(self, epoch_seed: int = 0):
         yield from self._train
@@ -4751,7 +4949,7 @@ def chain_launches(per, unguided_steps: int = 0, guided_steps: int = 0) -> dict:
             for k, v in per.items()}
 
 
-def cli_phases(device, smi, weights, per, zero_counts, read_counts) -> dict:
+def cli_phases(device, smi, weights, per, zero_counts, read_counts, names=None) -> dict:
     """The programs of ``prediff_torch/cli`` at full width on ``device``,
     each with the kernels' launch counts set to 0 just before it and read
     just after the program, before the phase's own checks launch anything
@@ -4759,7 +4957,7 @@ def cli_phases(device, smi, weights, per, zero_counts, read_counts) -> dict:
     read at its end), a spy on every plain version (no call on the card)
     and its printed lines kept (``stdout_tail``): ``cli_sample``,
     ``cli_train``, ``cli_test``, ``cli_vae``, ``cli_align``, ``cli_convert``
-    and ``cli_learning_check``.  A phase whose line has
+    and ``cli_learning_check`` (``CLI_PHASES``; ``names``: those alone).  A phase whose line has
     ``expected_launches`` is held to them exactly.  ``weights``: the
     randomized v1 state dicts of "unet", "vae" and "align" (the trainers
     start from the seeded initialisation, as a run does); ``per``:
@@ -4781,10 +4979,8 @@ def cli_phases(device, smi, weights, per, zero_counts, read_counts) -> dict:
 
     t_all = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
-        phases = (("cli_sample", cli_sample), ("cli_train", cli_train), ("cli_test", cli_test),
-                  ("cli_vae", cli_vae), ("cli_align", cli_align), ("cli_convert", cli_convert),
-                  ("cli_learning_check", cli_learning_check))
-        for phase, fn in phases:
+        for phase in CLI_PHASES if names is None else names:
+            fn = globals()[phase]
             os.makedirs(os.path.join(root, phase))
             out = io.StringIO()
             install()
@@ -4820,7 +5016,8 @@ def cli_phases(device, smi, weights, per, zero_counts, read_counts) -> dict:
                 fail(f"{phase}: launches [counted, expected] {wrong}")
             if line.get("failed"):
                 fail(f"{phase}: {line['failed']}")
-    emit({"phase": "cli_all", "seconds": time.perf_counter() - t_all, "card": smi})
+    emit({"phase": "cli_all", "phases": list(launches), "seconds": time.perf_counter() - t_all,
+          "card": smi})
     return launches
 
 
@@ -4921,14 +5118,14 @@ def cli_sample(device, route, root, weights, per, mark):
 
 
 def cli_train(device, route, root, weights, per, mark):
-    """``train_sevirlr_prediff`` at ``total_batch_size`` 4 (accum 2):
-    ``CLI_TRAIN_MICRO_STEPS`` micro-steps through ``fit`` and one validation
-    at ``CLI_DDIM_STEPS`` DDIM steps on the data-index-0 example (aligned
-    and unaligned suites, the train example); ``metrics.jsonl`` holds the
-    JAX script's keys and ``valid_loss_epoch == -valid_csi_avg_epoch``; a
-    resume from ``ckpt_last`` continues at the saved step.  Wall ms per
-    micro-step beside the ``train`` phase's at the same shapes, by the same
-    statistic (the median of micro-steps 3-6, the upper of the middle two)."""
+    """``train_sevirlr_prediff`` at ``total_batch_size`` 4 (accum 2), the
+    UNet cut to depth [1,1]: ``CLI_TRAIN_MICRO_STEPS`` micro-steps through
+    ``fit`` and one validation at ``CLI_DDIM_STEPS`` DDIM steps on the
+    data-index-0 example (aligned and unaligned suites, the train example);
+    ``metrics.jsonl`` holds the JAX script's keys and ``valid_loss_epoch ==
+    -valid_csi_avg_epoch``; a resume from ``ckpt_last`` continues at the
+    saved step.  Wall ms per micro-step: the median of micro-steps 3-6, the
+    upper of the middle two."""
     import numpy as np
     from prediff_torch.cli import train_sevirlr_prediff as tp
     from prediff_torch.config import prediff_default_config
@@ -4936,6 +5133,7 @@ def cli_train(device, route, root, weights, per, mark):
     from prediff_torch.utils.checkpoint import all_steps
 
     cfg = prediff_default_config()
+    cfg.model.latent_model.depth = [1, 1]
     cfg.optim.total_batch_size = 2 * cfg.optim.micro_batch_size
     cfg.eval.val_ddim_steps = CLI_DDIM_STEPS
     n = CLI_TRAIN_MICRO_STEPS
@@ -4986,9 +5184,9 @@ def cli_train(device, route, root, weights, per, mark):
         failed.append(f"ckpt_last steps {saved}")
     if first not in (None, [n, n // tp.accum_steps(cfg)]):
         failed.append(f"(micro-steps, optimizer steps) {first} after the first run")
-    return ({"route": route, "micro_steps": n, "accum_steps": tp.accum_steps(cfg),
+    return ({"route": route, "depth": list(cfg.model.latent_model.depth), "micro_steps": n,
+             "accum_steps": tp.accum_steps(cfg),
              "micro_step_ms": steps.ms, "ms_per_micro_step": median(steps.ms[2:n]),
-             "train_phase_ms_this_run": PHASE_NUMBERS.get("train"),
              "steps_after_first_run": first,
              "resumed_at_step": steps.steps[n:],
              "ckpt_last_steps": saved, "val_records": len(val),
@@ -5596,8 +5794,42 @@ def mesh_phases(device, smi, cfg, weights, per, diagnose: bool = False) -> dict:
                 fail(f"{name}: {failed}")
             launches[name] = res[0][name]["launches"]
     emit({"phase": "mesh_all", "seconds": time.perf_counter() - t_all,
-          "children_seconds": children_s, "card": smi})
+          "children_seconds": children_s, "reference_seconds": t0 - t_all,
+          "rank_stages_s": [r["stages_s"] for r in res], "card": smi})
     return launches
+
+
+def counted_phase(device, counters, spy, fn, want) -> dict:
+    """``fn()``'s line with the kernels' counts set to 0 just before and read
+    just after (``counters``: ``kernel_counters()``), a spy on the plain
+    versions (``spy``: ``plain_spy()``); ``want(line)`` the exact launches
+    (None: not checked).  Failures go to the line's ``failed``."""
+    zero_counts, read_counts = counters
+    install, spied, remove = spy
+    install()
+    try:
+        zero_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        line = fn()
+        sync(device)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        remove()
+    plain, _ = spied()
+    line = {**line, "seconds": seconds, "launches": {k: v for k, v in counts.items() if v},
+            "plain_calls_on_card": plain}
+    failed = line.setdefault("failed", [])
+    if plain:
+        failed.append(f"plain versions ran on the card: {plain}")
+    want = want(line)
+    if want is not None:
+        wrong = {k: [n, want.get(k, 0)] for k, n in counts.items() if n != want.get(k, 0)}
+        line["expected_launches"] = want
+        if wrong:
+            failed.append(f"launches [counted, expected] {wrong}")
+    return line
 
 
 def mesh_child(root: str, rank: int) -> int:
@@ -5629,35 +5861,13 @@ def mesh_child(root: str, rank: int) -> int:
     set_numerics()
     zero_counts, read_counts = kernel_counters()
     install, spied, remove = plain_spy()
-    out = {}
+    stages = {"loaded": time.perf_counter() - T0}   # seconds since the process started
+    out = {"stages_s": stages}
 
     def phase(name, fn, want):
-        """``fn()`` with the counts set to 0 just before and read just after,
-        a spy on the plain versions; ``want(line)`` the exact launches."""
-        install()
-        try:
-            zero_counts()
-            sync(device)
-            t0 = time.perf_counter()
-            line = fn()
-            sync(device)
-            seconds = time.perf_counter() - t0
-            counts = read_counts()
-        finally:
-            remove()
-        plain, _ = spied()
-        line = {**line, "seconds": seconds, "launches": {k: v for k, v in counts.items() if v},
-                "plain_calls_on_card": plain}
-        failed = line.setdefault("failed", [])
-        if plain:
-            failed.append(f"plain versions ran on the card: {plain}")
-        want = want(line)
-        if want is not None:
-            wrong = {k: [n, want.get(k, 0)] for k, n in counts.items() if n != want.get(k, 0)}
-            line["expected_launches"] = want
-            if wrong:
-                failed.append(f"launches [counted, expected] {wrong}")
-        out[name] = line
+        out[name] = counted_phase(device, (zero_counts, read_counts),
+                                  (install, spied, remove), fn, want)
+        stages[name] = time.perf_counter() - T0
 
     def save(name, t):
         torch.save(t.cpu(), os.path.join(root, f"rank{rank}_{name}.pt"))
@@ -5667,6 +5877,7 @@ def mesh_child(root: str, rank: int) -> int:
                      device=device, timeout=120.0)
     predictor = PreDiffPredictor(cfg, params=weights, with_alignment=True)   # mesh="auto"
     ld, mesh = predictor.ld, predictor.mesh
+    stages["joined_and_built"] = time.perf_counter() - T0
     rows = local_batch_slice(members, mesh.size, mesh.index)
 
     def ensemble():
@@ -5850,6 +6061,465 @@ def mesh_child(root: str, rank: int) -> int:
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
+
+
+DDP_TRAIN_MICRO = 4       # ddp_train: 2 optimizer steps at accum 2, one sample a rank
+DDP_ACCUM = 2
+DDP_ALIGN_STEPS = 2       # ddp_align: one sample a rank
+DDP_VAE_FRAMES = 8        # ddp_vae: the global batch of frames, 4 a rank, at disc_start 0
+DDP_VAE_STEPS = 2
+# rel-L2 of the two ranks' reduced VAE-GAN gradients against one process on the whole
+# batch of 8 frames: a batch of 4 rounds otherwise than 8 in cuDNN, so the bar is the
+# vae_train_grads phase's card-vs-CPU one (measured on an H100: the generator's 1.7e-4,
+# the discriminator's 6.4e-4); each rank's own BatchNorm statistics (the control) must
+# miss it (measured 1.7e-2 / 0.12)
+DDP_VAE_TOL_REL_L2 = 1e-3
+DDP_TIMEOUT_S = 600       # a rank that has not finished by then is killed and the phase fails
+
+
+def bit_digest(tensors):
+    """Per tensor the int64 sums of its float32 bit patterns and of their
+    squares (wrapping): equal digests on two ranks mean equal bits but for a
+    cancellation no rounding difference makes in practice."""
+    import torch
+
+    rows = []
+    for t in tensors:
+        b = t.detach().contiguous().view(torch.int32).to(torch.int64)
+        rows.append(torch.stack([b.sum(), (b * b).sum()]))
+    return torch.stack(rows)
+
+
+def ddp_phases(device, smi, cfg, weights, per) -> dict:
+    """DDP training (``training.DiffusionTrainer`` / ``AlignmentTrainer`` /
+    ``VAETrainer`` with ``mesh=``) on ranks that are child processes of this
+    script (``--ddp-child``): two gloo ranks on the one card (their
+    collectives through the host), then rank 0 alone in an NCCL group of one.
+    First this process computes the VAE-GAN reference: one process's
+    gradients at ``DDP_VAE_FRAMES`` frames.  In the ranks:
+
+    - ``ddp_train``: the recipe's UNet (``weights``) at its rates (0.1), one
+      sample a rank, ``DDP_ACCUM`` micro-steps an optimizer step,
+      ``DDP_TRAIN_MICRO`` micro-steps.  Before them each rank's local
+      gradients against one process's at the rank's batch with the same
+      draws and element base, drawn here apart from the trainer (bit-equal),
+      and the all-reduced mean against the mean of the two ranks' (bit-equal);
+      then the micro-steps with exact launches, the ranks' states bit-equal
+      after each, ms per micro-step and per gradient all-reduce.
+    - ``ddp_align``: the same for the alignment net (``alignment_default_config``,
+      its seeded initialisation), ``DDP_ALIGN_STEPS`` steps.
+    - ``ddp_vae``: the VAE-GAN (``vae_training_default_config`` at
+      ``disc_start`` 0, seeded) on 4 frames a rank: its reduced gradients
+      within ``DDP_VAE_TOL_REL_L2`` of the one-process reference, each rank's
+      own BatchNorm statistics (the control) missing it, then
+      ``DDP_VAE_STEPS`` steps with the ranks bit-equal after each.
+    - ``ddp_nccl``: rank 0 in an NCCL group of one: a micro-step with the mesh
+      bit-equal to one without.
+
+    Two ranks on one card show no scaling.  Returns rank 0's launches by
+    phase."""
+    import torch
+    from prediff_torch.config import (alignment_default_config, save_yaml,
+                                      vae_training_default_config)
+    from prediff_torch.factory import build_vae_trainer
+
+    t_all = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        vcfg = vae_training_default_config()
+        vcfg.model.loss.disc_start = 0
+        for name, c in (("cfg", cfg), ("align", alignment_default_config()), ("vae", vcfg)):
+            save_yaml(c, os.path.join(root, f"{name}.yaml"))
+        torch.save({"unet": weights["unet"], "vae": weights["vae"]},
+                   os.path.join(root, "weights.pt"))
+        # the VAE-GAN reference: one process on the whole batch of frames
+        frames = torch.rand((DDP_VAE_FRAMES, vcfg.layout.img_height, vcfg.layout.img_width,
+                             vcfg.model.vae.in_channels), generator=torch.Generator().manual_seed(SEED + 41))
+        trainer = build_vae_trainer(vcfg, device=device, seed=SEED)
+        gen_state, disc_state, _ = trainer.create_states()
+        g, d, logs = trainer.grads(gen_state, disc_state, SEED, frames.to(device))
+        torch.save({"frames": frames, "gen": torch.cat([t.reshape(-1) for t in g]).cpu(),
+                    "disc": torch.cat([t.reshape(-1) for t in d]).cpu(),
+                    "logs": {k: float(v) for k, v in logs.items()}},
+                   os.path.join(root, "vae_reference.pt"))
+        del trainer, gen_state, disc_state, g, d
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        with open(os.path.join(root, "plan.json"), "w") as f:
+            json.dump({"device": str(device), "port": free_port(), "port2": free_port(),
+                       "nccl_backend": "nccl" if device.type == "cuda" else "gloo",
+                       "per": per}, f)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        t0 = time.perf_counter()
+        procs, logs_f = [], []
+        try:
+            for r in range(2):
+                logs_f.append(open(os.path.join(root, f"ddp{r}.log"), "w"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--ddp-child", root, str(r)],
+                    stdout=logs_f[-1], stderr=subprocess.STDOUT, env=env))
+            deadline = time.time() + DDP_TIMEOUT_S
+            for p in procs:
+                try:
+                    p.wait(timeout=max(1.0, deadline - time.time()))
+                except subprocess.TimeoutExpired:
+                    pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs_f:
+                f.close()
+        children_s = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(os.path.join(root, f"ddp{r}.log")) as f:
+                    fail(f"ddp rank {r} exited with {p.returncode}:\n{f.read()[-3000:]}")
+        res = []
+        for r in range(2):
+            with open(os.path.join(root, f"ddp{r}.json")) as f:
+                res.append(json.load(f))
+        for name in ("ddp_train", "ddp_align", "ddp_vae", "ddp_nccl"):
+            line = {"phase": name, **res[0][name], "card": smi}
+            if name in res[1]:
+                line["rank1"] = {k: v for k, v in res[1][name].items()
+                                 if k in ("launches", "ms_per_micro_step", "all_reduce_ms_and_bytes",
+                                          "seconds", "failed")}
+            if name != "ddp_nccl":
+                line["ms_are"] = "two ranks sharing one card: not scaling"
+            emit(line)
+            failed = list(res[0][name]["failed"]) + list(res[1].get(name, {}).get("failed", []))
+            if failed:
+                fail(f"{name}: {failed}")
+            launches[name] = res[0][name]["launches"]
+    emit({"phase": "ddp_all", "seconds": time.perf_counter() - t_all,
+          "children_seconds": children_s, "reference_seconds": t0 - t_all,
+          "rank_stages_s": [r["stages_s"] for r in res], "card": smi})
+    return launches
+
+
+def ddp_child(root: str, rank: int) -> int:
+    """One rank of ``ddp_phases`` (``--ddp-child ROOT RANK``): its results in
+    ``ROOT/ddp{RANK}.json``; a failed check is listed there, an error exits
+    non-zero."""
+    import torch
+    import torch.distributed as dist
+    from prediff_torch.cli import train_sevirlr_prediff as tp
+    from prediff_torch.config import (alignment_default_config, load_config,
+                                      prediff_default_config, vae_training_default_config)
+    from prediff_torch.diffusion.knowledge_alignment import avg_x_objective
+    from prediff_torch.factory import (build_alignment_trainer, build_training_pipeline,
+                                       build_vae_trainer)
+    from prediff_torch.parallel import all_reduce_mean, init_distributed, make_mesh
+    from prediff_torch.parallel.mesh import gather_parts
+    from prediff_torch.training import (alignment_trainer, diffusion_trainer, losses,
+                                        vae_trainer)
+    from prediff_torch.training.diffusion_trainer import step_dropout_seed, step_generator
+    from prediff_torch.utils.device import set_numerics
+    from prediff_torch.utils.distributions import DiagonalGaussianDistribution
+
+    stages = {"imports": time.perf_counter() - T0}   # seconds since the process started
+
+    def stage(name):
+        sync(device)
+        stages[name] = time.perf_counter() - T0
+
+    with open(os.path.join(root, "plan.json")) as f:
+        plan = json.load(f)
+    device = torch.device(plan["device"])
+    per = plan["per"]
+    cfg = load_config(prediff_default_config, os.path.join(root, "cfg.yaml"))
+    weights = torch.load(os.path.join(root, "weights.pt"))
+    set_numerics()
+    counters, spy = kernel_counters(), plain_spy()
+    out = {"stages_s": stages}
+    init_distributed(coordinator_address=f"localhost:{plan['port']}", num_processes=2,
+                     process_id=rank, backend="gloo", device=device, timeout=120.0)
+    mesh = make_mesh()
+    world = mesh.size
+    stage("joined")
+
+    def flat(ts):
+        return torch.cat([t.reshape(-1) for t in ts])
+
+    def same_on_ranks(tensors) -> bool:
+        digests = gather_parts(bit_digest(tensors).to(device), mesh)
+        return all(torch.equal(digests[0], x) for x in digests[1:])
+
+    def timed_reduce(module, ms):
+        """``module.all_reduce_mean`` timed (synchronized) into ``ms`` as
+        [ms, bytes] (the gradients' bucket and the losses' alike)."""
+        def timed(tensors, m):
+            sync(device)
+            t0 = time.perf_counter()
+            result = all_reduce_mean(tensors, m)
+            sync(device)
+            if m is not None:
+                ms.append([1e3 * (time.perf_counter() - t0),
+                           sum(t.numel() * t.element_size() for t in tensors)])
+            return result
+        module.all_reduce_mean = timed
+
+    def against_one_process(name, local, ref):
+        """Local gradients bit-equal to one process's at the rank's batch, and
+        their all-reduced mean bit-equal to the mean of both ranks' (the other
+        rank's reference read from the disk)."""
+        ref = flat(ref).cpu()
+        torch.save(ref, os.path.join(root, f"{name}_ref{rank}.pt"))
+        dist.barrier()
+        other = torch.load(os.path.join(root, f"{name}_ref{1 - rank}.pt"))
+        reduced = flat(all_reduce_mean(local, mesh)).cpu()
+        local = flat(local).cpu()
+        both = (ref + other) if rank == 0 else (other + ref)
+        line = {"local_bit_equal_to_one_process": bool(torch.equal(local, ref)),
+                "reduced_bit_equal_to_mean": bool(torch.equal(reduced, both / world)),
+                "local_rel_l2_to_one_process": rel_l2_and_cosine([local], [ref])[0]}
+        line["failed"] = [k for k in ("local_bit_equal_to_one_process",
+                                      "reduced_bit_equal_to_mean") if not line[k]]
+        return line
+
+    def posterior_rows(moments, generator, rows, total, scale):
+        """The rank's rows of a whole batch's posterior sample, drawn here
+        apart from the trainers: the noise of every frame of ``total``
+        samples, cut to ``rows``."""
+        B, T = moments.shape[:2]
+        post = DiagonalGaussianDistribution.from_parameters(
+            moments.float().reshape((-1,) + tuple(moments.shape[2:])))
+        eps = torch.randn((total * T,) + tuple(post.mean.shape[1:]), generator=generator,
+                          device=device)[rows.start * T:rows.stop * T]
+        z = scale * (post.mean + post.std * eps)
+        return z.reshape((B, T) + tuple(z.shape[1:]))
+
+    # ---- the diffusion trainer
+    img, d = cfg.layout, cfg.model.diffusion
+    B = 1
+    rows = slice(rank * B, (rank + 1) * B)
+    rs = torch.Generator().manual_seed(SEED + 51)
+    xs = [torch.rand((B * world, img.out_len, img.img_height, img.img_width, img.data_channels),
+                     generator=rs) for _ in range(DDP_TRAIN_MICRO)]
+    ys = [torch.rand((B * world, img.in_len, img.img_height, img.img_width, img.data_channels),
+                     generator=rs) for _ in range(DDP_TRAIN_MICRO)]
+    ld = build_training_pipeline(cfg, device=device, params=weights)
+    trainer = tp.make_trainer(cfg, ld, TRAIN_SCHEDULE_STEPS, DDP_ACCUM, latent_inputs=False,
+                              mesh=mesh)
+    state = trainer.create_state()
+    stage("train_state")
+    x0, y0 = xs[0][rows].to(device), ys[0][rows].to(device)
+    local, _ = trainer.grads(state, SEED, x0, y0, reduce=False)
+    gen = step_generator(SEED, 0, device)
+    with torch.no_grad():
+        z = posterior_rows(ld.first_stage_moments(x0.reshape((-1,) + tuple(x0.shape[2:])))
+                           .reshape((B, img.out_len) + tuple(d.latent_shape[1:3]) + (-1,)),
+                           gen, rows, B * world, ld.scale_factor)
+        zc = ld.cond_stage_forward(y0)
+    t = torch.randint(0, ld.num_timesteps, (B * world,), generator=gen, device=device)[rows]
+    noise = torch.randn((B * world,) + tuple(z.shape[1:]), generator=gen, device=device)[rows]
+    logvar = state.params["logvar"] if "logvar" in state.params else ld.init_logvar()
+    loss, _ = ld.p_losses(logvar, z, zc, t, noise, dropout_seed=step_dropout_seed(SEED, 0),
+                          dropout_first_row=rows.start)
+    check = against_one_process("train", local, torch.autograd.grad(loss, list(
+        state.params.values())))
+    stage("train_checked")
+    del local, loss
+    reduce_ms = []
+    timed_reduce(diffusion_trainer, reduce_ms)
+
+    def train():
+        nonlocal state
+        micro_ms, equal = [], []
+        for i in range(DDP_TRAIN_MICRO):
+            sync(device)
+            t1 = time.perf_counter()
+            state, _ = trainer.train_step(state, SEED, xs[i][rows].to(device),
+                                          ys[i][rows].to(device))
+            sync(device)
+            micro_ms.append(1e3 * (time.perf_counter() - t1))
+            equal.append(same_on_ranks(state.tensors()))
+        line = {**check, "ranks": world, "backend": mesh.backend, "samples_per_rank": B,
+                "accum_steps": DDP_ACCUM, "micro_steps": DDP_TRAIN_MICRO,
+                "optimizer_steps": state.tx.count, "ms_per_micro_step": micro_ms,
+                "all_reduce_ms_and_bytes": list(reduce_ms), "ranks_bit_equal_after_each_step": equal,
+                "gradient_bytes": 4 * sum(p.numel() for p in state.params.values())}
+        if not all(equal):
+            line["failed"].append(f"the ranks' states differ after a micro-step: {equal}")
+        return line
+
+    per_train = {k: v["per_train"] for k, v in per.items()}
+    out["ddp_train"] = counted_phase(
+        device, counters, spy, train,
+        lambda line: expected_train_launches(per_train, DDP_TRAIN_MICRO, 0, True))
+    stage("train_done")
+    del trainer, state, ld
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- the alignment trainer
+    acfg = load_config(alignment_default_config, os.path.join(root, "align.yaml"))
+    atrainer = build_alignment_trainer(acfg, device=device, seed=SEED, mesh=mesh)
+    astate = atrainer.create_state()
+    ax = [torch.rand((world, acfg.layout.out_len, acfg.layout.img_height,
+                      acfg.layout.img_width, 1), generator=rs) for _ in range(DDP_ALIGN_STEPS)]
+    ay = [torch.rand((world, acfg.layout.in_len, acfg.layout.img_height,
+                      acfg.layout.img_width, 1), generator=rs) for _ in range(DDP_ALIGN_STEPS)]
+    x0, y0 = ax[0][rows].to(device), ay[0][rows].to(device)
+    local, _ = atrainer.grads(astate, SEED, x0, y0, reduce=False)
+    gen = step_generator(SEED, 0, device)
+    with torch.no_grad():
+        moments = atrainer.vae.encode_moments(x0.reshape((-1,) + tuple(x0.shape[2:])))
+        z = posterior_rows(moments.reshape((B, -1) + tuple(moments.shape[1:])), gen, rows,
+                           world, atrainer.scale_factor)
+    t = torch.randint(0, atrainer.schedule.num_timesteps, (world,), generator=gen,
+                      device=device)[rows]
+    noise = torch.randn((world,) + tuple(z.shape[1:]), generator=gen, device=device)[rows]
+    loss, _ = atrainer.p_losses(z, t, noise, avg_x_objective(x0),
+                                dropout_seed=step_dropout_seed(SEED, 0),
+                                dropout_first_row=rows.start)
+    check = against_one_process("align", local,
+                                torch.autograd.grad(loss, list(astate.params.values())))
+    reduce_ms = []
+    timed_reduce(alignment_trainer, reduce_ms)
+
+    def align():
+        nonlocal astate
+        step_ms, equal = [], []
+        for i in range(DDP_ALIGN_STEPS):
+            sync(device)
+            t1 = time.perf_counter()
+            astate, _ = atrainer.train_step(astate, SEED, ax[i][rows].to(device),
+                                            ay[i][rows].to(device))
+            sync(device)
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+            equal.append(same_on_ranks(astate.tensors()))
+        line = {**check, "ranks": world, "samples_per_rank": B, "steps": DDP_ALIGN_STEPS,
+                "ms_per_micro_step": step_ms, "all_reduce_ms_and_bytes": list(reduce_ms),
+                "ranks_bit_equal_after_each_step": equal}
+        if not all(equal):
+            line["failed"].append(f"the ranks' states differ after a step: {equal}")
+        return line
+
+    out["ddp_align"] = counted_phase(
+        device, counters, spy, align,
+        lambda line: align_train_launches(per, DDP_ALIGN_STEPS, dropout=True))
+    stage("align_done")
+    del atrainer, astate
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- the VAE-GAN
+    vcfg = load_config(vae_training_default_config, os.path.join(root, "vae.yaml"))
+    ref = torch.load(os.path.join(root, "vae_reference.pt"))
+    vrows = slice(rank * DDP_VAE_FRAMES // world, (rank + 1) * DDP_VAE_FRAMES // world)
+    frames = ref["frames"][vrows].to(device)
+    vtrainer = build_vae_trainer(vcfg, device=device, seed=SEED, mesh=mesh)
+    gen_state, disc_state, stats = vtrainer.create_states()
+    stage("vae_state")
+
+    def vae_rel():
+        g, dg, logs = vtrainer.grads(gen_state, disc_state, SEED, frames)
+        return (rel_l2_and_cosine([flat(g).cpu()], [ref["gen"]])[0],
+                rel_l2_and_cosine([flat(dg).cpu()], [ref["disc"]])[0],
+                {k: float(v) for k, v in logs.items()})
+
+    gen_rel, disc_rel, logs = vae_rel()
+    reduce_sum = losses.all_reduce_sum_grad
+    kept = {k: v.clone() for k, v in stats.items()}
+    losses.all_reduce_sum_grad = lambda t, m: t * m.size   # each rank's own statistics
+    try:
+        gen_rel_local, disc_rel_local, _ = vae_rel()
+    finally:
+        losses.all_reduce_sum_grad = reduce_sum
+        for k, v in kept.items():   # the control's own statistics do not stay
+            stats[k].copy_(v)
+    reduce_ms = []
+    timed_reduce(vae_trainer, reduce_ms)
+
+    def vae():
+        nonlocal gen_state, disc_state, stats
+        step_ms, equal = [], []
+        for _ in range(DDP_VAE_STEPS):
+            sync(device)
+            t1 = time.perf_counter()
+            gen_state, disc_state, stats, _ = vtrainer.train_step(gen_state, disc_state, stats,
+                                                                  SEED, frames)
+            sync(device)
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+            equal.append(same_on_ranks(gen_state.tensors() + disc_state.tensors()
+                                       + list(stats.values())))
+        worst = max(abs(logs[k] - v) / max(abs(v), 1e-30) for k, v in ref["logs"].items())
+        line = {"ranks": world, "frames_per_rank": frames.shape[0], "disc_start": 0,
+                "gen_rel_l2_vs_one_process": gen_rel, "disc_rel_l2_vs_one_process": disc_rel,
+                "logs_worst_rel_vs_one_process": worst,
+                "no_reduce_gen_rel_l2": gen_rel_local, "no_reduce_disc_rel_l2": disc_rel_local,
+                "tol_rel_l2": DDP_VAE_TOL_REL_L2, "steps": DDP_VAE_STEPS,
+                "ms_per_micro_step": step_ms, "all_reduce_ms_and_bytes": list(reduce_ms),
+                "ranks_bit_equal_after_each_step": equal, "failed": []}
+        if not (gen_rel <= DDP_VAE_TOL_REL_L2 and disc_rel <= DDP_VAE_TOL_REL_L2):
+            line["failed"].append(f"reduced gradients {gen_rel} / {disc_rel} from one process")
+        if not max(gen_rel_local, disc_rel_local) > DDP_VAE_TOL_REL_L2:
+            line["failed"].append("without the statistics' all-reduce the gradients are within "
+                                  "the bar too: the bar tells nothing")
+        if not all(equal):
+            line["failed"].append(f"the ranks' states differ after a step: {equal}")
+        return line
+
+    out["ddp_vae"] = counted_phase(device, counters, spy, vae, lambda line: {})
+    stage("vae_done")
+    del vtrainer, gen_state, disc_state, stats
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+
+    if rank == 0:   # a group of one rank on NCCL: a micro-step with the mesh and without
+        init_distributed(coordinator_address=f"localhost:{plan['port2']}", num_processes=1,
+                         process_id=0, backend=plan["nccl_backend"], device=device,
+                         timeout=120.0)
+        ld = build_training_pipeline(cfg, device=device, params=weights)
+        x, y = xs[0][:1].to(device), ys[0][:1].to(device)
+
+        def step(m):
+            ld.unet.load_state_dict(weights["unet"])
+            tr = tp.make_trainer(cfg, ld, TRAIN_SCHEDULE_STEPS, 1, latent_inputs=False, mesh=m)
+            st = tr.create_state()
+            st, loss_dict = tr.train_step(st, SEED, x, y)
+            return bit_digest(st.tensors()).cpu(), float(loss_dict["train/loss"])
+
+        def nccl():
+            with_mesh, loss_mesh = step(make_mesh())
+            without, loss_one = step(None)
+            ok = torch.equal(with_mesh, without) and loss_mesh == loss_one
+            return {"ranks": 1, "backend": plan["nccl_backend"], "micro_steps": 2,
+                    "bit_equal_to_no_mesh": ok, "loss": loss_mesh,
+                    "note": "one card holds one NCCL rank: its all-reduce is the identity",
+                    "failed": [] if ok else ["the step on the mesh differs from one without"]}
+
+        out["ddp_nccl"] = counted_phase(
+            device, counters, spy, nccl,
+            lambda line: expected_train_launches(per_train, 2, 0, True))
+        dist.destroy_process_group()
+        stage("nccl_done")
+    with open(os.path.join(root, f"ddp{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def ddp_alone(device, smi):
+    """``--only ddp``: the randomized full-width models as ``run`` makes them,
+    then the ``ddp_*`` phases."""
+    import torch
+    from prediff_torch.config import prediff_default_config
+    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
+    from prediff_torch.models.init import init_params_
+
+    cfg = prediff_default_config()
+    gen = torch.Generator().manual_seed(SEED)
+    models = {key: init_params_(build(cfg), gen, randomize=True)
+              for key, build in (("unet", build_unet), ("vae", build_vae),
+                                 ("align", build_alignment_model))}
+    weights = {key: m.state_dict() for key, m in models.items()}
+    ddp_phases(device, smi, cfg, weights, path_launches(models["unet"], models["align"]))
 
 
 def mesh_alone(device, smi):

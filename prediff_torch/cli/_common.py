@@ -1,7 +1,8 @@
 """Pieces the programs share: the device flag, the experiment directory,
-several processes (``--multihost`` / ``--coordinator``: the evaluation joins
-its cluster, training refuses it), the synthetic dataset, eval mode for
-sampling and host batches as tensors."""
+several processes (``--multihost`` / ``--coordinator``: every program joins
+its cluster; the trainers then train on a mesh of every rank, each rank its
+shard of the events, the same number of batches on each), the synthetic
+dataset, eval mode for sampling and host batches as tensors."""
 import argparse
 import contextlib
 import os
@@ -10,8 +11,8 @@ from typing import Iterator, Optional
 import torch
 from torch import nn
 
-from ..parallel.mesh import barrier, init_distributed, make_mesh, process_count, process_index
-from ..training.diffusion_trainer import DDP_SLICE
+from ..parallel.mesh import (DataMesh, barrier, gather_parts, init_distributed, make_mesh,
+                             process_count, process_index)
 from ..utils.device import resolve_device
 
 
@@ -25,15 +26,6 @@ def experiment_dir(save: str) -> str:
     return os.path.join("experiments", save)
 
 
-def refuse_multihost(args: argparse.Namespace) -> None:
-    """Training on several processes (DDP) is not ported: raise for
-    ``--multihost``, ``--coordinator`` or ``--nodes`` above 1."""
-    if (getattr(args, "multihost", False) or getattr(args, "coordinator", None)
-            or getattr(args, "nodes", 1) > 1):
-        raise NotImplementedError(f"--multihost / --coordinator / --nodes > 1: training on "
-                                  f"more than one process is not ported ({DDP_SLICE})")
-
-
 def join_processes(args: argparse.Namespace) -> torch.device:
     """The JAX scripts' ``--multihost`` / ``--coordinator host:port``: join
     the cluster that ``torchrun``'s environment or the coordinator names
@@ -45,6 +37,20 @@ def join_processes(args: argparse.Namespace) -> torch.device:
     if args.device is None and process_count() > 1:
         return resolve_device(make_mesh().device)
     return resolve_device(args.device)
+
+
+def training_mesh(device) -> Optional[DataMesh]:
+    """The trainers' mesh: every rank, on ``device``; None for one process."""
+    return make_mesh(device=device) if process_count() > 1 else None
+
+
+def equal_count(n: int, mesh: Optional[DataMesh]) -> int:
+    """The fewest of the ranks' ``n``: the batches each rank takes, so that
+    the steps' collectives pair up (a rank's shard of the events may hold a
+    batch more)."""
+    if mesh is None:
+        return n
+    return min(int(v) for v in gather_parts(torch.tensor([int(n)], device=mesh.device), mesh))
 
 
 def sevir_dir_of(args: argparse.Namespace, synthetic_root: str, cfg, num_events: int

@@ -2,13 +2,19 @@
 regresses the per-frame mean intensity of the target from q-sampled noisy
 latents, through the frozen VAE (published weights from
 ``--pretrained-dir``) or from a latent cache (``--latents``); the trainer of
-``factory.build_alignment_trainer``, ``ckpt_align`` at the end.
-Counterpart of ``scripts/train_sevirlr_avg_x.py``.
+``factory.build_alignment_trainer``, ``ckpt_align`` at the end.  With
+``--multihost`` it trains on a mesh of every rank (``AlignmentTrainer(mesh=)``):
+each rank loads ``micro_batch_size`` windows of its shard of the events a
+micro-step, the same number on every rank, and rank 0 alone writes the
+checkpoint and the metrics.  Counterpart of ``scripts/train_sevirlr_avg_x.py``.
 
     python -m prediff_torch.cli.train_sevirlr_avg_x --save align0 --pretrained-dir /path/to/pt
     python -m prediff_torch.cli.train_sevirlr_avg_x --save smoke --synthetic --max-steps 5 --device cpu
+    torchrun --nproc_per_node=2 -m prediff_torch.cli.train_sevirlr_avg_x --save smoke --multihost \
+        --synthetic --max-steps 2 --device cpu
 """
 import argparse
+import itertools
 import os
 import sys
 from typing import Dict, List, Optional
@@ -17,10 +23,11 @@ from ..config import alignment_default_config, load_config, save_yaml
 from ..datasets import SEVIRDataModule, prefetch_to_device
 from ..factory import build_alignment_trainer, build_vae
 from ..training import MetricLogger
-from ..utils.checkpoint import PRETRAINED_NAMES, load_torch_state_dict, save_checkpoint
-from ..utils.device import resolve_device
+from ..utils.checkpoint import PRETRAINED_NAMES, load_torch_state_dict, save_checkpoint, writes
+from ..parallel.mesh import process_count, process_index
 from ..utils.layout import layout_to_in_out_slice
-from ._common import add_device, experiment_dir, refuse_multihost, sevir_dir_of
+from ._common import (add_device, equal_count, experiment_dir, join_processes, sevir_dir_of,
+                      training_mesh)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -34,8 +41,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="train from a pre-encoded VAE latent cache (precompute_latents)")
     p.add_argument("--max-steps", default=None, type=int)
     p.add_argument("--multihost", action="store_true",
-                   help="training on several processes (not ported: raises)")
-    p.add_argument("--coordinator", default=None, type=str)
+                   help="train on a mesh of the processes torchrun (or --coordinator) names")
+    p.add_argument("--coordinator", default=None, type=str,
+                   help="coordinator address for --multihost (host:port)")
     add_device(p)
     return p.parse_args(argv)
 
@@ -47,7 +55,8 @@ def data_module(cfg, args: argparse.Namespace, save_dir: str) -> SEVIRDataModule
         dataset_name=d.dataset_name,
         sevir_dir=sevir_dir_of(args, os.path.join(save_dir, "synthetic_sevirlr"), cfg, 16),
         train_test_split_date=d.train_test_split_date, val_ratio=d.val_ratio,
-        batch_size=cfg.optim.micro_batch_size, seed=cfg.optim.seed)
+        batch_size=cfg.optim.micro_batch_size, seed=cfg.optim.seed,
+        num_shard=process_count(), rank=process_index())
     dm.setup()
     return dm
 
@@ -62,14 +71,17 @@ def train(args: argparse.Namespace, cfg, dm, device, save_dir: str) -> Dict[str,
     if args.pretrained_dir:
         params["vae"] = load_torch_state_dict(
             os.path.join(args.pretrained_dir, PRETRAINED_NAMES["vae"]), build_vae(cfg))
+    mesh = training_mesh(device)
     trainer = build_alignment_trainer(cfg, device=device, params=params, seed=o.seed,
                                       total_num_steps=args.max_steps or 30_000,
-                                      latent_inputs=args.latents is not None)
+                                      latent_inputs=args.latents is not None, mesh=mesh)
+    n_train = equal_count(dm.num_train_samples // max(1, o.micro_batch_size), mesh)
     state = trainer.create_state()
     in_slice, out_slice = layout_to_in_out_slice(cfg.layout.layout, cfg.layout.in_len,
                                                  cfg.layout.out_len)
-    logger = MetricLogger(save_dir, use_wandb=cfg.logging.use_wandb,
-                          run_name=cfg.logging.logging_prefix, config=cfg.to_dict())
+    logger = (MetricLogger(save_dir, use_wandb=cfg.logging.use_wandb,
+                           run_name=cfg.logging.logging_prefix, config=cfg.to_dict())
+              if writes(mesh) else None)
     latent_cache = None
     if args.latents:
         from ..datasets.latents import LatentCache
@@ -87,20 +99,20 @@ def train(args: argparse.Namespace, cfg, dm, device, save_dir: str) -> Dict[str,
         else:
             items = ((b[out_slice], b[in_slice]) for b in dm.train_batches(epoch)
                      if b.shape[0] == o.micro_batch_size)
-        yield from prefetch_to_device(items, size=2, device=device)
+        yield from prefetch_to_device(itertools.islice(items, n_train), size=2, device=device)
 
     step, metrics = 0, {}
     for epoch in range(o.max_epochs):
         for args_b in batches(epoch):
             state, metrics = trainer.train_step(state, o.seed, *args_b)
             step += 1
-            if step % 50 == 0:
+            if logger is not None and step % 50 == 0:
                 logger.log(step, metrics)
             if args.max_steps and step >= args.max_steps:
                 break
         if args.max_steps and step >= args.max_steps:
             break
-    save_checkpoint(os.path.join(save_dir, "ckpt_align"), state)
+    save_checkpoint(os.path.join(save_dir, "ckpt_align"), state, mesh=mesh)
     metrics = {k: float(v) for k, v in metrics.items()}
     print(f"alignment training done at step {step}; "
           f"relative_mae={metrics['relative_mae']:.4f}", flush=True)
@@ -109,12 +121,12 @@ def train(args: argparse.Namespace, cfg, dm, device, save_dir: str) -> Dict[str,
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    refuse_multihost(args)
-    device = resolve_device(args.device)
+    device = join_processes(args)
     cfg = load_config(alignment_default_config, args.cfg)
     save_dir = experiment_dir(args.save)
     os.makedirs(save_dir, exist_ok=True)
-    save_yaml(cfg, os.path.join(save_dir, "cfg.yaml"))
+    if process_index() == 0:
+        save_yaml(cfg, os.path.join(save_dir, "cfg.yaml"))
     train(args, cfg, data_module(cfg, args, save_dir), device, save_dir)
     return 0
 

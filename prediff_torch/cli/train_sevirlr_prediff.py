@@ -11,8 +11,16 @@ forecasts of the example windows scored by the aligned and unaligned suites,
 (skill scores, MSE / MAE / SSIM, CRPS, FVD), ``.npy`` dumps and an example
 PNG; with ``--multihost`` on several ranks (``torchrun``) each rank scores its
 shard of the test events, the suites are summed across the ranks
-(``cross_process_reduce``) and rank 0 logs them.  Training on several ranks
-is not ported (DDP: the next slice).  Counterpart of
+(``cross_process_reduce``) and rank 0 logs them.  Training with
+``--multihost`` runs on a mesh of every rank (``DiffusionTrainer(mesh=)``):
+each rank loads ``micro_batch_size`` windows of its shard of the events a
+micro-step, as the JAX script loads them per process, so a micro-step's
+global batch is ``micro_batch_size x ranks``; the gradients are all-reduced
+every micro-step, the same number of batches runs on every rank, and rank 0
+alone writes checkpoints, metrics and panels.  An optimizer step sums
+``accum_steps`` micro-steps: the JAX script's
+``total_batch_size // (micro_batch_size x devices x --nodes)``, the devices
+being the mesh's ranks (:func:`accum_steps`).  Counterpart of
 ``scripts/train_sevirlr_prediff.py``; its draws come from
 ``step_generator(cfg.optim.seed, n)`` with the JAX script's numbers ``n``.
 
@@ -21,8 +29,13 @@ is not ported (DDP: the next slice).  Counterpart of
     python -m prediff_torch.cli.train_sevirlr_prediff --save smoke --synthetic --max-steps 10 --device cpu
     torchrun --nproc_per_node=8 -m prediff_torch.cli.train_sevirlr_prediff --save exp0 --test \
         --multihost --pretrained-dir /path/to/pt
+    torchrun --nproc_per_node=8 -m prediff_torch.cli.train_sevirlr_prediff --save exp0 \
+        --multihost --pretrained-dir /path/to/pt
+    torchrun --nproc_per_node=2 -m prediff_torch.cli.train_sevirlr_prediff --save smoke \
+        --multihost --synthetic --max-steps 2 --device cpu --cfg configs/tiny_smoke.yaml
 """
 import argparse
+import itertools
 import os
 import sys
 from typing import Callable, Dict, List, Optional, Tuple
@@ -43,8 +56,9 @@ from ..training.train_state import EmaTrainState
 from ..utils.checkpoint import (PRETRAINED_NAMES, load_torch_state_dict, restore_checkpoint,
                                 save_checkpoint)
 from ..utils.layout import layout_to_in_out_slice
-from ._common import (add_device, as_tensor, eval_mode, experiment_dir, join_processes,
-                      refuse_multihost, sevir_dir_of)
+from ..utils.checkpoint import writes
+from ._common import (add_device, as_tensor, equal_count, eval_mode, experiment_dir,
+                      join_processes, sevir_dir_of, training_mesh)
 
 # the JAX script's draw numbers (the data it folds into its key)
 VAL_SAMPLE = 7919        # validation n, batch b: 7919 * n + b
@@ -74,8 +88,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--timesteps", default=None, type=int,
                    help="truncate the DDPM chain during eval")
     p.add_argument("--multihost", action="store_true",
-                   help="join the processes torchrun (or --coordinator) names; --test only "
-                        "(training on several processes is not ported: raises)")
+                   help="join the processes torchrun (or --coordinator) names: training on a "
+                        "mesh of every rank, or --test scored across them")
     p.add_argument("--coordinator", default=None, type=str,
                    help="coordinator address for --multihost (host:port)")
     add_device(p)
@@ -121,15 +135,19 @@ def build_models(cfg, args: argparse.Namespace, device) -> LatentDiffusion:
                           seed=cfg.optim.seed, trainable_unet=not args.test)
 
 
-def accum_steps(cfg, nodes: int = 1) -> int:
-    """Micro-steps per optimizer step, one device per node."""
-    return max(1, cfg.optim.total_batch_size // (cfg.optim.micro_batch_size * nodes))
+def accum_steps(cfg, devices: int = 1, nodes: int = 1) -> int:
+    """Micro-steps per optimizer step: the JAX script's ``total_batch_size //
+    (micro_batch_size x devices x nodes)``, ``devices`` the training mesh's
+    ranks (one card a rank), ``nodes`` its ``--nodes``.  On several hosts the
+    ranks already count every host's cards, so ``--nodes`` above 1 counts
+    them twice, as the JAX formula does (ROADMAP.md section 4)."""
+    return max(1, cfg.optim.total_batch_size // (cfg.optim.micro_batch_size * devices * nodes))
 
 
 def make_trainer(cfg, ld: LatentDiffusion, total_steps: int, accum: int,
-                 latent_inputs: bool) -> DiffusionTrainer:
-    """The recipe's trainer; the TPU knobs of the configuration go to it, and
-    one it does not take raises there."""
+                 latent_inputs: bool, mesh=None) -> DiffusionTrainer:
+    """The recipe's trainer (on ``mesh`` when given); the TPU knobs of the
+    configuration go to it, and one it does not take raises there."""
     o = cfg.optim
     return DiffusionTrainer(
         ld, optim_config=dict(
@@ -141,7 +159,7 @@ def make_trainer(cfg, ld: LatentDiffusion, total_steps: int, accum: int,
         use_ema=cfg.model.diffusion.use_ema,
         # Lightning semantics: track_grad_norm=-1 is off, p >= 1 logs norms
         track_grad_norm=cfg.logging.track_grad_norm != -1,
-        latent_inputs=latent_inputs, prng_impl=o.get("prng_impl", "auto"),
+        latent_inputs=latent_inputs, mesh=mesh, prng_impl=o.get("prng_impl", "auto"),
         flat_update=o.get("flat_update", False), pack_small_thr=o.get("pack_small_thr", 0),
         matmul_precision=o.get("matmul_precision", None),
         conv3d_impl=o.get("conv3d_impl", "auto"), ema_dtype=o.get("ema_dtype", None))
@@ -160,13 +178,21 @@ def train(args: argparse.Namespace, cfg, dm, device, save_dir: str,
     batches (or the latent cache of ``--latents``) on ``device``, validating
     as the configuration says; ``ckpt_last`` under ``save_dir`` at the end.
     ``dm`` needs ``train_batches(epoch)``, ``val_batches()``,
-    ``num_train_samples`` and, with ``--latents``, ``train_latent_batches``."""
+    ``num_train_samples``, ``num_val_samples`` and, with ``--latents``,
+    ``train_latent_batches``.  On several ranks (the process group
+    ``--multihost`` joined) every rank trains on its shard, the same number
+    of batches an epoch."""
     ld = ld if ld is not None else build_models(cfg, args, device)
     o = cfg.optim
     seed = o.seed
-    total_steps = args.max_steps or dm.num_train_samples * o.max_epochs // max(1, o.micro_batch_size)
-    trainer = make_trainer(cfg, ld, total_steps, accum_steps(cfg, args.nodes),
-                           latent_inputs=args.latents is not None)
+    mesh = training_mesh(device)
+    micro = max(1, o.micro_batch_size)
+    n_train = equal_count(dm.num_train_samples // micro, mesh)
+    n_val = equal_count(dm.num_val_samples // micro, mesh)
+    total_steps = args.max_steps or n_train * o.max_epochs
+    trainer = make_trainer(cfg, ld, total_steps,
+                           accum_steps(cfg, 1 if mesh is None else mesh.size, args.nodes),
+                           latent_inputs=args.latents is not None, mesh=mesh)
     state = trainer.create_state()
     if args.ckpt_name:
         restore_checkpoint(os.path.join(save_dir, args.ckpt_name), state)
@@ -185,12 +211,13 @@ def train(args: argparse.Namespace, cfg, dm, device, save_dir: str,
         if latent_cache is not None:
             # (mx, my) windows of cached moments; validation stays on pixels
             source = dm.train_latent_batches(latent_cache, epoch)
-            yield from prefetch_to_device(
+            yield from prefetch_to_device(itertools.islice(
                 ((m[out_slice], m[in_slice]) for m, _ in source
-                 if m.shape[0] == o.micro_batch_size), size=2, device=device)
+                 if m.shape[0] == o.micro_batch_size), n_train), size=2, device=device)
             return
-        pixels = ((b[out_slice], b[in_slice]) for b in dm.train_batches(epoch)
-                  if b.shape[0] == o.micro_batch_size)   # the ragged tail is dropped
+        pixels = itertools.islice(((b[out_slice], b[in_slice]) for b in dm.train_batches(epoch)
+                                   if b.shape[0] == o.micro_batch_size),   # no ragged tail
+                                  n_train)
         for i, xy in enumerate(prefetch_to_device(pixels, size=2, device=device)):
             if i == 0:
                 train_example["xy"] = xy
@@ -201,19 +228,25 @@ def train(args: argparse.Namespace, cfg, dm, device, save_dir: str,
     val_ddim = cfg.eval.val_ddim_steps
     val_sampler = (dict(sampler="ddim", ddim_steps=int(val_ddim))
                    if val_ddim and val_ddim < cfg.model.diffusion.timesteps else {})
-    os.makedirs(os.path.join(save_dir, "vis"), exist_ok=True)
+    if writes(mesh):
+        os.makedirs(os.path.join(save_dir, "vis"), exist_ok=True)
     val_count = {"n": 0}
 
     def val_fn(state) -> Dict[str, float]:
         """The val loss (EMA weights; pixel batches even from latents) and the
         example windows' forecasts (the trained weights) scored by the
-        suites, as the reference's validation epoch."""
+        suites, as the reference's validation epoch.  On several ranks each
+        scores its shard (the same number of batches); the losses are reduced
+        by the val step, the suites summed across the ranks, and rank 0 alone
+        draws the panels."""
         val_count["n"] += 1
         n = val_count["n"]
         vals = []
         suites = {name: make_suite(cfg) for name in suite_names}
-        vis_saved = False
+        vis_saved = not writes(mesh)
         for bidx, b in enumerate(dm.val_batches()):
+            if len(vals) == n_val:
+                break
             if b.shape[0] != o.micro_batch_size:
                 continue
             b = as_tensor(b, device)
@@ -243,7 +276,7 @@ def train(args: argparse.Namespace, cfg, dm, device, save_dir: str,
                 except Exception as e:   # an example panel never stops training
                     print(f"val vis failed: {e}")
                 vis_saved = True
-        if "xy" in train_example:
+        if "xy" in train_example and writes(mesh):
             x, y = train_example["xy"]
             with eval_mode(ld.unet):
                 pred = ld.sample_ensemble(y, 1, generator=step_generator(seed, TRAIN_VIS + n, device),
@@ -259,15 +292,16 @@ def train(args: argparse.Namespace, cfg, dm, device, save_dir: str,
             out.update(suite.compute("valid" if name == "unaligned" else "valid_aligned"))
         return out
 
-    logger = MetricLogger(save_dir, use_wandb=cfg.logging.use_wandb,
-                          run_name=cfg.logging.logging_prefix, config=cfg.to_dict())
+    logger = (MetricLogger(save_dir, use_wandb=cfg.logging.use_wandb,
+                           run_name=cfg.logging.logging_prefix, config=cfg.to_dict())
+              if writes(mesh) else None)
     state = fit(state, trainer.train_step, train_batches, lambda b: b,
                 max_epochs=o.max_epochs, save_dir=save_dir, seed=seed, val_fn=val_fn,
                 check_val_every_n_epoch=cfg.trainer.check_val_every_n_epoch,
                 monitor=o.monitor, save_top_k=o.save_top_k, early_stop=o.early_stop,
                 early_stop_patience=o.early_stop_patience, max_steps=args.max_steps,
-                logger=logger, steps_per_call=int(o.get("steps_per_call", 1)))
-    save_checkpoint(os.path.join(save_dir, "ckpt_last"), state)
+                logger=logger, steps_per_call=int(o.get("steps_per_call", 1)), mesh=mesh)
+    save_checkpoint(os.path.join(save_dir, "ckpt_last"), state, mesh=mesh)
     print(f"training done at step {state.step}; checkpoints in {save_dir}", flush=True)
     return state
 
@@ -384,8 +418,6 @@ def save_example_vis(save_dir: str, cfg, y, x, preds, labels, tag: str) -> None:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    if not args.test:
-        refuse_multihost(args)
     device = join_processes(args)
     cfg = load_config(prediff_default_config, args.cfg)
     save_dir = experiment_dir(args.save)

@@ -5,11 +5,18 @@ values (the tests hold the two trees equal), so one YAML file configures
 both packages.  ``use_pallas_conv`` (UNet and alignment net) is read by the
 factories: True sends each 3x3x3 conv that the JAX package's routing rule
 admits to the bf16 conv kernel (``ops/conv3d.py``), False and "auto" keep
-the f32 convs.  ``diffusion.first_stage_dtype`` is read by the pipeline
+the f32 convs.  ``use_pallas_attention``, ``use_pallas_ffn``,
+``use_pallas_gn`` and ``use_pallas_resblock`` are read by the factories too
+(``factory._attention_kernels`` / ``_kernel_switch``): True and "auto" keep
+the kernels (``use_pallas_attention: true`` the grouped kernel for every
+layer, as the JAX layer's True), False sends the layers to their f32 library
+routes, as the JAX layers compute their flax path for False; any other value
+raises.  ``diffusion.first_stage_dtype`` is read by the pipeline
 factories: the encoder computes in the dtype it names (``"auto"``: f32, the
 JAX package's resolution off a TPU).  The other keys that name TPU-only
-switches (the other ``use_pallas_*``, ``decoder_subpixel``, ...) are kept
-for tree equality and read by nothing in the port."""
+switches (``decoder_subpixel``, ...) are kept for tree equality and read by
+nothing in the port; ``use_pallas_dropout`` is read only to refuse False
+(dropout always runs in the kernels here)."""
 import copy
 from typing import Dict, Optional
 

@@ -2405,16 +2405,18 @@ extern "C" int axial_attention_forward_bf16(const __nv_bfloat16* x, const float*
 
 // The layer with dropout on the attention weights (thr_attn, keep_attn =
 // 1 - rate) and on the projected output (thr_proj, keep_proj); the masks are
-// those of the stream (seed_lo, seed_hi, site), tensors 0 and 1.  Arguments
-// as axial_attention_forward.
+// those of the stream (seed_lo, seed_hi, site), tensors 0 and 1, from the
+// element bases base_attn and base_proj (multiples of 4, philox.cuh).
+// Arguments as axial_attention_forward.
 extern "C" int axial_attention_dropout_forward(
     const float* x, const float* ln_w, const float* ln_b, const void* wqkv_map, const float* bias,
     const void* wproj_map, const float* b_proj, void* qkv, void* attn, float* out, int B, int T,
     int H, int W, int C, int axis, int heads, int bn_qkv, float scale, float eps,
     unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn, float keep_attn,
-    unsigned thr_proj, float keep_proj, cudaStream_t stream) {
-  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn};
-  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj};
+    unsigned thr_proj, float keep_proj, unsigned long long base_attn,
+    unsigned long long base_proj, cudaStream_t stream) {
+  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn, base_attn >> 2};
+  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj, base_proj >> 2};
   return (int)forward_launches<true>(x, ln_w, ln_b, wqkv_map, bias, wproj_map, b_proj,
                                      static_cast<__nv_bfloat16*>(qkv),
                                      static_cast<__nv_bfloat16*>(attn), out, B, T, H, W, C, axis,
@@ -2496,10 +2498,11 @@ extern "C" int axial_attention_dropout_bwd_full(
     float* dw_proj, float* vec, int B, int T, int H, int W, int C, int axis, int heads,
     int bn_qkv, int cuboids_per_block, int ld, int ws_qkv, int ws_proj, float scale, float eps,
     unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn, float keep_attn,
-    unsigned thr_proj, float keep_proj, cudaStream_t stream) {
+    unsigned thr_proj, float keep_proj, unsigned long long base_attn,
+    unsigned long long base_proj, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn};
-  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj};
+  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn, base_attn >> 2};
+  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj, base_proj >> 2};
   return (int)axial_bwd_launches<true, true>(
       x, g, ln_w, ln_b, wqkv_map, bias, wprojt_map, wqkvt_map, static_cast<bf*>(qkv),
       static_cast<bf*>(do_bf), static_cast<bf*>(dattn), static_cast<bf*>(dqkv), dln, dx,
@@ -2552,9 +2555,10 @@ extern "C" int cuboid_attention_dropout_forward(
     const void* wproj_map, const float* b_proj, void* qkv, void* attn, float* out, int n_cuboids,
     int vol, int C, int heads, int bn_qkv, int ln_tile, int q_rows, int key_tiles, float scale,
     float eps, unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn,
-    float keep_attn, unsigned thr_proj, float keep_proj, cudaStream_t stream) {
-  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn};
-  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj};
+    float keep_attn, unsigned thr_proj, float keep_proj, unsigned long long base_attn,
+    unsigned long long base_proj, cudaStream_t stream) {
+  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn, base_attn >> 2};
+  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj, base_proj >> 2};
   return (int)cuboid_forward_launches<true>(
       x, ln_w, ln_b, wqkv_map, bias, wproj_map, b_proj, static_cast<__nv_bfloat16*>(qkv),
       static_cast<__nv_bfloat16*>(attn), out, n_cuboids, vol, C, heads, bn_qkv, ln_tile, q_rows,
@@ -2634,10 +2638,11 @@ extern "C" int cuboid_attention_dropout_bwd_full(
     float* dbias, float* dw_proj, float* vec, int n_cuboids, int vol, int C, int heads,
     int bn_qkv, int fused, int rows, int per_block, int ld, int ws_qkv, int ws_proj, float scale,
     float eps, unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn,
-    float keep_attn, unsigned thr_proj, float keep_proj, cudaStream_t stream) {
+    float keep_attn, unsigned thr_proj, float keep_proj, unsigned long long base_attn,
+    unsigned long long base_proj, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn};
-  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj};
+  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn, base_attn >> 2};
+  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj, base_proj >> 2};
   return (int)cuboid_bwd_launches<true, true>(
       x, g, ln_w, ln_b, wqkv_map, bias, wprojt_map, wqkvt_map, static_cast<bf*>(qkv),
       static_cast<bf*>(do_bf), static_cast<bf*>(dattn), static_cast<bf*>(dqkv), dln, dx,

@@ -1076,15 +1076,18 @@ extern "C" int ffn_bwd_full(const float* x, const float* g, const float* ln_w,
 
 // The fused FFN with dropout on gelu(h) (thr_act, keep_act = 1 - rate) and on
 // the output before the residual (thr_out, keep_out); the masks are those of
-// the stream (seed_lo, seed_hi, site), tensors 0 and 1.  Arguments as ffn_forward.
+// the stream (seed_lo, seed_hi, site), tensors 0 and 1, from the element bases
+// base_act and base_out (multiples of 4, philox.cuh).  Arguments as ffn_forward.
 extern "C" int ffn_dropout_forward(const float* x, const float* ln_w, const float* ln_b,
                                    const void* w1_map, const float* b1, const void* w2_map,
                                    const float* b2, float* out, int M, int C, int hidden,
                                    int splits, float eps, unsigned seed_lo, unsigned seed_hi,
                                    unsigned site, unsigned thr_act, float keep_act,
-                                   unsigned thr_out, float keep_out, cudaStream_t stream) {
-  const philox::Drop d1{seed_lo, seed_hi, site, 0u, thr_act, keep_act};
-  const philox::Drop d2{seed_lo, seed_hi, site, 1u, thr_out, keep_out};
+                                   unsigned thr_out, float keep_out,
+                                   unsigned long long base_act, unsigned long long base_out,
+                                   cudaStream_t stream) {
+  const philox::Drop d1{seed_lo, seed_hi, site, 0u, thr_act, keep_act, base_act >> 2};
+  const philox::Drop d2{seed_lo, seed_hi, site, 1u, thr_out, keep_out, base_out >> 2};
   return fwd::forward<true>(x, ln_w, ln_b, w1_map, b1, w2_map, b2, out, M, C, hidden, splits, eps,
                             d1, d2, stream);
 }
@@ -1101,9 +1104,10 @@ extern "C" int ffn_dropout_bwd_full(const float* x, const float* g, const float*
                                     int hidden, int ld, int splits, int wsplit1, int wsplit2,
                                     float eps, unsigned seed_lo, unsigned seed_hi, unsigned site,
                                     unsigned thr_act, float keep_act, unsigned thr_out,
-                                    float keep_out, cudaStream_t stream) {
-  const philox::Drop d1{seed_lo, seed_hi, site, 0u, thr_act, keep_act};
-  const philox::Drop d2{seed_lo, seed_hi, site, 1u, thr_out, keep_out};
+                                    float keep_out, unsigned long long base_act,
+                                    unsigned long long base_out, cudaStream_t stream) {
+  const philox::Drop d1{seed_lo, seed_hi, site, 0u, thr_act, keep_act, base_act >> 2};
+  const philox::Drop d2{seed_lo, seed_hi, site, 1u, thr_out, keep_out, base_out >> 2};
   return (int)bwd::full<true>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1, ln_t, do_t, a_t,
                               dh_t, vpart, db1_part, dx, dw1, db1, dw2, vec, M, C, hidden, ld,
                               splits, wsplit1, wsplit2, eps, d1, d2, stream);

@@ -7,10 +7,14 @@
 // per grid cell and so ties a mask to the tiling.  Here a mask is a pure
 // function of logical coordinates:
 //   keep(element) = philox(key = seed words,
-//                          counter = (element / 4 low, element / 4 high, tensor, site)
-//                          )[element % 4] >= thr
+//                          counter = (q low, q high, tensor, site)
+//                          )[element % 4] >= thr,   q = (base + element) / 4
 // so a forward kernel and its backward regenerate the same mask whatever
-// their grids, and nothing is stored.  Kept values are divided by 1 - rate
+// their grids, and nothing is stored.  `base` is the element base of the
+// tensor a kernel is handed within the logical tensor of the whole batch (a
+// rank's first batch row times the elements of a row; 0 on one process); it
+// is a multiple of 4, so element % 4 picks the same word of a block as it
+// would at base 0, and the kernels carry it as q0 = base / 4.  Kept values are divided by 1 - rate
 // (`keep`), as the TPU kernels do.  thr == 0 keeps everything and draws nothing.
 #pragma once
 #include <cuda_runtime.h>
@@ -23,6 +27,7 @@ struct Drop {
   unsigned tensor;   // which mask of that call
   unsigned thr;      // keep when the draw >= thr
   float keep;        // 1 - rate
+  unsigned long long q0 = 0ull;   // the element base / 4: the block of local element 0
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(unsigned k0, unsigned k1, uint4 c) {
@@ -39,7 +44,7 @@ __device__ __forceinline__ uint4 philox4x32_10(unsigned k0, unsigned k1, uint4 c
 
 // The draw of logical element `e` of the stream (seed, site, tensor).
 __device__ __forceinline__ unsigned draw(const Drop& d, unsigned long long e) {
-  const unsigned long long q = e >> 2;
+  const unsigned long long q = (e >> 2) + d.q0;
   const uint4 w = philox4x32_10(d.k0, d.k1,
                                 make_uint4((unsigned)q, (unsigned)(q >> 32), d.tensor, d.site));
   const unsigned lane = (unsigned)e & 3u;
@@ -56,7 +61,7 @@ __device__ __forceinline__ float apply(const Drop& d, unsigned long long e, floa
 // come from one Philox block (elements 4q .. 4q + 3), computed once.
 __device__ __forceinline__ void apply2(const Drop& d, unsigned long long e, float& v0, float& v1) {
   if (d.thr == 0u) return;
-  const unsigned long long q = e >> 2;
+  const unsigned long long q = (e >> 2) + d.q0;
   const uint4 w = philox4x32_10(d.k0, d.k1,
                                 make_uint4((unsigned)q, (unsigned)(q >> 32), d.tensor, d.site));
   const bool hi = (e & 2ull) != 0ull;
@@ -66,7 +71,7 @@ __device__ __forceinline__ void apply2(const Drop& d, unsigned long long e, floa
 
 // The four draws of elements 4q .. 4q + 3 (q = e / 4): one whole Philox block.
 __device__ __forceinline__ uint4 block(const Drop& d, unsigned long long e) {
-  const unsigned long long q = e >> 2;
+  const unsigned long long q = (e >> 2) + d.q0;
   return philox4x32_10(d.k0, d.k1, make_uint4((unsigned)q, (unsigned)(q >> 32), d.tensor, d.site));
 }
 

@@ -65,21 +65,24 @@ context (mode) under ``no_grad``, t and the noise are drawn from the caller's
 generator, and :meth:`LatentDiffusion.p_losses` weighs the denoiser's error
 (:func:`core.diffusion_loss`).  ``dropout_seed`` is the step's dropout stream
 (the JAX loss's ``rng_drop``): it reaches the denoiser's forward, which uses
-it in training mode only.
+it in training mode only.  On several ranks (``mesh``) every draw of the loss
+is the rank's rows of the global batch's draws, and the masks its rows of
+the one-process masks (``dropout_first_row``).
 """
 import contextlib
 import functools
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..models.vae import FirstStageEncoder
-from ..parallel.mesh import DataMesh, gather_batch, local_batch_slice, sync_generator
+from ..parallel.mesh import (DataMesh, batch_rows, gather_batch, local_batch_slice,
+                             sync_generator)
 from ..utils.device import resolve_device
-from ..utils.distributions import latents_from_moments_seq
+from ..utils.distributions import latents_from_moments_seq, randint_rows, randn_rows
 from ..utils.precision import LowCopy, Promoted, dtype_name, param_dtype, resolve_dtype
 from . import core
 from .graphs import StepBuffers, StepGraphCache, StepGraphs
@@ -187,22 +190,26 @@ class LatentDiffusion:
 
     def latents_from_moments(self, moments: torch.Tensor,
                              generator: Optional[torch.Generator] = None,
-                             sample_posterior: bool = False) -> torch.Tensor:
+                             sample_posterior: bool = False,
+                             rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """Encoder moments (B,T,h,w,2c) -> scaled latent seq (B,T,h,w,c), the
-        tail of :meth:`encode_first_stage`."""
+        tail of :meth:`encode_first_stage`; ``rows`` (first, total): the
+        posterior's noise is those rows of the global batch's draw."""
         return latents_from_moments_seq(moments, generator=generator,
                                         sample_posterior=sample_posterior,
-                                        scale_factor=self.scale_factor)
+                                        scale_factor=self.scale_factor, rows=rows)
 
     @torch.no_grad()
     def encode_first_stage(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                           sample_posterior: bool = False) -> torch.Tensor:
+                           sample_posterior: bool = False,
+                           rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """Pixel seq (B,T,H,W,C) -> scaled latent seq (B,T,h,w,c).  Training
-        samples the posterior (from ``generator``); conditioning takes the mode."""
+        samples the posterior (from ``generator``; ``rows`` as
+        :meth:`latents_from_moments`); conditioning takes the mode."""
         B = x.shape[0]
         moments = self.first_stage_moments(x.reshape((-1,) + tuple(x.shape[2:])))
         return self.latents_from_moments(moments.reshape((B, -1) + tuple(moments.shape[1:])),
-                                         generator, sample_posterior)
+                                         generator, sample_posterior, rows)
 
     def cond_stage_forward(self, y: torch.Tensor) -> torch.Tensor:
         return self.encode_first_stage(y, sample_posterior=False)
@@ -228,14 +235,17 @@ class LatentDiffusion:
     def p_losses(self, logvar: torch.Tensor, z_start: torch.Tensor, zc: torch.Tensor,
                  t: torch.Tensor, noise: torch.Tensor, prefix: str = "train",
                  unet_params: Optional[Dict[str, torch.Tensor]] = None,
-                 dropout_seed: Optional[int] = None):
+                 dropout_seed: Optional[int] = None, dropout_first_row: int = 0):
         """Noise ``z_start`` to step ``t`` with ``noise``, denoise, weigh:
         ``(loss, loss_dict)``.  ``unet_params`` (name -> tensor) runs the
         denoiser with other weights than its own, such as the EMA shadow.
         ``dropout_seed`` seeds the denoiser's dropout masks when it is in
-        training mode with a rate above 0 (it raises without one)."""
+        training mode with a rate above 0 (it raises without one);
+        ``dropout_first_row`` is z_start's first row in the global batch (a
+        rank's), from which the masks are drawn."""
         z_noisy = core.q_sample(self.schedule, z_start, t, noise)
-        kwargs = {} if dropout_seed is None else {"dropout_seed": int(dropout_seed)}
+        kwargs = {} if dropout_seed is None else {"dropout_seed": int(dropout_seed),
+                                                  "dropout_first_row": int(dropout_first_row)}
         if unet_params is None:
             model_out = self.unet(z_noisy, t, zc, **kwargs)
         else:
@@ -248,37 +258,48 @@ class LatentDiffusion:
             original_elbo_weight=self.original_elbo_weight, learn_logvar=self.learn_logvar,
             prefix=prefix)
 
-    def _draw_and_weigh(self, logvar, z, zc, generator, prefix, unet_params, dropout_seed):
-        t = torch.randint(0, self.num_timesteps, (z.shape[0],), generator=generator,
-                          device=self.device)
-        noise = torch.randn(z.shape, generator=generator, device=self.device, dtype=z.dtype)
+    def _draw_and_weigh(self, logvar, z, zc, generator, prefix, unet_params, dropout_seed,
+                        rows=None):
+        t = randint_rows(self.num_timesteps, z.shape[0], generator, self.device, rows)
+        noise = randn_rows(z.shape, generator, self.device, z.dtype, rows)
         return self.p_losses(logvar, z, zc, t, noise, prefix=prefix, unet_params=unet_params,
-                             dropout_seed=dropout_seed)
+                             dropout_seed=dropout_seed,
+                             dropout_first_row=0 if rows is None else rows[0])
 
     def training_loss(self, logvar: torch.Tensor, generator: Optional[torch.Generator],
                       x: torch.Tensor, y: torch.Tensor, prefix: str = "train",
                       unet_params: Optional[Dict[str, torch.Tensor]] = None,
-                      dropout_seed: Optional[int] = None):
+                      dropout_seed: Optional[int] = None, mesh: Optional[DataMesh] = None):
         """The full forward: encode the target ``x`` (posterior sample) and the
         context ``y`` (mode), draw t and the noise from ``generator`` (on
         ``self.device``), denoise (with the dropout masks of ``dropout_seed``
-        in training mode), weigh."""
+        in training mode), weigh.  ``mesh``: x and y are this rank's rows of
+        the global batch (the same count on every rank), and every draw (the
+        posterior sample, t, the noise, the dropout masks) is this rank's rows
+        of the global batch's, as the JAX step draws them for the whole
+        batch; ``generator`` must be in the same state on every rank."""
+        rows = batch_rows(x.shape[0], mesh)
         z = self.encode_first_stage(x.to(self.device, torch.float32), generator,
-                                    sample_posterior=True)
+                                    sample_posterior=True, rows=rows)
         zc = self.cond_stage_forward(y.to(self.device, torch.float32))
-        return self._draw_and_weigh(logvar, z, zc, generator, prefix, unet_params, dropout_seed)
+        return self._draw_and_weigh(logvar, z, zc, generator, prefix, unet_params, dropout_seed,
+                                    rows)
 
     def training_loss_from_moments(self, logvar: torch.Tensor,
                                    generator: Optional[torch.Generator], mx: torch.Tensor,
                                    my: torch.Tensor, prefix: str = "train",
                                    unet_params: Optional[Dict[str, torch.Tensor]] = None,
-                                   dropout_seed: Optional[int] = None):
+                                   dropout_seed: Optional[int] = None,
+                                   mesh: Optional[DataMesh] = None):
         """:meth:`training_loss` fed from first-stage moments of the target
         (``mx``) and the context (``my``) instead of pixels; the draws are made
         in the same order, so ``mx = encode_moments(x)`` gives the same loss."""
-        z = self.latents_from_moments(mx.to(self.device), generator, sample_posterior=True)
+        rows = batch_rows(mx.shape[0], mesh)
+        z = self.latents_from_moments(mx.to(self.device), generator, sample_posterior=True,
+                                      rows=rows)
         zc = self.latents_from_moments(my.to(self.device), sample_posterior=False)
-        return self._draw_and_weigh(logvar, z, zc, generator, prefix, unet_params, dropout_seed)
+        return self._draw_and_weigh(logvar, z, zc, generator, prefix, unet_params, dropout_seed,
+                                    rows)
 
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:

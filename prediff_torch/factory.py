@@ -61,12 +61,46 @@ def _conv_route(section, what: str) -> bool:
     raise ValueError(f"{what}: use_pallas_conv={value!r} (True, False or 'auto')")
 
 
+def _kernel_switch(section, key: str, what: str) -> bool:
+    """``use_pallas_ffn`` / ``use_pallas_gn`` / ``use_pallas_resblock`` of a
+    model's section: True and "auto" (the default) keep the kernels, False
+    sends the layers to their f32 library routes, as the JAX layers take
+    their flax path for False on any backend; any other value raises."""
+    value = section.get(key, "auto")
+    if value is True or value == "auto":
+        return True
+    if value is False:
+        return False
+    raise ValueError(f"{what}: {key}={value!r} (True, False or 'auto')")
+
+
+def _attention_kernels(section, what: str) -> str:
+    """``use_pallas_attention`` as the JAX layer resolves it
+    (``prediff_tpu/ops/dispatch.py`` ``resolve_auto_attn``, then
+    ``models/cuboid_attention.py``): "auto" and "layer" the whole-layer
+    kernels where they take the layer ("layer"); True the grouped kernel for
+    every layer ("grouped"); False and "grouped", which the JAX layer sends
+    past both of its kernel branches, the einsum code ("einsum").  Any other
+    value raises."""
+    value = section.get("use_pallas_attention", "auto")
+    if value is True:
+        return "grouped"
+    if value is False or value == "grouped":
+        return "einsum"
+    if value in ("auto", "layer"):
+        return "layer"
+    raise ValueError(f"{what}: use_pallas_attention={value!r} "
+                     "(True, False, 'auto', 'layer' or 'grouped')")
+
+
 def build_unet(cfg: ConfigDict) -> CuboidTransformerUNet:
     m = cfg.model.latent_model
     if m.num_global_vectors:
         raise NotImplementedError("global vectors are not ported yet")
     _check_pattern(m.self_pattern)
     _check_ported(m, UNET_PORTED, "UNet")
+    # read for the check: the UNet's time blocks run unfused whatever it says
+    _kernel_switch(m, "use_pallas_resblock", "UNet")
     if m.ffn_activation != "gelu" or m.gated_ffn or m.time_embed_use_scale_shift_norm:
         raise NotImplementedError("only the v1 FFN (gelu, not gated) and time embedding are ported")
     if m.get("use_pallas_dropout", "auto") not in ("auto", True):
@@ -83,6 +117,9 @@ def build_unet(cfg: ConfigDict) -> CuboidTransformerUNet:
         unet_res_connect=m.unet_res_connect,
         attn_drop=m.attn_drop, proj_drop=m.proj_drop, ffn_drop=m.ffn_drop,
         time_embed_dropout=m.time_embed_dropout, use_pallas_conv=_conv_route(m, "UNet"),
+        attention_kernels=_attention_kernels(m, "UNet"),
+        ffn_kernel=_kernel_switch(m, "use_pallas_ffn", "UNet"),
+        gn_kernel=_kernel_switch(m, "use_pallas_gn", "UNet"),
     )
 
 
@@ -114,6 +151,10 @@ def build_alignment_model(cfg: ConfigDict) -> NoisyCuboidTransformerEncoder:
         out_len=a.out_len, attn_drop=a.attn_drop, proj_drop=a.proj_drop, ffn_drop=a.ffn_drop,
         time_embed_dropout=a.time_embed_dropout,
         use_pallas_conv=_conv_route(a, "alignment net"),
+        attention_kernels=_attention_kernels(a, "alignment net"),
+        ffn_kernel=_kernel_switch(a, "use_pallas_ffn", "alignment net"),
+        gn_kernel=_kernel_switch(a, "use_pallas_gn", "alignment net"),
+        resblock_kernel=_kernel_switch(a, "use_pallas_resblock", "alignment net"),
     )
 
 
@@ -205,13 +246,13 @@ def build_discriminator(cfg: ConfigDict) -> NLayerDiscriminator:
 
 def build_vae_trainer(cfg: ConfigDict, device=None,
                       params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                      seed: int = 0, total_num_steps: int = 100_000) -> VAETrainer:
+                      seed: int = 0, total_num_steps: int = 100_000, mesh=None) -> VAETrainer:
     """The VAE-GAN trainer of a ``vae_training_default_config()`` tree on
     ``device`` (default: the card), as scripts/train_vae_sevirlr.py builds
     it: the discriminator of ``cfg.model.loss``, Adam(W) with betas (0.5,
     0.9), a constant rate and no clip for both optimizers.  ``params`` holds
     state_dicts under "vae" and "disc"; a model without one takes its seeded
-    initialisation."""
+    initialisation.  ``mesh``: the ranks it trains on (``VAETrainer``)."""
     dev = resolve_device(device)
     models = _models_on(dev, torch.Generator().manual_seed(seed), params or {},
                         {"vae": lambda: build_vae(cfg), "disc": lambda: build_discriminator(cfg)},
@@ -226,19 +267,20 @@ def build_vae_trainer(cfg: ConfigDict, device=None,
                           warmup_percentage=0.0),
         flat_update=cfg.optim.get("flat_update", False),
         pack_small_thr=cfg.optim.get("pack_small_thr", 0),
-        compute_dtype=cfg.optim.get("vae_compute_dtype", None))
+        compute_dtype=cfg.optim.get("vae_compute_dtype", None), mesh=mesh)
 
 
 def build_alignment_trainer(cfg: ConfigDict, device=None,
                             params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                             seed: int = 0, total_num_steps: int = 30_000,
-                            latent_inputs: bool = False) -> AlignmentTrainer:
+                            latent_inputs: bool = False, mesh=None) -> AlignmentTrainer:
     """The alignment trainer of an ``alignment_default_config()`` tree on
     ``device`` (default: the card), as scripts/train_sevirlr_avg_x.py builds
     it: the alignment net in training mode (its dropout rates active), the
     frozen VAE, the diffusion schedule and scale factor, the recipe's AdamW.
     ``params`` holds state_dicts under "align" and "vae"; a model without one
-    takes its seeded initialisation."""
+    takes its seeded initialisation.  ``mesh``: the ranks it trains on
+    (``AlignmentTrainer``)."""
     dev = resolve_device(device)
     models = _models_on(dev, torch.Generator().manual_seed(seed), params or {},
                         {"vae": lambda: build_vae(cfg),
@@ -249,7 +291,7 @@ def build_alignment_trainer(cfg: ConfigDict, device=None,
         optim_config=dict(lr=o.lr, total_num_steps=total_num_steps, wd=o.wd,
                           betas=tuple(o.betas), gradient_clip_val=o.gradient_clip_val,
                           warmup_percentage=o.warmup_percentage),
-        latent_inputs=latent_inputs, prng_impl=o.get("prng_impl", "auto"),
+        latent_inputs=latent_inputs, mesh=mesh, prng_impl=o.get("prng_impl", "auto"),
         flat_update=o.get("flat_update", False), pack_small_thr=o.get("pack_small_thr", 0),
         matmul_precision=o.get("matmul_precision", None),
         conv3d_impl=o.get("conv3d_impl", "auto"))

@@ -4,7 +4,8 @@ CLIP-style attention-pool readout, channel-last like the rest of the port.
 Counterpart of ``prediff_tpu/models/alignment.py`` (reference
 NoisyCuboidTransformerEncoder, models.py:107; AttentionPool3d, :49).  The
 stage time blocks run the whole-resblock kernels (``fused=True``), as the
-JAX package's ``use_pallas_resblock`` does for this network; ``first_proj``
+JAX package's ``use_pallas_resblock`` does for this network (unfused with
+``resblock_kernel=False``, its ``use_pallas_resblock: false``); ``first_proj``
 changes width (1x1 skip) and keeps the GN-kernel path, with its 3x3x3 convs
 on the bf16 conv kernel under ``use_pallas_conv`` where the JAX package's
 routing rule admits them (the stage blocks' resblock kernel comes first, as
@@ -73,7 +74,8 @@ class NoisyCuboidTransformerEncoder(nn.Module):
                  padding_type: str = "zeros", time_embed_channels_mult: int = 4,
                  out_len: Optional[int] = None, attn_drop: float = 0.0, proj_drop: float = 0.0,
                  ffn_drop: float = 0.0, time_embed_dropout: float = 0.0,
-                 use_pallas_conv: bool = False):
+                 use_pallas_conv: bool = False, attention_kernels: str = "layer",
+                 ffn_kernel: bool = True, gn_kernel: bool = True, resblock_kernel: bool = True):
         super().__init__()
         self.dropout_rates = dict(attn_drop=attn_drop, proj_drop=proj_drop, ffn_drop=ffn_drop,
                                   time_embed_dropout=time_embed_dropout)
@@ -92,22 +94,25 @@ class NoisyCuboidTransformerEncoder(nn.Module):
         tec = self.block_units[0] * time_embed_channels_mult
 
         self.first_proj = TimeEmbedResBlock(self.input_shape[-1], base_units, use_embed=False,
-                                            dropout=proj_drop, conv_kernel=use_pallas_conv)
+                                            dropout=proj_drop, conv_kernel=use_pallas_conv,
+                                            gn_kernel=gn_kernel)
         self.pos_embed = PosEmbed(base_units, *self.input_shape[:3])
         self.time_embed = TimeEmbedLayer(self.block_units[0], tec)
         self.downsample_layers = nn.ModuleList(
             PatchMerging3D(mem_shapes[i][-1], self.block_units[i + 1], downsample, padding_type)
             for i in range(self.num_blocks - 1))
         self.down_time_embed_blocks = nn.ModuleList(
-            TimeEmbedResBlock(mem_shapes[i][-1], mem_shapes[i][-1], emb_channels=tec, fused=True,
-                              dropout=time_embed_dropout)
+            TimeEmbedResBlock(mem_shapes[i][-1], mem_shapes[i][-1], emb_channels=tec,
+                              fused=resblock_kernel, dropout=time_embed_dropout,
+                              gn_kernel=gn_kernel)
             for i in range(self.num_blocks))
 
         def stack(i):
             cuboid_size, strategy, shift_size = patterns[i](mem_shapes[i])
             return StackCuboidSelfAttentionBlock(mem_shapes[i][-1], num_heads, cuboid_size,
                                                  shift_size, strategy, attn_drop, proj_drop,
-                                                 ffn_drop, padding_type)
+                                                 ffn_drop, padding_type, attention_kernels,
+                                                 ffn_kernel)
 
         self.down_self_blocks = nn.ModuleList(
             nn.ModuleList(stack(i) for _ in range(self.depth[i])) for i in range(self.num_blocks))
@@ -116,18 +121,20 @@ class NoisyCuboidTransformerEncoder(nn.Module):
         self.out = nn.Sequential(nn.GroupNorm(min(C_out, 32), C_out, eps=1e-5), nn.SiLU(),
                                  AttentionPool3d(H_out * W_out, C_out, num_heads, out_channels))
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t: torch.Tensor, dropout_seed: Optional[int] = None,
+                dropout_first_row: int = 0) -> torch.Tensor:
         """``dropout_seed`` (a host integer, up to 64 bits) seeds this
         forward's dropout masks; training mode with a rate above 0 needs it,
-        eval mode ignores it."""
+        eval mode ignores it.  ``dropout_first_row``: the global batch row of
+        x's first row (a rank's on several), from which the masks are
+        drawn."""
         drop = None
         if self.training and any(v and v > 0 for v in self.dropout_rates.values()):
             if dropout_seed is None:
                 raise ValueError("training mode with dropout "
                                  f"{ {k: v for k, v in self.dropout_rates.items() if v} } "
                                  "needs dropout_seed; call .eval() for guidance")
-            drop = DropoutStream(dropout_seed)
+            drop = DropoutStream(dropout_seed, dropout_first_row)
         B = x.shape[0]
         x = self.first_proj(x, drop=drop)
         x = self.pos_embed(x)

@@ -37,11 +37,21 @@ otherwise), its grouped core any vol.  Where such a gate sends a TPU layer
 to the grouped route, the port runs the fused one, so the two differ by the
 bf16 operand rounding only.  Global vectors are not ported and raise.
 
+The configuration's ``use_pallas_attention`` picks among them as the JAX
+layer's does (``prediff_tpu/ops/dispatch.py``, ``cuboid_attention.py``):
+``"auto"`` and ``"layer"`` (``kernels="layer"``) the routes above; ``True``
+(``kernels="grouped"``) the grouped kernel for every layer, also the axial and
+v4 cuboids (``grouped_einsum`` under attention dropout); ``False`` and
+``"grouped"`` (``kernels="einsum"``: the JAX layer sends ``"grouped"`` past
+both of its kernel branches) the einsum code for every layer.
+
 In training mode with a rate above 0 a layer call takes one site of the
 forward's :class:`DropoutStream`: the axial and v4 routes run the dropout
 kernels, the grouped routes drop the projected output (and the einsum route
 the attention weights) with the masks of ``ops/dropout.py`` on the reordered
-layout, where flax's ``Dropout`` acts in the JAX layer.
+layout, where flax's ``Dropout`` acts in the JAX layer; every mask from the
+stream's element base (a base the kernels do not take, not a multiple of 4,
+sends an axial or v4 layer to the einsum route).
 """
 import functools
 import math
@@ -56,7 +66,7 @@ from ..ops.attention import (V4_MAX_ROWS, fused_axial_attention, fused_cuboid_at
 from ..ops.cuboid import (compute_cuboid_self_attention_mask, cuboid_reorder,
                           cuboid_reorder_reverse, masked_softmax, update_cuboid_size_shift_size)
 from ..ops.dropout import (DropoutStream, apply_mask, cuboid_layer_masks, is_active,
-                           resolve_masks)
+                           kernel_bases, resolve_masks)
 from ..ops.pad import generalize_padding, generalize_unpadding
 from .layers import PositionwiseFFN
 
@@ -116,12 +126,16 @@ class CuboidSelfAttentionLayer(nn.Module):
     proj, with no residual; the block adds it.  In training mode with a rate
     above 0 (``attn_drop`` on the attention weights, ``proj_drop`` on the
     projected output) the call takes the next site of the forward's
-    :class:`DropoutStream`."""
+    :class:`DropoutStream`.  ``kernels``: "layer", "grouped" or "einsum", the
+    configuration's ``use_pallas_attention`` (module docstring)."""
 
     def __init__(self, dim: int, num_heads: int, cuboid_size=(2, 7, 7), shift_size=(0, 0, 0),
                  strategy=("l", "l", "l"), padding_type: str = "ignore",
-                 attn_drop: float = 0.0, proj_drop: float = 0.0):
+                 attn_drop: float = 0.0, proj_drop: float = 0.0, kernels: str = "layer"):
         super().__init__()
+        if kernels not in ("layer", "grouped", "einsum"):
+            raise ValueError(f"kernels={kernels!r} (layer, grouped or einsum)")
+        self.kernels = kernels
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         if dim % num_heads != 0:
             raise ValueError(f"dim {dim} not divisible by {num_heads} heads")
@@ -143,17 +157,24 @@ class CuboidSelfAttentionLayer(nn.Module):
         self.register_buffer("relative_position_index", torch.from_numpy(rel_idx.astype(np.int64)),
                              persistent=False)
 
-    def route(self, shape) -> str:
+    def route(self, shape, bases=(0, 0)) -> str:
         """This layer's route (:func:`attention_route`) on a (B, T, H, W, C)
-        input in its current mode; "einsum" where that is "axial" or "v4"
-        and the kernels refuse the width."""
+        input in its current mode, under ``kernels``; "einsum" where that is
+        "axial" or "v4" and the kernels refuse the width or the dropout
+        masks' element ``bases``."""
         B, T, H, W, C = shape
+        attn_dropout = self.training and self.attn_drop > 0.0
         route = attention_route((T, H, W), self.cuboid_size, self.shift_size, self.strategy,
-                                self.padding_type,
-                                attn_dropout=self.training and self.attn_drop > 0.0)
+                                self.padding_type, attn_dropout=attn_dropout)
+        if self.kernels == "einsum":
+            return "einsum" if route in ("axial", "v4") else "grouped_einsum"
+        if self.kernels == "grouped" and route in ("axial", "v4"):
+            return "grouped_einsum" if attn_dropout else "grouped"
         cs, _ = update_cuboid_size_shift_size((T, H, W), self.cuboid_size, self.shift_size,
                                               self.strategy)
         vol = math.prod(cs)
+        if route in ("axial", "v4") and not kernel_bases(bases):
+            return "einsum"
         if route == "axial" and not supports_axial(shape, _axial_axis(cs, (T, H, W)),
                                                    self.num_heads):
             return "einsum"
@@ -173,15 +194,18 @@ class CuboidSelfAttentionLayer(nn.Module):
         return bias.to(dtype, memory_format=torch.contiguous_format)
 
     def forward(self, x: torch.Tensor, drop: Optional[DropoutStream] = None) -> torch.Tensor:
-        _, T, H, W, _ = x.shape
-        route = self.route(x.shape)
+        _, T, H, W, C = x.shape
         cs, shift = update_cuboid_size_shift_size((T, H, W), self.cuboid_size, self.shift_size,
                                                   self.strategy)
         vol = math.prod(cs)
         rates = {}
         if is_active(self, drop, self.attn_drop, self.proj_drop):
+            # a batch row's elements: the padded cuboids' weights, the (padded) output
+            padded = math.prod(-(-n // c) * c for n, c in zip((T, H, W), cs))
             rates = dict(rate_attn=self.attn_drop, rate_proj=self.proj_drop, seed=drop.seed,
-                         site=drop.next_site())
+                         site=drop.next_site(),
+                         bases=drop.bases(padded // vol * self.num_heads * vol * vol, padded * C))
+        route = self.route(x.shape, rates.get("bases", (0, 0)))
         if route == "axial":
             return fused_axial_attention(x.contiguous(), _axial_axis(cs, (T, H, W)),
                                          self.norm.weight, self.norm.bias, self.qkv.weight,
@@ -211,12 +235,13 @@ class CuboidSelfAttentionLayer(nn.Module):
         if rates and natural_proj_mask:   # the axial kernel's masks: m_p on (B, T, H, W, C)
             m_a, m_p = resolve_masks((rates["rate_attn"], rates["rate_proj"]),
                                      ((B, nC, heads, vol, vol), (B, T, H, W, C)), rates["seed"],
-                                     rates["site"], None, x.device)
+                                     rates["site"], None, x.device, rates["bases"])
             if m_p is not None:
                 m_p = cuboid_reorder(m_p, cs, self.strategy)
         elif rates:   # tensor 0 the attention weights, tensor 1 the projected output, as flax's
             m_a, m_p = cuboid_layer_masks(xr.shape, heads, rates["rate_attn"], rates["rate_proj"],
-                                          rates["seed"], rates["site"], device=x.device)
+                                          rates["seed"], rates["site"], device=x.device,
+                                          bases=rates["bases"])
         qkv = self.qkv(xr).reshape(B, nC, vol, 3, heads, C // heads)
         mask = _device_mask((T, H, W), cs, shift, self.strategy, self.padding_type, x.device)
         if einsum:
@@ -241,19 +266,23 @@ class CuboidSelfAttentionLayer(nn.Module):
 
 
 class StackCuboidSelfAttentionBlock(nn.Module):
-    """x -> x + attn_i(x) -> ffn_i, for each pattern i (``use_inter_ffn``)."""
+    """x -> x + attn_i(x) -> ffn_i, for each pattern i (``use_inter_ffn``);
+    ``attention_kernels`` and ``ffn_kernel`` the layers' ``kernels`` and
+    ``kernel``."""
 
     def __init__(self, dim: int, num_heads: int, block_cuboid_size: Sequence,
                  block_shift_size: Sequence, block_strategy: Sequence, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0, ffn_drop: float = 0.0, padding_type: str = "ignore"):
+                 proj_drop: float = 0.0, ffn_drop: float = 0.0, padding_type: str = "ignore",
+                 attention_kernels: str = "layer", ffn_kernel: bool = True):
         super().__init__()
         self.attn_l = nn.ModuleList([
             CuboidSelfAttentionLayer(dim, num_heads, cs, ss, st, padding_type, attn_drop,
-                                     proj_drop)
+                                     proj_drop, kernels=attention_kernels)
             for cs, ss, st in zip(block_cuboid_size, block_shift_size, block_strategy)
         ])
         self.ffn_l = nn.ModuleList([
-            PositionwiseFFN(dim, 4 * dim, activation_dropout=ffn_drop, dropout=ffn_drop)
+            PositionwiseFFN(dim, 4 * dim, activation_dropout=ffn_drop, dropout=ffn_drop,
+                            kernel=ffn_kernel)
             for _ in self.attn_l])
 
     def forward(self, x: torch.Tensor, drop: Optional[DropoutStream] = None) -> torch.Tensor:

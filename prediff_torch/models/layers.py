@@ -14,7 +14,8 @@ from torch import nn
 
 from ..ops import ffn as ffn_ops, groupnorm as gn_ops, resblock as resblock_ops
 from ..ops.conv3d import fused_conv3x3x3, supports_shape
-from ..ops.dropout import DropoutStream, apply_mask, is_active, keep_mask, resolve_masks
+from ..ops.dropout import (DropoutStream, apply_mask, is_active, keep_mask, kernel_bases,
+                           resolve_masks)
 from ..ops.ffn import fused_ffn
 from ..ops.groupnorm import fused_groupnorm_silu
 from ..ops.pad import generalize_padding
@@ -74,16 +75,20 @@ class PositionwiseFFN(nn.Module):
     takes the width (``ops/ffn.supports_shape``), else through the layer's
     own library ops in f32 (``layer_norm``, ``ffn_1``, exact-erf GELU,
     ``ffn_2``, + x), as the JAX package's FFN leaves its kernel for flax's
-    modules; the route depends on the shape alone.  In training mode with a
-    rate above 0 (``activation_dropout`` on gelu(h), ``dropout`` on the
-    output before the residual) the call takes the next site of the
-    forward's :class:`DropoutStream`: the kernel route runs the dropout
-    kernels, the library route multiplies in the same masks (tensor 0
-    (tokens, hidden), tensor 1 (tokens, C))."""
+    modules; the route depends on the shape alone, and ``kernel=False`` (the
+    configuration's ``use_pallas_ffn: false``) takes the library route
+    everywhere.  In training mode with a rate above 0 (``activation_dropout``
+    on gelu(h), ``dropout`` on the output before the residual) the call takes
+    the next site of the forward's :class:`DropoutStream`: the kernel route
+    runs the dropout kernels, the library route multiplies in the same masks
+    (tensor 0 (tokens, hidden), tensor 1 (tokens, C)), each from the
+    stream's element base; a base the kernels do not take (not a multiple of
+    4) sends the call to the library route."""
 
     def __init__(self, units: int, hidden_size: int, layer_norm_eps: float = 1e-5,
-                 activation_dropout: float = 0.0, dropout: float = 0.0):
+                 activation_dropout: float = 0.0, dropout: float = 0.0, kernel: bool = True):
         super().__init__()
+        self.kernel = kernel
         self.eps = layer_norm_eps
         self.activation_dropout, self.dropout = activation_dropout, dropout
         self.layer_norm = nn.LayerNorm(units, eps=layer_norm_eps)
@@ -92,12 +97,15 @@ class PositionwiseFFN(nn.Module):
 
     def forward(self, x: torch.Tensor, drop: Optional[DropoutStream] = None) -> torch.Tensor:
         C = x.shape[-1]
+        x2 = x.reshape(-1, C)
+        hidden = self.ffn_1.out_features
         rates = {}
         if is_active(self, drop, self.activation_dropout, self.dropout):
+            rows = x2.shape[0] // x.shape[0]   # tokens per batch row
             rates = dict(rate_act=self.activation_dropout, rate_out=self.dropout, seed=drop.seed,
-                         site=drop.next_site())
-        x2 = x.reshape(-1, C)
-        if not ffn_ops.supports_shape(x2.shape[0], C, self.ffn_1.out_features):
+                         site=drop.next_site(), bases=drop.bases(rows * hidden, rows * C))
+        if (not self.kernel or not ffn_ops.supports_shape(x2.shape[0], C, hidden)
+                or not kernel_bases(rates.get("bases", ()))):
             return self._library(x2, **rates).reshape(x.shape)
         out = fused_ffn(x2.contiguous(), self.layer_norm.weight, self.layer_norm.bias,
                         self.ffn_1.weight, self.ffn_1.bias, self.ffn_2.weight, self.ffn_2.bias,
@@ -105,9 +113,10 @@ class PositionwiseFFN(nn.Module):
         return out.reshape(x.shape)
 
     def _library(self, x: torch.Tensor, rate_act: float = 0.0, rate_out: float = 0.0,
-                 seed: Optional[int] = None, site: int = 0) -> torch.Tensor:
+                 seed: Optional[int] = None, site: int = 0, bases=(0, 0)) -> torch.Tensor:
         m1, m2 = resolve_masks((rate_act, rate_out), ((x.shape[0], self.ffn_1.out_features),
-                                                      tuple(x.shape)), seed, site, None, x.device)
+                                                      tuple(x.shape)), seed, site, None, x.device,
+                               bases)
         h = apply_mask(F.gelu(self.ffn_1(self.layer_norm(x))), m1, rate_act)
         return x + apply_mask(self.ffn_2(h), m2, rate_out)
 
@@ -186,19 +195,22 @@ class TimeEmbedResBlock(nn.Module):
     (``ops/resblock.supports``; elsewhere the block runs unfused, as the JAX
     block leaves its kernel by shape); the parameters are the same either
     way.  Each GroupNorm+SiLU likewise runs ``F.group_norm`` + SiLU where
-    the GN kernels refuse its width (``ops/groupnorm.supports``).
+    the GN kernels refuse its width (``ops/groupnorm.supports``), and
+    everywhere with ``gn_kernel=False`` (the configuration's
+    ``use_pallas_gn: false``).
     ``dropout`` falls between the second GroupNorm+SiLU and the second conv,
     as in the reference: a masked multiply outside any kernel, the mask that
-    of the forward's :class:`DropoutStream`.  The fused block computes the
+    of the forward's :class:`DropoutStream` from its element base.  The fused block computes the
     function without dropout, so it refuses an active one (the JAX block
     leaves its kernel then)."""
 
     def __init__(self, channels: int, out_channels: int = None, emb_channels: int = None,
                  use_embed: bool = True, norm_groups: int = 32, fused: bool = False,
-                 dropout: float = 0.0, conv_kernel: bool = False):
+                 dropout: float = 0.0, conv_kernel: bool = False, gn_kernel: bool = True):
         super().__init__()
         self.dropout = dropout
         self.conv_kernel = conv_kernel
+        self.gn_kernel = gn_kernel
         out_channels = out_channels or channels
         if fused and out_channels != channels:
             raise ValueError("the fused resblock takes only an identity skip")
@@ -221,9 +233,10 @@ class TimeEmbedResBlock(nn.Module):
             self.skip_connection = nn.Conv3d(channels, out_channels, 1)
 
     @staticmethod
-    def _gn_silu(norm: nn.GroupNorm, x: torch.Tensor, emb=None) -> torch.Tensor:
+    def _gn_silu(norm: nn.GroupNorm, x: torch.Tensor, emb=None,
+                 kernel: bool = True) -> torch.Tensor:
         B, T, H, W, C = x.shape
-        if not gn_ops.supports(C, norm.num_groups):
+        if not (kernel and gn_ops.supports(C, norm.num_groups)):
             # the library route: F.group_norm through a channel-first view, + SiLU
             h = x if emb is None else x + emb[:, None, None, None, :]
             h = F.group_norm(h.reshape(B, T * H * W, C).transpose(1, 2), norm.num_groups,
@@ -257,11 +270,14 @@ class TimeEmbedResBlock(nn.Module):
                 raise NotImplementedError("the fused resblock computes the block without "
                                           "dropout; build it with fused=False to train with one")
             return self._fused_forward(x, emb_out)
-        h = self._gn_silu(self.in_layers[0], x)
+        h = self._gn_silu(self.in_layers[0], x, kernel=self.gn_kernel)
         h = self._conv3(self.in_layers[2], h)
-        h = self._gn_silu(self.out_layers[0], h, emb_out)
+        h = self._gn_silu(self.out_layers[0], h, emb_out, kernel=self.gn_kernel)
         if active:
-            mask = keep_mask(drop.seed, drop.next_site(), 0, h.shape, self.dropout, h.device)
+            draw = (drop.seed, drop.next_site(), 0, h.shape, self.dropout, h.device)
+            base, = drop.bases(h[0].numel())
+            # base 0 (one process): the call as it always was
+            mask = keep_mask(*draw, base=base) if base else keep_mask(*draw)
             h = apply_mask(h, mask, self.dropout)
         h = self._conv3(self.out_layers[3], h)
         skip = x if isinstance(self.skip_connection, nn.Identity) else conv_nthwc(self.skip_connection, x)

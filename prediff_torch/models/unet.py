@@ -18,7 +18,15 @@ attention weights, ``proj_drop`` on each attention layer's output and in
 the forward then takes the step's ``dropout_seed``, and every module call
 that drops takes the next site of one :class:`~prediff_torch.ops.dropout.
 DropoutStream`, in call order, so each call's masks are a function of
-(seed, site) that its backward regenerates.  Eval mode ignores the rates.
+(seed, site) that its backward regenerates; on several ranks the forward
+takes the rank's first global batch row too (``dropout_first_row``), so its
+masks are its rows of the one-process masks.  Eval mode ignores the rates.
+
+``attention_kernels``, ``ffn_kernel`` and ``gn_kernel`` are the
+configuration's ``use_pallas_attention`` / ``use_pallas_ffn`` /
+``use_pallas_gn`` as ``factory.build_unet`` reads them: with ``False`` the
+layers take their library routes (f32), as the JAX layers do.  The UNet's time
+blocks run unfused whatever ``use_pallas_resblock`` says.
 """
 from typing import Optional, Sequence, Tuple, Union
 
@@ -67,7 +75,9 @@ class CuboidTransformerUNet(nn.Module):
                  padding_type: str = "ignore", upsample_kernel_size: int = 3,
                  time_embed_channels_mult: int = 4, unet_res_connect: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0, ffn_drop: float = 0.0,
-                 time_embed_dropout: float = 0.0, use_pallas_conv: bool = False):
+                 time_embed_dropout: float = 0.0, use_pallas_conv: bool = False,
+                 attention_kernels: str = "layer", ffn_kernel: bool = True,
+                 gn_kernel: bool = True):
         super().__init__()
         self.dropout_rates = dict(attn_drop=attn_drop, proj_drop=proj_drop, ffn_drop=ffn_drop,
                                   time_embed_dropout=time_embed_dropout)
@@ -91,7 +101,8 @@ class CuboidTransformerUNet(nn.Module):
         tec = self.block_units[0] * time_embed_channels_mult
 
         self.first_proj = TimeEmbedResBlock(self.data_shape[-1], base_units, use_embed=False,
-                                            dropout=proj_drop, conv_kernel=use_pallas_conv)
+                                            dropout=proj_drop, conv_kernel=use_pallas_conv,
+                                            gn_kernel=gn_kernel)
         self.pos_embed = PosEmbed(base_units, *self.data_shape[:3])
         self.time_embed = TimeEmbedLayer(self.block_units[0], tec)
 
@@ -99,11 +110,13 @@ class CuboidTransformerUNet(nn.Module):
             cuboid_size, strategy, shift_size = patterns[i](mem_shapes[i])
             return StackCuboidSelfAttentionBlock(mem_shapes[i][-1], num_heads, cuboid_size,
                                                  shift_size, strategy, attn_drop, proj_drop,
-                                                 ffn_drop, padding_type)
+                                                 ffn_drop, padding_type, attention_kernels,
+                                                 ffn_kernel)
 
         def time_block(i):
             return TimeEmbedResBlock(mem_shapes[i][-1], mem_shapes[i][-1], emb_channels=tec,
-                                     dropout=time_embed_dropout, conv_kernel=use_pallas_conv)
+                                     dropout=time_embed_dropout, conv_kernel=use_pallas_conv,
+                                     gn_kernel=gn_kernel)
 
         self.down_time_embed_blocks = nn.ModuleList(time_block(i) for i in range(self.num_blocks))
         self.down_self_blocks = nn.ModuleList(
@@ -121,18 +134,19 @@ class CuboidTransformerUNet(nn.Module):
         self.final_proj = nn.Linear(base_units, C_out)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[int] = None, dropout_first_row: int = 0) -> torch.Tensor:
         """x (B, T_out, H, W, C) noisy latent; t (B,); cond (B, T_in, H, W, C).
         ``dropout_seed`` (a host integer, up to 64 bits) seeds this forward's
         dropout masks; training mode with a rate above 0 needs it, eval mode
-        ignores it."""
+        ignores it.  ``dropout_first_row``: the global batch row of x's first
+        row (a rank's on several), from which the masks are drawn."""
         drop = None
         if self.training and any(v and v > 0 for v in self.dropout_rates.values()):
             if dropout_seed is None:
                 raise ValueError("training mode with dropout "
                                  f"{ {k: v for k, v in self.dropout_rates.items() if v} } "
                                  "needs dropout_seed; call .eval() to forecast")
-            drop = DropoutStream(dropout_seed)
+            drop = DropoutStream(dropout_seed, dropout_first_row)
         x = torch.cat([cond, x], dim=1)
         obs = torch.zeros_like(x[..., :1])
         obs[:, :self.T_in] = 1.0

@@ -4,11 +4,13 @@ the kernel wrappers share (argument checks, pointers, the gradients their
 
 Each ``prediff_torch/csrc/<name>.cu`` has a plain C interface and compiles
 on its own with ``nvcc`` for ``sm_90a`` into ``<repo>/build/lib<name>_<hash>.so``
-(the hash is of the source and the ``*.cuh`` headers beside it, so an edited
-source builds anew).  Nothing is
+(the hash is of the source, the ``*.cuh`` headers beside it and the flags, so
+an edited source builds anew).  Nothing is
 built when a module is imported: the first launch builds what it needs, and
 :func:`build_all` builds every source at once, one ``nvcc`` per source, all
-started together.
+started together, each spreading its optimisation passes over the cores
+(``--split-compile=0``); it may run in a thread of its own while the caller
+goes on, a first launch then waiting for its source's build.
 """
 import ctypes
 import functools
@@ -25,9 +27,14 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("groupnorm", "ffn", "attention", "resblock", "conv3d")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--split-compile=0", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_building_lock = threading.Lock()
+_building: Dict[str, threading.Event] = {}   # source -> set when its nvcc ends
+_running: set = set()   # the nvcc processes not yet ended
 
 
 def _nvcc() -> str:
@@ -42,37 +49,71 @@ def library_path(name: str) -> Path:
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile every missing library in parallel; raise on any failure.
+def stop_builds() -> None:
+    """Kill every ``nvcc`` a :func:`build_all` still waits for, with the
+    compilers it started (a caller that gives up before its build ends)."""
+    import signal
 
-    Returns per source: wall seconds of its nvcc (0 if already built) and
-    the ptxas report (registers, shared memory, spills)."""
+    with _building_lock:
+        for proc in _running:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)   # each nvcc leads a process group
+            except ProcessLookupError:
+                pass
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile every missing library in parallel; raise on any failure.  A
+    source another thread is building is waited for, not built twice.
+
+    Returns per source: wall seconds of its nvcc (0 if already built or
+    built by another call) and the ptxas report (registers, shared memory,
+    spills)."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, out, time.perf_counter())
+    procs, theirs = {}, {}
+    with _building_lock:
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            if name in _building:
+                theirs[name] = _building[name]
+                continue
+            _building[name] = threading.Event()
+            tmp = out.with_name(out.name + f".{os.getpid()}.{threading.get_ident()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True, start_new_session=True),
+                           tmp, out, time.perf_counter())
+            _running.add(procs[name][0])
     report = {name: {"seconds": 0.0, "ptxas": ""} for name in names}
-    failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
+
+    def drain(name, proc, tmp, out, t0):   # each its own thread: a source ends when its nvcc does
         log, _ = proc.communicate()
         report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
-        else:
+        if proc.returncode == 0:
             os.replace(tmp, out)
+        with _building_lock:
+            _running.discard(proc)
+            _building.pop(name).set()
+
+    threads = [threading.Thread(target=drain, args=(name, *job)) for name, job in procs.items()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    failed = [f"{name}.cu (nvcc exit {proc.returncode}):\n{report[name]['ptxas']}"
+              for name, (proc, *_) in procs.items() if proc.returncode != 0]
+    for name, done in theirs.items():
+        done.wait()
+        if not library_path(name).exists():
+            failed.append(f"{name}.cu: its build in another thread failed")
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return report
@@ -173,21 +214,27 @@ def plain_grads(fn, inputs, needs, g):
     return [next(grads) if n else None for n in needs]
 
 
-# a dropout kernel's trailing arguments: seed words, site, then (thr, 1 - rate) for its two masks
-DROP_ARGTYPES = [U, U, U, U, F, U, F]
+# a dropout kernel's trailing arguments: seed words, site, (thr, 1 - rate) for its two masks,
+# then their two element bases
+DROP_ARGTYPES = [U, U, U, U, F, U, F, ctypes.c_uint64, ctypes.c_uint64]
 
 
-def drop_args(seed: int, site: int, *rates: float) -> list:
+def drop_args(seed: int, site: int, rate_a: float, rate_b: float, bases=(0, 0)) -> list:
     """The dropout arguments of a kernel (``DROP_ARGTYPES``): the seed's two
-    words, the site, and for each rate in [0, 1) its threshold and ``1 - rate``
-    (``csrc/philox.cuh``)."""
-    from .dropout import check_rates, seed_words, threshold
+    words, the site, for each rate in [0, 1) its threshold and ``1 - rate``,
+    and each mask's element base (``csrc/philox.cuh``), a multiple of 4 (any
+    other raises ``ValueError``: the layers route such a call to their
+    library ops, ``dropout.kernel_bases``)."""
+    from .dropout import check_rates, kernel_bases, seed_words, threshold
 
-    check_rates(*rates)
+    check_rates(rate_a, rate_b)
+    if len(bases) != 2 or not kernel_bases(bases) or min(bases) < 0:
+        raise ValueError(f"dropout kernels take two element bases that are multiples of 4, "
+                         f"got {tuple(bases)}")
     args = [*seed_words(seed), int(site)]
-    for rate in rates:
+    for rate in (rate_a, rate_b):
         args += [threshold(rate), 1.0 - rate]
-    return args
+    return args + [int(b) for b in bases]
 
 
 def check(err: int, what: str) -> None:

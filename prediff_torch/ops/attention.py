@@ -451,7 +451,7 @@ def _softmax_plain(q, k, bias, scale, mxu_dtype):
 _AXIAL = ("l", "l", "l")
 
 
-def _axial_reordered(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks):
+def _axial_reordered(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks, bases):
     """x in cuboids (B, nC, vol, C), f32, its cuboid size, and the dropout
     masks (m_a (B, nC, heads, vol, vol), m_p natural (B, T, H, W, C)) with m_p
     reordered as x, None at rate 0."""
@@ -460,7 +460,7 @@ def _axial_reordered(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks
     cs = axial_cuboid_size(x.shape, axis)
     m_a, m_p = resolve_masks((rate_attn, rate_proj),
                              ((B, T * H * W // vol, num_heads, vol, vol), (B, T, H, W, C)),
-                             seed, site, masks, x.device)
+                             seed, site, masks, x.device, bases)
     if m_p is not None:
         m_p = cuboid_reorder(m_p, cs, _AXIAL)
     return cuboid_reorder(x.float(), cs, _AXIAL), cs, (m_a, m_p)
@@ -472,14 +472,17 @@ def axial_attention_plain(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: 
                           b_proj: torch.Tensor, num_heads: int, scale: float,
                           eps: float = 1e-5, mxu_dtype: Optional[torch.dtype] = None,
                           rate_attn: float = 0.0, rate_proj: float = 0.0,
-                          seed: Optional[int] = None, site: int = 0, masks=None) -> torch.Tensor:
+                          seed: Optional[int] = None, site: int = 0, masks=None,
+                          bases=(0, 0)) -> torch.Tensor:
     """Plain PyTorch version: :func:`cuboid_attention_plain` on the axis's
     cuboids (``cuboid_reorder``).  ``mxu_dtype`` rounds the matmul operands
     where the kernel does; ``None`` keeps f32.  Dropout on the attention
     weights (``rate_attn``) and on the projected output (``rate_proj``) with
-    the masks of ``(seed, site)``, or the explicit ``masks = (m_a (B, cuboids,
-    heads, vol, vol), m_p (B, T, H, W, C))`` of 0/1 values."""
-    xr, cs, drop = _axial_reordered(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks)
+    the masks of ``(seed, site)`` from the element ``bases``
+    (``ops/dropout.py``), or the explicit ``masks = (m_a (B, cuboids, heads,
+    vol, vol), m_p (B, T, H, W, C))`` of 0/1 values."""
+    xr, cs, drop = _axial_reordered(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks,
+                                    bases)
     out = cuboid_attention_plain(xr, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale,
                                  eps, mxu_dtype, rate_attn, rate_proj, masks=drop)
     return cuboid_reorder_reverse(out, cs, _AXIAL, x.shape[1:4]).to(x.dtype)
@@ -507,12 +510,14 @@ def axial_attention_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, axis: int,
                                    scale: float, eps: float = 1e-5,
                                    mxu_dtype: Optional[torch.dtype] = None,
                                    rate_attn: float = 0.0, rate_proj: float = 0.0,
-                                   seed: Optional[int] = None, site: int = 0, masks=None):
+                                   seed: Optional[int] = None, site: int = 0, masks=None,
+                                   bases=(0, 0)):
     """Plain (dx, dln_w, dln_b, dw_qkv, dbias, dw_proj, db_proj) of
     :func:`axial_attention_plain` for the cotangent ``g``:
     :func:`cuboid_attention_bwd_full_plain` on the axis's cuboids, with the
     same masks."""
-    xr, cs, drop = _axial_reordered(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks)
+    xr, cs, drop = _axial_reordered(x, axis, num_heads, rate_attn, rate_proj, seed, site, masks,
+                                    bases)
     dx, *dparams = cuboid_attention_bwd_full_plain(
         xr, cuboid_reorder(g.float(), cs, _AXIAL), ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
         scale, eps, mxu_dtype, rate_attn, rate_proj, masks=drop)
@@ -558,7 +563,7 @@ def _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_head
                       drop=None):
     """Launch the forward on the bf16 copies of w_qkv and w_proj kept per
     parameter version, with one bf16 scratch for qkv and the head outputs;
-    ``drop`` = (rate_attn, rate_proj, seed, site) takes the dropout entry
+    ``drop`` = (rate_attn, rate_proj, seed, site, bases) takes the dropout entry
     point.  x and out f32, or bf16 (the bf16 form, without dropout); the
     bias f32."""
     B, T, H, W, C = x.shape
@@ -588,9 +593,9 @@ def _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_head
         _build.check(err, "axial_attention_forward" + form)
         _build.count(fused_axial_attention, form)
     else:
-        rate_attn, rate_proj, seed, site = drop
+        rate_attn, rate_proj, seed, site, bases = drop
         err = lib.axial_attention_dropout_forward(
-            *ptrs, *dims, *_build.drop_args(seed, site, rate_attn, rate_proj),
+            *ptrs, *dims, *_build.drop_args(seed, site, rate_attn, rate_proj, bases),
             _build.stream_ptr(x.device))
         _build.check(err, "axial_attention_dropout_forward")
         fused_axial_attention_dropout.launches += 1
@@ -602,17 +607,18 @@ def fused_axial_attention_dropout(x: torch.Tensor, axis: int, ln_w: torch.Tensor
                                   w_proj: torch.Tensor, b_proj: torch.Tensor, num_heads: int,
                                   scale: float, eps: float = 1e-5, rate_attn: float = 0.0,
                                   rate_proj: float = 0.0, seed: int = 0,
-                                  site: int = 0) -> torch.Tensor:
-    """The layer with the dropout masks of ``(seed, site)``, forward only
+                                  site: int = 0, bases=(0, 0)) -> torch.Tensor:
+    """The layer with the dropout masks of ``(seed, site)`` from the element
+    ``bases`` (multiples of 4 on the card), forward only
     (:func:`fused_axial_attention` with a seed is the differentiable form).
     CPU tensor: the plain version in f32.  CUDA tensor: the kernel, or raise.
     With both rates 0 it gives the bits of the kernel without dropout."""
     if not x.is_cuda:
         return axial_attention_plain(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
                                      scale, eps, rate_attn=rate_attn, rate_proj=rate_proj,
-                                     seed=seed, site=site)
+                                     seed=seed, site=site, bases=bases)
     return _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale,
-                             eps, (rate_attn, rate_proj, seed, site))
+                             eps, (rate_attn, rate_proj, seed, site, bases))
 
 
 def fused_axial_attention_bwd_dx(x: torch.Tensor, g: torch.Tensor, axis: int,
@@ -680,7 +686,8 @@ def fused_axial_attention_dropout_bwd_full(x: torch.Tensor, g: torch.Tensor, axi
                                            w_qkv: torch.Tensor, bias: torch.Tensor,
                                            w_proj: torch.Tensor, num_heads: int, scale: float,
                                            eps: float = 1e-5, rate_attn: float = 0.0,
-                                           rate_proj: float = 0.0, seed: int = 0, site: int = 0):
+                                           rate_proj: float = 0.0, seed: int = 0, site: int = 0,
+                                           bases=(0, 0)):
     """(dx, dln_w, dln_b, dw_qkv, dbias, dw_proj, db_proj) of
     :func:`fused_axial_attention_dropout`, the masks regenerated from
     ``(seed, site)``.  CPU tensor: the plain version in f32.  CUDA tensor:
@@ -688,9 +695,10 @@ def fused_axial_attention_dropout_bwd_full(x: torch.Tensor, g: torch.Tensor, axi
     if not x.is_cuda:
         return axial_attention_bwd_full_plain(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj,
                                               num_heads, scale, eps, rate_attn=rate_attn,
-                                              rate_proj=rate_proj, seed=seed, site=site)
+                                              rate_proj=rate_proj, seed=seed, site=site,
+                                              bases=bases)
     return _attention_bwd_full_kernel(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
-                                      scale, eps, (rate_attn, rate_proj, seed, site))
+                                      scale, eps, (rate_attn, rate_proj, seed, site, bases))
 
 
 def _attention_bwd_full_kernel(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, scale,
@@ -728,9 +736,9 @@ def _attention_bwd_full_kernel(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, num_
         _build.check(err, "axial_attention_bwd_full")
         fused_axial_attention_bwd_full.launches += 1
     else:
-        rate_attn, rate_proj, seed, site = drop
+        rate_attn, rate_proj, seed, site, bases = drop
         err = lib.axial_attention_dropout_bwd_full(
-            *args, *_build.drop_args(seed, site, rate_attn, rate_proj), _build.stream_ptr(x.device))
+            *args, *_build.drop_args(seed, site, rate_attn, rate_proj, bases), _build.stream_ptr(x.device))
         _build.check(err, "axial_attention_dropout_bwd_full")
         fused_axial_attention_dropout_bwd_full.launches += 1
     return dx, vec[0], vec[1], dw_qkv, dbias, dw_proj, vec[2]
@@ -748,7 +756,7 @@ def _axial_forward(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, 
 
 
 class _FusedAxialAttention(torch.autograd.Function):
-    """``drop`` is None or (rate_attn, rate_proj, seed, site), Python numbers
+    """``drop`` is None or (rate_attn, rate_proj, seed, site, bases), Python numbers
     kept in ``ctx``: the backward regenerates the forward's masks from them."""
 
     @staticmethod
@@ -785,18 +793,20 @@ def fused_axial_attention(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: 
                           w_qkv: torch.Tensor, bias: torch.Tensor, w_proj: torch.Tensor,
                           b_proj: torch.Tensor, num_heads: int, scale: float,
                           eps: float = 1e-5, rate_attn: float = 0.0, rate_proj: float = 0.0,
-                          seed: Optional[int] = None, site: int = 0) -> torch.Tensor:
+                          seed: Optional[int] = None, site: int = 0,
+                          bases=(0, 0)) -> torch.Tensor:
     """CPU tensor: the plain version in f32.  CUDA tensor: the kernel, or raise.
     Differentiable on both; where autograd records nothing the call goes
     straight to the forward, without the ``autograd.Function``.  With a
     ``seed`` the dropout kernels run, with the masks of ``(seed, site)`` at
-    the two rates; without one the rates must be 0."""
+    the two rates from the element ``bases``; without one the rates must be 0."""
     if seed is None:
         if rate_attn > 0.0 or rate_proj > 0.0:
             raise ValueError("fused_axial_attention: a dropout rate above 0 needs a seed")
         drop = None
     else:
-        drop = (float(rate_attn), float(rate_proj), int(seed), int(site))
+        drop = (float(rate_attn), float(rate_proj), int(seed), int(site),
+                tuple(int(b) for b in bases))
     if _build.needs_grad(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj):
         return _FusedAxialAttention.apply(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
                                           num_heads, scale, eps, drop)
@@ -820,7 +830,7 @@ def cuboid_attention_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tens
                            b_proj: torch.Tensor, num_heads: int, scale: float, eps: float = 1e-5,
                            mxu_dtype: Optional[torch.dtype] = None, rate_attn: float = 0.0,
                            rate_proj: float = 0.0, seed: Optional[int] = None, site: int = 0,
-                           masks=None) -> torch.Tensor:
+                           masks=None, bases=(0, 0)) -> torch.Tensor:
     """Plain version of the general cuboid layer; ``mxu_dtype`` rounds the
     matmul operands where the kernel does, ``None`` keeps f32.  Dropout as
     :func:`axial_attention_plain`, the masks (or the explicit ``masks = (m_a
@@ -829,7 +839,7 @@ def cuboid_attention_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tens
     rate_proj)`` after the projection."""
     B, nC, vol, C = x.shape
     m_a, m_p = cuboid_layer_masks(x.shape, num_heads, rate_attn, rate_proj, seed, site, masks,
-                                  x.device)
+                                  x.device, bases)
     q, k, v = _qkv_plain(x.float(), ln_w, ln_b, w_qkv, num_heads, eps, mxu_dtype)
     p = apply_mask(_softmax_plain(q, k, bias, scale, mxu_dtype), m_a, rate_attn)
     o = torch.einsum("bnhij,bnjhc->bnihc", _round(p, mxu_dtype), _round(v, mxu_dtype))
@@ -870,7 +880,8 @@ def cuboid_attention_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torc
                                     w_proj: torch.Tensor, num_heads: int, scale: float,
                                     eps: float = 1e-5, mxu_dtype: Optional[torch.dtype] = None,
                                     rate_attn: float = 0.0, rate_proj: float = 0.0,
-                                    seed: Optional[int] = None, site: int = 0, masks=None):
+                                    seed: Optional[int] = None, site: int = 0, masks=None,
+                                    bases=(0, 0)):
     """Plain (dx, dln_w, dln_b, dw_qkv, dbias, dw_proj, db_proj) of
     :func:`cuboid_attention_plain` for the cotangent ``g``, the TPU kernel's
     formulas: everything recomputed from x, ``dbias`` the f32 ``ds`` summed
@@ -884,7 +895,7 @@ def cuboid_attention_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torc
     B, nC, vol, C = x.shape
     hc = C // num_heads
     m_a, m_p = cuboid_layer_masks(x.shape, num_heads, rate_attn, rate_proj, seed, site, masks,
-                                  x.device)
+                                  x.device, bases)
     xr = x.float()
     do = apply_mask(g.float(), m_p, rate_proj)
     gr = _round(do, mxu_dtype)
@@ -985,9 +996,9 @@ def _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale,
         _build.check(err, "cuboid_attention_forward" + form)
         _build.count(fused_cuboid_attention_layer, form)
     else:
-        rate_attn, rate_proj, seed, site = drop
+        rate_attn, rate_proj, seed, site, bases = drop
         err = lib.cuboid_attention_dropout_forward(
-            *ptrs, *dims, *_build.drop_args(seed, site, rate_attn, rate_proj),
+            *ptrs, *dims, *_build.drop_args(seed, site, rate_attn, rate_proj, bases),
             _build.stream_ptr(x.device))
         _build.check(err, "cuboid_attention_dropout_forward")
         fused_cuboid_attention_layer_dropout.launches += 1
@@ -999,8 +1010,10 @@ def fused_cuboid_attention_layer_dropout(x: torch.Tensor, ln_w: torch.Tensor, ln
                                          w_proj: torch.Tensor, b_proj: torch.Tensor,
                                          num_heads: int, scale: float, eps: float = 1e-5,
                                          rate_attn: float = 0.0, rate_proj: float = 0.0,
-                                         seed: int = 0, site: int = 0) -> torch.Tensor:
-    """The general layer with the dropout masks of ``(seed, site)``, forward
+                                         seed: int = 0, site: int = 0,
+                                         bases=(0, 0)) -> torch.Tensor:
+    """The general layer with the dropout masks of ``(seed, site)`` from the
+    element ``bases`` (multiples of 4 on the card), forward
     only (:func:`fused_cuboid_attention_layer` with a seed is the
     differentiable form).  CPU tensor: the plain version in f32.  CUDA
     tensor: the kernel, or raise.  With both rates 0 it gives the bits of the
@@ -1008,9 +1021,9 @@ def fused_cuboid_attention_layer_dropout(x: torch.Tensor, ln_w: torch.Tensor, ln
     if not x.is_cuda:
         return cuboid_attention_plain(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
                                       scale, eps, rate_attn=rate_attn, rate_proj=rate_proj,
-                                      seed=seed, site=site)
+                                      seed=seed, site=site, bases=bases)
     return _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps,
-                          (rate_attn, rate_proj, seed, site))
+                          (rate_attn, rate_proj, seed, site, bases))
 
 
 def fused_cuboid_attention_layer_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
@@ -1070,17 +1083,19 @@ def fused_cuboid_attention_layer_dropout_bwd_full(x: torch.Tensor, g: torch.Tens
                                                   w_proj: torch.Tensor, num_heads: int,
                                                   scale: float, eps: float = 1e-5,
                                                   rate_attn: float = 0.0, rate_proj: float = 0.0,
-                                                  seed: int = 0, site: int = 0):
+                                                  seed: int = 0, site: int = 0,
+                                                  bases=(0, 0)):
     """(dx, dln_w, dln_b, dw_qkv, dbias, dw_proj, db_proj) of
     :func:`fused_cuboid_attention_layer_dropout`, the masks regenerated from
-    ``(seed, site)``.  CPU tensor: the plain version in f32.  CUDA tensor: the
+    ``(seed, site)`` and ``bases``.  CPU tensor: the plain version in f32.  CUDA tensor: the
     kernel, or raise."""
     if not x.is_cuda:
         return cuboid_attention_bwd_full_plain(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
                                                scale, eps, rate_attn=rate_attn,
-                                               rate_proj=rate_proj, seed=seed, site=site)
+                                               rate_proj=rate_proj, seed=seed, site=site,
+                                               bases=bases)
     return _cuboid_bwd_full_kernel(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, scale, eps,
-                                   (rate_attn, rate_proj, seed, site))
+                                   (rate_attn, rate_proj, seed, site, bases))
 
 
 def _stats(plan: CuboidBwdPlan, device) -> torch.Tensor:
@@ -1126,9 +1141,9 @@ def _cuboid_bwd_full_kernel(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, sc
         _build.check(err, "cuboid_attention_bwd_full")
         fused_cuboid_attention_layer_bwd_full.launches += 1
     else:
-        rate_attn, rate_proj, seed, site = drop
+        rate_attn, rate_proj, seed, site, bases = drop
         err = lib.cuboid_attention_dropout_bwd_full(
-            *args, *_build.drop_args(seed, site, rate_attn, rate_proj), _build.stream_ptr(x.device))
+            *args, *_build.drop_args(seed, site, rate_attn, rate_proj, bases), _build.stream_ptr(x.device))
         _build.check(err, "cuboid_attention_dropout_bwd_full")
         fused_cuboid_attention_layer_dropout_bwd_full.launches += 1
     return dx, vec[0], vec[1], dw_qkv, dbias, dw_proj, vec[2]
@@ -1183,19 +1198,20 @@ def fused_cuboid_attention_layer(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torc
                                  b_proj: torch.Tensor, num_heads: int, scale: float,
                                  eps: float = 1e-5, rate_attn: float = 0.0,
                                  rate_proj: float = 0.0, seed: Optional[int] = None,
-                                 site: int = 0) -> torch.Tensor:
+                                 site: int = 0, bases=(0, 0)) -> torch.Tensor:
     """The general cuboid layer on x (B, cuboids, vol, C).  CPU tensor: the
     plain version in f32.  CUDA tensor: the kernel, or raise.  Differentiable
     on both; where autograd records nothing the call goes straight to the
     forward, without the ``autograd.Function``.  With a ``seed`` the dropout
-    kernels run, with the masks of ``(seed, site)`` at the two rates; without
-    one the rates must be 0."""
+    kernels run, with the masks of ``(seed, site)`` at the two rates from the
+    element ``bases``; without one the rates must be 0."""
     if seed is None:
         if rate_attn > 0.0 or rate_proj > 0.0:
             raise ValueError("fused_cuboid_attention_layer: a dropout rate above 0 needs a seed")
         drop = None
     else:
-        drop = (float(rate_attn), float(rate_proj), int(seed), int(site))
+        drop = (float(rate_attn), float(rate_proj), int(seed), int(site),
+                tuple(int(b) for b in bases))
     if _build.needs_grad(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj):
         return _FusedCuboidAttention.apply(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
                                            scale, eps, drop)

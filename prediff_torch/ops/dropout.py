@@ -11,10 +11,16 @@ mask to the tiling.  Here a mask is a pure function of logical coordinates:
                         )[element % 4] >= thr
     thr = min(round(rate * 2**32), 2**32 - 1)
 
-``element`` is the row-major index in the logical tensor, ``tensor`` numbers
-the masks of one module call (0: the FFN's hidden activation or the attention
-weights, 1: the module's output) and ``site`` numbers the module calls of one
-forward.  Kept values are divided by ``1 - rate``.  A forward kernel and its
+``element`` is the row-major index in the logical tensor of the whole
+batch, ``tensor`` numbers the masks of one module call (0: the FFN's hidden
+activation or the attention weights, 1: the module's output) and ``site``
+numbers the module calls of one forward.  On several ranks a rank holds rows
+``first_row ..`` of the batch, and every mask tensor has the batch as its
+leading factor, so the rank's local element ``e`` is the element ``base + e``
+with ``base = first_row * (elements per batch row)``: the ``base`` of
+:func:`keep_mask` and of the dropout kernels (:meth:`DropoutStream.bases`),
+so each rank draws its rows of the one-process masks.  Base 0 is one
+process.  Kept values are divided by ``1 - rate``.  A forward kernel and its
 backward, whatever their grids, regenerate the same mask from
 ``(seed, site)``; nothing is stored.  ``csrc/philox.cuh`` is the same
 function on the card: integer arithmetic, so the two agree bit for bit.
@@ -67,23 +73,36 @@ def philox4x32(key: Tuple[int, int], counter: Sequence[torch.Tensor]) -> Tuple[t
     return c0, c1, c2, c3
 
 
-def random_bits(seed: int, site: int, tensor: int, n: int, device=None) -> torch.Tensor:
-    """The first ``n`` uint32 draws (as int64) of the stream (seed, site, tensor)."""
-    idx = torch.arange(-(-n // 4), dtype=torch.int64, device=device)
+def random_bits(seed: int, site: int, tensor: int, n: int, device=None,
+                base: int = 0) -> torch.Tensor:
+    """The ``n`` uint32 draws (as int64) of the stream (seed, site, tensor)
+    from element ``base`` on (any base, also one that is not a multiple of 4)."""
+    skip = int(base) % 4
+    first = int(base) // 4
+    idx = torch.arange(first, first + -(-(n + skip) // 4), dtype=torch.int64, device=device)
     const = torch.zeros_like(idx)
     words = philox4x32(seed_words(seed), (idx & _MASK32, idx >> 32, const + int(tensor),
                                           const + int(site)))
-    return torch.stack(words, dim=1).reshape(-1)[:n]
+    return torch.stack(words, dim=1).reshape(-1)[skip:skip + n]
 
 
 def keep_mask(seed: int, site: int, tensor: int, shape: Sequence[int], rate: float,
-              device=None) -> torch.Tensor:
-    """The 0/1 float32 keep mask of a logical tensor of ``shape``."""
+              device=None, base: int = 0) -> torch.Tensor:
+    """The 0/1 float32 keep mask of a logical tensor of ``shape`` whose first
+    element is element ``base`` of the stream's tensor."""
     n = 1
     for s in shape:
         n *= int(s)
-    bits = random_bits(seed, site, tensor, n, device)
+    bits = random_bits(seed, site, tensor, n, device, base)
     return (bits >= threshold(rate)).to(torch.float32).reshape(tuple(shape))
+
+
+def _drawn(seed: int, site: int, tensor: int, shape, rate: float, device, base: int):
+    """:func:`keep_mask` (looked up at the call), with the base only where it
+    is not 0: at base 0 the call is one process's, as it always was."""
+    if base:
+        return keep_mask(seed, site, tensor, shape, rate, device, base=base)
+    return keep_mask(seed, site, tensor, shape, rate, device)
 
 
 def apply_mask(v: torch.Tensor, mask: Optional[torch.Tensor], rate: float) -> torch.Tensor:
@@ -95,9 +114,10 @@ def apply_mask(v: torch.Tensor, mask: Optional[torch.Tensor], rate: float) -> to
 
 
 def resolve_masks(rates: Sequence[float], shapes: Sequence[Sequence[int]], seed: Optional[int],
-                  site: int, masks, device):
+                  site: int, masks, device, bases: Optional[Sequence[int]] = None):
     """One mask (or None at rate 0) for each of a module call's dropped
-    tensors: the explicit ``masks`` when given, else drawn from (seed, site)."""
+    tensors: the explicit ``masks`` when given, else drawn from (seed, site),
+    each from its element base in ``bases`` (default 0)."""
     check_rates(*rates)
     if masks is not None:
         return [None if r <= 0.0 else m.to(device=device, dtype=torch.float32).reshape(tuple(s))
@@ -106,36 +126,54 @@ def resolve_masks(rates: Sequence[float], shapes: Sequence[Sequence[int]], seed:
         if any(r > 0.0 for r in rates):
             raise ValueError("a dropout rate above 0 needs a seed or explicit masks")
         return [None] * len(rates)
-    return [None if r <= 0.0 else keep_mask(seed, site, i, s, r, device)
-            for i, (r, s) in enumerate(zip(rates, shapes))]
+    bases = bases or (0,) * len(rates)
+    return [None if r <= 0.0 else _drawn(seed, site, i, s, r, device, b)
+            for i, (r, s, b) in enumerate(zip(rates, shapes, bases))]
 
 
 def cuboid_layer_masks(shape: Sequence[int], num_heads: int, rate_attn: float, rate_proj: float,
-                       seed: Optional[int], site: int, masks=None, device=None):
+                       seed: Optional[int], site: int, masks=None, device=None,
+                       bases: Optional[Sequence[int]] = None):
     """The two masks of one cuboid attention layer call on ``cuboid_reorder``'s
     layout, x of ``shape`` (B, cuboids, vol, C): tensor 0 the attention
     weights (B, cuboids, heads, vol, vol), tensor 1 the projected output (B,
     cuboids, vol, C) before the reverse reorder, where flax's ``Dropout``
     acts in the JAX layer; None at rate 0.  The general layer's kernels and
-    plain versions and the grouped and einsum routes all draw this layout."""
+    plain versions and the grouped and einsum routes all draw this layout;
+    ``bases`` the two masks' element bases."""
     B, nC, vol, C = shape
     return resolve_masks((rate_attn, rate_proj), ((B, nC, num_heads, vol, vol), (B, nC, vol, C)),
-                         seed, site, masks, device)
+                         seed, site, masks, device, bases)
 
 
 class DropoutStream:
-    """The dropout sites of one forward: the seed of the step and a counter
+    """The dropout sites of one forward: the seed of the step, a counter
     that numbers the module calls that draw, in call order (the counterpart
-    of flax's ``make_rng("dropout")`` folding in the module path)."""
+    of flax's ``make_rng("dropout")`` folding in the module path), and the
+    first global batch row of the rows this forward holds (0 on one
+    process; a rank's first row of the global batch on several)."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, first_row: int = 0):
         self.seed = int(seed) % 2 ** 64
         self.site = 0
+        self.first_row = int(first_row)
 
     def next_site(self) -> int:
         site = self.site
         self.site += 1
         return site
+
+    def bases(self, *per_row: int) -> Tuple[int, ...]:
+        """The element bases of a call's masks, each given by its elements
+        per batch row: ``first_row`` times each."""
+        return tuple(self.first_row * int(n) for n in per_row)
+
+
+def kernel_bases(bases: Sequence[int]) -> bool:
+    """Whether the dropout kernels take these element bases: multiples of 4
+    (``csrc/philox.cuh``); a layer whose bases are not takes its library
+    route, whose masks take any base."""
+    return all(int(b) % 4 == 0 for b in bases)
 
 
 def is_active(module: torch.nn.Module, drop: Optional[DropoutStream], *rates: float) -> bool:

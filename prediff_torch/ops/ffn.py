@@ -233,16 +233,16 @@ def ffn_dropout_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                       w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                       eps: float = 1e-5, rate_act: float = 0.0, rate_out: float = 0.0,
                       seed: Optional[int] = None, site: int = 0, masks=None,
-                      mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                      mxu_dtype: Optional[torch.dtype] = None, bases=(0, 0)) -> torch.Tensor:
     """Plain PyTorch version with dropout on gelu(h) (``rate_act``) and on the
     output before the residual (``rate_out``).  The masks are those of
-    ``(seed, site)``, or the explicit ``masks = (m1 (tokens, hidden),
-    m2 (tokens, C))`` of 0/1 values.  ``mxu_dtype=torch.bfloat16`` rounds the
+    ``(seed, site)`` from the element ``bases`` (``ops/dropout.py``), or the
+    explicit ``masks = (m1 (tokens, hidden), m2 (tokens, C))`` of 0/1 values.  ``mxu_dtype=torch.bfloat16`` rounds the
     matmul operands (LN output, weights, the dropped hidden) where the kernel
     does; ``None`` keeps f32 throughout."""
     M, C = x.shape
     m1, m2 = resolve_masks((rate_act, rate_out), ((M, w1.shape[0]), (M, C)), seed, site, masks,
-                           x.device)
+                           x.device, bases)
     xf = x.float()
     ln = layer_norm_plain(xf, ln_w, ln_b, eps)
     h = _round(ln, mxu_dtype) @ _round(w1, mxu_dtype).T + b1
@@ -279,7 +279,8 @@ def ffn_dropout_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Ten
                                ln_b: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                                w2: torch.Tensor, eps: float = 1e-5, rate_act: float = 0.0,
                                rate_out: float = 0.0, seed: Optional[int] = None, site: int = 0,
-                               masks=None, mxu_dtype: Optional[torch.dtype] = None):
+                               masks=None, mxu_dtype: Optional[torch.dtype] = None,
+                               bases=(0, 0)):
     """Plain (dx, dln_w, dln_b, dw1, db1, dw2, db2) of
     :func:`ffn_dropout_plain` for the cotangent ``g``, the TPU kernel's
     formulas: everything recomputed from x, the masks regenerated (or the
@@ -290,7 +291,7 @@ def ffn_dropout_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Ten
     products, as the kernel does; every sum is f32."""
     M, C = x.shape
     m1, m2 = resolve_masks((rate_act, rate_out), ((M, w1.shape[0]), (M, C)), seed, site, masks,
-                           x.device)
+                           x.device, bases)
     xf, gf = x.float(), g.float()
     mu = xf.mean(dim=-1, keepdim=True)
     nhat = (xf - mu) * torch.rsqrt((xf - mu).square().mean(dim=-1, keepdim=True) + eps)
@@ -334,7 +335,7 @@ def _check_widths(M: int, C: int, hidden: int) -> None:
 def _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop=None):
     """Launch the forward (one launch, no workspace) on the bf16 copies of
     w1 and w2 kept per parameter version; ``drop`` = (rate_act, rate_out,
-    seed, site) takes the dropout entry point.  x and out f32, or bf16 (the
+    seed, site, bases) takes the dropout entry point.  x and out f32, or bf16 (the
     bf16 form, without dropout)."""
     M, C = x.shape
     hidden = w1.shape[0]
@@ -358,8 +359,9 @@ def _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop=None):
         _build.check(err, "ffn_forward" + form)
         _build.count(fused_ffn, form)
     else:
-        rate_act, rate_out, seed, site = drop
-        err = lib.ffn_dropout_forward(*args, *_build.drop_args(seed, site, rate_act, rate_out),
+        rate_act, rate_out, seed, site, bases = drop
+        err = lib.ffn_dropout_forward(*args, *_build.drop_args(seed, site, rate_act, rate_out,
+                                                               bases),
                                       _build.stream_ptr(x.device))
         _build.check(err, "ffn_dropout_forward")
         fused_ffn_dropout.launches += 1
@@ -369,14 +371,17 @@ def _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop=None):
 def fused_ffn_dropout(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
                       b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
                       rate_act: float = 0.0, rate_out: float = 0.0, seed: int = 0,
-                      site: int = 0) -> torch.Tensor:
-    """The fused FFN with the dropout masks of ``(seed, site)``, forward only
+                      site: int = 0, bases=(0, 0)) -> torch.Tensor:
+    """The fused FFN with the dropout masks of ``(seed, site)`` from the
+    element ``bases`` (multiples of 4 on the card), forward only
     (:func:`fused_ffn` with a seed is the differentiable form).  CPU tensor:
     the plain version in f32.  CUDA tensor: the kernel, or raise.  With both
     rates 0 it gives the bits of the kernel without dropout."""
     if not x.is_cuda:
-        return ffn_dropout_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, rate_act, rate_out, seed, site)
-    return _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, (rate_act, rate_out, seed, site))
+        return ffn_dropout_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, rate_act, rate_out, seed,
+                                 site, bases=bases)
+    return _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps,
+                       (rate_act, rate_out, seed, site, bases))
 
 
 def _bwd_maps(w1, w2, C, lib):
@@ -429,20 +434,21 @@ def fused_ffn_bwd_full(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_
 def fused_ffn_dropout_bwd_full(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
                                ln_b: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                                w2: torch.Tensor, eps: float = 1e-5, rate_act: float = 0.0,
-                               rate_out: float = 0.0, seed: int = 0, site: int = 0):
+                               rate_out: float = 0.0, seed: int = 0, site: int = 0,
+                               bases=(0, 0)):
     """(dx, dln_w, dln_b, dw1, db1, dw2, db2) of :func:`fused_ffn_dropout`, the
-    masks regenerated from ``(seed, site)``.  CPU tensor: the plain version in
-    f32.  CUDA tensor: the kernel, or raise."""
+    masks regenerated from ``(seed, site)`` and ``bases``.  CPU tensor: the
+    plain version in f32.  CUDA tensor: the kernel, or raise."""
     if not x.is_cuda:
         return ffn_dropout_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, eps, rate_act, rate_out,
-                                          seed, site)
+                                          seed, site, bases=bases)
     return _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps,
-                                (rate_act, rate_out, seed, site))
+                                (rate_act, rate_out, seed, site, bases))
 
 
 def _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps, drop=None):
     """Launch the all-gradients backward (``drop`` = (rate_act, rate_out,
-    seed, site): its dropout entry point): the kernel, the ordered sums of
+    seed, site, bases): its dropout entry point): the kernel, the ordered sums of
     the vector gradients' partials, the two weight-gradient products."""
     M, C = x.shape
     hidden = w1.shape[0]
@@ -473,8 +479,9 @@ def _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps, drop=None):
         _build.check(err, "ffn_bwd_full")
         fused_ffn_bwd_full.launches += 1
     else:
-        rate_act, rate_out, seed, site = drop
-        err = lib.ffn_dropout_bwd_full(*args, *_build.drop_args(seed, site, rate_act, rate_out),
+        rate_act, rate_out, seed, site, bases = drop
+        err = lib.ffn_dropout_bwd_full(*args, *_build.drop_args(seed, site, rate_act, rate_out,
+                                                                bases),
                                        _build.stream_ptr(x.device))
         _build.check(err, "ffn_dropout_bwd_full")
         fused_ffn_dropout_bwd_full.launches += 1
@@ -490,8 +497,8 @@ def _ffn_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop):
 
 
 class _FusedFFN(torch.autograd.Function):
-    """``drop`` is None or (rate_act, rate_out, seed, site), Python numbers
-    kept in ``ctx``: the backward regenerates the forward's masks from them."""
+    """``drop`` is None or (rate_act, rate_out, seed, site, bases), Python
+    numbers kept in ``ctx``: the backward regenerates the forward's masks from them."""
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps, drop):
@@ -517,18 +524,19 @@ class _FusedFFN(torch.autograd.Function):
 def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
               b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
               rate_act: float = 0.0, rate_out: float = 0.0, seed: Optional[int] = None,
-              site: int = 0) -> torch.Tensor:
+              site: int = 0, bases=(0, 0)) -> torch.Tensor:
     """CPU tensor: the plain version in f32.  CUDA tensor: the kernel, or raise.
     Differentiable on both; where autograd records nothing the call goes
     straight to the forward, without the ``autograd.Function``.  With a
     ``seed`` the dropout kernels run, with the masks of ``(seed, site)`` at
-    the two rates; without one the rates must be 0."""
+    the two rates from the element ``bases``; without one the rates must be 0."""
     if seed is None:
         if rate_act > 0.0 or rate_out > 0.0:
             raise ValueError("fused_ffn: a dropout rate above 0 needs a seed")
         drop = None
     else:
-        drop = (float(rate_act), float(rate_out), int(seed), int(site))
+        drop = (float(rate_act), float(rate_out), int(seed), int(site),
+                tuple(int(b) for b in bases))
     if _build.needs_grad(x, ln_w, ln_b, w1, b1, w2, b2):
         return _FusedFFN.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop)
     return _ffn_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop)

@@ -8,7 +8,13 @@ model and its own rows of the batch, and the collectives are written out:
 :func:`shard_batch` takes this rank's rows, :func:`replicate` broadcasts from
 the mesh's first rank, :func:`gather_batch` all-gathers axis 0 (the
 counterpart of reading a global ``jax.Array`` whole) and :func:`all_reduce_sum`
-sums a tensor over the ranks.
+sums a tensor over the ranks.  Training adds :func:`all_reduce_mean` (the
+gradients' mean over the ranks, every tensor of a list in one flat bucket:
+one collective, one host round trip on gloo, not one a parameter),
+:func:`all_reduce_sum_grad` (a sum autograd differentiates: the backward is
+the sum of the ranks' cotangents, for the discriminator's batch statistics),
+:func:`replicate_` (tensors set in place to the first rank's, one bucket) and
+:func:`batch_rows` (a rank's rows of the global batch, for the draws).
 
 The backend is NCCL on the card and gloo on the CPU.  Gloo takes a CUDA
 tensor only through the host, so the collectives here copy a CUDA tensor to
@@ -255,6 +261,76 @@ def all_reduce_sum(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     buf = t.cpu() if _via_host(t, mesh) else t.clone()
     dist.all_reduce(buf, group=mesh.group)
     return buf.to(t.device)
+
+
+def _bucket(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1:
+        raise ValueError(f"one bucket takes one dtype, got {sorted(map(str, dtypes))}")
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _unbucket(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> list:
+    return [part.view(t.shape) for part, t in
+            zip(torch.split(flat, [t.numel() for t in like]), like)]
+
+
+def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: Optional[DataMesh]) -> list:
+    """New tensors, each the mean of its counterparts over the mesh's ranks
+    (the sum, then divided by the size: the same bits on every rank), all of
+    one dtype reduced as one flat bucket.  Without a mesh (or its group):
+    the tensors themselves."""
+    tensors = list(tensors)
+    if not tensors or mesh is None or not mesh.distributed:
+        return tensors
+    return _unbucket(all_reduce_sum(_bucket(tensors), mesh).div_(mesh.size), tensors)
+
+
+def replicate_(tensors: Sequence[torch.Tensor], mesh: Optional[DataMesh]) -> None:
+    """Set each tensor in place to the mesh's first rank's (one broadcast of
+    a flat bucket per dtype and device); nothing without a group."""
+    if mesh is None or not mesh.distributed:
+        return
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault((t.dtype, t.device), []).append(t)
+    with torch.no_grad():
+        for group in by_dtype.values():
+            flat = _bucket(group)
+            buf = flat.cpu() if _via_host(flat, mesh) else flat
+            dist.broadcast(buf, src=mesh.ranks[0], group=mesh.group)
+            for t, part in zip(group, _unbucket(buf.to(flat.device), group)):
+                t.copy_(part)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return all_reduce_sum(t, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.contiguous(), ctx.mesh), None
+
+
+def all_reduce_sum_grad(t: torch.Tensor, mesh: Optional[DataMesh]) -> torch.Tensor:
+    """:func:`all_reduce_sum` that autograd differentiates: the gradient of
+    every rank's input is the sum of the ranks' cotangents, so the ranks'
+    backwards must run in step (each calls it once in the same order).
+    ``t`` itself without a mesh."""
+    if mesh is None:
+        return t
+    return _AllReduceSum.apply(t, mesh)
+
+
+def batch_rows(local: int, mesh: Optional[DataMesh]) -> Optional[Tuple[int, int]]:
+    """``(first, total)``: this rank's first row in the global batch of a
+    batch of ``local`` rows a rank, and the global batch's rows; None
+    without a mesh (one process).  A mesh of one rank gives ``(0, local)``."""
+    if mesh is None:
+        return None
+    return mesh.index * local, mesh.size * local
 
 
 def gather_batch(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:

@@ -15,8 +15,22 @@ cuDNN runs its deterministic algorithms (set with the device,
 kernels sum in a fixed order, and with that switch the library's convolution
 gradients do too, so the same step gives the same bits.
 
-Refused when asked for: the mesh (DDP training, the slice after the sharded
-forecasts and evaluation), ``remat_unet``, ``ema_dtype`` and ``state_dtype``
+Several ranks (``mesh``, a ``parallel.DataMesh``; the JAX trainer's ``mesh``,
+which places the state replicated and the batch sharded and lets XLA insert
+the gradient all-reduce): every rank holds the whole state, created and then
+set to the mesh's first rank's (``EmaTrainState.replicate``), and its own
+rows of the global batch, the same count on each.  A micro-step draws the
+global batch's numbers and takes its rows (``LatentDiffusion.training_loss``
+with the mesh), takes its gradients with ``torch.autograd.grad``, and
+all-reduces their mean over the ranks, written out as one flat bucket
+(``parallel.all_reduce_mean``): ``DistributedDataParallel``'s reducer fires
+only on ``.backward()`` into ``.grad``.  The reduction runs every micro-step,
+as the JAX step's (the accumulation averages reduced gradients, and
+``grad_norm`` is the global micro-gradient's); ``grad_norm``, the clip and the
+update act on the reduced gradients, so the ranks' states stay bit-equal,
+and the ``loss_dict`` holds the means over the ranks, the global batch's.
+
+Refused when asked for: ``remat_unet``, ``ema_dtype`` and ``state_dtype``
 (not ported yet), and, not carried over from the JAX trainer,
 ``make_train_step_scan`` and the TPU / XLA layout and RNG knobs
 ``prng_impl``, ``flat_update``, ``pack_small_thr``, ``matmul_precision``,
@@ -29,16 +43,15 @@ import torch
 from torch import nn
 
 from ..diffusion.latent_diffusion import LatentDiffusion
+from ..parallel.mesh import DataMesh, all_reduce_mean
 from ..utils.convert import torch_key_to_flax_path
 from .optim import build_optimizer, global_norm
 from .train_state import EmaTrainState
 
-DDP_SLICE = "ROADMAP.md queue 1, the next slice: DDP training"
 # why a knob of the JAX trainers is refused; the others are TPU / XLA knobs
-_NOT_YET = {"mesh": f"training on several ranks is not ported yet ({DDP_SLICE})",
-            "remat_unet": "not ported yet (ROADMAP.md queue 1, the trainer opt-ins)",
+_NOT_YET = {"remat_unet": "not ported yet (ROADMAP.md queue 1, the trainer opt-ins)",
             "ema_dtype": "not ported yet (ROADMAP.md queue 1, the trainer opt-ins)"}
-_TPU_KNOBS = {"mesh": None, "remat_unet": False, "prng_impl": None, "flat_update": False,
+_TPU_KNOBS = {"remat_unet": False, "prng_impl": None, "flat_update": False,
               "pack_small_thr": 0, "matmul_precision": None, "conv3d_impl": None,
               "ema_dtype": None}
 
@@ -78,17 +91,30 @@ def step_dropout_seed(seed: Union[int, torch.Generator], step: int) -> int:
     return (int(words[0]) << 32) | int(words[1])
 
 
+def reduce_loss_dict(loss_dict: Dict[str, torch.Tensor],
+                     mesh: Optional[DataMesh]) -> Dict[str, torch.Tensor]:
+    """The 0-dim losses, detached, as their means over the mesh's ranks (one
+    bucket): with equal shards the global batch's means."""
+    names = list(loss_dict)
+    values = all_reduce_mean([loss_dict[k].detach() for k in names], mesh)
+    return dict(zip(names, values))
+
+
 class DiffusionTrainer:
     """Train and validation steps of the latent diffusion model ``ld`` (from
     :func:`~prediff_torch.factory.build_training_pipeline`)."""
 
     def __init__(self, ld: LatentDiffusion, optim_config: Optional[Dict] = None,
                  use_ema: bool = True, ema_decay: float = 0.9999,
-                 track_grad_norm: bool = False, latent_inputs: bool = False, **knobs):
+                 track_grad_norm: bool = False, latent_inputs: bool = False,
+                 mesh: Optional[DataMesh] = None, **knobs):
         refuse_knobs("DiffusionTrainer", knobs, _TPU_KNOBS)
         if any(p.requires_grad for p in ld.vae.parameters()):
             raise ValueError("the VAE must be frozen")
+        if mesh is not None and mesh.device.type != ld.device.type:
+            raise ValueError(f"the mesh's device {mesh.device} is not the pipeline's {ld.device}")
         self.ld = ld
+        self.mesh = mesh
         self.optim_config = dict(optim_config or {})
         self.use_ema = use_ema
         self.ema_decay = ema_decay
@@ -106,33 +132,44 @@ class DiffusionTrainer:
         if self.ld.learn_logvar:
             params["logvar"] = nn.Parameter(self.ld.init_logvar())
         tx = build_optimizer(list(params.values()), **self.optim_config)
-        return EmaTrainState.create(params, tx, use_ema=self.use_ema, ema_decay=self.ema_decay)
+        state = EmaTrainState.create(params, tx, use_ema=self.use_ema, ema_decay=self.ema_decay)
+        return state.replicate(self.mesh)
 
     def _loss(self, logvar, generator, x, y, prefix: str, latent: Optional[bool] = None,
               unet_params=None, dropout_seed: Optional[int] = None):
         latent = self.latent_inputs if latent is None else latent
         fn = self.ld.training_loss_from_moments if latent else self.ld.training_loss
         return fn(logvar, generator, x, y, prefix=prefix, unet_params=unet_params,
-                  dropout_seed=dropout_seed)
+                  dropout_seed=dropout_seed, mesh=self.mesh)
 
     def _logvar(self, state: EmaTrainState) -> torch.Tensor:
         return state.params["logvar"] if "logvar" in state.params else self.ld.init_logvar()
+
+    def grads(self, state: EmaTrainState, seed: Union[int, torch.Generator], x: torch.Tensor,
+              y: torch.Tensor, reduce: bool = True):
+        """One micro-step's ``(grads, loss_dict)`` without the update: the
+        gradient of every trainable parameter, in the order of
+        ``state.params``, and the detached losses; on a mesh their means over
+        the ranks (``reduce=False``: this rank's own)."""
+        self.ld.unet.train()
+        generator = step_generator(seed, state.step, self.ld.device)
+        loss, loss_dict = self._loss(self._logvar(state), generator, x, y, "train",
+                                     dropout_seed=step_dropout_seed(seed, state.step))
+        grads = torch.autograd.grad(loss, list(state.params.values()))
+        mesh = self.mesh if reduce else None
+        return all_reduce_mean(grads, mesh), reduce_loss_dict(loss_dict, mesh)
 
     def train_step(self, state: EmaTrainState, seed: Union[int, torch.Generator],
                    x: torch.Tensor, y: torch.Tensor
                    ) -> Tuple[EmaTrainState, Dict[str, torch.Tensor]]:
         """One micro-step on target ``x`` and context ``y`` (pixels, or
-        moments with ``latent_inputs``): loss, gradients of every trainable
-        parameter, ``state.apply_gradients``.  Returns the state and the
+        moments with ``latent_inputs``; on a mesh this rank's rows): loss,
+        gradients of every trainable parameter (on a mesh their mean over the
+        ranks), ``state.apply_gradients``.  Returns the state and the
         ``loss_dict`` (0-dim tensors on the device; ``grad_norm`` is the
         global norm of this micro-step's gradients before the clip)."""
-        self.ld.unet.train()
-        generator = step_generator(seed, state.step, self.ld.device)
-        loss, loss_dict = self._loss(self._logvar(state), generator, x, y, "train",
-                                     dropout_seed=step_dropout_seed(seed, state.step))
+        grads, loss_dict = self.grads(state, seed, x, y)
         names = list(state.params)
-        grads = torch.autograd.grad(loss, [state.params[k] for k in names])
-        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
         loss_dict["grad_norm"] = global_norm(grads)
         if self.track_grad_norm:
             by_module: Dict[str, list] = {}
@@ -151,8 +188,9 @@ class DiffusionTrainer:
                  y: torch.Tensor, use_ema: bool = True,
                  latent_inputs: Optional[bool] = None) -> Dict[str, torch.Tensor]:
         """The loss on a validation batch with the EMA weights (``use_ema``)
-        in eval mode (no dropout); the ``loss_dict`` under ``val/``.  ``latent_inputs=False``
-        forces pixel inputs for a trainer that trains from moments."""
+        in eval mode (no dropout); the ``loss_dict`` under ``val/``, on a mesh
+        its means over the ranks.  ``latent_inputs=False`` forces pixel inputs
+        for a trainer that trains from moments."""
         unet_params = None
         if use_ema and state.use_ema:
             unet_params = state.ema_param_tree("unet.")
@@ -164,4 +202,4 @@ class DiffusionTrainer:
                                       latent=latent_inputs, unet_params=unet_params)
         finally:
             self.ld.unet.train(was_training)
-        return loss_dict
+        return reduce_loss_dict(loss_dict, self.mesh)

@@ -1,6 +1,11 @@
 """Generic training loop: epochs over batches, periodic validation,
 checkpoints (top-k by the monitored score + the latest), jsonl metric
 logging, early stopping.  Counterpart of ``prediff_tpu/training/loop.py``.
+On several ranks (``mesh``) every rank runs the loop on its own batches
+(the same count on each: the steps' collectives pair up), and the mesh's
+first rank alone writes the checkpoints and ``metrics.jsonl``; the others
+wait for each checkpoint at a barrier.  The logged numbers are the trainers'
+reduced ones, the same on every rank.
 """
 import json
 import os
@@ -10,7 +15,8 @@ from typing import Any, Callable, Dict, Iterable, Optional, Union
 import numpy as np
 import torch
 
-from ..utils.checkpoint import delete_checkpoint, save_checkpoint
+from ..parallel.mesh import DataMesh
+from ..utils.checkpoint import delete_checkpoint, save_checkpoint, writes
 
 
 class MetricLogger:
@@ -65,9 +71,10 @@ class CheckpointTracker:
     best first."""
 
     def __init__(self, save_dir: str, monitor: str = "val/loss", mode: str = "min",
-                 save_top_k: int = 3):
+                 save_top_k: int = 3, mesh: Optional[DataMesh] = None):
         if mode not in ("min", "max"):
             raise ValueError(f"mode '{mode}'")
+        self.mesh = mesh
         self.save_dir = save_dir
         self.monitor = monitor
         self.mode = mode
@@ -84,14 +91,14 @@ class CheckpointTracker:
 
     def update(self, score: float, step: int, state: Any) -> None:
         path = os.path.join(self.save_dir, "ckpt")
-        save_checkpoint(path, state, step=step, keep=None)
+        save_checkpoint(path, state, step=step, keep=None, mesh=self.mesh)
         self.last_step = step
         self.best.append((float(score), step))
         self.best.sort(key=lambda e: -e[0] if self.mode == "max" else e[0])
         self.best = self.best[: self.save_top_k]
         desired = {st for _, st in self.best} | {self.last_step}
         for st in sorted((self.saved | {step}) - desired):
-            delete_checkpoint(path, st)
+            delete_checkpoint(path, st, mesh=self.mesh)
         self.saved = desired
 
 
@@ -122,7 +129,8 @@ def fit(state: Any, train_step: Callable, train_batches_fn: Callable[[int], Iter
         check_val_every_n_epoch: int = 1, monitor: str = "val/loss", monitor_mode: str = "min",
         save_top_k: int = 3, early_stop: bool = False, early_stop_patience: int = 100,
         log_every_n_steps: int = 50, max_steps: Optional[int] = None,
-        logger: Optional[MetricLogger] = None, steps_per_call: int = 1):
+        logger: Optional[MetricLogger] = None, steps_per_call: int = 1,
+        mesh: Optional[DataMesh] = None):
     """Run the loop; returns the final state.
 
     ``train_batches_fn(epoch)`` yields batches; ``make_batch_args(batch)``
@@ -130,12 +138,16 @@ def fit(state: Any, train_step: Callable, train_batches_fn: Callable[[int], Iter
     step here is one call of ``train_step`` (a micro-step when gradients are
     accumulated), as ``state.step`` counts them.  ``steps_per_call`` > 1
     (several steps per dispatch, a remedy for the TPU host's dispatch cost)
-    is not ported."""
+    is not ported.  ``mesh``: the ranks training together (module
+    docstring); its first rank alone logs and writes checkpoints."""
     if int(steps_per_call) > 1:
         raise NotImplementedError("steps_per_call > 1 is not ported (ROADMAP.md queue 1, the "
                                   "trainer opt-ins: a TPU dispatch knob, not carried over)")
-    logger = logger if logger is not None else MetricLogger(save_dir)
-    tracker = CheckpointTracker(save_dir, monitor, monitor_mode, save_top_k)
+    if writes(mesh):
+        logger = logger if logger is not None else MetricLogger(save_dir)
+    else:   # the other ranks log nothing
+        logger = None
+    tracker = CheckpointTracker(save_dir, monitor, monitor_mode, save_top_k, mesh)
     stopper = EarlyStopper(early_stop_patience, monitor_mode, early_stop)
     global_step = int(state.step)
     last_val_step = None
@@ -144,7 +156,8 @@ def fit(state: Any, train_step: Callable, train_batches_fn: Callable[[int], Iter
         """Validate and checkpoint; True when early stopping says stop."""
         nonlocal last_val_step
         val_metrics = val_fn(state)
-        logger.log(global_step, val_metrics)
+        if logger is not None:
+            logger.log(global_step, val_metrics)
         last_val_step = global_step
         score = val_metrics.get(monitor)
         if score is not None:
@@ -160,7 +173,7 @@ def fit(state: Any, train_step: Callable, train_batches_fn: Callable[[int], Iter
         for batch in train_batches_fn(epoch):
             state, metrics = train_step(state, seed, *make_batch_args(batch))
             global_step += 1
-            if global_step % log_every_n_steps == 0:
+            if logger is not None and global_step % log_every_n_steps == 0:
                 logger.log(global_step, metrics)
             if max_steps is not None and global_step >= max_steps:
                 stop = True  # mid-epoch: the final validation still runs below

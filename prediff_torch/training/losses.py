@@ -6,16 +6,24 @@ LPIPSWithDiscriminator, taming/losses/contperceptual.py:33, and
 NLayerDiscriminator, taming/losses/model.py:100).  Inputs and logits are
 NHWC, as the JAX package's; inside, the discriminator runs NCHW on PyTorch's
 convolutions.  Its BatchNorm follows flax's, not ``nn.BatchNorm2d``'s
-forward: a training-mode call normalises by the batch's statistics and only
+forward: a training-mode call normalises by the batch's statistics, flax's
+``mean = E[x]``, ``var = max(0, E[x^2] - E[x]^2)``, and only
 ``update_stats=True`` moves the running averages, with flax's momentum (0.9,
-torch's 0.1) and the biased batch variance flax keeps.  The ``disc_start``
-gate is a host test of the step count.
+torch's 0.1) and that biased variance.  On several ranks (``mesh``) the two
+means are over the global batch, all-reduced differentiably
+(``parallel.all_reduce_sum_grad``; ``nn.SyncBatchNorm`` takes no CPU
+tensors), as the JAX step normalises its sharded batch; ActNorm's data
+initialisation takes the global batch too, and the adaptive weight the norms
+of the all-reduced gradients.  The ``disc_start`` gate is a host test of the
+step count.
 """
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import DataMesh, all_reduce_mean, all_reduce_sum, all_reduce_sum_grad
 
 
 class ActNorm2D(nn.Module):
@@ -31,10 +39,18 @@ class ActNorm2D(nn.Module):
         self.scale = nn.Parameter(torch.ones(1, num_features, 1, 1))
 
     @torch.no_grad()
-    def initialize(self, x: torch.Tensor) -> None:
-        """``x``: an NCHW batch as it reaches this layer."""
-        std = x.std(dim=(0, 2, 3), correction=1)
-        self.loc.copy_(-x.mean(dim=(0, 2, 3)).reshape(self.loc.shape))
+    def initialize(self, x: torch.Tensor, mesh: Optional[DataMesh] = None) -> None:
+        """``x``: an NCHW batch as it reaches this layer; with a mesh this
+        rank's rows of the global batch, whose statistics it takes."""
+        if mesh is None:
+            std = x.std(dim=(0, 2, 3), correction=1)
+            mean = x.mean(dim=(0, 2, 3))
+        else:
+            count = x.numel() // x.shape[1] * mesh.size
+            mean = all_reduce_sum(x.sum(dim=(0, 2, 3)), mesh) / count
+            sq = all_reduce_sum((x - mean[None, :, None, None]).square().sum(dim=(0, 2, 3)), mesh)
+            std = torch.sqrt(sq / (count - 1))
+        self.loc.copy_(-mean.reshape(self.loc.shape))
         self.scale.copy_(torch.where(std > 0, 1.0 / (std + 1e-6), torch.ones_like(std))
                          .reshape(self.scale.shape))
 
@@ -87,13 +103,14 @@ class NLayerDiscriminator(nn.Module):
         return self
 
     @torch.no_grad()
-    def data_init(self, x: torch.Tensor) -> None:
-        """Initialise every ActNorm from its input when ``x`` (NHWC) runs
-        through, as flax's ``init`` on a first batch does."""
+    def data_init(self, x: torch.Tensor, mesh: Optional[DataMesh] = None) -> None:
+        """Initialise every ActNorm from its input when ``x`` (NHWC; with a
+        mesh this rank's rows of the global batch) runs through, as flax's
+        ``init`` on a first batch does."""
         h = x.permute(0, 3, 1, 2)
         for m in self.main:
             if isinstance(m, ActNorm2D):
-                m.initialize(h)
+                m.initialize(h, mesh)
             h = m(h)
 
     def batch_stats(self) -> Dict[str, torch.Tensor]:
@@ -102,29 +119,37 @@ class NLayerDiscriminator(nn.Module):
         return {f"main.{i}.{k}": getattr(m, k) for i, m in enumerate(self.main)
                 if isinstance(m, nn.BatchNorm2d) for k in ("running_mean", "running_var")}
 
-    def _batch_norm(self, bn: nn.BatchNorm2d, h: torch.Tensor, train: bool,
-                    update_stats: bool) -> torch.Tensor:
+    @staticmethod
+    def _batch_norm(bn: nn.BatchNorm2d, h: torch.Tensor, train: bool, update_stats: bool,
+                    mesh: Optional[DataMesh] = None) -> torch.Tensor:
         if not train:
             return F.batch_norm(h, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                                 training=False, eps=bn.eps)
+        # flax's statistics: E[x] and E[x^2] (over the global batch on a mesh)
+        moments = torch.stack([h.mean(dim=(0, 2, 3)), h.square().mean(dim=(0, 2, 3))])
+        if mesh is not None:
+            moments = all_reduce_sum_grad(moments, mesh) / mesh.size
+        mean, mean2 = moments[0], moments[1]
+        var = torch.clamp(mean2 - mean.square(), min=0.0)
         if update_stats:
             with torch.no_grad():
-                mean = h.mean(dim=(0, 2, 3))
-                var = h.var(dim=(0, 2, 3), correction=0)
                 bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
                 bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
                 bn.num_batches_tracked.add_(1)
-        return F.batch_norm(h, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+        scale = bn.weight * torch.rsqrt(var + bn.eps)
+        return ((h - mean[None, :, None, None]) * scale[None, :, None, None]
+                + bn.bias[None, :, None, None])
 
-    def forward(self, x: torch.Tensor, train: bool = False,
-                update_stats: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, update_stats: bool = False,
+                mesh: Optional[DataMesh] = None) -> torch.Tensor:
         """NHWC images -> NHWC patch logits.  ``train`` normalises by the
-        batch's statistics; ``update_stats`` (with ``train``) also moves the
-        running averages, once, after this batch."""
+        batch's statistics (with ``mesh``, x is this rank's rows and the
+        statistics the global batch's); ``update_stats`` (with ``train``) also
+        moves the running averages, once, after this batch."""
         h = x.permute(0, 3, 1, 2)
         for m in self.main:
-            h = (self._batch_norm(m, h, train, update_stats) if isinstance(m, nn.BatchNorm2d)
-                 else m(h))
+            h = (self._batch_norm(m, h, train, update_stats, mesh)
+                 if isinstance(m, nn.BatchNorm2d) else m(h))
         if min(h.shape) <= 0:
             raise ValueError(f"input too small for this PatchGAN: logits shape {tuple(h.shape)}")
         return h.permute(0, 2, 3, 1)
@@ -187,16 +212,20 @@ def discriminator_loss(logits_real: torch.Tensor, logits_fake: torch.Tensor, glo
 def calculate_adaptive_weight(nll_of_kernel: Callable[[torch.Tensor], torch.Tensor],
                               g_of_kernel: Callable[[torch.Tensor], torch.Tensor],
                               last_kernel: torch.Tensor,
-                              discriminator_weight: float = 1.0) -> torch.Tensor:
+                              discriminator_weight: float = 1.0,
+                              mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """||d nll / d W|| / (||d g / d W|| + 1e-4) for the decoder's last
     kernel ``W``, clipped to [0, 1e4], detached, times
     ``discriminator_weight`` (reference contperceptual.py:58-68).  Each
     gradient is ``torch.autograd.grad`` with respect to a detached copy of
-    ``W`` alone, so nothing else the two functions read gathers a ``.grad``."""
+    ``W`` alone, so nothing else the two functions read gathers a ``.grad``;
+    with a mesh both gradients are all-reduced (their means over the ranks:
+    the global batch's) before the norms."""
     grads = []
     with torch.enable_grad():
         for fn in (nll_of_kernel, g_of_kernel):
             kernel = last_kernel.detach().requires_grad_(True)
             grads.append(torch.autograd.grad(fn(kernel), kernel)[0])
+    grads = all_reduce_mean(grads, mesh)
     d_weight = torch.linalg.vector_norm(grads[0]) / (torch.linalg.vector_norm(grads[1]) + 1e-4)
     return d_weight.clamp(0.0, 1e4).detach() * discriminator_weight

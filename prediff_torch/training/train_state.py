@@ -7,12 +7,19 @@ live ``nn.Parameter``s (the UNet's, and ``logvar`` when it is learned) and
 mutates them; ``apply_gradients`` returns the same object.  As there, every
 call counts as a step and moves the EMA, also the calls between two
 optimizer updates of an accumulated batch.
+
+On several ranks each holds the whole state: :meth:`replicate` sets it to the
+mesh's first rank's after it is made (the JAX state is put replicated), and
+the same reduced gradients on every rank then keep the parameters, the EMA
+and the optimizer's moments bit-equal; a restore reads the same file on every
+rank.
 """
 from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
+from ..parallel.mesh import DataMesh, replicate_
 from .ema import ema_update
 from .optim import Optimizer
 
@@ -41,6 +48,21 @@ class EmaTrainState:
         if [id(p) for p in tx.params] != [id(p) for p in params.values()]:
             raise ValueError("the optimizer was built over other parameters than the state's")
         return cls(params, tx, use_ema=use_ema, ema_decay=ema_decay)
+
+    def tensors(self) -> list:
+        """Every tensor of the state: the parameters, the EMA shadow, the
+        optimizer's moments and its accumulated gradients."""
+        out = list(self.params.values()) + list((self.ema_params or {}).values())
+        for st in self.tx.optimizer.state.values():
+            out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+        return out + list(self.tx.acc_grads or [])
+
+    def replicate(self, mesh: Optional[DataMesh]) -> "EmaTrainState":
+        """Every tensor of the state set in place to the mesh's first rank's
+        (one broadcast a dtype); nothing without a mesh.  Every rank calls it
+        on a state of the same make."""
+        replicate_(self.tensors(), mesh)
+        return self
 
     def apply_gradients(self, grads: Sequence[torch.Tensor]) -> "EmaTrainState":
         """One micro-gradient, in the order of ``params``: the optimizer

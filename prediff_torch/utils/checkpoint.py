@@ -5,6 +5,9 @@ parameters, and the readers of weights written elsewhere: the JAX package's
 A checkpoint is ``<path>/step_<n>.pt``: ``torch.save`` of the state's
 ``state_dict()`` (tensors, numbers, lists and dicts only), read back with
 ``torch.load(weights_only=True)`` so that loading runs no code from the file.
+On several ranks (``mesh``) the mesh's first rank alone writes and deletes,
+and every rank waits for it at a barrier; a restore reads the same file on
+every rank, which leaves the replicated states bit-equal.
 """
 import os
 import pickle
@@ -13,6 +16,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import DataMesh, barrier
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
@@ -28,28 +33,44 @@ def all_steps(path: str) -> List[int]:
     return sorted(int(m.group(1)) for m in map(_STEP_FILE.match, os.listdir(path)) if m)
 
 
+def writes(mesh: Optional[DataMesh]) -> bool:
+    """Whether this process writes the run's files: without a mesh, or as
+    the mesh's first rank."""
+    return mesh is None or not mesh.distributed or mesh.index == 0
+
+
+def _wait(mesh: Optional[DataMesh]) -> None:
+    if mesh is not None and mesh.distributed:
+        barrier(mesh)
+
+
 def save_checkpoint(path: str, state: Any, step: Optional[int] = None,
-                    keep: Optional[int] = 3) -> str:
+                    keep: Optional[int] = 3, mesh: Optional[DataMesh] = None) -> str:
     """Save ``state.state_dict()`` as step ``step`` (default: ``state.step``);
     with ``keep`` only the newest ``keep`` steps stay (``None`` keeps all, for
-    a caller that retains checkpoints by score)."""
-    os.makedirs(os.path.abspath(path), exist_ok=True)
+    a caller that retains checkpoints by score).  With a mesh only its first
+    rank writes, and every rank returns after it has."""
     step = int(step if step is not None else state.step)
     target = _file(path, step)
-    tmp = target + ".tmp"
-    torch.save(state.state_dict(), tmp)
-    os.replace(tmp, target)
-    if keep is not None:
-        for old in all_steps(path)[:-keep]:
-            delete_checkpoint(path, old)
+    if writes(mesh):
+        os.makedirs(os.path.abspath(path), exist_ok=True)
+        tmp = target + ".tmp"
+        torch.save(state.state_dict(), tmp)
+        os.replace(tmp, target)
+        if keep is not None:
+            for old in all_steps(path)[:-keep]:
+                delete_checkpoint(path, old)
+    _wait(mesh)
     return target
 
 
-def delete_checkpoint(path: str, step: int) -> None:
-    """Remove one saved step (no-op when absent)."""
+def delete_checkpoint(path: str, step: int, mesh: Optional[DataMesh] = None) -> None:
+    """Remove one saved step (no-op when absent; with a mesh its first rank
+    alone, and every rank returns after it has)."""
     target = _file(path, step)
-    if os.path.exists(target):
+    if writes(mesh) and os.path.exists(target):
         os.remove(target)
+    _wait(mesh)
 
 
 def restore_checkpoint(path: str, target: Any, step: Optional[int] = None) -> Any:
@@ -127,19 +148,27 @@ DERIVED_BUFFERS = (
     "running_var")
 
 
-def load_torch_state_dict(path: str, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+def load_torch_state_dict(path: str, model: torch.nn.Module, prefix: str = "",
+                          strict: bool = True) -> Dict[str, torch.Tensor]:
     """A reference ``.pt`` file, plain or Lightning-wrapped (``{"state_dict":
-    ...}``), as a state_dict for ``model``: the reference's derived buffers
-    that ``model`` does not keep are left out.  Read with
-    ``torch.load(weights_only=True)`` unless the file holds more than
-    tensors and containers, which only a full unpickling (code from the
-    file) reads."""
+    ...}``), as a state_dict for ``model``: with ``prefix`` (e.g.
+    ``"torch_nn_module."`` of a Lightning training checkpoint) only the keys
+    under it, the prefix cut; the reference's derived buffers that ``model``
+    does not keep left out.  ``strict`` (the JAX package's
+    ``convert_torch_state_dict``): True leaves every other key in, so that
+    ``model.load_state_dict`` raises for a key the model lacks or misses;
+    False keeps only the keys ``model`` has, for
+    ``load_state_dict(strict=False)``.  Read with
+    ``torch.load(weights_only=True)`` unless the file holds more than tensors
+    and containers, which only a full unpickling (code from the file) reads."""
     try:
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
     except pickle.UnpicklingError:
         ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
+    if prefix:
+        ckpt = {k[len(prefix):]: v for k, v in ckpt.items() if k.startswith(prefix)}
     own = model.state_dict()
-    return {k: v for k, v in ckpt.items()
-            if k in own or not k.endswith(DERIVED_BUFFERS)}
+    out = {k: v for k, v in ckpt.items() if k in own or not k.endswith(DERIVED_BUFFERS)}
+    return out if strict else {k: v for k, v in out.items() if k in own}

@@ -219,3 +219,35 @@ def torch_params_to_flax(model: torch.nn.Module, state_dict: Dict[str, torch.Ten
         raise ValueError(f"state_dict does not fit the model: {len(missing)} missing "
                          f"{missing[:10]}, {len(left)} left over {left[:10]}")
     return tree
+
+
+def extract_ema_state_dict(pl_state_dict: Dict[str, object],
+                           model_prefix: str = "torch_nn_module.",
+                           ema_prefix: str = "model_ema.") -> Dict[str, object]:
+    """The EMA weights of a Lightning PreDiff checkpoint, keyed as the live
+    model's state_dict (``prediff_tpu/utils/convert.py``
+    ``extract_ema_state_dict``).  The reference's ``LitEma`` keeps each
+    shadow under its parameter's name with the dots taken out; each is
+    mapped back by the dot-stripped names of the ``model_prefix`` keys (an
+    ambiguous one raises ``ValueError``); ``decay`` and ``num_updates`` are
+    left out."""
+    dotless = {}
+    for key in pl_state_dict:
+        if key.startswith(model_prefix):
+            name = key[len(model_prefix):]
+            flat = name.replace(".", "")
+            if flat in dotless:
+                raise ValueError(f"ambiguous dot-stripped EMA name '{flat}'")
+            dotless[flat] = name
+    out = {}
+    for key, value in pl_state_dict.items():
+        name = key[len(ema_prefix):] if key.startswith(ema_prefix) else None
+        if name is not None and name not in ("decay", "num_updates") and name in dotless:
+            out[dotless[name]] = value
+    return out
+
+
+def strip_prefix(state_dict: Dict[str, object], prefix: str) -> Dict[str, object]:
+    """The keys under ``prefix``, the prefix cut (the reference's programs
+    re-save bare ``torch_nn_module.`` state_dicts)."""
+    return {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}

@@ -6,9 +6,33 @@ the VAE-GAN loss takes its ``kl``.
 """
 import math
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+
+def randn_rows(shape, generator: Optional[torch.Generator], device, dtype,
+               rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``torch.randn(shape)`` from ``generator``; with ``rows = (first,
+    total)`` the rows ``first ..`` of the draw of ``total`` rows instead (a
+    rank's rows of the global batch's draw: what one process holding the
+    whole batch draws there)."""
+    if rows is None:
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    first, total = rows
+    whole = torch.randn((total,) + tuple(shape[1:]), generator=generator, device=device,
+                        dtype=dtype)
+    return whole[first:first + shape[0]]
+
+
+def randint_rows(high: int, n: int, generator: Optional[torch.Generator], device,
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``torch.randint(0, high, (n,))`` from ``generator``, or with ``rows``
+    those rows of the draw of ``total`` (as :func:`randn_rows`)."""
+    if rows is None:
+        return torch.randint(0, high, (n,), generator=generator, device=device)
+    first, total = rows
+    return torch.randint(0, high, (total,), generator=generator, device=device)[first:first + n]
 
 
 @dataclass
@@ -29,10 +53,12 @@ class DiagonalGaussianDistribution:
     def var(self) -> torch.Tensor:
         return torch.exp(self.logvar)
 
-    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """mean + std * N(0, 1); ``generator`` lies on the mean's device."""
-        noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device,
-                            dtype=self.mean.dtype)
+    def sample(self, generator: Optional[torch.Generator] = None,
+               rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """mean + std * N(0, 1); ``generator`` lies on the mean's device;
+        ``rows`` (first, total) of the leading axis: the noise is those rows
+        of the whole batch's draw (:func:`randn_rows`)."""
+        noise = randn_rows(self.mean.shape, generator, self.mean.device, self.mean.dtype, rows)
         return self.mean + self.std * noise
 
     def mode(self) -> torch.Tensor:
@@ -57,15 +83,21 @@ class DiagonalGaussianDistribution:
 
 
 def latents_from_moments_seq(moments: torch.Tensor, generator: Optional[torch.Generator] = None,
-                             sample_posterior: bool = False,
-                             scale_factor: float = 1.0) -> torch.Tensor:
+                             sample_posterior: bool = False, scale_factor: float = 1.0,
+                             rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Encoder moments (B, T, h, w, 2c) -> scaled latent seq (B, T, h, w, c):
     posterior sample (or mode) over the flattened frames, then
     ``scale_factor``: the tail of the first-stage encode, shared with
-    training from cached moments."""
-    B = moments.shape[0]
+    training from cached moments.  ``rows`` (first, total) of the batch:
+    the sample's noise is those rows of the whole batch's draw."""
+    B, T = moments.shape[:2]
     frames = moments.float().reshape((-1,) + tuple(moments.shape[2:]))
     posterior = DiagonalGaussianDistribution.from_parameters(frames)
-    z = posterior.sample(generator) if sample_posterior else posterior.mode()
+    if not sample_posterior:
+        z = posterior.mode()
+    elif rows is None:   # one process: the call as it always was
+        z = posterior.sample(generator)
+    else:
+        z = posterior.sample(generator, (rows[0] * T, rows[1] * T))
     z = scale_factor * z
     return z.reshape((B, -1) + tuple(z.shape[1:]))

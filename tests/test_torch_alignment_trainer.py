@@ -238,7 +238,10 @@ def test_refusals():
     cfg = _tiny_cfg()
     trainer = build_alignment_trainer(cfg, device="cpu")    # prng_impl / conv3d_impl "auto"
     net, vae = trainer.model, trainer.vae
-    for knob, value in (("mesh", object()), ("prng_impl", "rbg"), ("flat_update", True),
+    # the mesh is taken (DDP training; two ranks in tests/test_torch_ddp_training.py)
+    from prediff_torch.parallel import make_mesh
+    assert AlignmentTrainer(net, vae, mesh=make_mesh(device="cpu")).mesh.size == 1
+    for knob, value in (("prng_impl", "rbg"), ("flat_update", True),
                         ("pack_small_thr", 4096), ("matmul_precision", "bfloat16"),
                         ("conv3d_impl", "xla")):
         with pytest.raises(NotImplementedError, match=knob):

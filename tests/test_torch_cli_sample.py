@@ -150,10 +150,12 @@ def test_refusals(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):   # no --device: the card, no fallback
         sample_prediff.main(["--out", str(tmp_path / "a"), "--cfg", TINY, "--synthetic"])
-    with pytest.raises(NotImplementedError, match="DDP training"):
+    # training takes --multihost (no cluster named: one process) and --nodes, and goes on
+    # to the data, which is missing here (two ranks in tests/test_torch_ddp_training.py)
+    with pytest.raises(ValueError, match="--sevir-dir"):
         train_sevirlr_prediff.main(["--save", str(tmp_path / "b"), "--multihost",
                                     "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="DDP training"):
+    with pytest.raises(ValueError, match="--sevir-dir"):
         train_sevirlr_prediff.main(["--save", str(tmp_path / "b"), "--nodes", "2",
                                     "--device", "cpu"])
     for main, argv in ((sample_prediff.main, ["--out", str(tmp_path / "c")]),

@@ -465,6 +465,54 @@ def test_autograd_through_the_dropout_wrappers_on_the_card(dev):
     assert [fn.launches for fn in counted] == [b + 1 for b in before]
 
 
+# a rank past the first draws its rows of the global batch's masks from an element base
+# (ops/dropout.py); one base past 2**32 (the Philox counter's high word)
+BASES = (2 ** 32 + 4 * 1234, 4 * 5678)
+
+
+def test_dropout_kernels_at_an_element_base_match_plain(dev):
+    """Each dropout kernel, forward and all-gradients backward, at nonzero
+    element bases against its plain version at the same bases (the masks
+    moved from base 0's); a base that is not a multiple of 4 raises."""
+    drop = dict(seed=SEED, site=SITE, bases=BASES)
+    f = _ffn_args(dev, 1664, 512)
+    g = torch.randn(1664, 512, device=dev)
+    out = fused_ffn_dropout(*f, 1e-5, 0.1, 0.1, **drop)
+    _close_bf16(out, ffn_dropout_plain(*f, 1e-5, 0.1, 0.1, mxu_dtype=torch.bfloat16, **drop))
+    assert not torch.equal(out, fused_ffn_dropout(*f, 1e-5, 0.1, 0.1, SEED, SITE))
+    got = fused_ffn_dropout_bwd_full(f[0], g, *f[1:6], 1e-5, 0.1, 0.1, **drop)
+    want = ffn_dropout_bwd_full_plain(f[0], g, *f[1:6], 1e-5, 0.1, 0.1,
+                                      mxu_dtype=torch.bfloat16, **drop)
+    for gt, wt in zip(got, want):
+        _close_rel(gt, wt)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        fused_ffn_dropout(*f, 1e-5, 0.1, 0.1, SEED, SITE, (6, 8))
+
+    shape, axis = (2, 13, 8, 8, 512), 1
+    a = _attn_args(dev, shape, axis)
+    g = torch.randn(*shape, device=dev)
+    adrop = dict(rate_attn=0.1, rate_proj=0.1, **drop)
+    out = fused_axial_attention_dropout(a[0], axis, *a[1:], 4, 0.125, 1e-5, **adrop)
+    _close_bf16(out, axial_attention_plain(a[0], axis, *a[1:], 4, 0.125, 1e-5,
+                                           mxu_dtype=torch.bfloat16, **adrop))
+    args = (a[0], g, axis, *a[1:6], 4, 0.125)
+    got = fused_axial_attention_dropout_bwd_full(*args, **adrop)
+    want = axial_attention_bwd_full_plain(*args, mxu_dtype=torch.bfloat16, **adrop)
+    for gt, wt in zip(got, want):
+        _close_rel(gt, wt)
+
+    c = _cuboid_args(dev, (2, 52, 64, 256))
+    g = torch.randn(2, 52, 64, 256, device=dev)
+    out = fused_cuboid_attention_layer_dropout(*c, 4, 0.125, 1e-5, **adrop)
+    _close_bf16(out, cuboid_attention_dropout_plain(*c, 4, 0.125, 1e-5,
+                                                    mxu_dtype=torch.bfloat16, **adrop))
+    args = (c[0], g, *c[1:6], 4, 0.125)
+    got = fused_cuboid_attention_layer_dropout_bwd_full(*args, **adrop)
+    want = cuboid_attention_dropout_bwd_full_plain(*args, mxu_dtype=torch.bfloat16, **adrop)
+    for gt, wt in zip(got, want):
+        _close_rel(gt, wt)
+
+
 # ---- the general cuboid layer and the grouped masked core ----
 # (B, cuboids, vol, C): the video_swin_1x8 UNet (13x16x16x256, 13x8x8x512) and
 # alignment net (6x16x16x128) shapes, and vol 128 and 256 (query tiles of 32

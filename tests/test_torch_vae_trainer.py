@@ -356,7 +356,10 @@ def test_refusals_and_build_vae_trainer_from_config():
     assert VAETrainer(vae, compute_dtype="auto").compute_dtype is None   # f32 off a TPU, as in JAX
     with pytest.raises(ValueError, match="compute_dtype"):
         VAETrainer(vae, compute_dtype="int8")
-    for knob, value in (("mesh", object()), ("flat_update", True), ("pack_small_thr", 4096)):
+    # the mesh is taken (DDP training; two ranks in tests/test_torch_ddp_training.py)
+    from prediff_torch.parallel import make_mesh
+    assert VAETrainer(vae, mesh=make_mesh(device="cpu")).mesh.size == 1
+    for knob, value in (("flat_update", True), ("pack_small_thr", 4096)):
         with pytest.raises(NotImplementedError, match=knob):
             VAETrainer(vae, **{knob: value})
     with pytest.raises(TypeError, match="unexpected"):

@@ -1,11 +1,11 @@
 """The ranks of the multi-rank tests: ``tests/test_torch_parallel_mesh.py``,
-``tests/test_torch_parallel_sampling.py`` (gloo on the CPU) and
-``tests/test_torch_parallel_cuda.py`` (the card).  The tests start them with
-:func:`run_ranks`; each rank is
+``tests/test_torch_parallel_sampling.py``, ``tests/test_torch_ddp_training.py``
+(gloo on the CPU) and ``tests/test_torch_parallel_cuda.py`` (the card).  The
+tests start them with :func:`run_ranks`; each rank is
 
     python tests/torch_parallel_worker.py TASK RANK WORLD PORT DIR
 
-``TASK`` is ``mesh``, ``sampling`` or ``cuda``.  The rank joins the group
+``TASK`` is ``mesh``, ``sampling``, ``ddp`` or ``cuda``.  The rank joins the group
 through ``prediff_torch.parallel.init_distributed`` at ``localhost:PORT``,
 runs the task's checks and leaves its arrays in ``DIR`` for the test to
 compare.  JAX and the JAX package are blocked in it: the port imports
@@ -272,6 +272,253 @@ def sampling_task(rank: int, world: int, port: int, out: str) -> None:
     np.savez(os.path.join(out, f"rank{rank}.npz"), **{k: v.numpy() for k, v in res.items()})
 
 
+# ----------------------------------------------------------------- ddp ---- #
+def fingerprint(tensors) -> str:
+    """The bytes of every tensor, hashed: equal exactly when the bits are."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def state_arrays(state) -> dict:
+    """A train state's parameters, EMA and Adam moments, each flat."""
+    def flat(ts):
+        return torch.cat([t.detach().reshape(-1) for t in ts]).numpy()
+
+    opt = state.tx.optimizer.state
+    params = list(state.params.values())
+    return {"params": flat(params), "ema": flat(list(state.ema_params.values())),
+            "exp_avg": flat([opt[p]["exp_avg"] for p in params]),
+            "exp_avg_sq": flat([opt[p]["exp_avg_sq"] for p in params])}
+
+
+def recorded_masks(fn):
+    """``fn()`` with every dropout mask it draws recorded, in draw order."""
+    import prediff_torch.models.layers as tlayers
+    from prediff_torch.ops import dropout
+
+    real, drawn = dropout.keep_mask, []
+
+    def recording(seed, site, tensor, shape, rate, device=None, base=0):
+        mask = real(seed, site, tensor, shape, rate, device, base=base)
+        drawn.append(mask.numpy())
+        return mask
+
+    dropout.keep_mask = tlayers.keep_mask = recording
+    try:
+        fn()
+    finally:
+        dropout.keep_mask = tlayers.keep_mask = real
+    return drawn
+
+
+def ddp_task(rank: int, world: int, port: int, out: str) -> None:
+    """Two gloo ranks of DDP training on the CPU, each its rows of a global
+    batch of 4: the dropout masks, the diffusion trainer's steps, the
+    diffusion, alignment and VAE-GAN gradients on injected draws (against
+    JAX in the test), the programs with ``--multihost``."""
+    from prediff_torch.cli import train_sevirlr_prediff as tp
+    from prediff_torch.config import load_config, prediff_default_config
+    from prediff_torch.factory import build_training_pipeline, build_unet
+    from prediff_torch.models.alignment import NoisyCuboidTransformerEncoder
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.models.vae import AutoencoderKL
+    from prediff_torch.parallel import all_reduce_mean, make_mesh
+    from prediff_torch.training import (AlignmentTrainer, DiffusionTrainer, MetricLogger,
+                                        VAETrainer, losses)
+    from prediff_torch.training import train_state as torch_train_state
+    from prediff_torch.training.diffusion_trainer import reduce_loss_dict
+    from prediff_torch.utils import checkpoint
+    from prediff_torch.utils import distributions as torch_dist
+
+    join(rank, world, port)
+    mesh = make_mesh()
+    inputs = dict(np.load(os.path.join(out, "inputs.npz")))
+    weights = torch.load(os.path.join(out, "weights.pt"))
+    spec = json.load(open(os.path.join(out, "spec.json")))
+    B = 4
+    rows = slice(rank * B // world, (rank + 1) * B // world)
+    res = {}
+
+    def T(name):
+        return torch.from_numpy(inputs[name])
+
+    # ---- the dropout masks: the rank's rows of one process's, and the control
+    cfg = load_config(prediff_default_config, TINY)
+    for key in ("attn_drop", "proj_drop", "ffn_drop", "time_embed_dropout"):
+        cfg.model.latent_model[key] = 0.1
+    unet = init_params_(build_unet(cfg), torch.Generator().manual_seed(3), randomize=True).train()
+    x, t, cond = T("mask_x"), T("mask_t").long(), T("mask_cond")
+    with torch.no_grad():
+        one = recorded_masks(lambda: unet(x, t, cond, dropout_seed=11))
+        mine = recorded_masks(lambda: unet(x[rows], t[rows], cond[rows], dropout_seed=11,
+                                           dropout_first_row=rows.start))
+        base0 = recorded_masks(lambda: unet(x[rows], t[rows], cond[rows], dropout_seed=11))
+    for name, masks in (("one", one), ("mine", mine), ("base0", base0)):
+        for i, m in enumerate(masks):
+            res[f"mask_{name}_{i}"] = m
+
+    # ---- the diffusion trainer: 2 optimizer steps of 2 micro-steps, rates 0.1
+    dcfg = load_config(prediff_default_config, TINY)
+    for key in ("attn_drop", "proj_drop", "ffn_drop", "time_embed_dropout"):
+        dcfg.model.latent_model[key] = 0.1
+    optim = dict(lr=1e-3, total_num_steps=10, gradient_clip_val=1.0, warmup_percentage=0.0,
+                 accum_steps=2)
+    px, py = T("train_x"), T("train_y")
+
+    def trainer_on(m):
+        ld = build_training_pipeline(dcfg, device="cpu", params=weights["diffusion_train"])
+        return DiffusionTrainer(ld, optim_config=optim, ema_decay=0.9, mesh=m)
+
+    trainer = trainer_on(mesh)
+    state = trainer.create_state()
+    prints, logs = [], []
+    for micro in range(4):
+        state, loss_dict = trainer.train_step(state, 5, px[micro, rows], py[micro, rows])
+        prints.append(fingerprint(state.tensors()))
+        logs.append([float(v) for v in loss_dict.values()])
+    res.update({f"train_{k}": v for k, v in state_arrays(state).items()})
+    res["train_logs"] = np.array(logs)
+    res["train_log_keys"] = np.array(list(loss_dict))
+    res["train_prints"] = np.array(prints)
+    one_trainer = trainer_on(None)
+    one_state = one_trainer.create_state()
+    one_logs = []
+    for micro in range(4):
+        one_state, loss_dict = one_trainer.train_step(one_state, 5, px[micro], py[micro])
+        one_logs.append([float(v) for v in loss_dict.values()])
+    res.update({f"train_one_{k}": v for k, v in state_arrays(one_state).items()})
+    res["train_one_logs"] = np.array(one_logs)
+    # the reduction once per optimizer step (the other choice) against every micro-step's
+    fresh = trainer_on(mesh)
+    st = fresh.create_state()
+    local, reduced = [], []
+    for micro in range(2):
+        st.step = micro
+        g, _ = fresh.grads(st, 5, px[micro, rows], py[micro, rows], reduce=False)
+        local.append(g)
+        reduced.append(all_reduce_mean(g, mesh))
+    every = [a + (b - a) / 2 for a, b in zip(*reduced)]    # optax.MultiSteps' running mean
+    once = all_reduce_mean([a + (b - a) / 2 for a, b in zip(*local)], mesh)
+    res["accum_every"] = torch.cat([g.reshape(-1) for g in every]).numpy()
+    res["accum_once"] = torch.cat([g.reshape(-1) for g in once]).numpy()
+
+    # ---- the diffusion loss and gradients at rate 0 on injected draws (JAX in the test)
+    ld = build_training_pipeline(load_config(prediff_default_config, TINY), device="cpu",
+                                 params=weights["diffusion"])
+    lv = T("logvar").requires_grad_(True)
+    loss, loss_dict = ld.p_losses(lv, T("z")[rows], T("zc")[rows], T("t")[rows].long(),
+                                  T("noise")[rows])
+    grads = all_reduce_mean(torch.autograd.grad(loss, list(ld.unet.parameters()) + [lv]), mesh)
+    for (name, _), g in zip(list(ld.unet.named_parameters()) + [("logvar", None)], grads):
+        res[f"diff_grad/{name}"] = g.numpy()
+    for k, v in reduce_loss_dict({**loss_dict, "loss": loss}, mesh).items():
+        res[f"diff_loss/{k}"] = v.numpy()
+
+    # ---- the alignment loss and gradients at rate 0 on injected draws
+    net = NoisyCuboidTransformerEncoder(**spec["align_net"])
+    net.load_state_dict(weights["align_net"])
+    vae = AutoencoderKL(**spec["align_vae"])
+    vae.load_state_dict(weights["align_vae"])
+    atr = AlignmentTrainer(net, vae.eval().requires_grad_(False), timesteps=spec["align_steps"],
+                           scale_factor=spec["align_scale"], mesh=mesh)
+    ast = atr.create_state()
+    eps, frames = T("align_eps"), inputs["align_eps"].shape[0] // B
+
+    def sample(self, generator=None, rows_=None):   # the posterior noise, the rank's rows
+        return self.mean + self.std * eps[rows_[0]:rows_[0] + self.mean.shape[0]]
+
+    real_sample = torch_dist.DiagonalGaussianDistribution.sample
+    torch_dist.DiagonalGaussianDistribution.sample = sample
+    atr._draw = lambda generator, z, r: (T("align_t").long()[r[0]:r[0] + z.shape[0]],
+                                          T("align_noise")[r[0]:r[0] + z.shape[0]])
+    try:
+        grads, loss_dict = atr.grads(ast, 0, T("align_x")[rows], T("align_y")[rows])
+    finally:
+        torch_dist.DiagonalGaussianDistribution.sample = real_sample
+    assert frames * B == eps.shape[0]
+    for name, g in zip(ast.params, grads):
+        res[f"align_grad/{name}"] = g.numpy()
+    for k, v in loss_dict.items():
+        res[f"align_loss/{k}"] = v.numpy()
+
+    # ---- two VAE-GAN steps, BatchNorm and ActNorm, and BatchNorm without the reduce
+    veps = T("vae_eps")
+    torch_dist.DiagonalGaussianDistribution.sample = (
+        lambda self, generator=None, rows_=None:
+        self.mean + self.std * veps[rows_[0]:rows_[0] + self.mean.shape[0]])
+    given = []
+    real_apply = torch_train_state.EmaTrainState.apply_gradients
+
+    def recording(self, g):
+        given.append([t.clone() for t in g])
+        return real_apply(self, g)
+
+    torch_train_state.EmaTrainState.apply_gradients = recording
+    real_reduce = losses.all_reduce_sum_grad
+    try:
+        for case in ("batchnorm", "actnorm", "batchnorm_local"):
+            if case == "batchnorm_local":   # each rank's own statistics
+                losses.all_reduce_sum_grad = lambda t, m: t * m.size
+            vae = AutoencoderKL(**spec["vae"])
+            vae.load_state_dict(weights[f"vae_{case.split('_')[0]}"])
+            disc = losses.NLayerDiscriminator(input_nc=1, ndf=8, n_layers=1,
+                                              use_actnorm=case == "actnorm")
+            disc.load_state_dict(weights[f"disc_{case.split('_')[0]}"])
+            vtr = VAETrainer(vae, disc, disc_start=1, optim_config=spec["vae_optim"],
+                             mesh=mesh, **spec["vae_loss"])
+            gen, dst, stats = vtr.create_states()
+            given.clear()
+            for step in range(2):
+                gen, dst, stats, vlogs = vtr.train_step(gen, dst, stats, 1,
+                                                        T("vae_x")[rows])
+                for k, v in vlogs.items():
+                    res[f"{case}/{step}/log/{k}"] = v.numpy()
+                for k, v in stats.items():   # live buffers: a copy of this step's
+                    res[f"{case}/{step}/stats/{k}"] = v.clone().numpy()
+            for step in range(2):
+                for kind, params, g in (("gen", gen.params, given[2 * step]),
+                                        ("disc", dst.params, given[2 * step + 1])):
+                    for name, gv in zip(params, g):
+                        res[f"{case}/{step}/{kind}/{name}"] = gv.numpy()
+            res[f"{case}/print"] = np.array(fingerprint(gen.tensors() + dst.tensors()))
+    finally:
+        losses.all_reduce_sum_grad = real_reduce
+        torch_train_state.EmaTrainState.apply_gradients = real_apply
+        torch_dist.DiagonalGaussianDistribution.sample = real_sample
+
+    # ---- ActNorm's data initialisation on the global batch, and one process's
+    for name, m in (("mesh", mesh), ("one", None)):
+        disc = losses.NLayerDiscriminator(input_nc=1, ndf=8, n_layers=1, use_actnorm=True)
+        disc.reset_parameters(torch.Generator().manual_seed(5))
+        disc.data_init(T("vae_x") if m is None else T("vae_x")[rows], m)
+        res[f"actnorm_init_{name}"] = torch.cat([p.detach().reshape(-1)
+                                                 for p in disc.parameters()]).numpy()
+
+    # ---- the program: --multihost --synthetic --max-steps 2; rank 0 alone writes
+    saves, logged = [], []
+    real_save, real_log = torch.save, MetricLogger.log
+    torch.save = lambda *a, **k: (saves.append(1), real_save(*a, **k))[1]
+    MetricLogger.log = lambda self, *a, **k: (logged.append(1), real_log(self, *a, **k))[1]
+    save = os.path.join(out, "cli")
+    try:
+        assert tp.main(["--save", save, "--cfg", TINY, "--synthetic", "--max-steps", "2",
+                        "--device", "cpu", "--multihost"]) == 0
+    finally:
+        torch.save, MetricLogger.log = real_save, real_log
+    res["cli_saves"], res["cli_logs"] = np.array(len(saves)), np.array(len(logged))
+    cli_cfg = load_config(prediff_default_config, TINY)
+    ld = build_training_pipeline(cli_cfg, device="cpu")
+    restored = tp.make_trainer(cli_cfg, ld, 10, 1, latent_inputs=False, mesh=mesh).create_state()
+    checkpoint.restore_checkpoint(os.path.join(save, "ckpt_last"), restored)
+    res["cli_restored_print"] = np.array(fingerprint(restored.tensors()))
+    res["cli_restored_step"] = np.array(restored.step)
+    np.savez(os.path.join(out, f"ddp{rank}.npz"), **res)
+
+
 # ---------------------------------------------------------------- cuda ---- #
 def cuda_task(rank: int, world: int, port: int, out: str) -> None:
     """On ``cuda:0``: two gloo ranks (unguided steps on graphs, guided ones
@@ -349,7 +596,7 @@ def main() -> int:
         sys.modules[name] = None   # an import of any of them raises ImportError
     task, rank, world, port, out = sys.argv[1:6]
     torch.set_num_threads(1)
-    tasks = {"mesh": mesh_task, "sampling": sampling_task, "cuda": cuda_task}
+    tasks = {"mesh": mesh_task, "sampling": sampling_task, "ddp": ddp_task, "cuda": cuda_task}
     tasks[task](int(rank), int(world), int(port), out)
     import torch.distributed as dist
 
