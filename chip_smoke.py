@@ -120,7 +120,21 @@ alignment net), ``ddp_vae`` (the VAE-GAN at 4 frames a rank against one
 process at 8, each rank's own BatchNorm statistics the control that misses
 the bar), then one NCCL rank (``ddp_nccl``: a micro-step with the mesh
 bit-equal to one without).  The dropout kernels' cases also run at a
-nonzero element base (``DROP_BASES``) against their plain versions.
+nonzero element base (``DROP_BASES``) against their plain versions.  The
+model variants the JAX package builds from its configuration (also ``--only
+variants``), after ``align_train``: ``ffn_activations`` (each FFN kernel, its
+dropout forms and the bf16 forms of rows 2 and 6 on relu, leaky and silu
+against their plain versions at the UNet's FFN shapes, each an entry of the
+kernels line), ``variant_guided_forecast`` (a UNet on leaky with no relative
+bias, "t+hw", scale-shift time blocks and init modes "1", guided by an
+alignment net with hierarchical position embeddings, one FFN after all
+attentions, no final projection and silu: ``VARIANT_STEPS`` guided DDPM steps,
+eager and on graphs, exact launches), ``variant_globals_forecast`` (a UNet with
+8 global vectors, unguided), ``variant_vs_cpu`` (depth-[1,1] copies of those
+and of a relu / global-vector / pooled-readout and a gated alignment net:
+forward, all gradients and the input gradient card against CPU) and
+``variant_train`` (one trainer micro-step on each of the three at the
+recipes' rates: the dropout kernels on leaky and silu).
 Then the ``kernels`` summary line (per kernel its ms,
 bound, library call and ``vs_library``; the conv, the grouped cores, the
 round-1 layer, the GroupNorm+SiLU forward and all-gradients backward and the
@@ -503,19 +517,29 @@ def timed(c, kernel, plain, nbytes, library=None, device_time=False, library_seq
             c["library_seq_device_ms"] = graph_time_ms(library_seq)
 
 
-def ffn_library_seq(x, ln_w, ln_b, w1, b1, w2, b2, rate_act=0.0, rate_out=0.0):
+def library_act(act: str):
+    """The library call of an FFN activation: ``F.gelu``, ``F.relu``,
+    ``F.leaky_relu`` (0.1) or ``F.silu``."""
+    import torch.nn.functional as F
+
+    return {"gelu": F.gelu, "relu": F.relu, "silu": F.silu,
+            "leaky": lambda h: F.leaky_relu(h, 0.1)}[act]
+
+
+def ffn_library_seq(x, ln_w, ln_b, w1, b1, w2, b2, rate_act=0.0, rate_out=0.0, act="gelu"):
     """The FFN as a sequence of library calls on pre-cast bf16 weights:
-    ``F.layer_norm`` -> ``F.linear`` -> ``F.gelu`` (-> ``F.dropout``) ->
-    ``F.linear`` (-> ``F.dropout``) -> + x."""
+    ``F.layer_norm`` -> ``F.linear`` -> the activation (``library_act``; ->
+    ``F.dropout``) -> ``F.linear`` (-> ``F.dropout``) -> + x."""
     import torch
     import torch.nn.functional as F
 
     bf16 = torch.bfloat16
     w1b, b1b, w2b, b2b = (t.to(bf16) for t in (w1, b1, w2, b2))
     C = x.shape[-1]
+    activation = library_act(act)
 
     def run():
-        h = F.gelu(F.linear(F.layer_norm(x, (C,), ln_w, ln_b, 1e-5).to(bf16), w1b, b1b))
+        h = activation(F.linear(F.layer_norm(x, (C,), ln_w, ln_b, 1e-5).to(bf16), w1b, b1b))
         if rate_act:
             h = F.dropout(h, rate_act)
         y = F.linear(h, w2b, b2b)
@@ -605,7 +629,7 @@ def v3_library_seq(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale):
     return run
 
 
-def ffn_library_bwd(x, g, ln_w, ln_b, w1, b1, w2, rate_act, rate_out, seed, site):
+def ffn_library_bwd(x, g, ln_w, ln_b, w1, b1, w2, rate_act, rate_out, seed, site, act="gelu"):
     """The yardstick of the FFN's all-gradients backward with dropout:
     autograd's backward of ``ffn_library_seq``'s calls on bf16 weights with
     the kernels' masks (``keep_mask`` of ``(seed, site)``) multiplied in, all
@@ -621,7 +645,8 @@ def ffn_library_bwd(x, g, ln_w, ln_b, w1, b1, w2, rate_act, rate_out, seed, site
     leaves = [t.detach().clone().requires_grad_(True)
               for t in (x, ln_w, ln_b, w1, b1, w2, torch.zeros_like(ln_b))]
     xl, lw, lb, w1l, b1l, w2l, b2l = leaves
-    h = F.gelu(F.linear(F.layer_norm(xl, (C,), lw, lb, 1e-5).to(bf16), w1l.to(bf16), b1l.to(bf16)))
+    h = library_act(act)(F.linear(F.layer_norm(xl, (C,), lw, lb, 1e-5).to(bf16), w1l.to(bf16),
+                                  b1l.to(bf16)))
     out = xl + F.linear(h * m1.to(bf16), w2l.to(bf16), b2l.to(bf16)).float() * m2
     return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
 
@@ -1559,7 +1584,7 @@ def summarize(cases, launches_by_path):
     the conv kernels: one guided step, one micro-step of ``conv_train``).  The
     round-1 kernels are on no path: launches 0, their cases weighed alike."""
     out = []
-    table = {**KERNELS, **BF16_KERNELS}
+    table = {**KERNELS, **BF16_KERNELS, **ACT_KERNELS}
     for name, cs in cases.items():
         source, replaces, main_path = table[name]
         keys = PATH_WEIGHTS[main_path]
@@ -3337,6 +3362,560 @@ def eval_data_alone(device, smi, names):
         data_prefetch(device, smi, cfg, {"unet": weights["unet"], "vae": weights["vae"]})
 
 
+# --------------------------------------------------------------------------- #
+# The model variants the JAX package builds from its configuration.  The FFN
+# kernels' activations (rows 2, 6, 12, 15a, 15b and the bf16 forms of rows 2
+# and 6) enter the kernels line as entries of their own, "<kernel>_<act>" and
+# "<kernel>_<act>_bf16", with the launches of the phase named here (None: on
+# no path, launches 0).
+VARIANT_ACTS = ("relu", "leaky", "silu")
+ACT_FORMS = ("ffn", "ffn_bwd_dx", "ffn_bwd_full", "ffn_dropout", "ffn_dropout_bwd_full")
+ACT_PATHS = {"ffn": {"relu": "variant_vs_cpu", "leaky": "variant_guided_forecast",
+                     "silu": "variant_guided_forecast"},
+             "ffn_bwd_dx": {"relu": "variant_vs_cpu", "leaky": "variant_vs_cpu",
+                            "silu": "variant_guided_forecast"},
+             "ffn_bwd_full": {a: "variant_vs_cpu" for a in VARIANT_ACTS},
+             "ffn_dropout": {"relu": None, "leaky": "variant_train", "silu": "variant_train"},
+             "ffn_dropout_bwd_full": {"relu": None, "leaky": "variant_train",
+                                      "silu": "variant_train"}}
+ACT_KERNELS = {f"{k}_{a}": KERNELS[k][:2] + (ACT_PATHS[k][a],)
+               for k in ACT_FORMS for a in VARIANT_ACTS}
+ACT_KERNELS.update({f"{k}_{a}_bf16": KERNELS[k][:2] + (None,)
+                    for k in ("ffn", "ffn_bwd_dx") for a in VARIANT_ACTS})
+PATH_WEIGHTS.update({p: ("per_variant",) for p in ("variant_guided_forecast", "variant_vs_cpu",
+                                                   "variant_train")})
+VARIANT_FFN_SHAPES = ((3328, 256), (832, 512))   # the UNet's FFN shapes at B=1
+VARIANT_STEPS = 4        # DDPM steps of the variant chains
+# the variant configurations at v1's widths (variant_kernels, variant_globals,
+# variant_align), and the alignment nets held card against CPU alone
+VARIANT_UNETS = {
+    "variant_kernels": dict(ffn_activation="leaky", use_relative_pos=False,
+                            pos_embed_type="t+hw", time_embed_use_scale_shift_norm=True,
+                            attn_linear_init_mode="1", conv_init_mode="1"),
+    "variant_globals": dict(num_global_vectors=8, use_global_self_attn=True,
+                            separate_global_qkv=True, global_dim_ratio=1, pos_embed_type="t+hw"),
+}
+VARIANT_ALIGNS = {
+    "variant_align": dict(hierarchical_pos_embed=True, use_inter_ffn=False,
+                          self_attn_use_final_proj=False, ffn_activation="silu"),
+    "variant_align_relu_globals_pooled": dict(ffn_activation="relu", num_global_vectors=4,
+                                              readout_seq=False),
+    "variant_align_gated": dict(gated_ffn=True, ffn_activation="leaky"),
+}
+
+
+def act_counts():
+    """The FFN kernels' launches on relu / leaky / silu since the counts were
+    last set to 0, as ``<kernel>_<act>``."""
+    return {f"{k}_{a}": getattr(COUNTERS[k], f"{a}_launches")
+            for k in ACT_FORMS for a in VARIANT_ACTS}
+
+
+def variant_config(cfg, latent=None, align=None):
+    """``cfg`` with ``latent``'s settings of the UNet and ``align``'s of the alignment net."""
+    from prediff_torch.config import ConfigDict, deep_merge
+
+    return ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {
+        "latent_model": latent or {}, "align": {"model_args": align or {}}}}))
+
+
+def check_activation_kernels(device):
+    """``ffn_activations``: each FFN kernel, its dropout forms and the bf16
+    forms of rows 2 and 6 on relu, leaky and silu, against its plain version
+    at the UNet's two FFN shapes, with the GELU forms' bars (the dropout
+    forms also at a ``DROP_BASES`` base); times, device times, the bound and
+    the library sequence's time.  Returns the cases by entry."""
+    import torch
+    from prediff_torch.ops import ffn as F_
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    bf16 = torch.bfloat16
+    names = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2")
+    drop = (DROP_RATE, DROP_RATE, DROP_SEED, DROP_SITE)
+    cases = {}
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+    for act in VARIANT_ACTS:
+        kw = dict(activation=act)
+        for M, C in VARIANT_FFN_SHAPES:
+            hid = 4 * C
+            for form in ACT_FORMS + ("ffn_bf16", "ffn_bwd_dx_bf16"):
+                dt = bf16 if form.endswith("_bf16") else torch.float32
+                x, g = randn(M, C, dtype=dt), randn(M, C, dtype=dt)
+                ln_w, ln_b = 1.0 + randn(C, scale=0.1, dtype=dt), randn(C, scale=0.1, dtype=dt)
+                w1, b1 = randn(hid, C, scale=C ** -0.5, dtype=dt), randn(hid, scale=0.1, dtype=dt)
+                w2, b2 = randn(C, hid, scale=hid ** -0.5, dtype=dt), randn(C, scale=0.1, dtype=dt)
+                fwd, bwd = (x, ln_w, ln_b, w1, b1, w2, b2), (x, g, ln_w, ln_b, w1, b1, w2)
+                c = {"shape": [M, C], "activation": act, "per_variant": 1}
+                fw_bytes = 4 * (2 * M * C + 2 * C * hid + hid + 3 * C)
+                bw_bytes = 4 * (3 * M * C + 4 * C * hid + 2 * hid + 5 * C)
+                if form == "ffn":
+                    got, want = F_.fused_ffn(*fwd, **kw), F_.ffn_plain(*fwd, mxu_dtype=bf16, **kw)
+                    judge(c, got, want, tol=2e-2)
+                    timed(c, lambda: F_.fused_ffn(*fwd, **kw),
+                          lambda: F_.ffn_plain(*fwd, mxu_dtype=bf16, **kw), fw_bytes,
+                          device_time=True, library_seq=ffn_library_seq(*fwd, act=act),
+                          bf16_flops=4 * M * C * hid)
+                elif form == "ffn_bwd_dx":
+                    got = F_.fused_ffn_bwd_dx(*bwd, **kw)
+                    judge(c, got, F_.ffn_bwd_dx_plain(*bwd, mxu_dtype=bf16, **kw))
+                    timed(c, lambda: F_.fused_ffn_bwd_dx(*bwd, **kw),
+                          lambda: F_.ffn_bwd_dx_plain(*bwd, mxu_dtype=bf16, **kw),
+                          4 * (3 * M * C + 2 * C * hid + hid + 2 * C), device_time=True,
+                          bf16_flops=6 * M * C * hid)
+                elif form == "ffn_bwd_full":
+                    got = F_.fused_ffn_bwd_full(*bwd, **kw)
+                    judge_all(c, names, got, F_.ffn_bwd_full_plain(*bwd, mxu_dtype=bf16, **kw))
+                    timed(c, lambda: F_.fused_ffn_bwd_full(*bwd, **kw),
+                          lambda: F_.ffn_bwd_full_plain(*bwd, mxu_dtype=bf16, **kw), bw_bytes,
+                          device_time=True, bf16_flops=10 * M * C * hid)
+                elif form == "ffn_dropout":
+                    args = fwd + (1e-5,)
+                    got = F_.fused_ffn_dropout(*args, *drop, **kw)
+                    judge(c, got, F_.ffn_dropout_plain(*args, *drop, mxu_dtype=bf16, **kw),
+                          tol=2e-2)
+                    judge_drop(c, [(M, hid), (M, C)], (float((got == x).float().mean()), M * C),
+                               torch.equal(F_.fused_ffn_dropout(*args, 0.0, 0.0, DROP_SEED,
+                                                                DROP_SITE, **kw),
+                                           F_.fused_ffn(*fwd, **kw)), device)
+                    judge_base(c, lambda b: F_.fused_ffn_dropout(*args, *drop, bases=b, **kw),
+                               lambda b: F_.ffn_dropout_plain(*args, *drop, mxu_dtype=bf16,
+                                                              bases=b, **kw))
+                    timed(c, lambda: F_.fused_ffn_dropout(*args, *drop, **kw),
+                          lambda: F_.ffn_dropout_plain(*args, *drop, mxu_dtype=bf16, **kw),
+                          fw_bytes, device_time=True,
+                          library_seq=ffn_library_seq(*fwd, *drop[:2], act=act),
+                          bf16_flops=4 * M * C * hid)
+                elif form == "ffn_dropout_bwd_full":
+                    args = bwd + (1e-5,)
+                    got = F_.fused_ffn_dropout_bwd_full(*args, *drop, **kw)
+                    judge_all(c, names, got, F_.ffn_dropout_bwd_full_plain(
+                        *args, *drop, mxu_dtype=bf16, **kw))
+                    zero = F_.fused_ffn_dropout_bwd_full(*args, 0.0, 0.0, DROP_SEED, DROP_SITE,
+                                                         **kw)
+                    judge_drop(c, [(M, hid), (M, C)], None,
+                               all(torch.equal(a, b) for a, b in
+                                   zip(zero, F_.fused_ffn_bwd_full(*bwd, **kw))), device)
+                    judge_base(c, lambda b: F_.fused_ffn_dropout_bwd_full(*args, *drop, bases=b,
+                                                                          **kw),
+                               lambda b: F_.ffn_dropout_bwd_full_plain(
+                                   *args, *drop, mxu_dtype=bf16, bases=b, **kw), names)
+                    timed(c, lambda: F_.fused_ffn_dropout_bwd_full(*args, *drop, **kw),
+                          lambda: F_.ffn_dropout_bwd_full_plain(*args, *drop, mxu_dtype=bf16,
+                                                                **kw),
+                          bw_bytes, device_time=True, bf16_flops=10 * M * C * hid)
+                    yardstick(c, ffn_library_bwd(*bwd, *drop, act=act))
+                elif form == "ffn_bf16":
+                    got, want = F_.fused_ffn(*fwd, **kw), F_.ffn_plain(*fwd, mxu_dtype=bf16, **kw)
+                    judge_bf16(c, got, want, tol=2e-2)
+                    timed(c, lambda: F_.fused_ffn(*fwd, **kw),
+                          lambda: F_.ffn_plain(*fwd, mxu_dtype=bf16, **kw),
+                          2 * (2 * M * C + 2 * C * hid + hid + 3 * C), device_time=True,
+                          library_seq=ffn_library_seq(*fwd, act=act), bf16_flops=4 * M * C * hid)
+                else:
+                    got = F_.fused_ffn_bwd_dx(*bwd, **kw)
+                    judge_bf16(c, got, F_.ffn_bwd_dx_plain(*bwd, mxu_dtype=bf16, **kw))
+                    timed(c, lambda: F_.fused_ffn_bwd_dx(*bwd, **kw),
+                          lambda: F_.ffn_bwd_dx_plain(*bwd, mxu_dtype=bf16, **kw),
+                          2 * (3 * M * C + 2 * C * hid + hid + 2 * C), device_time=True,
+                          bf16_flops=6 * M * C * hid)
+                # the GELU form on the same inputs, timed after it: the activation's cost
+                gelu = {"ffn": lambda: F_.fused_ffn(*fwd), "ffn_bf16": lambda: F_.fused_ffn(*fwd),
+                        "ffn_bwd_dx": lambda: F_.fused_ffn_bwd_dx(*bwd),
+                        "ffn_bwd_dx_bf16": lambda: F_.fused_ffn_bwd_dx(*bwd),
+                        "ffn_bwd_full": lambda: F_.fused_ffn_bwd_full(*bwd),
+                        "ffn_dropout": lambda: F_.fused_ffn_dropout(*fwd, 1e-5, *drop),
+                        "ffn_dropout_bwd_full": lambda: F_.fused_ffn_dropout_bwd_full(
+                            *bwd, 1e-5, *drop)}[form]
+                c["gelu_device_ms"] = graph_time_ms(gelu)
+                c["vs_gelu_device"] = c["device_ms"] / c["gelu_device_ms"]
+                name = (f"{form[:-5]}_{act}_bf16" if form.endswith("_bf16")
+                        else f"{form}_{act}")
+                cases.setdefault(name, []).append(c)
+    return cases
+
+
+class CallRecorder:
+    """Every call of the models' time blocks, attention layers and FFNs
+    (forward pre-hooks) while it is entered: (module, input shape, training)."""
+
+    def __init__(self, *models):
+        self.models, self.calls, self.handles = models, [], []
+
+    def __enter__(self):
+        from prediff_torch.models.cuboid_attention import CuboidSelfAttentionLayer
+        from prediff_torch.models.layers import PositionwiseFFN, TimeEmbedResBlock
+
+        kinds = (TimeEmbedResBlock, CuboidSelfAttentionLayer, PositionwiseFFN)
+        for model in self.models:
+            for m in model.modules():
+                if isinstance(m, kinds):
+                    self.handles.append(m.register_forward_pre_hook(
+                        lambda mod, args: self.calls.append(
+                            (mod, tuple(args[0].shape), mod.training))))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+
+def expected_from_calls(calls, backward):
+    """The kernels' launches of the recorded calls, from each module's own
+    route rules: ``backward`` None (a forward), "dx" (the input gradient:
+    frozen parameters), "full" (every gradient).  A training call with a rate
+    above 0 takes the dropout forms; a GN backward is the all-gradients one;
+    a grouped core has no backward kernel."""
+    from collections import Counter
+
+    from prediff_torch.models.cuboid_attention import CuboidSelfAttentionLayer
+    from prediff_torch.models.layers import PositionwiseFFN
+    from prediff_torch.ops import ffn as ffn_ops, groupnorm as gn_ops, resblock as rb_ops
+
+    n = Counter({k: 0 for k in list(KERNELS) + list(act_counts())})
+
+    def gn():
+        n["groupnorm_silu"] += 1
+        n["groupnorm_silu_bwd_full"] += backward is not None
+
+    for mod, shape, training in calls:
+        C = shape[-1]
+        if isinstance(mod, PositionwiseFFN):
+            M = 1
+            for s in shape[:-1]:
+                M *= s
+            if not (mod.kernel and ffn_ops.supports_shape(M, C, mod.ffn_1.out_features)):
+                continue
+            drop = training and (mod.activation_dropout > 0 or mod.dropout > 0)
+            names = ["ffn_dropout" if drop else "ffn"]
+            if backward is not None:
+                names.append("ffn_dropout_bwd_full" if drop else
+                             "ffn_bwd_full" if backward == "full" else "ffn_bwd_dx")
+            for name in names:
+                n[name] += 1
+                if mod.activation != "gelu":
+                    n[f"{name}_{mod.activation}"] += 1
+        elif isinstance(mod, CuboidSelfAttentionLayer):
+            route = mod.route(shape)
+            if route in ("grouped", "grouped_masked"):
+                n["cuboid_attention_grouped"] += 1
+            elif route in ("axial", "v4"):
+                base = "axial_attention" if route == "axial" else "cuboid_attention"
+                drop = training and (mod.attn_drop > 0 or mod.proj_drop > 0)
+                n[base + ("_dropout" if drop else "")] += 1
+                if backward is not None:
+                    n[base + ("_dropout_bwd_full" if drop else
+                              "_bwd_full" if backward == "full" else "_bwd_dx")] += 1
+        else:   # a time block
+            if mod.fused and rb_ops.supports(C, mod.in_groups):
+                n["resblock"] += 1
+                n["resblock_bwd"] += backward is not None
+                continue
+            if mod.gn_kernel and gn_ops.supports(C, mod.in_groups):
+                gn()
+            out = mod.out_layers[0]
+            if not mod.scale_shift and mod.gn_kernel and gn_ops.supports(out.num_channels,
+                                                                         out.num_groups):
+                gn()
+    return dict(n)
+
+
+def variant_models(cfg, vae_sd, latent, align, depth1=False, seed=SEED):
+    """The randomized CPU models of ``cfg`` with ``latent`` / ``align``'s
+    variant settings (cut to depth [1,1] with ``depth1``): (cfg, weights)."""
+    import torch
+    from prediff_torch.factory import build_alignment_model, build_unet
+    from prediff_torch.models.init import init_params_
+
+    if depth1:
+        latent = None if latent is None else dict(latent, depth=[1, 1])
+        align = None if align is None else dict(align, depth=[1, 1])
+    c = variant_config(cfg, latent, align)
+    gen = torch.Generator().manual_seed(seed)
+    weights = {"vae": vae_sd}
+    if latent is not None:
+        weights["unet"] = init_params_(build_unet(c), gen, randomize=True).state_dict()
+    if align is not None:
+        weights["align"] = init_params_(build_alignment_model(c), gen,
+                                        randomize=True).state_dict()
+    return c, weights
+
+
+def per_step_launches(predictor, cfg, guided, device):
+    """The launches of one reverse step of ``predictor`` (a UNet forward at
+    B=1, and with ``guided`` a guidance shift) from the modules' routes
+    (``expected_from_calls`` over the calls of one eager step)."""
+    import torch
+
+    d = cfg.model.diffusion
+    ld = predictor.ld
+    z = torch.randn((1,) + tuple(d.latent_shape), device=device)
+    zc = torch.randn((1,) + tuple(d.latent_cond_shape), device=device)
+    t = torch.tensor([500], device=device)
+    with CallRecorder(ld.unet) as rec, torch.no_grad():
+        ld.unet(z, t, zc)
+    per = expected_from_calls(rec.calls, None)
+    if guided:
+        with CallRecorder(ld.alignment.model) as rec:
+            ld.alignment.get_mean_shift(z, t, torch.tensor([[AVG_X_GT]], device=device))
+        for k, v in expected_from_calls(rec.calls, "dx").items():
+            per[k] += v
+    return per
+
+
+def variant_forecasts(device, cfg, smi, vae_sd, zero_counts, read_counts):
+    """``variant_guided_forecast`` (variant_kernels' UNet, variant_align's
+    net, ``VARIANT_STEPS`` guided DDPM steps) and ``variant_globals_forecast``
+    (variant_globals' UNet, unguided) through ``PreDiffPredictor.predict``,
+    each eager and on graphs (``run_chains``: bit-equal, exact launches of
+    every kernel and of each FFN activation in both runs).  Returns the
+    launches by phase."""
+    import torch
+    from prediff_torch.serving import PreDiffPredictor
+
+    def reads():
+        return {**read_counts(), **act_counts()}
+
+    img = cfg.layout
+    rs = torch.Generator().manual_seed(SEED + 23)
+    context = torch.rand((1, img.in_len, img.img_height, img.img_width, img.data_channels),
+                         generator=rs)
+    expect_shape = (1, img.out_len, img.img_height, img.img_width, img.data_channels)
+    out = {}
+    for phase, latent, align in (
+            ("variant_guided_forecast", VARIANT_UNETS["variant_kernels"],
+             VARIANT_ALIGNS["variant_align"]),
+            ("variant_globals_forecast", VARIANT_UNETS["variant_globals"], None)):
+        c, weights = variant_models(cfg, vae_sd, latent, align)
+        guided = align is not None
+        predictor = PreDiffPredictor(c, params=weights, with_alignment=guided, device=device)
+        per = per_step_launches(predictor, c, guided, device)
+        kw = dict(timesteps=VARIANT_STEPS)
+        if guided:
+            kw.update(use_alignment=True, avg_x_gt=torch.tensor([[AVG_X_GT]]).numpy())
+        out.update(run_chains(predictor, context, {phase: (kw, VARIANT_STEPS, guided)},
+                              expect_shape, lambda steps, g: {k: steps * v for k, v in per.items()},
+                              device, smi, zero_counts, reads))
+        del predictor
+    return out
+
+
+def variant_vs_cpu(device, cfg, vae_sd, zero_counts, read_counts):
+    """Depth-[1,1] copies of the variant UNets and alignment nets, every leaf
+    randomized: the forward (bar of the forward phases), the gradient of
+    every parameter and of the input for one cotangent (all gradients: the
+    kernels' all-gradients forms) and the input gradient on frozen
+    parameters (the dx forms), card against CPU with ``train_grads``' bars,
+    at B=1 in eval mode; the launches from the modules' routes.  Returns the
+    phase's launches."""
+    import torch
+    from prediff_torch.factory import build_alignment_model, build_unet
+
+    d = cfg.model.diffusion
+    rs = torch.Generator().manual_seed(SEED + 24)
+    total = {}
+    models = [(k, "unet", v) for k, v in VARIANT_UNETS.items()]
+    models += [(k, "align", v) for k, v in VARIANT_ALIGNS.items()]
+    for name, kind, over in models:
+        c, weights = variant_models(cfg, vae_sd, over if kind == "unet" else None,
+                                    over if kind == "align" else None, depth1=True)
+        build = build_unet if kind == "unet" else build_alignment_model
+        cpu = build(c)
+        cpu.load_state_dict(weights[kind])
+        card = build(c).to(device)
+        card.load_state_dict(weights[kind])
+        cpu.eval(), card.eval()
+        if kind == "unet":
+            x = torch.randn((1,) + tuple(d.latent_shape), generator=rs)
+            extra = (torch.tensor([500]), torch.randn((1,) + tuple(d.latent_cond_shape),
+                                                      generator=rs))
+        else:
+            x = torch.randn((1,) + tuple(c.model.align.model_args.input_shape), generator=rs)
+            extra = (torch.tensor([500]),)
+
+        def run(model, dev, params):
+            model.requires_grad_(params)
+            xi = x.to(dev).requires_grad_(True)
+            out = model(xi, *(e.to(dev) for e in extra))
+            g = torch.ones_like(out) / out.numel() ** 0.5
+            leaves = [xi] + (list(model.parameters()) if params else [])
+            grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
+            return out.detach().cpu(), [torch.zeros_like(p) if gr is None else gr.cpu()
+                                        for p, gr in zip(leaves, grads)]
+
+        t1 = time.perf_counter()
+        out_cpu, grads_cpu = run(cpu, "cpu", True)
+        cpu_s = time.perf_counter() - t1
+        run(card, device, True)   # warm-up: cuDNN's algorithms for these shapes
+        sync(device)
+        zero_counts()
+        with CallRecorder(card) as rec:
+            out_card, grads_card = run(card, device, True)
+        sync(device)
+        counts = {**read_counts(), **act_counts()}
+        want = expected_from_calls(rec.calls, "full")
+        zero_counts()
+        with CallRecorder(card) as rec:
+            _, dx_card = run(card, device, False)
+        sync(device)
+        counts_dx = {**read_counts(), **act_counts()}
+        want_dx = expected_from_calls(rec.calls, "dx")
+        fwd_rel = float((out_card - out_cpu).norm() / out_cpu.norm())
+        rel_l2, cosine = rel_l2_and_cosine(grads_card, grads_cpu)
+        dx_rel, dx_cos = rel_l2_and_cosine(dx_card, grads_cpu[:1])
+        line = {"phase": "variant_vs_cpu", "model": name, "settings": over, "depth": [1, 1],
+                "shape": list(out_card.shape), "forward_rel_l2_err": fwd_rel,
+                "grad_rel_l2_err": rel_l2, "grad_cosine": cosine, "dx_rel_l2_err": dx_rel,
+                "dx_cosine": dx_cos, "leaves": len(grads_card), "tol_forward_rel_l2": 2e-2,
+                "tol_rel_l2": GRAD_TOL_REL_L2, "min_cosine": GRAD_MIN_COSINE,
+                "launches": {k: v for k, v in counts.items() if v},
+                "launches_dx": {k: v for k, v in counts_dx.items() if v},
+                "cpu_forward_and_backward_s": cpu_s}
+        emit(line)
+        if (not torch.isfinite(out_card).all() or fwd_rel > 2e-2 or rel_l2 > GRAD_TOL_REL_L2
+                or cosine < GRAD_MIN_COSINE or dx_rel > GRAD_TOL_REL_L2
+                or dx_cos < GRAD_MIN_COSINE):
+            fail(f"variant_vs_cpu ({name}): card differs from the CPU: {line}")
+        if counts != want or counts_dx != want_dx:
+            fail(f"variant_vs_cpu ({name}): launches {counts} / {counts_dx} != expected "
+                 f"{want} / {want_dx}")
+        for k in counts:
+            total[k] = total.get(k, 0) + counts[k] + counts_dx[k]
+        del cpu, card
+    return total
+
+
+def variant_train(device, cfg, smi, vae_sd, zero_counts, read_counts):
+    """One ``DiffusionTrainer`` micro-step on variant_kernels and on
+    variant_globals and one ``AlignmentTrainer`` micro-step on variant_align,
+    depth [1,1] at v1's widths and the recipes' dropout rates: the dropout
+    kernels on leaky and silu, exact launches (the modules' routes over the
+    step's calls), a finite loss, parameters that move.  Returns the
+    launches of the three steps."""
+    import torch
+    from prediff_torch.config import alignment_default_config
+    from prediff_torch.datasets.synthetic import synthetic_batch_iterator
+    from prediff_torch.factory import build_alignment_trainer, build_training_pipeline
+    from prediff_torch.training import DiffusionTrainer
+
+    total = {}
+    steps = [("variant_kernels", cfg, VARIANT_UNETS["variant_kernels"], None),
+             ("variant_globals", cfg, VARIANT_UNETS["variant_globals"], None),
+             ("variant_align", alignment_default_config(), None, VARIANT_ALIGNS["variant_align"])]
+    for name, base, latent, align in steps:
+        c, weights = variant_models(base, vae_sd, latent, align, depth1=True)
+        L = c.layout
+        B = c.optim.micro_batch_size
+        batch = torch.from_numpy(next(synthetic_batch_iterator(
+            B, L.in_len + L.out_len, L.img_height, L.img_width, seed=SEED)))
+        x, y = batch[:, L.in_len:].to(device), batch[:, :L.in_len].to(device)
+        if latent is not None:
+            trainer = DiffusionTrainer(build_training_pipeline(c, device=device, params=weights),
+                                       optim_config=dict(lr=1e-3, total_num_steps=10))
+            model = trainer.ld.unet
+        else:
+            trainer = build_alignment_trainer(c, device=device, params={"align": weights["align"]})
+            model = trainer.model
+        state = trainer.create_state()
+        before = [p.detach().clone() for p in state.params.values()]
+        sync(device)
+        zero_counts()
+        t1 = time.perf_counter()
+        with CallRecorder(model) as rec:
+            state, metrics = trainer.train_step(state, SEED, x, y)
+        sync(device)
+        ms = 1e3 * (time.perf_counter() - t1)
+        counts = {**read_counts(), **act_counts()}
+        want = expected_from_calls(rec.calls, "full")
+        loss = float(next(v for k, v in metrics.items() if "loss" in k))
+        moved = sum(not torch.equal(a, b) for a, b in zip(before, state.params.values()))
+        rates = {k: model.dropout_rates[k] for k in model.dropout_rates}
+        emit({"phase": "variant_train", "model": name, "batch": B, "depth": [1, 1],
+              "dropout": rates, "loss": loss, "micro_step_ms": ms, "leaves_moved": moved,
+              "leaves": len(before), "launches": {k: v for k, v in counts.items() if v},
+              "expected_launches": {k: v for k, v in want.items() if v}, "card": smi})
+        if not (loss == loss and abs(loss) < float("inf")) or moved == 0:
+            fail(f"variant_train ({name}): loss {loss}, {moved} leaves moved")
+        if counts != want:
+            fail(f"variant_train ({name}): launches {counts} != expected {want}")
+        for k in counts:
+            total[k] = total.get(k, 0) + counts[k]
+        del trainer, state
+    return total
+
+
+def variant_phases(device, cfg, smi, vae_sd, zero_counts, read_counts):
+    """The model variants: ``ffn_activations``, the variant forecasts,
+    ``variant_vs_cpu`` and ``variant_train``.  Returns (the activation
+    entries' cases, the launches by phase)."""
+    acases = check_activation_kernels(device)
+    bad = [(k, c["shape"]) for k, cs in acases.items() for c in cs if not c["ok"]]
+    emit({"phase": "ffn_activations", "cases": sum(len(v) for v in acases.values()),
+          "failed": len(bad), "card": smi,
+          "worst_rel_err": max(c["max_rel_err"] for cs in acases.values() for c in cs)})
+    if bad:
+        fail(f"an FFN activation form disagrees with its plain version: {bad}")
+    launches = variant_forecasts(device, cfg, smi, vae_sd, zero_counts, read_counts)
+    launches["variant_vs_cpu"] = variant_vs_cpu(device, cfg, vae_sd, zero_counts, read_counts)
+    launches["variant_train"] = variant_train(device, cfg, smi, vae_sd, zero_counts,
+                                              read_counts)
+    for name, (_, _, path) in ACT_KERNELS.items():
+        if path is not None and not launches[path].get(name):
+            fail(f"{name}: no launch on its path {path}")
+    return acases, launches
+
+
+def ffn_gelu_times(device, smi):
+    """``--only ffn_gelu``: the device time of each GELU form of the FFN
+    kernels (rows 2, 6, 12, 15a, 15b and the bf16 forms of 2 and 6) at the
+    UNet's shapes (B=1 and the training micro-batch), by graph replay.  It
+    calls the wrappers without the activation argument, as older trees
+    take them, so a copy of this script in an older tree times that tree's
+    kernels: compare two trees in one call, in turns."""
+    import torch
+    from prediff_torch.ops import ffn as F_
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 25)
+    out = {}
+    for M, C in VARIANT_FFN_SHAPES + ((6656, 256), (1664, 512)):
+        hid = 4 * C
+        x, g = (torch.randn(M, C, generator=gen, device=device) for _ in range(2))
+        ln_w, ln_b = 1.0 + 0.1 * torch.randn(C, device=device), 0.1 * torch.randn(C, device=device)
+        w1 = torch.randn(hid, C, generator=gen, device=device) * C ** -0.5
+        w2 = torch.randn(C, hid, generator=gen, device=device) * hid ** -0.5
+        b1, b2 = 0.1 * torch.randn(hid, device=device), 0.1 * torch.randn(C, device=device)
+        fwd, bwd = (x, ln_w, ln_b, w1, b1, w2, b2), (x, g, ln_w, ln_b, w1, b1, w2)
+        bf = [t.to(torch.bfloat16) for t in (x, g, w1, w2)]
+        drop = (1e-5, DROP_RATE, DROP_RATE, DROP_SEED, DROP_SITE)
+        forms = {"ffn": lambda: F_.fused_ffn(*fwd),
+                 "ffn_bwd_dx": lambda: F_.fused_ffn_bwd_dx(*bwd),
+                 "ffn_bwd_full": lambda: F_.fused_ffn_bwd_full(*bwd),
+                 "ffn_dropout": lambda: F_.fused_ffn_dropout(*fwd, *drop),
+                 "ffn_dropout_bwd_full": lambda: F_.fused_ffn_dropout_bwd_full(*bwd, *drop),
+                 "ffn_bf16": lambda: F_.fused_ffn(bf[0], ln_w, ln_b, bf[2], b1, bf[3], b2),
+                 "ffn_bwd_dx_bf16": lambda: F_.fused_ffn_bwd_dx(bf[0], bf[1], ln_w, ln_b, bf[2],
+                                                                b1, bf[3])}
+        for name, fn in forms.items():
+            out.setdefault(name, {})[f"{M}x{C}"] = graph_time_ms(fn)
+    emit({"phase": "ffn_gelu_times", "tree": os.getcwd(), "device_ms": out, "card": smi})
+
+
+def variants_alone(device, smi):
+    """``--only variants``: the variant phases with the seeded randomized VAE,
+    then their kernels line."""
+    import torch
+    from prediff_torch.config import prediff_default_config
+    from prediff_torch.factory import build_vae
+    from prediff_torch.models.init import init_params_
+
+    cfg = prediff_default_config()
+    vae = init_params_(build_vae(cfg), torch.Generator().manual_seed(SEED), randomize=True)
+    acases, launches = variant_phases(device, cfg, smi, vae.state_dict(), *kernel_counters())
+    emit({"kernels": summarize(acases, launches)})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", help="also write every JSON line to this file")
@@ -3376,13 +3955,18 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
         LOG.append(open(args.log, "w"))
     # the kernels build in a thread of their own while the phases that need
-    # none of them, or the GN kernels alone, run (``run``)
-    build = Build(_build.build_all)
+    # none of them, or the GN kernels alone, run (``run``); ffn_gelu builds the
+    # FFN source alone, at its first launch
+    build = None if args.only == ["ffn_gelu"] else Build(_build.build_all)
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
+    if build is None:
+        ffn_gelu_times(device, smi)
+        print(smi, flush=True)
+        return 0
     if args.only:
         build.wait()
         run_only(device, args.only, smi)
@@ -3431,11 +4015,13 @@ COUNTERS = {}   # kernel name -> its wrapper (kernel_counters)
 
 
 def counters_zero():
-    """Every wrapper's launch counts, its bf16 form's too, set to 0."""
+    """Every wrapper's launch counts, its bf16 form's and the FFN
+    activations' too, set to 0."""
     for fn in COUNTERS.values():
         fn.launches = 0
-        if hasattr(fn, "bf16_launches"):
-            fn.bf16_launches = 0
+        for attr in ("bf16_launches",) + tuple(f"{a}_launches" for a in VARIANT_ACTS):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def counters_read():
@@ -3493,9 +4079,11 @@ def kernel_counters():
 # (bf16_phases with the f32 chains beside them), vae_train_bf16 (with its grads),
 # bf16params (bf16params_phases with the f32 chains beside them),
 # eval (eval_suite), data (data_prefetch), cli (the cli_* phases), mesh
-# (the mesh_* phases) and ddp (the ddp_* phases)
+# (the mesh_* phases), ddp (the ddp_* phases), variants (the model variants:
+# ffn_activations, the variant forecasts, variant_vs_cpu, variant_train) and
+# ffn_gelu (the FFN kernels' GELU forms' device times, alone)
 ONLY = ("bwd_split", "guided_repeat", "vae_train", "align_train", "bf16", "vae_train_bf16",
-        "bf16params", "eval", "data", "cli", "mesh", "ddp")
+        "bf16params", "eval", "data", "cli", "mesh", "ddp", "variants", "ffn_gelu")
 
 
 def run_only(device, names, smi: str) -> None:
@@ -3515,6 +4103,8 @@ def run_only(device, names, smi: str) -> None:
             mesh_alone(device, smi)
         elif name == "ddp":
             ddp_alone(device, smi)
+        elif name == "variants":
+            variants_alone(device, smi)
         elif name == "bwd_split":
             bwd_split(device)
         elif name == "guided_repeat":
@@ -3676,13 +4266,16 @@ def run(device, cfg, smi: str, build) -> None:
     vae_train_bf16_phases(device, smi)
     launches_by_path["align_train"] = align_train_phases(device, smi, by_route, zero_counts,
                                                          read_counts)
+    acases, variant_launches = variant_phases(device, cfg, smi, vae_cpu.state_dict(),
+                                              zero_counts, read_counts)
+    launches_by_path.update(variant_launches)
     launches_by_path.update(launches_early)
     launches_by_path.update(cli_phases(device, smi, weights, by_route, zero_counts, read_counts,
                                        names=CLI_PHASES[:-1]))
     launches_by_path.update(mesh_phases(device, smi, cfg, weights, by_route))
     launches_by_path.update(ddp_phases(device, smi, cfg, weights, by_route))
     emit({"phase": "graph_chains", "card": smi, "chains": GRAPH_CHAINS})
-    emit({"kernels": summarize({**cases, **bcases}, launches_by_path)})
+    emit({"kernels": summarize({**cases, **bcases, **acases}, launches_by_path)})
     print(smi, flush=True)
 
 
@@ -5442,6 +6035,118 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def memory_state(device) -> dict:
+    """GiB: the card's free and total memory and this process's reserved
+    share of it, the host's free memory, and the largest resident set of
+    this process and of its finished children."""
+    import resource
+
+    import torch
+
+    out = {"host_free_gib": os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") / 2**30,
+           "self_max_rss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+           "children_max_rss_gib":
+               resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 2**20}
+    if device.type == "cuda":
+        free, total = torch.cuda.mem_get_info(device)
+        out.update(card_free_gib=free / 2**30, card_total_gib=total / 2**30,
+                   reserved_gib=torch.cuda.memory_reserved(device) / 2**30)
+    return out
+
+
+def progress(device, stage: str, seconds: float, peaks: dict) -> None:
+    """A rank's stage as it is reached: ``peaks[stage]`` the most card
+    memory allocated and reserved (GiB) since the stage before (the
+    counters then start again), and the stage to the rank's log, for the
+    report of a rank that fails."""
+    import torch
+
+    if device.type == "cuda":
+        peaks[stage] = [torch.cuda.max_memory_allocated(device) / 2**30,
+                        torch.cuda.max_memory_reserved(device) / 2**30]
+        torch.cuda.reset_peak_memory_stats(device)
+    print(json.dumps({"stage": stage, "s": seconds, "peak_gib": peaks.get(stage)}), flush=True)
+
+
+RANK_MEMORY_ENV = "CHIP_SMOKE_RANK_GIB"   # each rank's share of the card, set by run_ranks
+RANK_MEMORY_MARGIN_GIB = 3.0   # the card memory the processes' CUDA contexts take beside
+
+
+def rank_memory_share(device) -> None:
+    """Hold this rank's allocator to its share of the card (``run_ranks``
+    sets it): at its share it gives back its own cached blocks before it
+    asks for more, so one rank's cache can never starve the other's."""
+    import torch
+
+    share = os.environ.get(RANK_MEMORY_ENV)
+    if share and device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+        torch.cuda.set_per_process_memory_fraction(float(share) * 2**30 / total, device)
+
+
+def run_ranks(kind: str, root: str, log_prefix: str, timeout_s: float, device) -> dict:
+    """Start two ranks of this script (``--{kind}-child ROOT RANK``), each
+    writing its output to ``ROOT/{log_prefix}{RANK}.log``, once this process
+    has given back the card memory it holds no tensor in, each held to half
+    of what is then free (``rank_memory_share``); wait at most
+    ``timeout_s`` seconds for both, kill any still running, and fail, with
+    every rank's exit and log tail (the rank that failed first last), if one
+    did not exit 0.  Returns the children's seconds and the memory (GiB) as
+    they started and as they ended."""
+    import gc
+
+    import torch
+
+    gc.collect()   # cycles may hold card tensors or graphs the cache cannot give back
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    at_start = memory_state(device)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    if device.type == "cuda":   # the card's free memory split between the two ranks
+        at_start["rank_share_gib"] = (at_start["card_free_gib"] - RANK_MEMORY_MARGIN_GIB) / 2
+        env[RANK_MEMORY_ENV] = repr(at_start["rank_share_gib"])
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    try:
+        for r in range(2):
+            logs.append(open(os.path.join(root, f"{log_prefix}{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), f"--{kind}-child", root, str(r)],
+                stdout=logs[-1], stderr=subprocess.STDOUT, env=env))
+        deadline = time.time() + timeout_s
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    seconds = time.perf_counter() - t0
+    at_end = memory_state(device)
+    if any(p.returncode != 0 for p in procs):
+        ranks = []
+        for r, p in enumerate(procs):
+            with open(os.path.join(root, f"{log_prefix}{r}.log")) as f:
+                tail = f.read()[-3000:]
+            code = p.returncode
+            ranks.append((r, f"killed by signal {-code}" if code < 0 else f"exit {code}", tail,
+                          # a rank whose peer went away reports the peer, not the cause
+                          code == 0 or "closed by peer" in tail or "Connection reset" in tail))
+        report = "".join(f"\n---- {kind} rank {r} ({exit_}), the end of its log:\n{tail}"
+                         for r, exit_, tail, _ in sorted(ranks, key=lambda x: not x[3]))
+        exits = ", ".join(f"rank {r} {exit_}" for r, exit_, _, _ in ranks)
+        fail(f"{kind} ranks: {report}\n---- {kind} ranks exited: {exits} after {seconds:.1f} s; "
+             f"memory (GiB) as they started {at_start}, as they ended {at_end}")
+    return {"children_seconds": seconds, "memory_at_start_gib": at_start,
+            "memory_at_end_gib": at_end}
+
+
 class chain_probe:
     """For the ``with`` block: each chain's x_T and step noise as the rank
     holds them (its rows of the whole batch's draws), its step loop's
@@ -5679,36 +6384,8 @@ def mesh_phases(device, smi, cfg, weights, per, diagnose: bool = False) -> dict:
                        "ddim_steps": MESH_DDIM_STEPS, "nccl_members": MESH_NCCL_MEMBERS,
                        "eval_ddim_steps": MESH_EVAL_DDIM_STEPS,
                        "eval_members": MESH_EVAL_MEMBERS, "diagnose": diagnose}, f)
-        env = {k: v for k, v in os.environ.items()
-               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
         t0 = time.perf_counter()
-        procs, logs = [], []
-        try:
-            for r in range(2):
-                logs.append(open(os.path.join(root, f"rank{r}.log"), "w"))
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), "--mesh-child", root, str(r)],
-                    stdout=logs[-1], stderr=subprocess.STDOUT, env=env))
-            deadline = time.time() + MESH_TIMEOUT_S
-            for p in procs:
-                try:
-                    p.wait(timeout=max(1.0, deadline - time.time()))
-                except subprocess.TimeoutExpired:
-                    pass
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            for f in logs:
-                f.close()
-        children_s = time.perf_counter() - t0
-        tails = {}
-        for r, p in enumerate(procs):
-            with open(os.path.join(root, f"rank{r}.log")) as f:
-                tails[r] = f.read()[-3000:]
-            if p.returncode != 0:
-                fail(f"mesh rank {r} exited with {p.returncode}:\n{tails[r]}")
+        children = run_ranks("mesh", root, "rank", MESH_TIMEOUT_S, device)
         res = []
         for r in range(2):
             with open(os.path.join(root, f"rank{r}.json")) as f:
@@ -5793,9 +6470,9 @@ def mesh_phases(device, smi, cfg, weights, per, diagnose: bool = False) -> dict:
             if failed:
                 fail(f"{name}: {failed}")
             launches[name] = res[0][name]["launches"]
-    emit({"phase": "mesh_all", "seconds": time.perf_counter() - t_all,
-          "children_seconds": children_s, "reference_seconds": t0 - t_all,
-          "rank_stages_s": [r["stages_s"] for r in res], "card": smi})
+    emit({"phase": "mesh_all", "seconds": time.perf_counter() - t_all, **children,
+          "reference_seconds": t0 - t_all, "rank_stages_s": [r["stages_s"] for r in res],
+          "rank_peak_gib_by_stage": [r["peak_gib_by_stage"] for r in res], "card": smi})
     return launches
 
 
@@ -5850,6 +6527,7 @@ def mesh_child(root: str, rank: int) -> int:
     with open(os.path.join(root, "plan.json")) as f:
         plan = json.load(f)
     device = torch.device(plan["device"])
+    rank_memory_share(device)
     per = plan["per"]
     members, ddpm_steps, ddim_steps = plan["members"], plan["ddpm_steps"], plan["ddim_steps"]
     eval_members, eval_ddim_steps = plan["eval_members"], plan["eval_ddim_steps"]
@@ -5862,12 +6540,14 @@ def mesh_child(root: str, rank: int) -> int:
     zero_counts, read_counts = kernel_counters()
     install, spied, remove = plain_spy()
     stages = {"loaded": time.perf_counter() - T0}   # seconds since the process started
-    out = {"stages_s": stages}
+    peaks = {}   # stage -> GiB allocated and reserved at most since the stage before
+    out = {"stages_s": stages, "peak_gib_by_stage": peaks}
 
     def phase(name, fn, want):
         out[name] = counted_phase(device, (zero_counts, read_counts),
                                   (install, spied, remove), fn, want)
         stages[name] = time.perf_counter() - T0
+        progress(device, name, stages[name], peaks)
 
     def save(name, t):
         torch.save(t.cpu(), os.path.join(root, f"rank{rank}_{name}.pt"))
@@ -6149,34 +6829,8 @@ def ddp_phases(device, smi, cfg, weights, per) -> dict:
             json.dump({"device": str(device), "port": free_port(), "port2": free_port(),
                        "nccl_backend": "nccl" if device.type == "cuda" else "gloo",
                        "per": per}, f)
-        env = {k: v for k, v in os.environ.items()
-               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
         t0 = time.perf_counter()
-        procs, logs_f = [], []
-        try:
-            for r in range(2):
-                logs_f.append(open(os.path.join(root, f"ddp{r}.log"), "w"))
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), "--ddp-child", root, str(r)],
-                    stdout=logs_f[-1], stderr=subprocess.STDOUT, env=env))
-            deadline = time.time() + DDP_TIMEOUT_S
-            for p in procs:
-                try:
-                    p.wait(timeout=max(1.0, deadline - time.time()))
-                except subprocess.TimeoutExpired:
-                    pass
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            for f in logs_f:
-                f.close()
-        children_s = time.perf_counter() - t0
-        for r, p in enumerate(procs):
-            if p.returncode != 0:
-                with open(os.path.join(root, f"ddp{r}.log")) as f:
-                    fail(f"ddp rank {r} exited with {p.returncode}:\n{f.read()[-3000:]}")
+        children = run_ranks("ddp", root, "ddp", DDP_TIMEOUT_S, device)
         res = []
         for r in range(2):
             with open(os.path.join(root, f"ddp{r}.json")) as f:
@@ -6194,9 +6848,9 @@ def ddp_phases(device, smi, cfg, weights, per) -> dict:
             if failed:
                 fail(f"{name}: {failed}")
             launches[name] = res[0][name]["launches"]
-    emit({"phase": "ddp_all", "seconds": time.perf_counter() - t_all,
-          "children_seconds": children_s, "reference_seconds": t0 - t_all,
-          "rank_stages_s": [r["stages_s"] for r in res], "card": smi})
+    emit({"phase": "ddp_all", "seconds": time.perf_counter() - t_all, **children,
+          "reference_seconds": t0 - t_all, "rank_stages_s": [r["stages_s"] for r in res],
+          "rank_peak_gib_by_stage": [r["peak_gib_by_stage"] for r in res], "card": smi})
     return launches
 
 
@@ -6225,16 +6879,19 @@ def ddp_child(root: str, rank: int) -> int:
     def stage(name):
         sync(device)
         stages[name] = time.perf_counter() - T0
+        progress(device, name, stages[name], peaks)
 
     with open(os.path.join(root, "plan.json")) as f:
         plan = json.load(f)
     device = torch.device(plan["device"])
+    rank_memory_share(device)
     per = plan["per"]
     cfg = load_config(prediff_default_config, os.path.join(root, "cfg.yaml"))
     weights = torch.load(os.path.join(root, "weights.pt"))
     set_numerics()
     counters, spy = kernel_counters(), plain_spy()
-    out = {"stages_s": stages}
+    peaks = {}   # stage -> GiB allocated and reserved at most since the stage before
+    out = {"stages_s": stages, "peak_gib_by_stage": peaks}
     init_distributed(coordinator_address=f"localhost:{plan['port']}", num_processes=2,
                      process_id=rank, backend="gloo", device=device, timeout=120.0)
     mesh = make_mesh()

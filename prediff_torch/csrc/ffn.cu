@@ -1,4 +1,14 @@
-// Fused pre-norm FFN: out = x + W2 . gelu_erf(W1 . LN(x) + b1) + b2.
+// Fused pre-norm FFN: out = x + W2 . act(W1 . LN(x) + b1) + b2.
+//
+// The activation is the TPU kernels' argument (pallas_ffn.py
+// _apply_activation, _apply_activation_grad): exact-erf GELU, ReLU, leaky
+// ReLU of slope 0.1 or SiLU, passed to every entry point as a small enum
+// (enum Act).  Where b1 is added, in the forward and in both backwards, one
+// warp-uniform switch a hidden chunk picks a straight-line copy of that loop
+// for the activation (act_h_tile, dh_tile): one instance of each kernel
+// serves all four, so the build does not grow with them.  Below, gelu stands for the
+// activation and gelu' for its derivative (relu' = [h > 0], leaky' = 1 for
+// h >= 0 else 0.1, silu' = s (1 + h (1 - s)), s = sigmoid(h)).
 //
 // Replaces prediff_tpu/ops/pallas_ffn.py::fused_ffn (_ffn_kernel).  Weights
 // in PyTorch layout: w1 (hidden, C), w2 (C, hidden), f32 in memory.
@@ -104,6 +114,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+// The activations, in the order of ops/ffn.py ACTIVATIONS.
+enum Act : int { kGelu = 0, kRelu = 1, kLeaky = 2, kSilu = 3 };
+
 // ---------------------------------------------------------------------------
 // The forward on TMA + wgmma (the note at the top of the file).
 namespace fwd {
@@ -145,9 +158,63 @@ __device__ __forceinline__ float gelu_erf(float h) {
   return h * 0.5f * (1.f + erff(h * 0.70710678118654752f));
 }
 
+// act(h) of activation A, the TPU kernels' formulas.
+template <int A>
+__device__ __forceinline__ float activate(float h) {
+  if constexpr (A == kRelu) return fmaxf(h, 0.f);
+  else if constexpr (A == kLeaky) return h >= 0.f ? h : 0.1f * h;
+  else if constexpr (A == kSilu) return h * (1.f / (1.f + expf(-h)));
+  else return gelu_erf(h);
+}
+
+// act'(h) of activation A, and act(h) into a, as the backward recomputes it.
+template <int A>
+__device__ __forceinline__ float activate_grad(float h, float& a) {
+  if constexpr (A == kRelu) {
+    a = fmaxf(h, 0.f);
+    return h > 0.f ? 1.f : 0.f;
+  } else if constexpr (A == kLeaky) {
+    a = h >= 0.f ? h : 0.1f * h;
+    return h >= 0.f ? 1.f : 0.1f;
+  } else if constexpr (A == kSilu) {
+    const float s = 1.f / (1.f + expf(-h));
+    a = h * s;
+    return s * (1.f + h * (1.f - s));
+  } else {
+    const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
+    const float pdf = expf(-0.5f * h * h) * 0.39894228040143268f;
+    a = h * cdf;
+    return cdf + h * pdf;
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// act(h + b1) of a warpgroup's h accumulators (N1 columns from hcol, rows
+// rbase + 8 half), dropped (Drop: m1 at (token, hidden column)), rounded to
+// bf16 into the swizzled h tile.  The caller picks A by one warp-uniform
+// switch on the kernel's act, so each case is the straight-line loop of one
+// activation (a switch inside the unrolled loop spilled and slowed GELU).
+template <int A, int N1, bool Drop>
+__device__ __forceinline__ void act_h_tile(const float (&hacc)[N1 / 2],
+                                           const float (&bj)[N1 / 8][2], int hcol, int lane,
+                                           int rbase, const philox::Drop& d1, int m0, int hidden,
+                                           int j0, uint8_t* tile) {
+#pragma unroll
+  for (int jb = 0; jb < N1 / 8; ++jb) {
+    const int j = hcol + 8 * jb + 2 * (lane & 3);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = rbase + 8 * half;
+      float a0 = activate<A>(hacc[4 * jb + 2 * half] + bj[jb][0]);
+      float a1 = activate<A>(hacc[4 * jb + 2 * half + 1] + bj[jb][1]);
+      if (Drop) philox::apply2(d1, (unsigned long long)(m0 + r) * hidden + j0 + j, a0, a1);
+      *reinterpret_cast<uint32_t*>(tile + sw128_offset(r, j)) = pack_bf16(a0, a1);
+    }
+  }
 }
 
 // grid (row tiles, 1, splits), clusters of (1, 1, splits): block z of a
@@ -158,8 +225,8 @@ ffn_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
                  const __grid_constant__ CUtensorMap w2_map, const T* __restrict__ x,
                  const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                  const float* __restrict__ b1, const float* __restrict__ b2,
-                 T* __restrict__ out, int M, int hidden, float eps, philox::Drop d1,
-                 philox::Drop d2) {
+                 T* __restrict__ out, int M, int hidden, float eps, int act,
+                 philox::Drop d1, philox::Drop d2) {
   using K = Cfg<C>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
@@ -262,18 +329,23 @@ ffn_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
         }
       }
       item += K::kItems;
-      // gelu(h + b1), dropped, rounded to bf16 into the h tile
-#pragma unroll
-      for (int jb = 0; jb < K::kN1 / 8; ++jb) {
-        const int j = hcol + 8 * jb + 2 * (lane & 3);
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = arow + warp * 16 + (lane >> 2) + 8 * half;
-          float a0 = gelu_erf(hacc[4 * jb + 2 * half] + bj[jb][0]);
-          float a1 = gelu_erf(hacc[4 * jb + 2 * half + 1] + bj[jb][1]);
-          if (Drop) philox::apply2(d1, (unsigned long long)(m0 + r) * hidden + j0 + j, a0, a1);
-          *reinterpret_cast<uint32_t*>(ln_g + (hb - ln_s) + sw128_offset(r, j)) =
-              pack_bf16(a0, a1);
+      // act(h + b1), dropped, rounded to bf16 into the h tile
+      {
+        const int rbase = arow + warp * 16 + (lane >> 2);
+        uint8_t* tile = ln_g + (hb - ln_s);
+        switch (act) {
+          case kRelu:
+            act_h_tile<kRelu, K::kN1, Drop>(hacc, bj, hcol, lane, rbase, d1, m0, hidden, j0, tile);
+            break;
+          case kLeaky:
+            act_h_tile<kLeaky, K::kN1, Drop>(hacc, bj, hcol, lane, rbase, d1, m0, hidden, j0,
+                                             tile);
+            break;
+          case kSilu:
+            act_h_tile<kSilu, K::kN1, Drop>(hacc, bj, hcol, lane, rbase, d1, m0, hidden, j0, tile);
+            break;
+          default:
+            act_h_tile<kGelu, K::kN1, Drop>(hacc, bj, hcol, lane, rbase, d1, m0, hidden, j0, tile);
         }
       }
       fence_async_smem();
@@ -386,7 +458,7 @@ ffn_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
 template <int C, bool Drop, typename T>
 cudaError_t launch(const CUtensorMap& w1, const CUtensorMap& w2, const T* x,
                    const float* ln_w, const float* ln_b, const float* b1, const float* b2,
-                   T* out, int M, int hidden, int splits, float eps, philox::Drop d1,
+                   T* out, int M, int hidden, int splits, float eps, int act, philox::Drop d1,
                    philox::Drop d2, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
@@ -409,7 +481,7 @@ cudaError_t launch(const CUtensorMap& w1, const CUtensorMap& w2, const T* x,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(&cfg, ffn_wgmma_kernel<C, Drop, T>, w1, w2, x, ln_w, ln_b,
-                                       b1, b2, out, M, hidden, eps, d1, d2);
+                                       b1, b2, out, M, hidden, eps, act, d1, d2);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -417,11 +489,12 @@ cudaError_t launch(const CUtensorMap& w1, const CUtensorMap& w2, const T* x,
 template <bool Drop, typename T>
 int forward(const T* x, const float* ln_w, const float* ln_b, const void* w1_map,
             const float* b1, const void* w2_map, const float* b2, T* out, int M, int C,
-            int hidden, int splits, float eps, philox::Drop d1, philox::Drop d2,
+            int hidden, int splits, float eps, int act, philox::Drop d1, philox::Drop d2,
             cudaStream_t stream) {
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   if (M < 1 || hidden < kHC || hidden % kHC || splits < 1 || splits > kMaxSplits ||
-      splits > hidden / kHC || !aligned(x) || !aligned(ln_w) || !aligned(ln_b) || !aligned(b1) ||
+      splits > hidden / kHC || act < kGelu || act > kSilu || !aligned(x) || !aligned(ln_w) ||
+      !aligned(ln_b) || !aligned(b1) ||
       !aligned(b2) || (reinterpret_cast<uintptr_t>(out) & (2 * sizeof(T) - 1)))
     return (int)cudaErrorInvalidValue;
   CUtensorMap w1, w2;
@@ -430,13 +503,13 @@ int forward(const T* x, const float* ln_w, const float* ln_b, const void* w1_map
   switch (C) {
     case 128:
       return (int)launch<128, Drop, T>(w1, w2, x, ln_w, ln_b, b1, b2, out, M, hidden, splits, eps,
-                                    d1, d2, stream);
+                                    act, d1, d2, stream);
     case 256:
       return (int)launch<256, Drop, T>(w1, w2, x, ln_w, ln_b, b1, b2, out, M, hidden, splits, eps,
-                                    d1, d2, stream);
+                                    act, d1, d2, stream);
     case 512:
       return (int)launch<512, Drop, T>(w1, w2, x, ln_w, ln_b, b1, b2, out, M, hidden, splits, eps,
-                                    d1, d2, stream);
+                                    act, d1, d2, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -491,6 +564,58 @@ struct Cfg {
 // (3, C): the rank's column sums of dln . nhat and dln over its rows and
 // (rank 0) of do over the tile; db1_part[tile] (hidden): the column sums of
 // the f32 dh, each rank for its chunks.
+// dh = da . act'(h + b1) and a = act(h + b1) of a warpgroup's 32 columns of
+// a chunk (rows rA + 8 half), both (Drop) . m1 / (1 - r_act) of (token,
+// hidden unit); dh rounded to bf16 into the swizzled dh tile, a and dh
+// transposed into the staging tiles (Full); dsum their column sums.  The
+// caller picks A by one warp-uniform switch on the kernel's act.
+template <int A, bool Full, bool Drop>
+__device__ __forceinline__ void dh_tile(const float (&hacc)[16], const float (&dacc)[16],
+                                        const float (&bj)[4][2], float (&dsum)[4][2], int hcol,
+                                        int lane, int rA, const philox::Drop& d1, int m0,
+                                        int hidden, int j0, uint8_t* dh_tile_g,
+                                        __nv_bfloat16* at_s, __nv_bfloat16* dht_s) {
+#pragma unroll
+  for (int jb = 0; jb < 4; ++jb) {
+    const int jl = hcol + 8 * jb + 2 * (lane & 3);
+    unsigned w[2][2] = {{0u, 0u}, {0u, 0u}};
+    if (Drop && d1.thr != 0u) {
+      const unsigned long long eA = (unsigned long long)(m0 + rA) * hidden + j0 + jl;
+      philox::draw_rows2(d1, eA, eA + 8ull * hidden, w[0], w[1]);
+    }
+    dsum[jb][0] = dsum[jb][1] = 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = rA + 8 * half;
+      float av[2], dv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float a;
+        const float dact = fwd::activate_grad<A>(hacc[4 * jb + 2 * half + e] + bj[jb][e], a);
+        float dh = dacc[4 * jb + 2 * half + e] * dact;
+        if (Drop && d1.thr != 0u) {
+          const bool kept = w[half][e] >= d1.thr;
+          dh = kept ? dh / d1.keep : 0.f;
+          a = kept ? a / d1.keep : 0.f;
+        }
+        av[e] = a;
+        dv[e] = dh;
+        dsum[jb][e] += dh;   // rows past M have do = 0, so dh = 0
+      }
+      const uint32_t dhp = fwd::pack_bf16(dv[0], dv[1]);
+      *reinterpret_cast<uint32_t*>(dh_tile_g + sw128_offset(r, jl)) = dhp;
+      if (Full) {
+        const __nv_bfloat162 ap = __floats2bfloat162_rn(av[0], av[1]);
+        const __nv_bfloat162 hp = *reinterpret_cast<const __nv_bfloat162*>(&dhp);
+        at_s[jl * kLdT + r] = ap.x;
+        at_s[(jl + 1) * kLdT + r] = ap.y;
+        dht_s[jl * kLdT + r] = hp.x;
+        dht_s[(jl + 1) * kLdT + r] = hp.y;
+      }
+    }
+  }
+}
+
 template <int C, bool Full, bool Drop, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_bwd_kernel(const __grid_constant__ CUtensorMap w1_map,
@@ -501,7 +626,7 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap w1_map,
                T* __restrict__ dx, __nv_bfloat16* __restrict__ ln_t,
                __nv_bfloat16* __restrict__ do_t, __nv_bfloat16* __restrict__ a_t,
                __nv_bfloat16* __restrict__ dh_t, float* __restrict__ vpart,
-               float* __restrict__ db1_part, int M, int hidden, int ld, float eps,
+               float* __restrict__ db1_part, int M, int hidden, int ld, float eps, int act,
                philox::Drop d1, philox::Drop d2) {
   using K = Cfg<C>;
   extern __shared__ uint8_t smem_raw[];
@@ -696,49 +821,25 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap w1_map,
     // both warpgroups are past the previous chunk's reads of the dh tile and
     // the staging tiles
     named_barrier(1, kConsumers);
-    // dh = da . gelu'(h + b1) and a = gelu(h + b1), both (Drop) . m1 / (1 -
+    // dh = da . act'(h + b1) and a = act(h + b1), both (Drop) . m1 / (1 -
     // r_act) of (token, hidden unit); dh rounded to bf16 into the dh tile
     float dsum[4][2];
-#pragma unroll
-    for (int jb = 0; jb < 4; ++jb) {
-      const int jl = hcol + 8 * jb + 2 * (lane & 3);
-      unsigned w[2][2] = {{0u, 0u}, {0u, 0u}};
-      if (Drop && d1.thr != 0u) {
-        const unsigned long long eA = (unsigned long long)(m0 + rA) * hidden + j0 + jl;
-        philox::draw_rows2(d1, eA, eA + 8ull * hidden, w[0], w[1]);
-      }
-      dsum[jb][0] = dsum[jb][1] = 0.f;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = rA + 8 * half;
-        float av[2], dv[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float h = hacc[4 * jb + 2 * half + e] + bj[jb][e];
-          const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
-          const float pdf = expf(-0.5f * h * h) * 0.39894228040143268f;
-          float dh = dacc[4 * jb + 2 * half + e] * (cdf + h * pdf);
-          float a = h * cdf;
-          if (Drop && d1.thr != 0u) {
-            const bool kept = w[half][e] >= d1.thr;
-            dh = kept ? dh / d1.keep : 0.f;
-            a = kept ? a / d1.keep : 0.f;
-          }
-          av[e] = a;
-          dv[e] = dh;
-          dsum[jb][e] += dh;   // rows past M have do = 0, so dh = 0
-        }
-        const uint32_t dhp = fwd::pack_bf16(dv[0], dv[1]);
-        *reinterpret_cast<uint32_t*>(base + (dh_s - ln_s) + sw128_offset(r, jl)) = dhp;
-        if (Full) {
-          const __nv_bfloat162 ap = __floats2bfloat162_rn(av[0], av[1]);
-          const __nv_bfloat162 hp = *reinterpret_cast<const __nv_bfloat162*>(&dhp);
-          at_s[jl * kLdT + r] = ap.x;
-          at_s[(jl + 1) * kLdT + r] = ap.y;
-          dht_s[jl * kLdT + r] = hp.x;
-          dht_s[(jl + 1) * kLdT + r] = hp.y;
-        }
-      }
+    switch (act) {
+      case kRelu:
+        dh_tile<kRelu, Full, Drop>(hacc, dacc, bj, dsum, hcol, lane, rA, d1, m0, hidden, j0,
+                                   base + (dh_s - ln_s), at_s, dht_s);
+        break;
+      case kLeaky:
+        dh_tile<kLeaky, Full, Drop>(hacc, dacc, bj, dsum, hcol, lane, rA, d1, m0, hidden, j0,
+                                    base + (dh_s - ln_s), at_s, dht_s);
+        break;
+      case kSilu:
+        dh_tile<kSilu, Full, Drop>(hacc, dacc, bj, dsum, hcol, lane, rA, d1, m0, hidden, j0,
+                                   base + (dh_s - ln_s), at_s, dht_s);
+        break;
+      default:
+        dh_tile<kGelu, Full, Drop>(hacc, dacc, bj, dsum, hcol, lane, rA, d1, m0, hidden, j0,
+                                   base + (dh_s - ln_s), at_s, dht_s);
     }
     fence_async_smem();
     named_barrier(1, kConsumers);
@@ -916,8 +1017,8 @@ cudaError_t launch(const CUtensorMap& w1, const CUtensorMap& w2t, const CUtensor
                    const T* x, const T* g, const float* ln_w, const float* ln_b,
                    const float* b1, T* dx, __nv_bfloat16* ln_t, __nv_bfloat16* do_t,
                    __nv_bfloat16* a_t, __nv_bfloat16* dh_t, float* vpart, float* db1_part, int M,
-                   int hidden, int ld, int splits, float eps, philox::Drop d1, philox::Drop d2,
-                   cudaStream_t stream) {
+                   int hidden, int ld, int splits, float eps, int act, philox::Drop d1,
+                   philox::Drop d2, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(ffn_bwd_kernel<C, Full, Drop, T>,
@@ -940,7 +1041,7 @@ cudaError_t launch(const CUtensorMap& w1, const CUtensorMap& w2t, const CUtensor
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(&cfg, ffn_bwd_kernel<C, Full, Drop, T>, w1, w2t, w1t, x, g,
                                        ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t, vpart, db1_part,
-                                       M, hidden, ld, eps, d1, d2);
+                                       M, hidden, ld, eps, act, d1, d2);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -952,11 +1053,12 @@ cudaError_t backward(const void* w1_map, const void* w2t_map, const void* w1t_ma
                      const T* g, const float* ln_w, const float* ln_b, const float* b1,
                      T* dx, __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* a_t,
                      __nv_bfloat16* dh_t, float* vpart, float* db1_part, int M, int C, int hidden,
-                     int ld, int splits, float eps, philox::Drop d1, philox::Drop d2,
+                     int ld, int splits, float eps, int act, philox::Drop d1, philox::Drop d2,
                      cudaStream_t stream) {
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   if (M < 1 || hidden < kHC || hidden % kHC || splits < 1 || splits > kMaxSplits ||
-      (splits & (splits - 1)) || splits > hidden / kHC || !aligned(x) || !aligned(g) ||
+      (splits & (splits - 1)) || splits > hidden / kHC || act < kGelu || act > kSilu ||
+      !aligned(x) || !aligned(g) ||
       !aligned(ln_w) || !aligned(ln_b) || !aligned(b1) || !aligned(dx) ||
       (Full && (ld % 64 || ld < (M + kBM - 1) / kBM * kBM || !aligned(ln_t) || !aligned(do_t) ||
                 !aligned(a_t) || !aligned(dh_t))))
@@ -968,13 +1070,16 @@ cudaError_t backward(const void* w1_map, const void* w2t_map, const void* w1t_ma
   switch (C) {
     case 128:
       return launch<128, Full, Drop, T>(w1, w2t, w1t, x, g, ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t,
-                                     vpart, db1_part, M, hidden, ld, splits, eps, d1, d2, stream);
+                                     vpart, db1_part, M, hidden, ld, splits, eps, act, d1, d2,
+                                     stream);
     case 256:
       return launch<256, Full, Drop, T>(w1, w2t, w1t, x, g, ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t,
-                                     vpart, db1_part, M, hidden, ld, splits, eps, d1, d2, stream);
+                                     vpart, db1_part, M, hidden, ld, splits, eps, act, d1, d2,
+                                     stream);
     case 512:
       return launch<512, Full, Drop, T>(w1, w2t, w1t, x, g, ln_w, ln_b, b1, dx, ln_t, do_t, a_t, dh_t,
-                                     vpart, db1_part, M, hidden, ld, splits, eps, d1, d2, stream);
+                                     vpart, db1_part, M, hidden, ld, splits, eps, act, d1, d2,
+                                     stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -987,11 +1092,11 @@ cudaError_t full(const void* w1_map, const void* w2t_map, const void* w1t_map, c
                  __nv_bfloat16* ln_t, __nv_bfloat16* do_t, __nv_bfloat16* a_t,
                  __nv_bfloat16* dh_t, float* vpart, float* db1_part, float* dx, float* dw1,
                  float* db1, float* dw2, float* vec, int M, int C, int hidden, int ld, int splits,
-                 int wsplit1, int wsplit2, float eps, philox::Drop d1, philox::Drop d2,
+                 int wsplit1, int wsplit2, float eps, int act, philox::Drop d1, philox::Drop d2,
                  cudaStream_t stream) {
   cudaError_t err = backward<true, Drop, float>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1,
                                                 dx, ln_t, do_t, a_t, dh_t, vpart, db1_part, M, C,
-                                                hidden, ld, splits, eps, d1, d2, stream);
+                                                hidden, ld, splits, eps, act, d1, d2, stream);
   if (err != cudaSuccess) return err;
   const int tiles = (M + kBM - 1) / kBM;
   err = gradk::sum_partials(vpart, vec, (size_t)3 * C, tiles * splits, stream);
@@ -1007,6 +1112,10 @@ cudaError_t full(const void* w1_map, const void* w2t_map, const void* w1t_map, c
 
 }  // namespace
 
+// Every entry point takes the activation `act` after eps: 0 exact-erf GELU,
+// 1 ReLU, 2 leaky ReLU (0.1), 3 SiLU (enum Act); any other value is refused
+// with cudaErrorInvalidValue.
+//
 // x, out (M, C) f32; w1_map / w2_map the tensor maps of the bf16 copies of
 // w1 (hidden, C) and w2 (C, hidden) (bf16_matrix_map, boxes of 64 and
 // min(C, 256) rows); the cluster's `splits` of the hidden / 64 chunks.  One
@@ -1014,9 +1123,9 @@ cudaError_t full(const void* w1_map, const void* w2t_map, const void* w1t_map, c
 extern "C" int ffn_forward(const float* x, const float* ln_w, const float* ln_b,
                            const void* w1_map, const float* b1, const void* w2_map,
                            const float* b2, float* out, int M, int C, int hidden, int splits,
-                           float eps, cudaStream_t stream) {
+                           float eps, int act, cudaStream_t stream) {
   return fwd::forward<false>(x, ln_w, ln_b, w1_map, b1, w2_map, b2, out, M, C, hidden, splits, eps,
-                             philox::Drop{}, philox::Drop{}, stream);
+                             act, philox::Drop{}, philox::Drop{}, stream);
 }
 
 // The bf16 form of ffn_forward: x and out (M, C) bf16 (the residual added in
@@ -1024,9 +1133,9 @@ extern "C" int ffn_forward(const float* x, const float* ln_w, const float* ln_b,
 extern "C" int ffn_forward_bf16(const __nv_bfloat16* x, const float* ln_w, const float* ln_b,
                                 const void* w1_map, const float* b1, const void* w2_map,
                                 const float* b2, __nv_bfloat16* out, int M, int C, int hidden,
-                                int splits, float eps, cudaStream_t stream) {
+                                int splits, float eps, int act, cudaStream_t stream) {
   return fwd::forward<false>(x, ln_w, ln_b, w1_map, b1, w2_map, b2, out, M, C, hidden, splits, eps,
-                             philox::Drop{}, philox::Drop{}, stream);
+                             act, philox::Drop{}, philox::Drop{}, stream);
 }
 
 // dx of the fused FFN for the output cotangent g; w1_map, w2t_map, w1t_map
@@ -1036,10 +1145,10 @@ extern "C" int ffn_forward_bf16(const __nv_bfloat16* x, const float* ln_w, const
 extern "C" int ffn_bwd_dx(const float* x, const float* g, const float* ln_w, const float* ln_b,
                           const void* w1_map, const float* b1, const void* w2t_map,
                           const void* w1t_map, float* dx, int M, int C, int hidden, int splits,
-                          float eps, cudaStream_t stream) {
+                          float eps, int act, cudaStream_t stream) {
   return (int)bwd::backward<false, false>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1, dx,
                                           nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M,
-                                          C, hidden, 0, splits, eps, philox::Drop{},
+                                          C, hidden, 0, splits, eps, act, philox::Drop{},
                                           philox::Drop{}, stream);
 }
 
@@ -1047,10 +1156,11 @@ extern "C" int ffn_bwd_dx(const float* x, const float* g, const float* ln_w, con
 extern "C" int ffn_bwd_dx_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g, const float* ln_w,
                                const float* ln_b, const void* w1_map, const float* b1,
                                const void* w2t_map, const void* w1t_map, __nv_bfloat16* dx, int M,
-                               int C, int hidden, int splits, float eps, cudaStream_t stream) {
+                               int C, int hidden, int splits, float eps, int act,
+                               cudaStream_t stream) {
   return (int)bwd::backward<false, false>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1, dx,
                                           nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M,
-                                          C, hidden, 0, splits, eps, philox::Drop{},
+                                          C, hidden, 0, splits, eps, act, philox::Drop{},
                                           philox::Drop{}, stream);
 }
 
@@ -1067,10 +1177,10 @@ extern "C" int ffn_bwd_full(const float* x, const float* g, const float* ln_w,
                             __nv_bfloat16* do_t, __nv_bfloat16* a_t, __nv_bfloat16* dh_t,
                             float* vpart, float* db1_part, float* dx, float* dw1, float* db1,
                             float* dw2, float* vec, int M, int C, int hidden, int ld, int splits,
-                            int wsplit1, int wsplit2, float eps, cudaStream_t stream) {
+                            int wsplit1, int wsplit2, float eps, int act, cudaStream_t stream) {
   return (int)bwd::full<false>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1, ln_t, do_t, a_t,
                                dh_t, vpart, db1_part, dx, dw1, db1, dw2, vec, M, C, hidden, ld,
-                               splits, wsplit1, wsplit2, eps, philox::Drop{}, philox::Drop{},
+                               splits, wsplit1, wsplit2, eps, act, philox::Drop{}, philox::Drop{},
                                stream);
 }
 
@@ -1081,15 +1191,15 @@ extern "C" int ffn_bwd_full(const float* x, const float* g, const float* ln_w,
 extern "C" int ffn_dropout_forward(const float* x, const float* ln_w, const float* ln_b,
                                    const void* w1_map, const float* b1, const void* w2_map,
                                    const float* b2, float* out, int M, int C, int hidden,
-                                   int splits, float eps, unsigned seed_lo, unsigned seed_hi,
-                                   unsigned site, unsigned thr_act, float keep_act,
-                                   unsigned thr_out, float keep_out,
+                                   int splits, float eps, int act, unsigned seed_lo,
+                                   unsigned seed_hi, unsigned site, unsigned thr_act,
+                                   float keep_act, unsigned thr_out, float keep_out,
                                    unsigned long long base_act, unsigned long long base_out,
                                    cudaStream_t stream) {
   const philox::Drop d1{seed_lo, seed_hi, site, 0u, thr_act, keep_act, base_act >> 2};
   const philox::Drop d2{seed_lo, seed_hi, site, 1u, thr_out, keep_out, base_out >> 2};
   return fwd::forward<true>(x, ln_w, ln_b, w1_map, b1, w2_map, b2, out, M, C, hidden, splits, eps,
-                            d1, d2, stream);
+                            act, d1, d2, stream);
 }
 
 // Every gradient of ffn_dropout_forward for the output cotangent g, the masks
@@ -1102,13 +1212,13 @@ extern "C" int ffn_dropout_bwd_full(const float* x, const float* g, const float*
                                     __nv_bfloat16* dh_t, float* vpart, float* db1_part, float* dx,
                                     float* dw1, float* db1, float* dw2, float* vec, int M, int C,
                                     int hidden, int ld, int splits, int wsplit1, int wsplit2,
-                                    float eps, unsigned seed_lo, unsigned seed_hi, unsigned site,
-                                    unsigned thr_act, float keep_act, unsigned thr_out,
-                                    float keep_out, unsigned long long base_act,
+                                    float eps, int act, unsigned seed_lo, unsigned seed_hi,
+                                    unsigned site, unsigned thr_act, float keep_act,
+                                    unsigned thr_out, float keep_out, unsigned long long base_act,
                                     unsigned long long base_out, cudaStream_t stream) {
   const philox::Drop d1{seed_lo, seed_hi, site, 0u, thr_act, keep_act, base_act >> 2};
   const philox::Drop d2{seed_lo, seed_hi, site, 1u, thr_out, keep_out, base_out >> 2};
   return (int)bwd::full<true>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1, ln_t, do_t, a_t,
                               dh_t, vpart, db1_part, dx, dw1, db1, dw2, vec, M, C, hidden, ld,
-                              splits, wsplit1, wsplit2, eps, d1, d2, stream);
+                              splits, wsplit1, wsplit2, eps, act, d1, d2, stream);
 }

@@ -29,7 +29,8 @@ update through ``.data`` bypasses the version counter and is not seen, as
 in ``ops/weights.py``.
 
 The kernels' ``.launches`` counters (and ``.bf16_launches``, their bf16
-forms') tick in Python, once per wrapper call; a capture would count one
+forms', and the FFN kernels' ``.relu_launches`` / ``.leaky_launches`` /
+``.silu_launches``) tick in Python, once per wrapper call; a capture would count one
 step however often it is replayed.  So the counts a capture adds are taken
 back and kept as the graph's launches per replay, and each replay adds them
 again: the counters still count the kernels' launches on the card.
@@ -66,7 +67,7 @@ class StepBuffers:
     noise2_all: Optional[torch.Tensor] = None
 
 
-COUNTERS = ("launches", "bf16_launches")
+COUNTERS = ("launches", "bf16_launches", "relu_launches", "leaky_launches", "silu_launches")
 
 
 def launch_counters() -> List[Callable]:
@@ -111,8 +112,10 @@ class StepGraphs:
 
     def launches_per_replay(self) -> Dict[Hashable, Dict[str, int]]:
         """Per step kind, each wrapper's launches a replay adds (its bf16
-        form's under ``<name>.bf16``)."""
-        return {kind: {fn.__name__ + ("" if attr == "launches" else ".bf16"): n
+        form's under ``<name>.bf16``, an FFN activation's under
+        ``<name>.<activation>``)."""
+        return {kind: {fn.__name__ + ("" if attr == "launches"
+                                      else "." + attr[:-len("_launches")]): n
                        for fn, attr, n in deltas}
                 for kind, (_, deltas) in self.graphs.items()}
 

@@ -88,6 +88,10 @@ class KnowledgeAlignment:
         return net(zt.to(torch.promote_types(zt.dtype, param_dtype(net))), t)
 
     def _sq_error(self, zt, t, avg_x_gt, zc=None, y=None, net=None) -> torch.Tensor:
+        """The JAX package's ``_sq_error``: the readout's mean over axis 1
+        against the target.  A per-frame readout (B, T, C) gives (B, C); a
+        pooled one (``readout_seq=False``, (B, C)) gives (B,), which
+        broadcasts against the (B, 1) target to (B, B), as it does there."""
         pred = self.predict(zt, t, zc=zc, y=y, net=net).float().mean(dim=1)   # (B, 1)
         return (pred - avg_x_gt.float()).square().sum()
 

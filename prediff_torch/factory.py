@@ -29,23 +29,39 @@ def _check_pattern(pattern) -> None:
                          f"({sorted(CuboidSelfAttentionPatterns)})")
 
 
-# The values of the configuration knobs the port builds; any other value
-# raises (the variants are ROADMAP.md queue 1, "The model variants the JAX
-# package builds from config").  The init modes are those init_params_ follows.
-_INIT_MODES = dict(attn_linear_init_mode="0", ffn_linear_init_mode="0",
-                   ffn2_linear_init_mode="2", attn_proj_linear_init_mode="2", conv_init_mode="0",
-                   global_proj_linear_init_mode="2", norm_init_mode="0")
-_PORTED = dict(pos_embed_type="t+h+w", use_relative_pos=True, self_attn_use_final_proj=True,
-               downsample_type="patch_merge", **_INIT_MODES)
-UNET_PORTED = dict(_PORTED, upsample_type="upsample", down_up_linear_init_mode="0")
-ALIGN_PORTED = dict(_PORTED, down_linear_init_mode="0")
+# The knobs the JAX models assert to one value (``prediff_tpu/models/unet.py``
+# and ``alignment.py`` refuse any other at their first call); the port
+# refuses any other at build time.
+UNET_ASSERTED = dict(downsample_type="patch_merge", upsample_type="upsample")
+ALIGN_ASSERTED = dict(downsample_type="patch_merge", pool="attention")
 
 
-def _check_ported(section, ported, what: str) -> None:
-    for key, want in ported.items():
+def _check_asserted(section, asserted, what: str) -> None:
+    for key, want in asserted.items():
         got = section.get(key, want)
         if got != want:
-            raise NotImplementedError(f"{what}: {key}={got!r} is not ported (only {want!r})")
+            raise NotImplementedError(f"{what}: {key}={got!r}: only {want!r} is built, in "
+                                      "the JAX package too (its model asserts it)")
+
+
+def _variants(section) -> dict:
+    """The model variants both networks build from their section, read
+    where the JAX factory reads them (``prediff_tpu/factory.py``); the init
+    modes with the JAX factory's defaults.  ``norm_init_mode`` is read and
+    used by neither package."""
+    s = section
+    return dict(
+        ffn_activation=s.ffn_activation, gated_ffn=s.gated_ffn, pos_embed_type=s.pos_embed_type,
+        use_relative_pos=s.use_relative_pos, self_attn_use_final_proj=s.self_attn_use_final_proj,
+        num_global_vectors=s.num_global_vectors, use_global_vector_ffn=s.use_global_vector_ffn,
+        use_global_self_attn=s.use_global_self_attn, separate_global_qkv=s.separate_global_qkv,
+        global_dim_ratio=s.global_dim_ratio,
+        time_embed_use_scale_shift_norm=s.time_embed_use_scale_shift_norm,
+        attn_linear_init_mode=s.get("attn_linear_init_mode", "0"),
+        ffn_linear_init_mode=s.get("ffn_linear_init_mode", "0"),
+        ffn2_linear_init_mode=s.get("ffn2_linear_init_mode", "2"),
+        attn_proj_linear_init_mode=s.get("attn_proj_linear_init_mode", "2"),
+        global_proj_linear_init_mode=s.get("global_proj_linear_init_mode", "2"))
 
 
 def _conv_route(section, what: str) -> bool:
@@ -95,14 +111,10 @@ def _attention_kernels(section, what: str) -> str:
 
 def build_unet(cfg: ConfigDict) -> CuboidTransformerUNet:
     m = cfg.model.latent_model
-    if m.num_global_vectors:
-        raise NotImplementedError("global vectors are not ported yet")
     _check_pattern(m.self_pattern)
-    _check_ported(m, UNET_PORTED, "UNet")
+    _check_asserted(m, UNET_ASSERTED, "UNet")
     # read for the check: the UNet's time blocks run unfused whatever it says
     _kernel_switch(m, "use_pallas_resblock", "UNet")
-    if m.ffn_activation != "gelu" or m.gated_ffn or m.time_embed_use_scale_shift_norm:
-        raise NotImplementedError("only the v1 FFN (gelu, not gated) and time embedding are ported")
     if m.get("use_pallas_dropout", "auto") not in ("auto", True):
         # a TPU dispatch switch: here dropout always runs inside the kernels
         raise NotImplementedError(f"use_pallas_dropout={m.use_pallas_dropout!r} is not ported "
@@ -120,6 +132,10 @@ def build_unet(cfg: ConfigDict) -> CuboidTransformerUNet:
         attention_kernels=_attention_kernels(m, "UNet"),
         ffn_kernel=_kernel_switch(m, "use_pallas_ffn", "UNet"),
         gn_kernel=_kernel_switch(m, "use_pallas_gn", "UNet"),
+        # the JAX build_unet passes down_up_linear_init_mode as the down (and the
+        # unread up) mode, and neither hierarchical_pos_embed nor use_inter_ffn
+        down_linear_init_mode=m.get("down_up_linear_init_mode", "0"),
+        conv_init_mode=m.get("conv_init_mode", "0"), **_variants(m),
     )
 
 
@@ -134,15 +150,9 @@ def build_vae(cfg: ConfigDict) -> AutoencoderKL:
 
 def build_alignment_model(cfg: ConfigDict) -> NoisyCuboidTransformerEncoder:
     a = cfg.model.align.model_args
-    if a.num_global_vectors or a.hierarchical_pos_embed or not a.use_inter_ffn:
-        raise NotImplementedError("only the v1 alignment net (no global vectors, no "
-                                  "hierarchical position embedding, inter FFNs) is ported")
-    if a.pool != "attention" or not a.readout_seq:
-        raise NotImplementedError(f"pool '{a.pool}' / readout_seq {a.readout_seq}")
     _check_pattern(a.block_attn_patterns)
-    _check_ported(a, ALIGN_PORTED, "alignment net")
-    if a.ffn_activation != "gelu" or a.gated_ffn or a.time_embed_use_scale_shift_norm:
-        raise NotImplementedError("only the v1 FFN (gelu, not gated) and time embedding are ported")
+    _check_asserted(a, ALIGN_ASSERTED, "alignment net")
+    # conv_init_mode: declared by the JAX net and read by none of its layers
     return NoisyCuboidTransformerEncoder(
         input_shape=tuple(a.input_shape), out_channels=a.out_channels, base_units=a.base_units,
         scale_alpha=a.scale_alpha, depth=list(a.depth), downsample=a.downsample,
@@ -155,6 +165,9 @@ def build_alignment_model(cfg: ConfigDict) -> NoisyCuboidTransformerEncoder:
         ffn_kernel=_kernel_switch(a, "use_pallas_ffn", "alignment net"),
         gn_kernel=_kernel_switch(a, "use_pallas_gn", "alignment net"),
         resblock_kernel=_kernel_switch(a, "use_pallas_resblock", "alignment net"),
+        use_inter_ffn=a.use_inter_ffn, hierarchical_pos_embed=a.hierarchical_pos_embed,
+        readout_seq=a.readout_seq, down_linear_init_mode=a.get("down_linear_init_mode", "0"),
+        **_variants(a),
     )
 
 

@@ -1,7 +1,10 @@
 """Cuboid self-attention patterns: a mem shape (T, H, W, C) -> per-layer
 (cuboid_size, strategy, shift_size) lists, under the names Earthformer's
-``cuboid_transformer_patterns.py`` registers.  The cross-attention patterns
-have no user in the port (ROADMAP.md)."""
+``cuboid_transformer_patterns.py`` registers, and the cross-attention
+patterns (:data:`CuboidCrossAttentionPatterns`: a memory shape -> per-layer
+(cuboid_hw, shift_hw, strategy, n_temporal)), which no model of either
+package uses: they are here so that the public registries match the JAX
+package's."""
 import functools
 
 
@@ -75,6 +78,35 @@ for _m in (1, 2, 4, 8, 16, 32):
 for _k in (2, 4, 8):
     CuboidSelfAttentionPatterns[f"axial_space_dilate_{_k}"] = functools.partial(
         self_axial_space_dilate_K, K=_k)
+
+
+def cross_KxK(mem_shape, K):
+    T_mem, H, W, _ = mem_shape
+    K = min(K, H, W)
+    return [(K, K)], [(0, 0)], [("l", "l", "l")], [1]
+
+
+def cross_KxK_lg(mem_shape, K):
+    T_mem, H, W, _ = mem_shape
+    K = min(K, H, W)
+    return [(K, K), (K, K)], [(0, 0), (0, 0)], [("l", "l", "l"), ("d", "d", "d")], [1, 1]
+
+
+def cross_KxK_heter(mem_shape, K):
+    T_mem, H, W, _ = mem_shape
+    K = min(K, H, W)
+    cuboid_hw = [(K, K)] * 3
+    shift_hw = [(0, 0), (0, 0), (K // 2, K // 2)]
+    strategy = [("l", "l", "l"), ("d", "d", "d"), ("l", "l", "l")]
+    return cuboid_hw, shift_hw, strategy, [1, 1, 1]
+
+
+CuboidCrossAttentionPatterns = {}
+for _k in (1, 2, 4, 8):
+    CuboidCrossAttentionPatterns[f"cross_{_k}x{_k}"] = functools.partial(cross_KxK, K=_k)
+    CuboidCrossAttentionPatterns[f"cross_{_k}x{_k}_lg"] = functools.partial(cross_KxK_lg, K=_k)
+    CuboidCrossAttentionPatterns[f"cross_{_k}x{_k}_heter"] = functools.partial(cross_KxK_heter,
+                                                                              K=_k)
 
 
 def block_patterns(names, num_blocks: int):

@@ -4,8 +4,16 @@ Input: noisy latent x (B, T_out, H, W, C) and conditioning latent
 (B, T_in, H, W, C), concatenated along T with a 0/1 observation-indicator
 channel; output: the prediction over the last T_out frames.  NTHWC end to
 end.  Each stage's time block is one module called ``depth`` times, as in
-the JAX package, so those weights are shared the same way.  Global vectors
-are not ported yet.  ``use_pallas_conv`` sends the 3x3x3 convs of
+the JAX package, so those weights are shared the same way.  The variants the
+JAX UNet builds from its configuration are the layers' (``ffn_activation``,
+``gated_ffn``, ``use_inter_ffn``, ``pos_embed_type``, ``use_relative_pos``,
+``self_attn_use_final_proj``, ``time_embed_use_scale_shift_norm``, the init
+modes) and global vectors: ``num_global_vectors`` vectors of width
+``global_dim_ratio * base_units`` (``init_global_vectors``, broadcast over
+the batch) threaded through every block, projected to each stage's width by
+``down_layer_global_proj`` / ``up_layer_global_proj``; and
+``hierarchical_pos_embed``, a position embedding after each patch merge and
+upsample.  ``use_pallas_conv`` sends the 3x3x3 convs of
 ``first_proj`` and the time blocks to the bf16 conv kernel where the JAX
 package's routing rule admits the call (``TimeEmbedResBlock``).
 
@@ -35,6 +43,7 @@ from torch import nn
 
 from ..ops.dropout import DropoutStream
 from .cuboid_attention import StackCuboidSelfAttentionBlock
+from .init import with_init
 from .layers import (PatchMerging3D, PosEmbed, TimeEmbedLayer, TimeEmbedResBlock,
                      Upsample3DLayer, timestep_embedding)
 from .patterns import block_patterns
@@ -77,7 +86,16 @@ class CuboidTransformerUNet(nn.Module):
                  attn_drop: float = 0.0, proj_drop: float = 0.0, ffn_drop: float = 0.0,
                  time_embed_dropout: float = 0.0, use_pallas_conv: bool = False,
                  attention_kernels: str = "layer", ffn_kernel: bool = True,
-                 gn_kernel: bool = True):
+                 gn_kernel: bool = True, ffn_activation: str = "gelu", gated_ffn: bool = False,
+                 use_inter_ffn: bool = True, hierarchical_pos_embed: bool = False,
+                 pos_embed_type: str = "t+h+w", use_relative_pos: bool = True,
+                 self_attn_use_final_proj: bool = True, num_global_vectors: int = 0,
+                 use_global_vector_ffn: bool = True, use_global_self_attn: bool = False,
+                 separate_global_qkv: bool = False, global_dim_ratio: int = 1,
+                 time_embed_use_scale_shift_norm: bool = False, attn_linear_init_mode: str = "0",
+                 ffn_linear_init_mode: str = "0", ffn2_linear_init_mode: str = "2",
+                 attn_proj_linear_init_mode: str = "2", conv_init_mode: str = "0",
+                 down_linear_init_mode: str = "0", global_proj_linear_init_mode: str = "2"):
         super().__init__()
         self.dropout_rates = dict(attn_drop=attn_drop, proj_drop=proj_drop, ffn_drop=ffn_drop,
                                   time_embed_dropout=time_embed_dropout)
@@ -103,33 +121,65 @@ class CuboidTransformerUNet(nn.Module):
         self.first_proj = TimeEmbedResBlock(self.data_shape[-1], base_units, use_embed=False,
                                             dropout=proj_drop, conv_kernel=use_pallas_conv,
                                             gn_kernel=gn_kernel)
-        self.pos_embed = PosEmbed(base_units, *self.data_shape[:3])
+        self.num_global_vectors = num_global_vectors
+        gdims = [global_dim_ratio * u for u in self.block_units]
+        if num_global_vectors:
+            self.init_global_vectors = nn.Parameter(torch.zeros(num_global_vectors, gdims[0]))
+        self.pos_embed = PosEmbed(base_units, *self.data_shape[:3], typ=pos_embed_type)
         self.time_embed = TimeEmbedLayer(self.block_units[0], tec)
+        self.hierarchical_pos_embed = hierarchical_pos_embed
 
         def stack(i):
             cuboid_size, strategy, shift_size = patterns[i](mem_shapes[i])
-            return StackCuboidSelfAttentionBlock(mem_shapes[i][-1], num_heads, cuboid_size,
-                                                 shift_size, strategy, attn_drop, proj_drop,
-                                                 ffn_drop, padding_type, attention_kernels,
-                                                 ffn_kernel)
+            return StackCuboidSelfAttentionBlock(
+                mem_shapes[i][-1], num_heads, cuboid_size, shift_size, strategy, attn_drop,
+                proj_drop, ffn_drop, padding_type, attention_kernels, ffn_kernel,
+                activation=ffn_activation, gated_ffn=gated_ffn, use_inter_ffn=use_inter_ffn,
+                use_global_vector=num_global_vectors > 0,
+                use_global_vector_ffn=use_global_vector_ffn,
+                use_global_self_attn=use_global_self_attn,
+                separate_global_qkv=separate_global_qkv, global_dim_ratio=global_dim_ratio,
+                use_relative_pos=use_relative_pos, use_final_proj=self_attn_use_final_proj,
+                attn_linear_init_mode=attn_linear_init_mode,
+                ffn_linear_init_mode=ffn_linear_init_mode,
+                ffn2_linear_init_mode=ffn2_linear_init_mode,
+                attn_proj_linear_init_mode=attn_proj_linear_init_mode)
 
         def time_block(i):
             return TimeEmbedResBlock(mem_shapes[i][-1], mem_shapes[i][-1], emb_channels=tec,
                                      dropout=time_embed_dropout, conv_kernel=use_pallas_conv,
-                                     gn_kernel=gn_kernel)
+                                     gn_kernel=gn_kernel,
+                                     use_scale_shift_norm=time_embed_use_scale_shift_norm)
+
 
         self.down_time_embed_blocks = nn.ModuleList(time_block(i) for i in range(self.num_blocks))
         self.down_self_blocks = nn.ModuleList(
             nn.ModuleList(stack(i) for _ in range(self.depth[i])) for i in range(self.num_blocks))
         self.downsample_layers = nn.ModuleList(
-            PatchMerging3D(mem_shapes[i][-1], self.block_units[i + 1], downsample, padding_type)
+            PatchMerging3D(mem_shapes[i][-1], self.block_units[i + 1], downsample, padding_type,
+                           down_linear_init_mode)
             for i in range(self.num_blocks - 1))
+        stages = range(1, self.num_blocks)
+        if hierarchical_pos_embed:   # after the merge into stage i, after the upsample into i - 1
+            self.down_hierarchical_pos_embed_l = nn.ModuleList(
+                PosEmbed(self.block_units[i], *mem_shapes[i][:3], typ=pos_embed_type)
+                for i in stages)
+            self.up_hierarchical_pos_embed_l = nn.ModuleList(
+                PosEmbed(self.block_units[i - 1], *mem_shapes[i - 1][:3], typ=pos_embed_type)
+                for i in stages)
+        if num_global_vectors:   # the global vectors into stage i, and back into i - 1
+            self.down_layer_global_proj = nn.ModuleList(
+                with_init(nn.Linear(gdims[i - 1], gdims[i]), global_proj_linear_init_mode)
+                for i in stages)
+            self.up_layer_global_proj = nn.ModuleList(
+                with_init(nn.Linear(gdims[i], gdims[i - 1]), global_proj_linear_init_mode)
+                for i in stages)
         self.up_time_embed_blocks = nn.ModuleList(time_block(i) for i in range(self.num_blocks))
         self.up_self_blocks = nn.ModuleList(
             nn.ModuleList(stack(i) for _ in range(self.depth[i])) for i in range(self.num_blocks))
         self.upsample_layers = nn.ModuleList(
             Upsample3DLayer(mem_shapes[i + 1][-1], mem_shapes[i][-1], mem_shapes[i][:3],
-                            upsample_kernel_size)
+                            upsample_kernel_size, conv_init_mode)
             for i in range(self.num_blocks - 1))
         self.final_proj = nn.Linear(base_units, C_out)
 
@@ -151,24 +201,40 @@ class CuboidTransformerUNet(nn.Module):
         obs = torch.zeros_like(x[..., :1])
         obs[:, :self.T_in] = 1.0
         x = self.first_proj(torch.cat([x, obs], dim=-1), drop=drop)
+        gv = None
+        if self.num_global_vectors:
+            gv = self.init_global_vectors[None].expand(x.shape[0], -1, -1)
         x = self.pos_embed(x)
         t_emb = self.time_embed(timestep_embedding(t, self.block_units[0]).to(x.dtype))
+
+        def blocks(time_block, self_blocks, x, gv):
+            for j, block in enumerate(self_blocks):
+                x = time_block(x, t_emb, drop)
+                if gv is None:
+                    x = block(x, drop)
+                else:
+                    x, gv = block(x, drop, gv)
+            return x, gv
 
         res_connect = []
         for i in range(self.num_blocks):
             if i > 0:
                 x = self.downsample_layers[i - 1](x)
-            for j in range(self.depth[i]):
-                x = self.down_time_embed_blocks[i](x, t_emb, drop)
-                x = self.down_self_blocks[i][j](x, drop)
+                if self.hierarchical_pos_embed:
+                    x = self.down_hierarchical_pos_embed_l[i - 1](x)
+                if gv is not None:
+                    gv = self.down_layer_global_proj[i - 1](gv)
+            x, gv = blocks(self.down_time_embed_blocks[i], self.down_self_blocks[i], x, gv)
             if self.unet_res_connect and i < self.num_blocks - 1:
                 res_connect.append(x)
         for i in range(self.num_blocks - 1, -1, -1):
             if self.unet_res_connect and i < self.num_blocks - 1:
                 x = x + res_connect[i]
-            for j in range(self.depth[i]):
-                x = self.up_time_embed_blocks[i](x, t_emb, drop)
-                x = self.up_self_blocks[i][j](x, drop)
+            x, gv = blocks(self.up_time_embed_blocks[i], self.up_self_blocks[i], x, gv)
             if i > 0:
                 x = self.upsample_layers[i - 1](x)
+                if self.hierarchical_pos_embed:
+                    x = self.up_hierarchical_pos_embed_l[i - 1](x)
+                if gv is not None:
+                    gv = self.up_layer_global_proj[i - 1](gv)
         return self.final_proj(x[:, self.T_in:])

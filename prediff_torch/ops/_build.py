@@ -188,12 +188,16 @@ def io_form(kernel: str, x: torch.Tensor) -> str:
     raise ValueError(f"{kernel} kernel: takes float32 or bfloat16 activations, got {x.dtype}")
 
 
-def count(wrapper, form: str) -> None:
+def count(wrapper, form: str, activation: str = "gelu") -> None:
     """One launch of ``wrapper``'s kernel: ``.launches`` counts every form,
-    ``.bf16_launches`` the bf16 form's."""
+    ``.bf16_launches`` the bf16 form's, ``.<activation>_launches`` the FFN
+    kernels' launches on an activation other than GELU."""
     wrapper.launches += 1
     if form:
         wrapper.bf16_launches += 1
+    if activation != "gelu":
+        name = f"{activation}_launches"
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def plain_grads(fn, inputs, needs, g):

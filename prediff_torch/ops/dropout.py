@@ -14,7 +14,9 @@ mask to the tiling.  Here a mask is a pure function of logical coordinates:
 ``element`` is the row-major index in the logical tensor of the whole
 batch, ``tensor`` numbers the masks of one module call (0: the FFN's hidden
 activation or the attention weights, 1: the module's output) and ``site``
-numbers the module calls of one forward.  On several ranks a rank holds rows
+numbers the module calls of one forward (a cuboid layer with global vectors
+takes two: its local weights and output, then the global vectors' weights and
+projected output).  On several ranks a rank holds rows
 ``first_row ..`` of the batch, and every mask tensor has the batch as its
 leading factor, so the rank's local element ``e`` is the element ``base + e``
 with ``base = first_row * (elements per batch row)``: the ``base`` of

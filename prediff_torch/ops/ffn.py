@@ -1,4 +1,13 @@
-"""Fused pre-norm FFN: ``x + W2 . gelu_erf(W1 . LN(x) + b1) + b2`` on (tokens, C).
+"""Fused pre-norm FFN: ``x + W2 . act(W1 . LN(x) + b1) + b2`` on (tokens, C).
+
+``act`` is the TPU kernels' ``activation`` argument (``pallas_ffn.py``
+``SUPPORTED_ACTIVATIONS``): ``"gelu"`` (exact erf, the default), ``"relu"``,
+``"leaky"`` (slope 0.1) or ``"silu"`` (:data:`ACTIVATIONS`, one table,
+:func:`activation` / :func:`activation_grad`, for every plain version).  Every
+wrapper takes it as ``activation=`` and hands the kernel its index; any other
+name raises ``ValueError``.  Each wrapper's ``launches`` counts every
+activation, ``<act>_launches`` the relu / leaky / silu ones.  Below, gelu
+stands for the activation.
 
 The kernel (``csrc/ffn.cu``) replaces ``prediff_tpu/ops/pallas_ffn.py::fused_ffn``:
 the hidden activation never leaves the chip, matrix products take bf16
@@ -36,13 +45,13 @@ from . import _build, weights, wgrad
 from .dropout import apply_mask, resolve_masks
 
 _P, _I, _F, _DROP = _build.P, _build.I, _build.F, _build.DROP_ARGTYPES
-_SIGNATURES = {"ffn_forward": [_P] * 8 + [_I] * 4 + [_F, _P],
-               "ffn_bwd_dx": [_P] * 9 + [_I] * 4 + [_F, _P],
-               "ffn_bwd_full": [_P] * 19 + [_I] * 7 + [_F, _P],
-               "ffn_dropout_forward": [_P] * 8 + [_I] * 4 + [_F] + _DROP + [_P],
-               "ffn_dropout_bwd_full": [_P] * 19 + [_I] * 7 + [_F] + _DROP + [_P],
-               "ffn_forward_bf16": [_P] * 8 + [_I] * 4 + [_F, _P],
-               "ffn_bwd_dx_bf16": [_P] * 9 + [_I] * 4 + [_F, _P],
+_SIGNATURES = {"ffn_forward": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+               "ffn_bwd_dx": [_P] * 9 + [_I] * 4 + [_F, _I, _P],
+               "ffn_bwd_full": [_P] * 19 + [_I] * 7 + [_F, _I, _P],
+               "ffn_dropout_forward": [_P] * 8 + [_I] * 4 + [_F, _I] + _DROP + [_P],
+               "ffn_dropout_bwd_full": [_P] * 19 + [_I] * 7 + [_F, _I] + _DROP + [_P],
+               "ffn_forward_bf16": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+               "ffn_bwd_dx_bf16": [_P] * 9 + [_I] * 4 + [_F, _I, _P],
                **weights.MAP_SIGNATURE}
 KERNEL_WIDTHS = (128, 256, 512)
 _CHUNK = 64              # csrc/ffn.cu fwd::kHC, bwd::kHC: hidden units per chunk
@@ -228,13 +237,54 @@ def gelu_grad(h: torch.Tensor) -> torch.Tensor:
             + h * torch.exp(-0.5 * h * h) * (2.0 * torch.pi) ** -0.5)
 
 
+# the kernels' activations, in the order of csrc/ffn.cu's enum Act
+ACTIVATIONS = ("gelu", "relu", "leaky", "silu")
+
+
+def activation_index(name: str) -> int:
+    """The kernels' index of an activation; any name but :data:`ACTIVATIONS` raises."""
+    if name not in ACTIVATIONS:
+        raise ValueError(f"ffn kernel: activation {name!r} not supported ({ACTIVATIONS})")
+    return ACTIVATIONS.index(name)
+
+
+def activation(h: torch.Tensor, name: str = "gelu") -> torch.Tensor:
+    """act(h), the TPU kernels' ``_apply_activation``."""
+    activation_index(name)
+    if name == "gelu":
+        return torch.nn.functional.gelu(h)
+    if name == "relu":
+        return torch.clamp_min(h, 0.0)
+    if name == "leaky":
+        return torch.where(h >= 0.0, h, 0.1 * h)
+    return h * torch.sigmoid(h)
+
+
+def activation_grad(h: torch.Tensor, name: str = "gelu") -> torch.Tensor:
+    """act'(h), the TPU kernels' ``_apply_activation_grad``: at 0 relu' = 0,
+    leaky' = 1."""
+    activation_index(name)
+    if name == "gelu":
+        return gelu_grad(h)
+    if name == "relu":
+        return (h > 0.0).to(h.dtype)
+    if name == "leaky":
+        return torch.where(h >= 0.0, 1.0, 0.1).to(h.dtype)
+    s = torch.sigmoid(h)
+    return s * (1.0 + h * (1.0 - s))
+
+
+_act = activation   # the plain versions' ``activation`` argument shadows the function
+
+
 @_build.widened
 def ffn_dropout_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                       w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                       eps: float = 1e-5, rate_act: float = 0.0, rate_out: float = 0.0,
                       seed: Optional[int] = None, site: int = 0, masks=None,
-                      mxu_dtype: Optional[torch.dtype] = None, bases=(0, 0)) -> torch.Tensor:
-    """Plain PyTorch version with dropout on gelu(h) (``rate_act``) and on the
+                      mxu_dtype: Optional[torch.dtype] = None, bases=(0, 0),
+                      activation: str = "gelu") -> torch.Tensor:
+    """Plain PyTorch version with dropout on act(h) (``rate_act``) and on the
     output before the residual (``rate_out``).  The masks are those of
     ``(seed, site)`` from the element ``bases`` (``ops/dropout.py``), or the
     explicit ``masks = (m1 (tokens, hidden), m2 (tokens, C))`` of 0/1 values.  ``mxu_dtype=torch.bfloat16`` rounds the
@@ -246,22 +296,24 @@ def ffn_dropout_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     xf = x.float()
     ln = layer_norm_plain(xf, ln_w, ln_b, eps)
     h = _round(ln, mxu_dtype) @ _round(w1, mxu_dtype).T + b1
-    a = apply_mask(torch.nn.functional.gelu(h), m1, rate_act)
+    a = apply_mask(_act(h, activation), m1, rate_act)
     out = apply_mask(_round(a, mxu_dtype) @ _round(w2, mxu_dtype).T + b2, m2, rate_out)
     return (xf + out).to(x.dtype)
 
 
 def ffn_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
               b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
-              mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+              mxu_dtype: Optional[torch.dtype] = None, activation: str = "gelu") -> torch.Tensor:
     """Plain PyTorch version without dropout."""
-    return ffn_dropout_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, mxu_dtype=mxu_dtype)
+    return ffn_dropout_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, mxu_dtype=mxu_dtype,
+                             activation=activation)
 
 
 @_build.widened
 def ffn_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                      w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, eps: float = 1e-5,
-                     mxu_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                     mxu_dtype: Optional[torch.dtype] = None,
+                     activation: str = "gelu") -> torch.Tensor:
     """Plain dx of :func:`ffn_plain` for the cotangent ``g``, the TPU kernel's
     formulas; ``mxu_dtype`` rounds LN(x), g, the weights and dh as the
     kernel does."""
@@ -269,7 +321,7 @@ def ffn_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b:
     ln = layer_norm_plain(xf, ln_w, ln_b, eps)
     h = _round(ln, mxu_dtype) @ _round(w1, mxu_dtype).T + b1
     da = _round(gf, mxu_dtype) @ _round(w2, mxu_dtype)
-    dh = da * gelu_grad(h)
+    dh = da * activation_grad(h, activation)
     dln = _round(dh, mxu_dtype) @ _round(w1, mxu_dtype)
     return (gf + layer_norm_bwd_plain(xf, ln_w, dln, eps)).to(x.dtype)
 
@@ -280,7 +332,7 @@ def ffn_dropout_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Ten
                                w2: torch.Tensor, eps: float = 1e-5, rate_act: float = 0.0,
                                rate_out: float = 0.0, seed: Optional[int] = None, site: int = 0,
                                masks=None, mxu_dtype: Optional[torch.dtype] = None,
-                               bases=(0, 0)):
+                               bases=(0, 0), activation: str = "gelu"):
     """Plain (dx, dln_w, dln_b, dw1, db1, dw2, db2) of
     :func:`ffn_dropout_plain` for the cotangent ``g``, the TPU kernel's
     formulas: everything recomputed from x, the masks regenerated (or the
@@ -300,11 +352,11 @@ def ffn_dropout_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Ten
     dor = _round(do, mxu_dtype)
     h = ln @ _round(w1, mxu_dtype).T + b1
     da = dor @ _round(w2, mxu_dtype)
-    dz = apply_mask(da * gelu_grad(h), m1, rate_act)
+    dz = apply_mask(da * activation_grad(h, activation), m1, rate_act)
     dzr = _round(dz, mxu_dtype)
     dln = dzr @ _round(w1, mxu_dtype)
     dx = (gf + layer_norm_bwd_plain(xf, ln_w, dln, eps)).to(x.dtype)
-    dw2 = dor.T @ _round(apply_mask(torch.nn.functional.gelu(h), m1, rate_act), mxu_dtype)
+    dw2 = dor.T @ _round(apply_mask(_act(h, activation), m1, rate_act), mxu_dtype)
     dw1 = dzr.T @ ln
     return (dx, (dln * nhat).sum(dim=0), dln.sum(dim=0), dw1, dz.sum(dim=0), dw2,
             do.sum(dim=0))
@@ -312,9 +364,10 @@ def ffn_dropout_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Ten
 
 def ffn_bwd_full_plain(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                        w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, eps: float = 1e-5,
-                       mxu_dtype: Optional[torch.dtype] = None):
+                       mxu_dtype: Optional[torch.dtype] = None, activation: str = "gelu"):
     """Plain (dx, dln_w, dln_b, dw1, db1, dw2, db2) of :func:`ffn_plain`."""
-    return ffn_dropout_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, eps, mxu_dtype=mxu_dtype)
+    return ffn_dropout_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, eps, mxu_dtype=mxu_dtype,
+                                      activation=activation)
 
 
 def supports_shape(M: int, C: int, hidden: int) -> bool:
@@ -332,11 +385,12 @@ def _check_widths(M: int, C: int, hidden: int) -> None:
                          "(takes multiples of 64) not supported")
 
 
-def _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop=None):
+def _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop=None, activation="gelu"):
     """Launch the forward (one launch, no workspace) on the bf16 copies of
     w1 and w2 kept per parameter version; ``drop`` = (rate_act, rate_out,
     seed, site, bases) takes the dropout entry point.  x and out f32, or bf16 (the
     bf16 form, without dropout)."""
+    act = activation_index(activation)
     M, C = x.shape
     hidden = w1.shape[0]
     plan = ffn_plan(M, C, hidden)
@@ -353,25 +407,25 @@ def _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop=None):
     _, w2_map = weights.linear_map(w2, plan.item_k, lib)
     out = torch.empty_like(x)
     args = [_build.ptr(x), _build.ptr(ln_w), _build.ptr(ln_b), w1_map, _build.ptr(b1), w2_map,
-            _build.ptr(b2), _build.ptr(out), M, C, hidden, plan.splits, float(eps)]
+            _build.ptr(b2), _build.ptr(out), M, C, hidden, plan.splits, float(eps), act]
     if drop is None:
         err = getattr(lib, "ffn_forward" + form)(*args, _build.stream_ptr(x.device))
         _build.check(err, "ffn_forward" + form)
-        _build.count(fused_ffn, form)
+        _build.count(fused_ffn, form, activation)
     else:
         rate_act, rate_out, seed, site, bases = drop
         err = lib.ffn_dropout_forward(*args, *_build.drop_args(seed, site, rate_act, rate_out,
                                                                bases),
                                       _build.stream_ptr(x.device))
         _build.check(err, "ffn_dropout_forward")
-        fused_ffn_dropout.launches += 1
+        _build.count(fused_ffn_dropout, "", activation)
     return out
 
 
 def fused_ffn_dropout(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
                       b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
                       rate_act: float = 0.0, rate_out: float = 0.0, seed: int = 0,
-                      site: int = 0, bases=(0, 0)) -> torch.Tensor:
+                      site: int = 0, bases=(0, 0), activation: str = "gelu") -> torch.Tensor:
     """The fused FFN with the dropout masks of ``(seed, site)`` from the
     element ``bases`` (multiples of 4 on the card), forward only
     (:func:`fused_ffn` with a seed is the differentiable form).  CPU tensor:
@@ -379,9 +433,9 @@ def fused_ffn_dropout(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w
     rates 0 it gives the bits of the kernel without dropout."""
     if not x.is_cuda:
         return ffn_dropout_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, rate_act, rate_out, seed,
-                                 site, bases=bases)
+                                 site, bases=bases, activation=activation)
     return _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps,
-                       (rate_act, rate_out, seed, site, bases))
+                       (rate_act, rate_out, seed, site, bases), activation)
 
 
 def _bwd_maps(w1, w2, C, lib):
@@ -393,12 +447,13 @@ def _bwd_maps(w1, w2, C, lib):
 
 def fused_ffn_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                      w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                     eps: float = 1e-5) -> torch.Tensor:
+                     eps: float = 1e-5, activation: str = "gelu") -> torch.Tensor:
     """dx of the fused FFN.  CPU tensor: the plain version in f32.  CUDA
     tensor: the kernel (C in ``KERNEL_WIDTHS``, hidden a multiple of 64, as
     the forward), or raise.  x, g and dx f32, or bf16 (the bf16 form)."""
     if not x.is_cuda:
-        return ffn_bwd_dx_plain(x, g, ln_w, ln_b, w1, b1, w2, eps)
+        return ffn_bwd_dx_plain(x, g, ln_w, ln_b, w1, b1, w2, eps, activation=activation)
+    act = activation_index(activation)
     M, C = x.shape
     hidden = w1.shape[0]
     plan = ffn_bwd_plan(M, C, hidden)
@@ -414,42 +469,44 @@ def fused_ffn_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b:
     dx = torch.empty_like(x)
     err = getattr(lib, "ffn_bwd_dx" + form)(
         _build.ptr(x), _build.ptr(g), _build.ptr(ln_w), _build.ptr(ln_b), w1_map, _build.ptr(b1),
-        w2t_map, w1t_map, _build.ptr(dx), M, C, hidden, plan.splits, float(eps),
+        w2t_map, w1t_map, _build.ptr(dx), M, C, hidden, plan.splits, float(eps), act,
         _build.stream_ptr(x.device))
     _build.check(err, "ffn_bwd_dx" + form)
-    _build.count(fused_ffn_bwd_dx, form)
+    _build.count(fused_ffn_bwd_dx, form, activation)
     return dx
 
 
 def fused_ffn_bwd_full(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
-                       w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, eps: float = 1e-5):
+                       w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, eps: float = 1e-5,
+                       activation: str = "gelu"):
     """(dx, dln_w, dln_b, dw1, db1, dw2, db2) of the fused FFN.  CPU tensor:
     the plain version in f32.  CUDA tensor: the kernel (widths as the
     forward), or raise."""
     if not x.is_cuda:
-        return ffn_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, eps)
-    return _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps)
+        return ffn_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, eps, activation=activation)
+    return _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps, activation=activation)
 
 
 def fused_ffn_dropout_bwd_full(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
                                ln_b: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                                w2: torch.Tensor, eps: float = 1e-5, rate_act: float = 0.0,
                                rate_out: float = 0.0, seed: int = 0, site: int = 0,
-                               bases=(0, 0)):
+                               bases=(0, 0), activation: str = "gelu"):
     """(dx, dln_w, dln_b, dw1, db1, dw2, db2) of :func:`fused_ffn_dropout`, the
     masks regenerated from ``(seed, site)`` and ``bases``.  CPU tensor: the
     plain version in f32.  CUDA tensor: the kernel, or raise."""
     if not x.is_cuda:
         return ffn_dropout_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, eps, rate_act, rate_out,
-                                          seed, site, bases=bases)
+                                          seed, site, bases=bases, activation=activation)
     return _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps,
-                                (rate_act, rate_out, seed, site, bases))
+                                (rate_act, rate_out, seed, site, bases), activation)
 
 
-def _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps, drop=None):
+def _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps, drop=None, activation="gelu"):
     """Launch the all-gradients backward (``drop`` = (rate_act, rate_out,
     seed, site, bases): its dropout entry point): the kernel, the ordered sums of
     the vector gradients' partials, the two weight-gradient products."""
+    act = activation_index(activation)
     M, C = x.shape
     hidden = w1.shape[0]
     plan = ffn_bwd_plan(M, C, hidden)
@@ -473,27 +530,28 @@ def _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps, drop=None):
             _build.ptr(b1), maps[1], maps[2],
             *(_build.ptr(t) for t in side + parts + [dx, dw1, db1, dw2, vec]),
             M, C, hidden, ld, plan.splits, wgrad.wgrad_plan(hidden, C, M).splits,
-            wgrad.wgrad_plan(C, hidden, M).splits, float(eps)]
+            wgrad.wgrad_plan(C, hidden, M).splits, float(eps), act]
     if drop is None:
         err = lib.ffn_bwd_full(*args, _build.stream_ptr(x.device))
         _build.check(err, "ffn_bwd_full")
-        fused_ffn_bwd_full.launches += 1
+        _build.count(fused_ffn_bwd_full, "", activation)
     else:
         rate_act, rate_out, seed, site, bases = drop
         err = lib.ffn_dropout_bwd_full(*args, *_build.drop_args(seed, site, rate_act, rate_out,
                                                                 bases),
                                        _build.stream_ptr(x.device))
         _build.check(err, "ffn_dropout_bwd_full")
-        fused_ffn_dropout_bwd_full.launches += 1
+        _build.count(fused_ffn_dropout_bwd_full, "", activation)
     return dx, vec[0], vec[1], dw1, db1, dw2, vec[2]
 
 
-def _ffn_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop):
+def _ffn_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop, activation):
     if drop is not None:
-        return fused_ffn_dropout(x, ln_w, ln_b, w1, b1, w2, b2, eps, *drop)
+        return fused_ffn_dropout(x, ln_w, ln_b, w1, b1, w2, b2, eps, *drop,
+                                 activation=activation)
     if not x.is_cuda:
-        return ffn_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
-    return _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+        return ffn_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, activation=activation)
+    return _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, activation=activation)
 
 
 class _FusedFFN(torch.autograd.Function):
@@ -501,10 +559,10 @@ class _FusedFFN(torch.autograd.Function):
     numbers kept in ``ctx``: the backward regenerates the forward's masks from them."""
 
     @staticmethod
-    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps, drop):
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps, drop, activation):
         ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
-        ctx.eps, ctx.drop = eps, drop
-        return _ffn_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop)
+        ctx.eps, ctx.drop, ctx.activation = eps, drop, activation
+        return _ffn_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop, activation)
 
     @staticmethod
     def backward(ctx, g):
@@ -513,23 +571,27 @@ class _FusedFFN(torch.autograd.Function):
         needs = ctx.needs_input_grad
         if ctx.drop is not None or any(needs[1:7]):
             if ctx.drop is not None:
-                grads = fused_ffn_dropout_bwd_full(x, g, *params[:-1], ctx.eps, *ctx.drop)
+                grads = fused_ffn_dropout_bwd_full(x, g, *params[:-1], ctx.eps, *ctx.drop,
+                                                   activation=ctx.activation)
             else:
-                grads = fused_ffn_bwd_full(x, g, *params[:-1], ctx.eps)
-            return (*(gr if n else None for gr, n in zip(grads, needs)), None, None)
-        dx = fused_ffn_bwd_dx(x, g, *params[:-1], ctx.eps) if needs[0] else None
-        return (dx,) + (None,) * 8
+                grads = fused_ffn_bwd_full(x, g, *params[:-1], ctx.eps, activation=ctx.activation)
+            return (*(gr if n else None for gr, n in zip(grads, needs)), None, None, None)
+        dx = (fused_ffn_bwd_dx(x, g, *params[:-1], ctx.eps, activation=ctx.activation)
+              if needs[0] else None)
+        return (dx,) + (None,) * 9
 
 
 def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
               b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
               rate_act: float = 0.0, rate_out: float = 0.0, seed: Optional[int] = None,
-              site: int = 0, bases=(0, 0)) -> torch.Tensor:
+              site: int = 0, bases=(0, 0), activation: str = "gelu") -> torch.Tensor:
     """CPU tensor: the plain version in f32.  CUDA tensor: the kernel, or raise.
     Differentiable on both; where autograd records nothing the call goes
     straight to the forward, without the ``autograd.Function``.  With a
     ``seed`` the dropout kernels run, with the masks of ``(seed, site)`` at
-    the two rates from the element ``bases``; without one the rates must be 0."""
+    the two rates from the element ``bases``; without one the rates must be 0.
+    ``activation``: one of :data:`ACTIVATIONS`, else ``ValueError``."""
+    activation_index(activation)
     if seed is None:
         if rate_act > 0.0 or rate_out > 0.0:
             raise ValueError("fused_ffn: a dropout rate above 0 needs a seed")
@@ -538,8 +600,8 @@ def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch
         drop = (float(rate_act), float(rate_out), int(seed), int(site),
                 tuple(int(b) for b in bases))
     if _build.needs_grad(x, ln_w, ln_b, w1, b1, w2, b2):
-        return _FusedFFN.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop)
-    return _ffn_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop)
+        return _FusedFFN.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop, activation)
+    return _ffn_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop, activation)
 
 
 fused_ffn.launches = fused_ffn.bf16_launches = 0
@@ -547,3 +609,7 @@ fused_ffn_dropout.launches = 0
 fused_ffn_dropout_bwd_full.launches = 0
 fused_ffn_bwd_dx.launches = fused_ffn_bwd_dx.bf16_launches = 0
 fused_ffn_bwd_full.launches = 0
+for _w in (fused_ffn, fused_ffn_dropout, fused_ffn_dropout_bwd_full, fused_ffn_bwd_dx,
+           fused_ffn_bwd_full):
+    for _a in ACTIVATIONS[1:]:
+        setattr(_w, f"{_a}_launches", 0)

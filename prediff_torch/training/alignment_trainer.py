@@ -42,7 +42,7 @@ from ..utils.distributions import latents_from_moments_seq, randint_rows, randn_
 from .diffusion_trainer import (reduce_loss_dict, refuse_knobs, step_dropout_seed,
                                 step_generator)
 from .optim import build_optimizer, get_loss_fn
-from .train_state import EmaTrainState
+from .train_state import EmaTrainState, param_grads
 
 _TPU_KNOBS = {"prng_impl": None, "flat_update": False, "pack_small_thr": 0,
               "matmul_precision": None, "conv3d_impl": None}
@@ -156,7 +156,7 @@ class AlignmentTrainer:
         generator = step_generator(seed, state.step, self.device)
         loss, loss_dict = self.loss_fn(generator, x, y, target,
                                        dropout_seed=step_dropout_seed(seed, state.step))
-        grads = torch.autograd.grad(loss, list(state.params.values()))
+        grads = param_grads(loss, list(state.params.values()))
         mesh = self.mesh if reduce else None
         loss_dict = reduce_loss_dict({**loss_dict, "train_loss": loss}, mesh)
         if mesh is not None:   # the whole batch's ratio, as the JAX step's

@@ -46,7 +46,7 @@ from ..diffusion.latent_diffusion import LatentDiffusion
 from ..parallel.mesh import DataMesh, all_reduce_mean
 from ..utils.convert import torch_key_to_flax_path
 from .optim import build_optimizer, global_norm
-from .train_state import EmaTrainState
+from .train_state import EmaTrainState, param_grads
 
 # why a knob of the JAX trainers is refused; the others are TPU / XLA knobs
 _NOT_YET = {"remat_unet": "not ported yet (ROADMAP.md queue 1, the trainer opt-ins)",
@@ -155,7 +155,7 @@ class DiffusionTrainer:
         generator = step_generator(seed, state.step, self.ld.device)
         loss, loss_dict = self._loss(self._logvar(state), generator, x, y, "train",
                                      dropout_seed=step_dropout_seed(seed, state.step))
-        grads = torch.autograd.grad(loss, list(state.params.values()))
+        grads = param_grads(loss, list(state.params.values()))
         mesh = self.mesh if reduce else None
         return all_reduce_mean(grads, mesh), reduce_loss_dict(loss_dict, mesh)
 

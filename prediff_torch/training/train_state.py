@@ -24,6 +24,14 @@ from .ema import ema_update
 from .optim import Optimizer
 
 
+def param_grads(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> list:
+    """``torch.autograd.grad`` of ``loss`` for each of ``params``, zeros for
+    a parameter the loss does not reach (the last block's global-vector
+    layers of a UNet feed nothing; ``jax.grad`` gives them zeros)."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
 class EmaTrainState:
     def __init__(self, params: Dict[str, nn.Parameter], tx: Optimizer, use_ema: bool = True,
                  ema_decay: float = 0.9999):

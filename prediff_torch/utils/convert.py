@@ -18,8 +18,15 @@ flax path, and invert the flax leaf layout:
     Embed   embedding                -> weight
     ActNorm loc, scale (1,1,1,C)     -> loc, scale (1,C,1,1)
     BatchNorm batch_stats mean, var  -> running_mean, running_var
-    anything else (bias, tables, the attention pool's positional_embedding)
+    anything else (bias, tables, the attention pool's positional_embedding,
+    the global vectors' init_global_vectors (N, C))
                                      copied verbatim.
+
+The model variants add no rule: ``HW_embed`` and the hierarchical position
+embeddings are embeddings, ``ffn_1_gate``, the global nets (``l2g_q_net``,
+``global_qkv``, ``global_proj``, ``down_layer_global_proj_*`` ...) and the
+scale-shift blocks' ``emb_layers_1`` (2 x C outputs) are Linears,
+``global_vec_norm`` a LayerNorm, ``global_ffn_l_*`` FFNs.
 
 :func:`torch_params_to_flax` is the inverse: a reference state_dict (the
 published ``.pt`` files) -> the flax tree, names and layouts of the JAX

@@ -165,8 +165,10 @@ def test_factory_builds_the_swin_configuration_and_refuses_what_is_not_ported():
     assert ld.unet.training and all(p.requires_grad for p in ld.unet.parameters())
     assert ld.alignment is None and not ld.vae.training
     gv = _swin_cfg()
-    gv.model.latent_model["num_global_vectors"] = 8
-    with pytest.raises(NotImplementedError, match="global vectors"):
+    gv.model.latent_model["num_global_vectors"] = 8          # global vectors build
+    assert tuple(build_unet(gv).init_global_vectors.shape) == (8, 256)
+    gv.model.latent_model["downsample_type"] = "conv"        # the JAX UNet asserts patch_merge
+    with pytest.raises(NotImplementedError, match="downsample_type"):
         build_unet(gv)
     with pytest.raises(ValueError, match="not registered"):
         build_unet(_swin_cfg("video_swin_3x3"))

@@ -1162,3 +1162,40 @@ def test_bf16_parameters_on_an_f32_carry_give_the_f32_pipeline_on_rounded_weight
     out = p16.ld.sample(y.to(dev), timesteps=3, return_decoded=False, compute_dtype="bfloat16",
                         generator=torch.Generator(dev).manual_seed(3))
     assert out.dtype == BF16 and torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("M,C", [(3328, 256), (832, 512), (100, 128)])
+@pytest.mark.parametrize("act", ["relu", "leaky", "silu"])
+def test_ffn_kernels_on_each_activation_match_plain(dev, M, C, act):
+    """Every FFN kernel (the forward, dx, all gradients, the dropout forms,
+    the bf16 forward and dx) on relu / leaky / silu against its plain version
+    with the GELU forms' bars; each counts under ``<act>_launches``."""
+    x, ln_w, ln_b, w1, b1, w2, b2 = args = _ffn_args(dev, M, C)
+    g = torch.randn(M, C, device=dev)
+    bf16, kw = torch.bfloat16, dict(activation=act)
+    names = (fused_ffn, fused_ffn_bwd_dx, fused_ffn_bwd_full, fused_ffn_dropout,
+             fused_ffn_dropout_bwd_full)
+    before = [getattr(f, f"{act}_launches") for f in names]
+    _close_bf16(fused_ffn(*args, **kw), ffn_plain(*args, mxu_dtype=bf16, **kw))
+    bwd = (x, g, ln_w, ln_b, w1, b1, w2)
+    _close_rel(fused_ffn_bwd_dx(*bwd, **kw), ffn_bwd_dx_plain(*bwd, mxu_dtype=bf16, **kw))
+    for gt, wt in zip(fused_ffn_bwd_full(*bwd, **kw),
+                      ffn_bwd_full_plain(*bwd, mxu_dtype=bf16, **kw)):
+        _close_rel(gt, wt)
+    drop = (0.1, 0.1, 7, 3)
+    _close_bf16(fused_ffn_dropout(*args, 1e-5, *drop, **kw),
+                ffn_dropout_plain(*args, 1e-5, *drop, mxu_dtype=bf16, **kw))
+    for gt, wt in zip(fused_ffn_dropout_bwd_full(*bwd, 1e-5, *drop, **kw),
+                      ffn_dropout_bwd_full_plain(*bwd, 1e-5, *drop, mxu_dtype=bf16, **kw)):
+        _close_rel(gt, wt)
+    assert [getattr(f, f"{act}_launches") for f in names] == [b + 1 for b in before]
+    xb, gb, w1b, w2b = (t.to(bf16) for t in (x, g, w1, w2))
+    got = fused_ffn(xb, ln_w, ln_b, w1b, b1, w2b, b2, **kw)
+    assert got.dtype == bf16
+    want = ffn_plain(xb, ln_w, ln_b, w1b, b1, w2b, b2, mxu_dtype=bf16, **kw)
+    _close_rel(got.float(), want.float())
+    got = fused_ffn_bwd_dx(xb, gb, ln_w, ln_b, w1b, b1, w2b, **kw)
+    _close_rel(got.float(), ffn_bwd_dx_plain(xb, gb, ln_w, ln_b, w1b, b1, w2b, mxu_dtype=bf16,
+                                             **kw).float())
+    with pytest.raises(ValueError, match="activation"):
+        fused_ffn(*args, activation="tanh")

@@ -5,7 +5,7 @@ tests start them with :func:`run_ranks`; each rank is
 
     python tests/torch_parallel_worker.py TASK RANK WORLD PORT DIR
 
-``TASK`` is ``mesh``, ``sampling``, ``ddp`` or ``cuda``.  The rank joins the group
+``TASK`` is ``mesh``, ``sampling``, ``ddp``, ``variants`` or ``cuda``.  The rank joins the group
 through ``prediff_torch.parallel.init_distributed`` at ``localhost:PORT``,
 runs the task's checks and leaves its arrays in ``DIR`` for the test to
 compare.  JAX and the JAX package are blocked in it: the port imports
@@ -520,6 +520,54 @@ def ddp_task(rank: int, world: int, port: int, out: str) -> None:
 
 
 # ---------------------------------------------------------------- cuda ---- #
+def variants_task(rank: int, world: int, port: int, out: str) -> None:
+    """Two gloo ranks of a DDP step of a UNet with global vectors (and the
+    global FFNs) at the recipe's rates 0.1, each its rows of a global batch of
+    4: the dropout masks drawn (the global vectors' sites among them), the
+    reduced gradients of one micro-step and the state after one step, and
+    one process's on the whole batch."""
+    from prediff_torch.config import load_config, prediff_default_config
+    from prediff_torch.factory import build_training_pipeline, build_unet
+    from prediff_torch.parallel import make_mesh
+    from prediff_torch.training import DiffusionTrainer
+
+    join(rank, world, port)
+    mesh = make_mesh()
+    inputs = dict(np.load(os.path.join(out, "inputs.npz")))
+    weights = torch.load(os.path.join(out, "weights.pt"))
+    spec = json.load(open(os.path.join(out, "spec.json")))
+    B = 4
+    rows = slice(rank * B // world, (rank + 1) * B // world)
+    res = {}
+    cfg = load_config(prediff_default_config, TINY)
+    cfg.model.latent_model.update(spec["latent_model"])
+    unet = build_unet(cfg)
+    unet.load_state_dict(weights["unet"])
+    unet.train()
+    x, t, cond = (torch.from_numpy(inputs[k]) for k in ("mask_x", "mask_t", "mask_cond"))
+    t = t.long()
+    with torch.no_grad():
+        one = recorded_masks(lambda: unet(x, t, cond, dropout_seed=11))
+        mine = recorded_masks(lambda: unet(x[rows], t[rows], cond[rows], dropout_seed=11,
+                                           dropout_first_row=rows.start))
+    for name, masks in (("one", one), ("mine", mine)):
+        for i, m in enumerate(masks):
+            res[f"mask_{name}_{i}"] = m
+    optim = dict(lr=1e-3, total_num_steps=10, gradient_clip_val=1.0, warmup_percentage=0.0)
+    px, py = torch.from_numpy(inputs["train_x"]), torch.from_numpy(inputs["train_y"])
+    for name, m, xs, ys in (("ddp", mesh, px[rows], py[rows]), ("one", None, px, py)):
+        ld = build_training_pipeline(cfg, device="cpu", params=weights)
+        trainer = DiffusionTrainer(ld, optim_config=optim, mesh=m)
+        state = trainer.create_state()
+        grads, _ = trainer.grads(state, 5, xs, ys)
+        res[f"grads_{name}"] = torch.cat([g.reshape(-1) for g in grads]).numpy()
+        state, _ = trainer.train_step(state, 5, xs, ys)
+        res[f"state_{name}"] = fingerprint(state.tensors())
+        res[f"params_{name}"] = torch.cat([p.detach().reshape(-1)
+                                           for p in state.params.values()]).numpy()
+    np.savez(os.path.join(out, f"variants{rank}.npz"), **res)
+
+
 def cuda_task(rank: int, world: int, port: int, out: str) -> None:
     """On ``cuda:0``: two gloo ranks (unguided steps on graphs, guided ones
     eager) against one process, or one NCCL rank (the guided step's
@@ -596,7 +644,8 @@ def main() -> int:
         sys.modules[name] = None   # an import of any of them raises ImportError
     task, rank, world, port, out = sys.argv[1:6]
     torch.set_num_threads(1)
-    tasks = {"mesh": mesh_task, "sampling": sampling_task, "ddp": ddp_task, "cuda": cuda_task}
+    tasks = {"mesh": mesh_task, "sampling": sampling_task, "ddp": ddp_task,
+             "variants": variants_task, "cuda": cuda_task}
     tasks[task](int(rank), int(world), int(port), out)
     import torch.distributed as dist
 
