@@ -4080,10 +4080,11 @@ def kernel_counters():
 # bf16params (bf16params_phases with the f32 chains beside them),
 # eval (eval_suite), data (data_prefetch), cli (the cli_* phases), mesh
 # (the mesh_* phases), ddp (the ddp_* phases), variants (the model variants:
-# ffn_activations, the variant forecasts, variant_vs_cpu, variant_train) and
-# ffn_gelu (the FFN kernels' GELU forms' device times, alone)
+# ffn_activations, the variant forecasts, variant_vs_cpu, variant_train), optins
+# (profiling_helpers, optin_remat, optin_bf16_state) and ffn_gelu (the FFN
+# kernels' GELU forms' device times, alone)
 ONLY = ("bwd_split", "guided_repeat", "vae_train", "align_train", "bf16", "vae_train_bf16",
-        "bf16params", "eval", "data", "cli", "mesh", "ddp", "variants", "ffn_gelu")
+        "bf16params", "eval", "data", "cli", "mesh", "ddp", "variants", "optins", "ffn_gelu")
 
 
 def run_only(device, names, smi: str) -> None:
@@ -4105,6 +4106,8 @@ def run_only(device, names, smi: str) -> None:
             ddp_alone(device, smi)
         elif name == "variants":
             variants_alone(device, smi)
+        elif name == "optins":
+            optins_alone(device, smi)
         elif name == "bwd_split":
             bwd_split(device)
         elif name == "guided_repeat":
@@ -4234,6 +4237,7 @@ def run(device, cfg, smi: str, build) -> None:
         "guided_step": guided_step(predictor.ld, zg, zc, avg_d),
         "unet_forward": lambda: predictor.ld.unet(xd, td, cd),
         "guidance_shift": lambda: predictor.ld.alignment.get_mean_shift(zg, td, avg_d)}))
+    profiling_helpers(device, smi, cfg, predictor, by_route, avg_d, zero_counts, read_counts)
     graph_recapture(predictor, context, avg_x_gt, device)
     eval_suite(device, smi, predictor, cfg, zero_counts, read_counts)
     del predictor
@@ -4255,7 +4259,7 @@ def run(device, cfg, smi: str, build) -> None:
     per_train = {k: v["per_train"] for k, v in by_route.items()}
     train_weights = {"unet": weights["unet"], "vae": weights["vae"]}
     launches_by_path.update(train_phases(device, cfg, smi, per_train, train_weights, zero_counts,
-                                         read_counts))
+                                         read_counts, optins=True))
     # the conv route in training: the recipe's rates (no rate-0 phase), B=2
     launches_by_path.update(train_phases(
         device, conv_config(cfg), smi, {k: v["per_train"] for k, v in conv_per.items()},
@@ -4742,8 +4746,23 @@ def rate0_phases(card_vs_cpu, cfg, vae_sd, xy, device, zero_counts, read_counts,
     return launches0
 
 
+def recipe_trainer(ld, c, state_dtype=None, **kw):
+    """The recipe's ``DiffusionTrainer`` on ``ld`` (``TRAIN_ACCUM`` micro-steps
+    an update, the schedule of a ``TRAIN_SCHEDULE_STEPS`` run); ``kw`` its
+    opt-ins (``remat_unet``, ``ema_dtype``), ``state_dtype`` the optimizer's."""
+    from prediff_torch.training import DiffusionTrainer
+
+    return DiffusionTrainer(ld, optim_config=dict(
+        lr=c.optim.lr, total_num_steps=TRAIN_SCHEDULE_STEPS, method=c.optim.method,
+        wd=c.optim.wd, betas=tuple(c.optim.betas), gradient_clip_val=c.optim.gradient_clip_val,
+        warmup_percentage=c.optim.warmup_percentage,
+        lr_scheduler_mode=c.optim.lr_scheduler_mode, min_lr_ratio=c.optim.min_lr_ratio,
+        warmup_min_lr_ratio=c.optim.warmup_min_lr_ratio, accum_steps=TRAIN_ACCUM,
+        state_dtype=state_dtype), use_ema=c.model.diffusion.use_ema, track_grad_norm=True, **kw)
+
+
 def train_phases(device, cfg, smi, per_train, weights, zero_counts, read_counts, prefix="",
-                 rate0=True, depth1=False):
+                 rate0=True, depth1=False, optins=False):
     """``train_rate0`` (dropout rates 0, depth [1,1]: ``rate0_phases``; not
     run when ``rate0`` is False), then ``train_grads``, ``train`` and
     ``profile_train_step`` at the configuration's own rates, all at its
@@ -4751,8 +4770,10 @@ def train_phases(device, cfg, smi, per_train, weights, zero_counts, read_counts,
     the others at the configuration's depth, or at [1,1] too with ``depth1``),
     each phase's name after ``prefix``;
     ``per_train`` is ``path_launches``' count per micro-step of each kernel,
-    ``weights`` the state dicts of "unet" and "vae".  Returns the kernels' launch
-    counts of the ``train_rate0`` optimizer step and of the ``fit`` run."""
+    ``weights`` the state dicts of "unet" and "vae"; ``optins``: then the
+    trainer opt-ins' phases on the same pipeline (``optin_phases``).  Returns
+    the kernels' launch counts of the ``train_rate0`` optimizer step and of
+    the ``fit`` run."""
     import numpy as np
     import torch
     from prediff_torch.datasets.synthetic import synthetic_batch_iterator
@@ -4785,14 +4806,7 @@ def train_phases(device, cfg, smi, per_train, weights, zero_counts, read_counts,
         grads = torch.autograd.grad(loss, list(ld.unet.parameters()) + [logvar])
         return float(loss.detach()), names, grads
 
-    def make_trainer(ld, c):
-        return DiffusionTrainer(ld, optim_config=dict(
-            lr=c.optim.lr, total_num_steps=TRAIN_SCHEDULE_STEPS, method=c.optim.method,
-            wd=c.optim.wd, betas=tuple(c.optim.betas), gradient_clip_val=c.optim.gradient_clip_val,
-            warmup_percentage=c.optim.warmup_percentage,
-            lr_scheduler_mode=c.optim.lr_scheduler_mode, min_lr_ratio=c.optim.min_lr_ratio,
-            warmup_min_lr_ratio=c.optim.warmup_min_lr_ratio, accum_steps=TRAIN_ACCUM),
-            use_ema=d.use_ema, track_grad_norm=True)
+    make_trainer = recipe_trainer
 
     def card_vs_cpu(phase, c, weights, dropout_seed, want_counts):
         """One loss and backward: the card (kernels) against the CPU (plain,
@@ -4952,7 +4966,363 @@ def train_phases(device, cfg, smi, per_train, weights, zero_counts, read_counts,
 
     emit(profile(f"profile_{prefix}train_step", lambda: trainer.train_step(state, SEED, *xy),
                  reps=2))
+    if optins:
+        del trainer, state
+        optin_phases(device, cfg, smi, ld, xy, per_micro, zero_counts, read_counts)
     return dict(launches_by_phase, **{phase: launches})
+
+
+# --------------------------------------------------------------------------- #
+# The trainer opt-ins (remat_unet, bf16 Adam moments, a bf16 EMA shadow) and
+# the profiling helpers (prediff_torch/utils/profiling.py).
+OPTIN_REPS = 3           # timed micro-steps of each optin_remat run
+OPTIN_UPDATE_ITERS = 5   # timed optimizer updates of each form
+STEP_TIMER_CALLS = 5     # UNet forwards under StepTimer and CUDA events
+STEP_TIMER_TOL_REL = 0.10
+# the forward kernels that run inside the UNet's block pairs: recomputed under remat_unet
+REMAT_FORWARDS = ("groupnorm_silu", "ffn", "ffn_dropout", "axial_attention",
+                  "axial_attention_dropout", "cuboid_attention", "cuboid_attention_dropout",
+                  "cuboid_attention_grouped")
+FIRST_PROJ_GN = 2        # first_proj's two GN + SiLU forwards: outside every block pair
+
+
+def remat_launches(per_micro: dict) -> dict:
+    """A micro-step's launches under ``remat_unet``: each forward kernel of a
+    block pair twice (its run and the backward's recompute), ``first_proj``'s
+    GN forwards and every backward once."""
+    out = dict(per_micro)
+    for name in REMAT_FORWARDS:
+        if out.get(name):
+            out[name] += out[name] - (FIRST_PROJ_GN if name == "groupnorm_silu" else 0)
+    return out
+
+
+def to_cpu(tree):
+    """A copy of a (nested) state dict with every tensor on the CPU."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return tree.detach().cpu().clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def within_bf16_ulp(got, want) -> float:
+    """The largest excess of |got - want| over one bf16 ulp of the larger of
+    the two plus 1e-6 of the tensor's largest value (what the f32 inputs'
+    own differences give an element that cancels to near 0:
+    tests/test_torch_trainer_optins.py); <= 0 when within."""
+    import torch
+
+    got, want = got.float().cpu(), want.float().cpu()
+    a = torch.maximum(got.abs(), want.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(a)) - 7) + 1e-6 * float(want.abs().max())
+    return float(((got - want).abs() - ulp).max())
+
+
+def optin_remat(device, smi, cfg, ld, xy, per_micro, zero_counts, read_counts):
+    """``optin_remat``: one micro-step's loss and gradients (``grads``, no
+    update) with and without ``remat_unet`` from the same state and seed,
+    bit-equal; each run's launches (the forward kernels of the block pairs
+    twice under remat), peak memory and ms per micro-step; then the peak and
+    ms of the same step from first-stage moments (no encode in the step)."""
+    import torch
+
+    runs = {}
+    for remat in (False, True):
+        trainer = recipe_trainer(ld, cfg, remat_unet=remat)
+        state = trainer.create_state()
+        trainer.grads(state, SEED, *xy)        # warm-up
+        sync(device)
+        start = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        zero_counts()
+        grads, loss_dict = trainer.grads(state, SEED, *xy)
+        sync(device)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+        ms = []
+        for _ in range(OPTIN_REPS):
+            t0 = time.perf_counter()
+            trainer.grads(state, SEED, *xy)
+            sync(device)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        runs[remat] = dict(grads=grads, loss=loss_dict["train/loss"], counts=counts,
+                           peak_gib=peak / 2**30, above_start_gib=(peak - start) / 2**30,
+                           ms=median(ms))
+        del trainer, state
+    off, on = runs[False], runs[True]
+    bit_equal = (torch.equal(off["loss"], on["loss"])
+                 and all(torch.equal(a, b) for a, b in zip(off["grads"], on["grads"])))
+    want = {False: dict(per_micro), True: remat_launches(per_micro)}
+    leaves = len(on["grads"])
+    del off["grads"], on["grads"]
+
+    # the same micro-step from first-stage moments: the frozen VAE's encode,
+    # whose own peak the pixel step's may be, drops out of it
+    with torch.no_grad():
+        moments = [ld.first_stage_moments(a.reshape((-1,) + tuple(a.shape[2:])))
+                   for a in xy]
+        mx, my = (m.reshape(tuple(a.shape[:2]) + tuple(m.shape[1:]))
+                  for m, a in zip(moments, xy))
+    for remat in (False, True):
+        trainer = recipe_trainer(ld, cfg, remat_unet=remat, latent_inputs=True)
+        state = trainer.create_state()
+        trainer.grads(state, SEED, mx, my)
+        sync(device)
+        start = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        trainer.grads(state, SEED, mx, my)
+        sync(device)
+        runs[remat]["moments_above_start_gib"] = (torch.cuda.max_memory_allocated(device)
+                                                  - start) / 2**30
+        ms = []
+        for _ in range(OPTIN_REPS):
+            t0 = time.perf_counter()
+            trainer.grads(state, SEED, mx, my)
+            sync(device)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        runs[remat]["moments_ms"] = median(ms)
+        del trainer, state
+    emit({"phase": "optin_remat", "batch": xy[0].shape[0],
+          "depth": list(cfg.model.latent_model.depth), "leaves": leaves,
+          "loss": float(on["loss"]), "bit_equal": bit_equal,
+          "peak_gib": {"off": off["peak_gib"], "on": on["peak_gib"]},
+          "peak_above_start_gib": {"off": off["above_start_gib"], "on": on["above_start_gib"]},
+          "ms_per_micro_step": {"off": off["ms"], "on": on["ms"]},
+          "moments_peak_above_start_gib": {"off": off["moments_above_start_gib"],
+                                           "on": on["moments_above_start_gib"]},
+          "moments_ms": {"off": off["moments_ms"], "on": on["moments_ms"]},
+          "launches": {"off": off["counts"], "on": on["counts"]},
+          "expected_launches": {"off": want[False], "on": want[True]}, "card": smi})
+    if not bit_equal:
+        fail("optin_remat: the loss or a gradient under remat_unet differs from the step "
+             "without it")
+    for remat in (False, True):
+        if runs[remat]["counts"] != want[remat]:
+            fail(f"optin_remat (remat_unet={remat}): launches {runs[remat]['counts']} != "
+                 f"{want[remat]}")
+
+
+def optin_bf16_state(device, smi, cfg, ld, xy):
+    """``optin_bf16_state``: ``state_dtype`` and ``ema_dtype`` "bfloat16",
+    two accumulated optimizer steps from the seeded initialisation; the
+    stored moments and shadow bf16; one more update on the card against the
+    same update on the CPU from the same state and gradients (parameters
+    within 1e-5, moments and shadow within one bf16 ulp); their bytes in f32
+    and bf16, and the ms of one update, bf16 against the fused f32 AdamW."""
+    import torch
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.training import EmaTrainState, build_optimizer, ema_update
+
+    init_params_(ld.unet, torch.Generator().manual_seed(SEED))
+    trainer = recipe_trainer(ld, cfg, state_dtype="bfloat16", ema_dtype="bfloat16")
+    state = trainer.create_state()
+    for _ in range(2 * TRAIN_ACCUM):
+        state, metrics = trainer.train_step(state, SEED, *xy)
+    sync(device)
+    moments = [v for st in state.tx.optimizer.state.values() for v in st.values()]
+    stored_bf16 = (len(moments) == 2 * len(state.params)
+                   and all(v.dtype == torch.bfloat16 for v in moments)
+                   and all(e.dtype == torch.bfloat16 for e in state.ema_params.values()))
+
+    # one update, the card against the CPU from the same state and gradients
+    saved = to_cpu(state.state_dict())
+    g1, _ = trainer.grads(state, SEED + 1, *xy)
+    g2, _ = trainer.grads(state, SEED + 2, *xy)
+    state.apply_gradients(g1)
+    state.apply_gradients(g2)
+    params_cpu = {k: torch.nn.Parameter(v.clone()) for k, v in saved["params"].items()}
+    cpu = EmaTrainState.create(params_cpu, build_optimizer(list(params_cpu.values()),
+                                                           **trainer.optim_config),
+                               use_ema=state.use_ema, ema_decay=state.ema_decay,
+                               ema_dtype="bfloat16")
+    cpu.load_state_dict(saved)
+    cpu.apply_gradients([g.cpu() for g in g1])
+    cpu.apply_gradients([g.cpu() for g in g2])
+    param_excess = max(float(((p.detach().cpu() - cpu.params[k].detach()).abs()
+                              - 1e-5 * (1.0 + cpu.params[k].detach().abs())).max())
+                       for k, p in state.params.items())
+    card_st, cpu_st = state.tx.optimizer.state, cpu.tx.optimizer.state
+    moment_excess = max(within_bf16_ulp(card_st[p][key], cpu_st[q][key])
+                        for p, q in zip(state.params.values(), cpu.params.values())
+                        for key in ("exp_avg", "exp_avg_sq"))
+    shadow_excess = max(within_bf16_ulp(e, cpu.ema_params[k]) for k, e in state.ema_params.items())
+
+    # the bytes held, and one update of each form on copies of the parameters
+    n = sum(p.numel() for p in state.params.values())
+
+    def update_ms(state_dtype):
+        ps = [torch.nn.Parameter(p.detach().clone()) for p in state.params.values()]
+        tx = build_optimizer(ps, **dict(trainer.optim_config, accum_steps=1,
+                                        state_dtype=state_dtype))
+        tx.update(g1)     # the state made
+        ms = time_ms(lambda: tx.update(g1), warmup=1, iters=OPTIN_UPDATE_ITERS)
+        held = sum(v.numel() * v.element_size() for st in tx.optimizer.state.values()
+                   for v in st.values() if v.dim() > 0)
+        return ms, held, bool(tx.optimizer.defaults.get("fused"))
+
+    f32_ms, f32_bytes, fused = update_ms(None)
+    bf16_ms, bf16_bytes, _ = update_ms("bfloat16")
+    shadows = {dt: [p.detach().to(dt, copy=True) for p in state.params.values()]
+               for dt in (torch.float32, torch.bfloat16)}
+    ema_ms = {str(dt).split(".")[-1]: time_ms(
+        lambda s=s: ema_update(s, list(state.params.values()), 0.9999, 100), warmup=1,
+        iters=OPTIN_UPDATE_ITERS) for dt, s in shadows.items()}
+    emit({"phase": "optin_bf16_state", "batch": xy[0].shape[0], "accum_steps": TRAIN_ACCUM,
+          "optimizer_steps": state.tx.count, "micro_steps": state.step,
+          "loss": float(metrics["train/loss"]), "params": n, "stored_bf16": stored_bf16,
+          "update_card_vs_cpu": {"param_excess_over_1e-5": param_excess,
+                                 "moment_excess_over_ulp": moment_excess,
+                                 "shadow_excess_over_ulp": shadow_excess},
+          "moment_mb": {"float32": f32_bytes / 1e6, "bfloat16": bf16_bytes / 1e6},
+          "shadow_mb": {"float32": 4 * n / 1e6,
+                        "bfloat16": sum(e.numel() * e.element_size()
+                                        for e in state.ema_params.values()) / 1e6},
+          "update_ms": {"float32_fused": f32_ms, "bfloat16": bf16_ms}, "f32_fused": fused,
+          "ema_update_ms": ema_ms, "card": smi})
+    if state.tx.count != 3 or not stored_bf16:
+        fail(f"optin_bf16_state: {state.tx.count} optimizer steps, stored bf16: {stored_bf16}")
+    if not (param_excess <= 0 and moment_excess <= 0 and shadow_excess <= 0):
+        fail(f"optin_bf16_state: the card's update differs from the CPU's: parameters "
+             f"{param_excess}, moments {moment_excess}, shadow {shadow_excess} beyond tolerance")
+
+
+def optin_phases(device, cfg, smi, ld, xy, per_micro, zero_counts, read_counts):
+    """The trainer opt-ins on the training pipeline ``ld`` of ``train_phases``
+    (the v1 recipe at its depth and dropout rates, pixel inputs ``xy`` at the
+    training micro-batch): ``optin_remat``, then ``optin_bf16_state``."""
+    optin_remat(device, smi, cfg, ld, xy, per_micro, zero_counts, read_counts)
+    optin_bf16_state(device, smi, cfg, ld, xy)
+
+
+def profiling_helpers(device, smi, cfg, predictor, by_route, avg_d, zero_counts, read_counts):
+    """``profiling_helpers``: ``count_kernel_launches`` of one eval-mode UNet
+    forward at B=1 against ``path_launches`` (every call launched, the
+    wrappers' own counts alike); a ``trace`` of one guided step holding an
+    ``annotate`` range and the kernels of the groupnorm, ffn, attention and
+    resblock sources; ``StepTimer(device=)`` over ``STEP_TIMER_CALLS`` UNet
+    forwards against CUDA events around the same calls."""
+    import re
+
+    import torch
+    from prediff_torch.ops import _build
+    from prediff_torch.utils.profiling import (TPU_KERNELS, StepTimer, annotate,
+                                               count_kernel_launches, trace)
+
+    d = cfg.model.diffusion
+    rs = torch.Generator().manual_seed(SEED + 30)
+    x = torch.randn((1,) + tuple(d.latent_shape), generator=rs).to(device)
+    cond = torch.randn((1,) + tuple(d.latent_cond_shape), generator=rs).to(device)
+    t = torch.tensor([d.timesteps // 2], device=device)
+    unet = predictor.ld.unet
+    want, want_wrappers = {}, {}
+    for name, per in by_route.items():
+        if per["per_unet"]:
+            tpu = TPU_KERNELS[COUNTERS[name].__name__]
+            want[tpu] = want.get(tpu, 0) + per["per_unet"]
+            want_wrappers[name] = per["per_unet"]
+    zero_counts()
+    with torch.no_grad():
+        got = count_kernel_launches(unet, x, t, cond)
+    sync(device)
+    wrappers = {k: v for k, v in read_counts().items() if v}
+
+    # the trace of one guided step
+    zc = predictor.ld.cond_stage_forward(torch.rand(
+        (1, cfg.layout.in_len, cfg.layout.img_height, cfg.layout.img_width,
+         cfg.layout.data_channels), generator=rs).to(device))
+    step = guided_step(predictor.ld, torch.randn((1,) + tuple(d.latent_shape), generator=rs)
+                       .to(device), zc, avg_d)
+    step()
+    sync(device)
+    kernels = {}
+    for src in ("groupnorm", "ffn", "attention", "resblock"):
+        text = (_build.CSRC / f"{src}.cu").read_text()
+        kernels[src] = set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", text))
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace(log_dir):
+            with annotate("prediff_guided_step"):
+                step()
+            sync(device)
+        files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+        events = json.load(open(os.path.join(log_dir, files[0])))["traceEvents"] if files else []
+        trace_bytes = sum(os.path.getsize(os.path.join(log_dir, f)) for f in files)
+    names = [e.get("name", "") for e in events]
+    kernel_events = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {src: sum(any(k in n for k in ks) for n in kernel_events)
+             for src, ks in kernels.items()}
+
+    # StepTimer against CUDA events around the same calls
+    timer = StepTimer(device=device)
+    event_ms = []
+    with torch.no_grad():
+        unet(x, t, cond)
+        for _ in range(STEP_TIMER_CALLS):
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            with timer:
+                start.record()
+                unet(x, t, cond)
+                stop.record()
+            event_ms.append(start.elapsed_time(stop))
+    summary = timer.summary()
+    rel = abs(1e3 * summary["mean_s"] - sum(event_ms) / len(event_ms)) / (
+        sum(event_ms) / len(event_ms))
+    emit({"phase": "profiling_helpers", "count_kernel_launches": got, "expected": want,
+          "wrapper_launches": wrappers, "trace_files": len(files), "trace_bytes": trace_bytes,
+          "annotate_found": "prediff_guided_step" in names, "kernel_events": len(kernel_events),
+          "kernel_events_by_source": found, "step_timer": summary, "event_ms": event_ms,
+          "step_timer_vs_events_rel": rel, "tol_rel": STEP_TIMER_TOL_REL, "card": smi})
+    if got != want or wrappers != want_wrappers:
+        fail(f"profiling_helpers: count_kernel_launches {got} (wrappers {wrappers}) != "
+             f"path_launches {want} ({want_wrappers})")
+    if len(files) != 1 or "prediff_guided_step" not in names or not all(found.values()):
+        fail(f"profiling_helpers: trace files {files}, annotate range found "
+             f"{'prediff_guided_step' in names}, kernels by source {found}")
+    if rel > STEP_TIMER_TOL_REL:
+        fail(f"profiling_helpers: StepTimer mean {summary['mean_s']} s against CUDA events "
+             f"{event_ms} ms: {rel} apart")
+
+
+def optins_alone(device, smi):
+    """``--only optins``: ``profiling_helpers`` on the seeded randomized models
+    as ``run`` makes them (a predictor with the alignment net), then the
+    opt-in phases on the training pipeline as ``train_phases`` builds it (the
+    seeded v1 initialisation at full depth, the recipe's rates)."""
+    import torch
+    from prediff_torch.config import prediff_default_config
+    from prediff_torch.datasets.synthetic import synthetic_batch_iterator
+    from prediff_torch.factory import (build_alignment_model, build_training_pipeline, build_unet,
+                                       build_vae)
+    from prediff_torch.models.init import init_params_
+    from prediff_torch.serving import PreDiffPredictor
+
+    cfg = prediff_default_config()
+    zero_counts, read_counts = kernel_counters()
+    gen = torch.Generator().manual_seed(SEED)
+    unet_cpu = init_params_(build_unet(cfg), gen, randomize=True).eval().requires_grad_(False)
+    vae_cpu = init_params_(build_vae(cfg), gen, randomize=True).eval().requires_grad_(False)
+    align_cpu = init_params_(build_alignment_model(cfg), gen,
+                             randomize=True).eval().requires_grad_(False)
+    weights = {"unet": unet_cpu.state_dict(), "vae": vae_cpu.state_dict(),
+               "align": align_cpu.state_dict()}
+    by_route = path_launches(unet_cpu, align_cpu)
+    predictor = PreDiffPredictor(cfg, params=weights, with_alignment=True, device=device)
+    profiling_helpers(device, smi, cfg, predictor, by_route,
+                      torch.tensor([[AVG_X_GT]], device=device), zero_counts, read_counts)
+    del predictor
+    ld = build_training_pipeline(cfg, device=device, params={"unet": weights["unet"],
+                                                              "vae": weights["vae"]})
+    L = cfg.layout
+    batch = torch.from_numpy(next(synthetic_batch_iterator(
+        cfg.optim.micro_batch_size, L.in_len + L.out_len, L.img_height, L.img_width, seed=SEED)))
+    xy = (batch[:, L.in_len:].to(device), batch[:, :L.in_len].to(device))
+    init_params_(ld.unet, torch.Generator().manual_seed(SEED))
+    per_micro = expected_train_launches({k: v["per_train"] for k, v in by_route.items()}, 1, 0,
+                                        dropout=True)
+    optin_phases(device, cfg, smi, ld, xy, per_micro, zero_counts, read_counts)
 
 
 # --------------------------------------------------------------------------- #

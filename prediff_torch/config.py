@@ -104,8 +104,8 @@ def optim_default() -> Dict:
         flat_update=False,
         pack_small_thr=0,
         matmul_precision=None,
-        state_dtype=None,
-        ema_dtype=None,
+        state_dtype=None,   # Adam moments stored in "bfloat16" / "float16" / "float32"
+        ema_dtype=None,     # the EMA shadow stored likewise (DiffusionTrainer)
         vae_compute_dtype=None,
         conv3d_impl="auto",
         method="adamw",

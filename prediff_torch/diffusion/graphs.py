@@ -35,6 +35,7 @@ step however often it is replayed.  So the counts a capture adds are taken
 back and kept as the graph's launches per replay, and each replay adds them
 again: the counters still count the kernels' launches on the card.
 """
+import gc
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
@@ -177,10 +178,18 @@ class StepGraphCache:
         before = _counts()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        # no garbage collection during the capture: a dead reference cycle
+        # freed there (a profiler's results, say) may call the CUDA runtime in
+        # a way a capture forbids and invalidate it; collect before it instead
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self._pool):
                 step()
         finally:
+            if collecting:
+                gc.enable()
             deltas = [(fn, attr, getattr(fn, attr) - n) for fn, attr, n in before
                       if getattr(fn, attr) != n]
             for fn, attr, n in before:

@@ -30,6 +30,14 @@ DropoutStream`, in call order, so each call's masks are a function of
 takes the rank's first global batch row too (``dropout_first_row``), so its
 masks are its rows of the one-process masks.  Eval mode ignores the rates.
 
+Rematerialization (``remat``, which ``DiffusionTrainer(remat_unet=True)`` sets
+for its training steps): in training mode with autograd recording, each
+(time block, self block) pair is one non-reentrant ``torch.utils.checkpoint``
+segment whose activations the backward recomputes; a segment replays its
+dropout sites from the stream's site at its entry (``DropoutStream.fork``), so
+the recompute draws the masks the forward drew and the gradients keep their
+bits.  The forecast path never sets it.
+
 ``attention_kernels``, ``ffn_kernel`` and ``gn_kernel`` are the
 configuration's ``use_pallas_attention`` / ``use_pallas_ffn`` /
 ``use_pallas_gn`` as ``factory.build_unet`` reads them: with ``False`` the
@@ -40,6 +48,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.dropout import DropoutStream
 from .cuboid_attention import StackCuboidSelfAttentionBlock
@@ -47,6 +56,27 @@ from .init import with_init
 from .layers import (PatchMerging3D, PosEmbed, TimeEmbedLayer, TimeEmbedResBlock,
                      Upsample3DLayer, timestep_embedding)
 from .patterns import block_patterns
+
+
+def _recomputed(fn, drop: Optional[DropoutStream], *args):
+    """``fn(*args, stream)`` as one non-reentrant checkpoint segment: the
+    stream a fork of ``drop`` at its site on entry, on the first run and on
+    the recompute alike, ``drop`` then moved past the sites the segment took.
+    ``preserve_rng_state`` is off: the forward draws nothing from torch's
+    global generators."""
+    if drop is None:
+        return checkpoint(fn, *args, None, use_reentrant=False, preserve_rng_state=False)
+    site, end = drop.site, []
+
+    def run(*a):
+        stream = drop.fork(site)
+        out = fn(*a, stream)
+        end.append(stream.site)
+        return out
+
+    out = checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+    drop.site = end[0]
+    return out
 
 
 def round_to(dat: int, c: int) -> int:
@@ -97,6 +127,7 @@ class CuboidTransformerUNet(nn.Module):
                  attn_proj_linear_init_mode: str = "2", conv_init_mode: str = "0",
                  down_linear_init_mode: str = "0", global_proj_linear_init_mode: str = "2"):
         super().__init__()
+        self.remat = False   # recompute each block pair in the backward (module docstring)
         self.dropout_rates = dict(attn_drop=attn_drop, proj_drop=proj_drop, ffn_drop=ffn_drop,
                                   time_embed_dropout=time_embed_dropout)
         T_in, H_in, W_in, C_in = input_shape
@@ -207,13 +238,20 @@ class CuboidTransformerUNet(nn.Module):
         x = self.pos_embed(x)
         t_emb = self.time_embed(timestep_embedding(t, self.block_units[0]).to(x.dtype))
 
+        def pair(time_block, block, x, gv, drop):
+            x = time_block(x, t_emb, drop)
+            if gv is None:
+                return block(x, drop), None
+            return block(x, drop, gv)
+
+        remat = self.remat and self.training and torch.is_grad_enabled()
+
         def blocks(time_block, self_blocks, x, gv):
-            for j, block in enumerate(self_blocks):
-                x = time_block(x, t_emb, drop)
-                if gv is None:
-                    x = block(x, drop)
+            for block in self_blocks:
+                if remat:
+                    x, gv = _recomputed(pair, drop, time_block, block, x, gv)
                 else:
-                    x, gv = block(x, drop, gv)
+                    x, gv = pair(time_block, block, x, gv, drop)
             return x, gv
 
         res_connect = []

@@ -188,10 +188,29 @@ def io_form(kernel: str, x: torch.Tensor) -> str:
     raise ValueError(f"{kernel} kernel: takes float32 or bfloat16 activations, got {x.dtype}")
 
 
+# the open scopes of ``utils.profiling.count_kernel_launches``: each a dict
+# {"calls": {name: n}, "card": {name: n}, "launched": {name: n}} by wrapper name
+SCOPES: list = []
+
+
+def on_card(wrapper, t: torch.Tensor) -> bool:
+    """The dispatch point of ``wrapper``: whether it launches its kernel
+    (``t`` a CUDA tensor) rather than its plain version (a CPU tensor).  Each
+    open scope counts the call, and whether it went to the card."""
+    for scope in SCOPES:
+        name = wrapper.__name__
+        scope["calls"][name] = scope["calls"].get(name, 0) + 1
+        if t.is_cuda:
+            scope["card"][name] = scope["card"].get(name, 0) + 1
+    return t.is_cuda
+
+
 def count(wrapper, form: str, activation: str = "gelu") -> None:
     """One launch of ``wrapper``'s kernel: ``.launches`` counts every form,
     ``.bf16_launches`` the bf16 form's, ``.<activation>_launches`` the FFN
     kernels' launches on an activation other than GELU."""
+    for scope in SCOPES:
+        scope["launched"][wrapper.__name__] = scope["launched"].get(wrapper.__name__, 0) + 1
     wrapper.launches += 1
     if form:
         wrapper.bf16_launches += 1

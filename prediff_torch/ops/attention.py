@@ -598,7 +598,7 @@ def _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_head
             *ptrs, *dims, *_build.drop_args(seed, site, rate_attn, rate_proj, bases),
             _build.stream_ptr(x.device))
         _build.check(err, "axial_attention_dropout_forward")
-        fused_axial_attention_dropout.launches += 1
+        _build.count(fused_axial_attention_dropout, "")
     return out
 
 
@@ -613,7 +613,7 @@ def fused_axial_attention_dropout(x: torch.Tensor, axis: int, ln_w: torch.Tensor
     (:func:`fused_axial_attention` with a seed is the differentiable form).
     CPU tensor: the plain version in f32.  CUDA tensor: the kernel, or raise.
     With both rates 0 it gives the bits of the kernel without dropout."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_axial_attention_dropout, x):
         return axial_attention_plain(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
                                      scale, eps, rate_attn=rate_attn, rate_proj=rate_proj,
                                      seed=seed, site=site, bases=bases)
@@ -628,7 +628,7 @@ def fused_axial_attention_bwd_dx(x: torch.Tensor, g: torch.Tensor, axis: int,
     """dx of the layer.  CPU tensor: the plain version in f32.  CUDA tensor:
     the kernel (C a multiple of 64, as the forward), or raise.  x, g and dx
     f32, or bf16 (the bf16 form); the bias f32."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_axial_attention_bwd_dx, x):
         return axial_attention_bwd_dx_plain(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj,
                                             num_heads, scale, eps)
     B, T, H, W, C = x.shape
@@ -674,7 +674,7 @@ def fused_axial_attention_bwd_full(x: torch.Tensor, g: torch.Tensor, axis: int,
     """(dx, dln_w, dln_b, dw_qkv, dbias, dw_proj, db_proj) of the layer.  CPU
     tensor: the plain version in f32.  CUDA tensor: the kernel (C a multiple
     of 64, as the forward), or raise."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_axial_attention_bwd_full, x):
         return axial_attention_bwd_full_plain(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj,
                                               num_heads, scale, eps)
     return _attention_bwd_full_kernel(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
@@ -692,7 +692,7 @@ def fused_axial_attention_dropout_bwd_full(x: torch.Tensor, g: torch.Tensor, axi
     :func:`fused_axial_attention_dropout`, the masks regenerated from
     ``(seed, site)``.  CPU tensor: the plain version in f32.  CUDA tensor:
     the kernel, or raise."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_axial_attention_dropout_bwd_full, x):
         return axial_attention_bwd_full_plain(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj,
                                               num_heads, scale, eps, rate_attn=rate_attn,
                                               rate_proj=rate_proj, seed=seed, site=site,
@@ -734,13 +734,13 @@ def _attention_bwd_full_kernel(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, num_
     if drop is None:
         err = lib.axial_attention_bwd_full(*args, _build.stream_ptr(x.device))
         _build.check(err, "axial_attention_bwd_full")
-        fused_axial_attention_bwd_full.launches += 1
+        _build.count(fused_axial_attention_bwd_full, "")
     else:
         rate_attn, rate_proj, seed, site, bases = drop
         err = lib.axial_attention_dropout_bwd_full(
             *args, *_build.drop_args(seed, site, rate_attn, rate_proj, bases), _build.stream_ptr(x.device))
         _build.check(err, "axial_attention_dropout_bwd_full")
-        fused_axial_attention_dropout_bwd_full.launches += 1
+        _build.count(fused_axial_attention_dropout_bwd_full, "")
     return dx, vec[0], vec[1], dw_qkv, dbias, dw_proj, vec[2]
 
 
@@ -748,7 +748,7 @@ def _axial_forward(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, 
     if drop is not None:
         return fused_axial_attention_dropout(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
                                              num_heads, scale, eps, *drop)
-    if not x.is_cuda:
+    if not _build.on_card(fused_axial_attention, x):
         return axial_attention_plain(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
                                      num_heads, scale, eps)
     return _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
@@ -1001,7 +1001,7 @@ def _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale,
             *ptrs, *dims, *_build.drop_args(seed, site, rate_attn, rate_proj, bases),
             _build.stream_ptr(x.device))
         _build.check(err, "cuboid_attention_dropout_forward")
-        fused_cuboid_attention_layer_dropout.launches += 1
+        _build.count(fused_cuboid_attention_layer_dropout, "")
     return out
 
 
@@ -1018,7 +1018,7 @@ def fused_cuboid_attention_layer_dropout(x: torch.Tensor, ln_w: torch.Tensor, ln
     differentiable form).  CPU tensor: the plain version in f32.  CUDA
     tensor: the kernel, or raise.  With both rates 0 it gives the bits of the
     kernel without dropout."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_cuboid_attention_layer_dropout, x):
         return cuboid_attention_plain(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
                                       scale, eps, rate_attn=rate_attn, rate_proj=rate_proj,
                                       seed=seed, site=site, bases=bases)
@@ -1033,7 +1033,7 @@ def fused_cuboid_attention_layer_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: 
     """dx of the general cuboid layer, x and g (B, cuboids, vol, C).  CPU
     tensor: the plain version in f32.  CUDA tensor: the kernel, or raise.  x,
     g and dx f32, or bf16 (the bf16 form); the bias f32."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_cuboid_attention_layer_bwd_dx, x):
         return cuboid_attention_bwd_dx_plain(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
                                              scale, eps)
     n_cuboids, vol, C = _check_cuboid(x, num_heads)
@@ -1071,7 +1071,7 @@ def fused_cuboid_attention_layer_bwd_full(x: torch.Tensor, g: torch.Tensor, ln_w
     """(dx, dln_w, dln_b, dw_qkv, dbias, dw_proj, db_proj) of the general
     cuboid layer, x and g (B, cuboids, vol, C).  CPU tensor: the plain
     version in f32.  CUDA tensor: the kernel, or raise."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_cuboid_attention_layer_bwd_full, x):
         return cuboid_attention_bwd_full_plain(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
                                                scale, eps)
     return _cuboid_bwd_full_kernel(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, scale, eps)
@@ -1089,7 +1089,7 @@ def fused_cuboid_attention_layer_dropout_bwd_full(x: torch.Tensor, g: torch.Tens
     :func:`fused_cuboid_attention_layer_dropout`, the masks regenerated from
     ``(seed, site)`` and ``bases``.  CPU tensor: the plain version in f32.  CUDA tensor: the
     kernel, or raise."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_cuboid_attention_layer_dropout_bwd_full, x):
         return cuboid_attention_bwd_full_plain(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads,
                                                scale, eps, rate_attn=rate_attn,
                                                rate_proj=rate_proj, seed=seed, site=site,
@@ -1139,13 +1139,13 @@ def _cuboid_bwd_full_kernel(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, sc
     if drop is None:
         err = lib.cuboid_attention_bwd_full(*args, _build.stream_ptr(x.device))
         _build.check(err, "cuboid_attention_bwd_full")
-        fused_cuboid_attention_layer_bwd_full.launches += 1
+        _build.count(fused_cuboid_attention_layer_bwd_full, "")
     else:
         rate_attn, rate_proj, seed, site, bases = drop
         err = lib.cuboid_attention_dropout_bwd_full(
             *args, *_build.drop_args(seed, site, rate_attn, rate_proj, bases), _build.stream_ptr(x.device))
         _build.check(err, "cuboid_attention_dropout_bwd_full")
-        fused_cuboid_attention_layer_dropout_bwd_full.launches += 1
+        _build.count(fused_cuboid_attention_layer_dropout_bwd_full, "")
     return dx, vec[0], vec[1], dw_qkv, dbias, dw_proj, vec[2]
 
 
@@ -1153,7 +1153,7 @@ def _cuboid_forward(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale
     if drop is not None:
         return fused_cuboid_attention_layer_dropout(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
                                                     num_heads, scale, eps, *drop)
-    if not x.is_cuda:
+    if not _build.on_card(fused_cuboid_attention_layer, x):
         return cuboid_attention_plain(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,
                                       scale, eps)
     return _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps)
@@ -1322,7 +1322,7 @@ class _GroupedAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, bias, mask, scale):
         ctx.save_for_backward(q, k, v, bias, mask)
         ctx.scale = scale
-        if not q.is_cuda:
+        if not _build.on_card(fused_cuboid_attention_grouped, q):
             return grouped_attention_plain(q, k, v, bias, mask, scale)
         return _grouped_kernel(q, k, v, bias, mask, scale)
 
@@ -1344,7 +1344,7 @@ def fused_cuboid_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     q, k, v and the output f32, or bf16 (the bf16 form); the bias f32."""
     if _build.needs_grad(q, k, v, bias):
         return _GroupedAttention.apply(q, k, v, bias, mask, scale)
-    if not q.is_cuda:
+    if not _build.on_card(fused_cuboid_attention_grouped, q):
         return grouped_attention_plain(q, k, v, bias, mask, scale)
     return _grouped_kernel(q, k, v, bias, mask, scale)
 
@@ -1376,11 +1376,11 @@ def fused_cuboid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`cuboid_attention_plain_core`).  CPU tensor: the plain version.
     CUDA tensor: the kernel, or raise.  Forward-only."""
     _forward_only("fused_cuboid_attention", q, k, v, bias)
-    if not q.is_cuda:
+    if not _build.on_card(fused_cuboid_attention, q):
         return cuboid_attention_plain_core(q, k, v, bias, mask, scale)
     out = _core_kernel("cuboid_core_forward", q, k, v, bias, mask, scale, q.shape[2],
                        q.shape[1])
-    fused_cuboid_attention.launches += 1
+    _build.count(fused_cuboid_attention, "")
     return out
 
 
@@ -1405,7 +1405,7 @@ def fused_cuboid_attention_layer_v3(x: torch.Tensor, ln_w: torch.Tensor, ln_b: t
     projection in 3xTF32 on the tensor cores, the grouped core between them),
     or raise.  Forward-only."""
     _forward_only("fused_cuboid_attention_layer_v3", x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj)
-    if not x.is_cuda:
+    if not _build.on_card(fused_cuboid_attention_layer_v3, x):
         return cuboid_attention_layer_v3_plain(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
                                                num_heads, scale, eps)
     B, nC, vol, C = x.shape
@@ -1427,7 +1427,7 @@ def fused_cuboid_attention_layer_v3(x: torch.Tensor, ln_w: torch.Tensor, ln_b: t
         *(_build.ptr(t) for t in (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, stats, qkv, o, out)),
         B, nC, vol, C, num_heads, float(scale), float(eps), _build.stream_ptr(x.device))
     _build.check(err, "cuboid_layer_v3_forward")
-    fused_cuboid_attention_layer_v3.launches += 1
+    _build.count(fused_cuboid_attention_layer_v3, "")
     return out
 
 

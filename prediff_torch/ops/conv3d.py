@@ -285,7 +285,7 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
 def conv3x3x3_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """The conv's forward.  CPU tensor: the plain version (the same bf16
     rounding).  CUDA tensor: the kernel, or raise."""
-    if not x.is_cuda:
+    if not _build.on_card(conv3x3x3_forward, x):
         return conv3x3x3_plain(x, weight, bias)
     out, form = _launch(x, weight, bias, dx=False)
     _build.count(conv3x3x3_forward, form)
@@ -296,7 +296,7 @@ def conv3x3x3_dx(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """The conv's input gradient for the cotangent ``g`` (B, T, H, W, OC).
     CPU tensor: the plain version.  CUDA tensor: the kernel on the flipped,
     channel-transposed weights, or raise."""
-    if not g.is_cuda:
+    if not _build.on_card(conv3x3x3_dx, g):
         return conv3x3x3_dx_plain(g, weight)
     dx, form = _launch(g, weight, None, dx=True)
     _build.count(conv3x3x3_dx, form)

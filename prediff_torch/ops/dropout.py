@@ -165,6 +165,13 @@ class DropoutStream:
         self.site += 1
         return site
 
+    def fork(self, site: int) -> "DropoutStream":
+        """A stream of the same seed and rows that numbers on from ``site``:
+        a recomputed segment's, which draws the masks its first run drew."""
+        stream = DropoutStream(self.seed, self.first_row)
+        stream.site = int(site)
+        return stream
+
     def bases(self, *per_row: int) -> Tuple[int, ...]:
         """The element bases of a call's masks, each given by its elements
         per batch row: ``first_row`` times each."""

@@ -431,7 +431,7 @@ def fused_ffn_dropout(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w
     (:func:`fused_ffn` with a seed is the differentiable form).  CPU tensor:
     the plain version in f32.  CUDA tensor: the kernel, or raise.  With both
     rates 0 it gives the bits of the kernel without dropout."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_ffn_dropout, x):
         return ffn_dropout_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, rate_act, rate_out, seed,
                                  site, bases=bases, activation=activation)
     return _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps,
@@ -451,7 +451,7 @@ def fused_ffn_bwd_dx(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_b:
     """dx of the fused FFN.  CPU tensor: the plain version in f32.  CUDA
     tensor: the kernel (C in ``KERNEL_WIDTHS``, hidden a multiple of 64, as
     the forward), or raise.  x, g and dx f32, or bf16 (the bf16 form)."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_ffn_bwd_dx, x):
         return ffn_bwd_dx_plain(x, g, ln_w, ln_b, w1, b1, w2, eps, activation=activation)
     act = activation_index(activation)
     M, C = x.shape
@@ -482,7 +482,7 @@ def fused_ffn_bwd_full(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor, ln_
     """(dx, dln_w, dln_b, dw1, db1, dw2, db2) of the fused FFN.  CPU tensor:
     the plain version in f32.  CUDA tensor: the kernel (widths as the
     forward), or raise."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_ffn_bwd_full, x):
         return ffn_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, eps, activation=activation)
     return _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps, activation=activation)
 
@@ -495,7 +495,7 @@ def fused_ffn_dropout_bwd_full(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Ten
     """(dx, dln_w, dln_b, dw1, db1, dw2, db2) of :func:`fused_ffn_dropout`, the
     masks regenerated from ``(seed, site)`` and ``bases``.  CPU tensor: the
     plain version in f32.  CUDA tensor: the kernel, or raise."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_ffn_dropout_bwd_full, x):
         return ffn_dropout_bwd_full_plain(x, g, ln_w, ln_b, w1, b1, w2, eps, rate_act, rate_out,
                                           seed, site, bases=bases, activation=activation)
     return _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps,
@@ -549,7 +549,7 @@ def _ffn_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop, activation):
     if drop is not None:
         return fused_ffn_dropout(x, ln_w, ln_b, w1, b1, w2, b2, eps, *drop,
                                  activation=activation)
-    if not x.is_cuda:
+    if not _build.on_card(fused_ffn, x):
         return ffn_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, activation=activation)
     return _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, activation=activation)
 

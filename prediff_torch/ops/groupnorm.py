@@ -213,7 +213,7 @@ def fused_groupnorm_silu_bwd_full(x: torch.Tensor, g: torch.Tensor, weight: torc
     CUDA tensor: the kernels (any ``groups`` that divides C, as the forward;
     the route by :func:`gn_bwd_plan`), or raise.  x, g, emb and dx f32, or
     bf16 (the bf16 forms); dweight, dbias and demb f32."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_groupnorm_silu_bwd_full, x):
         return groupnorm_silu_bwd_full_plain(x, g, weight, bias, emb, groups, eps)
     B, N, C = x.shape
     if C % groups != 0 or math.lcm(C // groups, 32) > 1024:
@@ -284,7 +284,7 @@ def _groupnorm_kernel(x, weight, bias, emb, groups, eps):
 
 
 def _groupnorm_forward(x, weight, bias, emb, groups, eps):
-    if not x.is_cuda:
+    if not _build.on_card(fused_groupnorm_silu, x):
         return groupnorm_silu_plain(x, weight, bias, emb, groups, eps)
     return _groupnorm_kernel(x, weight, bias, emb, groups, eps)
 

@@ -148,7 +148,7 @@ def fused_resblock_fwd(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups: int =
                        eps: float = 1e-5):
     """(out, h2).  CPU tensor: the plain version in f32.  CUDA tensor: the
     kernels, or raise.  x, emb and out f32, or bf16 (the bf16 forms); h2 bf16."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_resblock_fwd, x):
         return resblock_plain(x, emb, k1, b1, k2, b2, g1s, g1b, g2s, g2b, groups, eps)
     B, T, H, W, C = x.shape
     form = _build.io_form("resblock", x)
@@ -174,7 +174,7 @@ def fused_resblock_bwd(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g, groups: int = 
     """(dx, demb) for the cotangent ``g``.  CPU tensor: the plain version in
     f32.  CUDA tensor: the kernels, or raise.  x, emb, g and dx f32, or bf16
     (the bf16 forms: g is the first conv's operand as it is); demb f32."""
-    if not x.is_cuda:
+    if not _build.on_card(fused_resblock_bwd, x):
         return resblock_bwd_plain(x, emb, k1, k2, g1s, g1b, g2s, g2b, h2, g, groups, eps)
     B, T, H, W, C = x.shape
     form = _build.io_form("resblock_bwd", x)

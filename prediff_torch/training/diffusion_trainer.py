@@ -30,10 +30,14 @@ as the JAX step's (the accumulation averages reduced gradients, and
 update act on the reduced gradients, so the ranks' states stay bit-equal,
 and the ``loss_dict`` holds the means over the ranks, the global batch's.
 
-Refused when asked for: ``remat_unet``, ``ema_dtype`` and ``state_dtype``
-(not ported yet), and, not carried over from the JAX trainer,
-``make_train_step_scan`` and the TPU / XLA layout and RNG knobs
-``prng_impl``, ``flat_update``, ``pack_small_thr``, ``matmul_precision``,
+The JAX trainer's opt-ins: ``remat_unet`` recomputes the UNet's activations
+in the backward of a training step (the UNet's ``remat``: one checkpoint
+segment per block pair, the draws outside every segment; the gradients keep
+their bits), never in validation; ``ema_dtype`` stores the EMA shadow
+narrower (``EmaTrainState``) and ``optim_config["state_dtype"]`` the Adam
+moments (``build_optimizer``).  Refused when asked for, not carried over from
+the JAX trainer: ``make_train_step_scan`` and the TPU / XLA layout and RNG
+knobs ``prng_impl``, ``flat_update``, ``pack_small_thr``, ``matmul_precision``,
 ``conv3d_impl``.
 """
 from typing import Dict, Optional, Tuple, Union
@@ -48,12 +52,8 @@ from ..utils.convert import torch_key_to_flax_path
 from .optim import build_optimizer, global_norm
 from .train_state import EmaTrainState, param_grads
 
-# why a knob of the JAX trainers is refused; the others are TPU / XLA knobs
-_NOT_YET = {"remat_unet": "not ported yet (ROADMAP.md queue 1, the trainer opt-ins)",
-            "ema_dtype": "not ported yet (ROADMAP.md queue 1, the trainer opt-ins)"}
-_TPU_KNOBS = {"remat_unet": False, "prng_impl": None, "flat_update": False,
-              "pack_small_thr": 0, "matmul_precision": None, "conv3d_impl": None,
-              "ema_dtype": None}
+_TPU_KNOBS = {"prng_impl": None, "flat_update": False, "pack_small_thr": 0,
+              "matmul_precision": None, "conv3d_impl": None}
 
 
 def refuse_knobs(owner: str, knobs: Dict, allowed: Dict) -> None:
@@ -65,8 +65,8 @@ def refuse_knobs(owner: str, knobs: Dict, allowed: Dict) -> None:
             raise TypeError(f"{owner}: unexpected argument '{name}'")
         if value != allowed[name] and not (name in ("prng_impl", "conv3d_impl")
                                            and value == "auto"):
-            why = _NOT_YET.get(name, "a TPU / XLA knob, not carried over (ROADMAP.md)")
-            raise NotImplementedError(f"{name}={value!r}: {why}")
+            raise NotImplementedError(f"{name}={value!r}: a TPU / XLA knob, not carried over "
+                                      "(ROADMAP.md)")
 
 
 def step_generator(seed: Union[int, torch.Generator], step: int, device) -> torch.Generator:
@@ -107,7 +107,8 @@ class DiffusionTrainer:
     def __init__(self, ld: LatentDiffusion, optim_config: Optional[Dict] = None,
                  use_ema: bool = True, ema_decay: float = 0.9999,
                  track_grad_norm: bool = False, latent_inputs: bool = False,
-                 mesh: Optional[DataMesh] = None, **knobs):
+                 mesh: Optional[DataMesh] = None, remat_unet: bool = False,
+                 ema_dtype: Optional[str] = None, **knobs):
         refuse_knobs("DiffusionTrainer", knobs, _TPU_KNOBS)
         if any(p.requires_grad for p in ld.vae.parameters()):
             raise ValueError("the VAE must be frozen")
@@ -119,6 +120,8 @@ class DiffusionTrainer:
         self.use_ema = use_ema
         self.ema_decay = ema_decay
         self.track_grad_norm = track_grad_norm
+        self.remat_unet = bool(remat_unet)
+        self.ema_dtype = ema_dtype
         # True: the steps take first-stage moments (mx, my) instead of pixel
         # windows (x, y), and the frozen VAE encode drops out of the step
         self.latent_inputs = latent_inputs
@@ -132,7 +135,8 @@ class DiffusionTrainer:
         if self.ld.learn_logvar:
             params["logvar"] = nn.Parameter(self.ld.init_logvar())
         tx = build_optimizer(list(params.values()), **self.optim_config)
-        state = EmaTrainState.create(params, tx, use_ema=self.use_ema, ema_decay=self.ema_decay)
+        state = EmaTrainState.create(params, tx, use_ema=self.use_ema, ema_decay=self.ema_decay,
+                                     ema_dtype=self.ema_dtype)
         return state.replicate(self.mesh)
 
     def _loss(self, logvar, generator, x, y, prefix: str, latent: Optional[bool] = None,
@@ -153,8 +157,12 @@ class DiffusionTrainer:
         the ranks (``reduce=False``: this rank's own)."""
         self.ld.unet.train()
         generator = step_generator(seed, state.step, self.ld.device)
-        loss, loss_dict = self._loss(self._logvar(state), generator, x, y, "train",
-                                     dropout_seed=step_dropout_seed(seed, state.step))
+        self.ld.unet.remat = self.remat_unet
+        try:
+            loss, loss_dict = self._loss(self._logvar(state), generator, x, y, "train",
+                                         dropout_seed=step_dropout_seed(seed, state.step))
+        finally:
+            self.ld.unet.remat = False
         grads = param_grads(loss, list(state.params.values()))
         mesh = self.mesh if reduce else None
         return all_reduce_mean(grads, mesh), reduce_loss_dict(loss_dict, mesh)

@@ -138,11 +138,11 @@ def fit(state: Any, train_step: Callable, train_batches_fn: Callable[[int], Iter
     step here is one call of ``train_step`` (a micro-step when gradients are
     accumulated), as ``state.step`` counts them.  ``steps_per_call`` > 1
     (several steps per dispatch, a remedy for the TPU host's dispatch cost)
-    is not ported.  ``mesh``: the ranks training together (module
+    is not carried over.  ``mesh``: the ranks training together (module
     docstring); its first rank alone logs and writes checkpoints."""
     if int(steps_per_call) > 1:
-        raise NotImplementedError("steps_per_call > 1 is not ported (ROADMAP.md queue 1, the "
-                                  "trainer opt-ins: a TPU dispatch knob, not carried over)")
+        raise NotImplementedError("steps_per_call > 1: a TPU dispatch knob, not carried over "
+                                  "(ROADMAP.md)")
     if writes(mesh):
         logger = logger if logger is not None else MetricLogger(save_dir)
     else:   # the other ranks log nothing

@@ -12,10 +12,17 @@ and does, in optax's order, what the chain does:
   (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6`` instead);
 * the schedule evaluated at the count of updates made so far, from 0: the
   first update uses ``lr * warmup_min_lr_ratio``.
+
+``state_dtype`` (the JAX package's ``_scale_by_adam_state_dtype``) stores both
+Adam moments in a narrower dtype: :class:`AdamStateDtype` widens them to f32,
+updates in f32 and rounds only what it stores.  The fused ``AdamW`` cannot
+keep moments narrower than its parameters, so it runs on ``torch._foreach_*``
+ops; the JAX package computes this update in XLA, not in a kernel.
 """
 import math
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
+import numpy as np
 import torch
 from torch.autograd.graph import increment_version
 
@@ -44,6 +51,21 @@ def build_lr_schedule(lr: float, total_num_steps: int, warmup_percentage: float 
     return schedule
 
 
+# the moment dtypes of ``state_dtype``
+STATE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
+CHUNK_ELEMENTS = 1 << 24    # parameters updated together: bounds the f32 temporaries
+
+
+def state_dtype_of(name: Optional[str]) -> Optional[torch.dtype]:
+    """``state_dtype`` / ``ema_dtype`` -> a torch dtype (None stays None);
+    another name raises ``ValueError``."""
+    if name is None:
+        return None
+    if not isinstance(name, str) or name not in STATE_DTYPES:
+        raise ValueError(f"dtype {name!r}: takes None or one of {sorted(STATE_DTYPES)}")
+    return STATE_DTYPES[name]
+
+
 def get_loss_fn(loss: str = "l2") -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Name -> mean elementwise loss."""
     if loss in ("l2", "mse"):
@@ -59,14 +81,121 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
+def chunks(tensors: Sequence[torch.Tensor]):
+    """``tensors`` in consecutive runs of at most ``CHUNK_ELEMENTS`` elements
+    (a larger tensor alone): the runs a low-precision update widens at a time."""
+    run, n = [], 0
+    for t in tensors:
+        if run and n + t.numel() > CHUNK_ELEMENTS:
+            yield run
+            run, n = [], 0
+        run.append(t)
+        n += t.numel()
+    if run:
+        yield run
+
+
+def scratch(like: Sequence[torch.Tensor], dtype: torch.dtype):
+    """``(flat, views)``: one uninitialised allocation of ``dtype`` and its
+    views shaped as ``like``."""
+    flat = torch.empty(sum(t.numel() for t in like), dtype=dtype, device=like[0].device)
+    return flat, [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in like]), like)]
+
+
+def widened(narrow: List[torch.Tensor], like: Sequence[torch.Tensor]):
+    """f32 copies of the tensors ``narrow`` (shaped as ``like``), as views of
+    one flat buffer, and ``store()``, which rounds them back into ``narrow``.
+    The dtype changes in one launch each way over the flat buffers: a
+    foreach copy across dtypes goes tensor by tensor."""
+    nflat, nviews = scratch(like, narrow[0].dtype)
+    wflat, wviews = scratch(like, torch.float32)
+    torch._foreach_copy_(nviews, narrow)
+    wflat.copy_(nflat)
+
+    def store():
+        nflat.copy_(wflat)
+        torch._foreach_copy_(narrow, nviews)
+
+    return wviews, store
+
+
+class AdamStateDtype(torch.optim.Optimizer):
+    """Adam, or AdamW with ``weight_decay``, in optax's form with both moments
+    stored in ``state_dtype`` (the JAX package's ``_scale_by_adam_state_dtype``
+    chained with ``add_decayed_weights`` and ``scale_by_learning_rate``):
+
+        mu  = b1 m + (1 - b1) g                  nu = b2 v + (1 - b2) g^2     (f32)
+        p  -= lr ((mu / bc1) / (sqrt(nu / bc2) + eps) + wd p)
+        m, v = mu, nu rounded to ``state_dtype``
+
+    with ``bc = 1 - b^count``.  Each run of parameters (:func:`chunks`) has
+    its moments widened into one f32 buffer (:func:`widened`) and takes a few
+    in-place foreach passes, as torch's own multi-tensor Adam orders them
+    (``p (1 - lr wd)``, then ``addcdiv``).  The moments are ``state["exp_avg"]`` /
+    ``state["exp_avg_sq"]``; the update count is the group's ``"step"``.
+    Parameters must be f32 (a trainable model's)."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, state_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay, step=0))
+        self.state_dtype = state_dtype
+        for group in self.param_groups:
+            if any(p.dtype != torch.float32 for p in group["params"]):
+                raise ValueError("state_dtype: the parameters must be float32")
+
+    def _moments(self, p: torch.Tensor):
+        st = self.state[p]
+        if not st:
+            st["exp_avg"] = torch.zeros_like(p, dtype=self.state_dtype)
+            st["exp_avg_sq"] = torch.zeros_like(p, dtype=self.state_dtype)
+        return st["exp_avg"], st["exp_avg_sq"]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            lr, wd = group["lr"], group["weight_decay"]
+            group["step"] += 1
+            # the bias corrections in f32, as the JAX package computes them
+            count = np.float32(group["step"])
+            bc1, bc2 = (float(np.float32(1.0) - np.float32(b) ** count) for b in (b1, b2))
+            for chunk in chunks([p for p in group["params"] if p.grad is not None]):
+                grads = [p.grad for p in chunk]
+                m, v = zip(*(self._moments(p) for p in chunk))
+                wide, store = widened(list(m + v), chunk + chunk)   # exact
+                mu, nu = wide[:len(chunk)], wide[len(chunk):]
+                torch._foreach_lerp_(mu, grads, 1.0 - b1)
+                torch._foreach_mul_(nu, b2)
+                torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+                store()                              # only the stores round
+                torch._foreach_sqrt_(nu)             # nu -> the denominator, from unrounded nu
+                torch._foreach_div_(nu, math.sqrt(bc2))
+                torch._foreach_add_(nu, group["eps"])
+                if wd:
+                    torch._foreach_mul_(chunk, 1.0 - lr * wd)
+                torch._foreach_addcdiv_(chunk, mu, nu, value=-lr / bc1)
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        # the base class casts the moments to the parameters' dtype: back to the
+        # stored one (exact: they were saved in it)
+        for st in self.state.values():
+            for key in ("exp_avg", "exp_avg_sq"):
+                st[key] = st[key].to(self.state_dtype)
+
+
 class Optimizer:
     """Clip, AdamW (or Adam) under the schedule, and accumulation, over a
-    fixed list of parameters that it updates in place."""
+    fixed list of parameters that it updates in place.  ``state_dtype`` is
+    the moments' dtype name when they are stored narrower (``None``: the
+    parameters' own)."""
 
     def __init__(self, params: Sequence[torch.Tensor], optimizer: torch.optim.Optimizer,
                  schedule: Callable[[int], float], gradient_clip_val: Optional[float],
-                 accum_steps: int):
+                 accum_steps: int, state_dtype: Optional[str] = None):
         self.params = list(params)
+        self.state_dtype = state_dtype
         self.optimizer = optimizer
         self.schedule = schedule
         self.gradient_clip_val = gradient_clip_val
@@ -108,8 +237,8 @@ class Optimizer:
         self.optimizer.step()
         for p in self.params:
             p.grad = None
-            # the fused AdamW step writes the parameters without bumping their
-            # version counters; the kernels' bf16 weight copies (ops/weights.py)
+            # the fused AdamW step (and the foreach ops) write the parameters without
+            # bumping their version counters; the kernels' bf16 weight copies (ops/weights.py)
             # are kept per version, so bump them here
             increment_version(p)
         self.count += 1
@@ -117,10 +246,23 @@ class Optimizer:
 
     def state_dict(self) -> Dict:
         return {"optimizer": self.optimizer.state_dict(), "count": self.count,
-                "mini_step": self.mini_step,
+                "mini_step": self.mini_step, "state_dtype": self.state_dtype,
                 "acc_grads": None if self.acc_grads is None else list(self.acc_grads)}
 
     def load_state_dict(self, state: Dict) -> None:
+        """Restore in place; moments of another dtype than this optimizer
+        stores raise ``ValueError`` (as in the JAX package, an f32 state and a
+        low-precision one are not interchangeable)."""
+        want = state_dtype_of(self.state_dtype)
+        for i, st in state["optimizer"]["state"].items():
+            dtype = want or self.params[int(i)].dtype
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in st and st[key].dtype != dtype:
+                    raise ValueError(f"checkpoint holds Adam moments in {st[key].dtype}, this "
+                                     f"optimizer stores them in {dtype}")
+        if state.get("state_dtype") != self.state_dtype:
+            raise ValueError(f"checkpoint of state_dtype {state.get('state_dtype')!r}, this "
+                             f"optimizer's is {self.state_dtype!r}")
         self.optimizer.load_state_dict(state["optimizer"])
         self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
         acc = state["acc_grads"]
@@ -134,21 +276,24 @@ def build_optimizer(params: Sequence[torch.Tensor], lr: float = 1e-3,
                     warmup_percentage: float = 0.1, lr_scheduler_mode: str = "cosine",
                     min_lr_ratio: float = 1e-3, warmup_min_lr_ratio: float = 0.1,
                     accum_steps: int = 1, state_dtype: Optional[str] = None) -> Optimizer:
-    """The recipe's optimizer over ``params``.  ``state_dtype`` (low-precision
-    Adam moments) is not ported yet: anything but ``None`` raises."""
-    if state_dtype is not None:
-        raise NotImplementedError("state_dtype: low-precision Adam moments are not ported yet "
-                                  "(ROADMAP.md queue 1, the trainer opt-ins)")
+    """The recipe's optimizer over ``params``.  ``state_dtype`` (None, or
+    "bfloat16", "float16", "float32"; another value raises ``ValueError``):
+    both moments stored in that dtype (:class:`AdamStateDtype`)."""
+    sdtype = state_dtype_of(state_dtype)
     schedule = build_lr_schedule(lr, total_num_steps, warmup_percentage, lr_scheduler_mode,
                                  min_lr_ratio, warmup_min_lr_ratio)
     params = list(params)
+    if method not in ("adamw", "adam"):
+        raise NotImplementedError(f"optimizer '{method}'")
+    if sdtype is not None:
+        opt = AdamStateDtype(params, lr=schedule(0), betas=betas, eps=1e-8,
+                             weight_decay=wd if method == "adamw" else 0.0, state_dtype=sdtype)
+        return Optimizer(params, opt, schedule, gradient_clip_val, accum_steps, state_dtype)
     # on the card, the optimizer's one-pass multi-tensor kernel in place of ~10 passes
     kw = dict(lr=schedule(0), betas=tuple(betas), eps=1e-8,
               fused=all(p.is_cuda for p in params))
     if method == "adamw":
         opt = torch.optim.AdamW(params, weight_decay=wd, **kw)
-    elif method == "adam":
-        opt = torch.optim.Adam(params, **kw)
     else:
-        raise NotImplementedError(f"optimizer '{method}'")
+        opt = torch.optim.Adam(params, **kw)
     return Optimizer(params, opt, schedule, gradient_clip_val, accum_steps)

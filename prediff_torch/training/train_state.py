@@ -21,7 +21,7 @@ from torch import nn
 
 from ..parallel.mesh import DataMesh, replicate_
 from .ema import ema_update
-from .optim import Optimizer
+from .optim import Optimizer, state_dtype_of
 
 
 def param_grads(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> list:
@@ -34,28 +34,27 @@ def param_grads(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> list:
 
 class EmaTrainState:
     def __init__(self, params: Dict[str, nn.Parameter], tx: Optimizer, use_ema: bool = True,
-                 ema_decay: float = 0.9999):
+                 ema_decay: float = 0.9999, ema_dtype: Optional[str] = None):
         self.step = 0
         self.params = params        # name -> live parameter, "unet.<path>" and "logvar"
         self.tx = tx
         self.use_ema = use_ema
         self.ema_decay = ema_decay
+        dtype = state_dtype_of(ema_dtype)
         # own copies: the shadow never aliases a parameter
         self.ema_params: Optional[Dict[str, torch.Tensor]] = (
-            {k: p.detach().clone() for k, p in params.items()} if use_ema else None)
+            {k: p.detach().to(dtype or p.dtype, copy=True) for k, p in params.items()}
+            if use_ema else None)
 
     @classmethod
     def create(cls, params: Dict[str, nn.Parameter], tx: Optimizer, use_ema: bool = True,
                ema_decay: float = 0.9999, ema_dtype: Optional[str] = None) -> "EmaTrainState":
         """``tx`` must have been built over ``params.values()`` in this order.
-        ``ema_dtype`` (a low-precision shadow) is not ported yet: anything but
-        ``None`` raises."""
-        if ema_dtype is not None:
-            raise NotImplementedError("ema_dtype: a low-precision EMA shadow is not ported yet "
-                                      "(ROADMAP.md queue 1, the trainer opt-ins)")
+        ``ema_dtype`` (None, or "bfloat16", "float16", "float32"): the EMA
+        shadow stored in that dtype, moved in the parameters' (``ema_update``)."""
         if [id(p) for p in tx.params] != [id(p) for p in params.values()]:
             raise ValueError("the optimizer was built over other parameters than the state's")
-        return cls(params, tx, use_ema=use_ema, ema_decay=ema_decay)
+        return cls(params, tx, use_ema=use_ema, ema_decay=ema_decay, ema_dtype=ema_dtype)
 
     def tensors(self) -> list:
         """Every tensor of the state: the parameters, the EMA shadow, the
@@ -86,10 +85,12 @@ class EmaTrainState:
     def ema_param_tree(self, prefix: str = "") -> Optional[Dict[str, torch.Tensor]]:
         """The EMA shadow, name -> tensor; with ``prefix`` only the names
         under it, the prefix cut (``"unet."`` gives what
-        ``torch.func.functional_call`` takes for the UNet)."""
+        ``torch.func.functional_call`` takes for the UNet).  A shadow stored
+        in ``ema_dtype`` comes widened to each parameter's dtype."""
         if self.ema_params is None:
             return None
-        return {k[len(prefix):]: v for k, v in self.ema_params.items() if k.startswith(prefix)}
+        return {k[len(prefix):]: v.to(self.params[k].dtype) for k, v in self.ema_params.items()
+                if k.startswith(prefix)}
 
     def state_dict(self) -> Dict:
         return {"step": self.step,
@@ -98,11 +99,18 @@ class EmaTrainState:
                 "ema_params": self.ema_params}
 
     def load_state_dict(self, state: Dict) -> None:
-        """Restore in place; the names must be this state's."""
+        """Restore in place; the names must be this state's, and the shadow's
+        and the moments' dtypes (a low-precision state and an f32 one are not
+        interchangeable: ``ValueError``)."""
         if set(state["params"]) != set(self.params):
             raise ValueError("checkpoint holds other parameters than this train state")
         if (state["ema_params"] is None) != (self.ema_params is None):
             raise ValueError("checkpoint and train state differ in use_ema")
+        for k, e in (self.ema_params or {}).items():
+            if state["ema_params"][k].dtype != e.dtype:
+                raise ValueError(f"checkpoint holds the EMA shadow in "
+                                 f"{state['ema_params'][k].dtype}, this state in {e.dtype}")
+        self.tx.load_state_dict(state["opt_state"])   # checks the moments before it loads
         self.step = int(state["step"])
         with torch.no_grad():
             for k, p in self.params.items():
@@ -110,4 +118,3 @@ class EmaTrainState:
             if self.ema_params is not None:
                 for k, e in self.ema_params.items():
                     e.copy_(state["ema_params"][k])
-        self.tx.load_state_dict(state["opt_state"])

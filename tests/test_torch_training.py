@@ -402,8 +402,8 @@ def test_dropout_rates_are_refused_in_training_mode():
 def test_tpu_knobs_are_refused(both):
     tcfg = both[3]
     ld = build_training_pipeline(tcfg, device="cpu")
-    for knob in (dict(remat_unet=True), dict(flat_update=True), dict(pack_small_thr=1024),
-                 dict(ema_dtype="bfloat16"), dict(matmul_precision="bfloat16")):
+    for knob in (dict(flat_update=True), dict(pack_small_thr=1024),
+                 dict(matmul_precision="bfloat16")):
         with pytest.raises(NotImplementedError):
             DiffusionTrainer(ld, **knob)
     # the mesh is taken (DDP training; two ranks in tests/test_torch_ddp_training.py),
@@ -412,6 +412,4 @@ def test_tpu_knobs_are_refused(both):
     assert DiffusionTrainer(ld, mesh=make_mesh(device="cpu")).mesh.size == 1
     with pytest.raises(ValueError, match="device"):
         DiffusionTrainer(ld, mesh=make_mesh(device="meta"))
-    with pytest.raises(NotImplementedError):
-        DiffusionTrainer(ld, optim_config=dict(state_dtype="bfloat16")).create_state()
     DiffusionTrainer(ld, prng_impl="auto", conv3d_impl="auto")      # the configs' defaults
