@@ -134,7 +134,13 @@ eager and on graphs, exact launches), ``variant_globals_forecast`` (a UNet with
 and of a relu / global-vector / pooled-readout and a gated alignment net:
 forward, all gradients and the input gradient card against CPU) and
 ``variant_train`` (one trainer micro-step on each of the three at the
-recipes' rates: the dropout kernels on leaky and silu).
+recipes' rates: the dropout kernels on leaky and silu).  Last
+``steps_per_call`` (also ``--only scan``): ``devseed_kernels_vs_plain`` (rows
+15a-15d with the seed read from the card, bit-equal to the int-seed forms and
+against their plain versions at base 0 and ``DROP_BASES``, each an entry of the
+kernels line) and ``train_scan`` (the recipe's trainer, K = 4 micro-steps a
+call replayed from captured graphs, from pixels and from moments, bit-equal
+to as many eager micro-steps, launches per replay, ms against the eager ones).
 Then the ``kernels`` summary line (per kernel its ms,
 bound, library call and ``vs_library``; the conv, the grouped cores, the
 round-1 layer, the GroupNorm+SiLU forward and all-gradients backward and the
@@ -148,6 +154,7 @@ kernels' masks)), the card's name and power limit, and as the last line
 Any failed check exits non-zero before that line is printed.
 """
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -1584,7 +1591,7 @@ def summarize(cases, launches_by_path):
     the conv kernels: one guided step, one micro-step of ``conv_train``).  The
     round-1 kernels are on no path: launches 0, their cases weighed alike."""
     out = []
-    table = {**KERNELS, **BF16_KERNELS, **ACT_KERNELS}
+    table = {**KERNELS, **BF16_KERNELS, **ACT_KERNELS, **SCAN_KERNELS}
     for name, cs in cases.items():
         source, replaces, main_path = table[name]
         keys = PATH_WEIGHTS[main_path]
@@ -1599,7 +1606,8 @@ def summarize(cases, launches_by_path):
         bytes_share = sum(w for c, w in zip(cs, wts) if c["bound"][1] == "bytes") / n
         has_library = all(c["library_ms"] is not None for c in cs)
         extra = {k: mix(k) for k in ("library_f32_ms", "device_ms", "library_device_ms",
-                                     "library_seq_ms", "library_seq_device_ms") if k in cs[0]}
+                                     "library_seq_ms", "library_seq_device_ms",
+                                     "int_seed_device_ms") if k in cs[0]}
         if "library_device_ms" in extra:
             extra["vs_library_device"] = extra["device_ms"] / extra["library_device_ms"]
         if has_library:
@@ -3902,6 +3910,66 @@ def ffn_gelu_times(device, smi):
     emit({"phase": "ffn_gelu_times", "tree": os.getcwd(), "device_ms": out, "card": smi})
 
 
+def dropout_times(device, smi):
+    """``--only drop_times``: the device time of the dropout kernels with a
+    host seed (rows 15a-15d and the general layer's forms, 15e) at the
+    training micro-step's shapes, by graph replay.  It calls the wrappers as
+    older trees take them, so a copy of this script in an older tree times
+    that tree's kernels: compare two trees in one call, in turns."""
+    import torch
+    from prediff_torch.ops import attention as A_
+    from prediff_torch.ops import ffn as F_
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 26)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=device) * scale + shift
+
+    drop = (DROP_RATE, DROP_RATE, DROP_SEED, DROP_SITE)
+    out, heads = {}, 4
+    for M, C in ((6656, 256), (1664, 512)):
+        hid = 4 * C
+        x, g, ln_w, ln_b = randn(M, C), randn(M, C), randn(C, scale=0.1, shift=1.0), randn(C)
+        w1, b1 = randn(hid, C, scale=C ** -0.5), randn(hid, scale=0.1)
+        w2, b2 = randn(C, hid, scale=hid ** -0.5), randn(C, scale=0.1)
+        forms = {"ffn_dropout": lambda: F_.fused_ffn_dropout(x, ln_w, ln_b, w1, b1, w2, b2,
+                                                             1e-5, *drop),
+                 "ffn_dropout_bwd_full": lambda: F_.fused_ffn_dropout_bwd_full(
+                     x, g, ln_w, ln_b, w1, b1, w2, 1e-5, *drop)}
+        for name, fn in forms.items():
+            out.setdefault(name, {})[f"{M}x{C}"] = graph_time_ms(fn)
+    for shape in ((2, 13, 16, 16, 256), (2, 13, 8, 8, 512)):
+        C = shape[-1]
+        for axis in range(3):
+            vol = shape[1 + axis]
+            x, g = randn(*shape), randn(*shape)
+            w = (randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1),
+                 randn(3 * C, C, scale=C ** -0.5), randn(heads, vol, vol, scale=0.5),
+                 randn(C, C, scale=C ** -0.5))
+            b_proj = randn(C, scale=0.1)
+            forms = {"axial_attention_dropout": lambda: A_.fused_axial_attention_dropout(
+                         x, axis, *w, b_proj, heads, (C // heads) ** -0.5, 1e-5, *drop),
+                     "axial_attention_dropout_bwd_full":
+                         lambda: A_.fused_axial_attention_dropout_bwd_full(
+                             x, g, axis, *w, heads, (C // heads) ** -0.5, 1e-5, *drop)}
+            for name, fn in forms.items():
+                out.setdefault(name, {})[f"{shape}@{axis}"] = graph_time_ms(fn)
+    for shape in ((2, 52, 64, 256), (2, 13, 64, 512)):
+        C, vol = shape[-1], shape[2]
+        x, g = randn(*shape), randn(*shape)
+        w = (randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1), randn(3 * C, C, scale=C ** -0.5),
+             randn(heads, vol, vol, scale=0.5), randn(C, C, scale=C ** -0.5))
+        b_proj = randn(C, scale=0.1)
+        forms = {"cuboid_attention_dropout": lambda: A_.fused_cuboid_attention_layer_dropout(
+                     x, *w, b_proj, heads, (C // heads) ** -0.5, 1e-5, *drop),
+                 "cuboid_attention_dropout_bwd_full":
+                     lambda: A_.fused_cuboid_attention_layer_dropout_bwd_full(
+                         x, g, *w, heads, (C // heads) ** -0.5, 1e-5, *drop)}
+        for name, fn in forms.items():
+            out.setdefault(name, {})[str(shape)] = graph_time_ms(fn)
+    emit({"phase": "dropout_times", "tree": os.getcwd(), "device_ms": out, "card": smi})
+
+
 def variants_alone(device, smi):
     """``--only variants``: the variant phases with the seeded randomized VAE,
     then their kernels line."""
@@ -4081,10 +4149,13 @@ def kernel_counters():
 # eval (eval_suite), data (data_prefetch), cli (the cli_* phases), mesh
 # (the mesh_* phases), ddp (the ddp_* phases), variants (the model variants:
 # ffn_activations, the variant forecasts, variant_vs_cpu, variant_train), optins
-# (profiling_helpers, optin_remat, optin_bf16_state) and ffn_gelu (the FFN
-# kernels' GELU forms' device times, alone)
+# (profiling_helpers, optin_remat, optin_bf16_state), ffn_gelu (the FFN
+# kernels' GELU forms' device times, alone), scan (devseed_kernels_vs_plain,
+# train_scan: steps_per_call on captured graphs) and drop_times (the dropout
+# kernels' device times, to compare two trees)
 ONLY = ("bwd_split", "guided_repeat", "vae_train", "align_train", "bf16", "vae_train_bf16",
-        "bf16params", "eval", "data", "cli", "mesh", "ddp", "variants", "optins", "ffn_gelu")
+        "bf16params", "eval", "data", "cli", "mesh", "ddp", "variants", "optins", "ffn_gelu",
+        "scan", "drop_times")
 
 
 def run_only(device, names, smi: str) -> None:
@@ -4108,6 +4179,10 @@ def run_only(device, names, smi: str) -> None:
             variants_alone(device, smi)
         elif name == "optins":
             optins_alone(device, smi)
+        elif name == "scan":
+            scan_alone(device, smi)
+        elif name == "drop_times":
+            dropout_times(device, smi)
         elif name == "bwd_split":
             bwd_split(device)
         elif name == "guided_repeat":
@@ -4278,8 +4353,13 @@ def run(device, cfg, smi: str, build) -> None:
                                        names=CLI_PHASES[:-1]))
     launches_by_path.update(mesh_phases(device, smi, cfg, weights, by_route))
     launches_by_path.update(ddp_phases(device, smi, cfg, weights, by_route))
+    # last: the captures of train_scan leave card memory reserved in this process, which
+    # would shrink the mesh and DDP children's shares and so their cuDNN algorithms
+    scases, scan_launches = scan_phases(device, smi, cfg, train_weights, by_route, cases,
+                                        zero_counts, read_counts)
+    launches_by_path.update(scan_launches)
     emit({"phase": "graph_chains", "card": smi, "chains": GRAPH_CHAINS})
-    emit({"kernels": summarize({**cases, **bcases, **acases}, launches_by_path)})
+    emit({"kernels": summarize({**cases, **bcases, **acases, **scases}, launches_by_path)})
     print(smi, flush=True)
 
 
@@ -5195,6 +5275,316 @@ def optin_phases(device, cfg, smi, ld, xy, per_micro, zero_counts, read_counts):
     training micro-batch): ``optin_remat``, then ``optin_bf16_state``."""
     optin_remat(device, smi, cfg, ld, xy, per_micro, zero_counts, read_counts)
     optin_bf16_state(device, smi, cfg, ld, xy)
+
+
+# --------------------------------------------------------------------------- #
+# steps_per_call: K diffusion micro-steps per call, replays of captured CUDA
+# graphs (training/step_graphs.py), and the dropout kernels' device-seed form.
+SCAN_K = 4               # micro-steps per call
+SCAN_CALLS = 3           # calls from pixels: 12 micro-steps, 6 optimizer steps at accum 2
+SCAN_MOMENT_CALLS = 2    # calls from first-stage moments: 8 micro-steps
+# rows 15a-15d with the seed read from the card (ops/dropout.device_seed): the
+# int-seed form each was held against, on the train_scan path
+SCAN_FORMS = {"ffn_dropout_devseed": "ffn_dropout",
+              "ffn_dropout_bwd_full_devseed": "ffn_dropout_bwd_full",
+              "axial_attention_dropout_devseed": "axial_attention_dropout",
+              "axial_attention_dropout_bwd_full_devseed": "axial_attention_dropout_bwd_full"}
+SCAN_KERNELS = {k: KERNELS[v][:2] + ("train_scan",) for k, v in SCAN_FORMS.items()}
+PATH_WEIGHTS["train_scan"] = ("per_train",)
+
+
+def check_devseed_kernels(cases, device):
+    """Rows 15a-15d with a device seed at the training micro-step's shapes
+    (the int-seed forms' ``per_train`` cases): bit-equal to the int-seed form
+    on the same seed; against the plain version (which takes the device seed
+    too) at base 0 and at ``DROP_BASES``, at the int-seed forms' bars; the
+    times, the device time alone beside the int-seed form's in the same run.
+    Returns the cases, one list per form, and the failed ones."""
+    import torch
+    from prediff_torch.ops.attention import (axial_attention_bwd_full_plain,
+                                             axial_attention_plain,
+                                             fused_axial_attention_dropout,
+                                             fused_axial_attention_dropout_bwd_full)
+    from prediff_torch.ops.dropout import device_seed
+    from prediff_torch.ops.ffn import (ffn_dropout_bwd_full_plain, ffn_dropout_plain,
+                                       fused_ffn_dropout, fused_ffn_dropout_bwd_full)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    bf16 = torch.bfloat16
+    seed_t = device_seed(DROP_SEED, device)
+    heads = 4
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=device) * scale + shift
+
+    out = {k: [dict(shape=c["shape"], per_train=c["per_train"],
+                    **({"axis": c["axis"]} if "axis" in c else {}))
+               for c in cases[v] if c["per_train"]] for k, v in SCAN_FORMS.items()}
+    for name, cs in out.items():
+        for c in cs:
+            if name.startswith("ffn"):
+                M, C = c["shape"]
+                hid = 4 * C
+                x, ln_w, ln_b = randn(M, C), randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1)
+                w1, b1 = randn(hid, C, scale=C ** -0.5), randn(hid, scale=0.1)
+                w2, b2 = randn(C, hid, scale=hid ** -0.5), randn(C, scale=0.1)
+                if name == "ffn_dropout_devseed":
+                    args = (x, ln_w, ln_b, w1, b1, w2, b2, 1e-5)
+                    kernel, plain = fused_ffn_dropout, ffn_dropout_plain
+                    nbytes, flops, outs = (4 * (2 * M * C + 2 * C * hid + hid + 3 * C),
+                                           4 * M * C * hid, None)
+                else:
+                    args = (x, randn(M, C), ln_w, ln_b, w1, b1, w2, 1e-5)
+                    kernel, plain = fused_ffn_dropout_bwd_full, ffn_dropout_bwd_full_plain
+                    nbytes, flops = (4 * (3 * M * C + 4 * C * hid + 2 * hid + 5 * C),
+                                     10 * M * C * hid)
+                    outs = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2")
+
+                def call(fn, seed, bases=(0, 0), **kw):
+                    return fn(*args, DROP_RATE, DROP_RATE, seed, DROP_SITE, bases=bases, **kw)
+            else:
+                B, T, H, W, C = c["shape"]
+                axis = c["axis"]
+                vol = (T, H, W)[axis]
+                M = B * T * H * W
+                x, ln_w, ln_b = randn(B, T, H, W, C), randn(C, scale=0.1, shift=1.0), randn(
+                    C, scale=0.1)
+                w_qkv, bias = randn(3 * C, C, scale=C ** -0.5), randn(heads, vol, vol, scale=0.5)
+                w_proj, b_proj = randn(C, C, scale=C ** -0.5), randn(C, scale=0.1)
+                scale = (C // heads) ** -0.5
+                if name == "axial_attention_dropout_devseed":
+                    args = (x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, heads, scale, 1e-5)
+                    kernel, plain = fused_axial_attention_dropout, axial_attention_plain
+                    nbytes = 4 * (2 * M * C + 4 * C * C + heads * vol * vol + 3 * C)
+                    flops, outs = 8 * M * C * C + 4 * M * vol * C, None
+                else:
+                    args = (x, randn(B, T, H, W, C), axis, ln_w, ln_b, w_qkv, bias, w_proj,
+                            heads, scale, 1e-5)
+                    kernel = fused_axial_attention_dropout_bwd_full
+                    plain = axial_attention_bwd_full_plain
+                    nbytes = 4 * (3 * M * C + 8 * C * C + 2 * heads * vol * vol + 5 * C)
+                    flops = 22 * M * C * C + 12 * M * vol * C
+                    outs = ("dx", "dln_w", "dln_b", "dw_qkv", "dbias", "dw_proj", "db_proj")
+
+                def call(fn, seed, bases=(0, 0), **kw):
+                    if fn is axial_attention_plain or fn is axial_attention_bwd_full_plain:
+                        return fn(*args, bf16, DROP_RATE, DROP_RATE, seed, DROP_SITE,
+                                  bases=bases)
+                    return fn(*args, DROP_RATE, DROP_RATE, seed, DROP_SITE, bases=bases)
+
+            plain_kw = {"mxu_dtype": bf16} if name.startswith("ffn") else {}
+            got, by_int = call(kernel, seed_t), call(kernel, DROP_SEED)
+            want = call(plain, seed_t, **plain_kw)
+            sync(device)
+            if outs is None:
+                judge(c, got, want, tol=2e-2)
+                equal = torch.equal(got, by_int)
+            else:
+                judge_all(c, outs, got, want)
+                equal = all(torch.equal(a, b) for a, b in zip(got, by_int))
+            c["bit_equal_to_int_seed"] = equal
+            c["ok"] = c["ok"] and equal
+            judge_base(c, lambda b: call(kernel, seed_t, b),
+                       lambda b: call(plain, seed_t, b, **plain_kw), outs)
+            timed(c, lambda: call(kernel, seed_t), lambda: call(plain, seed_t, **plain_kw),
+                  nbytes, device_time=True, bf16_flops=flops)
+            c["int_seed_device_ms"] = graph_time_ms(lambda: call(kernel, DROP_SEED))
+    failed = [(n, c) for n, cs in out.items() for c in cs if not c["ok"]]
+    return out, failed
+
+
+def scan_state_equal(a, b) -> dict:
+    """Which parts of two train states are bit-equal: the parameters, both
+    Adam moments and the optimizer's step counts, the EMA shadow, the counters."""
+    import torch
+
+    sa, sb = a.tx.optimizer.state, b.tx.optimizer.state
+    pa, pb = list(a.params.values()), list(b.params.values())
+    moments = {k: all(torch.equal(sa[p][k], sb[q][k]) for p, q in zip(pa, pb))
+               for k in ("exp_avg", "exp_avg_sq", "step")}
+    return {"params": all(torch.equal(p, q) for p, q in zip(pa, pb)), **moments,
+            "ema": all(torch.equal(a.ema_params[k], b.ema_params[k]) for k in a.ema_params),
+            "counters": (a.step, a.tx.count, a.tx.mini_step) == (b.step, b.tx.count,
+                                                                  b.tx.mini_step)}
+
+
+def train_scan(device, smi, cfg, weights, per_train, zero_counts, read_counts,
+               depth=None) -> dict:
+    """``train_scan``: the recipe's trainer (rates 0.1, B=2, accum 2) with
+    ``steps_per_call`` K = ``SCAN_K``: ``SCAN_CALLS`` calls of
+    ``train_step_scan`` from pixels against as many eager ``train_step``
+    calls from the same state on a second pipeline of the same weights,
+    bit for bit (parameters, moments, shadow, counters, every metric), the
+    launches of the run and per replay, ms per micro-step both ways, the
+    replays' device ms and busy share, the captures' seconds and pool; then
+    ``SCAN_MOMENT_CALLS`` calls from first-stage moments likewise.  Returns
+    the wrappers' launches of the pixel run."""
+    import numpy as np
+    import torch
+    from prediff_torch.config import ConfigDict, deep_merge
+    from prediff_torch.datasets.synthetic import synthetic_batch_iterator
+    from prediff_torch.factory import build_training_pipeline
+    from prediff_torch.models.init import init_params_
+
+    if depth is not None:
+        cfg = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"latent_model": dict(
+            depth=list(depth))}}))
+    B, L = cfg.optim.micro_batch_size, cfg.layout
+    micro_steps = SCAN_K * SCAN_CALLS
+    it = synthetic_batch_iterator(B, L.in_len + L.out_len, L.img_height, L.img_width,
+                                  seed=SEED + 5)
+    batches = torch.from_numpy(np.stack([next(it) for _ in range(micro_steps)]))
+    xs, ys = batches[:, :, L.in_len:].contiguous(), batches[:, :, :L.in_len].contiguous()
+    lds = []
+    for _ in range(2):
+        ld = build_training_pipeline(cfg, device=device, params=weights)
+        init_params_(ld.unet, torch.Generator().manual_seed(SEED))
+        lds.append(ld)
+    names = {fn.__name__: name for name, fn in COUNTERS.items()}
+    per_micro = expected_train_launches(per_train, 1, 0, dropout=True)
+    per_micro = {k: v for k, v in per_micro.items() if v}
+
+    def run(latent: bool, calls: int):
+        n = SCAN_K * calls
+        eager_tr, scan_tr = (recipe_trainer(ld, cfg, latent_inputs=latent) for ld in lds)
+        if latent:
+            def moments(a):
+                m = lds[0].first_stage_moments(a.reshape((-1,) + tuple(a.shape[2:])))
+                return m.reshape(tuple(a.shape[:2]) + tuple(m.shape[1:]))
+
+            with torch.no_grad():
+                xk = torch.stack([moments(a.to(device)) for a in xs[:n]])
+                yk = torch.stack([moments(a.to(device)) for a in ys[:n]])
+        else:
+            xk, yk = xs[:n].pin_memory(), ys[:n].pin_memory()
+        eager, scanned = eager_tr.create_state(), scan_tr.create_state()
+        ex, ey = xk.to(device), yk.to(device)
+        eager_ms, eager_metrics = [], []
+        for k in range(n):
+            sync(device)
+            t0 = time.perf_counter()
+            eager, m = eager_tr.train_step(eager, SEED, ex[k], ey[k])
+            sync(device)
+            eager_ms.append(1e3 * (time.perf_counter() - t0))
+            eager_metrics.append(m)
+        sync(device)
+        zero_counts()
+        call_ms, metrics = [], []
+        graphs = None
+        for c in range(calls):
+            if c == calls - 1 and scan_tr.scan_graphs is not None:
+                scan_tr.scan_graphs.timing = []
+            t0 = time.perf_counter()
+            scanned, m = scan_tr.train_step_scan(scanned, SEED, xk[c * SCAN_K:(c + 1) * SCAN_K],
+                                                 yk[c * SCAN_K:(c + 1) * SCAN_K])
+            sync(device)
+            call_ms.append(1e3 * (time.perf_counter() - t0))
+            metrics.append(m)
+            graphs = scan_tr.scan_graphs
+        counts = {k: v for k, v in read_counts().items() if v}
+        replays = graphs.timing or []
+        replay_ms = [s.elapsed_time(e) for _, s, e in replays]
+        graphs.timing = None
+        equal = scan_state_equal(eager, scanned)
+        keys = list(eager_metrics[0])
+        metric_equal = all(torch.equal(torch.stack([e[k] for e in eager_metrics]),
+                                       torch.cat([m[k] for m in metrics])) for k in keys)
+        per_replay = {kind: {names.get(fn, fn): v for fn, v in d.items()}
+                      for kind, d in graphs.launches_per_replay().items()}
+        steady = call_ms[-1] / SCAN_K
+        eager_steady = median(eager_ms[2:])
+        device_ms = float(np.mean(replay_ms)) if replay_ms else None
+        out = {"micro_steps": n, "calls": calls, "k": SCAN_K, "bit_equal": equal,
+               "metrics_bit_equal": metric_equal, "metric_keys": keys,
+               "optimizer_steps": scanned.tx.count, "step": scanned.step,
+               "loss": [float(v) for m in metrics for v in m["train/loss"]],
+               "call_ms": call_ms, "ms_per_micro_step": steady,
+               "eager_ms_per_micro_step": eager_steady, "eager_ms": eager_ms,
+               "replay_device_ms": device_ms, "replays_timed": len(replay_ms),
+               "busy_share": None if device_ms is None else device_ms / steady,
+               "captures": graphs.captures, "capture_s": graphs.capture_seconds,
+               "pool_gib": graphs.pool_bytes() / 2**30, "launches": counts,
+               "expected_launches": {k: v * n for k, v in per_micro.items()},
+               "launches_per_replay": per_replay}
+        del eager_tr, scan_tr, eager, scanned, ex, ey
+        return out
+
+    t1 = time.perf_counter()
+    pixels = run(False, SCAN_CALLS)
+    pixel_s = time.perf_counter() - t1
+    moments = run(True, SCAN_MOMENT_CALLS)
+    emit({"phase": "train_scan", "batch": B, "accum_steps": TRAIN_ACCUM,
+          "depth": list(cfg.model.latent_model.depth),
+          "dropout": {k: cfg.model.latent_model[k] for k in ("attn_drop", "proj_drop", "ffn_drop")},
+          "pixels": pixels, "moments": moments, "pixel_run_s": pixel_s,
+          "torch": torch.__version__, "card": smi})
+    for what, r in (("pixels", pixels), ("moments", moments)):
+        if not (all(r["bit_equal"].values()) and r["metrics_bit_equal"]):
+            fail(f"train_scan ({what}): not bit-equal to eager train_step: {r['bit_equal']}, "
+                 f"metrics {r['metrics_bit_equal']}")
+        if r["launches"] != r["expected_launches"]:
+            fail(f"train_scan ({what}): launches {r['launches']} != {r['expected_launches']}")
+        if any(d != per_micro for d in r["launches_per_replay"].values()) or \
+                sorted(r["launches_per_replay"]) != ["accumulate", "update"]:
+            fail(f"train_scan ({what}): launches per replay {r['launches_per_replay']} != "
+                 f"{per_micro} for each kind")
+        if not np.isfinite(r["loss"]).all():
+            fail(f"train_scan ({what}): non-finite loss")
+    if pixels["optimizer_steps"] != micro_steps // TRAIN_ACCUM:
+        fail(f"train_scan: {pixels['optimizer_steps']} optimizer steps")
+    # what the phase leaves reserved once its pipelines and graphs are gone
+    del lds, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_scan_released", "reserved_gib": torch.cuda.memory_reserved(device) / 2**30,
+          "allocated_gib": torch.cuda.memory_allocated(device) / 2**30})
+    return pixels["launches"]
+
+
+def scan_phases(device, smi, cfg, weights, by_route, cases, zero_counts, read_counts,
+                depth=None):
+    """The dropout kernels' device-seed form (``devseed_kernels_vs_plain``),
+    then ``train_scan``.  Returns the device-seed cases and the launches
+    of the ``train_scan`` path by their names."""
+    scases, bad = check_devseed_kernels(cases, device)
+    emit({"phase": "devseed_kernels_vs_plain", "cases": sum(len(v) for v in scases.values()),
+          "failed": len(bad), "bases": list(DROP_BASES),
+          "device_ms": {k: [c["device_ms"] for c in cs] for k, cs in scases.items()},
+          "int_seed_device_ms": {k: [c["int_seed_device_ms"] for c in cs]
+                                 for k, cs in scases.items()}})
+    if bad:
+        fail(f"device-seed dropout kernel disagrees: {[(n, c.get('shape')) for n, c in bad]}")
+    per_train = {k: v["per_train"] for k, v in by_route.items()}
+    launches = train_scan(device, smi, cfg, weights, per_train, zero_counts, read_counts, depth)
+    return scases, {"train_scan": {k: launches.get(v, 0) for k, v in SCAN_FORMS.items()}}
+
+
+def scan_alone(device, smi, depth=None):
+    """``--only scan``: the seeded randomized models as ``run`` makes them,
+    the kernel cases, then ``scan_phases`` (``depth``: the UNet cut to it)."""
+    import torch
+    from prediff_torch.config import alignment_default_config, prediff_default_config
+    from prediff_torch.factory import build_alignment_model, build_unet, build_vae
+    from prediff_torch.models.init import init_params_
+
+    cfg = prediff_default_config()
+    zero_counts, read_counts = kernel_counters()
+    gen = torch.Generator().manual_seed(SEED)
+    unet_cpu = init_params_(build_unet(cfg), gen, randomize=True).eval().requires_grad_(False)
+    vae_cpu = init_params_(build_vae(cfg), gen, randomize=True).eval().requires_grad_(False)
+    align_cpu = init_params_(build_alignment_model(cfg), gen,
+                             randomize=True).eval().requires_grad_(False)
+    cases = kernel_cases(unet_cpu, align_cpu, cfg.optim.micro_batch_size,
+                         alignment_default_config().optim.micro_batch_size)
+    by_route = path_launches(unet_cpu, align_cpu)
+    weights = {"unet": unet_cpu.state_dict(), "vae": vae_cpu.state_dict()}
+    if depth is not None:
+        cfg1, weights1, per1 = depth1_unet(cfg, weights["vae"])
+        by_route = {k: dict(v, per_train=per1.get(k, 0)) for k, v in by_route.items()}
+        cfg, weights = cfg1, weights1
+    scases, launches = scan_phases(device, smi, cfg, weights, by_route, cases, zero_counts,
+                                   read_counts)
+    emit({"kernels": summarize(scases, launches)})
 
 
 def profiling_helpers(device, smi, cfg, predictor, by_route, avg_d, zero_counts, read_counts):

@@ -43,7 +43,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..config import load_config, prediff_default_config, save_yaml
-from ..datasets import SEVIRDataModule, prefetch_to_device
+from ..datasets import SEVIRDataModule, prefetch_to_device, stack_chunks
 from ..diffusion.knowledge_alignment import get_alignment_kwargs_avg_x
 from ..diffusion.latent_diffusion import LatentDiffusion
 from ..evaluation import (ForecastEvalSuite, FrechetVideoDistance, InceptionI3d, i3d_feature_fn,
@@ -193,6 +193,10 @@ def train(args: argparse.Namespace, cfg, dm, device, save_dir: str,
     trainer = make_trainer(cfg, ld, total_steps,
                            accum_steps(cfg, 1 if mesh is None else mesh.size, args.nodes),
                            latent_inputs=args.latents is not None, mesh=mesh)
+    # steps_per_call K > 1: K micro-steps a call (DiffusionTrainer.train_step_scan) on
+    # (K, B, ...) chunks of K host batches stacked before the copy to the card
+    steps_per_call = max(1, int(o.get("steps_per_call", 1)))
+    trainer.check_scan(steps_per_call)
     state = trainer.create_state()
     if args.ckpt_name:
         restore_checkpoint(os.path.join(save_dir, args.ckpt_name), state)
@@ -205,22 +209,27 @@ def train(args: argparse.Namespace, cfg, dm, device, save_dir: str,
         latent_cache = LatentCache(args.latents)
     train_example = {}   # the first train batch of the epoch, for the example forecast
 
+    def chunked(source):
+        return stack_chunks(source, steps_per_call) if steps_per_call > 1 else source
+
     def train_batches(epoch):
         """Host reads, augmentation and slicing in the prefetch's producer
-        thread; the batches reach ``device`` through pinned memory."""
+        thread; the batches (with ``steps_per_call`` K > 1 the (K, B, ...)
+        chunks of K, a ragged tail dropped) reach ``device`` through pinned
+        memory."""
         if latent_cache is not None:
             # (mx, my) windows of cached moments; validation stays on pixels
             source = dm.train_latent_batches(latent_cache, epoch)
-            yield from prefetch_to_device(itertools.islice(
+            yield from prefetch_to_device(chunked(itertools.islice(
                 ((m[out_slice], m[in_slice]) for m, _ in source
-                 if m.shape[0] == o.micro_batch_size), n_train), size=2, device=device)
+                 if m.shape[0] == o.micro_batch_size), n_train)), size=2, device=device)
             return
         pixels = itertools.islice(((b[out_slice], b[in_slice]) for b in dm.train_batches(epoch)
                                    if b.shape[0] == o.micro_batch_size),   # no ragged tail
                                   n_train)
-        for i, xy in enumerate(prefetch_to_device(pixels, size=2, device=device)):
-            if i == 0:
-                train_example["xy"] = xy
+        for i, xy in enumerate(prefetch_to_device(chunked(pixels), size=2, device=device)):
+            if i == 0:   # one (B, ...) batch: a chunk's first
+                train_example["xy"] = tuple(a[0] for a in xy) if steps_per_call > 1 else xy
             yield xy
 
     suite_names = ((["aligned"] if uses_alignment(cfg) and cfg.eval.eval_aligned else [])
@@ -300,7 +309,8 @@ def train(args: argparse.Namespace, cfg, dm, device, save_dir: str,
                 check_val_every_n_epoch=cfg.trainer.check_val_every_n_epoch,
                 monitor=o.monitor, save_top_k=o.save_top_k, early_stop=o.early_stop,
                 early_stop_patience=o.early_stop_patience, max_steps=args.max_steps,
-                logger=logger, steps_per_call=int(o.get("steps_per_call", 1)), mesh=mesh)
+                logger=logger, steps_per_call=steps_per_call, mesh=mesh,
+                train_step_scan=trainer.train_step_scan if steps_per_call > 1 else None)
     save_checkpoint(os.path.join(save_dir, "ckpt_last"), state, mesh=mesh)
     print(f"training done at step {state.step}; checkpoints in {save_dir}", flush=True)
     return state

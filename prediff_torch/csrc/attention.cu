@@ -275,6 +275,7 @@ __global__ void __launch_bounds__(kCoreThreads)
 axial_core_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
                   __nv_bfloat16* __restrict__ attn, int T, int H, int W, int C, int axis,
                   int heads, philox::Drop d) {
+  philox::load_key(d);
   extern __shared__ float sm[];
   const int hc = C / heads;
   const int ld = hc + 1;  // odd stride: rows fall in different banks
@@ -345,6 +346,7 @@ axial_core_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
                       float* __restrict__ dbias_part, int T,
                       int H, int W, int C, int axis, int heads, float scale, int n_cuboids,
                       int cuboids_per_block, philox::Drop drop) {
+  philox::load_key(drop);
   extern __shared__ float sm[];
   const int hc = C / heads;
   const int ld = hc + 1;
@@ -518,6 +520,7 @@ fwd_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
                 const float* __restrict__ bias, void* __restrict__ out, int M, int N, int K,
                 int stages, int q_cols, float q_scale, float eps, philox::Drop drop,
                 __nv_bfloat16* __restrict__ ln_t, int ld) {
+  philox::load_key(drop);
   constexpr bool LnA = LnPer > 0;
   constexpr int kStage = stage_bytes<BN, LnA>(), kAcc = BN / 2;
   extern __shared__ uint8_t smem_raw[];
@@ -959,6 +962,7 @@ __global__ void __launch_bounds__(128)
 cuboid_tc_core_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
                       __nv_bfloat16* __restrict__ attn, int vol, int C, int heads, int hcp,
                       philox::Drop d) {
+  philox::load_key(d);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hc = C / heads, ld = hcp + 8, vol16 = (vol + 15) & ~15, rows = blockDim.x / 2;
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [vol16][ld]
@@ -1269,6 +1273,7 @@ cuboid_bwd_core_kernel(const __nv_bfloat16* __restrict__ qkv,
                        __nv_bfloat16* __restrict__ dqkv, __nv_bfloat16* __restrict__ attn,
                        float* __restrict__ dbias_part, int n_cuboids, int vol, int C, int heads,
                        int hcp, int per_block, float scale, philox::Drop d) {
+  philox::load_key(d);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hc = C / heads, ld = hcp + 8, vol16 = (vol + 15) & ~15, ldp = vol16 + 8;
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -1403,6 +1408,7 @@ cuboid_bwd_q_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* 
                     __nv_bfloat16* __restrict__ attn, float* __restrict__ stats,
                     float* __restrict__ dbias_part, int vol, int C, int heads, int hcp, float scale,
                     philox::Drop d) {
+  philox::load_key(d);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hc = C / heads, ld = hcp + 8, vol16 = (vol + 15) & ~15;
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -1542,6 +1548,7 @@ cuboid_bwd_kv_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16*
                      const float* __restrict__ bias, const float* __restrict__ stats,
                      __nv_bfloat16* __restrict__ dqkv, int vol, int C, int heads, int hcp,
                      philox::Drop d) {
+  philox::load_key(d);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hc = C / heads, ld = hcp + 8, vol16 = (vol + 15) & ~15;
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -2406,17 +2413,21 @@ extern "C" int axial_attention_forward_bf16(const __nv_bfloat16* x, const float*
 // The layer with dropout on the attention weights (thr_attn, keep_attn =
 // 1 - rate) and on the projected output (thr_proj, keep_proj); the masks are
 // those of the stream (seed_lo, seed_hi, site), tensors 0 and 1, from the
-// element bases base_attn and base_proj (multiples of 4, philox.cuh).
-// Arguments as axial_attention_forward.
+// element bases base_attn and base_proj (multiples of 4, philox.cuh); a
+// non-null seed_ptr is a device seed whose words the kernels read in place of
+// seed_lo, seed_hi (philox.cuh).  Arguments as axial_attention_forward.
 extern "C" int axial_attention_dropout_forward(
     const float* x, const float* ln_w, const float* ln_b, const void* wqkv_map, const float* bias,
     const void* wproj_map, const float* b_proj, void* qkv, void* attn, float* out, int B, int T,
     int H, int W, int C, int axis, int heads, int bn_qkv, float scale, float eps,
-    unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn, float keep_attn,
-    unsigned thr_proj, float keep_proj, unsigned long long base_attn,
+    const unsigned long long* seed_ptr, unsigned seed_lo, unsigned seed_hi, unsigned site,
+    unsigned thr_attn, float keep_attn, unsigned thr_proj, float keep_proj,
+    unsigned long long base_attn,
     unsigned long long base_proj, cudaStream_t stream) {
-  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn, base_attn >> 2};
-  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj, base_proj >> 2};
+  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn, base_attn >> 2,
+                            seed_ptr};
+  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj, base_proj >> 2,
+                            seed_ptr};
   return (int)forward_launches<true>(x, ln_w, ln_b, wqkv_map, bias, wproj_map, b_proj,
                                      static_cast<__nv_bfloat16*>(qkv),
                                      static_cast<__nv_bfloat16*>(attn), out, B, T, H, W, C, axis,
@@ -2497,12 +2508,15 @@ extern "C" int axial_attention_dropout_bwd_full(
     void* dqkv_t, float* dbias_part, float* vpart, float* dx, float* dw_qkv, float* dbias,
     float* dw_proj, float* vec, int B, int T, int H, int W, int C, int axis, int heads,
     int bn_qkv, int cuboids_per_block, int ld, int ws_qkv, int ws_proj, float scale, float eps,
-    unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn, float keep_attn,
-    unsigned thr_proj, float keep_proj, unsigned long long base_attn,
+    const unsigned long long* seed_ptr, unsigned seed_lo, unsigned seed_hi, unsigned site,
+    unsigned thr_attn, float keep_attn, unsigned thr_proj, float keep_proj,
+    unsigned long long base_attn,
     unsigned long long base_proj, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn, base_attn >> 2};
-  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj, base_proj >> 2};
+  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn, base_attn >> 2,
+                            seed_ptr};
+  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj, base_proj >> 2,
+                            seed_ptr};
   return (int)axial_bwd_launches<true, true>(
       x, g, ln_w, ln_b, wqkv_map, bias, wprojt_map, wqkvt_map, static_cast<bf*>(qkv),
       static_cast<bf*>(do_bf), static_cast<bf*>(dattn), static_cast<bf*>(dqkv), dln, dx,
@@ -2554,11 +2568,14 @@ extern "C" int cuboid_attention_dropout_forward(
     const float* x, const float* ln_w, const float* ln_b, const void* wqkv_map, const float* bias,
     const void* wproj_map, const float* b_proj, void* qkv, void* attn, float* out, int n_cuboids,
     int vol, int C, int heads, int bn_qkv, int ln_tile, int q_rows, int key_tiles, float scale,
-    float eps, unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn,
-    float keep_attn, unsigned thr_proj, float keep_proj, unsigned long long base_attn,
+    float eps, const unsigned long long* seed_ptr, unsigned seed_lo, unsigned seed_hi,
+    unsigned site, unsigned thr_attn, float keep_attn, unsigned thr_proj, float keep_proj,
+    unsigned long long base_attn,
     unsigned long long base_proj, cudaStream_t stream) {
-  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn, base_attn >> 2};
-  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj, base_proj >> 2};
+  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn, base_attn >> 2,
+                            seed_ptr};
+  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj, base_proj >> 2,
+                            seed_ptr};
   return (int)cuboid_forward_launches<true>(
       x, ln_w, ln_b, wqkv_map, bias, wproj_map, b_proj, static_cast<__nv_bfloat16*>(qkv),
       static_cast<__nv_bfloat16*>(attn), out, n_cuboids, vol, C, heads, bn_qkv, ln_tile, q_rows,
@@ -2637,12 +2654,15 @@ extern "C" int cuboid_attention_dropout_bwd_full(
     void* dqkv_t, float* stats, float* dbias_part, float* vpart, float* dx, float* dw_qkv,
     float* dbias, float* dw_proj, float* vec, int n_cuboids, int vol, int C, int heads,
     int bn_qkv, int fused, int rows, int per_block, int ld, int ws_qkv, int ws_proj, float scale,
-    float eps, unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned thr_attn,
-    float keep_attn, unsigned thr_proj, float keep_proj, unsigned long long base_attn,
+    float eps, const unsigned long long* seed_ptr, unsigned seed_lo, unsigned seed_hi,
+    unsigned site, unsigned thr_attn, float keep_attn, unsigned thr_proj, float keep_proj,
+    unsigned long long base_attn,
     unsigned long long base_proj, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn, base_attn >> 2};
-  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj, base_proj >> 2};
+  const philox::Drop d_attn{seed_lo, seed_hi, site, 0u, thr_attn, keep_attn, base_attn >> 2,
+                            seed_ptr};
+  const philox::Drop d_proj{seed_lo, seed_hi, site, 1u, thr_proj, keep_proj, base_proj >> 2,
+                            seed_ptr};
   return (int)cuboid_bwd_launches<true, true>(
       x, g, ln_w, ln_b, wqkv_map, bias, wprojt_map, wqkvt_map, static_cast<bf*>(qkv),
       static_cast<bf*>(do_bf), static_cast<bf*>(dattn), static_cast<bf*>(dqkv), dln, dx,

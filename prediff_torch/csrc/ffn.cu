@@ -227,6 +227,8 @@ ffn_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
                  const float* __restrict__ b1, const float* __restrict__ b2,
                  T* __restrict__ out, int M, int hidden, float eps, int act,
                  philox::Drop d1, philox::Drop d2) {
+  philox::load_key(d1);
+  philox::load_key(d2);
   using K = Cfg<C>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
@@ -628,6 +630,8 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap w1_map,
                __nv_bfloat16* __restrict__ dh_t, float* __restrict__ vpart,
                float* __restrict__ db1_part, int M, int hidden, int ld, float eps, int act,
                philox::Drop d1, philox::Drop d2) {
+  philox::load_key(d1);
+  philox::load_key(d2);
   using K = Cfg<C>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[K::kStages], empty[K::kStages];
@@ -1187,17 +1191,22 @@ extern "C" int ffn_bwd_full(const float* x, const float* g, const float* ln_w,
 // The fused FFN with dropout on gelu(h) (thr_act, keep_act = 1 - rate) and on
 // the output before the residual (thr_out, keep_out); the masks are those of
 // the stream (seed_lo, seed_hi, site), tensors 0 and 1, from the element bases
-// base_act and base_out (multiples of 4, philox.cuh).  Arguments as ffn_forward.
+// base_act and base_out (multiples of 4, philox.cuh); where seed_ptr is not
+// null, the kernels read the seed words there (a device seed, philox.cuh) and
+// seed_lo, seed_hi are unused.  Arguments as ffn_forward.
 extern "C" int ffn_dropout_forward(const float* x, const float* ln_w, const float* ln_b,
                                    const void* w1_map, const float* b1, const void* w2_map,
                                    const float* b2, float* out, int M, int C, int hidden,
-                                   int splits, float eps, int act, unsigned seed_lo,
+                                   int splits, float eps, int act,
+                                   const unsigned long long* seed_ptr, unsigned seed_lo,
                                    unsigned seed_hi, unsigned site, unsigned thr_act,
                                    float keep_act, unsigned thr_out, float keep_out,
                                    unsigned long long base_act, unsigned long long base_out,
                                    cudaStream_t stream) {
-  const philox::Drop d1{seed_lo, seed_hi, site, 0u, thr_act, keep_act, base_act >> 2};
-  const philox::Drop d2{seed_lo, seed_hi, site, 1u, thr_out, keep_out, base_out >> 2};
+  const philox::Drop d1{seed_lo, seed_hi, site, 0u, thr_act, keep_act, base_act >> 2,
+                        seed_ptr};
+  const philox::Drop d2{seed_lo, seed_hi, site, 1u, thr_out, keep_out, base_out >> 2,
+                        seed_ptr};
   return fwd::forward<true>(x, ln_w, ln_b, w1_map, b1, w2_map, b2, out, M, C, hidden, splits, eps,
                             act, d1, d2, stream);
 }
@@ -1212,12 +1221,15 @@ extern "C" int ffn_dropout_bwd_full(const float* x, const float* g, const float*
                                     __nv_bfloat16* dh_t, float* vpart, float* db1_part, float* dx,
                                     float* dw1, float* db1, float* dw2, float* vec, int M, int C,
                                     int hidden, int ld, int splits, int wsplit1, int wsplit2,
-                                    float eps, int act, unsigned seed_lo, unsigned seed_hi,
-                                    unsigned site, unsigned thr_act, float keep_act,
-                                    unsigned thr_out, float keep_out, unsigned long long base_act,
+                                    float eps, int act, const unsigned long long* seed_ptr,
+                                    unsigned seed_lo, unsigned seed_hi, unsigned site,
+                                    unsigned thr_act, float keep_act, unsigned thr_out,
+                                    float keep_out, unsigned long long base_act,
                                     unsigned long long base_out, cudaStream_t stream) {
-  const philox::Drop d1{seed_lo, seed_hi, site, 0u, thr_act, keep_act, base_act >> 2};
-  const philox::Drop d2{seed_lo, seed_hi, site, 1u, thr_out, keep_out, base_out >> 2};
+  const philox::Drop d1{seed_lo, seed_hi, site, 0u, thr_act, keep_act, base_act >> 2,
+                        seed_ptr};
+  const philox::Drop d2{seed_lo, seed_hi, site, 1u, thr_out, keep_out, base_out >> 2,
+                        seed_ptr};
   return (int)bwd::full<true>(w1_map, w2t_map, w1t_map, x, g, ln_w, ln_b, b1, ln_t, do_t, a_t,
                               dh_t, vpart, db1_part, dx, dw1, db1, dw2, vec, M, C, hidden, ld,
                               splits, wsplit1, wsplit2, eps, act, d1, d2, stream);

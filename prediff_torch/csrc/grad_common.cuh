@@ -227,6 +227,7 @@ template <typename T>
 __global__ void __launch_bounds__(kTThreads)
 cast_t_kernel(const T* __restrict__ src, __nv_bfloat16* __restrict__ dst,
               __nv_bfloat16* __restrict__ dst_t, int M, int W, int ld, philox::Drop drop) {
+  philox::load_key(drop);
   __shared__ __nv_bfloat16 tile[kTT][kTT + 4];
   const int m0 = blockIdx.y * kTT, w0 = blockIdx.x * kTT;
   const int r = threadIdx.x / 8, c4 = (threadIdx.x % 8) * 4;
@@ -310,6 +311,7 @@ __global__ void __launch_bounds__(kVecThreads)
 ln_vec_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
                       const float* __restrict__ dln_part, int splits, float* __restrict__ vpart,
                       int M, int C, float eps, philox::Drop gdrop) {
+  philox::load_key(gdrop);
   __shared__ float mu_s[kVecRows], rs_s[kVecRows];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = blockIdx.x * kVecRows;

@@ -16,6 +16,13 @@
 // is a multiple of 4, so element % 4 picks the same word of a block as it
 // would at base 0, and the kernels carry it as q0 = base / 4.  Kept values are divided by 1 - rate
 // (`keep`), as the TPU kernels do.  thr == 0 keeps everything and draws nothing.
+//
+// The seed words come as kernel arguments (a host seed), or from device
+// memory (a device seed: `key`, one int64 holding the two words, low first),
+// which each kernel that takes a Drop reads once when it starts (`load_key`),
+// before any draw: a captured CUDA graph then draws the masks of whatever seed
+// the buffer holds at each replay.  The words are the same either way, so
+// are the masks.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -28,7 +35,18 @@ struct Drop {
   unsigned thr;      // keep when the draw >= thr
   float keep;        // 1 - rate
   unsigned long long q0 = 0ull;   // the element base / 4: the block of local element 0
+  const unsigned long long* key = nullptr;   // a device seed, or null: k0, k1 as given
 };
+
+// k0, k1 from the device seed, where there is one: the first statement of
+// every kernel that takes a Drop by value (one 8-byte load, L2-resident).
+__device__ __forceinline__ void load_key(Drop& d) {
+  if (d.key != nullptr) {
+    const unsigned long long s = *d.key;
+    d.k0 = (unsigned)s;
+    d.k1 = (unsigned)(s >> 32);
+  }
+}
 
 __device__ __forceinline__ uint4 philox4x32_10(unsigned k0, unsigned k1, uint4 c) {
 #pragma unroll

@@ -13,4 +13,4 @@ from .sevir import (
 )
 from .augmentation import augment_seq, fixed_angle_rotation
 from .synthetic import make_synthetic_sevir_lr, synthetic_batch_iterator
-from .prefetch import prefetch_to_device
+from .prefetch import prefetch_to_device, stack_chunks

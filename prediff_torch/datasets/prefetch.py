@@ -6,7 +6,9 @@ overlap the steps on the card.
 Counterpart of ``prediff_tpu/datasets/prefetch.py``.  Its ``sharding``
 takes a ``parallel.DataMesh``: each batch's rows of this rank
 (``local_batch_slice``) go to the rank's device, where JAX puts the batch
-across the mesh.
+across the mesh.  :func:`stack_chunks` stacks K host batches into one (K, B,
+...) chunk, the input of ``steps_per_call`` (``training.fit``), so a chunk
+crosses to the card in one copy a leaf.
 """
 import queue
 import threading
@@ -38,6 +40,23 @@ def pinned(t: torch.Tensor) -> torch.Tensor:
     """A page-locked host copy of ``t``: the source of an asynchronous copy
     to the card."""
     return t.pin_memory()
+
+
+def stack_chunks(iterator: Iterable, k: int) -> Iterator:
+    """The batches of ``iterator`` (arrays or tensors, or tuples / lists of
+    them) stacked k at a time on the host along a new leading axis; a ragged
+    tail of fewer than k is dropped, as a ragged batch is (the JAX training
+    script's ``chunked``)."""
+    buf = []
+    for item in iterator:
+        buf.append(item)
+        if len(buf) == k:
+            if isinstance(buf[0], (tuple, list)):
+                yield type(buf[0])(np.stack([np.asarray(b[i]) for b in buf])
+                                   for i in range(len(buf[0])))
+            else:
+                yield np.stack([np.asarray(b) for b in buf])
+            buf = []
 
 
 def prefetch_to_device(iterator: Iterable, size: int = 2, device=None,

@@ -106,19 +106,13 @@ class StepGraphs:
         if entry is None:
             self.graphs[kind] = self.cache.capture(step, self.buffers.z.device)
             return
-        graph, deltas = entry
-        graph.replay()
-        for fn, attr, n in deltas:
-            setattr(fn, attr, getattr(fn, attr) + n)
+        replay(*entry)
 
     def launches_per_replay(self) -> Dict[Hashable, Dict[str, int]]:
         """Per step kind, each wrapper's launches a replay adds (its bf16
         form's under ``<name>.bf16``, an FFN activation's under
         ``<name>.<activation>``)."""
-        return {kind: {fn.__name__ + ("" if attr == "launches"
-                                      else "." + attr[:-len("_launches")]): n
-                       for fn, attr, n in deltas}
-                for kind, (_, deltas) in self.graphs.items()}
+        return {kind: launches_by_name(deltas) for kind, (_, deltas) in self.graphs.items()}
 
 
 class StepGraphCache:
@@ -167,41 +161,82 @@ class StepGraphCache:
         """Run ``step`` eagerly on a side stream, then capture it into a
         graph of this cache's pool; returns the graph and its launches per
         replay."""
-        current = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            step()
-        current.wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        before = _counts()
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        # no garbage collection during the capture: a dead reference cycle
-        # freed there (a profiler's results, say) may call the CUDA runtime in
-        # a way a capture forbids and invalidate it; collect before it instead
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool):
-                step()
-        finally:
-            if collecting:
-                gc.enable()
-            deltas = [(fn, attr, getattr(fn, attr) - n) for fn, attr, n in before
-                      if getattr(fn, attr) != n]
-            for fn, attr, n in before:
-                setattr(fn, attr, n)
-        self.capture_seconds += time.perf_counter() - t0
+        graph, deltas, seconds = capture_graph(step, device, self._pool)
+        self.capture_seconds += seconds
         self.captures += 1
         return graph, deltas
 
     def pool_bytes(self) -> int:
         """Bytes the shared pool holds on the card (0 before a capture)."""
-        if self._pool is None:
-            return 0
-        segments = torch.cuda.memory._snapshot()["segments"]
-        return sum(s["total_size"] for s in segments
-                   if tuple(s.get("segment_pool_id", ())) == tuple(self._pool))
+        return pool_bytes(self._pool)
+
+
+_SIDE: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """One side stream per device for every warm-up: the memory the caching
+    allocator keeps for a stream's blocks is kept for one stream, not one per
+    capture."""
+    device = torch.device(device)
+    if device not in _SIDE:
+        _SIDE[device] = torch.cuda.Stream(device)
+    return _SIDE[device]
+
+
+def capture_graph(step: Callable[[], None], device: torch.device, pool):
+    """Run ``step`` eagerly on a side stream, then capture it into a graph
+    of ``pool``; returns the graph, its launches per replay (the counters'
+    moves during the capture, which are taken back) and the capture's
+    seconds.  A capture that fails raises."""
+    current = torch.cuda.current_stream(device)
+    side = _side_stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        step()
+    current.wait_stream(side)
+    before = _counts()
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    # no garbage collection during the capture: a dead reference cycle
+    # freed there (a profiler's results, say) may call the CUDA runtime in
+    # a way a capture forbids and invalidate it; collect before it instead
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            step()
+    finally:
+        if collecting:
+            gc.enable()
+        deltas = [(fn, attr, getattr(fn, attr) - n) for fn, attr, n in before
+                  if getattr(fn, attr) != n]
+        for fn, attr, n in before:
+            setattr(fn, attr, n)
+    return graph, deltas, time.perf_counter() - t0
+
+
+def replay(graph, deltas) -> None:
+    """One replay of ``graph``, its launches added to the counters."""
+    graph.replay()
+    for fn, attr, n in deltas:
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
+def launches_by_name(deltas) -> Dict[str, int]:
+    """A graph's launches per replay by wrapper name (a bf16 form's under
+    ``<name>.bf16``, an FFN activation's under ``<name>.<activation>``)."""
+    return {fn.__name__ + ("" if attr == "launches" else "." + attr[:-len("_launches")]): n
+            for fn, attr, n in deltas}
+
+
+def pool_bytes(pool) -> int:
+    """Bytes a graph pool holds on the card (0 for None)."""
+    if pool is None:
+        return 0
+    segments = torch.cuda.memory._snapshot()["segments"]
+    return sum(s["total_size"] for s in segments
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool))

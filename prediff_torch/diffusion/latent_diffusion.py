@@ -79,6 +79,7 @@ import torch
 from torch import nn
 
 from ..models.vae import FirstStageEncoder
+from ..ops.dropout import as_seed
 from ..parallel.mesh import (DataMesh, batch_rows, gather_batch, local_batch_slice,
                              sync_generator)
 from ..utils.device import resolve_device
@@ -191,25 +192,28 @@ class LatentDiffusion:
     def latents_from_moments(self, moments: torch.Tensor,
                              generator: Optional[torch.Generator] = None,
                              sample_posterior: bool = False,
-                             rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                             rows: Optional[Tuple[int, int]] = None,
+                             eps: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Encoder moments (B,T,h,w,2c) -> scaled latent seq (B,T,h,w,c), the
         tail of :meth:`encode_first_stage`; ``rows`` (first, total): the
-        posterior's noise is those rows of the global batch's draw."""
+        posterior's noise is those rows of the global batch's draw; ``eps``:
+        that noise drawn before."""
         return latents_from_moments_seq(moments, generator=generator,
                                         sample_posterior=sample_posterior,
-                                        scale_factor=self.scale_factor, rows=rows)
+                                        scale_factor=self.scale_factor, rows=rows, eps=eps)
 
     @torch.no_grad()
     def encode_first_stage(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                            sample_posterior: bool = False,
-                           rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                           rows: Optional[Tuple[int, int]] = None,
+                           eps: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Pixel seq (B,T,H,W,C) -> scaled latent seq (B,T,h,w,c).  Training
-        samples the posterior (from ``generator``; ``rows`` as
-        :meth:`latents_from_moments`); conditioning takes the mode."""
+        samples the posterior (from ``generator``, or the noise ``eps``;
+        ``rows`` as :meth:`latents_from_moments`); conditioning takes the mode."""
         B = x.shape[0]
         moments = self.first_stage_moments(x.reshape((-1,) + tuple(x.shape[2:])))
         return self.latents_from_moments(moments.reshape((B, -1) + tuple(moments.shape[1:])),
-                                         generator, sample_posterior, rows)
+                                         generator, sample_posterior, rows, eps)
 
     def cond_stage_forward(self, y: torch.Tensor) -> torch.Tensor:
         return self.encode_first_stage(y, sample_posterior=False)
@@ -235,16 +239,17 @@ class LatentDiffusion:
     def p_losses(self, logvar: torch.Tensor, z_start: torch.Tensor, zc: torch.Tensor,
                  t: torch.Tensor, noise: torch.Tensor, prefix: str = "train",
                  unet_params: Optional[Dict[str, torch.Tensor]] = None,
-                 dropout_seed: Optional[int] = None, dropout_first_row: int = 0):
+                 dropout_seed=None, dropout_first_row: int = 0):
         """Noise ``z_start`` to step ``t`` with ``noise``, denoise, weigh:
         ``(loss, loss_dict)``.  ``unet_params`` (name -> tensor) runs the
         denoiser with other weights than its own, such as the EMA shadow.
-        ``dropout_seed`` seeds the denoiser's dropout masks when it is in
-        training mode with a rate above 0 (it raises without one);
+        ``dropout_seed`` (an integer or a device seed, ``ops/dropout.py``)
+        seeds the denoiser's dropout masks when it is in training mode with a
+        rate above 0 (it raises without one);
         ``dropout_first_row`` is z_start's first row in the global batch (a
         rank's), from which the masks are drawn."""
         z_noisy = core.q_sample(self.schedule, z_start, t, noise)
-        kwargs = {} if dropout_seed is None else {"dropout_seed": int(dropout_seed),
+        kwargs = {} if dropout_seed is None else {"dropout_seed": as_seed(dropout_seed),
                                                   "dropout_first_row": int(dropout_first_row)}
         if unet_params is None:
             model_out = self.unet(z_noisy, t, zc, **kwargs)
@@ -258,10 +263,33 @@ class LatentDiffusion:
             original_elbo_weight=self.original_elbo_weight, learn_logvar=self.learn_logvar,
             prefix=prefix)
 
+    def training_draw_shapes(self, batch: int) -> Tuple[tuple, tuple, tuple]:
+        """The shapes of the posterior's noise (batch * T, h, w, c), t (batch,)
+        and the noise (batch, T, h, w, c) of a training loss."""
+        T, h, w, c = self.latent_shape
+        return (batch * T, h, w, c), (batch,), (batch, T, h, w, c)
+
+    def training_draws(self, generator: Optional[torch.Generator], batch: int,
+                       out: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+        """What a training loss draws from ``generator``, in its order, for a
+        batch of one process, into the buffers ``out`` (shaped as
+        :meth:`training_draw_shapes`; their values are the draws' bits): the
+        posterior's noise, t and the noise."""
+        eps_shape, t_shape, noise_shape = self.training_draw_shapes(batch)
+        eps = randn_rows(eps_shape, generator, self.device, torch.float32)
+        t = randint_rows(self.num_timesteps, t_shape[0], generator, self.device)
+        noise = randn_rows(noise_shape, generator, self.device, torch.float32)
+        for buf, v in zip(out, (eps, t, noise)):
+            buf.copy_(v)
+        return out
+
     def _draw_and_weigh(self, logvar, z, zc, generator, prefix, unet_params, dropout_seed,
-                        rows=None):
-        t = randint_rows(self.num_timesteps, z.shape[0], generator, self.device, rows)
-        noise = randn_rows(z.shape, generator, self.device, z.dtype, rows)
+                        rows=None, draws=None):
+        if draws is not None:
+            t, noise = draws[1], draws[2]
+        else:
+            t = randint_rows(self.num_timesteps, z.shape[0], generator, self.device, rows)
+            noise = randn_rows(z.shape, generator, self.device, z.dtype, rows)
         return self.p_losses(logvar, z, zc, t, noise, prefix=prefix, unet_params=unet_params,
                              dropout_seed=dropout_seed,
                              dropout_first_row=0 if rows is None else rows[0])
@@ -269,37 +297,40 @@ class LatentDiffusion:
     def training_loss(self, logvar: torch.Tensor, generator: Optional[torch.Generator],
                       x: torch.Tensor, y: torch.Tensor, prefix: str = "train",
                       unet_params: Optional[Dict[str, torch.Tensor]] = None,
-                      dropout_seed: Optional[int] = None, mesh: Optional[DataMesh] = None):
+                      dropout_seed=None, mesh: Optional[DataMesh] = None, draws=None):
         """The full forward: encode the target ``x`` (posterior sample) and the
         context ``y`` (mode), draw t and the noise from ``generator`` (on
-        ``self.device``), denoise (with the dropout masks of ``dropout_seed``
-        in training mode), weigh.  ``mesh``: x and y are this rank's rows of
-        the global batch (the same count on every rank), and every draw (the
-        posterior sample, t, the noise, the dropout masks) is this rank's rows
-        of the global batch's, as the JAX step draws them for the whole
-        batch; ``generator`` must be in the same state on every rank."""
+        ``self.device``), denoise (with the dropout masks of ``dropout_seed``,
+        an integer or a device seed, in training mode), weigh.  ``mesh``: x
+        and y are this rank's rows of the global batch (the same count on
+        every rank), and every draw (the posterior sample, t, the noise, the
+        dropout masks) is this rank's rows of the global batch's, as the JAX
+        step draws them for the whole batch; ``generator`` must be in the same
+        state on every rank.  ``draws``: :meth:`training_draws`' three tensors
+        (one process), drawn before; then nothing is drawn here."""
         rows = batch_rows(x.shape[0], mesh)
         z = self.encode_first_stage(x.to(self.device, torch.float32), generator,
-                                    sample_posterior=True, rows=rows)
+                                    sample_posterior=True, rows=rows,
+                                    eps=None if draws is None else draws[0])
         zc = self.cond_stage_forward(y.to(self.device, torch.float32))
         return self._draw_and_weigh(logvar, z, zc, generator, prefix, unet_params, dropout_seed,
-                                    rows)
+                                    rows, draws)
 
     def training_loss_from_moments(self, logvar: torch.Tensor,
                                    generator: Optional[torch.Generator], mx: torch.Tensor,
                                    my: torch.Tensor, prefix: str = "train",
                                    unet_params: Optional[Dict[str, torch.Tensor]] = None,
-                                   dropout_seed: Optional[int] = None,
-                                   mesh: Optional[DataMesh] = None):
+                                   dropout_seed=None, mesh: Optional[DataMesh] = None,
+                                   draws=None):
         """:meth:`training_loss` fed from first-stage moments of the target
         (``mx``) and the context (``my``) instead of pixels; the draws are made
         in the same order, so ``mx = encode_moments(x)`` gives the same loss."""
         rows = batch_rows(mx.shape[0], mesh)
         z = self.latents_from_moments(mx.to(self.device), generator, sample_posterior=True,
-                                      rows=rows)
+                                      rows=rows, eps=None if draws is None else draws[0])
         zc = self.latents_from_moments(my.to(self.device), sample_posterior=False)
         return self._draw_and_weigh(logvar, z, zc, generator, prefix, unet_params, dropout_seed,
-                                    rows)
+                                    rows, draws)
 
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:

@@ -215,10 +215,10 @@ class CuboidTransformerUNet(nn.Module):
         self.final_proj = nn.Linear(base_units, C_out)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
-                dropout_seed: Optional[int] = None, dropout_first_row: int = 0) -> torch.Tensor:
+                dropout_seed=None, dropout_first_row: int = 0) -> torch.Tensor:
         """x (B, T_out, H, W, C) noisy latent; t (B,); cond (B, T_in, H, W, C).
-        ``dropout_seed`` (a host integer, up to 64 bits) seeds this forward's
-        dropout masks; training mode with a rate above 0 needs it, eval mode
+        ``dropout_seed`` (a host integer, up to 64 bits, or a device seed of
+        ``ops/dropout.py``) seeds this forward's dropout masks; training mode with a rate above 0 needs it, eval mode
         ignores it.  ``dropout_first_row``: the global batch row of x's first
         row (a rank's on several), from which the masks are drawn."""
         drop = None

@@ -237,24 +237,35 @@ def plain_grads(fn, inputs, needs, g):
     return [next(grads) if n else None for n in needs]
 
 
-# a dropout kernel's trailing arguments: seed words, site, (thr, 1 - rate) for its two masks,
-# then their two element bases
-DROP_ARGTYPES = [U, U, U, U, F, U, F, ctypes.c_uint64, ctypes.c_uint64]
+# a dropout kernel's trailing arguments: the device seed's address (null for a host seed), the
+# seed words, site, (thr, 1 - rate) for its two masks, then their two element bases
+DROP_ARGTYPES = [P, U, U, U, U, F, U, F, ctypes.c_uint64, ctypes.c_uint64]
 
 
-def drop_args(seed: int, site: int, rate_a: float, rate_b: float, bases=(0, 0)) -> list:
-    """The dropout arguments of a kernel (``DROP_ARGTYPES``): the seed's two
-    words, the site, for each rate in [0, 1) its threshold and ``1 - rate``,
-    and each mask's element base (``csrc/philox.cuh``), a multiple of 4 (any
-    other raises ``ValueError``: the layers route such a call to their
-    library ops, ``dropout.kernel_bases``)."""
-    from .dropout import check_rates, kernel_bases, seed_words, threshold
+def drop_args(seed, site: int, rate_a: float, rate_b: float, bases=(0, 0),
+              device: Optional[torch.device] = None) -> list:
+    """The dropout arguments of a kernel (``DROP_ARGTYPES``): for a host seed
+    a null address and its two words, for a device seed (``ops/dropout.py``,
+    on ``device``) its address and two zero words, which the kernels replace
+    by the words they read there; the site, for each rate in [0, 1) its
+    threshold and ``1 - rate``, and each mask's element base
+    (``csrc/philox.cuh``), a multiple of 4 (any other raises ``ValueError``:
+    the layers route such a call to their library ops,
+    ``dropout.kernel_bases``)."""
+    from .dropout import as_seed, check_rates, kernel_bases, seed_words, threshold
 
     check_rates(rate_a, rate_b)
     if len(bases) != 2 or not kernel_bases(bases) or min(bases) < 0:
         raise ValueError(f"dropout kernels take two element bases that are multiples of 4, "
                          f"got {tuple(bases)}")
-    args = [*seed_words(seed), int(site)]
+    seed = as_seed(seed)
+    if isinstance(seed, torch.Tensor):
+        if device is not None and seed.device != device:
+            raise ValueError(f"dropout kernels: the device seed lies on {seed.device}, the "
+                             f"tensors on {device}")
+        args = [seed.data_ptr(), 0, 0, int(site)]
+    else:
+        args = [None, *seed_words(seed), int(site)]
     for rate in (rate_a, rate_b):
         args += [threshold(rate), 1.0 - rate]
     return args + [int(b) for b in bases]

@@ -26,7 +26,9 @@ after the softmax and before ``p . v``, and ``(. Wproj^T + b) . m_p /
 (1 - rate_proj)`` on the output, the masks those of ``ops/dropout.py`` for
 ``(seed, site)`` (tensor 0: (B * cuboids, heads, vol, vol) with the cuboids
 in ``cuboid_reorder``'s order, tensor 1: the natural (B, T, H, W, C)),
-regenerated in the backward.  Weights are in PyTorch layout: ``w_qkv``
+regenerated in the backward; the seed a host integer or a device seed, read
+by the kernels from its address (the general layer's dropout forms alike).
+Weights are in PyTorch layout: ``w_qkv``
 (3C, C), ``w_proj`` (C, C); ``bias`` is (heads, vol, vol).
 
 :func:`fused_axial_attention` is differentiable.  When a parameter gradient
@@ -95,7 +97,7 @@ import torch
 
 from . import _build, weights, wgrad
 from .cuboid import cuboid_reorder, cuboid_reorder_reverse, masked_softmax
-from .dropout import apply_mask, cuboid_layer_masks, resolve_masks
+from .dropout import apply_mask, as_seed, cuboid_layer_masks, resolve_masks
 from .ffn import _round, layer_norm_bwd_plain, layer_norm_plain
 
 _P, _I, _F, _DROP = _build.P, _build.I, _build.F, _build.DROP_ARGTYPES
@@ -595,7 +597,8 @@ def _attention_kernel(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_head
     else:
         rate_attn, rate_proj, seed, site, bases = drop
         err = lib.axial_attention_dropout_forward(
-            *ptrs, *dims, *_build.drop_args(seed, site, rate_attn, rate_proj, bases),
+            *ptrs, *dims, *_build.drop_args(seed, site, rate_attn, rate_proj, bases,
+                                              x.device),
             _build.stream_ptr(x.device))
         _build.check(err, "axial_attention_dropout_forward")
         _build.count(fused_axial_attention_dropout, "")
@@ -738,7 +741,8 @@ def _attention_bwd_full_kernel(x, g, axis, ln_w, ln_b, w_qkv, bias, w_proj, num_
     else:
         rate_attn, rate_proj, seed, site, bases = drop
         err = lib.axial_attention_dropout_bwd_full(
-            *args, *_build.drop_args(seed, site, rate_attn, rate_proj, bases), _build.stream_ptr(x.device))
+            *args, *_build.drop_args(seed, site, rate_attn, rate_proj, bases,
+                                              x.device), _build.stream_ptr(x.device))
         _build.check(err, "axial_attention_dropout_bwd_full")
         _build.count(fused_axial_attention_dropout_bwd_full, "")
     return dx, vec[0], vec[1], dw_qkv, dbias, dw_proj, vec[2]
@@ -756,8 +760,9 @@ def _axial_forward(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, 
 
 
 class _FusedAxialAttention(torch.autograd.Function):
-    """``drop`` is None or (rate_attn, rate_proj, seed, site, bases), Python numbers
-    kept in ``ctx``: the backward regenerates the forward's masks from them."""
+    """``drop`` is None or (rate_attn, rate_proj, seed, site, bases), kept in
+    ``ctx``: the backward regenerates the forward's masks from them (from a
+    device seed's buffer as it is when the backward runs)."""
 
     @staticmethod
     def forward(ctx, x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale, eps,
@@ -805,7 +810,7 @@ def fused_axial_attention(x: torch.Tensor, axis: int, ln_w: torch.Tensor, ln_b: 
             raise ValueError("fused_axial_attention: a dropout rate above 0 needs a seed")
         drop = None
     else:
-        drop = (float(rate_attn), float(rate_proj), int(seed), int(site),
+        drop = (float(rate_attn), float(rate_proj), as_seed(seed), int(site),
                 tuple(int(b) for b in bases))
     if _build.needs_grad(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj):
         return _FusedAxialAttention.apply(x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj,
@@ -998,7 +1003,8 @@ def _cuboid_kernel(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads, scale,
     else:
         rate_attn, rate_proj, seed, site, bases = drop
         err = lib.cuboid_attention_dropout_forward(
-            *ptrs, *dims, *_build.drop_args(seed, site, rate_attn, rate_proj, bases),
+            *ptrs, *dims, *_build.drop_args(seed, site, rate_attn, rate_proj, bases,
+                                              x.device),
             _build.stream_ptr(x.device))
         _build.check(err, "cuboid_attention_dropout_forward")
         _build.count(fused_cuboid_attention_layer_dropout, "")
@@ -1143,7 +1149,8 @@ def _cuboid_bwd_full_kernel(x, g, ln_w, ln_b, w_qkv, bias, w_proj, num_heads, sc
     else:
         rate_attn, rate_proj, seed, site, bases = drop
         err = lib.cuboid_attention_dropout_bwd_full(
-            *args, *_build.drop_args(seed, site, rate_attn, rate_proj, bases), _build.stream_ptr(x.device))
+            *args, *_build.drop_args(seed, site, rate_attn, rate_proj, bases,
+                                              x.device), _build.stream_ptr(x.device))
         _build.check(err, "cuboid_attention_dropout_bwd_full")
         _build.count(fused_cuboid_attention_layer_dropout_bwd_full, "")
     return dx, vec[0], vec[1], dw_qkv, dbias, dw_proj, vec[2]
@@ -1210,7 +1217,7 @@ def fused_cuboid_attention_layer(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torc
             raise ValueError("fused_cuboid_attention_layer: a dropout rate above 0 needs a seed")
         drop = None
     else:
-        drop = (float(rate_attn), float(rate_proj), int(seed), int(site),
+        drop = (float(rate_attn), float(rate_proj), as_seed(seed), int(site),
                 tuple(int(b) for b in bases))
     if _build.needs_grad(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj):
         return _FusedCuboidAttention.apply(x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, num_heads,

@@ -26,8 +26,16 @@ process.  Kept values are divided by ``1 - rate``.  A forward kernel and its
 backward, whatever their grids, regenerate the same mask from
 ``(seed, site)``; nothing is stored.  ``csrc/philox.cuh`` is the same
 function on the card: integer arithmetic, so the two agree bit for bit.
+
+A seed is a host integer or a *device seed*: a one-element int64 tensor
+holding the seed's 64 bits, its two uint32 words low first
+(:func:`device_seed`).  The kernels read a device seed from its address when
+they start (one 8-byte load), so a captured CUDA graph that launches them
+draws the masks of whatever seed the buffer holds at each replay; the plain
+versions here compute the same words with tensor arithmetic.  A device seed
+gives the masks of the integer it holds, bit for bit.
 """
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -46,8 +54,38 @@ def check_rates(*rates: float) -> None:
         raise ValueError(f"dropout rates {rates} must lie in [0, 1)")
 
 
-def seed_words(seed: int) -> Tuple[int, int]:
-    """The two 32-bit key words of a seed (low, high)."""
+Seed = Union[int, torch.Tensor]
+
+
+def device_seed(seed: int, device=None) -> torch.Tensor:
+    """A device seed holding the integer ``seed`` (mod 2**64)."""
+    return torch.tensor([signed64(seed)], dtype=torch.int64, device=device)
+
+
+def signed64(seed: int) -> int:
+    """``seed`` mod 2**64 as the int64 of the same bits: what a device seed
+    holds (``fill_`` / ``copy_`` it into one)."""
+    seed = int(seed) % 2 ** 64
+    return seed - 2 ** 64 if seed >= 2 ** 63 else seed
+
+
+def as_seed(seed: Seed) -> Seed:
+    """A seed as the dropout paths keep it: an integer mod 2**64, or a device
+    seed as it is (a one-element int64 tensor; anything else raises)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1:
+            raise ValueError(f"a device seed is a one-element int64 tensor, got {seed.dtype} "
+                             f"{tuple(seed.shape)}")
+        return seed
+    return int(seed) % 2 ** 64
+
+
+def seed_words(seed: Seed):
+    """The two 32-bit key words of a seed (low, high): integers, or 0-dim
+    int64 tensors on a device seed's device."""
+    if isinstance(seed, torch.Tensor):
+        s = as_seed(seed).reshape(())
+        return s & _MASK32, (s >> 32) & _MASK32
     seed = int(seed) % 2 ** 64
     return seed & _MASK32, seed >> 32
 
@@ -75,10 +113,13 @@ def philox4x32(key: Tuple[int, int], counter: Sequence[torch.Tensor]) -> Tuple[t
     return c0, c1, c2, c3
 
 
-def random_bits(seed: int, site: int, tensor: int, n: int, device=None,
+def random_bits(seed: Seed, site: int, tensor: int, n: int, device=None,
                 base: int = 0) -> torch.Tensor:
     """The ``n`` uint32 draws (as int64) of the stream (seed, site, tensor)
-    from element ``base`` on (any base, also one that is not a multiple of 4)."""
+    from element ``base`` on (any base, also one that is not a multiple of 4);
+    a device seed draws on its own device."""
+    if isinstance(seed, torch.Tensor):
+        device = seed.device
     skip = int(base) % 4
     first = int(base) // 4
     idx = torch.arange(first, first + -(-(n + skip) // 4), dtype=torch.int64, device=device)
@@ -88,7 +129,7 @@ def random_bits(seed: int, site: int, tensor: int, n: int, device=None,
     return torch.stack(words, dim=1).reshape(-1)[skip:skip + n]
 
 
-def keep_mask(seed: int, site: int, tensor: int, shape: Sequence[int], rate: float,
+def keep_mask(seed: Seed, site: int, tensor: int, shape: Sequence[int], rate: float,
               device=None, base: int = 0) -> torch.Tensor:
     """The 0/1 float32 keep mask of a logical tensor of ``shape`` whose first
     element is element ``base`` of the stream's tensor."""
@@ -99,7 +140,7 @@ def keep_mask(seed: int, site: int, tensor: int, shape: Sequence[int], rate: flo
     return (bits >= threshold(rate)).to(torch.float32).reshape(tuple(shape))
 
 
-def _drawn(seed: int, site: int, tensor: int, shape, rate: float, device, base: int):
+def _drawn(seed: Seed, site: int, tensor: int, shape, rate: float, device, base: int):
     """:func:`keep_mask` (looked up at the call), with the base only where it
     is not 0: at base 0 the call is one process's, as it always was."""
     if base:
@@ -112,10 +153,11 @@ def apply_mask(v: torch.Tensor, mask: Optional[torch.Tensor], rate: float) -> to
     itself when there is no mask."""
     if mask is None:
         return v
-    return v * mask / torch.tensor(1.0 - rate, dtype=torch.float32, device=v.device)
+    # a fill on the device, not a copy from the host: capturable into a graph
+    return v * mask / torch.full((), 1.0 - rate, dtype=torch.float32, device=v.device)
 
 
-def resolve_masks(rates: Sequence[float], shapes: Sequence[Sequence[int]], seed: Optional[int],
+def resolve_masks(rates: Sequence[float], shapes: Sequence[Sequence[int]], seed: Optional[Seed],
                   site: int, masks, device, bases: Optional[Sequence[int]] = None):
     """One mask (or None at rate 0) for each of a module call's dropped
     tensors: the explicit ``masks`` when given, else drawn from (seed, site),
@@ -134,7 +176,7 @@ def resolve_masks(rates: Sequence[float], shapes: Sequence[Sequence[int]], seed:
 
 
 def cuboid_layer_masks(shape: Sequence[int], num_heads: int, rate_attn: float, rate_proj: float,
-                       seed: Optional[int], site: int, masks=None, device=None,
+                       seed: Optional[Seed], site: int, masks=None, device=None,
                        bases: Optional[Sequence[int]] = None):
     """The two masks of one cuboid attention layer call on ``cuboid_reorder``'s
     layout, x of ``shape`` (B, cuboids, vol, C): tensor 0 the attention
@@ -153,10 +195,11 @@ class DropoutStream:
     that numbers the module calls that draw, in call order (the counterpart
     of flax's ``make_rng("dropout")`` folding in the module path), and the
     first global batch row of the rows this forward holds (0 on one
-    process; a rank's first row of the global batch on several)."""
+    process; a rank's first row of the global batch on several).  The seed
+    is an integer or a device seed (:func:`as_seed`)."""
 
-    def __init__(self, seed: int, first_row: int = 0):
-        self.seed = int(seed) % 2 ** 64
+    def __init__(self, seed: Seed, first_row: int = 0):
+        self.seed = as_seed(seed)
         self.site = 0
         self.first_row = int(first_row)
 

@@ -27,7 +27,8 @@ dropout (``ffn_dropout_forward``, ``ffn_dropout_bwd_full``) they replace
 ``a = gelu(h) . m1 / (1 - rate_act)``, ``out = x + (a . W2 + b2) . m2 /
 (1 - rate_out)``, the masks those of ``ops/dropout.py`` for ``(seed, site)``
 (tensor 0: (tokens, hidden), tensor 1: (tokens, C)), regenerated in the
-backward.  Weights are in PyTorch layout: ``w1`` (hidden, C), ``w2`` (C, hidden).
+backward; the seed a host integer or a device seed, read by the kernels from
+its address.  Weights are in PyTorch layout: ``w1`` (hidden, C), ``w2`` (C, hidden).
 
 :func:`fused_ffn` is differentiable.  When a parameter gradient is asked for
 (training) its backward is one call of :func:`fused_ffn_bwd_full`, which
@@ -42,7 +43,7 @@ from typing import Optional
 import torch
 
 from . import _build, weights, wgrad
-from .dropout import apply_mask, resolve_masks
+from .dropout import apply_mask, as_seed, resolve_masks
 
 _P, _I, _F, _DROP = _build.P, _build.I, _build.F, _build.DROP_ARGTYPES
 _SIGNATURES = {"ffn_forward": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
@@ -415,7 +416,7 @@ def _ffn_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop=None, activation="gelu"
     else:
         rate_act, rate_out, seed, site, bases = drop
         err = lib.ffn_dropout_forward(*args, *_build.drop_args(seed, site, rate_act, rate_out,
-                                                               bases),
+                                                               bases, x.device),
                                       _build.stream_ptr(x.device))
         _build.check(err, "ffn_dropout_forward")
         _build.count(fused_ffn_dropout, "", activation)
@@ -538,7 +539,7 @@ def _ffn_bwd_full_kernel(x, g, ln_w, ln_b, w1, b1, w2, eps, drop=None, activatio
     else:
         rate_act, rate_out, seed, site, bases = drop
         err = lib.ffn_dropout_bwd_full(*args, *_build.drop_args(seed, site, rate_act, rate_out,
-                                                                bases),
+                                                                bases, x.device),
                                        _build.stream_ptr(x.device))
         _build.check(err, "ffn_dropout_bwd_full")
         _build.count(fused_ffn_dropout_bwd_full, "", activation)
@@ -555,8 +556,9 @@ def _ffn_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop, activation):
 
 
 class _FusedFFN(torch.autograd.Function):
-    """``drop`` is None or (rate_act, rate_out, seed, site, bases), Python
-    numbers kept in ``ctx``: the backward regenerates the forward's masks from them."""
+    """``drop`` is None or (rate_act, rate_out, seed, site, bases), kept in
+    ``ctx``: the backward regenerates the forward's masks from them (from a
+    device seed's buffer as it is when the backward runs)."""
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps, drop, activation):
@@ -597,7 +599,7 @@ def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch
             raise ValueError("fused_ffn: a dropout rate above 0 needs a seed")
         drop = None
     else:
-        drop = (float(rate_act), float(rate_out), int(seed), int(site),
+        drop = (float(rate_act), float(rate_out), as_seed(seed), int(site),
                 tuple(int(b) for b in bases))
     if _build.needs_grad(x, ln_w, ln_b, w1, b1, w2, b2):
         return _FusedFFN.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps, drop, activation)

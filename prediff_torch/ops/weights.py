@@ -11,6 +11,11 @@ entry: the EMA tensors handed to ``torch.func.functional_call`` are laid out
 apart from the parameters they shadow.  An update through ``weight.data``
 bypasses PyTorch's version counter and is not seen.
 
+Under :func:`recasting` (a captured training step, ``training/step_graphs.py``)
+every call launches the cast into the layout already in place, whatever the
+version: a graph replays that launch, so the copy follows the parameters that
+the replayed optimizer step moved, at the address its tensor maps hold.
+
 Kinds: ``"linear"``, the bf16 copy of a ``Linear`` weight (N, K), whose
 PyTorch layout already is the K-major operand a wgmma wants, with a tensor
 map per box height (``csrc/hopper.cuh`` ``bf16_matrix_map``: boxes of 64
@@ -21,6 +26,7 @@ conv's layouts (``ops/conv3d.weight_layout``) are kinds of their own;
 ``"f32"`` (:func:`f32`), the f32 copy of a bf16 parameter vector (LN and GN
 scale and shift, biases), which the kernels read in f32 in their bf16 forms.
 """
+import contextlib
 import ctypes
 import weakref
 from typing import Callable
@@ -32,6 +38,21 @@ from . import _build
 # (id(weight), kind) -> [weak reference to weight, its (data_ptr, _version,
 # device), the bf16 layout, {map key: 128-byte TMA tensor map}]
 _LAYOUTS: dict = {}
+_RECAST: list = [None]   # under recasting(): the list of the layouts it touched
+
+
+@contextlib.contextmanager
+def recasting():
+    """Within, every layout call launches its cast into the layout in place
+    (one made before, at the weight's address; a missing one is made).
+    Yields the list of every layout touched: a graph captured within keeps
+    them, so a later version's new layout never frees the memory it writes."""
+    before = _RECAST[0]
+    touched = _RECAST[0] = []
+    try:
+        yield touched
+    finally:
+        _RECAST[0] = before
 
 
 def _entry(weight: torch.Tensor, kind: str, make: Callable,
@@ -43,13 +64,21 @@ def _entry(weight: torch.Tensor, kind: str, make: Callable,
     key = (weight.data_ptr(), weight._version, weight.device)
     slot = (id(weight), kind)
     entry = _LAYOUTS.get(slot)
-    if entry is None or entry[0]() is not weight or entry[1] != key:
+    touched = _RECAST[0]
+    if (touched is not None and entry is not None and entry[0]() is weight
+            and entry[2] is not None and entry[1][0::2] == key[0::2]):
+        with torch.no_grad():
+            entry[2].copy_(make(weight.detach()))
+        entry[1] = key
+    elif entry is None or entry[0]() is not weight or entry[1] != key:
         with torch.no_grad():
             layout = make(weight.detach()).to(dtype).contiguous()
         if layout.data_ptr() == weight.data_ptr():
             layout = None
         ref = weakref.ref(weight, lambda _, slot=slot: _LAYOUTS.pop(slot, None))
         entry = _LAYOUTS[slot] = [ref, key, layout, {}]
+    if touched is not None and entry[2] is not None:
+        touched.append(entry[2])
     return entry
 
 

@@ -25,8 +25,9 @@ exists (``diffusion/latent_diffusion.py`` runs one before its first capture).
 
 The JAX module's ``replicated_sharding``, ``batch_sharding`` and
 ``chunk_sharding`` are XLA placement objects; their uses take the functions
-above.  ``chunk_sharding`` served ``steps_per_call``, a TPU dispatch knob that
-is not carried over.
+above.  ``chunk_sharding`` served ``steps_per_call`` across a mesh; the port
+runs ``steps_per_call`` on one process (``DiffusionTrainer.train_step_scan``
+refuses a mesh for more than one micro-step a call).
 """
 import datetime
 import os

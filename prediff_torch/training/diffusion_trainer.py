@@ -35,10 +35,23 @@ in the backward of a training step (the UNet's ``remat``: one checkpoint
 segment per block pair, the draws outside every segment; the gradients keep
 their bits), never in validation; ``ema_dtype`` stores the EMA shadow
 narrower (``EmaTrainState``) and ``optim_config["state_dtype"]`` the Adam
-moments (``build_optimizer``).  Refused when asked for, not carried over from
-the JAX trainer: ``make_train_step_scan`` and the TPU / XLA layout and RNG
-knobs ``prng_impl``, ``flat_update``, ``pack_small_thr``, ``matmul_precision``,
-``conv3d_impl``.
+moments (``build_optimizer``).
+
+K micro-steps per call (the JAX trainer's ``make_train_step_scan``, a
+``lax.scan`` of the step body; ``fit(steps_per_call=K)``):
+:meth:`DiffusionTrainer.train_step_scan` takes (K, B, ...) stacks of
+micro-batches and returns the state and the loss dicts stacked (K,), equal
+to K calls of :meth:`~DiffusionTrainer.train_step`.  On the card the K
+micro-steps are replays of captured CUDA graphs (``step_graphs.py``), with
+no host sync between them: bit for bit K eager micro-steps, and a capture
+that fails raises.  On a CPU device the K micro-steps run the captured
+micro-step's code eagerly.  Refused
+for K > 1 (``NotImplementedError``, ROADMAP.md): a ``mesh`` (gloo's
+all-reduce passes through the host and cannot be captured), ``remat_unet``,
+and a ``state_dtype`` or a narrower ``ema_dtype`` (their updates take host
+numbers).  Refused when asked for, not carried over from the JAX trainer: the
+TPU / XLA layout and RNG knobs ``prng_impl``, ``flat_update``,
+``pack_small_thr``, ``matmul_precision``, ``conv3d_impl``.
 """
 from typing import Dict, Optional, Tuple, Union
 
@@ -50,6 +63,7 @@ from ..diffusion.latent_diffusion import LatentDiffusion
 from ..parallel.mesh import DataMesh, all_reduce_mean
 from ..utils.convert import torch_key_to_flax_path
 from .optim import build_optimizer, global_norm
+from .step_graphs import ScanGraphs
 from .train_state import EmaTrainState, param_grads
 
 _TPU_KNOBS = {"prng_impl": None, "flat_update": False, "pack_small_thr": 0,
@@ -125,6 +139,7 @@ class DiffusionTrainer:
         # True: the steps take first-stage moments (mx, my) instead of pixel
         # windows (x, y), and the frozen VAE encode drops out of the step
         self.latent_inputs = latent_inputs
+        self.scan_graphs: Optional[ScanGraphs] = None   # train_step_scan's, on the card
 
     def create_state(self) -> EmaTrainState:
         """A fresh state over the pipeline's UNet (put in training mode, where
@@ -140,14 +155,29 @@ class DiffusionTrainer:
         return state.replicate(self.mesh)
 
     def _loss(self, logvar, generator, x, y, prefix: str, latent: Optional[bool] = None,
-              unet_params=None, dropout_seed: Optional[int] = None):
+              unet_params=None, dropout_seed=None, draws=None):
         latent = self.latent_inputs if latent is None else latent
         fn = self.ld.training_loss_from_moments if latent else self.ld.training_loss
         return fn(logvar, generator, x, y, prefix=prefix, unet_params=unet_params,
-                  dropout_seed=dropout_seed, mesh=self.mesh)
+                  dropout_seed=dropout_seed, mesh=self.mesh, draws=draws)
 
     def _logvar(self, state: EmaTrainState) -> torch.Tensor:
         return state.params["logvar"] if "logvar" in state.params else self.ld.init_logvar()
+
+    def _micro_grads(self, state: EmaTrainState, generator, x, y, dropout_seed, draws=None,
+                     reduce: bool = True):
+        """Loss and gradients of one micro-step whose draws come from
+        ``generator`` (or ``draws``) and masks from ``dropout_seed``."""
+        self.ld.unet.train()
+        self.ld.unet.remat = self.remat_unet
+        try:
+            loss, loss_dict = self._loss(self._logvar(state), generator, x, y, "train",
+                                         dropout_seed=dropout_seed, draws=draws)
+        finally:
+            self.ld.unet.remat = False
+        grads = param_grads(loss, list(state.params.values()))
+        mesh = self.mesh if reduce else None
+        return all_reduce_mean(grads, mesh), reduce_loss_dict(loss_dict, mesh)
 
     def grads(self, state: EmaTrainState, seed: Union[int, torch.Generator], x: torch.Tensor,
               y: torch.Tensor, reduce: bool = True):
@@ -155,17 +185,23 @@ class DiffusionTrainer:
         gradient of every trainable parameter, in the order of
         ``state.params``, and the detached losses; on a mesh their means over
         the ranks (``reduce=False``: this rank's own)."""
-        self.ld.unet.train()
         generator = step_generator(seed, state.step, self.ld.device)
-        self.ld.unet.remat = self.remat_unet
-        try:
-            loss, loss_dict = self._loss(self._logvar(state), generator, x, y, "train",
-                                         dropout_seed=step_dropout_seed(seed, state.step))
-        finally:
-            self.ld.unet.remat = False
-        grads = param_grads(loss, list(state.params.values()))
-        mesh = self.mesh if reduce else None
-        return all_reduce_mean(grads, mesh), reduce_loss_dict(loss_dict, mesh)
+        return self._micro_grads(state, generator, x, y, step_dropout_seed(seed, state.step),
+                                 reduce=reduce)
+
+    def _norms(self, state: EmaTrainState, grads, loss_dict: Dict[str, torch.Tensor]) -> None:
+        """``grad_norm`` (and with ``track_grad_norm`` the norm per top-level
+        module) of the micro-gradients into ``loss_dict``."""
+        loss_dict["grad_norm"] = global_norm(grads)
+        if self.track_grad_norm:
+            by_module: Dict[str, list] = {}
+            for name, g in zip(state.params, grads):
+                # per top-level module, under the flax tree's name for it
+                key = ("logvar" if name == "logvar"
+                       else "unet." + torch_key_to_flax_path(name[len("unet."):])[0])
+                by_module.setdefault(key, []).append(g)
+            for key, gs in by_module.items():
+                loss_dict[f"grad_norm/{key}"] = global_norm(gs)
 
     def train_step(self, state: EmaTrainState, seed: Union[int, torch.Generator],
                    x: torch.Tensor, y: torch.Tensor
@@ -177,19 +213,83 @@ class DiffusionTrainer:
         ``loss_dict`` (0-dim tensors on the device; ``grad_norm`` is the
         global norm of this micro-step's gradients before the clip)."""
         grads, loss_dict = self.grads(state, seed, x, y)
-        names = list(state.params)
-        loss_dict["grad_norm"] = global_norm(grads)
-        if self.track_grad_norm:
-            by_module: Dict[str, list] = {}
-            for name, g in zip(names, grads):
-                # per top-level module, under the flax tree's name for it
-                key = ("logvar" if name == "logvar"
-                       else "unet." + torch_key_to_flax_path(name[len("unet."):])[0])
-                by_module.setdefault(key, []).append(g)
-            for key, gs in by_module.items():
-                loss_dict[f"grad_norm/{key}"] = global_norm(gs)
+        self._norms(state, grads, loss_dict)
         state.apply_gradients(grads)
         return state, loss_dict
+
+    def _scan_body(self, state: EmaTrainState, b) -> Dict[str, torch.Tensor]:
+        """One micro-step on the static buffers ``b`` (``step_graphs.ScanBuffers``)
+        and the state's device scalars as loaded: what a graph captures."""
+        grads, loss_dict = self._micro_grads(state, None, b.x, b.y, b.seed,
+                                             draws=(b.eps, b.t, b.noise))
+        self._norms(state, grads, loss_dict)
+        state.apply_loaded(grads)
+        return loss_dict
+
+    def scan_refusal(self) -> Optional[str]:
+        """Why this trainer refuses more than one micro-step per call, or None."""
+        sdtype = self.optim_config.get("state_dtype")
+        if self.mesh is not None:
+            return "a mesh (its all-reduce passes through the host on gloo)"
+        if self.remat_unet:
+            return "remat_unet"
+        if sdtype is not None:
+            return f"state_dtype={sdtype!r} (its Adam update takes host numbers)"
+        if self.ema_dtype not in (None, "float32"):
+            return f"ema_dtype={self.ema_dtype!r} (its EMA update takes host numbers)"
+        return None
+
+    def check_scan(self, k: int) -> None:
+        """Raise ``NotImplementedError`` for ``k`` > 1 micro-steps per call
+        with what :meth:`scan_refusal` names."""
+        why = self.scan_refusal()
+        if int(k) > 1 and why is not None:
+            raise NotImplementedError(f"more than one micro-step per call (steps_per_call "
+                                      f"{int(k)}) with {why} is not carried over yet "
+                                      "(ROADMAP.md)")
+
+    def make_train_step_scan(self):
+        """The K-micro-steps-per-call function, :meth:`train_step_scan` (its
+        graphs are kept on the trainer)."""
+        return self.train_step_scan
+
+    def train_step_scan(self, state: EmaTrainState, seed: Union[int, torch.Generator],
+                        xs: torch.Tensor, ys: torch.Tensor
+                        ) -> Tuple[EmaTrainState, Dict[str, torch.Tensor]]:
+        """K micro-steps on ``xs``, ``ys`` stacked (K, B, ...) on the leading
+        axis (stacked on the host: they cross to the card in one copy), as K
+        calls of :meth:`train_step` give them: returns the state and each
+        loss dict entry stacked (K,).  On the card the micro-steps replay
+        captured graphs (module docstring); on a CPU device the same
+        micro-step on the same buffers runs eagerly.  K > 1 with what
+        :meth:`scan_refusal` names raises ``NotImplementedError``; K = 1
+        there is :meth:`train_step`."""
+        K = int(xs.shape[0])
+        if ys.shape[0] != K:
+            raise ValueError(f"train_step_scan: {K} target micro-batches, {ys.shape[0]} contexts")
+        self.check_scan(K)
+        device = self.ld.device
+        if self.scan_refusal() is not None:      # one micro-step: the eager step
+            metrics = []
+            for k in range(K):
+                state, m = self.train_step(state, seed, xs[k], ys[k])
+                metrics.append(m)
+            return state, {key: torch.stack([m[key] for m in metrics]) for key in metrics[0]}
+        xs, ys = xs.to(device, non_blocking=True), ys.to(device, non_blocking=True)
+        if self.scan_graphs is None:
+            self.scan_graphs = ScanGraphs(self.ld.training_draws, self.ld.training_draw_shapes,
+                                          device)
+        first = state.step
+        seeds = [step_dropout_seed(seed, first + k) for k in range(K)]
+        generators = [step_generator(seed, first + k, device) for k in range(K)]
+
+        def key():
+            return ScanGraphs.key(state, [self.ld.unet, self.ld.vae], xs[0], ys[0],
+                                  (self.ld.scale_factor, self.latent_inputs,
+                                   self.track_grad_norm))
+
+        return state, self.scan_graphs.run(self._scan_body, state, seeds, generators, xs, ys,
+                                           key)
 
     @torch.no_grad()
     def val_step(self, state: EmaTrainState, seed: Union[int, torch.Generator], x: torch.Tensor,

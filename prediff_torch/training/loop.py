@@ -129,20 +129,28 @@ def fit(state: Any, train_step: Callable, train_batches_fn: Callable[[int], Iter
         check_val_every_n_epoch: int = 1, monitor: str = "val/loss", monitor_mode: str = "min",
         save_top_k: int = 3, early_stop: bool = False, early_stop_patience: int = 100,
         log_every_n_steps: int = 50, max_steps: Optional[int] = None,
-        logger: Optional[MetricLogger] = None, steps_per_call: int = 1,
-        mesh: Optional[DataMesh] = None):
+        logger: Optional[MetricLogger] = None, train_step_scan: Optional[Callable] = None,
+        steps_per_call: int = 1, mesh: Optional[DataMesh] = None):
     """Run the loop; returns the final state.
 
     ``train_batches_fn(epoch)`` yields batches; ``make_batch_args(batch)``
     maps one to the arguments of ``train_step`` after ``(state, seed)``.  A
     step here is one call of ``train_step`` (a micro-step when gradients are
-    accumulated), as ``state.step`` counts them.  ``steps_per_call`` > 1
-    (several steps per dispatch, a remedy for the TPU host's dispatch cost)
-    is not carried over.  ``mesh``: the ranks training together (module
-    docstring); its first rank alone logs and writes checkpoints."""
-    if int(steps_per_call) > 1:
-        raise NotImplementedError("steps_per_call > 1: a TPU dispatch knob, not carried over "
-                                  "(ROADMAP.md)")
+    accumulated), as ``state.step`` counts them.  ``mesh``: the ranks
+    training together (module docstring); its first rank alone logs and
+    writes checkpoints.
+
+    ``steps_per_call=K`` > 1 (with ``train_step_scan``, such as
+    ``DiffusionTrainer.train_step_scan``; without one ``ValueError``) runs K
+    steps a call: ``train_batches_fn`` then yields batches stacked (K, B, ...)
+    on the leading axis, stacked on the host so that they cross to the card
+    in one copy.  The same steps as K calls of ``train_step``; the metrics
+    come back stacked (K,), are read once a call where one of its steps is
+    on the logging cadence, and are logged per step on that cadence;
+    ``max_steps`` rounds up to the call's boundary."""
+    K = max(int(steps_per_call), 1)
+    if K > 1 and train_step_scan is None:
+        raise ValueError("steps_per_call > 1 requires train_step_scan")
     if writes(mesh):
         logger = logger if logger is not None else MetricLogger(save_dir)
     else:   # the other ranks log nothing
@@ -171,10 +179,21 @@ def fit(state: Any, train_step: Callable, train_batches_fn: Callable[[int], Iter
     stop = False
     for epoch in range(max_epochs):
         for batch in train_batches_fn(epoch):
-            state, metrics = train_step(state, seed, *make_batch_args(batch))
-            global_step += 1
-            if logger is not None and global_step % log_every_n_steps == 0:
-                logger.log(global_step, metrics)
+            if K > 1:
+                state, metrics = train_step_scan(state, seed, *make_batch_args(batch))
+                base = global_step
+                global_step += K
+                if logger is not None and (global_step // log_every_n_steps
+                                           > base // log_every_n_steps):
+                    host = {m: v.detach().cpu() for m, v in metrics.items()}   # one read a call
+                    for k in range(K):
+                        if (base + k + 1) % log_every_n_steps == 0:
+                            logger.log(base + k + 1, {m: v[k] for m, v in host.items()})
+            else:
+                state, metrics = train_step(state, seed, *make_batch_args(batch))
+                global_step += 1
+                if logger is not None and global_step % log_every_n_steps == 0:
+                    logger.log(global_step, metrics)
             if max_steps is not None and global_step >= max_steps:
                 stop = True  # mid-epoch: the final validation still runs below
                 break

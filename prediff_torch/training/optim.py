@@ -189,7 +189,20 @@ class Optimizer:
     """Clip, AdamW (or Adam) under the schedule, and accumulation, over a
     fixed list of parameters that it updates in place.  ``state_dtype`` is
     the moments' dtype name when they are stored narrower (``None``: the
-    parameters' own)."""
+    parameters' own).
+
+    What changes from one micro-step to the next reaches the device as
+    tensors, not as numbers baked into the launches: the learning rate (the
+    torch optimizer's ``lr``, a 0-dim tensor, where it is fused or
+    capturable: the fused ``AdamW`` reads it and its bias corrections' step
+    count on the card; another one, such as :class:`AdamStateDtype`, takes a
+    host number at each update) and the divisor of the accumulation's
+    running mean.  :meth:`load_scalars` writes them from the host's counters
+    (``count``, ``mini_step``) without a sync, and :meth:`apply` runs the
+    device work on them, so a captured micro-step (``training/step_graphs.py``)
+    replays with the values loaded before each replay.  The host alone
+    decides which micro-step updates (:meth:`updates_next`), from
+    ``mini_step``."""
 
     def __init__(self, params: Sequence[torch.Tensor], optimizer: torch.optim.Optimizer,
                  schedule: Callable[[int], float], gradient_clip_val: Optional[float],
@@ -203,15 +216,66 @@ class Optimizer:
         self.count = 0          # updates made
         self.mini_step = 0      # micro-gradients in the running mean
         self.acc_grads: Optional[List[torch.Tensor]] = None
+        device = self.params[0].device if self.params else None
+        # the rate of the next update and the running mean's divisor, mini_step + 1
+        self.lr_t = torch.tensor(float(schedule(0)), dtype=torch.float32, device=device)
+        self.div_t = torch.ones((), dtype=torch.float32, device=device)
+        self._use_lr_tensor()
+
+    def _use_lr_tensor(self) -> None:
+        """A fused or capturable torch optimizer (``build_optimizer``'s on the
+        card) reads ``lr_t``; another one takes the rate as a host number at
+        each update (:meth:`apply`)."""
+        self.lr_on_device = all(g.get("fused") or g.get("capturable")
+                                for g in self.optimizer.param_groups)
+        if self.lr_on_device:
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr_t
 
     @property
     def lr(self) -> float:
         """The rate the next update will use."""
         return self.schedule(self.count)
 
+    def updates_next(self) -> bool:
+        """Whether the next micro-gradient moves the parameters."""
+        return self.mini_step + 1 >= self.accum_steps
+
+    def load_scalars(self) -> None:
+        """The next micro-step's rate and divisor into their device tensors
+        (``fill_``: a launch with the value as its argument, no sync)."""
+        self.lr_t.fill_(self.schedule(self.count))
+        if self.accum_steps > 1:
+            self.div_t.fill_(float(self.mini_step + 1))
+
+    def advance(self) -> bool:
+        """The host's counters past one micro-step, as :meth:`apply` moves
+        them; returns whether it updated.  With an update, the parameters'
+        version counters move (the device work may have run as a replay,
+        which no counter sees)."""
+        updated = self.updates_next()
+        if updated:
+            self.mini_step = 0
+            self.count += 1
+            for p in self.params:
+                # the fused AdamW step (and the foreach ops) write the parameters without
+                # bumping their version counters; the kernels' bf16 weight copies
+                # (ops/weights.py) are kept per version, so bump them here
+                increment_version(p)
+        else:
+            self.mini_step += 1
+        return updated
+
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> bool:
         """Take one micro-gradient; returns whether the parameters moved."""
+        self.load_scalars()
+        return self.apply(grads)
+
+    @torch.no_grad()
+    def apply(self, grads: Sequence[torch.Tensor]) -> bool:
+        """:meth:`update` on the device scalars as loaded: the device work of
+        one micro-step, then :meth:`advance`."""
         # in the parameters' own (contiguous) layout: cuDNN hands a convolution's
         # weight gradient back channels-last, which the fused optimizer refuses
         grads = [g.detach().contiguous() for g in grads]
@@ -219,30 +283,28 @@ class Optimizer:
             if self.acc_grads is None:
                 self.acc_grads = [torch.zeros_like(g) for g in grads]
             # optax.MultiSteps: acc += (g - acc) / (mini_step + 1)
-            w = 1.0 / (self.mini_step + 1)
-            torch._foreach_lerp_(self.acc_grads, grads, w)
-            self.mini_step += 1
-            if self.mini_step < self.accum_steps:
-                return False
-            grads, self.mini_step = [a.clone() for a in self.acc_grads], 0
-            torch._foreach_zero_(self.acc_grads)
+            step = torch._foreach_sub(grads, self.acc_grads)
+            torch._foreach_div_(step, self.div_t)
+            torch._foreach_add_(self.acc_grads, step)
+            del step
+            if not self.updates_next():
+                return self.advance()
+            grads = self.acc_grads
         if self.gradient_clip_val:
             clip = float(self.gradient_clip_val)
             norm = global_norm(grads)
             grads = torch._foreach_mul(grads, clip / torch.clamp(norm, min=clip))
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.count)
+        if not self.lr_on_device:
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.schedule(self.count)
         for p, g in zip(self.params, grads):
             p.grad = g
         self.optimizer.step()
         for p in self.params:
             p.grad = None
-            # the fused AdamW step (and the foreach ops) write the parameters without
-            # bumping their version counters; the kernels' bf16 weight copies (ops/weights.py)
-            # are kept per version, so bump them here
-            increment_version(p)
-        self.count += 1
-        return True
+        if self.accum_steps > 1:
+            torch._foreach_zero_(self.acc_grads)
+        return self.advance()
 
     def state_dict(self) -> Dict:
         return {"optimizer": self.optimizer.state_dict(), "count": self.count,
@@ -264,6 +326,7 @@ class Optimizer:
             raise ValueError(f"checkpoint of state_dtype {state.get('state_dtype')!r}, this "
                              f"optimizer's is {self.state_dtype!r}")
         self.optimizer.load_state_dict(state["optimizer"])
+        self._use_lr_tensor()   # the loaded groups hold the saved rate: the live tensor again
         self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
         acc = state["acc_grads"]
         self.acc_grads = None if acc is None else [
@@ -289,9 +352,10 @@ def build_optimizer(params: Sequence[torch.Tensor], lr: float = 1e-3,
         opt = AdamStateDtype(params, lr=schedule(0), betas=betas, eps=1e-8,
                              weight_decay=wd if method == "adamw" else 0.0, state_dtype=sdtype)
         return Optimizer(params, opt, schedule, gradient_clip_val, accum_steps, state_dtype)
-    # on the card, the optimizer's one-pass multi-tensor kernel in place of ~10 passes
-    kw = dict(lr=schedule(0), betas=tuple(betas), eps=1e-8,
-              fused=all(p.is_cuda for p in params))
+    # on the card, the optimizer's one-pass multi-tensor kernel in place of ~10 passes;
+    # capturable: its step may be captured into a graph (its step count lives on the card)
+    on_card = bool(params) and all(p.is_cuda for p in params)
+    kw = dict(lr=schedule(0), betas=tuple(betas), eps=1e-8, fused=on_card, capturable=on_card)
     if method == "adamw":
         opt = torch.optim.AdamW(params, weight_decay=wd, **kw)
     else:

@@ -18,9 +18,10 @@ from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.autograd.graph import increment_version
 
 from ..parallel.mesh import DataMesh, replicate_
-from .ema import ema_update
+from .ema import ema_decay, ema_update
 from .optim import Optimizer, state_dtype_of
 
 
@@ -45,6 +46,11 @@ class EmaTrainState:
         self.ema_params: Optional[Dict[str, torch.Tensor]] = (
             {k: p.detach().to(dtype or p.dtype, copy=True) for k, p in params.items()}
             if use_ema else None)
+        # 1 - the ramped decay of the next EMA move, on the parameters' device
+        # (load_scalars): what a shadow of the parameters' dtypes moves by
+        first = next(iter(params.values()), None)
+        self.ema_w = torch.zeros((), dtype=torch.float32,
+                                 device=None if first is None else first.device)
 
     @classmethod
     def create(cls, params: Dict[str, nn.Parameter], tx: Optimizer, use_ema: bool = True,
@@ -71,16 +77,39 @@ class EmaTrainState:
         replicate_(self.tensors(), mesh)
         return self
 
+    def load_scalars(self) -> None:
+        """The next micro-step's device scalars from the host's counters: the
+        optimizer's (``Optimizer.load_scalars``) and the EMA's weight, no sync."""
+        self.tx.load_scalars()
+        if self.use_ema:
+            self.ema_w.fill_(1.0 - ema_decay(self.ema_decay, self.step))
+
     def apply_gradients(self, grads: Sequence[torch.Tensor]) -> "EmaTrainState":
         """One micro-gradient, in the order of ``params``: the optimizer
         (which moves the parameters once every ``accum_steps`` calls), then
         the EMA with the step count before the increment."""
-        self.tx.update(grads)
+        self.load_scalars()
+        return self.apply_loaded(grads)
+
+    def apply_loaded(self, grads: Sequence[torch.Tensor]) -> "EmaTrainState":
+        """:meth:`apply_gradients` on the device scalars as loaded
+        (:meth:`load_scalars`); what a captured micro-step records."""
+        self.tx.apply(grads)
         if self.use_ema:
             ema_update(list(self.ema_params.values()), list(self.params.values()),
-                       self.ema_decay, self.step)
+                       self.ema_decay, self.step, self.ema_w)
         self.step += 1
         return self
+
+    def advance(self) -> None:
+        """The host's counters past one micro-step whose device work ran as a
+        replay (``training/step_graphs.py``): the optimizer's, ``step``, and
+        the version counters of what the step moved (the parameters on an
+        update, the shadow every step), which a replay does not bump."""
+        self.tx.advance()
+        for e in (self.ema_params or {}).values():
+            increment_version(e)
+        self.step += 1
 
     def ema_param_tree(self, prefix: str = "") -> Optional[Dict[str, torch.Tensor]]:
         """The EMA shadow, name -> tensor; with ``prefix`` only the names

@@ -84,17 +84,22 @@ class DiagonalGaussianDistribution:
 
 def latents_from_moments_seq(moments: torch.Tensor, generator: Optional[torch.Generator] = None,
                              sample_posterior: bool = False, scale_factor: float = 1.0,
-                             rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                             rows: Optional[Tuple[int, int]] = None,
+                             eps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Encoder moments (B, T, h, w, 2c) -> scaled latent seq (B, T, h, w, c):
     posterior sample (or mode) over the flattened frames, then
     ``scale_factor``: the tail of the first-stage encode, shared with
     training from cached moments.  ``rows`` (first, total) of the batch:
-    the sample's noise is those rows of the whole batch's draw."""
+    the sample's noise is those rows of the whole batch's draw.  ``eps``
+    (B * T, h, w, c): the sample's standard normal noise, drawn before (no
+    draw from ``generator``)."""
     B, T = moments.shape[:2]
     frames = moments.float().reshape((-1,) + tuple(moments.shape[2:]))
     posterior = DiagonalGaussianDistribution.from_parameters(frames)
     if not sample_posterior:
         z = posterior.mode()
+    elif eps is not None:
+        z = posterior.mean + posterior.std * eps
     elif rows is None:   # one process: the call as it always was
         z = posterior.sample(generator)
     else:

@@ -1199,3 +1199,90 @@ def test_ffn_kernels_on_each_activation_match_plain(dev, M, C, act):
                                              **kw).float())
     with pytest.raises(ValueError, match="activation"):
         fused_ffn(*args, activation="tanh")
+
+
+@pytest.mark.parametrize("base", [(0, 0), (2 ** 32 + 4 * 1234, 4 * 5678)])
+def test_dropout_kernels_on_a_device_seed_give_the_int_seed_bits(dev, base):
+    """Rows 15a-15d and the general layer's dropout forms with the seed read
+    from the card (``ops/dropout.device_seed``): bit-equal to the int-seed
+    forms on the same seed, other bits on another device seed."""
+    from prediff_torch.ops.dropout import device_seed
+
+    seed = 0x5EED_0F_D20905
+    dseed, other = device_seed(seed, dev), device_seed(seed + 1, dev)
+    drop = (0.1, 0.1)
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b)) if isinstance(a, tuple) \
+            else torch.equal(a, b)
+
+    args = _ffn_args(dev, 6656, 256)
+    g = torch.randn(6656, 256, device=dev)
+    bwd = (args[0], g) + args[1:6]
+    for fn, a in ((fused_ffn_dropout, args + (1e-5,)), (fused_ffn_dropout_bwd_full, bwd + (1e-5,))):
+        got = fn(*a, *drop, dseed, 3, bases=base)
+        assert same(got, fn(*a, *drop, seed, 3, bases=base))
+        assert not same(got, fn(*a, *drop, other, 3, bases=base))
+    shape = (2, 13, 16, 16, 256)
+    for axis in range(3):
+        x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj = _attn_args(dev, shape, axis)
+        fwd = (x, axis, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, 4, 0.125, 1e-5)
+        bw = (x, torch.randn(*shape, device=dev), axis, ln_w, ln_b, w_qkv, bias, w_proj, 4, 0.125,
+              1e-5)
+        for fn, a in ((fused_axial_attention_dropout, fwd),
+                      (fused_axial_attention_dropout_bwd_full, bw)):
+            got = fn(*a, *drop, dseed, 3, bases=base)
+            assert same(got, fn(*a, *drop, seed, 3, bases=base))
+            assert not same(got, fn(*a, *drop, other, 3, bases=base))
+    x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj = _cuboid_args(dev, (2, 52, 64, 256))
+    fwd = (x, ln_w, ln_b, w_qkv, bias, w_proj, b_proj, 4, 0.125, 1e-5)
+    bw = (x, torch.randn_like(x), ln_w, ln_b, w_qkv, bias, w_proj, 4, 0.125, 1e-5)
+    for fn, a in ((fused_cuboid_attention_layer_dropout, fwd),
+                  (fused_cuboid_attention_layer_dropout_bwd_full, bw)):
+        assert same(fn(*a, *drop, dseed, 3, bases=base), fn(*a, *drop, seed, 3, bases=base))
+
+
+def test_captured_scan_gives_the_bits_of_eager_steps(dev):
+    """``train_step_scan`` on the card (captured graphs, a base_units-128
+    tiny UNet whose FFN and attention layers take the kernels, rates 0.1,
+    accum 2): two calls of K = 3 against six eager ``train_step`` calls from
+    the same weights, bit for bit; every replay adds its graph's launches."""
+    import numpy as np
+
+    from prediff_torch.config import load_config, prediff_default_config
+    from prediff_torch.datasets.synthetic import synthetic_batch_iterator
+    from prediff_torch.factory import build_training_pipeline
+    from prediff_torch.training import DiffusionTrainer
+
+    cfg = load_config(prediff_default_config, "configs/tiny_smoke.yaml")
+    cfg.model.latent_model.update(base_units=128, attn_drop=0.1, proj_drop=0.1, ffn_drop=0.1)
+    L = cfg.layout
+    it = synthetic_batch_iterator(2, L.in_len + L.out_len, L.img_height, L.img_width, seed=3)
+    b = torch.from_numpy(np.stack([next(it) for _ in range(6)]))
+    xs, ys = b[:, :, L.in_len:].contiguous(), b[:, :, :L.in_len].contiguous()
+    states, metrics = [], []
+    for scan in (False, True):
+        ld = build_training_pipeline(cfg, device=dev, seed=4)
+        tr = DiffusionTrainer(ld, optim_config=dict(lr=1e-3, total_num_steps=10, accum_steps=2))
+        st = tr.create_state()
+        got = []
+        if scan:
+            before = fused_ffn_dropout.launches
+            for c in range(2):
+                st, m = tr.train_step_scan(st, 9, xs[3 * c:3 * c + 3], ys[3 * c:3 * c + 3])
+                got += [{k: v[i] for k, v in m.items()} for i in range(3)]
+            per = {kind: d.get("fused_ffn_dropout", 0)
+                   for kind, d in tr.scan_graphs.launches_per_replay().items()}
+            assert sorted(per) == ["accumulate", "update"] and len(set(per.values())) == 1
+            assert fused_ffn_dropout.launches - before == 6 * per["update"] > 0
+        else:
+            for k in range(6):
+                st, m = tr.train_step(st, 9, xs[k].to(dev), ys[k].to(dev))
+                got.append(m)
+        states.append(st)
+        metrics.append(got)
+    a, s = states
+    assert (a.step, a.tx.count) == (s.step, s.tx.count) == (6, 3)
+    assert all(torch.equal(u, v) for u, v in zip(a.tensors(), s.tensors()))
+    assert all(torch.equal(metrics[0][i][k], metrics[1][i][k])
+               for i in range(6) for k in metrics[0][i])

@@ -342,7 +342,8 @@ def test_fit_stops_at_max_steps_validates_and_checkpoints(both, tmp_path):
     lines = [json.loads(ln) for ln in open(tmp_path / "metrics.jsonl")]
     assert [r["step"] for r in lines if "train/loss" in r] == [2, 4, 6]
     assert all(np.isfinite(r["train/loss"]) for r in lines if "train/loss" in r)
-    with pytest.raises(NotImplementedError):
+    # steps_per_call > 1 without a scan function is an error, as in the JAX loop
+    with pytest.raises(ValueError, match="train_step_scan"):
         fit(state, trainer.train_step, lambda e: [], lambda b: b, 1, str(tmp_path), 0,
             steps_per_call=2)
 
