@@ -134,13 +134,21 @@ eager and on graphs, exact launches), ``variant_globals_forecast`` (a UNet with
 and of a relu / global-vector / pooled-readout and a gated alignment net:
 forward, all gradients and the input gradient card against CPU) and
 ``variant_train`` (one trainer micro-step on each of the three at the
-recipes' rates: the dropout kernels on leaky and silu).  Last
-``steps_per_call`` (also ``--only scan``): ``devseed_kernels_vs_plain`` (rows
-15a-15d with the seed read from the card, bit-equal to the int-seed forms and
-against their plain versions at base 0 and ``DROP_BASES``, each an entry of the
-kernels line) and ``train_scan`` (the recipe's trainer, K = 4 micro-steps a
-call replayed from captured graphs, from pixels and from moments, bit-equal
-to as many eager micro-steps, launches per replay, ms against the eager ones).
+recipes' rates: the dropout kernels on leaky and silu).  After the ``ddp_*``
+children ``scan_mesh`` (``train_step_scan`` on a mesh, child processes
+likewise: two gloo ranks at depth [1,1] on the split graphs around the host
+all-reduce, each rank bit-equal to its eager mesh micro-steps and the ranks to
+each other; one NCCL rank at full depth with the all-reduce captured,
+bit-equal to its eager mesh micro-steps and to the scan without a mesh).  Last
+``steps_per_call`` (also ``--only scan``, with ``scan_mesh`` first):
+``devseed_kernels_vs_plain`` (rows 15a-15d with the seed read from the card,
+bit-equal to the int-seed forms and against their plain versions at base 0
+and ``DROP_BASES``, each an entry of the kernels line), ``train_scan`` (the
+recipe's trainer, K = 4 micro-steps a call replayed from captured graphs,
+from pixels and from moments, bit-equal to as many eager micro-steps,
+launches per replay, ms against the eager ones; ``train_scan_released``, what
+the card holds once it is dropped) and ``scan_optins`` (the same under
+``remat_unet`` from moments and pixels, and with bf16 moments and shadow).
 Then the ``kernels`` summary line (per kernel its ms,
 bound, library call and ``vs_library``; the conv, the grouped cores, the
 round-1 layer, the GroupNorm+SiLU forward and all-gradients backward and the
@@ -3994,11 +4002,15 @@ def main() -> int:
                     help="run one rank of the mesh_* phases (started by them, not by hand)")
     ap.add_argument("--ddp-child", nargs=2, metavar=("ROOT", "RANK"),
                     help="run one rank of the ddp_* phases (started by them, not by hand)")
+    ap.add_argument("--scan-child", nargs=2, metavar=("ROOT", "RANK"),
+                    help="run one rank of the scan_mesh phases (started by them, not by hand)")
     args = ap.parse_args()
     if args.mesh_child:
         return mesh_child(args.mesh_child[0], int(args.mesh_child[1]))
     if args.ddp_child:
         return ddp_child(args.ddp_child[0], int(args.ddp_child[1]))
+    if args.scan_child:
+        return scan_child(args.scan_child[0], int(args.scan_child[1]))
     try:
         import torch
     except ImportError:
@@ -4150,8 +4162,8 @@ def kernel_counters():
 # (the mesh_* phases), ddp (the ddp_* phases), variants (the model variants:
 # ffn_activations, the variant forecasts, variant_vs_cpu, variant_train), optins
 # (profiling_helpers, optin_remat, optin_bf16_state), ffn_gelu (the FFN
-# kernels' GELU forms' device times, alone), scan (devseed_kernels_vs_plain,
-# train_scan: steps_per_call on captured graphs) and drop_times (the dropout
+# kernels' GELU forms' device times, alone), scan (scan_mesh, devseed_kernels_vs_plain,
+# train_scan, scan_optins: steps_per_call on captured graphs) and drop_times (the dropout
 # kernels' device times, to compare two trees)
 ONLY = ("bwd_split", "guided_repeat", "vae_train", "align_train", "bf16", "vae_train_bf16",
         "bf16params", "eval", "data", "cli", "mesh", "ddp", "variants", "optins", "ffn_gelu",
@@ -4353,8 +4365,10 @@ def run(device, cfg, smi: str, build) -> None:
                                        names=CLI_PHASES[:-1]))
     launches_by_path.update(mesh_phases(device, smi, cfg, weights, by_route))
     launches_by_path.update(ddp_phases(device, smi, cfg, weights, by_route))
+    launches_by_path.update(scan_mesh_phases(device, smi, cfg, weights, by_route))
     # last: the captures of train_scan leave card memory reserved in this process, which
-    # would shrink the mesh and DDP children's shares and so their cuDNN algorithms
+    # would shrink the mesh, DDP and scan_mesh children's shares and so their cuDNN
+    # algorithms
     scases, scan_launches = scan_phases(device, smi, cfg, train_weights, by_route, cases,
                                         zero_counts, read_counts)
     launches_by_path.update(scan_launches)
@@ -5283,6 +5297,13 @@ def optin_phases(device, cfg, smi, ld, xy, per_micro, zero_counts, read_counts):
 SCAN_K = 4               # micro-steps per call
 SCAN_CALLS = 3           # calls from pixels: 12 micro-steps, 6 optimizer steps at accum 2
 SCAN_MOMENT_CALLS = 2    # calls from first-stage moments: 8 micro-steps
+# scan_optins: each trainer's calls from moments, and the remat trainer's from pixels
+SCAN_OPTINS = {"remat": dict(remat_unet=True),
+               "bf16_state": dict(state_dtype="bfloat16", ema_dtype="bfloat16")}
+SCAN_OPTIN_CALLS = 2
+SCAN_OPTIN_PIXEL_CALLS = 2   # the first call captures: the second times the replays
+SCAN_MESH_CALLS = 2      # scan_mesh: calls of each rank (gloo), of the NCCL rank
+SCAN_MESH_TIMEOUT_S = 600    # a rank that has not finished by then is killed and the phase fails
 # rows 15a-15d with the seed read from the card (ops/dropout.device_seed): the
 # int-seed form each was held against, on the train_scan path
 SCAN_FORMS = {"ffn_dropout_devseed": "ffn_dropout",
@@ -5394,22 +5415,154 @@ def check_devseed_kernels(cases, device):
 
 
 def scan_state_equal(a, b) -> dict:
-    """Which parts of two train states are bit-equal: the parameters, both
-    Adam moments and the optimizer's step counts, the EMA shadow, the counters."""
+    """Which parts of two train states are bit-equal (and of one dtype): the
+    parameters, each tensor of the optimizer's per-parameter state (both Adam
+    moments, the fused optimizer's step counts), the EMA shadow, the
+    accumulated gradients, the host's counters."""
     import torch
+
+    def same(x, y):
+        return x.dtype == y.dtype and torch.equal(x, y)
 
     sa, sb = a.tx.optimizer.state, b.tx.optimizer.state
     pa, pb = list(a.params.values()), list(b.params.values())
-    moments = {k: all(torch.equal(sa[p][k], sb[q][k]) for p, q in zip(pa, pb))
-               for k in ("exp_avg", "exp_avg_sq", "step")}
-    return {"params": all(torch.equal(p, q) for p, q in zip(pa, pb)), **moments,
-            "ema": all(torch.equal(a.ema_params[k], b.ema_params[k]) for k in a.ema_params),
-            "counters": (a.step, a.tx.count, a.tx.mini_step) == (b.step, b.tx.count,
-                                                                  b.tx.mini_step)}
+    keys = sorted({k for st in sa.values() for k, v in st.items() if isinstance(v, torch.Tensor)})
+    moments = {k: all(same(sa[p][k], sb[q][k]) for p, q in zip(pa, pb)) for k in keys}
+    acc_a, acc_b = a.tx.acc_grads or [], b.tx.acc_grads or []
+    return {"params": all(same(p, q) for p, q in zip(pa, pb)), **moments,
+            "ema": all(same(a.ema_params[k], b.ema_params[k]) for k in a.ema_params),
+            "acc_grads": len(acc_a) == len(acc_b) and all(map(same, acc_a, acc_b)),
+            "counters": a.counters() == b.counters()}
 
 
-def train_scan(device, smi, cfg, weights, per_train, zero_counts, read_counts,
-               depth=None) -> dict:
+def stack_moments(ld, stack, device):
+    """First-stage moments of a (n, B, T, H, W, C) stack of pixel windows, on
+    ``device``, one micro-batch at a time."""
+    import torch
+
+    def moments(a):
+        m = ld.first_stage_moments(a.reshape((-1,) + tuple(a.shape[2:])))
+        return m.reshape(tuple(a.shape[:2]) + tuple(m.shape[1:]))
+
+    with torch.no_grad():
+        return torch.stack([moments(a.to(device)) for a in stack])
+
+
+def scan_against_eager(device, lds, cfg, xs, ys, calls, per_micro, zero_counts, read_counts,
+                       latent=False, **optins) -> dict:
+    """``calls`` calls of ``train_step_scan`` (K = ``SCAN_K``) of the
+    recipe's trainer with ``optins`` (``remat_unet``, ``state_dtype``,
+    ``ema_dtype``) on the pipeline ``lds[1]`` against as many eager
+    ``train_step`` calls on ``lds[0]`` from the same state, on the (n, B, ...)
+    pixel stacks ``xs``, ``ys`` (``latent``: their first-stage moments): bit
+    for bit (the state, every metric), the launches of the scan run and per
+    replay against ``per_micro`` a micro-step, ms per micro-step both ways
+    (the last call's), the last call's replays' device ms and busy share, the
+    captures' seconds and pool."""
+    import numpy as np
+    import torch
+
+    n = SCAN_K * calls
+    names = {fn.__name__: name for name, fn in COUNTERS.items()}
+    eager_tr, scan_tr = (recipe_trainer(ld, cfg, latent_inputs=latent, **optins) for ld in lds)
+    if latent:
+        xk, yk = stack_moments(lds[0], xs[:n], device), stack_moments(lds[0], ys[:n], device)
+    else:
+        xk, yk = xs[:n], ys[:n]
+        if device.type == "cuda":
+            xk, yk = xk.pin_memory(), yk.pin_memory()
+    eager, scanned = eager_tr.create_state(), scan_tr.create_state()
+    ex, ey = xk.to(device), yk.to(device)
+    eager_ms, eager_metrics = [], []
+    for k in range(n):
+        sync(device)
+        t0 = time.perf_counter()
+        eager, m = eager_tr.train_step(eager, SEED, ex[k], ey[k])
+        sync(device)
+        eager_ms.append(1e3 * (time.perf_counter() - t0))
+        eager_metrics.append(m)
+    sync(device)
+    zero_counts()
+    call_ms, metrics = [], []
+    graphs = None
+    for c in range(calls):
+        if c == calls - 1 and scan_tr.scan_graphs is not None:
+            scan_tr.scan_graphs.timing = []
+        t0 = time.perf_counter()
+        scanned, m = scan_tr.train_step_scan(scanned, SEED, xk[c * SCAN_K:(c + 1) * SCAN_K],
+                                             yk[c * SCAN_K:(c + 1) * SCAN_K])
+        sync(device)
+        call_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append(m)
+        graphs = scan_tr.scan_graphs
+    counts = {k: v for k, v in read_counts().items() if v}
+    replays = graphs.timing or []
+    replay_ms = [s.elapsed_time(e) for _, s, e in replays]
+    graphs.timing = None
+    equal = scan_state_equal(eager, scanned)
+    keys = list(eager_metrics[0])
+    metric_equal = all(torch.equal(torch.stack([e[k] for e in eager_metrics]),
+                                   torch.cat([m[k] for m in metrics])) for k in keys)
+    per_replay = {kind: {names.get(fn, fn): v for fn, v in d.items()}
+                  for kind, d in graphs.launches_per_replay().items()}
+    steady = call_ms[-1] / SCAN_K
+    device_ms = float(np.mean(replay_ms)) if replay_ms else None
+    out = {"micro_steps": n, "calls": calls, "k": SCAN_K, "optins": optins, "bit_equal": equal,
+           "metrics_bit_equal": metric_equal, "metric_keys": keys,
+           "optimizer_steps": scanned.tx.count, "step": scanned.step,
+           "loss": [float(v) for m in metrics for v in m["train/loss"]],
+           "call_ms": call_ms, "ms_per_micro_step": steady,
+           "eager_ms_per_micro_step": median(eager_ms[2:]), "eager_ms": eager_ms,
+           "replay_device_ms": device_ms, "replays_timed": len(replay_ms),
+           "busy_share": None if device_ms is None else device_ms / steady,
+           "captures": graphs.captures, "capture_s": graphs.capture_seconds,
+           "pool_gib": graphs.pool_bytes() / 2**30, "launches": counts,
+           "expected_launches": {k: v * n for k, v in per_micro.items()},
+           "launches_per_replay": per_replay, "expected_per_replay": per_micro}
+    del eager_tr, scan_tr, eager, scanned, ex, ey, graphs
+    return out
+
+
+def check_scan_run(phase: str, what: str, r: dict) -> None:
+    """Fail ``phase`` unless the run ``r`` of ``scan_against_eager`` is bit-equal
+    to its eager calls, launched as expected in all and per replay of each
+    kind, and finite."""
+    import numpy as np
+
+    if not (all(r["bit_equal"].values()) and r["metrics_bit_equal"]):
+        fail(f"{phase} ({what}): not bit-equal to eager train_step: {r['bit_equal']}, "
+             f"metrics {r['metrics_bit_equal']}")
+    if r["launches"] != r["expected_launches"]:
+        fail(f"{phase} ({what}): launches {r['launches']} != {r['expected_launches']}")
+    per = r["expected_per_replay"]
+    if any(d != per for d in r["launches_per_replay"].values()) or \
+            sorted(r["launches_per_replay"]) != ["accumulate", "update"]:
+        fail(f"{phase} ({what}): launches per replay {r['launches_per_replay']} != {per} for "
+             "each kind")
+    if not np.isfinite(r["loss"]).all():
+        fail(f"{phase} ({what}): non-finite loss")
+
+
+def memory_left(device) -> dict:
+    """What this process's caching allocator holds on the card (GiB): reserved
+    and allocated, and its largest segments (size, allocated, graph pool id,
+    stream, live blocks)."""
+    import torch
+
+    segments = torch.cuda.memory_snapshot()
+    largest = []
+    for s in sorted(segments, key=lambda s: -s["total_size"])[:6]:
+        live = [b for b in s["blocks"] if b["state"] == "active_allocated"]
+        largest.append({"gib": s["total_size"] / 2**30,
+                        "allocated_gib": s["allocated_size"] / 2**30,
+                        "pool": list(s.get("segment_pool_id", ())), "stream": s["stream"],
+                        "live_blocks": len(live)})
+    return {"reserved_gib": torch.cuda.memory_reserved(device) / 2**30,
+            "allocated_gib": torch.cuda.memory_allocated(device) / 2**30,
+            "segments": len(segments), "largest": largest}
+
+
+def train_scan(device, smi, cfg, weights, per_train, zero_counts, read_counts) -> dict:
     """``train_scan``: the recipe's trainer (rates 0.1, B=2, accum 2) with
     ``steps_per_call`` K = ``SCAN_K``: ``SCAN_CALLS`` calls of
     ``train_step_scan`` from pixels against as many eager ``train_step``
@@ -5417,135 +5570,343 @@ def train_scan(device, smi, cfg, weights, per_train, zero_counts, read_counts,
     bit for bit (parameters, moments, shadow, counters, every metric), the
     launches of the run and per replay, ms per micro-step both ways, the
     replays' device ms and busy share, the captures' seconds and pool; then
-    ``SCAN_MOMENT_CALLS`` calls from first-stage moments likewise.  Returns
-    the wrappers' launches of the pixel run."""
+    ``SCAN_MOMENT_CALLS`` calls from first-stage moments likewise; then
+    ``train_scan_released``, what the card holds once its pipelines and
+    graphs are gone.  Returns the wrappers' launches of the pixel run."""
+    import torch
+
+    lds, xs, ys = scan_pipelines(device, cfg, weights, SCAN_K * SCAN_CALLS)
+    per_micro = {k: v for k, v in expected_train_launches(per_train, 1, 0, True).items() if v}
+    t1 = time.perf_counter()
+    pixels = scan_against_eager(device, lds, cfg, xs, ys, SCAN_CALLS, per_micro, zero_counts,
+                                read_counts)
+    pixel_s = time.perf_counter() - t1
+    moments = scan_against_eager(device, lds, cfg, xs, ys, SCAN_MOMENT_CALLS, per_micro,
+                                 zero_counts, read_counts, latent=True)
+    emit({"phase": "train_scan", "batch": cfg.optim.micro_batch_size,
+          "accum_steps": TRAIN_ACCUM, "depth": list(cfg.model.latent_model.depth),
+          "dropout": {k: cfg.model.latent_model[k] for k in ("attn_drop", "proj_drop", "ffn_drop")},
+          "pixels": pixels, "moments": moments, "pixel_run_s": pixel_s,
+          "torch": torch.__version__, "card": smi})
+    for what, r in (("pixels", pixels), ("moments", moments)):
+        check_scan_run("train_scan", what, r)
+    if pixels["optimizer_steps"] != SCAN_K * SCAN_CALLS // TRAIN_ACCUM:
+        fail(f"train_scan: {pixels['optimizer_steps']} optimizer steps")
+    PHASE_NUMBERS["train_scan_pool_gib"] = {"pixels": pixels["pool_gib"],
+                                            "moments": moments["pool_gib"]}
+    # what the phase leaves reserved once its pipelines and graphs are gone
+    del lds
+    emit({"phase": "train_scan_released", **release_scan_memory(device)})
+    return pixels["launches"]
+
+
+def release_scan_memory(device) -> dict:
+    """Once the scan phase's pipelines and trainers are dropped: collect,
+    free the cuBLAS workspaces (``graphs.release_workspaces``, which raises
+    while a captured graph is alive), give back the cache, and say what the
+    card still holds (``memory_left``)."""
+    import torch
+    from prediff_torch.diffusion.graphs import release_workspaces
+
+    gc.collect()
+    release_workspaces()
+    torch.cuda.empty_cache()
+    return memory_left(device)
+
+
+def scan_pipelines(device, cfg, weights, n: int):
+    """Two training pipelines of ``cfg`` on ``weights`` with the UNet from
+    the seeded initialisation, and ``n`` synthetic micro-batches of pixel
+    windows stacked (n, B, ...) as targets and contexts."""
     import numpy as np
     import torch
-    from prediff_torch.config import ConfigDict, deep_merge
     from prediff_torch.datasets.synthetic import synthetic_batch_iterator
     from prediff_torch.factory import build_training_pipeline
     from prediff_torch.models.init import init_params_
 
-    if depth is not None:
-        cfg = ConfigDict.wrap(deep_merge(cfg.to_dict(), {"model": {"latent_model": dict(
-            depth=list(depth))}}))
     B, L = cfg.optim.micro_batch_size, cfg.layout
-    micro_steps = SCAN_K * SCAN_CALLS
     it = synthetic_batch_iterator(B, L.in_len + L.out_len, L.img_height, L.img_width,
                                   seed=SEED + 5)
-    batches = torch.from_numpy(np.stack([next(it) for _ in range(micro_steps)]))
-    xs, ys = batches[:, :, L.in_len:].contiguous(), batches[:, :, :L.in_len].contiguous()
+    batches = torch.from_numpy(np.stack([next(it) for _ in range(n)]))
     lds = []
     for _ in range(2):
         ld = build_training_pipeline(cfg, device=device, params=weights)
         init_params_(ld.unet, torch.Generator().manual_seed(SEED))
         lds.append(ld)
-    names = {fn.__name__: name for name, fn in COUNTERS.items()}
-    per_micro = expected_train_launches(per_train, 1, 0, dropout=True)
-    per_micro = {k: v for k, v in per_micro.items() if v}
+    return (lds, batches[:, :, L.in_len:].contiguous(), batches[:, :, :L.in_len].contiguous())
 
-    def run(latent: bool, calls: int):
-        n = SCAN_K * calls
-        eager_tr, scan_tr = (recipe_trainer(ld, cfg, latent_inputs=latent) for ld in lds)
-        if latent:
-            def moments(a):
-                m = lds[0].first_stage_moments(a.reshape((-1,) + tuple(a.shape[2:])))
-                return m.reshape(tuple(a.shape[:2]) + tuple(m.shape[1:]))
 
-            with torch.no_grad():
-                xk = torch.stack([moments(a.to(device)) for a in xs[:n]])
-                yk = torch.stack([moments(a.to(device)) for a in ys[:n]])
-        else:
-            xk, yk = xs[:n].pin_memory(), ys[:n].pin_memory()
-        eager, scanned = eager_tr.create_state(), scan_tr.create_state()
-        ex, ey = xk.to(device), yk.to(device)
-        eager_ms, eager_metrics = [], []
-        for k in range(n):
-            sync(device)
-            t0 = time.perf_counter()
-            eager, m = eager_tr.train_step(eager, SEED, ex[k], ey[k])
-            sync(device)
-            eager_ms.append(1e3 * (time.perf_counter() - t0))
-            eager_metrics.append(m)
+def scan_optins(device, smi, cfg, weights, per_train, zero_counts, read_counts) -> dict:
+    """``scan_optins``: the recipe's trainer with ``steps_per_call`` K =
+    ``SCAN_K`` and each of ``SCAN_OPTINS`` (``remat_unet``; bf16 Adam moments
+    and EMA shadow): ``SCAN_OPTIN_CALLS`` calls from first-stage moments each,
+    and the remat trainer's ``SCAN_OPTIN_PIXEL_CALLS`` from pixels, each
+    against as many eager ``train_step`` calls on a second pipeline of the same
+    weights, bit for bit (parameters, both moments, the shadow, the counters,
+    every metric), with ms per micro-step both ways, the replays' device ms and
+    busy share, launches per replay (remat: the block pairs' forward kernels
+    twice), capture seconds and pool GiB beside ``train_scan``'s (no opt-in).
+    Returns the launches of the remat trainer's moment run."""
+    n = SCAN_K * max(SCAN_OPTIN_CALLS, SCAN_OPTIN_PIXEL_CALLS)
+    lds, xs, ys = scan_pipelines(device, cfg, weights, n)
+    per_micro = {k: v for k, v in expected_train_launches(per_train, 1, 0, True).items() if v}
+    runs = {}
+    for name, optins in SCAN_OPTINS.items():
+        per = remat_launches(per_micro) if optins.get("remat_unet") else per_micro
+        runs[name] = {"moments": scan_against_eager(device, lds, cfg, xs, ys, SCAN_OPTIN_CALLS,
+                                                    per, zero_counts, read_counts, latent=True,
+                                                    **optins)}
+        if optins.get("remat_unet"):
+            runs[name]["pixels"] = scan_against_eager(device, lds, cfg, xs, ys,
+                                                      SCAN_OPTIN_PIXEL_CALLS, per, zero_counts,
+                                                      read_counts, **optins)
+    del lds
+    emit({"phase": "scan_optins", "batch": cfg.optim.micro_batch_size,
+          "accum_steps": TRAIN_ACCUM, "depth": list(cfg.model.latent_model.depth), **runs,
+          "pool_gib_without_optins": PHASE_NUMBERS.get("train_scan_pool_gib"), "card": smi,
+          "released": release_scan_memory(device)})
+    for name, by_input in runs.items():
+        for what, r in by_input.items():
+            check_scan_run("scan_optins", f"{name}, {what}", r)
+    return runs["remat"]["moments"]["launches"]
+
+
+def scan_mesh_phases(device, smi, cfg, weights, per) -> dict:
+    """``scan_mesh``: ``train_step_scan`` on a mesh, in ranks that are child
+    processes of this script (``--scan-child``), each held to its share of the
+    card (``rank_memory_share``): two gloo ranks at the recipe's widths cut to
+    depth [1,1], one sample a rank, ``SCAN_MESH_CALLS`` calls of K =
+    ``SCAN_K`` from moments on the split graphs (the loss and gradients, the
+    host all-reduce, the update), each rank's state bit-equal to as many eager
+    mesh micro-steps of that rank after every call and the ranks to each
+    other, the host all-reduce's ms a micro-step; then rank 0 alone in an NCCL
+    group of one at full depth, as many calls with the all-reduce inside the
+    graph, bit-equal to its eager mesh micro-steps and to the scan without a
+    mesh.  Returns rank 0's launches by phase."""
+    import torch
+    from prediff_torch.config import save_yaml
+
+    t_all = time.perf_counter()
+    cfg1, weights1, per1 = depth1_unet(cfg, weights["vae"])
+    with tempfile.TemporaryDirectory() as root:
+        save_yaml(cfg, os.path.join(root, "cfg.yaml"))
+        save_yaml(cfg1, os.path.join(root, "cfg1.yaml"))
+        torch.save({"full": {"unet": weights["unet"], "vae": weights["vae"]}, "depth1": weights1},
+                   os.path.join(root, "weights.pt"))
+        with open(os.path.join(root, "plan.json"), "w") as f:
+            json.dump({"device": str(device), "port": free_port(), "port2": free_port(),
+                       "nccl_backend": "nccl" if device.type == "cuda" else "gloo",
+                       "per1": per1, "per": {k: v["per_train"] for k, v in per.items()}}, f)
+        children = run_ranks("scan", root, "scan", SCAN_MESH_TIMEOUT_S, device)
+        res = []
+        for r in range(2):
+            with open(os.path.join(root, f"scan{r}.json")) as f:
+                res.append(json.load(f))
+    launches = {}
+    for name in ("scan_mesh_gloo", "scan_mesh_nccl"):
+        line = {"phase": name, **res[0][name], "card": smi}
+        if name in res[1]:
+            line["rank1"] = {k: v for k, v in res[1][name].items()
+                             if k in ("launches", "ms_per_micro_step", "host_all_reduce_ms",
+                                      "bit_equal_per_call", "failed")}
+            line["ms_are"] = "two ranks sharing one card: not scaling"
+        emit(line)
+        failed = list(res[0][name]["failed"]) + list(res[1].get(name, {}).get("failed", []))
+        if failed:
+            fail(f"{name}: {failed}")
+        launches[name] = res[0][name]["launches"]
+    emit({"phase": "scan_mesh", "seconds": time.perf_counter() - t_all, **children,
+          "rank_stages_s": [r["stages_s"] for r in res],
+          "rank_peak_gib_by_stage": [r["peak_gib_by_stage"] for r in res], "card": smi})
+    return launches
+
+
+def scan_child(root: str, rank: int) -> int:
+    """One rank of ``scan_mesh_phases`` (``--scan-child ROOT RANK``): its
+    results in ``ROOT/scan{RANK}.json``; a failed check is listed there, an
+    error exits non-zero."""
+    import torch
+    import torch.distributed as dist
+    from prediff_torch.config import load_config, prediff_default_config
+    from prediff_torch.factory import build_training_pipeline
+    from prediff_torch.parallel import init_distributed, make_mesh
+    from prediff_torch.parallel.mesh import gather_parts
+    from prediff_torch.utils.device import set_numerics
+
+    stages = {"imports": time.perf_counter() - T0}
+    peaks = {}
+
+    def stage(name):
         sync(device)
-        zero_counts()
-        call_ms, metrics = [], []
-        graphs = None
+        stages[name] = time.perf_counter() - T0
+        progress(device, name, stages[name], peaks)
+
+    with open(os.path.join(root, "plan.json")) as f:
+        plan = json.load(f)
+    device = torch.device(plan["device"])
+    rank_memory_share(device)
+    set_numerics()
+    zero_counts, read_counts = kernel_counters()
+    names = {fn.__name__: name for name, fn in COUNTERS.items()}
+    weights = torch.load(os.path.join(root, "weights.pt"))
+    out = {"stages_s": stages, "peak_gib_by_stage": peaks}
+
+    def per_micro(per_train):
+        return {k: v for k, v in expected_train_launches(per_train, 1, 0, True).items() if v}
+
+    def by_name(graphs):
+        return {kind: {names.get(fn, fn): v for fn, v in d.items()}
+                for kind, d in graphs.launches_per_replay().items()}
+
+    def run(cfg, ld_weights, mesh, batch, rows, calls, per, no_mesh=False):
+        """Eager mesh micro-steps against ``train_step_scan`` on the mesh,
+        call by call, from moments of ``batch`` global samples (this rank's
+        ``rows``); ``no_mesh``: also the scan without a mesh."""
+        img = cfg.layout
+        rs = torch.Generator().manual_seed(SEED + 61)
+        n = SCAN_K * calls
+        x = torch.rand((n, batch, img.out_len, img.img_height, img.img_width,
+                        img.data_channels), generator=rs)[:, rows]
+        y = torch.rand((n, batch, img.in_len, img.img_height, img.img_width,
+                        img.data_channels), generator=rs)[:, rows]
+        lds = [build_training_pipeline(cfg, device=device, params=ld_weights)
+               for _ in range(3 if no_mesh else 2)]
+        xk, yk = stack_moments(lds[0], x, device), stack_moments(lds[0], y, device)
+        meshes = [mesh, mesh] + ([None] if no_mesh else [])
+        trainers = [recipe_trainer(ld, cfg, latent_inputs=True, mesh=m)
+                    for ld, m in zip(lds, meshes)]
+        states = [tr.create_state() for tr in trainers]
+        line = {"depth": list(cfg.model.latent_model.depth), "samples_per_rank": xk.shape[1],
+                "k": SCAN_K, "calls": calls, "backend": mesh.backend, "ranks": mesh.size,
+                "bit_equal_per_call": [], "metrics_bit_equal_per_call": [], "failed": []}
+        eager_ms, call_ms, counts = [], [], {}
         for c in range(calls):
-            if c == calls - 1 and scan_tr.scan_graphs is not None:
-                scan_tr.scan_graphs.timing = []
+            chunk = slice(c * SCAN_K, (c + 1) * SCAN_K)
+            want = []
+            for k in range(chunk.start, chunk.stop):
+                sync(device)
+                t0 = time.perf_counter()
+                states[0], m = trainers[0].train_step(states[0], SEED, xk[k], yk[k])
+                sync(device)
+                eager_ms.append(1e3 * (time.perf_counter() - t0))
+                want.append(m)
+            want = {k: torch.stack([m[k] for m in want]) for k in want[0]}
+            graphs = trainers[1].scan_graphs
+            if c == calls - 1 and graphs is not None:
+                graphs.timing, graphs.reduce_ms = [], []
+            zero_counts()
+            sync(device)
             t0 = time.perf_counter()
-            scanned, m = scan_tr.train_step_scan(scanned, SEED, xk[c * SCAN_K:(c + 1) * SCAN_K],
-                                                 yk[c * SCAN_K:(c + 1) * SCAN_K])
+            states[1], got = trainers[1].train_step_scan(states[1], SEED, xk[chunk], yk[chunk])
             sync(device)
             call_ms.append(1e3 * (time.perf_counter() - t0))
-            metrics.append(m)
-            graphs = scan_tr.scan_graphs
-        counts = {k: v for k, v in read_counts().items() if v}
-        replays = graphs.timing or []
-        replay_ms = [s.elapsed_time(e) for _, s, e in replays]
-        graphs.timing = None
-        equal = scan_state_equal(eager, scanned)
-        keys = list(eager_metrics[0])
-        metric_equal = all(torch.equal(torch.stack([e[k] for e in eager_metrics]),
-                                       torch.cat([m[k] for m in metrics])) for k in keys)
-        per_replay = {kind: {names.get(fn, fn): v for fn, v in d.items()}
-                      for kind, d in graphs.launches_per_replay().items()}
+            for key, v in read_counts().items():
+                if v:
+                    counts[key] = counts.get(key, 0) + v
+            equal = scan_state_equal(states[0], states[1])
+            line["bit_equal_per_call"].append(equal)
+            line["metrics_bit_equal_per_call"].append(
+                all(torch.equal(want[k], got[k]) for k in want))
+            if no_mesh:
+                states[2], alone = trainers[2].train_step_scan(states[2], SEED, xk[chunk],
+                                                               yk[chunk])
+                line["bit_equal_to_no_mesh"] = scan_state_equal(states[1], states[2])
+                line["metrics_bit_equal_to_no_mesh"] = all(torch.equal(got[k], alone[k])
+                                                           for k in got)
+        graphs = trainers[1].scan_graphs
+        replay_ms = [s.elapsed_time(e) for _, s, e in graphs.timing or []]
         steady = call_ms[-1] / SCAN_K
-        eager_steady = median(eager_ms[2:])
-        device_ms = float(np.mean(replay_ms)) if replay_ms else None
-        out = {"micro_steps": n, "calls": calls, "k": SCAN_K, "bit_equal": equal,
-               "metrics_bit_equal": metric_equal, "metric_keys": keys,
-               "optimizer_steps": scanned.tx.count, "step": scanned.step,
-               "loss": [float(v) for m in metrics for v in m["train/loss"]],
-               "call_ms": call_ms, "ms_per_micro_step": steady,
-               "eager_ms_per_micro_step": eager_steady, "eager_ms": eager_ms,
-               "replay_device_ms": device_ms, "replays_timed": len(replay_ms),
-               "busy_share": None if device_ms is None else device_ms / steady,
-               "captures": graphs.captures, "capture_s": graphs.capture_seconds,
-               "pool_gib": graphs.pool_bytes() / 2**30, "launches": counts,
-               "expected_launches": {k: v * n for k, v in per_micro.items()},
-               "launches_per_replay": per_replay}
-        del eager_tr, scan_tr, eager, scanned, ex, ey
-        return out
+        line.update(
+            split=graphs.split, graphs=sorted(graphs.graphs), launches=counts,
+            expected_launches={k: v * n for k, v in per.items()},
+            launches_per_replay=by_name(graphs), ms_per_micro_step=steady,
+            eager_ms_per_micro_step=median(eager_ms), call_ms=call_ms,
+            replay_device_ms_per_micro_step=sum(replay_ms) / SCAN_K,
+            busy_share=sum(replay_ms) / SCAN_K / steady,
+            host_all_reduce_ms=list(graphs.reduce_ms or []), captures=graphs.captures,
+            capture_s=graphs.capture_seconds, pool_gib=graphs.pool_bytes() / 2**30,
+            gradient_bytes=4 * sum(p.numel() for p in states[1].params.values()),
+            loss=float(got["train/loss"][-1]))
+        if not all(all(e.values()) for e in line["bit_equal_per_call"]):
+            line["failed"].append(f"not bit-equal to the eager mesh micro-steps: "
+                                  f"{line['bit_equal_per_call']}")
+        if not all(line["metrics_bit_equal_per_call"]):
+            line["failed"].append("metrics not bit-equal to the eager mesh micro-steps")
+        if no_mesh and not (all(line["bit_equal_to_no_mesh"].values())
+                            and line["metrics_bit_equal_to_no_mesh"]):
+            line["failed"].append(f"not bit-equal to the scan without a mesh: "
+                                  f"{line['bit_equal_to_no_mesh']}")
+        if counts != line["expected_launches"]:
+            line["failed"].append(f"launches {counts} != {line['expected_launches']}")
+        return line, states[1], trainers
 
-    t1 = time.perf_counter()
-    pixels = run(False, SCAN_CALLS)
-    pixel_s = time.perf_counter() - t1
-    moments = run(True, SCAN_MOMENT_CALLS)
-    emit({"phase": "train_scan", "batch": B, "accum_steps": TRAIN_ACCUM,
-          "depth": list(cfg.model.latent_model.depth),
-          "dropout": {k: cfg.model.latent_model[k] for k in ("attn_drop", "proj_drop", "ffn_drop")},
-          "pixels": pixels, "moments": moments, "pixel_run_s": pixel_s,
-          "torch": torch.__version__, "card": smi})
-    for what, r in (("pixels", pixels), ("moments", moments)):
-        if not (all(r["bit_equal"].values()) and r["metrics_bit_equal"]):
-            fail(f"train_scan ({what}): not bit-equal to eager train_step: {r['bit_equal']}, "
-                 f"metrics {r['metrics_bit_equal']}")
-        if r["launches"] != r["expected_launches"]:
-            fail(f"train_scan ({what}): launches {r['launches']} != {r['expected_launches']}")
-        if any(d != per_micro for d in r["launches_per_replay"].values()) or \
-                sorted(r["launches_per_replay"]) != ["accumulate", "update"]:
-            fail(f"train_scan ({what}): launches per replay {r['launches_per_replay']} != "
-                 f"{per_micro} for each kind")
-        if not np.isfinite(r["loss"]).all():
-            fail(f"train_scan ({what}): non-finite loss")
-    if pixels["optimizer_steps"] != micro_steps // TRAIN_ACCUM:
-        fail(f"train_scan: {pixels['optimizer_steps']} optimizer steps")
-    # what the phase leaves reserved once its pipelines and graphs are gone
-    del lds, run
-    gc.collect()
-    torch.cuda.empty_cache()
-    emit({"phase": "train_scan_released", "reserved_gib": torch.cuda.memory_reserved(device) / 2**30,
-          "allocated_gib": torch.cuda.memory_allocated(device) / 2**30})
-    return pixels["launches"]
+    # ---- two gloo ranks, depth [1,1], one sample a rank, the split graphs
+    init_distributed(coordinator_address=f"localhost:{plan['port']}", num_processes=2,
+                     process_id=rank, backend="gloo", device=device, timeout=120.0)
+    mesh = make_mesh()
+    stage("joined")
+    cfg1 = load_config(prediff_default_config, os.path.join(root, "cfg1.yaml"))
+    per1 = per_micro(plan["per1"])
+    line, state, trainers = run(cfg1, weights["depth1"], mesh, mesh.size,
+                                slice(rank, rank + 1), SCAN_MESH_CALLS, per1)
+    digests = gather_parts(bit_digest(state.tensors()).to(device), mesh)
+    line["ranks_bit_equal"] = all(torch.equal(digests[0], d) for d in digests[1:])
+    if not line["ranks_bit_equal"]:
+        line["failed"].append("the ranks' states differ after the calls")
+    want_split = {"grads": per1, "accumulate": {}, "update": {}}
+    if not line["split"] or line["launches_per_replay"] != want_split:
+        line["failed"].append(f"split graphs {line['split']}, launches per replay "
+                              f"{line['launches_per_replay']} != {want_split}")
+    out["scan_mesh_gloo"] = line
+    del state, trainers
+    stage("gloo_done")
+    dist.barrier()
+    dist.destroy_process_group()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    if rank == 0:   # one NCCL rank at full depth: the all-reduce inside the graph
+        init_distributed(coordinator_address=f"localhost:{plan['port2']}", num_processes=1,
+                         process_id=0, backend=plan["nccl_backend"], device=device,
+                         timeout=120.0)
+        cfg = load_config(prediff_default_config, os.path.join(root, "cfg.yaml"))
+        per = per_micro(plan["per"])
+        captured = []
+        all_reduce = dist.all_reduce
+
+        def counted(*args, **kwargs):
+            if device.type == "cuda":
+                captured.append(torch.cuda.is_current_stream_capturing())
+            return all_reduce(*args, **kwargs)
+
+        dist.all_reduce = counted
+        try:
+            line, state, trainers = run(cfg, weights["full"], make_mesh(),
+                                        cfg.optim.micro_batch_size, slice(None),
+                                        SCAN_MESH_CALLS, per, no_mesh=True)
+        finally:
+            dist.all_reduce = all_reduce
+        line["all_reduces_captured"] = sum(captured)
+        want_whole = {"accumulate": per, "update": per}
+        if line["split"] or line["launches_per_replay"] != want_whole:
+            line["failed"].append(f"split {line['split']}, launches per replay "
+                                  f"{line['launches_per_replay']} != {want_whole}")
+        if device.type == "cuda" and line["all_reduces_captured"] != 4:
+            line["failed"].append(f"{line['all_reduces_captured']} all-reduces captured, not "
+                                  "the gradients' and the losses' in each of two graphs")
+        out["scan_mesh_nccl"] = line
+        del state, trainers
+        dist.destroy_process_group()
+        stage("nccl_done")
+    with open(os.path.join(root, f"scan{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
 
 
-def scan_phases(device, smi, cfg, weights, by_route, cases, zero_counts, read_counts,
-                depth=None):
+def scan_phases(device, smi, cfg, weights, by_route, cases, zero_counts, read_counts):
     """The dropout kernels' device-seed form (``devseed_kernels_vs_plain``),
-    then ``train_scan``.  Returns the device-seed cases and the launches
-    of the ``train_scan`` path by their names."""
+    then ``train_scan`` and ``scan_optins``.  Returns the device-seed cases and
+    the launches of the ``train_scan`` path by their names."""
     scases, bad = check_devseed_kernels(cases, device)
     emit({"phase": "devseed_kernels_vs_plain", "cases": sum(len(v) for v in scases.values()),
           "failed": len(bad), "bases": list(DROP_BASES),
@@ -5555,13 +5916,16 @@ def scan_phases(device, smi, cfg, weights, by_route, cases, zero_counts, read_co
     if bad:
         fail(f"device-seed dropout kernel disagrees: {[(n, c.get('shape')) for n, c in bad]}")
     per_train = {k: v["per_train"] for k, v in by_route.items()}
-    launches = train_scan(device, smi, cfg, weights, per_train, zero_counts, read_counts, depth)
-    return scases, {"train_scan": {k: launches.get(v, 0) for k, v in SCAN_FORMS.items()}}
+    launches = train_scan(device, smi, cfg, weights, per_train, zero_counts, read_counts)
+    remat = scan_optins(device, smi, cfg, weights, per_train, zero_counts, read_counts)
+    return scases, {"train_scan": {k: launches.get(v, 0) for k, v in SCAN_FORMS.items()},
+                    "scan_optins_remat": {k: remat.get(v, 0) for k, v in SCAN_FORMS.items()}}
 
 
 def scan_alone(device, smi, depth=None):
     """``--only scan``: the seeded randomized models as ``run`` makes them,
-    the kernel cases, then ``scan_phases`` (``depth``: the UNet cut to it)."""
+    the kernel cases, then ``scan_mesh_phases`` and ``scan_phases``
+    (``depth``: the UNet cut to it)."""
     import torch
     from prediff_torch.config import alignment_default_config, prediff_default_config
     from prediff_torch.factory import build_alignment_model, build_unet, build_vae
@@ -5578,6 +5942,7 @@ def scan_alone(device, smi, depth=None):
                          alignment_default_config().optim.micro_batch_size)
     by_route = path_launches(unet_cpu, align_cpu)
     weights = {"unet": unet_cpu.state_dict(), "vae": vae_cpu.state_dict()}
+    scan_mesh_phases(device, smi, cfg, weights, by_route)
     if depth is not None:
         cfg1, weights1, per1 = depth1_unet(cfg, weights["vae"])
         by_route = {k: dict(v, per_train=per1.get(k, 0)) for k, v in by_route.items()}

@@ -194,9 +194,9 @@ def train(args: argparse.Namespace, cfg, dm, device, save_dir: str,
                            accum_steps(cfg, 1 if mesh is None else mesh.size, args.nodes),
                            latent_inputs=args.latents is not None, mesh=mesh)
     # steps_per_call K > 1: K micro-steps a call (DiffusionTrainer.train_step_scan) on
-    # (K, B, ...) chunks of K host batches stacked before the copy to the card
+    # (K, B, ...) chunks of K host batches stacked before the copy to the card; with
+    # --multihost each rank stacks its own shard's batches, its rows of the JAX chunk
     steps_per_call = max(1, int(o.get("steps_per_call", 1)))
-    trainer.check_scan(steps_per_call)
     state = trainer.create_state()
     if args.ckpt_name:
         restore_checkpoint(os.path.join(save_dir, args.ckpt_name), state)

@@ -28,6 +28,14 @@ captures, once per forecast, and drops every graph when one has moved.  An
 update through ``.data`` bypasses the version counter and is not seen, as
 in ``ops/weights.py``.
 
+Every graph of :func:`capture_graph` that ran a matrix product holds the
+address of PyTorch's cuBLAS workspace for the stream it was captured on,
+and the warm-ups' side stream and the eager steps' stream keep one each,
+made when a stream first needs one, from the cache: made in the middle of a
+step, a workspace splits a large cached block of that step's activations and
+keeps its whole segment reserved.  :func:`release_workspaces` frees them
+all, once no such graph is alive.
+
 The kernels' ``.launches`` counters (and ``.bf16_launches``, their bf16
 forms', and the FFN kernels' ``.relu_launches`` / ``.leaky_launches`` /
 ``.silu_launches``) tick in Python, once per wrapper call; a capture would count one
@@ -37,6 +45,7 @@ again: the counters still count the kernels' launches on the card.
 """
 import gc
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
@@ -174,6 +183,7 @@ class StepGraphCache:
 
 
 _SIDE: Dict[torch.device, "torch.cuda.Stream"] = {}
+_LIVE: "weakref.WeakSet" = weakref.WeakSet()   # the graphs capture_graph made, while alive
 
 
 def _side_stream(device: torch.device) -> "torch.cuda.Stream":
@@ -216,6 +226,7 @@ def capture_graph(step: Callable[[], None], device: torch.device, pool):
                   if getattr(fn, attr) != n]
         for fn, attr, n in before:
             setattr(fn, attr, n)
+    _LIVE.add(graph)
     return graph, deltas, time.perf_counter() - t0
 
 
@@ -240,3 +251,17 @@ def pool_bytes(pool) -> int:
     segments = torch.cuda.memory._snapshot()["segments"]
     return sum(s["total_size"] for s in segments
                if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+
+
+def release_workspaces() -> None:
+    """Free PyTorch's cuBLAS workspaces (module docstring), so that
+    ``torch.cuda.empty_cache`` can give back the segments they keep; the
+    next product makes its own.  Every graph of :func:`capture_graph` that
+    ran a product replays into its stream's workspace, so this raises while
+    any of them is alive: call it once the pipelines and trainers that hold
+    graphs are dropped."""
+    gc.collect()
+    if len(_LIVE):
+        raise RuntimeError(f"release_workspaces: {len(_LIVE)} captured graphs are alive and "
+                           "hold the cuBLAS workspaces' addresses")
+    torch._C._cuda_clearCublasWorkspaces()

@@ -270,15 +270,21 @@ class LatentDiffusion:
         return (batch * T, h, w, c), (batch,), (batch, T, h, w, c)
 
     def training_draws(self, generator: Optional[torch.Generator], batch: int,
-                       out: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+                       out: Tuple[torch.Tensor, ...],
+                       rows: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, ...]:
         """What a training loss draws from ``generator``, in its order, for a
-        batch of one process, into the buffers ``out`` (shaped as
-        :meth:`training_draw_shapes`; their values are the draws' bits): the
-        posterior's noise, t and the noise."""
+        batch of ``batch`` rows, into the buffers ``out`` (shaped as
+        :meth:`training_draw_shapes` of ``batch``; their values are the draws'
+        bits): the posterior's noise, t and the noise.  ``rows`` (first,
+        total; ``parallel.batch_rows``): the batch is a rank's rows of a
+        global batch, and each draw is those rows of the global batch's, as
+        :meth:`training_loss` with a mesh draws them."""
         eps_shape, t_shape, noise_shape = self.training_draw_shapes(batch)
-        eps = randn_rows(eps_shape, generator, self.device, torch.float32)
-        t = randint_rows(self.num_timesteps, t_shape[0], generator, self.device)
-        noise = randn_rows(noise_shape, generator, self.device, torch.float32)
+        T = self.latent_shape[0]
+        eps = randn_rows(eps_shape, generator, self.device, torch.float32,
+                         None if rows is None else (rows[0] * T, rows[1] * T))
+        t = randint_rows(self.num_timesteps, t_shape[0], generator, self.device, rows)
+        noise = randn_rows(noise_shape, generator, self.device, torch.float32, rows)
         for buf, v in zip(out, (eps, t, noise)):
             buf.copy_(v)
         return out
@@ -307,7 +313,7 @@ class LatentDiffusion:
         dropout masks) is this rank's rows of the global batch's, as the JAX
         step draws them for the whole batch; ``generator`` must be in the same
         state on every rank.  ``draws``: :meth:`training_draws`' three tensors
-        (one process), drawn before; then nothing is drawn here."""
+        (on a mesh the rank's rows), drawn before; then nothing is drawn here."""
         rows = batch_rows(x.shape[0], mesh)
         z = self.encode_first_stage(x.to(self.device, torch.float32), generator,
                                     sample_posterior=True, rows=rows,

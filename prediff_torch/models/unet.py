@@ -36,7 +36,9 @@ for its training steps): in training mode with autograd recording, each
 segment whose activations the backward recomputes; a segment replays its
 dropout sites from the stream's site at its entry (``DropoutStream.fork``), so
 the recompute draws the masks the forward drew and the gradients keep their
-bits.  The forecast path never sets it.
+bits; in a captured micro-step (``training/step_graphs.py``) the recompute
+runs inside the captured backward, on the graph's pool, from the same sites.
+The forecast path never sets it.
 
 ``attention_kernels``, ``ffn_kernel`` and ``gn_kernel`` are the
 configuration's ``use_pallas_attention`` / ``use_pallas_ffn`` /

@@ -10,7 +10,9 @@ the mesh's first rank, :func:`gather_batch` all-gathers axis 0 (the
 counterpart of reading a global ``jax.Array`` whole) and :func:`all_reduce_sum`
 sums a tensor over the ranks.  Training adds :func:`all_reduce_mean` (the
 gradients' mean over the ranks, every tensor of a list in one flat bucket:
-one collective, one host round trip on gloo, not one a parameter),
+one collective, one host round trip on gloo, not one a parameter, on
+:func:`all_reduce_sum_`, which sums a flat buffer's parts in place),
+:func:`reduce_loss_dict` (a loss dict's means over the ranks),
 :func:`all_reduce_sum_grad` (a sum autograd differentiates: the backward is
 the sum of the ranks' cotangents, for the discriminator's batch statistics),
 :func:`replicate_` (tensors set in place to the first rank's, one bucket) and
@@ -25,14 +27,17 @@ exists (``diffusion/latent_diffusion.py`` runs one before its first capture).
 
 The JAX module's ``replicated_sharding``, ``batch_sharding`` and
 ``chunk_sharding`` are XLA placement objects; their uses take the functions
-above.  ``chunk_sharding`` served ``steps_per_call`` across a mesh; the port
-runs ``steps_per_call`` on one process (``DiffusionTrainer.train_step_scan``
-refuses a mesh for more than one micro-step a call).
+above.  ``chunk_sharding`` (a (K, B, ...) chunk of ``steps_per_call``
+micro-batches split on its second axis) is each rank stacking its own
+(K, B_local, ...) chunk: ``DiffusionTrainer.train_step_scan`` on a mesh
+reduces every micro-step's gradients as the eager step does, inside the
+captured micro-step on NCCL, between its two graphs through the host on
+gloo (``training/step_graphs.py``).
 """
 import datetime
 import os
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -257,23 +262,61 @@ def replicate(tree, mesh: DataMesh):
 def all_reduce_sum(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     """A new tensor, the sum of ``t`` over the mesh's ranks: the same bits on
     every rank.  Not differentiable: callers write their chain rule out."""
-    if not mesh.distributed:
-        return t.clone()
-    buf = t.cpu() if _via_host(t, mesh) else t.clone()
-    dist.all_reduce(buf, group=mesh.group)
-    return buf.to(t.device)
+    out = t.clone()
+    all_reduce_sum_(out, mesh)
+    return out
+
+
+# every tensor of a bucket starts on a multiple of 4 elements (16 bytes): the
+# multi-tensor kernels (``torch._foreach_norm``, the fused optimizer) then take
+# their aligned path on its views, and sum as they do on separate tensors
+BUCKET_ALIGN = 4
+
+
+def bucket_sizes(like: Sequence) -> list:
+    """The elements each of ``like`` (tensors or shapes) takes in a bucket:
+    its own, padded to ``BUCKET_ALIGN``."""
+    return [-(-int(t.numel()) // BUCKET_ALIGN) * BUCKET_ALIGN for t in like]
+
+
+def bucket_views(flat: torch.Tensor, like: Sequence) -> list:
+    """Views of the bucket ``flat`` shaped as ``like`` (tensors or shapes)."""
+    shapes = [t if isinstance(t, torch.Size) else t.shape for t in like]
+    return [part[:s.numel()].view(s) for part, s in zip(flat.split(bucket_sizes(like)), shapes)]
 
 
 def _bucket(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1:
         raise ValueError(f"one bucket takes one dtype, got {sorted(map(str, dtypes))}")
-    return torch.cat([t.reshape(-1) for t in tensors])
+    flat = torch.zeros(sum(bucket_sizes(tensors)), dtype=tensors[0].dtype,
+                       device=tensors[0].device)
+    torch._foreach_copy_(bucket_views(flat, tensors), [t.detach() for t in tensors])
+    return flat
 
 
-def _unbucket(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> list:
-    return [part.view(t.shape) for part, t in
-            zip(torch.split(flat, [t.numel() for t in like]), like)]
+def all_reduce_sum_(flat: torch.Tensor, mesh: Optional[DataMesh], parts: Sequence[int] = (),
+                    host: Optional[torch.Tensor] = None) -> None:
+    """In place: each consecutive part of the 1-D ``flat`` (of sizes
+    ``parts``; none: the whole tensor, of any shape) the sum of its
+    counterparts over the mesh's ranks, one collective a part, so each part
+    holds the bits that a reduction of it alone gives.  On gloo a CUDA
+    ``flat`` goes through the host in one copy each way (into ``host``, a
+    buffer of its size and dtype there, pinned so that the copy back does
+    not block the host; else a new one).  Nothing without a mesh or its
+    group."""
+    if mesh is None or not mesh.distributed:
+        return
+    via = _via_host(flat, mesh)
+    if via and host is not None:
+        host.copy_(flat)
+        buf = host
+    else:
+        buf = flat.cpu() if via else flat
+    for part in (buf.split(list(parts)) if parts else (buf,)):
+        dist.all_reduce(part, group=mesh.group)
+    if via:
+        flat.copy_(buf, non_blocking=host is not None)
 
 
 def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: Optional[DataMesh]) -> list:
@@ -284,7 +327,18 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: Optional[DataMesh]) -
     tensors = list(tensors)
     if not tensors or mesh is None or not mesh.distributed:
         return tensors
-    return _unbucket(all_reduce_sum(_bucket(tensors), mesh).div_(mesh.size), tensors)
+    flat = _bucket(tensors)
+    all_reduce_sum_(flat, mesh)
+    return bucket_views(flat.div_(mesh.size), tensors)
+
+
+def reduce_loss_dict(loss_dict: Dict[str, torch.Tensor],
+                     mesh: Optional[DataMesh]) -> Dict[str, torch.Tensor]:
+    """The 0-dim losses, detached, as their means over the mesh's ranks (one
+    bucket): with equal shards the global batch's means."""
+    names = list(loss_dict)
+    values = all_reduce_mean([loss_dict[k].detach() for k in names], mesh)
+    return dict(zip(names, values))
 
 
 def replicate_(tensors: Sequence[torch.Tensor], mesh: Optional[DataMesh]) -> None:
@@ -300,7 +354,7 @@ def replicate_(tensors: Sequence[torch.Tensor], mesh: Optional[DataMesh]) -> Non
             flat = _bucket(group)
             buf = flat.cpu() if _via_host(flat, mesh) else flat
             dist.broadcast(buf, src=mesh.ranks[0], group=mesh.group)
-            for t, part in zip(group, _unbucket(buf.to(flat.device), group)):
+            for t, part in zip(group, bucket_views(buf.to(flat.device), group)):
                 t.copy_(part)
 
 

@@ -40,18 +40,18 @@ moments (``build_optimizer``).
 K micro-steps per call (the JAX trainer's ``make_train_step_scan``, a
 ``lax.scan`` of the step body; ``fit(steps_per_call=K)``):
 :meth:`DiffusionTrainer.train_step_scan` takes (K, B, ...) stacks of
-micro-batches and returns the state and the loss dicts stacked (K,), equal
-to K calls of :meth:`~DiffusionTrainer.train_step`.  On the card the K
-micro-steps are replays of captured CUDA graphs (``step_graphs.py``), with
-no host sync between them: bit for bit K eager micro-steps, and a capture
-that fails raises.  On a CPU device the K micro-steps run the captured
-micro-step's code eagerly.  Refused
-for K > 1 (``NotImplementedError``, ROADMAP.md): a ``mesh`` (gloo's
-all-reduce passes through the host and cannot be captured), ``remat_unet``,
-and a ``state_dtype`` or a narrower ``ema_dtype`` (their updates take host
-numbers).  Refused when asked for, not carried over from the JAX trainer: the
-TPU / XLA layout and RNG knobs ``prng_impl``, ``flat_update``,
-``pack_small_thr``, ``matmul_precision``, ``conv3d_impl``.
+micro-batches (on a mesh this rank's rows, the JAX chunk's ``P(None,
+"data")``) and returns the state and the loss dicts stacked (K,), equal to
+K calls of :meth:`~DiffusionTrainer.train_step`, with everything the single
+step takes: a ``mesh``, ``remat_unet``, a ``state_dtype``, an ``ema_dtype``.
+On the card the K micro-steps are replays of captured CUDA graphs
+(``step_graphs.py``; on NCCL the all-reduce inside the graph, on gloo
+between a micro-step's two graphs, through the host): bit for bit K eager
+micro-steps, and a capture that fails raises.  On a CPU device the K
+micro-steps run the captured micro-step's code eagerly.  Refused when asked
+for, not carried over from the JAX trainer: the TPU / XLA layout and RNG
+knobs ``prng_impl``, ``flat_update``, ``pack_small_thr``,
+``matmul_precision``, ``conv3d_impl``.
 """
 from typing import Dict, Optional, Tuple, Union
 
@@ -60,7 +60,7 @@ import torch
 from torch import nn
 
 from ..diffusion.latent_diffusion import LatentDiffusion
-from ..parallel.mesh import DataMesh, all_reduce_mean
+from ..parallel.mesh import DataMesh, all_reduce_mean, reduce_loss_dict
 from ..utils.convert import torch_key_to_flax_path
 from .optim import build_optimizer, global_norm
 from .step_graphs import ScanGraphs
@@ -103,15 +103,6 @@ def step_dropout_seed(seed: Union[int, torch.Generator], step: int) -> int:
         seed = seed.initial_seed()
     words = np.random.SeedSequence([int(seed) % 2**63, int(step), 1]).generate_state(2, np.uint32)
     return (int(words[0]) << 32) | int(words[1])
-
-
-def reduce_loss_dict(loss_dict: Dict[str, torch.Tensor],
-                     mesh: Optional[DataMesh]) -> Dict[str, torch.Tensor]:
-    """The 0-dim losses, detached, as their means over the mesh's ranks (one
-    bucket): with equal shards the global batch's means."""
-    names = list(loss_dict)
-    values = all_reduce_mean([loss_dict[k].detach() for k in names], mesh)
-    return dict(zip(names, values))
 
 
 class DiffusionTrainer:
@@ -164,10 +155,10 @@ class DiffusionTrainer:
     def _logvar(self, state: EmaTrainState) -> torch.Tensor:
         return state.params["logvar"] if "logvar" in state.params else self.ld.init_logvar()
 
-    def _micro_grads(self, state: EmaTrainState, generator, x, y, dropout_seed, draws=None,
-                     reduce: bool = True):
-        """Loss and gradients of one micro-step whose draws come from
-        ``generator`` (or ``draws``) and masks from ``dropout_seed``."""
+    def _local_grads(self, state: EmaTrainState, generator, x, y, dropout_seed, draws=None):
+        """Loss dict and gradients of one micro-step on this rank's rows,
+        its draws from ``generator`` (or ``draws``), its masks from
+        ``dropout_seed``."""
         self.ld.unet.train()
         self.ld.unet.remat = self.remat_unet
         try:
@@ -175,9 +166,10 @@ class DiffusionTrainer:
                                          dropout_seed=dropout_seed, draws=draws)
         finally:
             self.ld.unet.remat = False
-        grads = param_grads(loss, list(state.params.values()))
-        mesh = self.mesh if reduce else None
-        return all_reduce_mean(grads, mesh), reduce_loss_dict(loss_dict, mesh)
+        # in the parameters' layouts (cuDNN hands a convolution's weight gradient
+        # back channels-last): the norms then sum as they do on a mesh's bucket
+        grads = [g.contiguous() for g in param_grads(loss, list(state.params.values()))]
+        return grads, loss_dict
 
     def grads(self, state: EmaTrainState, seed: Union[int, torch.Generator], x: torch.Tensor,
               y: torch.Tensor, reduce: bool = True):
@@ -186,8 +178,10 @@ class DiffusionTrainer:
         ``state.params``, and the detached losses; on a mesh their means over
         the ranks (``reduce=False``: this rank's own)."""
         generator = step_generator(seed, state.step, self.ld.device)
-        return self._micro_grads(state, generator, x, y, step_dropout_seed(seed, state.step),
-                                 reduce=reduce)
+        grads, loss_dict = self._local_grads(state, generator, x, y,
+                                             step_dropout_seed(seed, state.step))
+        mesh = self.mesh if reduce else None
+        return all_reduce_mean(grads, mesh), reduce_loss_dict(loss_dict, mesh)
 
     def _norms(self, state: EmaTrainState, grads, loss_dict: Dict[str, torch.Tensor]) -> None:
         """``grad_norm`` (and with ``track_grad_norm`` the norm per top-level
@@ -217,36 +211,17 @@ class DiffusionTrainer:
         state.apply_gradients(grads)
         return state, loss_dict
 
-    def _scan_body(self, state: EmaTrainState, b) -> Dict[str, torch.Tensor]:
-        """One micro-step on the static buffers ``b`` (``step_graphs.ScanBuffers``)
-        and the state's device scalars as loaded: what a graph captures."""
-        grads, loss_dict = self._micro_grads(state, None, b.x, b.y, b.seed,
-                                             draws=(b.eps, b.t, b.noise))
+    def _scan_apply(self, state: EmaTrainState, grads, loss_dict) -> Dict[str, torch.Tensor]:
+        """The norms, then the update on the state's device scalars as loaded."""
         self._norms(state, grads, loss_dict)
         state.apply_loaded(grads)
         return loss_dict
 
-    def scan_refusal(self) -> Optional[str]:
-        """Why this trainer refuses more than one micro-step per call, or None."""
-        sdtype = self.optim_config.get("state_dtype")
-        if self.mesh is not None:
-            return "a mesh (its all-reduce passes through the host on gloo)"
-        if self.remat_unet:
-            return "remat_unet"
-        if sdtype is not None:
-            return f"state_dtype={sdtype!r} (its Adam update takes host numbers)"
-        if self.ema_dtype not in (None, "float32"):
-            return f"ema_dtype={self.ema_dtype!r} (its EMA update takes host numbers)"
-        return None
-
-    def check_scan(self, k: int) -> None:
-        """Raise ``NotImplementedError`` for ``k`` > 1 micro-steps per call
-        with what :meth:`scan_refusal` names."""
-        why = self.scan_refusal()
-        if int(k) > 1 and why is not None:
-            raise NotImplementedError(f"more than one micro-step per call (steps_per_call "
-                                      f"{int(k)}) with {why} is not carried over yet "
-                                      "(ROADMAP.md)")
+    def _scan_grads(self, state: EmaTrainState, b):
+        """This rank's gradients and loss dict of one micro-step on the static
+        buffers ``b`` (``step_graphs.ScanBuffers``): what the graphs capture
+        before the reduction over the mesh."""
+        return self._local_grads(state, None, b.x, b.y, b.seed, draws=(b.eps, b.t, b.noise))
 
     def make_train_step_scan(self):
         """The K-micro-steps-per-call function, :meth:`train_step_scan` (its
@@ -261,24 +236,17 @@ class DiffusionTrainer:
         calls of :meth:`train_step` give them: returns the state and each
         loss dict entry stacked (K,).  On the card the micro-steps replay
         captured graphs (module docstring); on a CPU device the same
-        micro-step on the same buffers runs eagerly.  K > 1 with what
-        :meth:`scan_refusal` names raises ``NotImplementedError``; K = 1
-        there is :meth:`train_step`."""
+        micro-step on the same buffers runs eagerly.  On a mesh ``xs`` and
+        ``ys`` are this rank's rows of each micro-batch, as
+        :meth:`train_step` takes them."""
         K = int(xs.shape[0])
         if ys.shape[0] != K:
             raise ValueError(f"train_step_scan: {K} target micro-batches, {ys.shape[0]} contexts")
-        self.check_scan(K)
         device = self.ld.device
-        if self.scan_refusal() is not None:      # one micro-step: the eager step
-            metrics = []
-            for k in range(K):
-                state, m = self.train_step(state, seed, xs[k], ys[k])
-                metrics.append(m)
-            return state, {key: torch.stack([m[key] for m in metrics]) for key in metrics[0]}
         xs, ys = xs.to(device, non_blocking=True), ys.to(device, non_blocking=True)
         if self.scan_graphs is None:
             self.scan_graphs = ScanGraphs(self.ld.training_draws, self.ld.training_draw_shapes,
-                                          device)
+                                          device, self.mesh)
         first = state.step
         seeds = [step_dropout_seed(seed, first + k) for k in range(K)]
         generators = [step_generator(seed, first + k, device) for k in range(K)]
@@ -286,10 +254,10 @@ class DiffusionTrainer:
         def key():
             return ScanGraphs.key(state, [self.ld.unet, self.ld.vae], xs[0], ys[0],
                                   (self.ld.scale_factor, self.latent_inputs,
-                                   self.track_grad_norm))
+                                   self.track_grad_norm, self.remat_unet), self.mesh)
 
-        return state, self.scan_graphs.run(self._scan_body, state, seeds, generators, xs, ys,
-                                           key)
+        return state, self.scan_graphs.run(self._scan_grads, self._scan_apply, state, seeds,
+                                           generators, xs, ys, key)
 
     @torch.no_grad()
     def val_step(self, state: EmaTrainState, seed: Union[int, torch.Generator], x: torch.Tensor,

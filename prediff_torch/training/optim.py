@@ -131,18 +131,31 @@ class AdamStateDtype(torch.optim.Optimizer):
     with ``bc = 1 - b^count``.  Each run of parameters (:func:`chunks`) has
     its moments widened into one f32 buffer (:func:`widened`) and takes a few
     in-place foreach passes, as torch's own multi-tensor Adam orders them
-    (``p (1 - lr wd)``, then ``addcdiv``).  The moments are ``state["exp_avg"]`` /
-    ``state["exp_avg_sq"]``; the update count is the group's ``"step"``.
-    Parameters must be f32 (a trainable model's)."""
+    (``p (1 - lr wd)``, then ``p + (-lr / bc1) mu / (sqrt(nu) / sqrt(bc2) + eps)``).
+
+    What changes from one update to the next, ``1 - lr wd``, ``-lr / bc1``
+    and ``sqrt(bc2)``, is read from 0-dim f32 tensors on the parameters'
+    device (``scalars``, one dict a group), which :meth:`load_scalars` fills
+    from the rate and the update count it is given (the bias corrections in
+    f32, as the JAX package computes them) without a sync; :meth:`step` is
+    the device work on them, so a captured update replays with the values
+    loaded before each replay.  It keeps no count of its own:
+    :class:`Optimizer` loads its ``count`` and writes it into each group's
+    ``"step"`` only for a checkpoint.  The moments are ``state["exp_avg"]`` /
+    ``state["exp_avg_sq"]``.  Parameters must be f32 (a trainable model's)."""
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.0, state_dtype: torch.dtype = torch.bfloat16):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
                                       weight_decay=weight_decay, step=0))
         self.state_dtype = state_dtype
+        self.scalars = []
         for group in self.param_groups:
             if any(p.dtype != torch.float32 for p in group["params"]):
                 raise ValueError("state_dtype: the parameters must be float32")
+            device = group["params"][0].device if group["params"] else None
+            self.scalars.append({k: torch.zeros((), dtype=torch.float32, device=device)
+                                 for k in ("decay", "step_size", "sqrt_bc2")})
 
     def _moments(self, p: torch.Tensor):
         st = self.state[p]
@@ -151,15 +164,30 @@ class AdamStateDtype(torch.optim.Optimizer):
             st["exp_avg_sq"] = torch.zeros_like(p, dtype=self.state_dtype)
         return st["exp_avg"], st["exp_avg_sq"]
 
+    def scalar_tensors(self) -> List[torch.Tensor]:
+        return [t for sc in self.scalars for t in sc.values()]
+
+    @torch.no_grad()
+    def load_scalars(self, lr: float, count: int) -> None:
+        """The numbers of update ``count`` (from 1) at rate ``lr`` into
+        ``scalars`` (``fill_``: a launch with the value as its argument, no
+        sync)."""
+        for group, sc in zip(self.param_groups, self.scalars):
+            group["lr"] = lr
+            b1, b2 = group["betas"]
+            wd = group["weight_decay"]
+            # the bias corrections in f32, as the JAX package computes them
+            n = np.float32(count)
+            bc1, bc2 = (float(np.float32(1.0) - np.float32(b) ** n) for b in (b1, b2))
+            sc["decay"].fill_(1.0 - lr * wd)
+            sc["step_size"].fill_(-lr / bc1)
+            sc["sqrt_bc2"].fill_(math.sqrt(bc2))
+
     @torch.no_grad()
     def step(self, closure=None):
-        for group in self.param_groups:
+        """The update on the loaded ``scalars``: device work only."""
+        for group, sc in zip(self.param_groups, self.scalars):
             b1, b2 = group["betas"]
-            lr, wd = group["lr"], group["weight_decay"]
-            group["step"] += 1
-            # the bias corrections in f32, as the JAX package computes them
-            count = np.float32(group["step"])
-            bc1, bc2 = (float(np.float32(1.0) - np.float32(b) ** count) for b in (b1, b2))
             for chunk in chunks([p for p in group["params"] if p.grad is not None]):
                 grads = [p.grad for p in chunk]
                 m, v = zip(*(self._moments(p) for p in chunk))
@@ -170,11 +198,12 @@ class AdamStateDtype(torch.optim.Optimizer):
                 torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
                 store()                              # only the stores round
                 torch._foreach_sqrt_(nu)             # nu -> the denominator, from unrounded nu
-                torch._foreach_div_(nu, math.sqrt(bc2))
+                torch._foreach_div_(nu, sc["sqrt_bc2"])
                 torch._foreach_add_(nu, group["eps"])
-                if wd:
-                    torch._foreach_mul_(chunk, 1.0 - lr * wd)
-                torch._foreach_addcdiv_(chunk, mu, nu, value=-lr / bc1)
+                if group["weight_decay"]:
+                    torch._foreach_mul_(chunk, sc["decay"])
+                torch._foreach_mul_(mu, sc["step_size"])   # mu -> the step, -lr mu / bc1
+                torch._foreach_addcdiv_(chunk, mu, nu)
 
     def load_state_dict(self, state_dict) -> None:
         super().load_state_dict(state_dict)
@@ -195,7 +224,8 @@ class Optimizer:
     tensors, not as numbers baked into the launches: the learning rate (the
     torch optimizer's ``lr``, a 0-dim tensor, where it is fused or
     capturable: the fused ``AdamW`` reads it and its bias corrections' step
-    count on the card; another one, such as :class:`AdamStateDtype`, takes a
+    count on the card; :class:`AdamStateDtype` reads its own ``scalars``,
+    loaded from the rate and ``count``; the CPU's plain AdamW takes a
     host number at each update) and the divisor of the accumulation's
     running mean.  :meth:`load_scalars` writes them from the host's counters
     (``count``, ``mini_step``) without a sync, and :meth:`apply` runs the
@@ -224,11 +254,13 @@ class Optimizer:
 
     def _use_lr_tensor(self) -> None:
         """A fused or capturable torch optimizer (``build_optimizer``'s on the
-        card) reads ``lr_t``; another one takes the rate as a host number at
-        each update (:meth:`apply`)."""
-        self.lr_on_device = all(g.get("fused") or g.get("capturable")
-                                for g in self.optimizer.param_groups)
-        if self.lr_on_device:
+        card) reads ``lr_t``; :class:`AdamStateDtype` its own loaded scalars;
+        another one takes the rate as a host number at each update
+        (:meth:`apply`)."""
+        self.own_scalars = isinstance(self.optimizer, AdamStateDtype)
+        self.lr_on_device = self.own_scalars or all(g.get("fused") or g.get("capturable")
+                                                    for g in self.optimizer.param_groups)
+        if self.lr_on_device and not self.own_scalars:
             for group in self.optimizer.param_groups:
                 group["lr"] = self.lr_t
 
@@ -241,10 +273,19 @@ class Optimizer:
         """Whether the next micro-gradient moves the parameters."""
         return self.mini_step + 1 >= self.accum_steps
 
+    def scalar_tensors(self) -> List[torch.Tensor]:
+        """The device tensors :meth:`load_scalars` fills."""
+        own = self.optimizer.scalar_tensors() if self.own_scalars else []
+        return [self.lr_t, self.div_t] + own
+
     def load_scalars(self) -> None:
         """The next micro-step's rate and divisor into their device tensors
-        (``fill_``: a launch with the value as its argument, no sync)."""
-        self.lr_t.fill_(self.schedule(self.count))
+        (``fill_``: a launch with the value as its argument, no sync), and
+        :class:`AdamStateDtype`'s numbers of update ``count + 1``."""
+        lr = self.schedule(self.count)
+        self.lr_t.fill_(lr)
+        if self.own_scalars:
+            self.optimizer.load_scalars(lr, self.count + 1)
         if self.accum_steps > 1:
             self.div_t.fill_(float(self.mini_step + 1))
 
@@ -307,6 +348,9 @@ class Optimizer:
         return self.advance()
 
     def state_dict(self) -> Dict:
+        if self.own_scalars:    # its groups' update count, as a torch optimizer saves it
+            for group in self.optimizer.param_groups:
+                group["step"] = self.count
         return {"optimizer": self.optimizer.state_dict(), "count": self.count,
                 "mini_step": self.mini_step, "state_dtype": self.state_dtype,
                 "acc_grads": None if self.acc_grads is None else list(self.acc_grads)}

@@ -47,7 +47,7 @@ class EmaTrainState:
             {k: p.detach().to(dtype or p.dtype, copy=True) for k, p in params.items()}
             if use_ema else None)
         # 1 - the ramped decay of the next EMA move, on the parameters' device
-        # (load_scalars): what a shadow of the parameters' dtypes moves by
+        # (load_scalars): what the shadow moves by
         first = next(iter(params.values()), None)
         self.ema_w = torch.zeros((), dtype=torch.float32,
                                  device=None if first is None else first.device)
@@ -76,6 +76,20 @@ class EmaTrainState:
         on a state of the same make."""
         replicate_(self.tensors(), mesh)
         return self
+
+    def counters(self) -> tuple:
+        """The host's counters a micro-step moves: ``step`` and the
+        optimizer's ``count`` and ``mini_step`` (:meth:`set_counters` puts
+        them back)."""
+        return self.step, self.tx.count, self.tx.mini_step
+
+    def set_counters(self, counters: tuple) -> None:
+        self.step, self.tx.count, self.tx.mini_step = counters
+
+    def scalar_tensors(self) -> list:
+        """The device scalars :meth:`load_scalars` fills: the optimizer's and
+        the EMA's weight."""
+        return self.tx.scalar_tensors() + [self.ema_w]
 
     def load_scalars(self) -> None:
         """The next micro-step's device scalars from the host's counters: the

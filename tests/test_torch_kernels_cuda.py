@@ -1242,6 +1242,110 @@ def test_dropout_kernels_on_a_device_seed_give_the_int_seed_bits(dev, base):
         assert same(fn(*a, *drop, dseed, 3, bases=base), fn(*a, *drop, seed, 3, bases=base))
 
 
+@pytest.mark.parametrize("optin", ["remat", "bf16_state"])
+def test_captured_scan_with_an_optin_gives_the_bits_of_eager_steps(dev, optin):
+    """``train_step_scan`` on the card with ``remat_unet`` (the checkpointed
+    segments recomputed inside the captured backward) or with bf16 Adam
+    moments and EMA shadow (``AdamStateDtype`` and the widened EMA on device
+    scalars), the base_units-128 tiny UNet at depth [1,1], rates 0.1, accum
+    2: two calls of K = 3 against six eager ``train_step`` calls from the same
+    weights, bit for bit; each replay launches what an eager micro-step
+    launches."""
+    import numpy as np
+
+    from prediff_torch.config import load_config, prediff_default_config
+    from prediff_torch.datasets.synthetic import synthetic_batch_iterator
+    from prediff_torch.factory import build_training_pipeline
+    from prediff_torch.training import DiffusionTrainer
+
+    cfg = load_config(prediff_default_config, "configs/tiny_smoke.yaml")
+    cfg.model.latent_model.update(base_units=128, depth=[1, 1], attn_drop=0.1, proj_drop=0.1,
+                                  ffn_drop=0.1)
+    kw = (dict(remat_unet=True) if optin == "remat"
+          else dict(ema_dtype="bfloat16"))
+    optim = dict(lr=1e-3, total_num_steps=10, accum_steps=2,
+                 state_dtype=None if optin == "remat" else "bfloat16")
+    L = cfg.layout
+    it = synthetic_batch_iterator(2, L.in_len + L.out_len, L.img_height, L.img_width, seed=3)
+    b = torch.from_numpy(np.stack([next(it) for _ in range(6)]))
+    xs, ys = b[:, :, L.in_len:].contiguous(), b[:, :, :L.in_len].contiguous()
+    states, metrics, per_micro = [], [], None
+    for scan in (False, True):
+        ld = build_training_pipeline(cfg, device=dev, seed=4)
+        tr = DiffusionTrainer(ld, optim_config=optim, **kw)
+        st = tr.create_state()
+        got = []
+        before = fused_ffn_dropout.launches
+        if scan:
+            for c in range(2):
+                st, m = tr.train_step_scan(st, 9, xs[3 * c:3 * c + 3], ys[3 * c:3 * c + 3])
+                got += [{k: v[i] for k, v in m.items()} for i in range(3)]
+            per = {kind: d.get("fused_ffn_dropout", 0)
+                   for kind, d in tr.scan_graphs.launches_per_replay().items()}
+            assert per == {"accumulate": per_micro, "update": per_micro}
+            assert fused_ffn_dropout.launches - before == 6 * per_micro
+        else:
+            for k in range(6):
+                st, m = tr.train_step(st, 9, xs[k].to(dev), ys[k].to(dev))
+                got.append(m)
+            per_micro = (fused_ffn_dropout.launches - before) // 6
+            assert per_micro > 0
+        states.append(st)
+        metrics.append(got)
+    a, s = states
+    assert a.counters() == s.counters() and (s.step, s.tx.count) == (6, 3)
+    assert any(t.dtype == torch.bfloat16 for t in s.tensors()) == (optin == "bf16_state")
+    assert all(u.dtype == v.dtype and torch.equal(u, v) for u, v in zip(a.tensors(), s.tensors()))
+    assert all(torch.equal(metrics[0][i][k], metrics[1][i][k])
+               for i in range(6) for k in metrics[0][i])
+
+
+def test_a_chain_graph_replays_its_bits_after_a_scan_trainer_is_dropped(dev):
+    """A forecast's captured chain, then a scan trainer that captures its
+    micro-steps and is dropped, the cache given back and refilled: the
+    chain's replays give the bits they gave before and write nothing into
+    the refilled memory.  ``graphs.release_workspaces`` raises while the
+    chain's graphs are alive and frees the cuBLAS workspaces once they are
+    gone."""
+    import gc
+
+    import numpy as np
+
+    from prediff_torch.config import load_config, prediff_default_config
+    from prediff_torch.datasets.synthetic import synthetic_batch_iterator
+    from prediff_torch.diffusion.graphs import release_workspaces
+    from prediff_torch.factory import build_training_pipeline
+    from prediff_torch.training import DiffusionTrainer
+
+    predictor = _graph_predictor(dev)
+    y = torch.rand((1, 3, 32, 32, 1), generator=torch.Generator().manual_seed(2))
+    kw = dict(timesteps=3, use_alignment=True, avg_x_gt=[[0.4]])
+    first = predictor.predict(y, generator=torch.Generator(dev).manual_seed(5), **kw)
+    captures = predictor.ld.graphs.captures
+
+    cfg = load_config(prediff_default_config, "configs/tiny_smoke.yaml")
+    cfg.model.latent_model.update(base_units=128, depth=[1, 1])
+    L = cfg.layout
+    it = synthetic_batch_iterator(2, L.in_len + L.out_len, L.img_height, L.img_width, seed=3)
+    b = torch.from_numpy(np.stack([next(it) for _ in range(2)]))
+    tr = DiffusionTrainer(build_training_pipeline(cfg, device=dev, seed=4),
+                          optim_config=dict(lr=1e-3, total_num_steps=10))
+    st, _ = tr.train_step_scan(tr.create_state(), 9, b[:, :, L.in_len:].contiguous(),
+                               b[:, :, :L.in_len].contiguous())
+    assert tr.scan_graphs.captures == 1
+    del tr, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    junk = torch.full((1 << 28,), float("nan"), device=dev)   # reuses what the trainer freed
+    second = predictor.predict(y, generator=torch.Generator(dev).manual_seed(5), **kw)
+    assert predictor.ld.graphs.captures == captures and torch.equal(first, second)
+    assert torch.isnan(junk).all()          # no replay wrote into memory it had given up
+    with pytest.raises(RuntimeError, match="alive"):
+        release_workspaces()
+    del predictor, junk
+    release_workspaces()
+
+
 def test_captured_scan_gives_the_bits_of_eager_steps(dev):
     """``train_step_scan`` on the card (captured graphs, a base_units-128
     tiny UNet whose FFN and attention layers take the kernels, rates 0.1,

@@ -4,8 +4,9 @@ at rates 0 with the draws injected on both sides, within ``TOL_STEP``
 (Adam's sign flips of gradients that are 0 up to rounding bounded apart);
 against K calls of ``train_step`` at the recipe's rates 0.1, bit for bit
 (the captured micro-step's code, run eagerly: the draws injected from
-buffers, the dropout seed on the device, the train state's device scalars);
-and the refusals."""
+buffers, the dropout seed on the device, the train state's device scalars).
+The opt-ins and the mesh: ``tests/test_torch_scan_optins.py``,
+``tests/test_torch_scan_mesh.py``."""
 import os
 
 import jax
@@ -25,7 +26,6 @@ from prediff_tpu.training.diffusion_trainer import DiffusionTrainer as JaxDiffus
 from prediff_torch.config import load_config, prediff_default_config
 from prediff_torch.datasets.synthetic import synthetic_batch_iterator
 from prediff_torch.factory import build_training_pipeline, build_unet, build_vae
-from prediff_torch.parallel.mesh import make_mesh
 from prediff_torch.training import DiffusionTrainer
 from prediff_torch.utils.convert import flax_params_to_torch, flax_train_tree_to_torch
 
@@ -175,33 +175,3 @@ def test_scan_is_k_train_steps_bit_for_bit(variant):
     assert all(torch.equal(p, q) for p, q in zip(a.tensors(), b.tensors()))
     assert all(torch.equal(a.ema_params[k], b.ema_params[k]) for k in a.ema_params)
     assert len(set(float(v) for v in ma["train/loss"])) == 2 * K   # new draws every micro-step
-
-
-def test_scan_refusals():
-    """More than one micro-step per call with a mesh, remat_unet, a
-    state_dtype or a narrower EMA shadow raises ``NotImplementedError``
-    naming ROADMAP.md, before any step; one micro-step there is the eager
-    ``train_step``, and an f32 ``ema_dtype`` scans."""
-    cfg = load_config(prediff_default_config, TINY)
-    xs, ys = _stacks(cfg, 2, seed=6)
-    for kw in (dict(mesh=make_mesh(device="cpu")), dict(remat_unet=True),
-               dict(ema_dtype="bfloat16"), dict(state_dtype="bfloat16")):
-        sdtype = kw.pop("state_dtype", None)
-        ld = build_training_pipeline(cfg, device="cpu", seed=4)
-        trainer = DiffusionTrainer(ld, optim_config=dict(OPTIM, state_dtype=sdtype), **kw)
-        state = trainer.create_state()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trainer.train_step_scan(state, 0, xs, ys)
-        with pytest.raises(NotImplementedError, match="steps_per_call 2"):
-            trainer.check_scan(2)
-        assert state.step == 0
-        trainer.check_scan(1)
-        state, m = trainer.train_step_scan(state, 0, xs[:1], ys[:1])
-        assert state.step == 1 and tuple(m["train/loss"].shape) == (1,)
-        assert trainer.scan_graphs is None
-    ld = build_training_pipeline(cfg, device="cpu", seed=4)
-    trainer = DiffusionTrainer(ld, optim_config=OPTIM, ema_dtype="float32")
-    state, _ = trainer.train_step_scan(trainer.create_state(), 0, xs, ys)
-    assert state.step == 2 and trainer.scan_graphs is not None
-    with pytest.raises(ValueError):
-        trainer.train_step_scan(state, 0, xs, ys[:1])

@@ -1,11 +1,13 @@
 """The ranks of the multi-rank tests: ``tests/test_torch_parallel_mesh.py``,
-``tests/test_torch_parallel_sampling.py``, ``tests/test_torch_ddp_training.py``
-(gloo on the CPU) and ``tests/test_torch_parallel_cuda.py`` (the card).  The
-tests start them with :func:`run_ranks`; each rank is
+``tests/test_torch_parallel_sampling.py``, ``tests/test_torch_ddp_training.py``,
+``tests/test_torch_scan_mesh.py`` (gloo on the CPU) and
+``tests/test_torch_parallel_cuda.py`` (the card).  The tests start them with
+:func:`run_ranks`; each rank is
 
     python tests/torch_parallel_worker.py TASK RANK WORLD PORT DIR
 
-``TASK`` is ``mesh``, ``sampling``, ``ddp``, ``variants`` or ``cuda``.  The rank joins the group
+``TASK`` is ``mesh``, ``sampling``, ``ddp``, ``variants``, ``scan`` or
+``cuda``.  The rank joins the group
 through ``prediff_torch.parallel.init_distributed`` at ``localhost:PORT``,
 runs the task's checks and leaves its arrays in ``DIR`` for the test to
 compare.  JAX and the JAX package are blocked in it: the port imports
@@ -279,7 +281,7 @@ def fingerprint(tensors) -> str:
 
     h = hashlib.sha1()
     for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        h.update(t.detach().reshape(-1).contiguous().cpu().view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
 
 
@@ -519,6 +521,125 @@ def ddp_task(rank: int, world: int, port: int, out: str) -> None:
     np.savez(os.path.join(out, f"ddp{rank}.npz"), **res)
 
 
+# ---------------------------------------------------------------- scan ---- #
+def scan_task(rank: int, world: int, port: int, out: str) -> None:
+    """Two gloo ranks of ``DiffusionTrainer.train_step_scan`` on a mesh, each
+    its rows of a global batch of 4: one call of K micro-steps against K
+    eager ``train_step`` calls on the mesh, at the recipe's rates 0.1, alone
+    and with ``remat_unet``, bf16 moments and a bf16 shadow; at rates 0 with
+    the global batch's draws injected (the rank's rows), for the JAX scan in
+    the test; the program's ``--multihost`` with ``steps_per_call`` 2 and 1."""
+    import torch.distributed as dist
+    import yaml
+
+    import prediff_torch.diffusion.latent_diffusion as tld
+    from prediff_torch.cli import train_sevirlr_prediff as tp
+    from prediff_torch.config import load_config, prediff_default_config
+    from prediff_torch.factory import build_training_pipeline
+    from prediff_torch.parallel import make_mesh
+    from prediff_torch.training import DiffusionTrainer
+
+    join(rank, world, port)
+    mesh = make_mesh()
+    inputs = dict(np.load(os.path.join(out, "inputs.npz")))
+    weights = torch.load(os.path.join(out, "weights.pt"))
+    spec = json.load(open(os.path.join(out, "spec.json")))
+    B, K = 4, spec["k"]
+    rows = slice(rank * B // world, (rank + 1) * B // world)
+    xs, ys = (torch.from_numpy(inputs[k])[:, rows] for k in ("train_x", "train_y"))
+    res = {"rows": np.array([rows.start, rows.stop])}
+
+    def trainer(cfg, params=None, optins=False, track=True):
+        kw = dict(spec["optins"]) if optins else {}
+        sdtype = kw.pop("state_dtype", None)
+        ld = build_training_pipeline(cfg, device="cpu", params=params, seed=4)
+        return DiffusionTrainer(ld, optim_config=dict(spec["optim"], state_dtype=sdtype),
+                                mesh=mesh, track_grad_norm=track, **kw)
+
+    # ---- the scan against K eager mesh micro-steps, rates 0.1
+    cfg = load_config(prediff_default_config, TINY)
+    cfg.model.latent_model.update(spec["rates"])
+    for name, optins in (("plain", False), ("optins", True)):
+        eager, scan = trainer(cfg, optins=optins), trainer(cfg, optins=optins)
+        a, b = eager.create_state(), scan.create_state()
+        want = []
+        for k in range(K):
+            a, m = eager.train_step(a, 9, xs[k], ys[k])
+            want.append(m)
+        b, got = scan.train_step_scan(b, 9, xs, ys)
+        res[f"{name}_split"] = np.array(scan.scan_graphs.split)
+        res[f"{name}_equal"] = np.array(
+            a.counters() == b.counters()
+            and all(torch.equal(torch.stack([m[k] for m in want]), got[k]) for k in got)
+            and all(p.dtype == q.dtype and torch.equal(p, q)
+                    for p, q in zip(a.tensors(), b.tensors())))
+        res[f"{name}_print"] = np.array(fingerprint(b.tensors()))
+        res[f"{name}_loss"] = got["train/loss"].numpy()
+        res[f"{name}_dtypes"] = np.array(sorted({str(t.dtype) for t in b.tensors()}))
+
+    # ---- rates 0, the global batch's draws injected: this rank's rows of them
+    real_draws = tld.LatentDiffusion.training_draws
+
+    def injected(self, generator, batch, out_, rows=None):
+        first, T = rows[0], self.latent_shape[0]
+        got = (inputs["eps"][first * T:(first + batch) * T], inputs["t"][first:first + batch],
+               inputs["noise"][first:first + batch])
+        for buf, v in zip(out_, got):
+            buf.copy_(torch.from_numpy(v))
+        return out_
+
+    tld.LatentDiffusion.training_draws = injected
+    try:
+        cfg0 = load_config(prediff_default_config, TINY)
+        tr = trainer(cfg0, params=weights, track=False)
+        state, mets = tr.train_step_scan(tr.create_state(), 0, xs, ys)
+    finally:
+        tld.LatentDiffusion.training_draws = real_draws
+    for k, v in mets.items():
+        res[f"jax_met/{k}"] = v.numpy()
+    for k, p in state.params.items():
+        res[f"jax_param/{k}"] = p.detach().numpy()
+        res[f"jax_ema/{k}"] = state.ema_params[k].numpy()
+    res["jax_counters"] = np.array(state.counters()[:3])
+
+    # ---- the program: --multihost with steps_per_call 2 against 1
+    with open(TINY) as f:
+        tree = yaml.safe_load(f)
+    tree["model"]["latent_model"].update(spec["rates"])
+    seen = {}
+    real_step, real_scan = DiffusionTrainer.train_step, DiffusionTrainer.train_step_scan
+
+    def spy_step(self, state, seed, x, y):
+        seen.setdefault(1, []).append(x.clone())
+        return real_step(self, state, seed, x, y)
+
+    def spy_scan(self, state, seed, xs_, ys_):
+        seen.setdefault(2, []).append(xs_.clone())
+        return real_scan(self, state, seed, xs_, ys_)
+
+    DiffusionTrainer.train_step, DiffusionTrainer.train_step_scan = spy_step, spy_scan
+    try:
+        for k in (1, 2):
+            tree.setdefault("optim", {})["steps_per_call"] = k
+            path = os.path.join(out, f"k{k}.yaml")
+            if rank == 0:
+                with open(path, "w") as f:
+                    yaml.safe_dump(tree, f)
+            dist.barrier()
+            save = os.path.join(out, f"cli{k}")
+            assert tp.main(["--save", save, "--cfg", path, "--synthetic", "--max-steps", "4",
+                            "--device", "cpu", "--multihost"]) == 0
+            dist.barrier()
+            st = torch.load(os.path.join(save, "ckpt_last", "step_4.pt"), weights_only=True)
+            res[f"cli{k}_print"] = np.array(fingerprint(
+                list(st["params"].values()) + list(st["ema_params"].values())))
+    finally:
+        DiffusionTrainer.train_step, DiffusionTrainer.train_step_scan = real_step, real_scan
+    res["cli1_batches"] = torch.stack(seen[1]).numpy()
+    res["cli2_chunks"] = torch.stack(seen[2]).numpy()
+    np.savez(os.path.join(out, f"scan{rank}.npz"), **res)
+
+
 # ---------------------------------------------------------------- cuda ---- #
 def variants_task(rank: int, world: int, port: int, out: str) -> None:
     """Two gloo ranks of a DDP step of a UNet with global vectors (and the
@@ -645,7 +766,7 @@ def main() -> int:
     task, rank, world, port, out = sys.argv[1:6]
     torch.set_num_threads(1)
     tasks = {"mesh": mesh_task, "sampling": sampling_task, "ddp": ddp_task,
-             "variants": variants_task, "cuda": cuda_task}
+             "variants": variants_task, "scan": scan_task, "cuda": cuda_task}
     tasks[task](int(rank), int(world), int(port), out)
     import torch.distributed as dist
 
